@@ -1,0 +1,290 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each ending in torch.cuda.synchronize(); any failure raises and the
+script exits non-zero without printing a result:
+
+0. device: a CUDA device must exist; print nvidia-smi's name and power
+   limit, and the torch, CUDA and nvcc versions.
+1. build the hand-written kernels (csrc/*.cu, nvcc for sm_90a).
+2. kernel against plain version, on the card: B1-B4 for every registered
+   parameter set plus n = 8192 on the qtesla-iii-speed prime, B in
+   {1, 3, 64}, random and all-(q-1) operands, bit for bit (tolerance 0:
+   every value is an exact residue), and intt(ntt(x)) == x.
+3. main path at qtesla-iii-speed, B = 32768: polymul_negacyclic(algo=
+   "fused"), the fixed-operand pair of polymul_fixed_fn(..., "fused") and
+   the inverse transform, with every launch count reset just before and read
+   just after; the outputs must equal the plain version on the card, and 8
+   rows the big-int oracle.
+4. timing at B = 32768: each kernel and its plain version, CUDA events,
+   3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
+   plain.
+
+It prints a JSON line of the kernels, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from qtesla_tpu_torch import (available_param_sets, get_params,
+                              polymul_negacyclic_oracle, register_param_set)
+from qtesla_tpu_torch.models import intt, polymul_fixed_fn, polymul_negacyclic
+from qtesla_tpu_torch.ops import ntt_fused as F
+from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.utils.build import find_nvcc, load_library
+from qtesla_tpu_torch.utils.timing import time_cuda
+
+MAIN_SET = "qtesla-iii-speed"
+MAIN_BATCH = 32768
+SMALL_BATCHES = (1, 3, 64)
+# n = 8192 on the qtesla-iii-speed prime: B1 then needs 64 KB of shared
+# memory per block, the opt-in path above 48 KB
+WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
+SEED = 20261016
+ORACLE_ROWS = (0, 1, 2, 3, MAIN_BATCH - 4, MAIN_BATCH - 3, MAIN_BATCH - 2,
+               MAIN_BATCH - 1)
+
+
+def phase(title: str):
+    print(f"== {title}", flush=True)
+
+
+def done():
+    torch.cuda.synchronize()
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def expect_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    err = max_err(got, want)
+    if err != 0:
+        bad = (got.to(torch.int64) != want.to(torch.int64)).nonzero()[0]
+        bad = bad.tolist()
+        raise AssertionError(f"{what}: max |kernel - plain| = {err}, first "
+                             f"difference at {bad}")
+    return err
+
+
+def expect_canonical(what: str, z: torch.Tensor, shape, q: int) -> None:
+    if tuple(z.shape) != tuple(shape) or z.dtype != torch.uint32:
+        raise AssertionError(f"{what}: got {tuple(z.shape)} {z.dtype}")
+    if int(z.to(torch.int64).max()) >= q:
+        raise AssertionError(f"{what}: value >= q={q}")
+
+
+def kernels_against_plain(errors: dict) -> None:
+    dev = torch.device("cuda")
+    register_param_set(*WIDE_SET)
+    for name in available_param_sets():
+        tbl = get_tables(name)
+        q, n = tbl.q, tbl.n
+        rng = np.random.default_rng(SEED)
+        for B in SMALL_BATCHES:
+            for kind in ("random", "worst"):
+                if kind == "random":
+                    xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+                    lazy = rng.integers(0, 2 * q, (B, n), dtype=np.uint32)
+                else:
+                    xs = np.full((2, B, n), q - 1, dtype=np.uint32)
+                    lazy = np.full((B, n), 2 * q - 1, dtype=np.uint32)
+                x, y = (torch.from_numpy(v).to(dev) for v in xs)
+                lazy = torch.from_numpy(lazy).to(dev)
+                tag = f"{name} B={B} {kind}"
+                spec = F.ntt_plain(y[:1], tbl)
+                cases = (
+                    ("polymul_fused", F.polymul_fused(x, y, tbl),
+                     F.polymul_plain(x, y, tbl)),
+                    ("polymul_fixed_fused", F.polymul_fixed_fused(x, spec, tbl),
+                     F.polymul_fixed_plain(x, spec, tbl)),
+                    ("ntt_fused", F.ntt_fused(x, tbl), F.ntt_plain(x, tbl)),
+                    ("intt_fused", F.intt_fused(lazy, tbl),
+                     F.intt_plain(lazy, tbl)),
+                )
+                for kname, got, want in cases:
+                    errors[kname] = max(errors[kname],
+                                        expect_equal(f"{kname} {tag}", got,
+                                                     want))
+                back = F.intt_fused(F.ntt_fused(x, tbl), tbl)
+                expect_equal(f"intt(ntt(x)) {tag}", back, x)
+        print(f"{name} (n={n}, q={q}): B1-B4 equal to plain for B in "
+              f"{SMALL_BATCHES}, random and worst-case; intt(ntt(x)) == x",
+              flush=True)
+    done()
+
+
+def main_path(errors: dict, seed: int) -> dict:
+    ps = get_params(MAIN_SET)
+    tbl = get_tables(MAIN_SET)
+    n, q, B = ps.n, ps.q, MAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    print(f"operands: torch.Generator(device='cuda') seed {seed}")
+
+    def draw(rows):
+        return torch.randint(0, q, (rows, n), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.uint32)
+
+    x, y, a = draw(B), draw(B), draw(1)
+    done()
+
+    for k in F.KERNELS.values():
+        k.launches = 0
+    z = polymul_negacyclic(x, y, MAIN_SET, algo="fused")
+    prep, mul = polymul_fixed_fn(MAIN_SET, "fused")
+    A = prep(a)
+    zf = mul(x, A)
+    a_back = intt(A, MAIN_SET, "fused")
+    done()
+    launches = {name: k.launches for name, k in F.KERNELS.items()}
+    print(f"launches in the main-path run: {launches}")
+    expected = {"polymul_fused": 1, "polymul_fixed_fused": 1, "ntt_fused": 1,
+                "intt_fused": 1}
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+
+    expect_canonical("z", z, (B, n), q)
+    expect_canonical("zf", zf, (B, n), q)
+    errors["polymul_fused"] = max(
+        errors["polymul_fused"],
+        expect_equal("main path z", z, F.polymul_plain(x, y, tbl)))
+    errors["ntt_fused"] = max(errors["ntt_fused"],
+                              expect_equal("spectrum", A, F.ntt_plain(a, tbl)))
+    errors["polymul_fixed_fused"] = max(
+        errors["polymul_fixed_fused"],
+        expect_equal("fixed path", zf,
+                     F.polymul_plain(x, a.expand(B, n).contiguous(), tbl)))
+    errors["intt_fused"] = max(errors["intt_fused"],
+                               expect_equal("intt(ntt(a))", a_back, a))
+    done()
+    print(f"main path: z and the fixed-operand product ({B} x {n}) equal the "
+          f"plain version on the card")
+
+    zc, xc, yc = (np.concatenate([t[:4].cpu().numpy(), t[-4:].cpu().numpy()])
+                  for t in (z, x, y))
+    for i, row in enumerate(ORACLE_ROWS):
+        want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(np.uint32)
+        if not np.array_equal(zc[i], want):
+            raise AssertionError(f"row {row} differs from the big-int oracle")
+    print(f"main path: rows {ORACLE_ROWS} equal the big-int oracle")
+    return launches
+
+
+def timing(device_line: str) -> dict:
+    tbl = get_tables(MAIN_SET)
+    n, q, B = tbl.n, tbl.q, MAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint32) for _ in range(2))
+    spec = F.ntt_fused(y[:1], tbl)
+    runs = {
+        "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
+        "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
+                                (x, spec, tbl)),
+        "ntt_fused": (F.ntt_fused, F.ntt_plain, (x, tbl)),
+        "intt_fused": (F.intt_fused, F.intt_plain, (x, tbl)),
+    }
+    out = {}
+    for name, (kern, plain, args) in runs.items():
+        counter = F.KERNELS[name]
+        before = counter.launches
+        samples = {"kernel": [], "plain": []}
+        calls = 0
+        for which in ("plain", "kernel", "kernel", "plain"):
+            t = time_cuda(kern if which == "kernel" else plain, *args,
+                          warmup=3, repeats=20)
+            samples[which].extend(t.samples_ms)
+            if which == "kernel":
+                calls += t.calls + t.warmup
+        if counter.launches - before != calls:
+            raise AssertionError(f"{name}: {counter.launches - before} "
+                                 f"launches for {calls} calls")
+        res = {}
+        for which, s in samples.items():
+            med = float(np.median(s))
+            res[which] = (min(s), med)
+            print(f"timing {name} {which}: B={B} n={n} min {min(s):.4f} ms "
+                  f"median {med:.4f} ms over {len(s)} calls, "
+                  f"{B / (med / 1e3):.0f} rows/s [{device_line}]", flush=True)
+        out[name] = res
+    done()
+    return out
+
+
+def main() -> int:
+    phase("0 device")
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    device_line = smi()
+    nvcc = find_nvcc()
+    nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                  text=True, check=True).stdout.strip()
+    print(f"nvidia-smi: {device_line}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"torch CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    print(f"nvcc: {nvcc_version.splitlines()[-1]}")
+    done()
+
+    phase("1 build")
+    start = time.perf_counter()
+    lib = load_library()
+    print(f"built {lib.path.name} in {lib.build_seconds:.1f} s (nvcc), "
+          f"{time.perf_counter() - start:.1f} s with loading")
+    for line in lib.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  " + line.strip())
+    done()
+
+    phase("2 kernels against plain, on the card")
+    errors = {name: 0 for name in F.KERNELS}
+    kernels_against_plain(errors)
+
+    phase("3 main path at full size")
+    launches = main_path(errors, SEED)
+
+    phase("4 timing")
+    times = timing(device_line)
+
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    kernels = [{
+        "name": name, "route": "cuda", "source": F.CUDA_SOURCE,
+        "replaces": k.replaces, "launches": launches[name],
+        "max_abs_err": errors[name], "ms": times[name]["kernel"][1],
+        "plain_ms": times[name]["plain"][1],
+    } for name, k in F.KERNELS.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(device_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""CUDA-event timing of a callable on the card.
+
+``time_cuda(fn, *args)`` runs ``warmup`` untimed calls, then ``repeats``
+calls each bracketed by a pair of CUDA events on the current stream, and
+reports the min and median per-call time over the calls it actually ran.
+It refuses to time anything but a CUDA device: a time measured on the CPU is
+never reported under a device metric's name.
+"""
+
+from __future__ import annotations
+
+import statistics
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+__all__ = ["Timing", "time_cuda"]
+
+
+@dataclass(frozen=True)
+class Timing:
+    min_ms: float
+    median_ms: float
+    calls: int                 # timed calls actually run (warmup excluded)
+    warmup: int
+    samples_ms: tuple[float, ...]
+
+
+def time_cuda(fn: Callable, *args, warmup: int = 3,
+              repeats: int = 20) -> Timing:
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_cuda needs a CUDA device")
+    if repeats < 1:
+        raise ValueError("repeats must be >= 1")
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    samples = tuple(s.elapsed_time(e) for s, e in pairs)
+    return Timing(min(samples), statistics.median(samples), len(samples),
+                  warmup, samples)

@@ -1,0 +1,207 @@
+"""Contract of the port's device dispatch and kernel wrappers.
+
+- ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
+- The wrappers raise on a wrong dtype, a wrong n, a non-contiguous tensor, an
+  unsupported device and an unsupported algo; nothing is built at import and
+  a missing nvcc raises instead of falling back.
+- CPU tensors run the plain versions: no kernel's launch count moves.
+- Tests marked ``cuda`` compare each kernel with its plain version on the
+  card; without one they skip.  On a GPU host run them with
+  ``python -m pytest tests/test_torch_device.py -m cuda --noconftest -q``
+  (``--noconftest`` because tests/conftest.py imports jax).
+
+This file imports no jax.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qtesla_tpu_torch import register_param_set
+from qtesla_tpu_torch.models import polymul as TP
+from qtesla_tpu_torch.ops import ntt_fused as F
+from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.utils import build
+
+REPO = Path(__file__).resolve().parent.parent
+SETS = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
+        "qtesla-p-iii"]
+# n = 8192: B1 needs 64 KB of shared memory per block (opt-in above 48 KB)
+WIDE = ("qtesla-iii-speed-n8192", 8192, 8404993)
+
+_CPU_SLICE = """
+import sys
+import numpy as np, torch
+from qtesla_tpu_torch import get_params, polymul_negacyclic_oracle
+from qtesla_tpu_torch.models import (NegacyclicPolymul, intt, ntt,
+                                     polymul_fixed_fn, polymul_negacyclic)
+ps = get_params("smallprime")
+rng = np.random.default_rng(0)
+x, y = (torch.from_numpy(rng.integers(0, ps.q, (3, ps.n), dtype=np.uint32))
+        for _ in range(2))
+z = polymul_negacyclic(x, y, ps, algo="fused")
+assert (z == polymul_negacyclic(x, y, ps)).all()
+assert (z == NegacyclicPolymul(ps)(x, y, "fused")).all()
+want = polymul_negacyclic_oracle(x[0].numpy(), y[0].numpy(), ps)
+assert (z[0].numpy() == want.astype(np.uint32)).all()
+assert (intt(ntt(x, ps, "fused"), ps, "fused") == x).all()
+prep, mul = polymul_fixed_fn(ps.name, "fused")
+mul(x, prep(y[:1]))
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok")
+"""
+
+
+def test_cpu_slice_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _CPU_SLICE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _u32(rows, n, seed=0, q=65537):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, q, (rows, n), dtype=np.uint32))
+
+
+def test_wrappers_reject_bad_input():
+    tbl = get_tables("smallprime")
+    n = tbl.n
+    x = _u32(2, n)
+    with pytest.raises(TypeError, match="uint32"):
+        F.polymul_fused(x.to(torch.int64), x, tbl)
+    with pytest.raises(TypeError, match="uint32"):
+        F.ntt_fused(x.to(torch.int32), tbl)
+    with pytest.raises(ValueError, match="n=32"):
+        F.intt_fused(_u32(2, 2 * n), tbl)
+    with pytest.raises(ValueError, match="n=32"):
+        TP.polymul_negacyclic(_u32(2, 16), _u32(2, 16), "smallprime",
+                              algo="fused")
+    with pytest.raises(ValueError, match="contiguous"):
+        F.polymul_fused(_u32(2, 2 * n)[:, ::2], x, tbl)
+    with pytest.raises(ValueError, match="shapes differ"):
+        F.polymul_fused(x, _u32(3, n), tbl)
+    with pytest.raises(ValueError, match="spectrum"):
+        F.polymul_fixed_fused(x, _u32(2, n), tbl)
+    meta = torch.empty((2, n), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        F.polymul_fused(meta, meta, tbl)
+    with pytest.raises(ValueError, match="twiddles"):
+        F.ntt_fused(x, tbl, tw=torch.zeros((4, n), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("algo", ["mxu", "mxu-folded", "stockham", "gs_ct",
+                                  "four_step", "nussbaumer", "ct_gs_kernel"])
+def test_unported_algos_raise_not_implemented(algo):
+    x = _u32(1, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TP.polymul_negacyclic(x, x, "smallprime", algo=algo)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TP.polymul_fn("smallprime", algo)
+    with pytest.raises(ValueError, match="unknown algo"):
+        TP.polymul_fn("smallprime", algo + "-nope")
+    if algo in ("mxu", "mxu-folded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TP.polymul_fixed_fn("smallprime", algo)
+    if algo in ("mxu", "stockham"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TP.ntt(x, "smallprime", algo)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TP.intt(x, "smallprime", algo)
+
+
+def test_empty_and_unbatched_inputs():
+    """B = 0 and a bare (n,) row keep their shapes."""
+    tbl = get_tables("smallprime")
+    n = tbl.n
+    empty = torch.empty((0, n), dtype=torch.uint32)
+    assert tuple(F.polymul_fused(empty, empty, tbl).shape) == (0, n)
+    assert tuple(F.intt_fused(F.ntt_fused(empty, tbl), tbl).shape) == (0, n)
+    x, y = _u32(2, n, 3), _u32(2, n, 4)
+    np.testing.assert_array_equal(F.polymul_fused(x[0], y[0], tbl).numpy(),
+                                  F.polymul_fused(x, y, tbl)[0].numpy())
+
+
+def test_cpu_runs_launch_no_kernel():
+    assert set(F.KERNELS) == {"polymul_fused", "polymul_fixed_fused",
+                              "ntt_fused", "intt_fused"}
+    for k in F.KERNELS.values():
+        k.launches = 0
+    tbl = get_tables("smallprime")
+    x, y = _u32(3, tbl.n, 1), _u32(3, tbl.n, 2)
+    F.polymul_fused(x, y, tbl)
+    F.polymul_fixed_fused(x, F.ntt_fused(y[:1], tbl), tbl)
+    F.intt_fused(F.ntt_fused(x, tbl), tbl)
+    TP.NegacyclicPolymul("smallprime")(x, y, "fused")
+    assert all(k.launches == 0 for k in F.KERNELS.values())
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load_library()
+    finally:
+        build.load_library.cache_clear()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_flags_target_hopper():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert [p.name for p in build.CSRC_DIR.glob("*.cu")] == ["ntt_fused.cu"]
+    src = (build.CSRC_DIR / "ntt_fused.cu").read_text()
+    for name in build.LAUNCHERS:
+        assert f"QT_LAUNCHER({name}," in src
+    for k in F.KERNELS.values():
+        assert k.symbol in build.LAUNCHERS
+        assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
+
+
+# ----------------------------------------------------------------------
+# On the card.
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_kernels_match_plain_on_card(cuda_device, name):
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(21)
+    for batch in (1, 3, 64):
+        xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
+        xy[0, 0] = q - 1
+        lazy = rng.integers(0, 2 * q, (batch, n), dtype=np.uint32)
+        x, y, lazy = (torch.from_numpy(v).to(cuda_device)
+                      for v in (xy[0], xy[1], lazy))
+        spec = F.ntt_plain(y[:1], tbl)
+        before = {k: v.launches for k, v in F.KERNELS.items()}
+        pairs = [
+            (F.polymul_fused(x, y, tbl), F.polymul_plain(x, y, tbl)),
+            (F.polymul_fixed_fused(x, spec, tbl),
+             F.polymul_fixed_plain(x, spec, tbl)),
+            (F.ntt_fused(x, tbl), F.ntt_plain(x, tbl)),
+            (F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl)),
+        ]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+        assert all(v.launches == before[k] + 1
+                   for k, v in F.KERNELS.items())
