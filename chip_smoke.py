@@ -8,16 +8,21 @@ script exits non-zero without printing a result:
 
 0. device: a CUDA device must exist; print nvidia-smi's name and power
    limit, and the torch, CUDA and nvcc versions.
-1. build the hand-written kernels (csrc/*.cu, nvcc for sm_90a).
-2. kernel against plain version, on the card: B1-B4 for every registered
-   parameter set plus n = 8192 on the qtesla-iii-speed prime, B in
-   {1, 3, 64}, random and all-(q-1) operands, bit for bit (tolerance 0:
-   every value is an exact residue), and intt(ntt(x)) == x.
-3. main path at qtesla-iii-speed, B = 32768: polymul_negacyclic(algo=
-   "fused"), the fixed-operand pair of polymul_fixed_fn(..., "fused") and
-   the inverse transform, with every launch count reset just before and read
-   just after; the outputs must equal the plain version on the card, and 8
-   rows the big-int oracle.
+1. build the hand-written kernels (csrc/*.cu, one nvcc per source, all
+   started together, for sm_90a).
+2. kernel against plain version, on the card: the fused kernels B1-B4 and
+   the digit-matmul kernels B5-B8 for every registered parameter set plus
+   n = 8192 on the qtesla-iii-speed prime, B in {1, 3, 64}, random and
+   worst-case operands, bit for bit (tolerance 0: every value is an exact
+   residue); intt(ntt(x)) == x; B5 == B1 and B6 == B2 on the same inputs.
+   B3 takes inputs below 2q, B7 below the MXU plan's pw_bound.
+3. main path at qtesla-iii-speed, B = 32768, through the entry points:
+   polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
+   polymul_fixed_fn (B6, B8), intt(algo="mxu"), and the same three with
+   algo="fused" (B1, B2, B4, B3), with every launch count reset just before
+   and read just after (each kernel exactly once); the outputs must equal
+   the plain versions on the card, the two algos each other, and 8 rows the
+   big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain.
@@ -40,6 +45,8 @@ from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
 from qtesla_tpu_torch.models import intt, polymul_fixed_fn, polymul_negacyclic
 from qtesla_tpu_torch.ops import ntt_fused as F
+from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
 from qtesla_tpu_torch.utils.timing import time_cuda
@@ -48,8 +55,12 @@ MAIN_SET = "qtesla-iii-speed"
 MAIN_BATCH = 32768
 SMALL_BATCHES = (1, 3, 64)
 # n = 8192 on the qtesla-iii-speed prime: B1 then needs 64 KB of shared
-# memory per block, the opt-in path above 48 KB
+# memory per block, the opt-in path above 48 KB; B5 holds 2 batch rows per
+# block and streams 22 MB of digit tables
 WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
+# every kernel: (registry entry, CUDA source)
+KERNELS = {**{name: (k, F.CUDA_SOURCE) for name, k in F.KERNELS.items()},
+           **{name: (k, M.CUDA_SOURCE) for name, k in M.KERNELS.items()}}
 SEED = 20261016
 ORACLE_ROWS = (0, 1, 2, 3, MAIN_BATCH - 4, MAIN_BATCH - 3, MAIN_BATCH - 2,
                MAIN_BATCH - 1)
@@ -94,11 +105,18 @@ def expect_canonical(what: str, z: torch.Tensor, shape, q: int) -> None:
         raise AssertionError(f"{what}: value >= q={q}")
 
 
+def _record(errors: dict, kname: str, what: str, got, want) -> None:
+    errors[kname] = max(errors[kname], expect_equal(what, got, want))
+
+
 def kernels_against_plain(errors: dict) -> None:
     dev = torch.device("cuda")
     register_param_set(*WIDE_SET)
     for name in available_param_sets():
         tbl = get_tables(name)
+        start = time.perf_counter()
+        mt = get_mxu_tables(name)
+        plan_s = time.perf_counter() - start
         q, n = tbl.q, tbl.n
         rng = np.random.default_rng(SEED)
         for B in SMALL_BATCHES:
@@ -106,11 +124,13 @@ def kernels_against_plain(errors: dict) -> None:
                 if kind == "random":
                     xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
                     lazy = rng.integers(0, 2 * q, (B, n), dtype=np.uint32)
+                    pw = rng.integers(0, mt.pw_bound, (B, n), dtype=np.uint32)
                 else:
                     xs = np.full((2, B, n), q - 1, dtype=np.uint32)
                     lazy = np.full((B, n), 2 * q - 1, dtype=np.uint32)
-                x, y = (torch.from_numpy(v).to(dev) for v in xs)
-                lazy = torch.from_numpy(lazy).to(dev)
+                    pw = np.full((B, n), mt.pw_bound - 1, dtype=np.uint32)
+                x, y, lazy, pw = (torch.from_numpy(v).to(dev)
+                                  for v in (xs[0], xs[1], lazy, pw))
                 tag = f"{name} B={B} {kind}"
                 spec = F.ntt_plain(y[:1], tbl)
                 cases = (
@@ -121,22 +141,35 @@ def kernels_against_plain(errors: dict) -> None:
                     ("ntt_fused", F.ntt_fused(x, tbl), F.ntt_plain(x, tbl)),
                     ("intt_fused", F.intt_fused(lazy, tbl),
                      F.intt_plain(lazy, tbl)),
+                    ("polymul_mxu", M.polymul_mxu(x, y, mt),
+                     M.polymul_mxu_plain(x, y, mt)),
+                    ("polymul_fixed_mxu", M.polymul_fixed_mxu(x, spec, mt),
+                     M.polymul_fixed_mxu_plain(x, spec, mt)),
+                    ("ntt_mxu", M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt)),
+                    ("intt_mxu", M.intt_mxu(pw, mt), M.intt_mxu_plain(pw, mt)),
                 )
                 for kname, got, want in cases:
-                    errors[kname] = max(errors[kname],
-                                        expect_equal(f"{kname} {tag}", got,
-                                                     want))
+                    _record(errors, kname, f"{kname} {tag}", got, want)
+                    if kname == "polymul_mxu":
+                        expect_equal(f"B5 == B1 {tag}", got, cases[0][1])
+                    if kname == "ntt_mxu":
+                        expect_equal(f"B6 == B2 {tag}", got, cases[2][1])
                 back = F.intt_fused(F.ntt_fused(x, tbl), tbl)
-                expect_equal(f"intt(ntt(x)) {tag}", back, x)
-        print(f"{name} (n={n}, q={q}): B1-B4 equal to plain for B in "
-              f"{SMALL_BATCHES}, random and worst-case; intt(ntt(x)) == x",
-              flush=True)
+                expect_equal(f"intt(ntt(x)) fused {tag}", back, x)
+                back = M.intt_mxu(M.ntt_mxu(x, mt), mt)
+                expect_equal(f"intt(ntt(x)) mxu {tag}", back, x)
+        print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
+              f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
+              f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}): B1-B8 equal to "
+              f"plain for B in {SMALL_BATCHES}, random and worst-case; "
+              f"B5 == B1, B6 == B2; intt(ntt(x)) == x", flush=True)
     done()
 
 
 def main_path(errors: dict, seed: int) -> dict:
     ps = get_params(MAIN_SET)
     tbl = get_tables(MAIN_SET)
+    mt = get_mxu_tables(MAIN_SET)
     n, q, B = ps.n, ps.q, MAIN_BATCH
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -149,50 +182,57 @@ def main_path(errors: dict, seed: int) -> dict:
     x, y, a = draw(B), draw(B), draw(1)
     done()
 
-    for k in F.KERNELS.values():
+    for k, _ in KERNELS.values():
         k.launches = 0
-    z = polymul_negacyclic(x, y, MAIN_SET, algo="fused")
-    prep, mul = polymul_fixed_fn(MAIN_SET, "fused")
-    A = prep(a)
-    zf = mul(x, A)
-    a_back = intt(A, MAIN_SET, "fused")
+    out = {}
+    for algo in ("mxu", "fused"):
+        z = polymul_negacyclic(x, y, MAIN_SET, algo=algo)
+        prep, mul = (polymul_fixed_fn(MAIN_SET) if algo == "mxu"
+                     else polymul_fixed_fn(MAIN_SET, algo))
+        A = prep(a)
+        out[algo] = (z, A, mul(x, A), intt(A, MAIN_SET, algo))
     done()
-    launches = {name: k.launches for name, k in F.KERNELS.items()}
+    launches = {name: k.launches for name, (k, _) in KERNELS.items()}
     print(f"launches in the main-path run: {launches}")
-    expected = {"polymul_fused": 1, "polymul_fixed_fused": 1, "ntt_fused": 1,
-                "intt_fused": 1}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if launches != {name: 1 for name in KERNELS}:
+        raise AssertionError(f"launch counts {launches}, expected 1 each")
 
-    expect_canonical("z", z, (B, n), q)
-    expect_canonical("zf", zf, (B, n), q)
-    errors["polymul_fused"] = max(
-        errors["polymul_fused"],
-        expect_equal("main path z", z, F.polymul_plain(x, y, tbl)))
-    errors["ntt_fused"] = max(errors["ntt_fused"],
-                              expect_equal("spectrum", A, F.ntt_plain(a, tbl)))
-    errors["polymul_fixed_fused"] = max(
-        errors["polymul_fixed_fused"],
-        expect_equal("fixed path", zf,
-                     F.polymul_plain(x, a.expand(B, n).contiguous(), tbl)))
-    errors["intt_fused"] = max(errors["intt_fused"],
-                               expect_equal("intt(ntt(a))", a_back, a))
+    want_z = F.polymul_plain(x, y, tbl)
+    want_A = F.ntt_plain(a, tbl)
+    want_zf = F.polymul_plain(x, a.expand(B, n).contiguous(), tbl)
+    for algo, (z, A, zf, a_back) in out.items():
+        names = ({"z": "polymul_mxu", "A": "ntt_mxu", "zf": "polymul_fixed_mxu",
+                  "a": "intt_mxu"} if algo == "mxu" else
+                 {"z": "polymul_fused", "A": "ntt_fused",
+                  "zf": "polymul_fixed_fused", "a": "intt_fused"})
+        expect_canonical(f"z {algo}", z, (B, n), q)
+        expect_canonical(f"zf {algo}", zf, (B, n), q)
+        _record(errors, names["z"], f"main path z {algo}", z, want_z)
+        _record(errors, names["A"], f"spectrum {algo}", A, want_A)
+        _record(errors, names["zf"], f"fixed path {algo}", zf, want_zf)
+        _record(errors, names["a"], f"intt(ntt(a)) {algo}", a_back, a)
+    expect_equal("B5 == B1 on the main path", out["mxu"][0], out["fused"][0])
+    expect_equal("B8 == B4 on the main path", out["mxu"][2], out["fused"][2])
+    _record(errors, "polymul_mxu", "B5 against its twin",
+            out["mxu"][0], M.polymul_mxu_plain(x, y, mt))
     done()
-    print(f"main path: z and the fixed-operand product ({B} x {n}) equal the "
-          f"plain version on the card")
+    print(f"main path: z and the fixed-operand product ({B} x {n}) of both "
+          f"algos equal the plain versions and each other on the card")
 
     zc, xc, yc = (np.concatenate([t[:4].cpu().numpy(), t[-4:].cpu().numpy()])
-                  for t in (z, x, y))
+                  for t in (out["mxu"][0], x, y))
     for i, row in enumerate(ORACLE_ROWS):
         want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(np.uint32)
         if not np.array_equal(zc[i], want):
             raise AssertionError(f"row {row} differs from the big-int oracle")
-    print(f"main path: rows {ORACLE_ROWS} equal the big-int oracle")
+    print(f"main path: rows {ORACLE_ROWS} of algo='mxu' equal the big-int "
+          f"oracle")
     return launches
 
 
 def timing(device_line: str) -> dict:
     tbl = get_tables(MAIN_SET)
+    mt = get_mxu_tables(MAIN_SET)
     n, q, B = tbl.n, tbl.q, MAIN_BATCH
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -205,10 +245,15 @@ def timing(device_line: str) -> dict:
                                 (x, spec, tbl)),
         "ntt_fused": (F.ntt_fused, F.ntt_plain, (x, tbl)),
         "intt_fused": (F.intt_fused, F.intt_plain, (x, tbl)),
+        "polymul_mxu": (M.polymul_mxu, M.polymul_mxu_plain, (x, y, mt)),
+        "polymul_fixed_mxu": (M.polymul_fixed_mxu, M.polymul_fixed_mxu_plain,
+                              (x, spec, mt)),
+        "ntt_mxu": (M.ntt_mxu, M.ntt_mxu_plain, (x, mt)),
+        "intt_mxu": (M.intt_mxu, M.intt_mxu_plain, (x, mt)),
     }
     out = {}
     for name, (kern, plain, args) in runs.items():
-        counter = F.KERNELS[name]
+        counter = KERNELS[name][0]
         before = counter.launches
         samples = {"kernel": [], "plain": []}
         calls = 0
@@ -261,7 +306,7 @@ def main() -> int:
     done()
 
     phase("2 kernels against plain, on the card")
-    errors = {name: 0 for name in F.KERNELS}
+    errors = {name: 0 for name in KERNELS}
     kernels_against_plain(errors)
 
     phase("3 main path at full size")
@@ -273,11 +318,11 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     kernels = [{
-        "name": name, "route": "cuda", "source": F.CUDA_SOURCE,
+        "name": name, "route": "cuda", "source": source,
         "replaces": k.replaces, "launches": launches[name],
         "max_abs_err": errors[name], "ms": times[name]["kernel"][1],
         "plain_ms": times[name]["plain"][1],
-    } for name, k in F.KERNELS.items()]
+    } for name, (k, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {

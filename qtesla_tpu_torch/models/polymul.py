@@ -6,12 +6,14 @@ or a CUDA device:
 
 - ``algo="merged"``: the plain PyTorch merged-psi pipeline (``ops/ntt.py``);
 - ``algo="fused"``: one hand-written CUDA kernel per call on a CUDA tensor
-  (``ops/ntt_fused.py``), its plain twin on a CPU tensor.
+  (``ops/ntt_fused.py``), its plain twin on a CPU tensor;
+- ``algo="mxu"``: the digit-matmul form, likewise (``ops/ntt_mxu.py``):
+  wide butterfly stages, then int8 digit-plane products per lane block.
 
 The JAX package's other algorithms are not ported yet; asking for one raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
-``NegacyclicPolymul`` carries one parameter set's twiddles as a registered
-buffer, so ``.to(device)`` moves them with the module.
+``NegacyclicPolymul`` carries one parameter set's twiddles and MXU tables as
+registered buffers, so ``.to(device)`` moves them with the module.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from qtesla_tpu.params import ParamSet
 
 from ..ops import ntt as N
 from ..ops import ntt_fused as F
+from ..ops import ntt_mxu as M
+from ..ops.mxu_tables import get_mxu_tables
 from ..ops.tables import NttTables, get_tables
 
 __all__ = ["ntt", "intt", "polymul_fn", "polymul_fixed_fn",
@@ -33,7 +37,6 @@ __all__ = ["ntt", "intt", "polymul_fn", "polymul_fixed_fn",
 # JAX algorithm names the port does not have yet -> where ROADMAP.md queues
 # their port
 _NOT_PORTED = {
-    "mxu": "queue B, B5-B9 (ops/ntt_mxu.py)",
     "mxu-folded": "queue B, B9 (ops/ntt_mxu.py) and queue A item 7",
     "stockham": "queue A item 8 (rest of ops/ntt.py and models/polymul.py)",
     "gs_ct": "queue A item 8", "ct_ct": "queue A item 8",
@@ -81,7 +84,9 @@ def ntt(x: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
         return N.ntt_fwd_merged(x.to(torch.int64), tbl).to(torch.uint32)
     if algo == "fused":
         return F.ntt_fused(x, tbl)
-    raise _unsupported(algo, ("merged", "fused"))
+    if algo == "mxu":
+        return M.ntt_mxu(x, get_mxu_tables(tbl.ps.name))
+    raise _unsupported(algo, ("merged", "fused", "mxu"))
 
 
 def intt(X: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
@@ -92,7 +97,9 @@ def intt(X: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
         return N.intt_inv_merged(X.to(torch.int64), tbl).to(torch.uint32)
     if algo == "fused":
         return F.intt_fused(X, tbl)
-    raise _unsupported(algo, ("merged", "fused"))
+    if algo == "mxu":
+        return M.intt_mxu(X, get_mxu_tables(tbl.ps.name))
+    raise _unsupported(algo, ("merged", "fused", "mxu"))
 
 
 # ----------------------------------------------------------------------
@@ -106,7 +113,12 @@ def _pm_merged(x, y, tbl: NttTables, tw=None):
     return F.polymul_plain(x, y, tbl, tw)
 
 
-_PIPELINES = {"merged": _pm_merged, "fused": F.polymul_fused}
+def _pm_mxu(x, y, tbl: NttTables, tw=None, tabs=None):
+    """Wide butterfly stages, then int8 digit-plane products per block."""
+    return M.polymul_mxu(x, y, get_mxu_tables(tbl.ps.name), tabs, tw)
+
+
+_PIPELINES = {"merged": _pm_merged, "fused": F.polymul_fused, "mxu": _pm_mxu}
 ALGORITHMS = tuple(_PIPELINES)
 
 
@@ -120,12 +132,17 @@ def polymul_fn(name: str, algo: str = "merged"):
 
 
 @functools.lru_cache(maxsize=None)
-def polymul_fixed_fn(name: str, algo: str = "fused"):
+def polymul_fixed_fn(name: str, algo: str = "mxu"):
     """(prepare, multiply) pair for products z = x * a with a constant a:
     prepare(a) -> its spectrum A (run once), multiply(x, A) -> z, one
-    forward and one inverse transform per product.  The JAX package's
-    default, 'mxu', is not ported yet, so the default here is 'fused'."""
+    forward and one inverse transform per product (the qTESLA verification
+    shape, a the public polynomial).  The default is 'mxu', as in the JAX
+    package.  The spectra of every algo are the same canonical values."""
     tbl = get_tables(name)
+    if algo == "mxu":
+        mt = get_mxu_tables(name)
+        return (functools.partial(M.ntt_mxu, mt=mt),
+                functools.partial(M.polymul_fixed_mxu, mt=mt))
     if algo == "fused":
         return (functools.partial(F.ntt_fused, tbl=tbl),
                 functools.partial(F.polymul_fixed_fused, tbl=tbl))
@@ -139,7 +156,7 @@ def polymul_fixed_fn(name: str, algo: str = "fused"):
             return F.polymul_fixed_plain(x, A, tbl)
 
         return prep, mul
-    raise _unsupported(algo, ("fused", "merged"))
+    raise _unsupported(algo, ("mxu", "fused", "merged"))
 
 
 def polymul_negacyclic(x: torch.Tensor, y: torch.Tensor, ps,
@@ -154,16 +171,24 @@ def polymul_negacyclic(x: torch.Tensor, y: torch.Tensor, ps,
 
 
 class NegacyclicPolymul(nn.Module):
-    """Negacyclic polymul for one parameter set, its twiddles a buffer."""
+    """Negacyclic polymul for one parameter set; its twiddles and MXU
+    tables are buffers."""
 
     def __init__(self, ps):
         super().__init__()
         self.tbl = _tables(ps)
         self.register_buffer("twiddles",
                              torch.from_numpy(self.tbl.packed).clone())
+        tabs = M.host_tables(get_mxu_tables(self.tbl.ps.name))
+        for field, t in zip(("wf", "constf", "wi", "consti"), tabs.tensors()):
+            self.register_buffer("mxu_" + field, t)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
                 algo: str = "merged") -> torch.Tensor:
         if algo not in _PIPELINES:
             raise _unsupported(algo, ALGORITHMS)
+        if algo == "mxu":
+            tabs = M.MxuDeviceTables(self.mxu_wf, self.mxu_constf,
+                                     self.mxu_wi, self.mxu_consti)
+            return _pm_mxu(x, y, self.tbl, self.twiddles, tabs)
         return _PIPELINES[algo](x, y, self.tbl, self.twiddles)

@@ -1,0 +1,468 @@
+"""Digit-matmul stage tables for the MXU path (numpy only).
+
+Counterpart of the static planner of ``qtesla_tpu/ops/ntt_mxu.py``
+(l.66-565) and of its ``pointwise_bound`` (l.813).  It is a module of its own
+because ``qtesla_tpu.ops.ntt_mxu`` imports jax; this one computes with numpy
+and Python ints only.  The tests hold every table and plan field equal to the
+JAX planner's.
+
+The MXU form of a transform: the first ``Lr = log2(n / bw)`` forward stages
+(pair distance >= bw) stay butterflies; the remaining stages act inside each
+aligned block of ``bw`` lanes, so their composition is one exact (bw, bw)
+matrix per block.  Each matrix is expanded into balanced base-256 int8 digit
+classes (``W``), and the operand into ``Din`` balanced digit planes centred
+at ``off``.  One block's output is
+
+    out_k = const_k + sum_j 2^{8j} c_jk   (mod q),
+    c_j   = sum_i plane_i(x - off) @ W[b, i][:, j*bw:(j+1)*bw],
+
+where ``const`` folds the centring offset and subtracts ``group_bias``, the
+biases the TPU kernel adds to its Horner-packed class groups.  A
+recombination that does not bias its groups adds ``group_bias`` back.
+
+``get_mxu_tables(name)`` plans from ``qtesla_tpu.params``;
+``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from .modmul import sparse_reduce_plan
+from .tables import NttTables, from_jax_tables, get_tables
+
+__all__ = ["MxuTables", "get_mxu_tables", "from_jax_mxu_tables",
+           "pointwise_bound"]
+
+_BW_MAX = 128            # block width: one TPU vreg of lanes
+
+# relative VPU-op costs of the TPU kernel that the split search minimises
+# (a sloppy Shoup, a conditional subtract, an extra input digit plane)
+_COST_SHOUP, _COST_CSUB, _COST_PLANE = 4, 2, 3
+
+
+# ----------------------------------------------------------------------
+# Digits and stage matrices (exact, numpy int64 / object mod q).
+# ----------------------------------------------------------------------
+
+def _ndigits(q: int) -> int:
+    """Smallest D such that D balanced base-256 digits (each in [-128, 127])
+    cover the centred range [-(q//2), q-1-q//2]."""
+    D = 1
+    while True:
+        span = (256 ** D - 1) // 255
+        if 127 * span >= q - 1 - (q // 2) and 128 * span >= q // 2:
+            return D
+        D += 1
+
+
+def _balanced_digits(a: np.ndarray, D: int) -> list[np.ndarray]:
+    """D balanced base-256 digits of an int64 array, each in [-128, 127];
+    sum_i 256^i d_i == a exactly."""
+    digs = []
+    a = a.astype(np.int64).copy()
+    for _ in range(D - 1):
+        d = ((a + 128) & 255) - 128
+        digs.append(d)
+        a = (a - d) >> 8
+    assert np.all(a >= -128) and np.all(a <= 127), "digit overflow"
+    digs.append(a)
+    return digs
+
+
+def _fwd_matrix(tbl: NttTables, s_lo: int) -> np.ndarray:
+    """Exact (n, n) matrix of the merged-psi CT forward stages s in
+    [s_lo, L), canonical mod q."""
+    n, q, L = tbl.n, tbl.q, tbl.logn
+    j = np.arange(n)
+    M = np.eye(n, dtype=np.int64)
+    for s in range(s_lo, L):
+        t = n >> (s + 1)
+        w = tbl.ct_fwd_full[s].astype(np.int64)
+        sign = np.where((j & t) != 0, -1, 1)
+        M = (M[j & ~t] + (sign * w)[:, None] * M[j | t]) % q
+    return M % q
+
+
+def _inv_matrix(tbl: NttTables, s_hi: int) -> np.ndarray:
+    """Exact (n, n) matrix of the merged-psi GS inverse stages s in
+    [0, s_hi) mod q; the last stage, if included, scales both branches by
+    gs_inv_full's n^{-1} row."""
+    n, q, L = tbl.n, tbl.q, tbl.logn
+    j = np.arange(n)
+    M = np.eye(n, dtype=np.int64)
+    for s in range(s_hi):
+        t = 1 << s
+        w = tbl.gs_inv_full[s].astype(np.int64)
+        u = M[j & ~t]
+        v = M[j | t]
+        bit = (j & t) != 0
+        if s == L - 1:
+            sign = np.where(bit, -1, 1)
+            M = (w[:, None] * (u + sign[:, None] * v)) % q
+        else:
+            M = np.where(bit[:, None], (w[:, None] * (u - v)) % q,
+                         (u + v) % q)
+    return M % q
+
+
+# ----------------------------------------------------------------------
+# The TPU kernel's recombination cost model (the JAX helpers' static,
+# v=None, mode: bounds and op counts only).
+# ----------------------------------------------------------------------
+
+def _csub_to(bnd: int, limit: int, q: int):
+    """The TPU kernel's conditional-subtract chain v < bnd -> v < limit (a
+    multiple of q), halving the bound per step: (bound', csub count)."""
+    cs = 0
+    while bnd > limit:
+        t = max(((bnd - 1) // q).bit_length() - 1,
+                (limit // q).bit_length() - 1)
+        c = (1 << t) * q
+        cs += 1
+        bnd = max(c, bnd - c)
+    return bnd, cs
+
+
+def _chain_csubs(bnd: int, limit: int, q: int) -> int:
+    return _csub_to(bnd, limit, q)[1]
+
+
+def _apply_shrink(m: int, limit_m: int, q: int):
+    """Shrink one lazy term of inclusive maximum m to <= limit_m: a Shoup
+    fold by 1 when m is huge, else a csub chain.  (m', shoups, csubs)."""
+    sh = cs = 0
+    if m > 16 * q:
+        m = 4 * q - 1
+        sh = 1
+    while m > limit_m:
+        t = max((m // q).bit_length() - 1,
+                ((limit_m + 1) // q).bit_length() - 1)
+        c = (1 << t) * q
+        cs += 1
+        m = max(c - 1, m - c)
+    return m, sh, cs
+
+
+def _pack_terms(maxima, q: int):
+    """The overflow fixer for the recombination term sum: while the
+    inclusive maxima could sum past uint32, shrink the largest term
+    (earliest on ties) one step (2q-1, then q-1).  (maxima, shoups,
+    csubs)."""
+    maxima = list(maxima)
+    sh = cs = 0
+    while sum(maxima) >= 1 << 32:
+        k = max(range(len(maxima)), key=lambda i: (maxima[i], -i))
+        assert maxima[k] > q - 1, "recombination terms cannot fit uint32"
+        limit = 2 * q - 1 if maxima[k] > 2 * q - 1 else q - 1
+        maxima[k], s1, c1 = _apply_shrink(maxima[k], limit, q)
+        sh += s1
+        cs += c1
+    return maxima, sh, cs
+
+
+def _group_bound(bounds, j0, ln) -> int:
+    return sum((256 ** m) * bounds[j0 + m] for m in range(ln))
+
+
+def _initial_terms(groups, bounds, q: int) -> list[int]:
+    """Inclusive maxima of the recombination terms before the fixer: the
+    const row, then per group the biased Horner value (group 0) or the
+    post-Shoup 2q-1."""
+    terms = [q - 1]
+    for j0, ln in groups:
+        terms.append(2 * _group_bound(bounds, j0, ln) if j0 == 0
+                     else 2 * q - 1)
+    return terms
+
+
+def _reduce_kind(q: int) -> str:
+    return "reduce_sparse" if sparse_reduce_plan(q) else "reduce_shoup"
+
+
+def _plan_cost(groups, bounds, q: int, downstream: str):
+    """((shoups, csubs, ngroups), exclusive output bound) of one plan."""
+    sh = sum(1 for j0, _ in groups if j0 != 0)
+    cs = sh
+    terms, s2, c2 = _pack_terms(_initial_terms(groups, bounds, q), q)
+    sh += s2
+    cs += c2
+    bound = sum(terms) + 1
+    if downstream != "any" and bound > 2 * q:
+        if bound <= 16 * q:
+            cs += _chain_csubs(bound, 2 * q, q)
+        elif downstream == "reduce_shoup":
+            sh += 1
+            cs += 1
+        else:
+            cs += 3
+    return (sh, cs, len(groups)), bound
+
+
+def _plan_groups(bounds: list[int], q: int,
+                 downstream: str = "any") -> list[tuple[int, int]]:
+    """The cheapest packing of digit classes into consecutive int32-exact
+    Horner groups [(j0, len), ...], over every feasible composition."""
+    D = len(bounds)
+
+    def compositions(j):
+        if j == D:
+            yield []
+            return
+        for ln in range(1, D - j + 1):
+            if _group_bound(bounds, j, ln) < (1 << 31):
+                for rest in compositions(j + ln):
+                    yield [(j, ln)] + rest
+
+    def feasible(g):
+        return sum(min(t, q - 1)
+                   for t in _initial_terms(g, bounds, q)) < 1 << 32
+
+    cands = [g for g in compositions(0) if feasible(g)]
+    if not cands:
+        raise ValueError(
+            f"q={q}: recombination terms cannot fit uint32 for any digit "
+            f"grouping of bounds {bounds}")
+    return min(cands,
+               key=lambda g: _plan_cost(g, bounds, q, downstream)[0])
+
+
+def _recombine_bound(groups, bounds, q: int) -> int:
+    """Exclusive output bound of the TPU kernel's recombination (what a
+    consumer's digit split must cover)."""
+    return sum(_pack_terms(_initial_terms(groups, bounds, q), q)[0]) + 1
+
+
+# ----------------------------------------------------------------------
+# Digit splits and tables.
+# ----------------------------------------------------------------------
+
+def _split_bias(D: int, base: int) -> int:
+    """Borrow-propagation pre-bias of a D-plane balanced base-`base` split:
+    (base/2)*base^i summed over the D-1 low planes."""
+    lb = base.bit_length() - 1
+    return sum((base // 2) << (lb * i) for i in range(D - 1))
+
+
+def _covers(D: int, bound: int, base: int = 256) -> bool:
+    """Do D balanced base-`base` planes (top plane the arithmetic-shift
+    residue, which must fit int8) represent every v - off, v in
+    [0, bound), off = bound // 2, within a 32-bit word?"""
+    off = bound >> 1
+    lb = base.bit_length() - 1
+    bias = _split_bias(D, base)
+    s = lb * (D - 1)
+    if s > 28 or bound - 1 - off + bias >= 1 << 31:
+        return False
+    top_min = (-off + bias) >> s
+    top_max = (bound - 1 - off + bias) >> s
+    return -128 <= top_min and top_max <= 127
+
+
+def _plane_count(in_bound: int, base: int = 256) -> int | None:
+    for D in range(1, 7):
+        if _covers(D, in_bound, base):
+            return D
+    return None
+
+
+def _lazy_fwd_schedule(q: int, Lr: int):
+    """Per-wide-stage (lo_bnd, h_bnd) laziness schedule of the TPU kernel
+    from canonical input; returns (schedule, final exclusive bound)."""
+    bnd = q
+    sched = []
+    for _ in range(Lr):
+        h_bnd = 4 * q
+        lo_bnd = bnd
+        if lo_bnd + h_bnd > 1 << 32:
+            h_bnd = 2 * q
+        if lo_bnd + h_bnd > 1 << 32:
+            lo_bnd = 2 * q
+        sched.append((lo_bnd, h_bnd))
+        bnd = lo_bnd + h_bnd
+    return sched, bnd
+
+
+def _matrix_digit_block(K, q: int, Din: int, Dout: int, mw: np.ndarray,
+                        in_base: int = 256):
+    """One (bw, bw) input-major matrix K (out = x @ K) as int8 digit tables
+    (Din, bw, Dout*bw) of the centred in_base^i * K mod q, plus its column
+    sums; accumulates max |digit| into mw (Din, Dout)."""
+    bw = K.shape[0]
+    K = K.astype(object) % q
+    Wblk = np.zeros((Din, bw, Dout * bw), dtype=np.int8)
+    for i in range(Din):
+        Ki = (K * pow(in_base, i, q)) % q
+        Kc = np.where(Ki > q // 2, Ki - q, Ki)
+        for jd, dig in enumerate(_balanced_digits(Kc.astype(np.int64),
+                                                  Dout)):
+            Wblk[i, :, jd * bw:(jd + 1) * bw] = dig.astype(np.int8)
+            mw[i, jd] = max(mw[i, jd], np.abs(dig).max())
+    return Wblk, K.sum(axis=0)
+
+
+def _input_digit_maxima(Din: int, off: int, in_bound: int,
+                        base: int = 256) -> list[int]:
+    """Exact max |digit_i(v - off)| over v in [0, in_bound) per plane."""
+    cmin, cmax = -off, in_bound - 1 - off
+    lb = base.bit_length() - 1
+    bias = _split_bias(Din, base)
+    s = lb * (Din - 1)
+    top = max(abs((cmin + bias) >> s), abs((cmax + bias) >> s))
+    return [base // 2] * (Din - 1) + [int(top)]
+
+
+def _digit_bounds(mw: np.ndarray, bw: int, dmax: list[int]):
+    Din, Dout = mw.shape
+    return [int(sum(bw * dmax[i] * mw[i, j] for i in range(Din)))
+            for j in range(Dout)]
+
+
+def _const_row(colsum, off: int, groups, bounds, q: int) -> np.ndarray:
+    """Per-output const: the centring offset folded in, the group biases
+    (group_bias) subtracted."""
+    bias_sum = _group_bias(groups, bounds, q)
+    return np.asarray([(off * int(cs) - bias_sum) % q for cs in colsum],
+                      dtype=np.uint32)
+
+
+def _group_bias(groups, bounds, q: int) -> int:
+    """sum over groups of gb * 2^{8 j0} mod q, gb the group's Horner
+    bound."""
+    return sum(_group_bound(bounds, j0, ln) * pow(2, 8 * j0, q)
+               for j0, ln in groups) % q
+
+
+def _block_digit_tables(M: np.ndarray, q: int, bw: int, Din: int, Dout: int,
+                        off: int, in_bound: int, downstream: str = "any",
+                        in_base: int = 256):
+    """A block-diagonal (n, n) stage matrix as digit tables: W int8
+    (nb, Din, bw, Dout*bw), const uint32 (nb, 1, bw), class bounds and the
+    packing plan."""
+    n = M.shape[0]
+    nb = n // bw
+    W = np.zeros((nb, Din, bw, Dout * bw), dtype=np.int8)
+    colsums = np.zeros((nb, bw), dtype=object)
+    mw = np.zeros((Din, Dout), dtype=np.int64)
+    for b in range(nb):
+        Mb = M[b * bw:(b + 1) * bw, b * bw:(b + 1) * bw]
+        row = M[b * bw:(b + 1) * bw].copy()
+        row[:, b * bw:(b + 1) * bw] = 0
+        assert not row.any(), "stage range is not block-local"
+        W[b], colsums[b] = _matrix_digit_block(Mb.T, q, Din, Dout, mw,
+                                               in_base)
+    bounds = _digit_bounds(mw, bw,
+                           _input_digit_maxima(Din, off, in_bound, in_base))
+    groups = _plan_groups(bounds, q, downstream)
+    const = np.zeros((nb, 1, bw), dtype=np.uint32)
+    for b in range(nb):
+        const[b, 0, :] = _const_row(colsums[b], off, groups, bounds, q)
+    return W, const, bounds, groups
+
+
+def _search_split(M: np.ndarray, q: int, bw: int, in_bound: int,
+                  downstream: str):
+    """The cheapest input split over base 256 and base 128 at their
+    smallest covering plane counts: (cost, (base, Din, W, const, bounds,
+    groups)), or None when no base covers in_bound."""
+    Dout = _ndigits(q)
+    best = None
+    for base in (256, 128):
+        Din = _plane_count(in_bound, base)
+        if Din is None:
+            continue
+        W, const, bounds, groups = _block_digit_tables(
+            M, q, bw, Din, Dout, in_bound >> 1, in_bound, downstream, base)
+        (sh, cs, ng), _ = _plan_cost(groups, bounds, q, downstream)
+        cost = (_COST_SHOUP * sh + _COST_CSUB * cs
+                + (_COST_PLANE + Dout) * Din, ng)
+        if best is None or cost < best[0]:
+            best = (cost, (base, Din, W, const, bounds, groups))
+    return best
+
+
+def pointwise_bound(q: int) -> int:
+    """Exclusive bound of the pointwise product handed to the inverse
+    split: lazy (6q-1, or 4q-1 when 6q-2 overflows uint32) when that costs
+    no extra digit plane, else q."""
+    pw_lazy = 6 * q - 1 if 6 * q - 2 < 1 << 32 else 4 * q - 1
+    return pw_lazy if _plane_count(pw_lazy) == _ndigits(q) else q
+
+
+# ----------------------------------------------------------------------
+# The bundle.
+# ----------------------------------------------------------------------
+
+# plan fields carried across from a JAX MxuTables
+_FIELDS = ("n", "q", "logn", "bw", "nb", "Lr", "D", "fwd_sched", "fwd_lazy",
+           "fwd_bound", "fwd_base", "Df", "wf", "constf", "bounds_f",
+           "groups_f", "fwd_off", "pw_bound", "inv_off", "inv_base", "Di",
+           "wi", "consti", "bounds_i", "groups_i")
+
+
+class MxuTables:
+    """Digit-matmul stage tables and plans for one parameter set.
+
+    ``wf`` int8 (nb, Df, bw, D*bw) and ``constf`` uint32 (nb, 1, bw) map
+    the forward split (``Df`` planes of base ``fwd_base``, centred at
+    ``fwd_off``, input < ``fwd_bound``) through the block-local forward
+    stages; ``wi``/``consti`` likewise the inverse (``Di`` planes of
+    ``inv_base`` at ``inv_off``, input < ``pw_bound``).  ``group_bias_f``
+    and ``group_bias_i`` are what ``const`` subtracts for the TPU kernel's
+    biased Horner groups."""
+
+    def __init__(self, tbl: NttTables, bw: int | None = None):
+        self.tbl = tbl
+        n, q, L = tbl.n, tbl.q, tbl.logn
+        self.n, self.q, self.logn = n, q, L
+        self.bw = bw = min(bw or _BW_MAX, n)
+        assert bw >= 128 or bw == n, "block width must be >= one vreg"
+        self.nb = n // bw
+        self.Lr = L - bw.bit_length() + 1
+        self.D = _ndigits(q)
+        self.fwd_sched, bnd = _lazy_fwd_schedule(q, self.Lr)
+        Mf = _fwd_matrix(tbl, self.Lr)
+        lazy = _search_split(Mf, q, bw, bnd, "any") if bnd > q else None
+        canon = _search_split(Mf, q, bw, q, "any")
+        ccost = (canon[0][0] + _COST_CSUB * _chain_csubs(bnd, q, q),
+                 canon[0][1])
+        self.fwd_lazy = lazy is not None and lazy[0] <= ccost
+        self.fwd_bound = bnd if self.fwd_lazy else q
+        (self.fwd_base, self.Df, self.wf, self.constf, self.bounds_f,
+         self.groups_f) = (lazy if self.fwd_lazy else canon)[1]
+        self.fwd_off = self.fwd_bound >> 1
+        self.pw_bound = pointwise_bound(q)
+        self.inv_off = self.pw_bound >> 1
+        ipick = _search_split(_inv_matrix(tbl, L - self.Lr), q, bw,
+                              self.pw_bound, _reduce_kind(q))
+        (self.inv_base, self.Di, self.wi, self.consti, self.bounds_i,
+         self.groups_i) = ipick[1]
+        self._derive()
+
+    def _derive(self):
+        q = self.q
+        self.group_bias_f = _group_bias(self.groups_f, self.bounds_f, q)
+        self.group_bias_i = _group_bias(self.groups_i, self.bounds_i, q)
+        # the port's recombination sums the classes one by one in 64 bits
+        # (plain twin) or adds a fixed 2^24 bias to each (CUDA kernel)
+        if max(self.bounds_f + self.bounds_i) >= 1 << 24:
+            raise ValueError(f"q={q}: a digit class sum may reach 2^24")
+
+
+@functools.lru_cache(maxsize=None)
+def get_mxu_tables(name: str, bw: int | None = None) -> MxuTables:
+    return MxuTables(get_tables(name), bw)
+
+
+def from_jax_mxu_tables(mt) -> MxuTables:
+    """The port's bundle from a ``qtesla_tpu.ops.ntt_mxu.MxuTables``, read
+    through its numpy and int fields only (jax is never imported here)."""
+    out = MxuTables.__new__(MxuTables)
+    out.tbl = from_jax_tables(mt.tbl)
+    for f in _FIELDS:
+        v = getattr(mt, f)
+        setattr(out, f, v.copy() if isinstance(v, np.ndarray) else v)
+    out._derive()
+    return out

@@ -49,12 +49,14 @@ def _merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ntt_fwd_merged(x: torch.Tensor, tbl: NttTables,
-                   tw: torch.Tensor | None = None) -> torch.Tensor:
-    """Negacyclic forward NTT, psi merged into the twiddles. nat -> rev."""
+                   tw: torch.Tensor | None = None,
+                   s_hi: int | None = None) -> torch.Tensor:
+    """Negacyclic forward NTT, psi merged into the twiddles. nat -> rev.
+    With ``s_hi``, only stages [0, s_hi) (the MXU path's wide stages)."""
     q, n = tbl.q, tbl.n
     w_all, wsh_all = _rows(tbl, x.device, tw)[0:2]
     v = x
-    for s in range(tbl.logn):
+    for s in range(tbl.logn if s_hi is None else s_hi):
         m, t = 1 << s, n >> (s + 1)
         w, wsh = w_all[m:2 * m, None], wsh_all[m:2 * m, None]
         a, b = _split(v, t)
@@ -64,12 +66,15 @@ def ntt_fwd_merged(x: torch.Tensor, tbl: NttTables,
 
 
 def intt_inv_merged(X: torch.Tensor, tbl: NttTables,
-                    tw: torch.Tensor | None = None) -> torch.Tensor:
-    """Negacyclic inverse NTT, psi^{-1} and n^{-1} merged. rev -> nat."""
+                    tw: torch.Tensor | None = None,
+                    s_lo: int = 0) -> torch.Tensor:
+    """Negacyclic inverse NTT, psi^{-1} and n^{-1} merged. rev -> nat.
+    With ``s_lo``, only stages [s_lo, log2 n) (the MXU path's wide
+    stages)."""
     q, n = tbl.q, tbl.n
     w_all, wsh_all = _rows(tbl, X.device, tw)[2:4]
     v = X
-    for s in range(tbl.logn):
+    for s in range(s_lo, tbl.logn):
         t, h = 1 << s, n >> (s + 1)
         w, wsh = w_all[h:2 * h, None], wsh_all[h:2 * h, None]
         a, b = _split(v, t)

@@ -1,0 +1,365 @@
+"""Digit-matmul (MXU-form) kernels B5-B8: hand-written CUDA for Hopper, with
+their plain PyTorch twins.
+
+Counterpart of the callers of ``qtesla_tpu/ops/ntt_mxu.py``.  Each
+``*_fn(name)`` returns a callable on (B..., n) ``torch.uint32`` tensors:
+
+- ``polymul_mxu_fn``        B5, replaces ``polymul_mxu_fn``'s kernel (ntt_mxu.py:982)
+- ``ntt_mxu_fn``            B6, replaces ``ntt_mxu_fn``'s kernel (l.1041)
+- ``intt_mxu_fn``           B7, replaces ``intt_mxu_fn``'s kernel (l.1061);
+  input below ``pw_bound``
+- ``polymul_fixed_mxu_fn``  B8, replaces ``polymul_fixed_mxu_fn``'s kernel
+  (l.1012); the spectrum is ``ntt_mxu_fn(name)`` (or any canonical forward
+  spectrum) of the constant operand
+
+A transform runs its ``Lr`` wide stages as butterflies and the block-local
+rest as one int8 digit-plane product per block of ``bw`` lanes against the
+planner's tables (``mxu_tables.py``), recombined as
+
+    out = const + group_bias + sum_j c_j * (2^{8j} mod q)   (mod q).
+
+The plain twins follow that structure (the split as ``_digit_planes`` makes
+it, a float64 product, which is exact because every class sum is below
+2^24, and an int64 recombination), so the CPU tests check the ported tables
+and the formula against the JAX kernels.  Every output is canonical.
+
+Dispatch is on the input's device, as in ``ntt_fused``: a CUDA tensor
+launches the kernel of ``csrc/ntt_mxu.cu`` (or raises), a CPU tensor runs
+the twin, anything else raises.  Each launch adds one to its kernel's count
+in ``KERNELS``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import torch
+
+from . import ntt as N
+from .mxu_tables import MxuTables, _split_bias, get_mxu_tables
+from .ntt_fused import Kernel, _check, _check_tw
+
+__all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "host_tables",
+           "device_tables", "plan_for", "block_rows", "polymul_mxu_fn",
+           "polymul_fixed_mxu_fn", "ntt_mxu_fn", "intt_mxu_fn", "polymul_mxu",
+           "polymul_fixed_mxu", "ntt_mxu", "intt_mxu", "polymul_mxu_plain",
+           "polymul_fixed_mxu_plain", "ntt_mxu_plain", "intt_mxu_plain"]
+
+CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_mxu.cu"
+
+# ``smem_rows``: operand rows per batch row held in shared memory
+KERNELS: dict[str, Kernel] = {k.name: k for k in (
+    Kernel("polymul_mxu", "qt_polymul_mxu", "qtesla_tpu/ops/ntt_mxu.py:982",
+           2),
+    Kernel("ntt_mxu", "qt_ntt_mxu", "qtesla_tpu/ops/ntt_mxu.py:1041", 1),
+    Kernel("intt_mxu", "qt_intt_mxu", "qtesla_tpu/ops/ntt_mxu.py:1061", 1),
+    Kernel("polymul_fixed_mxu", "qt_polymul_fixed_mxu",
+           "qtesla_tpu/ops/ntt_mxu.py:1012", 1),
+)}
+
+# operand rows a kernel block holds in shared memory: at most 32 (two
+# 16-row MMA tiles) and 128 KiB of uint32
+_ROW_BYTES = 128 * 1024
+_MAX_ROWS = 32
+_CLASS_BIAS = 1 << 24      # the kernel adds it to each class sum c_j
+
+
+# ----------------------------------------------------------------------
+# Tables on the device.
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MxuDeviceTables:
+    """The planner's tables in the kernel's layout, on one device.
+
+    ``wf`` int8 (nb, D*bw, Df*bw): row j*bw + k' is output lane k' of
+    digit class j, its columns the (plane i, input lane k) pairs at
+    i*bw + k, i.e. ``MxuTables.wf`` with the output axis first; ``wi``
+    likewise.  ``constf`` / ``consti`` uint32 (nb, bw) are the planner's
+    const rows."""
+
+    wf: torch.Tensor
+    constf: torch.Tensor
+    wi: torch.Tensor
+    consti: torch.Tensor
+
+    def tensors(self):
+        return self.wf, self.constf, self.wi, self.consti
+
+
+def _kernel_layout(w) -> torch.Tensor:
+    nb, din, bw, dbw = w.shape
+    return torch.from_numpy(w).permute(0, 3, 1, 2).reshape(
+        nb, dbw, din * bw).contiguous()
+
+
+def host_tables(mt: MxuTables) -> MxuDeviceTables:
+    """The kernel-layout tables on the CPU, in new storage."""
+    return MxuDeviceTables(
+        _kernel_layout(mt.wf), torch.from_numpy(mt.constf[:, 0].copy()),
+        _kernel_layout(mt.wi), torch.from_numpy(mt.consti[:, 0].copy()))
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
+    """``host_tables(mt)`` on ``device``, made once per device."""
+    return MxuDeviceTables(*(t.to(device) for t in host_tables(mt).tensors()))
+
+
+def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
+    nb, bw, D = mt.nb, mt.bw, mt.D
+    want = ((torch.int8, (nb, D * bw, mt.Df * bw)), (torch.uint32, (nb, bw)),
+            (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)))
+    for t, (dtype, shape) in zip(tabs.tensors(), want):
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != like.device or not t.is_contiguous()):
+            raise ValueError(f"MXU tables must be contiguous {dtype} "
+                             f"{shape} tensors on {like.device}")
+
+
+# ----------------------------------------------------------------------
+# Plain versions (int64; float64 for the digit products).
+# ----------------------------------------------------------------------
+
+_I64, _U32 = torch.int64, torch.uint32
+
+
+def _digit_planes(v: torch.Tensor, off: int, D: int,
+                  base: int) -> torch.Tensor:
+    """(..., bw) values -> (..., D*bw) balanced digit planes of v - off,
+    plane i at [i*bw, (i+1)*bw): (v + split_bias - off) mod 2^32 read as
+    int32, low planes its fields minus base/2, the top plane its
+    arithmetic shift."""
+    lb = base.bit_length() - 1
+    a = (v + (_split_bias(D, base) - off)) % (1 << 32)
+    a = torch.where(a >= 1 << 31, a - (1 << 32), a)
+    planes = [((a >> (lb * i)) & (base - 1)) - base // 2
+              for i in range(D - 1)]
+    return torch.cat(planes + [a >> (lb * (D - 1))], dim=-1)
+
+
+def _block_matmul(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
+                  group_bias: int, off: int, din: int, base: int,
+                  mt: MxuTables) -> torch.Tensor:
+    """The block-local stages of one direction on (R, n) int64 values below
+    the split's bound; canonical out."""
+    R, q, bw, nb, D = v.shape[0], mt.q, mt.bw, mt.nb, mt.D
+    planes = _digit_planes(v.reshape(R, nb, bw), off, din, base)
+    # (nb, R, din*bw) @ (nb, din*bw, D*bw): exact in float64 (|c_j| < 2^24)
+    c = torch.bmm(planes.transpose(0, 1).to(torch.float64),
+                  w.to(torch.float64).transpose(1, 2))
+    c = c.to(_I64).transpose(0, 1).reshape(R, nb, D, bw)
+    pw = torch.tensor([pow(2, 8 * j, q) for j in range(D)], dtype=_I64,
+                      device=v.device)
+    out = const.to(_I64) + group_bias + (c * pw[:, None]).sum(dim=2)
+    return (out % q).reshape(R, mt.n)
+
+
+def _fwd_plain(x, mt: MxuTables, tabs: MxuDeviceTables, tw):
+    v = N.ntt_fwd_merged(x.to(_I64), mt.tbl, tw, s_hi=mt.Lr)
+    return _block_matmul(v, tabs.wf, tabs.constf, mt.group_bias_f,
+                         mt.fwd_off, mt.Df, mt.fwd_base, mt)
+
+
+def _inv_plain(X, mt: MxuTables, tabs: MxuDeviceTables, tw):
+    v = _block_matmul(X.to(_I64), tabs.wi, tabs.consti, mt.group_bias_i,
+                      mt.inv_off, mt.Di, mt.inv_base, mt)
+    return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr)
+
+
+def polymul_mxu_plain(x, y, mt: MxuTables, tabs=None, tw=None):
+    tabs = tabs or device_tables(mt, x.device)
+    n = mt.n
+    X = _fwd_plain(x.reshape(-1, n), mt, tabs, tw)
+    Y = _fwd_plain(y.reshape(-1, n), mt, tabs, tw)
+    Z = N.pointwise_mul(X, Y, mt.tbl)
+    return _inv_plain(Z, mt, tabs, tw).to(_U32).reshape(x.shape)
+
+
+def polymul_fixed_mxu_plain(x, yspec, mt: MxuTables, tabs=None, tw=None):
+    tabs = tabs or device_tables(mt, x.device)
+    n = mt.n
+    X = _fwd_plain(x.reshape(-1, n), mt, tabs, tw)
+    Z = N.pointwise_mul(X, yspec.to(_I64).reshape(1, n), mt.tbl)
+    return _inv_plain(Z, mt, tabs, tw).to(_U32).reshape(x.shape)
+
+
+def ntt_mxu_plain(x, mt: MxuTables, tabs=None, tw=None):
+    tabs = tabs or device_tables(mt, x.device)
+    return _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw).to(_U32).reshape(
+        x.shape)
+
+
+def intt_mxu_plain(X, mt: MxuTables, tabs=None, tw=None):
+    tabs = tabs or device_tables(mt, X.device)
+    return _inv_plain(X.reshape(-1, mt.n), mt, tabs, tw).to(_U32).reshape(
+        X.shape)
+
+
+# ----------------------------------------------------------------------
+# Kernel launch.
+# ----------------------------------------------------------------------
+
+class MxuPlan(ctypes.Structure):
+    """The plan values the kernels take at run time; field for field the
+    ``MxuPlan`` struct of ``csrc/ntt_mxu.cu``."""
+
+    _fields_ = [(f, ctypes.c_int32) for f in (
+        "n", "logn", "bw", "nb", "lr", "d", "rows", "df", "fwd_lb")] + [
+        ("fwd_add", ctypes.c_uint32), ("di", ctypes.c_int32),
+        ("inv_lb", ctypes.c_int32)] + [(f, ctypes.c_uint32) for f in (
+            "inv_add", "q", "r32", "r32_sh", "one_sh", "kbf", "kbi")] + [
+        ("pw", ctypes.c_uint32 * 4), ("pw_sh", ctypes.c_uint32 * 4)]
+
+
+def block_rows(n: int, ops: int) -> int:
+    """Operand rows a kernel block holds: a multiple of ``ops`` (2 for B5,
+    whose x and y rows share the digit products), at most 32 and 128 KiB of
+    uint32."""
+    rows = min(_MAX_ROWS, _ROW_BYTES // (4 * n))
+    return rows - rows % ops
+
+
+@functools.lru_cache(maxsize=None)
+def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
+    q, D = mt.q, mt.D
+    if D > 4 or max(mt.Df, mt.Di) > 6 or mt.bw % 32:
+        raise ValueError(f"{mt.tbl.ps.name}: MXU plan (D={D}, Df={mt.Df}, "
+                         f"Di={mt.Di}, bw={mt.bw}) is outside the kernels' "
+                         f"range")
+    rows = block_rows(mt.n, ops)
+    if rows < ops:
+        raise ValueError(f"n={mt.n}: a row does not fit the kernels' shared "
+                         f"memory")
+    pw = [pow(2, 8 * j, q) for j in range(D)] + [0] * (4 - D)
+    bias = _CLASS_BIAS * sum(pw)
+    ps = mt.tbl.ps
+    return MxuPlan(
+        n=mt.n, logn=mt.logn, bw=mt.bw, nb=mt.nb, lr=mt.Lr, d=D, rows=rows,
+        df=mt.Df, fwd_lb=mt.fwd_base.bit_length() - 1,
+        fwd_add=(_split_bias(mt.Df, mt.fwd_base) - mt.fwd_off) % (1 << 32),
+        di=mt.Di,
+        inv_lb=mt.inv_base.bit_length() - 1,
+        inv_add=(_split_bias(mt.Di, mt.inv_base) - mt.inv_off) % (1 << 32),
+        q=q, r32=ps.r32,
+        r32_sh=ps.r32_shoup, one_sh=ps.one_shoup,
+        kbf=(mt.group_bias_f - bias) % q, kbi=(mt.group_bias_i - bias) % q,
+        pw=(ctypes.c_uint32 * 4)(*pw),
+        pw_sh=(ctypes.c_uint32 * 4)(*((w << 32) // q for w in pw)))
+
+
+def _launch(kernel: Kernel, mt: MxuTables, tabs: MxuDeviceTables,
+            tw: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
+    """Run ``kernel`` on CUDA tensors a (and b) into a new output."""
+    from ..utils.build import load_library
+
+    plan = plan_for(mt, kernel.smem_rows)
+    out = torch.empty_like(a)
+    batch = a.numel() // mt.n
+    if batch == 0:
+        return out
+    lib = load_library()
+    ptr = [t.data_ptr() for t in tabs.tensors()]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = getattr(lib.cdll, kernel.symbol)(
+            a.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), *ptr, tw.data_ptr(), batch,
+            ctypes.addressof(plan), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.symbol} launch failed: cudaError {err} "
+                           f"({lib.error_string(err)})")
+    kernel.launches += 1
+    return out
+
+
+def _prepare(mt: MxuTables, tabs, tw, *tensors):
+    n = mt.n
+    for i, t in enumerate(tensors):
+        _check(f"operand {i}", t, n)
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError(f"operand {i}: the kernels need 16-byte aligned "
+                             f"data")
+    first = tensors[0]
+    for t in tensors[1:]:
+        if t.device != first.device:
+            raise ValueError(f"operands on {first.device} and {t.device}")
+    if tw is None:
+        tw = N.twiddles(mt.tbl, first.device)
+    _check_tw(tw, first, n)
+    if tabs is None:
+        tabs = device_tables(mt, first.device)
+    _check_tables(tabs, mt, first)
+    return tabs, tw
+
+
+# ----------------------------------------------------------------------
+# Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
+# ----------------------------------------------------------------------
+
+def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+    """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors of
+    canonical residues."""
+    tabs, tw = _prepare(mt, tabs, tw, x, y)
+    if x.shape != y.shape:
+        raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
+                         f"{tuple(y.shape)}")
+    if x.is_cuda:
+        return _launch(KERNELS["polymul_mxu"], mt, tabs, tw, x, y)
+    return polymul_mxu_plain(x, y, mt, tabs, tw)
+
+
+def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
+                      tw=None) -> torch.Tensor:
+    """x (B..., n) times the constant whose canonical forward spectrum is
+    ``yspec`` (n values), broadcast over the batch."""
+    tabs, tw = _prepare(mt, tabs, tw, x, yspec)
+    if yspec.numel() != mt.n:
+        raise ValueError(f"spectrum must hold n={mt.n} values, got "
+                         f"{tuple(yspec.shape)}")
+    if x.is_cuda:
+        return _launch(KERNELS["polymul_fixed_mxu"], mt, tabs, tw, x, yspec)
+    return polymul_fixed_mxu_plain(x, yspec, mt, tabs, tw)
+
+
+def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+    """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
+    tabs, tw = _prepare(mt, tabs, tw, x)
+    if x.is_cuda:
+        return _launch(KERNELS["ntt_mxu"], mt, tabs, tw, x, None)
+    return ntt_mxu_plain(x, mt, tabs, tw)
+
+
+def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+    """Inverse merged-psi NTT (rev -> nat) of values below
+    ``mt.pw_bound``, canonical out."""
+    tabs, tw = _prepare(mt, tabs, tw, X)
+    if X.is_cuda:
+        return _launch(KERNELS["intt_mxu"], mt, tabs, tw, X, None)
+    return intt_mxu_plain(X, mt, tabs, tw)
+
+
+@functools.lru_cache(maxsize=None)
+def polymul_mxu_fn(name: str):
+    """(x, y) -> z negacyclic polymul for one parameter set (B5)."""
+    return functools.partial(polymul_mxu, mt=get_mxu_tables(name))
+
+
+@functools.lru_cache(maxsize=None)
+def polymul_fixed_mxu_fn(name: str):
+    """(x, yspec) -> z against a precomputed spectrum (B8)."""
+    return functools.partial(polymul_fixed_mxu, mt=get_mxu_tables(name))
+
+
+@functools.lru_cache(maxsize=None)
+def ntt_mxu_fn(name: str):
+    """x -> forward spectrum, nat -> rev (B6)."""
+    return functools.partial(ntt_mxu, mt=get_mxu_tables(name))
+
+
+@functools.lru_cache(maxsize=None)
+def intt_mxu_fn(name: str):
+    """X -> inverse transform, rev -> nat, for X below pw_bound (B7)."""
+    return functools.partial(intt_mxu, mt=get_mxu_tables(name))

@@ -74,6 +74,20 @@ class NttTables:
         self.packed = packed
         self.fwd_tw, self.fwd_tw_shoup, self.inv_tw, self.inv_tw_shoup = packed
 
+        # (L, n) per-lane stage twiddles: lane j of stage s sees its block's
+        # twiddle; the MXU planner (mxu_tables.py) builds its stage matrices
+        # from these
+        j = np.arange(n)
+        self.ct_fwd_full = np.stack([
+            np.repeat(w.reshape(-1), n >> s) for s, (w, _) in
+            enumerate(self.ct_fwd_stages)])
+        inv_full = np.stack([
+            np.repeat(w.reshape(-1), 2 << s) for s, (w, _) in
+            enumerate(self.gs_inv_stages)])
+        # last stage: the sum branch (bit n/2 clear) takes n^{-1}
+        inv_full[L - 1, (j & (n >> 1)) == 0] = self.ninv_fold[0].reshape(-1)
+        self.gs_inv_full = inv_full
+
 
 def _pair(w: np.ndarray, q: int):
     w = w.astype(np.uint32)

@@ -2,9 +2,11 @@
 
 ``load_library()`` compiles every ``qtesla_tpu_torch/csrc/*.cu`` into one
 shared library with a plain C interface, at first use, into ``build/`` at the
-repository root (the parent of the package directory).  The file name carries
-a hash of the sources and flags, so an edited source builds anew.  There is
-no fallback: a missing ``nvcc`` or a failed build raises.
+repository root (the parent of the package directory): one nvcc per source,
+all started together, then one link.  The file name carries a hash of the
+sources, the headers (``*.cuh``) and the flags, so an edited source or header
+builds anew.  There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 
 Nothing is built when this module is imported.
 """
@@ -29,15 +31,24 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# every launcher in csrc/ntt_fused.cu shares one C signature:
-# (a, b, out, twiddles, batch, n, logn, q, r32, r32_shoup, one_shoup, stream)
-LAUNCHERS = ("qt_polymul_fused", "qt_polymul_fixed_fused", "qt_ntt_fused",
-             "qt_intt_fused")
-_LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                    + [ctypes.c_uint32] * 4 + [ctypes.c_void_p])
+_P = ctypes.c_void_p
+# csrc/ntt_fused.cu: (a, b, out, twiddles, batch, n, logn, q, r32,
+# r32_shoup, one_shoup, stream)
+_FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+          + [ctypes.c_uint32] * 4 + [_P])
+# csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
+# &plan, stream)
+_MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
+
+# every launcher symbol and its C signature
+LAUNCHERS = {
+    "qt_polymul_fused": _FUSED, "qt_polymul_fixed_fused": _FUSED,
+    "qt_ntt_fused": _FUSED, "qt_intt_fused": _FUSED,
+    "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
+    "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,
+}
 
 
 @dataclass(frozen=True)
@@ -65,8 +76,9 @@ def find_nvcc() -> str:
                        "/usr/local/cuda); the CUDA kernels cannot be built")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc: Path = CSRC_DIR) -> list[Path]:
+    """The files the build reads: the .cu sources and the .cuh headers."""
+    return sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")])
 
 
 def _digest(sources: list[Path]) -> str:
@@ -77,30 +89,49 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their output, or RuntimeError naming the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> Library:
     sources = _sources()
-    if not sources:
+    units = [s for s in sources if s.suffix == ".cu"]
+    if not units:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     path = BUILD_DIR / f"libqtesla_tpu_torch_{_digest(sources)}.so"
     seconds, log = 0.0, ""
     if not path.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{path.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(u)]
+                        for u, o in zip(units, objs)])
+            log += _run([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
         os.replace(tmp, path)
     cdll = ctypes.CDLL(str(path))
-    for name in LAUNCHERS:
+    for name, argtypes in LAUNCHERS.items():
         fn = getattr(cdll, name)
-        fn.argtypes = _LAUNCH_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     cdll.qt_error_string.argtypes = [ctypes.c_int]
     cdll.qt_error_string.restype = ctypes.c_char_p

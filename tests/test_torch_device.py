@@ -1,9 +1,10 @@
 """Contract of the port's device dispatch and kernel wrappers.
 
 - ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
-- The wrappers raise on a wrong dtype, a wrong n, a non-contiguous tensor, an
-  unsupported device and an unsupported algo; nothing is built at import and
-  a missing nvcc raises instead of falling back.
+- The wrappers (fused B1-B4 and digit-matmul B5-B8) raise on a wrong dtype,
+  a wrong n, a non-contiguous tensor, an unsupported device and an
+  unsupported algo; nothing is built at import and a missing nvcc raises
+  instead of falling back.  Editing a header changes the build's hash.
 - CPU tensors run the plain versions: no kernel's launch count moves.
 - Tests marked ``cuda`` compare each kernel with its plain version on the
   card; without one they skip.  On a GPU host run them with
@@ -24,6 +25,8 @@ import torch
 from qtesla_tpu_torch import register_param_set
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt_fused as F
+from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.utils import build
 
@@ -51,6 +54,11 @@ assert (z[0].numpy() == want.astype(np.uint32)).all()
 assert (intt(ntt(x, ps, "fused"), ps, "fused") == x).all()
 prep, mul = polymul_fixed_fn(ps.name, "fused")
 mul(x, prep(y[:1]))
+assert (polymul_negacyclic(x, y, ps, algo="mxu") == z).all()
+assert (intt(ntt(x, ps, "mxu"), ps, "mxu") == x).all()
+prep, mul = polymul_fixed_fn(ps.name)
+assert (mul(x, prep(y[:1])) == polymul_fixed_fn(ps.name, "fused")[1](
+    x, prep(y[:1]))).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
 """
@@ -94,7 +102,7 @@ def test_wrappers_reject_bad_input():
         F.ntt_fused(x, tbl, tw=torch.zeros((4, n), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("algo", ["mxu", "mxu-folded", "stockham", "gs_ct",
+@pytest.mark.parametrize("algo", ["gs_gs", "mxu-folded", "stockham", "gs_ct",
                                   "four_step", "nussbaumer", "ct_gs_kernel"])
 def test_unported_algos_raise_not_implemented(algo):
     x = _u32(1, 32)
@@ -104,10 +112,10 @@ def test_unported_algos_raise_not_implemented(algo):
         TP.polymul_fn("smallprime", algo)
     with pytest.raises(ValueError, match="unknown algo"):
         TP.polymul_fn("smallprime", algo + "-nope")
-    if algo in ("mxu", "mxu-folded"):
+    if algo == "mxu-folded":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TP.polymul_fixed_fn("smallprime", algo)
-    if algo in ("mxu", "stockham"):
+    if algo == "stockham":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TP.ntt(x, "smallprime", algo)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -126,18 +134,72 @@ def test_empty_and_unbatched_inputs():
                                   F.polymul_fused(x, y, tbl)[0].numpy())
 
 
+def test_mxu_wrappers_reject_bad_input():
+    mt = get_mxu_tables("smallprime")
+    n = mt.n
+    x = _u32(2, n)
+    with pytest.raises(TypeError, match="uint32"):
+        M.polymul_mxu(x.to(torch.int64), x, mt)
+    with pytest.raises(TypeError, match="uint32"):
+        M.ntt_mxu(x.to(torch.int32), mt)
+    with pytest.raises(ValueError, match="n=32"):
+        M.intt_mxu(_u32(2, 2 * n), mt)
+    with pytest.raises(ValueError, match="n=32"):
+        TP.polymul_negacyclic(_u32(2, 16), _u32(2, 16), "smallprime",
+                              algo="mxu")
+    with pytest.raises(ValueError, match="contiguous"):
+        M.polymul_mxu(_u32(2, 2 * n)[:, ::2], x, mt)
+    with pytest.raises(ValueError, match="shapes differ"):
+        M.polymul_mxu(x, _u32(3, n), mt)
+    with pytest.raises(ValueError, match="spectrum"):
+        M.polymul_fixed_mxu(x, _u32(2, n), mt)
+    meta = torch.empty((2, n), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        M.polymul_mxu(meta, meta, mt)
+    tabs = M.host_tables(mt)
+    bad = M.MxuDeviceTables(tabs.wf.to(torch.int32), *tabs.tensors()[1:])
+    with pytest.raises(ValueError, match="MXU tables"):
+        M.ntt_mxu(x, mt, tabs=bad)
+
+
 def test_cpu_runs_launch_no_kernel():
     assert set(F.KERNELS) == {"polymul_fused", "polymul_fixed_fused",
                               "ntt_fused", "intt_fused"}
-    for k in F.KERNELS.values():
+    assert set(M.KERNELS) == {"polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
+                              "intt_mxu"}
+    kernels = [*F.KERNELS.values(), *M.KERNELS.values()]
+    for k in kernels:
         k.launches = 0
     tbl = get_tables("smallprime")
+    mt = get_mxu_tables("smallprime")
     x, y = _u32(3, tbl.n, 1), _u32(3, tbl.n, 2)
     F.polymul_fused(x, y, tbl)
     F.polymul_fixed_fused(x, F.ntt_fused(y[:1], tbl), tbl)
     F.intt_fused(F.ntt_fused(x, tbl), tbl)
     TP.NegacyclicPolymul("smallprime")(x, y, "fused")
-    assert all(k.launches == 0 for k in F.KERNELS.values())
+    M.polymul_mxu(x, y, mt)
+    M.polymul_fixed_mxu(x, M.ntt_mxu(y[:1], mt), mt)
+    M.intt_mxu(M.ntt_mxu(x, mt), mt)
+    TP.NegacyclicPolymul("smallprime")(x, y, "mxu")
+    prep, mul = TP.polymul_fixed_fn("smallprime")
+    mul(x, prep(y[:1]))
+    assert all(k.launches == 0 for k in kernels)
+
+
+def test_mxu_plan_matches_kernel_limits():
+    """The C plan carries the planner's values; every registered set fits
+    the kernels' limits (at most 4 classes, 6 planes, 32 rows a block)."""
+    for name in SETS:
+        mt = get_mxu_tables(name)
+        for ops in (1, 2):
+            plan = M.plan_for(mt, ops)
+            assert plan.rows % ops == 0 and 0 < plan.rows <= 32
+            assert plan.rows * mt.n * 4 <= 128 * 1024
+            assert (plan.n, plan.lr, plan.d, plan.df, plan.di) == (
+                mt.n, mt.Lr, mt.D, mt.Df, mt.Di)
+            assert list(plan.pw)[:mt.D] == [pow(2, 8 * j, mt.q)
+                                           for j in range(mt.D)]
+    assert M.block_rows(8192, 2) == 4 and M.block_rows(1024, 2) == 32
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -156,13 +218,39 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert [p.name for p in build.CSRC_DIR.glob("*.cu")] == ["ntt_fused.cu"]
-    src = (build.CSRC_DIR / "ntt_fused.cu").read_text()
-    for name in build.LAUNCHERS:
-        assert f"QT_LAUNCHER({name}," in src
+    assert [p.name for p in build._sources()] == [
+        "modq.cuh", "ntt_fused.cu", "ntt_mxu.cu"]
+    src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
+           .read_text() for mod in (F, M)}
+    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M)
+                                    for k in mod.KERNELS.values()}
     for k in F.KERNELS.values():
-        assert k.symbol in build.LAUNCHERS
+        assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
+        assert len(build.LAUNCHERS[k.symbol]) == 12
+    for k in M.KERNELS.values():
+        assert f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
+        assert k.replaces.startswith("qtesla_tpu/ops/ntt_mxu.py:")
+        assert len(build.LAUNCHERS[k.symbol]) == 11
+    # the C struct and the ctypes one name the same fields in one order
+    body = src[M].split("struct MxuPlan {")[1].split("};")[0]
+    c_fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        names = decl.split(None, 1)[1]
+        c_fields += [f.strip().split("[")[0] for f in names.split(",")]
+    assert c_fields == [f for f, _ in M.MxuPlan._fields_]
+
+
+def test_header_edit_changes_digest(tmp_path):
+    """Editing a .cuh header changes the library's hash, so a build never
+    reuses a library made from an older header."""
+    for src in build._sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    before = build._digest(build._sources(tmp_path))
+    header = tmp_path / "modq.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build._digest(build._sources(tmp_path)) != before
+    assert header in build._sources(tmp_path)
 
 
 # ----------------------------------------------------------------------
@@ -205,3 +293,36 @@ def test_kernels_match_plain_on_card(cuda_device, name):
                                           want.cpu().numpy())
         assert all(v.launches == before[k] + 1
                    for k, v in F.KERNELS.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_mxu_kernels_match_plain_on_card(cuda_device, name):
+    """B5-B8 against their twins; B7 takes inputs below pw_bound."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    mt = get_mxu_tables(name)
+    q, n = mt.q, mt.n
+    rng = np.random.default_rng(22)
+    for batch in (1, 3, 64):
+        xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
+        xy[0, 0] = q - 1
+        lazy = rng.integers(0, mt.pw_bound, (batch, n), dtype=np.uint32)
+        lazy[0] = mt.pw_bound - 1
+        x, y, lazy = (torch.from_numpy(v).to(cuda_device)
+                      for v in (xy[0], xy[1], lazy))
+        spec = M.ntt_mxu_plain(y[:1], mt)
+        before = {k: v.launches for k, v in M.KERNELS.items()}
+        pairs = [
+            (M.polymul_mxu(x, y, mt), M.polymul_mxu_plain(x, y, mt)),
+            (M.polymul_fixed_mxu(x, spec, mt),
+             M.polymul_fixed_mxu_plain(x, spec, mt)),
+            (M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt)),
+            (M.intt_mxu(lazy, mt), M.intt_mxu_plain(lazy, mt)),
+        ]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+        assert all(v.launches == before[k] + 1
+                   for k, v in M.KERNELS.items())

@@ -1,5 +1,6 @@
 """qtesla_tpu_torch.ops.modmul (int64 tensors holding uint32) against
-qtesla_tpu.ops.modmul (jnp uint32), bit for bit, for every registered q.
+qtesla_tpu.ops.modmul (jnp uint32), bit for bit, for every registered q,
+including fast_reduce_2q and its sparse shift-add plan.
 
 Tolerance: none; every value is an exact residue or uint32 word.  Inputs are
 made with numpy from a seed and fed to both sides."""
@@ -104,3 +105,25 @@ def test_mulmod_barrett(name):
     np.testing.assert_array_equal(got, want)
     exact = (x.astype(object) * y.astype(object)) % q
     np.testing.assert_array_equal(got, exact.astype(np.uint32))
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_fast_reduce_2q(name):
+    """sparse_reduce_plan equals JAX's, and fast_reduce_2q is bit-equal to
+    JAX's (sparse shift-add or sloppy-Shoup route) on random uint32, 0 and
+    2^32 - 1, landing in [0, 2q)."""
+    ps = get_params(name)
+    q = ps.q
+    assert T.sparse_reduce_plan(q) == J.sparse_reduce_plan(q)
+    rng = np.random.default_rng(5)
+    x = np.concatenate([np.array([0, 1, q - 1, q, 2 * q - 1, U32_MAX],
+                                 dtype=np.uint32),
+                        rng.integers(0, 1 << 32, 4096,
+                                     dtype=np.uint64).astype(np.uint32)])
+    got = _np(T.fast_reduce_2q(_torch(x), q, ps.one_shoup))
+    want = _jax(J.fast_reduce_2q, jnp.asarray(x), q, ps.one_shoup,
+                static=(1, 2))
+    np.testing.assert_array_equal(got, want)
+    assert int(got.max()) < 2 * q
+    np.testing.assert_array_equal(got % q, x.astype(np.uint64) % q)
+

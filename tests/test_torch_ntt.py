@@ -3,7 +3,8 @@ package.
 
 - tables: ``get_tables(name)`` (built from qtesla_tpu.params) equals
   ``from_jax_tables(qtesla_tpu.ops.tables.get_tables(name))`` and the JAX
-  stage arrays, and the compact kernel rows are the merged-psi tables.
+  stage arrays and (L, n) per-lane tables, and the compact kernel rows are
+  the merged-psi tables.
 - transforms: ``ntt_fwd_merged``, ``intt_inv_merged`` and ``pointwise_mul``
   equal the JAX jnp functions on the same numpy inputs.
 
@@ -46,6 +47,12 @@ def test_tables_match_jax(name):
         _pairs_equal(t.gs_inv_stages, jtbl.gs_inv_stages)
         _pairs_equal([t.ninv_fold], [jtbl.ninv_fold])
     np.testing.assert_array_equal(mine.packed, via_jax.packed)
+    # the (L, n) per-lane stage twiddles the MXU planner reads
+    for t in (mine, via_jax):
+        for field in ("ct_fwd_full", "gs_inv_full"):
+            got, want = getattr(t, field), getattr(jtbl, field)
+            assert got.dtype == np.uint32
+            np.testing.assert_array_equal(got, want)
 
     # the compact rows are the merged-psi tables, n^{-1} folded into the
     # last inverse stage (entries 0 and 1 of row 2)
