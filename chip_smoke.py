@@ -10,18 +10,23 @@ script exits non-zero without printing a result:
    limit, and the torch, CUDA and nvcc versions.
 1. build the hand-written kernels (csrc/*.cu, one nvcc per source, all
    started together, for sm_90a).
-2. kernel against plain version, on the card: the fused kernels B1-B4 and
-   the digit-matmul kernels B5-B8 for every registered parameter set plus
-   n = 8192 on the qtesla-iii-speed prime, B in {1, 3, 64}, random and
-   worst-case operands, bit for bit (tolerance 0: every value is an exact
-   residue); intt(ntt(x)) == x; B5 == B1 and B6 == B2 on the same inputs.
-   B3 takes inputs below 2q, B7 below the MXU plan's pw_bound.
+2. kernel against plain version, on the card: the fused kernels B1-B4, the
+   digit-matmul kernels B5-B9 and the five pairing kernels B10 for every
+   registered parameter set plus n = 8192 on the qtesla-iii-speed prime,
+   B in {1, 3, 64}, random and worst-case operands, bit for bit (tolerance
+   0: every value is an exact residue); B9 also for the all-0 and all-(q-1)
+   diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
+   B10 pairing == B1 on the same inputs.  B3 takes inputs below 2q, B7
+   below the MXU plan's pw_bound.  B9's prepare time (B6, host tables,
+   copies) is printed per set.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
-   polymul_fixed_fn (B6, B8), intt(algo="mxu"), and the same three with
-   algo="fused" (B1, B2, B4, B3), with every launch count reset just before
-   and read just after (each kernel exactly once); the outputs must equal
-   the plain versions on the card, the two algos each other, and 8 rows the
+   polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
+   algo="fused" (B1, B2, B4, B3), the "mxu-folded" fixed pair (B6, B9) and
+   polymul_negacyclic(algo=p + "_kernel") for the five pairings (B10), with
+   every launch count reset just before and read just after (B6 twice, each
+   other kernel once); the outputs must equal the plain versions on the
+   card and each other, and 8 rows of the mxu and the folded products the
    big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
@@ -46,6 +51,7 @@ from qtesla_tpu_torch import (available_param_sets, get_params,
 from qtesla_tpu_torch.models import intt, polymul_fixed_fn, polymul_negacyclic
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
@@ -59,8 +65,10 @@ SMALL_BATCHES = (1, 3, 64)
 # block and streams 22 MB of digit tables
 WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
 # every kernel: (registry entry, CUDA source)
-KERNELS = {**{name: (k, F.CUDA_SOURCE) for name, k in F.KERNELS.items()},
-           **{name: (k, M.CUDA_SOURCE) for name, k in M.KERNELS.items()}}
+KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P)
+           for name, k in mod.KERNELS.items()}
+# launches the main path makes: B6 prepares both fixed-operand forms
+EXPECTED_LAUNCHES = {name: 2 if name == "ntt_mxu" else 1 for name in KERNELS}
 SEED = 20261016
 ORACLE_ROWS = (0, 1, 2, 3, MAIN_BATCH - 4, MAIN_BATCH - 3, MAIN_BATCH - 2,
                MAIN_BATCH - 1)
@@ -109,6 +117,20 @@ def _record(errors: dict, kname: str, what: str, got, want) -> None:
     errors[kname] = max(errors[kname], expect_equal(what, got, want))
 
 
+def fold_prep_seconds(name: str, a: torch.Tensor) -> tuple[float, float]:
+    """Host seconds of the "mxu-folded" prepare of one constant, first (with
+    the per-set inverse blocks) and second call, each synchronised."""
+    prep = polymul_fixed_fn(name, "mxu-folded")[0]
+    out = []
+    for _ in range(2):
+        done()
+        start = time.perf_counter()
+        prep(a)
+        done()
+        out.append(time.perf_counter() - start)
+    return out[0], out[1]
+
+
 def kernels_against_plain(errors: dict) -> None:
     dev = torch.device("cuda")
     register_param_set(*WIDE_SET)
@@ -119,6 +141,14 @@ def kernels_against_plain(errors: dict) -> None:
         plan_s = time.perf_counter() - start
         q, n = tbl.q, tbl.n
         rng = np.random.default_rng(SEED)
+        cold_s, prep_s = fold_prep_seconds(
+            name, torch.from_numpy(rng.integers(0, q, n, dtype=np.uint32))
+            .to(dev))
+        # the all-0 and all-(q-1) diagonals through the shared fold plan
+        diagonals = [torch.full((n,), d, dtype=torch.int64,
+                                device=dev).to(torch.uint32)
+                     for d in (0, q - 1)]
+        diag_ops = [M.fold_operand(d, mt) for d in diagonals]
         for B in SMALL_BATCHES:
             for kind in ("random", "worst"):
                 if kind == "random":
@@ -154,15 +184,33 @@ def kernels_against_plain(errors: dict) -> None:
                         expect_equal(f"B5 == B1 {tag}", got, cases[0][1])
                     if kname == "ntt_mxu":
                         expect_equal(f"B6 == B2 {tag}", got, cases[2][1])
+                folded = [(spec, M.fold_operand(spec, mt))]
+                folded += zip(diagonals, diag_ops)
+                for i, (sp, op) in enumerate(folded):
+                    got = M.polymul_fixed_folded_mxu(x, op, mt)
+                    _record(errors, "polymul_fixed_folded_mxu",
+                            f"B9 {tag} spectrum {i}", got,
+                            M.polymul_fixed_folded_mxu_plain(x, op, mt))
+                    expect_equal(f"B9 == B8 {tag} spectrum {i}", got,
+                                 M.polymul_fixed_mxu(x, sp, mt))
+                for p in P.PAIRINGS:
+                    kname = f"polymul_pairing_{p}"
+                    got = P.polymul_pairing(x, y, tbl, p)
+                    _record(errors, kname, f"{kname} {tag}", got,
+                            P.polymul_pairing_plain(x, y, tbl, p))
+                    expect_equal(f"B10 {p} == B1 {tag}", got, cases[0][1])
                 back = F.intt_fused(F.ntt_fused(x, tbl), tbl)
                 expect_equal(f"intt(ntt(x)) fused {tag}", back, x)
                 back = M.intt_mxu(M.ntt_mxu(x, mt), mt)
                 expect_equal(f"intt(ntt(x)) mxu {tag}", back, x)
         print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
               f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
-              f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}): B1-B8 equal to "
-              f"plain for B in {SMALL_BATCHES}, random and worst-case; "
-              f"B5 == B1, B6 == B2; intt(ntt(x)) == x", flush=True)
+              f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}; B9 prepare "
+              f"{prep_s * 1e3:.1f} ms, first {cold_s * 1e3:.1f} ms): B1-B10 "
+              f"equal to plain for B in {SMALL_BATCHES}, random and "
+              f"worst-case, B9 also for the 0 and q-1 diagonals; B5 == B1, "
+              f"B6 == B2, B9 == B8, B10 == B1; intt(ntt(x)) == x",
+              flush=True)
     done()
 
 
@@ -191,11 +239,17 @@ def main_path(errors: dict, seed: int) -> dict:
                      else polymul_fixed_fn(MAIN_SET, algo))
         A = prep(a)
         out[algo] = (z, A, mul(x, A), intt(A, MAIN_SET, algo))
+    prep, mul = polymul_fixed_fn(MAIN_SET, "mxu-folded")
+    a_op = prep(a)
+    z_folded = mul(x, a_op)
+    z_pair = {p: polymul_negacyclic(x, y, MAIN_SET, algo=p + "_kernel")
+              for p in P.PAIRINGS}
     done()
     launches = {name: k.launches for name, (k, _) in KERNELS.items()}
     print(f"launches in the main-path run: {launches}")
-    if launches != {name: 1 for name in KERNELS}:
-        raise AssertionError(f"launch counts {launches}, expected 1 each")
+    if launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"launch counts {launches}, expected "
+                             f"{EXPECTED_LAUNCHES}")
 
     want_z = F.polymul_plain(x, y, tbl)
     want_A = F.ntt_plain(a, tbl)
@@ -215,18 +269,39 @@ def main_path(errors: dict, seed: int) -> dict:
     expect_equal("B8 == B4 on the main path", out["mxu"][2], out["fused"][2])
     _record(errors, "polymul_mxu", "B5 against its twin",
             out["mxu"][0], M.polymul_mxu_plain(x, y, mt))
+    expect_canonical("z mxu-folded", z_folded, (B, n), q)
+    _record(errors, "polymul_fixed_folded_mxu", "folded fixed path",
+            z_folded, want_zf)
+    _record(errors, "polymul_fixed_folded_mxu", "B9 against its twin",
+            z_folded, M.polymul_fixed_folded_mxu_plain(x, a_op, mt))
+    expect_equal("B9 == B8 on the main path", z_folded, out["mxu"][2])
+    for p, z in z_pair.items():
+        kname = f"polymul_pairing_{p}"
+        expect_canonical(f"z {p}_kernel", z, (B, n), q)
+        _record(errors, kname, f"main path z {p}_kernel", z, want_z)
+        _record(errors, kname, f"{kname} against its twin", z,
+                P.polymul_pairing_plain(x, y, tbl, p))
+        expect_equal(f"B10 {p} == B1 on the main path", z, out["fused"][0])
     done()
-    print(f"main path: z and the fixed-operand product ({B} x {n}) of both "
-          f"algos equal the plain versions and each other on the card")
+    print(f"main path: z and the fixed-operand products ({B} x {n}) of every "
+          f"algo (mxu, fused, mxu-folded, the five pairing kernels) equal "
+          f"the plain versions and each other on the card")
 
-    zc, xc, yc = (np.concatenate([t[:4].cpu().numpy(), t[-4:].cpu().numpy()])
-                  for t in (out["mxu"][0], x, y))
-    for i, row in enumerate(ORACLE_ROWS):
-        want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(np.uint32)
-        if not np.array_equal(zc[i], want):
-            raise AssertionError(f"row {row} differs from the big-int oracle")
-    print(f"main path: rows {ORACLE_ROWS} of algo='mxu' equal the big-int "
-          f"oracle")
+    rows = [(name, *(np.concatenate([t[:4].cpu().numpy(),
+                                     t[-4:].cpu().numpy()])
+                     for t in (z, x, other)))
+            for name, z, other in (
+                ("mxu", out["mxu"][0], y),
+                ("mxu-folded", z_folded, a.expand(B, n)))]
+    for name, zc, xc, yc in rows:
+        for i, row in enumerate(ORACLE_ROWS):
+            want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(
+                np.uint32)
+            if not np.array_equal(zc[i], want):
+                raise AssertionError(f"{name} row {row} differs from the "
+                                     f"big-int oracle")
+        print(f"main path: rows {ORACLE_ROWS} of algo={name!r} equal the "
+              f"big-int oracle")
     return launches
 
 
@@ -239,6 +314,7 @@ def timing(device_line: str) -> dict:
     x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
                           dtype=torch.int64).to(torch.uint32) for _ in range(2))
     spec = F.ntt_fused(y[:1], tbl)
+    op = M.fold_operand(spec, mt)
     runs = {
         "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
         "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
@@ -250,6 +326,12 @@ def timing(device_line: str) -> dict:
                               (x, spec, mt)),
         "ntt_mxu": (M.ntt_mxu, M.ntt_mxu_plain, (x, mt)),
         "intt_mxu": (M.intt_mxu, M.intt_mxu_plain, (x, mt)),
+        "polymul_fixed_folded_mxu": (M.polymul_fixed_folded_mxu,
+                                     M.polymul_fixed_folded_mxu_plain,
+                                     (x, op, mt)),
+        **{f"polymul_pairing_{p}": (P.polymul_pairing,
+                                    P.polymul_pairing_plain, (x, y, tbl, p))
+           for p in P.PAIRINGS},
     }
     out = {}
     for name, (kern, plain, args) in runs.items():
@@ -275,6 +357,12 @@ def timing(device_line: str) -> dict:
                   f"{B / (med / 1e3):.0f} rows/s [{device_line}]", flush=True)
         out[name] = res
     done()
+    med = {name: res["kernel"][1] for name, res in out.items()}
+    print(f"same inputs: B9 {med['polymul_fixed_folded_mxu']:.4f} ms, "
+          f"B8 {med['polymul_fixed_mxu']:.4f}, "
+          f"B4 {med['polymul_fixed_fused']:.4f}; "
+          f"B10 gs_ct {med['polymul_pairing_gs_ct']:.4f} ms, "
+          f"B1 {med['polymul_fused']:.4f} [{device_line}]")
     return out
 
 

@@ -5,6 +5,8 @@
 //   qt_ntt_mxu            <- ntt_mxu_fn's kernel           (l.1041) B6
 //   qt_intt_mxu           <- intt_mxu_fn's kernel          (l.1061) B7
 //   qt_polymul_fixed_mxu  <- polymul_fixed_mxu_fn's kernel (l.1012) B8
+//   qt_polymul_fixed_folded_mxu
+//                         <- polymul_fixed_folded_mxu_fn's kernel (l.1210) B9
 //
 // What they compute.  A transform runs its Lr = log2(n / bw) wide stages
 // (pair distance >= bw) as butterflies; the remaining stages act inside each
@@ -51,6 +53,13 @@
 // with little overlap, and half the time is outside the products.  A first
 // design: no TMA, no wgmma, no table tiles reused across row groups.
 //
+// B9, the folded fixed-operand product, is the forward and then the inverse
+// block matmul against one constant's tables W' = M_inv diag(A) and c' (passed
+// in place of wi and ci), with no pointwise stage.  Its plan carries the fold
+// plan's inverse split (di = fold Din planes, offset, base, group bias), so
+// the planes' stride and the shared memory, sized by max(df, di), cover it.
+// W' streams from device memory as wi does: 1.57 MB at q-III, 4.2 MB at p-III.
+//
 // Each launcher is extern "C", takes raw pointers, the batch B, a pointer to
 // an MxuPlan and a stream, launches without synchronising and returns
 // cudaGetLastError().
@@ -84,7 +93,7 @@ constexpr int kMaxClasses = 4;
 constexpr int kPad = 16;          // bytes after each row of digit planes
 constexpr uint32_t kClassBias = 1u << 24;
 
-enum Mode { kPolymul, kFixed, kNtt, kIntt };
+enum Mode { kPolymul, kFixed, kNtt, kIntt, kFolded };
 
 // c += A (16x32 s8) * B (32x8 s8).  a_lo: row g, a_hi: row g + 8, each 8
 // bytes at the thread's K offset; b: column g at the same K offset.
@@ -373,3 +382,4 @@ QT_MXU_LAUNCHER(qt_polymul_mxu, kPolymul)
 QT_MXU_LAUNCHER(qt_polymul_fixed_mxu, kFixed)
 QT_MXU_LAUNCHER(qt_ntt_mxu, kNtt)
 QT_MXU_LAUNCHER(qt_intt_mxu, kIntt)
+QT_MXU_LAUNCHER(qt_polymul_fixed_folded_mxu, kFolded)

@@ -8,12 +8,20 @@ or a CUDA device:
 - ``algo="fused"``: one hand-written CUDA kernel per call on a CUDA tensor
   (``ops/ntt_fused.py``), its plain twin on a CPU tensor;
 - ``algo="mxu"``: the digit-matmul form, likewise (``ops/ntt_mxu.py``):
-  wide butterfly stages, then int8 digit-plane products per lane block.
+  wide butterfly stages, then int8 digit-plane products per lane block;
+- ``algo`` one of the reference pairings ``gs_ct``, ``ct_ct``, ``gs_gs``,
+  ``ct_gs``, ``stockham``, or ``four_step`` or ``matrix``: plain PyTorch
+  pipelines with explicit psi weighting (``ops/ntt.py``,
+  ``ops/ntt_pairings.py``);
+- ``algo="<pairing>_kernel"``: that pairing's hand-written CUDA kernel on a
+  CUDA tensor, its plain pipeline on a CPU tensor (``ops/ntt_pairings.py``).
 
-The JAX package's other algorithms are not ported yet; asking for one raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
-``NegacyclicPolymul`` carries one parameter set's twiddles and MXU tables as
-registered buffers, so ``.to(device)`` moves them with the module.
+``polymul_fixed_fn`` also serves ``"mxu-folded"``, whose prepared operand is
+the constant's spectrum folded into the inverse tables.  ``nussbaumer`` is
+not ported yet; asking for it raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.  ``NegacyclicPolymul`` carries one parameter
+set's twiddles and MXU tables as registered buffers, so ``.to(device)``
+moves them with the module.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from qtesla_tpu.params import ParamSet
 from ..ops import ntt as N
 from ..ops import ntt_fused as F
 from ..ops import ntt_mxu as M
+from ..ops import ntt_pairings as P
 from ..ops.mxu_tables import get_mxu_tables
 from ..ops.tables import NttTables, get_tables
 
@@ -37,15 +46,8 @@ __all__ = ["ntt", "intt", "polymul_fn", "polymul_fixed_fn",
 # JAX algorithm names the port does not have yet -> where ROADMAP.md queues
 # their port
 _NOT_PORTED = {
-    "mxu-folded": "queue B, B9 (ops/ntt_mxu.py) and queue A item 7",
-    "stockham": "queue A item 8 (rest of ops/ntt.py and models/polymul.py)",
-    "gs_ct": "queue A item 8", "ct_ct": "queue A item 8",
-    "gs_gs": "queue A item 8", "ct_gs": "queue A item 8",
-    "four_step": "queue A item 8", "matrix": "queue A item 8",
     "nussbaumer": "queue A item 10 (ops/ringz32.py, ops/nussbaumer.py)",
 }
-for _p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham"):
-    _NOT_PORTED[_p + "_kernel"] = "queue B, B10 (ops/ntt_pairings_pallas.py)"
 
 
 def _unsupported(algo: str, allowed) -> Exception:
@@ -76,8 +78,12 @@ def _check_u32(x: torch.Tensor) -> None:
 # Transforms.
 # ----------------------------------------------------------------------
 
+_TRANSFORMS = ("merged", "fused", "mxu", "stockham")
+
+
 def ntt(x: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
-    """Forward negacyclic NTT, nat -> rev, canonical output."""
+    """Forward negacyclic NTT, canonical output: nat -> rev, or nat -> nat
+    for ``stockham`` (psi weighting, then the cyclic Stockham NTT)."""
     tbl = _tables(ps)
     if algo == "merged":
         _check_u32(x)
@@ -86,7 +92,11 @@ def ntt(x: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
         return F.ntt_fused(x, tbl)
     if algo == "mxu":
         return M.ntt_mxu(x, get_mxu_tables(tbl.ps.name))
-    raise _unsupported(algo, ("merged", "fused", "mxu"))
+    if algo == "stockham":
+        _check_u32(x)
+        return N.stockham_fwd(N.weight_psi(x.to(torch.int64), tbl),
+                              tbl).to(torch.uint32)
+    raise _unsupported(algo, _TRANSFORMS)
 
 
 def intt(X: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
@@ -99,7 +109,11 @@ def intt(X: torch.Tensor, ps, algo: str = "merged") -> torch.Tensor:
         return F.intt_fused(X, tbl)
     if algo == "mxu":
         return M.intt_mxu(X, get_mxu_tables(tbl.ps.name))
-    raise _unsupported(algo, ("merged", "fused", "mxu"))
+    if algo == "stockham":
+        _check_u32(X)
+        v = N.stockham_inv(X.to(torch.int64), tbl, scale_ninv=False)
+        return N.weight_ipsi_ninv(v, tbl).to(torch.uint32)
+    raise _unsupported(algo, _TRANSFORMS)
 
 
 # ----------------------------------------------------------------------
@@ -118,7 +132,48 @@ def _pm_mxu(x, y, tbl: NttTables, tw=None, tabs=None):
     return M.polymul_mxu(x, y, get_mxu_tables(tbl.ps.name), tabs, tw)
 
 
-_PIPELINES = {"merged": _pm_merged, "fused": F.polymul_fused, "mxu": _pm_mxu}
+def _plain(pipeline):
+    """A plain int64 pipeline (x, y, tbl) as a uint32 one."""
+    def run(x, y, tbl: NttTables, tw=None):
+        _check_u32(x)
+        _check_u32(y)
+        return pipeline(x.to(torch.int64), y.to(torch.int64),
+                        tbl).to(torch.uint32)
+    return run
+
+
+def _pm_fourstep(x, y, tbl: NttTables):
+    """Four-step N = n1 x n2 pipeline, n1 = 2^(log2(n) // 2); the
+    sub-inverses already apply n^{-1}."""
+    n1 = 1 << (tbl.logn // 2)
+    X = N.fourstep_ntt(N.weight_psi(x, tbl), tbl, n1=n1)
+    Y = N.fourstep_ntt(N.weight_psi(y, tbl), tbl, n1=n1)
+    Z = N.pointwise_mul(X, Y, tbl)
+    return N.weight_ipsi(N.fourstep_intt(Z, tbl, n1=n1), tbl)
+
+
+def _pm_matrix(x, y, tbl: NttTables):
+    """Dense twiddle-matrix pipeline; the inverse applies n^{-1}."""
+    X = N.matrix_ntt(N.weight_psi(x, tbl), tbl)
+    Y = N.matrix_ntt(N.weight_psi(y, tbl), tbl)
+    Z = N.pointwise_mul(X, Y, tbl)
+    return N.weight_ipsi(N.matrix_ntt(Z, tbl, inverse=True), tbl)
+
+
+def _pm_pairing_kernel(pairing: str):
+    """The pairing's kernel; ``tw`` is its (8, n) table."""
+    def run(x, y, tbl: NttTables, tw=None):
+        return P.polymul_pairing(x, y, tbl, pairing, tw)
+    return run
+
+
+_PIPELINES = {
+    "merged": _pm_merged, "fused": F.polymul_fused, "mxu": _pm_mxu,
+    **{p: _plain(functools.partial(P.pipeline, pairing=p))
+       for p in P.PAIRINGS},
+    "four_step": _plain(_pm_fourstep), "matrix": _plain(_pm_matrix),
+    **{p + "_kernel": _pm_pairing_kernel(p) for p in P.PAIRINGS},
+}
 ALGORITHMS = tuple(_PIPELINES)
 
 
@@ -137,8 +192,19 @@ def polymul_fixed_fn(name: str, algo: str = "mxu"):
     prepare(a) -> its spectrum A (run once), multiply(x, A) -> z, one
     forward and one inverse transform per product (the qTESLA verification
     shape, a the public polynomial).  The default is 'mxu', as in the JAX
-    package.  The spectra of every algo are the same canonical values."""
+    package.  The spectra of every algo are the same canonical values.
+    For 'mxu-folded', prepare(a) runs the forward (B6) on a's device, builds
+    the folded inverse tables on the host and returns them on a's device as
+    an ``ops.ntt_mxu.FoldedOperand``; multiply (B9) has no pointwise stage."""
     tbl = get_tables(name)
+    if algo == "mxu-folded":
+        mt = get_mxu_tables(name)
+
+        def prep_folded(a):
+            return M.fold_operand(M.ntt_mxu(a.reshape(1, mt.n), mt), mt)
+
+        return prep_folded, functools.partial(M.polymul_fixed_folded_mxu,
+                                              mt=mt)
     if algo == "mxu":
         mt = get_mxu_tables(name)
         return (functools.partial(M.ntt_mxu, mt=mt),
@@ -156,7 +222,7 @@ def polymul_fixed_fn(name: str, algo: str = "mxu"):
             return F.polymul_fixed_plain(x, A, tbl)
 
         return prep, mul
-    raise _unsupported(algo, ("mxu", "fused", "merged"))
+    raise _unsupported(algo, ("mxu", "mxu-folded", "fused", "merged"))
 
 
 def polymul_negacyclic(x: torch.Tensor, y: torch.Tensor, ps,
@@ -171,14 +237,17 @@ def polymul_negacyclic(x: torch.Tensor, y: torch.Tensor, ps,
 
 
 class NegacyclicPolymul(nn.Module):
-    """Negacyclic polymul for one parameter set; its twiddles and MXU
-    tables are buffers."""
+    """Negacyclic polymul for one parameter set; its twiddles, pairing
+    twiddles and MXU tables are buffers."""
 
     def __init__(self, ps):
         super().__init__()
         self.tbl = _tables(ps)
         self.register_buffer("twiddles",
                              torch.from_numpy(self.tbl.packed).clone())
+        self.register_buffer(
+            "pairing_twiddles",
+            torch.from_numpy(self.tbl.pairing_packed).clone())
         tabs = M.host_tables(get_mxu_tables(self.tbl.ps.name))
         for field, t in zip(("wf", "constf", "wi", "consti"), tabs.tensors()):
             self.register_buffer("mxu_" + field, t)
@@ -191,4 +260,6 @@ class NegacyclicPolymul(nn.Module):
             tabs = M.MxuDeviceTables(self.mxu_wf, self.mxu_constf,
                                      self.mxu_wi, self.mxu_consti)
             return _pm_mxu(x, y, self.tbl, self.twiddles, tabs)
+        if algo.endswith("_kernel"):
+            return _PIPELINES[algo](x, y, self.tbl, self.pairing_twiddles)
         return _PIPELINES[algo](x, y, self.tbl, self.twiddles)

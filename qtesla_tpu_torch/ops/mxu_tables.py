@@ -22,11 +22,19 @@ recombination that does not bias its groups adds ``group_bias`` back.
 
 ``get_mxu_tables(name)`` plans from ``qtesla_tpu.params``;
 ``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
+
+The folded fixed-operand form (``fixed_fold_plan``, ``fixed_fold_tables``,
+counterparts of ``qtesla_tpu/ops/ntt_mxu.py:1078-1190``) scales the columns
+of the inverse block matrices by a constant's spectrum, M' = M_inv diag(A),
+so a product with that constant needs no pointwise stage.  One plan, sized
+for any matrix entry mod q, serves every constant; the tables are built from
+the (bw, bw) diagonal blocks alone, never from the (n, n) matrix.
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -34,7 +42,9 @@ from .modmul import sparse_reduce_plan
 from .tables import NttTables, from_jax_tables, get_tables
 
 __all__ = ["MxuTables", "get_mxu_tables", "from_jax_mxu_tables",
-           "pointwise_bound"]
+           "pointwise_bound", "FixedFoldPlan", "fold_plan", "fixed_fold_plan",
+           "fold_tables", "fixed_fold_tables", "from_jax_fold_plan",
+           "from_jax_fold_tables"]
 
 _BW_MAX = 128            # block width: one TPU vreg of lanes
 
@@ -466,3 +476,173 @@ def from_jax_mxu_tables(mt) -> MxuTables:
         setattr(out, f, v.copy() if isinstance(v, np.ndarray) else v)
     out._derive()
     return out
+
+
+# ----------------------------------------------------------------------
+# Fixed-operand folding: the constant's pointwise diagonal inside the
+# inverse block matrices.
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FixedFoldPlan:
+    """The digit and recombination plan of the folded inverse, shared by
+    every constant of one parameter set: ``Din`` planes of base ``base``
+    centred at ``off`` over inputs below ``in_bound``, ``Dout`` classes
+    with ``bounds`` and Horner ``groups``.  ``canon`` says the TPU kernel
+    reduces the forward output (below ``fwd_out``) before the split;
+    ``mw_wc`` is the worst-case |digit| per class the plan was sized for."""
+
+    base: int
+    Din: int
+    Dout: int
+    groups: tuple
+    bounds: tuple
+    off: int
+    in_bound: int
+    fwd_out: int
+    canon: bool
+    mw_wc: tuple
+    out_bound: int
+
+
+_FOLD_FIELDS = tuple(FixedFoldPlan.__dataclass_fields__)
+
+
+@functools.lru_cache(maxsize=None)
+def fold_plan(mt: MxuTables) -> FixedFoldPlan:
+    """The cheapest fold plan for ``mt``, costed as the TPU kernel's: split
+    the lazy forward output as it is (LAZY), or reduce it to canonical
+    first (CANON), at base 256 or 128."""
+    q, bw = mt.q, mt.bw
+    Dout = _ndigits(q)
+    down = _reduce_kind(q)
+    fwd_out = _recombine_bound(mt.groups_f, mt.bounds_f, q)
+    # worst-case |digit| per class of any centred entry mod q, the same for
+    # every input plane
+    wcm = _input_digit_maxima(Dout, q >> 1, q, 256)
+    best = None
+    for in_bound, canon in ((fwd_out, False), (q, True)):
+        for base in (256, 128):
+            Din = _plane_count(in_bound, base)
+            if Din is None:
+                continue
+            mw = np.tile(np.asarray(wcm, np.int64), (Din, 1))
+            bounds = _digit_bounds(
+                mw, bw, _input_digit_maxima(Din, in_bound >> 1, in_bound,
+                                            base))
+            try:
+                groups = _plan_groups(bounds, q, down)
+            except ValueError:
+                continue
+            (sh, cs, ng), _ = _plan_cost(groups, bounds, q, down)
+            cost = (_COST_SHOUP * sh + _COST_CSUB * cs
+                    + (_COST_PLANE + Dout) * Din)
+            if canon:
+                # the TPU kernel's reduction of the forward output to q
+                if fwd_out <= 2 * q:
+                    cost += _COST_CSUB
+                elif fwd_out <= 16 * q:
+                    cost += _COST_CSUB * (_chain_csubs(fwd_out, 2 * q, q) + 1)
+                elif down == "reduce_sparse":
+                    cost += 4 * _COST_CSUB
+                else:
+                    cost += _COST_SHOUP + 2 * _COST_CSUB
+            key = (cost, ng)
+            if best is None or key < best[0]:
+                best = (key, FixedFoldPlan(
+                    base=base, Din=Din, Dout=Dout, groups=tuple(groups),
+                    bounds=tuple(bounds), off=in_bound >> 1,
+                    in_bound=in_bound, fwd_out=fwd_out, canon=canon,
+                    mw_wc=tuple(wcm),
+                    out_bound=_recombine_bound(groups, bounds, q)))
+    if best is None:
+        raise ValueError(f"{mt.tbl.ps.name}: no digit split covers the "
+                         f"fixed-fold input bounds")
+    return best[1]
+
+
+def fixed_fold_plan(name: str, bw: int | None = None) -> FixedFoldPlan:
+    return fold_plan(get_mxu_tables(name, bw))
+
+
+def _inv_blocks(tbl: NttTables, s_hi: int, bw: int) -> np.ndarray:
+    """The (n/bw, bw, bw) diagonal blocks of ``_inv_matrix(tbl, s_hi)``
+    (every stage below s_hi pairs lanes of one block), built per block."""
+    n, q, L = tbl.n, tbl.q, tbl.logn
+    if 1 << s_hi > bw:
+        raise ValueError(f"stages below {s_hi} are not local to {bw} lanes")
+    nb = n // bw
+    j = np.arange(bw)
+    M = np.tile(np.eye(bw, dtype=np.int64), (nb, 1, 1))
+    for s in range(s_hi):
+        t = 1 << s
+        w = tbl.gs_inv_full[s].astype(np.int64).reshape(nb, bw, 1)
+        u = M[:, j & ~t]
+        v = M[:, j | t]
+        bit = ((j & t) != 0)[None, :, None]
+        if s == L - 1:
+            M = (w * (u + np.where(bit, -v, v))) % q
+        else:
+            M = np.where(bit, (w * (u - v)) % q, (u + v) % q)
+    return M
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_blocks(mt: MxuTables) -> np.ndarray:
+    """The inverse block matrices of ``mt`` input-major, K[b, k_in, k_out],
+    made once per table bundle."""
+    return np.ascontiguousarray(np.swapaxes(
+        _inv_blocks(mt.tbl, mt.logn - mt.Lr, mt.bw), 1, 2))
+
+
+def fold_tables(mt: MxuTables, fp: FixedFoldPlan, spectrum):
+    """The folded inverse tables of one constant under ``fp``: ``W`` int8
+    (nb, Din, bw, Dout*bw) and ``const`` uint32 (nb, 1, bw), bit for bit
+    JAX's ``fixed_fold_tables``.  ``spectrum`` is the constant's canonical
+    forward spectrum, (n,) in the merged output order."""
+    q, bw, nb = mt.q, mt.bw, mt.nb
+    d = np.asarray(spectrum)
+    if d.shape != (mt.n,):
+        raise ValueError(f"spectrum must be ({mt.n},), got {d.shape}")
+    if fp.Dout != mt.D:
+        raise ValueError(f"fold plan has {fp.Dout} classes, tables {mt.D}")
+    # columns of M_inv scaled by the spectrum: every product < 2^60
+    K = (_fold_blocks(mt) * (d.astype(np.int64) % q).reshape(nb, bw, 1)) % q
+    W = np.empty((nb, fp.Din, bw, fp.Dout * bw), dtype=np.int8)
+    mw = np.zeros((fp.Din, fp.Dout), dtype=np.int64)
+    for i in range(fp.Din):
+        Ki = (K * pow(fp.base, i, q)) % q
+        Kc = np.where(Ki > q // 2, Ki - q, Ki)
+        for jd, dig in enumerate(_balanced_digits(Kc, fp.Dout)):
+            W[:, i, :, jd * bw:(jd + 1) * bw] = dig
+            mw[i, jd] = np.abs(dig).max()
+    # plan soundness: the digits sit inside the worst case the plan covers
+    assert (mw <= np.asarray(fp.mw_wc, np.int64)[None, :]).all(), \
+        "folded-matrix digits exceed the worst-case plan"
+    colsum = K.sum(axis=1) % q
+    bias = _group_bias(fp.groups, fp.bounds, q)
+    const = ((fp.off % q) * colsum - bias) % q
+    return W, const.astype(np.uint32).reshape(nb, 1, bw)
+
+
+def fixed_fold_tables(name: str, spectrum, bw: int | None = None):
+    """``fold_tables`` for a parameter set by name, as JAX's function."""
+    mt = get_mxu_tables(name, bw)
+    return fold_tables(mt, fold_plan(mt), spectrum)
+
+
+def from_jax_fold_plan(fp) -> FixedFoldPlan:
+    """The port's plan from a JAX ``_FixedFoldPlan`` (its int and tuple
+    fields only)."""
+    return FixedFoldPlan(**{f: getattr(fp, f) for f in _FOLD_FIELDS})
+
+
+def from_jax_fold_tables(W, c):
+    """JAX's per-constant (W, const) arrays as the port's numpy pair."""
+    W, c = np.array(W), np.array(c)
+    if W.dtype != np.int8 or W.ndim != 4 or c.dtype != np.uint32 or \
+            c.shape != (W.shape[0], 1, W.shape[2]):
+        raise ValueError(f"expected int8 (nb, Din, bw, Dout*bw) and uint32 "
+                         f"(nb, 1, bw), got {W.dtype} {W.shape} and "
+                         f"{c.dtype} {c.shape}")
+    return W, c

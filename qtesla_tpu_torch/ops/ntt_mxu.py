@@ -1,4 +1,4 @@
-"""Digit-matmul (MXU-form) kernels B5-B8: hand-written CUDA for Hopper, with
+"""Digit-matmul (MXU-form) kernels B5-B9: hand-written CUDA for Hopper, with
 their plain PyTorch twins.
 
 Counterpart of the callers of ``qtesla_tpu/ops/ntt_mxu.py``.  Each
@@ -11,6 +11,10 @@ Counterpart of the callers of ``qtesla_tpu/ops/ntt_mxu.py``.  Each
 - ``polymul_fixed_mxu_fn``  B8, replaces ``polymul_fixed_mxu_fn``'s kernel
   (l.1012); the spectrum is ``ntt_mxu_fn(name)`` (or any canonical forward
   spectrum) of the constant operand
+- ``polymul_fixed_folded_mxu_fn``  B9, replaces the kernel of the function of
+  that name (l.1210); the operand is ``fold_operand`` of the constant's
+  spectrum: the inverse tables with the spectrum folded into their columns
+  (``mxu_tables.fold_tables``), so the kernel has no pointwise stage
 
 A transform runs its ``Lr`` wide stages as butterflies and the block-local
 rest as one int8 digit-plane product per block of ``bw`` lanes against the
@@ -38,14 +42,19 @@ from dataclasses import dataclass
 import torch
 
 from . import ntt as N
-from .mxu_tables import MxuTables, _split_bias, get_mxu_tables
+from .mxu_tables import (FixedFoldPlan, MxuTables, _group_bias, _split_bias,
+                         fold_plan, fold_tables, get_mxu_tables)
 from .ntt_fused import Kernel, _check, _check_tw
 
-__all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "host_tables",
-           "device_tables", "plan_for", "block_rows", "polymul_mxu_fn",
-           "polymul_fixed_mxu_fn", "ntt_mxu_fn", "intt_mxu_fn", "polymul_mxu",
-           "polymul_fixed_mxu", "ntt_mxu", "intt_mxu", "polymul_mxu_plain",
-           "polymul_fixed_mxu_plain", "ntt_mxu_plain", "intt_mxu_plain"]
+__all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "FoldedOperand",
+           "host_tables", "device_tables", "plan_for", "fold_plan_for",
+           "block_rows", "fold_operand", "polymul_mxu_fn",
+           "polymul_fixed_mxu_fn", "polymul_fixed_folded_mxu_fn",
+           "ntt_mxu_fn", "intt_mxu_fn", "polymul_mxu", "polymul_fixed_mxu",
+           "polymul_fixed_folded_mxu", "ntt_mxu", "intt_mxu",
+           "polymul_mxu_plain", "polymul_fixed_mxu_plain",
+           "polymul_fixed_folded_mxu_plain", "ntt_mxu_plain",
+           "intt_mxu_plain"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_mxu.cu"
 
@@ -57,6 +66,8 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     Kernel("intt_mxu", "qt_intt_mxu", "qtesla_tpu/ops/ntt_mxu.py:1061", 1),
     Kernel("polymul_fixed_mxu", "qt_polymul_fixed_mxu",
            "qtesla_tpu/ops/ntt_mxu.py:1012", 1),
+    Kernel("polymul_fixed_folded_mxu", "qt_polymul_fixed_folded_mxu",
+           "qtesla_tpu/ops/ntt_mxu.py:1210", 1),
 )}
 
 # operand rows a kernel block holds in shared memory: at most 32 (two
@@ -108,14 +119,43 @@ def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
     return MxuDeviceTables(*(t.to(device) for t in host_tables(mt).tensors()))
 
 
+@dataclass(frozen=True)
+class FoldedOperand:
+    """One constant's folded inverse tables in the kernel's layout, on one
+    device: ``w`` int8 (nb, Dout*bw, Din*bw), ``fold_tables``'s W with the
+    output axis first, and ``c`` uint32 (nb, bw), its const rows."""
+
+    w: torch.Tensor
+    c: torch.Tensor
+
+    def tensors(self):
+        return self.w, self.c
+
+
+def fold_operand(spectrum: torch.Tensor, mt: MxuTables) -> FoldedOperand:
+    """The folded operand of the constant whose canonical forward spectrum
+    is ``spectrum`` (n values), on the spectrum's device, under
+    ``fold_plan(mt)``.  The tables are built on the host (``fold_tables``)
+    and copied over once."""
+    _check("spectrum", spectrum.reshape(-1), spectrum.numel())
+    W, c = fold_tables(mt, fold_plan(mt), spectrum.reshape(-1).cpu().numpy())
+    dev = spectrum.device
+    return FoldedOperand(_kernel_layout(W).to(dev),
+                         torch.from_numpy(c[:, 0].copy()).to(dev))
+
+
 def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
     nb, bw, D = mt.nb, mt.bw, mt.D
     want = ((torch.int8, (nb, D * bw, mt.Df * bw)), (torch.uint32, (nb, bw)),
             (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)))
-    for t, (dtype, shape) in zip(tabs.tensors(), want):
+    _check_shapes("MXU tables", tabs.tensors(), want, like)
+
+
+def _check_shapes(what: str, tensors, want, like) -> None:
+    for t, (dtype, shape) in zip(tensors, want):
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or t.device != like.device or not t.is_contiguous()):
-            raise ValueError(f"MXU tables must be contiguous {dtype} "
+            raise ValueError(f"{what} must be contiguous {dtype} "
                              f"{shape} tensors on {like.device}")
 
 
@@ -186,6 +226,17 @@ def polymul_fixed_mxu_plain(x, yspec, mt: MxuTables, tabs=None, tw=None):
     return _inv_plain(Z, mt, tabs, tw).to(_U32).reshape(x.shape)
 
 
+def polymul_fixed_folded_mxu_plain(x, op: FoldedOperand, mt: MxuTables,
+                                   tabs=None, tw=None):
+    fp = fold_plan(mt)
+    tabs = tabs or device_tables(mt, x.device)
+    X = _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw)
+    v = _block_matmul(X, op.w, op.c, _group_bias(fp.groups, fp.bounds, mt.q),
+                      fp.off, fp.Din, fp.base, mt)
+    return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr).to(
+        _U32).reshape(x.shape)
+
+
 def ntt_mxu_plain(x, mt: MxuTables, tabs=None, tw=None):
     tabs = tabs or device_tables(mt, x.device)
     return _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw).to(_U32).reshape(
@@ -222,12 +273,15 @@ def block_rows(n: int, ops: int) -> int:
     return rows - rows % ops
 
 
-@functools.lru_cache(maxsize=None)
-def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
+def _make_plan(mt: MxuTables, ops: int, di: int, inv_base: int,
+               inv_off: int, group_bias_i: int) -> MxuPlan:
+    """The run-time plan of ``mt`` for ``ops`` operand rows per batch row,
+    its inverse split (``di`` planes of ``inv_base`` at ``inv_off``) given
+    apart, since the folded kernel splits under the fold plan's."""
     q, D = mt.q, mt.D
-    if D > 4 or max(mt.Df, mt.Di) > 6 or mt.bw % 32:
+    if D > 4 or max(mt.Df, di) > 6 or mt.bw % 32:
         raise ValueError(f"{mt.tbl.ps.name}: MXU plan (D={D}, Df={mt.Df}, "
-                         f"Di={mt.Di}, bw={mt.bw}) is outside the kernels' "
+                         f"Di={di}, bw={mt.bw}) is outside the kernels' "
                          f"range")
     rows = block_rows(mt.n, ops)
     if rows < ops:
@@ -240,28 +294,50 @@ def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
         n=mt.n, logn=mt.logn, bw=mt.bw, nb=mt.nb, lr=mt.Lr, d=D, rows=rows,
         df=mt.Df, fwd_lb=mt.fwd_base.bit_length() - 1,
         fwd_add=(_split_bias(mt.Df, mt.fwd_base) - mt.fwd_off) % (1 << 32),
-        di=mt.Di,
-        inv_lb=mt.inv_base.bit_length() - 1,
-        inv_add=(_split_bias(mt.Di, mt.inv_base) - mt.inv_off) % (1 << 32),
+        di=di,
+        inv_lb=inv_base.bit_length() - 1,
+        inv_add=(_split_bias(di, inv_base) - inv_off) % (1 << 32),
         q=q, r32=ps.r32,
         r32_sh=ps.r32_shoup, one_sh=ps.one_shoup,
-        kbf=(mt.group_bias_f - bias) % q, kbi=(mt.group_bias_i - bias) % q,
+        kbf=(mt.group_bias_f - bias) % q, kbi=(group_bias_i - bias) % q,
         pw=(ctypes.c_uint32 * 4)(*pw),
         pw_sh=(ctypes.c_uint32 * 4)(*((w << 32) // q for w in pw)))
 
 
-def _launch(kernel: Kernel, mt: MxuTables, tabs: MxuDeviceTables,
-            tw: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
-    """Run ``kernel`` on CUDA tensors a (and b) into a new output."""
+@functools.lru_cache(maxsize=None)
+def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
+    return _make_plan(mt, ops, mt.Di, mt.inv_base, mt.inv_off,
+                      mt.group_bias_i)
+
+
+@functools.lru_cache(maxsize=None)
+def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
+    """The folded kernel's plan: ``mt``'s forward, and an inverse split of
+    ``fp.Din`` planes into ``fp.Dout`` classes.  The kernel holds
+    max(Df, Din) planes and adds 2^24 to every class sum, so a plan with
+    other classes than ``mt``, more than 6 planes or a class bound of 2^24
+    raises."""
+    if fp.Dout != mt.D or max(fp.bounds) >= _CLASS_BIAS:
+        raise ValueError(f"{mt.tbl.ps.name}: fold plan (Dout={fp.Dout}, "
+                         f"class bounds {fp.bounds}) is outside the kernel's "
+                         f"range (D={mt.D}, bounds below 2^24)")
+    return _make_plan(mt, 1, fp.Din, fp.base, fp.off,
+                      _group_bias(fp.groups, fp.bounds, mt.q))
+
+
+def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tabs, tw, a,
+            b) -> torch.Tensor:
+    """Run ``kernel`` on CUDA tensors a (and b) into a new output, against
+    the four table tensors ``tabs`` (forward weights and const, inverse
+    weights and const)."""
     from ..utils.build import load_library
 
-    plan = plan_for(mt, kernel.smem_rows)
     out = torch.empty_like(a)
     batch = a.numel() // mt.n
     if batch == 0:
         return out
     lib = load_library()
-    ptr = [t.data_ptr() for t in tabs.tensors()]
+    ptr = [t.data_ptr() for t in tabs]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = getattr(lib.cdll, kernel.symbol)(
@@ -307,7 +383,8 @@ def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_mxu"], mt, tabs, tw, x, y)
+        return _launch(KERNELS["polymul_mxu"], mt, plan_for(mt, 2),
+                       tabs.tensors(), tw, x, y)
     return polymul_mxu_plain(x, y, mt, tabs, tw)
 
 
@@ -320,15 +397,34 @@ def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
         raise ValueError(f"spectrum must hold n={mt.n} values, got "
                          f"{tuple(yspec.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fixed_mxu"], mt, tabs, tw, x, yspec)
+        return _launch(KERNELS["polymul_fixed_mxu"], mt, plan_for(mt, 1),
+                       tabs.tensors(), tw, x, yspec)
     return polymul_fixed_mxu_plain(x, yspec, mt, tabs, tw)
+
+
+def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
+                             tabs=None, tw=None) -> torch.Tensor:
+    """x (B..., n) times the constant whose folded operand is ``op``
+    (``fold_operand`` of its spectrum)."""
+    fp = fold_plan(mt)
+    tabs, tw = _prepare(mt, tabs, tw, x)
+    nb, bw = mt.nb, mt.bw
+    _check_shapes("folded operand", op.tensors(),
+                  ((torch.int8, (nb, fp.Dout * bw, fp.Din * bw)),
+                   (torch.uint32, (nb, bw))), x)
+    if x.is_cuda:
+        return _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
+                       fold_plan_for(mt, fp),
+                       (tabs.wf, tabs.constf, op.w, op.c), tw, x, None)
+    return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
 
 def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_mxu"], mt, tabs, tw, x, None)
+        return _launch(KERNELS["ntt_mxu"], mt, plan_for(mt, 1),
+                       tabs.tensors(), tw, x, None)
     return ntt_mxu_plain(x, mt, tabs, tw)
 
 
@@ -337,7 +433,8 @@ def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     ``mt.pw_bound``, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_mxu"], mt, tabs, tw, X, None)
+        return _launch(KERNELS["intt_mxu"], mt, plan_for(mt, 1),
+                       tabs.tensors(), tw, X, None)
     return intt_mxu_plain(X, mt, tabs, tw)
 
 
@@ -351,6 +448,14 @@ def polymul_mxu_fn(name: str):
 def polymul_fixed_mxu_fn(name: str):
     """(x, yspec) -> z against a precomputed spectrum (B8)."""
     return functools.partial(polymul_fixed_mxu, mt=get_mxu_tables(name))
+
+
+@functools.lru_cache(maxsize=None)
+def polymul_fixed_folded_mxu_fn(name: str):
+    """(x, op) -> z against a folded operand (B9); ``op`` is
+    ``fold_operand(spectrum, get_mxu_tables(name))``."""
+    return functools.partial(polymul_fixed_folded_mxu,
+                             mt=get_mxu_tables(name))
 
 
 @functools.lru_cache(maxsize=None)

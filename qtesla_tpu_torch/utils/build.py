@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
-# csrc/ntt_fused.cu: (a, b, out, twiddles, batch, n, logn, q, r32,
-# r32_shoup, one_shoup, stream)
+# csrc/ntt_fused.cu and csrc/ntt_pairings.cu: (a, b, out, twiddles, batch,
+# n, logn, q, r32, r32_shoup, one_shoup, stream)
 _FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
           + [ctypes.c_uint32] * 4 + [_P])
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
@@ -48,6 +48,9 @@ LAUNCHERS = {
     "qt_ntt_fused": _FUSED, "qt_intt_fused": _FUSED,
     "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
     "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,
+    "qt_polymul_fixed_folded_mxu": _MXU,
+    **{f"qt_polymul_pairing_{p}": _FUSED
+       for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
 }
 
 

@@ -1,10 +1,12 @@
 """Contract of the port's device dispatch and kernel wrappers.
 
 - ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
-- The wrappers (fused B1-B4 and digit-matmul B5-B8) raise on a wrong dtype,
-  a wrong n, a non-contiguous tensor, an unsupported device and an
-  unsupported algo; nothing is built at import and a missing nvcc raises
-  instead of falling back.  Editing a header changes the build's hash.
+- The wrappers (fused B1-B4, digit-matmul B5-B9 and pairings B10) raise on
+  a wrong dtype, a wrong n, a non-contiguous tensor, an unsupported device
+  and an unsupported algo; nothing is built at import and a missing nvcc
+  raises instead of falling back.  Editing a header changes the build's
+  hash.  Every ported algo name dispatches; only ``nussbaumer`` raises
+  ``NotImplementedError``.
 - CPU tensors run the plain versions: no kernel's launch count moves.
 - Tests marked ``cuda`` compare each kernel with its plain version on the
   card; without one they skip.  On a GPU host run them with
@@ -26,7 +28,9 @@ from qtesla_tpu_torch import register_param_set
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
-from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
+from qtesla_tpu_torch.ops import ntt_pairings as P
+from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
+                                             get_mxu_tables)
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.utils import build
 
@@ -102,8 +106,7 @@ def test_wrappers_reject_bad_input():
         F.ntt_fused(x, tbl, tw=torch.zeros((4, n), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("algo", ["gs_gs", "mxu-folded", "stockham", "gs_ct",
-                                  "four_step", "nussbaumer", "ct_gs_kernel"])
+@pytest.mark.parametrize("algo", ["nussbaumer"])
 def test_unported_algos_raise_not_implemented(algo):
     x = _u32(1, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -112,14 +115,30 @@ def test_unported_algos_raise_not_implemented(algo):
         TP.polymul_fn("smallprime", algo)
     with pytest.raises(ValueError, match="unknown algo"):
         TP.polymul_fn("smallprime", algo + "-nope")
+
+
+_PAIRING_NAMES = ["gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham"]
+
+
+@pytest.mark.parametrize("algo", _PAIRING_NAMES + ["four_step", "matrix"]
+                         + [p + "_kernel" for p in _PAIRING_NAMES]
+                         + ["mxu-folded"])
+def test_ported_algos_dispatch(algo):
+    """Each algo ported in the third slice runs on CPU tensors and equals
+    the merged product."""
+    x, y = _u32(2, 32, 5), _u32(2, 32, 6)
+    want = TP.polymul_negacyclic(x, y, "smallprime")
     if algo == "mxu-folded":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TP.polymul_fixed_fn("smallprime", algo)
-    if algo == "stockham":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TP.ntt(x, "smallprime", algo)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TP.intt(x, "smallprime", algo)
+        prep, mul = TP.polymul_fixed_fn("smallprime", algo)
+        assert mul.func is M.polymul_fixed_folded_mxu
+        z = mul(x, prep(y[0]))
+        want = TP.polymul_negacyclic(x, y[:1].expand(2, 32).contiguous(),
+                                     "smallprime")
+    else:
+        assert algo in TP.ALGORITHMS
+        z = TP.polymul_negacyclic(x, y, "smallprime", algo=algo)
+    assert z.dtype == torch.uint32
+    assert torch.equal(z, want)
 
 
 def test_empty_and_unbatched_inputs():
@@ -166,8 +185,9 @@ def test_cpu_runs_launch_no_kernel():
     assert set(F.KERNELS) == {"polymul_fused", "polymul_fixed_fused",
                               "ntt_fused", "intt_fused"}
     assert set(M.KERNELS) == {"polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
-                              "intt_mxu"}
-    kernels = [*F.KERNELS.values(), *M.KERNELS.values()]
+                              "intt_mxu", "polymul_fixed_folded_mxu"}
+    assert set(P.KERNELS) == {f"polymul_pairing_{p}" for p in _PAIRING_NAMES}
+    kernels = [*F.KERNELS.values(), *M.KERNELS.values(), *P.KERNELS.values()]
     for k in kernels:
         k.launches = 0
     tbl = get_tables("smallprime")
@@ -183,6 +203,11 @@ def test_cpu_runs_launch_no_kernel():
     TP.NegacyclicPolymul("smallprime")(x, y, "mxu")
     prep, mul = TP.polymul_fixed_fn("smallprime")
     mul(x, prep(y[:1]))
+    prep, mul = TP.polymul_fixed_fn("smallprime", "mxu-folded")
+    mul(x, prep(y[:1]))
+    for p in _PAIRING_NAMES:
+        TP.polymul_negacyclic(x, y, "smallprime", algo=p + "_kernel")
+        TP.NegacyclicPolymul("smallprime")(x, y, p + "_kernel")
     assert all(k.launches == 0 for k in kernels)
 
 
@@ -202,6 +227,31 @@ def test_mxu_plan_matches_kernel_limits():
     assert M.block_rows(8192, 2) == 4 and M.block_rows(1024, 2) == 32
 
 
+@pytest.mark.parametrize("name", SETS)
+def test_fold_plan_matches_kernel_limits(name):
+    """The folded kernel's plan carries the fold plan's inverse split and
+    the forward of the MXU plan; every registered set fits."""
+    mt = get_mxu_tables(name)
+    fp = fold_plan(mt)
+    plan, base = M.fold_plan_for(mt, fp), M.plan_for(mt, 1)
+    assert (plan.di, plan.inv_lb) == (fp.Din, fp.base.bit_length() - 1)
+    assert plan.inv_add == (sum((fp.base // 2) * fp.base ** i
+                                for i in range(fp.Din - 1)) - fp.off) % 2**32
+    for f in ("n", "rows", "d", "df", "fwd_lb", "fwd_add", "kbf", "q"):
+        assert getattr(plan, f) == getattr(base, f), f
+    assert fp.Din <= 6 and max(fp.bounds) < 1 << 24 and fp.Dout == mt.D
+
+
+def test_fold_plan_for_rejects_plans_outside_the_kernel():
+    mt = get_mxu_tables("qtesla-iii-speed")
+    fp = fold_plan(mt)
+    fields = {f: getattr(fp, f) for f in FixedFoldPlan.__dataclass_fields__}
+    for bad in ({"Din": 7}, {"Dout": mt.D + 1},
+                {"bounds": (1 << 24,) + fp.bounds[1:]}):
+        with pytest.raises(ValueError, match="range"):
+            M.fold_plan_for(mt, FixedFoldPlan(**{**fields, **bad}))
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -219,11 +269,15 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
-        "modq.cuh", "ntt_fused.cu", "ntt_mxu.cu"]
+        "modq.cuh", "ntt_fused.cu", "ntt_mxu.cu", "ntt_pairings.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
-           .read_text() for mod in (F, M)}
-    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M)
+           .read_text() for mod in (F, M, P)}
+    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P)
                                     for k in mod.KERNELS.values()}
+    for k in P.KERNELS.values():
+        assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
+        assert k.replaces == "qtesla_tpu/ops/ntt_pairings_pallas.py:160"
+        assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_polymul_fused"]
     for k in F.KERNELS.values():
         assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
@@ -324,5 +378,45 @@ def test_mxu_kernels_match_plain_on_card(cuda_device, name):
         for got, want in pairs:
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
-        assert all(v.launches == before[k] + 1
-                   for k, v in M.KERNELS.items())
+        assert all(M.KERNELS[k].launches == before[k] + 1
+                   for k in ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
+                             "intt_mxu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_folded_and_pairing_kernels_match_plain_on_card(cuda_device, name):
+    """B9 against its twin and B8, for a random, an all-0 and an all-(q-1)
+    diagonal; each B10 pairing against its twin and B1."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    mt = get_mxu_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(23)
+    kernels = [M.KERNELS["polymul_fixed_folded_mxu"], *P.KERNELS.values()]
+    for batch in (1, 3, 64):
+        xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
+        xy[0, 0] = q - 1
+        x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
+        before = [k.launches for k in kernels]
+        pairs = []
+        for spec in (M.ntt_mxu_plain(y[:1], mt),
+                     torch.zeros(n, dtype=torch.uint32, device=cuda_device),
+                     torch.full((n,), q - 1, dtype=torch.int64,
+                                device=cuda_device).to(torch.uint32)):
+            op = M.fold_operand(spec, mt)
+            got = M.polymul_fixed_folded_mxu(x, op, mt)
+            pairs += [(got, M.polymul_fixed_folded_mxu_plain(x, op, mt)),
+                      (got, M.polymul_fixed_mxu(x, spec, mt))]
+        ref = F.polymul_fused(x, y, tbl)
+        for p in _PAIRING_NAMES:
+            got = P.polymul_pairing(x, y, tbl, p)
+            pairs += [(got, P.polymul_pairing_plain(x, y, tbl, p)),
+                      (got, ref)]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+        assert [k.launches - b for k, b in zip(kernels, before)] == \
+            [3] + [1] * len(P.KERNELS)
