@@ -11,28 +11,37 @@ script exits non-zero without printing a result:
 1. build the hand-written kernels (csrc/*.cu, one nvcc per source, all
    started together, for sm_90a).
 2. kernel against plain version, on the card: the fused kernels B1-B4, the
-   digit-matmul kernels B5-B9 and the five pairing kernels B10 for every
-   registered parameter set plus n = 8192 on the qtesla-iii-speed prime,
+   digit-matmul kernels B5-B9, the five pairing kernels B10 and the
+   sequence-parallel segment kernels B11, B12, B16 for every registered
+   parameter set plus n = 8192 on the qtesla-iii-speed prime,
    B in {1, 3, 64}, random and worst-case operands, bit for bit (tolerance
    0: every value is an exact residue); B9 also for the all-0 and all-(q-1)
    diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
    B10 pairing == B1 on the same inputs.  B3 takes inputs below 2q, B7
    below the MXU plan's pw_bound.  B9's prepare time (B6, host tables,
-   copies) is printed per set.
+   copies) is printed per set.  B11/B12/B16 run for every model axis k in
+   {2, 4, 8} the set's split takes (k = 4 at n = 8192), on the path's own
+   intermediates and on all-(q-1) shards, and the whole SP path equals B1.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
    algo="fused" (B1, B2, B4, B3), the "mxu-folded" fixed pair (B6, B9) and
-   polymul_negacyclic(algo=p + "_kernel") for the five pairings (B10), with
-   every launch count reset just before and read just after (B6 twice, each
-   other kernel once); the outputs must equal the plain versions on the
-   card and each other, and 8 rows of the mxu and the folded products the
-   big-int oracle.
+   polymul_negacyclic(algo=p + "_kernel") for the five pairings (B10) and
+   the sequence-parallel polymul_fourstep_mxu_fn(make_mesh(model=4)) (B11
+   twice, B12, B16), with every launch count reset just before and read
+   just after (B6 and B11 twice, each other kernel once); the outputs must
+   equal the plain versions on the card and each other, and 8 rows of the
+   mxu, the folded and the SP products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain.
+   plain; then the whole SP path and local_pipeline_fn (one shard's work,
+   no exchange) at k in {2, 4, 8}, with the SP cost per shard
+   k * t_local / t_B5 and k * t_local / t_B1.
 
-It prints a JSON line of the kernels, the nvidia-smi line, and last
+It prints a JSON line of the kernels (each with its bound: the larger of
+the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
+over 1979 TOP/s; no single PyTorch call computes a negacyclic product mod
+q, so library_ms is null), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -48,12 +57,16 @@ import torch
 
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
-from qtesla_tpu_torch.models import intt, polymul_fixed_fn, polymul_negacyclic
+from qtesla_tpu_torch.models import (intt, local_pipeline_fn, make_mesh,
+                                     polymul_fixed_fn, polymul_fourstep_mxu_fn,
+                                     polymul_negacyclic)
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
-from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
+from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import fourstep_mxu_plans
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
 from qtesla_tpu_torch.utils.timing import time_cuda
 
@@ -64,11 +77,18 @@ SMALL_BATCHES = (1, 3, 64)
 # memory per block, the opt-in path above 48 KB; B5 holds 2 batch rows per
 # block and streams 22 MB of digit tables
 WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
+# the sequence-parallel path's model axis on the main path
+SP_K = 4
 # every kernel: (registry entry, CUDA source)
-KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P)
+KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P, S)
            for name, k in mod.KERNELS.items()}
-# launches the main path makes: B6 prepares both fixed-operand forms
-EXPECTED_LAUNCHES = {name: 2 if name == "ntt_mxu" else 1 for name in KERNELS}
+# launches the main path makes: B6 prepares both fixed-operand forms, B11
+# transforms both SP operands
+EXPECTED_LAUNCHES = {name: 2 if name in ("ntt_mxu", "sp_seg1") else 1
+                     for name in KERNELS}
+# the card's peaks (H100 SXM data sheet) for the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
 SEED = 20261016
 ORACLE_ROWS = (0, 1, 2, 3, MAIN_BATCH - 4, MAIN_BATCH - 3, MAIN_BATCH - 2,
                MAIN_BATCH - 1)
@@ -214,6 +234,73 @@ def kernels_against_plain(errors: dict) -> None:
     done()
 
 
+def _n1(name: str) -> int:
+    return 1 << (get_tables(name).logn // 2)
+
+
+def sp_against_plain(errors: dict) -> None:
+    """B11, B12, B16 against their twins for every set and model axis, and
+    the whole SP path against B1."""
+    dev = torch.device("cuda")
+    cases = [(name, k) for name in available_param_sets()
+             if name != WIDE_SET[0] for k in (2, 4, 8)] + [(WIDE_SET[0], 4)]
+    for name, k in cases:
+        start = time.perf_counter()
+        try:
+            plans = fourstep_mxu_plans(name, _n1(name), k)
+        except ValueError as e:
+            print(f"{name} k={k}: no SP split ({e})")
+            continue
+        plan_s = time.perf_counter() - start
+        tbl = get_tables(name)
+        q, n = tbl.q, tbl.n
+        fn = polymul_fourstep_mxu_fn(name, make_mesh(model=k))
+        full = torch.from_numpy(np.full((k, 3, plans.nloc), q - 1,
+                                        dtype=np.uint32)).to(dev)
+        rng = np.random.default_rng(SEED)
+        for B in SMALL_BATCHES:
+            for kind in ("random", "worst"):
+                if kind == "random":
+                    xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+                else:
+                    xs = np.full((2, B, n), q - 1, dtype=np.uint32)
+                x, y = (torch.from_numpy(v).to(dev) for v in xs)
+                tag = f"{name} k={k} B={B} {kind}"
+                sx, sy = (S.to_shards(t, plans) for t in (x, y))
+                vx, vy = (S.sp_seg1(t, plans) for t in (sx, sy))
+                _record(errors, "sp_seg1", f"B11 {tag}", vx,
+                        S.seg1_plain(sx, plans))
+                vx, vy = (S.a2a_fwd(t, plans) for t in (vx, vy))
+                w = S.sp_seg2(vx, vy, plans)
+                _record(errors, "sp_seg2", f"B12 {tag}", w,
+                        S.seg2_plain(vx, vy, plans))
+                w = S.a2a_inv(w, plans)
+                z = S.sp_seg3(w, plans)
+                _record(errors, "sp_seg3", f"B16 {tag}", z,
+                        S.seg3_plain(w, plans))
+                got = fn(x, y)
+                expect_equal(f"SP path == B1 {tag}", got,
+                             F.polymul_fused(x, y, tbl))
+                expect_equal(f"SP path == its segments {tag}", got,
+                             S.from_shards(z, plans))
+        for kname, got, want in (
+                ("sp_seg1", S.sp_seg1(full, plans), S.seg1_plain(full, plans)),
+                ("sp_seg2", S.sp_seg2(full, full, plans),
+                 S.seg2_plain(full, full, plans)),
+                ("sp_seg3", S.sp_seg3(full, plans),
+                 S.seg3_plain(full, plans))):
+            _record(errors, kname, f"{kname} {name} k={k} all q-1 shards",
+                    got, want)
+        print(f"{name} k={k} (SP plan {plan_s:.1f} s: nloc={plans.nloc}, "
+              f"TW={plans.TW}, A={plans.A}, Lr={plans.Lr}, din p1/p2f/p2i/p3 "
+              f"{plans.p1.din}/{plans.p2f.din}/{plans.p2i.din}/"
+              f"{plans.p3.din}, rows/block {S.plan_for(plans, 1).rows}/"
+              f"{S.plan_for(plans, 2).rows}): B11, B12, B16 equal to plain "
+              f"for B in {SMALL_BATCHES}, random, worst-case and all-(q-1) "
+              f"shards; SP path == B1", flush=True)
+    done()
+
+
 def main_path(errors: dict, seed: int) -> dict:
     ps = get_params(MAIN_SET)
     tbl = get_tables(MAIN_SET)
@@ -228,6 +315,7 @@ def main_path(errors: dict, seed: int) -> dict:
                              dtype=torch.int64).to(torch.uint32)
 
     x, y, a = draw(B), draw(B), draw(1)
+    sp = polymul_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))
     done()
 
     for k, _ in KERNELS.values():
@@ -244,6 +332,7 @@ def main_path(errors: dict, seed: int) -> dict:
     z_folded = mul(x, a_op)
     z_pair = {p: polymul_negacyclic(x, y, MAIN_SET, algo=p + "_kernel")
               for p in P.PAIRINGS}
+    z_sp = sp(x, y)
     done()
     launches = {name: k.launches for name, (k, _) in KERNELS.items()}
     print(f"launches in the main-path run: {launches}")
@@ -282,17 +371,35 @@ def main_path(errors: dict, seed: int) -> dict:
         _record(errors, kname, f"{kname} against its twin", z,
                 P.polymul_pairing_plain(x, y, tbl, p))
         expect_equal(f"B10 {p} == B1 on the main path", z, out["fused"][0])
+    plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
+    expect_canonical("z SP", z_sp, (B, n), q)
+    expect_equal("SP path == B1 on the main path", z_sp, out["fused"][0])
+    expect_equal("SP path against its plain path", z_sp,
+                 S.polymul_fourstep_mxu_plain(x, y, plans))
+    sx = S.to_shards(x, plans)
+    v = S.sp_seg1(sx, plans)
+    _record(errors, "sp_seg1", "B11 at the main path's shapes", v,
+            S.seg1_plain(sx, plans))
+    v = S.a2a_fwd(v, plans)
+    w = S.sp_seg2(v, v, plans)
+    _record(errors, "sp_seg2", "B12 at the main path's shapes", w,
+            S.seg2_plain(v, v, plans))
+    w = S.a2a_inv(w, plans)
+    _record(errors, "sp_seg3", "B16 at the main path's shapes",
+            S.sp_seg3(w, plans), S.seg3_plain(w, plans))
     done()
     print(f"main path: z and the fixed-operand products ({B} x {n}) of every "
-          f"algo (mxu, fused, mxu-folded, the five pairing kernels) equal "
-          f"the plain versions and each other on the card")
+          f"algo (mxu, fused, mxu-folded, the five pairing kernels, the SP "
+          f"path at k={SP_K}) equal the plain versions and each other on the "
+          f"card")
 
     rows = [(name, *(np.concatenate([t[:4].cpu().numpy(),
                                      t[-4:].cpu().numpy()])
                      for t in (z, x, other)))
             for name, z, other in (
                 ("mxu", out["mxu"][0], y),
-                ("mxu-folded", z_folded, a.expand(B, n)))]
+                ("mxu-folded", z_folded, a.expand(B, n)),
+                (f"SP k={SP_K}", z_sp, y))]
     for name, zc, xc, yc in rows:
         for i, row in enumerate(ORACLE_ROWS):
             want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(
@@ -305,6 +412,78 @@ def main_path(errors: dict, seed: int) -> dict:
     return launches
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_work(B: int) -> dict:
+    """Per kernel, at the timing phase's shapes (qtesla-iii-speed, B rows):
+    the bytes it must move (each input, tables included, read once, the
+    output written once) and its int8 tensor-core MACs (the digit products
+    at their plans' depth, the padding excluded)."""
+    tbl = get_tables(MAIN_SET)
+    mt = get_mxu_tables(MAIN_SET)
+    plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
+    n = tbl.n
+    row, spec, tw = 4 * B * n, 4 * n, 16 * n
+    mtabs = M.host_tables(mt)
+    wf, wi = _nbytes(mtabs.wf, mtabs.constf), _nbytes(mtabs.wi, mtabs.consti)
+    fp = fold_plan(mt)
+    per_block = B * mt.nb * mt.bw * mt.D * mt.bw     # MACs per input plane
+    fwd, inv, fold = (per_block * d for d in (mt.Df, mt.Di, fp.Din))
+    folded = mt.nb * fp.Dout * mt.bw * fp.Din * mt.bw + 4 * n
+    work = {
+        "polymul_fused": (3 * row + tw, 0),
+        "polymul_fixed_fused": (2 * row + spec + tw, 0),
+        "ntt_fused": (2 * row + tw, 0),
+        "intt_fused": (2 * row + tw, 0),
+        "polymul_mxu": (3 * row + wf + wi + tw, 2 * fwd + inv),
+        "polymul_fixed_mxu": (2 * row + spec + wf + wi + tw, fwd + inv),
+        "ntt_mxu": (2 * row + wf + tw, fwd),
+        "intt_mxu": (2 * row + wi + tw, inv),
+        "polymul_fixed_folded_mxu": (2 * row + wf + folded + tw, fwd + fold),
+        **{f"polymul_pairing_{p}": (3 * row + 2 * tw, 0)
+           for p in P.PAIRINGS},
+    }
+    st = S.host_tables(plans)
+    TW, A, k = plans.TW, plans.A, plans.k
+    per_tile = B * k * A * TW * (st.w1.shape[-2])    # rows * TW * D*TW
+    sp_tw = _nbytes(st.tw)
+    work["sp_seg1"] = (2 * row + _nbytes(st.w1, st.c1) + sp_tw,
+                       per_tile * plans.p1.din)
+    work["sp_seg2"] = (3 * row + _nbytes(st.w2f, st.c2f, st.w2i, st.c2i),
+                       per_tile * (2 * plans.p2f.din + plans.p2i.din))
+    work["sp_seg3"] = (2 * row + _nbytes(st.w3, st.c3) + sp_tw,
+                       per_tile * plans.p3.din)
+    return work
+
+
+def bound(nbytes: int, macs: int) -> tuple[float, str]:
+    """The least time the card could take (ms) and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _turns(kern, plain, args, counter=None) -> dict:
+    """Medians of plain, kernel, kernel, plain runs of 20 timed calls each;
+    with ``counter``, its launches must equal the kernel's calls."""
+    before = counter.launches if counter else 0
+    samples = {"kernel": [], "plain": []}
+    calls = 0
+    for which in ("plain", "kernel", "kernel", "plain"):
+        t = time_cuda(kern if which == "kernel" else plain, *args,
+                      warmup=3, repeats=20)
+        samples[which].extend(t.samples_ms)
+        if which == "kernel":
+            calls += t.calls + t.warmup
+    if counter and counter.launches - before != calls:
+        raise AssertionError(f"{counter.name}: {counter.launches - before} "
+                             f"launches for {calls} calls")
+    return {which: (min(v), float(np.median(v)))
+            for which, v in samples.items()}
+
+
 def timing(device_line: str) -> dict:
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
@@ -315,6 +494,10 @@ def timing(device_line: str) -> dict:
                           dtype=torch.int64).to(torch.uint32) for _ in range(2))
     spec = F.ntt_fused(y[:1], tbl)
     op = M.fold_operand(spec, mt)
+    plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
+    sx, sy = (S.to_shards(t, plans) for t in (x, y))
+    vx, vy = (S.a2a_fwd(S.sp_seg1(t, plans), plans) for t in (sx, sy))
+    sw = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
     runs = {
         "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
         "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
@@ -332,37 +515,52 @@ def timing(device_line: str) -> dict:
         **{f"polymul_pairing_{p}": (P.polymul_pairing,
                                     P.polymul_pairing_plain, (x, y, tbl, p))
            for p in P.PAIRINGS},
+        "sp_seg1": (S.sp_seg1, S.seg1_plain, (sx, plans)),
+        "sp_seg2": (S.sp_seg2, S.seg2_plain, (vx, vy, plans)),
+        "sp_seg3": (S.sp_seg3, S.seg3_plain, (sw, plans)),
     }
+    work = kernel_work(B)
     out = {}
     for name, (kern, plain, args) in runs.items():
-        counter = KERNELS[name][0]
-        before = counter.launches
-        samples = {"kernel": [], "plain": []}
-        calls = 0
-        for which in ("plain", "kernel", "kernel", "plain"):
-            t = time_cuda(kern if which == "kernel" else plain, *args,
-                          warmup=3, repeats=20)
-            samples[which].extend(t.samples_ms)
-            if which == "kernel":
-                calls += t.calls + t.warmup
-        if counter.launches - before != calls:
-            raise AssertionError(f"{name}: {counter.launches - before} "
-                                 f"launches for {calls} calls")
-        res = {}
-        for which, s in samples.items():
-            med = float(np.median(s))
-            res[which] = (min(s), med)
-            print(f"timing {name} {which}: B={B} n={n} min {min(s):.4f} ms "
-                  f"median {med:.4f} ms over {len(s)} calls, "
+        res = _turns(kern, plain, args, KERNELS[name][0])
+        res["bound"] = bound(*work[name])
+        for which in ("kernel", "plain"):
+            lo, med = res[which]
+            print(f"timing {name} {which}: B={B} n={n} min {lo:.4f} ms "
+                  f"median {med:.4f} ms over 40 calls, "
                   f"{B / (med / 1e3):.0f} rows/s [{device_line}]", flush=True)
+        bms, by = res["bound"]
+        print(f"bound {name}: {work[name][0] / 1e6:.1f} MB, "
+              f"{work[name][1]:.3g} int8 MACs: {bms:.4f} ms ({by}), "
+              f"{bms / res['kernel'][1] * 100:.1f} % of the kernel's median",
+              flush=True)
         out[name] = res
-    done()
     med = {name: res["kernel"][1] for name, res in out.items()}
     print(f"same inputs: B9 {med['polymul_fixed_folded_mxu']:.4f} ms, "
           f"B8 {med['polymul_fixed_mxu']:.4f}, "
           f"B4 {med['polymul_fixed_fused']:.4f}; "
           f"B10 gs_ct {med['polymul_pairing_gs_ct']:.4f} ms, "
           f"B1 {med['polymul_fused']:.4f} [{device_line}]")
+
+    # the SP path end to end, and one shard's local work at each k
+    sp = polymul_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))
+    res = _turns(sp, lambda a, b: S.polymul_fourstep_mxu_plain(a, b, plans),
+                 (x, y))
+    print(f"timing SP path k={SP_K} (2 x B11, B12, B16, 3 exchanges and the "
+          f"shard layout): median {res['kernel'][1]:.4f} ms, plain "
+          f"{res['plain'][1]:.4f} ms; B5 {med['polymul_mxu']:.4f}, B1 "
+          f"{med['polymul_fused']:.4f} [{device_line}]", flush=True)
+    for k in (2, 4, 8):
+        pipe, lp = local_pipeline_fn(MAIN_SET, k)
+        xl, yl = (t[:, :lp.nloc].contiguous() for t in (x, y))
+        t = time_cuda(pipe, xl, yl, warmup=3, repeats=20)
+        tl = t.median_ms
+        print(f"timing local_pipeline_fn k={k}: B={B} nloc={lp.nloc} median "
+              f"{tl:.4f} ms; SP cost per shard k*t_local/t_B5 = "
+              f"{k * tl / med['polymul_mxu']:.3f}, k*t_local/t_B1 = "
+              f"{k * tl / med['polymul_fused']:.3f} [{device_line}]",
+              flush=True)
+    done()
     return out
 
 
@@ -396,6 +594,7 @@ def main() -> int:
     phase("2 kernels against plain, on the card")
     errors = {name: 0 for name in KERNELS}
     kernels_against_plain(errors)
+    sp_against_plain(errors)
 
     phase("3 main path at full size")
     launches = main_path(errors, SEED)
@@ -403,13 +602,17 @@ def main() -> int:
     phase("4 timing")
     times = timing(device_line)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "qtesla_tpu"))
+    if loaded:
+        raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": k.replaces, "launches": launches[name],
         "max_abs_err": errors[name], "ms": times[name]["kernel"][1],
         "plain_ms": times[name]["plain"][1],
+        "bound_ms": times[name]["bound"][0],
+        "bound_by": times[name]["bound"][1], "library_ms": None,
     } for name, (k, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(device_line)

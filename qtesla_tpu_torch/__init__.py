@@ -3,12 +3,14 @@
 Batched negacyclic polynomial multiplication for qTESLA on an NVIDIA Hopper
 GPU: plain PyTorch for the host side and the reference paths, hand-written
 CUDA kernels (``csrc/``) for the fused transforms.  It imports torch and
-numpy, never jax; from the JAX package it reuses only the jax-free parameter
-registry (``qtesla_tpu.params``) and big-int oracle (``qtesla_tpu.oracle``).
+numpy, and nothing of jax or the JAX package: its parameter registry
+(``params.py``) and big-int oracle (``oracle.py``) are its own copies.
 """
 
-from qtesla_tpu.oracle import polymul_negacyclic_oracle  # noqa: F401
-from qtesla_tpu.params import (ParamSet, available_param_sets,  # noqa: F401
-                               get_params, register_param_set)
+from .oracle import polymul_negacyclic_oracle  # noqa: F401
+from .params import (ParamSet, available_param_sets,  # noqa: F401
+                     get_params, register_param_set)
+from .parallel import (local_pipeline_fn, make_mesh,  # noqa: F401
+                       polymul_fourstep_mxu_fn, polymul_fourstep_sharded_fn)
 
 __version__ = "0.1.0"

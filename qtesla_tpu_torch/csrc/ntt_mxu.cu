@@ -40,7 +40,9 @@
 // thread reads 8 contiguous bytes).  The K order inside each 32-deep step is
 // permuted the same way for A and B, which the sum does not see.  Each
 // thread then holds all D classes of its output elements and recombines them
-// in registers.  x and y share one pass over the forward tables.
+// in registers.  x and y share one pass over the forward tables.  The wide
+// stages, the split, the products and the recombination live in
+// mxu_block.cuh, shared with the sequence-parallel kernels.
 //
 // What bounds it on the H100.  The tables do not fit in shared memory
 // (q-III: wf 1.57 MB, wi 1.18 MB; p-III 8.4 MB in all), so each block reads
@@ -68,13 +70,18 @@
 #include <cuda_runtime.h>
 
 #include "modq.cuh"
+#include "mxu_block.cuh"
 
 namespace {
 
-using qt::csub;
+using qt::block_matmul;
+using qt::cp_async16;
+using qt::cp_async_wait_all;
+using qt::kMaxClasses;
+using qt::kMaxRows;
+using qt::kPad;
 using qt::Mod;
 using qt::mulmod_barrett;
-using qt::shoup_lazy;
 
 // Field for field the MxuPlan ctypes.Structure of ops/ntt_mxu.py.
 struct MxuPlan {
@@ -86,198 +93,8 @@ struct MxuPlan {
 };
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 4;         // 32-deep K steps whose loads go together
-constexpr int kMaxRows = 32;      // two 16-row MMA tiles
-constexpr int kMaxClasses = 4;
-constexpr int kPad = 16;          // bytes after each row of digit planes
-constexpr uint32_t kClassBias = 1u << 24;
 
 enum Mode { kPolymul, kFixed, kNtt, kIntt, kFolded };
-
-// c += A (16x32 s8) * B (32x8 s8).  a_lo: row g, a_hi: row g + 8, each 8
-// bytes at the thread's K offset; b: column g at the same K offset.
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint2 a_lo, uint2 a_hi,
-                                       uint2 b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a_lo.x), "r"(a_hi.x), "r"(a_lo.y), "r"(a_hi.y), "r"(b.x),
-          "r"(b.y));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src,
-                                           int src_bytes) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The first Lr merged-psi CT stages over `rows` rows, canonical in and out.
-// Stage s has 2^s blocks of width 2t, t = n >> (s + 1); block i uses
-// tw[2^s + i].
-__device__ void fwd_wide(uint32_t* data, int rows,
-                         const uint32_t* __restrict__ tw, const MxuPlan& p) {
-    const int n = p.n, hl = p.logn - 1;
-    const uint32_t q = p.q;
-    for (int s = 0; s < p.lr; ++s) {
-        const int sh = hl - s;
-        const int t = 1 << sh;
-        for (int k = threadIdx.x; k < rows << hl; k += blockDim.x) {
-            const int kk = k & ((1 << hl) - 1);
-            const int i = kk >> sh;
-            uint32_t* a = data + (k >> hl) * n + (i << (sh + 1)) + (kk & (t - 1));
-            const uint32_t w = __ldg(tw + (1 << s) + i);
-            const uint32_t w_sh = __ldg(tw + n + (1 << s) + i);
-            const uint32_t u = a[0];
-            const uint32_t v = csub(shoup_lazy(a[t], w, w_sh, q), q);
-            a[0] = csub(u + v, q);
-            a[t] = csub(u - v + q, q);
-        }
-        __syncthreads();
-    }
-}
-
-// The last Lr merged-psi GS stages over `rows` rows, canonical in and out.
-// Stage s has pair distance t = 2^s and h = n >> (s + 1) blocks; block i
-// uses itw[h + i]; the last stage's sum branch takes itw[0] = n^{-1}.
-__device__ void inv_wide(uint32_t* data, int rows,
-                         const uint32_t* __restrict__ tw, const MxuPlan& p) {
-    const int n = p.n, hl = p.logn - 1;
-    const uint32_t q = p.q;
-    const uint32_t* itw = tw + 2 * n;
-    const uint32_t* itw_sh = tw + 3 * n;
-    for (int s = p.logn - p.lr; s < p.logn; ++s) {
-        const int t = 1 << s;
-        const int h = n >> (s + 1);
-        const bool last = s == p.logn - 1;
-        for (int k = threadIdx.x; k < rows << hl; k += blockDim.x) {
-            const int kk = k & ((1 << hl) - 1);
-            const int i = kk >> s;
-            uint32_t* a = data + (k >> hl) * n + (i << (s + 1)) + (kk & (t - 1));
-            const uint32_t u = a[0];
-            const uint32_t v = a[t];
-            uint32_t sum = csub(u + v, q);
-            if (last)
-                sum = csub(shoup_lazy(sum, __ldg(itw), __ldg(itw_sh), q), q);
-            a[0] = sum;
-            a[t] = csub(shoup_lazy(u - v + q, __ldg(itw + h + i),
-                                   __ldg(itw_sh + h + i), q), q);
-        }
-        __syncthreads();
-    }
-}
-
-// The block-local stages of one direction over `rows` rows, in place: per
-// lane block, digit split into `planes`, int8 MMA against the tables w
-// (nb, d*bw, din*bw), recombination into canonical residues.  Every input
-// must lie below the split's bound.
-__device__ void block_matmul(uint32_t* data, int rows, int8_t* planes, int ks,
-                             const int8_t* __restrict__ w,
-                             const uint32_t* __restrict__ cst, int din,
-                             int lb, uint32_t add, uint32_t kb,
-                             const MxuPlan& p) {
-    const int n = p.n, bw = p.bw, d = p.d, K = din * bw;
-    const int lbw = __ffs(bw) - 1;
-    const int mt = (rows + 15) >> 4;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, tig = lane & 3;
-    const uint32_t q = p.q, q2 = 2u * q;
-    const int low_mask = (1 << lb) - 1, half_base = 1 << (lb - 1);
-    for (int b = 0; b < p.nb; ++b) {
-        for (int idx = threadIdx.x; idx < rows * bw; idx += blockDim.x) {
-            const int r = idx >> lbw, k = idx & (bw - 1);
-            const int32_t a =
-                static_cast<int32_t>(data[r * n + b * bw + k] + add);
-            int8_t* pr = planes + r * ks + k;
-            for (int i = 0; i < din - 1; ++i)
-                pr[i * bw] = static_cast<int8_t>(
-                    ((a >> (lb * i)) & low_mask) - half_base);
-            pr[(din - 1) * bw] = static_cast<int8_t>(a >> (lb * (din - 1)));
-        }
-        __syncthreads();
-        const int8_t* wb = w + static_cast<size_t>(b) * d * bw * K;
-        for (int lt = warp; lt < (bw >> 3); lt += kWarps) {
-            int acc[2][kMaxClasses][4];
-#pragma unroll
-            for (int m = 0; m < 2; ++m)
-#pragma unroll
-                for (int j = 0; j < kMaxClasses; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
-            // K in chunks of kSteps 32-deep steps: every B fragment of a
-            // chunk is requested before its first MMA, so a warp keeps
-            // d * kSteps table loads in flight
-            for (int k0 = 0; k0 < K; k0 += 32 * kSteps) {
-                uint2 bf[kSteps][kMaxClasses];
-#pragma unroll
-                for (int st = 0; st < kSteps; ++st)
-#pragma unroll
-                    for (int j = 0; j < kMaxClasses; ++j)
-                        if (j < d && k0 + st * 32 < K)
-                            bf[st][j] = __ldg(reinterpret_cast<const uint2*>(
-                                wb + static_cast<size_t>(j * bw + lt * 8 + g) *
-                                         K +
-                                k0 + st * 32 + tig * 8));
-#pragma unroll
-                for (int st = 0; st < kSteps; ++st) {
-                    if (k0 + st * 32 >= K) break;
-                    uint2 a[2][2];
-#pragma unroll
-                    for (int m = 0; m < 2; ++m) {
-                        if (m < mt) {
-                            const int8_t* pa = planes + (m * 16 + g) * ks +
-                                               k0 + st * 32 + tig * 8;
-                            a[m][0] = *reinterpret_cast<const uint2*>(pa);
-                            a[m][1] =
-                                *reinterpret_cast<const uint2*>(pa + 8 * ks);
-                        }
-                    }
-#pragma unroll
-                    for (int j = 0; j < kMaxClasses; ++j)
-                        if (j < d)
-#pragma unroll
-                            for (int m = 0; m < 2; ++m)
-                                if (m < mt)
-                                    mma_s8(acc[m][j], a[m][0], a[m][1],
-                                           bf[st][j]);
-                }
-            }
-            // accumulator e of tile m: row m*16 + g (+8 for e >= 2), lane
-            // lt*8 + tig*2 + (e & 1)
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int r = m * 16 + g + ((e >> 1) << 3);
-                    const int col = b * bw + lt * 8 + tig * 2 + (e & 1);
-                    if (m < mt && r < rows) {
-                        uint32_t v = __ldg(cst + col) + kb;           // < 2q
-#pragma unroll
-                        for (int j = 0; j < kMaxClasses; ++j) {
-                            if (j < d) {
-                                const uint32_t t =
-                                    static_cast<uint32_t>(acc[m][j][e]) +
-                                    kClassBias;
-                                v = csub(v + shoup_lazy(t, p.pw[j], p.pw_sh[j],
-                                                        q),
-                                         q2);                          // < 2q
-                            }
-                        }
-                        data[r * n + col] = csub(v, q);
-                    }
-                }
-            }
-        }
-        __syncthreads();
-    }
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -309,9 +126,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     if (MODE != kIntt) {
-        fwd_wide(data, p.rows, tw, p);
-        block_matmul(data, p.rows, planes, ks, wf, cf, p.df, p.fwd_lb,
-                     p.fwd_add, p.kbf, p);
+        const int K = p.df * p.bw;
+        qt::fwd_wide(data, p.rows, p.logn, 0, p.lr, tw, p.q);
+        block_matmul(data, p.rows, n, p.bw, p.nb, planes, ks, wf,
+                     static_cast<size_t>(p.d) * p.bw * K, K, cf, p.bw, p.df,
+                     p.fwd_lb, p.fwd_add, p.kbf, p);
     }
     if (MODE == kPolymul || MODE == kFixed) {
         const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
@@ -324,9 +143,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         __syncthreads();
     }
     if (MODE != kNtt) {
-        block_matmul(data, tb, planes, ks, wi, ci, p.di, p.inv_lb, p.inv_add,
-                     p.kbi, p);
-        inv_wide(data, tb, tw, p);
+        const int K = p.di * p.bw;
+        block_matmul(data, tb, n, p.bw, p.nb, planes, ks, wi,
+                     static_cast<size_t>(p.d) * p.bw * K, K, ci, p.bw, p.di,
+                     p.inv_lb, p.inv_add, p.kbi, p);
+        qt::inv_wide(data, tb, p.logn, 0, p.lr, tw, p.q);
     }
 
     for (int c = threadIdx.x * 4; c < tb * n; c += blockDim.x * 4)

@@ -1,0 +1,245 @@
+// Sequence-parallel (four-step) digit-matmul segment kernels for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernels of qtesla_tpu/parallel/sharded_mxu.py:
+//   qt_sp_seg1 <- _make_seg1 (l.481)                  B11
+//   qt_sp_seg2 <- _make_seg2 / _seg2_block (l.520)    B12
+//   qt_sp_seg3 <- _make_seg3 (l.622)                  B16
+//
+// What they compute.  The four-step polymul n = n1 x n2 splits each
+// transform over a model axis of k shards; shard d holds nloc = n1 * n2/k
+// values of a row (parallel/sharded_mxu_tables.py), cut into A tiles of TW
+// lanes.  Per row of a shard:
+//   seg1: the Lr wide stages of the n1-point merged-psi forward along j1
+//         (super-lanes of n2/k values), then per tile one digit-matmul
+//         against K1[d, t] (the tile-local stages with psi^{j2} and
+//         w^{k1 j2} folded in);
+//   seg2: per tile, the shared row transform K2f on x and on y, the Barrett
+//         pointwise product, then K2i[d, t] (inverse rows with w^{-k1 j2});
+//   seg3: per tile K3[d, t] (tile-local inverse stages with psi^{-j2}),
+//         then the Lr inverse wide stages with n1^{-1} in the last; at
+//         Lr = 0 the matrix carries n1^{-1}.
+// The wide stages and the block matmul are mxu_block.cuh's, shared with
+// B5-B9.  Every output is canonical, and canonical inputs lie below every
+// plan's split bound, so the JAX plans' split parameters serve unchanged;
+// the TPU kernel's lazy hand-offs between segments are not replayed.
+//
+// Design.  One launch covers the k_local stacked shards (k_local, B, nloc)
+// of a call: grid (row groups, shard), each shard's tables found by offset
+// (K2f and its const row are one table for every shard).  A rank of a
+// multi-process run launches the same kernel with k_local = 1 and its own
+// table slice.  A block holds `rows` rows (at most 32; 16 of x and 16 of y
+// for seg2) in shared memory for the whole segment, loaded with cp.async;
+// at nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so
+// four blocks fit an SM (B5's 148 KB block allows one).  The launch keeps
+// 16 warps on an SM whatever the row length: four blocks of 128 threads
+// where four fit, else two of 256, else one of 512, each with
+// __launch_bounds__ keeping the registers for that many, so one block's
+// barriers overlap the others' products.  Measured on an H100 at
+// qtesla-iii-speed, k = 4 (PERF.md): one 256-thread block per SM ran
+// 1.6-1.7x slower than two, two 512-thread blocks 9-11 % slower, and four
+// 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
+// two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
+// TW below 32 (smallprime) pads the product depth to a multiple of 32 with
+// zero table columns and zero planes.
+//
+// What bounds it on the H100 (qtesla-iii-speed, B = 32768, k = 4, all
+// shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s):
+//   B11 (per operand) 268 MB, 3.9e10 MACs: 0.080 ms, device memory;
+//   B12               403 MB, 1.42e11 MACs: 0.143 ms, tensor cores;
+//   B16               268 MB, 5.2e10 MACs: 0.080 ms, device memory.
+// The tables (0.2-1.6 MB for all shards) stay in L2.  As in B5, this first
+// design streams them from L2 once per row group and runs load, wide
+// stages, split, products and recombination as barrier-separated phases;
+// no TMA and no wgmma.
+//
+// Each launcher is extern "C", takes raw pointers, the batch B (rows per
+// shard), k_local, a pointer to an SpPlan and a stream, launches without
+// synchronising and returns cudaGetLastError().
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "modq.cuh"
+#include "mxu_block.cuh"
+
+namespace {
+
+using qt::block_matmul;
+using qt::cp_async16;
+using qt::cp_async_wait_all;
+using qt::kMaxClasses;
+using qt::kMaxRows;
+using qt::kPad;
+using qt::Mod;
+using qt::mulmod_barrett;
+
+// Field for field the SpPlan ctypes.Structure of parallel/sharded_mxu.py.
+// Digit plan 1 is seg1's p1, seg2's p2f (shared) or seg3's p3; digit plan 2
+// is seg2's p2i.  kp is a plan's table depth, din * tw rounded up to 32.
+struct SpPlan {
+    int32_t nloc, lnloc, tw, a, lr, logm, llanes, d, rows;
+    uint32_t q, r32, r32_sh, one_sh;
+    uint32_t pw[4], pw_sh[4];
+    int32_t din1, lb1, kp1;
+    uint32_t add1, kb1;
+    int32_t din2, lb2, kp2;
+    uint32_t add2, kb2;
+};
+
+// the threads an SM runs: 16 warps, in blocks of 128, 256 or 512
+constexpr int kSmThreads = 512;
+// shared memory of one SM, and what the runtime reserves for each block
+constexpr int kSmShared = 233472, kBlockReserve = 1024;
+
+enum Seg { kSeg1, kSeg2, kSeg3 };
+
+template <int SEG, int THREADS>
+__global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
+    sp_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+              uint32_t* __restrict__ z, const int8_t* __restrict__ w1,
+              const uint32_t* __restrict__ c1, const int8_t* __restrict__ w2,
+              const uint32_t* __restrict__ c2,
+              const uint32_t* __restrict__ tw, long long batch,
+              const __grid_constant__ SpPlan p) {
+    extern __shared__ __align__(16) uint32_t smem[];
+    constexpr int kOps = SEG == kSeg2 ? 2 : 1;
+    const int nloc = p.nloc, tb = p.rows / kOps;
+    const int ks = (p.kp1 > p.kp2 ? p.kp1 : p.kp2) + kPad;
+    uint32_t* data = smem;
+    int8_t* planes = reinterpret_cast<int8_t*>(smem + p.rows * nloc);
+    const int shard = blockIdx.y;
+    const long long row0 = static_cast<long long>(blockIdx.x) * tb;
+    const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
+    const size_t base =
+        (static_cast<size_t>(shard) * batch + row0) * static_cast<size_t>(nloc);
+    // one shard's tables: a tiles of (d * tw, kp) int8 and (tw) const
+    const size_t tile1 = static_cast<size_t>(p.d) * p.tw * p.kp1;
+    const size_t tile2 = static_cast<size_t>(p.d) * p.tw * p.kp2;
+    const size_t cshard = static_cast<size_t>(p.a) * p.tw;
+
+    // rows past the batch are zero-filled; every copy is in flight before
+    // the one wait
+    for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4) {
+        const bool ok = (c >> p.lnloc) < live;
+        cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
+        if (SEG == kSeg2)
+            cp_async16(data + tb * nloc + c, ok ? y + base + c : y,
+                       ok ? 16 : 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (SEG == kSeg1) {
+        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
+                     w1 + shard * p.a * tile1, tile1, p.kp1,
+                     c1 + shard * cshard, p.tw, p.din1, p.lb1, p.add1, p.kb1,
+                     p);
+    }
+    if (SEG == kSeg2) {
+        // x and y rows through the one shared forward table
+        block_matmul(data, 2 * tb, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
+                     c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
+        const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
+        for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
+            data[idx] = mulmod_barrett(data[idx], data[tb * nloc + idx], m);
+        __syncthreads();
+        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
+                     w2 + shard * p.a * tile2, tile2, p.kp2,
+                     c2 + shard * cshard, p.tw, p.din2, p.lb2, p.add2, p.kb2,
+                     p);
+    }
+    if (SEG == kSeg3) {
+        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
+                     w1 + shard * p.a * tile1, tile1, p.kp1,
+                     c1 + shard * cshard, p.tw, p.din1, p.lb1, p.add1, p.kb1,
+                     p);
+        qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+    }
+
+    for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4)
+        if ((c >> p.lnloc) < live)
+            *reinterpret_cast<uint4*>(z + base + c) =
+                *reinterpret_cast<const uint4*>(data + c);
+}
+
+bool valid_depth(int din, int kp, int tw) {
+    return din >= 1 && din <= 6 && kp % 32 == 0 && kp >= din * tw &&
+           kp < din * tw + 32;
+}
+
+// One launch of sp_kernel<SEG, THREADS> with `smem` bytes a block.
+template <int SEG, int THREADS>
+int run(const void* a, const void* b, void* out, const void* w1,
+        const void* c1, const void* w2, const void* c2, const void* tw,
+        long long batch, long long blocks, int k_local, size_t smem,
+        const SpPlan& p, void* stream) {
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sp_kernel<SEG, THREADS>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return e;
+    }
+    sp_kernel<SEG, THREADS><<<dim3(static_cast<unsigned>(blocks),
+                                   static_cast<unsigned>(k_local)),
+                              THREADS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<uint32_t*>(out), static_cast<const int8_t*>(w1),
+        static_cast<const uint32_t*>(c1), static_cast<const int8_t*>(w2),
+        static_cast<const uint32_t*>(c2), static_cast<const uint32_t*>(tw),
+        batch, p);
+    return cudaGetLastError();
+}
+
+template <int SEG>
+int launch(const void* a, const void* b, void* out, const void* w1,
+           const void* c1, const void* w2, const void* c2, const void* tw,
+           long long batch, int k_local, const void* plan, void* stream) {
+    const SpPlan p = *static_cast<const SpPlan*>(plan);
+    constexpr int kOps = SEG == kSeg2 ? 2 : 1;
+    const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
+    if (p.rows < kOps || p.rows > kMaxRows || p.rows % kOps || p.d < 1 ||
+        p.d > kMaxClasses || !pow2_tw || p.nloc != 1 << p.lnloc ||
+        p.a * p.tw != p.nloc || p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
+        (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
+        !valid_depth(p.din1, p.kp1, p.tw) ||
+        (SEG == kSeg2 ? !valid_depth(p.din2, p.kp2, p.tw) : p.kp2 != 0))
+        return cudaErrorInvalidValue;
+    const long long tb = p.rows / kOps;
+    const long long blocks = (batch + tb - 1) / tb;
+    if (batch <= 0 || blocks >= (1LL << 31) || k_local < 1 ||
+        k_local > 65535)
+        return cudaErrorInvalidValue;
+    const int kmax = p.kp1 > p.kp2 ? p.kp1 : p.kp2;
+    const size_t smem =
+        static_cast<size_t>(p.rows) * p.nloc * sizeof(uint32_t) +
+        static_cast<size_t>((p.rows + 15) / 16 * 16) * (kmax + kPad);
+    // blocks whose shared memory fits one SM
+    const size_t fit = kSmShared / (smem + kBlockReserve);
+    if (fit >= 4)
+        return run<SEG, 128>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
+                             k_local, smem, p, stream);
+    if (fit >= 2)
+        return run<SEG, 256>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
+                             k_local, smem, p, stream);
+    return run<SEG, 512>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
+                         k_local, smem, p, stream);
+}
+
+}  // namespace
+
+#define QT_SP_LAUNCHER(name, seg)                                             \
+    extern "C" int name(const void* a, const void* b, void* out,             \
+                        const void* w1, const void* c1, const void* w2,      \
+                        const void* c2, const void* tw, long long batch,     \
+                        int k_local, const void* plan, void* stream) {       \
+        return launch<seg>(a, b, out, w1, c1, w2, c2, tw, batch, k_local,    \
+                           plan, stream);                                    \
+    }
+
+QT_SP_LAUNCHER(qt_sp_seg1, kSeg1)
+QT_SP_LAUNCHER(qt_sp_seg2, kSeg2)
+QT_SP_LAUNCHER(qt_sp_seg3, kSeg3)

@@ -31,8 +31,6 @@ import functools
 import torch
 from torch import nn
 
-from qtesla_tpu.params import ParamSet
-
 from ..ops import ntt as N
 from ..ops import ntt_fused as F
 from ..ops import ntt_mxu as M
@@ -59,12 +57,20 @@ def _unsupported(algo: str, allowed) -> Exception:
 
 
 def _tables(ps) -> NttTables:
+    """Tables of a set given by name, as ``NttTables``, or as any parameter
+    set object with ``name``, ``n`` and ``q`` (the port's ``ParamSet`` or the
+    JAX package's), whose name the port's registry must know with the same
+    (n, q)."""
     if isinstance(ps, str):
         return get_tables(ps)
-    if isinstance(ps, ParamSet):
-        return get_tables(ps.name)
     if isinstance(ps, NttTables):
         return ps
+    if all(hasattr(ps, f) for f in ("name", "n", "q")):
+        tbl = get_tables(ps.name)
+        if (tbl.n, tbl.q) != (ps.n, ps.q):
+            raise ValueError(f"param set {ps.name!r} is registered as "
+                             f"({tbl.n}, {tbl.q}), got ({ps.n}, {ps.q})")
+        return tbl
     raise TypeError(f"expected param-set name/ParamSet/NttTables, got {ps!r}")
 
 

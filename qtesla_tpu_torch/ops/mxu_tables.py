@@ -20,7 +20,7 @@ where ``const`` folds the centring offset and subtracts ``group_bias``, the
 biases the TPU kernel adds to its Horner-packed class groups.  A
 recombination that does not bias its groups adds ``group_bias`` back.
 
-``get_mxu_tables(name)`` plans from ``qtesla_tpu.params``;
+``get_mxu_tables(name)`` plans from the port's registry;
 ``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
 
 The folded fixed-operand form (``fixed_fold_plan``, ``fixed_fold_tables``,
@@ -51,6 +51,11 @@ _BW_MAX = 128            # block width: one TPU vreg of lanes
 # relative VPU-op costs of the TPU kernel that the split search minimises
 # (a sloppy Shoup, a conditional subtract, an extra input digit plane)
 _COST_SHOUP, _COST_CSUB, _COST_PLANE = 4, 2, 3
+# the penalty per digit plane beyond the fewest that cover an input, in the
+# sequence-parallel segment kernels, whose products no wide stages hide
+# (parallel/sharded_mxu_tables.py); the single-transform planner above
+# charges none
+_COST_PLANE_EXTRA = 4
 
 
 # ----------------------------------------------------------------------

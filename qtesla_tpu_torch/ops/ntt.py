@@ -33,8 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from qtesla_tpu.params import ParamSet
-
+from ..params import ParamSet
 from .modmul import add_mod, mulmod_barrett, shoup_mulmod, sub_mod
 from .tables import NttTables, _build
 

@@ -180,21 +180,36 @@ def _digit_planes(v: torch.Tensor, off: int, D: int,
     return torch.cat(planes + [a >> (lb * (D - 1))], dim=-1)
 
 
+def digit_product(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
+                  group_bias: int, off: int, din: int, base: int, q: int,
+                  D: int) -> torch.Tensor:
+    """One digit-matmul per (shard, block): (S, R, nb, bw) int64 values below
+    the split's bound against kernel-layout tables w int8 (S or 1, nb or 1,
+    D*bw, K), K >= din*bw (columns past din*bw are zero padding), and const
+    rows (S or 1, nb or 1, bw); canonical (S, R, nb, bw) out."""
+    S, R, nb, bw = v.shape
+    planes = _digit_planes(v, off, din, base)
+    # (S, nb, R, din*bw) @ (S, nb, din*bw, D*bw): exact in float64
+    # (|c_j| < 2^24)
+    c = torch.matmul(planes.transpose(1, 2).to(torch.float64),
+                     w[..., :din * bw].to(torch.float64).transpose(-1, -2))
+    c = c.to(_I64).reshape(S, nb, R, D, bw)
+    pw = torch.tensor([pow(2, 8 * j, q) for j in range(D)], dtype=_I64,
+                      device=v.device)
+    out = (const.to(_I64)[:, :, None] + group_bias
+           + (c * pw[:, None]).sum(dim=3))
+    return (out % q).transpose(1, 2)
+
+
 def _block_matmul(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
                   group_bias: int, off: int, din: int, base: int,
                   mt: MxuTables) -> torch.Tensor:
     """The block-local stages of one direction on (R, n) int64 values below
     the split's bound; canonical out."""
-    R, q, bw, nb, D = v.shape[0], mt.q, mt.bw, mt.nb, mt.D
-    planes = _digit_planes(v.reshape(R, nb, bw), off, din, base)
-    # (nb, R, din*bw) @ (nb, din*bw, D*bw): exact in float64 (|c_j| < 2^24)
-    c = torch.bmm(planes.transpose(0, 1).to(torch.float64),
-                  w.to(torch.float64).transpose(1, 2))
-    c = c.to(_I64).transpose(0, 1).reshape(R, nb, D, bw)
-    pw = torch.tensor([pow(2, 8 * j, q) for j in range(D)], dtype=_I64,
-                      device=v.device)
-    out = const.to(_I64) + group_bias + (c * pw[:, None]).sum(dim=2)
-    return (out % q).reshape(R, mt.n)
+    R = v.shape[0]
+    out = digit_product(v.reshape(1, R, mt.nb, mt.bw), w[None], const[None],
+                        group_bias, off, din, base, mt.q, mt.D)
+    return out.reshape(R, mt.n)
 
 
 def _fwd_plain(x, mt: MxuTables, tabs: MxuDeviceTables, tw):

@@ -7,8 +7,8 @@ the Stockham stage tables (``stockham_fwd``, ``stockham_inv``: one (m, 1)
 pair per stage), the weighting rows ``phi`` (psi^i), ``inv_phi``
 (n^{-1} psi^{-i}) and ``ipsi_pow`` (psi^{-i}), every table with its Shoup
 companion, and ``bitrev``.  It is a module of its own because importing
-``qtesla_tpu.ops.tables`` imports jax; this one needs only numpy and
-``qtesla_tpu.params``.  The JAX pairing kernels' full-width (L, n) tables
+``qtesla_tpu.ops.tables`` imports jax; this one needs only numpy and the
+port's ``params``.  The JAX pairing kernels' full-width (L, n) tables
 serve its lane rolls and are not carried over: a GPU thread computes its
 twiddle index.
 
@@ -34,7 +34,7 @@ read.  ``packed`` (shape (4, n)) serves the merged-psi kernels:
 - rows 4, 5: ``phi`` and its Shoup companion;
 - rows 6, 7: ``inv_phi`` and its Shoup companion.
 
-``get_tables(name)`` builds the bundle from ``qtesla_tpu.params``;
+``get_tables(name)`` builds the bundle from the port's registry;
 ``from_jax_tables(tbl)`` builds it from the JAX package's ``NttTables``
 (duck-typed, so jax is never imported here).  The compact arrays are derived
 from the stage tables in one place, so the two routes can be held equal.
@@ -46,7 +46,7 @@ import functools
 
 import numpy as np
 
-from qtesla_tpu.params import ParamSet, get_params
+from ..params import ParamSet, get_params
 
 __all__ = ["NttTables", "get_tables", "from_jax_tables"]
 

@@ -1,0 +1,477 @@
+"""Sequence-parallel (SP) digit-matmul polymul: segment kernels B11, B12 and
+B16, hand-written CUDA for Hopper, with their plain PyTorch twins.
+
+Counterpart of the kernels and the assembly of
+``qtesla_tpu/parallel/sharded_mxu.py``:
+
+- ``sp_seg1``  B11, replaces ``_make_seg1`` (sharded_mxu.py:481): the wide
+  stages of the n1-point column transform, then K1 per (shard, tile);
+- ``sp_seg2``  B12, replaces ``_make_seg2`` (l.520, ``_seg2_block`` l.502):
+  the shared row transform K2f on x and y, the Barrett pointwise product,
+  then K2i per (shard, tile);
+- ``sp_seg3``  B16, replaces ``_make_seg3`` (l.622): K3 per (shard, tile),
+  then the inverse wide stages with n1^{-1};
+- ``a2a_fwd`` / ``a2a_inv``: the exchanges between them;
+- ``polymul_fourstep_mxu_fn(name, mesh)`` (l.828) and
+  ``local_pipeline_fn(name, k)`` (l.839), the entry points.
+
+The model axis lives on one device.  The k shards of a call are the leading
+axis of one tensor: shard d of x (B, n) is
+``x.reshape(B, n1, n2)[:, :, d*n2k:(d+1)*n2k]`` (flat index j1*n2k +
+lambda), and the stacked layout is (k, B, nloc).  JAX's three
+``lax.all_to_all`` calls become permutations of that axis: ``a2a_fwd`` maps
+(k, B, n1, n2k) to (k, B, n1k, n2) with out[d', b, i, s*n2k + l] =
+in[s, b, d'*n1k + i, l], which is ``all_to_all(split_axis=1,
+concat_axis=2, tiled=True)``, and ``a2a_inv`` is its inverse.  Spectral
+rows stay in the merged forward's position order (``plans.k1map``), as in
+JAX.  A kernel launch covers the shards it is given: a rank of a future
+multi-process run (ROADMAP queue A item 13) launches the same kernels on its
+one shard, ``first`` naming which shard's tables it uses.
+
+Dispatch is on the input's device, as in ``ops/ntt_mxu.py``: a CUDA tensor
+launches the kernel of ``csrc/sharded_mxu.cu`` (or raises), a CPU tensor
+runs the twin, anything else raises.  Each launch adds one to its kernel's
+count in ``KERNELS``.  The twins compute in int64, with the port's merged
+stages along j1 (``ops/ntt.py``) and float64 digit products
+(``ops/ntt_mxu.py::digit_product``); every output is canonical.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import ntt as N
+from ..ops.modmul import mulmod_barrett
+from ..ops.mxu_tables import _group_bias, _split_bias
+from ..ops.ntt_fused import Kernel, _check
+from ..ops.ntt_mxu import _check_shapes, block_rows, digit_product
+from ..ops.tables import get_tables
+from .sharded_mxu_tables import SpPlans, fourstep_mxu_plans
+
+__all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "host_tables",
+           "device_tables", "plan_for", "sp_seg1", "sp_seg2", "sp_seg3",
+           "seg1_plain", "seg2_plain", "seg3_plain", "a2a_fwd", "a2a_inv",
+           "to_shards", "from_shards", "polymul_fourstep_mxu",
+           "polymul_fourstep_mxu_plain", "polymul_fourstep_mxu_fn",
+           "local_pipeline_fn"]
+
+CUDA_SOURCE = "qtesla_tpu_torch/csrc/sharded_mxu.cu"
+
+# ``smem_rows``: operand rows per batch row held in shared memory
+KERNELS: dict[str, Kernel] = {k.name: k for k in (
+    Kernel("sp_seg1", "qt_sp_seg1", "qtesla_tpu/parallel/sharded_mxu.py:481",
+           1),
+    Kernel("sp_seg2", "qt_sp_seg2", "qtesla_tpu/parallel/sharded_mxu.py:520",
+           2),
+    Kernel("sp_seg3", "qt_sp_seg3", "qtesla_tpu/parallel/sharded_mxu.py:622",
+           1),
+)}
+
+_CLASS_BIAS = 1 << 24      # the kernel adds it to each class sum c_j
+_I64, _U32 = torch.int64, torch.uint32
+
+
+# ----------------------------------------------------------------------
+# Tables on the device.
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SpDeviceTables:
+    """The SP plans' digit tables in the kernels' layout, on one device.
+
+    ``w1``, ``w2i``, ``w3`` int8 (k, A, D*TW, kp): tile t of shard d maps
+    output lane o of class j (row j*TW + o) from plane i, input lane l
+    (column i*TW + l), zero past din*TW; ``w2f`` int8 (D*TW, kp), the one
+    shared row table; ``c1``, ``c2i``, ``c3`` uint32 (k, A, TW) and ``c2f``
+    (TW,) the const rows; ``tw`` the n1-point packed twiddles (4, n1)."""
+
+    w1: torch.Tensor
+    c1: torch.Tensor
+    w2f: torch.Tensor
+    c2f: torch.Tensor
+    w2i: torch.Tensor
+    c2i: torch.Tensor
+    w3: torch.Tensor
+    c3: torch.Tensor
+    tw: torch.Tensor
+
+    def tensors(self):
+        return (self.w1, self.c1, self.w2f, self.c2f, self.w2i, self.c2i,
+                self.w3, self.c3, self.tw)
+
+
+def _depth(din: int, TW: int) -> int:
+    """A plan's table depth: din*TW rounded up to a multiple of 32."""
+    return -(-din * TW // 32) * 32
+
+
+def _kernel_layout(W: np.ndarray) -> torch.Tensor:
+    """(..., din, TW, D*TW) input-major digit tables -> (..., D*TW, kp),
+    output axis first, zero-padded to the kernel's depth."""
+    *lead, din, TW, dtw = W.shape
+    out = np.zeros((*lead, dtw, _depth(din, TW)), dtype=np.int8)
+    out[..., :din * TW] = np.moveaxis(W, -1, -3).reshape(*lead, dtw,
+                                                          din * TW)
+    return torch.from_numpy(out)
+
+
+def _const_rows(c: np.ndarray) -> torch.Tensor:
+    """(..., 1, TW) const rows -> (..., TW)."""
+    return torch.from_numpy(np.ascontiguousarray(c[..., 0, :]))
+
+
+def host_tables(plans: SpPlans) -> SpDeviceTables:
+    """The kernel-layout tables on the CPU, in new storage."""
+    return SpDeviceTables(
+        _kernel_layout(plans.p1.W), _const_rows(plans.p1.const),
+        _kernel_layout(plans.p2f.W), _const_rows(plans.p2f.const),
+        _kernel_layout(plans.p2i.W), _const_rows(plans.p2i.const),
+        _kernel_layout(plans.p3.W), _const_rows(plans.p3.const),
+        torch.from_numpy(plans.t1.packed.copy()))
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables(plans: SpPlans, device: torch.device) -> SpDeviceTables:
+    """``host_tables(plans)`` on ``device``, made once per device."""
+    return SpDeviceTables(*(t.to(device)
+                            for t in host_tables(plans).tensors()))
+
+
+def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
+    k, A, TW, D = plans.k, plans.A, plans.TW, plans.p1.W.shape[-1] // plans.TW
+    i8, u32 = torch.int8, torch.uint32
+    kp = {p: _depth(getattr(plans, p).din, TW)
+          for p in ("p1", "p2f", "p2i", "p3")}
+    want = ((i8, (k, A, D * TW, kp["p1"])), (u32, (k, A, TW)),
+            (i8, (D * TW, kp["p2f"])), (u32, (TW,)),
+            (i8, (k, A, D * TW, kp["p2i"])), (u32, (k, A, TW)),
+            (i8, (k, A, D * TW, kp["p3"])), (u32, (k, A, TW)),
+            (u32, (4, plans.n1)))
+    _check_shapes("SP tables", tabs.tensors(), want, like)
+
+
+# ----------------------------------------------------------------------
+# Plain versions (int64; float64 for the digit products).
+# ----------------------------------------------------------------------
+
+def _product(v: torch.Tensor, w: torch.Tensor, c: torch.Tensor, p,
+             plans: SpPlans) -> torch.Tensor:
+    """(S, R, nloc) values below plan p's split bound through per-(shard,
+    tile) tables w (S or 1, A or 1, D*TW, kp) and rows c; canonical."""
+    S, R = v.shape[:2]
+    out = digit_product(v.reshape(S, R, plans.A, plans.TW), w, c,
+                        _group_bias(p.groups, p.bounds, plans.q), p.off,
+                        p.din, p.base, plans.q, w.shape[-2] // plans.TW)
+    return out.reshape(S, R, plans.nloc)
+
+
+def _along_j1(v: torch.Tensor, plans: SpPlans, fn) -> torch.Tensor:
+    """fn applied to the n1-point transform along j1 of (S, R, nloc)."""
+    S, R = v.shape[:2]
+    v = v.reshape(S, R, plans.n1, plans.n2k).transpose(-1, -2)
+    return fn(v).transpose(-1, -2).reshape(S, R, plans.nloc)
+
+
+def _tabs(tabs, plans: SpPlans, like) -> SpDeviceTables:
+    return tabs if tabs is not None else device_tables(plans, like.device)
+
+
+def seg1_plain(x, plans: SpPlans, tabs=None, first: int = 0):
+    """B11's twin: (S, B, nloc) canonical -> (S, B, nloc) canonical, shard
+    s using shard first + s's tables."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    tw = tabs.tw.to(_I64)
+    v = _along_j1(x.to(_I64), plans, lambda t: N.ntt_fwd_merged(
+        t, plans.t1, tw, s_hi=plans.Lr))
+    return _product(v, tabs.w1[sl], tabs.c1[sl], plans.p1, plans).to(_U32)
+
+
+def seg2_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
+    """B12's twin: the row segment of x and y (S, B, nloc), canonical."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    ps = plans.ps
+    X, Y = (_product(t.to(_I64), tabs.w2f[None, None],
+                     tabs.c2f[None, None], plans.p2f, plans) for t in (x, y))
+    Z = mulmod_barrett(X, Y, ps.q, ps.r32, ps.r32_shoup, ps.one_shoup)
+    return _product(Z, tabs.w2i[sl], tabs.c2i[sl], plans.p2i,
+                    plans).to(_U32)
+
+
+def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0):
+    """B16's twin: the inverse column segment of (S, B, nloc), canonical."""
+    tabs = _tabs(tabs, plans, w)
+    sl = slice(first, first + w.shape[0])
+    tw = tabs.tw.to(_I64)
+    v = _product(w.to(_I64), tabs.w3[sl], tabs.c3[sl], plans.p3, plans)
+    L1 = plans.n1.bit_length() - 1
+    return _along_j1(v, plans, lambda t: N.intt_inv_merged(
+        t, plans.t1, tw, s_lo=L1 - plans.Lr)).to(_U32)
+
+
+# ----------------------------------------------------------------------
+# Layouts.
+# ----------------------------------------------------------------------
+
+def _permute(v: torch.Tensor, shape, dims, out_shape) -> torch.Tensor:
+    """A copy of uint32 v viewed as ``shape``, permuted by ``dims``, as
+    ``out_shape`` (through int32 storage: torch has few uint32 kernels)."""
+    return v.view(torch.int32).reshape(shape).permute(dims).reshape(
+        out_shape).view(_U32)
+
+
+def to_shards(x: torch.Tensor, plans: SpPlans) -> torch.Tensor:
+    """(B, n) -> the stacked coefficient shards (k, B, nloc)."""
+    B = x.shape[0]
+    return _permute(x, (B, plans.n1, plans.k, plans.n2k), (2, 0, 1, 3),
+                    (plans.k, B, plans.nloc))
+
+
+def from_shards(z: torch.Tensor, plans: SpPlans) -> torch.Tensor:
+    """The stacked coefficient shards (k, B, nloc) -> (B, n)."""
+    B = z.shape[1]
+    return _permute(z, (plans.k, B, plans.n1, plans.n2k), (1, 2, 0, 3),
+                    (B, plans.n))
+
+
+def a2a_fwd(v: torch.Tensor, plans: SpPlans) -> torch.Tensor:
+    """Coefficient shards (k, B, n1, n2k) -> spectral shards (k, B, n1k,
+    n2), each flat as (k, B, nloc)."""
+    k, B = v.shape[:2]
+    return _permute(v, (k, B, k, plans.n1k, plans.n2k), (2, 1, 3, 0, 4),
+                    (k, B, plans.nloc))
+
+
+def a2a_inv(v: torch.Tensor, plans: SpPlans) -> torch.Tensor:
+    """The inverse of ``a2a_fwd``."""
+    k, B = v.shape[:2]
+    return _permute(v, (k, B, plans.n1k, k, plans.n2k), (3, 1, 0, 2, 4),
+                    (k, B, plans.nloc))
+
+
+# ----------------------------------------------------------------------
+# Kernel launch.
+# ----------------------------------------------------------------------
+
+class SpPlan(ctypes.Structure):
+    """The plan values the kernels take at run time; field for field the
+    ``SpPlan`` struct of ``csrc/sharded_mxu.cu``."""
+
+    _fields_ = [(f, ctypes.c_int32) for f in (
+        "nloc", "lnloc", "tw", "a", "lr", "logm", "llanes", "d", "rows")] + [
+        (f, ctypes.c_uint32) for f in ("q", "r32", "r32_sh", "one_sh")] + [
+        ("pw", ctypes.c_uint32 * 4), ("pw_sh", ctypes.c_uint32 * 4)] + [
+        (f, t) for i in (1, 2) for f, t in (
+            (f"din{i}", ctypes.c_int32), (f"lb{i}", ctypes.c_int32),
+            (f"kp{i}", ctypes.c_int32), (f"add{i}", ctypes.c_uint32),
+            (f"kb{i}", ctypes.c_uint32))]
+
+
+def _digit_fields(p, q: int, bias: int, TW: int, i: int) -> dict:
+    return {f"din{i}": p.din, f"lb{i}": p.base.bit_length() - 1,
+            f"kp{i}": _depth(p.din, TW),
+            f"add{i}": (_split_bias(p.din, p.base) - p.off) % (1 << 32),
+            f"kb{i}": (_group_bias(p.groups, p.bounds, q) - bias) % q}
+
+
+@functools.lru_cache(maxsize=None)
+def plan_for(plans: SpPlans, seg: int) -> SpPlan:
+    """The run-time plan of segment ``seg`` (1, 2 or 3).  A plan outside
+    the kernels' range (more than 4 classes or 6 planes, a class bound of
+    2^24, a tile below 8 lanes, rows that do not fit) raises."""
+    q, TW = plans.q, plans.TW
+    digit = {1: (plans.p1,), 2: (plans.p2f, plans.p2i), 3: (plans.p3,)}[seg]
+    D = plans.p1.W.shape[-1] // TW
+    if (D > 4 or max(p.din for p in digit) > 6 or TW < 8
+            or max(max(p.bounds) for p in digit) >= _CLASS_BIAS):
+        raise ValueError(f"{plans.name}: SP plan (D={D}, din="
+                         f"{[p.din for p in digit]}, TW={TW}) is outside the "
+                         f"kernels' range")
+    ops = 2 if seg == 2 else 1
+    rows = block_rows(plans.nloc, ops)
+    if rows < ops:
+        raise ValueError(f"nloc={plans.nloc}: a row does not fit the "
+                         f"kernels' shared memory")
+    pw = [pow(2, 8 * j, q) for j in range(D)] + [0] * (4 - D)
+    bias = _CLASS_BIAS * sum(pw)
+    ps = plans.ps
+    fields = {f"{f}{i}": 0 for i in (1, 2)
+              for f in ("din", "lb", "kp", "add", "kb")}
+    for i, p in enumerate(digit, 1):
+        fields.update(_digit_fields(p, q, bias, TW, i))
+    return SpPlan(
+        nloc=plans.nloc, lnloc=plans.nloc.bit_length() - 1, tw=TW,
+        a=plans.A, lr=plans.Lr, logm=plans.n1.bit_length() - 1,
+        llanes=plans.n2k.bit_length() - 1, d=D, rows=rows, q=q, r32=ps.r32,
+        r32_sh=ps.r32_shoup, one_sh=ps.one_shoup,
+        pw=(ctypes.c_uint32 * 4)(*pw),
+        pw_sh=(ctypes.c_uint32 * 4)(*((w << 32) // q for w in pw)),
+        **fields)
+
+
+def _launch(kernel: Kernel, seg: int, plans: SpPlans, tables, a, b):
+    """Run ``kernel`` on CUDA shards a (and b), (S, B, nloc), into a new
+    output, against ``tables`` (w1, c1, w2, c2, twiddles; None where the
+    segment takes none)."""
+    from ..utils.build import load_library
+
+    out = torch.empty_like(a)
+    S, batch = a.shape[:2]
+    if batch == 0 or S == 0:
+        return out
+    lib = load_library()
+    ptr = [None if t is None else t.data_ptr() for t in tables]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = getattr(lib.cdll, kernel.symbol)(
+            a.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), *ptr, batch, S,
+            ctypes.addressof(plan_for(plans, seg)), stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.symbol} launch failed: cudaError {err} "
+                           f"({lib.error_string(err)})")
+    kernel.launches += 1
+    return out
+
+
+def _prepare(plans: SpPlans, tabs, first: int, *tensors):
+    nloc = plans.nloc
+    for i, t in enumerate(tensors):
+        _check(f"shards {i}", t, nloc)
+        if t.dim() != 3:
+            raise ValueError(f"shards {i}: expected (shards, B, {nloc}), got "
+                             f"{tuple(t.shape)}")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError(f"shards {i}: the kernels need 16-byte aligned "
+                             f"data")
+    a = tensors[0]
+    for t in tensors[1:]:
+        if t.device != a.device or t.shape != a.shape:
+            raise ValueError(f"shards on {a.device} {tuple(a.shape)} and "
+                             f"{t.device} {tuple(t.shape)}")
+    if not 0 <= first or first + a.shape[0] > plans.k:
+        raise ValueError(f"shards {first}..{first + a.shape[0] - 1} outside "
+                         f"the model axis of {plans.k}")
+    tabs = _tabs(tabs, plans, a)
+    _check_tables(tabs, plans, a)
+    return tabs, slice(first, first + a.shape[0])
+
+
+# ----------------------------------------------------------------------
+# Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
+# ----------------------------------------------------------------------
+
+def sp_seg1(x, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
+    """B11: the column segment of canonical shards x (S, B, nloc), shard s
+    using shard first + s's tables; canonical out."""
+    tabs, sl = _prepare(plans, tabs, first, x)
+    if x.is_cuda:
+        return _launch(KERNELS["sp_seg1"], 1, plans,
+                       (tabs.w1[sl], tabs.c1[sl], None, None, tabs.tw), x,
+                       None)
+    return seg1_plain(x, plans, tabs, first)
+
+
+def sp_seg2(x, y, plans: SpPlans, tabs=None,
+            first: int = 0) -> torch.Tensor:
+    """B12: the row segment (forward rows of x and y, pointwise product,
+    inverse rows) of canonical spectral shards (S, B, nloc)."""
+    tabs, sl = _prepare(plans, tabs, first, x, y)
+    if x.is_cuda:
+        return _launch(KERNELS["sp_seg2"], 2, plans,
+                       (tabs.w2f, tabs.c2f, tabs.w2i[sl], tabs.c2i[sl], None),
+                       x, y)
+    return seg2_plain(x, y, plans, tabs, first)
+
+
+def sp_seg3(w, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
+    """B16: the inverse column segment of canonical coefficient-layout
+    shards (S, B, nloc); canonical out."""
+    tabs, sl = _prepare(plans, tabs, first, w)
+    if w.is_cuda:
+        return _launch(KERNELS["sp_seg3"], 3, plans,
+                       (tabs.w3[sl], tabs.c3[sl], None, None, tabs.tw), w,
+                       None)
+    return seg3_plain(w, plans, tabs, first)
+
+
+# ----------------------------------------------------------------------
+# The path.
+# ----------------------------------------------------------------------
+
+def _operands(plans: SpPlans, x, y):
+    for what, t in (("x", x), ("y", y)):
+        _check(what, t, plans.n)
+    if x.shape != y.shape or x.device != y.device:
+        raise ValueError(f"operands {tuple(x.shape)} on {x.device} and "
+                         f"{tuple(y.shape)} on {y.device} differ")
+    return x.reshape(-1, plans.n), y.reshape(-1, plans.n)
+
+
+def polymul_fourstep_mxu(x, y, plans: SpPlans, tabs=None) -> torch.Tensor:
+    """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors, the
+    transforms split over the model axis: seg1 on x and y (B11 twice), the
+    forward exchange, seg2 (B12), the inverse exchange, seg3 (B16)."""
+    x2, y2 = _operands(plans, x, y)
+    tabs = _tabs(tabs, plans, x2)
+    vx, vy = (a2a_fwd(sp_seg1(to_shards(t, plans), plans, tabs), plans)
+              for t in (x2, y2))
+    w = a2a_inv(sp_seg2(vx, vy, plans, tabs), plans)
+    return from_shards(sp_seg3(w, plans, tabs), plans).reshape(x.shape)
+
+
+def polymul_fourstep_mxu_plain(x, y, plans: SpPlans,
+                               tabs=None) -> torch.Tensor:
+    """The whole SP path through the twins, on any device."""
+    x2, y2 = _operands(plans, x, y)
+    tabs = _tabs(tabs, plans, x2)
+    vx, vy = (a2a_fwd(seg1_plain(to_shards(t, plans), plans, tabs), plans)
+              for t in (x2, y2))
+    w = a2a_inv(seg2_plain(vx, vy, plans, tabs), plans)
+    return from_shards(seg3_plain(w, plans, tabs), plans).reshape(x.shape)
+
+
+def _default_n1(name: str) -> int:
+    return 1 << (get_tables(name).logn // 2)
+
+
+def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
+    """(x, y) -> z over (B..., n) tensors on the mesh's device, the
+    transform split over its model axis of k shards (B11, B12, B16); a plan
+    the kernels cannot take raises here."""
+    plans = fourstep_mxu_plans(name, n1 or _default_n1(name), mesh.model)
+    for seg in (1, 2, 3):
+        plan_for(plans, seg)
+
+    def polymul(x, y):
+        if x.device.type != mesh.device.type:
+            raise ValueError(f"operands on {x.device}, mesh on {mesh.device}")
+        return polymul_fourstep_mxu(x, y, plans)
+
+    return polymul
+
+
+def local_pipeline_fn(name: str, k: int, n1: int | None = None,
+                      device_index: int = 1):
+    """The local work of one shard in a model axis of k, without the
+    exchanges: (x, y) (B, nloc) -> (B, nloc), seg1 on both operands, seg2,
+    seg3 with shard min(device_index, k - 1)'s tables.  Returns
+    (pipe, plans).  A k-shard group's throughput is B / t_local, so the SP
+    cost per shard against a single-transform kernel is k * t_local /
+    t_single."""
+    plans = fourstep_mxu_plans(name, n1 or _default_n1(name), k)
+    d = min(device_index, k - 1)
+
+    def pipe(x, y):
+        tabs = device_tables(plans, x.device)
+        vx, vy = (sp_seg1(t[None], plans, tabs, first=d) for t in (x, y))
+        w = sp_seg2(vx, vy, plans, tabs, first=d)
+        return sp_seg3(w, plans, tabs, first=d)[0]
+
+    return pipe, plans

@@ -1,0 +1,407 @@
+"""Planner of the sequence-parallel (SP) digit-matmul polymul (numpy only).
+
+Counterpart of the static half of ``qtesla_tpu/parallel/sharded_mxu.py``:
+``_RollTables`` (l.89), ``_transform_matrix`` (l.119), ``_k1_position_map``
+(l.132), ``_digit_plan`` (l.155) and ``fourstep_mxu_plans`` (l.229-410).  It
+is a module of its own because the JAX module imports jax; this one computes
+with numpy and Python ints, reusing the single-transform planner's helpers
+(``ops/mxu_tables.py``).  The tests hold every table and plan field equal to
+JAX's.
+
+The four-step split n = n1 x n2 runs over a model axis of k shards.  Shard d
+holds the coefficients ``x.reshape(B, n1, n2)[:, :, d*n2k:(d+1)*n2k]``
+(n2k = n2/k), flat index j1*n2k + lambda, nloc = n1*n2k values a row, cut
+into A tiles of TW = min(128, nloc) lanes (Bk = TW/n2k values of j1 a tile).
+
+- Segment 1 (column transform): the n1-point merged-psi forward along j1.
+  Its first Lr = log2(A) stages pair whole tiles and stay butterflies; the
+  rest act inside a tile and are one TW x TW matrix per (shard, tile), K1,
+  with psi^{j2} and the four-step twiddle w^{k1 j2} folded in.
+- Segment 2 (rows, after the exchange to (B, n1k, n2)): TW/n2 rows of n2
+  lanes a tile; the forward is one matrix shared by every tile and shard,
+  K2f = kron(I, R2); the inverse K2i folds w^{-k1 j2} per (shard, tile).
+  Rows stay in the merged forward's position order (``k1map``).
+- Segment 3 (inverse columns): K3 per (shard, tile), the tile-local inverse
+  stages with psi^{-j2} folded in, then Lr inverse butterfly stages with
+  n1^{-1} in the last; at Lr = 0 the matrix carries n1^{-1} too.
+
+Each matrix becomes int8 digit tables under one digit plan (``DigitPlan``):
+p1 (K1), p2f (K2f), p2i (K2i), p3 (K3), and for the folded fixed-operand
+form the worst-case fold plan p2x and its p3x.
+
+``fourstep_mxu_plans(name, n1, k)`` plans from the port's registry;
+``from_jax_fourstep_plans(plans)`` carries a JAX plan bundle's numpy and int
+fields across (duck-typed: jax is never imported here).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops import ntt as N
+from ..ops.mxu_tables import (_COST_CSUB, _COST_PLANE, _COST_PLANE_EXTRA,
+                              _COST_SHOUP, _chain_csubs, _const_row,
+                              _digit_bounds, _fwd_matrix, _input_digit_maxima,
+                              _inv_matrix, _lazy_fwd_schedule,
+                              _matrix_digit_block, _ndigits, _plan_cost,
+                              _plan_groups, _plane_count, _recombine_bound,
+                              _reduce_kind, pointwise_bound)
+from ..ops.ntt import _subtables
+from ..ops.tables import NttTables, get_tables
+from ..params import ParamSet
+from .sharded import _fourstep_tables
+
+__all__ = ["SpPlans", "DigitPlan", "FoldPlan", "RollTables",
+           "fourstep_mxu_plans", "from_jax_fourstep_plans"]
+
+_TW_MAX = 128
+
+
+class _Fields:
+    """A record of named fields, hashed and compared by identity (device
+    tables are cached per plan object)."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    def __repr__(self):
+        scalars = {k: v for k, v in self.__dict__.items()
+                   if isinstance(v, (int, bool, str))}
+        return f"{type(self).__name__}({scalars})"
+
+
+class DigitPlan(_Fields):
+    """Digit tables of a stack of TW x TW input-major matrices under one
+    split and recombination plan: ``W`` int8 (..., din, TW, Dout*TW),
+    ``const`` uint32 (..., 1, TW); ``din`` planes of ``base`` centred at
+    ``off`` cover inputs below 2*off (+1); class ``bounds`` and Horner
+    ``groups``; ``raw_bound`` is the TPU kernel's recombination bound and
+    ``store_bound`` what it stores (2q when ``needs_reduce``)."""
+
+
+class FoldPlan(_Fields):
+    """The worst-case plan of the folded segment 2 (p2x), shared by every
+    constant: sized for any matrix entry mod q (``mw_wc``)."""
+
+
+class SpPlans(_Fields):
+    """Every schedule, block matrix and digit plan of one (set, n1, k)."""
+
+
+class RollTables:
+    """The n1-point sub-transform's wide stages over (rows, TW) tiles:
+    ``bw`` values of j1 a tile (Bk), the TPU kernel's laziness schedule
+    (``fwd_sched``) and its forward hand-off, lazy or canonical."""
+
+    def __init__(self, sub_tbl: NttTables, Lr: int, Bk: int):
+        self.tbl = sub_tbl
+        self.q = sub_tbl.q
+        self.logn = sub_tbl.logn
+        self.Lr = Lr
+        self.bw = Bk
+        self.fwd_sched, bnd = _lazy_fwd_schedule(self.q, Lr)
+        self.lazy_bound = bnd
+        self.lazy_coverable = _plane_count(bnd) is not None
+        self.set_fwd(self.lazy_coverable)
+
+    def set_fwd(self, lazy: bool) -> None:
+        self.fwd_lazy = lazy and self.lazy_coverable
+        self.fwd_bound = self.lazy_bound if self.fwd_lazy else self.q
+        self.fwd_off = self.fwd_bound >> 1
+
+
+def _transform_matrix(sub_tbl: NttTables, inverse: bool) -> np.ndarray:
+    """(m, m) object matrix R with y = x @ R == stockham_{fwd,inv} on the
+    last axis (n^{-1} included when inverse): the identity pushed through
+    the port's own Stockham code in int64."""
+    eye = torch.eye(sub_tbl.n, dtype=torch.int64)
+    fn = N.stockham_inv if inverse else N.stockham_fwd
+    return fn(eye, sub_tbl).numpy().astype(object)
+
+
+def _k1_position_map(sub_tbl: NttTables) -> np.ndarray:
+    """pos -> k1: the cyclic output index the merged-psi forward emits at
+    each position (out[pos] = sum_j psi1^j omega1^(j k1) x[j]), read off
+    the exact stage matrix and checked against a second column."""
+    q, n1 = sub_tbl.q, sub_tbl.n
+    psi1, om1 = int(sub_tbl.ps.psi), int(sub_tbl.ps.omega)
+    F1 = _fwd_matrix(sub_tbl, 0)
+    dlog = {}
+    v = psi1 % q
+    for t in range(n1):
+        dlog[v] = t
+        v = (v * om1) % q
+    k1map = np.array([dlog[int(F1[p, 1]) % q] for p in range(n1)],
+                     dtype=np.int64)
+    if n1 > 2:
+        psi2 = psi1 * psi1 % q
+        for p in range(n1):
+            want = psi2 * pow(om1, 2 * int(k1map[p]), q) % q
+            assert int(F1[p, 2]) % q == want, "k1 map inconsistent"
+    return k1map
+
+
+def _digit_plan(Ms: np.ndarray, q: int, one_shoup: int, in_bound: int,
+                downstream: str = "any", reduce_uncoverable: bool = True,
+                bases: tuple = (256, 128)) -> DigitPlan:
+    """One shared plan for the stack Ms (..., TW, TW): the cheapest split
+    over ``bases`` at each base's fewest covering planes, costed like the
+    single-transform planner plus ``_COST_PLANE_EXTRA`` for every plane
+    beyond the fewest of any base; bounds worst-case over the stack."""
+    bw = Ms.shape[-1]
+    lead = Ms.shape[:-2]
+    Dout = _ndigits(q)
+    off = in_bound >> 1
+    indices = list(np.ndindex(*lead)) if lead else [()]
+    din_min = min((d for d in (_plane_count(in_bound, b) for b in bases)
+                   if d is not None), default=None)
+    if din_min is None:
+        raise ValueError(f"lazy bound {in_bound} uncoverable at any base")
+    best = None
+    for base in bases:
+        din = _plane_count(in_bound, base)
+        if din is None:
+            continue
+        W = np.zeros(lead + (din, bw, Dout * bw), dtype=np.int8)
+        colsums = np.zeros(lead + (bw,), dtype=object)
+        mw = np.zeros((din, Dout), dtype=np.int64)
+        for idx in indices:
+            W[idx], colsums[idx] = _matrix_digit_block(Ms[idx], q, din, Dout,
+                                                       mw, in_base=base)
+        bounds = _digit_bounds(
+            mw, bw, _input_digit_maxima(din, off, in_bound, base))
+        try:
+            groups = _plan_groups(bounds, q, downstream)
+        except ValueError:
+            continue
+        (sh, cs, ng), _ = _plan_cost(groups, bounds, q, downstream)
+        cost = (_COST_SHOUP * sh + _COST_CSUB * cs
+                + (_COST_PLANE + Dout) * din
+                + _COST_PLANE_EXTRA * (din - din_min), ng)
+        if best is None or cost < best[0]:
+            best = (cost, base, din, W, colsums, bounds, groups)
+    if best is None:
+        raise ValueError(f"lazy bound {in_bound} uncoverable at any base")
+    _, base, din, W, colsums, bounds, groups = best
+    const = np.zeros(lead + (1, bw), dtype=np.uint32)
+    for idx in indices:
+        const[idx + (0,)] = _const_row(colsums[idx], off, groups, bounds, q)
+    raw_bound = _recombine_bound(groups, bounds, q)
+    needs_reduce = reduce_uncoverable and _plane_count(raw_bound) is None
+    return DigitPlan(
+        W=W, const=const, groups=groups, bounds=bounds, bw=bw, din=din,
+        off=off, base=base, q=q, one_shoup=one_shoup, raw_bound=raw_bound,
+        needs_reduce=needs_reduce,
+        store_bound=2 * q if needs_reduce else raw_bound)
+
+
+def _fold_plan(p1: DigitPlan, q: int, n2: int, TW: int,
+               one_shoup: int) -> FoldPlan:
+    """The worst-case plan of the folded segment 2, F = K2f diag(A) K2i,
+    block-diagonal over n2-blocks: split the stored seg-1 output as it is,
+    or canonicalised first, at base 256 or 128."""
+    Dout = _ndigits(q)
+    wcm = _input_digit_maxima(Dout, q >> 1, q, 256)
+    best = None
+    for in_b, canon in ((p1.store_bound, False), (q, True)):
+        if canon and p1.store_bound <= q:
+            continue
+        for base in (256, 128):
+            din = _plane_count(in_b, base)
+            if din is None:
+                continue
+            mw = np.tile(np.asarray(wcm, np.int64), (din, 1))
+            bounds = _digit_bounds(
+                mw, n2, _input_digit_maxima(din, in_b >> 1, in_b, base))
+            try:
+                groups = _plan_groups(bounds, q, "any")
+            except ValueError:
+                continue
+            (sh, cs, ng), _ = _plan_cost(groups, bounds, q, "any")
+            cost = (_COST_SHOUP * sh + _COST_CSUB * cs
+                    + (_COST_PLANE + Dout + _COST_PLANE_EXTRA) * din)
+            if canon:
+                cost += _COST_CSUB * (
+                    _chain_csubs(p1.store_bound, q, q)
+                    if p1.store_bound <= 16 * q else 4)
+            raw = _recombine_bound(groups, bounds, q)
+            needs_reduce = _plane_count(raw) is None
+            key = (cost, ng)
+            if best is None or key < best.cost_key:
+                best = FoldPlan(
+                    cost_key=key, base=base, din=din, off=in_b >> 1,
+                    in_bound=in_b, canon=canon, bw=TW, q=q,
+                    one_shoup=one_shoup, groups=tuple(groups),
+                    bounds=tuple(bounds), mw_wc=mw.copy(), raw_bound=raw,
+                    needs_reduce=needs_reduce,
+                    store_bound=2 * q if needs_reduce else raw, Dout=Dout)
+    if best is None:
+        raise ValueError("no digit split covers the SP fold")
+    return best
+
+
+def _shape(n: int, n1: int, k: int) -> dict:
+    """The SP layout of (n, n1, k), or ValueError when the split does not
+    apply."""
+    if n1 <= 0 or n1 & (n1 - 1) or n % n1 or n1 > n:
+        raise ValueError(f"n1={n1} must be a power of two dividing n={n}")
+    n2 = n // n1
+    if n1 % k or n2 % k:
+        raise ValueError(
+            f"model axis {k} must divide both n1={n1} and n2={n2}")
+    if n2 > _TW_MAX:
+        raise ValueError(
+            f"row transform n2={n2} exceeds one {_TW_MAX}-lane tile; pick a "
+            f"larger n1")
+    n2k, n1k = n2 // k, n1 // k
+    nloc = n1 * n2k
+    TW = min(_TW_MAX, nloc)
+    A = nloc // TW
+    return dict(n=n, n1=n1, n2=n2, k=k, n1k=n1k, n2k=n2k, nloc=nloc, TW=TW,
+                A=A, Bk=TW // n2k, Lr=A.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def fourstep_mxu_plans(name: str, n1: int, k: int) -> SpPlans:
+    """All wide-stage schedules, block matrices and digit plans of one
+    (parameter set, n1, model axis k)."""
+    tbl = get_tables(name)
+    n, q = tbl.n, tbl.q
+    g = _shape(n, n1, k)
+    n2, n2k, n1k, TW, A, Bk, Lr = (g[f] for f in ("n2", "n2k", "n1k", "TW",
+                                                  "A", "Bk", "Lr"))
+    L1 = n1.bit_length() - 1
+    t1 = _subtables(name, q, n1)
+    t2 = _subtables(name, q, n2)
+    # the folding identities the construction relies on
+    assert int(t1.ps.psi) == pow(int(tbl.ps.psi), n2, q), "psi1 != psi^n2"
+    assert int(t2.ps.omega) == pow(int(tbl.ps.omega), n1, q)
+    one_shoup = tbl.ps.one_shoup
+    rolls = RollTables(t1, Lr, Bk)
+    T = _fourstep_tables(name, n1)
+    phi_lane = tbl.phi.astype(object)
+    ipsi_lane = tbl.ipsi_pow.astype(object)
+    W = T["W"].astype(object)
+    Winv = T["Winv"].astype(object)
+    k1map = _k1_position_map(t1)
+    Mf = _fwd_matrix(t1, Lr)
+    Mi = _inv_matrix(t1, L1 - Lr)
+    R2 = _transform_matrix(t2, inverse=False)
+    R2i = _transform_matrix(t2, inverse=True)
+
+    # segments 1 and 3: per-(shard, tile) TW x TW input-major matrices, in-
+    # tile index (j1 within the tile b) * n2k + lane
+    for t in range(A):
+        for M, tag in ((Mf, "fwd"), (Mi, "inv")):
+            row = M[t * Bk:(t + 1) * Bk].copy()
+            row[:, t * Bk:(t + 1) * Bk] = 0
+            assert not row.any(), f"{tag} in-tile stages not tile-local"
+    K1 = np.zeros((k, A, TW, TW), dtype=object)
+    K3 = np.zeros((k, A, TW, TW), dtype=object)
+    for d in range(k):
+        for t in range(A):
+            for c in range(Bk):
+                p = t * Bk + c
+                k1 = int(k1map[p])
+                for b in range(Bk):
+                    mf = int(Mf[p, t * Bk + b]) % q
+                    mi = int(Mi[p, t * Bk + b]) % q
+                    for lam in range(n2k):
+                        j2g = d * n2k + lam
+                        i, o = b * n2k + lam, c * n2k + lam
+                        if mf:
+                            K1[d, t, i, o] = (int(phi_lane[j2g]) * mf % q
+                                              * int(W[k1, j2g])) % q
+                        if mi:
+                            K3[d, t, i, o] = mi * int(ipsi_lane[j2g]) % q
+
+    # segment 2: R = TW/n2 rows of n2 lanes a tile
+    R = TW // n2
+    K2f = np.zeros((TW, TW), dtype=object)
+    for rho in range(R):
+        sl = slice(rho * n2, (rho + 1) * n2)
+        K2f[sl, sl] = R2 % q
+    K2i = np.zeros((k, A, TW, TW), dtype=object)
+    for d in range(k):
+        for bb in range(A):
+            for rho in range(R):
+                p = d * n1k + bb * R + rho
+                sl = slice(rho * n2, (rho + 1) * n2)
+                K2i[d, bb, sl, sl] = (R2i * Winv[int(k1map[p])][None, :]) % q
+
+    pw_bound = pointwise_bound(q)
+    # seg-1 forward split: lazy against the canonical chain-then-split
+    candidates = []
+    if rolls.lazy_coverable and rolls.lazy_bound > q:
+        candidates.append((True, _digit_plan(K1, q, one_shoup,
+                                             in_bound=rolls.lazy_bound), 0))
+    candidates.append((False, _digit_plan(K1, q, one_shoup, in_bound=q),
+                       _chain_csubs(rolls.lazy_bound, q, q)))
+    din_floor = min(c[1].din for c in candidates)
+
+    def p1_cost(p, extra_cs):
+        (sh, cs, ng), _ = _plan_cost(p.groups, p.bounds, q, "any")
+        return (_COST_SHOUP * sh + _COST_CSUB * (cs + extra_cs)
+                + (_COST_PLANE + _ndigits(q)) * p.din
+                + _COST_PLANE_EXTRA * (p.din - din_floor), ng)
+
+    lazy_pick, p1, _ = min(candidates, key=lambda c: p1_cost(c[1], c[2]))
+    rolls.set_fwd(lazy_pick)
+    p2f = _digit_plan(K2f, q, one_shoup, in_bound=p1.store_bound,
+                      reduce_uncoverable=False)
+    p2i = _digit_plan(K2i, q, one_shoup, in_bound=pw_bound)
+    p3 = _digit_plan(K3, q, one_shoup, in_bound=p2i.store_bound,
+                     downstream=_reduce_kind(q), reduce_uncoverable=False)
+    p2x = _fold_plan(p1, q, n2, TW, one_shoup)
+    p3x = _digit_plan(K3, q, one_shoup, in_bound=p2x.store_bound,
+                      downstream=_reduce_kind(q), reduce_uncoverable=False)
+    return SpPlans(name=name, q=q, ps=tbl.ps, t1=t1, rolls=rolls,
+                   pw_bound=pw_bound, k1map=k1map, p1=p1, p2f=p2f, p2i=p2i,
+                   p3=p3, p2x=p2x, p3x=p3x, K1=K1, K2f=K2f, K2i=K2i, **g)
+
+
+# ----------------------------------------------------------------------
+# Carried across from a JAX plan bundle.
+# ----------------------------------------------------------------------
+
+_LAYOUT_FIELDS = ("n", "n1", "n2", "k", "n1k", "n2k", "nloc", "TW", "A",
+                  "Bk", "Lr")
+_PLAN_FIELDS = ("name", "q", "pw_bound", "k1map", "K1", "K2f", "K2i")
+_ROLL_FIELDS = ("fwd_sched", "lazy_bound", "lazy_coverable", "fwd_lazy",
+                "fwd_bound", "fwd_off")
+DIGIT_FIELDS = ("W", "const", "groups", "bounds", "bw", "din", "off", "base",
+                "q", "one_shoup", "raw_bound", "needs_reduce", "store_bound")
+FOLD_FIELDS = ("cost_key", "base", "din", "off", "in_bound", "canon", "bw",
+               "q", "one_shoup", "groups", "bounds", "mw_wc", "raw_bound",
+               "needs_reduce", "store_bound", "Dout")
+
+
+def _copy(v):
+    if isinstance(v, np.ndarray):
+        return v.copy()
+    if isinstance(v, list):
+        return list(v)
+    return v
+
+
+def from_jax_fourstep_plans(plans) -> SpPlans:
+    """The port's bundle from a ``qtesla_tpu.parallel.sharded_mxu``
+    ``fourstep_mxu_plans`` result, read through its numpy and int fields
+    only; the sub-transform tables are the port's own."""
+    f = {a: _copy(getattr(plans, a)) for a in _LAYOUT_FIELDS + _PLAN_FIELDS}
+    if _shape(f["n"], f["n1"], f["k"]) != {a: f[a] for a in _LAYOUT_FIELDS}:
+        raise ValueError("plan bundle's layout fields are inconsistent")
+    q, n1 = f["q"], f["n1"]
+    t1 = _subtables(f["name"], q, n1)
+    rolls = RollTables(t1, f["Lr"], f["Bk"])
+    for a in _ROLL_FIELDS:
+        setattr(rolls, a, _copy(getattr(plans.rolls, a)))
+    digit = {p: DigitPlan(**{a: _copy(getattr(getattr(plans, p), a))
+                             for a in DIGIT_FIELDS})
+             for p in ("p1", "p2f", "p2i", "p3", "p3x")}
+    p2x = FoldPlan(**{a: _copy(getattr(plans.p2x, a)) for a in FOLD_FIELDS})
+    ps = ParamSet(name=f["name"], n=f["n"], q=q)
+    return SpPlans(ps=ps, t1=t1, rolls=rolls, p2x=p2x, **digit, **f)

@@ -1,0 +1,267 @@
+"""Parameter registry and exact-integer precompute for qTESLA NTT parameter
+sets.
+
+The port's own copy of ``qtesla_tpu/params.py``: the same ``ParamSet``, the
+same five registered sets and the same ``get_params``,
+``available_param_sets`` and ``register_param_set``, so that the port imports
+nothing of the JAX package.  The two registries are separate: a set
+registered at run time in one package is unknown to the other.  The tests
+hold every derived constant and table equal to the JAX copy's.
+
+Every root, twiddle table and Barrett/Shoup constant is derived from (n, q)
+with exact Python integers.  Negacyclic psi-weighting is merged into the
+twiddle tables (``psi_rev`` / ``ipsi_rev``).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+
+import numpy as np
+
+__all__ = [
+    "ParamSet",
+    "get_params",
+    "register_param_set",
+    "available_param_sets",
+    "PARAM_SETS",
+]
+
+
+def _is_pow2(x: int) -> bool:
+    return x > 0 and (x & (x - 1)) == 0
+
+
+def _pow_mod(base: int, exp: int, mod: int) -> int:
+    return pow(base, exp, mod)
+
+
+def _factorize(m: int) -> list[int]:
+    """Distinct prime factors of m (trial division; q-1 here is < 2^30)."""
+    fs = []
+    d = 2
+    while d * d <= m:
+        if m % d == 0:
+            fs.append(d)
+            while m % d == 0:
+                m //= d
+        d += 1
+    if m > 1:
+        fs.append(m)
+    return fs
+
+
+def _find_generator(q: int) -> int:
+    """Smallest generator of the multiplicative group Z_q^* (q prime)."""
+    phi = q - 1
+    factors = _factorize(phi)
+    g = 2
+    while True:
+        if all(_pow_mod(g, phi // f, q) != 1 for f in factors):
+            return g
+        g += 1
+
+
+def _bitrev(x: int, bits: int) -> int:
+    r = 0
+    for _ in range(bits):
+        r = (r << 1) | (x & 1)
+        x >>= 1
+    return r
+
+
+def bitrev_permutation(n: int) -> np.ndarray:
+    """Bit-reversal permutation table (reference: constants.h:3-6 bitrev_tbl,
+    NTT.cu:61-100), generated instead of hardcoded."""
+    bits = n.bit_length() - 1
+    return np.array([_bitrev(i, bits) for i in range(n)], dtype=np.uint32)
+
+
+def _shoup(w: int, q: int) -> int:
+    """Shoup precomputed companion: floor(w * 2^32 / q), for the lane-parallel
+    constant-operand mulmod (ops/modmul.py).  Replaces the reference's Barrett
+    MIU constants (main.cuh:20-21) with a per-table-entry precompute."""
+    assert 0 <= w < q
+    return (w << 32) // q
+
+
+@dataclass(frozen=True)
+class ParamSet:
+    """One qTESLA NTT parameter set with all derived constants and tables.
+
+    Scalar fields are exact Python ints; table fields are numpy uint32
+    arrays.
+    """
+
+    name: str
+    n: int            # transform length (polynomial degree bound)
+    q: int            # NTT-friendly prime, q ≡ 1 (mod 2n), q < 2^30
+    # --- derived scalars ---
+    g: int = field(init=False)        # generator of Z_q^*
+    psi: int = field(init=False)      # primitive 2n-th root of unity (psi^n = -1)
+    psi_inv: int = field(init=False)
+    omega: int = field(init=False)    # primitive n-th root = psi^2
+    omega_inv: int = field(init=False)
+    n_inv: int = field(init=False)    # n^{-1} mod q
+    logn: int = field(init=False)
+
+    def __post_init__(self):
+        n, q = self.n, self.q
+        if not _is_pow2(n):
+            raise ValueError(f"n={n} must be a power of two")
+        if (q - 1) % (2 * n) != 0:
+            raise ValueError(f"q={q} must satisfy q ≡ 1 (mod 2n), n={n}")
+        if q >= 1 << 30:
+            raise ValueError(f"q={q} must be < 2^30 for the int32-lane kernels")
+        g = _find_generator(q)
+        psi = _pow_mod(g, (q - 1) // (2 * n), q)
+        assert _pow_mod(psi, n, q) == q - 1, "psi^n must be -1 mod q"
+        object.__setattr__(self, "g", g)
+        object.__setattr__(self, "psi", psi)
+        object.__setattr__(self, "psi_inv", pow(psi, -1, q))
+        object.__setattr__(self, "omega", (psi * psi) % q)
+        object.__setattr__(self, "omega_inv", pow(psi * psi, -1, q))
+        object.__setattr__(self, "n_inv", pow(n, -1, q))
+        object.__setattr__(self, "logn", n.bit_length() - 1)
+
+    # ------------------------------------------------------------------
+    # Exact-integer table builders (cached).  numpy uint32 outputs.
+    # ------------------------------------------------------------------
+
+    @functools.cached_property
+    def psi_rev(self) -> np.ndarray:
+        """psi^bitrev(i) table for the merged-psi CT forward NTT.
+
+        Subsumes the reference's Phi table + separate weighting pass
+        (constants.h:13-16, NTT.cu:502-509)."""
+        n, q, psi = self.n, self.q, self.psi
+        bits = self.logn
+        pw = 1
+        powers = [0] * n
+        for i in range(n):
+            powers[i] = pw
+            pw = (pw * psi) % q
+        return np.array([powers[_bitrev(i, bits)] for i in range(n)],
+                        dtype=np.uint32)
+
+    @functools.cached_property
+    def psi_rev_shoup(self) -> np.ndarray:
+        q = self.q
+        return np.array([_shoup(int(w), q) for w in self.psi_rev],
+                        dtype=np.uint32)
+
+    @functools.cached_property
+    def ipsi_rev(self) -> np.ndarray:
+        """psi^{-bitrev(i)} table for the merged-psi GS inverse NTT.
+
+        Subsumes the reference's invPhi table (pre-fused with N^{-1} there,
+        constants.h:19-27); here N^{-1} is folded into the *last stage* twiddles
+        by the kernel-table builder instead (see stage_tables_inv)."""
+        n, q, psi_inv = self.n, self.q, self.psi_inv
+        bits = self.logn
+        pw = 1
+        powers = [0] * n
+        for i in range(n):
+            powers[i] = pw
+            pw = (pw * psi_inv) % q
+        return np.array([powers[_bitrev(i, bits)] for i in range(n)],
+                        dtype=np.uint32)
+
+    @functools.cached_property
+    def ipsi_rev_shoup(self) -> np.ndarray:
+        q = self.q
+        return np.array([_shoup(int(w), q) for w in self.ipsi_rev],
+                        dtype=np.uint32)
+
+    # --- classic omega twiddles (cyclic NTT variants: matrix, four-step) ---
+
+    def omega_powers(self, length: int, inverse: bool = False) -> np.ndarray:
+        """tf[i] = w^i (or w^{-i}) for the principal `length`-th root derived
+        from this set's omega (reference: main.cu:118-146 runtime twiddle
+        precompute, constants.h:29-35 tf0/ti0 tables)."""
+        n, q = self.n, self.q
+        assert _is_pow2(length) and length <= n and n % length == 0
+        w = _pow_mod(self.omega, n // length, q)
+        if inverse:
+            w = pow(w, -1, q)
+        out = np.empty(length, dtype=np.uint32)
+        pw = 1
+        for i in range(length):
+            out[i] = pw
+            pw = (pw * w) % q
+        return out
+
+    def shoup_of(self, table: np.ndarray) -> np.ndarray:
+        q = self.q
+        return np.array([_shoup(int(w), q) for w in table], dtype=np.uint32)
+
+    @functools.cached_property
+    def bitrev_tbl(self) -> np.ndarray:
+        return bitrev_permutation(self.n)
+
+    # --- scalar helpers exposed as uint32 for kernels ---
+
+    @property
+    def r32(self) -> int:
+        """2^32 mod q — used by the generic (variable x variable) mulmod."""
+        return (1 << 32) % self.q
+
+    @property
+    def r32_shoup(self) -> int:
+        return _shoup(self.r32, self.q)
+
+    @property
+    def one_shoup(self) -> int:
+        """Shoup companion of w=1: floor(2^32/q) — reduces any uint32 to [0,2q)."""
+        return _shoup(1, self.q)
+
+    @property
+    def n_inv_shoup(self) -> int:
+        return _shoup(self.n_inv, self.q)
+
+
+# ----------------------------------------------------------------------
+# Registry: all four qTESLA sets (generalized beyond the reference, which
+# ships only qTESLA-III-speed — main.cuh:14-16) plus the reference's
+# small-prime debug fixture (main.cuh:23-29).
+# ----------------------------------------------------------------------
+
+PARAM_SETS: dict[str, tuple[int, int]] = {
+    "qtesla-i": (512, 4205569),
+    "qtesla-iii-speed": (1024, 8404993),
+    "qtesla-p-i": (1024, 343576577),
+    "qtesla-p-iii": (2048, 856145921),
+    "smallprime": (32, 65537),
+}
+
+
+def register_param_set(name: str, n: int, q: int) -> "ParamSet":
+    """Register a custom NTT-friendly parameter set at runtime (the
+    reference only offers two compile-time sets, main.cuh:7-30).  Validity
+    (power-of-two n, prime q ≡ 1 mod 2n, q < 2^30) is checked by
+    ParamSet.__post_init__; the registered name flows through every layer
+    of the port (tables, pipelines, kernels)."""
+    ps = ParamSet(name=name, n=n, q=q)   # validates before registering
+    existing = PARAM_SETS.get(name)
+    if existing is not None and existing != (n, q):
+        raise ValueError(
+            f"param set {name!r} already registered as {existing}")
+    PARAM_SETS[name] = (n, q)
+    get_params.cache_clear()
+    return ps
+
+
+@functools.lru_cache(maxsize=None)
+def get_params(name: str) -> ParamSet:
+    try:
+        n, q = PARAM_SETS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown param set {name!r}; available: {sorted(PARAM_SETS)}"
+        ) from None
+    return ParamSet(name=name, n=n, q=q)
+
+
+def available_param_sets() -> list[str]:
+    return sorted(PARAM_SETS)

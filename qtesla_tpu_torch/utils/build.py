@@ -41,6 +41,9 @@ _FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
 # &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
+# csrc/sharded_mxu.cu: (a, b, out, w1, c1, w2, c2, twiddles, batch, k_local,
+# &plan, stream)
+_SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 
 # every launcher symbol and its C signature
 LAUNCHERS = {
@@ -51,6 +54,7 @@ LAUNCHERS = {
     "qt_polymul_fixed_folded_mxu": _MXU,
     **{f"qt_polymul_pairing_{p}": _FUSED
        for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
+    "qt_sp_seg1": _SP, "qt_sp_seg2": _SP, "qt_sp_seg3": _SP,
 }
 
 

@@ -1,7 +1,8 @@
 """Contract of the port's device dispatch and kernel wrappers.
 
 - ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
-- The wrappers (fused B1-B4, digit-matmul B5-B9 and pairings B10) raise on
+- The wrappers (fused B1-B4, digit-matmul B5-B9, pairings B10 and the
+  sequence-parallel segments B11, B12, B16) raise on
   a wrong dtype, a wrong n, a non-contiguous tensor, an unsupported device
   and an unsupported algo; nothing is built at import and a missing nvcc
   raises instead of falling back.  Editing a header changes the build's
@@ -32,6 +33,9 @@ from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
                                              get_mxu_tables)
 from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.parallel import make_mesh
+from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import fourstep_mxu_plans
 from qtesla_tpu_torch.utils import build
 
 REPO = Path(__file__).resolve().parent.parent
@@ -63,7 +67,11 @@ assert (intt(ntt(x, ps, "mxu"), ps, "mxu") == x).all()
 prep, mul = polymul_fixed_fn(ps.name)
 assert (mul(x, prep(y[:1])) == polymul_fixed_fn(ps.name, "fused")[1](
     x, prep(y[:1]))).all()
+from qtesla_tpu_torch import make_mesh, polymul_fourstep_mxu_fn
+sp = polymul_fourstep_mxu_fn(ps.name, make_mesh(model=2, device="cpu"))
+assert (sp(x, y) == z).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m.split(".")[0] == "qtesla_tpu"]
 print("ok")
 """
 
@@ -187,7 +195,9 @@ def test_cpu_runs_launch_no_kernel():
     assert set(M.KERNELS) == {"polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
                               "intt_mxu", "polymul_fixed_folded_mxu"}
     assert set(P.KERNELS) == {f"polymul_pairing_{p}" for p in _PAIRING_NAMES}
-    kernels = [*F.KERNELS.values(), *M.KERNELS.values(), *P.KERNELS.values()]
+    assert set(S.KERNELS) == {"sp_seg1", "sp_seg2", "sp_seg3"}
+    kernels = [*F.KERNELS.values(), *M.KERNELS.values(), *P.KERNELS.values(),
+               *S.KERNELS.values()]
     for k in kernels:
         k.launches = 0
     tbl = get_tables("smallprime")
@@ -208,6 +218,10 @@ def test_cpu_runs_launch_no_kernel():
     for p in _PAIRING_NAMES:
         TP.polymul_negacyclic(x, y, "smallprime", algo=p + "_kernel")
         TP.NegacyclicPolymul("smallprime")(x, y, p + "_kernel")
+    S.polymul_fourstep_mxu_fn("smallprime", make_mesh(model=2, device="cpu"))(
+        x, y)
+    pipe, plans = S.local_pipeline_fn("smallprime", 2)
+    pipe(x[:, :plans.nloc].contiguous(), y[:, :plans.nloc].contiguous())
     assert all(k.launches == 0 for k in kernels)
 
 
@@ -269,10 +283,11 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
-        "modq.cuh", "ntt_fused.cu", "ntt_mxu.cu", "ntt_pairings.cu"]
+        "modq.cuh", "mxu_block.cuh", "ntt_fused.cu", "ntt_mxu.cu",
+        "ntt_pairings.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
-           .read_text() for mod in (F, M, P)}
-    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P)
+           .read_text() for mod in (F, M, P, S)}
+    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S)
                                     for k in mod.KERNELS.values()}
     for k in P.KERNELS.values():
         assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
@@ -286,13 +301,19 @@ def test_build_flags_target_hopper():
         assert f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 11
-    # the C struct and the ctypes one name the same fields in one order
-    body = src[M].split("struct MxuPlan {")[1].split("};")[0]
-    c_fields = []
-    for decl in filter(None, (d.strip() for d in body.split(";"))):
-        names = decl.split(None, 1)[1]
-        c_fields += [f.strip().split("[")[0] for f in names.split(",")]
-    assert c_fields == [f for f, _ in M.MxuPlan._fields_]
+    for k in S.KERNELS.values():
+        assert f"QT_SP_LAUNCHER({k.symbol}," in src[S]
+        assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
+        assert len(build.LAUNCHERS[k.symbol]) == 12
+    # the C structs and the ctypes ones name the same fields in one order
+    for mod, struct in ((M, M.MxuPlan), (S, S.SpPlan)):
+        body = src[mod].split(f"struct {struct.__name__} {{")[1].split(
+            "};")[0]
+        c_fields = []
+        for decl in filter(None, (d.strip() for d in body.split(";"))):
+            names = decl.split(None, 1)[1]
+            c_fields += [f.strip().split("[")[0] for f in names.split(",")]
+        assert c_fields == [f for f, _ in struct._fields_]
 
 
 def test_header_edit_changes_digest(tmp_path):
@@ -305,6 +326,64 @@ def test_header_edit_changes_digest(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     assert build._digest(build._sources(tmp_path)) != before
     assert header in build._sources(tmp_path)
+
+
+# every set with each model axis its four-step split takes
+SP_CASES = [(name, k) for name in SETS for k in (2, 4, 8)
+            if not (name == "smallprime" and k == 8)]
+
+
+@pytest.mark.parametrize("name,k", SP_CASES)
+def test_sp_plan_matches_kernel_limits(name, k):
+    """Every SP plan fits the segment kernels: at most 4 classes and 6
+    planes, class bounds below 2^24, tiles of 8..128 lanes, depths padded
+    to 32, and seg2's rows split evenly between x and y."""
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    for seg, digit in ((1, [plans.p1]), (2, [plans.p2f, plans.p2i]),
+                       (3, [plans.p3])):
+        plan = S.plan_for(plans, seg)
+        assert plan.rows % (2 if seg == 2 else 1) == 0
+        assert 0 < plan.rows <= 32 and plan.rows * plans.nloc * 4 <= 128 << 10
+        assert (plan.nloc, plan.tw, plan.a, plan.lr) == (
+            plans.nloc, plans.TW, plans.A, plans.Lr)
+        assert (1 << plan.logm) << plan.llanes == plans.nloc
+        for i, p in enumerate(digit, 1):
+            din, kp = getattr(plan, f"din{i}"), getattr(plan, f"kp{i}")
+            assert din == p.din <= 6 and kp % 32 == 0
+            assert din * plans.TW <= kp < din * plans.TW + 32
+            assert max(p.bounds) < 1 << 24
+        if seg != 2:
+            assert (plan.din2, plan.kp2) == (0, 0)
+    assert 8 <= plans.TW <= 128
+
+
+def test_sp_wrappers_reject_bad_input():
+    plans = fourstep_mxu_plans("smallprime", 4, 2)
+    nloc = plans.nloc
+    x = _u32(2 * 3, nloc).reshape(2, 3, nloc)
+    with pytest.raises(TypeError, match="uint32"):
+        S.sp_seg1(x.to(torch.int64), plans)
+    with pytest.raises(ValueError, match=f"n={nloc}"):
+        S.sp_seg3(_u32(6, 2 * nloc).reshape(2, 3, 2 * nloc), plans)
+    with pytest.raises(ValueError, match="shards"):
+        S.sp_seg1(x[0], plans)
+    with pytest.raises(ValueError, match="model axis"):
+        S.sp_seg1(x, plans, first=1)
+    with pytest.raises(ValueError, match="shards on"):
+        S.sp_seg2(x, x[:, :2].contiguous(), plans)
+    meta = torch.empty((2, 3, nloc), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        S.sp_seg1(meta, plans)
+    tabs = S.host_tables(plans)
+    bad = S.SpDeviceTables(tabs.w1.to(torch.int32), *tabs.tensors()[1:])
+    with pytest.raises(ValueError, match="SP tables"):
+        S.sp_seg1(x, plans, tabs=bad)
+    fn = S.polymul_fourstep_mxu_fn("smallprime", make_mesh(model=2))
+    with pytest.raises(ValueError, match="mesh on cuda"):
+        fn(_u32(2, 32), _u32(2, 32))
+    with pytest.raises(ValueError, match="differ"):
+        S.polymul_fourstep_mxu_fn("smallprime", make_mesh(
+            model=2, device="cpu"))(_u32(2, 32), _u32(3, 32))
 
 
 # ----------------------------------------------------------------------
@@ -420,3 +499,48 @@ def test_folded_and_pairing_kernels_match_plain_on_card(cuda_device, name):
                                           want.cpu().numpy())
         assert [k.launches - b for k, b in zip(kernels, before)] == \
             [3] + [1] * len(P.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_sp_kernels_match_plain_on_card(cuda_device, name):
+    """B11, B12 and B16 against their twins for every model axis the set's
+    split takes, one launch each per call, over all shards and over one
+    shard of the middle; the whole path equals B1."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(24)
+    for k in (2, 4, 8):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        for batch in (1, 3, 64):
+            xy = rng.integers(0, q, (2, k, batch, plans.nloc),
+                              dtype=np.uint32)
+            xy[0, :, 0] = q - 1
+            x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
+            before = {s: v.launches for s, v in S.KERNELS.items()}
+            pairs = [(S.sp_seg1(x, plans), S.seg1_plain(x, plans)),
+                     (S.sp_seg2(x, y, plans), S.seg2_plain(x, y, plans)),
+                     (S.sp_seg3(x, plans), S.seg3_plain(x, plans))]
+            d = k // 2
+            one = x[d:d + 1].contiguous()
+            pairs.append((S.sp_seg1(one, plans, first=d),
+                          S.seg1_plain(one, plans, first=d)))
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+            assert {s: v.launches - before[s]
+                    for s, v in S.KERNELS.items()} == {
+                "sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1}
+            xy = torch.from_numpy(rng.integers(0, q, (2, batch, n),
+                                               dtype=np.uint32)).to(
+                cuda_device)
+            z = S.polymul_fourstep_mxu_fn(name, make_mesh(model=k))(xy[0],
+                                                                     xy[1])
+            np.testing.assert_array_equal(
+                z.cpu().numpy(), F.polymul_fused(xy[0], xy[1], tbl).cpu().numpy())

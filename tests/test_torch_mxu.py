@@ -1,7 +1,7 @@
 """The port's MXU path (``ops/mxu_tables.py``, ``ops/ntt_mxu.py``) against
 the JAX package.
 
-- tables: ``get_mxu_tables`` (planned from qtesla_tpu.params) and
+- tables: ``get_mxu_tables`` (planned from the port's registry) and
   ``from_jax_mxu_tables`` equal JAX ``get_mxu_tables`` field by field;
 - the block recombination identity: the twin's digit product plus
   ``const + group_bias`` equals the stage matrix product mod q;
@@ -29,6 +29,7 @@ from qtesla_tpu.ops import ntt as JN
 from qtesla_tpu.ops import ntt_mxu as JM
 from qtesla_tpu.ops import tables as JT
 from qtesla_tpu.params import get_params
+from qtesla_tpu_torch import params as TPARAMS
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import mxu_tables as MT
 from qtesla_tpu_torch.ops import ntt_mxu as TM
@@ -41,12 +42,15 @@ KINDS = ("polymul", "polymul_fixed", "ntt", "intt")
 
 @pytest.fixture
 def small_set():
-    """Registers the (512, 12289) set for one test and removes it again."""
+    """Registers the (512, 12289) set in both packages' registries for one
+    test and removes it again."""
     name, n, q = SMALL
-    JPARAMS.register_param_set(name, n, q)
+    for reg in (JPARAMS, TPARAMS):
+        reg.register_param_set(name, n, q)
     yield name
-    del JPARAMS.PARAM_SETS[name]
-    JPARAMS.get_params.cache_clear()
+    for reg in (JPARAMS, TPARAMS):
+        del reg.PARAM_SETS[name]
+        reg.get_params.cache_clear()
 
 
 def _assert_tables_equal(got, want):
