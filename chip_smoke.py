@@ -19,24 +19,35 @@ script exits non-zero without printing a result:
    diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
    B10 pairing == B1 on the same inputs.  B3 takes inputs below 2q, B7
    below the MXU plan's pw_bound.  B9's prepare time (B6, host tables,
-   copies) is printed per set.  B11/B12/B16 run for every model axis k in
+   copies) is printed per set.  B11-B16 run for every model axis k in
    {2, 4, 8} the set's split takes (k = 4 at n = 8192), on the path's own
-   intermediates and on all-(q-1) shards, and the whole SP path equals B1.
+   intermediates and on all-(q-1) shards: B13 against a random constant's
+   spectrum and the all-0 and all-(q-1) ones, B15 against their folded
+   tables, B16 also under p3x; the whole SP path equals B1, and the fixed
+   and folded SP paths equal B4 and each other.  The folded SP prepare's
+   host seconds (B11, B14, fourstep_fold_tables, copies) are printed.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
    algo="fused" (B1, B2, B4, B3), the "mxu-folded" fixed pair (B6, B9) and
-   polymul_negacyclic(algo=p + "_kernel") for the five pairings (B10) and
-   the sequence-parallel polymul_fourstep_mxu_fn(make_mesh(model=4)) (B11
-   twice, B12, B16), with every launch count reset just before and read
-   just after (B6 and B11 twice, each other kernel once); the outputs must
-   equal the plain versions on the card and each other, and 8 rows of the
-   mxu, the folded and the SP products the big-int oracle.
+   polymul_negacyclic(algo=p + "_kernel") for the five pairings (B10), the
+   sequence-parallel polymul_fourstep_mxu_fn(make_mesh(model=4)) (B11
+   twice, B12, B16) and the fixed-operand SP pairs
+   polymul_fixed_fourstep_mxu_fn (prepare B11, B14; multiply B11, B13, B16)
+   and polymul_fixed_folded_fourstep_mxu_fn (prepare B11, B14; multiply
+   B11, B15, B16 under p3x), with every launch count reset just before and
+   read just after (EXPECTED_LAUNCHES); the outputs must equal the plain
+   versions on the card and each other (the fixed ones B4 and B8), and 8
+   rows of the mxu, the folded and the three SP products the big-int
+   oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain; then the whole SP path and local_pipeline_fn (one shard's work,
-   no exchange) at k in {2, 4, 8}, with the SP cost per shard
-   k * t_local / t_B5 and k * t_local / t_B1.
+   plain (B16 also under p3x); then the whole SP path and
+   local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
+   with the SP cost per shard k * t_local / t_B5 and k * t_local / t_B1;
+   then both fixed SP paths and one shard's fixed and folded work
+   (local_fixed_pipeline_fn) at k in {2, 4, 8}, k * t_local / t_B8 and
+   k * t_local / t_B4.
 
 It prints a JSON line of the kernels (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
@@ -47,6 +58,7 @@ q, so library_ms is null), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -57,8 +69,12 @@ import torch
 
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
-from qtesla_tpu_torch.models import (intt, local_pipeline_fn, make_mesh,
-                                     polymul_fixed_fn, polymul_fourstep_mxu_fn,
+from qtesla_tpu_torch.models import (intt, local_fixed_pipeline_fn,
+                                     local_pipeline_fn, make_mesh,
+                                     polymul_fixed_fn,
+                                     polymul_fixed_folded_fourstep_mxu_fn,
+                                     polymul_fixed_fourstep_mxu_fn,
+                                     polymul_fourstep_mxu_fn,
                                      polymul_negacyclic)
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
@@ -66,7 +82,8 @@ from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import sharded_mxu as S
-from qtesla_tpu_torch.parallel.sharded_mxu_tables import fourstep_mxu_plans
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import (fourstep_fold_tables,
+                                                         fourstep_mxu_plans)
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
 from qtesla_tpu_torch.utils.timing import time_cuda
 
@@ -82,10 +99,12 @@ SP_K = 4
 # every kernel: (registry entry, CUDA source)
 KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P, S)
            for name, k in mod.KERNELS.items()}
-# launches the main path makes: B6 prepares both fixed-operand forms, B11
-# transforms both SP operands
-EXPECTED_LAUNCHES = {name: 2 if name in ("ntt_mxu", "sp_seg1") else 1
-                     for name in KERNELS}
+# launches the main path makes: B6 prepares both single-transform fixed
+# forms; B11 runs on both operands of the SP product, on the constant in each
+# fixed SP prepare and on x in each fixed SP multiply; B14 in each fixed SP
+# prepare; B16 ends all three SP products (under p3x in the folded one)
+EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
+    "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 3}
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -137,18 +156,20 @@ def _record(errors: dict, kname: str, what: str, got, want) -> None:
     errors[kname] = max(errors[kname], expect_equal(what, got, want))
 
 
+def _seconds(fn, *args) -> tuple[float, object]:
+    """Host seconds of one synchronised call, and its result."""
+    done()
+    start = time.perf_counter()
+    out = fn(*args)
+    done()
+    return time.perf_counter() - start, out
+
+
 def fold_prep_seconds(name: str, a: torch.Tensor) -> tuple[float, float]:
     """Host seconds of the "mxu-folded" prepare of one constant, first (with
     the per-set inverse blocks) and second call, each synchronised."""
     prep = polymul_fixed_fn(name, "mxu-folded")[0]
-    out = []
-    for _ in range(2):
-        done()
-        start = time.perf_counter()
-        prep(a)
-        done()
-        out.append(time.perf_counter() - start)
-    return out[0], out[1]
+    return tuple(_seconds(prep, a)[0] for _ in range(2))
 
 
 def kernels_against_plain(errors: dict) -> None:
@@ -238,10 +259,18 @@ def _n1(name: str) -> int:
     return 1 << (get_tables(name).logn // 2)
 
 
+def _u32(v: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(v).to("cuda")
+
+
+def _fold(plans, spec: torch.Tensor) -> S.FoldedSpOperand:
+    return S.fold_sp_operand(*fourstep_fold_tables(plans, spec.cpu().numpy()),
+                             "cuda")
+
+
 def sp_against_plain(errors: dict) -> None:
-    """B11, B12, B16 against their twins for every set and model axis, and
-    the whole SP path against B1."""
-    dev = torch.device("cuda")
+    """B11-B16 against their twins for every set and model axis, the whole
+    SP path against B1 and both fixed SP paths against B4."""
     cases = [(name, k) for name in available_param_sets()
              if name != WIDE_SET[0] for k in (2, 4, 8)] + [(WIDE_SET[0], 4)]
     for name, k in cases:
@@ -253,18 +282,35 @@ def sp_against_plain(errors: dict) -> None:
             continue
         plan_s = time.perf_counter() - start
         tbl = get_tables(name)
-        q, n = tbl.q, tbl.n
-        fn = polymul_fourstep_mxu_fn(name, make_mesh(model=k))
-        full = torch.from_numpy(np.full((k, 3, plans.nloc), q - 1,
-                                        dtype=np.uint32)).to(dev)
+        q, n, nloc = tbl.q, tbl.n, plans.nloc
+        mesh = make_mesh(model=k)
+        fn = polymul_fourstep_mxu_fn(name, mesh)
+        fprep, fmul = polymul_fixed_fourstep_mxu_fn(name, mesh)
+        xprep, xmul = polymul_fixed_folded_fourstep_mxu_fn(name, mesh)
+        full = _u32(np.full((k, 3, nloc), q - 1, dtype=np.uint32))
         rng = np.random.default_rng(SEED)
+        a = _u32(rng.integers(0, q, n, dtype=np.uint32))
+        aspec = fprep(a)
+        want = S.seg2_fwd_plain(S.a2a_fwd(S.seg1_plain(
+            S.to_shards(a[None], plans), plans), plans), plans).reshape(n)
+        _record(errors, "sp_seg2_fwd", f"B14 {name} k={k} prepare", aspec,
+                want)
+        # the folded prepare, first call (with the per-plan blocks) and second
+        prep_s = [_seconds(xprep, a) for _ in range(2)]
+        a_op = prep_s[1][1]
+        # B13 and B15 against a random constant, the all-0 and all-(q-1)
+        # spectra
+        spectra = [aspec] + [_u32(np.full((k, nloc), v, dtype=np.uint32))
+                             for v in (0, q - 1)]
+        folds = [a_op] + [_fold(plans, sp) for sp in spectra[1:]]
+        a_spec = F.ntt_fused(a[None], tbl)
         for B in SMALL_BATCHES:
             for kind in ("random", "worst"):
                 if kind == "random":
                     xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
                 else:
                     xs = np.full((2, B, n), q - 1, dtype=np.uint32)
-                x, y = (torch.from_numpy(v).to(dev) for v in xs)
+                x, y = (_u32(v) for v in xs)
                 tag = f"{name} k={k} B={B} {kind}"
                 sx, sy = (S.to_shards(t, plans) for t in (x, y))
                 vx, vy = (S.sp_seg1(t, plans) for t in (sx, sy))
@@ -283,21 +329,52 @@ def sp_against_plain(errors: dict) -> None:
                              F.polymul_fused(x, y, tbl))
                 expect_equal(f"SP path == its segments {tag}", got,
                              S.from_shards(z, plans))
+                _record(errors, "sp_seg2_fwd", f"B14 {tag}",
+                        S.sp_seg2_fwd(vx, plans), S.seg2_fwd_plain(vx, plans))
+                for i, (sp, op) in enumerate(zip(spectra, folds)):
+                    _record(errors, "sp_seg2_fixed", f"B13 {tag} spectrum {i}",
+                            S.sp_seg2_fixed(vx, sp, plans),
+                            S.seg2_fixed_plain(vx, sp, plans))
+                    _record(errors, "sp_seg2_folded",
+                            f"B15 {tag} spectrum {i}",
+                            S.sp_seg2_folded(vx, op, plans),
+                            S.seg2_folded_plain(vx, op, plans))
+                _record(errors, "sp_seg3", f"B16 p3x {tag}",
+                        S.sp_seg3(w, plans, folded=True),
+                        S.seg3_plain(w, plans, folded=True))
+                zf = fmul(x, aspec)
+                expect_equal(f"fixed SP path == B4 {tag}", zf,
+                             F.polymul_fixed_fused(x, a_spec, tbl))
+                expect_equal(f"folded SP path == fixed SP path {tag}",
+                             xmul(x, *a_op), zf)
         for kname, got, want in (
                 ("sp_seg1", S.sp_seg1(full, plans), S.seg1_plain(full, plans)),
                 ("sp_seg2", S.sp_seg2(full, full, plans),
                  S.seg2_plain(full, full, plans)),
                 ("sp_seg3", S.sp_seg3(full, plans),
-                 S.seg3_plain(full, plans))):
+                 S.seg3_plain(full, plans)),
+                ("sp_seg2_fwd", S.sp_seg2_fwd(full, plans),
+                 S.seg2_fwd_plain(full, plans)),
+                ("sp_seg2_fixed", S.sp_seg2_fixed(full, spectra[2], plans),
+                 S.seg2_fixed_plain(full, spectra[2], plans)),
+                ("sp_seg2_folded", S.sp_seg2_folded(full, folds[2], plans),
+                 S.seg2_folded_plain(full, folds[2], plans)),
+                ("sp_seg3", S.sp_seg3(full, plans, folded=True),
+                 S.seg3_plain(full, plans, folded=True))):
             _record(errors, kname, f"{kname} {name} k={k} all q-1 shards",
                     got, want)
-        print(f"{name} k={k} (SP plan {plan_s:.1f} s: nloc={plans.nloc}, "
-              f"TW={plans.TW}, A={plans.A}, Lr={plans.Lr}, din p1/p2f/p2i/p3 "
-              f"{plans.p1.din}/{plans.p2f.din}/{plans.p2i.din}/"
-              f"{plans.p3.din}, rows/block {S.plan_for(plans, 1).rows}/"
-              f"{S.plan_for(plans, 2).rows}): B11, B12, B16 equal to plain "
-              f"for B in {SMALL_BATCHES}, random, worst-case and all-(q-1) "
-              f"shards; SP path == B1", flush=True)
+        print(f"{name} k={k} (SP plan {plan_s:.1f} s: nloc={nloc}, "
+              f"TW={plans.TW}, A={plans.A}, Lr={plans.Lr}, din p1/p2f/p2i/p3/"
+              f"p2x/p3x {plans.p1.din}/{plans.p2f.din}/{plans.p2i.din}/"
+              f"{plans.p3.din}/{plans.p2x.din}/{plans.p3x.din}, rows/block "
+              f"{S.plan_for(plans, 'sp_seg1').rows}/"
+              f"{S.plan_for(plans, 'sp_seg2').rows}/"
+              f"{S.plan_for(plans, 'sp_seg2_fixed').rows}; folded SP prepare "
+              f"{prep_s[1][0] * 1e3:.1f} ms, first {prep_s[0][0] * 1e3:.1f} "
+              f"ms): B11-B16 equal to plain for B in {SMALL_BATCHES}, random, "
+              f"worst-case and all-(q-1) shards, B13/B15 for 3 spectra, B16 "
+              f"also under p3x; SP path == B1, fixed SP == folded SP == B4",
+              flush=True)
     done()
 
 
@@ -315,7 +392,10 @@ def main_path(errors: dict, seed: int) -> dict:
                              dtype=torch.int64).to(torch.uint32)
 
     x, y, a = draw(B), draw(B), draw(1)
-    sp = polymul_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))
+    mesh = make_mesh(model=SP_K)
+    sp = polymul_fourstep_mxu_fn(MAIN_SET, mesh)
+    sp_fixed = polymul_fixed_fourstep_mxu_fn(MAIN_SET, mesh)
+    sp_folded = polymul_fixed_folded_fourstep_mxu_fn(MAIN_SET, mesh)
     done()
 
     for k, _ in KERNELS.values():
@@ -333,6 +413,10 @@ def main_path(errors: dict, seed: int) -> dict:
     z_pair = {p: polymul_negacyclic(x, y, MAIN_SET, algo=p + "_kernel")
               for p in P.PAIRINGS}
     z_sp = sp(x, y)
+    a_sp = sp_fixed[0](a)
+    z_spf = sp_fixed[1](x, a_sp)
+    a_spx = sp_folded[0](a)
+    z_spx = sp_folded[1](x, *a_spx)
     done()
     launches = {name: k.launches for name, (k, _) in KERNELS.items()}
     print(f"launches in the main-path run: {launches}")
@@ -387,11 +471,39 @@ def main_path(errors: dict, seed: int) -> dict:
     w = S.a2a_inv(w, plans)
     _record(errors, "sp_seg3", "B16 at the main path's shapes",
             S.sp_seg3(w, plans), S.seg3_plain(w, plans))
+    _record(errors, "sp_seg3", "B16 under p3x at the main path's shapes",
+            S.sp_seg3(w, plans, folded=True),
+            S.seg3_plain(w, plans, folded=True))
+    # the fixed-operand SP pairs: the spectrum, both products, the segments
+    sa = S.a2a_fwd(S.seg1_plain(S.to_shards(a, plans), plans), plans)
+    _record(errors, "sp_seg2_fwd", "fixed SP prepare", a_sp,
+            S.seg2_fwd_plain(sa, plans).reshape(n))
+    _record(errors, "sp_seg2_fwd", "B14 at the main path's shapes",
+            S.sp_seg2_fwd(v, plans), S.seg2_fwd_plain(v, plans))
+    for what, z, kname, plain in (
+            ("fixed", z_spf, "sp_seg2_fixed",
+             S.polymul_fixed_fourstep_mxu_plain(x, a_sp, plans)),
+            ("folded", z_spx, "sp_seg2_folded",
+             S.polymul_fixed_folded_fourstep_mxu_plain(x, a_spx, plans))):
+        expect_canonical(f"z SP {what}", z, (B, n), q)
+        _record(errors, kname, f"{what} SP path", z, want_zf)
+        _record(errors, kname, f"{what} SP path against its plain path", z,
+                plain)
+        expect_equal(f"{what} SP path == B4 on the main path", z,
+                     out["fused"][2])
+        expect_equal(f"{what} SP path == B8 on the main path", z,
+                     out["mxu"][2])
+    _record(errors, "sp_seg2_fixed", "B13 at the main path's shapes",
+            S.sp_seg2_fixed(v, a_sp, plans),
+            S.seg2_fixed_plain(v, a_sp, plans))
+    _record(errors, "sp_seg2_folded", "B15 at the main path's shapes",
+            S.sp_seg2_folded(v, a_spx, plans),
+            S.seg2_folded_plain(v, a_spx, plans))
     done()
     print(f"main path: z and the fixed-operand products ({B} x {n}) of every "
           f"algo (mxu, fused, mxu-folded, the five pairing kernels, the SP "
-          f"path at k={SP_K}) equal the plain versions and each other on the "
-          f"card")
+          f"path and the fixed and folded SP pairs at k={SP_K}) equal the "
+          f"plain versions and each other on the card")
 
     rows = [(name, *(np.concatenate([t[:4].cpu().numpy(),
                                      t[-4:].cpu().numpy()])
@@ -399,7 +511,9 @@ def main_path(errors: dict, seed: int) -> dict:
             for name, z, other in (
                 ("mxu", out["mxu"][0], y),
                 ("mxu-folded", z_folded, a.expand(B, n)),
-                (f"SP k={SP_K}", z_sp, y))]
+                (f"SP k={SP_K}", z_sp, y),
+                (f"fixed SP k={SP_K}", z_spf, a.expand(B, n)),
+                (f"folded SP k={SP_K}", z_spx, a.expand(B, n)))]
     for name, zc, xc, yc in rows:
         for i, row in enumerate(ORACLE_ROWS):
             want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(
@@ -416,11 +530,27 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_work(B: int) -> dict:
-    """Per kernel, at the timing phase's shapes (qtesla-iii-speed, B rows):
-    the bytes it must move (each input, tables included, read once, the
-    output written once) and its int8 tensor-core MACs (the digit products
-    at their plans' depth, the padding excluded)."""
+def _sp_macs(w: torch.Tensor, din: int, rows: int, plans) -> int:
+    """int8 MACs of ``rows`` rows of every (shard, tile) through SP digit
+    tables w (..., D*TW, kp), shared over the tiles or one per tile: din * D
+    for each (output, input) lane pair nonzero in some digit plane.  K1 and
+    K3 are kron(M, I_n2k) and K2f, K2i and the folded F block-diagonal over
+    n2-blocks, so most pairs are zero products that no work needs."""
+    TW = plans.TW
+    *lead, dtw, _ = w.shape
+    D = dtw // TW
+    pairs = (w[..., :din * TW].reshape(*lead, D, TW, din, TW) != 0).sum(
+        dim=(-4, -2)) > 0
+    tiles = plans.k * plans.A // int(np.prod(lead))
+    return rows * din * D * tiles * int(pairs.sum())
+
+
+def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
+    """Per kernel, at the timing phase's shapes (qtesla-iii-speed, B rows,
+    ``sp_fold`` the timed constant's folded SP operand): the bytes it must move
+    (each input, tables included, read once, the output written once) and
+    its int8 tensor-core MACs (the digit products at their plans' depth,
+    the padding and the SP tables' zero blocks excluded)."""
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
     plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
@@ -446,15 +576,20 @@ def kernel_work(B: int) -> dict:
            for p in P.PAIRINGS},
     }
     st = S.host_tables(plans)
-    TW, A, k = plans.TW, plans.A, plans.k
-    per_tile = B * k * A * TW * (st.w1.shape[-2])    # rows * TW * D*TW
+    m1, m2f, m2i, m3, m3x, mx = (
+        _sp_macs(w, getattr(plans, p).din, B, plans)
+        for w, p in ((st.w1, "p1"), (st.w2f, "p2f"), (st.w2i, "p2i"),
+                     (st.w3, "p3"), (st.w3x, "p3x"), (sp_fold.w.cpu(), "p2x")))
     sp_tw = _nbytes(st.tw)
-    work["sp_seg1"] = (2 * row + _nbytes(st.w1, st.c1) + sp_tw,
-                       per_tile * plans.p1.din)
+    work["sp_seg1"] = (2 * row + _nbytes(st.w1, st.c1) + sp_tw, m1)
     work["sp_seg2"] = (3 * row + _nbytes(st.w2f, st.c2f, st.w2i, st.c2i),
-                       per_tile * (2 * plans.p2f.din + plans.p2i.din))
-    work["sp_seg3"] = (2 * row + _nbytes(st.w3, st.c3) + sp_tw,
-                       per_tile * plans.p3.din)
+                       2 * m2f + m2i)
+    work["sp_seg3"] = (2 * row + _nbytes(st.w3, st.c3) + sp_tw, m3)
+    work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3x, st.c3x) + sp_tw, m3x)
+    work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2f, st.c2f, st.w2i,
+                                                      st.c2i), m2f + m2i)
+    work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2f, st.c2f), m2f)
+    work["sp_seg2_folded"] = (2 * row + _nbytes(*sp_fold), mx)
     return work
 
 
@@ -498,6 +633,8 @@ def timing(device_line: str) -> dict:
     sx, sy = (S.to_shards(t, plans) for t in (x, y))
     vx, vy = (S.a2a_fwd(S.sp_seg1(t, plans), plans) for t in (sx, sy))
     sw = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
+    aspec = S.fixed_spectrum(y[0], plans)
+    fold = _fold(plans, aspec)
     runs = {
         "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
         "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
@@ -518,11 +655,19 @@ def timing(device_line: str) -> dict:
         "sp_seg1": (S.sp_seg1, S.seg1_plain, (sx, plans)),
         "sp_seg2": (S.sp_seg2, S.seg2_plain, (vx, vy, plans)),
         "sp_seg3": (S.sp_seg3, S.seg3_plain, (sw, plans)),
+        "sp_seg2_fixed": (S.sp_seg2_fixed, S.seg2_fixed_plain,
+                          (vx, aspec, plans)),
+        "sp_seg2_fwd": (S.sp_seg2_fwd, S.seg2_fwd_plain, (vx, plans)),
+        "sp_seg2_folded": (S.sp_seg2_folded, S.seg2_folded_plain,
+                           (vx, fold, plans)),
+        "sp_seg3 p3x": (functools.partial(S.sp_seg3, folded=True),
+                        functools.partial(S.seg3_plain, folded=True),
+                        (sw, plans)),
     }
-    work = kernel_work(B)
+    work = kernel_work(B, fold)
     out = {}
     for name, (kern, plain, args) in runs.items():
-        res = _turns(kern, plain, args, KERNELS[name][0])
+        res = _turns(kern, plain, args, KERNELS[name.split()[0]][0])
         res["bound"] = bound(*work[name])
         for which in ("kernel", "plain"):
             lo, med = res[which]
@@ -560,6 +705,38 @@ def timing(device_line: str) -> dict:
               f"{k * tl / med['polymul_mxu']:.3f}, k*t_local/t_B1 = "
               f"{k * tl / med['polymul_fused']:.3f} [{device_line}]",
               flush=True)
+
+    # the fixed SP paths end to end, and one shard's fixed and folded work
+    fixed = polymul_fixed_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))[1]
+    folded = polymul_fixed_folded_fourstep_mxu_fn(MAIN_SET,
+                                                  make_mesh(model=SP_K))[1]
+    for what, kern, plain, args in (
+            ("fixed SP path (B11, B13, B16, 2 exchanges)", fixed,
+             functools.partial(S.polymul_fixed_fourstep_mxu_plain,
+                               plans=plans), (x, aspec)),
+            ("folded SP path (B11, B15, B16 p3x, 2 exchanges)",
+             lambda t: folded(t, *fold),
+             functools.partial(S.polymul_fixed_folded_fourstep_mxu_plain,
+                               fold=fold, plans=plans), (x,))):
+        res = _turns(kern, plain, args)
+        print(f"timing {what} k={SP_K}: median {res['kernel'][1]:.4f} ms, "
+              f"plain {res['plain'][1]:.4f} ms; B8 "
+              f"{med['polymul_fixed_mxu']:.4f}, B9 "
+              f"{med['polymul_fixed_folded_mxu']:.4f}, B4 "
+              f"{med['polymul_fixed_fused']:.4f} [{device_line}]", flush=True)
+    rng = np.random.default_rng(SEED)
+    for k in (2, 4, 8):
+        pipe, lp = local_fixed_pipeline_fn(MAIN_SET, k)
+        xl = x[:, :lp.nloc].contiguous()
+        spec = _u32(rng.integers(0, q, (k, lp.nloc), dtype=np.uint32))
+        for what, const in (("fixed", spec), ("folded", _fold(lp, spec))):
+            tl = time_cuda(pipe, xl, const, warmup=3, repeats=20).median_ms
+            print(f"timing local_fixed_pipeline_fn {what} k={k}: B={B} "
+                  f"nloc={lp.nloc} median {tl:.4f} ms; SP cost per shard "
+                  f"k*t_local/t_B8 = {k * tl / med['polymul_fixed_mxu']:.3f},"
+                  f" k*t_local/t_B4 = "
+                  f"{k * tl / med['polymul_fixed_fused']:.3f} "
+                  f"[{device_line}]", flush=True)
     done()
     return out
 

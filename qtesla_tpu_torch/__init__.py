@@ -10,7 +10,13 @@ numpy, and nothing of jax or the JAX package: its parameter registry
 from .oracle import polymul_negacyclic_oracle  # noqa: F401
 from .params import (ParamSet, available_param_sets,  # noqa: F401
                      get_params, register_param_set)
-from .parallel import (local_pipeline_fn, make_mesh,  # noqa: F401
-                       polymul_fourstep_mxu_fn, polymul_fourstep_sharded_fn)
+from .parallel import (  # noqa: F401
+    local_pipeline_fn,
+    make_mesh,
+    polymul_fixed_folded_fourstep_mxu_fn,
+    polymul_fixed_fourstep_mxu_fn,
+    polymul_fourstep_mxu_fn,
+    polymul_fourstep_sharded_fn,
+)
 
 __version__ = "0.1.0"

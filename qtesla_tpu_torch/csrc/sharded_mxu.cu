@@ -2,9 +2,12 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernels of qtesla_tpu/parallel/sharded_mxu.py:
-//   qt_sp_seg1 <- _make_seg1 (l.481)                  B11
-//   qt_sp_seg2 <- _make_seg2 / _seg2_block (l.520)    B12
-//   qt_sp_seg3 <- _make_seg3 (l.622)                  B16
+//   qt_sp_seg1        <- _make_seg1 (l.481)                  B11
+//   qt_sp_seg2        <- _make_seg2 / _seg2_block (l.520)    B12
+//   qt_sp_seg2_fixed  <- _make_seg2_fixed (l.533)            B13
+//   qt_sp_seg2_fwd    <- _make_seg2_fwd_only (l.548)         B14
+//   qt_sp_seg2_folded <- _make_seg2_folded (l.563)           B15
+//   qt_sp_seg3        <- _make_seg3 (l.622)                  B16
 //
 // What they compute.  The four-step polymul n = n1 x n2 splits each
 // transform over a model axis of k shards; shard d holds nloc = n1 * n2/k
@@ -16,9 +19,15 @@
 //         w^{k1 j2} folded in);
 //   seg2: per tile, the shared row transform K2f on x and on y, the Barrett
 //         pointwise product, then K2i[d, t] (inverse rows with w^{-k1 j2});
+//   seg2 fixed (B13): seg2 with y the constant's stored spectrum, one row
+//         per shard (any uint32: the Barrett product is exact for all);
+//   seg2 fwd (B14): K2f only, the last step of a constant's spectrum;
+//   seg2 folded (B15): per tile one digit-matmul against the constant's
+//         F[d, t] = K2f diag(A^[d, t]) K2i[d, t] under the plan p2x;
 //   seg3: per tile K3[d, t] (tile-local inverse stages with psi^{-j2}),
 //         then the Lr inverse wide stages with n1^{-1} in the last; at
-//         Lr = 0 the matrix carries n1^{-1}.
+//         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
+//         the plan p3x (its own tables, the same kernel).
 // The wide stages and the block matmul are mxu_block.cuh's, shared with
 // B5-B9.  Every output is canonical, and canonical inputs lie below every
 // plan's split bound, so the JAX plans' split parameters serve unchanged;
@@ -30,6 +39,8 @@
 // multi-process run launches the same kernel with k_local = 1 and its own
 // table slice.  A block holds `rows` rows (at most 32; 16 of x and 16 of y
 // for seg2) in shared memory for the whole segment, loaded with cp.async;
+// B13 holds 32 x rows and its shard's spectrum row (read once a block, no
+// batch stride), so each K2f and K2i pass serves twice B12's rows;
 // at nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so
 // four blocks fit an SM (B5's 148 KB block allows one).  The launch keeps
 // 16 warps on an SM whatever the row length: four blocks of 128 threads
@@ -44,10 +55,17 @@
 // zero table columns and zero planes.
 //
 // What bounds it on the H100 (qtesla-iii-speed, B = 32768, k = 4, all
-// shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s):
-//   B11 (per operand) 268 MB, 3.9e10 MACs: 0.080 ms, device memory;
-//   B12               403 MB, 1.42e11 MACs: 0.143 ms, tensor cores;
-//   B16               268 MB, 5.2e10 MACs: 0.080 ms, device memory.
+// shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
+// the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
+// 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
+// over n2-blocks, n2/TW = 1/4; the kernels multiply whole tiles all the same):
+//   B11 (per operand) 270 MB, 4.8e9 MACs: 0.080 ms, device memory;
+//   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
+//   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
+//   B13               270 MB, 2.3e10 MACs: 0.081 ms, device memory;
+//   B14               269 MB, 1.3e10 MACs: 0.080 ms, device memory;
+//   B15               270 MB, 9.7e9 MACs: 0.080 ms, device memory (p2x
+//                     takes 3 planes where B13's K2f and K2i take 4 + 3).
 // The tables (0.2-1.6 MB for all shards) stay in L2.  As in B5, this first
 // design streams them from L2 once per row group and runs load, wide
 // stages, split, products and recombination as barrier-separated phases;
@@ -92,7 +110,19 @@ constexpr int kSmThreads = 512;
 // shared memory of one SM, and what the runtime reserves for each block
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
-enum Seg { kSeg1, kSeg2, kSeg3 };
+enum Seg { kSeg1, kSeg2, kSeg3, kSeg2Fixed, kSeg2Fwd, kSeg2Folded };
+
+// operand rows per batch row a block holds, and whether it has a digit plan 2
+__host__ __device__ constexpr int ops_of(int seg) {
+    return seg == kSeg2 ? 2 : 1;
+}
+__host__ __device__ constexpr bool two_plans(int seg) {
+    return seg == kSeg2 || seg == kSeg2Fixed;
+}
+// B13 keeps its shard's spectrum row after the x rows
+__host__ __device__ constexpr int spec_rows(int seg) {
+    return seg == kSeg2Fixed ? 1 : 0;
+}
 
 template <int SEG, int THREADS>
 __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
@@ -103,11 +133,12 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
               const uint32_t* __restrict__ tw, long long batch,
               const __grid_constant__ SpPlan p) {
     extern __shared__ __align__(16) uint32_t smem[];
-    constexpr int kOps = SEG == kSeg2 ? 2 : 1;
+    constexpr int kOps = ops_of(SEG);
     const int nloc = p.nloc, tb = p.rows / kOps;
     const int ks = (p.kp1 > p.kp2 ? p.kp1 : p.kp2) + kPad;
     uint32_t* data = smem;
-    int8_t* planes = reinterpret_cast<int8_t*>(smem + p.rows * nloc);
+    int8_t* planes = reinterpret_cast<int8_t*>(
+        smem + (p.rows + spec_rows(SEG)) * nloc);
     const int shard = blockIdx.y;
     const long long row0 = static_cast<long long>(blockIdx.x) * tb;
     const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
@@ -117,6 +148,8 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     const size_t tile1 = static_cast<size_t>(p.d) * p.tw * p.kp1;
     const size_t tile2 = static_cast<size_t>(p.d) * p.tw * p.kp2;
     const size_t cshard = static_cast<size_t>(p.a) * p.tw;
+    const int8_t* w1_shard = w1 + shard * p.a * tile1;
+    const uint32_t* c1_shard = c1 + shard * cshard;
 
     // rows past the batch are zero-filled; every copy is in flight before
     // the one wait
@@ -127,36 +160,41 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
             cp_async16(data + tb * nloc + c, ok ? y + base + c : y,
                        ok ? 16 : 0);
     }
+    if (SEG == kSeg2Fixed)
+        for (int c = threadIdx.x * 4; c < nloc; c += blockDim.x * 4)
+            cp_async16(data + tb * nloc + c,
+                       y + static_cast<size_t>(shard) * nloc + c, 16);
     cp_async_wait_all();
     __syncthreads();
 
     if (SEG == kSeg1) {
         qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
-        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
-                     w1 + shard * p.a * tile1, tile1, p.kp1,
-                     c1 + shard * cshard, p.tw, p.din1, p.lb1, p.add1, p.kb1,
-                     p);
+        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
+                     p.kp1, c1_shard, p.tw, p.din1, p.lb1, p.add1, p.kb1, p);
     }
-    if (SEG == kSeg2) {
-        // x and y rows through the one shared forward table
-        block_matmul(data, 2 * tb, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
+    if (SEG == kSeg2 || SEG == kSeg2Fixed || SEG == kSeg2Fwd) {
+        // the rows (B12: x and y) through the one shared forward table
+        block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
                      c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
+    }
+    if (SEG == kSeg2 || SEG == kSeg2Fixed) {
+        // the pointwise product against y's rows (B12) or the one spectrum
+        // row (B13, index within the row), then the shard's inverse rows
         const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
+        const uint32_t* other = data + tb * nloc;
+        const int mask = SEG == kSeg2 ? -1 : nloc - 1;
         for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
-            data[idx] = mulmod_barrett(data[idx], data[tb * nloc + idx], m);
+            data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
         __syncthreads();
         block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
                      w2 + shard * p.a * tile2, tile2, p.kp2,
                      c2 + shard * cshard, p.tw, p.din2, p.lb2, p.add2, p.kb2,
                      p);
     }
-    if (SEG == kSeg3) {
-        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
-                     w1 + shard * p.a * tile1, tile1, p.kp1,
-                     c1 + shard * cshard, p.tw, p.din1, p.lb1, p.add1, p.kb1,
-                     p);
-        qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
-    }
+    if (SEG == kSeg2Folded || SEG == kSeg3)
+        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
+                     p.kp1, c1_shard, p.tw, p.din1, p.lb1, p.add1, p.kb1, p);
+    if (SEG == kSeg3) qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
 
     for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4)
         if ((c >> p.lnloc) < live)
@@ -199,14 +237,14 @@ int launch(const void* a, const void* b, void* out, const void* w1,
            const void* c1, const void* w2, const void* c2, const void* tw,
            long long batch, int k_local, const void* plan, void* stream) {
     const SpPlan p = *static_cast<const SpPlan*>(plan);
-    constexpr int kOps = SEG == kSeg2 ? 2 : 1;
+    constexpr int kOps = ops_of(SEG);
     const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
     if (p.rows < kOps || p.rows > kMaxRows || p.rows % kOps || p.d < 1 ||
         p.d > kMaxClasses || !pow2_tw || p.nloc != 1 << p.lnloc ||
         p.a * p.tw != p.nloc || p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
         (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
         !valid_depth(p.din1, p.kp1, p.tw) ||
-        (SEG == kSeg2 ? !valid_depth(p.din2, p.kp2, p.tw) : p.kp2 != 0))
+        (two_plans(SEG) ? !valid_depth(p.din2, p.kp2, p.tw) : p.kp2 != 0))
         return cudaErrorInvalidValue;
     const long long tb = p.rows / kOps;
     const long long blocks = (batch + tb - 1) / tb;
@@ -215,7 +253,8 @@ int launch(const void* a, const void* b, void* out, const void* w1,
         return cudaErrorInvalidValue;
     const int kmax = p.kp1 > p.kp2 ? p.kp1 : p.kp2;
     const size_t smem =
-        static_cast<size_t>(p.rows) * p.nloc * sizeof(uint32_t) +
+        static_cast<size_t>(p.rows + spec_rows(SEG)) * p.nloc *
+            sizeof(uint32_t) +
         static_cast<size_t>((p.rows + 15) / 16 * 16) * (kmax + kPad);
     // blocks whose shared memory fits one SM
     const size_t fit = kSmShared / (smem + kBlockReserve);
@@ -243,3 +282,6 @@ int launch(const void* a, const void* b, void* out, const void* w1,
 QT_SP_LAUNCHER(qt_sp_seg1, kSeg1)
 QT_SP_LAUNCHER(qt_sp_seg2, kSeg2)
 QT_SP_LAUNCHER(qt_sp_seg3, kSeg3)
+QT_SP_LAUNCHER(qt_sp_seg2_fixed, kSeg2Fixed)
+QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
+QT_SP_LAUNCHER(qt_sp_seg2_folded, kSeg2Folded)

@@ -1,5 +1,12 @@
-from ..parallel import (local_pipeline_fn, make_mesh,  # noqa: F401
-                        polymul_fourstep_mxu_fn, polymul_fourstep_sharded_fn)
+from ..parallel import (  # noqa: F401
+    local_fixed_pipeline_fn,
+    local_pipeline_fn,
+    make_mesh,
+    polymul_fixed_folded_fourstep_mxu_fn,
+    polymul_fixed_fourstep_mxu_fn,
+    polymul_fourstep_mxu_fn,
+    polymul_fourstep_sharded_fn,
+)
 from .polymul import (  # noqa: F401
     ALGORITHMS,
     NegacyclicPolymul,

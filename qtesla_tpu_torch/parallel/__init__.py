@@ -4,5 +4,10 @@ the planner ``sharded_mxu_tables.py``)."""
 
 from .mesh import Mesh, make_mesh  # noqa: F401
 from .sharded import polymul_fourstep_sharded_fn  # noqa: F401
-from .sharded_mxu import (local_pipeline_fn,  # noqa: F401
-                          polymul_fourstep_mxu_fn)
+from .sharded_mxu import (  # noqa: F401
+    local_fixed_pipeline_fn,
+    local_pipeline_fn,
+    polymul_fixed_folded_fourstep_mxu_fn,
+    polymul_fixed_fourstep_mxu_fn,
+    polymul_fourstep_mxu_fn,
+)

@@ -1,5 +1,5 @@
-"""Sequence-parallel (SP) digit-matmul polymul: segment kernels B11, B12 and
-B16, hand-written CUDA for Hopper, with their plain PyTorch twins.
+"""Sequence-parallel (SP) digit-matmul polymul: segment kernels B11-B16,
+hand-written CUDA for Hopper, with their plain PyTorch twins.
 
 Counterpart of the kernels and the assembly of
 ``qtesla_tpu/parallel/sharded_mxu.py``:
@@ -9,11 +9,23 @@ Counterpart of the kernels and the assembly of
 - ``sp_seg2``  B12, replaces ``_make_seg2`` (l.520, ``_seg2_block`` l.502):
   the shared row transform K2f on x and y, the Barrett pointwise product,
   then K2i per (shard, tile);
+- ``sp_seg2_fixed``  B13, replaces ``_make_seg2_fixed`` (l.533): B12 with y
+  the constant's stored spectrum, one row per shard;
+- ``sp_seg2_fwd``  B14, replaces ``_make_seg2_fwd_only`` (l.548): K2f only,
+  the last step of a constant's spectrum;
+- ``sp_seg2_folded``  B15, replaces ``_make_seg2_folded`` (l.563): one
+  product per (shard, tile) against the constant's folded tables
+  F = K2f diag(A^) K2i under the plan p2x;
 - ``sp_seg3``  B16, replaces ``_make_seg3`` (l.622): K3 per (shard, tile),
-  then the inverse wide stages with n1^{-1};
+  then the inverse wide stages with n1^{-1}; ``folded=True`` takes the plan
+  p3x, as the folded path does;
 - ``a2a_fwd`` / ``a2a_inv``: the exchanges between them;
-- ``polymul_fourstep_mxu_fn(name, mesh)`` (l.828) and
-  ``local_pipeline_fn(name, k)`` (l.839), the entry points.
+- the entry points ``polymul_fourstep_mxu_fn(name, mesh)`` (l.828),
+  ``local_pipeline_fn(name, k)`` (l.839), the fixed-operand pairs
+  ``polymul_fixed_fourstep_mxu_fn`` (l.876) and
+  ``polymul_fixed_folded_fourstep_mxu_fn`` (l.1150), and
+  ``local_fixed_pipeline_fn``, one shard's work of either fixed path (as
+  ``qtesla_tpu/utils/timing.py:349-450`` builds it).
 
 The model axis lives on one device.  The k shards of a call are the leading
 axis of one tensor: shard d of x (B, n) is
@@ -34,6 +46,10 @@ runs the twin, anything else raises.  Each launch adds one to its kernel's
 count in ``KERNELS``.  The twins compute in int64, with the port's merged
 stages along j1 (``ops/ntt.py``) and float64 digit products
 (``ops/ntt_mxu.py::digit_product``); every output is canonical.
+
+A constant's spectrum is device-major, (n,) with shard d's row at
+[d*nloc, (d+1)*nloc), or (k, nloc): what JAX's fixed ``prepare`` returns
+(l.765-778), there lazy, here canonical.  The kernels take either.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,25 +68,35 @@ from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel, _check
 from ..ops.ntt_mxu import _check_shapes, block_rows, digit_product
 from ..ops.tables import get_tables
-from .sharded_mxu_tables import SpPlans, fourstep_mxu_plans
+from .sharded_mxu_tables import (SpPlans, fourstep_fold_tables,
+                                 fourstep_mxu_plans)
 
-__all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "host_tables",
-           "device_tables", "plan_for", "sp_seg1", "sp_seg2", "sp_seg3",
-           "seg1_plain", "seg2_plain", "seg3_plain", "a2a_fwd", "a2a_inv",
-           "to_shards", "from_shards", "polymul_fourstep_mxu",
-           "polymul_fourstep_mxu_plain", "polymul_fourstep_mxu_fn",
-           "local_pipeline_fn"]
+__all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
+           "host_tables", "device_tables", "fold_sp_operand", "plan_for",
+           "sp_seg1", "sp_seg2", "sp_seg2_fixed", "sp_seg2_fwd",
+           "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg2_plain",
+           "seg2_fixed_plain", "seg2_fwd_plain", "seg2_folded_plain",
+           "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
+           "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
+           "polymul_fourstep_mxu_fn", "local_pipeline_fn",
+           "fixed_spectrum", "polymul_fixed_fourstep_mxu",
+           "polymul_fixed_fourstep_mxu_plain",
+           "polymul_fixed_folded_fourstep_mxu",
+           "polymul_fixed_folded_fourstep_mxu_plain",
+           "polymul_fixed_fourstep_mxu_fn",
+           "polymul_fixed_folded_fourstep_mxu_fn", "local_fixed_pipeline_fn"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/sharded_mxu.cu"
 
+_JAX = "qtesla_tpu/parallel/sharded_mxu.py"
 # ``smem_rows``: operand rows per batch row held in shared memory
 KERNELS: dict[str, Kernel] = {k.name: k for k in (
-    Kernel("sp_seg1", "qt_sp_seg1", "qtesla_tpu/parallel/sharded_mxu.py:481",
-           1),
-    Kernel("sp_seg2", "qt_sp_seg2", "qtesla_tpu/parallel/sharded_mxu.py:520",
-           2),
-    Kernel("sp_seg3", "qt_sp_seg3", "qtesla_tpu/parallel/sharded_mxu.py:622",
-           1),
+    Kernel("sp_seg1", "qt_sp_seg1", f"{_JAX}:481", 1),
+    Kernel("sp_seg2", "qt_sp_seg2", f"{_JAX}:520", 2),
+    Kernel("sp_seg2_fixed", "qt_sp_seg2_fixed", f"{_JAX}:533", 1),
+    Kernel("sp_seg2_fwd", "qt_sp_seg2_fwd", f"{_JAX}:548", 1),
+    Kernel("sp_seg2_folded", "qt_sp_seg2_folded", f"{_JAX}:563", 1),
+    Kernel("sp_seg3", "qt_sp_seg3", f"{_JAX}:622", 1),
 )}
 
 _CLASS_BIAS = 1 << 24      # the kernel adds it to each class sum c_j
@@ -84,11 +111,12 @@ _I64, _U32 = torch.int64, torch.uint32
 class SpDeviceTables:
     """The SP plans' digit tables in the kernels' layout, on one device.
 
-    ``w1``, ``w2i``, ``w3`` int8 (k, A, D*TW, kp): tile t of shard d maps
-    output lane o of class j (row j*TW + o) from plane i, input lane l
-    (column i*TW + l), zero past din*TW; ``w2f`` int8 (D*TW, kp), the one
-    shared row table; ``c1``, ``c2i``, ``c3`` uint32 (k, A, TW) and ``c2f``
-    (TW,) the const rows; ``tw`` the n1-point packed twiddles (4, n1)."""
+    ``w1``, ``w2i``, ``w3``, ``w3x`` int8 (k, A, D*TW, kp): tile t of shard
+    d maps output lane o of class j (row j*TW + o) from plane i, input lane
+    l (column i*TW + l), zero past din*TW; ``w2f`` int8 (D*TW, kp), the one
+    shared row table; ``c1``, ``c2i``, ``c3``, ``c3x`` uint32 (k, A, TW) and
+    ``c2f`` (TW,) the const rows; ``tw`` the n1-point packed twiddles (4,
+    n1).  ``w3x``/``c3x`` are K3 under p3x, the folded path's plan."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -99,10 +127,12 @@ class SpDeviceTables:
     w3: torch.Tensor
     c3: torch.Tensor
     tw: torch.Tensor
+    w3x: torch.Tensor
+    c3x: torch.Tensor
 
     def tensors(self):
         return (self.w1, self.c1, self.w2f, self.c2f, self.w2i, self.c2i,
-                self.w3, self.c3, self.tw)
+                self.w3, self.c3, self.tw, self.w3x, self.c3x)
 
 
 def _depth(din: int, TW: int) -> int:
@@ -121,8 +151,8 @@ def _kernel_layout(W: np.ndarray) -> torch.Tensor:
 
 
 def _const_rows(c: np.ndarray) -> torch.Tensor:
-    """(..., 1, TW) const rows -> (..., TW)."""
-    return torch.from_numpy(np.ascontiguousarray(c[..., 0, :]))
+    """(..., 1, TW) const rows -> (..., TW), in new storage."""
+    return torch.from_numpy(c[..., 0, :].copy())
 
 
 def host_tables(plans: SpPlans) -> SpDeviceTables:
@@ -132,7 +162,8 @@ def host_tables(plans: SpPlans) -> SpDeviceTables:
         _kernel_layout(plans.p2f.W), _const_rows(plans.p2f.const),
         _kernel_layout(plans.p2i.W), _const_rows(plans.p2i.const),
         _kernel_layout(plans.p3.W), _const_rows(plans.p3.const),
-        torch.from_numpy(plans.t1.packed.copy()))
+        torch.from_numpy(plans.t1.packed.copy()),
+        _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const))
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,17 +173,42 @@ def device_tables(plans: SpPlans, device: torch.device) -> SpDeviceTables:
                             for t in host_tables(plans).tensors()))
 
 
+class FoldedSpOperand(NamedTuple):
+    """One constant's folded segment-2 tables in the kernels' layout, on one
+    device: ``w`` int8 (k, A, D*TW, kp), ``fourstep_fold_tables``'s W with
+    the output axis first, and ``c`` uint32 (k, A, TW), its const rows.  A
+    tuple, so that ``multiply(x, *prepare(a))`` reads as in JAX."""
+
+    w: torch.Tensor
+    c: torch.Tensor
+
+
+def fold_sp_operand(W: np.ndarray, c: np.ndarray, device) -> FoldedSpOperand:
+    """The operand of a (W, const) pair of ``fourstep_fold_tables`` (or of
+    JAX's, through ``from_jax_fourstep_fold_tables``) on ``device``."""
+    return FoldedSpOperand(_kernel_layout(W).to(device),
+                           _const_rows(c).to(device))
+
+
 def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
     k, A, TW, D = plans.k, plans.A, plans.TW, plans.p1.W.shape[-1] // plans.TW
     i8, u32 = torch.int8, torch.uint32
     kp = {p: _depth(getattr(plans, p).din, TW)
-          for p in ("p1", "p2f", "p2i", "p3")}
+          for p in ("p1", "p2f", "p2i", "p3", "p3x")}
     want = ((i8, (k, A, D * TW, kp["p1"])), (u32, (k, A, TW)),
             (i8, (D * TW, kp["p2f"])), (u32, (TW,)),
             (i8, (k, A, D * TW, kp["p2i"])), (u32, (k, A, TW)),
             (i8, (k, A, D * TW, kp["p3"])), (u32, (k, A, TW)),
-            (u32, (4, plans.n1)))
+            (u32, (4, plans.n1)),
+            (i8, (k, A, D * TW, kp["p3x"])), (u32, (k, A, TW)))
     _check_shapes("SP tables", tabs.tensors(), want, like)
+
+
+def _check_folded(fold, plans: SpPlans, like) -> None:
+    k, A, TW, p = plans.k, plans.A, plans.TW, plans.p2x
+    _check_shapes("folded SP operand", tuple(fold),
+                  ((torch.int8, (k, A, p.Dout * TW, _depth(p.din, TW))),
+                   (torch.uint32, (k, A, TW))), like)
 
 
 # ----------------------------------------------------------------------
@@ -192,24 +248,71 @@ def seg1_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     return _product(v, tabs.w1[sl], tabs.c1[sl], plans.p1, plans).to(_U32)
 
 
+def _rows_fwd(x, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
+    """The shared row transform K2f of (S, B, nloc); canonical int64."""
+    return _product(x.to(_I64), tabs.w2f[None, None], tabs.c2f[None, None],
+                    plans.p2f, plans)
+
+
+def _rows_inv(Z, plans: SpPlans, tabs: SpDeviceTables, sl) -> torch.Tensor:
+    """Shards sl's inverse row transforms K2i of (S, B, nloc) values below
+    p2i's split bound; canonical uint32."""
+    return _product(Z, tabs.w2i[sl], tabs.c2i[sl], plans.p2i, plans).to(_U32)
+
+
+def _pointwise(X, Y, plans: SpPlans) -> torch.Tensor:
+    ps = plans.ps
+    return mulmod_barrett(X, Y, ps.q, ps.r32, ps.r32_shoup, ps.one_shoup)
+
+
 def seg2_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     """B12's twin: the row segment of x and y (S, B, nloc), canonical."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
-    ps = plans.ps
-    X, Y = (_product(t.to(_I64), tabs.w2f[None, None],
-                     tabs.c2f[None, None], plans.p2f, plans) for t in (x, y))
-    Z = mulmod_barrett(X, Y, ps.q, ps.r32, ps.r32_shoup, ps.one_shoup)
-    return _product(Z, tabs.w2i[sl], tabs.c2i[sl], plans.p2i,
+    Z = _pointwise(_rows_fwd(x, plans, tabs), _rows_fwd(y, plans, tabs), plans)
+    return _rows_inv(Z, plans, tabs, sl)
+
+
+def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
+    """B13's twin: the row segment of x (S, B, nloc) against the stored
+    spectrum ``aspec`` ((k, nloc) or (n,), any uint32: the Barrett product
+    is exact for every value, so JAX's lazy spectrum serves too), shard s
+    against row first + s; canonical."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    Y = aspec.reshape(plans.k, 1, plans.nloc)[sl].to(_I64)
+    return _rows_inv(_pointwise(_rows_fwd(x, plans, tabs), Y, plans), plans,
+                     tabs, sl)
+
+
+def seg2_fwd_plain(x, plans: SpPlans, tabs=None, first: int = 0):
+    """B14's twin: the forward rows K2f of (S, B, nloc), canonical (JAX
+    stores them lazy).  The table is shared, so ``first`` only names the
+    shards."""
+    return _rows_fwd(x, plans, _tabs(tabs, plans, x)).to(_U32)
+
+
+def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
+                      first: int = 0):
+    """B15's twin: shards first + s of (S, B, nloc) through the constant's
+    folded tables under p2x; canonical.  JAX's kernel canonicalises its
+    input first when p2x.canon (l.574-576); the input here is B11's
+    canonical output, so nothing replays that."""
+    sl = slice(first, first + x.shape[0])
+    return _product(x.to(_I64), fold.w[sl], fold.c[sl], plans.p2x,
                     plans).to(_U32)
 
 
-def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0):
-    """B16's twin: the inverse column segment of (S, B, nloc), canonical."""
+def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0,
+               folded: bool = False):
+    """B16's twin: the inverse column segment of (S, B, nloc), canonical;
+    ``folded`` takes K3 under p3x, the folded path's plan."""
     tabs = _tabs(tabs, plans, w)
     sl = slice(first, first + w.shape[0])
     tw = tabs.tw.to(_I64)
-    v = _product(w.to(_I64), tabs.w3[sl], tabs.c3[sl], plans.p3, plans)
+    w3, c3, p3 = ((tabs.w3x, tabs.c3x, plans.p3x) if folded
+                  else (tabs.w3, tabs.c3, plans.p3))
+    v = _product(w.to(_I64), w3[sl], c3[sl], p3, plans)
     L1 = plans.n1.bit_length() - 1
     return _along_j1(v, plans, lambda t: N.intt_inv_merged(
         t, plans.t1, tw, s_lo=L1 - plans.Lr)).to(_U32)
@@ -280,20 +383,28 @@ def _digit_fields(p, q: int, bias: int, TW: int, i: int) -> dict:
             f"kb{i}": (_group_bias(p.groups, p.bounds, q) - bias) % q}
 
 
+# each segment kernel's digit plans (digit plan 1, then 2), by its name in
+# ``KERNELS``; "sp_seg3 p3x" is B16 under the folded path's plan
+SEGMENTS = {"sp_seg1": ("p1",), "sp_seg2": ("p2f", "p2i"),
+            "sp_seg2_fixed": ("p2f", "p2i"), "sp_seg2_fwd": ("p2f",),
+            "sp_seg2_folded": ("p2x",), "sp_seg3": ("p3",),
+            "sp_seg3 p3x": ("p3x",)}
+
+
 @functools.lru_cache(maxsize=None)
-def plan_for(plans: SpPlans, seg: int) -> SpPlan:
-    """The run-time plan of segment ``seg`` (1, 2 or 3).  A plan outside
-    the kernels' range (more than 4 classes or 6 planes, a class bound of
-    2^24, a tile below 8 lanes, rows that do not fit) raises."""
+def plan_for(plans: SpPlans, seg: str) -> SpPlan:
+    """The run-time plan of segment ``seg`` (a key of ``SEGMENTS``).  A plan
+    outside the kernels' range (more than 4 classes or 6 planes, a class
+    bound of 2^24, a tile below 8 lanes, rows that do not fit) raises."""
     q, TW = plans.q, plans.TW
-    digit = {1: (plans.p1,), 2: (plans.p2f, plans.p2i), 3: (plans.p3,)}[seg]
+    digit = tuple(getattr(plans, p) for p in SEGMENTS[seg])
     D = plans.p1.W.shape[-1] // TW
     if (D > 4 or max(p.din for p in digit) > 6 or TW < 8
             or max(max(p.bounds) for p in digit) >= _CLASS_BIAS):
         raise ValueError(f"{plans.name}: SP plan (D={D}, din="
                          f"{[p.din for p in digit]}, TW={TW}) is outside the "
                          f"kernels' range")
-    ops = 2 if seg == 2 else 1
+    ops = KERNELS[seg.split()[0]].smem_rows
     rows = block_rows(plans.nloc, ops)
     if rows < ops:
         raise ValueError(f"nloc={plans.nloc}: a row does not fit the "
@@ -315,12 +426,14 @@ def plan_for(plans: SpPlans, seg: int) -> SpPlan:
         **fields)
 
 
-def _launch(kernel: Kernel, seg: int, plans: SpPlans, tables, a, b):
-    """Run ``kernel`` on CUDA shards a (and b), (S, B, nloc), into a new
-    output, against ``tables`` (w1, c1, w2, c2, twiddles; None where the
-    segment takes none)."""
+def _launch(seg: str, plans: SpPlans, tables, a, b):
+    """Run segment ``seg``'s kernel (a key of ``SEGMENTS``) on CUDA shards
+    a, (S, B, nloc), and b (B12's y shards, B13's spectrum rows (S, nloc) or
+    None) into a new output, against ``tables`` (w1, c1, w2, c2, twiddles;
+    None where the segment takes none)."""
     from ..utils.build import load_library
 
+    kernel = KERNELS[seg.split()[0]]
     out = torch.empty_like(a)
     S, batch = a.shape[:2]
     if batch == 0 or S == 0:
@@ -340,16 +453,21 @@ def _launch(kernel: Kernel, seg: int, plans: SpPlans, tables, a, b):
     return out
 
 
-def _prepare(plans: SpPlans, tabs, first: int, *tensors):
+def _aligned(what: str, t: torch.Tensor) -> None:
+    if t.is_cuda and t.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernels need 16-byte aligned data")
+
+
+def _shards(plans: SpPlans, first: int, *tensors) -> slice:
+    """Check shards (S, B, nloc) of one shape and device; the slice of the
+    model axis they hold."""
     nloc = plans.nloc
     for i, t in enumerate(tensors):
         _check(f"shards {i}", t, nloc)
         if t.dim() != 3:
             raise ValueError(f"shards {i}: expected (shards, B, {nloc}), got "
                              f"{tuple(t.shape)}")
-        if t.is_cuda and t.data_ptr() % 16:
-            raise ValueError(f"shards {i}: the kernels need 16-byte aligned "
-                             f"data")
+        _aligned(f"shards {i}", t)
     a = tensors[0]
     for t in tensors[1:]:
         if t.device != a.device or t.shape != a.shape:
@@ -358,9 +476,29 @@ def _prepare(plans: SpPlans, tabs, first: int, *tensors):
     if not 0 <= first or first + a.shape[0] > plans.k:
         raise ValueError(f"shards {first}..{first + a.shape[0] - 1} outside "
                          f"the model axis of {plans.k}")
-    tabs = _tabs(tabs, plans, a)
-    _check_tables(tabs, plans, a)
-    return tabs, slice(first, first + a.shape[0])
+    return slice(first, first + a.shape[0])
+
+
+def _prepare(plans: SpPlans, tabs, first: int, *tensors):
+    sl = _shards(plans, first, *tensors)
+    tabs = _tabs(tabs, plans, tensors[0])
+    _check_tables(tabs, plans, tensors[0])
+    return tabs, sl
+
+
+def _spectrum_rows(aspec, plans: SpPlans, like, sl) -> torch.Tensor:
+    """Rows sl (S, nloc) of a device-major spectrum, (k, nloc) or (n,)
+    uint32 on ``like``'s device."""
+    if not isinstance(aspec, torch.Tensor) or aspec.dtype != _U32:
+        raise TypeError(f"spectrum: expected a torch.uint32 tensor, got "
+                        f"{getattr(aspec, 'dtype', type(aspec))}")
+    if tuple(aspec.shape) not in ((plans.k, plans.nloc), (plans.n,)):
+        raise ValueError(f"spectrum must be ({plans.k}, {plans.nloc}) or "
+                         f"({plans.n},), got {tuple(aspec.shape)}")
+    if aspec.device != like.device or not aspec.is_contiguous():
+        raise ValueError(f"spectrum must be contiguous on {like.device}")
+    _aligned("spectrum", aspec)
+    return aspec.reshape(plans.k, plans.nloc)[sl]
 
 
 # ----------------------------------------------------------------------
@@ -372,7 +510,7 @@ def sp_seg1(x, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
     using shard first + s's tables; canonical out."""
     tabs, sl = _prepare(plans, tabs, first, x)
     if x.is_cuda:
-        return _launch(KERNELS["sp_seg1"], 1, plans,
+        return _launch("sp_seg1", plans,
                        (tabs.w1[sl], tabs.c1[sl], None, None, tabs.tw), x,
                        None)
     return seg1_plain(x, plans, tabs, first)
@@ -384,34 +522,85 @@ def sp_seg2(x, y, plans: SpPlans, tabs=None,
     inverse rows) of canonical spectral shards (S, B, nloc)."""
     tabs, sl = _prepare(plans, tabs, first, x, y)
     if x.is_cuda:
-        return _launch(KERNELS["sp_seg2"], 2, plans,
+        return _launch("sp_seg2", plans,
                        (tabs.w2f, tabs.c2f, tabs.w2i[sl], tabs.c2i[sl], None),
                        x, y)
     return seg2_plain(x, y, plans, tabs, first)
 
 
-def sp_seg3(w, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
+def sp_seg2_fixed(x, aspec, plans: SpPlans, tabs=None,
+                  first: int = 0) -> torch.Tensor:
+    """B13: the row segment of canonical spectral shards x (S, B, nloc)
+    against a constant's stored spectrum ``aspec`` ((k, nloc) or (n,), any
+    uint32), shard s against row first + s; canonical out."""
+    tabs, sl = _prepare(plans, tabs, first, x)
+    rows = _spectrum_rows(aspec, plans, x, sl)
+    if x.is_cuda:
+        return _launch("sp_seg2_fixed", plans,
+                       (tabs.w2f, tabs.c2f, tabs.w2i[sl], tabs.c2i[sl], None),
+                       x, rows)
+    return seg2_fixed_plain(x, aspec, plans, tabs, first)
+
+
+def sp_seg2_fwd(x, plans: SpPlans, tabs=None,
+                first: int = 0) -> torch.Tensor:
+    """B14: the forward rows K2f of canonical spectral shards (S, B, nloc);
+    canonical out."""
+    tabs, _ = _prepare(plans, tabs, first, x)
+    if x.is_cuda:
+        return _launch("sp_seg2_fwd", plans,
+                       (tabs.w2f, tabs.c2f, None, None, None), x, None)
+    return seg2_fwd_plain(x, plans, tabs, first)
+
+
+def sp_seg2_folded(x, fold: FoldedSpOperand, plans: SpPlans,
+                   first: int = 0) -> torch.Tensor:
+    """B15: the folded row segment of canonical spectral shards x (S, B,
+    nloc), shard s through the tables of shard first + s of ``fold``;
+    canonical out."""
+    sl = _shards(plans, first, x)
+    _check_folded(fold, plans, x)
+    if x.is_cuda:
+        return _launch("sp_seg2_folded", plans,
+                       (fold.w[sl], fold.c[sl], None, None, None), x, None)
+    return seg2_folded_plain(x, fold, plans, first)
+
+
+def sp_seg3(w, plans: SpPlans, tabs=None, first: int = 0,
+            folded: bool = False) -> torch.Tensor:
     """B16: the inverse column segment of canonical coefficient-layout
-    shards (S, B, nloc); canonical out."""
+    shards (S, B, nloc); canonical out.  ``folded`` takes K3 under p3x, the
+    folded path's plan."""
     tabs, sl = _prepare(plans, tabs, first, w)
     if w.is_cuda:
-        return _launch(KERNELS["sp_seg3"], 3, plans,
-                       (tabs.w3[sl], tabs.c3[sl], None, None, tabs.tw), w,
-                       None)
-    return seg3_plain(w, plans, tabs, first)
+        w3, c3 = (tabs.w3x, tabs.c3x) if folded else (tabs.w3, tabs.c3)
+        return _launch("sp_seg3 p3x" if folded else "sp_seg3", plans,
+                       (w3[sl], c3[sl], None, None, tabs.tw), w, None)
+    return seg3_plain(w, plans, tabs, first, folded)
 
 
 # ----------------------------------------------------------------------
-# The path.
+# The paths.
 # ----------------------------------------------------------------------
+
+def _operand(plans: SpPlans, what: str, t) -> torch.Tensor:
+    _check(what, t, plans.n)
+    return t.reshape(-1, plans.n)
+
 
 def _operands(plans: SpPlans, x, y):
-    for what, t in (("x", x), ("y", y)):
-        _check(what, t, plans.n)
+    x2, y2 = _operand(plans, "x", x), _operand(plans, "y", y)
     if x.shape != y.shape or x.device != y.device:
         raise ValueError(f"operands {tuple(x.shape)} on {x.device} and "
                          f"{tuple(y.shape)} on {y.device} differ")
-    return x.reshape(-1, plans.n), y.reshape(-1, plans.n)
+    return x2, y2
+
+
+def _spectral(x2, plans: SpPlans, tabs, seg1=None) -> torch.Tensor:
+    """(B, n) -> spectral shards (k, B, nloc): seg1 (B11, or its twin) and
+    the forward exchange."""
+    seg1 = seg1 or sp_seg1
+    return a2a_fwd(seg1(to_shards(x2, plans), plans, tabs), plans)
 
 
 def polymul_fourstep_mxu(x, y, plans: SpPlans, tabs=None) -> torch.Tensor:
@@ -420,8 +609,7 @@ def polymul_fourstep_mxu(x, y, plans: SpPlans, tabs=None) -> torch.Tensor:
     forward exchange, seg2 (B12), the inverse exchange, seg3 (B16)."""
     x2, y2 = _operands(plans, x, y)
     tabs = _tabs(tabs, plans, x2)
-    vx, vy = (a2a_fwd(sp_seg1(to_shards(t, plans), plans, tabs), plans)
-              for t in (x2, y2))
+    vx, vy = (_spectral(t, plans, tabs) for t in (x2, y2))
     w = a2a_inv(sp_seg2(vx, vy, plans, tabs), plans)
     return from_shards(sp_seg3(w, plans, tabs), plans).reshape(x.shape)
 
@@ -431,30 +619,146 @@ def polymul_fourstep_mxu_plain(x, y, plans: SpPlans,
     """The whole SP path through the twins, on any device."""
     x2, y2 = _operands(plans, x, y)
     tabs = _tabs(tabs, plans, x2)
-    vx, vy = (a2a_fwd(seg1_plain(to_shards(t, plans), plans, tabs), plans)
-              for t in (x2, y2))
+    vx, vy = (_spectral(t, plans, tabs, seg1_plain) for t in (x2, y2))
     w = a2a_inv(seg2_plain(vx, vy, plans, tabs), plans)
     return from_shards(seg3_plain(w, plans, tabs), plans).reshape(x.shape)
+
+
+def fixed_spectrum(a, plans: SpPlans, tabs=None) -> torch.Tensor:
+    """The device-major spectrum (n,) of a constant a (n values): B11 on its
+    one row, the forward exchange and B14, as JAX's fixed ``prepare``
+    (l.765-778); canonical."""
+    a2 = _operand(plans, "a", a.reshape(-1))
+    tabs = _tabs(tabs, plans, a2)
+    return sp_seg2_fwd(_spectral(a2, plans, tabs), plans, tabs).reshape(
+        plans.n)
+
+
+def polymul_fixed_fourstep_mxu(x, aspec, plans: SpPlans,
+                               tabs=None) -> torch.Tensor:
+    """z = x * a over (B..., n) uint32 tensors, ``aspec`` the constant's
+    device-major spectrum (``fixed_spectrum``, or JAX's lazy one): seg1 on x
+    (B11), the forward exchange, seg2 against the spectrum (B13), the
+    inverse exchange, seg3 (B16)."""
+    x2 = _operand(plans, "x", x)
+    tabs = _tabs(tabs, plans, x2)
+    w = sp_seg2_fixed(_spectral(x2, plans, tabs), aspec, plans, tabs)
+    return from_shards(sp_seg3(a2a_inv(w, plans), plans, tabs),
+                       plans).reshape(x.shape)
+
+
+def polymul_fixed_fourstep_mxu_plain(x, aspec, plans: SpPlans,
+                                     tabs=None) -> torch.Tensor:
+    """The fixed SP path through the twins, on any device."""
+    x2 = _operand(plans, "x", x)
+    tabs = _tabs(tabs, plans, x2)
+    w = seg2_fixed_plain(_spectral(x2, plans, tabs, seg1_plain), aspec, plans,
+                         tabs)
+    return from_shards(seg3_plain(a2a_inv(w, plans), plans, tabs),
+                       plans).reshape(x.shape)
+
+
+def polymul_fixed_folded_fourstep_mxu(x, fold: FoldedSpOperand,
+                                      plans: SpPlans,
+                                      tabs=None) -> torch.Tensor:
+    """z = x * a over (B..., n) uint32 tensors, ``fold`` the constant's
+    folded operand: seg1 on x (B11), the forward exchange, one folded
+    product (B15), the inverse exchange, seg3 under p3x (B16)."""
+    x2 = _operand(plans, "x", x)
+    tabs = _tabs(tabs, plans, x2)
+    w = sp_seg2_folded(_spectral(x2, plans, tabs), fold, plans)
+    return from_shards(sp_seg3(a2a_inv(w, plans), plans, tabs, folded=True),
+                       plans).reshape(x.shape)
+
+
+def polymul_fixed_folded_fourstep_mxu_plain(x, fold: FoldedSpOperand,
+                                            plans: SpPlans,
+                                            tabs=None) -> torch.Tensor:
+    """The folded fixed SP path through the twins, on any device."""
+    x2 = _operand(plans, "x", x)
+    tabs = _tabs(tabs, plans, x2)
+    w = seg2_folded_plain(_spectral(x2, plans, tabs, seg1_plain), fold, plans)
+    return from_shards(seg3_plain(a2a_inv(w, plans), plans, tabs,
+                                  folded=True), plans).reshape(x.shape)
 
 
 def _default_n1(name: str) -> int:
     return 1 << (get_tables(name).logn // 2)
 
 
+def _mesh_plans(name: str, mesh, n1: int | None, segments) -> SpPlans:
+    """The plans of ``mesh``'s model axis; raises if a segment's plan is
+    outside the kernels' range."""
+    plans = fourstep_mxu_plans(name, n1 or _default_n1(name), mesh.model)
+    for seg in segments:
+        plan_for(plans, seg)
+    return plans
+
+
+def _on_mesh(mesh, t) -> None:
+    if t.device.type != mesh.device.type:
+        raise ValueError(f"operands on {t.device}, mesh on {mesh.device}")
+
+
 def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     """(x, y) -> z over (B..., n) tensors on the mesh's device, the
     transform split over its model axis of k shards (B11, B12, B16); a plan
     the kernels cannot take raises here."""
-    plans = fourstep_mxu_plans(name, n1 or _default_n1(name), mesh.model)
-    for seg in (1, 2, 3):
-        plan_for(plans, seg)
+    plans = _mesh_plans(name, mesh, n1,
+                        ("sp_seg1", "sp_seg2", "sp_seg3"))
 
     def polymul(x, y):
-        if x.device.type != mesh.device.type:
-            raise ValueError(f"operands on {x.device}, mesh on {mesh.device}")
+        _on_mesh(mesh, x)
         return polymul_fourstep_mxu(x, y, plans)
 
     return polymul
+
+
+def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
+    """(prepare, multiply) for products x * a with a constant a, the
+    transforms split over the mesh's model axis: ``prepare(a)`` (n values)
+    -> a's device-major spectrum (n,), B11 and B14, run once;
+    ``multiply(x, aspec)`` (B..., n) -> (B..., n), B11, B13 and B16.
+    ``aspec`` may also be JAX's prepared spectrum, its lazy values as a
+    uint32 tensor.  A plan the kernels cannot take raises here."""
+    plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
+                                             "sp_seg2_fixed", "sp_seg3"))
+
+    def prepare(a):
+        _on_mesh(mesh, a)
+        return fixed_spectrum(a, plans)
+
+    def multiply(x, aspec):
+        _on_mesh(mesh, x)
+        return polymul_fixed_fourstep_mxu(x, aspec, plans)
+
+    return prepare, multiply
+
+
+def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
+                                         n1: int | None = None):
+    """(prepare, multiply) of the folded fixed SP path: ``prepare(a)`` runs
+    B11 and B14 on a, copies the spectrum to the host, builds its folded
+    tables (``fourstep_fold_tables``) and returns them on the mesh's device
+    as a ``FoldedSpOperand`` (w, c); ``multiply(x, w, c)`` runs B11, one
+    folded product (B15) and B16 under p3x.  Called as
+    ``multiply(x, *prepare(a))``, as in JAX; JAX's pair carries across as
+    ``fold_sp_operand(*from_jax_fourstep_fold_tables(W, c), device)``."""
+    plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
+                                             "sp_seg2_folded", "sp_seg3 p3x"))
+
+    def prepare(a):
+        _on_mesh(mesh, a)
+        spec = fixed_spectrum(a, plans).cpu().numpy()
+        return fold_sp_operand(*fourstep_fold_tables(plans, spec),
+                               mesh.device)
+
+    def multiply(x, w, c):
+        _on_mesh(mesh, x)
+        return polymul_fixed_folded_fourstep_mxu(x, FoldedSpOperand(w, c),
+                                                 plans)
+
+    return prepare, multiply
 
 
 def local_pipeline_fn(name: str, k: int, n1: int | None = None,
@@ -473,5 +777,27 @@ def local_pipeline_fn(name: str, k: int, n1: int | None = None,
         vx, vy = (sp_seg1(t[None], plans, tabs, first=d) for t in (x, y))
         w = sp_seg2(vx, vy, plans, tabs, first=d)
         return sp_seg3(w, plans, tabs, first=d)[0]
+
+    return pipe, plans
+
+
+def local_fixed_pipeline_fn(name: str, k: int):
+    """The local work of one shard of a fixed SP path, without the
+    exchanges: pipe(x, const) (B, nloc) -> (B, nloc), seg1 on x, then B13
+    against ``const``, a device-major spectrum ((k, nloc) or (n,)), or B15
+    when ``const`` is a ``FoldedSpOperand``, then seg3 (under p3x after
+    B15), with shard min(1, k - 1)'s tables, as
+    ``qtesla_tpu/utils/timing.py:349-450`` builds them.  Returns (pipe,
+    plans)."""
+    plans = fourstep_mxu_plans(name, _default_n1(name), k)
+    d = min(1, k - 1)
+
+    def pipe(x, const):
+        tabs = device_tables(plans, x.device)
+        v = sp_seg1(x[None], plans, tabs, first=d)
+        folded = isinstance(const, FoldedSpOperand)
+        w = (sp_seg2_folded(v, const, plans, first=d) if folded
+             else sp_seg2_fixed(v, const, plans, tabs, first=d))
+        return sp_seg3(w, plans, tabs, first=d, folded=folded)[0]
 
     return pipe, plans

@@ -32,6 +32,9 @@ form the worst-case fold plan p2x and its p3x.
 ``fourstep_mxu_plans(name, n1, k)`` plans from the port's registry;
 ``from_jax_fourstep_plans(plans)`` carries a JAX plan bundle's numpy and int
 fields across (duck-typed: jax is never imported here).
+``fourstep_fold_tables(plans, spectrum)`` (JAX l.586) builds one constant's
+folded segment-2 tables under p2x, and ``from_jax_fourstep_fold_tables``
+carries JAX's pair across.
 """
 
 from __future__ import annotations
@@ -43,19 +46,21 @@ import torch
 
 from ..ops import ntt as N
 from ..ops.mxu_tables import (_COST_CSUB, _COST_PLANE, _COST_PLANE_EXTRA,
-                              _COST_SHOUP, _chain_csubs, _const_row,
-                              _digit_bounds, _fwd_matrix, _input_digit_maxima,
-                              _inv_matrix, _lazy_fwd_schedule,
-                              _matrix_digit_block, _ndigits, _plan_cost,
-                              _plan_groups, _plane_count, _recombine_bound,
-                              _reduce_kind, pointwise_bound)
+                              _COST_SHOUP, _balanced_digits, _chain_csubs,
+                              _const_row, _digit_bounds, _fwd_matrix,
+                              _group_bias, _input_digit_maxima, _inv_matrix,
+                              _lazy_fwd_schedule, _matrix_digit_block,
+                              _ndigits, _plan_cost, _plan_groups,
+                              _plane_count, _recombine_bound, _reduce_kind,
+                              pointwise_bound)
 from ..ops.ntt import _subtables
 from ..ops.tables import NttTables, get_tables
 from ..params import ParamSet
 from .sharded import _fourstep_tables
 
 __all__ = ["SpPlans", "DigitPlan", "FoldPlan", "RollTables",
-           "fourstep_mxu_plans", "from_jax_fourstep_plans"]
+           "fourstep_mxu_plans", "from_jax_fourstep_plans",
+           "fourstep_fold_tables", "from_jax_fourstep_fold_tables"]
 
 _TW_MAX = 128
 
@@ -364,6 +369,74 @@ def fourstep_mxu_plans(name: str, n1: int, k: int) -> SpPlans:
 
 
 # ----------------------------------------------------------------------
+# Folded segment 2 of one constant.
+# ----------------------------------------------------------------------
+
+def _diagonal_blocks(M: np.ndarray, n2: int) -> np.ndarray:
+    """(..., TW, TW) -> its R = TW/n2 diagonal (n2, n2) blocks, (..., R, n2,
+    n2)."""
+    R = M.shape[-1] // n2
+    M = M.reshape(*M.shape[:-2], R, n2, R, n2)
+    return np.stack([M[..., r, :, r, :] for r in range(R)], axis=-3)
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_blocks(plans: SpPlans) -> tuple[np.ndarray, np.ndarray]:
+    """K2f's diagonal blocks (R, n2, n2) and K2i's (k, A, R, n2, n2), reduced
+    mod q in int64, made once per plan bundle."""
+    q, n2 = plans.q, plans.n2
+    return tuple((_diagonal_blocks(M, n2) % q).astype(np.int64)
+                 for M in (plans.K2f, plans.K2i))
+
+
+def _matmul_mod(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """a @ b mod q for int64 entries below q < 2^30 and an inner axis of at
+    most 2^7: a in 15-bit halves, so no partial sum passes 2^52."""
+    lo = np.matmul(a & 0x7FFF, b) % q
+    hi = np.matmul(a >> 15, b) % q
+    return (lo + (hi << 15)) % q
+
+
+def fourstep_fold_tables(plans: SpPlans, spectrum):
+    """One constant's folded segment-2 tables under p2x, bit for bit JAX's
+    ``fourstep_fold_tables`` (l.586): per (shard d, tile t) the matrix
+    F = K2f diag(A^[d, t]) K2i[d, t], block-diagonal over n2-blocks, as
+    ``W`` int8 (k, A, din, TW, Dout*TW) and ``const`` uint32 (k, A, 1, TW).
+
+    ``spectrum`` is the constant's device-major SP spectrum, (n,) or (k,
+    nloc) uint32, canonical or lazy (it is taken mod q).  F is built in int64
+    from the blocks cached per plan bundle, where JAX uses Python ints."""
+    p = plans.p2x
+    q, TW, A, k, n2 = plans.q, plans.TW, plans.A, plans.k, plans.n2
+    R = TW // n2
+    spec = np.asarray(spectrum)
+    if spec.size != plans.n:
+        raise ValueError(f"spectrum must hold n={plans.n} values, got "
+                         f"{spec.shape}")
+    dg = (spec.astype(np.int64) % q).reshape(k, A, R, 1, n2)
+    k2f, k2i = _fold_blocks(plans)
+    # K2f's columns scaled by the diagonal, then through K2i
+    blocks = _matmul_mod(k2f * dg % q, k2i, q)       # (k, A, R, n2, n2)
+    F = np.zeros((k, A, TW, TW), dtype=np.int64)
+    for r in range(R):
+        F[:, :, r * n2:(r + 1) * n2, r * n2:(r + 1) * n2] = blocks[:, :, r]
+    W = np.empty((k, A, p.din, TW, p.Dout * TW), dtype=np.int8)
+    mw = np.zeros((p.din, p.Dout), dtype=np.int64)
+    for i in range(p.din):
+        Fi = F * pow(p.base, i, q) % q
+        Fc = np.where(Fi > q // 2, Fi - q, Fi)
+        for jd, dig in enumerate(_balanced_digits(Fc, p.Dout)):
+            W[:, :, i, :, jd * TW:(jd + 1) * TW] = dig
+            mw[i, jd] = np.abs(dig).max()
+    # plan soundness: the digits sit inside the worst case p2x covers
+    assert (mw <= p.mw_wc).all(), \
+        "folded-matrix digits exceed the worst-case SP plan"
+    colsum = F.sum(axis=-2) % q
+    const = ((p.off % q) * colsum - _group_bias(p.groups, p.bounds, q)) % q
+    return W, const.astype(np.uint32).reshape(k, A, 1, TW)
+
+
+# ----------------------------------------------------------------------
 # Carried across from a JAX plan bundle.
 # ----------------------------------------------------------------------
 
@@ -405,3 +478,15 @@ def from_jax_fourstep_plans(plans) -> SpPlans:
     p2x = FoldPlan(**{a: _copy(getattr(plans.p2x, a)) for a in FOLD_FIELDS})
     ps = ParamSet(name=f["name"], n=f["n"], q=q)
     return SpPlans(ps=ps, t1=t1, rolls=rolls, p2x=p2x, **digit, **f)
+
+
+def from_jax_fourstep_fold_tables(W, c):
+    """JAX's per-constant (W, const) pair of ``fourstep_fold_tables`` as the
+    port's numpy pair."""
+    W, c = np.array(W), np.array(c)
+    if W.dtype != np.int8 or W.ndim != 5 or c.dtype != np.uint32 or \
+            c.shape != (*W.shape[:2], 1, W.shape[3]):
+        raise ValueError(f"expected int8 (k, A, din, TW, Dout*TW) and uint32 "
+                         f"(k, A, 1, TW), got {W.dtype} {W.shape} and "
+                         f"{c.dtype} {c.shape}")
+    return W, c

@@ -8,9 +8,11 @@ changed).  In the order old, new, new, old a fresh Python process imports
 that tree's ``qtesla_tpu_torch``, builds its kernels into that tree's
 ``build/`` and times, at qtesla-iii-speed, B = 32768, on the same seeded
 operands (CUDA events, 3 warmup then 20 timed calls each): B5-B9, or with
-``--sp K`` the sequence-parallel segments B11, B12, B16 at model axis K
-(shards (K, 32768, 1024 / K)).  It prints each run's medians and, per kernel, the median
-of each tree's 40 calls and the new/old ratio.  It needs a CUDA device.
+``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
+(K, 32768, 1024 / K); B13-B15 where both trees have them, against the
+spectrum of y's first row).  It prints each run's medians and, per kernel,
+the median of each tree's 40 calls and the new/old ratio.  It needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ __all__ = ["main"]
 
 MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "intt_mxu",
                "polymul_fixed_folded_mxu")
-SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3")
+SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
+              "sp_seg2_folded")
 
 _RUN = """
 import json, sys
@@ -50,6 +53,15 @@ if {sp}:
     w = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
     runs = {{"sp_seg1": (S.sp_seg1, sx), "sp_seg2": (S.sp_seg2, vx, vy),
             "sp_seg3": (S.sp_seg3, w)}}
+    if hasattr(S, "sp_seg2_fixed"):
+        from qtesla_tpu_torch.parallel.sharded_mxu_tables import (
+            fourstep_fold_tables)
+        aspec = S.fixed_spectrum(y[0], plans)
+        fold = S.fold_sp_operand(*fourstep_fold_tables(
+            plans, aspec.cpu().numpy()), "cuda")
+        runs.update({{"sp_seg2_fixed": (S.sp_seg2_fixed, vx, aspec),
+                     "sp_seg2_fwd": (S.sp_seg2_fwd, vx),
+                     "sp_seg2_folded": (S.sp_seg2_folded, vx, fold)}})
 else:
     args = mt
     spec = M.ntt_mxu(y[:1], mt)
@@ -82,16 +94,21 @@ def main(argv: list[str]) -> int:
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    kernels = SP_KERNELS if sp else MXU_KERNELS
     trees = {"old": Path(argv[0]).resolve(), "new": Path(argv[1]).resolve()}
-    samples = {t: {k: [] for k in kernels} for t in trees}
+    runs = []
     for which in ("old", "new", "new", "old"):
         res = _run(trees[which], sp)
+        runs.append((which, res))
+        print(f"{which} ({trees[which]}): " + ", ".join(
+            f"{k} {statistics.median(v):.4f}" for k, v in res.items()) +
+            " ms", flush=True)
+    # the kernels both trees have
+    kernels = [k for k in (SP_KERNELS if sp else MXU_KERNELS)
+               if all(k in res for _, res in runs)]
+    samples = {t: {k: [] for k in kernels} for t in trees}
+    for which, res in runs:
         for k in kernels:
             samples[which][k].extend(res[k])
-        print(f"{which} ({trees[which]}): " + ", ".join(
-            f"{k} {statistics.median(res[k]):.4f}" for k in kernels) + " ms",
-            flush=True)
     for k in kernels:
         old, new = (statistics.median(samples[t][k]) for t in ("old", "new"))
         print(f"{k}: old {old:.4f} ms, new {new:.4f} ms, new/old "

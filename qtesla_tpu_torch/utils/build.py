@@ -54,7 +54,8 @@ LAUNCHERS = {
     "qt_polymul_fixed_folded_mxu": _MXU,
     **{f"qt_polymul_pairing_{p}": _FUSED
        for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
-    "qt_sp_seg1": _SP, "qt_sp_seg2": _SP, "qt_sp_seg3": _SP,
+    **{f"qt_sp_seg{s}": _SP
+       for s in ("1", "2", "2_fixed", "2_fwd", "2_folded", "3")},
 }
 
 

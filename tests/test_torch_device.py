@@ -2,7 +2,7 @@
 
 - ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
 - The wrappers (fused B1-B4, digit-matmul B5-B9, pairings B10 and the
-  sequence-parallel segments B11, B12, B16) raise on
+  sequence-parallel segments B11-B16) raise on
   a wrong dtype, a wrong n, a non-contiguous tensor, an unsupported device
   and an unsupported algo; nothing is built at import and a missing nvcc
   raises instead of falling back.  Editing a header changes the build's
@@ -35,7 +35,8 @@ from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import make_mesh
 from qtesla_tpu_torch.parallel import sharded_mxu as S
-from qtesla_tpu_torch.parallel.sharded_mxu_tables import fourstep_mxu_plans
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import (fourstep_fold_tables,
+                                                         fourstep_mxu_plans)
 from qtesla_tpu_torch.utils import build
 
 REPO = Path(__file__).resolve().parent.parent
@@ -195,7 +196,8 @@ def test_cpu_runs_launch_no_kernel():
     assert set(M.KERNELS) == {"polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
                               "intt_mxu", "polymul_fixed_folded_mxu"}
     assert set(P.KERNELS) == {f"polymul_pairing_{p}" for p in _PAIRING_NAMES}
-    assert set(S.KERNELS) == {"sp_seg1", "sp_seg2", "sp_seg3"}
+    assert set(S.KERNELS) == {"sp_seg1", "sp_seg2", "sp_seg2_fixed",
+                              "sp_seg2_fwd", "sp_seg2_folded", "sp_seg3"}
     kernels = [*F.KERNELS.values(), *M.KERNELS.values(), *P.KERNELS.values(),
                *S.KERNELS.values()]
     for k in kernels:
@@ -222,6 +224,11 @@ def test_cpu_runs_launch_no_kernel():
         x, y)
     pipe, plans = S.local_pipeline_fn("smallprime", 2)
     pipe(x[:, :plans.nloc].contiguous(), y[:, :plans.nloc].contiguous())
+    cpu2 = make_mesh(model=2, device="cpu")
+    prep, mul = S.polymul_fixed_fourstep_mxu_fn("smallprime", cpu2)
+    mul(x, prep(y[0]))
+    prep, mul = S.polymul_fixed_folded_fourstep_mxu_fn("smallprime", cpu2)
+    mul(x, *prep(y[0]))
     assert all(k.launches == 0 for k in kernels)
 
 
@@ -337,12 +344,19 @@ SP_CASES = [(name, k) for name in SETS for k in (2, 4, 8)
 def test_sp_plan_matches_kernel_limits(name, k):
     """Every SP plan fits the segment kernels: at most 4 classes and 6
     planes, class bounds below 2^24, tiles of 8..128 lanes, depths padded
-    to 32, and seg2's rows split evenly between x and y."""
+    to 32, and seg2's rows split evenly between x and y; the fixed (B13),
+    forward (B14), folded (B15) and p3x segments too."""
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
-    for seg, digit in ((1, [plans.p1]), (2, [plans.p2f, plans.p2i]),
-                       (3, [plans.p3])):
+    assert set(S.SEGMENTS) == set(S.KERNELS) | {"sp_seg3 p3x"}
+    for seg, digit in (("sp_seg1", [plans.p1]),
+                       ("sp_seg2", [plans.p2f, plans.p2i]),
+                       ("sp_seg3", [plans.p3]),
+                       ("sp_seg2_fixed", [plans.p2f, plans.p2i]),
+                       ("sp_seg2_fwd", [plans.p2f]),
+                       ("sp_seg2_folded", [plans.p2x]),
+                       ("sp_seg3 p3x", [plans.p3x])):
         plan = S.plan_for(plans, seg)
-        assert plan.rows % (2 if seg == 2 else 1) == 0
+        assert plan.rows % (2 if seg == "sp_seg2" else 1) == 0
         assert 0 < plan.rows <= 32 and plan.rows * plans.nloc * 4 <= 128 << 10
         assert (plan.nloc, plan.tw, plan.a, plan.lr) == (
             plans.nloc, plans.TW, plans.A, plans.Lr)
@@ -352,7 +366,7 @@ def test_sp_plan_matches_kernel_limits(name, k):
             assert din == p.din <= 6 and kp % 32 == 0
             assert din * plans.TW <= kp < din * plans.TW + 32
             assert max(p.bounds) < 1 << 24
-        if seg != 2:
+        if len(digit) == 1:
             assert (plan.din2, plan.kp2) == (0, 0)
     assert 8 <= plans.TW <= 128
 
@@ -536,7 +550,8 @@ def test_sp_kernels_match_plain_on_card(cuda_device, name):
                                               want.cpu().numpy())
             assert {s: v.launches - before[s]
                     for s, v in S.KERNELS.items()} == {
-                "sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1}
+                "sp_seg1": 2, "sp_seg2": 1, "sp_seg2_fixed": 0,
+                "sp_seg2_fwd": 0, "sp_seg2_folded": 0, "sp_seg3": 1}
             xy = torch.from_numpy(rng.integers(0, q, (2, batch, n),
                                                dtype=np.uint32)).to(
                 cuda_device)
@@ -544,3 +559,61 @@ def test_sp_kernels_match_plain_on_card(cuda_device, name):
                                                                      xy[1])
             np.testing.assert_array_equal(
                 z.cpu().numpy(), F.polymul_fused(xy[0], xy[1], tbl).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_sp_fixed_kernels_match_plain_on_card(cuda_device, name):
+    """B13, B14, B15 and B16 under p3x against their twins for every model
+    axis the set's split takes, B13 and B15 for a random, an all-0 and an
+    all-(q-1) spectrum; both fixed paths equal B4 and each other."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(25)
+    for k in (2, 4, 8):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        mesh = make_mesh(model=k)
+        spectra = [torch.from_numpy(v).to(cuda_device) for v in (
+            rng.integers(0, q, (k, plans.nloc), dtype=np.uint32),
+            np.zeros((k, plans.nloc), dtype=np.uint32),
+            np.full((k, plans.nloc), q - 1, dtype=np.uint32))]
+        folds = [S.fold_sp_operand(*fourstep_fold_tables(
+            plans, s.cpu().numpy()), cuda_device) for s in spectra]
+        for batch in (1, 3, 64):
+            x = rng.integers(0, q, (k, batch, plans.nloc), dtype=np.uint32)
+            x[:, 0] = q - 1
+            x = torch.from_numpy(x).to(cuda_device)
+            before = {s: v.launches for s, v in S.KERNELS.items()}
+            pairs = [(S.sp_seg2_fwd(x, plans), S.seg2_fwd_plain(x, plans)),
+                     (S.sp_seg3(x, plans, folded=True),
+                      S.seg3_plain(x, plans, folded=True))]
+            for spec, fold in zip(spectra, folds):
+                pairs += [(S.sp_seg2_fixed(x, spec, plans),
+                           S.seg2_fixed_plain(x, spec, plans)),
+                          (S.sp_seg2_folded(x, fold, plans),
+                           S.seg2_folded_plain(x, fold, plans))]
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+            assert {s: v.launches - before[s]
+                    for s, v in S.KERNELS.items()} == {
+                "sp_seg1": 0, "sp_seg2": 0, "sp_seg2_fixed": 3,
+                "sp_seg2_fwd": 1, "sp_seg2_folded": 3, "sp_seg3": 1}
+            xs = torch.from_numpy(rng.integers(0, q, (2, batch, n),
+                                               dtype=np.uint32)).to(
+                cuda_device)
+            a = xs[1, 0].contiguous()
+            want = F.polymul_fixed_fused(xs[0], F.ntt_fused(a[None], tbl), tbl)
+            prep, mul = S.polymul_fixed_fourstep_mxu_fn(name, mesh)
+            z = mul(xs[0], prep(a))
+            prep, mul = S.polymul_fixed_folded_fourstep_mxu_fn(name, mesh)
+            zx = mul(xs[0], *prep(a))
+            for got in (z, zx):
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
