@@ -25,7 +25,12 @@ script exits non-zero without printing a result:
    spectrum and the all-0 and all-(q-1) ones, B15 against their folded
    tables, B16 also under p3x; the whole SP path equals B1, and the fixed
    and folded SP paths equal B4 and each other.  The folded SP prepare's
-   host seconds (B11, B14, fourstep_fold_tables, copies) are printed.
+   host seconds (B11, B14, fourstep_fold_tables, copies) are printed.  The
+   class-boundary kernels B17 and B18 for smallprime, qtesla-i and
+   qtesla-iii-speed at every k the split takes and n = 8192 at k = 4, on
+   random and all-(q-1) shards, B18 on B17's own output after the
+   exchange; the class path equals B1 and the SP path; building it for the
+   four-class qtesla-p-i and qtesla-p-iii raises.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -35,11 +40,12 @@ script exits non-zero without printing a result:
    twice, B12, B16) and the fixed-operand SP pairs
    polymul_fixed_fourstep_mxu_fn (prepare B11, B14; multiply B11, B13, B16)
    and polymul_fixed_folded_fourstep_mxu_fn (prepare B11, B14; multiply
-   B11, B15, B16 under p3x), with every launch count reset just before and
-   read just after (EXPECTED_LAUNCHES); the outputs must equal the plain
-   versions on the card and each other (the fixed ones B4 and B8), and 8
-   rows of the mxu, the folded and the three SP products the big-int
-   oracle.
+   B11, B15, B16 under p3x), and the class-boundary SP path
+   polymul_fourstep_mxu_classes_fn (B17 twice, B18, B16), with every launch
+   count reset just before and read just after (EXPECTED_LAUNCHES); the
+   outputs must equal the plain versions on the card and each other (the
+   fixed ones B4 and B8), and 8 rows of the mxu, the folded and the four SP
+   products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x); then the whole SP path and
@@ -47,7 +53,10 @@ script exits non-zero without printing a result:
    with the SP cost per shard k * t_local / t_B5 and k * t_local / t_B1;
    then both fixed SP paths and one shard's fixed and folded work
    (local_fixed_pipeline_fn) at k in {2, 4, 8}, k * t_local / t_B8 and
-   k * t_local / t_B4.
+   k * t_local / t_B4; then the class path beside the SP path, one shard's
+   class work (local_pipeline_classes_fn) at k in {2, 4, 8} beside
+   local_pipeline_fn's, and the class exchange (Dout planes a coefficient)
+   against the SP path's.
 
 It prints a JSON line of the kernels (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
@@ -70,10 +79,12 @@ import torch
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
 from qtesla_tpu_torch.models import (intt, local_fixed_pipeline_fn,
+                                     local_pipeline_classes_fn,
                                      local_pipeline_fn, make_mesh,
                                      polymul_fixed_fn,
                                      polymul_fixed_folded_fourstep_mxu_fn,
                                      polymul_fixed_fourstep_mxu_fn,
+                                     polymul_fourstep_mxu_classes_fn,
                                      polymul_fourstep_mxu_fn,
                                      polymul_negacyclic)
 from qtesla_tpu_torch.ops import ntt_fused as F
@@ -81,8 +92,10 @@ from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
-from qtesla_tpu_torch.parallel.sharded_mxu_tables import (fourstep_fold_tables,
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
+                                                         fourstep_fold_tables,
                                                          fourstep_mxu_plans)
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
 from qtesla_tpu_torch.utils.timing import time_cuda
@@ -97,14 +110,20 @@ WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
 # the sequence-parallel path's model axis on the main path
 SP_K = 4
 # every kernel: (registry entry, CUDA source)
-KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P, S)
+KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P, S, C)
            for name, k in mod.KERNELS.items()}
 # launches the main path makes: B6 prepares both single-transform fixed
 # forms; B11 runs on both operands of the SP product, on the constant in each
 # fixed SP prepare and on x in each fixed SP multiply; B14 in each fixed SP
-# prepare; B16 ends all three SP products (under p3x in the folded one)
+# prepare; B17 on both operands of the class-boundary product; B16 ends all
+# four SP products (under p3x in the folded one)
 EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
-    "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 3}
+    "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 4,
+    "sp_seg1_classes": 2}
+# the sets of at most 3 digit classes whose class path phase 2 checks; the
+# four-class sets must refuse it
+CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
+FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -378,6 +397,76 @@ def sp_against_plain(errors: dict) -> None:
     done()
 
 
+def classes_against_plain(errors: dict) -> None:
+    """B17 and B18 against their twins at every k of the three-class sets
+    and n = 8192 (k = 4), B18 on B17's own output after the exchange; the
+    class path against B1 and the SP path; the four-class sets refuse it."""
+    cases = [(name, k) for name in CLASS_SETS
+             for k in (2, 4, 8)] + [(WIDE_SET[0], 4)]
+    for name, k in cases:
+        try:
+            plans = fourstep_mxu_plans(name, _n1(name), k)
+        except ValueError as e:
+            print(f"{name} k={k}: no SP split ({e})")
+            continue
+        start = time.perf_counter()
+        cp = class_boundary_plan(name, plans.n1, k)
+        plan_s = time.perf_counter() - start
+        tbl = get_tables(name)
+        q, n, nloc = tbl.q, tbl.n, plans.nloc
+        mesh = make_mesh(model=k)
+        fn = polymul_fourstep_mxu_classes_fn(name, mesh)
+        sp = polymul_fourstep_mxu_fn(name, mesh)
+        rng = np.random.default_rng(SEED)
+        for B in SMALL_BATCHES:
+            for kind in ("random", "worst"):
+                if kind == "random":
+                    xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+                else:
+                    xs = np.full((2, B, n), q - 1, dtype=np.uint32)
+                x, y = (_u32(v) for v in xs)
+                tag = f"{name} k={k} B={B} {kind}"
+                sx, sy = (S.to_shards(t, plans) for t in (x, y))
+                ux, uy = (C.sp_seg1_classes(t, plans, cp) for t in (sx, sy))
+                _record(errors, "sp_seg1_classes", f"B17 {tag}", ux,
+                        C.seg1_classes_plain(sx, plans, cp))
+                ux, uy = (C.a2a_fwd_classes(t, plans, cp.Dout)
+                          for t in (ux, uy))
+                _record(errors, "sp_seg2_classes", f"B18 {tag}",
+                        C.sp_seg2_classes(ux, uy, plans, cp),
+                        C.seg2_classes_plain(ux, uy, plans, cp))
+                got = fn(x, y)
+                expect_equal(f"class path == B1 {tag}", got,
+                             F.polymul_fused(x, y, tbl))
+                expect_equal(f"class path == SP path {tag}", got, sp(x, y))
+        full = _u32(np.full((k, 3, nloc), q - 1, dtype=np.uint32))
+        u = C.sp_seg1_classes(full, plans, cp)
+        _record(errors, "sp_seg1_classes",
+                f"B17 {name} k={k} all q-1 shards", u,
+                C.seg1_classes_plain(full, plans, cp))
+        _record(errors, "sp_seg2_classes",
+                f"B18 {name} k={k} on B17's all q-1 output",
+                C.sp_seg2_classes(u, u, plans, cp),
+                C.seg2_classes_plain(u, u, plans, cp))
+        p2 = C.plan_for(plans, cp, "sp_seg2_classes")
+        print(f"{name} k={k} (class plan {plan_s:.1f} s: Dout={cp.Dout}, "
+              f"dins={cp.dins}, class bounds {cp.bounds}, B18 depth "
+              f"{p2.kp1}, rows/block B17 "
+              f"{C.plan_for(plans, cp, 'sp_seg1_classes').rows} B18 "
+              f"{p2.rows}): B17 and B18 equal to plain for B in "
+              f"{SMALL_BATCHES}, random, worst-case and all-(q-1) shards; "
+              f"class path == B1 == SP path", flush=True)
+    for name in FOUR_CLASS_SETS:
+        try:
+            polymul_fourstep_mxu_classes_fn(name, make_mesh(model=4))
+        except ValueError as e:
+            print(f"{name}: building the class path raises, as it must: {e}")
+        else:
+            raise AssertionError(f"{name}: the class path was built for "
+                                 f"four digit classes")
+    done()
+
+
 def main_path(errors: dict, seed: int) -> dict:
     ps = get_params(MAIN_SET)
     tbl = get_tables(MAIN_SET)
@@ -396,6 +485,7 @@ def main_path(errors: dict, seed: int) -> dict:
     sp = polymul_fourstep_mxu_fn(MAIN_SET, mesh)
     sp_fixed = polymul_fixed_fourstep_mxu_fn(MAIN_SET, mesh)
     sp_folded = polymul_fixed_folded_fourstep_mxu_fn(MAIN_SET, mesh)
+    sp_classes = polymul_fourstep_mxu_classes_fn(MAIN_SET, mesh)
     done()
 
     for k, _ in KERNELS.values():
@@ -417,6 +507,7 @@ def main_path(errors: dict, seed: int) -> dict:
     z_spf = sp_fixed[1](x, a_sp)
     a_spx = sp_folded[0](a)
     z_spx = sp_folded[1](x, *a_spx)
+    z_cls = sp_classes(x, y)
     done()
     launches = {name: k.launches for name, (k, _) in KERNELS.items()}
     print(f"launches in the main-path run: {launches}")
@@ -499,11 +590,26 @@ def main_path(errors: dict, seed: int) -> dict:
     _record(errors, "sp_seg2_folded", "B15 at the main path's shapes",
             S.sp_seg2_folded(v, a_spx, plans),
             S.seg2_folded_plain(v, a_spx, plans))
+    # the class-boundary path, then its two kernels at its shapes
+    cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
+    expect_canonical("z class SP", z_cls, (B, n), q)
+    expect_equal("class path == B1 on the main path", z_cls, out["fused"][0])
+    expect_equal("class path == SP path on the main path", z_cls, z_sp)
+    expect_equal("class path against its plain path", z_cls,
+                 C.polymul_fourstep_mxu_classes_plain(x, y, plans, cp))
+    sy = S.to_shards(y, plans)
+    ux, uy = (C.sp_seg1_classes(t, plans, cp) for t in (sx, sy))
+    _record(errors, "sp_seg1_classes", "B17 at the main path's shapes", ux,
+            C.seg1_classes_plain(sx, plans, cp))
+    ux, uy = (C.a2a_fwd_classes(t, plans, cp.Dout) for t in (ux, uy))
+    _record(errors, "sp_seg2_classes", "B18 at the main path's shapes",
+            C.sp_seg2_classes(ux, uy, plans, cp),
+            C.seg2_classes_plain(ux, uy, plans, cp))
     done()
     print(f"main path: z and the fixed-operand products ({B} x {n}) of every "
           f"algo (mxu, fused, mxu-folded, the five pairing kernels, the SP "
-          f"path and the fixed and folded SP pairs at k={SP_K}) equal the "
-          f"plain versions and each other on the card")
+          f"path, the fixed and folded SP pairs and the class path at "
+          f"k={SP_K}) equal the plain versions and each other on the card")
 
     rows = [(name, *(np.concatenate([t[:4].cpu().numpy(),
                                      t[-4:].cpu().numpy()])
@@ -513,7 +619,8 @@ def main_path(errors: dict, seed: int) -> dict:
                 ("mxu-folded", z_folded, a.expand(B, n)),
                 (f"SP k={SP_K}", z_sp, y),
                 (f"fixed SP k={SP_K}", z_spf, a.expand(B, n)),
-                (f"folded SP k={SP_K}", z_spx, a.expand(B, n)))]
+                (f"folded SP k={SP_K}", z_spx, a.expand(B, n)),
+                (f"class SP k={SP_K}", z_cls, y))]
     for name, zc, xc, yc in rows:
         for i, row in enumerate(ORACLE_ROWS):
             want = polymul_negacyclic_oracle(xc[i], yc[i], ps).astype(
@@ -590,6 +697,14 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
                                                       st.c2i), m2f + m2i)
     work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2f, st.c2f), m2f)
     work["sp_seg2_folded"] = (2 * row + _nbytes(*sp_fold), mx)
+    # B17 writes Dout class planes a value; B18 reads them for x and y
+    cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
+    w2c, c2c = C.host_class_tables(cp)
+    D = cp.Dout
+    work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1) + sp_tw, m1)
+    work["sp_seg2_classes"] = (
+        (2 * D + 1) * row + _nbytes(w2c, c2c, st.w2i, st.c2i),
+        2 * _sp_macs(w2c, sum(cp.dins), B, plans) + m2i)
     return work
 
 
@@ -635,6 +750,9 @@ def timing(device_line: str) -> dict:
     sw = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
     aspec = S.fixed_spectrum(y[0], plans)
     fold = _fold(plans, aspec)
+    cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
+    ux, uy = (C.a2a_fwd_classes(C.sp_seg1_classes(t, plans, cp), plans,
+                                cp.Dout) for t in (sx, sy))
     runs = {
         "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
         "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
@@ -663,6 +781,10 @@ def timing(device_line: str) -> dict:
         "sp_seg3 p3x": (functools.partial(S.sp_seg3, folded=True),
                         functools.partial(S.seg3_plain, folded=True),
                         (sw, plans)),
+        "sp_seg1_classes": (C.sp_seg1_classes, C.seg1_classes_plain,
+                            (sx, plans, cp)),
+        "sp_seg2_classes": (C.sp_seg2_classes, C.seg2_classes_plain,
+                            (ux, uy, plans, cp)),
     }
     work = kernel_work(B, fold)
     out = {}
@@ -691,6 +813,7 @@ def timing(device_line: str) -> dict:
     sp = polymul_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))
     res = _turns(sp, lambda a, b: S.polymul_fourstep_mxu_plain(a, b, plans),
                  (x, y))
+    sp_med = res["kernel"][1]
     print(f"timing SP path k={SP_K} (2 x B11, B12, B16, 3 exchanges and the "
           f"shard layout): median {res['kernel'][1]:.4f} ms, plain "
           f"{res['plain'][1]:.4f} ms; B5 {med['polymul_mxu']:.4f}, B1 "
@@ -737,6 +860,42 @@ def timing(device_line: str) -> dict:
                   f" k*t_local/t_B4 = "
                   f"{k * tl / med['polymul_fixed_fused']:.3f} "
                   f"[{device_line}]", flush=True)
+
+    # the class path end to end, one shard's class work at each k, and the
+    # class exchange against the SP path's
+    classes = polymul_fourstep_mxu_classes_fn(MAIN_SET, make_mesh(model=SP_K))
+    res = _turns(classes, lambda a, b: C.polymul_fourstep_mxu_classes_plain(
+        a, b, plans, cp), (x, y))
+    print(f"timing class path k={SP_K} (2 x B17, B18, B16, 3 exchanges, the "
+          f"first of {cp.Dout} planes, and the shard layout): median "
+          f"{res['kernel'][1]:.4f} ms, plain {res['plain'][1]:.4f} ms; SP "
+          f"path {sp_med:.4f}, B17 {med['sp_seg1_classes']:.4f}, B18 "
+          f"{med['sp_seg2_classes']:.4f}, B11 {med['sp_seg1']:.4f}, B12 "
+          f"{med['sp_seg2']:.4f} [{device_line}]", flush=True)
+    for k in (2, 4, 8):
+        times = {}
+        for what, make in (("classes", local_pipeline_classes_fn),
+                           ("SP", local_pipeline_fn)):
+            pipe, lp = make(MAIN_SET, k)[:2]
+            xl, yl = (t[:, :lp.nloc].contiguous() for t in (x, y))
+            times[what] = time_cuda(pipe, xl, yl, warmup=3,
+                                    repeats=20).median_ms
+        tl = times["classes"]
+        print(f"timing local_pipeline_classes_fn k={k}: B={B} nloc={lp.nloc} "
+              f"median {tl:.4f} ms (local_pipeline_fn {times['SP']:.4f}); SP "
+              f"cost per shard k*t_local/t_B5 = "
+              f"{k * tl / med['polymul_mxu']:.3f}, k*t_local/t_B1 = "
+              f"{k * tl / med['polymul_fused']:.3f} [{device_line}]",
+              flush=True)
+    v1 = S.sp_seg1(sx, plans)
+    u1 = C.sp_seg1_classes(sx, plans, cp)
+    t_sp, t_cls = (time_cuda(f, t, warmup=3, repeats=20).median_ms
+                   for f, t in ((lambda t: S.a2a_fwd(t, plans), v1),
+                                (lambda t: C.a2a_fwd_classes(t, plans,
+                                                             cp.Dout), u1)))
+    print(f"timing exchange on one card: a2a_fwd_classes {t_cls:.4f} ms "
+          f"({_nbytes(u1) / 1e6:.0f} MB), a2a_fwd {t_sp:.4f} ms "
+          f"({_nbytes(v1) / 1e6:.0f} MB) [{device_line}]", flush=True)
     done()
     return out
 
@@ -772,6 +931,7 @@ def main() -> int:
     errors = {name: 0 for name in KERNELS}
     kernels_against_plain(errors)
     sp_against_plain(errors)
+    classes_against_plain(errors)
 
     phase("3 main path at full size")
     launches = main_path(errors, SEED)

@@ -15,6 +15,7 @@ from .parallel import (  # noqa: F401
     make_mesh,
     polymul_fixed_folded_fourstep_mxu_fn,
     polymul_fixed_fourstep_mxu_fn,
+    polymul_fourstep_mxu_classes_fn,
     polymul_fourstep_mxu_fn,
     polymul_fourstep_sharded_fn,
 )

@@ -28,6 +28,12 @@
 // recombination adds 2^24 to each c_j, takes one Shoup product by 2^{8j} mod
 // q per class and starts from const + kb, kb = group_bias - 2^24 * sum_j
 // 2^{8j} mod q, folded on the host.  Outputs are canonical.
+//
+// block_matmul is three phases that also serve apart: split_block (the
+// split), mma_classes (the products over K, ending in an epilogue it is
+// given per output tile) and recombine_tile (the epilogue above).  sharded_classes.cu stores the
+// raw class sums instead (B17) and fills one K dimension from several
+// split sources (B18).
 #pragma once
 
 #include <cstdint>
@@ -131,6 +137,150 @@ __device__ inline void inv_wide(uint32_t* data, int rows, int logm, int llanes,
     }
 }
 
+// Columns kin .. K-1 of `rows` rows of digit planes (row stride ks) meet
+// the zero columns that pad a table's depth to K; zero them too.
+__device__ inline void zero_depth_pad(int8_t* planes, int rows, int ks,
+                                      int kin, int K) {
+    for (int idx = threadIdx.x; idx < rows * (K - kin); idx += blockDim.x) {
+        const int r = idx / (K - kin);
+        planes[r * ks + kin + idx - r * (K - kin)] = 0;
+    }
+}
+
+// The split phase: block b (bw lanes) of `rows` rows of `len` values into
+// din balanced planes of base 2^lb, plane i of row r at
+// planes[r * ks + i * bw + k].  Every input must lie below the split's bound.
+__device__ inline void split_block(const uint32_t* data, int rows, int len,
+                                   int bw, int b, int8_t* planes, int ks,
+                                   int din, int lb, uint32_t add) {
+    const int lbw = __ffs(bw) - 1;
+    const int low_mask = (1 << lb) - 1, half_base = 1 << (lb - 1);
+    for (int idx = threadIdx.x; idx < rows * bw; idx += blockDim.x) {
+        const int r = idx >> lbw, k = idx & (bw - 1);
+        const int32_t a =
+            static_cast<int32_t>(data[r * len + b * bw + k] + add);
+        int8_t* pr = planes + r * ks + k;
+        for (int i = 0; i < din - 1; ++i)
+            pr[i * bw] = static_cast<int8_t>(
+                ((a >> (lb * i)) & low_mask) - half_base);
+        pr[(din - 1) * bw] = static_cast<int8_t>(a >> (lb * (din - 1)));
+    }
+}
+
+// The MMA core: `rows` rows of digit planes (row stride ks, depth K) against
+// one block's table wb (d * bw, K).  Each warp takes 8-lane output tiles lt
+// and hands each tile's int32 class sums (exact) to the epilogue,
+// epi(lt, acc): accumulator e of tile mm holds class j of row
+// mm*16 + g (+8 for e >= 2), lane lt*8 + tig*2 + (e & 1), with g and tig
+// the thread's lane / 4 and lane % 4 (tile_row, tile_lane).
+template <class Epi>
+__device__ __forceinline__ void mma_classes(const int8_t* planes, int rows,
+                                            int ks,
+                                            const int8_t* __restrict__ wb,
+                                            int K, int bw, int d, Epi&& epi) {
+    const int mt = (rows + 15) >> 4;
+    const int nwarps = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    for (int lt = warp; lt < (bw >> 3); lt += nwarps) {
+        int acc[2][kMaxClasses][4];
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+            for (int j = 0; j < kMaxClasses; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[mm][j][e] = 0;
+        // K in chunks of kSteps 32-deep steps: every B fragment of a chunk
+        // is requested before its first MMA, so a warp keeps d * kSteps
+        // table loads in flight
+        for (int k0 = 0; k0 < K; k0 += 32 * kSteps) {
+            uint2 bf[kSteps][kMaxClasses];
+#pragma unroll
+            for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+                for (int j = 0; j < kMaxClasses; ++j)
+                    if (j < d && k0 + st * 32 < K)
+                        bf[st][j] = __ldg(reinterpret_cast<const uint2*>(
+                            wb + static_cast<size_t>(j * bw + lt * 8 + g) * K +
+                            k0 + st * 32 + tig * 8));
+#pragma unroll
+            for (int st = 0; st < kSteps; ++st) {
+                if (k0 + st * 32 >= K) break;
+                uint2 a[2][2];
+#pragma unroll
+                for (int mm = 0; mm < 2; ++mm) {
+                    if (mm < mt) {
+                        const int8_t* pa = planes + (mm * 16 + g) * ks + k0 +
+                                           st * 32 + tig * 8;
+                        a[mm][0] = *reinterpret_cast<const uint2*>(pa);
+                        a[mm][1] = *reinterpret_cast<const uint2*>(pa + 8 * ks);
+                    }
+                }
+#pragma unroll
+                for (int j = 0; j < kMaxClasses; ++j)
+                    if (j < d)
+#pragma unroll
+                        for (int mm = 0; mm < 2; ++mm)
+                            if (mm < mt)
+                                mma_s8(acc[mm][j], a[mm][0], a[mm][1],
+                                       bf[st][j]);
+            }
+        }
+        epi(lt, acc);
+    }
+}
+
+// v, the same in every lane of the warp, as ptxas can prove it: read back
+// from lane 0.  A branch on a uniform value then needs no convergence
+// barrier; without it ptxas put a BSSY/BSYNC pair around each class of the
+// recombination (32 per tile) and B11, B15 and B16 ran 2-6 % slower on an
+// H100 (utils/ab_timing.py, PERF.md).  Every lane must be active.
+__device__ __forceinline__ int warp_uniform(int v) {
+    return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// Row and lane of accumulator e of tile mm in output tile lt (mma_classes).
+__device__ __forceinline__ int tile_row(int mm, int e) {
+    return mm * 16 + ((threadIdx.x & 31) >> 2) + ((e >> 1) << 3);
+}
+__device__ __forceinline__ int tile_lane(int lt, int e) {
+    return lt * 8 + (threadIdx.x & 3) * 2 + (e & 1);
+}
+
+// The recombination epilogue of one output tile: for each of its rows
+// r < rows, out[r * len + o] = const + kb (< 2q) plus, per class j < d, one
+// Shoup product of c_j + 2^24 by 2^{8j} mod q; canonical.  Block b's const
+// row is cb.
+template <class Plan>
+__device__ __forceinline__ void recombine_tile(
+    uint32_t* out, int rows, int len, int lt,
+    const int (&acc)[2][kMaxClasses][4], const uint32_t* __restrict__ cb,
+    uint32_t kb, const Plan& p) {
+    const int d = warp_uniform(p.d), mt = (rows + 15) >> 4;
+    const uint32_t q = p.q, q2 = 2u * q;
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int r = tile_row(mm, e);
+            const int o = tile_lane(lt, e);
+            if (mm < mt && r < rows) {
+                uint32_t v = __ldg(cb + o) + kb;                      // < 2q
+#pragma unroll
+                for (int j = 0; j < kMaxClasses; ++j) {
+                    if (j < d) {
+                        const uint32_t t =
+                            static_cast<uint32_t>(acc[mm][j][e]) + kClassBias;
+                        v = csub(v + shoup_lazy(t, p.pw[j], p.pw_sh[j], q),
+                                 q2);                                 // < 2q
+                    }
+                }
+                out[r * len + o] = csub(v, q);
+            }
+        }
+    }
+}
+
 // The block matmul of `rows` rows of `len` values, in place: per block of
 // bw lanes (nb blocks), digit split into `planes` (row stride ks >= K),
 // int8 MMA against the block's table, recombination into canonical
@@ -144,105 +294,16 @@ __device__ void block_matmul(uint32_t* data, int rows, int len, int bw, int nb,
                              int K, const uint32_t* __restrict__ cst,
                              int c_step, int din, int lb, uint32_t add,
                              uint32_t kb, const Plan& p) {
-    const int d = p.d, kin = din * bw;
-    const int lbw = __ffs(bw) - 1;
-    const int mt = (rows + 15) >> 4;
-    const int nwarps = blockDim.x >> 5;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, tig = lane & 3;
-    const uint32_t q = p.q, q2 = 2u * q;
-    const int low_mask = (1 << lb) - 1, half_base = 1 << (lb - 1);
-    // the depth padding reads zero table columns; zero planes there too
-    for (int idx = threadIdx.x; idx < rows * (K - kin); idx += blockDim.x) {
-        const int r = idx / (K - kin);
-        planes[r * ks + kin + idx - r * (K - kin)] = 0;
-    }
+    zero_depth_pad(planes, rows, ks, din * bw, K);
     for (int b = 0; b < nb; ++b) {
-        for (int idx = threadIdx.x; idx < rows * bw; idx += blockDim.x) {
-            const int r = idx >> lbw, k = idx & (bw - 1);
-            const int32_t a =
-                static_cast<int32_t>(data[r * len + b * bw + k] + add);
-            int8_t* pr = planes + r * ks + k;
-            for (int i = 0; i < din - 1; ++i)
-                pr[i * bw] = static_cast<int8_t>(
-                    ((a >> (lb * i)) & low_mask) - half_base);
-            pr[(din - 1) * bw] = static_cast<int8_t>(a >> (lb * (din - 1)));
-        }
+        split_block(data, rows, len, bw, b, planes, ks, din, lb, add);
         __syncthreads();
-        const int8_t* wb = w + b * w_step;
         const uint32_t* cb = cst + b * c_step;
-        for (int lt = warp; lt < (bw >> 3); lt += nwarps) {
-            int acc[2][kMaxClasses][4];
-#pragma unroll
-            for (int mm = 0; mm < 2; ++mm)
-#pragma unroll
-                for (int j = 0; j < kMaxClasses; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) acc[mm][j][e] = 0;
-            // K in chunks of kSteps 32-deep steps: every B fragment of a
-            // chunk is requested before its first MMA, so a warp keeps
-            // d * kSteps table loads in flight
-            for (int k0 = 0; k0 < K; k0 += 32 * kSteps) {
-                uint2 bf[kSteps][kMaxClasses];
-#pragma unroll
-                for (int st = 0; st < kSteps; ++st)
-#pragma unroll
-                    for (int j = 0; j < kMaxClasses; ++j)
-                        if (j < d && k0 + st * 32 < K)
-                            bf[st][j] = __ldg(reinterpret_cast<const uint2*>(
-                                wb + static_cast<size_t>(j * bw + lt * 8 + g) *
-                                         K +
-                                k0 + st * 32 + tig * 8));
-#pragma unroll
-                for (int st = 0; st < kSteps; ++st) {
-                    if (k0 + st * 32 >= K) break;
-                    uint2 a[2][2];
-#pragma unroll
-                    for (int mm = 0; mm < 2; ++mm) {
-                        if (mm < mt) {
-                            const int8_t* pa = planes + (mm * 16 + g) * ks +
-                                               k0 + st * 32 + tig * 8;
-                            a[mm][0] = *reinterpret_cast<const uint2*>(pa);
-                            a[mm][1] =
-                                *reinterpret_cast<const uint2*>(pa + 8 * ks);
-                        }
-                    }
-#pragma unroll
-                    for (int j = 0; j < kMaxClasses; ++j)
-                        if (j < d)
-#pragma unroll
-                            for (int mm = 0; mm < 2; ++mm)
-                                if (mm < mt)
-                                    mma_s8(acc[mm][j], a[mm][0], a[mm][1],
-                                           bf[st][j]);
-                }
-            }
-            // accumulator e of tile mm: row mm*16 + g (+8 for e >= 2), lane
-            // lt*8 + tig*2 + (e & 1)
-#pragma unroll
-            for (int mm = 0; mm < 2; ++mm) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int r = mm * 16 + g + ((e >> 1) << 3);
-                    const int o = lt * 8 + tig * 2 + (e & 1);
-                    if (mm < mt && r < rows) {
-                        uint32_t v = __ldg(cb + o) + kb;              // < 2q
-#pragma unroll
-                        for (int j = 0; j < kMaxClasses; ++j) {
-                            if (j < d) {
-                                const uint32_t t =
-                                    static_cast<uint32_t>(acc[mm][j][e]) +
-                                    kClassBias;
-                                v = csub(v + shoup_lazy(t, p.pw[j], p.pw_sh[j],
-                                                        q),
-                                         q2);                          // < 2q
-                            }
-                        }
-                        data[r * len + b * bw + o] = csub(v, q);
-                    }
-                }
-            }
-        }
+        mma_classes(planes, rows, ks, w + b * w_step, K, bw, p.d,
+                    [&](int lt, const int (&acc)[2][kMaxClasses][4]) {
+                        recombine_tile(data + b * bw, rows, len, lt, acc, cb,
+                                       kb, p);
+                    });
         __syncthreads();
     }
 }

@@ -180,25 +180,38 @@ def _digit_planes(v: torch.Tensor, off: int, D: int,
     return torch.cat(planes + [a >> (lb * (D - 1))], dim=-1)
 
 
+def class_sums(planes: torch.Tensor, w: torch.Tensor, D: int) -> torch.Tensor:
+    """The class sums c_j of one digit-matmul per (shard, block): (S, R, nb,
+    K') int64 digit planes against kernel-layout tables w int8 (S or 1, nb or
+    1, D*bw, K), K >= K' (columns past K' are zero padding); (S, R, nb, D,
+    bw) int64, exact in float64 (every product sum is far below 2^53)."""
+    S, R, nb, kin = planes.shape
+    # (S, nb, R, K') @ (S, nb, K', D*bw)
+    c = torch.matmul(planes.transpose(1, 2).to(torch.float64),
+                     w[..., :kin].to(torch.float64).transpose(-1, -2))
+    return c.to(_I64).reshape(S, nb, R, D, -1).transpose(1, 2)
+
+
+def recombine(c: torch.Tensor, const: torch.Tensor, group_bias: int,
+              q: int) -> torch.Tensor:
+    """Class sums c (S, R, nb, D, bw) and const rows (S or 1, nb or 1, bw)
+    -> canonical (S, R, nb, bw): const + group_bias + sum_j c_j 2^{8j}."""
+    pw = torch.tensor([pow(2, 8 * j, q) for j in range(c.shape[-2])],
+                      dtype=_I64, device=c.device)
+    out = (const.to(_I64)[:, None] + group_bias
+           + (c * pw[:, None]).sum(dim=-2))
+    return out % q
+
+
 def digit_product(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
                   group_bias: int, off: int, din: int, base: int, q: int,
                   D: int) -> torch.Tensor:
     """One digit-matmul per (shard, block): (S, R, nb, bw) int64 values below
     the split's bound against kernel-layout tables w int8 (S or 1, nb or 1,
-    D*bw, K), K >= din*bw (columns past din*bw are zero padding), and const
-    rows (S or 1, nb or 1, bw); canonical (S, R, nb, bw) out."""
-    S, R, nb, bw = v.shape
-    planes = _digit_planes(v, off, din, base)
-    # (S, nb, R, din*bw) @ (S, nb, din*bw, D*bw): exact in float64
-    # (|c_j| < 2^24)
-    c = torch.matmul(planes.transpose(1, 2).to(torch.float64),
-                     w[..., :din * bw].to(torch.float64).transpose(-1, -2))
-    c = c.to(_I64).reshape(S, nb, R, D, bw)
-    pw = torch.tensor([pow(2, 8 * j, q) for j in range(D)], dtype=_I64,
-                      device=v.device)
-    out = (const.to(_I64)[:, :, None] + group_bias
-           + (c * pw[:, None]).sum(dim=3))
-    return (out % q).transpose(1, 2)
+    D*bw, K), K >= din*bw, and const rows (S or 1, nb or 1, bw); canonical
+    (S, R, nb, bw) out."""
+    return recombine(class_sums(_digit_planes(v, off, din, base), w, D),
+                     const, group_bias, q)
 
 
 def _block_matmul(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,

@@ -237,15 +237,21 @@ def _tabs(tabs, plans: SpPlans, like) -> SpDeviceTables:
     return tabs if tabs is not None else device_tables(plans, like.device)
 
 
+def _wide_stages(x, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
+    """The Lr wide stages of the column transform of canonical (S, B,
+    nloc); canonical int64."""
+    tw = tabs.tw.to(_I64)
+    return _along_j1(x.to(_I64), plans, lambda t: N.ntt_fwd_merged(
+        t, plans.t1, tw, s_hi=plans.Lr))
+
+
 def seg1_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     """B11's twin: (S, B, nloc) canonical -> (S, B, nloc) canonical, shard
     s using shard first + s's tables."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
-    tw = tabs.tw.to(_I64)
-    v = _along_j1(x.to(_I64), plans, lambda t: N.ntt_fwd_merged(
-        t, plans.t1, tw, s_hi=plans.Lr))
-    return _product(v, tabs.w1[sl], tabs.c1[sl], plans.p1, plans).to(_U32)
+    return _product(_wide_stages(x, plans, tabs), tabs.w1[sl], tabs.c1[sl],
+                    plans.p1, plans).to(_U32)
 
 
 def _rows_fwd(x, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
@@ -429,12 +435,20 @@ def plan_for(plans: SpPlans, seg: str) -> SpPlan:
 def _launch(seg: str, plans: SpPlans, tables, a, b):
     """Run segment ``seg``'s kernel (a key of ``SEGMENTS``) on CUDA shards
     a, (S, B, nloc), and b (B12's y shards, B13's spectrum rows (S, nloc) or
-    None) into a new output, against ``tables`` (w1, c1, w2, c2, twiddles;
-    None where the segment takes none)."""
+    None) into a new (S, B, nloc) output, against ``tables`` (w1, c1, w2,
+    c2, twiddles; None where the segment takes none)."""
+    return _run_kernel(KERNELS[seg.split()[0]], plan_for(plans, seg),
+                         tables, a, b, plans.nloc)
+
+
+def _run_kernel(kernel: Kernel, plan: ctypes.Structure, tables, a, b,
+                  width: int) -> torch.Tensor:
+    """Run ``kernel`` (an SP launcher's signature) under the run-time
+    ``plan`` on CUDA shards a (S, B, ...) and b (or None) into a new
+    (S, B, width) output."""
     from ..utils.build import load_library
 
-    kernel = KERNELS[seg.split()[0]]
-    out = torch.empty_like(a)
+    out = a.new_empty((*a.shape[:2], width))
     S, batch = a.shape[:2]
     if batch == 0 or S == 0:
         return out
@@ -444,8 +458,7 @@ def _launch(seg: str, plans: SpPlans, tables, a, b):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = getattr(lib.cdll, kernel.symbol)(
             a.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), *ptr, batch, S,
-            ctypes.addressof(plan_for(plans, seg)), stream)
+            out.data_ptr(), *ptr, batch, S, ctypes.addressof(plan), stream)
     if err != 0:
         raise RuntimeError(f"{kernel.symbol} launch failed: cudaError {err} "
                            f"({lib.error_string(err)})")
@@ -458,15 +471,16 @@ def _aligned(what: str, t: torch.Tensor) -> None:
         raise ValueError(f"{what}: the kernels need 16-byte aligned data")
 
 
-def _shards(plans: SpPlans, first: int, *tensors) -> slice:
-    """Check shards (S, B, nloc) of one shape and device; the slice of the
-    model axis they hold."""
-    nloc = plans.nloc
+def _shards(plans: SpPlans, first: int, *tensors,
+            width: int | None = None) -> slice:
+    """Check shards (S, B, width) of one shape and device, width nloc unless
+    given; the slice of the model axis they hold."""
+    width = width or plans.nloc
     for i, t in enumerate(tensors):
-        _check(f"shards {i}", t, nloc)
+        _check(f"shards {i}", t, width)
         if t.dim() != 3:
-            raise ValueError(f"shards {i}: expected (shards, B, {nloc}), got "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"shards {i}: expected (shards, B, {width}), "
+                             f"got {tuple(t.shape)}")
         _aligned(f"shards {i}", t)
     a = tensors[0]
     for t in tensors[1:]:

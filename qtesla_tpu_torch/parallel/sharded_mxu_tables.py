@@ -35,6 +35,10 @@ fields across (duck-typed: jax is never imported here).
 ``fourstep_fold_tables(plans, spectrum)`` (JAX l.586) builds one constant's
 folded segment-2 tables under p2x, and ``from_jax_fourstep_fold_tables``
 carries JAX's pair across.
+``class_boundary_plan(name, n1, k)`` (JAX l.902) plans the class-sum
+boundary, where segment 1 hands on its raw class sums and segment 2 splits
+each class plane on its own; ``from_jax_class_boundary_plan`` carries JAX's
+plan across.
 """
 
 from __future__ import annotations
@@ -58,9 +62,10 @@ from ..ops.tables import NttTables, get_tables
 from ..params import ParamSet
 from .sharded import _fourstep_tables
 
-__all__ = ["SpPlans", "DigitPlan", "FoldPlan", "RollTables",
+__all__ = ["SpPlans", "DigitPlan", "FoldPlan", "ClassPlan", "RollTables",
            "fourstep_mxu_plans", "from_jax_fourstep_plans",
-           "fourstep_fold_tables", "from_jax_fourstep_fold_tables"]
+           "fourstep_fold_tables", "from_jax_fourstep_fold_tables",
+           "class_boundary_plan", "from_jax_class_boundary_plan"]
 
 _TW_MAX = 128
 
@@ -94,6 +99,18 @@ class FoldPlan(_Fields):
 
 class SpPlans(_Fields):
     """Every schedule, block matrix and digit plan of one (set, n1, k)."""
+
+
+class ClassPlan(_Fields):
+    """The consumer's plan of the class-sum boundary: segment 1 stores class
+    m's raw sum c_m as u_m = c_m + ``cls_b[m]`` (p1's inclusive class
+    bounds); segment 2 splits u_j into ``dins[j]`` planes of ``bases[j]``
+    centred at ``offs[j]`` (= cls_b[j]) and multiplies them by ``W[j]``, int8
+    (din_j, TW, Dout*TW), the digit tables of 2^{8j} K2f mod q, summing every
+    class's products into one recombination (class ``bounds``, Horner
+    ``groups``) with the const row ``const`` uint32 (k, A, 1, TW): seg1's
+    centring term off1 * colsum(K1), carried through the exchange and K2f,
+    less the group biases."""
 
 
 class RollTables:
@@ -437,6 +454,71 @@ def fourstep_fold_tables(plans: SpPlans, spectrum):
 
 
 # ----------------------------------------------------------------------
+# The class-sum boundary.
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def class_boundary_plan(name: str, n1: int, k: int) -> ClassPlan:
+    """The class-sum boundary's plan of one (set, n1, k), field for field
+    JAX's ``class_boundary_plan`` (l.902).  It is built for every set; the
+    kernels' limits (at most 3 classes, class bounds below 2^24) are checked
+    where a kernel is planned (``sharded_classes.plan_for``)."""
+    plans = fourstep_mxu_plans(name, n1, k)
+    q, TW = plans.q, plans.TW
+    Dout = _ndigits(q)
+    cls_b = [int(b) for b in plans.p1.bounds]
+    K2f = plans.K2f % q
+    Ws, dins, bases = [], [], []
+    bounds = [0] * Dout
+    for j, bj in enumerate(cls_b):
+        # u_j = c_j + bj lies in [0, 2 bj]: the fewest planes, base 256 first
+        in_b = 2 * bj + 1
+        split = min(((d, -b) for b in (256, 128)
+                     if (d := _plane_count(in_b, b)) is not None),
+                    default=None)
+        if split is None:
+            raise ValueError(f"class bound {bj} uncoverable at any base")
+        din, base = split[0], -split[1]
+        mw =np.zeros((din, Dout), dtype=np.int64)
+        W, _ = _matrix_digit_block(K2f * pow(2, 8 * j, q) % q, q, din, Dout,
+                                   mw, in_base=base)
+        Ws.append(W)
+        dins.append(din)
+        bases.append(base)
+        bounds = [a + b for a, b in zip(bounds, _digit_bounds(
+            mw, TW, _input_digit_maxima(din, bj, in_b, base)))]
+    groups = _plan_groups(bounds, q, "any")
+    return ClassPlan(
+        Dout=Dout, cls_b=cls_b, W=Ws, dins=tuple(dins), bases=tuple(bases),
+        offs=tuple(cls_b), groups=tuple(groups), bounds=tuple(bounds),
+        raw_bound=_recombine_bound(groups, bounds, q),
+        const=_class_const(plans, _group_bias(groups, bounds, q)),
+        one_shoup=plans.ps.one_shoup)
+
+
+def _class_const(plans: SpPlans, group_bias: int) -> np.ndarray:
+    """The consumer's const rows (k, A, 1, TW): seg1's centring term
+    off1 * colsum(K1[d, t]) of every producer lane, moved to its row position
+    after the forward exchange, through K2f, less ``group_bias``; int64 where
+    JAX uses Python ints."""
+    q, k, A, TW = plans.q, plans.k, plans.A, plans.TW
+    n2, n2k, n1k, Bk = plans.n2, plans.n2k, plans.n1k, plans.Bk
+    colsum = plans.K1.astype(np.int64).sum(axis=-2) % q        # (k, A, TW)
+    cs1 = (plans.p1.off % q) * colsum % q
+    # row position rho * n2 + j2 of consumer tile (dc, bb) holds source j1 =
+    # dc * n1k + bb * R + rho, lane j2 of producer shard j2 // n2k
+    R = TW // n2
+    j1 = (np.arange(k)[:, None, None, None] * n1k
+          + np.arange(A)[None, :, None, None] * R
+          + np.arange(R)[None, None, :, None])
+    j2 = np.arange(n2)[None, None, None, :]
+    vec = cs1[j2 // n2k, j1 // Bk, (j1 % Bk) * n2k + j2 % n2k]
+    row = _matmul_mod(vec.reshape(k, A, TW),
+                      (plans.K2f % q).astype(np.int64), q)
+    return ((row - group_bias) % q).astype(np.uint32).reshape(k, A, 1, TW)
+
+
+# ----------------------------------------------------------------------
 # Carried across from a JAX plan bundle.
 # ----------------------------------------------------------------------
 
@@ -478,6 +560,25 @@ def from_jax_fourstep_plans(plans) -> SpPlans:
     p2x = FoldPlan(**{a: _copy(getattr(plans.p2x, a)) for a in FOLD_FIELDS})
     ps = ParamSet(name=f["name"], n=f["n"], q=q)
     return SpPlans(ps=ps, t1=t1, rolls=rolls, p2x=p2x, **digit, **f)
+
+
+CLASS_FIELDS = ("Dout", "cls_b", "dins", "bases", "offs", "groups", "bounds",
+                "raw_bound", "const", "one_shoup")
+
+
+def from_jax_class_boundary_plan(cp) -> ClassPlan:
+    """The port's plan from a JAX ``class_boundary_plan`` result, read
+    through its numpy and int fields; ``W`` becomes a list of numpy int8
+    arrays."""
+    f = {a: _copy(getattr(cp, a)) for a in CLASS_FIELDS}
+    W = [np.array(w) for w in cp.W]
+    if len(W) != f["Dout"] or any(
+            w.dtype != np.int8 or w.shape[0] != din
+            for w, din in zip(W, f["dins"])):
+        raise ValueError(f"expected {f['Dout']} int8 tables of "
+                         f"{f['dins']} planes, got "
+                         f"{[(w.dtype, w.shape) for w in W]}")
+    return ClassPlan(W=W, **f)
 
 
 def from_jax_fourstep_fold_tables(W, c):

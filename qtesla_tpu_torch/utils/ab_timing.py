@@ -10,9 +10,10 @@ that tree's ``qtesla_tpu_torch``, builds its kernels into that tree's
 operands (CUDA events, 3 warmup then 20 timed calls each): B5-B9, or with
 ``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
 (K, 32768, 1024 / K); B13-B15 where both trees have them, against the
-spectrum of y's first row).  It prints each run's medians and, per kernel,
-the median of each tree's 40 calls and the new/old ratio.  It needs a CUDA
-device.
+spectrum of y's first row; the class-boundary B17 and B18, B18 on B17's
+output after the exchange, where the tree has them).  It prints each run's
+medians and, per kernel, the median of each tree's 40 calls and the new/old
+ratio.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,10 +29,10 @@ __all__ = ["main"]
 MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "intt_mxu",
                "polymul_fixed_folded_mxu")
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
-              "sp_seg2_folded")
+              "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes")
 
 _RUN = """
-import json, sys
+import functools, importlib.util, json, sys
 sys.path.insert(0, {tree!r})
 import torch
 from qtesla_tpu_torch.ops import ntt_mxu as M
@@ -62,6 +63,18 @@ if {sp}:
         runs.update({{"sp_seg2_fixed": (S.sp_seg2_fixed, vx, aspec),
                      "sp_seg2_fwd": (S.sp_seg2_fwd, vx),
                      "sp_seg2_folded": (S.sp_seg2_folded, vx, fold)}})
+    if importlib.util.find_spec("qtesla_tpu_torch.parallel.sharded_classes"):
+        from qtesla_tpu_torch.parallel import sharded_classes as C
+        from qtesla_tpu_torch.parallel.sharded_mxu_tables import (
+            class_boundary_plan)
+        cp = class_boundary_plan("qtesla-iii-speed", 32, {sp})
+        ux, uy = (C.a2a_fwd_classes(C.sp_seg1_classes(t, plans, cp), plans,
+                                    cp.Dout) for t in (sx, sy))
+        runs.update({{
+            "sp_seg1_classes": (functools.partial(C.sp_seg1_classes, cp=cp),
+                                sx),
+            "sp_seg2_classes": (functools.partial(C.sp_seg2_classes, cp=cp),
+                                ux, uy)}})
 else:
     args = mt
     spec = M.ntt_mxu(y[:1], mt)

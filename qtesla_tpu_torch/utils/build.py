@@ -41,8 +41,8 @@ _FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
 # &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
-# csrc/sharded_mxu.cu: (a, b, out, w1, c1, w2, c2, twiddles, batch, k_local,
-# &plan, stream)
+# csrc/sharded_mxu.cu and csrc/sharded_classes.cu: (a, b, out, w1, c1, w2,
+# c2, twiddles, batch, k_local, &plan, stream)
 _SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 
 # every launcher symbol and its C signature
@@ -55,7 +55,8 @@ LAUNCHERS = {
     **{f"qt_polymul_pairing_{p}": _FUSED
        for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
     **{f"qt_sp_seg{s}": _SP
-       for s in ("1", "2", "2_fixed", "2_fwd", "2_folded", "3")},
+       for s in ("1", "2", "2_fixed", "2_fwd", "2_folded", "3", "1_classes",
+                 "2_classes")},
 }
 
 

@@ -1,0 +1,82 @@
+"""Compare the compiled kernels of two source trees, instruction by instruction.
+
+    python -m qtesla_tpu_torch.utils.sass_diff OLD_TREE NEW_TREE
+
+Each tree is a checkout of this repository.  In a fresh Python process each
+tree builds its kernels into its own ``build/`` (``utils/build.py``); then
+``cuobjdump -sass`` disassembles both libraries, and for every kernel
+instantiation (``mxu_kernel<mode>``, ``sp_kernel<mode,threads>``,
+``classes_kernel<mode,threads>``) it prints the SASS instruction count of
+each tree and the opcodes whose counts differ.  A refactor of shared device
+code that leaves a kernel's count and opcodes as they were compiled to the
+same work; ``utils/ab_timing.py`` times what it did not.  It needs the CUDA
+toolkit (``cuobjdump`` beside ``nvcc``).
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from .build import find_nvcc
+
+__all__ = ["main", "kernel_sass"]
+
+_BUILD = """
+import sys
+sys.path.insert(0, {tree!r})
+from qtesla_tpu_torch.utils.build import load_library
+print(load_library().path)
+"""
+_KERNEL = re.compile(r"(mxu_kernel|sp_kernel|classes_kernel)ILi(\d+)E"
+                     r"(?:Li(\d+)E)?")
+_INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;")
+
+
+def _library(tree: Path) -> str:
+    proc = subprocess.run([sys.executable, "-c", _BUILD.format(tree=str(tree))],
+                          cwd=tree, capture_output=True, text=True, check=True)
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def kernel_sass(library: str) -> dict[str, list[str]]:
+    """Kernel instantiation -> its SASS instructions (predicate dropped)."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", library],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, current = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            m = _KERNEL.search(line)
+            current = (f"{m.group(1)}<{m.group(2)}"
+                       f"{',' + m.group(3) if m.group(3) else ''}>"
+                       if m else None)
+            if current:
+                kernels[current] = []
+        elif current and (m := _INSTR.search(line)):
+            kernels[current].append(
+                next((t for t in m.group(1).split() if not t.startswith("@")),
+                     ""))
+    return kernels
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old, new = (kernel_sass(_library(Path(t).resolve())) for t in argv)
+    for name in sorted(set(old) | set(new)):
+        a, b = (collections.Counter(k.get(name, [])) for k in (old, new))
+        diff = {op: b[op] - a[op] for op in sorted(set(a) | set(b))
+                if a[op] != b[op]}
+        top = sorted(diff.items(), key=lambda t: -abs(t[1]))[:8]
+        print(f"{name}: old {sum(a.values())}, new {sum(b.values())}"
+              + (f"; {dict(top)}" if top else ""))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

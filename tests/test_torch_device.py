@@ -1,8 +1,9 @@
 """Contract of the port's device dispatch and kernel wrappers.
 
 - ``qtesla_tpu_torch`` imports and runs its CPU slice without jax.
-- The wrappers (fused B1-B4, digit-matmul B5-B9, pairings B10 and the
-  sequence-parallel segments B11-B16) raise on
+- The wrappers (fused B1-B4, digit-matmul B5-B9, pairings B10, the
+  sequence-parallel segments B11-B16 and its class boundary B17-B18) raise
+  on
   a wrong dtype, a wrong n, a non-contiguous tensor, an unsupported device
   and an unsupported algo; nothing is built at import and a missing nvcc
   raises instead of falling back.  Editing a header changes the build's
@@ -34,8 +35,10 @@ from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
                                              get_mxu_tables)
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import make_mesh
+from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
-from qtesla_tpu_torch.parallel.sharded_mxu_tables import (fourstep_fold_tables,
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
+                                                         fourstep_fold_tables,
                                                          fourstep_mxu_plans)
 from qtesla_tpu_torch.utils import build
 
@@ -71,6 +74,10 @@ assert (mul(x, prep(y[:1])) == polymul_fixed_fn(ps.name, "fused")[1](
 from qtesla_tpu_torch import make_mesh, polymul_fourstep_mxu_fn
 sp = polymul_fourstep_mxu_fn(ps.name, make_mesh(model=2, device="cpu"))
 assert (sp(x, y) == z).all()
+from qtesla_tpu_torch import polymul_fourstep_mxu_classes_fn
+cls = polymul_fourstep_mxu_classes_fn(ps.name, make_mesh(model=2,
+                                                         device="cpu"))
+assert (cls(x, y) == z).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not [m for m in sys.modules if m.split(".")[0] == "qtesla_tpu"]
 print("ok")
@@ -198,8 +205,9 @@ def test_cpu_runs_launch_no_kernel():
     assert set(P.KERNELS) == {f"polymul_pairing_{p}" for p in _PAIRING_NAMES}
     assert set(S.KERNELS) == {"sp_seg1", "sp_seg2", "sp_seg2_fixed",
                               "sp_seg2_fwd", "sp_seg2_folded", "sp_seg3"}
+    assert set(C.KERNELS) == {"sp_seg1_classes", "sp_seg2_classes"}
     kernels = [*F.KERNELS.values(), *M.KERNELS.values(), *P.KERNELS.values(),
-               *S.KERNELS.values()]
+               *S.KERNELS.values(), *C.KERNELS.values()]
     for k in kernels:
         k.launches = 0
     tbl = get_tables("smallprime")
@@ -229,6 +237,9 @@ def test_cpu_runs_launch_no_kernel():
     mul(x, prep(y[0]))
     prep, mul = S.polymul_fixed_folded_fourstep_mxu_fn("smallprime", cpu2)
     mul(x, *prep(y[0]))
+    C.polymul_fourstep_mxu_classes_fn("smallprime", cpu2)(x, y)
+    pipe, plans, _ = C.local_pipeline_classes_fn("smallprime", 2)
+    pipe(x[:, :plans.nloc].contiguous(), y[:, :plans.nloc].contiguous())
     assert all(k.launches == 0 for k in kernels)
 
 
@@ -291,10 +302,10 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "ntt_fused.cu", "ntt_mxu.cu",
-        "ntt_pairings.cu", "sharded_mxu.cu"]
+        "ntt_pairings.cu", "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
-           .read_text() for mod in (F, M, P, S)}
-    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S)
+           .read_text() for mod in (F, M, P, S, C)}
+    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
     for k in P.KERNELS.values():
         assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
@@ -312,8 +323,12 @@ def test_build_flags_target_hopper():
         assert f"QT_SP_LAUNCHER({k.symbol}," in src[S]
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 12
+    for k in C.KERNELS.values():
+        assert f"QT_CLASSES_LAUNCHER({k.symbol}," in src[C]
+        assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
+        assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_sp_seg1"]
     # the C structs and the ctypes ones name the same fields in one order
-    for mod, struct in ((M, M.MxuPlan), (S, S.SpPlan)):
+    for mod, struct in ((M, M.MxuPlan), (S, S.SpPlan), (C, C.SpClassPlan)):
         body = src[mod].split(f"struct {struct.__name__} {{")[1].split(
             "};")[0]
         c_fields = []
@@ -369,6 +384,42 @@ def test_sp_plan_matches_kernel_limits(name, k):
         if len(digit) == 1:
             assert (plan.din2, plan.kp2) == (0, 0)
     assert 8 <= plans.TW <= 128
+
+
+# every set of at most 3 digit classes with each model axis its split takes,
+# and n = 8192 at k = 4
+CLASS_CASES = [(name, k) for name, k in SP_CASES
+               if not name.startswith("qtesla-p-")] + [(WIDE[0], 4)]
+
+
+@pytest.mark.parametrize("name,k", CLASS_CASES)
+def test_class_plan_matches_kernel_limits(name, k):
+    """Every class plan fits B17 and B18: at most 3 classes, B18's class
+    bounds below 2^24 and at most 18 planes of one K depth padded to 32, its
+    x and y rows at most 32 and 128 KiB of Dout*nloc values; B17 takes B11's
+    rows and p1's split."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    n1 = 1 << (get_tables(name).logn // 2)
+    plans = fourstep_mxu_plans(name, n1, k)
+    cp = class_boundary_plan(name, n1, k)
+    p1 = C.plan_for(plans, cp, "sp_seg1_classes")
+    p2 = C.plan_for(plans, cp, "sp_seg2_classes")
+    TW, D = plans.TW, cp.Dout
+    assert D == plans.p1.W.shape[-1] // TW <= 3 and max(cp.bounds) < 1 << 24
+    sp1 = S.plan_for(plans, "sp_seg1")
+    for f, _ in S.SpPlan._fields_:
+        got, want = getattr(p1, f), getattr(sp1, f)
+        assert (list(got) if f in ("pw", "pw_sh") else got) == (
+            list(want) if f in ("pw", "pw_sh") else want), f
+    assert list(p1.cls_b)[:D] == cp.cls_b == list(plans.p1.bounds)
+    assert p2.rows % 2 == 0 and 0 < p2.rows <= 32
+    assert p2.rows * D * plans.nloc * 4 <= 128 << 10
+    assert list(p2.cdin)[:D] == list(cp.dins) and p2.din1 == sum(cp.dins)
+    assert p2.din1 <= 18 and p2.kp1 % 32 == 0
+    assert p2.din1 * TW <= p2.kp1 < p2.din1 * TW + 32
+    assert (p2.din2, p2.kp2) == (plans.p2i.din, S.plan_for(plans,
+                                                           "sp_seg2").kp2)
 
 
 def test_sp_wrappers_reject_bad_input():
@@ -616,4 +667,51 @@ def test_sp_fixed_kernels_match_plain_on_card(cuda_device, name):
             zx = mul(xs[0], *prep(a))
             for got in (z, zx):
                 np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in SETS if not n.startswith(
+    "qtesla-p-")] + [WIDE[0]])
+def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
+    """B17 and B18 against their twins for every model axis the set's split
+    takes, one launch each per call, B18 on B17's own output; the class
+    path equals B1 and the SP path."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(26)
+    for k in (2, 4, 8):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        cp = class_boundary_plan(name, plans.n1, k)
+        for batch in (1, 3, 64):
+            x = rng.integers(0, q, (k, batch, plans.nloc), dtype=np.uint32)
+            x[:, 0] = q - 1
+            x = torch.from_numpy(x).to(cuda_device)
+            before = {s: v.launches for s, v in C.KERNELS.items()}
+            u = C.sp_seg1_classes(x, plans, cp)
+            pairs = [(u, C.seg1_classes_plain(x, plans, cp)),
+                     (C.sp_seg2_classes(u, u.flip(1).contiguous(), plans,
+                                        cp),
+                      C.seg2_classes_plain(u, u.flip(1).contiguous(), plans,
+                                           cp))]
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy())
+            assert {s: v.launches - before[s]
+                    for s, v in C.KERNELS.items()} == {
+                "sp_seg1_classes": 1, "sp_seg2_classes": 1}
+            xy = torch.from_numpy(rng.integers(0, q, (2, batch, n),
+                                               dtype=np.uint32)).to(
+                cuda_device)
+            mesh = make_mesh(model=k)
+            z = C.polymul_fourstep_mxu_classes_fn(name, mesh)(xy[0], xy[1])
+            for want in (F.polymul_fused(xy[0], xy[1], tbl),
+                         S.polymul_fourstep_mxu_fn(name, mesh)(xy[0], xy[1])):
+                np.testing.assert_array_equal(z.cpu().numpy(),
                                               want.cpu().numpy())
