@@ -30,7 +30,12 @@ script exits non-zero without printing a result:
    qtesla-iii-speed at every k the split takes and n = 8192 at k = 4, on
    random and all-(q-1) shards, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
-   four-class qtesla-p-i and qtesla-p-iii raises.
+   four-class qtesla-p-i and qtesla-p-iii raises.  B11 and B18 multiply only
+   their tables' nonzero blocks in persistent blocks; each case also runs
+   them on LONG_BATCH rows, so that every block walks over several row
+   groups through both of its buffers, and prints the rows a block holds,
+   the depth of a product and whether the tables sit in shared memory or
+   come through L2.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -103,6 +108,8 @@ from qtesla_tpu_torch.utils.timing import time_cuda
 MAIN_SET = "qtesla-iii-speed"
 MAIN_BATCH = 32768
 SMALL_BATCHES = (1, 3, 64)
+# rows enough that each persistent block of B11 and B18 takes several groups
+LONG_BATCH = 9000
 # n = 8192 on the qtesla-iii-speed prime: B1 then needs 64 KB of shared
 # memory per block, the opt-in path above 48 KB; B5 holds 2 batch rows per
 # block and streams 22 MB of digit tables
@@ -282,6 +289,11 @@ def _u32(v: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(v).to("cuda")
 
 
+def _route(plan) -> str:
+    """Where a compact kernel reads its tables under ``plan``."""
+    return "in shared memory" if plan.smem_tables else "through L2"
+
+
 def _fold(plans, spec: torch.Tensor) -> S.FoldedSpOperand:
     return S.fold_sp_operand(*fourstep_fold_tables(plans, spec.cpu().numpy()),
                              "cuda")
@@ -382,11 +394,20 @@ def sp_against_plain(errors: dict) -> None:
                  S.seg3_plain(full, plans, folded=True))):
             _record(errors, kname, f"{kname} {name} k={k} all q-1 shards",
                     got, want)
+        long = _u32(rng.integers(0, q, (k, LONG_BATCH, nloc),
+                                 dtype=np.uint32))
+        _record(errors, "sp_seg1", f"B11 {name} k={k} B={LONG_BATCH}",
+                S.sp_seg1(long, plans), S.seg1_plain(long, plans))
+        p11 = S.seg1_compact_plan(plans)
+        print(f"{name} k={k}: B11 over K1's nonzero blocks: {p11.rows} rows "
+              f"a buffer, blocks of {1 << p11.c1.ls} lanes, depth {p11.c1.kp} "
+              f"(dense {S.plan_for(plans, 'sp_seg1').kp1}), tables "
+              f"{_route(p11)}; also equal to plain at B={LONG_BATCH}")
         print(f"{name} k={k} (SP plan {plan_s:.1f} s: nloc={nloc}, "
               f"TW={plans.TW}, A={plans.A}, Lr={plans.Lr}, din p1/p2f/p2i/p3/"
               f"p2x/p3x {plans.p1.din}/{plans.p2f.din}/{plans.p2i.din}/"
               f"{plans.p3.din}/{plans.p2x.din}/{plans.p3x.din}, rows/block "
-              f"{S.plan_for(plans, 'sp_seg1').rows}/"
+              f"{p11.rows}/"
               f"{S.plan_for(plans, 'sp_seg2').rows}/"
               f"{S.plan_for(plans, 'sp_seg2_fixed').rows}; folded SP prepare "
               f"{prep_s[1][0] * 1e3:.1f} ms, first {prep_s[0][0] * 1e3:.1f} "
@@ -448,10 +469,22 @@ def classes_against_plain(errors: dict) -> None:
                 f"B18 {name} k={k} on B17's all q-1 output",
                 C.sp_seg2_classes(u, u, plans, cp),
                 C.seg2_classes_plain(u, u, plans, cp))
+        long = C.seg1_classes_plain(_u32(rng.integers(
+            0, q, (k, LONG_BATCH, nloc), dtype=np.uint32)), plans, cp)
+        _record(errors, "sp_seg2_classes",
+                f"B18 {name} k={k} B={LONG_BATCH}",
+                C.sp_seg2_classes(long, long.flip(1).contiguous(), plans, cp),
+                C.seg2_classes_plain(long, long.flip(1).contiguous(), plans,
+                                     cp))
         p2 = C.plan_for(plans, cp, "sp_seg2_classes")
+        print(f"{name} k={k}: B18 over the nonzero blocks: "
+              f"{p2.rows // 2} + {p2.rows // 2} rows a warp, blocks of "
+              f"{1 << p2.c1.ls} lanes, depths {p2.c1.kp} and {p2.c2.kp} (dense "
+              f"{sum(cp.dins) * plans.TW} and "
+              f"{S.plan_for(plans, 'sp_seg2').kp2}), tables {_route(p2)}; "
+              f"also equal to plain at B={LONG_BATCH}")
         print(f"{name} k={k} (class plan {plan_s:.1f} s: Dout={cp.Dout}, "
-              f"dins={cp.dins}, class bounds {cp.bounds}, B18 depth "
-              f"{p2.kp1}, rows/block B17 "
+              f"dins={cp.dins}, class bounds {cp.bounds}, rows/block B17 "
               f"{C.plan_for(plans, cp, 'sp_seg1_classes').rows} B18 "
               f"{p2.rows}): B17 and B18 equal to plain for B in "
               f"{SMALL_BATCHES}, random, worst-case and all-(q-1) shards; "
@@ -657,7 +690,10 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     ``sp_fold`` the timed constant's folded SP operand): the bytes it must move
     (each input, tables included, read once, the output written once) and
     its int8 tensor-core MACs (the digit products at their plans' depth,
-    the padding and the SP tables' zero blocks excluded)."""
+    the padding and the SP tables' zero blocks excluded).  B11 and B18 read
+    their tables' nonzero blocks alone (``w1c``, ``w2cc``, ``w2ic``); their
+    MACs are counted on the dense tables' nonzero lane pairs like the
+    others', so a bound reads the same work whatever implements it."""
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
     plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
@@ -688,7 +724,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
         for w, p in ((st.w1, "p1"), (st.w2f, "p2f"), (st.w2i, "p2i"),
                      (st.w3, "p3"), (st.w3x, "p3x"), (sp_fold.w.cpu(), "p2x")))
     sp_tw = _nbytes(st.tw)
-    work["sp_seg1"] = (2 * row + _nbytes(st.w1, st.c1) + sp_tw, m1)
+    work["sp_seg1"] = (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1)
     work["sp_seg2"] = (3 * row + _nbytes(st.w2f, st.c2f, st.w2i, st.c2i),
                        2 * m2f + m2i)
     work["sp_seg3"] = (2 * row + _nbytes(st.w3, st.c3) + sp_tw, m3)
@@ -700,10 +736,11 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     # B17 writes Dout class planes a value; B18 reads them for x and y
     cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
     w2c, c2c = C.host_class_tables(cp)
+    w2cc = C.host_compact_class_table(cp, plans)
     D = cp.Dout
     work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1) + sp_tw, m1)
     work["sp_seg2_classes"] = (
-        (2 * D + 1) * row + _nbytes(w2c, c2c, st.w2i, st.c2i),
+        (2 * D + 1) * row + _nbytes(w2cc, c2c, st.w2ic, st.c2i),
         2 * _sp_macs(w2c, sum(cp.dins), B, plans) + m2i)
     return work
 

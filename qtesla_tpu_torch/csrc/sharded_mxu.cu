@@ -33,57 +33,92 @@
 // plan's split bound, so the JAX plans' split parameters serve unchanged;
 // the TPU kernel's lazy hand-offs between segments are not replayed.
 //
-// Design.  One launch covers the k_local stacked shards (k_local, B, nloc)
-// of a call: grid (row groups, shard), each shard's tables found by offset
-// (K2f and its const row are one table for every shard).  A rank of a
-// multi-process run launches the same kernel with k_local = 1 and its own
-// table slice.  A block holds `rows` rows (at most 32; 16 of x and 16 of y
-// for seg2) in shared memory for the whole segment, loaded with cp.async;
-// B13 holds 32 x rows and its shard's spectrum row (read once a block, no
-// batch stride), so each K2f and K2i pass serves twice B12's rows;
-// at nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so
-// four blocks fit an SM (B5's 148 KB block allows one).  The launch keeps
-// 16 warps on an SM whatever the row length: four blocks of 128 threads
-// where four fit, else two of 256, else one of 512, each with
-// __launch_bounds__ keeping the registers for that many, so one block's
-// barriers overlap the others' products.  Measured on an H100 at
+// Design of B12-B16.  One launch covers the k_local stacked shards
+// (k_local, B, nloc) of a call: grid (row groups, shard), each shard's
+// tables found by offset (K2f and its const row are one table for every
+// shard).  A rank of a multi-process run launches the same kernel with
+// k_local = 1 and its own table slice.  A block holds `rows` rows (at most
+// 32; 16 of x and 16 of y for seg2) in shared memory for the whole segment,
+// loaded with cp.async; B13 holds 32 x rows and its shard's spectrum row
+// (read once a block, no batch stride), so each K2f and K2i pass serves
+// twice B12's rows; at nloc = 256 that is 32 KiB of rows plus 17 KiB of
+// digit planes, so four blocks fit an SM (B5's 148 KB block allows one).
+// The launch keeps 16 warps on an SM whatever the row length: four blocks
+// of 128 threads where four fit, else two of 256, else one of 512, each
+// with __launch_bounds__ keeping the registers for that many, so one
+// block's barriers overlap the others' products.  Measured on an H100 at
 // qtesla-iii-speed, k = 4 (PERF.md): one 256-thread block per SM ran
 // 1.6-1.7x slower than two, two 512-thread blocks 9-11 % slower, and four
 // 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
 // two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
 // TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.
+// zero table columns and zero planes.  These kernels multiply whole TW x TW
+// tiles against tables streamed from L2 once per row group, and run load,
+// wide stages, split, products and recombination as barrier-separated
+// phases; no TMA and no wgmma.
 //
-// What bounds it on the H100 (qtesla-iii-speed, B = 32768, k = 4, all
+// Design of B11 (seg1_compact_kernel).  K1 couples only lanes of equal
+// lambda: in lambda-major order a tile is n2k diagonal blocks of Bk lanes
+// (1/8 of a dense tile at qtesla-iii-speed, k = 4), and the planner hands
+// over those blocks alone (compact_tables; mxu_compact.cuh).  The kernel
+//   - multiplies every 8-lane output tile over its own block's depth,
+//     din * s padded to 32: 64 where the dense product ran 384.  Blocks
+//     narrower than 8 lanes (Bk = 4: qtesla-p-iii at k = 2, n = 8192 at
+//     k = 4, smallprime) are widened to 8 positions, so half of such a
+//     block's products meet zeros; no plan takes a dense route;
+//   - is persistent: grid (blocks an SM can hold * SMs / shards, shard),
+//     each block walking over its shard's row groups.  It loads the shard's
+//     compact tables and const rows once into shared memory with cp.async
+//     (48 KiB + 1 KiB at qtesla-iii-speed, k = 4), so no table load goes to
+//     L2 inside the MMA loop, and keeps two row buffers: the next group's
+//     cp.async loads are in flight while this group runs its wide stages,
+//     split (four digits a word, byte permutes at base 256), products and
+//     recombination;
+//   - shared memory at qtesla-iii-speed, k = 4: 2 x 16 rows (32 KiB), const
+//     rows 1 KiB, planes 16 x 608 B (9.5 KiB), tables 48 KiB: 90.5 KiB, two
+//     256-thread blocks an SM.  Where one block fits it takes 32 rows and
+//     512 threads.  Where the shard's tables do not fit beside two row
+//     buffers (qtesla-p-iii at k = 2, n = 8192: 160-192 KiB of tables) the
+//     same kernel reads the compact blocks through L2 (kSmemTables false);
+//     parallel/sharded_mxu.py seg1_compact_plan picks the rows and the
+//     route, the launcher checks them.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md, utils/phase_ablation.py,
+// utils/ab_timing.py): the dense B11 took 0.60 ms, 0.20 of it products and
+// 0.16 their table stream; over the nonzero blocks 0.36, with four digits
+// packed a word 0.32, with the byte permutes of base 256 0.31.  The
+// recombined tile staged at a stride of TW + 1 words (eight banks where the
+// in-place store's eight rows share one) and stored out tile by tile ran
+// 6 % slower and was left out.
+//
+// What bounds them on the H100 (qtesla-iii-speed, B = 32768, k = 4, all
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; the kernels multiply whole tiles all the same):
-//   B11 (per operand) 270 MB, 4.8e9 MACs: 0.080 ms, device memory;
+// over n2-blocks, n2/TW = 1/4; B12-B16 multiply whole tiles all the same):
+//   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
 //   B13               270 MB, 2.3e10 MACs: 0.081 ms, device memory;
 //   B14               269 MB, 1.3e10 MACs: 0.080 ms, device memory;
 //   B15               270 MB, 9.7e9 MACs: 0.080 ms, device memory (p2x
 //                     takes 3 planes where B13's K2f and K2i take 4 + 3).
-// The tables (0.2-1.6 MB for all shards) stay in L2.  As in B5, this first
-// design streams them from L2 once per row group and runs load, wide
-// stages, split, products and recombination as barrier-separated phases;
-// no TMA and no wgmma.
+// The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
-// shard), k_local, a pointer to an SpPlan and a stream, launches without
-// synchronising and returns cudaGetLastError().
+// shard), k_local, a pointer to an SpPlan (B11: an SpCompactPlan) and a
+// stream, launches without synchronising and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "modq.cuh"
 #include "mxu_block.cuh"
+#include "mxu_compact.cuh"
 
 namespace {
 
 using qt::block_matmul;
+using qt::CompactDims;
 using qt::cp_async16;
 using qt::cp_async_wait_all;
 using qt::kMaxClasses;
@@ -110,6 +145,7 @@ constexpr int kSmThreads = 512;
 // shared memory of one SM, and what the runtime reserves for each block
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
+// kSeg1 keeps its number: B11 runs seg1_compact_kernel below
 enum Seg { kSeg1, kSeg2, kSeg3, kSeg2Fixed, kSeg2Fwd, kSeg2Folded };
 
 // operand rows per batch row a block holds, and whether it has a digit plan 2
@@ -167,11 +203,6 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     cp_async_wait_all();
     __syncthreads();
 
-    if (SEG == kSeg1) {
-        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
-        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
-                     p.kp1, c1_shard, p.tw, p.din1, p.lb1, p.add1, p.kb1, p);
-    }
     if (SEG == kSeg2 || SEG == kSeg2Fixed || SEG == kSeg2Fwd) {
         // the rows (B12: x and y) through the one shared forward table
         block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
@@ -268,6 +299,170 @@ int launch(const void* a, const void* b, void* out, const void* w1,
                          k_local, smem, p, stream);
 }
 
+// ----------------------------------------------------------------------
+// B11 over K1's nonzero blocks (header note: design of B11).
+// ----------------------------------------------------------------------
+
+// Field for field the SpCompactPlan ctypes.Structure of
+// parallel/sharded_mxu.py: SpPlan's fields, the compact layout of K1 (c2
+// unused), and whether the shard's tables are held in shared memory.
+struct SpCompactPlan : SpPlan {
+    CompactDims c1, c2;
+    int32_t smem_tables;
+};
+
+// Shared memory of one seg1_compact_kernel block: two row buffers, the
+// shard's const rows, the digit planes of one tile, the shard's tables.
+size_t seg1_compact_smem(const SpCompactPlan& cp) {
+    const SpPlan& p = cp;
+    const int nblk = p.tw >> cp.c1.ls;
+    const size_t tables =
+        static_cast<size_t>(p.a) * p.d * p.tw * cp.c1.kp;
+    return (2 * static_cast<size_t>(p.rows) + 1) * p.nloc * sizeof(uint32_t) +
+           static_cast<size_t>((p.rows + 15) / 16 * 16) *
+               qt::compact_row_stride(nblk, cp.c1.kp) +
+           (cp.smem_tables ? tables : 0);
+}
+
+template <int THREADS, bool kSmemTables>
+__global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
+    seg1_compact_kernel(const uint32_t* __restrict__ x,
+                        uint32_t* __restrict__ z,
+                        const int8_t* __restrict__ w1c,
+                        const uint32_t* __restrict__ c1,
+                        const uint32_t* __restrict__ tw, long long batch,
+                        const __grid_constant__ SpCompactPlan cp) {
+    extern __shared__ __align__(16) uint32_t smem[];
+    const SpPlan& p = cp;
+    const CompactDims& c = cp.c1;
+    const int nloc = p.nloc, tb = p.rows;
+    const int ltw = __ffs(p.tw) - 1, lnblk = ltw - c.ls;
+    const int ks = qt::compact_row_stride(1 << lnblk, c.kp);
+    const size_t tile_bytes = static_cast<size_t>(p.d) * p.tw * c.kp;
+    uint32_t* cst = smem + 2 * tb * nloc;      // after the two row buffers
+    int8_t* planes = reinterpret_cast<int8_t*>(cst + nloc);
+    const int shard = blockIdx.y;
+    const int8_t* wt = w1c + shard * p.a * tile_bytes;
+    const long long groups = (batch + tb - 1) / tb;
+
+    // rows past the batch are zero-filled
+    auto load_rows = [&](uint32_t* dst, long long rg) {
+        const long long row0 = rg * tb;
+        const int live =
+            batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
+        const uint32_t* src =
+            x + (static_cast<size_t>(shard) * batch + row0) *
+                    static_cast<size_t>(nloc);
+        for (int i = threadIdx.x * 4; i < tb * nloc; i += THREADS * 4) {
+            const bool ok = (i >> p.lnloc) < live;
+            cp_async16(dst + i, ok ? src + i : x, ok ? 16 : 0);
+        }
+    };
+
+    // once a block: the shard's const rows and, where they fit, its tables
+    qt::cp_async_bytes(cst, c1 + static_cast<size_t>(shard) * nloc,
+                       nloc * sizeof(uint32_t));
+    if (kSmemTables) {
+        int8_t* wsm = planes + ((tb + 15) / 16 * 16) * ks;
+        qt::cp_async_bytes(wsm, wt, p.a * tile_bytes);
+        wt = wsm;
+    }
+    if (blockIdx.x < groups) load_rows(smem, blockIdx.x);
+
+    int cur = 0;                                // the buffer worked on
+    for (long long rg = blockIdx.x; rg < groups; rg += gridDim.x, cur ^= 1) {
+        uint32_t* data = smem + cur * tb * nloc;
+        cp_async_wait_all();
+        __syncthreads();
+        // the next group's rows arrive while this one is worked on; the
+        // barrier above saw the other buffer's last reader off
+        if (rg + gridDim.x < groups)
+            load_rows(smem + (cur ^ 1) * tb * nloc, rg + gridDim.x);
+
+        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        for (int t = 0; t < p.a; ++t) {
+            uint32_t* tile = data + t * p.tw;
+            qt::split_compact(tile, tb, nloc, ltw, planes, ks, c, 0, p.din1,
+                              p.lb1, p.add1);
+            __syncthreads();
+            const uint32_t* cb = cst + t * p.tw;
+            qt::mma_compact<kSmemTables>(
+                planes, tb, ks, wt + t * tile_bytes, lnblk, c, p.d,
+                [&](int mm, int lt, const int (&acc)[kMaxClasses][4]) {
+                    qt::recombine_compact(tile, tb, nloc, mm, lt, acc, cb,
+                                          p.kb1, c, p);
+                });
+            __syncthreads();
+        }
+        const long long row0 = rg * tb;
+        const int live =
+            batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
+        uint32_t* dst = z + (static_cast<size_t>(shard) * batch + row0) *
+                                static_cast<size_t>(nloc);
+        for (int i = threadIdx.x * 4; i < live * nloc; i += THREADS * 4)
+            *reinterpret_cast<uint4*>(dst + i) =
+                *reinterpret_cast<const uint4*>(data + i);
+    }
+    cp_async_wait_all();
+}
+
+template <int THREADS, bool kSmemTables>
+int run_seg1_compact(const void* a, void* out, const void* w1,
+                     const void* c1, const void* tw, long long batch,
+                     int k_local, size_t smem, const SpCompactPlan& cp,
+                     void* stream) {
+    auto kernel = seg1_compact_kernel<THREADS, kSmemTables>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    int resident = 0;
+    if (const int err = qt::resident_blocks(kernel, THREADS, smem, &resident))
+        return err;
+    const long long groups = (batch + cp.rows - 1) / cp.rows;
+    long long walkers = resident / k_local;
+    walkers = walkers < 1 ? 1 : walkers > groups ? groups : walkers;
+    kernel<<<dim3(static_cast<unsigned>(walkers),
+                  static_cast<unsigned>(k_local)),
+             THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
+        static_cast<const int8_t*>(w1), static_cast<const uint32_t*>(c1),
+        static_cast<const uint32_t*>(tw), batch, cp);
+    return cudaGetLastError();
+}
+
+int launch_seg1_compact(const void* a, void* out, const void* w1,
+                        const void* c1, const void* tw, long long batch,
+                        int k_local, const void* plan, void* stream) {
+    const SpCompactPlan cp = *static_cast<const SpCompactPlan*>(plan);
+    const SpPlan& p = cp;
+    const CompactDims& c = cp.c1;
+    const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
+    if (p.rows < 1 || p.rows > kMaxRows || p.d < 1 || p.d > kMaxClasses ||
+        !pow2_tw || p.nloc != 1 << p.lnloc || p.a * p.tw != p.nloc ||
+        p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
+        (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
+        p.din1 < 1 || !((p.lb1 == 7 && p.din1 <= 6) ||
+                        (p.lb1 == 8 && p.din1 <= 4)) ||
+        c.ls < 3 || (1 << c.ls) > p.tw || c.llam < 0 || c.lbk < 0 ||
+        c.lq != c.ls - 2 || c.kp % 32 != 0 || c.kp < (p.din1 << c.ls) ||
+        c.kp >= (p.din1 << c.ls) + 32 || batch <= 0 || k_local < 1 ||
+        k_local > 65535)
+        return cudaErrorInvalidValue;
+    const size_t smem = seg1_compact_smem(cp);
+    if (smem + kBlockReserve > kSmShared) return cudaErrorInvalidValue;
+    const bool two = 2 * (smem + kBlockReserve) <= kSmShared;
+    if (cp.smem_tables)
+        return two ? run_seg1_compact<256, true>(a, out, w1, c1, tw, batch,
+                                                 k_local, smem, cp, stream)
+                   : run_seg1_compact<512, true>(a, out, w1, c1, tw, batch,
+                                                 k_local, smem, cp, stream);
+    return two ? run_seg1_compact<256, false>(a, out, w1, c1, tw, batch,
+                                              k_local, smem, cp, stream)
+               : run_seg1_compact<512, false>(a, out, w1, c1, tw, batch,
+                                              k_local, smem, cp, stream);
+}
+
 }  // namespace
 
 #define QT_SP_LAUNCHER(name, seg)                                             \
@@ -279,7 +474,15 @@ int launch(const void* a, const void* b, void* out, const void* w1,
                            plan, stream);                                    \
     }
 
-QT_SP_LAUNCHER(qt_sp_seg1, kSeg1)
+// B11: w1 the shard slice of the compact K1 (tabs.w1c), plan an
+// SpCompactPlan; b, w2 and c2 unused
+extern "C" int qt_sp_seg1(const void* a, const void*, void* out,
+                          const void* w1, const void* c1, const void*,
+                          const void*, const void* tw, long long batch,
+                          int k_local, const void* plan, void* stream) {
+    return launch_seg1_compact(a, out, w1, c1, tw, batch, k_local, plan,
+                               stream);
+}
 QT_SP_LAUNCHER(qt_sp_seg2, kSeg2)
 QT_SP_LAUNCHER(qt_sp_seg3, kSeg3)
 QT_SP_LAUNCHER(qt_sp_seg2_fixed, kSeg2Fixed)

@@ -33,6 +33,12 @@ canonical there, which JAX's wide stages give at every registered set's own
 n; where they hand on lazy values (n = 8192) the class sums differ and stay
 congruent.  Dispatch, launch counts and the stacked (k, B, width) layout are
 ``sharded_mxu.py``'s.
+
+B18 multiplies only the nonzero n2-blocks of its tables (``w2cc``, the one
+diagonal block of the class tables, and ``SpDeviceTables.w2ic``), each warp
+taking 8 rows of x and of y at one n2-block through the whole segment;
+``seg2_classes_compact_plain`` is the plain product over the same tables.
+B17 keeps the dense K1.
 """
 
 from __future__ import annotations
@@ -46,22 +52,29 @@ import torch
 
 from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel
-from ..ops.ntt_mxu import (_check_shapes, _digit_planes, block_rows,
-                           class_sums, recombine)
-from .sharded_mxu import (_CLASS_BIAS, SpDeviceTables, SpPlan, _check_tables,
-                          _const_rows, _default_n1, _depth, _kernel_layout,
-                          _on_mesh, _operands, _permute, _pointwise,
-                          _rows_inv, _run_kernel, _shards, _wide_stages,
-                          a2a_inv, device_tables, from_shards, seg3_plain,
-                          sp_seg3, to_shards)
+from ..ops.ntt_mxu import (_check_shapes, _digit_planes, class_sums,
+                           recombine)
+from .sharded_mxu import (_BLOCK_RESERVE, _CLASS_BIAS, _COMPACT_FIELDS,
+                          _SM_SHARED, SpDeviceTables,
+                          SpPlan, _check_tables, _compact_dims,
+                          _compact_shape, _const_rows, _default_n1, _depth,
+                          _kernel_layout, _on_mesh, _operands, _permute,
+                          _pointwise, _rows_inv, _rows_inv_compact,
+                          _run_kernel, _shards, _wide_stages, a2a_inv,
+                          compact_class_sums, device_tables,
+                          from_shards, planes_stride, seg3_plain, sp_seg3,
+                          to_shards)
 from .sharded_mxu import plan_for as sp_plan_for
 from .sharded_mxu_tables import (ClassPlan, SpPlans, class_boundary_plan,
-                                 fourstep_mxu_plans)
+                                 compact_depth, compact_layout,
+                                 compact_tables, fourstep_mxu_plans)
 
 __all__ = ["KERNELS", "ClassDeviceTables", "SpClassPlan",
-           "host_class_tables", "class_device_tables", "plan_for",
+           "host_class_tables", "host_compact_class_table",
+           "class_device_tables", "plan_for",
            "sp_seg1_classes", "sp_seg2_classes", "seg1_classes_plain",
-           "seg2_classes_plain", "a2a_fwd_classes",
+           "seg2_classes_plain", "seg2_classes_compact_plain",
+           "a2a_fwd_classes",
            "polymul_fourstep_mxu_classes",
            "polymul_fourstep_mxu_classes_plain",
            "polymul_fourstep_mxu_classes_fn", "local_pipeline_classes_fn"]
@@ -79,6 +92,8 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
 # planes of one split
 _MAX_CLASSES = 3
 _MAX_PLANES = 6
+# batch rows of x and of y one warp of B18 works on (kWarpRows)
+WARP_ROWS = 8
 _I64, _U32 = torch.int64, torch.uint32
 
 
@@ -91,12 +106,15 @@ class ClassDeviceTables:
     """The class path's tables on one device: ``sp`` the SP tables (B17
     takes K1 and the twiddles, B18 K2i, B16 K3), ``w2c`` int8 (Dout*TW, kp),
     the class tables ``cp.W[j]`` stacked along the plane axis in the
-    kernels' layout (one table for every shard and tile, as K2f is), and
-    ``c2c`` uint32 (k, A, TW) their const rows."""
+    kernels' layout (one table for every shard and tile, as K2f is),
+    ``c2c`` uint32 (k, A, TW) their const rows, and ``w2cc`` int8 (Dout*s,
+    kp) the one n2-block of ``w2c`` that is not zero, which B18 multiplies
+    (K2f is kron(I, R2): every diagonal block of a tile is the same)."""
 
     sp: SpDeviceTables
     w2c: torch.Tensor
     c2c: torch.Tensor
+    w2cc: torch.Tensor
 
 
 def host_class_tables(cp: ClassPlan) -> tuple:
@@ -105,13 +123,25 @@ def host_class_tables(cp: ClassPlan) -> tuple:
             _const_rows(cp.const))
 
 
+def host_compact_class_table(cp: ClassPlan, plans: SpPlans) -> torch.Tensor:
+    """w2cc on the CPU, in new storage: the one diagonal block of the class
+    tables.  Raises if they have an entry outside their n2-blocks or two
+    blocks differ."""
+    blocks = compact_tables(np.concatenate(cp.W, axis=0),
+                            compact_layout(plans, "rows"))
+    if (blocks != blocks[:1]).any():
+        raise ValueError("the class tables' diagonal blocks differ")
+    return torch.from_numpy(blocks[0].copy())
+
+
 @functools.lru_cache(maxsize=None)
 def class_device_tables(plans: SpPlans, cp: ClassPlan,
                         device: torch.device) -> ClassDeviceTables:
     """The class path's tables on ``device``, made once per device."""
     return ClassDeviceTables(device_tables(plans, device),
-                             *(t.to(device)
-                               for t in host_class_tables(cp)))
+                             *(t.to(device) for t in (
+                                 *host_class_tables(cp),
+                                 host_compact_class_table(cp, plans))))
 
 
 def _tabs(tabs, plans: SpPlans, cp: ClassPlan, like) -> ClassDeviceTables:
@@ -123,9 +153,11 @@ def _check_class_tables(tabs: ClassDeviceTables, plans: SpPlans,
                         cp: ClassPlan, like) -> None:
     _check_tables(tabs.sp, plans, like)
     TW = plans.TW
-    _check_shapes("class tables", (tabs.w2c, tabs.c2c),
+    _check_shapes("class tables", (tabs.w2c, tabs.c2c, tabs.w2cc),
                   ((torch.int8, (cp.Dout * TW, _depth(sum(cp.dins), TW))),
-                   (torch.uint32, (plans.k, plans.A, TW))), like)
+                   (torch.uint32, (plans.k, plans.A, TW)),
+                   (torch.int8, _compact_shape(plans, "rows", cp.Dout,
+                                               sum(cp.dins))[1:])), like)
 
 
 # ----------------------------------------------------------------------
@@ -149,16 +181,24 @@ def seg1_classes_plain(x, plans: SpPlans, cp: ClassPlan, tabs=None,
 
 
 def _class_rows_fwd(u, plans: SpPlans, cp: ClassPlan,
-                    tabs: ClassDeviceTables, sl) -> torch.Tensor:
+                    tabs: ClassDeviceTables, sl,
+                    compact: bool = False) -> torch.Tensor:
     """K2f of class planes u (S, B, Dout*nloc): each plane j split on its
-    own, one product over all of them, one recombination; canonical int64
+    own, one product over all of them (``compact``: over the one nonzero
+    block ``w2cc``, at every n2-block), one recombination; canonical int64
     (S, B, nloc)."""
     S, B = u.shape[:2]
     v = u.to(_I64).reshape(S, B, cp.Dout, plans.A, plans.TW)
     planes = torch.cat([_digit_planes(v[:, :, j], cp.offs[j], cp.dins[j],
                                       cp.bases[j])
                         for j in range(cp.Dout)], dim=-1)
-    c = class_sums(planes, tabs.w2c[None, None], cp.Dout)
+    if compact:
+        lay = compact_layout(plans, "rows")
+        c = compact_class_sums(
+            planes, tabs.w2cc.expand(1, 1, lay.nblk, *tabs.w2cc.shape), lay,
+            cp.Dout)
+    else:
+        c = class_sums(planes, tabs.w2c[None, None], cp.Dout)
     return recombine(c, tabs.c2c[sl], _group_bias(cp.groups, cp.bounds,
                                                   plans.q),
                      plans.q).reshape(S, B, plans.nloc)
@@ -174,6 +214,18 @@ def seg2_classes_plain(u, v, plans: SpPlans, cp: ClassPlan, tabs=None,
     Z = _pointwise(_class_rows_fwd(u, plans, cp, tabs, sl),
                    _class_rows_fwd(v, plans, cp, tabs, sl), plans)
     return _rows_inv(Z, plans, tabs.sp, sl)
+
+
+def seg2_classes_compact_plain(u, v, plans: SpPlans, cp: ClassPlan,
+                               tabs=None, first: int = 0):
+    """``seg2_classes_plain`` reading the compact tables (``tabs.w2cc``,
+    ``tabs.sp.w2ic``): what B18 multiplies.  Only the tests use it."""
+    tabs = _tabs(tabs, plans, cp, u)
+    sl = slice(first, first + u.shape[0])
+    Z = _pointwise(_class_rows_fwd(u, plans, cp, tabs, sl, compact=True),
+                   _class_rows_fwd(v, plans, cp, tabs, sl, compact=True),
+                   plans)
+    return _rows_inv_compact(Z, plans, tabs.sp, sl)
 
 
 def a2a_fwd_classes(v: torch.Tensor, plans: SpPlans,
@@ -194,11 +246,13 @@ class SpClassPlan(ctypes.Structure):
     """The plan values the kernels take at run time; field for field the
     ``SpClassPlan`` struct of ``csrc/sharded_classes.cu``: ``SpPlan``'s,
     then per class j B18's split (``cdin``, ``clb``, ``cadd``) and the bias
-    B17 stores (``cls_b``)."""
+    B17 stores (``cls_b``), then B18's compact layouts (``c1`` the class
+    tables, ``c2`` K2i; ``sharded_mxu.SpCompactPlan``) and where it reads
+    its tables; B17 leaves them 0."""
 
     _fields_ = SpPlan._fields_ + [
         (f, ctypes.c_int32 * 3) for f in ("cdin", "clb")] + [
-        (f, ctypes.c_uint32 * 3) for f in ("cadd", "cls_b")]
+        (f, ctypes.c_uint32 * 3) for f in ("cadd", "cls_b")] + _COMPACT_FIELDS
 
 
 def _slots(ctype, values) -> ctypes.Array:
@@ -209,8 +263,8 @@ def _slots(ctype, values) -> ctypes.Array:
 def plan_for(plans: SpPlans, cp: ClassPlan, seg: str) -> SpClassPlan:
     """The run-time plan of kernel ``seg`` (a key of ``KERNELS``).  More than
     3 classes, a B18 class bound of 2^24, a class split deeper than the
-    kernel takes, rows that do not fit, or a plan outside B11's or B12's
-    range (``sharded_mxu.plan_for``) raise."""
+    kernel takes, planes of one warp that do not fit B18's shared memory, or
+    a plan outside B11's or B12's range (``sharded_mxu.plan_for``) raise."""
     q, TW, D = plans.q, plans.TW, cp.Dout
     if D > _MAX_CLASSES:
         raise ValueError(f"{plans.name}: the class boundary takes Dout <= "
@@ -222,19 +276,30 @@ def plan_for(plans: SpPlans, cp: ClassPlan, seg: str) -> SpClassPlan:
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
     if two:
         planes = sum(cp.dins)
-        rows = block_rows(D * plans.nloc, 2)
         if (max(cp.bounds) >= _CLASS_BIAS or max(cp.dins) > _MAX_PLANES
                 or planes > _MAX_CLASSES * _MAX_PLANES):
             raise ValueError(f"{plans.name}: class plan (dins={cp.dins}, "
                              f"bounds={cp.bounds}) is outside the kernel's "
                              f"range")
-        if rows < 2:
-            raise ValueError(f"nloc={plans.nloc}: a row of {D} class planes "
-                             f"does not fit the kernel's shared memory")
         bias = _CLASS_BIAS * sum(sp.pw)
-        fields.update(rows=rows, din1=planes, lb1=0,
-                      kp1=_depth(planes, TW), add1=0,
+        # the dense depths kp1 and kp2 give way to the compact c1.kp and c2.kp
+        fields.update(din1=planes, lb1=0, kp1=0, add1=0, kp2=0,
                       kb1=(_group_bias(cp.groups, cp.bounds, q) - bias) % q)
+        # each warp of a block works on 8 batch rows of x and of y at one
+        # n2-block of lanes; the block's tables sit in shared memory where
+        # they leave room for the planes of at least 8 warps
+        lay = compact_layout(plans, "rows")
+        c1, c2 = (_compact_dims(lay, planes),
+                  _compact_dims(lay, plans.p2i.din))
+        shared = 2 * lay.s * 4 + D * lay.s * (c1.kp + c2.kp)
+        warp = (2 * WARP_ROWS * planes_stride(1, c1.kp)
+                + WARP_ROWS * planes_stride(1, c2.kp))
+        if 2 * lay.s * 4 + warp + _BLOCK_RESERVE > _SM_SHARED:
+            raise ValueError(f"{plans.name}: the planes of one warp "
+                             f"({warp} bytes) do not fit the kernel's "
+                             f"shared memory")
+        fields.update(rows=2 * WARP_ROWS, c1=c1, c2=c2, smem_tables=int(
+            shared + 8 * warp + _BLOCK_RESERVE <= _SM_SHARED))
     return SpClassPlan(
         **fields,
         cdin=_slots(ctypes.c_int32, cp.dins),
@@ -279,7 +344,7 @@ def sp_seg2_classes(u, v, plans: SpPlans, cp: ClassPlan, tabs=None,
     if u.is_cuda:
         return _run_kernel(KERNELS["sp_seg2_classes"],
                              plan_for(plans, cp, "sp_seg2_classes"),
-                             (tabs.w2c, tabs.c2c[sl], tabs.sp.w2i[sl],
+                             (tabs.w2cc, tabs.c2c[sl], tabs.sp.w2ic[sl],
                               tabs.sp.c2i[sl], None), u, v, plans.nloc)
     return seg2_classes_plain(u, v, plans, cp, tabs, first)
 

@@ -66,15 +66,20 @@ from ..ops import ntt as N
 from ..ops.modmul import mulmod_barrett
 from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel, _check
-from ..ops.ntt_mxu import _check_shapes, block_rows, digit_product
+from ..ops.ntt_mxu import (_check_shapes, _digit_planes, block_rows,
+                           digit_product, recombine)
 from ..ops.tables import get_tables
-from .sharded_mxu_tables import (SpPlans, fourstep_fold_tables,
-                                 fourstep_mxu_plans)
+from .sharded_mxu_tables import (CompactLayout, SpPlans, compact_depth,
+                                 compact_layout, compact_tables,
+                                 fourstep_fold_tables, fourstep_mxu_plans)
 
 __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "host_tables", "device_tables", "fold_sp_operand", "plan_for",
            "sp_seg1", "sp_seg2", "sp_seg2_fixed", "sp_seg2_fwd",
-           "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg2_plain",
+           "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg1_compact_plain",
+           "compact_class_sums", "CompactDims", "SpCompactPlan",
+           "seg1_compact_plan",
+           "compact_route", "seg2_plain",
            "seg2_fixed_plain", "seg2_fwd_plain", "seg2_folded_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
            "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
@@ -116,7 +121,11 @@ class SpDeviceTables:
     l (column i*TW + l), zero past din*TW; ``w2f`` int8 (D*TW, kp), the one
     shared row table; ``c1``, ``c2i``, ``c3``, ``c3x`` uint32 (k, A, TW) and
     ``c2f`` (TW,) the const rows; ``tw`` the n1-point packed twiddles (4,
-    n1).  ``w3x``/``c3x`` are K3 under p3x, the folded path's plan."""
+    n1).  ``w3x``/``c3x`` are K3 under p3x, the folded path's plan.
+    ``w1c`` int8 (k, A, nblk, D*s, kp) and ``w2ic`` are K1's and K2i's
+    nonzero blocks alone (``compact_tables``: lambda-major blocks of Bk
+    lanes for K1, the n2-blocks for K2i), what B11 and B18 multiply; B17
+    shares K1 with B11 and takes the dense ``w1``."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -129,10 +138,13 @@ class SpDeviceTables:
     tw: torch.Tensor
     w3x: torch.Tensor
     c3x: torch.Tensor
+    w1c: torch.Tensor
+    w2ic: torch.Tensor
 
     def tensors(self):
         return (self.w1, self.c1, self.w2f, self.c2f, self.w2i, self.c2i,
-                self.w3, self.c3, self.tw, self.w3x, self.c3x)
+                self.w3, self.c3, self.tw, self.w3x, self.c3x, self.w1c,
+                self.w2ic)
 
 
 def _depth(din: int, TW: int) -> int:
@@ -163,7 +175,11 @@ def host_tables(plans: SpPlans) -> SpDeviceTables:
         _kernel_layout(plans.p2i.W), _const_rows(plans.p2i.const),
         _kernel_layout(plans.p3.W), _const_rows(plans.p3.const),
         torch.from_numpy(plans.t1.packed.copy()),
-        _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const))
+        _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const),
+        torch.from_numpy(compact_tables(plans.p1.W,
+                                        compact_layout(plans, "columns"))),
+        torch.from_numpy(compact_tables(plans.p2i.W,
+                                        compact_layout(plans, "rows"))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,8 +216,17 @@ def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
             (i8, (k, A, D * TW, kp["p2i"])), (u32, (k, A, TW)),
             (i8, (k, A, D * TW, kp["p3"])), (u32, (k, A, TW)),
             (u32, (4, plans.n1)),
-            (i8, (k, A, D * TW, kp["p3x"])), (u32, (k, A, TW)))
+            (i8, (k, A, D * TW, kp["p3x"])), (u32, (k, A, TW)),
+            (i8, (k, A, *_compact_shape(plans, "columns", D,
+                                        plans.p1.din))),
+            (i8, (k, A, *_compact_shape(plans, "rows", D, plans.p2i.din))))
     _check_shapes("SP tables", tabs.tensors(), want, like)
+
+
+def _compact_shape(plans: SpPlans, kind: str, D: int, din: int) -> tuple:
+    """(nblk, D*s, kp) of one tile's compact tables."""
+    lay = compact_layout(plans, kind)
+    return lay.nblk, D * lay.s, compact_depth(din, lay.s)
 
 
 def _check_folded(fold, plans: SpPlans, like) -> None:
@@ -252,6 +277,57 @@ def seg1_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     sl = slice(first, first + x.shape[0])
     return _product(_wide_stages(x, plans, tabs), tabs.w1[sl], tabs.c1[sl],
                     plans.p1, plans).to(_U32)
+
+
+def compact_class_sums(planes: torch.Tensor, wc: torch.Tensor,
+                       lay: CompactLayout, D: int) -> torch.Tensor:
+    """``ops/ntt_mxu.py::class_sums`` over the tables' nonzero blocks alone:
+    (S, R, A, K'*TW) int64 digit planes, plane-major, against compact tables
+    wc int8 (S or 1, A or 1, nblk, D*s, kp); the class sums (S, R, A, D, TW)
+    by lane.  Each block multiplies its own s positions of every plane."""
+    S, R, A, width = planes.shape
+    TW, s, nblk = lay.TW, lay.s, lay.nblk
+    kin = width // TW
+    lane, pos, korder = (torch.from_numpy(a).to(planes.device)
+                         for a in (lay.lane, lay.pos, lay.korder))
+    # (S, A, nblk, R, K'*s) @ (S, A, nblk, K'*s, D*s), each block's positions
+    # in its table's depth order
+    P = planes.reshape(S, R, A, kin, TW)[..., lane].reshape(
+        S, R, A, kin, nblk, s)[..., korder].permute(
+        0, 2, 4, 1, 3, 5).reshape(S, A, nblk, R, kin * s)
+    c = torch.matmul(P.to(torch.float64),
+                     wc[..., :kin * s].to(torch.float64).transpose(-1, -2))
+    c = c.to(_I64).reshape(S, A, nblk, R, D, s).permute(0, 3, 1, 4, 2, 5)
+    return c.reshape(S, R, A, D, TW)[..., pos]
+
+
+def _compact_product(v: torch.Tensor, wc: torch.Tensor, c: torch.Tensor, p,
+                     plans: SpPlans, kind: str) -> torch.Tensor:
+    """``_product`` against the compact tables wc of ``kind``."""
+    S, R = v.shape[:2]
+    D = wc.shape[-2] // compact_layout(plans, kind).s
+    planes = _digit_planes(v.reshape(S, R, plans.A, plans.TW), p.off, p.din,
+                           p.base)
+    out = recombine(compact_class_sums(planes, wc,
+                                       compact_layout(plans, kind), D), c,
+                    _group_bias(p.groups, p.bounds, plans.q), plans.q)
+    return out.reshape(S, R, plans.nloc)
+
+
+def seg1_compact_plain(x, plans: SpPlans, tabs=None, first: int = 0):
+    """``seg1_plain`` reading the compact K1 (``tabs.w1c``): what B11
+    multiplies.  Only the tests use it."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    return _compact_product(_wide_stages(x, plans, tabs), tabs.w1c[sl],
+                            tabs.c1[sl], plans.p1, plans, "columns").to(_U32)
+
+
+def _rows_inv_compact(Z, plans: SpPlans, tabs: SpDeviceTables,
+                      sl) -> torch.Tensor:
+    """``_rows_inv`` reading the compact K2i (``tabs.w2ic``)."""
+    return _compact_product(Z, tabs.w2ic[sl], tabs.c2i[sl], plans.p2i, plans,
+                            "rows").to(_U32)
 
 
 def _rows_fwd(x, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
@@ -432,6 +508,93 @@ def plan_for(plans: SpPlans, seg: str) -> SpPlan:
         **fields)
 
 
+# The compact kernels' shared memory (csrc/sharded_mxu.cu and
+# sharded_classes.cu compute the same sizes): what one SM has, and what the
+# runtime keeps of each block.
+_SM_SHARED, _BLOCK_RESERVE = 233472, 1024
+
+
+class CompactDims(ctypes.Structure):
+    """The compact layout of one kind of tables, as the kernels take it:
+    blocks of 2^ls lanes, the lane permutation's llam and lbk and the depth
+    order's lq (``CompactLayout``), the depth kp of a block; field for field
+    the ``CompactDims`` struct of ``csrc/mxu_compact.cuh``."""
+
+    _fields_ = [(f, ctypes.c_int32)
+                for f in ("ls", "llam", "lbk", "lq", "kp")]
+
+
+_COMPACT_FIELDS = [("c1", CompactDims), ("c2", CompactDims),
+                   ("smem_tables", ctypes.c_int32)]
+
+
+class SpCompactPlan(ctypes.Structure):
+    """B11's run-time plan: ``SpPlan``'s fields, then the compact layout
+    ``c1`` of its tables (``c2`` unused) and whether the shard's tables are
+    held in shared memory (1) or read from L2 (0); field for field the
+    ``SpCompactPlan`` struct of ``csrc/sharded_mxu.cu``."""
+
+    _fields_ = SpPlan._fields_ + _COMPACT_FIELDS
+
+
+def _compact_dims(lay: CompactLayout, planes: int) -> CompactDims:
+    return CompactDims(ls=lay.ls, llam=lay.llam, lbk=lay.lbk, lq=lay.lq,
+                       kp=compact_depth(planes, lay.s))
+
+
+def planes_stride(nblk: int, kp: int) -> int:
+    """Bytes between two rows of block-major digit planes: nblk blocks of
+    kp + 8 bytes, padded to 32 mod 64 so that the MMA's row loads spread
+    over the banks (``compact_row_stride`` of csrc/mxu_compact.cuh)."""
+    ks = nblk * (kp + 8)
+    return ks + (96 - ks % 64) % 64
+
+
+def compact_route(smem_of) -> tuple[int, int]:
+    """(rows, smem_tables) of B11, whose block takes ``smem_of(rows,
+    smem_tables)`` bytes.  In order: the tables in shared memory with two
+    blocks an SM at 16 rows a buffer, then with one block at 32 or 16; the
+    tables read from L2 the same way, then with as many rows as one block
+    fits."""
+    def fits(rows, tables, blocks):
+        return (blocks * (smem_of(rows, tables) + _BLOCK_RESERVE)
+                <= _SM_SHARED)
+
+    for tables in (1, 0):
+        for blocks, rows in ((2, 16), (1, 32), (1, 16)):
+            if fits(rows, tables, blocks):
+                return rows, tables
+    for rows in range(15, 0, -1):
+        if fits(rows, 0, 1):
+            return rows, 0
+    raise ValueError("a row does not fit the kernels' shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def seg1_compact_plan(plans: SpPlans) -> SpCompactPlan:
+    """B11's run-time plan: ``plan_for(plans, "sp_seg1")`` with the compact
+    layout of K1, the rows a block holds in each of its two row buffers and
+    where it reads the tables.  ``rows`` is 16 with two blocks an SM
+    (qtesla-iii-speed, k = 4: 32 KiB of rows, 1 KiB of const rows, 9.5 KiB
+    of planes and the shard's 48 KiB of tables), 32 where one block fits,
+    fewer where rows are long (n = 8192)."""
+    sp = plan_for(plans, "sp_seg1")
+    lay = compact_layout(plans, "columns")
+    kp = compact_depth(plans.p1.din, lay.s)
+    tables = plans.A * sp.d * plans.TW * kp
+
+    def smem_of(rows, smem_tables):
+        return (2 * rows * plans.nloc * 4 + plans.nloc * 4
+                + -(-rows // 16) * 16 * planes_stride(lay.nblk, kp)
+                + smem_tables * tables)
+
+    rows, smem_tables = compact_route(smem_of)
+    fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
+    fields.update(rows=rows, smem_tables=smem_tables,
+                  c1=_compact_dims(lay, plans.p1.din))
+    return SpCompactPlan(**fields)
+
+
 def _launch(seg: str, plans: SpPlans, tables, a, b):
     """Run segment ``seg``'s kernel (a key of ``SEGMENTS``) on CUDA shards
     a, (S, B, nloc), and b (B12's y shards, B13's spectrum rows (S, nloc) or
@@ -524,9 +687,9 @@ def sp_seg1(x, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
     using shard first + s's tables; canonical out."""
     tabs, sl = _prepare(plans, tabs, first, x)
     if x.is_cuda:
-        return _launch("sp_seg1", plans,
-                       (tabs.w1[sl], tabs.c1[sl], None, None, tabs.tw), x,
-                       None)
+        return _run_kernel(KERNELS["sp_seg1"], seg1_compact_plan(plans),
+                           (tabs.w1c[sl], tabs.c1[sl], None, None, tabs.tw),
+                           x, None, plans.nloc)
     return seg1_plain(x, plans, tabs, first)
 
 

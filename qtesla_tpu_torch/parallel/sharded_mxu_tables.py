@@ -63,7 +63,8 @@ from ..params import ParamSet
 from .sharded import _fourstep_tables
 
 __all__ = ["SpPlans", "DigitPlan", "FoldPlan", "ClassPlan", "RollTables",
-           "fourstep_mxu_plans", "from_jax_fourstep_plans",
+           "CompactLayout", "compact_layout", "compact_tables",
+           "expand_compact", "fourstep_mxu_plans", "from_jax_fourstep_plans",
            "fourstep_fold_tables", "from_jax_fourstep_fold_tables",
            "class_boundary_plan", "from_jax_class_boundary_plan"]
 
@@ -516,6 +517,108 @@ def _class_const(plans: SpPlans, group_bias: int) -> np.ndarray:
     row = _matmul_mod(vec.reshape(k, A, TW),
                       (plans.K2f % q).astype(np.int64), q)
     return ((row - group_bias) % q).astype(np.uint32).reshape(k, A, 1, TW)
+
+
+# ----------------------------------------------------------------------
+# The tables' nonzero blocks.
+# ----------------------------------------------------------------------
+
+_MMA_LANES = 8          # output lanes of one tensor-core tile
+
+
+class CompactLayout(_Fields):
+    """Where a TW x TW tile matrix of one kind is nonzero: after the lane
+    permutation ``pos`` (lane l of a tile sits at position pos[l]; ``lane``
+    is its inverse) it is block-diagonal over ``nblk`` blocks of ``s``
+    positions.  ``llam`` and ``lbk`` give the permutation in closed form, as
+    the kernels compute it: pos = ((l & (2^llam - 1)) << lbk) | (l >> llam).
+    ``korder`` is the order of a block's positions along the depth of its
+    table: byte b of a plane holds position korder[b].  The kernels' split
+    packs four digits into one word, so byte 4w + j is position
+    w + j * 2^lq: lq = log2(s/4) for the column tables (a thread's four
+    values then lie s/4 * n2k lanes apart, in four different banks), lq = 0
+    (positions as they lie, one 16-byte load) for the row tables."""
+
+
+def compact_layout(plans: SpPlans, kind: str) -> CompactLayout:
+    """The block structure of one kind of tile matrix, from the plan's
+    shapes alone (``compact_tables`` checks it against the entries).
+
+    ``"columns"`` (K1, K3): a lane is j1 * n2k + lambda and the matrix
+    couples only lanes of equal lambda, so lambda-major order (position
+    lambda * Bk + j1) gives n2k blocks of Bk lanes.  ``"rows"`` (K2f, K2i,
+    the class tables, the folded F): TW / n2 blocks of n2 lanes as they lie.
+    A block narrower than a tensor-core tile's 8 output lanes is widened to
+    8 positions: the block then holds several of the matrix's own blocks
+    and the zeros between them."""
+    TW = plans.TW
+    ltw = TW.bit_length() - 1
+    if kind == "columns":
+        llam, lbk, own = plans.n2k.bit_length() - 1, \
+            plans.Bk.bit_length() - 1, plans.Bk
+    elif kind == "rows":
+        llam, lbk, own = 0, ltw, plans.n2
+    else:
+        raise ValueError(f"unknown table kind {kind!r}")
+    s = min(TW, max(own, _MMA_LANES))
+    ls = s.bit_length() - 1
+    lq = ls - 2 if kind == "columns" else 0
+    lanes = np.arange(TW)
+    pos = ((lanes & ((1 << llam) - 1)) << lbk) | (lanes >> llam)
+    lane = np.empty(TW, dtype=np.int64)
+    lane[pos] = lanes
+    byte = np.arange(s)
+    korder = (byte >> 2) * (1 if lq else 4) + ((byte & 3) << lq)
+    return CompactLayout(kind=kind, TW=TW, s=s, ls=ls, nblk=TW // s,
+                         llam=llam, lbk=lbk, lq=lq, pos=pos, lane=lane,
+                         korder=korder)
+
+
+def compact_depth(din: int, s: int) -> int:
+    """A block's table depth: din * s rounded up to a multiple of 32."""
+    return -(-din * s // 32) * 32
+
+
+def compact_tables(W: np.ndarray, lay: CompactLayout) -> np.ndarray:
+    """Input-major digit tables W int8 (..., din, TW, D*TW) -> their
+    diagonal blocks (..., nblk, D*s, kp) int8, output-major: block b's row
+    j*s + o is class j of the output lane at position b*s + o, its column
+    i*s + k plane i of the input lane at position b*s + korder[k]; columns
+    din*s .. kp-1 are zero.  Raises if an entry outside the blocks is
+    nonzero."""
+    *lead, din, TW, dtw = W.shape
+    D, s, nblk = dtw // TW, lay.s, lay.nblk
+    if TW != lay.TW:
+        raise ValueError(f"tables of {TW} lanes, layout of {lay.TW}")
+    # (..., din, in position, D, out position), both split into (block, s)
+    P = W.reshape(*lead, din, TW, D, TW)[..., lay.lane, :, :][..., lay.lane]
+    P = P.reshape(*lead, din, nblk, s, D, nblk, s)
+    out = np.zeros((*lead, nblk, D * s, compact_depth(din, s)), dtype=np.int8)
+    for b in range(nblk):
+        # (..., din, s, D, s), the input positions in the depth's order
+        blk = P[..., :, b, :, :, b, :][..., lay.korder, :, :]
+        out[..., b, :, :din * s] = np.moveaxis(blk, (-2, -1), (-4, -3)) \
+            .reshape(*lead, D * s, din * s)
+    if np.count_nonzero(out) != np.count_nonzero(W):
+        raise ValueError(f"{lay.kind} tables have nonzero entries outside "
+                         f"their {nblk} blocks of {s} lanes")
+    return out
+
+
+def expand_compact(C: np.ndarray, lay: CompactLayout, din: int) -> np.ndarray:
+    """The inverse of ``compact_tables``: blocks (..., nblk, D*s, kp) -> the
+    dense input-major tables (..., din, TW, D*TW), zero outside the
+    blocks."""
+    *lead, nblk, ds, _ = C.shape
+    s, TW = lay.s, lay.TW
+    D = ds // s
+    P = np.zeros((*lead, din, nblk, s, D, nblk, s), dtype=np.int8)
+    for b in range(nblk):
+        blk = C[..., b, :, :din * s].reshape(*lead, D, s, din, s)
+        P[..., :, b, lay.korder, :, b, :] = np.moveaxis(
+            np.moveaxis(blk, (-4, -3), (-2, -1)), -3, 0)
+    P = P.reshape(*lead, din, TW, D, TW)[..., lay.pos, :, :][..., lay.pos]
+    return P.reshape(*lead, din, TW, D * TW)
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,312 @@
+"""Cut digit-matmul kernels down phase by phase and time what is left.
+
+    python -m qtesla_tpu_torch.utils.phase_ablation [--sp K] TREE KERNEL...
+
+``TREE`` is a checkout of this repository (this one, or a parent commit
+unpacked with ``git archive``).  Its ``qtesla_tpu_torch`` package is copied
+to ``build/ablation/`` of the current directory and its CUDA sources are
+patched there with ``#if QT_ABL`` guards; the sources of ``TREE`` itself
+carry no such switch.  For each level a fresh Python process builds the copy
+with ``-DQT_ABL=<level>`` and times the named kernels (keys of the
+``KERNELS`` registries: ``sp_seg1``, ``sp_seg2_classes``, ``polymul_mxu``,
+...) at qtesla-iii-speed, B = 32768, model axis K (default 4) for the
+sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
+
+    0  load and store only
+    1  + the wide stages (and the pointwise product of the row segments)
+    2  + the digit split
+    3  + the products, every table fragment a register constant
+    4  + the table reads
+    5  + the recombination: the whole kernel
+
+Levels below 5 compute wrong values; only their times mean anything.  The
+difference of two neighbouring levels is what the added phase costs with
+everything before it in place.  The patches cover the dense building blocks
+of ``csrc/mxu_block.cuh`` (B5-B9, B12-B17) and the compact ones of
+``csrc/mxu_compact.cuh`` (B11, B18); a tree without the compact header takes
+the dense patches for B11 and B18 too.  A patch whose anchor is missing from
+a source it names fails the run.  It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+__all__ = ["main", "patch_sources", "LEVELS"]
+
+LEVELS = (0, 1, 2, 3, 4, 5)
+
+
+def _guard(cond: str, body: str, other: str | None = None) -> str:
+    out = f"#if {cond}\n{body}\n"
+    if other is not None:
+        out += f"#else\n{other}\n"
+    return out + "#endif\n"
+
+
+# (file, anchor, replacement): the anchor is exact source text
+_DENSE_SPLIT = """    zero_depth_pad(planes, rows, ks, din * bw, K);
+    for (int b = 0; b < nb; ++b) {
+"""
+_DENSE_MMA = """        mma_classes(planes, rows, ks, w + b * w_step, K, bw, p.d,
+                    [&](int lt, const int (&acc)[2][kMaxClasses][4]) {
+                        recombine_tile(data + b * bw, rows, len, lt, acc, cb,
+                                       kb, p);
+                    });
+"""
+_DENSE_LOAD = """                        bf[st][j] = __ldg(reinterpret_cast<const uint2*>(
+                            wb + static_cast<size_t>(j * bw + lt * 8 + g) * K +
+                            k0 + st * 32 + tig * 8));
+"""
+_DENSE_RECOMBINE = """                uint32_t v = __ldg(cb + o) + kb;                      // < 2q
+#pragma unroll
+                for (int j = 0; j < kMaxClasses; ++j) {
+                    if (j < d) {
+                        const uint32_t t =
+                            static_cast<uint32_t>(acc[mm][j][e]) + kClassBias;
+                        v = csub(v + shoup_lazy(t, p.pw[j], p.pw_sh[j], q),
+                                 q2);                                 // < 2q
+                    }
+                }
+                out[r * len + o] = csub(v, q);
+"""
+_RAW_STORE = """                uint32_t v = 0;
+#pragma unroll
+                for (int j = 0; j < kMaxClasses; ++j)
+                    if (j < d) v ^= static_cast<uint32_t>(acc[mm][j][e]);
+                out[r * len + o] = v + (q2 & 1u);
+"""
+_SEG1_WIDE = """        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        block_matmul("""
+_SEG3_WIDE = ("    if (SEG == kSeg3) qt::inv_wide(data, tb, p.logm, p.llanes, "
+              "p.lr, tw, p.q);\n")
+_SEG2_POINTWISE = """        for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
+            data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
+"""
+# the dense B18 of a tree without the compact header
+_CLS_SPLIT = """    zero_depth_pad(planes, p.rows, ks, p.din1 * tws, p.kp1);
+    for (int t = 0; t < p.a; ++t) {
+        int koff = 0;
+"""
+_CLS_MMA = """        mma_classes(planes, p.rows, ks, w1, p.kp1, tws, d,
+                    [&](int lt, const int (&acc)[2][kMaxClasses][4]) {
+                        recombine_tile(data + t * tws, p.rows, wide, lt, acc,
+                                       cb, kb, p);
+                    });
+"""
+_CLS_POINTWISE = """    for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x) {
+        uint32_t* v = data + (idx >> p.lnloc) * wide + (idx & (nloc - 1));
+        v[0] = mulmod_barrett(v[0], v[tb * wide], m);
+    }
+"""
+
+DENSE_PATCHES = (
+    ("mxu_block.cuh", _DENSE_SPLIT,
+     _guard("QT_ABL < 2", "    return;") + _DENSE_SPLIT),
+    ("mxu_block.cuh", _DENSE_MMA, _guard("QT_ABL >= 3", _DENSE_MMA)),
+    ("mxu_block.cuh", _DENSE_LOAD, _guard(
+        "QT_ABL == 3",
+        "                        bf[st][j] = make_uint2(0x01010101u, "
+        "0x01010101u);", _DENSE_LOAD)),
+    ("mxu_block.cuh", _DENSE_RECOMBINE,
+     _guard("QT_ABL < 5", _RAW_STORE, _DENSE_RECOMBINE)),
+    ("sharded_mxu.cu", _SEG3_WIDE, _guard("QT_ABL >= 1", _SEG3_WIDE)),
+    ("sharded_mxu.cu", _SEG2_POINTWISE,
+     _guard("QT_ABL >= 1", _SEG2_POINTWISE)),
+)
+# B11 and B18 as dense kernels (trees before the compact header)
+DENSE_B11_B18_PATCHES = (
+    ("sharded_mxu.cu", _SEG1_WIDE, _guard(
+        "QT_ABL >= 1",
+        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
+     + "        block_matmul("),
+    ("sharded_classes.cu", _CLS_SPLIT,
+     _guard("QT_ABL >= 2", "    const bool ablate_split = false;",
+            "    const bool ablate_split = true;")
+     + _CLS_SPLIT.replace("t < p.a;", "t < p.a && !ablate_split;")),
+    ("sharded_classes.cu", _CLS_MMA, _guard("QT_ABL >= 3", _CLS_MMA)),
+    ("sharded_classes.cu", _CLS_POINTWISE,
+     _guard("QT_ABL >= 1", _CLS_POINTWISE)),
+)
+# B11 and B18 on the compact building blocks
+_C_SPLIT = "    const int kbs = compact_block_stride(c.kp), lw = c.ls - 2;\n"
+_C_MMA = "    const int mt = (rows + 15) >> 4;           // 1 or 2\n"
+_C_DEPTH = "        for (int k0 = 0; k0 < kp; k0 += 32 * kSteps) {\n"
+_C_LOAD = "    if (kSmemTables) return *reinterpret_cast<const uint2*>(p);\n"
+_C_RECOMBINE = """    uint32_t v = start;                                               // < 2q
+#pragma unroll
+    for (int j = 0; j < kMaxClasses; ++j) {
+        if (j < d) {
+            const uint32_t t = static_cast<uint32_t>(sum(j)) + kClassBias;
+            v = csub(v + shoup_lazy(t, p.pw[j], p.pw_sh[j], q), q2);  // < 2q
+        }
+    }
+    return csub(v, q);
+"""
+_C_RAW_VALUE = """    uint32_t v = start & (q2 & 1u);
+#pragma unroll
+    for (int j = 0; j < kMaxClasses; ++j)
+        if (j < d) v ^= static_cast<uint32_t>(sum(j));
+    return v;"""
+_C_SEG1_WIDE = """        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        for (int t = 0; t < p.a; ++t) {
+            uint32_t* tile"""
+_C_STORE_PLANES = "    if (lb == 8) {\n        const uint32_t lo01"
+_C_DEPTH_A = "            for (int k0 = 0; k0 < ca.kp; k0 += 32) {\n"
+_C_DEPTH_B = "            for (int k0 = 0; k0 < cb.kp; k0 += 32) {\n"
+_C_POINTWISE = """                    zz[c] = static_cast<int32_t>(mulmod_barrett(vx, vy, m) +
+                                                 p.add2);
+"""
+_C_POINTWISE_SPLIT = "                for (int i = 0; i < p.din2; ++i) {\n"
+
+COMPACT_PATCHES = (
+    ("mxu_compact.cuh", _C_SPLIT,
+     _guard("QT_ABL < 2", "    return;") + _C_SPLIT),
+    # below level 3 the depth loop runs no step; the epilogue still stores
+    ("mxu_compact.cuh", _C_MMA,
+     _C_MMA + "    const int kp_abl = QT_ABL < 3 ? 0 : c.kp;\n"),
+    ("mxu_compact.cuh", _C_DEPTH, _C_DEPTH.replace("< kp;", "< kp_abl;")),
+    ("mxu_compact.cuh", _C_LOAD, _guard(
+        "QT_ABL == 3", "    return make_uint2(0x01010101u, 0x01010101u);")
+     + _C_LOAD),
+    ("mxu_compact.cuh", _C_RECOMBINE,
+     _guard("QT_ABL < 5", _C_RAW_VALUE, _C_RECOMBINE)),
+    # B18 splits through store_planes alone: below level 2 one word a thread
+    # keeps its loads alive (B11's split has returned by then)
+    ("mxu_compact.cuh", _C_STORE_PLANES, _guard(
+        "QT_ABL < 2", "    pr[0] = a[0] ^ a[1] ^ a[2] ^ a[3];\n    return;")
+     + _C_STORE_PLANES),
+    ("sharded_mxu.cu", _C_SEG1_WIDE, _guard(
+        "QT_ABL >= 1",
+        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
+     + _C_SEG1_WIDE.split("\n", 1)[1]),
+    ("sharded_classes.cu", _C_DEPTH_A,
+     _C_DEPTH_A.replace("< ca.kp;", "< (QT_ABL < 3 ? 0 : ca.kp);")),
+    ("sharded_classes.cu", _C_DEPTH_B,
+     _C_DEPTH_B.replace("< cb.kp;", "< (QT_ABL < 3 ? 0 : cb.kp);")),
+    ("sharded_classes.cu", _C_POINTWISE, _guard(
+        "QT_ABL >= 1", _C_POINTWISE,
+        "                    zz[c] = static_cast<int32_t>(vx + vy);")),
+    ("sharded_classes.cu", _C_POINTWISE_SPLIT,
+     _C_POINTWISE_SPLIT.replace("i < p.din2;",
+                                "i < (QT_ABL < 2 ? 1 : p.din2);")),
+)
+
+
+def patch_sources(csrc: Path) -> list[str]:
+    """Patch the sources under ``csrc`` in place; the patched files."""
+    patches = list(DENSE_PATCHES)
+    if (csrc / "mxu_compact.cuh").exists():
+        patches += COMPACT_PATCHES
+    else:
+        patches += DENSE_B11_B18_PATCHES
+    done = []
+    for name, anchor, new in patches:
+        path = csrc / name
+        text = path.read_text()
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{name}: anchor found {text.count(anchor)} "
+                               f"times, expected once:\n{anchor}")
+        path.write_text(text.replace(anchor, new))
+        done.append(name)
+    return sorted(set(done))
+
+
+_RUN = """
+import functools, json, sys
+sys.path.insert(0, {copy!r})
+import torch
+from qtesla_tpu_torch.utils import build
+assert build.__file__.startswith({copy!r}), build.__file__
+build.NVCC_FLAGS = build.NVCC_FLAGS + ("-DQT_ABL={level}",)
+from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
+from qtesla_tpu_torch.parallel import sharded_classes as C
+from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel.sharded_mxu_tables import (
+    class_boundary_plan, fourstep_fold_tables, fourstep_mxu_plans)
+from qtesla_tpu_torch.utils.timing import time_cuda
+names = {names!r}
+mt = get_mxu_tables("qtesla-iii-speed")
+gen = torch.Generator(device="cuda")
+gen.manual_seed(20261016)
+x, y = (torch.randint(0, mt.q, (32768, mt.n), generator=gen, device="cuda",
+                      dtype=torch.int64).to(torch.uint32) for _ in range(2))
+plans = fourstep_mxu_plans("qtesla-iii-speed", 32, {sp})
+cp = class_boundary_plan("qtesla-iii-speed", 32, {sp})
+sx = S.to_shards(x, plans)
+wide = torch.cat([sx.view(torch.int32)] * cp.Dout, dim=-1).view(torch.uint32)
+spec = x[0].clone()
+runs = {{
+    "polymul_mxu": lambda: M.polymul_mxu(x, y, mt),
+    "polymul_fixed_mxu": lambda: M.polymul_fixed_mxu(x, y[:1], mt),
+    "ntt_mxu": lambda: M.ntt_mxu(x, mt),
+    "intt_mxu": lambda: M.intt_mxu(x, mt),
+    "sp_seg1": lambda: S.sp_seg1(sx, plans),
+    "sp_seg2": lambda: S.sp_seg2(sx, sx, plans),
+    "sp_seg3": lambda: S.sp_seg3(sx, plans),
+    "sp_seg2_fixed": lambda: S.sp_seg2_fixed(sx, spec, plans),
+    "sp_seg2_fwd": lambda: S.sp_seg2_fwd(sx, plans),
+    "sp_seg1_classes": lambda: C.sp_seg1_classes(sx, plans, cp),
+    "sp_seg2_classes": lambda: C.sp_seg2_classes(wide, wide, plans, cp),
+}}
+out = {{}}
+for name in names:
+    out[name] = time_cuda(runs[name], warmup=3, repeats=20).samples_ms
+lib = build.load_library()
+report = [l.strip() for l in lib.log.splitlines() if "spill" in l
+          and "0 bytes spill stores, 0 bytes spill loads" not in l]
+print(json.dumps({{"ms": out, "spills": len(report)}}))
+"""
+
+
+def main(argv: list[str]) -> int:
+    sp = 4
+    if argv[:1] == ["--sp"] and len(argv) > 1:
+        sp, argv = int(argv[1]), argv[2:]
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    tree, names = Path(argv[0]).resolve(), argv[1:]
+    copy = Path("build/ablation").resolve() / tree.name
+    if copy.exists():
+        shutil.rmtree(copy)
+    shutil.copytree(tree / "qtesla_tpu_torch", copy / "qtesla_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    patched = patch_sources(copy / "qtesla_tpu_torch" / "csrc")
+    print(f"patched {patched} under {copy}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    medians = {}
+    for level in LEVELS:
+        proc = subprocess.run(
+            [sys.executable, "-c", _RUN.format(copy=str(copy), level=level,
+                                               names=names, sp=sp)],
+            cwd=copy, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"level {level} failed:\n{proc.stderr}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        medians[level] = {k: statistics.median(v)
+                          for k, v in res["ms"].items()}
+        print(f"level {level}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in medians[level].items()) +
+            f" ms ({res['spills']} kernels spill) [{smi}]", flush=True)
+    for name in names:
+        steps = [medians[lv][name] for lv in LEVELS]
+        adds = [steps[0]] + [b - a for a, b in zip(steps, steps[1:])]
+        print(f"{name}: load/store {adds[0]:.4f}, wide/pointwise "
+              f"{adds[1]:+.4f}, split {adds[2]:+.4f}, products (register "
+              f"tables) {adds[3]:+.4f}, table reads {adds[4]:+.4f}, "
+              f"recombination {adds[5]:+.4f}; whole {steps[5]:.4f} ms "
+              f"[{smi}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -6,7 +6,8 @@ Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
 instantiation (``mxu_kernel<mode>``, ``sp_kernel<mode,threads>``,
-``classes_kernel<mode,threads>``) it prints the SASS instruction count of
+``classes_kernel<mode,threads>``, ``seg1_compact_kernel<threads,shared>``,
+``seg2_classes_compact_kernel<shared,full>``) it prints the SASS instruction count of
 each tree and the opcodes whose counts differ.  A refactor of shared device
 code that leaves a kernel's count and opcodes as they were compiled to the
 same work; ``utils/ab_timing.py`` times what it did not.  It needs the CUDA
@@ -31,8 +32,9 @@ sys.path.insert(0, {tree!r})
 from qtesla_tpu_torch.utils.build import load_library
 print(load_library().path)
 """
-_KERNEL = re.compile(r"(mxu_kernel|sp_kernel|classes_kernel)ILi(\d+)E"
-                     r"(?:Li(\d+)E)?")
+_KERNEL = re.compile(r"(mxu_kernel|sp_kernel|classes_kernel|"
+                     r"seg1_compact_kernel|seg2_classes_compact_kernel)"
+                     r"IL[ib](\d+)E(?:L[ib](\d+)E)?")
 _INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;")
 
 

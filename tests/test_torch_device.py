@@ -301,8 +301,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
-        "modq.cuh", "mxu_block.cuh", "ntt_fused.cu", "ntt_mxu.cu",
-        "ntt_pairings.cu", "sharded_classes.cu", "sharded_mxu.cu"]
+        "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
+        "ntt_mxu.cu", "ntt_pairings.cu", "sharded_classes.cu",
+        "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
@@ -319,23 +320,32 @@ def test_build_flags_target_hopper():
         assert f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 11
+    # B11 and the class kernels have launchers of their own, written out
     for k in S.KERNELS.values():
-        assert f"QT_SP_LAUNCHER({k.symbol}," in src[S]
+        assert (f"QT_SP_LAUNCHER({k.symbol}," in src[S]
+                or f'extern "C" int {k.symbol}(' in src[S])
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 12
     for k in C.KERNELS.values():
-        assert f"QT_CLASSES_LAUNCHER({k.symbol}," in src[C]
+        assert f'extern "C" int {k.symbol}(' in src[C]
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_sp_seg1"]
-    # the C structs and the ctypes ones name the same fields in one order
-    for mod, struct in ((M, M.MxuPlan), (S, S.SpPlan), (C, C.SpClassPlan)):
-        body = src[mod].split(f"struct {struct.__name__} {{")[1].split(
-            "};")[0]
+    # the C structs and the ctypes ones name the same fields in one order;
+    # SpCompactPlan is SpPlan (its base in C) and what follows
+    src["compact"] = (build.CSRC_DIR / "mxu_compact.cuh").read_text()
+    for mod, struct, head, skip in (
+            (M, M.MxuPlan, "struct MxuPlan {", 0),
+            (S, S.SpPlan, "struct SpPlan {", 0),
+            (C, C.SpClassPlan, "struct SpClassPlan {", 0),
+            ("compact", S.CompactDims, "struct CompactDims {", 0),
+            (S, S.SpCompactPlan, "struct SpCompactPlan : SpPlan {",
+             len(S.SpPlan._fields_))):
+        body = src[mod].split(head)[1].split("};")[0]
         c_fields = []
         for decl in filter(None, (d.strip() for d in body.split(";"))):
             names = decl.split(None, 1)[1]
             c_fields += [f.strip().split("[")[0] for f in names.split(",")]
-        assert c_fields == [f for f, _ in struct._fields_]
+        assert c_fields == [f for f, _ in struct._fields_][skip:]
 
 
 def test_header_edit_changes_digest(tmp_path):
@@ -348,6 +358,29 @@ def test_header_edit_changes_digest(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     assert build._digest(build._sources(tmp_path)) != before
     assert header in build._sources(tmp_path)
+
+
+def test_phase_ablation_patches_apply(tmp_path):
+    """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
+    sources, in a copy; a copy without the compact header (a tree before B11
+    and B18 were redesigned) is refused where its dense B11 is missing."""
+    import shutil
+
+    from qtesla_tpu_torch.utils import phase_ablation as PA
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    before = {p.name: p.read_text() for p in csrc.iterdir()}
+    assert PA.patch_sources(csrc) == ["mxu_block.cuh", "mxu_compact.cuh",
+                                      "sharded_classes.cu", "sharded_mxu.cu"]
+    for name in ("mxu_block.cuh", "mxu_compact.cuh"):
+        text = (csrc / name).read_text()
+        assert text != before[name]
+        for cond in ("QT_ABL < 2", "QT_ABL == 3", "QT_ABL < 5"):
+            assert f"#if {cond}" in text, (name, cond)
+    assert "QT_ABL" not in "".join(before.values())
+    (csrc / "mxu_compact.cuh").unlink()
+    with pytest.raises(RuntimeError, match="anchor found"):
+        PA.patch_sources(csrc)
 
 
 # every set with each model axis its four-step split takes
@@ -395,9 +428,10 @@ CLASS_CASES = [(name, k) for name, k in SP_CASES
 @pytest.mark.parametrize("name,k", CLASS_CASES)
 def test_class_plan_matches_kernel_limits(name, k):
     """Every class plan fits B17 and B18: at most 3 classes, B18's class
-    bounds below 2^24 and at most 18 planes of one K depth padded to 32, its
-    x and y rows at most 32 and 128 KiB of Dout*nloc values; B17 takes B11's
-    rows and p1's split."""
+    bounds below 2^24 and at most 18 planes; each of its warps 8 + 8 rows of
+    one n2-block, the two compact depths padded to 32, the tables in shared
+    memory where they leave room for 8 warps' planes, and at least one warp
+    fitting a block either way; B17 takes B11's dense rows and p1's split."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     n1 = 1 << (get_tables(name).logn // 2)
@@ -413,13 +447,52 @@ def test_class_plan_matches_kernel_limits(name, k):
         assert (list(got) if f in ("pw", "pw_sh") else got) == (
             list(want) if f in ("pw", "pw_sh") else want), f
     assert list(p1.cls_b)[:D] == cp.cls_b == list(plans.p1.bounds)
-    assert p2.rows % 2 == 0 and 0 < p2.rows <= 32
-    assert p2.rows * D * plans.nloc * 4 <= 128 << 10
+    assert (p1.c1.ls, p1.c1.kp, p1.smem_tables) == (0, 0, 0)
+    assert p2.rows == 2 * C.WARP_ROWS == 16
     assert list(p2.cdin)[:D] == list(cp.dins) and p2.din1 == sum(cp.dins)
-    assert p2.din1 <= 18 and p2.kp1 % 32 == 0
-    assert p2.din1 * TW <= p2.kp1 < p2.din1 * TW + 32
-    assert (p2.din2, p2.kp2) == (plans.p2i.din, S.plan_for(plans,
-                                                           "sp_seg2").kp2)
+    assert p2.din1 <= 18 and (p2.kp1, p2.kp2) == (0, 0)
+    s = max(plans.n2, 8)
+    assert (1 << p2.c1.ls, 1 << p2.c2.ls) == (s, s) and TW % s == 0
+    assert (p2.c1.llam, p2.c2.llam) == (0, 0) and 1 << p2.c1.lbk == TW
+    assert (p2.c1.lq, p2.c2.lq) == (0, 0)
+    for din, kp in ((p2.din1, p2.c1.kp), (plans.p2i.din, p2.c2.kp)):
+        assert kp % 32 == 0 and din * s <= kp < din * s + 32
+    assert p2.din2 == plans.p2i.din
+    tables = D * s * (p2.c1.kp + p2.c2.kp)
+    warp = 16 * S.planes_stride(1, p2.c1.kp) + 8 * S.planes_stride(
+        1, p2.c2.kp)
+    assert p2.smem_tables == (name != WIDE[0])
+    shared = 2 * s * 4 + p2.smem_tables * tables
+    assert shared + (8 if p2.smem_tables else 1) * warp + 1024 <= 233472
+
+
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg1_compact_plan_matches_kernel_limits(name, k):
+    """B11's compact plan: the dense plan's split, blocks of max(Bk, 8)
+    lanes in lambda-major order, the depth padded to 32, rows and route
+    within a block's shared memory; the tables sit in shared memory at every
+    shape but the two whose shard tables pass 150 KiB."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    dense, plan = S.plan_for(plans, "sp_seg1"), S.seg1_compact_plan(plans)
+    for f, _ in S.SpPlan._fields_:
+        if f not in ("rows", "pw", "pw_sh"):
+            assert getattr(plan, f) == getattr(dense, f), f
+    s, kp = 1 << plan.c1.ls, plan.c1.kp
+    assert s == min(plans.TW, max(plans.Bk, 8))
+    assert (1 << plan.c1.llam, 1 << plan.c1.lbk) == (plans.n2k, plans.Bk)
+    assert kp % 32 == 0 and plan.din1 * s <= kp < plan.din1 * s + 32
+    tables = plans.A * plan.d * plans.TW * kp
+    assert tuple(S.host_tables(plans).w1c.shape[1:]) == (
+        plans.A, plans.TW // s, plan.d * s, kp)
+    assert plan.smem_tables == ((name, k) not in (("qtesla-p-iii", 2),
+                                                  (WIDE[0], 4)))
+    assert 0 < plan.rows <= 32
+    smem = ((2 * plan.rows + 1) * plans.nloc * 4
+            + -(-plan.rows // 16) * 16 * S.planes_stride(plans.TW // s, kp)
+            + plan.smem_tables * tables)
+    assert smem + 1024 <= 233472
 
 
 def test_sp_wrappers_reject_bad_input():
@@ -714,4 +787,50 @@ def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
             for want in (F.polymul_fused(xy[0], xy[1], tbl),
                          S.polymul_fourstep_mxu_fn(name, mesh)(xy[0], xy[1])):
                 np.testing.assert_array_equal(z.cpu().numpy(),
+                                              want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_compact_kernels_match_plain_on_card(cuda_device, name):
+    """B11 and B18 (the kernels over the tables' nonzero blocks) against
+    the twins that read the same compact tables and against the dense twins,
+    for every model axis the set's split takes; batches of 1, 3 and 64 rows
+    and one long enough that every persistent block walks over several row
+    groups through both of its buffers, on all shards and on one."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q = tbl.q
+    rng = np.random.default_rng(27)
+    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        cp = (None if name.startswith("qtesla-p-")
+              else class_boundary_plan(name, plans.n1, k))
+        d = k // 2
+        for batch in (1, 3, 64, 9000):
+            x = rng.integers(0, q, (k, batch, plans.nloc), dtype=np.uint32)
+            x[:, 0] = q - 1
+            x = torch.from_numpy(x).to(cuda_device)
+            one = x[d:d + 1].contiguous()
+            want = S.seg1_plain(x, plans)
+            pairs = [(S.sp_seg1(x, plans), want),
+                     (S.seg1_compact_plain(x, plans), want),
+                     (S.sp_seg1(one, plans, first=d), want[d:d + 1])]
+            if cp is not None:
+                u = C.seg1_classes_plain(x, plans, cp)
+                v = u.flip(1).contiguous()
+                want = C.seg2_classes_plain(u, v, plans, cp)
+                pairs += [
+                    (C.sp_seg2_classes(u, v, plans, cp), want),
+                    (C.seg2_classes_compact_plain(u, v, plans, cp), want),
+                    (C.sp_seg2_classes(u[d:d + 1].contiguous(),
+                                       v[d:d + 1].contiguous(), plans, cp,
+                                       first=d), want[d:d + 1])]
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                np.testing.assert_array_equal(got.cpu().numpy(),
                                               want.cpu().numpy())

@@ -265,8 +265,10 @@ def test_class_plan_for_rejects_plans_outside_the_kernels():
             C.plan_for(plans, ST.ClassPlan(**{**fields, **bad}),
                        "sp_seg2_classes")
     plan = C.plan_for(plans, cp, "sp_seg2_classes")
-    assert (plan.din1, plan.kp1, list(plan.cdin)) == (8, 128, [3, 3, 2])
-    assert plan.rows == 32 and list(plan.cls_b) == cp.cls_b
+    # 8 planes of the 8-lane n2-block: one compact depth of 64
+    assert (plan.din1, plan.c1.kp, list(plan.cdin)) == (8, 64, [3, 3, 2])
+    # 8 rows of x and 8 of y a warp
+    assert plan.rows == 16 and list(plan.cls_b) == cp.cls_b
 
 
 def test_class_wrappers_reject_bad_input():
@@ -291,12 +293,15 @@ def test_class_wrappers_reject_bad_input():
         C.sp_seg1_classes(x[0], plans, cp)
     tabs = C.class_device_tables(plans, cp, torch.device("cpu"))
     for bad in (C.ClassDeviceTables(tabs.sp, tabs.w2c[:, :-32].contiguous(),
-                                    tabs.c2c),
-                C.ClassDeviceTables(tabs.sp, tabs.w2c, tabs.c2c[:1])):
+                                    tabs.c2c, tabs.w2cc),
+                C.ClassDeviceTables(tabs.sp, tabs.w2c, tabs.c2c[:1],
+                                    tabs.w2cc),
+                C.ClassDeviceTables(tabs.sp, tabs.w2c, tabs.c2c,
+                                    tabs.w2cc[:, :-32].contiguous())):
         with pytest.raises(ValueError, match="class tables"):
             C.sp_seg2_classes(u, u, plans, cp, tabs=bad)
     bad = C.ClassDeviceTables(S.host_tables(ST.fourstep_mxu_plans(
-        "smallprime", 4, 4)), tabs.w2c, tabs.c2c)
+        "smallprime", 4, 4)), tabs.w2c, tabs.c2c, tabs.w2cc)
     with pytest.raises(ValueError, match="SP tables"):
         C.sp_seg1_classes(x, plans, cp, tabs=bad)
     fn = polymul_fourstep_mxu_classes_fn("smallprime", make_mesh(model=2))

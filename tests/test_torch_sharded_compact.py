@@ -1,0 +1,309 @@
+"""The nonzero blocks of the sequence-parallel digit tables
+(``compact_layout``, ``compact_tables``, ``expand_compact`` in
+``parallel/sharded_mxu_tables.py``), which the kernels B11 (``sp_seg1``) and
+B18 (``sp_seg2_classes``) multiply, and the plain products that read them
+(``seg1_compact_plain``, ``seg2_classes_compact_plain``).
+
+- the compact tables expanded back equal the dense tables of every plan and
+  of the class plan, so every entry outside the blocks is zero; a layout of
+  the wrong kind raises; the class tables' diagonal blocks are all one;
+- the compact products equal the dense twins ``seg1_plain`` and
+  ``seg2_classes_plain`` at B in {1, 3, 64}, random and all-(q-1) operands;
+- through them JAX's interpret-mode ``_make_seg1`` and
+  ``_make_seg2_classes`` match, the latter on JAX's own B17 output;
+- the compact plans pick rows and route inside the kernels' shared memory;
+  the depth order of the column tables (``korder``) is the order the
+  kernels' packed split writes.
+
+Tolerance: none (exact integers).  Inputs are made with numpy from a seed.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from qtesla_tpu.parallel import sharded_mxu as JS
+from qtesla_tpu.params import get_params
+from qtesla_tpu_torch.parallel import sharded_classes as C
+from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel import sharded_mxu_tables as ST
+
+SETS = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
+        "qtesla-p-iii"]
+# every set with each model axis its four-step split takes
+CASES = [(name, k) for name in SETS for k in (2, 4, 8)
+         if not (name == "smallprime" and k == 8)]
+FAST = [("smallprime", 2), ("smallprime", 4), ("qtesla-iii-speed", 4)]
+BATCHES = (1, 3, 64)
+
+
+def _n1(name):
+    return 1 << (get_params(name).logn // 2)
+
+
+def _plans(name, k):
+    return ST.fourstep_mxu_plans(name, _n1(name), k)
+
+
+def _operands(q, shape, worst, seed):
+    if worst:
+        return np.full(shape, q - 1, dtype=np.uint32)
+    return np.random.default_rng(seed).integers(0, q, shape, dtype=np.uint32)
+
+
+# ----------------------------------------------------------------------
+# The tables.
+# ----------------------------------------------------------------------
+
+def _check_tables(name, k):
+    plans = _plans(name, k)
+    TW, Bk, n2k, n2 = plans.TW, plans.Bk, plans.n2k, plans.n2
+    cols, rows = (ST.compact_layout(plans, kind)
+                  for kind in ("columns", "rows"))
+    # the structure comes from the plan's shapes
+    assert cols.s == min(TW, max(Bk, 8)) and rows.s == min(TW, max(n2, 8))
+    lanes = np.arange(TW)
+    np.testing.assert_array_equal(cols.pos, (lanes % n2k) * Bk + lanes // n2k)
+    np.testing.assert_array_equal(rows.pos, lanes)
+    for lay in (cols, rows):
+        assert lay.nblk * lay.s == TW
+        np.testing.assert_array_equal(lay.lane[lay.pos], lanes)
+    # byte 4w + j of a plane: position w + j * s/4 (columns), 4w + j (rows)
+    byte = np.arange(cols.s)
+    np.testing.assert_array_equal(
+        cols.korder, (byte >> 2) + (byte & 3) * (cols.s // 4))
+    np.testing.assert_array_equal(rows.korder, np.arange(rows.s))
+    assert (cols.lq, rows.lq) == (cols.ls - 2, 0)
+    tables = [(cols, plans.p1), (cols, plans.p3), (cols, plans.p3x),
+              (rows, plans.p2f), (rows, plans.p2i)]
+    for lay, p in tables:
+        blocks = ST.compact_tables(p.W, lay)
+        kp = ST.compact_depth(p.din, lay.s)
+        assert blocks.dtype == np.int8 and kp % 32 == 0
+        assert blocks.shape == (*p.W.shape[:-3], lay.nblk,
+                                p.W.shape[-1] // TW * lay.s, kp)
+        assert p.din * lay.s <= kp < p.din * lay.s + 32
+        assert not blocks[..., p.din * lay.s:].any()
+        # nothing of the dense table lies outside the blocks
+        np.testing.assert_array_equal(ST.expand_compact(blocks, lay, p.din),
+                                      p.W)
+    tabs = S.host_tables(plans)
+    np.testing.assert_array_equal(tabs.w1c.numpy(),
+                                  ST.compact_tables(plans.p1.W, cols))
+    np.testing.assert_array_equal(tabs.w2ic.numpy(),
+                                  ST.compact_tables(plans.p2i.W, rows))
+    # K1 is not block-diagonal as its lanes lie, K2i not in lambda-major
+    # order: the check on the entries sees it
+    if cols.nblk > 1 and n2k > 1:
+        with pytest.raises(ValueError, match="outside"):
+            ST.compact_tables(plans.p1.W, rows if rows.nblk > 1 else
+                              ST.CompactLayout(**{**rows.__dict__,
+                                                  "s": cols.s,
+                                                  "nblk": cols.nblk}))
+    if rows.nblk > 1 and n2k > 1:
+        with pytest.raises(ValueError, match="outside"):
+            ST.compact_tables(plans.p2i.W, cols)
+    return plans, rows
+
+
+def _check_class_tables(name, k):
+    plans, rows = _check_tables(name, k)
+    cp = ST.class_boundary_plan(name, _n1(name), k)
+    W = np.concatenate(cp.W, axis=0)
+    blocks = ST.compact_tables(W, rows)
+    np.testing.assert_array_equal(ST.expand_compact(blocks, rows, sum(cp.dins)),
+                                  W)
+    # K2f = kron(I, R2): one block serves every n2-block of a tile
+    w2cc = C.host_compact_class_table(cp, plans)
+    assert tuple(w2cc.shape) == (cp.Dout * rows.s,
+                                 ST.compact_depth(sum(cp.dins), rows.s))
+    for b in range(rows.nblk):
+        np.testing.assert_array_equal(blocks[b], w2cc.numpy())
+    w2c, _ = C.host_class_tables(cp)
+    dense = ST.expand_compact(np.broadcast_to(w2cc.numpy(), blocks.shape),
+                              rows, sum(cp.dins))
+    np.testing.assert_array_equal(S._kernel_layout(dense).numpy(),
+                                  w2c.numpy())
+
+
+@pytest.mark.parametrize("name,k", FAST)
+def test_compact_tables_expand_to_dense(name, k):
+    _check_class_tables(name, k)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,k", [c for c in CASES if c not in FAST])
+def test_compact_tables_expand_to_dense_slow_tier(name, k):
+    """The other sets and model axes: slow because each SP plan takes up to
+    10 s to build (30 s at qtesla-p-iii)."""
+    if name.startswith("qtesla-p-"):
+        _check_tables(name, k)          # four classes: no class plan
+    else:
+        _check_class_tables(name, k)
+
+
+def test_compact_layout_rejects_unknown_kind():
+    with pytest.raises(ValueError, match="unknown table kind"):
+        ST.compact_layout(_plans("smallprime", 2), "diagonal")
+    plans = _plans("qtesla-iii-speed", 4)
+    with pytest.raises(ValueError, match="lanes"):
+        ST.compact_tables(_plans("smallprime", 2).p1.W,
+                          ST.compact_layout(plans, "columns"))
+
+
+# ----------------------------------------------------------------------
+# The plain products over the compact tables.
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("name,k", FAST)
+def test_compact_products_match_dense_twins(name, k, batch, worst):
+    plans = _plans(name, k)
+    cp = ST.class_boundary_plan(name, _n1(name), k)
+    x, y = (torch.from_numpy(v) for v in _operands(
+        plans.q, (2, k, batch, plans.nloc), worst, 81))
+    got = S.seg1_compact_plain(x, plans)
+    assert got.dtype == torch.uint32 and got.shape == x.shape
+    assert torch.equal(got, S.seg1_plain(x, plans))
+    d = k // 2
+    assert torch.equal(S.seg1_compact_plain(x[d:d + 1], plans, first=d),
+                       got[d:d + 1])
+    u, v = (C.seg1_classes_plain(t, plans, cp) for t in (x, y))
+    got = C.seg2_classes_compact_plain(u, v, plans, cp)
+    assert got.dtype == torch.uint32 and got.shape == x.shape
+    assert torch.equal(got, C.seg2_classes_plain(u, v, plans, cp))
+    assert torch.equal(
+        C.seg2_classes_compact_plain(u[d:d + 1], v[d:d + 1], plans, cp,
+                                     first=d), got[d:d + 1])
+    # on CPU tensors the wrappers take the dense twins
+    assert torch.equal(S.sp_seg1(x, plans), S.seg1_plain(x, plans))
+    assert torch.equal(C.sp_seg2_classes(u, v, plans, cp), got)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,k", [("qtesla-i", 2), ("qtesla-i", 8),
+                                    ("qtesla-iii-speed", 2),
+                                    ("qtesla-iii-speed", 8),
+                                    ("qtesla-p-i", 4), ("qtesla-p-iii", 2)])
+def test_compact_products_match_dense_twins_slow_tier(name, k):
+    """The other block shapes (s = 8, 32; widened blocks at qtesla-p-iii,
+    k = 2): slow because each SP plan takes up to 30 s to build."""
+    plans = _plans(name, k)
+    for worst in (False, True):
+        x, y = (torch.from_numpy(v) for v in _operands(
+            plans.q, (2, k, 3, plans.nloc), worst, 82))
+        assert torch.equal(S.seg1_compact_plain(x, plans),
+                           S.seg1_plain(x, plans))
+        if not name.startswith("qtesla-p-"):
+            cp = ST.class_boundary_plan(name, _n1(name), k)
+            u, v = (C.seg1_classes_plain(t, plans, cp) for t in (x, y))
+            assert torch.equal(
+                C.seg2_classes_compact_plain(u, v, plans, cp),
+                C.seg2_classes_plain(u, v, plans, cp))
+
+
+def test_compact_class_sums_match_dense_class_sums():
+    """``compact_class_sums`` equals ``class_sums`` on raw digit planes,
+    before any recombination: K1's lambda-major blocks at qtesla-iii-speed,
+    k = 4."""
+    from qtesla_tpu_torch.ops.ntt_mxu import _digit_planes, class_sums
+    plans = _plans("qtesla-iii-speed", 4)
+    tabs = S.host_tables(plans)
+    p, D = plans.p1, plans.p1.W.shape[-1] // plans.TW
+    v = torch.from_numpy(_operands(plans.q, (4, 5, plans.A, plans.TW), False,
+                                   83)).to(torch.int64)
+    planes = _digit_planes(v, p.off, p.din, p.base)
+    got = S.compact_class_sums(planes, tabs.w1c,
+                               ST.compact_layout(plans, "columns"), D)
+    assert torch.equal(got, class_sums(planes, tabs.w1, D))
+
+
+# ----------------------------------------------------------------------
+# Against the interpret-mode Pallas kernels.
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_segs(name, k):
+    plans = JS.fourstep_mxu_plans(name, _n1(name), k)
+    cp = JS.class_boundary_plan(name, _n1(name), k)
+    return plans, cp, (JS._make_seg1(plans, 256, True),
+                       JS._make_seg1_classes(plans, cp, 256, True),
+                       JS._make_seg2_classes(plans, cp, 256, True))
+
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("name,k", [("smallprime", 2),
+                                    ("qtesla-iii-speed", 4)])
+def test_compact_products_match_pallas_interpret(name, k, batch, worst):
+    jplans, jcp, (jseg1, jseg1c, jseg2c) = _jax_segs(name, k)
+    plans = _plans(name, k)
+    cp = ST.class_boundary_plan(name, _n1(name), k)
+    q, nloc = plans.q, plans.nloc
+    x, y = _operands(q, (2, batch, nloc), worst, 84)
+    xt = torch.from_numpy(x)[None]
+    # one shard at the small sets' every k, the middle shard at q-III
+    for d in (range(k) if name == "smallprime" else (k // 2,)):
+        sl = slice(d, d + 1)
+        want = np.asarray(jseg1(x, jplans.p1.W[sl], jplans.p1.const[sl])) % q
+        got = S.seg1_compact_plain(xt, plans, first=d)
+        assert int(got.to(torch.int64).max()) < q
+        np.testing.assert_array_equal(got[0].numpy(), want,
+                                      err_msg=f"B11 shard {d}")
+        # B18 on JAX's own B17 output: the state carried across
+        ux, uy = (np.asarray(jseg1c(v, jplans.p1.W[sl])) for v in (x, y))
+        want = np.asarray(jseg2c(ux, uy, *jcp.W, jcp.const[sl],
+                                 jplans.p2i.W[sl], jplans.p2i.const[sl])) % q
+        uxt, uyt = (torch.from_numpy(u.copy())[None] for u in (ux, uy))
+        got = C.seg2_classes_compact_plain(uxt, uyt, plans, cp, first=d)
+        assert int(got.to(torch.int64).max()) < q
+        np.testing.assert_array_equal(got[0].numpy(), want,
+                                      err_msg=f"B18 shard {d}")
+
+
+# ----------------------------------------------------------------------
+# Rows and route of the compact kernels.
+# ----------------------------------------------------------------------
+
+def test_compact_route_prefers_shared_tables_then_rows():
+    """``compact_route``: tables in shared memory with two blocks an SM,
+    then one block, then the tables from L2, then fewer rows; a row that
+    never fits raises."""
+    block = 232448
+
+    def smem(per_row, tables):
+        return lambda rows, t: rows * per_row + t * tables
+
+    assert S.compact_route(smem(1024, 50 << 10)) == (16, 1)
+    assert S.compact_route(smem(4 << 10, 50 << 10)) == (32, 1)
+    assert S.compact_route(smem(6 << 10, 50 << 10)) == (16, 1)
+    assert S.compact_route(smem(2 << 10, 200 << 10)) == (16, 0)
+    assert S.compact_route(smem(12 << 10, 200 << 10)) == (16, 0)
+    assert S.compact_route(smem(16 << 10, 200 << 10)) == (block // (16 << 10),
+                                                         0)
+    with pytest.raises(ValueError, match="does not fit"):
+        S.compact_route(smem(block + 1, 0))
+    for nblk, kp in ((8, 64), (1, 288), (16, 32), (1, 1152), (4, 96)):
+        ks = S.planes_stride(nblk, kp)
+        assert ks % 64 == 32 and 0 <= ks - nblk * (kp + 8) < 64
+
+
+def test_main_path_plans_hold_tables_in_shared_memory():
+    """qtesla-iii-speed, k = 4: B11 runs 16 rows a buffer beside its
+    shard's 48 KiB of tables, two blocks an SM; B18 8 + 8 rows a warp
+    beside 36 KiB of tables; the depths are 64, 288 and 96 where the dense
+    tables run 384, 1152 and 384."""
+    plans = _plans("qtesla-iii-speed", 4)
+    cp = ST.class_boundary_plan("qtesla-iii-speed", 32, 4)
+    p11 = S.seg1_compact_plan(plans)
+    assert (p11.rows, p11.smem_tables, 1 << p11.c1.ls, p11.c1.kp) == (
+        16, 1, 16, 64)
+    assert S.plan_for(plans, "sp_seg1").kp1 == 384
+    p18 = C.plan_for(plans, cp, "sp_seg2_classes")
+    assert (p18.rows, p18.smem_tables, 1 << p18.c1.ls) == (16, 1, 32)
+    assert (p18.c1.kp, p18.c2.kp) == (288, 96)
+    sp2 = S.plan_for(plans, "sp_seg2")
+    assert (sum(cp.dins) * plans.TW, sp2.kp2) == (1152, 384)
