@@ -30,12 +30,14 @@ script exits non-zero without printing a result:
    qtesla-iii-speed at every k the split takes and n = 8192 at k = 4, on
    random and all-(q-1) shards, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
-   four-class qtesla-p-i and qtesla-p-iii raises.  B11 and B18 multiply only
-   their tables' nonzero blocks in persistent blocks; each case also runs
-   them on LONG_BATCH rows, so that every block walks over several row
-   groups through both of its buffers, and prints the rows a block holds,
-   the depth of a product and whether the tables sit in shared memory or
-   come through L2.
+   four-class qtesla-p-i and qtesla-p-iii raises.  B11, B16 (under p3 and
+   p3x) and B18 multiply only their tables' nonzero blocks in persistent
+   blocks; each case also runs them on LONG_BATCH rows, so that every block
+   walks over several row groups through both of its buffers, and prints
+   the rows a block holds, the depth of a product and whether the tables
+   sit in shared memory or come through L2.  B5 runs in persistent blocks
+   that stream its tables through a ring of stages in shared memory; every
+   set also runs it on LONG_BATCH rows and prints its stages and ring.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -55,8 +57,9 @@ script exits non-zero without printing a result:
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x); then the whole SP path and
    local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
-   with the SP cost per shard k * t_local / t_B5 and k * t_local / t_B1;
-   then both fixed SP paths and one shard's fixed and folded work
+   warm and cold (L2 flushed and the host queued ahead before each call;
+   B5, B1, B8 and B4 are timed cold too), with the SP cost per shard
+   k * t_local / t_B5 and k * t_local / t_B1 on the cold times; then both fixed SP paths and one shard's fixed and folded work
    (local_fixed_pipeline_fn) at k in {2, 4, 8}, k * t_local / t_B8 and
    k * t_local / t_B4; then the class path beside the SP path, one shard's
    class work (local_pipeline_classes_fn) at k in {2, 4, 8} beside
@@ -270,6 +273,15 @@ def kernels_against_plain(errors: dict) -> None:
                 expect_equal(f"intt(ntt(x)) fused {tag}", back, x)
                 back = M.intt_mxu(M.ntt_mxu(x, mt), mt)
                 expect_equal(f"intt(ntt(x)) mxu {tag}", back, x)
+        x, y = (torch.from_numpy(v).to(dev) for v in rng.integers(
+            0, q, (2, LONG_BATCH, n), dtype=np.uint32))
+        _record(errors, "polymul_mxu", f"polymul_mxu {name} B={LONG_BATCH}",
+                M.polymul_mxu(x, y, mt), M.polymul_mxu_plain(x, y, mt))
+        p5 = M.stream_plan(mt)
+        print(f"{name}: B5 streams {p5.stages_f} + {p5.stages_i} stages of "
+              f"{64 * mt.bw * mt.D // 1024} KiB a lane block through a ring "
+              f"of {p5.ring} in shared memory; {p5.rows // 2} products a "
+              f"group; also equal to plain at B={LONG_BATCH}", flush=True)
         print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
               f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
               f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}; B9 prepare "
@@ -398,11 +410,22 @@ def sp_against_plain(errors: dict) -> None:
                                  dtype=np.uint32))
         _record(errors, "sp_seg1", f"B11 {name} k={k} B={LONG_BATCH}",
                 S.sp_seg1(long, plans), S.seg1_plain(long, plans))
+        for folded, seg in ((False, "sp_seg3"), (True, "sp_seg3 p3x")):
+            _record(errors, "sp_seg3", f"B16 {seg} {name} k={k} "
+                    f"B={LONG_BATCH}", S.sp_seg3(long, plans, folded=folded),
+                    S.seg3_plain(long, plans, folded=folded))
         p11 = S.seg1_compact_plan(plans)
         print(f"{name} k={k}: B11 over K1's nonzero blocks: {p11.rows} rows "
               f"a buffer, blocks of {1 << p11.c1.ls} lanes, depth {p11.c1.kp} "
               f"(dense {S.plan_for(plans, 'sp_seg1').kp1}), tables "
               f"{_route(p11)}; also equal to plain at B={LONG_BATCH}")
+        for folded, seg in ((False, "sp_seg3"), (True, "sp_seg3 p3x")):
+            p16 = S.seg3_compact_plan(plans, folded)
+            print(f"{name} k={k}: B16 ({seg}) over K3's nonzero blocks: "
+                  f"{p16.rows} rows a buffer, blocks of {1 << p16.c1.ls} "
+                  f"lanes, depth {p16.c1.kp} (dense "
+                  f"{S.plan_for(plans, seg).kp1}), tables {_route(p16)}; "
+                  f"also equal to plain at B={LONG_BATCH}")
         print(f"{name} k={k} (SP plan {plan_s:.1f} s: nloc={nloc}, "
               f"TW={plans.TW}, A={plans.A}, Lr={plans.Lr}, din p1/p2f/p2i/p3/"
               f"p2x/p3x {plans.p1.din}/{plans.p2f.din}/{plans.p2i.din}/"
@@ -690,10 +713,12 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     ``sp_fold`` the timed constant's folded SP operand): the bytes it must move
     (each input, tables included, read once, the output written once) and
     its int8 tensor-core MACs (the digit products at their plans' depth,
-    the padding and the SP tables' zero blocks excluded).  B11 and B18 read
-    their tables' nonzero blocks alone (``w1c``, ``w2cc``, ``w2ic``); their
-    MACs are counted on the dense tables' nonzero lane pairs like the
-    others', so a bound reads the same work whatever implements it."""
+    the padding and the SP tables' zero blocks excluded).  B11, B16 and B18
+    read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
+    ``w2cc``, ``w2ic``); their MACs are counted on the dense tables' nonzero
+    lane pairs like the others', so a bound reads the same work whatever
+    implements it.  B5's tables are counted once, as ``wf`` and ``wi``,
+    whatever stream it reads them in."""
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
     plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
@@ -727,8 +752,8 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     work["sp_seg1"] = (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1)
     work["sp_seg2"] = (3 * row + _nbytes(st.w2f, st.c2f, st.w2i, st.c2i),
                        2 * m2f + m2i)
-    work["sp_seg3"] = (2 * row + _nbytes(st.w3, st.c3) + sp_tw, m3)
-    work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3x, st.c3x) + sp_tw, m3x)
+    work["sp_seg3"] = (2 * row + _nbytes(st.w3c, st.c3) + sp_tw, m3)
+    work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3xc, st.c3x) + sp_tw, m3x)
     work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2f, st.c2f, st.w2i,
                                                       st.c2i), m2f + m2i)
     work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2f, st.c2f), m2f)
@@ -846,6 +871,21 @@ def timing(device_line: str) -> dict:
           f"B10 gs_ct {med['polymul_pairing_gs_ct']:.4f} ms, "
           f"B1 {med['polymul_fused']:.4f} [{device_line}]")
 
+    # One shard's local work is timed warm, as the kernels are, and cold:
+    # L2 flushed and the host queued ahead before each call
+    # (time_cuda(cold=True)); the SP cost per shard divides cold times by
+    # cold times of B5, B1, B8 and B4.
+    def cold(fn, *args) -> float:
+        return time_cuda(fn, *args, warmup=3, repeats=20,
+                         cold=True).median_ms
+
+    single = {name: cold(runs[name][0], *runs[name][2])
+              for name in ("polymul_mxu", "polymul_fused",
+                           "polymul_fixed_mxu", "polymul_fixed_fused")}
+    print("timing cold (L2 flushed, host queued ahead): " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in single.items()) +
+        f" [{device_line}]", flush=True)
+
     # the SP path end to end, and one shard's local work at each k
     sp = polymul_fourstep_mxu_fn(MAIN_SET, make_mesh(model=SP_K))
     res = _turns(sp, lambda a, b: S.polymul_fourstep_mxu_plain(a, b, plans),
@@ -858,12 +898,13 @@ def timing(device_line: str) -> dict:
     for k in (2, 4, 8):
         pipe, lp = local_pipeline_fn(MAIN_SET, k)
         xl, yl = (t[:, :lp.nloc].contiguous() for t in (x, y))
-        t = time_cuda(pipe, xl, yl, warmup=3, repeats=20)
-        tl = t.median_ms
+        tl = time_cuda(pipe, xl, yl, warmup=3, repeats=20).median_ms
+        tc = cold(pipe, xl, yl)
         print(f"timing local_pipeline_fn k={k}: B={B} nloc={lp.nloc} median "
-              f"{tl:.4f} ms; SP cost per shard k*t_local/t_B5 = "
-              f"{k * tl / med['polymul_mxu']:.3f}, k*t_local/t_B1 = "
-              f"{k * tl / med['polymul_fused']:.3f} [{device_line}]",
+              f"{tl:.4f} ms warm, {tc:.4f} ms cold; SP cost per shard "
+              f"(cold) k*t_local/t_B5 = "
+              f"{k * tc / single['polymul_mxu']:.3f}, k*t_local/t_B1 = "
+              f"{k * tc / single['polymul_fused']:.3f} [{device_line}]",
               flush=True)
 
     # the fixed SP paths end to end, and one shard's fixed and folded work
@@ -891,11 +932,13 @@ def timing(device_line: str) -> dict:
         spec = _u32(rng.integers(0, q, (k, lp.nloc), dtype=np.uint32))
         for what, const in (("fixed", spec), ("folded", _fold(lp, spec))):
             tl = time_cuda(pipe, xl, const, warmup=3, repeats=20).median_ms
+            tc = cold(pipe, xl, const)
             print(f"timing local_fixed_pipeline_fn {what} k={k}: B={B} "
-                  f"nloc={lp.nloc} median {tl:.4f} ms; SP cost per shard "
-                  f"k*t_local/t_B8 = {k * tl / med['polymul_fixed_mxu']:.3f},"
-                  f" k*t_local/t_B4 = "
-                  f"{k * tl / med['polymul_fixed_fused']:.3f} "
+                  f"nloc={lp.nloc} median {tl:.4f} ms warm, {tc:.4f} ms "
+                  f"cold; SP cost per shard (cold) k*t_local/t_B8 = "
+                  f"{k * tc / single['polymul_fixed_mxu']:.3f}, "
+                  f"k*t_local/t_B4 = "
+                  f"{k * tc / single['polymul_fixed_fused']:.3f} "
                   f"[{device_line}]", flush=True)
 
     # the class path end to end, one shard's class work at each k, and the
@@ -915,15 +958,17 @@ def timing(device_line: str) -> dict:
                            ("SP", local_pipeline_fn)):
             pipe, lp = make(MAIN_SET, k)[:2]
             xl, yl = (t[:, :lp.nloc].contiguous() for t in (x, y))
-            times[what] = time_cuda(pipe, xl, yl, warmup=3,
-                                    repeats=20).median_ms
-        tl = times["classes"]
+            times[what] = (time_cuda(pipe, xl, yl, warmup=3,
+                                     repeats=20).median_ms,
+                           cold(pipe, xl, yl))
+        tl, tc = times["classes"]
         print(f"timing local_pipeline_classes_fn k={k}: B={B} nloc={lp.nloc} "
-              f"median {tl:.4f} ms (local_pipeline_fn {times['SP']:.4f}); SP "
-              f"cost per shard k*t_local/t_B5 = "
-              f"{k * tl / med['polymul_mxu']:.3f}, k*t_local/t_B1 = "
-              f"{k * tl / med['polymul_fused']:.3f} [{device_line}]",
-              flush=True)
+              f"median {tl:.4f} ms warm, {tc:.4f} ms cold "
+              f"(local_pipeline_fn {times['SP'][0]:.4f}, "
+              f"{times['SP'][1]:.4f}); SP cost per shard (cold) "
+              f"k*t_local/t_B5 = {k * tc / single['polymul_mxu']:.3f}, "
+              f"k*t_local/t_B1 = {k * tc / single['polymul_fused']:.3f} "
+              f"[{device_line}]", flush=True)
     v1 = S.sp_seg1(sx, plans)
     u1 = C.sp_seg1_classes(sx, plans, cp)
     t_sp, t_cls = (time_cuda(f, t, warmup=3, repeats=20).median_ms

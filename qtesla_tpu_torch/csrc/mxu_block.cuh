@@ -37,7 +37,9 @@
 // These blocks multiply a whole bw x bw table.  The sequence-parallel tables
 // are block-diagonal under a lane permutation; mxu_compact.cuh holds the
 // counterparts that multiply the nonzero blocks alone (split_compact,
-// mma_compact, recombine_compact), which B11 and B18 are built from.
+// mma_compact, recombine_compact), which B11, B16 and B18 are built from.
+// B5 runs the wide stages and recombine_tile with MMAs of its own
+// (ntt_mxu.cu).
 #pragma once
 
 #include <cstdint>
@@ -77,9 +79,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The threads that share a phase's work and its barriers: the whole block
+// (__syncthreads), or its first N threads (named barrier 1), which leaves
+// the warps after them free to do other work, such as B5's table stream.
+struct WholeBlock {
+    __device__ static int count() { return blockDim.x; }
+    __device__ static void sync() { __syncthreads(); }
+};
+template <int N>
+struct FirstThreads {
+    __device__ static constexpr int count() { return N; }
+    __device__ static void sync() {
+        asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+    }
+};
+
 // The first lr merged-psi CT stages of the m-point transform over `rows`
-// rows, canonical in and out.  Stage s has 2^s blocks of 2t elements,
-// t = m >> (s + 1); block i uses tw[2^s + i].
+// rows, canonical in and out, by the threads of Team.  Stage s has 2^s
+// blocks of 2t elements, t = m >> (s + 1); block i uses tw[2^s + i].
+template <class Team = WholeBlock>
 __device__ inline void fwd_wide(uint32_t* data, int rows, int logm, int llanes,
                                 int lr, const uint32_t* __restrict__ tw,
                                 uint32_t q) {
@@ -88,7 +106,7 @@ __device__ inline void fwd_wide(uint32_t* data, int rows, int logm, int llanes,
     for (int s = 0; s < lr; ++s) {
         const int sh = logm - 1 - s;
         const int t = 1 << sh, dist = t << llanes;
-        for (int k = threadIdx.x; k < rows << hl; k += blockDim.x) {
+        for (int k = threadIdx.x; k < rows << hl; k += Team::count()) {
             const int kk = k & ((1 << hl) - 1);
             const int jj = kk >> llanes;
             const int i = jj >> sh;
@@ -102,14 +120,16 @@ __device__ inline void fwd_wide(uint32_t* data, int rows, int logm, int llanes,
             a[0] = csub(u + v, q);
             a[dist] = csub(u - v + q, q);
         }
-        __syncthreads();
+        Team::sync();
     }
 }
 
 // The last lr merged-psi GS stages of the m-point transform over `rows`
-// rows, canonical in and out.  Stage s has pair distance t = 2^s and
-// h = m >> (s + 1) blocks; block i uses itw[h + i]; the last stage's sum
-// branch takes itw[0] = m^{-1} (its difference twiddle itw[1] carries it).
+// rows, canonical in and out, by the threads of Team.  Stage s has pair
+// distance t = 2^s and h = m >> (s + 1) blocks; block i uses itw[h + i]; the
+// last stage's sum branch takes itw[0] = m^{-1} (its difference twiddle
+// itw[1] carries it).
+template <class Team = WholeBlock>
 __device__ inline void inv_wide(uint32_t* data, int rows, int logm, int llanes,
                                 int lr, const uint32_t* __restrict__ tw,
                                 uint32_t q) {
@@ -121,7 +141,7 @@ __device__ inline void inv_wide(uint32_t* data, int rows, int logm, int llanes,
         const int t = 1 << s, dist = t << llanes;
         const int h = m >> (s + 1);
         const bool last = s == logm - 1;
-        for (int k = threadIdx.x; k < rows << hl; k += blockDim.x) {
+        for (int k = threadIdx.x; k < rows << hl; k += Team::count()) {
             const int kk = k & ((1 << hl) - 1);
             const int jj = kk >> llanes;
             const int i = jj >> s;
@@ -137,7 +157,7 @@ __device__ inline void inv_wide(uint32_t* data, int rows, int logm, int llanes,
             a[dist] = csub(shoup_lazy(u - v + q, __ldg(itw + h + i),
                                       __ldg(itw_sh + h + i), q), q);
         }
-        __syncthreads();
+        Team::sync();
     }
 }
 

@@ -1,5 +1,5 @@
 // Building blocks of the digit-matmul kernels that multiply only the
-// nonzero blocks of their tables (B11 in sharded_mxu.cu, B18 in
+// nonzero blocks of their tables (B11 and B16 in sharded_mxu.cu, B18 in
 // sharded_classes.cu), beside the dense ones of mxu_block.cuh.
 //
 // A sequence-parallel tile matrix (TW x TW lanes) is block-diagonal once
@@ -29,9 +29,9 @@
 //                   (recombine_value for one output), written back at the
 //                   lane each position came from, so the kernels' inputs
 //                   and outputs keep the row's order.
-// B11 runs them as the phases of a block; B18 gives each warp rows of its
-// own and runs split, products and epilogues without a block barrier
-// (pack_digits, store_planes, table_fragment, recombine_value).
+// B11 and B16 run them as the phases of a block; B18 gives each warp rows
+// of its own and runs split, products and epilogues without a block
+// barrier (pack_digits, store_planes, table_fragment, recombine_value).
 //
 // The planes' pad columns (planes * s .. kp-1) need no zeroing: they meet
 // zero table columns, and any int8 times 0 is 0.  split_compact,

@@ -28,12 +28,13 @@
 //         then the Lr inverse wide stages with n1^{-1} in the last; at
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
-// The wide stages and the block matmul are mxu_block.cuh's, shared with
-// B5-B9.  Every output is canonical, and canonical inputs lie below every
-// plan's split bound, so the JAX plans' split parameters serve unchanged;
+// The wide stages and the dense block matmul are mxu_block.cuh's, shared
+// with B6-B9; B11 and B16 multiply through mxu_compact.cuh.  Every output
+// is canonical, and canonical inputs lie below every plan's split bound,
+// so the JAX plans' split parameters serve unchanged;
 // the TPU kernel's lazy hand-offs between segments are not replayed.
 //
-// Design of B12-B16.  One launch covers the k_local stacked shards
+// Design of B12-B15.  One launch covers the k_local stacked shards
 // (k_local, B, nloc) of a call: grid (row groups, shard), each shard's
 // tables found by offset (K2f and its const row are one table for every
 // shard).  A rank of a multi-process run launches the same kernel with
@@ -52,17 +53,21 @@
 // 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
 // two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
 // TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.  These kernels multiply whole TW x TW
+// zero table columns and zero planes.  B12-B15 multiply whole TW x TW
 // tiles against tables streamed from L2 once per row group, and run load,
 // wide stages, split, products and recombination as barrier-separated
 // phases; no TMA and no wgmma.
 //
-// Design of B11 (seg1_compact_kernel).  K1 couples only lanes of equal
-// lambda: in lambda-major order a tile is n2k diagonal blocks of Bk lanes
-// (1/8 of a dense tile at qtesla-iii-speed, k = 4), and the planner hands
-// over those blocks alone (compact_tables; mxu_compact.cuh).  The kernel
+// Design of B11 and B16 (column_compact_kernel, one body, the direction a
+// template parameter: B11 runs the forward wide stages, then the products;
+// B16 the products, then the inverse wide stages).  K1 and K3 are both
+// kron(M, I_n2k): they couple only lanes of equal lambda, so in
+// lambda-major order a tile is n2k diagonal blocks of Bk lanes (1/8 of a
+// dense tile at qtesla-iii-speed, k = 4), and the planner hands over those
+// blocks alone (compact_tables; mxu_compact.cuh).  The kernel
 //   - multiplies every 8-lane output tile over its own block's depth,
-//     din * s padded to 32: 64 where the dense product ran 384.  Blocks
+//     din * s padded to 32: 64 where the dense product ran 384 (B11) and
+//     512 (B16, p3 and p3x at 4 planes).  Blocks
 //     narrower than 8 lanes (Bk = 4: qtesla-p-iii at k = 2, n = 8192 at
 //     k = 4, smallprime) are widened to 8 positions, so half of such a
 //     block's products meet zeros; no plan takes a dense route;
@@ -75,13 +80,17 @@
 //     split (four digits a word, byte permutes at base 256), products and
 //     recombination;
 //   - shared memory at qtesla-iii-speed, k = 4: 2 x 16 rows (32 KiB), const
-//     rows 1 KiB, planes 16 x 608 B (9.5 KiB), tables 48 KiB: 90.5 KiB, two
-//     256-thread blocks an SM.  Where one block fits it takes 32 rows and
-//     512 threads.  Where the shard's tables do not fit beside two row
-//     buffers (qtesla-p-iii at k = 2, n = 8192: 160-192 KiB of tables) the
-//     same kernel reads the compact blocks through L2 (kSmemTables false);
-//     parallel/sharded_mxu.py seg1_compact_plan picks the rows and the
-//     route, the launcher checks them.
+//     rows 1 KiB, planes 16 x 608 B (9.5 KiB), tables 48 KiB (B16 the
+//     same, K3 under p3 or p3x): 90.5 KiB, two 256-thread blocks an SM.
+//     Where one block fits it takes 32 rows and 512 threads.  Where the
+//     shard's tables do not fit beside two row buffers (qtesla-p-iii at
+//     k = 2, n = 8192: 160-192 KiB of tables) the same kernel reads the
+//     compact blocks through L2 (kSmemTables false);
+//     parallel/sharded_mxu.py seg1_compact_plan and seg3_compact_plan pick
+//     the rows and the route, the launcher checks them.
+// B16 ran as a mode of sp_kernel until it took this design: dense 512-deep
+// products against K3 streamed from L2 once per 32-row group, then the
+// inverse wide stages, 0.69 ms at qtesla-iii-speed, k = 4 (PERF.md).
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md, utils/phase_ablation.py,
 // utils/ab_timing.py): the dense B11 took 0.60 ms, 0.20 of it products and
 // 0.16 their table stream; over the nonzero blocks 0.36, with four digits
@@ -94,7 +103,7 @@
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; B12-B16 multiply whole tiles all the same):
+// over n2-blocks, n2/TW = 1/4; B12-B15 multiply whole tiles all the same):
 //   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
@@ -105,7 +114,7 @@
 // The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
-// shard), k_local, a pointer to an SpPlan (B11: an SpCompactPlan) and a
+// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan) and a
 // stream, launches without synchronising and returns cudaGetLastError().
 
 #include <cstdint>
@@ -145,8 +154,10 @@ constexpr int kSmThreads = 512;
 // shared memory of one SM, and what the runtime reserves for each block
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
-// kSeg1 keeps its number: B11 runs seg1_compact_kernel below
-enum Seg { kSeg1, kSeg2, kSeg3, kSeg2Fixed, kSeg2Fwd, kSeg2Folded };
+// the row segments, numbered so that sp_kernel<seg,threads> keeps the
+// instantiation names utils/sass_diff.py matches across trees (B11 and B16
+// are column_compact_kernel below)
+enum Seg { kSeg2 = 1, kSeg2Fixed = 3, kSeg2Fwd, kSeg2Folded };
 
 // operand rows per batch row a block holds, and whether it has a digit plan 2
 __host__ __device__ constexpr int ops_of(int seg) {
@@ -222,10 +233,9 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
                      c2 + shard * cshard, p.tw, p.din2, p.lb2, p.add2, p.kb2,
                      p);
     }
-    if (SEG == kSeg2Folded || SEG == kSeg3)
+    if (SEG == kSeg2Folded)
         block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
                      p.kp1, c1_shard, p.tw, p.din1, p.lb1, p.add1, p.kb1, p);
-    if (SEG == kSeg3) qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
 
     for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4)
         if ((c >> p.lnloc) < live)
@@ -300,20 +310,21 @@ int launch(const void* a, const void* b, void* out, const void* w1,
 }
 
 // ----------------------------------------------------------------------
-// B11 over K1's nonzero blocks (header note: design of B11).
+// B11 and B16 over K1's and K3's nonzero blocks (header note: design of
+// B11 and B16).
 // ----------------------------------------------------------------------
 
 // Field for field the SpCompactPlan ctypes.Structure of
-// parallel/sharded_mxu.py: SpPlan's fields, the compact layout of K1 (c2
-// unused), and whether the shard's tables are held in shared memory.
+// parallel/sharded_mxu.py: SpPlan's fields, the compact layout of K1 or K3
+// (c2 unused), and whether the shard's tables are held in shared memory.
 struct SpCompactPlan : SpPlan {
     CompactDims c1, c2;
     int32_t smem_tables;
 };
 
-// Shared memory of one seg1_compact_kernel block: two row buffers, the
+// Shared memory of one column_compact_kernel block: two row buffers, the
 // shard's const rows, the digit planes of one tile, the shard's tables.
-size_t seg1_compact_smem(const SpCompactPlan& cp) {
+size_t column_compact_smem(const SpCompactPlan& cp) {
     const SpPlan& p = cp;
     const int nblk = p.tw >> cp.c1.ls;
     const size_t tables =
@@ -324,14 +335,17 @@ size_t seg1_compact_smem(const SpCompactPlan& cp) {
            (cp.smem_tables ? tables : 0);
 }
 
-template <int THREADS, bool kSmemTables>
+// The column segments: B11 (kInverse false) runs the forward wide stages,
+// then per tile the product against K1; B16 (kInverse true) per tile the
+// product against K3, then the inverse wide stages.
+template <int THREADS, bool kSmemTables, bool kInverse>
 __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
-    seg1_compact_kernel(const uint32_t* __restrict__ x,
-                        uint32_t* __restrict__ z,
-                        const int8_t* __restrict__ w1c,
-                        const uint32_t* __restrict__ c1,
-                        const uint32_t* __restrict__ tw, long long batch,
-                        const __grid_constant__ SpCompactPlan cp) {
+    column_compact_kernel(const uint32_t* __restrict__ x,
+                          uint32_t* __restrict__ z,
+                          const int8_t* __restrict__ wc,
+                          const uint32_t* __restrict__ c1,
+                          const uint32_t* __restrict__ tw, long long batch,
+                          const __grid_constant__ SpCompactPlan cp) {
     extern __shared__ __align__(16) uint32_t smem[];
     const SpPlan& p = cp;
     const CompactDims& c = cp.c1;
@@ -342,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     uint32_t* cst = smem + 2 * tb * nloc;      // after the two row buffers
     int8_t* planes = reinterpret_cast<int8_t*>(cst + nloc);
     const int shard = blockIdx.y;
-    const int8_t* wt = w1c + shard * p.a * tile_bytes;
+    const int8_t* wt = wc + shard * p.a * tile_bytes;
     const long long groups = (batch + tb - 1) / tb;
 
     // rows past the batch are zero-filled
@@ -379,7 +393,7 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         if (rg + gridDim.x < groups)
             load_rows(smem + (cur ^ 1) * tb * nloc, rg + gridDim.x);
 
-        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        if (!kInverse) qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
         for (int t = 0; t < p.a; ++t) {
             uint32_t* tile = data + t * p.tw;
             qt::split_compact(tile, tb, nloc, ltw, planes, ks, c, 0, p.din1,
@@ -394,6 +408,7 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
                 });
             __syncthreads();
         }
+        if (kInverse) qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
         const long long row0 = rg * tb;
         const int live =
             batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
@@ -406,12 +421,12 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     cp_async_wait_all();
 }
 
-template <int THREADS, bool kSmemTables>
-int run_seg1_compact(const void* a, void* out, const void* w1,
-                     const void* c1, const void* tw, long long batch,
-                     int k_local, size_t smem, const SpCompactPlan& cp,
-                     void* stream) {
-    auto kernel = seg1_compact_kernel<THREADS, kSmemTables>;
+template <int THREADS, bool kSmemTables, bool kInverse>
+int run_column_compact(const void* a, void* out, const void* w,
+                       const void* c1, const void* tw, long long batch,
+                       int k_local, size_t smem, const SpCompactPlan& cp,
+                       void* stream) {
+    auto kernel = column_compact_kernel<THREADS, kSmemTables, kInverse>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -426,14 +441,15 @@ int run_seg1_compact(const void* a, void* out, const void* w1,
                   static_cast<unsigned>(k_local)),
              THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
-        static_cast<const int8_t*>(w1), static_cast<const uint32_t*>(c1),
+        static_cast<const int8_t*>(w), static_cast<const uint32_t*>(c1),
         static_cast<const uint32_t*>(tw), batch, cp);
     return cudaGetLastError();
 }
 
-int launch_seg1_compact(const void* a, void* out, const void* w1,
-                        const void* c1, const void* tw, long long batch,
-                        int k_local, const void* plan, void* stream) {
+template <bool kInverse>
+int launch_column_compact(const void* a, void* out, const void* w,
+                          const void* c1, const void* tw, long long batch,
+                          int k_local, const void* plan, void* stream) {
     const SpCompactPlan cp = *static_cast<const SpCompactPlan*>(plan);
     const SpPlan& p = cp;
     const CompactDims& c = cp.c1;
@@ -449,18 +465,18 @@ int launch_seg1_compact(const void* a, void* out, const void* w1,
         c.kp >= (p.din1 << c.ls) + 32 || batch <= 0 || k_local < 1 ||
         k_local > 65535)
         return cudaErrorInvalidValue;
-    const size_t smem = seg1_compact_smem(cp);
+    const size_t smem = column_compact_smem(cp);
     if (smem + kBlockReserve > kSmShared) return cudaErrorInvalidValue;
     const bool two = 2 * (smem + kBlockReserve) <= kSmShared;
     if (cp.smem_tables)
-        return two ? run_seg1_compact<256, true>(a, out, w1, c1, tw, batch,
-                                                 k_local, smem, cp, stream)
-                   : run_seg1_compact<512, true>(a, out, w1, c1, tw, batch,
-                                                 k_local, smem, cp, stream);
-    return two ? run_seg1_compact<256, false>(a, out, w1, c1, tw, batch,
-                                              k_local, smem, cp, stream)
-               : run_seg1_compact<512, false>(a, out, w1, c1, tw, batch,
-                                              k_local, smem, cp, stream);
+        return two ? run_column_compact<256, true, kInverse>(
+                         a, out, w, c1, tw, batch, k_local, smem, cp, stream)
+                   : run_column_compact<512, true, kInverse>(
+                         a, out, w, c1, tw, batch, k_local, smem, cp, stream);
+    return two ? run_column_compact<256, false, kInverse>(
+                     a, out, w, c1, tw, batch, k_local, smem, cp, stream)
+               : run_column_compact<512, false, kInverse>(
+                     a, out, w, c1, tw, batch, k_local, smem, cp, stream);
 }
 
 }  // namespace
@@ -474,17 +490,24 @@ int launch_seg1_compact(const void* a, void* out, const void* w1,
                            plan, stream);                                    \
     }
 
-// B11: w1 the shard slice of the compact K1 (tabs.w1c), plan an
-// SpCompactPlan; b, w2 and c2 unused
+// B11 and B16: w1 the shard slice of the compact K1 (tabs.w1c) or K3
+// (tabs.w3c, tabs.w3xc under p3x), plan an SpCompactPlan; b, w2 and c2
+// unused
 extern "C" int qt_sp_seg1(const void* a, const void*, void* out,
                           const void* w1, const void* c1, const void*,
                           const void*, const void* tw, long long batch,
                           int k_local, const void* plan, void* stream) {
-    return launch_seg1_compact(a, out, w1, c1, tw, batch, k_local, plan,
-                               stream);
+    return launch_column_compact<false>(a, out, w1, c1, tw, batch, k_local,
+                                        plan, stream);
+}
+extern "C" int qt_sp_seg3(const void* a, const void*, void* out,
+                          const void* w1, const void* c1, const void*,
+                          const void*, const void* tw, long long batch,
+                          int k_local, const void* plan, void* stream) {
+    return launch_column_compact<true>(a, out, w1, c1, tw, batch, k_local,
+                                       plan, stream);
 }
 QT_SP_LAUNCHER(qt_sp_seg2, kSeg2)
-QT_SP_LAUNCHER(qt_sp_seg3, kSeg3)
 QT_SP_LAUNCHER(qt_sp_seg2_fixed, kSeg2Fixed)
 QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
 QT_SP_LAUNCHER(qt_sp_seg2_folded, kSeg2Folded)

@@ -255,7 +255,8 @@ class NegacyclicPolymul(nn.Module):
             "pairing_twiddles",
             torch.from_numpy(self.tbl.pairing_packed).clone())
         tabs = M.host_tables(get_mxu_tables(self.tbl.ps.name))
-        for field, t in zip(("wf", "constf", "wi", "consti"), tabs.tensors()):
+        for field, t in zip(("wf", "constf", "wi", "consti", "stream"),
+                            tabs.tensors()):
             self.register_buffer("mxu_" + field, t)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
@@ -264,7 +265,8 @@ class NegacyclicPolymul(nn.Module):
             raise _unsupported(algo, ALGORITHMS)
         if algo == "mxu":
             tabs = M.MxuDeviceTables(self.mxu_wf, self.mxu_constf,
-                                     self.mxu_wi, self.mxu_consti)
+                                     self.mxu_wi, self.mxu_consti,
+                                     self.mxu_stream)
             return _pm_mxu(x, y, self.tbl, self.twiddles, tabs)
         if algo.endswith("_kernel"):
             return _PIPELINES[algo](x, y, self.tbl, self.pairing_twiddles)

@@ -20,6 +20,10 @@ where ``const`` folds the centring offset and subtracts ``group_bias``, the
 biases the TPU kernel adds to its Horner-packed class groups.  A
 recombination that does not bias its groups adds ``group_bias`` back.
 
+``stream_tables(mt)`` lays the forward and inverse tables out as the
+stages B5's kernel copies into shared memory one by one (``expand_stream``
+is its inverse).
+
 ``get_mxu_tables(name)`` plans from the port's registry;
 ``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
 
@@ -44,7 +48,8 @@ from .tables import NttTables, from_jax_tables, get_tables
 __all__ = ["MxuTables", "get_mxu_tables", "from_jax_mxu_tables",
            "pointwise_bound", "FixedFoldPlan", "fold_plan", "fixed_fold_plan",
            "fold_tables", "fixed_fold_tables", "from_jax_fold_plan",
-           "from_jax_fold_tables"]
+           "from_jax_fold_tables", "STAGE_DEPTH", "stream_stages",
+           "stream_tables", "expand_stream"]
 
 _BW_MAX = 128            # block width: one TPU vreg of lanes
 
@@ -651,3 +656,63 @@ def from_jax_fold_tables(W, c):
                          f"(nb, 1, bw), got {W.dtype} {W.shape} and "
                          f"{c.dtype} {c.shape}")
     return W, c
+
+
+# ----------------------------------------------------------------------
+# B5's table stream.
+# ----------------------------------------------------------------------
+
+STAGE_DEPTH = 64         # table depth of one stage: two 32-deep MMA steps
+_MMA_LANES = 8           # output lanes of one MMA tile
+
+
+def stream_stages(din: int, bw: int) -> int:
+    """Stages of one block's table of ``din`` planes: din*bw over 64."""
+    return -(-din * bw // STAGE_DEPTH)
+
+
+def _stages(w: np.ndarray) -> np.ndarray:
+    """Input-major tables (nb, din, bw, D*bw) -> their stages (nb*C,
+    bw*D*64) int8, in the order the MMA warps read them: stage (b, c) of a
+    block holds depth [64c, 64c + 64) of the output-major table T[b] (row
+    j*bw + o, column i*bw + k, zero past din*bw) as [lt][j][g][t][s][8]:
+    the 16 bytes lane 4g + t of the warp of output tile lt takes for class
+    j, row j*bw + 8lt + g, bytes 32s + 8t .. 32s + 8t + 7 of the slice (s the
+    32-deep step)."""
+    nb, din, bw, dbw = w.shape
+    D, C = dbw // bw, stream_stages(din, bw)
+    T = np.zeros((nb, dbw, C * STAGE_DEPTH), dtype=np.int8)
+    T[..., :din * bw] = np.moveaxis(w, -1, 1).reshape(nb, dbw, din * bw)
+    T = T.reshape(nb, D, bw // _MMA_LANES, _MMA_LANES, C, 2, 4, 8)
+    # (b, j, lt, g, c, s, t, byte) -> (b, c, lt, j, g, t, s, byte)
+    return np.ascontiguousarray(T.transpose(0, 4, 2, 1, 3, 6, 5, 7)).reshape(
+        nb * C, STAGE_DEPTH * dbw)
+
+
+def _unstages(st: np.ndarray, nb: int, din: int, bw: int,
+              D: int) -> np.ndarray:
+    C = stream_stages(din, bw)
+    T = st.reshape(nb, C, bw // _MMA_LANES, D, _MMA_LANES, 4, 2, 8)
+    T = T.transpose(0, 3, 2, 4, 1, 6, 5, 7).reshape(nb, D * bw,
+                                                     C * STAGE_DEPTH)
+    return np.moveaxis(T[..., :din * bw].reshape(nb, D * bw, din, bw), 1, -1)
+
+
+def stream_tables(mt: MxuTables) -> np.ndarray:
+    """B5's table stream: the forward tables' stages, then the inverse
+    tables', (nb * (Cf + Ci), 64 * bw * D) int8 with C = din*bw / 64 rounded
+    up.  One stage is one bulk copy; the kernel walks them in this order
+    once per row group."""
+    return np.concatenate([_stages(mt.wf), _stages(mt.wi)])
+
+
+def expand_stream(st: np.ndarray, mt: MxuTables) -> tuple:
+    """The inverse of ``stream_tables``: (wf, wi) input-major as in
+    ``MxuTables``.  Raises if the depth padding of a stage is not zero."""
+    nf = mt.nb * stream_stages(mt.Df, mt.bw)
+    out = tuple(_unstages(part, mt.nb, din, mt.bw, mt.D)
+                for part, din in ((st[:nf], mt.Df), (st[nf:], mt.Di)))
+    if np.count_nonzero(st) != sum(np.count_nonzero(w) for w in out):
+        raise ValueError("the stream's depth padding holds nonzero bytes")
+    return out
+

@@ -42,12 +42,14 @@ from dataclasses import dataclass
 import torch
 
 from . import ntt as N
-from .mxu_tables import (FixedFoldPlan, MxuTables, _group_bias, _split_bias,
-                         fold_plan, fold_tables, get_mxu_tables)
+from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _group_bias,
+                         _split_bias, fold_plan, fold_tables, get_mxu_tables,
+                         stream_stages, stream_tables)
 from .ntt_fused import Kernel, _check, _check_tw
 
-__all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "FoldedOperand",
-           "host_tables", "device_tables", "plan_for", "fold_plan_for",
+__all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "MxuStreamPlan",
+           "FoldedOperand", "host_tables", "device_tables", "plan_for",
+           "stream_plan", "fold_plan_for",
            "block_rows", "fold_operand", "polymul_mxu_fn",
            "polymul_fixed_mxu_fn", "polymul_fixed_folded_mxu_fn",
            "ntt_mxu_fn", "intt_mxu_fn", "polymul_mxu", "polymul_fixed_mxu",
@@ -89,15 +91,19 @@ class MxuDeviceTables:
     digit class j, its columns the (plane i, input lane k) pairs at
     i*bw + k, i.e. ``MxuTables.wf`` with the output axis first; ``wi``
     likewise.  ``constf`` / ``consti`` uint32 (nb, bw) are the planner's
-    const rows."""
+    const rows.  ``stream`` int8 (nb*(Cf + Ci), 64*bw*D) is ``wf`` and
+    ``wi`` again as the stages B5 copies into shared memory
+    (``mxu_tables.stream_tables``); B6-B9 and the twins read ``wf`` and
+    ``wi``."""
 
     wf: torch.Tensor
     constf: torch.Tensor
     wi: torch.Tensor
     consti: torch.Tensor
+    stream: torch.Tensor
 
     def tensors(self):
-        return self.wf, self.constf, self.wi, self.consti
+        return self.wf, self.constf, self.wi, self.consti, self.stream
 
 
 def _kernel_layout(w) -> torch.Tensor:
@@ -110,7 +116,8 @@ def host_tables(mt: MxuTables) -> MxuDeviceTables:
     """The kernel-layout tables on the CPU, in new storage."""
     return MxuDeviceTables(
         _kernel_layout(mt.wf), torch.from_numpy(mt.constf[:, 0].copy()),
-        _kernel_layout(mt.wi), torch.from_numpy(mt.consti[:, 0].copy()))
+        _kernel_layout(mt.wi), torch.from_numpy(mt.consti[:, 0].copy()),
+        torch.from_numpy(stream_tables(mt)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,8 +153,10 @@ def fold_operand(spectrum: torch.Tensor, mt: MxuTables) -> FoldedOperand:
 
 def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
     nb, bw, D = mt.nb, mt.bw, mt.D
+    stages = nb * (stream_stages(mt.Df, bw) + stream_stages(mt.Di, bw))
     want = ((torch.int8, (nb, D * bw, mt.Df * bw)), (torch.uint32, (nb, bw)),
-            (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)))
+            (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)),
+            (torch.int8, (stages, STAGE_DEPTH * bw * D)))
     _check_shapes("MXU tables", tabs.tensors(), want, like)
 
 
@@ -353,11 +362,63 @@ def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
                       _group_bias(fp.groups, fp.bounds, mt.q))
 
 
-def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tabs, tw, a,
-            b) -> torch.Tensor:
+class MxuStreamPlan(ctypes.Structure):
+    """B5's run-time plan: ``MxuPlan``'s fields, then the stages of a
+    forward and of an inverse block matmul and the stages the kernel's ring
+    holds; field for field the ``MxuStreamPlan`` struct of
+    ``csrc/ntt_mxu.cu``."""
+
+    _fields_ = MxuPlan._fields_ + [(f, ctypes.c_int32) for f in (
+        "stages_f", "stages_i", "ring")]
+
+
+# B5's launch (csrc/ntt_mxu.cu computes the same sizes): the shared memory
+# of one SM and what the runtime keeps of each block, the bytes after a row
+# of digit planes, and the ring's most stages
+_SM_SHARED, _BLOCK_RESERVE, _PLANES_PAD, _MAX_RING = 233472, 1024, 16, 8
+
+
+def stream_smem(mt: MxuTables, rows: int, ring: int) -> int:
+    """Shared memory of one B5 block: ``ring`` stages, ``rows`` rows, their
+    digit planes and two barriers a stage."""
+    ks = max(stream_stages(mt.Df, mt.bw),
+             stream_stages(mt.Di, mt.bw)) * STAGE_DEPTH + _PLANES_PAD
+    return (ring * STAGE_DEPTH * mt.bw * mt.D + rows * mt.n * 4
+            + -(-rows // 16) * 16 * ks + 16 * ring)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(mt: MxuTables) -> MxuStreamPlan:
+    """B5's run-time plan: ``plan_for(mt, 2)`` with the stage counts and
+    the deepest ring that fits beside the rows (3 stages of 24 KiB at
+    qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan the
+    kernel cannot take raises: more than 4 digit classes (``plan_for``), a
+    split other than at most 4 planes of base 256 or 6 of base 128, a lane
+    block wider than 128, rows other than x's and y's in one MMA tile of 16
+    or in two (at most 16, or 32), or no room for two stages."""
+    base = plan_for(mt, 2)
+    for din, b in ((mt.Df, mt.fwd_base), (mt.Di, mt.inv_base)):
+        if b not in (128, 256) or din > (4 if b == 256 else 6):
+            raise ValueError(f"{mt.tbl.ps.name}: {din} planes of base {b} "
+                             f"are outside B5's split")
+    if mt.bw > 128 or (base.rows > 16 and base.rows != 32):
+        raise ValueError(f"bw={mt.bw}, rows={base.rows}: outside B5's "
+                         f"range")
+    ring = max((r for r in range(2, _MAX_RING + 1)
+                if stream_smem(mt, base.rows, r) + _BLOCK_RESERVE
+                <= _SM_SHARED), default=0)
+    if not ring:
+        raise ValueError(f"n={mt.n}: two stages do not fit beside the rows")
+    fields = {f: getattr(base, f) for f, _ in MxuPlan._fields_}
+    return MxuStreamPlan(**fields, stages_f=stream_stages(mt.Df, mt.bw),
+                         stages_i=stream_stages(mt.Di, mt.bw), ring=ring)
+
+
+def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
+            wf, cf, wi=None, ci) -> torch.Tensor:
     """Run ``kernel`` on CUDA tensors a (and b) into a new output, against
-    the four table tensors ``tabs`` (forward weights and const, inverse
-    weights and const)."""
+    the forward weights and const ``wf``, ``cf`` and the inverse ones
+    ``wi``, ``ci`` (B5: ``wf`` its stage stream, no ``wi``)."""
     from ..utils.build import load_library
 
     out = torch.empty_like(a)
@@ -365,7 +426,7 @@ def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tabs, tw, a,
     if batch == 0:
         return out
     lib = load_library()
-    ptr = [t.data_ptr() for t in tabs]
+    ptr = [None if t is None else t.data_ptr() for t in (wf, cf, wi, ci)]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = getattr(lib.cdll, kernel.symbol)(
@@ -377,6 +438,11 @@ def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tabs, tw, a,
                            f"({lib.error_string(err)})")
     kernel.launches += 1
     return out
+
+
+def _dense(tabs: MxuDeviceTables) -> dict:
+    """B6-B8's tables: the dense forward and inverse weights and consts."""
+    return dict(wf=tabs.wf, cf=tabs.constf, wi=tabs.wi, ci=tabs.consti)
 
 
 def _prepare(mt: MxuTables, tabs, tw, *tensors):
@@ -411,8 +477,8 @@ def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_mxu"], mt, plan_for(mt, 2),
-                       tabs.tensors(), tw, x, y)
+        return _launch(KERNELS["polymul_mxu"], mt, stream_plan(mt), tw, x,
+                       y, wf=tabs.stream, cf=tabs.constf, ci=tabs.consti)
     return polymul_mxu_plain(x, y, mt, tabs, tw)
 
 
@@ -426,7 +492,7 @@ def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
                          f"{tuple(yspec.shape)}")
     if x.is_cuda:
         return _launch(KERNELS["polymul_fixed_mxu"], mt, plan_for(mt, 1),
-                       tabs.tensors(), tw, x, yspec)
+                       tw, x, yspec, **_dense(tabs))
     return polymul_fixed_mxu_plain(x, yspec, mt, tabs, tw)
 
 
@@ -442,8 +508,8 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
                    (torch.uint32, (nb, bw))), x)
     if x.is_cuda:
         return _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
-                       fold_plan_for(mt, fp),
-                       (tabs.wf, tabs.constf, op.w, op.c), tw, x, None)
+                       fold_plan_for(mt, fp), tw, x, None, wf=tabs.wf,
+                       cf=tabs.constf, wi=op.w, ci=op.c)
     return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
 
@@ -451,8 +517,8 @@ def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_mxu"], mt, plan_for(mt, 1),
-                       tabs.tensors(), tw, x, None)
+        return _launch(KERNELS["ntt_mxu"], mt, plan_for(mt, 1), tw, x, None,
+                       **_dense(tabs))
     return ntt_mxu_plain(x, mt, tabs, tw)
 
 
@@ -461,8 +527,8 @@ def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     ``mt.pw_bound``, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_mxu"], mt, plan_for(mt, 1),
-                       tabs.tensors(), tw, X, None)
+        return _launch(KERNELS["intt_mxu"], mt, plan_for(mt, 1), tw, X, None,
+                       **_dense(tabs))
     return intt_mxu_plain(X, mt, tabs, tw)
 
 

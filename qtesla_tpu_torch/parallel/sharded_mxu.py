@@ -18,7 +18,8 @@ Counterpart of the kernels and the assembly of
   F = K2f diag(A^) K2i under the plan p2x;
 - ``sp_seg3``  B16, replaces ``_make_seg3`` (l.622): K3 per (shard, tile),
   then the inverse wide stages with n1^{-1}; ``folded=True`` takes the plan
-  p3x, as the folded path does;
+  p3x, as the folded path does.  B11 and B16 multiply only the nonzero
+  blocks of K1 and K3 (``w1c``, ``w3c``, ``w3xc``), in one kernel body;
 - ``a2a_fwd`` / ``a2a_inv``: the exchanges between them;
 - the entry points ``polymul_fourstep_mxu_fn(name, mesh)`` (l.828),
   ``local_pipeline_fn(name, k)`` (l.839), the fixed-operand pairs
@@ -78,7 +79,7 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "sp_seg1", "sp_seg2", "sp_seg2_fixed", "sp_seg2_fwd",
            "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg1_compact_plain",
            "compact_class_sums", "CompactDims", "SpCompactPlan",
-           "seg1_compact_plan",
+           "seg1_compact_plan", "seg3_compact_plan", "seg3_compact_plain",
            "compact_route", "seg2_plain",
            "seg2_fixed_plain", "seg2_fwd_plain", "seg2_folded_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
@@ -122,10 +123,12 @@ class SpDeviceTables:
     shared row table; ``c1``, ``c2i``, ``c3``, ``c3x`` uint32 (k, A, TW) and
     ``c2f`` (TW,) the const rows; ``tw`` the n1-point packed twiddles (4,
     n1).  ``w3x``/``c3x`` are K3 under p3x, the folded path's plan.
-    ``w1c`` int8 (k, A, nblk, D*s, kp) and ``w2ic`` are K1's and K2i's
-    nonzero blocks alone (``compact_tables``: lambda-major blocks of Bk
-    lanes for K1, the n2-blocks for K2i), what B11 and B18 multiply; B17
-    shares K1 with B11 and takes the dense ``w1``."""
+    ``w1c`` int8 (k, A, nblk, D*s, kp), ``w2ic``, ``w3c`` and ``w3xc`` are
+    K1's, K2i's and K3's (under p3 and p3x) nonzero blocks alone
+    (``compact_tables``: lambda-major blocks of Bk lanes for K1 and K3, the
+    n2-blocks for K2i), what B11, B18 and B16 multiply; B17 shares K1 with
+    B11 and takes the dense ``w1``; the dense ``w3``, ``w3x`` serve the
+    twins."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -140,11 +143,13 @@ class SpDeviceTables:
     c3x: torch.Tensor
     w1c: torch.Tensor
     w2ic: torch.Tensor
+    w3c: torch.Tensor
+    w3xc: torch.Tensor
 
     def tensors(self):
         return (self.w1, self.c1, self.w2f, self.c2f, self.w2i, self.c2i,
                 self.w3, self.c3, self.tw, self.w3x, self.c3x, self.w1c,
-                self.w2ic)
+                self.w2ic, self.w3c, self.w3xc)
 
 
 def _depth(din: int, TW: int) -> int:
@@ -169,6 +174,7 @@ def _const_rows(c: np.ndarray) -> torch.Tensor:
 
 def host_tables(plans: SpPlans) -> SpDeviceTables:
     """The kernel-layout tables on the CPU, in new storage."""
+    cols = compact_layout(plans, "columns")
     return SpDeviceTables(
         _kernel_layout(plans.p1.W), _const_rows(plans.p1.const),
         _kernel_layout(plans.p2f.W), _const_rows(plans.p2f.const),
@@ -176,10 +182,11 @@ def host_tables(plans: SpPlans) -> SpDeviceTables:
         _kernel_layout(plans.p3.W), _const_rows(plans.p3.const),
         torch.from_numpy(plans.t1.packed.copy()),
         _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const),
-        torch.from_numpy(compact_tables(plans.p1.W,
-                                        compact_layout(plans, "columns"))),
+        torch.from_numpy(compact_tables(plans.p1.W, cols)),
         torch.from_numpy(compact_tables(plans.p2i.W,
-                                        compact_layout(plans, "rows"))))
+                                        compact_layout(plans, "rows"))),
+        torch.from_numpy(compact_tables(plans.p3.W, cols)),
+        torch.from_numpy(compact_tables(plans.p3x.W, cols)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,7 +226,10 @@ def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
             (i8, (k, A, D * TW, kp["p3x"])), (u32, (k, A, TW)),
             (i8, (k, A, *_compact_shape(plans, "columns", D,
                                         plans.p1.din))),
-            (i8, (k, A, *_compact_shape(plans, "rows", D, plans.p2i.din))))
+            (i8, (k, A, *_compact_shape(plans, "rows", D, plans.p2i.din))),
+            (i8, (k, A, *_compact_shape(plans, "columns", D, plans.p3.din))),
+            (i8, (k, A, *_compact_shape(plans, "columns", D,
+                                        plans.p3x.din))))
     _check_shapes("SP tables", tabs.tensors(), want, like)
 
 
@@ -323,6 +333,27 @@ def seg1_compact_plain(x, plans: SpPlans, tabs=None, first: int = 0):
                             tabs.c1[sl], plans.p1, plans, "columns").to(_U32)
 
 
+def _column_inv(v, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
+    """The Lr inverse wide stages along j1 (n1^{-1} in the last) of
+    canonical int64 (S, B, nloc); canonical uint32."""
+    tw = tabs.tw.to(_I64)
+    L1 = plans.n1.bit_length() - 1
+    return _along_j1(v, plans, lambda t: N.intt_inv_merged(
+        t, plans.t1, tw, s_lo=L1 - plans.Lr)).to(_U32)
+
+
+def seg3_compact_plain(w, plans: SpPlans, tabs=None, first: int = 0,
+                       folded: bool = False):
+    """``seg3_plain`` reading the compact K3 (``tabs.w3c``, under p3x
+    ``tabs.w3xc``): what B16 multiplies.  Only the tests use it."""
+    tabs = _tabs(tabs, plans, w)
+    sl = slice(first, first + w.shape[0])
+    w3c, c3, p3 = ((tabs.w3xc, tabs.c3x, plans.p3x) if folded
+                   else (tabs.w3c, tabs.c3, plans.p3))
+    return _column_inv(_compact_product(w.to(_I64), w3c[sl], c3[sl], p3,
+                                        plans, "columns"), plans, tabs)
+
+
 def _rows_inv_compact(Z, plans: SpPlans, tabs: SpDeviceTables,
                       sl) -> torch.Tensor:
     """``_rows_inv`` reading the compact K2i (``tabs.w2ic``)."""
@@ -391,13 +422,10 @@ def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0,
     ``folded`` takes K3 under p3x, the folded path's plan."""
     tabs = _tabs(tabs, plans, w)
     sl = slice(first, first + w.shape[0])
-    tw = tabs.tw.to(_I64)
     w3, c3, p3 = ((tabs.w3x, tabs.c3x, plans.p3x) if folded
                   else (tabs.w3, tabs.c3, plans.p3))
-    v = _product(w.to(_I64), w3[sl], c3[sl], p3, plans)
-    L1 = plans.n1.bit_length() - 1
-    return _along_j1(v, plans, lambda t: N.intt_inv_merged(
-        t, plans.t1, tw, s_lo=L1 - plans.Lr)).to(_U32)
+    return _column_inv(_product(w.to(_I64), w3[sl], c3[sl], p3, plans), plans,
+                       tabs)
 
 
 # ----------------------------------------------------------------------
@@ -529,10 +557,10 @@ _COMPACT_FIELDS = [("c1", CompactDims), ("c2", CompactDims),
 
 
 class SpCompactPlan(ctypes.Structure):
-    """B11's run-time plan: ``SpPlan``'s fields, then the compact layout
-    ``c1`` of its tables (``c2`` unused) and whether the shard's tables are
-    held in shared memory (1) or read from L2 (0); field for field the
-    ``SpCompactPlan`` struct of ``csrc/sharded_mxu.cu``."""
+    """B11's and B16's run-time plan: ``SpPlan``'s fields, then the compact
+    layout ``c1`` of the tables (``c2`` unused) and whether the shard's
+    tables are held in shared memory (1) or read from L2 (0); field for
+    field the ``SpCompactPlan`` struct of ``csrc/sharded_mxu.cu``."""
 
     _fields_ = SpPlan._fields_ + _COMPACT_FIELDS
 
@@ -551,7 +579,7 @@ def planes_stride(nblk: int, kp: int) -> int:
 
 
 def compact_route(smem_of) -> tuple[int, int]:
-    """(rows, smem_tables) of B11, whose block takes ``smem_of(rows,
+    """(rows, smem_tables) of B11 or B16, whose block takes ``smem_of(rows,
     smem_tables)`` bytes.  In order: the tables in shared memory with two
     blocks an SM at 16 rows a buffer, then with one block at 32 or 16; the
     tables read from L2 the same way, then with as many rows as one block
@@ -578,9 +606,25 @@ def seg1_compact_plan(plans: SpPlans) -> SpCompactPlan:
     (qtesla-iii-speed, k = 4: 32 KiB of rows, 1 KiB of const rows, 9.5 KiB
     of planes and the shard's 48 KiB of tables), 32 where one block fits,
     fewer where rows are long (n = 8192)."""
-    sp = plan_for(plans, "sp_seg1")
+    return _column_compact_plan(plans, "sp_seg1")
+
+
+@functools.lru_cache(maxsize=None)
+def seg3_compact_plan(plans: SpPlans, folded: bool = False) -> SpCompactPlan:
+    """B16's run-time plan, the counterpart of ``seg1_compact_plan``:
+    ``plan_for(plans, "sp_seg3")`` (``"sp_seg3 p3x"`` when ``folded``) with
+    the compact layout of K3, which is kron(M, I_n2k) like K1, the rows of
+    each row buffer and the route of the tables."""
+    return _column_compact_plan(plans, "sp_seg3 p3x" if folded else "sp_seg3")
+
+
+def _column_compact_plan(plans: SpPlans, seg: str) -> SpCompactPlan:
+    """The compact plan of a column segment (B11 or B16; ``seg`` a key of
+    ``SEGMENTS``) over the "columns" layout of its one digit plan."""
+    sp = plan_for(plans, seg)
     lay = compact_layout(plans, "columns")
-    kp = compact_depth(plans.p1.din, lay.s)
+    din = getattr(plans, SEGMENTS[seg][0]).din
+    kp = compact_depth(din, lay.s)
     tables = plans.A * sp.d * plans.TW * kp
 
     def smem_of(rows, smem_tables):
@@ -591,7 +635,7 @@ def seg1_compact_plan(plans: SpPlans) -> SpCompactPlan:
     rows, smem_tables = compact_route(smem_of)
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
     fields.update(rows=rows, smem_tables=smem_tables,
-                  c1=_compact_dims(lay, plans.p1.din))
+                  c1=_compact_dims(lay, din))
     return SpCompactPlan(**fields)
 
 
@@ -750,9 +794,11 @@ def sp_seg3(w, plans: SpPlans, tabs=None, first: int = 0,
     folded path's plan."""
     tabs, sl = _prepare(plans, tabs, first, w)
     if w.is_cuda:
-        w3, c3 = (tabs.w3x, tabs.c3x) if folded else (tabs.w3, tabs.c3)
-        return _launch("sp_seg3 p3x" if folded else "sp_seg3", plans,
-                       (w3[sl], c3[sl], None, None, tabs.tw), w, None)
+        w3c, c3 = (tabs.w3xc, tabs.c3x) if folded else (tabs.w3c, tabs.c3)
+        return _run_kernel(KERNELS["sp_seg3"],
+                           seg3_compact_plan(plans, folded),
+                           (w3c[sl], c3[sl], None, None, tabs.tw), w, None,
+                           plans.nloc)
     return seg3_plain(w, plans, tabs, first, folded)
 
 

@@ -22,9 +22,14 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
 everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B5-B9, B12-B17) and the compact ones of
-``csrc/mxu_compact.cuh`` (B11, B18); a tree without the compact header takes
-the dense patches for B11 and B18 too.  A patch whose anchor is missing from
+of ``csrc/mxu_block.cuh`` (B6-B9, B12-B15, B17), the compact ones of
+``csrc/mxu_compact.cuh`` (B11, B16, B18) and B5's streaming kernel in
+``csrc/ntt_mxu.cu``, where level 3 still runs the ring of stages but copies
+no bytes.  The patch set follows the tree it is given, so a parent commit
+can be taken apart the same way: a tree without the compact header takes the
+dense patches for B11, B16 and B18, a tree whose B16 is still a mode of
+``sp_kernel`` the dense ones for B16, and a tree whose B5 is still a mode of
+``mxu_kernel`` the dense ones for B5.  A patch whose anchor is missing from
 a source it names fails the run.  It needs a CUDA device.
 """
 
@@ -115,9 +120,12 @@ DENSE_PATCHES = (
         "0x01010101u);", _DENSE_LOAD)),
     ("mxu_block.cuh", _DENSE_RECOMBINE,
      _guard("QT_ABL < 5", _RAW_STORE, _DENSE_RECOMBINE)),
-    ("sharded_mxu.cu", _SEG3_WIDE, _guard("QT_ABL >= 1", _SEG3_WIDE)),
     ("sharded_mxu.cu", _SEG2_POINTWISE,
      _guard("QT_ABL >= 1", _SEG2_POINTWISE)),
+)
+# B16 as a mode of sp_kernel (trees before B16 took the compact design)
+DENSE_B16_PATCHES = (
+    ("sharded_mxu.cu", _SEG3_WIDE, _guard("QT_ABL >= 1", _SEG3_WIDE)),
 )
 # B11 and B18 as dense kernels (trees before the compact header)
 DENSE_B11_B18_PATCHES = (
@@ -156,6 +164,11 @@ _C_RAW_VALUE = """    uint32_t v = start & (q2 & 1u);
 _C_SEG1_WIDE = """        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
         for (int t = 0; t < p.a; ++t) {
             uint32_t* tile"""
+# B11 and B16 in one body (column_compact_kernel)
+_C_FWD_WIDE = ("        if (!kInverse) qt::fwd_wide(data, tb, p.logm, p.llanes, "
+               "p.lr, tw, p.q);\n")
+_C_INV_WIDE = ("        if (kInverse) qt::inv_wide(data, tb, p.logm, p.llanes, "
+               "p.lr, tw, p.q);\n")
 _C_STORE_PLANES = "    if (lb == 8) {\n        const uint32_t lo01"
 _C_DEPTH_A = "            for (int k0 = 0; k0 < ca.kp; k0 += 32) {\n"
 _C_DEPTH_B = "            for (int k0 = 0; k0 < cb.kp; k0 += 32) {\n"
@@ -181,10 +194,6 @@ COMPACT_PATCHES = (
     ("mxu_compact.cuh", _C_STORE_PLANES, _guard(
         "QT_ABL < 2", "    pr[0] = a[0] ^ a[1] ^ a[2] ^ a[3];\n    return;")
      + _C_STORE_PLANES),
-    ("sharded_mxu.cu", _C_SEG1_WIDE, _guard(
-        "QT_ABL >= 1",
-        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
-     + _C_SEG1_WIDE.split("\n", 1)[1]),
     ("sharded_classes.cu", _C_DEPTH_A,
      _C_DEPTH_A.replace("< ca.kp;", "< (QT_ABL < 3 ? 0 : ca.kp);")),
     ("sharded_classes.cu", _C_DEPTH_B,
@@ -196,15 +205,71 @@ COMPACT_PATCHES = (
      _C_POINTWISE_SPLIT.replace("i < p.din2;",
                                 "i < (QT_ABL < 2 ? 1 : p.din2);")),
 )
+# B11 on the compact building blocks beside a dense B16 (sp_kernel's seg3)
+SEG1_COMPACT_PATCHES = (
+    ("sharded_mxu.cu", _C_SEG1_WIDE, _guard(
+        "QT_ABL >= 1",
+        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
+     + _C_SEG1_WIDE.split("\n", 1)[1]),
+) + DENSE_B16_PATCHES
+# B11 and B16 in column_compact_kernel
+COLUMN_PATCHES = (
+    ("sharded_mxu.cu", _C_FWD_WIDE, _guard("QT_ABL >= 1", _C_FWD_WIDE)),
+    ("sharded_mxu.cu", _C_INV_WIDE, _guard("QT_ABL >= 1", _C_INV_WIDE)),
+)
+# B5 in polymul_stream_kernel: below level 4 the producer arrives on each
+# stage's barrier without copying, so the ring still paces the MMA warps;
+# the pointwise product sits in the forward epilogue, and below level 1 it
+# is a xor; the recombination is mxu_compact.cuh's recombine_value
+_S_FWD_WIDE = "            wide_stages<false>(data, rows, p, tw);\n"
+_S_INV_WIDE = "            wide_stages<true>(data, tb, p, tw);\n"
+_S_POINTWISE = "    return mulmod_barrett(a, b, m);\n"
+_S_SPLIT = ("        split_packed<Team>(data, nr, p.n, p.bw, b, planes, ks, din, "
+            "lb, add);\n")
+_S_MMA = "            if (mma_warp) {\n                const int8_t* sb"
+_S_LOAD = """                    bv[j] = *reinterpret_cast<const uint4*>(
+                        sb + j * 32 * kStageLane);
+"""
+_S_COPY = "                mbar_expect_tx(full + rg.slot, stage_bytes);\n"
+STREAM_PATCHES = (
+    ("ntt_mxu.cu", _S_FWD_WIDE, _guard("QT_ABL >= 1", _S_FWD_WIDE)),
+    ("ntt_mxu.cu", _S_INV_WIDE, _guard("QT_ABL >= 1", _S_INV_WIDE)),
+    ("ntt_mxu.cu", _S_POINTWISE, _guard("QT_ABL >= 1", _S_POINTWISE,
+                                        "    return a ^ b;")),
+    ("ntt_mxu.cu", _S_SPLIT, _guard("QT_ABL >= 2", _S_SPLIT)),
+    ("ntt_mxu.cu", _S_MMA, _S_MMA.replace("(mma_warp)",
+                                          "(mma_warp && QT_ABL >= 3)")),
+    ("ntt_mxu.cu", _S_LOAD, _guard(
+        "QT_ABL == 3",
+        "                    bv[j] = make_uint4(0x01010101u, 0x01010101u, "
+        "0x01010101u, 0x01010101u);", _S_LOAD)),
+    ("ntt_mxu.cu", _S_COPY, _guard(
+        "QT_ABL < 4",
+        "                mbar_arrive(full + rg.slot);\n"
+        "                if (false)",
+        _S_COPY)),
+)
+
+
+def _patches(csrc: Path) -> list:
+    """The patches for the kernels as the tree under ``csrc`` builds them."""
+    patches = list(DENSE_PATCHES)
+    if (csrc / "mxu_compact.cuh").exists():
+        patches += COMPACT_PATCHES
+        if "column_compact_kernel" in (csrc / "sharded_mxu.cu").read_text():
+            patches += COLUMN_PATCHES
+        else:
+            patches += SEG1_COMPACT_PATCHES
+    else:
+        patches += DENSE_B11_B18_PATCHES + DENSE_B16_PATCHES
+    if "polymul_stream_kernel" in (csrc / "ntt_mxu.cu").read_text():
+        patches += STREAM_PATCHES
+    return patches
 
 
 def patch_sources(csrc: Path) -> list[str]:
     """Patch the sources under ``csrc`` in place; the patched files."""
-    patches = list(DENSE_PATCHES)
-    if (csrc / "mxu_compact.cuh").exists():
-        patches += COMPACT_PATCHES
-    else:
-        patches += DENSE_B11_B18_PATCHES
+    patches = _patches(csrc)
     done = []
     for name, anchor, new in patches:
         path = csrc / name

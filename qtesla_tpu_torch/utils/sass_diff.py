@@ -5,13 +5,19 @@
 Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
-instantiation (``mxu_kernel<mode>``, ``sp_kernel<mode,threads>``,
-``classes_kernel<mode,threads>``, ``seg1_compact_kernel<threads,shared>``,
-``seg2_classes_compact_kernel<shared,full>``) it prints the SASS instruction count of
-each tree and the opcodes whose counts differ.  A refactor of shared device
-code that leaves a kernel's count and opcodes as they were compiled to the
-same work; ``utils/ab_timing.py`` times what it did not.  It needs the CUDA
-toolkit (``cuobjdump`` beside ``nvcc``).
+instantiation (``mxu_kernel<mode>``, ``polymul_stream_kernel<classes>``,
+``sp_kernel<mode,threads>``, ``classes_kernel<mode,threads>``,
+``column_compact_kernel<threads,shared,inverse>``,
+``seg2_classes_compact_kernel<shared,full>``) it prints the SASS instruction
+count of each tree and the opcodes whose counts differ.  B11 of a tree
+where it was ``seg1_compact_kernel<threads,shared>`` is compared as
+``column_compact_kernel<threads,shared,0>``.  A kernel one tree has and the
+other has not (B5's ``polymul_stream_kernel`` against ``mxu_kernel<0>``,
+B16's ``column_compact_kernel<..,1>`` against ``sp_kernel<2,..>``) counts 0
+on the side that lacks it.  A refactor of shared device code that leaves a
+kernel's count and opcodes as they were compiled to the same work;
+``utils/ab_timing.py`` times what it did not.  It needs the CUDA toolkit
+(``cuobjdump`` beside ``nvcc``).
 """
 
 from __future__ import annotations
@@ -32,9 +38,20 @@ sys.path.insert(0, {tree!r})
 from qtesla_tpu_torch.utils.build import load_library
 print(load_library().path)
 """
-_KERNEL = re.compile(r"(mxu_kernel|sp_kernel|classes_kernel|"
-                     r"seg1_compact_kernel|seg2_classes_compact_kernel)"
-                     r"IL[ib](\d+)E(?:L[ib](\d+)E)?")
+_KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
+                     r"classes_kernel|seg1_compact_kernel|"
+                     r"column_compact_kernel|seg2_classes_compact_kernel)"
+                     r"I((?:L[ib]\d+E)+)E")
+_ARG = re.compile(r"L[ib](\d+)E")
+
+
+def _name(m: re.Match) -> str:
+    """The instantiation as kernel<arg,...>; B11's seg1_compact_kernel<t,s>
+    as column_compact_kernel<t,s,0>."""
+    kernel, args = m.group(1), _ARG.findall(m.group(2))
+    if kernel == "seg1_compact_kernel":
+        kernel, args = "column_compact_kernel", args + ["0"]
+    return f"{kernel}<{','.join(args)}>"
 _INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;")
 
 
@@ -53,9 +70,7 @@ def kernel_sass(library: str) -> dict[str, list[str]]:
     for line in text.splitlines():
         if "Function : " in line:
             m = _KERNEL.search(line)
-            current = (f"{m.group(1)}<{m.group(2)}"
-                       f"{',' + m.group(3) if m.group(3) else ''}>"
-                       if m else None)
+            current = _name(m) if m else None
             if current:
                 kernels[current] = []
         elif current and (m := _INSTR.search(line)):

@@ -260,6 +260,60 @@ def test_mxu_plan_matches_kernel_limits():
 
 
 @pytest.mark.parametrize("name", SETS)
+def test_stream_plan_matches_kernel_limits(name):
+    """B5's plan is ``plan_for(mt, 2)`` with the stage counts and the
+    deepest ring of stages that fits beside the rows; it passes every check
+    of the launcher."""
+    mt = get_mxu_tables(name)
+    plan, base = M.stream_plan(mt), M.plan_for(mt, 2)
+    for f, _ in M.MxuPlan._fields_:
+        got, want = getattr(plan, f), getattr(base, f)
+        if f in ("pw", "pw_sh"):
+            got, want = list(got), list(want)
+        assert got == want, f
+    assert plan.stages_f == -(-mt.Df * mt.bw // 64)
+    assert plan.stages_i == -(-mt.Di * mt.bw // 64)
+    smem = [M.stream_smem(mt, plan.rows, r) + 1024 for r in (plan.ring,
+                                                             plan.ring + 1)]
+    assert 2 <= plan.ring <= 8 and smem[0] <= 233472
+    assert plan.ring == 8 or smem[1] > 233472
+    # the launcher's checks
+    assert (2 <= plan.rows <= 16 or plan.rows == 32) and plan.rows % 2 == 0
+    assert 1 <= plan.d <= 4 and 32 <= plan.bw <= 128 and plan.bw % 32 == 0
+    assert plan.n == 1 << plan.logn == plan.nb * plan.bw
+    assert plan.n >> plan.lr == plan.bw
+    for din, lb in ((plan.df, plan.fwd_lb), (plan.di, plan.inv_lb)):
+        assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
+    if name == "qtesla-iii-speed":
+        assert (plan.rows, plan.ring, plan.stages_f, plan.stages_i) == (
+            32, 3, 8, 6)
+
+
+def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
+    """A split the kernel's packed split cannot take (5 planes of base 256,
+    or a base other than 128 and 256), a lane block wider than 128 and
+    rows that fill neither one MMA tile of x's and y's rows nor two (18 to
+    30) raise before any launch."""
+    import copy
+
+    mt = get_mxu_tables("qtesla-iii-speed")
+    for field, value in (("Df", 5), ("Di", 5), ("fwd_base", 512),
+                         ("inv_base", 64)):
+        bad = copy.copy(mt)
+        setattr(bad, field, value)
+        with pytest.raises(ValueError, match="split"):
+            M.stream_plan(bad)
+    bad = copy.copy(mt)
+    bad.bw, bad.nb, bad.Lr = 256, mt.nb // 2, mt.Lr - 1
+    with pytest.raises(ValueError, match="range"):
+        M.stream_plan(bad)
+    for rows in (18, 24, 30):
+        monkeypatch.setattr(M, "block_rows", lambda n, ops, rows=rows: rows)
+        with pytest.raises(ValueError, match="range"):
+            M.stream_plan(copy.copy(mt))
+
+
+@pytest.mark.parametrize("name", SETS)
 def test_fold_plan_matches_kernel_limits(name):
     """The folded kernel's plan carries the fold plan's inverse split and
     the forward of the MXU plan; every registered set fits."""
@@ -316,11 +370,14 @@ def test_build_flags_target_hopper():
         assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 12
+    # B5 has a launcher of its own, written out
     for k in M.KERNELS.values():
-        assert f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
+        assert (f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
+                or f'extern "C" int {k.symbol}(' in src[M])
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 11
-    # B11 and the class kernels have launchers of their own, written out
+    assert 'extern "C" int qt_polymul_mxu(' in src[M]
+    # B11, B16 and the class kernels have launchers of their own, written out
     for k in S.KERNELS.values():
         assert (f"QT_SP_LAUNCHER({k.symbol}," in src[S]
                 or f'extern "C" int {k.symbol}(' in src[S])
@@ -331,10 +388,13 @@ def test_build_flags_target_hopper():
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_sp_seg1"]
     # the C structs and the ctypes ones name the same fields in one order;
-    # SpCompactPlan is SpPlan (its base in C) and what follows
+    # SpCompactPlan is SpPlan (its base in C) and what follows, and
+    # MxuStreamPlan MxuPlan and what follows
     src["compact"] = (build.CSRC_DIR / "mxu_compact.cuh").read_text()
     for mod, struct, head, skip in (
             (M, M.MxuPlan, "struct MxuPlan {", 0),
+            (M, M.MxuStreamPlan, "struct MxuStreamPlan : MxuPlan {",
+             len(M.MxuPlan._fields_)),
             (S, S.SpPlan, "struct SpPlan {", 0),
             (C, C.SpClassPlan, "struct SpClassPlan {", 0),
             ("compact", S.CompactDims, "struct CompactDims {", 0),
@@ -362,8 +422,9 @@ def test_header_edit_changes_digest(tmp_path):
 
 def test_phase_ablation_patches_apply(tmp_path):
     """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
-    sources, in a copy; a copy without the compact header (a tree before B11
-    and B18 were redesigned) is refused where its dense B11 is missing."""
+    sources, in a copy, B5's streaming kernel and B16's column body
+    included; a copy without the compact header (a tree before B11 and B18
+    were redesigned) is refused where its dense B11 is missing."""
     import shutil
 
     from qtesla_tpu_torch.utils import phase_ablation as PA
@@ -371,12 +432,18 @@ def test_phase_ablation_patches_apply(tmp_path):
     shutil.copytree(build.CSRC_DIR, csrc)
     before = {p.name: p.read_text() for p in csrc.iterdir()}
     assert PA.patch_sources(csrc) == ["mxu_block.cuh", "mxu_compact.cuh",
-                                      "sharded_classes.cu", "sharded_mxu.cu"]
+                                      "ntt_mxu.cu", "sharded_classes.cu",
+                                      "sharded_mxu.cu"]
     for name in ("mxu_block.cuh", "mxu_compact.cuh"):
         text = (csrc / name).read_text()
         assert text != before[name]
         for cond in ("QT_ABL < 2", "QT_ABL == 3", "QT_ABL < 5"):
             assert f"#if {cond}" in text, (name, cond)
+    text = (csrc / "ntt_mxu.cu").read_text()
+    for cond in ("QT_ABL >= 1", "QT_ABL >= 2", "QT_ABL == 3", "QT_ABL < 4"):
+        assert f"#if {cond}" in text, ("ntt_mxu.cu", cond)
+    assert "(mma_warp && QT_ABL >= 3)" in text
+    assert (csrc / "sharded_mxu.cu").read_text().count("#if QT_ABL >= 1") == 3
     assert "QT_ABL" not in "".join(before.values())
     (csrc / "mxu_compact.cuh").unlink()
     with pytest.raises(RuntimeError, match="anchor found"):
@@ -495,6 +562,50 @@ def test_seg1_compact_plan_matches_kernel_limits(name, k):
     assert smem + 1024 <= 233472
 
 
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg3_compact_plan_matches_kernel_limits(name, k):
+    """B16's compact plans, p3 and p3x: the dense plan's split, K3's blocks
+    in the layout of K1 (max(Bk, 8) lanes, lambda-major), the depth padded
+    to 32, rows and route within a block's shared memory, and the same
+    rows and route as B11 wherever the depth is B11's."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    tabs = S.host_tables(plans)
+    p11 = S.seg1_compact_plan(plans)
+    for folded, seg, w3c in ((False, "sp_seg3", tabs.w3c),
+                             (True, "sp_seg3 p3x", tabs.w3xc)):
+        dense, plan = S.plan_for(plans, seg), S.seg3_compact_plan(plans,
+                                                                  folded)
+        for f, _ in S.SpPlan._fields_:
+            if f not in ("rows", "pw", "pw_sh"):
+                assert getattr(plan, f) == getattr(dense, f), (seg, f)
+        s, kp = 1 << plan.c1.ls, plan.c1.kp
+        assert s == min(plans.TW, max(plans.Bk, 8))
+        assert (plan.c1.ls, plan.c1.llam, plan.c1.lbk, plan.c1.lq) == (
+            p11.c1.ls, p11.c1.llam, p11.c1.lbk, p11.c1.lq)
+        assert plan.c1.lq == plan.c1.ls - 2
+        assert kp % 32 == 0 and plan.din1 * s <= kp < plan.din1 * s + 32
+        assert plan.din1 <= 4 if plan.lb1 == 8 else plan.din1 <= 6
+        assert tuple(w3c.shape[1:]) == (plans.A, plans.TW // s, plan.d * s,
+                                         kp)
+        assert 0 < plan.rows <= 32
+        tables = plans.A * plan.d * plans.TW * kp
+        smem = ((2 * plan.rows + 1) * plans.nloc * 4
+                + -(-plan.rows // 16) * 16 * S.planes_stride(plans.TW // s,
+                                                             kp)
+                + plan.smem_tables * tables)
+        assert smem + 1024 <= 233472
+        if kp == p11.c1.kp:
+            assert (plan.rows, plan.smem_tables) == (p11.rows,
+                                                     p11.smem_tables)
+    if (name, k) == ("qtesla-iii-speed", 4):
+        p16 = S.seg3_compact_plan(plans)
+        assert (p16.rows, p16.smem_tables, 1 << p16.c1.ls, p16.c1.kp) == (
+            16, 1, 16, 64)
+        assert S.plan_for(plans, "sp_seg3").kp1 == 512
+
+
 def test_sp_wrappers_reject_bad_input():
     plans = fourstep_mxu_plans("smallprime", 4, 2)
     nloc = plans.nloc
@@ -569,12 +680,22 @@ def test_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_mxu_kernels_match_plain_on_card(cuda_device, name):
-    """B5-B8 against their twins; B7 takes inputs below pw_bound."""
+    """B5-B8 against their twins; B7 takes inputs below pw_bound; B5 also
+    at 9000 rows, so that every persistent block walks several row groups
+    through the ring of table stages."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     mt = get_mxu_tables(name)
     q, n = mt.q, mt.n
     rng = np.random.default_rng(22)
+    xy = torch.from_numpy(rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
+                          ).to(cuda_device)
+    want = M.polymul_mxu_plain(xy[0], xy[1], mt)
+    before = M.KERNELS["polymul_mxu"].launches
+    got = M.polymul_mxu(xy[0], xy[1], mt)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert M.KERNELS["polymul_mxu"].launches == before + 1
     for batch in (1, 3, 64):
         xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
         xy[0, 0] = q - 1
@@ -793,11 +914,12 @@ def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_compact_kernels_match_plain_on_card(cuda_device, name):
-    """B11 and B18 (the kernels over the tables' nonzero blocks) against
-    the twins that read the same compact tables and against the dense twins,
-    for every model axis the set's split takes; batches of 1, 3 and 64 rows
-    and one long enough that every persistent block walks over several row
-    groups through both of its buffers, on all shards and on one."""
+    """B11, B16 (under p3 and p3x) and B18 (the kernels over the tables'
+    nonzero blocks) against the twins that read the same compact tables and
+    against the dense twins, for every model axis the set's split takes;
+    batches of 1, 3 and 64 rows and one long enough that every persistent
+    block walks over several row groups through both of its buffers, on all
+    shards and on one."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     tbl = get_tables(name)
@@ -820,6 +942,13 @@ def test_compact_kernels_match_plain_on_card(cuda_device, name):
             pairs = [(S.sp_seg1(x, plans), want),
                      (S.seg1_compact_plain(x, plans), want),
                      (S.sp_seg1(one, plans, first=d), want[d:d + 1])]
+            for folded in (False, True):
+                want = S.seg3_plain(x, plans, folded=folded)
+                pairs += [
+                    (S.sp_seg3(x, plans, folded=folded), want),
+                    (S.seg3_compact_plain(x, plans, folded=folded), want),
+                    (S.sp_seg3(one, plans, first=d, folded=folded),
+                     want[d:d + 1])]
             if cp is not None:
                 u = C.seg1_classes_plain(x, plans, cp)
                 v = u.flip(1).contiguous()

@@ -10,7 +10,10 @@ the JAX package.
   registered (512, 12289) set (Lr = 2, D = 2), and the JAX merged pipeline
   on every set with random, all-(q-1) and the JAX tests' adversarial
   operands;
-- ``models``: ``algo="mxu"`` and the default fixed-operand pair.
+- ``models``: ``algo="mxu"`` and the default fixed-operand pair;
+- B5's table stream (``stream_tables``): expanded back it is the dense
+  forward and inverse tables on every set, and each stage holds the bytes
+  the kernel's MMA warps read where they read them.
 
 Tolerance: none (integer equality).  Inputs are made with numpy from a seed
 and fed to both sides."""
@@ -290,3 +293,68 @@ def test_leading_axes_and_tables_on_module():
     np.testing.assert_array_equal(
         host.wf.numpy(),
         mt.wf.transpose(0, 3, 1, 2).reshape(mt.nb, mt.D * mt.bw, -1))
+
+
+# ----------------------------------------------------------------------
+# B5's table stream.
+# ----------------------------------------------------------------------
+
+def _check_stream(mt):
+    st = MT.stream_tables(mt)
+    Cf, Ci = (MT.stream_stages(d, mt.bw) for d in (mt.Df, mt.Di))
+    assert st.dtype == np.int8
+    assert st.shape == (mt.nb * (Cf + Ci), MT.STAGE_DEPTH * mt.bw * mt.D)
+    wf, wi = MT.expand_stream(st, mt)
+    np.testing.assert_array_equal(wf, mt.wf)
+    np.testing.assert_array_equal(wi, mt.wi)
+    host = TM.host_tables(mt)
+    np.testing.assert_array_equal(host.stream.numpy(), st)
+    # stage (b, c) as the kernel reads it: lane 4g + t of warp lt takes 16
+    # bytes for class j at ((lt * D + j) * 32 + lane) * 16, bytes 8t .. 8t+7
+    # of the two 32-deep steps of table row j*bw + 8lt + g
+    for part, w, C, first in ((0, host.wf, Cf, 0), (1, host.wi, Ci,
+                                                   mt.nb * Cf)):
+        K = w.shape[-1]
+        T = np.zeros((mt.nb, mt.D * mt.bw, C * MT.STAGE_DEPTH), np.int8)
+        T[..., :K] = w.numpy()
+        for b, c in ((0, 0), (mt.nb - 1, C - 1)):
+            stage = st[first + b * C + c]
+            for lt, j, g, t, step in ((0, 0, 0, 0, 0), (mt.bw // 8 - 1,
+                                                        mt.D - 1, 7, 3, 1),
+                                      (1, mt.D // 2, 5, 2, 1)):
+                lane = 4 * g + t
+                at = ((lt * mt.D + j) * 32 + lane) * 16 + 8 * step
+                col = c * MT.STAGE_DEPTH + 32 * step + 8 * t
+                np.testing.assert_array_equal(
+                    stage[at:at + 8], T[b, j * mt.bw + 8 * lt + g,
+                                        col:col + 8], err_msg=(part, b, c))
+    return st
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_stream_tables_expand_to_dense(name):
+    """Expanded back, B5's stream equals ``wf`` and ``wi`` on every set;
+    the host tables carry it; the stages lie where the MMA warps read."""
+    _check_stream(MT.get_mxu_tables(name))
+
+
+def test_stream_tables_of_registered_set(small_set):
+    """Two digit classes (q = 12289): the stream and B5's plan hold."""
+    mt = MT.get_mxu_tables(small_set)
+    assert mt.D == 2
+    _check_stream(mt)
+    plan = TM.stream_plan(mt)
+    assert (plan.d, plan.stages_f, plan.stages_i) == (
+        2, MT.stream_stages(mt.Df, mt.bw), MT.stream_stages(mt.Di, mt.bw))
+
+
+def test_expand_stream_refuses_nonzero_padding():
+    """smallprime pads 96 table columns (3 planes of 32 lanes) to two
+    64-deep stages: a nonzero byte there is refused."""
+    mt = MT.get_mxu_tables("smallprime")
+    assert (mt.bw, mt.Df) == (32, 3)
+    st = MT.stream_tables(mt)
+    lt_j_lane, step = 5, 1          # the second step of a lane: columns 96..
+    st[MT.stream_stages(mt.Df, mt.bw) - 1, lt_j_lane * 16 + 8 * step] = 1
+    with pytest.raises(ValueError, match="padding"):
+        MT.expand_stream(st, mt)

@@ -1,8 +1,9 @@
 """The nonzero blocks of the sequence-parallel digit tables
 (``compact_layout``, ``compact_tables``, ``expand_compact`` in
-``parallel/sharded_mxu_tables.py``), which the kernels B11 (``sp_seg1``) and
-B18 (``sp_seg2_classes``) multiply, and the plain products that read them
-(``seg1_compact_plain``, ``seg2_classes_compact_plain``).
+``parallel/sharded_mxu_tables.py``), which the kernels B11 (``sp_seg1``),
+B16 (``sp_seg3``, under p3 and p3x) and B18 (``sp_seg2_classes``) multiply,
+and the plain products that read them (``seg1_compact_plain``,
+``seg3_compact_plain``, ``seg2_classes_compact_plain``).
 
 - the compact tables expanded back equal the dense tables of every plan and
   of the class plan, so every entry outside the blocks is zero; a layout of
@@ -11,6 +12,9 @@ B18 (``sp_seg2_classes``) multiply, and the plain products that read them
   ``seg2_classes_plain`` at B in {1, 3, 64}, random and all-(q-1) operands;
 - through them JAX's interpret-mode ``_make_seg1`` and
   ``_make_seg2_classes`` match, the latter on JAX's own B17 output;
+- ``seg3_compact_plain`` equals ``seg3_plain`` and JAX's interpret-mode
+  ``_make_seg3`` under p3 and p3x: smallprime and qtesla-iii-speed here,
+  every set at every model axis in the slow tier;
 - the compact plans pick rows and route inside the kernels' shared memory;
   the depth order of the column tables (``korder``) is the order the
   kernels' packed split writes.
@@ -307,3 +311,95 @@ def test_main_path_plans_hold_tables_in_shared_memory():
     assert (p18.c1.kp, p18.c2.kp) == (288, 96)
     sp2 = S.plan_for(plans, "sp_seg2")
     assert (sum(cp.dins) * plans.TW, sp2.kp2) == (1152, 384)
+
+
+# ----------------------------------------------------------------------
+# B16: the inverse column segment over K3's nonzero blocks.
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_seg3(name, k):
+    plans = JS.fourstep_mxu_plans(name, _n1(name), k)
+    return plans, (JS._make_seg3(plans, 256, True),
+                   JS._make_seg3(plans, 256, True, plan=plans.p3x))
+
+
+def _check_seg3(name, k, x, shards):
+    """seg3_compact_plain on x (S=1 shards at each d of ``shards``, and all
+    k at once) against seg3_plain and JAX's _make_seg3, p3 and p3x."""
+    jplans, jsegs = _jax_seg3(name, k)
+    plans = _plans(name, k)
+    q = plans.q
+    xt = torch.from_numpy(x)
+    for folded, jseg, jp in ((False, jsegs[0], jplans.p3),
+                             (True, jsegs[1], jplans.p3x)):
+        got = S.seg3_compact_plain(xt, plans, folded=folded)
+        assert got.dtype == torch.uint32 and got.shape == xt.shape
+        assert torch.equal(got, S.seg3_plain(xt, plans, folded=folded))
+        for d in shards:
+            sl = slice(d, d + 1)
+            one = S.seg3_compact_plain(xt[sl], plans, first=d, folded=folded)
+            assert torch.equal(one, got[sl])
+            want = np.asarray(jseg(x[d], jp.W[sl], jp.const[sl])) % q
+            np.testing.assert_array_equal(
+                one[0].numpy(), want, err_msg=f"B16 folded={folded} shard {d}")
+        # on CPU tensors the wrapper takes the dense twin
+        assert torch.equal(S.sp_seg3(xt, plans, folded=folded), got)
+
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("name,k", FAST)
+def test_seg3_compact_products_match_dense_twins(name, k, batch, worst):
+    """``seg3_compact_plain`` equals ``seg3_plain`` under p3 and p3x."""
+    plans = _plans(name, k)
+    x = torch.from_numpy(_operands(plans.q, (k, batch, plans.nloc), worst,
+                                   85))
+    for folded in (False, True):
+        got = S.seg3_compact_plain(x, plans, folded=folded)
+        assert got.dtype == torch.uint32 and got.shape == x.shape
+        assert torch.equal(got, S.seg3_plain(x, plans, folded=folded))
+        d = k // 2
+        assert torch.equal(
+            S.seg3_compact_plain(x[d:d + 1], plans, first=d, folded=folded),
+            got[d:d + 1])
+
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("name,k", [("smallprime", 2),
+                                    ("qtesla-iii-speed", 4)])
+def test_seg3_compact_products_match_pallas_interpret(name, k, worst):
+    """Through the compact K3, shard by shard, JAX's interpret-mode
+    ``_make_seg3`` (p3 and p3x) mod q: every shard at smallprime, the
+    middle one at qtesla-iii-speed."""
+    plans = _plans(name, k)
+    x = _operands(plans.q, (k, 3, plans.nloc), worst, 86)
+    _check_seg3(name, k, x, range(k) if name == "smallprime" else (k // 2,))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,k", [c for c in CASES
+                                    if c not in (("smallprime", 2),
+                                                 ("qtesla-iii-speed", 4))])
+def test_seg3_compact_products_match_pallas_interpret_slow_tier(name, k):
+    """Every other set and model axis, random and all-(q-1), two shards:
+    slow because each plan takes up to 30 s to build on both sides."""
+    plans = _plans(name, k)
+    for worst in (False, True):
+        x = _operands(plans.q, (k, 3, plans.nloc), worst, 87)
+        _check_seg3(name, k, x, (0, k - 1))
+
+
+def test_main_path_b16_depth():
+    """qtesla-iii-speed, k = 4: B16 multiplies depth 64 where the dense K3
+    runs 512, p3 and p3x alike, with its shard's 48 KiB of blocks in shared
+    memory beside two buffers of 16 rows."""
+    plans = _plans("qtesla-iii-speed", 4)
+    tabs = S.host_tables(plans)
+    for folded, w3c in ((False, tabs.w3c), (True, tabs.w3xc)):
+        p16 = S.seg3_compact_plan(plans, folded)
+        assert (p16.rows, p16.smem_tables, 1 << p16.c1.ls, p16.c1.kp) == (
+            16, 1, 16, 64)
+        assert w3c[0].numel() == 48 << 10
+    assert S.plan_for(plans, "sp_seg3").kp1 == S.plan_for(
+        plans, "sp_seg3 p3x").kp1 == 512
