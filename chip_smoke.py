@@ -31,13 +31,14 @@ script exits non-zero without printing a result:
    random and all-(q-1) shards, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
    four-class qtesla-p-i and qtesla-p-iii raises.  B11, B16 (under p3 and
-   p3x) and B18 multiply only their tables' nonzero blocks in persistent
-   blocks; each case also runs them on LONG_BATCH rows, so that every block
-   walks over several row groups through both of its buffers, and prints
-   the rows a block holds, the depth of a product and whether the tables
-   sit in shared memory or come through L2.  B5 runs in persistent blocks
-   that stream its tables through a ring of stages in shared memory; every
-   set also runs it on LONG_BATCH rows and prints its stages and ring.
+   p3x), B12 and B18 multiply only their tables' nonzero blocks in
+   persistent blocks; each case also runs them on LONG_BATCH rows, so that
+   every block walks over several row groups through both of its buffers,
+   and prints the rows a block holds, the depth of a product and whether
+   the tables sit in shared memory or come through L2.  B5 and B9 run in
+   persistent blocks that stream their tables through a ring of stages in
+   shared memory; every set also runs them on LONG_BATCH rows and prints
+   their stages and ring.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -55,7 +56,8 @@ script exits non-zero without printing a result:
    products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x); then the whole SP path and
+   plain (B16 also under p3x), B12 and B9 beside the times their earlier
+   designs took (EARLIER_MS) and B9's prepare time; then the whole SP path and
    local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
    warm and cold (L2 flushed and the host queued ahead before each call;
    B5, B1, B8 and B4 are timed cold too), with the SP cost per shard
@@ -134,6 +136,11 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 # four-class sets must refuse it
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
+# the kernels redesigned last, and the medians their earlier designs (the
+# dense row segment and the folded mode of the dense MXU kernel) took at the
+# timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
+# 700 W power limit
+EARLIER_MS = {"sp_seg2": 2.0970, "polymul_fixed_folded_mxu": 1.7038}
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -277,11 +284,18 @@ def kernels_against_plain(errors: dict) -> None:
             0, q, (2, LONG_BATCH, n), dtype=np.uint32))
         _record(errors, "polymul_mxu", f"polymul_mxu {name} B={LONG_BATCH}",
                 M.polymul_mxu(x, y, mt), M.polymul_mxu_plain(x, y, mt))
-        p5 = M.stream_plan(mt)
+        op = M.fold_operand(F.ntt_plain(y[:1], tbl), mt)
+        _record(errors, "polymul_fixed_folded_mxu",
+                f"B9 {name} B={LONG_BATCH}",
+                M.polymul_fixed_folded_mxu(x, op, mt),
+                M.polymul_fixed_folded_mxu_plain(x, op, mt))
+        p5, p9 = M.stream_plan(mt), M.stream_plan(mt, fold_plan(mt))
         print(f"{name}: B5 streams {p5.stages_f} + {p5.stages_i} stages of "
               f"{64 * mt.bw * mt.D // 1024} KiB a lane block through a ring "
               f"of {p5.ring} in shared memory; {p5.rows // 2} products a "
-              f"group; also equal to plain at B={LONG_BATCH}", flush=True)
+              f"group; B9 {p9.stages_f} + {p9.stages_i} stages, a ring of "
+              f"{p9.ring}, {p9.rows} rows a group; both also equal to plain "
+              f"at B={LONG_BATCH}", flush=True)
         print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
               f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
               f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}; B9 prepare "
@@ -410,10 +424,20 @@ def sp_against_plain(errors: dict) -> None:
                                  dtype=np.uint32))
         _record(errors, "sp_seg1", f"B11 {name} k={k} B={LONG_BATCH}",
                 S.sp_seg1(long, plans), S.seg1_plain(long, plans))
+        flip = long.flip(1).contiguous()
+        _record(errors, "sp_seg2", f"B12 {name} k={k} B={LONG_BATCH}",
+                S.sp_seg2(long, flip, plans), S.seg2_plain(long, flip, plans))
         for folded, seg in ((False, "sp_seg3"), (True, "sp_seg3 p3x")):
             _record(errors, "sp_seg3", f"B16 {seg} {name} k={k} "
                     f"B={LONG_BATCH}", S.sp_seg3(long, plans, folded=folded),
                     S.seg3_plain(long, plans, folded=folded))
+        p12 = S.seg2_compact_plan(plans)
+        print(f"{name} k={k}: B12 over K2f's and K2i's nonzero blocks: "
+              f"{p12.rows // 2} + {p12.rows // 2} rows a warp, blocks of "
+              f"{1 << p12.c1.ls} lanes, depths {p12.c1.kp} and {p12.c2.kp} "
+              f"(dense {S.plan_for(plans, 'sp_seg2').kp1} and "
+              f"{S.plan_for(plans, 'sp_seg2').kp2}), tables {_route(p12)}; "
+              f"also equal to plain at B={LONG_BATCH}")
         p11 = S.seg1_compact_plan(plans)
         print(f"{name} k={k}: B11 over K1's nonzero blocks: {p11.rows} rows "
               f"a buffer, blocks of {1 << p11.c1.ls} lanes, depth {p11.c1.kp} "
@@ -615,6 +639,8 @@ def main_path(errors: dict, seed: int) -> dict:
     w = S.sp_seg2(v, v, plans)
     _record(errors, "sp_seg2", "B12 at the main path's shapes", w,
             S.seg2_plain(v, v, plans))
+    _record(errors, "sp_seg2", "B12 against its compact twin", w,
+            S.seg2_compact_plain(v, v, plans))
     w = S.a2a_inv(w, plans)
     _record(errors, "sp_seg3", "B16 at the main path's shapes",
             S.sp_seg3(w, plans), S.seg3_plain(w, plans))
@@ -715,10 +741,11 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     its int8 tensor-core MACs (the digit products at their plans' depth,
     the padding and the SP tables' zero blocks excluded).  B11, B16 and B18
     read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
-    ``w2cc``, ``w2ic``); their MACs are counted on the dense tables' nonzero
-    lane pairs like the others', so a bound reads the same work whatever
-    implements it.  B5's tables are counted once, as ``wf`` and ``wi``,
-    whatever stream it reads them in."""
+    ``w2cc``, ``w2ic``; B12 ``w2fc`` and ``w2ic``); their MACs are counted
+    on the dense tables' nonzero lane pairs like the others', so a bound
+    reads the same work whatever implements it.  B5's and B9's tables are
+    counted once, as ``wf`` and ``wi`` (B9: ``wf`` and the constant's
+    W'), whatever stream they read them in."""
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
     plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
@@ -729,6 +756,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     fp = fold_plan(mt)
     per_block = B * mt.nb * mt.bw * mt.D * mt.bw     # MACs per input plane
     fwd, inv, fold = (per_block * d for d in (mt.Df, mt.Di, fp.Din))
+    # the constant's stages: W' with no padding at bw a multiple of 64
     folded = mt.nb * fp.Dout * mt.bw * fp.Din * mt.bw + 4 * n
     work = {
         "polymul_fused": (3 * row + tw, 0),
@@ -750,7 +778,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
                      (st.w3, "p3"), (st.w3x, "p3x"), (sp_fold.w.cpu(), "p2x")))
     sp_tw = _nbytes(st.tw)
     work["sp_seg1"] = (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1)
-    work["sp_seg2"] = (3 * row + _nbytes(st.w2f, st.c2f, st.w2i, st.c2i),
+    work["sp_seg2"] = (3 * row + _nbytes(st.w2fc, st.c2f, st.w2ic, st.c2i),
                        2 * m2f + m2i)
     work["sp_seg3"] = (2 * row + _nbytes(st.w3c, st.c3) + sp_tw, m3)
     work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3xc, st.c3x) + sp_tw, m3x)
@@ -863,8 +891,17 @@ def timing(device_line: str) -> dict:
               f"{work[name][1]:.3g} int8 MACs: {bms:.4f} ms ({by}), "
               f"{bms / res['kernel'][1] * 100:.1f} % of the kernel's median",
               flush=True)
+        if name in EARLIER_MS:
+            print(f"redesigned {name}: median {res['kernel'][1]:.4f} ms, "
+                  f"its earlier design {EARLIER_MS[name]:.4f} ms (ratio "
+                  f"{res['kernel'][1] / EARLIER_MS[name]:.4f}), bound "
+                  f"{bms:.4f} ms [{device_line}]", flush=True)
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
+    cold_s, prep_s = fold_prep_seconds(MAIN_SET, y[0])
+    print(f"timing B9 prepare (\"mxu-folded\", B6 + host tables and stages "
+          f"+ copies), host clock, synchronised: {prep_s * 1e3:.1f} ms, "
+          f"first call {cold_s * 1e3:.1f} ms [{device_line}]", flush=True)
     print(f"same inputs: B9 {med['polymul_fixed_folded_mxu']:.4f} ms, "
           f"B8 {med['polymul_fixed_mxu']:.4f}, "
           f"B4 {med['polymul_fixed_fused']:.4f}; "

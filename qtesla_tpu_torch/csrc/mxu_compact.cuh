@@ -74,6 +74,33 @@ __host__ __device__ constexpr int compact_row_stride(int nblk, int kp) {
            (96 - nblk * compact_block_stride(kp) % 64) % 64;
 }
 
+// Bytes between two rows of a compact table held in shared memory (the row
+// segment kernel's): kp rounded up to 32 mod 64, so that the eight rows a
+// table fragment load touches spread over all banks; at kp = 128 (K2f's
+// blocks at qtesla-iii-speed) the rows of a half-warp's load fell on one
+// group of 8 banks (parallel/sharded_mxu.py table_stride computes the same).
+__host__ __device__ constexpr int compact_table_stride(int kp) {
+    return kp + (96 - kp % 64) % 64;
+}
+
+// `rows` rows of `row_bytes` (a multiple of 16) global -> shared,
+// asynchronously, row r from src + r * row_bytes to dst + r * dst_stride
+// (16-byte aligned ends).
+__device__ inline void cp_async_rows(void* dst, int dst_stride,
+                                     const void* src, int row_bytes,
+                                     int rows) {
+    const int chunks = row_bytes >> 4;
+    for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+        const int r = i / chunks, c = i - r * chunks;
+        cp_async16(reinterpret_cast<uint32_t*>(static_cast<char*>(dst) +
+                                               r * dst_stride + c * 16),
+                   reinterpret_cast<const uint32_t*>(
+                       static_cast<const char*>(src) + r * row_bytes +
+                       c * 16),
+                   16);
+    }
+}
+
 // `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared,
 // asynchronously.
 __device__ inline void cp_async_bytes(void* dst, const void* src,

@@ -28,7 +28,7 @@
 // output is canonical.  The TPU kernel's sloppy Shoup, Horner packing and
 // overflow fixer were vector-unit workarounds and are not replayed.
 //
-// Design of B6-B9 (mxu_kernel).  One block of 512 threads holds `rows`
+// Design of B6-B8 (mxu_kernel).  One block of 512 threads holds `rows`
 // operand rows (at most 32, 128 KiB of uint32: 32 rows at n = 1024) in
 // shared memory for the whole pipeline, loaded with cp.async
 // (every 16-byte copy in flight before one wait: with one block per SM a
@@ -90,14 +90,27 @@
 // inverse pass ran 1.6 % slower.
 //
 // B9, the folded fixed-operand product, is the forward and then the inverse
-// block matmul against one constant's tables W' = M_inv diag(A) and c' (passed
-// in place of wi and ci), with no pointwise stage.  Its plan carries the fold
-// plan's inverse split (di = fold Din planes, offset, base, group bias), so
-// the planes' stride and the shared memory, sized by max(df, di), cover it.
-// W' streams from device memory as wi does: 1.57 MB at q-III, 4.2 MB at p-III.
+// block matmul against one constant's tables W' = M_inv diag(A) and c',
+// with no pointwise stage.  It runs polymul_stream_kernel with kFolded: the
+// producer takes the forward stages from the front of B5's stream (nothing
+// of them is copied per constant) and the inverse ones from the constant's
+// own stages (FoldedOperand.stages, laid out by the same stream_tables
+// order), the block holds 32 x rows (two m16 tiles; 16 or 4 where rows are
+// longer), the forward epilogue stores the recombined spectrum in place and
+// the inverse pass runs over both tiles under the fold plan's split (4
+// planes at every registered set, of base 128 at qtesla-iii-speed and 256
+// at the others: 8 stages a lane block at bw = 128, as many as the
+// forward's).  Until it took that design B9 ran as a mode of mxu_kernel:
+// each 512-thread block of 32 rows read wf and W' (1.57 MB each at q-III)
+// from L2 inside its MMA loop, 3.2 GB of L2 reads a 32768-row call, 1.70 ms
+// on an H100 80GB HBM3 at 700 W, of which an ablation (PERF.md) put 0.56
+// ms on products and 0.56 on their table reads; in this kernel it took
+// 0.7527 ms (utils/ab_timing.py).  A split at base 128 by byte permutes,
+// as at base 256 (each value's digits spread to its bytes first), ran
+// 2.9 % slower than the digit-by-digit split and was left out.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B, a pointer to
-// an MxuPlan (B5: an MxuStreamPlan) and a stream, launches without
+// an MxuPlan (B5, B9: an MxuStreamPlan) and a stream, launches without
 // synchronising and returns cudaGetLastError().
 
 #include <cstdint>
@@ -129,10 +142,10 @@ struct MxuPlan {
 
 constexpr int kThreads = 512;
 
-// B6-B9, numbered from 1 so that mxu_kernel<mode> keeps the instantiation
-// names utils/sass_diff.py matches across trees (B5 is
+// B6-B8, numbered from 1 so that mxu_kernel<mode> keeps the instantiation
+// names utils/sass_diff.py matches across trees (B5 and B9 are
 // polymul_stream_kernel below)
-enum Mode { kFixed = 1, kNtt, kIntt, kFolded };
+enum Mode { kFixed = 1, kNtt, kIntt };
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -605,18 +618,21 @@ size_t stream_smem(const MxuStreamPlan& p) {
            2 * static_cast<size_t>(p.ring) * sizeof(uint64_t);
 }
 
-template <int D>
+// B5 (kFolded false): x's tb rows above y's; B9 (kFolded true): tb = rows
+// x rows, the inverse stages the constant's.
+template <int D, bool kFolded>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     polymul_stream_kernel(const uint32_t* __restrict__ x,
                           const uint32_t* __restrict__ y,
                           uint32_t* __restrict__ z,
-                          const int8_t* __restrict__ stream,
+                          const int8_t* __restrict__ stream_f,
+                          const int8_t* __restrict__ stream_i,
                           const uint32_t* __restrict__ cf,
                           const uint32_t* __restrict__ ci,
                           const uint32_t* __restrict__ tw, long long batch,
                           const __grid_constant__ MxuStreamPlan p) {
     extern __shared__ __align__(128) uint32_t stream_shared[];
-    const int n = p.n, rows = p.rows, tb = rows / 2;
+    const int n = p.n, rows = p.rows, tb = kFolded ? rows : rows / 2;
     const int ring = p.ring;
     const uint32_t stage_bytes = static_cast<uint32_t>(kStageK) * p.bw * D;
     const int ks = (p.stages_f > p.stages_i ? p.stages_f : p.stages_i) *
@@ -629,7 +645,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     uint64_t* empty = full + ring;
     const long long groups = (batch + tb - 1) / tb;
     const long long iters = (groups - blockIdx.x + gridDim.x - 1) / gridDim.x;
-    const int per_group = p.nb * (p.stages_f + p.stages_i);
+    const int fwd_stages = p.nb * p.stages_f;
+    const int per_group = fwd_stages + p.nb * p.stages_i;
 
     if (threadIdx.x == 0) {
         for (int i = 0; i < ring; ++i) {
@@ -641,17 +658,22 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     __syncthreads();
 
     if (threadIdx.x >= kConsumers) {
-        // the producer: stage s of the stream into slot s % ring once every
-        // consumer has released the slot's last stage
+        // the producer: stage s of a group's forward stages, then of its
+        // inverse ones, into slot s % ring once every consumer has released
+        // the slot's last stage
         if (threadIdx.x == kConsumers) {
             Ring rg;
             int src = 0;
             for (long long s = 0; s < iters * per_group; ++s) {
                 mbar_wait(empty + rg.slot, rg.phase ^ 1);
+                const int8_t* from =
+                    src < fwd_stages
+                        ? stream_f + static_cast<size_t>(src) * stage_bytes
+                        : stream_i + static_cast<size_t>(src - fwd_stages) *
+                                         stage_bytes;
                 mbar_expect_tx(full + rg.slot, stage_bytes);
-                bulk_copy(slots + rg.slot * stage_bytes,
-                          stream + static_cast<size_t>(src) * stage_bytes,
-                          stage_bytes, full + rg.slot);
+                bulk_copy(slots + rg.slot * stage_bytes, from, stage_bytes,
+                          full + rg.slot);
                 if (++src == per_group) src = 0;
                 rg.next(ring);
             }
@@ -667,39 +689,65 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
             const long long left = batch - row0;      // > 0: walkers <= groups
             const int live = left < tb ? static_cast<int>(left) : tb;
             const size_t base = static_cast<size_t>(row0) * n;
-            // x's rows, then y's; rows past the batch are zero-filled; every
-            // copy is in flight before the one wait
+            // x's rows, then y's (B5); rows past the batch are zero-filled;
+            // every copy is in flight before the one wait
             for (int c = threadIdx.x * 4; c < tb * n; c += kConsumers * 4) {
                 const bool ok = (c >> p.logn) < live;
                 cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
-                cp_async16(data + tb * n + c, ok ? y + base + c : y,
-                           ok ? 16 : 0);
+                if (!kFolded)
+                    cp_async16(data + tb * n + c, ok ? y + base + c : y,
+                               ok ? 16 : 0);
             }
             cp_async_wait_all();
             Team::sync();
             wide_stages<false>(data, rows, p, tw);
-            // the forward pass of x and y, with the pointwise product where
-            // x's and y's rows meet in one thread (tb = 16 or 8), else
-            // after it
-            if (tb == 16) {
-                stream_matmul<D, 2, true>(data, rows, p.stages_f, p.df,
-                                          p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                          planes, ks, sr, rg, p, m);
-            } else if (tb == 8) {
-                stream_matmul<D, 1, true>(data, rows, p.stages_f, p.df,
-                                          p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                          planes, ks, sr, rg, p, m);
+            if constexpr (kFolded) {
+                // B9: the forward pass stores the spectrum in place, the
+                // inverse one runs under the fold plan's split against the
+                // constant's stages and const rows, over one 16-row MMA
+                // tile or two
+                if (tb > 16) {
+                    stream_matmul<D, 2, false>(data, tb, p.stages_f, p.df,
+                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                               planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 2, false>(data, tb, p.stages_i, p.di,
+                                               p.inv_lb, p.inv_add, p.kbi, ci,
+                                               planes, ks, sr, rg, p, m);
+                } else {
+                    stream_matmul<D, 1, false>(data, tb, p.stages_f, p.df,
+                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                               planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 1, false>(data, tb, p.stages_i, p.di,
+                                               p.inv_lb, p.inv_add, p.kbi, ci,
+                                               planes, ks, sr, rg, p, m);
+                }
             } else {
-                stream_matmul<D, 1, false>(data, rows, p.stages_f, p.df,
-                                           p.fwd_lb, p.fwd_add, p.kbf, cf,
+                // B5: the forward pass of x and y, with the pointwise
+                // product where x's and y's rows meet in one thread (tb =
+                // 16 or 8), else after it, then the inverse pass of x's
+                // rows
+                if (tb == 16) {
+                    stream_matmul<D, 2, true>(data, rows, p.stages_f, p.df,
+                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                              planes, ks, sr, rg, p, m);
+                } else if (tb == 8) {
+                    stream_matmul<D, 1, true>(data, rows, p.stages_f, p.df,
+                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                              planes, ks, sr, rg, p, m);
+                } else {
+                    stream_matmul<D, 1, false>(data, rows, p.stages_f, p.df,
+                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                               planes, ks, sr, rg, p, m);
+                    for (int idx = threadIdx.x; idx < tb * n;
+                         idx += kConsumers)
+                        data[idx] =
+                            pointwise(data[idx], data[tb * n + idx], m);
+                    Team::sync();
+                }
+                stream_matmul<D, 1, false>(data, tb, p.stages_i, p.di,
+                                           p.inv_lb, p.inv_add, p.kbi, ci,
                                            planes, ks, sr, rg, p, m);
-                for (int idx = threadIdx.x; idx < tb * n; idx += kConsumers)
-                    data[idx] = pointwise(data[idx], data[tb * n + idx], m);
-                Team::sync();
             }
-            stream_matmul<D, 1, false>(data, tb, p.stages_i, p.di, p.inv_lb,
-                                       p.inv_add, p.kbi, ci, planes, ks, sr,
-                                       rg, p, m);
             wide_stages<true>(data, tb, p, tw);
             for (int c = threadIdx.x * 4; c < tb * n; c += kConsumers * 4)
                 if ((c >> p.logn) < live)
@@ -715,12 +763,13 @@ bool valid_split(int din, int lb) {
     return din >= 1 && ((lb == 7 && din <= 6) || (lb == 8 && din <= 4));
 }
 
-template <int D>
+template <int D, bool kFolded>
 int run_polymul_stream(const void* a, const void* b, void* out,
-                       const void* stream, const void* cf, const void* ci,
-                       const void* tw, long long batch,
-                       const MxuStreamPlan& p, void* cuda_stream) {
-    auto kernel = polymul_stream_kernel<D>;
+                       const void* stream_f, const void* stream_i,
+                       const void* cf, const void* ci, const void* tw,
+                       long long batch, const MxuStreamPlan& p,
+                       void* cuda_stream) {
+    auto kernel = polymul_stream_kernel<D, kFolded>;
     const size_t smem = stream_smem(p);
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -731,25 +780,34 @@ int run_polymul_stream(const void* a, const void* b, void* out,
     if (const int err = qt::resident_blocks(kernel, kStreamThreads, smem,
                                             &resident))
         return err;
-    const long long groups = (batch + p.rows / 2 - 1) / (p.rows / 2);
+    const long long tb = kFolded ? p.rows : p.rows / 2;
+    const long long groups = (batch + tb - 1) / tb;
     const long long walkers = resident < groups ? resident : groups;
     if (walkers < 1 || walkers >= (1LL << 31)) return cudaErrorInvalidValue;
     kernel<<<dim3(static_cast<unsigned>(walkers)), kStreamThreads, smem,
              static_cast<cudaStream_t>(cuda_stream)>>>(
         static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), static_cast<const int8_t*>(stream),
+        static_cast<uint32_t*>(out), static_cast<const int8_t*>(stream_f),
+        static_cast<const int8_t*>(stream_i),
         static_cast<const uint32_t*>(cf), static_cast<const uint32_t*>(ci),
         static_cast<const uint32_t*>(tw), batch, p);
     return cudaGetLastError();
 }
 
-// rows: x's tb rows above y's, one m16 tile (tb <= 8) or two (tb = 16)
+// B5 (kFolded false): x's tb rows above y's, one m16 tile (tb <= 8) or two
+// (tb = 16); stream_f the stage stream of both directions, the inverse
+// stages after the forward ones.  B9: tb x rows, one m16 tile (tb <= 16) or
+// two (tb = 32); stream_f the forward stages (the front of the same
+// stream), stream_i the constant's inverse stages.
+template <bool kFolded>
 int launch_polymul_stream(const void* a, const void* b, void* out,
-                          const void* stream, const void* cf,
-                          const void* ci, const void* tw, long long batch,
-                          const void* plan, void* cuda_stream) {
+                          const void* stream_f, const void* stream_i,
+                          const void* cf, const void* ci, const void* tw,
+                          long long batch, const void* plan,
+                          void* cuda_stream) {
     const MxuStreamPlan p = *static_cast<const MxuStreamPlan*>(plan);
-    if (p.rows < 2 || (p.rows > 16 && p.rows != 32) || p.rows % 2 ||
+    if (p.rows < (kFolded ? 1 : 2) || (p.rows > 16 && p.rows != 32) ||
+        (!kFolded && p.rows % 2) ||
         p.d < 1 || p.d > kMaxClasses || p.bw < 32 || p.bw > 128 ||
         p.bw % 32 || p.n != 1 << p.logn || p.nb * p.bw != p.n ||
         p.n >> p.lr != p.bw || !valid_split(p.df, p.fwd_lb) ||
@@ -758,19 +816,27 @@ int launch_polymul_stream(const void* a, const void* b, void* out,
         p.stages_i != (p.di * p.bw + kStageK - 1) / kStageK || p.ring < 2 ||
         batch <= 0 || stream_smem(p) + kBlockReserve > kSmShared)
         return cudaErrorInvalidValue;
+    if (!kFolded)
+        stream_i = static_cast<const int8_t*>(stream_f) +
+                   static_cast<size_t>(p.nb) * p.stages_f * kStageK * p.bw *
+                       p.d;
     switch (p.d) {
     case 1:
-        return run_polymul_stream<1>(a, b, out, stream, cf, ci, tw, batch, p,
-                                     cuda_stream);
+        return run_polymul_stream<1, kFolded>(a, b, out, stream_f, stream_i,
+                                              cf, ci, tw, batch, p,
+                                              cuda_stream);
     case 2:
-        return run_polymul_stream<2>(a, b, out, stream, cf, ci, tw, batch, p,
-                                     cuda_stream);
+        return run_polymul_stream<2, kFolded>(a, b, out, stream_f, stream_i,
+                                              cf, ci, tw, batch, p,
+                                              cuda_stream);
     case 3:
-        return run_polymul_stream<3>(a, b, out, stream, cf, ci, tw, batch, p,
-                                     cuda_stream);
+        return run_polymul_stream<3, kFolded>(a, b, out, stream_f, stream_i,
+                                              cf, ci, tw, batch, p,
+                                              cuda_stream);
     default:
-        return run_polymul_stream<4>(a, b, out, stream, cf, ci, tw, batch, p,
-                                     cuda_stream);
+        return run_polymul_stream<4, kFolded>(a, b, out, stream_f, stream_i,
+                                              cf, ci, tw, batch, p,
+                                              cuda_stream);
     }
 }
 
@@ -788,7 +854,6 @@ int launch_polymul_stream(const void* a, const void* b, void* out,
 QT_MXU_LAUNCHER(qt_polymul_fixed_mxu, kFixed)
 QT_MXU_LAUNCHER(qt_ntt_mxu, kNtt)
 QT_MXU_LAUNCHER(qt_intt_mxu, kIntt)
-QT_MXU_LAUNCHER(qt_polymul_fixed_folded_mxu, kFolded)
 
 // B5: wf the stage stream of the forward and inverse tables
 // (MxuDeviceTables.stream), wi unused, plan an MxuStreamPlan
@@ -796,6 +861,19 @@ extern "C" int qt_polymul_mxu(const void* a, const void* b, void* out,
                               const void* wf, const void* cf, const void*,
                               const void* ci, const void* tw, long long batch,
                               const void* plan, void* stream) {
-    return launch_polymul_stream(a, b, out, wf, cf, ci, tw, batch, plan,
-                                 stream);
+    return launch_polymul_stream<false>(a, b, out, wf, nullptr, cf, ci, tw,
+                                        batch, plan, stream);
+}
+
+// B9: wf the same stream (its forward stages), wi the constant's inverse
+// stages (FoldedOperand.stages), ci its const rows, b unused, plan an
+// MxuStreamPlan under the fold plan's inverse split
+extern "C" int qt_polymul_fixed_folded_mxu(const void* a, const void*,
+                                           void* out, const void* wf,
+                                           const void* cf, const void* wi,
+                                           const void* ci, const void* tw,
+                                           long long batch, const void* plan,
+                                           void* stream) {
+    return launch_polymul_stream<true>(a, nullptr, out, wf, wi, cf, ci, tw,
+                                       batch, plan, stream);
 }

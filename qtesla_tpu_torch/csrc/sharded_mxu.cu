@@ -29,21 +29,29 @@
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
 // The wide stages and the dense block matmul are mxu_block.cuh's, shared
-// with B6-B9; B11 and B16 multiply through mxu_compact.cuh.  Every output
-// is canonical, and canonical inputs lie below every plan's split bound,
-// so the JAX plans' split parameters serve unchanged;
-// the TPU kernel's lazy hand-offs between segments are not replayed.
+// with B6-B8; B11, B12 and B16 multiply through mxu_compact.cuh.  Every
+// output is canonical, and canonical inputs lie below every plan's split
+// bound, so the JAX plans' split parameters serve unchanged; the TPU
+// kernel's lazy hand-offs between segments are not replayed.
 //
-// Design of B12-B15.  One launch covers the k_local stacked shards
+// Design of B12.  seg2_compact.cuh's seg2_compact_kernel, the body B18
+// runs too (kClasses false: one input plane a value, split under p2f, and
+// K2f's block of this n2-block's place in the tile): K2f's and K2i's
+// nonzero blocks alone (SpDeviceTables.w2fc, .w2ic), a persistent grid of
+// (walkers, n2-blocks, shard) with each block's tables in shared memory
+// (through L2 at n = 8192), each warp taking 8 rows of x and 8 of y
+// through both products with no block barrier.  That header keeps the
+// design.  B12 ran as a mode of sp_kernel below until it took that body.
+//
+// Design of B13-B15.  One launch covers the k_local stacked shards
 // (k_local, B, nloc) of a call: grid (row groups, shard), each shard's
 // tables found by offset (K2f and its const row are one table for every
 // shard).  A rank of a multi-process run launches the same kernel with
 // k_local = 1 and its own table slice.  A block holds `rows` rows (at most
-// 32; 16 of x and 16 of y for seg2) in shared memory for the whole segment,
-// loaded with cp.async; B13 holds 32 x rows and its shard's spectrum row
-// (read once a block, no batch stride), so each K2f and K2i pass serves
-// twice B12's rows; at nloc = 256 that is 32 KiB of rows plus 17 KiB of
-// digit planes, so four blocks fit an SM (B5's 148 KB block allows one).
+// 32) in shared memory for the whole segment, loaded with cp.async; B13
+// holds 32 x rows and its shard's spectrum row (read once a block, no batch
+// stride); at nloc = 256 that is 32 KiB of rows plus 17 KiB of digit
+// planes, so four blocks fit an SM (B5's 148 KB block allows one).
 // The launch keeps 16 warps on an SM whatever the row length: four blocks
 // of 128 threads where four fit, else two of 256, else one of 512, each
 // with __launch_bounds__ keeping the registers for that many, so one
@@ -53,10 +61,10 @@
 // 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
 // two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
 // TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.  B12-B15 multiply whole TW x TW
+// zero table columns and zero planes.  B13-B15 multiply whole TW x TW
 // tiles against tables streamed from L2 once per row group, and run load,
-// wide stages, split, products and recombination as barrier-separated
-// phases; no TMA and no wgmma.
+// split, products and recombination as barrier-separated phases; no TMA
+// and no wgmma.
 //
 // Design of B11 and B16 (column_compact_kernel, one body, the direction a
 // template parameter: B11 runs the forward wide stages, then the products;
@@ -103,7 +111,7 @@
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; B12-B15 multiply whole tiles all the same):
+// over n2-blocks, n2/TW = 1/4; B13-B15 multiply whole tiles all the same):
 //   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
@@ -114,8 +122,9 @@
 // The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
-// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan) and a
-// stream, launches without synchronising and returns cudaGetLastError().
+// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan; B12:
+// an SpClassPlan) and a stream, launches without synchronising and returns
+// cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,6 +132,7 @@
 #include "modq.cuh"
 #include "mxu_block.cuh"
 #include "mxu_compact.cuh"
+#include "seg2_compact.cuh"
 
 namespace {
 
@@ -156,15 +166,13 @@ constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
 // the row segments, numbered so that sp_kernel<seg,threads> keeps the
 // instantiation names utils/sass_diff.py matches across trees (B11 and B16
-// are column_compact_kernel below)
-enum Seg { kSeg2 = 1, kSeg2Fixed = 3, kSeg2Fwd, kSeg2Folded };
+// are column_compact_kernel below, B12 seg2_compact.cuh's
+// seg2_compact_kernel)
+enum Seg { kSeg2Fixed = 3, kSeg2Fwd, kSeg2Folded };
 
-// operand rows per batch row a block holds, and whether it has a digit plan 2
-__host__ __device__ constexpr int ops_of(int seg) {
-    return seg == kSeg2 ? 2 : 1;
-}
+// whether a segment has a digit plan 2
 __host__ __device__ constexpr bool two_plans(int seg) {
-    return seg == kSeg2 || seg == kSeg2Fixed;
+    return seg == kSeg2Fixed;
 }
 // B13 keeps its shard's spectrum row after the x rows
 __host__ __device__ constexpr int spec_rows(int seg) {
@@ -180,8 +188,7 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
               const uint32_t* __restrict__ tw, long long batch,
               const __grid_constant__ SpPlan p) {
     extern __shared__ __align__(16) uint32_t smem[];
-    constexpr int kOps = ops_of(SEG);
-    const int nloc = p.nloc, tb = p.rows / kOps;
+    const int nloc = p.nloc, tb = p.rows;
     const int ks = (p.kp1 > p.kp2 ? p.kp1 : p.kp2) + kPad;
     uint32_t* data = smem;
     int8_t* planes = reinterpret_cast<int8_t*>(
@@ -203,9 +210,6 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4) {
         const bool ok = (c >> p.lnloc) < live;
         cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
-        if (SEG == kSeg2)
-            cp_async16(data + tb * nloc + c, ok ? y + base + c : y,
-                       ok ? 16 : 0);
     }
     if (SEG == kSeg2Fixed)
         for (int c = threadIdx.x * 4; c < nloc; c += blockDim.x * 4)
@@ -214,17 +218,17 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     cp_async_wait_all();
     __syncthreads();
 
-    if (SEG == kSeg2 || SEG == kSeg2Fixed || SEG == kSeg2Fwd) {
-        // the rows (B12: x and y) through the one shared forward table
+    if (SEG == kSeg2Fixed || SEG == kSeg2Fwd) {
+        // the rows through the one shared forward table
         block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
                      c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
     }
-    if (SEG == kSeg2 || SEG == kSeg2Fixed) {
-        // the pointwise product against y's rows (B12) or the one spectrum
-        // row (B13, index within the row), then the shard's inverse rows
+    if (SEG == kSeg2Fixed) {
+        // the pointwise product against the one spectrum row (index within
+        // the row), then the shard's inverse rows
         const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
         const uint32_t* other = data + tb * nloc;
-        const int mask = SEG == kSeg2 ? -1 : nloc - 1;
+        const int mask = nloc - 1;
         for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
             data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
         __syncthreads();
@@ -278,17 +282,15 @@ int launch(const void* a, const void* b, void* out, const void* w1,
            const void* c1, const void* w2, const void* c2, const void* tw,
            long long batch, int k_local, const void* plan, void* stream) {
     const SpPlan p = *static_cast<const SpPlan*>(plan);
-    constexpr int kOps = ops_of(SEG);
     const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
-    if (p.rows < kOps || p.rows > kMaxRows || p.rows % kOps || p.d < 1 ||
+    if (p.rows < 1 || p.rows > kMaxRows || p.d < 1 ||
         p.d > kMaxClasses || !pow2_tw || p.nloc != 1 << p.lnloc ||
         p.a * p.tw != p.nloc || p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
         (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
         !valid_depth(p.din1, p.kp1, p.tw) ||
         (two_plans(SEG) ? !valid_depth(p.din2, p.kp2, p.tw) : p.kp2 != 0))
         return cudaErrorInvalidValue;
-    const long long tb = p.rows / kOps;
-    const long long blocks = (batch + tb - 1) / tb;
+    const long long blocks = (batch + p.rows - 1) / p.rows;
     if (batch <= 0 || blocks >= (1LL << 31) || k_local < 1 ||
         k_local > 65535)
         return cudaErrorInvalidValue;
@@ -507,7 +509,16 @@ extern "C" int qt_sp_seg3(const void* a, const void*, void* out,
     return launch_column_compact<true>(a, out, w1, c1, tw, batch, k_local,
                                        plan, stream);
 }
-QT_SP_LAUNCHER(qt_sp_seg2, kSeg2)
+// B12: w1 and c1 the compact K2f (tabs.w2fc) and its const row, w2 and
+// c2 the shard slices of the compact K2i and its const rows, plan an
+// SpClassPlan; tw unused
+extern "C" int qt_sp_seg2(const void* a, const void* b, void* out,
+                          const void* w1, const void* c1, const void* w2,
+                          const void* c2, const void*, long long batch,
+                          int k_local, const void* plan, void* stream) {
+    return qt::seg2::launch<false>(a, b, out, w1, c1, w2, c2, batch, k_local,
+                                   plan, stream);
+}
 QT_SP_LAUNCHER(qt_sp_seg2_fixed, kSeg2Fixed)
 QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
 QT_SP_LAUNCHER(qt_sp_seg2_folded, kSeg2Folded)

@@ -14,7 +14,8 @@ Counterpart of the callers of ``qtesla_tpu/ops/ntt_mxu.py``.  Each
 - ``polymul_fixed_folded_mxu_fn``  B9, replaces the kernel of the function of
   that name (l.1210); the operand is ``fold_operand`` of the constant's
   spectrum: the inverse tables with the spectrum folded into their columns
-  (``mxu_tables.fold_tables``), so the kernel has no pointwise stage
+  (``mxu_tables.fold_tables``), laid out as the stages B5's stream kernel
+  copies, so the kernel has no pointwise stage
 
 A transform runs its ``Lr`` wide stages as butterflies and the block-local
 rest as one int8 digit-plane product per block of ``bw`` lanes against the
@@ -43,13 +44,13 @@ import torch
 
 from . import ntt as N
 from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _group_bias,
-                         _split_bias, fold_plan, fold_tables, get_mxu_tables,
-                         stream_stages, stream_tables)
+                         _split_bias, _stages, fold_plan, fold_tables,
+                         get_mxu_tables, stream_stages, stream_tables)
 from .ntt_fused import Kernel, _check, _check_tw
 
 __all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "MxuStreamPlan",
            "FoldedOperand", "host_tables", "device_tables", "plan_for",
-           "stream_plan", "fold_plan_for",
+           "stream_plan", "fold_plan_for", "staged_tables",
            "block_rows", "fold_operand", "polymul_mxu_fn",
            "polymul_fixed_mxu_fn", "polymul_fixed_folded_mxu_fn",
            "ntt_mxu_fn", "intt_mxu_fn", "polymul_mxu", "polymul_fixed_mxu",
@@ -92,9 +93,11 @@ class MxuDeviceTables:
     i*bw + k, i.e. ``MxuTables.wf`` with the output axis first; ``wi``
     likewise.  ``constf`` / ``consti`` uint32 (nb, bw) are the planner's
     const rows.  ``stream`` int8 (nb*(Cf + Ci), 64*bw*D) is ``wf`` and
-    ``wi`` again as the stages B5 copies into shared memory
-    (``mxu_tables.stream_tables``); B6-B9 and the twins read ``wf`` and
-    ``wi``."""
+    ``wi`` again as the stages the stream kernel copies into shared memory
+    (``mxu_tables.stream_tables``): B5 reads all of it, B9 its first nb*Cf
+    stages, the forward ones (its inverse stages are the constant's).  The
+    dense ``wf`` and ``wi`` are read by B6-B8 and by the twins; once B6-B8
+    read the stream too, only the twins need them."""
 
     wf: torch.Tensor
     constf: torch.Tensor
@@ -128,27 +131,41 @@ def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
 
 @dataclass(frozen=True)
 class FoldedOperand:
-    """One constant's folded inverse tables in the kernel's layout, on one
-    device: ``w`` int8 (nb, Dout*bw, Din*bw), ``fold_tables``'s W with the
-    output axis first, and ``c`` uint32 (nb, bw), its const rows."""
+    """One constant's folded inverse tables as B9 reads them, on one
+    device: ``stages`` int8 (nb*C, 64*bw*Dout), ``fold_tables``'s W laid out
+    as the stages of the stream kernel (``mxu_tables._stages``, C =
+    Din*bw/64 a lane block, the order ``stream_tables`` gives the inverse
+    tables), and ``c`` uint32 (nb, bw), its const rows.  No dense copy of W
+    is kept: the twin reads the stages back (``staged_tables``)."""
 
-    w: torch.Tensor
+    stages: torch.Tensor
     c: torch.Tensor
 
     def tensors(self):
-        return self.w, self.c
+        return self.stages, self.c
 
 
 def fold_operand(spectrum: torch.Tensor, mt: MxuTables) -> FoldedOperand:
     """The folded operand of the constant whose canonical forward spectrum
     is ``spectrum`` (n values), on the spectrum's device, under
-    ``fold_plan(mt)``.  The tables are built on the host (``fold_tables``)
-    and copied over once."""
+    ``fold_plan(mt)``.  The tables are built on the host (``fold_tables``),
+    laid out as stages there and copied over once."""
     _check("spectrum", spectrum.reshape(-1), spectrum.numel())
     W, c = fold_tables(mt, fold_plan(mt), spectrum.reshape(-1).cpu().numpy())
     dev = spectrum.device
-    return FoldedOperand(_kernel_layout(W).to(dev),
+    return FoldedOperand(torch.from_numpy(_stages(W)).to(dev),
                          torch.from_numpy(c[:, 0].copy()).to(dev))
+
+
+def staged_tables(stages: torch.Tensor, nb: int, bw: int,
+                  D: int) -> torch.Tensor:
+    """Stages (nb*C, 64*bw*D) -> the output-major tables (nb, D*bw, 64*C)
+    they hold (``mxu_tables._unstages`` before its input-major move, on any
+    device): row j*bw + o, column i*bw + k, zero past the planes."""
+    C = stages.shape[0] // nb
+    T = stages.reshape(nb, C, bw // 8, D, 8, 4, 2, 8)
+    return T.permute(0, 3, 2, 4, 1, 6, 5, 7).reshape(nb, D * bw,
+                                                     C * STAGE_DEPTH)
 
 
 def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
@@ -268,7 +285,8 @@ def polymul_fixed_folded_mxu_plain(x, op: FoldedOperand, mt: MxuTables,
     fp = fold_plan(mt)
     tabs = tabs or device_tables(mt, x.device)
     X = _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw)
-    v = _block_matmul(X, op.w, op.c, _group_bias(fp.groups, fp.bounds, mt.q),
+    w = staged_tables(op.stages, mt.nb, mt.bw, fp.Dout)
+    v = _block_matmul(X, w, op.c, _group_bias(fp.groups, fp.bounds, mt.q),
                       fp.off, fp.Din, fp.base, mt)
     return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr).to(
         _U32).reshape(x.shape)
@@ -349,11 +367,11 @@ def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
 
 @functools.lru_cache(maxsize=None)
 def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
-    """The folded kernel's plan: ``mt``'s forward, and an inverse split of
-    ``fp.Din`` planes into ``fp.Dout`` classes.  The kernel holds
-    max(Df, Din) planes and adds 2^24 to every class sum, so a plan with
-    other classes than ``mt``, more than 6 planes or a class bound of 2^24
-    raises."""
+    """The folded kernel's plan, the base of ``stream_plan(mt, fp)``:
+    ``mt``'s forward on x rows alone, and an inverse split of ``fp.Din``
+    planes into ``fp.Dout`` classes.  The kernel holds max(Df, Din) planes
+    and adds 2^24 to every class sum, so a plan with other classes than
+    ``mt``, more than 6 planes or a class bound of 2^24 raises."""
     if fp.Dout != mt.D or max(fp.bounds) >= _CLASS_BIAS:
         raise ValueError(f"{mt.tbl.ps.name}: fold plan (Dout={fp.Dout}, "
                          f"class bounds {fp.bounds}) is outside the kernel's "
@@ -363,62 +381,72 @@ def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
 
 
 class MxuStreamPlan(ctypes.Structure):
-    """B5's run-time plan: ``MxuPlan``'s fields, then the stages of a
-    forward and of an inverse block matmul and the stages the kernel's ring
-    holds; field for field the ``MxuStreamPlan`` struct of
+    """B5's and B9's run-time plan: ``MxuPlan``'s fields, then the stages of
+    a forward and of an inverse block matmul and the stages the kernel's
+    ring holds; field for field the ``MxuStreamPlan`` struct of
     ``csrc/ntt_mxu.cu``."""
 
     _fields_ = MxuPlan._fields_ + [(f, ctypes.c_int32) for f in (
         "stages_f", "stages_i", "ring")]
 
 
-# B5's launch (csrc/ntt_mxu.cu computes the same sizes): the shared memory
-# of one SM and what the runtime keeps of each block, the bytes after a row
-# of digit planes, and the ring's most stages
+# the stream kernel's launch (csrc/ntt_mxu.cu computes the same sizes): the
+# shared memory of one SM and what the runtime keeps of each block, the
+# bytes after a row of digit planes, and the ring's most stages
 _SM_SHARED, _BLOCK_RESERVE, _PLANES_PAD, _MAX_RING = 233472, 1024, 16, 8
 
 
-def stream_smem(mt: MxuTables, rows: int, ring: int) -> int:
-    """Shared memory of one B5 block: ``ring`` stages, ``rows`` rows, their
-    digit planes and two barriers a stage."""
+def stream_smem(mt: MxuTables, rows: int, ring: int,
+                di: int | None = None) -> int:
+    """Shared memory of one stream kernel block: ``ring`` stages, ``rows``
+    rows, their digit planes (an inverse split of ``di`` planes, ``mt.Di``
+    unless given) and two barriers a stage."""
     ks = max(stream_stages(mt.Df, mt.bw),
-             stream_stages(mt.Di, mt.bw)) * STAGE_DEPTH + _PLANES_PAD
+             stream_stages(mt.Di if di is None else di, mt.bw)
+             ) * STAGE_DEPTH + _PLANES_PAD
     return (ring * STAGE_DEPTH * mt.bw * mt.D + rows * mt.n * 4
             + -(-rows // 16) * 16 * ks + 16 * ring)
 
 
 @functools.lru_cache(maxsize=None)
-def stream_plan(mt: MxuTables) -> MxuStreamPlan:
-    """B5's run-time plan: ``plan_for(mt, 2)`` with the stage counts and
-    the deepest ring that fits beside the rows (3 stages of 24 KiB at
-    qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan the
-    kernel cannot take raises: more than 4 digit classes (``plan_for``), a
-    split other than at most 4 planes of base 256 or 6 of base 128, a lane
-    block wider than 128, rows other than x's and y's in one MMA tile of 16
-    or in two (at most 16, or 32), or no room for two stages."""
-    base = plan_for(mt, 2)
-    for din, b in ((mt.Df, mt.fwd_base), (mt.Di, mt.inv_base)):
+def stream_plan(mt: MxuTables,
+                fp: FixedFoldPlan | None = None) -> MxuStreamPlan:
+    """The stream kernel's run-time plan: B5's (``plan_for(mt, 2)``), or
+    with a fold plan ``fp`` B9's (``fold_plan_for(mt, fp)``: its rows are x
+    rows alone and its inverse split the fold plan's), with the stage
+    counts and the deepest ring that fits beside the rows (3 stages of 24
+    KiB at qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan
+    the kernel cannot take raises: more than 4 digit classes, a split other
+    than at most 4 planes of base 256 or 6 of base 128, a lane block wider
+    than 128, rows other than one MMA tile of 16 or two (B5: x's and y's,
+    at most 16, or 32), or no room for two stages."""
+    if fp is None:
+        base, di, inv_base = plan_for(mt, 2), mt.Di, mt.inv_base
+    else:
+        base, di, inv_base = fold_plan_for(mt, fp), fp.Din, fp.base
+    for din, b in ((mt.Df, mt.fwd_base), (di, inv_base)):
         if b not in (128, 256) or din > (4 if b == 256 else 6):
             raise ValueError(f"{mt.tbl.ps.name}: {din} planes of base {b} "
-                             f"are outside B5's split")
+                             f"are outside the stream kernel's split")
     if mt.bw > 128 or (base.rows > 16 and base.rows != 32):
-        raise ValueError(f"bw={mt.bw}, rows={base.rows}: outside B5's "
-                         f"range")
+        raise ValueError(f"bw={mt.bw}, rows={base.rows}: outside the stream "
+                         f"kernel's range")
     ring = max((r for r in range(2, _MAX_RING + 1)
-                if stream_smem(mt, base.rows, r) + _BLOCK_RESERVE
+                if stream_smem(mt, base.rows, r, di) + _BLOCK_RESERVE
                 <= _SM_SHARED), default=0)
     if not ring:
         raise ValueError(f"n={mt.n}: two stages do not fit beside the rows")
     fields = {f: getattr(base, f) for f, _ in MxuPlan._fields_}
     return MxuStreamPlan(**fields, stages_f=stream_stages(mt.Df, mt.bw),
-                         stages_i=stream_stages(mt.Di, mt.bw), ring=ring)
+                         stages_i=stream_stages(di, mt.bw), ring=ring)
 
 
 def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
             wf, cf, wi=None, ci) -> torch.Tensor:
     """Run ``kernel`` on CUDA tensors a (and b) into a new output, against
     the forward weights and const ``wf``, ``cf`` and the inverse ones
-    ``wi``, ``ci`` (B5: ``wf`` its stage stream, no ``wi``)."""
+    ``wi``, ``ci`` (B5: ``wf`` its stage stream, no ``wi``; B9: ``wf`` the
+    same stream, ``wi`` the constant's stages)."""
     from ..utils.build import load_library
 
     out = torch.empty_like(a)
@@ -504,12 +532,13 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
     tabs, tw = _prepare(mt, tabs, tw, x)
     nb, bw = mt.nb, mt.bw
     _check_shapes("folded operand", op.tensors(),
-                  ((torch.int8, (nb, fp.Dout * bw, fp.Din * bw)),
+                  ((torch.int8, (nb * stream_stages(fp.Din, bw),
+                                 STAGE_DEPTH * bw * fp.Dout)),
                    (torch.uint32, (nb, bw))), x)
     if x.is_cuda:
         return _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
-                       fold_plan_for(mt, fp), tw, x, None, wf=tabs.wf,
-                       cf=tabs.constf, wi=op.w, ci=op.c)
+                       stream_plan(mt, fp), tw, x, None, wf=tabs.stream,
+                       cf=tabs.constf, wi=op.stages, ci=op.c)
     return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
 

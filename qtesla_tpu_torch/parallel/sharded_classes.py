@@ -36,9 +36,11 @@ congruent.  Dispatch, launch counts and the stacked (k, B, width) layout are
 
 B18 multiplies only the nonzero n2-blocks of its tables (``w2cc``, the one
 diagonal block of the class tables, and ``SpDeviceTables.w2ic``), each warp
-taking 8 rows of x and of y at one n2-block through the whole segment;
-``seg2_classes_compact_plain`` is the plain product over the same tables.
-B17 keeps the dense K1.
+taking 8 rows of x and of y at one n2-block through the whole segment, in
+the kernel body B12 runs too (``csrc/seg2_compact.cuh``; its plan type
+``SpClassPlan`` and layout ``row_compact_fields`` live in
+``sharded_mxu.py``); ``seg2_classes_compact_plain`` is the plain product
+over the same tables.  B17 keeps the dense K1.
 """
 
 from __future__ import annotations
@@ -54,22 +56,21 @@ from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, class_sums,
                            recombine)
-from .sharded_mxu import (_BLOCK_RESERVE, _CLASS_BIAS, _COMPACT_FIELDS,
-                          _SM_SHARED, SpDeviceTables,
-                          SpPlan, _check_tables, _compact_dims,
+from .sharded_mxu import (_CLASS_BIAS, WARP_ROWS, SpClassPlan,
+                          SpDeviceTables, SpPlan, _check_tables,
                           _compact_shape, _const_rows, _default_n1, _depth,
                           _kernel_layout, _on_mesh, _operands, _permute,
                           _pointwise, _rows_inv, _rows_inv_compact,
-                          _run_kernel, _shards, _wide_stages, a2a_inv,
-                          compact_class_sums, device_tables,
-                          from_shards, planes_stride, seg3_plain, sp_seg3,
-                          to_shards)
+                          _run_kernel, _shards, _slots, _wide_stages,
+                          a2a_inv, compact_class_sums, device_tables,
+                          from_shards, row_compact_fields, seg3_plain,
+                          sp_seg3, to_shards)
 from .sharded_mxu import plan_for as sp_plan_for
 from .sharded_mxu_tables import (ClassPlan, SpPlans, class_boundary_plan,
-                                 compact_depth, compact_layout,
-                                 compact_tables, fourstep_mxu_plans)
+                                 compact_layout, compact_tables,
+                                 fourstep_mxu_plans)
 
-__all__ = ["KERNELS", "ClassDeviceTables", "SpClassPlan",
+__all__ = ["KERNELS", "ClassDeviceTables", "SpClassPlan", "WARP_ROWS",
            "host_class_tables", "host_compact_class_table",
            "class_device_tables", "plan_for",
            "sp_seg1_classes", "sp_seg2_classes", "seg1_classes_plain",
@@ -92,8 +93,6 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
 # planes of one split
 _MAX_CLASSES = 3
 _MAX_PLANES = 6
-# batch rows of x and of y one warp of B18 works on (kWarpRows)
-WARP_ROWS = 8
 _I64, _U32 = torch.int64, torch.uint32
 
 
@@ -242,23 +241,6 @@ def a2a_fwd_classes(v: torch.Tensor, plans: SpPlans,
 # Kernel launch.
 # ----------------------------------------------------------------------
 
-class SpClassPlan(ctypes.Structure):
-    """The plan values the kernels take at run time; field for field the
-    ``SpClassPlan`` struct of ``csrc/sharded_classes.cu``: ``SpPlan``'s,
-    then per class j B18's split (``cdin``, ``clb``, ``cadd``) and the bias
-    B17 stores (``cls_b``), then B18's compact layouts (``c1`` the class
-    tables, ``c2`` K2i; ``sharded_mxu.SpCompactPlan``) and where it reads
-    its tables; B17 leaves them 0."""
-
-    _fields_ = SpPlan._fields_ + [
-        (f, ctypes.c_int32 * 3) for f in ("cdin", "clb")] + [
-        (f, ctypes.c_uint32 * 3) for f in ("cadd", "cls_b")] + _COMPACT_FIELDS
-
-
-def _slots(ctype, values) -> ctypes.Array:
-    return (ctype * 3)(*values)
-
-
 @functools.lru_cache(maxsize=None)
 def plan_for(plans: SpPlans, cp: ClassPlan, seg: str) -> SpClassPlan:
     """The run-time plan of kernel ``seg`` (a key of ``KERNELS``).  More than
@@ -282,24 +264,11 @@ def plan_for(plans: SpPlans, cp: ClassPlan, seg: str) -> SpClassPlan:
                              f"bounds={cp.bounds}) is outside the kernel's "
                              f"range")
         bias = _CLASS_BIAS * sum(sp.pw)
-        # the dense depths kp1 and kp2 give way to the compact c1.kp and c2.kp
+        # the dense depths kp1 and kp2 give way to the compact c1.kp and
+        # c2.kp; the row segment kernel's layout is B12's
         fields.update(din1=planes, lb1=0, kp1=0, add1=0, kp2=0,
-                      kb1=(_group_bias(cp.groups, cp.bounds, q) - bias) % q)
-        # each warp of a block works on 8 batch rows of x and of y at one
-        # n2-block of lanes; the block's tables sit in shared memory where
-        # they leave room for the planes of at least 8 warps
-        lay = compact_layout(plans, "rows")
-        c1, c2 = (_compact_dims(lay, planes),
-                  _compact_dims(lay, plans.p2i.din))
-        shared = 2 * lay.s * 4 + D * lay.s * (c1.kp + c2.kp)
-        warp = (2 * WARP_ROWS * planes_stride(1, c1.kp)
-                + WARP_ROWS * planes_stride(1, c2.kp))
-        if 2 * lay.s * 4 + warp + _BLOCK_RESERVE > _SM_SHARED:
-            raise ValueError(f"{plans.name}: the planes of one warp "
-                             f"({warp} bytes) do not fit the kernel's "
-                             f"shared memory")
-        fields.update(rows=2 * WARP_ROWS, c1=c1, c2=c2, smem_tables=int(
-            shared + 8 * warp + _BLOCK_RESERVE <= _SM_SHARED))
+                      kb1=(_group_bias(cp.groups, cp.bounds, q) - bias) % q,
+                      **row_compact_fields(plans, planes, D, 1))
     return SpClassPlan(
         **fields,
         cdin=_slots(ctypes.c_int32, cp.dins),

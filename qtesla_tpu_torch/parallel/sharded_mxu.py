@@ -8,7 +8,8 @@ Counterpart of the kernels and the assembly of
   stages of the n1-point column transform, then K1 per (shard, tile);
 - ``sp_seg2``  B12, replaces ``_make_seg2`` (l.520, ``_seg2_block`` l.502):
   the shared row transform K2f on x and y, the Barrett pointwise product,
-  then K2i per (shard, tile);
+  then K2i per (shard, tile), over K2f's and K2i's nonzero blocks alone
+  (``w2fc``, ``w2ic``) in the kernel body B18 runs too;
 - ``sp_seg2_fixed``  B13, replaces ``_make_seg2_fixed`` (l.533): B12 with y
   the constant's stored spectrum, one row per shard;
 - ``sp_seg2_fwd``  B14, replaces ``_make_seg2_fwd_only`` (l.548): K2f only,
@@ -80,7 +81,10 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg1_compact_plain",
            "compact_class_sums", "CompactDims", "SpCompactPlan",
            "seg1_compact_plan", "seg3_compact_plan", "seg3_compact_plain",
-           "compact_route", "seg2_plain",
+           "compact_route", "seg2_plain", "seg2_compact_plain",
+           "SpClassPlan", "seg2_compact_plan", "row_compact_fields",
+           "table_stride",
+           "WARP_ROWS",
            "seg2_fixed_plain", "seg2_fwd_plain", "seg2_folded_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
            "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
@@ -126,9 +130,11 @@ class SpDeviceTables:
     ``w1c`` int8 (k, A, nblk, D*s, kp), ``w2ic``, ``w3c`` and ``w3xc`` are
     K1's, K2i's and K3's (under p3 and p3x) nonzero blocks alone
     (``compact_tables``: lambda-major blocks of Bk lanes for K1 and K3, the
-    n2-blocks for K2i), what B11, B18 and B16 multiply; B17 shares K1 with
-    B11 and takes the dense ``w1``; the dense ``w3``, ``w3x`` serve the
-    twins."""
+    n2-blocks for K2i), what B11, B12, B18 and B16 multiply, and ``w2fc``
+    int8 (nblk, D*s, kp) K2f's, the n2-blocks of the one shared row table,
+    what B12 multiplies; B17 shares K1 with B11 and takes the dense ``w1``;
+    the dense ``w2f`` and ``w2i`` serve B13-B15 and the twins, ``w3`` and
+    ``w3x`` the twins."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -145,11 +151,12 @@ class SpDeviceTables:
     w2ic: torch.Tensor
     w3c: torch.Tensor
     w3xc: torch.Tensor
+    w2fc: torch.Tensor
 
     def tensors(self):
         return (self.w1, self.c1, self.w2f, self.c2f, self.w2i, self.c2i,
                 self.w3, self.c3, self.tw, self.w3x, self.c3x, self.w1c,
-                self.w2ic, self.w3c, self.w3xc)
+                self.w2ic, self.w3c, self.w3xc, self.w2fc)
 
 
 def _depth(din: int, TW: int) -> int:
@@ -174,7 +181,7 @@ def _const_rows(c: np.ndarray) -> torch.Tensor:
 
 def host_tables(plans: SpPlans) -> SpDeviceTables:
     """The kernel-layout tables on the CPU, in new storage."""
-    cols = compact_layout(plans, "columns")
+    cols, rows = (compact_layout(plans, kind) for kind in ("columns", "rows"))
     return SpDeviceTables(
         _kernel_layout(plans.p1.W), _const_rows(plans.p1.const),
         _kernel_layout(plans.p2f.W), _const_rows(plans.p2f.const),
@@ -183,10 +190,10 @@ def host_tables(plans: SpPlans) -> SpDeviceTables:
         torch.from_numpy(plans.t1.packed.copy()),
         _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const),
         torch.from_numpy(compact_tables(plans.p1.W, cols)),
-        torch.from_numpy(compact_tables(plans.p2i.W,
-                                        compact_layout(plans, "rows"))),
+        torch.from_numpy(compact_tables(plans.p2i.W, rows)),
         torch.from_numpy(compact_tables(plans.p3.W, cols)),
-        torch.from_numpy(compact_tables(plans.p3x.W, cols)))
+        torch.from_numpy(compact_tables(plans.p3x.W, cols)),
+        torch.from_numpy(compact_tables(plans.p2f.W, rows)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -229,7 +236,8 @@ def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
             (i8, (k, A, *_compact_shape(plans, "rows", D, plans.p2i.din))),
             (i8, (k, A, *_compact_shape(plans, "columns", D, plans.p3.din))),
             (i8, (k, A, *_compact_shape(plans, "columns", D,
-                                        plans.p3x.din))))
+                                        plans.p3x.din))),
+            (i8, _compact_shape(plans, "rows", D, plans.p2f.din)))
     _check_shapes("SP tables", tabs.tensors(), want, like)
 
 
@@ -384,6 +392,18 @@ def seg2_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     sl = slice(first, first + x.shape[0])
     Z = _pointwise(_rows_fwd(x, plans, tabs), _rows_fwd(y, plans, tabs), plans)
     return _rows_inv(Z, plans, tabs, sl)
+
+
+def seg2_compact_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
+    """``seg2_plain`` reading the compact K2f and K2i (``tabs.w2fc``,
+    ``tabs.w2ic``): what B12 multiplies.  Only the tests and the chip check
+    use it."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    X, Y = (_compact_product(t.to(_I64), tabs.w2fc[None, None],
+                             tabs.c2f[None, None], plans.p2f, plans, "rows")
+            for t in (x, y))
+    return _rows_inv_compact(_pointwise(X, Y, plans), plans, tabs, sl)
 
 
 def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
@@ -578,6 +598,14 @@ def planes_stride(nblk: int, kp: int) -> int:
     return ks + (96 - ks % 64) % 64
 
 
+def table_stride(kp: int) -> int:
+    """Bytes between two rows of a compact table the row segment kernel
+    holds in shared memory: kp rounded up to 32 mod 64, so that a table
+    fragment load spreads over the banks (``compact_table_stride`` of
+    csrc/mxu_compact.cuh)."""
+    return kp + (96 - kp % 64) % 64
+
+
 def compact_route(smem_of) -> tuple[int, int]:
     """(rows, smem_tables) of B11 or B16, whose block takes ``smem_of(rows,
     smem_tables)`` bytes.  In order: the tables in shared memory with two
@@ -637,6 +665,74 @@ def _column_compact_plan(plans: SpPlans, seg: str) -> SpCompactPlan:
     fields.update(rows=rows, smem_tables=smem_tables,
                   c1=_compact_dims(lay, din))
     return SpCompactPlan(**fields)
+
+
+# batch rows of x and of y in one unit of the row segment kernel (B12,
+# B18; seg2_compact.cuh's kWarpRows); a warp of B12 takes two units at once
+WARP_ROWS = 8
+
+
+class SpClassPlan(ctypes.Structure):
+    """The run-time plan of the row segment kernel (B12, B18) and of B17;
+    field for field the ``SpClassPlan`` struct of
+    ``csrc/seg2_compact.cuh``: ``SpPlan``'s, then per input plane j the
+    row segment's split (``cdin``, ``clb``, ``cadd``) and the bias B17
+    stores (``cls_b``), then the row segment's compact layouts (``c1`` its
+    first table, ``c2`` K2i) and where it reads its tables; B17 leaves them
+    0."""
+
+    _fields_ = SpPlan._fields_ + [
+        (f, ctypes.c_int32 * 3) for f in ("cdin", "clb")] + [
+        (f, ctypes.c_uint32 * 3) for f in ("cadd", "cls_b")] + _COMPACT_FIELDS
+
+
+def row_compact_fields(plans: SpPlans, planes: int, D: int,
+                       units: int) -> dict:
+    """The row segment kernel's layout fields of a plan whose first product
+    splits a value into ``planes`` planes: each warp of a block works on
+    ``units`` units of 8 batch rows of x and of y at one n2-block of lanes
+    (``rows`` 16 a unit: B12 takes two units at once, B18 one), the compact
+    layouts of the first table (``c1``) and of K2i (``c2``), and the route:
+    the block's tables sit in shared memory (rows ``table_stride`` apart)
+    where they leave room for the planes of at least 8 warps, else they
+    come through L2.  Raises where the planes of one warp do not fit a
+    block."""
+    lay = compact_layout(plans, "rows")
+    c1, c2 = (_compact_dims(lay, planes), _compact_dims(lay, plans.p2i.din))
+    shared = 2 * lay.s * 4 + D * lay.s * (table_stride(c1.kp)
+                                          + table_stride(c2.kp))
+    rows = 2 * WARP_ROWS * units
+    warp = (rows * planes_stride(1, c1.kp)
+            + rows // 2 * planes_stride(1, c2.kp))
+    if 2 * lay.s * 4 + warp + _BLOCK_RESERVE > _SM_SHARED:
+        raise ValueError(f"{plans.name}: the planes of one warp ({warp} "
+                         f"bytes) do not fit the kernel's shared memory")
+    return dict(rows=rows, c1=c1, c2=c2, smem_tables=int(
+        shared + 8 * warp + _BLOCK_RESERVE <= _SM_SHARED))
+
+
+def _slots(ctype, values) -> ctypes.Array:
+    return (ctype * 3)(*values)
+
+
+@functools.lru_cache(maxsize=None)
+def seg2_compact_plan(plans: SpPlans) -> SpClassPlan:
+    """B12's run-time plan: ``plan_for(plans, "sp_seg2")`` (its dense
+    depths kp1 and kp2 giving way to the compact ``c1.kp`` and ``c2.kp``),
+    one input plane a value split under p2f (the first slot of ``cdin``,
+    ``clb``, ``cadd``), and ``row_compact_fields``: two units, 16 + 16 rows
+    a warp, K2f's and K2i's n2-blocks (at qtesla-iii-speed, k = 4, blocks
+    of 32 lanes, depths 128 and 96 where the dense tables run 512 and
+    384)."""
+    sp = plan_for(plans, "sp_seg2")
+    fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
+    fields.update(kp1=0, kp2=0,
+                  **row_compact_fields(plans, plans.p2f.din, sp.d, 2))
+    return SpClassPlan(
+        **fields, cdin=_slots(ctypes.c_int32, (sp.din1,)),
+        clb=_slots(ctypes.c_int32, (sp.lb1,)),
+        cadd=_slots(ctypes.c_uint32, (sp.add1,)),
+        cls_b=_slots(ctypes.c_uint32, ()))
 
 
 def _launch(seg: str, plans: SpPlans, tables, a, b):
@@ -743,9 +839,9 @@ def sp_seg2(x, y, plans: SpPlans, tabs=None,
     inverse rows) of canonical spectral shards (S, B, nloc)."""
     tabs, sl = _prepare(plans, tabs, first, x, y)
     if x.is_cuda:
-        return _launch("sp_seg2", plans,
-                       (tabs.w2f, tabs.c2f, tabs.w2i[sl], tabs.c2i[sl], None),
-                       x, y)
+        return _run_kernel(KERNELS["sp_seg2"], seg2_compact_plan(plans),
+                           (tabs.w2fc, tabs.c2f, tabs.w2ic[sl],
+                            tabs.c2i[sl], None), x, y, plans.nloc)
     return seg2_plain(x, y, plans, tabs, first)
 
 

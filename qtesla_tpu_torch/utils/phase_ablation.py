@@ -22,15 +22,16 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
 everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B6-B9, B12-B15, B17), the compact ones of
-``csrc/mxu_compact.cuh`` (B11, B16, B18) and B5's streaming kernel in
-``csrc/ntt_mxu.cu``, where level 3 still runs the ring of stages but copies
-no bytes.  The patch set follows the tree it is given, so a parent commit
-can be taken apart the same way: a tree without the compact header takes the
-dense patches for B11, B16 and B18, a tree whose B16 is still a mode of
-``sp_kernel`` the dense ones for B16, and a tree whose B5 is still a mode of
-``mxu_kernel`` the dense ones for B5.  A patch whose anchor is missing from
-a source it names fails the run.  It needs a CUDA device.
+of ``csrc/mxu_block.cuh`` (B6-B8, B13-B15, B17), the compact ones of
+``csrc/mxu_compact.cuh`` (B11, B16, B12 and B18), the row segment kernel of
+B12 and B18 and the streaming kernel of B5 and B9 in ``csrc/ntt_mxu.cu``,
+where level 3 still runs the ring of stages but copies no bytes.  The patch
+set follows the tree it is given as far back as the tree of the commit
+before B12 and B9 took these designs: there the row segment kernel (B18
+alone) lies in ``csrc/sharded_classes.cu``, and the dense patches take
+apart B12 (a mode of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``).  A
+patch whose anchor is missing from a source it names fails the run.  It
+needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -86,30 +87,11 @@ _RAW_STORE = """                uint32_t v = 0;
                     if (j < d) v ^= static_cast<uint32_t>(acc[mm][j][e]);
                 out[r * len + o] = v + (q2 & 1u);
 """
-_SEG1_WIDE = """        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
-        block_matmul("""
-_SEG3_WIDE = ("    if (SEG == kSeg3) qt::inv_wide(data, tb, p.logm, p.llanes, "
-              "p.lr, tw, p.q);\n")
+# B13's pointwise product (and the dense B12's, in a tree before B12 took
+# the row segment kernel)
 _SEG2_POINTWISE = """        for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
             data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
 """
-# the dense B18 of a tree without the compact header
-_CLS_SPLIT = """    zero_depth_pad(planes, p.rows, ks, p.din1 * tws, p.kp1);
-    for (int t = 0; t < p.a; ++t) {
-        int koff = 0;
-"""
-_CLS_MMA = """        mma_classes(planes, p.rows, ks, w1, p.kp1, tws, d,
-                    [&](int lt, const int (&acc)[2][kMaxClasses][4]) {
-                        recombine_tile(data + t * tws, p.rows, wide, lt, acc,
-                                       cb, kb, p);
-                    });
-"""
-_CLS_POINTWISE = """    for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x) {
-        uint32_t* v = data + (idx >> p.lnloc) * wide + (idx & (nloc - 1));
-        v[0] = mulmod_barrett(v[0], v[tb * wide], m);
-    }
-"""
-
 DENSE_PATCHES = (
     ("mxu_block.cuh", _DENSE_SPLIT,
      _guard("QT_ABL < 2", "    return;") + _DENSE_SPLIT),
@@ -123,25 +105,7 @@ DENSE_PATCHES = (
     ("sharded_mxu.cu", _SEG2_POINTWISE,
      _guard("QT_ABL >= 1", _SEG2_POINTWISE)),
 )
-# B16 as a mode of sp_kernel (trees before B16 took the compact design)
-DENSE_B16_PATCHES = (
-    ("sharded_mxu.cu", _SEG3_WIDE, _guard("QT_ABL >= 1", _SEG3_WIDE)),
-)
-# B11 and B18 as dense kernels (trees before the compact header)
-DENSE_B11_B18_PATCHES = (
-    ("sharded_mxu.cu", _SEG1_WIDE, _guard(
-        "QT_ABL >= 1",
-        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
-     + "        block_matmul("),
-    ("sharded_classes.cu", _CLS_SPLIT,
-     _guard("QT_ABL >= 2", "    const bool ablate_split = false;",
-            "    const bool ablate_split = true;")
-     + _CLS_SPLIT.replace("t < p.a;", "t < p.a && !ablate_split;")),
-    ("sharded_classes.cu", _CLS_MMA, _guard("QT_ABL >= 3", _CLS_MMA)),
-    ("sharded_classes.cu", _CLS_POINTWISE,
-     _guard("QT_ABL >= 1", _CLS_POINTWISE)),
-)
-# B11 and B18 on the compact building blocks
+# B11, B16, B12 and B18 on the compact building blocks
 _C_SPLIT = "    const int kbs = compact_block_stride(c.kp), lw = c.ls - 2;\n"
 _C_MMA = "    const int mt = (rows + 15) >> 4;           // 1 or 2\n"
 _C_DEPTH = "        for (int k0 = 0; k0 < kp; k0 += 32 * kSteps) {\n"
@@ -161,9 +125,6 @@ _C_RAW_VALUE = """    uint32_t v = start & (q2 & 1u);
     for (int j = 0; j < kMaxClasses; ++j)
         if (j < d) v ^= static_cast<uint32_t>(sum(j));
     return v;"""
-_C_SEG1_WIDE = """        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
-        for (int t = 0; t < p.a; ++t) {
-            uint32_t* tile"""
 # B11 and B16 in one body (column_compact_kernel)
 _C_FWD_WIDE = ("        if (!kInverse) qt::fwd_wide(data, tb, p.logm, p.llanes, "
                "p.lr, tw, p.q);\n")
@@ -189,38 +150,38 @@ COMPACT_PATCHES = (
      + _C_LOAD),
     ("mxu_compact.cuh", _C_RECOMBINE,
      _guard("QT_ABL < 5", _C_RAW_VALUE, _C_RECOMBINE)),
-    # B18 splits through store_planes alone: below level 2 one word a thread
-    # keeps its loads alive (B11's split has returned by then)
+    # the row segment kernel splits through store_planes alone: below level
+    # 2 one word a thread keeps its loads alive (B11's split has returned by
+    # then)
     ("mxu_compact.cuh", _C_STORE_PLANES, _guard(
         "QT_ABL < 2", "    pr[0] = a[0] ^ a[1] ^ a[2] ^ a[3];\n    return;")
      + _C_STORE_PLANES),
-    ("sharded_classes.cu", _C_DEPTH_A,
+)
+# the row segment kernel (B12 and B18; B18 alone in a tree before B12 took
+# its body), in the file ROW_SOURCES names first of those the tree has
+ROW_SOURCES = ("seg2_compact.cuh", "sharded_classes.cu")
+ROW_PATCHES = (
+    (_C_DEPTH_A,
      _C_DEPTH_A.replace("< ca.kp;", "< (QT_ABL < 3 ? 0 : ca.kp);")),
-    ("sharded_classes.cu", _C_DEPTH_B,
+    (_C_DEPTH_B,
      _C_DEPTH_B.replace("< cb.kp;", "< (QT_ABL < 3 ? 0 : cb.kp);")),
-    ("sharded_classes.cu", _C_POINTWISE, _guard(
+    (_C_POINTWISE, _guard(
         "QT_ABL >= 1", _C_POINTWISE,
         "                    zz[c] = static_cast<int32_t>(vx + vy);")),
-    ("sharded_classes.cu", _C_POINTWISE_SPLIT,
+    (_C_POINTWISE_SPLIT,
      _C_POINTWISE_SPLIT.replace("i < p.din2;",
                                 "i < (QT_ABL < 2 ? 1 : p.din2);")),
 )
-# B11 on the compact building blocks beside a dense B16 (sp_kernel's seg3)
-SEG1_COMPACT_PATCHES = (
-    ("sharded_mxu.cu", _C_SEG1_WIDE, _guard(
-        "QT_ABL >= 1",
-        "        qt::fwd_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);")
-     + _C_SEG1_WIDE.split("\n", 1)[1]),
-) + DENSE_B16_PATCHES
 # B11 and B16 in column_compact_kernel
 COLUMN_PATCHES = (
     ("sharded_mxu.cu", _C_FWD_WIDE, _guard("QT_ABL >= 1", _C_FWD_WIDE)),
     ("sharded_mxu.cu", _C_INV_WIDE, _guard("QT_ABL >= 1", _C_INV_WIDE)),
 )
-# B5 in polymul_stream_kernel: below level 4 the producer arrives on each
-# stage's barrier without copying, so the ring still paces the MMA warps;
-# the pointwise product sits in the forward epilogue, and below level 1 it
-# is a xor; the recombination is mxu_compact.cuh's recombine_value
+# B5 and B9 in polymul_stream_kernel: below level 4 the producer arrives on
+# each stage's barrier without copying, so the ring still paces the MMA
+# warps; B5's pointwise product sits in the forward epilogue, and below
+# level 1 it is a xor; the recombination is mxu_compact.cuh's
+# recombine_value
 _S_FWD_WIDE = "            wide_stages<false>(data, rows, p, tw);\n"
 _S_INV_WIDE = "            wide_stages<true>(data, tb, p, tw);\n"
 _S_POINTWISE = "    return mulmod_barrett(a, b, m);\n"
@@ -253,18 +214,10 @@ STREAM_PATCHES = (
 
 def _patches(csrc: Path) -> list:
     """The patches for the kernels as the tree under ``csrc`` builds them."""
-    patches = list(DENSE_PATCHES)
-    if (csrc / "mxu_compact.cuh").exists():
-        patches += COMPACT_PATCHES
-        if "column_compact_kernel" in (csrc / "sharded_mxu.cu").read_text():
-            patches += COLUMN_PATCHES
-        else:
-            patches += SEG1_COMPACT_PATCHES
-    else:
-        patches += DENSE_B11_B18_PATCHES + DENSE_B16_PATCHES
-    if "polymul_stream_kernel" in (csrc / "ntt_mxu.cu").read_text():
-        patches += STREAM_PATCHES
-    return patches
+    row = next(f for f in ROW_SOURCES if (csrc / f).exists())
+    return (list(DENSE_PATCHES) + list(COMPACT_PATCHES)
+            + [(row, anchor, new) for anchor, new in ROW_PATCHES]
+            + list(COLUMN_PATCHES) + list(STREAM_PATCHES))
 
 
 def patch_sources(csrc: Path) -> list[str]:
@@ -273,7 +226,7 @@ def patch_sources(csrc: Path) -> list[str]:
     done = []
     for name, anchor, new in patches:
         path = csrc / name
-        text = path.read_text()
+        text = path.read_text() if path.exists() else ""
         if text.count(anchor) != 1:
             raise RuntimeError(f"{name}: anchor found {text.count(anchor)} "
                                f"times, expected once:\n{anchor}")
@@ -307,9 +260,14 @@ cp = class_boundary_plan("qtesla-iii-speed", 32, {sp})
 sx = S.to_shards(x, plans)
 wide = torch.cat([sx.view(torch.int32)] * cp.Dout, dim=-1).view(torch.uint32)
 spec = x[0].clone()
+# the folded operand of a spectrum from the plain forward on the host: the
+# patched B6 of a level below 5 does not compute one
+fold = M.fold_operand(M.ntt_mxu(x[:1].cpu(), mt).to("cuda"), mt)
 runs = {{
     "polymul_mxu": lambda: M.polymul_mxu(x, y, mt),
     "polymul_fixed_mxu": lambda: M.polymul_fixed_mxu(x, y[:1], mt),
+    "polymul_fixed_folded_mxu": lambda: M.polymul_fixed_folded_mxu(x, fold,
+                                                                   mt),
     "ntt_mxu": lambda: M.ntt_mxu(x, mt),
     "intt_mxu": lambda: M.intt_mxu(x, mt),
     "sp_seg1": lambda: S.sp_seg1(sx, plans),

@@ -5,19 +5,23 @@
 Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
-instantiation (``mxu_kernel<mode>``, ``polymul_stream_kernel<classes>``,
-``sp_kernel<mode,threads>``, ``classes_kernel<mode,threads>``,
+instantiation (``mxu_kernel<mode>``,
+``polymul_stream_kernel<classes,folded>``, ``sp_kernel<mode,threads>``,
+``classes_kernel<mode,threads>``,
 ``column_compact_kernel<threads,shared,inverse>``,
-``seg2_classes_compact_kernel<shared,full>``) it prints the SASS instruction
-count of each tree and the opcodes whose counts differ.  B11 of a tree
-where it was ``seg1_compact_kernel<threads,shared>`` is compared as
-``column_compact_kernel<threads,shared,0>``.  A kernel one tree has and the
-other has not (B5's ``polymul_stream_kernel`` against ``mxu_kernel<0>``,
-B16's ``column_compact_kernel<..,1>`` against ``sp_kernel<2,..>``) counts 0
-on the side that lacks it.  A refactor of shared device code that leaves a
-kernel's count and opcodes as they were compiled to the same work;
-``utils/ab_timing.py`` times what it did not.  It needs the CUDA toolkit
-(``cuobjdump`` beside ``nvcc``).
+``seg2_compact_kernel<classes,shared,slots,full>``) it prints the SASS
+instruction count of each tree and the opcodes whose counts differ.  In a
+tree before B12 and B9 took those kernels, B5's
+``polymul_stream_kernel<classes>`` is compared as
+``polymul_stream_kernel<classes,0>`` and B18's
+``seg2_classes_compact_kernel<shared,full>`` as
+``seg2_compact_kernel<1,shared,3,full>``.  A kernel one tree has and the
+other has not (B9's ``polymul_stream_kernel<..,1>`` against
+``mxu_kernel<4>``, B12's ``seg2_compact_kernel<0,..>`` against
+``sp_kernel<1,..>``) counts 0 on the side that lacks it.  A refactor of
+shared device code that leaves a kernel's count and opcodes as they were
+compiled to the same work; ``utils/ab_timing.py`` times what it did not.
+It needs the CUDA toolkit (``cuobjdump`` beside ``nvcc``).
 """
 
 from __future__ import annotations
@@ -39,20 +43,25 @@ from qtesla_tpu_torch.utils.build import load_library
 print(load_library().path)
 """
 _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
-                     r"classes_kernel|seg1_compact_kernel|"
-                     r"column_compact_kernel|seg2_classes_compact_kernel)"
+                     r"classes_kernel|column_compact_kernel|"
+                     r"seg2_classes_compact_kernel|seg2_compact_kernel)"
                      r"I((?:L[ib]\d+E)+)E")
 _ARG = re.compile(r"L[ib](\d+)E")
 
 
 def _name(m: re.Match) -> str:
-    """The instantiation as kernel<arg,...>; B11's seg1_compact_kernel<t,s>
-    as column_compact_kernel<t,s,0>."""
+    """The instantiation as kernel<arg,...>; B5's polymul_stream_kernel<d>
+    as polymul_stream_kernel<d,0> and B18's
+    seg2_classes_compact_kernel<s,f> as seg2_compact_kernel<1,s,3,f>."""
     kernel, args = m.group(1), _ARG.findall(m.group(2))
-    if kernel == "seg1_compact_kernel":
-        kernel, args = "column_compact_kernel", args + ["0"]
+    if kernel == "polymul_stream_kernel" and len(args) == 1:
+        args = args + ["0"]
+    if kernel == "seg2_classes_compact_kernel":
+        kernel, args = "seg2_compact_kernel", ["1", args[0], "3", args[1]]
     return f"{kernel}<{','.join(args)}>"
-_INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;")
+# an instruction line: its offset (four hex digits or more: a kernel past
+# 64 KiB of code has five), then the instruction
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
 def _library(tree: Path) -> str:

@@ -259,26 +259,35 @@ def test_mxu_plan_matches_kernel_limits():
     assert M.block_rows(8192, 2) == 4 and M.block_rows(1024, 2) == 32
 
 
+@pytest.mark.parametrize("folded", [False, True], ids=["B5", "B9"])
 @pytest.mark.parametrize("name", SETS)
-def test_stream_plan_matches_kernel_limits(name):
-    """B5's plan is ``plan_for(mt, 2)`` with the stage counts and the
-    deepest ring of stages that fits beside the rows; it passes every check
-    of the launcher."""
+def test_stream_plan_matches_kernel_limits(name, folded):
+    """The stream kernel's plans: B5's is ``plan_for(mt, 2)``, B9's
+    ``fold_plan_for(mt, fold_plan(mt))`` (x rows alone, the fold plan's
+    inverse split), each with the stage counts and the deepest ring of
+    stages that fits beside the rows; both pass every check of the
+    launcher."""
     mt = get_mxu_tables(name)
-    plan, base = M.stream_plan(mt), M.plan_for(mt, 2)
+    fp = fold_plan(mt)
+    if folded:
+        plan, base = M.stream_plan(mt, fp), M.fold_plan_for(mt, fp)
+        di = fp.Din
+    else:
+        plan, base, di = M.stream_plan(mt), M.plan_for(mt, 2), mt.Di
     for f, _ in M.MxuPlan._fields_:
         got, want = getattr(plan, f), getattr(base, f)
         if f in ("pw", "pw_sh"):
             got, want = list(got), list(want)
         assert got == want, f
     assert plan.stages_f == -(-mt.Df * mt.bw // 64)
-    assert plan.stages_i == -(-mt.Di * mt.bw // 64)
-    smem = [M.stream_smem(mt, plan.rows, r) + 1024 for r in (plan.ring,
-                                                             plan.ring + 1)]
+    assert plan.stages_i == -(-di * mt.bw // 64)
+    smem = [M.stream_smem(mt, plan.rows, r, di) + 1024
+            for r in (plan.ring, plan.ring + 1)]
     assert 2 <= plan.ring <= 8 and smem[0] <= 233472
     assert plan.ring == 8 or smem[1] > 233472
     # the launcher's checks
-    assert (2 <= plan.rows <= 16 or plan.rows == 32) and plan.rows % 2 == 0
+    assert 1 <= plan.rows <= 16 or plan.rows == 32
+    assert folded or plan.rows % 2 == 0
     assert 1 <= plan.d <= 4 and 32 <= plan.bw <= 128 and plan.bw % 32 == 0
     assert plan.n == 1 << plan.logn == plan.nb * plan.bw
     assert plan.n >> plan.lr == plan.bw
@@ -286,7 +295,8 @@ def test_stream_plan_matches_kernel_limits(name):
         assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
     if name == "qtesla-iii-speed":
         assert (plan.rows, plan.ring, plan.stages_f, plan.stages_i) == (
-            32, 3, 8, 6)
+            32, 3, 8, 8 if folded else 6)
+        assert plan.inv_lb == (7 if folded else 8)
 
 
 def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
@@ -307,10 +317,21 @@ def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
     bad.bw, bad.nb, bad.Lr = 256, mt.nb // 2, mt.Lr - 1
     with pytest.raises(ValueError, match="range"):
         M.stream_plan(bad)
+    # B9's plan: the fold plan's inverse split (base 128 at this set), 7
+    # planes of base 128, 5 of base 256 or a base of 64 are refused
+    fp = fold_plan(mt)
+    fields = {f: getattr(fp, f) for f in FixedFoldPlan.__dataclass_fields__}
+    for bad_fp in ({"Din": 5, "base": 256}, {"base": 64}):
+        with pytest.raises(ValueError, match="split"):
+            M.stream_plan(mt, FixedFoldPlan(**{**fields, **bad_fp}))
+    with pytest.raises(ValueError, match="range"):
+        M.stream_plan(mt, FixedFoldPlan(**{**fields, "Din": 7}))
     for rows in (18, 24, 30):
         monkeypatch.setattr(M, "block_rows", lambda n, ops, rows=rows: rows)
         with pytest.raises(ValueError, match="range"):
             M.stream_plan(copy.copy(mt))
+        with pytest.raises(ValueError, match="range"):
+            M.stream_plan(copy.copy(mt), fp)
 
 
 @pytest.mark.parametrize("name", SETS)
@@ -356,8 +377,8 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
-        "ntt_mxu.cu", "ntt_pairings.cu", "sharded_classes.cu",
-        "sharded_mxu.cu"]
+        "ntt_mxu.cu", "ntt_pairings.cu", "seg2_compact.cuh",
+        "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
@@ -370,14 +391,19 @@ def test_build_flags_target_hopper():
         assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 12
-    # B5 has a launcher of its own, written out
+    # B5 and B9 have launchers of their own, written out
     for k in M.KERNELS.values():
         assert (f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
                 or f'extern "C" int {k.symbol}(' in src[M])
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 11
     assert 'extern "C" int qt_polymul_mxu(' in src[M]
-    # B11, B16 and the class kernels have launchers of their own, written out
+    assert 'extern "C" int qt_polymul_fixed_folded_mxu(' in src[M]
+    # B11, B12, B16 and the class kernels have launchers of their own,
+    # written out; B12 and B18 share one kernel body
+    assert 'extern "C" int qt_sp_seg2(' in src[S]
+    assert "qt::seg2::launch<false>(" in src[S]
+    assert "qt::seg2::launch<true>(" in src[C]
     for k in S.KERNELS.values():
         assert (f"QT_SP_LAUNCHER({k.symbol}," in src[S]
                 or f'extern "C" int {k.symbol}(' in src[S])
@@ -391,12 +417,13 @@ def test_build_flags_target_hopper():
     # SpCompactPlan is SpPlan (its base in C) and what follows, and
     # MxuStreamPlan MxuPlan and what follows
     src["compact"] = (build.CSRC_DIR / "mxu_compact.cuh").read_text()
+    src["seg2"] = (build.CSRC_DIR / "seg2_compact.cuh").read_text()
     for mod, struct, head, skip in (
             (M, M.MxuPlan, "struct MxuPlan {", 0),
             (M, M.MxuStreamPlan, "struct MxuStreamPlan : MxuPlan {",
              len(M.MxuPlan._fields_)),
             (S, S.SpPlan, "struct SpPlan {", 0),
-            (C, C.SpClassPlan, "struct SpClassPlan {", 0),
+            ("seg2", S.SpClassPlan, "struct SpClassPlan {", 0),
             ("compact", S.CompactDims, "struct CompactDims {", 0),
             (S, S.SpCompactPlan, "struct SpCompactPlan : SpPlan {",
              len(S.SpPlan._fields_))):
@@ -422,9 +449,11 @@ def test_header_edit_changes_digest(tmp_path):
 
 def test_phase_ablation_patches_apply(tmp_path):
     """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
-    sources, in a copy, B5's streaming kernel and B16's column body
-    included; a copy without the compact header (a tree before B11 and B18
-    were redesigned) is refused where its dense B11 is missing."""
+    sources, in a copy, the streaming kernel of B5 and B9, B16's column
+    body and the row segment kernel of B12 and B18 included; a copy whose
+    row segment kernel lies in sharded_classes.cu (the tree before B12 took
+    it) is patched there; a copy without the compact header (a tree before
+    B11 and B18 were redesigned) is refused."""
     import shutil
 
     from qtesla_tpu_torch.utils import phase_ablation as PA
@@ -432,8 +461,10 @@ def test_phase_ablation_patches_apply(tmp_path):
     shutil.copytree(build.CSRC_DIR, csrc)
     before = {p.name: p.read_text() for p in csrc.iterdir()}
     assert PA.patch_sources(csrc) == ["mxu_block.cuh", "mxu_compact.cuh",
-                                      "ntt_mxu.cu", "sharded_classes.cu",
+                                      "ntt_mxu.cu", "seg2_compact.cuh",
                                       "sharded_mxu.cu"]
+    text = (csrc / "seg2_compact.cuh").read_text()
+    assert "(QT_ABL < 3 ? 0 : ca.kp)" in text and "QT_ABL < 2 ? 1" in text
     for name in ("mxu_block.cuh", "mxu_compact.cuh"):
         text = (csrc / name).read_text()
         assert text != before[name]
@@ -445,6 +476,13 @@ def test_phase_ablation_patches_apply(tmp_path):
     assert "(mma_warp && QT_ABL >= 3)" in text
     assert (csrc / "sharded_mxu.cu").read_text().count("#if QT_ABL >= 1") == 3
     assert "QT_ABL" not in "".join(before.values())
+    # the row segment kernel where the tree before B12 took it kept it
+    for name, text in before.items():
+        (csrc / name).write_text(text)
+    (csrc / "sharded_classes.cu").write_text(
+        before["sharded_classes.cu"] + before["seg2_compact.cuh"])
+    (csrc / "seg2_compact.cuh").unlink()
+    assert "sharded_classes.cu" in PA.patch_sources(csrc)
     (csrc / "mxu_compact.cuh").unlink()
     with pytest.raises(RuntimeError, match="anchor found"):
         PA.patch_sources(csrc)
@@ -525,7 +563,7 @@ def test_class_plan_matches_kernel_limits(name, k):
     for din, kp in ((p2.din1, p2.c1.kp), (plans.p2i.din, p2.c2.kp)):
         assert kp % 32 == 0 and din * s <= kp < din * s + 32
     assert p2.din2 == plans.p2i.din
-    tables = D * s * (p2.c1.kp + p2.c2.kp)
+    tables = D * s * (S.table_stride(p2.c1.kp) + S.table_stride(p2.c2.kp))
     warp = 16 * S.planes_stride(1, p2.c1.kp) + 8 * S.planes_stride(
         1, p2.c2.kp)
     assert p2.smem_tables == (name != WIDE[0])
@@ -606,6 +644,55 @@ def test_seg3_compact_plan_matches_kernel_limits(name, k):
         assert S.plan_for(plans, "sp_seg3").kp1 == 512
 
 
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg2_compact_plan_matches_kernel_limits(name, k):
+    """B12's plan: the dense plan's fields but its depths, one input plane
+    split under p2f (4 planes of base 256: the byte permutes), each warp
+    two units of 8 + 8 rows of one n2-block, K2f's and K2i's blocks of max(n2, 8) lanes
+    in row order, the depths padded to 32, the tables in shared memory where
+    they leave room for 8 warps' planes (everywhere but qtesla-p-iii, whose
+    two-unit warps leave room for 5, and n = 8192), at least one warp
+    fitting a block either way, and the classes the kernel's slots take (at
+    most 4)."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    dense, plan = S.plan_for(plans, "sp_seg2"), S.seg2_compact_plan(plans)
+    for f, _ in S.SpPlan._fields_:
+        if f not in ("rows", "kp1", "kp2", "pw", "pw_sh"):
+            assert getattr(plan, f) == getattr(dense, f), f
+    assert list(plan.pw) == list(dense.pw)
+    # two units of 8 rows of x and of y a warp
+    assert (plan.rows, plan.kp1, plan.kp2) == (4 * S.WARP_ROWS, 0, 0)
+    assert 1 <= plan.d <= 4 and plan.din1 == plans.p2f.din
+    assert (list(plan.cdin), list(plan.clb), list(plan.cadd)) == (
+        [plan.din1, 0, 0], [plan.lb1, 0, 0], [plan.add1, 0, 0])
+    assert plan.lb1 == 8 and plan.din1 <= 4 and list(plan.cls_b) == [0] * 3
+    s = max(plans.n2, 8)
+    assert (1 << plan.c1.ls, 1 << plan.c2.ls) == (s, s) and plans.TW % s == 0
+    for c in (plan.c1, plan.c2):
+        assert (c.llam, c.lq, 1 << c.lbk) == (0, 0, plans.TW)
+    for din, kp in ((plan.din1, plan.c1.kp), (plan.din2, plan.c2.kp)):
+        assert kp % 32 == 0 and din * s <= kp < din * s + 32
+    tabs = S.host_tables(plans)
+    assert tuple(tabs.w2fc.shape) == (plans.TW // s, plan.d * s, plan.c1.kp)
+    assert tuple(tabs.w2ic.shape[2:]) == (plans.TW // s, plan.d * s,
+                                          plan.c2.kp)
+    tables = plan.d * s * (S.table_stride(plan.c1.kp)
+                           + S.table_stride(plan.c2.kp))
+    # the planes of 16 + 16 rows and of 16 product rows
+    warp = (32 * S.planes_stride(1, plan.c1.kp)
+            + 16 * S.planes_stride(1, plan.c2.kp))
+    assert plan.smem_tables == (2 * s * 4 + tables + 8 * warp + 1024
+                                <= 233472)
+    assert plan.smem_tables == (name not in (WIDE[0], "qtesla-p-iii"))
+    shared = 2 * s * 4 + plan.smem_tables * tables
+    assert shared + (8 if plan.smem_tables else 1) * warp + 1024 <= 233472
+    if (name, k) == ("qtesla-iii-speed", 4):
+        assert (s, plan.c1.kp, plan.c2.kp) == (32, 128, 96)
+        assert (dense.kp1, dense.kp2) == (512, 384)
+
+
 def test_sp_wrappers_reject_bad_input():
     plans = fourstep_mxu_plans("smallprime", 4, 2)
     nloc = plans.nloc
@@ -680,9 +767,9 @@ def test_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_mxu_kernels_match_plain_on_card(cuda_device, name):
-    """B5-B8 against their twins; B7 takes inputs below pw_bound; B5 also
-    at 9000 rows, so that every persistent block walks several row groups
-    through the ring of table stages."""
+    """B5-B8 against their twins; B7 takes inputs below pw_bound; B5 and B9
+    also at 9000 rows, so that every persistent block walks several row
+    groups through the ring of table stages."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     mt = get_mxu_tables(name)
@@ -696,6 +783,13 @@ def test_mxu_kernels_match_plain_on_card(cuda_device, name):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     assert M.KERNELS["polymul_mxu"].launches == before + 1
+    op = M.fold_operand(M.ntt_mxu_plain(xy[1, :1], mt), mt)
+    want = M.polymul_fixed_folded_mxu_plain(xy[0], op, mt)
+    before = M.KERNELS["polymul_fixed_folded_mxu"].launches
+    got = M.polymul_fixed_folded_mxu(xy[0], op, mt)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert M.KERNELS["polymul_fixed_folded_mxu"].launches == before + 1
     for batch in (1, 3, 64):
         xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
         xy[0, 0] = q - 1
@@ -914,12 +1008,12 @@ def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_compact_kernels_match_plain_on_card(cuda_device, name):
-    """B11, B16 (under p3 and p3x) and B18 (the kernels over the tables'
-    nonzero blocks) against the twins that read the same compact tables and
-    against the dense twins, for every model axis the set's split takes;
-    batches of 1, 3 and 64 rows and one long enough that every persistent
-    block walks over several row groups through both of its buffers, on all
-    shards and on one."""
+    """B11, B16 (under p3 and p3x), B12 and B18 (the kernels over the
+    tables' nonzero blocks) against the twins that read the same compact
+    tables and against the dense twins, for every model axis the set's
+    split takes; batches of 1, 3 and 64 rows and one long enough that every
+    persistent block walks over several row groups (through both of its
+    buffers), on all shards and on one."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     tbl = get_tables(name)
@@ -949,6 +1043,12 @@ def test_compact_kernels_match_plain_on_card(cuda_device, name):
                     (S.seg3_compact_plain(x, plans, folded=folded), want),
                     (S.sp_seg3(one, plans, first=d, folded=folded),
                      want[d:d + 1])]
+            y = x.flip(1).contiguous()
+            want = S.seg2_plain(x, y, plans)
+            pairs += [(S.sp_seg2(x, y, plans), want),
+                      (S.seg2_compact_plain(x, y, plans), want),
+                      (S.sp_seg2(one, y[d:d + 1].contiguous(), plans,
+                                 first=d), want[d:d + 1])]
             if cp is not None:
                 u = C.seg1_classes_plain(x, plans, cp)
                 v = u.flip(1).contiguous()

@@ -29,6 +29,8 @@ from qtesla_tpu_torch.ops import mxu_tables as MT
 from qtesla_tpu_torch.ops import ntt_mxu as TM
 
 DIAGONALS = ("random", "zero", "q-1")
+SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
+        "qtesla-p-iii")
 
 
 def _spectrum(name, kind, seed=41):
@@ -93,15 +95,43 @@ def test_fold_tables_reject_bad_input():
 
 
 def test_fold_operand_is_the_kernel_layout():
+    """The operand is W' as the stream kernel's stages (what B9's producer
+    copies) and the const rows; ``staged_tables`` reads the stages back as
+    the output-major tables, zero past the planes."""
     mt = MT.get_mxu_tables("qtesla-i")
     spec = _spectrum("qtesla-i", "random")
     op = TM.fold_operand(torch.from_numpy(spec), mt)
     W, c = MT.fixed_fold_tables("qtesla-i", spec)
     nb, din, bw, dbw = W.shape
+    np.testing.assert_array_equal(op.stages.numpy(), MT._stages(W))
+    assert tuple(op.stages.shape) == (nb * MT.stream_stages(din, bw),
+                                      MT.STAGE_DEPTH * dbw)
+    T = TM.staged_tables(op.stages, nb, bw, dbw // bw).numpy()
     np.testing.assert_array_equal(
-        op.w.numpy(), W.transpose(0, 3, 1, 2).reshape(nb, dbw, din * bw))
+        T[..., :din * bw], W.transpose(0, 3, 1, 2).reshape(nb, dbw, din * bw))
+    assert not T[..., din * bw:].any()
     np.testing.assert_array_equal(op.c.numpy(), c[:, 0])
-    assert op.w.is_contiguous() and op.c.dtype == torch.uint32
+    assert op.stages.is_contiguous() and op.c.dtype == torch.uint32
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_fold_operand_stages_round_trip(name):
+    """On every set B9's staged operand unstages to ``fold_tables``' W'
+    exactly, with zero depth padding, and its forward half is the front of
+    B5's stream: nothing of the forward tables is copied per constant."""
+    mt = MT.get_mxu_tables(name)
+    fp = MT.fold_plan(mt)
+    spec = _spectrum(name, "random")
+    W, c = MT.fold_tables(mt, fp, spec)
+    op = TM.fold_operand(torch.from_numpy(spec), mt)
+    st = op.stages.numpy()
+    np.testing.assert_array_equal(
+        MT._unstages(st, mt.nb, fp.Din, mt.bw, fp.Dout), W)
+    assert np.count_nonzero(st) == np.count_nonzero(W)
+    stream = MT.stream_tables(mt)
+    nf = mt.nb * MT.stream_stages(mt.Df, mt.bw)
+    np.testing.assert_array_equal(stream[:nf], MT._stages(mt.wf))
+    assert st.shape[1] == stream.shape[1]
 
 
 def _x(name, batch, worst, seed=42):
@@ -171,4 +201,4 @@ def test_models_mxu_folded_pair(name):
             ps).numpy())
     # the wrapper checks the operand against the plan
     with pytest.raises(ValueError, match="folded operand"):
-        mul(torch.from_numpy(x), TM.FoldedOperand(op.w[:, :-1], op.c))
+        mul(torch.from_numpy(x), TM.FoldedOperand(op.stages[:, :-1], op.c))

@@ -1,9 +1,10 @@
 """The nonzero blocks of the sequence-parallel digit tables
 (``compact_layout``, ``compact_tables``, ``expand_compact`` in
 ``parallel/sharded_mxu_tables.py``), which the kernels B11 (``sp_seg1``),
-B16 (``sp_seg3``, under p3 and p3x) and B18 (``sp_seg2_classes``) multiply,
-and the plain products that read them (``seg1_compact_plain``,
-``seg3_compact_plain``, ``seg2_classes_compact_plain``).
+B16 (``sp_seg3``, under p3 and p3x), B12 (``sp_seg2``) and B18
+(``sp_seg2_classes``) multiply, and the plain products that read them
+(``seg1_compact_plain``, ``seg3_compact_plain``, ``seg2_compact_plain``,
+``seg2_classes_compact_plain``).
 
 - the compact tables expanded back equal the dense tables of every plan and
   of the class plan, so every entry outside the blocks is zero; a layout of
@@ -15,6 +16,9 @@ and the plain products that read them (``seg1_compact_plain``,
 - ``seg3_compact_plain`` equals ``seg3_plain`` and JAX's interpret-mode
   ``_make_seg3`` under p3 and p3x: smallprime and qtesla-iii-speed here,
   every set at every model axis in the slow tier;
+- ``SpDeviceTables.w2fc`` (K2f's n2-blocks) expands back to the dense K2f,
+  and ``seg2_compact_plain`` equals ``seg2_plain`` and JAX's
+  interpret-mode ``_make_seg2``, likewise;
 - the compact plans pick rows and route inside the kernels' shared memory;
   the depth order of the column tables (``korder``) is the order the
   kernels' packed split writes.
@@ -295,6 +299,21 @@ def test_compact_route_prefers_shared_tables_then_rows():
         assert ks % 64 == 32 and 0 <= ks - nblk * (kp + 8) < 64
 
 
+def test_table_stride_spreads_fragment_rows():
+    """The row segment kernel's table rows in shared memory: a depth padded
+    to 32 mod 64, so that the 16 threads of a half-warp's 8-byte fragment
+    load (rows g < 4, bytes 8 tig of a row) fall on 32 distinct banks; the
+    depths that already are (288 and 96 at qtesla-iii-speed) keep their
+    stride, and K2f's 128 becomes 160."""
+    for kp in (32, 64, 96, 128, 256, 288, 384, 512):
+        ts = S.table_stride(kp)
+        assert ts % 64 == 32 and kp <= ts < kp + 64
+        banks = {(g * ts + tig * 8) // 4 % 32 + w
+                 for g in range(4) for tig in range(4) for w in range(2)}
+        assert len(banks) == 32
+    assert [S.table_stride(kp) for kp in (288, 96, 128)] == [288, 96, 160]
+
+
 def test_main_path_plans_hold_tables_in_shared_memory():
     """qtesla-iii-speed, k = 4: B11 runs 16 rows a buffer beside its
     shard's 48 KiB of tables, two blocks an SM; B18 8 + 8 rows a warp
@@ -311,6 +330,11 @@ def test_main_path_plans_hold_tables_in_shared_memory():
     assert (p18.c1.kp, p18.c2.kp) == (288, 96)
     sp2 = S.plan_for(plans, "sp_seg2")
     assert (sum(cp.dins) * plans.TW, sp2.kp2) == (1152, 384)
+    # B12 takes B18's layout and route with two units a warp; its first
+    # product is 128 deep where the dense one runs 512
+    p12 = S.seg2_compact_plan(plans)
+    assert (p12.rows, p12.smem_tables, 1 << p12.c1.ls) == (32, 1, 32)
+    assert (p12.c1.kp, p12.c2.kp, sp2.kp1) == (128, 96, 512)
 
 
 # ----------------------------------------------------------------------
@@ -403,3 +427,97 @@ def test_main_path_b16_depth():
         assert w3c[0].numel() == 48 << 10
     assert S.plan_for(plans, "sp_seg3").kp1 == S.plan_for(
         plans, "sp_seg3 p3x").kp1 == 512
+
+
+# ----------------------------------------------------------------------
+# B12: the row segment over K2f's and K2i's nonzero blocks.
+# ----------------------------------------------------------------------
+
+def _check_w2fc(name, k):
+    """``w2fc`` holds K2f's n2-blocks (``compact_tables`` of p2f's one
+    shared table in the "rows" layout) and nothing else: expanded back it is
+    the dense K2f, zero outside its blocks.  K2f = kron(I, R2), so its
+    blocks are all one; the kernel reads each n2-block's own block all the
+    same and does not rely on it."""
+    plans = _plans(name, k)
+    rows = ST.compact_layout(plans, "rows")
+    p = plans.p2f
+    w2fc = S.host_tables(plans).w2fc.numpy()
+    D = p.W.shape[-1] // plans.TW
+    assert w2fc.shape == (rows.nblk, D * rows.s,
+                          ST.compact_depth(p.din, rows.s))
+    np.testing.assert_array_equal(w2fc, ST.compact_tables(p.W, rows))
+    np.testing.assert_array_equal(ST.expand_compact(w2fc, rows, p.din), p.W)
+    assert np.count_nonzero(w2fc) == np.count_nonzero(p.W)
+    assert not w2fc[..., p.din * rows.s:].any()
+    for b in range(rows.nblk):
+        np.testing.assert_array_equal(w2fc[b], w2fc[0])
+
+
+@pytest.mark.parametrize("name,k", FAST)
+def test_w2fc_expands_to_dense_k2f(name, k):
+    _check_w2fc(name, k)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,k", [c for c in CASES if c not in FAST])
+def test_w2fc_expands_to_dense_k2f_slow_tier(name, k):
+    """The other sets and model axes: slow because each SP plan takes up to
+    30 s to build."""
+    _check_w2fc(name, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_seg2(name, k):
+    plans = JS.fourstep_mxu_plans(name, _n1(name), k)
+    return plans, JS._make_seg2(plans, 256, True)
+
+
+def _check_seg2(name, k, x, y, shards):
+    """seg2_compact_plain on x and y (S=1 shards at each d of ``shards``,
+    and all k at once) against seg2_plain and JAX's _make_seg2."""
+    jplans, jseg2 = _jax_seg2(name, k)
+    plans = _plans(name, k)
+    q = plans.q
+    xt, yt = (torch.from_numpy(v)[None] for v in (x, y))
+    for d in shards:
+        sl = slice(d, d + 1)
+        got = S.seg2_compact_plain(xt, yt, plans, first=d)
+        assert got.dtype == torch.uint32 and int(got.to(torch.int64).max()) < q
+        assert torch.equal(got, S.seg2_plain(xt, yt, plans, first=d))
+        p2f, p2i = jplans.p2f, jplans.p2i
+        want = np.asarray(jseg2(x, y, p2f.W, p2f.const, p2i.W[sl],
+                                p2i.const[sl])) % q
+        np.testing.assert_array_equal(got[0].numpy(), want,
+                                      err_msg=f"B12 shard {d}")
+    xs, ys = (torch.from_numpy(np.stack([v] * k)) for v in (x, y))
+    got = S.seg2_compact_plain(xs, ys, plans)
+    assert torch.equal(got, S.seg2_plain(xs, ys, plans))
+    # on CPU tensors the wrapper runs the dense twin
+    assert torch.equal(S.sp_seg2(xs, ys, plans), got)
+
+
+@pytest.mark.parametrize("worst", [False, True], ids=["random", "worst"])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("name,k", [("smallprime", 2),
+                                    ("qtesla-iii-speed", 4)])
+def test_seg2_compact_twin_matches_dense_and_pallas(name, k, batch, worst):
+    """What B12 multiplies: smallprime at every shard, the middle shard at
+    qtesla-iii-speed, B in {1, 3, 64}, random and all-(q-1) operands."""
+    q, nloc = _plans(name, k).q, _plans(name, k).nloc
+    x, y = _operands(q, (2, batch, nloc), worst, 86)
+    _check_seg2(name, k, x, y, range(k) if name == "smallprime" else
+                (k // 2,))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,k", [c for c in CASES
+                                    if c not in (("smallprime", 2),
+                                                 ("qtesla-iii-speed", 4))])
+def test_seg2_compact_twin_matches_dense_and_pallas_slow_tier(name, k):
+    """Every other set and model axis, each shard, random and all-(q-1)
+    operands: slow because each plan pair takes up to a minute to build."""
+    plans = _plans(name, k)
+    for worst in (False, True):
+        x, y = _operands(plans.q, (2, 3, plans.nloc), worst, 87)
+        _check_seg2(name, k, x, y, range(k))
