@@ -35,10 +35,11 @@ script exits non-zero without printing a result:
    persistent blocks; each case also runs them on LONG_BATCH rows, so that
    every block walks over several row groups through both of its buffers,
    and prints the rows a block holds, the depth of a product and whether
-   the tables sit in shared memory or come through L2.  B5 and B9 run in
-   persistent blocks that stream their tables through a ring of stages in
-   shared memory; every set also runs them on LONG_BATCH rows and prints
-   their stages and ring.
+   the tables sit in shared memory or come through L2.  B5, B6, B8 and B9
+   run in persistent blocks that stream their tables through a ring of
+   stages in shared memory; every set also runs them on LONG_BATCH rows
+   (B8 against a spectrum that holds q - 1) and prints their stages and
+   ring.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -56,8 +57,9 @@ script exits non-zero without printing a result:
    products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B12 and B9 beside the times their earlier
-   designs took (EARLIER_MS) and B9's prepare time; then the whole SP path and
+   plain (B16 also under p3x), B6 and B8 beside the times their earlier
+   designs took (EARLIER_MS), B6 also at B = 1 (the rows of its launches on
+   the main path) and B9's prepare time; then the whole SP path and
    local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
    warm and cold (L2 flushed and the host queued ahead before each call;
    B5, B1, B8 and B4 are timed cold too), with the SP cost per shard
@@ -137,10 +139,10 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the kernels redesigned last, and the medians their earlier designs (the
-# dense row segment and the folded mode of the dense MXU kernel) took at the
+# transform and fixed-product modes of the dense MXU kernel) took at the
 # timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit
-EARLIER_MS = {"sp_seg2": 2.0970, "polymul_fixed_folded_mxu": 1.7038}
+EARLIER_MS = {"ntt_mxu": 0.8626, "polymul_fixed_mxu": 1.6260}
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -284,18 +286,34 @@ def kernels_against_plain(errors: dict) -> None:
             0, q, (2, LONG_BATCH, n), dtype=np.uint32))
         _record(errors, "polymul_mxu", f"polymul_mxu {name} B={LONG_BATCH}",
                 M.polymul_mxu(x, y, mt), M.polymul_mxu_plain(x, y, mt))
-        op = M.fold_operand(F.ntt_plain(y[:1], tbl), mt)
+        spec = F.ntt_plain(y[:1], tbl)
+        op = M.fold_operand(spec, mt)
         _record(errors, "polymul_fixed_folded_mxu",
                 f"B9 {name} B={LONG_BATCH}",
                 M.polymul_fixed_folded_mxu(x, op, mt),
                 M.polymul_fixed_folded_mxu_plain(x, op, mt))
-        p5, p9 = M.stream_plan(mt), M.stream_plan(mt, fold_plan(mt))
+        # a spectrum that holds q - 1 (set in numpy: no uint32 arithmetic on
+        # the card)
+        spec = spec.cpu().numpy()
+        spec[0, ::5] = q - 1
+        spec = torch.from_numpy(spec).to(dev)
+        _record(errors, "polymul_fixed_mxu", f"B8 {name} B={LONG_BATCH}",
+                M.polymul_fixed_mxu(x, spec, mt),
+                M.polymul_fixed_mxu_plain(x, spec, mt))
+        _record(errors, "ntt_mxu", f"B6 {name} B={LONG_BATCH}",
+                M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt))
+        p5 = M.stream_plan(mt)
+        plans = ", ".join(
+            f"{b} {p.stages_f} + {p.stages_i} stages, a ring of {p.ring}, "
+            f"{p.rows} rows a group"
+            for b, p in (("B9", M.stream_plan(mt, "folded")),
+                         ("B8", M.stream_plan(mt, "fixed")),
+                         ("B6", M.stream_plan(mt, "ntt"))))
         print(f"{name}: B5 streams {p5.stages_f} + {p5.stages_i} stages of "
               f"{64 * mt.bw * mt.D // 1024} KiB a lane block through a ring "
               f"of {p5.ring} in shared memory; {p5.rows // 2} products a "
-              f"group; B9 {p9.stages_f} + {p9.stages_i} stages, a ring of "
-              f"{p9.ring}, {p9.rows} rows a group; both also equal to plain "
-              f"at B={LONG_BATCH}", flush=True)
+              f"group; {plans}; all four also equal to plain at "
+              f"B={LONG_BATCH}", flush=True)
         print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
               f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
               f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}; B9 prepare "
@@ -743,9 +761,9 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
     ``w2cc``, ``w2ic``; B12 ``w2fc`` and ``w2ic``); their MACs are counted
     on the dense tables' nonzero lane pairs like the others', so a bound
-    reads the same work whatever implements it.  B5's and B9's tables are
-    counted once, as ``wf`` and ``wi`` (B9: ``wf`` and the constant's
-    W'), whatever stream they read them in."""
+    reads the same work whatever implements it.  B5's, B6's, B8's and B9's
+    tables are counted once, as ``wf`` and ``wi`` (B6: ``wf`` alone; B9:
+    ``wf`` and the constant's W'), whatever stream they read them in."""
     tbl = get_tables(MAIN_SET)
     mt = get_mxu_tables(MAIN_SET)
     plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
@@ -898,6 +916,11 @@ def timing(device_line: str) -> dict:
                   f"{bms:.4f} ms [{device_line}]", flush=True)
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
+    # B6 at the size of its launches on the main path: one row, the constant
+    one = time_cuda(M.ntt_mxu, x[:1], mt, warmup=3, repeats=20)
+    print(f"timing ntt_mxu B=1 (the main path's prepare): min "
+          f"{one.min_ms:.4f} ms median {one.median_ms:.4f} ms over 20 calls; "
+          f"B={B} median {med['ntt_mxu']:.4f} ms [{device_line}]", flush=True)
     cold_s, prep_s = fold_prep_seconds(MAIN_SET, y[0])
     print(f"timing B9 prepare (\"mxu-folded\", B6 + host tables and stages "
           f"+ copies), host clock, synchronised: {prep_s * 1e3:.1f} ms, "

@@ -28,23 +28,21 @@
 // output is canonical.  The TPU kernel's sloppy Shoup, Horner packing and
 // overflow fixer were vector-unit workarounds and are not replayed.
 //
-// Design of B6-B8 (mxu_kernel).  One block of 512 threads holds `rows`
+// Design of B7 (mxu_kernel).  One block of 512 threads holds `rows`
 // operand rows (at most 32, 128 KiB of uint32: 32 rows at n = 1024) in
-// shared memory for the whole pipeline, loaded with cp.async
-// (every 16-byte copy in flight before one wait: with one block per SM a
-// plain load loop waited out a round trip per element).  Per lane block b it
-// splits the rows into int8 planes in shared memory, then each warp takes
-// 8 output lanes of every class and runs mma.sync m16n8k32 s8 over the
-// K = Din * bw depth: A fragments from the planes, B fragments streamed from
-// the device-memory tables four K steps ahead (laid out output-major, (nb, D*bw, Din*bw), so a
-// thread reads 8 contiguous bytes).  The K order inside each 32-deep step is
-// permuted the same way for A and B, which the sum does not see.  Each
-// thread then holds all D classes of its output elements and recombines them
-// in registers.  The wide stages, the split, the products and the
+// shared memory for the whole pipeline, loaded with cp.async (every 16-byte
+// copy in flight before one wait).  Per lane block b it splits the rows into
+// int8 planes in shared memory, then each warp takes 8 output lanes of every
+// class and runs mma.sync m16n8k32 s8 over the K = Di * bw depth: A
+// fragments from the planes, B fragments streamed from the dense
+// device-memory table wi four K steps ahead (laid out output-major, (nb,
+// D*bw, Di*bw), so a thread reads 8 contiguous bytes).  Each thread then
+// holds all D classes of its output elements and recombines them in
+// registers; the wide stages follow.  The split, the products and the
 // recombination live in mxu_block.cuh, shared with the sequence-parallel
-// kernels.  The tables do not fit in shared memory (q-III: wf 1.57 MB, wi
-// 1.18 MB; p-III 8.4 MB in all), so each block reads the whole of them once
-// per `rows` rows, from L2, inside its MMA loop.
+// kernels.  The table does not fit in shared memory (q-III: 1.18 MB), so
+// each block reads the whole of it once per `rows` rows, from L2, inside its
+// MMA loop.
 //
 // Design of B5 (polymul_stream_kernel).  B5 ran as mxu_kernel until it was
 // redesigned; measured by ablation on an H100 (PERF.md), its 2.73 ms were
@@ -109,8 +107,27 @@
 // as at base 256 (each value's digits spread to its bytes first), ran
 // 2.9 % slower than the digit-by-digit split and was left out.
 //
+// B8, the product against a constant's stored spectrum, and B6, the
+// forward transform, run the same kernel in the modes kFixed and kNtt, over
+// B9's 32 x rows a group (two m16 tiles; 16 or 4 where rows are longer)
+// under the MXU plan's own split.  B8's forward epilogue multiplies each
+// recombined lane by the spectrum's value at that lane (Barrett, the
+// spectrum read by __ldg) and stores the product in place: no pointwise pass
+// and no barrier; its inverse pass streams the inverse stages of B5's
+// stream, so nothing is laid out per constant.  B6 streams the forward
+// stages alone (its plan has no inverse stage, or the ring would wait for
+// stages no consumer takes), and its epilogue stores the live rows of the
+// spectrum straight to the output.  Until they took that design both ran
+// as modes of mxu_kernel, each block of 32 rows reading wf (and B8 wi) from
+// L2 inside its MMA loop: on an H100 80GB HBM3 at 700 W (PERF.md,
+// utils/ab_timing.py) B8 went from 1.6249 to 0.7145 ms and B6 from 0.8559
+// to 0.4019 at 32768 q-III rows.  B6's epilogue storing to device memory in
+// place of a store pass over the rows measured 0.9899 of the in-place
+// design; loading the next group's rows by cp.async once the last lane
+// block was split (the rows free then) measured 1.0032 and was left out.
+//
 // Each launcher is extern "C", takes raw pointers, the batch B, a pointer to
-// an MxuPlan (B5, B9: an MxuStreamPlan) and a stream, launches without
+// an MxuPlan (B5, B6, B8, B9: an MxuStreamPlan) and a stream, launches without
 // synchronising and returns cudaGetLastError().
 
 #include <cstdint>
@@ -142,19 +159,19 @@ struct MxuPlan {
 
 constexpr int kThreads = 512;
 
-// B6-B8, numbered from 1 so that mxu_kernel<mode> keeps the instantiation
-// names utils/sass_diff.py matches across trees (B5 and B9 are
+// B7 is the one mode left of the dense kernel; it keeps the number it had
+// beside B6 and B8, so that mxu_kernel<3> keeps the instantiation name
+// utils/sass_diff.py matches across trees (B5, B6, B8 and B9 are
 // polymul_stream_kernel below)
-enum Mode { kFixed = 1, kNtt, kIntt };
+constexpr int kIntt = 3;
 
 template <int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
-    mxu_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-               uint32_t* __restrict__ z, const int8_t* __restrict__ wf,
-               const uint32_t* __restrict__ cf, const int8_t* __restrict__ wi,
-               const uint32_t* __restrict__ ci,
+    mxu_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ z,
+               const int8_t* __restrict__ wi, const uint32_t* __restrict__ ci,
                const uint32_t* __restrict__ tw, long long batch,
                const __grid_constant__ MxuPlan p) {
+    static_assert(MODE == kIntt, "mxu_kernel runs B7 alone");
     extern __shared__ __align__(16) uint32_t smem[];
     const int n = p.n, tb = p.rows;
     const int ks = (p.df > p.di ? p.df : p.di) * p.bw + kPad;
@@ -173,28 +190,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait_all();
     __syncthreads();
 
-    if (MODE != kIntt) {
-        const int K = p.df * p.bw;
-        qt::fwd_wide(data, p.rows, p.logn, 0, p.lr, tw, p.q);
-        block_matmul(data, p.rows, n, p.bw, p.nb, planes, ks, wf,
-                     static_cast<size_t>(p.d) * p.bw * K, K, cf, p.bw, p.df,
-                     p.fwd_lb, p.fwd_add, p.kbf, p);
-    }
-    if (MODE == kFixed) {
-        const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
-        for (int idx = threadIdx.x; idx < tb * n; idx += blockDim.x) {
-            const uint32_t other = __ldg(y + (idx & (n - 1)));
-            data[idx] = mulmod_barrett(data[idx], other, m);
-        }
-        __syncthreads();
-    }
-    if (MODE != kNtt) {
-        const int K = p.di * p.bw;
-        block_matmul(data, tb, n, p.bw, p.nb, planes, ks, wi,
-                     static_cast<size_t>(p.d) * p.bw * K, K, ci, p.bw, p.di,
-                     p.inv_lb, p.inv_add, p.kbi, p);
-        qt::inv_wide(data, tb, p.logn, 0, p.lr, tw, p.q);
-    }
+    const int K = p.di * p.bw;
+    block_matmul(data, tb, n, p.bw, p.nb, planes, ks, wi,
+                 static_cast<size_t>(p.d) * p.bw * K, K, ci, p.bw, p.di,
+                 p.inv_lb, p.inv_add, p.kbi, p);
+    qt::inv_wide(data, tb, p.logn, 0, p.lr, tw, p.q);
 
     for (int c = threadIdx.x * 4; c < tb * n; c += blockDim.x * 4)
         if ((c >> p.logn) < live)
@@ -202,10 +202,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 *reinterpret_cast<const uint4*>(data + c);
 }
 
-template <int MODE>
-int launch(const void* a, const void* b, void* out, const void* wf,
-           const void* cf, const void* wi, const void* ci, const void* tw,
-           long long batch, const void* plan, void* stream) {
+int launch_intt(const void* a, void* out, const void* wi, const void* ci,
+                const void* tw, long long batch, const void* plan,
+                void* stream) {
     const MxuPlan p = *static_cast<const MxuPlan*>(plan);
     if (p.rows < 1 || p.rows > kMaxRows || p.d < 1 ||
         p.d > kMaxClasses || p.bw % 32 || p.bw > p.n || p.n != 1 << p.logn ||
@@ -218,17 +217,15 @@ int launch(const void* a, const void* b, void* out, const void* wf,
                         static_cast<size_t>((p.rows + 15) / 16 * 16) * ks;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            mxu_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            mxu_kernel<kIntt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return e;
     }
-    mxu_kernel<MODE><<<dim3(static_cast<unsigned>(blocks)), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), static_cast<const int8_t*>(wf),
-        static_cast<const uint32_t*>(cf), static_cast<const int8_t*>(wi),
-        static_cast<const uint32_t*>(ci), static_cast<const uint32_t*>(tw),
-        batch, p);
+    mxu_kernel<kIntt><<<dim3(static_cast<unsigned>(blocks)), kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
+        static_cast<const int8_t*>(wi), static_cast<const uint32_t*>(ci),
+        static_cast<const uint32_t*>(tw), batch, p);
     return cudaGetLastError();
 }
 
@@ -481,7 +478,8 @@ __device__ void wide_stages(uint32_t* data, int rows, const MxuPlan& p,
     }
 }
 
-// B5's pointwise product of a spectrum value of x and one of y.
+// The pointwise product of a spectrum value of x and one of y (B5) or of
+// the constant (B8).
 __device__ __forceinline__ uint32_t pointwise(uint32_t a, uint32_t b,
                                               const Mod& m) {
     return mulmod_barrett(a, b, m);
@@ -496,23 +494,32 @@ __device__ __forceinline__ uint32_t recombined(uint32_t start,
     return qt::recombine_value(start, D, p, [&](int j) { return acc[j][e]; });
 }
 
+// What the epilogue of a pass does with its recombined values: store them
+// (B9's passes, B8's inverse one, B6's and B5's inverse one), store B5's
+// product of x's and y's rows, or store B8's product with the constant's
+// spectrum.
+enum Epilogue { kStore, kPairProduct, kSpectrumProduct };
+
 // The epilogue of output tile lt of one lane block (out = the block's
 // first lane of row 0, cb its const row): the thread's two neighbouring
-// lanes o, o + 1 of a row go out in one 8-byte store.  Without PRODUCT,
-// rows r < nr get their recombined values.  With PRODUCT (the forward
-// pass of tb = 16 x rows above 16 y rows, MT = 2, or 8 above 8, MT = 1),
-// x's row r and y's row r + tb lie in this thread's accumulators alike,
-// and x's row r gets the Barrett product of the two: the pointwise stage
-// costs no pass and no barrier, and y's rows are free once the pass ends.
-template <int D, int MT, bool PRODUCT>
+// lanes o, o + 1 of a row go out in one 8-byte store.  kStore: rows r < nr
+// get their recombined values.  kSpectrumProduct: the same rows get the
+// Barrett product of those values with the spectrum's lanes o, o + 1 of the
+// block (sb), so that B8's pointwise stage costs no pass and no barrier.
+// kPairProduct (the forward pass of tb = 16 x rows above 16 y rows, MT = 2,
+// or 8 above 8, MT = 1): x's row r and y's row r + tb lie in this thread's
+// accumulators alike, and x's row r gets the Barrett product of the two; y's
+// rows are free once the pass ends.
+template <int D, int MT, int EPI>
 __device__ __forceinline__ void stream_epilogue(
     uint32_t* out, int nr, int len, int lt,
     const int (&acc)[2][kMaxClasses][4], const uint32_t* __restrict__ cb,
-    uint32_t kb, const MxuPlan& p, const Mod& m) {
+    uint32_t kb, const MxuPlan& p, const Mod& m,
+    const uint32_t* __restrict__ sb) {
     const int g = (threadIdx.x & 31) >> 2;
     const int o = lt * 8 + (threadIdx.x & 3) * 2;
     const uint32_t s0 = __ldg(cb + o) + kb, s1 = __ldg(cb + o + 1) + kb;
-    if (PRODUCT) {
+    if (EPI == kPairProduct) {
         // y's accumulators: tile 1 alike (MT 2), or rows g + 8 (MT 1)
         constexpr int kMy = MT == 2 ? 1 : 0, kEy = MT == 2 ? 0 : 2;
 #pragma unroll
@@ -527,15 +534,23 @@ __device__ __forceinline__ void stream_epilogue(
         }
         return;
     }
+    uint2 w = make_uint2(0, 0);
+    if (EPI == kSpectrumProduct)
+        w = __ldg(reinterpret_cast<const uint2*>(sb + o));
 #pragma unroll
     for (int mm = 0; mm < MT; ++mm)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int r = mm * 16 + g + 8 * h;
-            if (r < nr)
-                *reinterpret_cast<uint2*>(out + r * len + o) =
-                    make_uint2(recombined<D>(s0, acc[mm], 2 * h, p),
-                               recombined<D>(s1, acc[mm], 2 * h + 1, p));
+            if (r < nr) {
+                uint2 v = make_uint2(recombined<D>(s0, acc[mm], 2 * h, p),
+                                     recombined<D>(s1, acc[mm], 2 * h + 1, p));
+                if (EPI == kSpectrumProduct) {
+                    v.x = pointwise(v.x, w.x, m);
+                    v.y = pointwise(v.y, w.y, m);
+                }
+                *reinterpret_cast<uint2*>(out + r * len + o) = v;
+            }
         }
 }
 
@@ -547,21 +562,30 @@ struct StreamRing {
     uint64_t* empty;
 };
 
-// One direction's block matmuls of nr <= 16 * MT rows of `data`, in place:
-// per lane block the split into `planes`, then its `stages` stages taken
-// from the ring as they land, D classes, then the epilogue (with PRODUCT:
-// the pointwise product of the x and y rows into the x rows).  Warp lt
-// takes output lanes 8lt .. 8lt + 7 (those of lt < bw / 8 multiply; every
-// warp waits for and releases every stage).  A stage holds the 16 bytes
-// lane 4g + t of warp lt reads for class j at ((lt * D + j) * 32 + lane) *
-// 16: bytes 8t .. 8t + 7 of the stage's two 32-deep steps of table row j*bw
-// + 8lt + g (ops/mxu_tables.py stream_tables).
-template <int D, int MT, bool PRODUCT>
+// Where a pass's epilogue puts its values: rows r < nr of `rows` (row
+// length n), the pass's own rows in shared memory or B6's output rows in
+// device memory; `spec` the constant's spectrum (kSpectrumProduct).
+struct PassOut {
+    uint32_t* rows;
+    int nr;
+    const uint32_t* spec;
+};
+
+// One direction's block matmuls of nr <= 16 * MT rows of `data`: per lane
+// block the split into `planes`, then its `stages` stages taken from the
+// ring as they land, D classes, then the epilogue EPI into `out` and a
+// barrier.  Warp lt takes output lanes 8lt .. 8lt + 7 (those of lt < bw /
+// 8 multiply; every warp waits for and releases every stage).  A stage
+// holds the 16 bytes lane 4g + t of warp lt reads for class j at ((lt * D +
+// j) * 32 + lane) * 16: bytes 8t .. 8t + 7 of the stage's two 32-deep steps
+// of table row j*bw + 8lt + g (ops/mxu_tables.py stream_tables).
+template <int D, int MT, int EPI>
 __device__ void stream_matmul(uint32_t* data, int nr, int stages, int din,
                               int lb, uint32_t add, uint32_t kb,
                               const uint32_t* __restrict__ cst, int8_t* planes,
                               int ks, const StreamRing& sr, Ring& rg,
-                              const MxuStreamPlan& p, const Mod& m) {
+                              const MxuStreamPlan& p, const Mod& m,
+                              const PassOut& out) {
     const int lt = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const bool mma_warp = lt < (p.bw >> 3);
     for (int b = 0; b < p.nb; ++b) {
@@ -601,8 +625,9 @@ __device__ void stream_matmul(uint32_t* data, int nr, int stages, int din,
             rg.next(p.ring);
         }
         if (mma_warp)
-            stream_epilogue<D, MT, PRODUCT>(data + b * p.bw, nr, p.n, lt, acc,
-                                            cst + b * p.bw, kb, p, m);
+            stream_epilogue<D, MT, EPI>(
+                out.rows + b * p.bw, out.nr, p.n, lt, acc, cst + b * p.bw, kb,
+                p, m, EPI == kSpectrumProduct ? out.spec + b * p.bw : nullptr);
         Team::sync();
     }
 }
@@ -618,9 +643,16 @@ size_t stream_smem(const MxuStreamPlan& p) {
            2 * static_cast<size_t>(p.ring) * sizeof(uint64_t);
 }
 
-// B5 (kFolded false): x's tb rows above y's; B9 (kFolded true): tb = rows
-// x rows, the inverse stages the constant's.
-template <int D, bool kFolded>
+// What one launch of polymul_stream_kernel runs, numbered so that B5's and
+// B9's instantiations keep the names polymul_stream_kernel<D,0> and <D,1>
+// they had when the mode was a bool: B5's product of x and y, B9's product
+// against a folded constant, B8's product against a constant's stored
+// spectrum, B6's forward transform.
+enum StreamMode { kProduct = 0, kFolded = 1, kFixed = 2, kNtt = 3 };
+
+// B5: x's tb rows above y's.  B9, B8, B6: tb = rows x rows; B9's inverse
+// stages are the constant's, B8's B5's own, and B6 has no inverse pass.
+template <int D, int MODE>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     polymul_stream_kernel(const uint32_t* __restrict__ x,
                           const uint32_t* __restrict__ y,
@@ -632,7 +664,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
                           const uint32_t* __restrict__ tw, long long batch,
                           const __grid_constant__ MxuStreamPlan p) {
     extern __shared__ __align__(128) uint32_t stream_shared[];
-    const int n = p.n, rows = p.rows, tb = kFolded ? rows : rows / 2;
+    const int n = p.n, rows = p.rows, tb = MODE == kProduct ? rows / 2 : rows;
     const int ring = p.ring;
     const uint32_t stage_bytes = static_cast<uint32_t>(kStageK) * p.bw * D;
     const int ks = (p.stages_f > p.stages_i ? p.stages_f : p.stages_i) *
@@ -645,6 +677,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     uint64_t* empty = full + ring;
     const long long groups = (batch + tb - 1) / tb;
     const long long iters = (groups - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    // B6's plan has no inverse stages (stages_i 0): the producer streams
+    // the stages the consumers take, or the ring deadlocks
     const int fwd_stages = p.nb * p.stages_f;
     const int per_group = fwd_stages + p.nb * p.stages_i;
 
@@ -694,59 +728,80 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
             for (int c = threadIdx.x * 4; c < tb * n; c += kConsumers * 4) {
                 const bool ok = (c >> p.logn) < live;
                 cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
-                if (!kFolded)
+                if (MODE == kProduct)
                     cp_async16(data + tb * n + c, ok ? y + base + c : y,
                                ok ? 16 : 0);
             }
             cp_async_wait_all();
             Team::sync();
             wide_stages<false>(data, rows, p, tw);
-            if constexpr (kFolded) {
-                // B9: the forward pass stores the spectrum in place, the
-                // inverse one runs under the fold plan's split against the
-                // constant's stages and const rows, over one 16-row MMA
-                // tile or two
+            const PassOut own{data, tb, nullptr};
+            if constexpr (MODE == kFolded || MODE == kFixed) {
+                // B9, B8: the forward pass stores the spectrum in place (B8:
+                // times the constant's spectrum y), the inverse one runs
+                // against the inverse stages and const rows (B9: the
+                // constant's, under the fold plan's split), over one 16-row
+                // MMA tile or two
+                constexpr int kFwd = MODE == kFixed ? kSpectrumProduct : kStore;
+                const PassOut fwd{data, tb, y};
                 if (tb > 16) {
-                    stream_matmul<D, 2, false>(data, tb, p.stages_f, p.df,
-                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                               planes, ks, sr, rg, p, m);
-                    stream_matmul<D, 2, false>(data, tb, p.stages_i, p.di,
-                                               p.inv_lb, p.inv_add, p.kbi, ci,
-                                               planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 2, kFwd>(data, tb, p.stages_f, p.df,
+                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                              planes, ks, sr, rg, p, m, fwd);
+                    stream_matmul<D, 2, kStore>(data, tb, p.stages_i, p.di,
+                                                p.inv_lb, p.inv_add, p.kbi, ci,
+                                                planes, ks, sr, rg, p, m, own);
                 } else {
-                    stream_matmul<D, 1, false>(data, tb, p.stages_f, p.df,
-                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                               planes, ks, sr, rg, p, m);
-                    stream_matmul<D, 1, false>(data, tb, p.stages_i, p.di,
-                                               p.inv_lb, p.inv_add, p.kbi, ci,
-                                               planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 1, kFwd>(data, tb, p.stages_f, p.df,
+                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                              planes, ks, sr, rg, p, m, fwd);
+                    stream_matmul<D, 1, kStore>(data, tb, p.stages_i, p.di,
+                                                p.inv_lb, p.inv_add, p.kbi, ci,
+                                                planes, ks, sr, rg, p, m, own);
                 }
+            } else if constexpr (MODE == kNtt) {
+                // B6: the forward pass alone, its epilogue storing the
+                // spectrum's live rows straight to z: no store pass and no
+                // barrier after it
+                const PassOut spectrum{z + base, live, nullptr};
+                if (tb > 16)
+                    stream_matmul<D, 2, kStore>(data, tb, p.stages_f, p.df,
+                                                p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                                planes, ks, sr, rg, p, m,
+                                                spectrum);
+                else
+                    stream_matmul<D, 1, kStore>(data, tb, p.stages_f, p.df,
+                                                p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                                planes, ks, sr, rg, p, m,
+                                                spectrum);
+                continue;
             } else {
                 // B5: the forward pass of x and y, with the pointwise
                 // product where x's and y's rows meet in one thread (tb =
                 // 16 or 8), else after it, then the inverse pass of x's
                 // rows
+                const PassOut all{data, rows, nullptr};
                 if (tb == 16) {
-                    stream_matmul<D, 2, true>(data, rows, p.stages_f, p.df,
-                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                              planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 2, kPairProduct>(
+                        data, rows, p.stages_f, p.df, p.fwd_lb, p.fwd_add,
+                        p.kbf, cf, planes, ks, sr, rg, p, m, all);
                 } else if (tb == 8) {
-                    stream_matmul<D, 1, true>(data, rows, p.stages_f, p.df,
-                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                              planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 1, kPairProduct>(
+                        data, rows, p.stages_f, p.df, p.fwd_lb, p.fwd_add,
+                        p.kbf, cf, planes, ks, sr, rg, p, m, all);
                 } else {
-                    stream_matmul<D, 1, false>(data, rows, p.stages_f, p.df,
-                                               p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                               planes, ks, sr, rg, p, m);
+                    stream_matmul<D, 1, kStore>(data, rows, p.stages_f, p.df,
+                                                p.fwd_lb, p.fwd_add, p.kbf, cf,
+                                                planes, ks, sr, rg, p, m, all);
                     for (int idx = threadIdx.x; idx < tb * n;
                          idx += kConsumers)
                         data[idx] =
                             pointwise(data[idx], data[tb * n + idx], m);
                     Team::sync();
                 }
-                stream_matmul<D, 1, false>(data, tb, p.stages_i, p.di,
-                                           p.inv_lb, p.inv_add, p.kbi, ci,
-                                           planes, ks, sr, rg, p, m);
+                stream_matmul<D, 1, kStore>(data, tb, p.stages_i, p.di,
+                                            p.inv_lb, p.inv_add, p.kbi, ci,
+                                            planes, ks, sr, rg, p, m, own);
             }
             wide_stages<true>(data, tb, p, tw);
             for (int c = threadIdx.x * 4; c < tb * n; c += kConsumers * 4)
@@ -763,13 +818,13 @@ bool valid_split(int din, int lb) {
     return din >= 1 && ((lb == 7 && din <= 6) || (lb == 8 && din <= 4));
 }
 
-template <int D, bool kFolded>
+template <int D, int MODE>
 int run_polymul_stream(const void* a, const void* b, void* out,
                        const void* stream_f, const void* stream_i,
                        const void* cf, const void* ci, const void* tw,
                        long long batch, const MxuStreamPlan& p,
                        void* cuda_stream) {
-    auto kernel = polymul_stream_kernel<D, kFolded>;
+    auto kernel = polymul_stream_kernel<D, MODE>;
     const size_t smem = stream_smem(p);
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -780,7 +835,7 @@ int run_polymul_stream(const void* a, const void* b, void* out,
     if (const int err = qt::resident_blocks(kernel, kStreamThreads, smem,
                                             &resident))
         return err;
-    const long long tb = kFolded ? p.rows : p.rows / 2;
+    const long long tb = MODE == kProduct ? p.rows / 2 : p.rows;
     const long long groups = (batch + tb - 1) / tb;
     const long long walkers = resident < groups ? resident : groups;
     if (walkers < 1 || walkers >= (1LL << 31)) return cudaErrorInvalidValue;
@@ -794,66 +849,54 @@ int run_polymul_stream(const void* a, const void* b, void* out,
     return cudaGetLastError();
 }
 
-// B5 (kFolded false): x's tb rows above y's, one m16 tile (tb <= 8) or two
-// (tb = 16); stream_f the stage stream of both directions, the inverse
-// stages after the forward ones.  B9: tb x rows, one m16 tile (tb <= 16) or
-// two (tb = 32); stream_f the forward stages (the front of the same
-// stream), stream_i the constant's inverse stages.
-template <bool kFolded>
+// B5: x's tb rows above y's, one m16 tile (tb <= 8) or two (tb = 16).  B9,
+// B8, B6: tb x rows, one m16 tile (tb <= 16) or two (tb = 32).  stream_f is
+// B5's stage stream of both directions, the inverse stages after the
+// forward ones: B5 and B8 read all of it, B9 and B6 its forward stages;
+// stream_i is B9's constant's inverse stages.  B6 streams no inverse stage
+// (stages_i 0).
+template <int MODE>
 int launch_polymul_stream(const void* a, const void* b, void* out,
                           const void* stream_f, const void* stream_i,
                           const void* cf, const void* ci, const void* tw,
                           long long batch, const void* plan,
                           void* cuda_stream) {
     const MxuStreamPlan p = *static_cast<const MxuStreamPlan*>(plan);
-    if (p.rows < (kFolded ? 1 : 2) || (p.rows > 16 && p.rows != 32) ||
-        (!kFolded && p.rows % 2) ||
+    const int inv_stages =
+        MODE == kNtt ? 0 : (p.di * p.bw + kStageK - 1) / kStageK;
+    if (p.rows < (MODE == kProduct ? 2 : 1) ||
+        (p.rows > 16 && p.rows != 32) || (MODE == kProduct && p.rows % 2) ||
         p.d < 1 || p.d > kMaxClasses || p.bw < 32 || p.bw > 128 ||
         p.bw % 32 || p.n != 1 << p.logn || p.nb * p.bw != p.n ||
         p.n >> p.lr != p.bw || !valid_split(p.df, p.fwd_lb) ||
         !valid_split(p.di, p.inv_lb) ||
         p.stages_f != (p.df * p.bw + kStageK - 1) / kStageK ||
-        p.stages_i != (p.di * p.bw + kStageK - 1) / kStageK || p.ring < 2 ||
+        p.stages_i != inv_stages || p.ring < 2 ||
         batch <= 0 || stream_smem(p) + kBlockReserve > kSmShared)
         return cudaErrorInvalidValue;
-    if (!kFolded)
+    if (MODE == kProduct || MODE == kFixed)
         stream_i = static_cast<const int8_t*>(stream_f) +
                    static_cast<size_t>(p.nb) * p.stages_f * kStageK * p.bw *
                        p.d;
     switch (p.d) {
     case 1:
-        return run_polymul_stream<1, kFolded>(a, b, out, stream_f, stream_i,
-                                              cf, ci, tw, batch, p,
-                                              cuda_stream);
+        return run_polymul_stream<1, MODE>(a, b, out, stream_f, stream_i, cf,
+                                           ci, tw, batch, p, cuda_stream);
     case 2:
-        return run_polymul_stream<2, kFolded>(a, b, out, stream_f, stream_i,
-                                              cf, ci, tw, batch, p,
-                                              cuda_stream);
+        return run_polymul_stream<2, MODE>(a, b, out, stream_f, stream_i, cf,
+                                           ci, tw, batch, p, cuda_stream);
     case 3:
-        return run_polymul_stream<3, kFolded>(a, b, out, stream_f, stream_i,
-                                              cf, ci, tw, batch, p,
-                                              cuda_stream);
+        return run_polymul_stream<3, MODE>(a, b, out, stream_f, stream_i, cf,
+                                           ci, tw, batch, p, cuda_stream);
     default:
-        return run_polymul_stream<4, kFolded>(a, b, out, stream_f, stream_i,
-                                              cf, ci, tw, batch, p,
-                                              cuda_stream);
+        return run_polymul_stream<4, MODE>(a, b, out, stream_f, stream_i, cf,
+                                           ci, tw, batch, p, cuda_stream);
     }
 }
 
 }  // namespace
 
-#define QT_MXU_LAUNCHER(name, mode)                                           \
-    extern "C" int name(const void* a, const void* b, void* out,             \
-                        const void* wf, const void* cf, const void* wi,      \
-                        const void* ci, const void* tw, long long batch,     \
-                        const void* plan, void* stream) {                    \
-        return launch<mode>(a, b, out, wf, cf, wi, ci, tw, batch, plan,      \
-                            stream);                                         \
-    }
-
-QT_MXU_LAUNCHER(qt_polymul_fixed_mxu, kFixed)
-QT_MXU_LAUNCHER(qt_ntt_mxu, kNtt)
-QT_MXU_LAUNCHER(qt_intt_mxu, kIntt)
+// Every launcher takes (a, b, out, wf, cf, wi, ci, tw, batch, plan, stream).
 
 // B5: wf the stage stream of the forward and inverse tables
 // (MxuDeviceTables.stream), wi unused, plan an MxuStreamPlan
@@ -861,8 +904,38 @@ extern "C" int qt_polymul_mxu(const void* a, const void* b, void* out,
                               const void* wf, const void* cf, const void*,
                               const void* ci, const void* tw, long long batch,
                               const void* plan, void* stream) {
-    return launch_polymul_stream<false>(a, b, out, wf, nullptr, cf, ci, tw,
-                                        batch, plan, stream);
+    return launch_polymul_stream<kProduct>(a, b, out, wf, nullptr, cf, ci, tw,
+                                           batch, plan, stream);
+}
+
+// B8: b the constant's canonical spectrum (n values), wf the same stream
+// (both directions), wi unused, plan an MxuStreamPlan
+extern "C" int qt_polymul_fixed_mxu(const void* a, const void* b, void* out,
+                                    const void* wf, const void* cf,
+                                    const void*, const void* ci,
+                                    const void* tw, long long batch,
+                                    const void* plan, void* stream) {
+    return launch_polymul_stream<kFixed>(a, b, out, wf, nullptr, cf, ci, tw,
+                                         batch, plan, stream);
+}
+
+// B6: wf the same stream (its forward stages); b, wi and ci unused; plan an
+// MxuStreamPlan with no inverse stages
+extern "C" int qt_ntt_mxu(const void* a, const void*, void* out,
+                          const void* wf, const void* cf, const void*,
+                          const void*, const void* tw, long long batch,
+                          const void* plan, void* stream) {
+    return launch_polymul_stream<kNtt>(a, nullptr, out, wf, nullptr, cf,
+                                       nullptr, tw, batch, plan, stream);
+}
+
+// B7: wi and ci the dense inverse tables (MxuDeviceTables.wi, .consti);
+// b, wf and cf unused; plan an MxuPlan
+extern "C" int qt_intt_mxu(const void* a, const void*, void* out, const void*,
+                           const void*, const void* wi, const void* ci,
+                           const void* tw, long long batch, const void* plan,
+                           void* stream) {
+    return launch_intt(a, out, wi, ci, tw, batch, plan, stream);
 }
 
 // B9: wf the same stream (its forward stages), wi the constant's inverse
@@ -874,6 +947,6 @@ extern "C" int qt_polymul_fixed_folded_mxu(const void* a, const void*,
                                            const void* ci, const void* tw,
                                            long long batch, const void* plan,
                                            void* stream) {
-    return launch_polymul_stream<true>(a, nullptr, out, wf, wi, cf, ci, tw,
-                                       batch, plan, stream);
+    return launch_polymul_stream<kFolded>(a, nullptr, out, wf, wi, cf, ci, tw,
+                                          batch, plan, stream);
 }

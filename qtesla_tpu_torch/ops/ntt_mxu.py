@@ -94,10 +94,10 @@ class MxuDeviceTables:
     likewise.  ``constf`` / ``consti`` uint32 (nb, bw) are the planner's
     const rows.  ``stream`` int8 (nb*(Cf + Ci), 64*bw*D) is ``wf`` and
     ``wi`` again as the stages the stream kernel copies into shared memory
-    (``mxu_tables.stream_tables``): B5 reads all of it, B9 its first nb*Cf
-    stages, the forward ones (its inverse stages are the constant's).  The
-    dense ``wf`` and ``wi`` are read by B6-B8 and by the twins; once B6-B8
-    read the stream too, only the twins need them."""
+    (``mxu_tables.stream_tables``): B5 and B8 read all of it, B6 and B9 its
+    first nb*Cf stages, the forward ones (B9's inverse stages are the
+    constant's).  The dense ``wf`` and ``wi`` are read by the twins and
+    ``wi`` by B7."""
 
     wf: torch.Tensor
     constf: torch.Tensor
@@ -381,10 +381,10 @@ def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
 
 
 class MxuStreamPlan(ctypes.Structure):
-    """B5's and B9's run-time plan: ``MxuPlan``'s fields, then the stages of
-    a forward and of an inverse block matmul and the stages the kernel's
-    ring holds; field for field the ``MxuStreamPlan`` struct of
-    ``csrc/ntt_mxu.cu``."""
+    """The stream kernel's run-time plan (B5, B6, B8, B9): ``MxuPlan``'s
+    fields, then the stages of a forward and of an inverse block matmul and
+    the stages the kernel's ring holds; field for field the
+    ``MxuStreamPlan`` struct of ``csrc/ntt_mxu.cu``."""
 
     _fields_ = MxuPlan._fields_ + [(f, ctypes.c_int32) for f in (
         "stages_f", "stages_i", "ring")]
@@ -400,7 +400,8 @@ def stream_smem(mt: MxuTables, rows: int, ring: int,
                 di: int | None = None) -> int:
     """Shared memory of one stream kernel block: ``ring`` stages, ``rows``
     rows, their digit planes (an inverse split of ``di`` planes, ``mt.Di``
-    unless given) and two barriers a stage."""
+    unless given; 0 for B6, which has no inverse pass) and two barriers a
+    stage."""
     ks = max(stream_stages(mt.Df, mt.bw),
              stream_stages(mt.Di if di is None else di, mt.bw)
              ) * STAGE_DEPTH + _PLANES_PAD
@@ -408,22 +409,37 @@ def stream_smem(mt: MxuTables, rows: int, ring: int,
             + -(-rows // 16) * 16 * ks + 16 * ring)
 
 
+# the stream kernel's modes, in the order of its StreamMode: B5's product
+# of x and y, B9's product against a folded constant, B8's product against
+# a constant's stored spectrum, B6's forward transform
+STREAM_MODES = ("product", "folded", "fixed", "ntt")
+
+
 @functools.lru_cache(maxsize=None)
-def stream_plan(mt: MxuTables,
+def stream_plan(mt: MxuTables, mode: str = "product",
                 fp: FixedFoldPlan | None = None) -> MxuStreamPlan:
-    """The stream kernel's run-time plan: B5's (``plan_for(mt, 2)``), or
-    with a fold plan ``fp`` B9's (``fold_plan_for(mt, fp)``: its rows are x
-    rows alone and its inverse split the fold plan's), with the stage
-    counts and the deepest ring that fits beside the rows (3 stages of 24
-    KiB at qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan
-    the kernel cannot take raises: more than 4 digit classes, a split other
+    """The stream kernel's run-time plan for one of ``STREAM_MODES``: B5's
+    (``plan_for(mt, 2)``: x's and y's rows), B9's (``fold_plan_for(mt,
+    fp)``, ``fp`` the fold plan, ``fold_plan(mt)`` unless given: x rows
+    alone, the fold plan's inverse split), B8's and B6's (``plan_for(mt,
+    1)``: x rows alone, ``mt``'s own split; B6 streams no inverse stage,
+    ``stages_i`` 0), with the stage counts and the deepest ring that fits
+    beside the rows and their planes (3 stages of 24 KiB at
+    qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan the
+    kernel cannot take raises: more than 4 digit classes, a split other
     than at most 4 planes of base 256 or 6 of base 128, a lane block wider
     than 128, rows other than one MMA tile of 16 or two (B5: x's and y's,
     at most 16, or 32), or no room for two stages."""
-    if fp is None:
-        base, di, inv_base = plan_for(mt, 2), mt.Di, mt.inv_base
-    else:
+    if mode not in STREAM_MODES:
+        raise ValueError(f"stream mode {mode!r}: not one of {STREAM_MODES}")
+    if mode == "folded":
+        fp = fold_plan(mt) if fp is None else fp
         base, di, inv_base = fold_plan_for(mt, fp), fp.Din, fp.base
+    elif fp is not None:
+        raise ValueError(f"stream mode {mode!r} takes no fold plan")
+    else:
+        base = plan_for(mt, 2 if mode == "product" else 1)
+        di, inv_base = mt.Di, mt.inv_base
     for din, b in ((mt.Df, mt.fwd_base), (di, inv_base)):
         if b not in (128, 256) or din > (4 if b == 256 else 6):
             raise ValueError(f"{mt.tbl.ps.name}: {din} planes of base {b} "
@@ -431,22 +447,24 @@ def stream_plan(mt: MxuTables,
     if mt.bw > 128 or (base.rows > 16 and base.rows != 32):
         raise ValueError(f"bw={mt.bw}, rows={base.rows}: outside the stream "
                          f"kernel's range")
+    held = 0 if mode == "ntt" else di       # inverse planes the block holds
     ring = max((r for r in range(2, _MAX_RING + 1)
-                if stream_smem(mt, base.rows, r, di) + _BLOCK_RESERVE
+                if stream_smem(mt, base.rows, r, held) + _BLOCK_RESERVE
                 <= _SM_SHARED), default=0)
     if not ring:
         raise ValueError(f"n={mt.n}: two stages do not fit beside the rows")
     fields = {f: getattr(base, f) for f, _ in MxuPlan._fields_}
     return MxuStreamPlan(**fields, stages_f=stream_stages(mt.Df, mt.bw),
-                         stages_i=stream_stages(di, mt.bw), ring=ring)
+                         stages_i=stream_stages(held, mt.bw), ring=ring)
 
 
 def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
             wf, cf, wi=None, ci) -> torch.Tensor:
     """Run ``kernel`` on CUDA tensors a (and b) into a new output, against
     the forward weights and const ``wf``, ``cf`` and the inverse ones
-    ``wi``, ``ci`` (B5: ``wf`` its stage stream, no ``wi``; B9: ``wf`` the
-    same stream, ``wi`` the constant's stages)."""
+    ``wi``, ``ci`` (B5, B6, B8: ``wf`` the stage stream, no ``wi``; B9:
+    ``wf`` the same stream, ``wi`` the constant's stages; B7: the dense
+    ``wi`` alone)."""
     from ..utils.build import load_library
 
     out = torch.empty_like(a)
@@ -466,11 +484,6 @@ def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
                            f"({lib.error_string(err)})")
     kernel.launches += 1
     return out
-
-
-def _dense(tabs: MxuDeviceTables) -> dict:
-    """B6-B8's tables: the dense forward and inverse weights and consts."""
-    return dict(wf=tabs.wf, cf=tabs.constf, wi=tabs.wi, ci=tabs.consti)
 
 
 def _prepare(mt: MxuTables, tabs, tw, *tensors):
@@ -519,8 +532,9 @@ def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
         raise ValueError(f"spectrum must hold n={mt.n} values, got "
                          f"{tuple(yspec.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fixed_mxu"], mt, plan_for(mt, 1),
-                       tw, x, yspec, **_dense(tabs))
+        return _launch(KERNELS["polymul_fixed_mxu"], mt,
+                       stream_plan(mt, "fixed"), tw, x, yspec,
+                       wf=tabs.stream, cf=tabs.constf, ci=tabs.consti)
     return polymul_fixed_mxu_plain(x, yspec, mt, tabs, tw)
 
 
@@ -537,7 +551,8 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
                    (torch.uint32, (nb, bw))), x)
     if x.is_cuda:
         return _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
-                       stream_plan(mt, fp), tw, x, None, wf=tabs.stream,
+                       stream_plan(mt, "folded", fp), tw, x, None,
+                       wf=tabs.stream,
                        cf=tabs.constf, wi=op.stages, ci=op.c)
     return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
@@ -546,8 +561,8 @@ def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_mxu"], mt, plan_for(mt, 1), tw, x, None,
-                       **_dense(tabs))
+        return _launch(KERNELS["ntt_mxu"], mt, stream_plan(mt, "ntt"), tw, x,
+                       None, wf=tabs.stream, cf=tabs.constf, ci=None)
     return ntt_mxu_plain(x, mt, tabs, tw)
 
 
@@ -557,7 +572,7 @@ def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     tabs, tw = _prepare(mt, tabs, tw, X)
     if X.is_cuda:
         return _launch(KERNELS["intt_mxu"], mt, plan_for(mt, 1), tw, X, None,
-                       **_dense(tabs))
+                       wf=None, cf=None, wi=tabs.wi, ci=tabs.consti)
     return intt_mxu_plain(X, mt, tabs, tw)
 
 

@@ -7,7 +7,8 @@ unpacked with ``git archive``, or a copy with one constant of a CUDA source
 changed).  In the order old, new, new, old a fresh Python process imports
 that tree's ``qtesla_tpu_torch``, builds its kernels into that tree's
 ``build/`` and times, at qtesla-iii-speed, B = 32768, on the same seeded
-operands (CUDA events, 3 warmup then 20 timed calls each): B5-B9, or with
+operands (CUDA events, 3 warmup then 20 timed calls each): B5-B9 (B6 also
+on one row, the size of its launches on the main path), or with
 ``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
 (K, 32768, 1024 / K); B13-B15 where both trees have them, against the
 spectrum of y's first row; the class-boundary B17 and B18, B18 on B17's
@@ -26,8 +27,8 @@ from pathlib import Path
 
 __all__ = ["main"]
 
-MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "intt_mxu",
-               "polymul_fixed_folded_mxu")
+MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "ntt_mxu B=1",
+               "intt_mxu", "polymul_fixed_folded_mxu")
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
               "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes")
 
@@ -81,6 +82,7 @@ else:
     op = M.fold_operand(spec, mt)
     runs = {{"polymul_mxu": (M.polymul_mxu, x, y), "polymul_fixed_mxu":
             (M.polymul_fixed_mxu, x, spec), "ntt_mxu": (M.ntt_mxu, x),
+            "ntt_mxu B=1": (M.ntt_mxu, x[:1]),
             "intt_mxu": (M.intt_mxu, x), "polymul_fixed_folded_mxu":
             (M.polymul_fixed_folded_mxu, x, op)}}
 out = {{}}

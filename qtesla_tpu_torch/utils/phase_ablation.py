@@ -22,16 +22,19 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
 everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B6-B8, B13-B15, B17), the compact ones of
+of ``csrc/mxu_block.cuh`` (B7, B13-B15, B17), the compact ones of
 ``csrc/mxu_compact.cuh`` (B11, B16, B12 and B18), the row segment kernel of
-B12 and B18 and the streaming kernel of B5 and B9 in ``csrc/ntt_mxu.cu``,
-where level 3 still runs the ring of stages but copies no bytes.  The patch
+B12 and B18 and the streaming kernel of B5, B6, B8 and B9 in
+``csrc/ntt_mxu.cu``, where level 3 still runs the ring of stages but copies
+no bytes.  The patches of the streaming kernel sit in the code its four
+modes share, so they take apart B6 and B8 as they do B5 and B9.  The patch
 set follows the tree it is given as far back as the tree of the commit
 before B12 and B9 took these designs: there the row segment kernel (B18
 alone) lies in ``csrc/sharded_classes.cu``, and the dense patches take
-apart B12 (a mode of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``).  A
-patch whose anchor is missing from a source it names fails the run.  It
-needs a CUDA device.
+apart B12 (a mode of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in
+a tree before B6 and B8 moved to the streaming kernel they take those apart
+as modes of ``mxu_kernel``.  A patch whose anchor is missing from a source
+it names fails the run.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -177,11 +180,11 @@ COLUMN_PATCHES = (
     ("sharded_mxu.cu", _C_FWD_WIDE, _guard("QT_ABL >= 1", _C_FWD_WIDE)),
     ("sharded_mxu.cu", _C_INV_WIDE, _guard("QT_ABL >= 1", _C_INV_WIDE)),
 )
-# B5 and B9 in polymul_stream_kernel: below level 4 the producer arrives on
-# each stage's barrier without copying, so the ring still paces the MMA
-# warps; B5's pointwise product sits in the forward epilogue, and below
-# level 1 it is a xor; the recombination is mxu_compact.cuh's
-# recombine_value
+# B5, B6, B8 and B9 in polymul_stream_kernel: below level 4 the producer
+# arrives on each stage's barrier without copying, so the ring still paces
+# the MMA warps; B5's and B8's pointwise products sit in the forward
+# epilogue, and below level 1 they are a xor; the recombination is
+# mxu_compact.cuh's recombine_value
 _S_FWD_WIDE = "            wide_stages<false>(data, rows, p, tw);\n"
 _S_INV_WIDE = "            wide_stages<true>(data, tb, p, tw);\n"
 _S_POINTWISE = "    return mulmod_barrett(a, b, m);\n"

@@ -6,7 +6,7 @@ Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
 instantiation (``mxu_kernel<mode>``,
-``polymul_stream_kernel<classes,folded>``, ``sp_kernel<mode,threads>``,
+``polymul_stream_kernel<classes,mode>``, ``sp_kernel<mode,threads>``,
 ``classes_kernel<mode,threads>``,
 ``column_compact_kernel<threads,shared,inverse>``,
 ``seg2_compact_kernel<classes,shared,slots,full>``) it prints the SASS
@@ -18,7 +18,12 @@ tree before B12 and B9 took those kernels, B5's
 ``seg2_compact_kernel<1,shared,3,full>``.  A kernel one tree has and the
 other has not (B9's ``polymul_stream_kernel<..,1>`` against
 ``mxu_kernel<4>``, B12's ``seg2_compact_kernel<0,..>`` against
-``sp_kernel<1,..>``) counts 0 on the side that lacks it.  A refactor of
+``sp_kernel<1,..>``) counts 0 on the side that lacks it; a dense mode the
+new tree runs in the stream kernel (``SUCCESSORS``: B8's ``mxu_kernel<1>``
+and B6's ``mxu_kernel<2>`` of the tree before they moved, B9's
+``mxu_kernel<4>`` of the tree before it did) is then printed once more
+beside the stream kernel's instantiations of its mode, one per class
+count.  A refactor of
 shared device code that leaves a kernel's count and opcodes as they were
 compiled to the same work; ``utils/ab_timing.py`` times what it did not.
 It needs the CUDA toolkit (``cuobjdump`` beside ``nvcc``).
@@ -47,6 +52,10 @@ _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
                      r"seg2_classes_compact_kernel|seg2_compact_kernel)"
                      r"I((?:L[ib]\d+E)+)E")
 _ARG = re.compile(r"L[ib](\d+)E")
+# dense kernel modes an older tree compiled -> (kernel, the mode of
+# polymul_stream_kernel<classes,mode> that runs it now)
+SUCCESSORS = {"mxu_kernel<1>": ("B8", 2), "mxu_kernel<2>": ("B6", 3),
+              "mxu_kernel<4>": ("B9", 1)}
 
 
 def _name(m: re.Match) -> str:
@@ -101,6 +110,13 @@ def main(argv: list[str]) -> int:
         top = sorted(diff.items(), key=lambda t: -abs(t[1]))[:8]
         print(f"{name}: old {sum(a.values())}, new {sum(b.values())}"
               + (f"; {dict(top)}" if top else ""))
+    for name, (label, mode) in SUCCESSORS.items():
+        if name in old and name not in new:
+            now = sorted(k for k in new
+                         if k.startswith("polymul_stream_kernel<")
+                         and k.endswith(f",{mode}>"))
+            print(f"{label}: old {name} {len(old[name])}, new " + ", ".join(
+                f"{k} {len(new[k])}" for k in now))
     return 0
 
 

@@ -259,35 +259,38 @@ def test_mxu_plan_matches_kernel_limits():
     assert M.block_rows(8192, 2) == 4 and M.block_rows(1024, 2) == 32
 
 
-@pytest.mark.parametrize("folded", [False, True], ids=["B5", "B9"])
+@pytest.mark.parametrize("mode", ["product", "folded", "fixed", "ntt"],
+                         ids=["B5", "B9", "B8", "B6"])
 @pytest.mark.parametrize("name", SETS)
-def test_stream_plan_matches_kernel_limits(name, folded):
+def test_stream_plan_matches_kernel_limits(name, mode):
     """The stream kernel's plans: B5's is ``plan_for(mt, 2)``, B9's
     ``fold_plan_for(mt, fold_plan(mt))`` (x rows alone, the fold plan's
-    inverse split), each with the stage counts and the deepest ring of
-    stages that fits beside the rows; both pass every check of the
-    launcher."""
+    inverse split), B8's and B6's ``plan_for(mt, 1)``, field by field, each
+    with the stage counts (B6 none of the inverse) and the deepest ring of
+    stages that fits beside the rows and the planes the mode holds; every
+    plan passes every check of the launcher."""
     mt = get_mxu_tables(name)
     fp = fold_plan(mt)
-    if folded:
-        plan, base = M.stream_plan(mt, fp), M.fold_plan_for(mt, fp)
-        di = fp.Din
-    else:
-        plan, base, di = M.stream_plan(mt), M.plan_for(mt, 2), mt.Di
+    base, di = {"product": (M.plan_for(mt, 2), mt.Di),
+                "folded": (M.fold_plan_for(mt, fp), fp.Din),
+                "fixed": (M.plan_for(mt, 1), mt.Di),
+                "ntt": (M.plan_for(mt, 1), mt.Di)}[mode]
+    plan = M.stream_plan(mt, mode, fp if mode == "folded" else None)
     for f, _ in M.MxuPlan._fields_:
         got, want = getattr(plan, f), getattr(base, f)
         if f in ("pw", "pw_sh"):
             got, want = list(got), list(want)
         assert got == want, f
+    held = 0 if mode == "ntt" else di         # inverse planes the block holds
     assert plan.stages_f == -(-mt.Df * mt.bw // 64)
-    assert plan.stages_i == -(-di * mt.bw // 64)
-    smem = [M.stream_smem(mt, plan.rows, r, di) + 1024
+    assert plan.stages_i == -(-held * mt.bw // 64)
+    smem = [M.stream_smem(mt, plan.rows, r, held) + 1024
             for r in (plan.ring, plan.ring + 1)]
     assert 2 <= plan.ring <= 8 and smem[0] <= 233472
     assert plan.ring == 8 or smem[1] > 233472
     # the launcher's checks
     assert 1 <= plan.rows <= 16 or plan.rows == 32
-    assert folded or plan.rows % 2 == 0
+    assert mode != "product" or plan.rows % 2 == 0
     assert 1 <= plan.d <= 4 and 32 <= plan.bw <= 128 and plan.bw % 32 == 0
     assert plan.n == 1 << plan.logn == plan.nb * plan.bw
     assert plan.n >> plan.lr == plan.bw
@@ -295,43 +298,52 @@ def test_stream_plan_matches_kernel_limits(name, folded):
         assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
     if name == "qtesla-iii-speed":
         assert (plan.rows, plan.ring, plan.stages_f, plan.stages_i) == (
-            32, 3, 8, 8 if folded else 6)
-        assert plan.inv_lb == (7 if folded else 8)
+            32, 3, 8, {"product": 6, "folded": 8, "fixed": 6, "ntt": 0}[mode])
+        assert plan.inv_lb == (7 if mode == "folded" else 8)
 
 
 def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
     """A split the kernel's packed split cannot take (5 planes of base 256,
     or a base other than 128 and 256), a lane block wider than 128 and
     rows that fill neither one MMA tile of x's and y's rows nor two (18 to
-    30) raise before any launch."""
+    30) raise before any launch, in every mode; so do a mode the kernel
+    does not have and a fold plan given to a mode other than B9's."""
     import copy
 
     mt = get_mxu_tables("qtesla-iii-speed")
+    own = ("product", "fixed", "ntt")          # the modes under mt's split
     for field, value in (("Df", 5), ("Di", 5), ("fwd_base", 512),
                          ("inv_base", 64)):
         bad = copy.copy(mt)
         setattr(bad, field, value)
-        with pytest.raises(ValueError, match="split"):
-            M.stream_plan(bad)
+        for mode in own:
+            with pytest.raises(ValueError, match="split"):
+                M.stream_plan(bad, mode)
     bad = copy.copy(mt)
     bad.bw, bad.nb, bad.Lr = 256, mt.nb // 2, mt.Lr - 1
-    with pytest.raises(ValueError, match="range"):
-        M.stream_plan(bad)
+    for mode in own:
+        with pytest.raises(ValueError, match="range"):
+            M.stream_plan(bad, mode)
     # B9's plan: the fold plan's inverse split (base 128 at this set), 7
     # planes of base 128, 5 of base 256 or a base of 64 are refused
     fp = fold_plan(mt)
     fields = {f: getattr(fp, f) for f in FixedFoldPlan.__dataclass_fields__}
     for bad_fp in ({"Din": 5, "base": 256}, {"base": 64}):
         with pytest.raises(ValueError, match="split"):
-            M.stream_plan(mt, FixedFoldPlan(**{**fields, **bad_fp}))
+            M.stream_plan(mt, "folded", FixedFoldPlan(**{**fields, **bad_fp}))
     with pytest.raises(ValueError, match="range"):
-        M.stream_plan(mt, FixedFoldPlan(**{**fields, "Din": 7}))
+        M.stream_plan(mt, "folded", FixedFoldPlan(**{**fields, "Din": 7}))
+    with pytest.raises(ValueError, match="stream mode"):
+        M.stream_plan(mt, "intt")
+    with pytest.raises(ValueError, match="no fold plan"):
+        M.stream_plan(mt, "fixed", fp)
     for rows in (18, 24, 30):
         monkeypatch.setattr(M, "block_rows", lambda n, ops, rows=rows: rows)
+        for mode in own:
+            with pytest.raises(ValueError, match="range"):
+                M.stream_plan(copy.copy(mt), mode)
         with pytest.raises(ValueError, match="range"):
-            M.stream_plan(copy.copy(mt))
-        with pytest.raises(ValueError, match="range"):
-            M.stream_plan(copy.copy(mt), fp)
+            M.stream_plan(copy.copy(mt), "folded", fp)
 
 
 @pytest.mark.parametrize("name", SETS)
@@ -449,8 +461,9 @@ def test_header_edit_changes_digest(tmp_path):
 
 def test_phase_ablation_patches_apply(tmp_path):
     """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
-    sources, in a copy, the streaming kernel of B5 and B9, B16's column
-    body and the row segment kernel of B12 and B18 included; a copy whose
+    sources, in a copy, the streaming kernel of B5, B6, B8 and B9 (its
+    guards before and inside the code its modes share), B16's column body
+    and the row segment kernel of B12 and B18 included; a copy whose
     row segment kernel lies in sharded_classes.cu (the tree before B12 took
     it) is patched there; a copy without the compact header (a tree before
     B11 and B18 were redesigned) is refused."""
@@ -474,6 +487,21 @@ def test_phase_ablation_patches_apply(tmp_path):
     for cond in ("QT_ABL >= 1", "QT_ABL >= 2", "QT_ABL == 3", "QT_ABL < 4"):
         assert f"#if {cond}" in text, ("ntt_mxu.cu", cond)
     assert "(mma_warp && QT_ABL >= 3)" in text
+    # the guards sit in what the stream kernel's four modes share: its
+    # forward wide stages before the modes branch, the split and products of
+    # stream_matmul that B6's and B8's passes call; the dense kernel left
+    # runs B7 alone through mxu_block.cuh's patched blocks (as B6 and B8 ran
+    # in the tree before they moved)
+    kernel = text.split("polymul_stream_kernel(const uint32_t*")[1].split(
+        "bool valid_split(")[0]
+    wide = kernel.index("#if QT_ABL >= 1\n            wide_stages<false>")
+    for mode in ("MODE == kFolded || MODE == kFixed", "MODE == kNtt"):
+        assert kernel.index(mode) > wide, mode
+    assert "stream_matmul<D, 2, kFwd>" in kernel
+    assert kernel.count("stream_matmul<D, 2, kStore>(data, tb, p.stages_f") == 1
+    assert "#if QT_ABL >= 2\n        split_packed<Team>" in text
+    assert text.count("block_matmul(") == 1 and "static_assert(MODE == kIntt" \
+        in text
     assert (csrc / "sharded_mxu.cu").read_text().count("#if QT_ABL >= 1") == 3
     assert "QT_ABL" not in "".join(before.values())
     # the row segment kernel where the tree before B12 took it kept it
@@ -486,6 +514,42 @@ def test_phase_ablation_patches_apply(tmp_path):
     (csrc / "mxu_compact.cuh").unlink()
     with pytest.raises(RuntimeError, match="anchor found"):
         PA.patch_sources(csrc)
+
+
+def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
+    """``utils/sass_diff.py`` names the stream kernel's instantiations
+    alike whether the mode is a bool (B5 and B9 before B6 and B8 joined
+    them) or an int, and prints the dense modes an older tree compiled (B8's
+    ``mxu_kernel<1>``, B6's ``mxu_kernel<2>``) beside the stream kernel's
+    instantiations of their modes."""
+    from qtesla_tpu_torch.utils import sass_diff as SD
+    prefix = "_ZN43_GLOBAL__N__9d88d42b_10_ntt_mxu_cu_bc5b174f"
+    stream = "21polymul_stream_kernel"
+    for mangled, name in (
+            (stream + "ILi4ELb1EEEvPKj", "polymul_stream_kernel<4,1>"),
+            (stream + "ILi4ELi1EEEvPKj", "polymul_stream_kernel<4,1>"),
+            (stream + "ILi2ELi3EEEvPKj", "polymul_stream_kernel<2,3>"),
+            ("10mxu_kernelILi3EEEvPKjPj", "mxu_kernel<3>")):
+        assert SD._name(SD._KERNEL.search(prefix + mangled)) == name
+    old = {"mxu_kernel<1>": ["IMAD"] * 5, "mxu_kernel<2>": ["IMAD"] * 4,
+           "mxu_kernel<3>": ["HMMA"] * 3,
+           "polymul_stream_kernel<3,0>": ["IMAD"] * 2}
+    new = {"mxu_kernel<3>": ["HMMA"] * 3,
+           "polymul_stream_kernel<3,0>": ["IMAD"] * 2,
+           "polymul_stream_kernel<3,2>": ["IMAD"] * 7,
+           "polymul_stream_kernel<4,2>": ["IMAD"] * 8,
+           "polymul_stream_kernel<3,3>": ["IMAD"] * 6}
+    monkeypatch.setattr(SD, "_library", lambda tree: tree.name)
+    monkeypatch.setattr(SD, "kernel_sass",
+                        lambda lib: old if lib == "old" else new)
+    assert SD.main(["old", "new"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "mxu_kernel<3>: old 3, new 3" in out
+    assert "polymul_stream_kernel<3,0>: old 2, new 2" in out
+    assert ("B8: old mxu_kernel<1> 5, new polymul_stream_kernel<3,2> 7, "
+            "polymul_stream_kernel<4,2> 8") in out
+    assert "B6: old mxu_kernel<2> 4, new polymul_stream_kernel<3,3> 6" in out
+    assert not any(line.startswith("B9:") for line in out)
 
 
 # every set with each model axis its four-step split takes
@@ -767,16 +831,34 @@ def test_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_mxu_kernels_match_plain_on_card(cuda_device, name):
-    """B5-B8 against their twins; B7 takes inputs below pw_bound; B5 and B9
-    also at 9000 rows, so that every persistent block walks several row
-    groups through the ring of table stages."""
+    """B5-B8 against their twins; B7 takes inputs below pw_bound; B5, B6, B8
+    and B9 also at 9000 rows, so that every persistent block walks several
+    row groups through the ring of table stages, with rows of q - 1 and B8
+    against a spectrum that holds q - 1 and one that is all q - 1."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     mt = get_mxu_tables(name)
     q, n = mt.q, mt.n
     rng = np.random.default_rng(22)
-    xy = torch.from_numpy(rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
-                          ).to(cuda_device)
+    xy = rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
+    xy[0, ::97] = q - 1
+    xy = torch.from_numpy(xy).to(cuda_device)
+    spec = M.ntt_mxu_plain(xy[1, :1], mt).cpu().numpy()
+    spec[0, ::5] = q - 1
+    for sp in (spec, np.full((1, n), q - 1, dtype=np.uint32)):
+        sp = torch.from_numpy(sp).to(cuda_device)
+        want = M.polymul_fixed_mxu_plain(xy[0], sp, mt)
+        before = M.KERNELS["polymul_fixed_mxu"].launches
+        got = M.polymul_fixed_mxu(xy[0], sp, mt)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        assert M.KERNELS["polymul_fixed_mxu"].launches == before + 1
+    want = M.ntt_mxu_plain(xy[0], mt)
+    before = M.KERNELS["ntt_mxu"].launches
+    got = M.ntt_mxu(xy[0], mt)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert M.KERNELS["ntt_mxu"].launches == before + 1
     want = M.polymul_mxu_plain(xy[0], xy[1], mt)
     before = M.KERNELS["polymul_mxu"].launches
     got = M.polymul_mxu(xy[0], xy[1], mt)
