@@ -23,15 +23,18 @@ script exits non-zero without printing a result:
    {2, 4, 8} the set's split takes (k = 4 at n = 8192), on the path's own
    intermediates and on all-(q-1) shards: B13 against a random constant's
    spectrum and the all-0 and all-(q-1) ones, B15 against their folded
-   tables, B16 also under p3x; the whole SP path equals B1, and the fixed
+   tables, B16 also under p3x; B13 also against a spectrum of uint32
+   values up to 2^32 - 1 and against the twin that reads its compact
+   tables; the whole SP path equals B1, and the fixed
    and folded SP paths equal B4 and each other.  The folded SP prepare's
    host seconds (B11, B14, fourstep_fold_tables, copies) are printed.  The
    class-boundary kernels B17 and B18 for smallprime, qtesla-i and
    qtesla-iii-speed at every k the split takes and n = 8192 at k = 4, on
-   random and all-(q-1) shards, B18 on B17's own output after the
+   random and all-(q-1) shards, B17 also against the twin that reads its
+   compact K1, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
    four-class qtesla-p-i and qtesla-p-iii raises.  B11, B16 (under p3 and
-   p3x), B12 and B18 multiply only their tables' nonzero blocks in
+   p3x), B12, B13, B17 and B18 multiply only their tables' nonzero blocks in
    persistent blocks; each case also runs them on LONG_BATCH rows, so that
    every block walks over several row groups through both of its buffers,
    and prints the rows a block holds, the depth of a product and whether
@@ -57,9 +60,10 @@ script exits non-zero without printing a result:
    products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B6 and B8 beside the times their earlier
-   designs took (EARLIER_MS), B6 also at B = 1 (the rows of its launches on
-   the main path) and B9's prepare time; then the whole SP path and
+   plain (B16 also under p3x), B13 and B17 beside the times their earlier
+   designs took (EARLIER_MS), B6, B11 and B14 also at B = 1 (the rows of
+   their prepare launches on the main path) and B9's prepare time; then
+   the whole SP path and
    local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
    warm and cold (L2 flushed and the host queued ahead before each call;
    B5, B1, B8 and B4 are timed cold too), with the SP cost per shard
@@ -138,11 +142,11 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 # four-class sets must refuse it
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
-# the kernels redesigned last, and the medians their earlier designs (the
-# transform and fixed-product modes of the dense MXU kernel) took at the
+# the kernels redesigned last, and the medians their earlier designs (B13
+# a mode of the dense sp_kernel, B17 a dense kernel of its own) took at the
 # timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit
-EARLIER_MS = {"ntt_mxu": 0.8626, "polymul_fixed_mxu": 1.6260}
+EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931}
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -374,10 +378,14 @@ def sp_against_plain(errors: dict) -> None:
         prep_s = [_seconds(xprep, a) for _ in range(2)]
         a_op = prep_s[1][1]
         # B13 and B15 against a random constant, the all-0 and all-(q-1)
-        # spectra
+        # spectra; B13 also against uint32 values up to 2^32 - 1 (JAX
+        # stores its spectrum lazy)
         spectra = [aspec] + [_u32(np.full((k, nloc), v, dtype=np.uint32))
                              for v in (0, q - 1)]
         folds = [a_op] + [_fold(plans, sp) for sp in spectra[1:]]
+        wide = rng.integers(0, 1 << 32, (k, nloc), dtype=np.uint32)
+        wide[:, ::7] = 0xFFFFFFFF
+        wide = _u32(wide)
         a_spec = F.ntt_fused(a[None], tbl)
         for B in SMALL_BATCHES:
             for kind in ("random", "worst"):
@@ -414,6 +422,13 @@ def sp_against_plain(errors: dict) -> None:
                             f"B15 {tag} spectrum {i}",
                             S.sp_seg2_folded(vx, op, plans),
                             S.seg2_folded_plain(vx, op, plans))
+                got = S.sp_seg2_fixed(vx, wide, plans)
+                _record(errors, "sp_seg2_fixed",
+                        f"B13 {tag} full-range spectrum", got,
+                        S.seg2_fixed_plain(vx, wide, plans))
+                _record(errors, "sp_seg2_fixed",
+                        f"B13 {tag} against its compact twin", got,
+                        S.seg2_fixed_compact_plain(vx, wide, plans))
                 _record(errors, "sp_seg3", f"B16 p3x {tag}",
                         S.sp_seg3(w, plans, folded=True),
                         S.seg3_plain(w, plans, folded=True))
@@ -449,6 +464,16 @@ def sp_against_plain(errors: dict) -> None:
             _record(errors, "sp_seg3", f"B16 {seg} {name} k={k} "
                     f"B={LONG_BATCH}", S.sp_seg3(long, plans, folded=folded),
                     S.seg3_plain(long, plans, folded=folded))
+        for i, sp in enumerate((spectra[0], wide)):
+            _record(errors, "sp_seg2_fixed",
+                    f"B13 {name} k={k} B={LONG_BATCH} spectrum {i}",
+                    S.sp_seg2_fixed(long, sp, plans),
+                    S.seg2_fixed_plain(long, sp, plans))
+        p13 = S.seg2_fixed_compact_plan(plans)
+        print(f"{name} k={k}: B13 over K2f's and K2i's nonzero blocks: "
+              f"{p13.rows} rows of x a warp, blocks of {1 << p13.c1.ls} "
+              f"lanes, depths {p13.c1.kp} and {p13.c2.kp}, tables "
+              f"{_route(p13)}; also equal to plain at B={LONG_BATCH}")
         p12 = S.seg2_compact_plan(plans)
         print(f"{name} k={k}: B12 over K2f's and K2i's nonzero blocks: "
               f"{p12.rows // 2} + {p12.rows // 2} rows a warp, blocks of "
@@ -474,11 +499,12 @@ def sp_against_plain(errors: dict) -> None:
               f"{plans.p3.din}/{plans.p2x.din}/{plans.p3x.din}, rows/block "
               f"{p11.rows}/"
               f"{S.plan_for(plans, 'sp_seg2').rows}/"
-              f"{S.plan_for(plans, 'sp_seg2_fixed').rows}; folded SP prepare "
+              f"{S.plan_for(plans, 'sp_seg2_fwd').rows}; folded SP prepare "
               f"{prep_s[1][0] * 1e3:.1f} ms, first {prep_s[0][0] * 1e3:.1f} "
               f"ms): B11-B16 equal to plain for B in {SMALL_BATCHES}, random, "
-              f"worst-case and all-(q-1) shards, B13/B15 for 3 spectra, B16 "
-              f"also under p3x; SP path == B1, fixed SP == folded SP == B4",
+              f"worst-case and all-(q-1) shards, B13/B15 for 3 spectra (B13 "
+              f"also a full-range one), B16 also under p3x; SP path == B1, "
+              f"fixed SP == folded SP == B4",
               flush=True)
     done()
 
@@ -516,6 +542,9 @@ def classes_against_plain(errors: dict) -> None:
                 ux, uy = (C.sp_seg1_classes(t, plans, cp) for t in (sx, sy))
                 _record(errors, "sp_seg1_classes", f"B17 {tag}", ux,
                         C.seg1_classes_plain(sx, plans, cp))
+                _record(errors, "sp_seg1_classes",
+                        f"B17 {tag} against its compact twin", uy,
+                        C.seg1_classes_compact_plain(sy, plans, cp))
                 ux, uy = (C.a2a_fwd_classes(t, plans, cp.Dout)
                           for t in (ux, uy))
                 _record(errors, "sp_seg2_classes", f"B18 {tag}",
@@ -534,13 +563,23 @@ def classes_against_plain(errors: dict) -> None:
                 f"B18 {name} k={k} on B17's all q-1 output",
                 C.sp_seg2_classes(u, u, plans, cp),
                 C.seg2_classes_plain(u, u, plans, cp))
-        long = C.seg1_classes_plain(_u32(rng.integers(
-            0, q, (k, LONG_BATCH, nloc), dtype=np.uint32)), plans, cp)
+        long = _u32(rng.integers(0, q, (k, LONG_BATCH, nloc),
+                                 dtype=np.uint32))
+        _record(errors, "sp_seg1_classes",
+                f"B17 {name} k={k} B={LONG_BATCH}",
+                C.sp_seg1_classes(long, plans, cp),
+                C.seg1_classes_plain(long, plans, cp))
+        long = C.seg1_classes_plain(long, plans, cp)
         _record(errors, "sp_seg2_classes",
                 f"B18 {name} k={k} B={LONG_BATCH}",
                 C.sp_seg2_classes(long, long.flip(1).contiguous(), plans, cp),
                 C.seg2_classes_plain(long, long.flip(1).contiguous(), plans,
                                      cp))
+        p17 = C.plan_for(plans, cp, "sp_seg1_classes")
+        print(f"{name} k={k}: B17 over K1's nonzero blocks: {p17.rows} rows "
+              f"a buffer, blocks of {1 << p17.c1.ls} lanes, depth "
+              f"{p17.c1.kp}, tables {_route(p17)}; also equal to plain at "
+              f"B={LONG_BATCH}")
         p2 = C.plan_for(plans, cp, "sp_seg2_classes")
         print(f"{name} k={k}: B18 over the nonzero blocks: "
               f"{p2.rows // 2} + {p2.rows // 2} rows a warp, blocks of "
@@ -550,7 +589,7 @@ def classes_against_plain(errors: dict) -> None:
               f"also equal to plain at B={LONG_BATCH}")
         print(f"{name} k={k} (class plan {plan_s:.1f} s: Dout={cp.Dout}, "
               f"dins={cp.dins}, class bounds {cp.bounds}, rows/block B17 "
-              f"{C.plan_for(plans, cp, 'sp_seg1_classes').rows} B18 "
+              f"{p17.rows} B18 "
               f"{p2.rows}): B17 and B18 equal to plain for B in "
               f"{SMALL_BATCHES}, random, worst-case and all-(q-1) shards; "
               f"class path == B1 == SP path", flush=True)
@@ -757,9 +796,10 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     ``sp_fold`` the timed constant's folded SP operand): the bytes it must move
     (each input, tables included, read once, the output written once) and
     its int8 tensor-core MACs (the digit products at their plans' depth,
-    the padding and the SP tables' zero blocks excluded).  B11, B16 and B18
-    read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
-    ``w2cc``, ``w2ic``; B12 ``w2fc`` and ``w2ic``); their MACs are counted
+    the padding and the SP tables' zero blocks excluded).  B11, B16, B17 and
+    B18 read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
+    ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``); their MACs are
+    counted
     on the dense tables' nonzero lane pairs like the others', so a bound
     reads the same work whatever implements it.  B5's, B6's, B8's and B9's
     tables are counted once, as ``wf`` and ``wi`` (B6: ``wf`` alone; B9:
@@ -800,8 +840,9 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
                        2 * m2f + m2i)
     work["sp_seg3"] = (2 * row + _nbytes(st.w3c, st.c3) + sp_tw, m3)
     work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3xc, st.c3x) + sp_tw, m3x)
-    work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2f, st.c2f, st.w2i,
-                                                      st.c2i), m2f + m2i)
+    work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2fc, st.c2f,
+                                                      st.w2ic, st.c2i),
+                             m2f + m2i)
     work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2f, st.c2f), m2f)
     work["sp_seg2_folded"] = (2 * row + _nbytes(*sp_fold), mx)
     # B17 writes Dout class planes a value; B18 reads them for x and y
@@ -809,7 +850,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     w2c, c2c = C.host_class_tables(cp)
     w2cc = C.host_compact_class_table(cp, plans)
     D = cp.Dout
-    work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1) + sp_tw, m1)
+    work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1c) + sp_tw, m1)
     work["sp_seg2_classes"] = (
         (2 * D + 1) * row + _nbytes(w2cc, c2c, st.w2ic, st.c2i),
         2 * _sp_macs(w2c, sum(cp.dins), B, plans) + m2i)
@@ -916,11 +957,20 @@ def timing(device_line: str) -> dict:
                   f"{bms:.4f} ms [{device_line}]", flush=True)
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
-    # B6 at the size of its launches on the main path: one row, the constant
-    one = time_cuda(M.ntt_mxu, x[:1], mt, warmup=3, repeats=20)
-    print(f"timing ntt_mxu B=1 (the main path's prepare): min "
-          f"{one.min_ms:.4f} ms median {one.median_ms:.4f} ms over 20 calls; "
-          f"B={B} median {med['ntt_mxu']:.4f} ms [{device_line}]", flush=True)
+    # B6, B11 and B14 at the size of their prepare launches on the main
+    # path: one row, the constant (B11 and B14 its k shards); warm, as a
+    # call costs with the wrapper's host time in the way, and cold (the
+    # host queued ahead: the card's time)
+    for name, fn, args in (
+            ("ntt_mxu", M.ntt_mxu, (x[:1], mt)),
+            ("sp_seg1", S.sp_seg1, (sx[:, :1].contiguous(), plans)),
+            ("sp_seg2_fwd", S.sp_seg2_fwd, (vx[:, :1].contiguous(), plans))):
+        one = time_cuda(fn, *args, warmup=3, repeats=20)
+        card = time_cuda(fn, *args, warmup=3, repeats=20, cold=True)
+        print(f"timing {name} B=1 (the main path's prepare): min "
+              f"{one.min_ms:.4f} ms median {one.median_ms:.4f} ms over 20 "
+              f"calls, cold median {card.median_ms:.4f} ms; B={B} median "
+              f"{med[name]:.4f} ms [{device_line}]", flush=True)
     cold_s, prep_s = fold_prep_seconds(MAIN_SET, y[0])
     print(f"timing B9 prepare (\"mxu-folded\", B6 + host tables and stages "
           f"+ copies), host clock, synchronised: {prep_s * 1e3:.1f} ms, "

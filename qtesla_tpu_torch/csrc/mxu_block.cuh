@@ -32,12 +32,12 @@
 // block_matmul is three phases that also serve apart: split_block (the
 // split), mma_classes (the products over K, ending in an epilogue it is
 // given per output tile) and recombine_tile (the epilogue above).
-// sharded_classes.cu stores the raw class sums instead (B17).
 //
 // These blocks multiply a whole bw x bw table.  The sequence-parallel tables
 // are block-diagonal under a lane permutation; mxu_compact.cuh holds the
 // counterparts that multiply the nonzero blocks alone (split_compact,
-// mma_compact, recombine_compact), which B11, B16 and B18 are built from.
+// mma_compact, recombine_compact), which B11-B13 and B16-B18 are built
+// from; B7, B14 and B15 still run block_matmul.
 // B5 runs the wide stages and recombine_tile with MMAs of its own
 // (ntt_mxu.cu).
 #pragma once

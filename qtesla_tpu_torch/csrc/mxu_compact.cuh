@@ -1,6 +1,7 @@
 // Building blocks of the digit-matmul kernels that multiply only the
-// nonzero blocks of their tables (B11 and B16 in sharded_mxu.cu, B18 in
-// sharded_classes.cu), beside the dense ones of mxu_block.cuh.
+// nonzero blocks of their tables (B11, B16 and B17 in sharded_mxu.cu's
+// column_compact_kernel, B12, B13 and B18 in seg2_compact.cuh), beside the
+// dense ones of mxu_block.cuh.
 //
 // A sequence-parallel tile matrix (TW x TW lanes) is block-diagonal once
 // its lanes are put in the right order (parallel/sharded_mxu_tables.py

@@ -1,20 +1,29 @@
 // The row segment of the sequence-parallel (four-step) digit-matmul polymul
 // over its tables' nonzero blocks, for Hopper (sm_90a): one kernel body,
-// seg2_compact_kernel, for
-//   B12 qt_sp_seg2 (sharded_mxu.cu; kClasses false): x's and y's spectral
-//       shards (S, B, nloc), each value split under p2f (4 planes of base
-//       256 at every registered set), one product against K2f;
-//   B18 qt_sp_seg2_classes (sharded_classes.cu; kClasses true): x's and
-//       y's Dout class planes (S, B, Dout * nloc) after B17 and the
-//       exchange, class plane j split into din_j planes of its own base,
-//       one product over all of them against the class tables;
+// seg2_compact_kernel, in three modes (Mode), for
+//   B12 qt_sp_seg2 (sharded_mxu.cu; kPair): x's and y's spectral shards
+//       (S, B, nloc), each value split under p2f (4 planes of base 256 at
+//       every registered set), one product against K2f;
+//   B18 qt_sp_seg2_classes (sharded_classes.cu; kClassPlanes): x's and y's
+//       Dout class planes (S, B, Dout * nloc) after B17 and the exchange,
+//       class plane j split into din_j planes of its own base, one product
+//       over all of them against the class tables;
 // then alike: one recombination of x's and of y's sums, the Barrett
 // pointwise product, the split under p2i, the product against K2i[d, t]
 // and the store.  Which segment it is changes three things: the planes a
 // value is split into (one input plane or Dout), where the first table's
 // block lies (K2f's block of this n2-block's place in the tile, or the one
 // block all class tables share) and where its const row lies (K2f's one
-// (TW) row, or the shard's class const rows).  The output is canonical.
+// (TW) row, or the shard's class const rows).
+//   B13 qt_sp_seg2_fixed (sharded_mxu.cu; kSpectrum): B12 with y the
+//       constant's stored spectrum, one row (S, nloc) a launch's shards
+//       hold, any uint32 (the Barrett product is exact for all): only x
+//       goes through K2f, so an MMA tile holds 16 rows of x where B12's
+//       holds 8 of x and 8 of y; x's recombined sums meet the spectrum's
+//       lanes (held in shared memory beside the const rows, read once a
+//       block) in registers, and the second product takes two tiles of
+//       16 product rows, each table fragment serving both.
+// The output is canonical.
 //
 // Design.  K2f, K2i and the class tables are block-diagonal over the
 // n2-blocks of a tile (1/4 of a dense tile at qtesla-iii-speed, k = 4): the
@@ -28,7 +37,8 @@
 //     the same K2i block) and after that one barrier its warps never meet
 //     again;
 //   - each warp walks over units of 8 batch rows of x and the same 8 of y
-//     (B12 over two units at once) and takes them through every phase on
+//     (B12 over two units at once, B13 over 32 rows of x) and takes them
+//     through every phase on
 //     its own, with __syncwarp between them: the split straight from device
 //     memory (16-byte loads, 4 a unit in flight, byte permutes at base 256)
 //     into its own planes, one product (B12 128 deep, B18 288, where the
@@ -47,9 +57,10 @@
 //     apart (compact_table_stride), so that a fragment load's eight rows
 //     spread over the banks: K2f's 128-byte rows put four on each bank;
 //   - shared memory at qtesla-iii-speed: per warp the first planes of its
-//     rows (B12 32 rows of 160 B, B18 16 of 352 B) and the p2i planes of
-//     its product rows (160 B a row), 16 warps (512 threads, one block an
-//     SM, 128 registers), the tables and 256 B of const rows.  The launcher
+//     rows (B12 and B13 32 rows of 160 B, B18 16 of 352 B) and the p2i
+//     planes of its product rows (160 B a row; B12 16, B13 32, B18 8), 16
+//     warps (512 threads, one block an SM, 128 registers), the tables and
+//     256 B of const rows (B13 also 128 B of spectrum).  The launcher
 //     gives a block as many warps as its shared memory holds, at most 16.
 // Where n2 = TW (n = 8192: one block a tile, nothing to skip) the tables do
 // not fit and the same kernel reads them through L2 (kSmemTables false), as
@@ -61,7 +72,9 @@
 // registered set but smallprime) leave no MMA of the depth loops on a
 // run-time condition.
 //
-// B12 ran as a mode of sharded_mxu.cu's sp_kernel until it took this body:
+// B12 and B13 ran as modes of sharded_mxu.cu's sp_kernel until they took
+// this body (B13: 1.2227 ms at qtesla-iii-speed, k = 4, B = 32768, the
+// same dense phases as B12's below; PERF.md).  B12's sp_kernel mode:
 // whole 128 x 128 tiles of K2f and K2i streamed from L2 once per 32-row
 // group, load, split, products and recombination barrier-separated, 2.10
 // ms at qtesla-iii-speed, k = 4, 1.53 of it products and their table reads
@@ -88,12 +101,11 @@ namespace qt {
 
 // Field for field the SpClassPlan ctypes.Structure of
 // parallel/sharded_mxu.py: sharded_mxu.cu's SpPlan, then per input plane j
-// the split of the row segment (cdin, clb, cadd) and the bias B17 stores
-// (cls_b).  Digit plan 1 is B17's p1, or the row segment's first split
-// (din1 = sum_j cdin[j], kp1 its dense depth or 0, kb1 its recombination
-// constant); digit plan 2 is p2i.  Last the row segment's compact layouts
-// (c1 the first table, c2 K2i) and whether its tables are held in shared
-// memory; B17 leaves them 0.
+// the split of the row segment (cdin, clb, cadd).  Digit plan 1 is the row
+// segment's first split (din1 = sum_j cdin[j], kp1 0, kb1 its
+// recombination constant); digit plan 2 is p2i (kp2 0).  Last the compact
+// layouts (c1 the first table, c2 K2i) and whether the tables are held in
+// shared memory.
 struct SpClassPlan {
     int32_t nloc, lnloc, tw, a, lr, logm, llanes, d, rows;
     uint32_t q, r32, r32_sh, one_sh;
@@ -103,12 +115,16 @@ struct SpClassPlan {
     int32_t din2, lb2, kp2;
     uint32_t add2, kb2;
     int32_t cdin[3], clb[3];
-    uint32_t cadd[3], cls_b[3];
+    uint32_t cadd[3];
     CompactDims c1, c2;
     int32_t smem_tables;
 };
 
 namespace seg2 {
+
+// What seg2_compact_kernel runs, numbered so that the instantiation names
+// utils/sass_diff.py matches across trees keep B12 at 0 and B18 at 1.
+enum Mode : int { kPair = 0, kClassPlanes = 1, kSpectrum = 2 };
 
 constexpr int kWarpRows = 8;      // batch rows of x and of y a warp works on
 constexpr int kMaxWarps = 16;     // warps a block runs at most
@@ -125,30 +141,43 @@ __host__ __device__ constexpr int pass_tiles(int slots) {
 // Units of 8 rows of x and 8 of y a warp takes at once: B12 two, so that
 // its second product's m16 tile holds 16 live rows and each table fragment
 // of the first serves two tiles; B18 one, its class planes leaving no room
-// for two.
-__host__ __device__ constexpr int units_of(bool classes) {
-    return classes ? 1 : 2;
+// for two.  B13 takes the rows of two such units from x alone: 32.
+__host__ __device__ constexpr int units_of(int mode) {
+    return mode == kClassPlanes ? 1 : 2;
 }
 
-// Shared memory one warp takes: the first planes of its rows of x and of y
-// (p.rows) and the p2i planes of its product rows.
-inline size_t warp_smem(const SpClassPlan& p) {
+// Batch rows a warp takes at once, and its product rows: half its planes
+// rows (x's, beside y's), or all of them (B13).
+__host__ __device__ constexpr int batch_rows(int mode, int rows) {
+    return mode == kSpectrum ? rows : rows / 2;
+}
+
+// Rows of s lanes the block holds beside its planes: the first table's
+// const row and K2i's, and B13's spectrum.
+__host__ __device__ constexpr int const_rows(int mode) {
+    return mode == kSpectrum ? 3 : 2;
+}
+
+// Shared memory one warp takes: the first planes of its rows (p.rows) and
+// the p2i planes of its product rows.
+inline size_t warp_smem(const SpClassPlan& p, int mode) {
     return p.rows * compact_row_stride(1, p.c1.kp) +
-           p.rows / 2 * compact_row_stride(1, p.c2.kp);
+           batch_rows(mode, p.rows) * compact_row_stride(1, p.c2.kp);
 }
 
-// What the block's warps share: the two const rows of its n2-block and,
-// where they fit, its tables, rows compact_table_stride apart.
-inline size_t shared_smem(const SpClassPlan& p) {
+// What the block's warps share: the const rows of its n2-block (and B13's
+// spectrum) and, where they fit, its tables, rows compact_table_stride
+// apart.
+inline size_t shared_smem(const SpClassPlan& p, int mode) {
     const size_t s = static_cast<size_t>(1) << p.c1.ls;
-    return 2 * s * sizeof(uint32_t) +
+    return const_rows(mode) * s * sizeof(uint32_t) +
            (p.smem_tables ? p.d * s *
                                 (compact_table_stride(p.c1.kp) +
                                  compact_table_stride(p.c2.kp))
                           : 0);
 }
 
-template <bool kClasses, bool kSmemTables, int kSlots, bool kFull>
+template <int kMode, bool kSmemTables, int kSlots, bool kFull>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     seg2_compact_kernel(const uint32_t* __restrict__ x,
                         const uint32_t* __restrict__ y,
@@ -158,8 +187,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                         const int8_t* __restrict__ w2,
                         const uint32_t* __restrict__ c2, long long batch,
                         const __grid_constant__ SpClassPlan p) {
-    constexpr int kU = units_of(kClasses);
+    constexpr bool kClasses = kMode == kClassPlanes;
+    constexpr bool kFixed = kMode == kSpectrum;
+    constexpr int kU = units_of(kMode);
     constexpr int kRows = kU * kWarpRows;          // x rows a warp takes
+    // batch rows a warp takes at once, and its product rows (B13: 2 kRows,
+    // its planes rows all x's)
+    constexpr int kBatch = batch_rows(kMode, 2 * kRows);
+    constexpr int kConst = const_rows(kMode);
     // output tiles of a pass: the second product's, and the first's, whose
     // kU m16 tiles share each table fragment
     constexpr int kPass2 = pass_tiles(kSlots), kPass1 = kPass2 / kU;
@@ -178,10 +213,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     const int col = blockIdx.y, shard = blockIdx.z;
     const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-    // shared memory: the const rows, each warp's planes, the tables
+    // shared memory: the const rows (B13: then the spectrum's lanes), each
+    // warp's planes, the tables
     uint32_t* cst = smem;
-    int8_t* planes1 = reinterpret_cast<int8_t*>(cst + 2 * s) +
-                      warp * (2 * kRows * ks1 + kRows * ks2);
+    int8_t* planes1 = reinterpret_cast<int8_t*>(cst + kConst * s) +
+                      warp * (2 * kRows * ks1 + kBatch * ks2);
     int8_t* planes2 = planes1 + 2 * kRows * ks1;
     // this n2-block's tables and const rows: B18's class block is one for
     // all and its const rows the shard's (a, tw); B12's K2f block is the
@@ -201,9 +237,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                    kClasses ? c1 + lanes0 : c1 + ((col << ls) & (p.tw - 1)),
                    s * sizeof(uint32_t));
     cp_async_bytes(cst + s, c2 + lanes0, s * sizeof(uint32_t));
+    // B13's y is the spectrum, one row (nloc) a shard
+    if (kFixed) cp_async_bytes(cst + 2 * s, y + lanes0, s * sizeof(uint32_t));
     if (kSmemTables) {
-        int8_t* wsm = reinterpret_cast<int8_t*>(cst + 2 * s) +
-                      nwarps * (2 * kRows * ks1 + kRows * ks2);
+        int8_t* wsm = reinterpret_cast<int8_t*>(cst + kConst * s) +
+                      nwarps * (2 * kRows * ks1 + kBatch * ks2);
         cp_async_rows(wsm, ts1, wa, ca.kp, d << ls);
         cp_async_rows(wsm + (d << ls) * ts1, ts2, wb, cb.kp, d << ls);
         wa = wsm;
@@ -220,30 +258,33 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
     const int ntiles = s >> 3;
     const int words = (2 * kRows * nin) << (ls - 2);
-    const long long units = (batch + kRows - 1) / kRows;
+    const long long units = (batch + kBatch - 1) / kBatch;
     for (long long u = static_cast<long long>(blockIdx.x) * nwarps + warp;
          u < units; u += static_cast<long long>(gridDim.x) * nwarps) {
-        const long long row0 = u * kRows;
-        const int live = batch - row0 < kRows ? static_cast<int>(batch - row0)
-                                              : kRows;
+        const long long row0 = u * kBatch;
+        const int live = batch - row0 < kBatch
+                             ? static_cast<int>(batch - row0)
+                             : kBatch;
         const size_t base =
             (static_cast<size_t>(shard) * batch + row0) * wide + (col << ls);
 
         // The split, straight from device memory: word idx is 4 lanes of
         // planes row R of input plane j, j the same in all lanes of the
         // warp.  Row R of tile h = R >> 4 holds x's row 8h + (R & 7) below
-        // 8 and y's above (zero past the batch); 4 kU loads in flight.
+        // 8 and y's above (B13: x's row R; zero past the batch); 4 kU loads
+        // in flight.
         for (int idx0 = lane; idx0 < words; idx0 += 4 * kU * 32) {
             uint4 v[4 * kU];
 #pragma unroll
             for (int t = 0; t < 4 * kU; ++t) {
                 const int idx = idx0 + 32 * t, seg = idx >> (ls - 2);
                 const int R = seg & (2 * kRows - 1), j = seg / (2 * kRows);
-                const int r = ((R >> 4) << 3) | (R & (kWarpRows - 1));
+                const int r =
+                    kFixed ? R : ((R >> 4) << 3) | (R & (kWarpRows - 1));
                 v[t] = make_uint4(0, 0, 0, 0);
                 if (idx < words && r < live)
                     v[t] = __ldg(reinterpret_cast<const uint4*>(
-                        (R & kWarpRows ? y : x) + base +
+                        (!kFixed && (R & kWarpRows) ? y : x) + base +
                         static_cast<size_t>(r) * wide + j * nloc +
                         4 * (idx & ((s >> 2) - 1))));
             }
@@ -273,7 +314,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         // the kU m16 tiles.  In tile h accumulators 0, 1 are x's row 8h + g
         // and 2, 3 y's row 8h + g at the same two lanes: both are
         // recombined, multiplied and split under p2i in registers, into
-        // product row 8h + g.
+        // product row 8h + g.  B13's are x's rows 16h + g and 16h + 8 + g,
+        // each multiplied by the spectrum into the product row of its own.
         for (int nt0 = 0; nt0 < ntiles; nt0 += kPass1) {
             int acc[kU][kPass1][kSlots][4];
 #pragma unroll
@@ -313,6 +355,33 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 const int h = ht / kPass1, t = ht % kPass1;
                 if (!kFull && nt0 + t >= ntiles) continue;
                 const int l0 = (nt0 + t) * 8 + tig * 2;
+                if constexpr (kFixed) {
+                    int32_t zf[2][2];
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const uint32_t start = cst[l0 + c] + p.kb1;
+                        const uint32_t a = cst[2 * s + l0 + c];
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const uint32_t v =
+                                recombine_value(start, d, p, [&](int j) {
+                                    return acc[h][t][j][2 * e + c];
+                                });
+                            zf[e][c] = static_cast<int32_t>(
+                                mulmod_barrett(v, a, m) + p.add2);
+                        }
+                    }
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int row = (2 * h + e) * kWarpRows + g;
+                        uint16_t* pr = reinterpret_cast<uint16_t*>(
+                            planes2 + row * ks2 + l0);
+                        for (int i = 0; i < p.din2; ++i)
+                            pr[i << (ls - 1)] = pack_pair(
+                                zf[e][0], zf[e][1], i, p.lb2, i == p.din2 - 1);
+                    }
+                    continue;
+                }
                 int32_t zz[2];
 #pragma unroll
                 for (int c = 0; c < 2; ++c) {
@@ -336,11 +405,75 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         }
         __syncwarp();
 
-        // The n2-block's inverse rows on the kRows product rows (with one
+        // The n2-block's inverse rows on the kBatch product rows (with one
         // unit the MMA's rows 8-15 are zero), straight to device memory.
         uint32_t* zrow = z + (static_cast<size_t>(shard) * batch + row0) *
                                  static_cast<size_t>(nloc) +
                          (col << ls);
+        if constexpr (kFixed) {
+            // B13: two m16 tiles of product rows, kU as in the first
+            // product, each table fragment serving both
+            for (int nt0 = 0; nt0 < ntiles; nt0 += kPass1) {
+                int acc[kU][kPass1][kSlots][4];
+#pragma unroll
+                for (int h = 0; h < kU; ++h)
+#pragma unroll
+                    for (int t = 0; t < kPass1; ++t)
+#pragma unroll
+                        for (int j = 0; j < kSlots; ++j)
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) acc[h][t][j][e] = 0;
+                const int8_t* pa = planes2 + g * ks2 + tig * 8;
+                const int8_t* pb = wb + (nt0 * 8 + g) * ts2 + tig * 8;
+#pragma unroll(kDepthUnroll)
+                for (int k2 = 0; k2 < cb.kp; k2 += 32) {
+                    uint2 a_lo[kU], a_hi[kU];
+#pragma unroll
+                    for (int h = 0; h < kU; ++h) {
+                        a_lo[h] = *reinterpret_cast<const uint2*>(
+                            pa + 2 * h * kWarpRows * ks2 + k2);
+                        a_hi[h] = *reinterpret_cast<const uint2*>(
+                            pa + (2 * h + 1) * kWarpRows * ks2 + k2);
+                    }
+#pragma unroll
+                    for (int t = 0; t < kPass1; ++t)
+#pragma unroll
+                        for (int j = 0; j < kSlots; ++j)
+                            if (kFull || (nt0 + t < ntiles && j < d)) {
+                                const uint2 bf = table_fragment<kSmemTables>(
+                                    pb + ((j << ls) + t * 8) * ts2 + k2);
+#pragma unroll
+                                for (int h = 0; h < kU; ++h)
+                                    mma_s8(acc[h][t][j], a_lo[h], a_hi[h],
+                                           bf);
+                            }
+                }
+#pragma unroll
+                for (int t = 0; t < kPass1; ++t) {
+                    if (!kFull && nt0 + t >= ntiles) break;
+                    const int l0 = (nt0 + t) * 8 + tig * 2;
+#pragma unroll
+                    for (int he = 0; he < 2 * kU; ++he) {
+                        const int h = he >> 1, e = he & 1;
+                        uint32_t out[2];
+#pragma unroll
+                        for (int c = 0; c < 2; ++c)
+                            out[c] = recombine_value(
+                                cst[s + l0 + c] + p.kb2, d, p, [&](int j) {
+                                    return acc[h][t][j][2 * e + c];
+                                });
+                        const int r = he * kWarpRows + g;
+                        if (r < live)
+                            *reinterpret_cast<uint2*>(
+                                zrow + static_cast<size_t>(r) * nloc + l0) =
+                                make_uint2(out[0], out[1]);
+                    }
+                }
+            }
+            // the next unit's split writes planes this one's products read
+            __syncwarp();
+            continue;
+        }
         for (int nt0 = 0; nt0 < ntiles; nt0 += kPass2) {
             int acc[kPass2][kSlots][4];
 #pragma unroll
@@ -416,12 +549,12 @@ inline bool valid_compact(const CompactDims& c, int planes, int tw) {
            c.kp < (planes << c.ls) + 32;
 }
 
-template <bool kClasses, bool kSmemTables, int kSlots, bool kFull>
+template <int kMode, bool kSmemTables, int kSlots, bool kFull>
 int run(const void* a, const void* b, void* out, const void* w1,
         const void* c1, const void* w2, const void* c2, long long batch,
         int k_local, int warps, size_t smem, const SpClassPlan& p,
         void* stream) {
-    auto kernel = seg2_compact_kernel<kClasses, kSmemTables, kSlots, kFull>;
+    auto kernel = seg2_compact_kernel<kMode, kSmemTables, kSlots, kFull>;
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -432,7 +565,8 @@ int run(const void* a, const void* b, void* out, const void* w1,
     if (const int err = resident_blocks(kernel, warps * 32, smem, &resident))
         return err;
     const int cols = p.nloc >> p.c1.ls;
-    const long long units = (batch + p.rows / 2 - 1) / (p.rows / 2);
+    const int rows = batch_rows(kMode, p.rows);
+    const long long units = (batch + rows - 1) / rows;
     long long walkers = resident / (cols * k_local);
     const long long most = (units + warps - 1) / warps;
     walkers = walkers < 1 ? 1 : walkers > most ? most : walkers;
@@ -447,41 +581,44 @@ int run(const void* a, const void* b, void* out, const void* w1,
 }
 
 // kFull where the class count fills the slots and the tiles the passes:
-// three classes for both segments, four for B12 (the p-sets); any other
-// plan takes the instantiation with run-time conditions
-template <bool kClasses, bool kSmemTables>
+// three classes for every mode, four for B12 and B13 (the p-sets); any
+// other plan takes the instantiation with run-time conditions
+template <int kMode, bool kSmemTables>
 int run_route(const void* a, const void* b, void* out, const void* w1,
               const void* c1, const void* w2, const void* c2,
               long long batch, int k_local, int warps, size_t smem,
               const SpClassPlan& p, void* stream) {
-    constexpr int kSlots = kClasses ? kClassSlots : kDigitSlots;
+    constexpr int kSlots = kMode == kClassPlanes ? kClassSlots : kDigitSlots;
     const int ntiles = (1 << p.c1.ls) >> 3;
     if (p.d == 3 && ntiles % pass_tiles(3) == 0)
-        return run<kClasses, kSmemTables, 3, true>(
+        return run<kMode, kSmemTables, 3, true>(
             a, b, out, w1, c1, w2, c2, batch, k_local, warps, smem, p, stream);
     if constexpr (kSlots == 4) {
         if (p.d == 4 && ntiles % pass_tiles(4) == 0)
-            return run<kClasses, kSmemTables, 4, true>(
+            return run<kMode, kSmemTables, 4, true>(
                 a, b, out, w1, c1, w2, c2, batch, k_local, warps, smem, p,
                 stream);
     }
-    return run<kClasses, kSmemTables, kSlots, false>(
+    return run<kMode, kSmemTables, kSlots, false>(
         a, b, out, w1, c1, w2, c2, batch, k_local, warps, smem, p, stream);
 }
 
-// The row segment's launcher: B12 (kClasses false; w1 the compact K2f, c1
-// its (tw) const row) or B18 (w1 the class tables' one block, c1 the shard
-// slice of their const rows); w2 and c2 the shard slices of the compact K2i
-// and its const rows.
-template <bool kClasses>
+// The row segment's launcher: B12 (kPair; w1 the compact K2f, c1 its (tw)
+// const row), B13 (kSpectrum; the same, b the spectrum rows (S, nloc)) or
+// B18 (kClassPlanes; w1 the class tables' one block, c1 the shard slice of
+// their const rows); w2 and c2 the shard slices of the compact K2i and its
+// const rows.  A plan outside the kernel's range is refused, never run.
+template <int kMode>
 int launch(const void* a, const void* b, void* out, const void* w1,
            const void* c1, const void* w2, const void* c2, long long batch,
            int k_local, const void* plan, void* stream) {
+    constexpr bool kClasses = kMode == kClassPlanes;
     const SpClassPlan p = *static_cast<const SpClassPlan*>(plan);
     const int slots = kClasses ? kClassSlots : kDigitSlots;
     bool ok = valid_shape(p, 2, batch, k_local, slots) &&
-              p.rows == 2 * kWarpRows * units_of(kClasses);
-    // the input planes: B18's classes, each split on its own, or B12's one
+              p.rows == 2 * kWarpRows * units_of(kMode);
+    // the input planes: B18's classes, each split on its own, or B12's and
+    // B13's one
     const int nin = kClasses ? p.d : 1;
     int sum = 0;
     for (int j = 0; ok && j < 3; ++j) {
@@ -494,14 +631,14 @@ int launch(const void* a, const void* b, void* out, const void* w1,
          (p.nloc >> p.c1.ls) <= 65535;
     if (!ok) return cudaErrorInvalidValue;
     // as many warps a block as its shared memory holds, at most kMaxWarps
-    const size_t shared = shared_smem(p), warp = warp_smem(p);
+    const size_t shared = shared_smem(p, kMode), warp = warp_smem(p, kMode);
     if (shared + warp + kBlockReserve > kSmShared)
         return cudaErrorInvalidValue;
     const size_t fit = (kSmShared - kBlockReserve - shared) / warp;
     const int warps = fit < kMaxWarps ? static_cast<int>(fit) : kMaxWarps;
     const size_t smem = shared + warps * warp;
-    auto route = p.smem_tables ? run_route<kClasses, true>
-                               : run_route<kClasses, false>;
+    auto route = p.smem_tables ? run_route<kMode, true>
+                               : run_route<kMode, false>;
     return route(a, b, out, w1, c1, w2, c2, batch, k_local, warps, smem, p,
                  stream);
 }

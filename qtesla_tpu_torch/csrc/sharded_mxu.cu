@@ -29,29 +29,32 @@
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
 // The wide stages and the dense block matmul are mxu_block.cuh's, shared
-// with B6-B8; B11, B12 and B16 multiply through mxu_compact.cuh.  Every
+// with B7; B11-B13, B16 and B17 multiply through mxu_compact.cuh.  Every
 // output is canonical, and canonical inputs lie below every plan's split
 // bound, so the JAX plans' split parameters serve unchanged; the TPU
 // kernel's lazy hand-offs between segments are not replayed.
 //
-// Design of B12.  seg2_compact.cuh's seg2_compact_kernel, the body B18
-// runs too (kClasses false: one input plane a value, split under p2f, and
-// K2f's block of this n2-block's place in the tile): K2f's and K2i's
-// nonzero blocks alone (SpDeviceTables.w2fc, .w2ic), a persistent grid of
-// (walkers, n2-blocks, shard) with each block's tables in shared memory
-// (through L2 at n = 8192), each warp taking 8 rows of x and 8 of y
-// through both products with no block barrier.  That header keeps the
-// design.  B12 ran as a mode of sp_kernel below until it took that body.
+// Design of B12 and B13.  seg2_compact.cuh's seg2_compact_kernel, the body
+// B18 runs too (modes kPair and kSpectrum: one input plane a value, split
+// under p2f, and K2f's block of this n2-block's place in the tile): K2f's
+// and K2i's nonzero blocks alone (SpDeviceTables.w2fc, .w2ic), a
+// persistent grid of (walkers, n2-blocks, shard) with each block's tables
+// in shared memory (through L2 at n = 8192), each warp taking 16 rows of x
+// and 16 of y (B13: 32 of x, and its shard's spectrum lanes read once a
+// block) through both products with no block barrier.  A rank of a
+// multi-process run launches it with k_local = 1 and its own table slice.
+// That header keeps the design.  B12 and B13 ran as modes of sp_kernel
+// below until they took that body (B13: 1.2227 ms at qtesla-iii-speed,
+// k = 4, PERF.md).
 //
-// Design of B13-B15.  One launch covers the k_local stacked shards
+// Design of B14 and B15.  One launch covers the k_local stacked shards
 // (k_local, B, nloc) of a call: grid (row groups, shard), each shard's
 // tables found by offset (K2f and its const row are one table for every
 // shard).  A rank of a multi-process run launches the same kernel with
 // k_local = 1 and its own table slice.  A block holds `rows` rows (at most
-// 32) in shared memory for the whole segment, loaded with cp.async; B13
-// holds 32 x rows and its shard's spectrum row (read once a block, no batch
-// stride); at nloc = 256 that is 32 KiB of rows plus 17 KiB of digit
-// planes, so four blocks fit an SM (B5's 148 KB block allows one).
+// 32) in shared memory for the whole segment, loaded with cp.async; at
+// nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so four
+// blocks fit an SM (B5's 148 KB block allows one).
 // The launch keeps 16 warps on an SM whatever the row length: four blocks
 // of 128 threads where four fit, else two of 256, else one of 512, each
 // with __launch_bounds__ keeping the registers for that many, so one
@@ -61,14 +64,16 @@
 // 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
 // two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
 // TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.  B13-B15 multiply whole TW x TW
+// zero table columns and zero planes.  B14 and B15 multiply whole TW x TW
 // tiles against tables streamed from L2 once per row group, and run load,
 // split, products and recombination as barrier-separated phases; no TMA
 // and no wgmma.
 //
-// Design of B11 and B16 (column_compact_kernel, one body, the direction a
-// template parameter: B11 runs the forward wide stages, then the products;
-// B16 the products, then the inverse wide stages).  K1 and K3 are both
+// Design of B11, B16 and B17 (column_compact_kernel, one body, the
+// direction a template parameter: B11 runs the forward wide stages, then
+// the products; B16 the products, then the inverse wide stages; B17 B11's
+// stages and products, then stores the raw class sums: sharded_classes.cu
+// keeps its design note).  K1 and K3 are both
 // kron(M, I_n2k): they couple only lanes of equal lambda, so in
 // lambda-major order a tile is n2k diagonal blocks of Bk lanes (1/8 of a
 // dense tile at qtesla-iii-speed, k = 4), and the planner hands over those
@@ -96,6 +101,7 @@
 //     compact blocks through L2 (kSmemTables false);
 //     parallel/sharded_mxu.py seg1_compact_plan and seg3_compact_plan pick
 //     the rows and the route, the launcher checks them.
+// B17 stages its class sums where the const rows lie and copies them out.
 // B16 ran as a mode of sp_kernel until it took this design: dense 512-deep
 // products against K3 streamed from L2 once per 32-row group, then the
 // inverse wide stages, 0.69 ms at qtesla-iii-speed, k = 4 (PERF.md).
@@ -111,7 +117,8 @@
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; B13-B15 multiply whole tiles all the same):
+// over n2-blocks, n2/TW = 1/4; B14 and B15 multiply whole tiles all the
+// same):
 //   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
@@ -122,9 +129,9 @@
 // The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
-// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan; B12:
-// an SpClassPlan) and a stream, launches without synchronising and returns
-// cudaGetLastError().
+// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan; B12,
+// B13: an SpClassPlan) and a stream, launches without synchronising and
+// returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -143,8 +150,6 @@ using qt::cp_async_wait_all;
 using qt::kMaxClasses;
 using qt::kMaxRows;
 using qt::kPad;
-using qt::Mod;
-using qt::mulmod_barrett;
 
 // Field for field the SpPlan ctypes.Structure of parallel/sharded_mxu.py.
 // Digit plan 1 is seg1's p1, seg2's p2f (shared) or seg3's p3; digit plan 2
@@ -165,34 +170,21 @@ constexpr int kSmThreads = 512;
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
 // the row segments, numbered so that sp_kernel<seg,threads> keeps the
-// instantiation names utils/sass_diff.py matches across trees (B11 and B16
-// are column_compact_kernel below, B12 seg2_compact.cuh's
+// instantiation names utils/sass_diff.py matches across trees (B11, B16 and
+// B17 are column_compact_kernel below, B12 and B13 seg2_compact.cuh's
 // seg2_compact_kernel)
-enum Seg { kSeg2Fixed = 3, kSeg2Fwd, kSeg2Folded };
-
-// whether a segment has a digit plan 2
-__host__ __device__ constexpr bool two_plans(int seg) {
-    return seg == kSeg2Fixed;
-}
-// B13 keeps its shard's spectrum row after the x rows
-__host__ __device__ constexpr int spec_rows(int seg) {
-    return seg == kSeg2Fixed ? 1 : 0;
-}
+enum Seg { kSeg2Fwd = 4, kSeg2Folded };
 
 template <int SEG, int THREADS>
 __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
-    sp_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-              uint32_t* __restrict__ z, const int8_t* __restrict__ w1,
-              const uint32_t* __restrict__ c1, const int8_t* __restrict__ w2,
-              const uint32_t* __restrict__ c2,
-              const uint32_t* __restrict__ tw, long long batch,
-              const __grid_constant__ SpPlan p) {
+    sp_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ z,
+              const int8_t* __restrict__ w1, const uint32_t* __restrict__ c1,
+              long long batch, const __grid_constant__ SpPlan p) {
     extern __shared__ __align__(16) uint32_t smem[];
     const int nloc = p.nloc, tb = p.rows;
     const int ks = (p.kp1 > p.kp2 ? p.kp1 : p.kp2) + kPad;
     uint32_t* data = smem;
-    int8_t* planes = reinterpret_cast<int8_t*>(
-        smem + (p.rows + spec_rows(SEG)) * nloc);
+    int8_t* planes = reinterpret_cast<int8_t*>(smem + p.rows * nloc);
     const int shard = blockIdx.y;
     const long long row0 = static_cast<long long>(blockIdx.x) * tb;
     const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
@@ -200,7 +192,6 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         (static_cast<size_t>(shard) * batch + row0) * static_cast<size_t>(nloc);
     // one shard's tables: a tiles of (d * tw, kp) int8 and (tw) const
     const size_t tile1 = static_cast<size_t>(p.d) * p.tw * p.kp1;
-    const size_t tile2 = static_cast<size_t>(p.d) * p.tw * p.kp2;
     const size_t cshard = static_cast<size_t>(p.a) * p.tw;
     const int8_t* w1_shard = w1 + shard * p.a * tile1;
     const uint32_t* c1_shard = c1 + shard * cshard;
@@ -211,31 +202,13 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         const bool ok = (c >> p.lnloc) < live;
         cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
     }
-    if (SEG == kSeg2Fixed)
-        for (int c = threadIdx.x * 4; c < nloc; c += blockDim.x * 4)
-            cp_async16(data + tb * nloc + c,
-                       y + static_cast<size_t>(shard) * nloc + c, 16);
     cp_async_wait_all();
     __syncthreads();
 
-    if (SEG == kSeg2Fixed || SEG == kSeg2Fwd) {
+    if (SEG == kSeg2Fwd) {
         // the rows through the one shared forward table
         block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
                      c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
-    }
-    if (SEG == kSeg2Fixed) {
-        // the pointwise product against the one spectrum row (index within
-        // the row), then the shard's inverse rows
-        const Mod m{p.q, p.r32, p.r32_sh, p.one_sh};
-        const uint32_t* other = data + tb * nloc;
-        const int mask = nloc - 1;
-        for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
-            data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
-        __syncthreads();
-        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks,
-                     w2 + shard * p.a * tile2, tile2, p.kp2,
-                     c2 + shard * cshard, p.tw, p.din2, p.lb2, p.add2, p.kb2,
-                     p);
     }
     if (SEG == kSeg2Folded)
         block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
@@ -254,8 +227,7 @@ bool valid_depth(int din, int kp, int tw) {
 
 // One launch of sp_kernel<SEG, THREADS> with `smem` bytes a block.
 template <int SEG, int THREADS>
-int run(const void* a, const void* b, void* out, const void* w1,
-        const void* c1, const void* w2, const void* c2, const void* tw,
+int run(const void* a, void* out, const void* w1, const void* c1,
         long long batch, long long blocks, int k_local, size_t smem,
         const SpPlan& p, void* stream) {
     if (smem > 48 * 1024) {
@@ -269,17 +241,16 @@ int run(const void* a, const void* b, void* out, const void* w1,
                                    static_cast<unsigned>(k_local)),
                               THREADS, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), static_cast<const int8_t*>(w1),
-        static_cast<const uint32_t*>(c1), static_cast<const int8_t*>(w2),
-        static_cast<const uint32_t*>(c2), static_cast<const uint32_t*>(tw),
+        static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
+        static_cast<const int8_t*>(w1), static_cast<const uint32_t*>(c1),
         batch, p);
     return cudaGetLastError();
 }
 
+// B14 and B15: w1 and c1 the one K2f table and its const row (B14) or the
+// shard slices of the constant's folded tables and const rows (B15)
 template <int SEG>
-int launch(const void* a, const void* b, void* out, const void* w1,
-           const void* c1, const void* w2, const void* c2, const void* tw,
+int launch(const void* a, void* out, const void* w1, const void* c1,
            long long batch, int k_local, const void* plan, void* stream) {
     const SpPlan p = *static_cast<const SpPlan*>(plan);
     const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
@@ -287,60 +258,81 @@ int launch(const void* a, const void* b, void* out, const void* w1,
         p.d > kMaxClasses || !pow2_tw || p.nloc != 1 << p.lnloc ||
         p.a * p.tw != p.nloc || p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
         (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
-        !valid_depth(p.din1, p.kp1, p.tw) ||
-        (two_plans(SEG) ? !valid_depth(p.din2, p.kp2, p.tw) : p.kp2 != 0))
+        !valid_depth(p.din1, p.kp1, p.tw) || p.kp2 != 0)
         return cudaErrorInvalidValue;
     const long long blocks = (batch + p.rows - 1) / p.rows;
     if (batch <= 0 || blocks >= (1LL << 31) || k_local < 1 ||
         k_local > 65535)
         return cudaErrorInvalidValue;
-    const int kmax = p.kp1 > p.kp2 ? p.kp1 : p.kp2;
     const size_t smem =
-        static_cast<size_t>(p.rows + spec_rows(SEG)) * p.nloc *
-            sizeof(uint32_t) +
-        static_cast<size_t>((p.rows + 15) / 16 * 16) * (kmax + kPad);
+        static_cast<size_t>(p.rows) * p.nloc * sizeof(uint32_t) +
+        static_cast<size_t>((p.rows + 15) / 16 * 16) * (p.kp1 + kPad);
     // blocks whose shared memory fits one SM
     const size_t fit = kSmShared / (smem + kBlockReserve);
     if (fit >= 4)
-        return run<SEG, 128>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
-                             k_local, smem, p, stream);
+        return run<SEG, 128>(a, out, w1, c1, batch, blocks, k_local, smem, p,
+                             stream);
     if (fit >= 2)
-        return run<SEG, 256>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
-                             k_local, smem, p, stream);
-    return run<SEG, 512>(a, b, out, w1, c1, w2, c2, tw, batch, blocks,
-                         k_local, smem, p, stream);
+        return run<SEG, 256>(a, out, w1, c1, batch, blocks, k_local, smem, p,
+                             stream);
+    return run<SEG, 512>(a, out, w1, c1, batch, blocks, k_local, smem, p,
+                         stream);
 }
 
 // ----------------------------------------------------------------------
-// B11 and B16 over K1's and K3's nonzero blocks (header note: design of
-// B11 and B16).
+// B11, B16 and B17 over K1's and K3's nonzero blocks (header note: design
+// of B11, B16 and B17).
 // ----------------------------------------------------------------------
 
 // Field for field the SpCompactPlan ctypes.Structure of
 // parallel/sharded_mxu.py: SpPlan's fields, the compact layout of K1 or K3
-// (c2 unused), and whether the shard's tables are held in shared memory.
+// (c2 unused), whether the shard's tables are held in shared memory, and
+// the bias B17 adds to each class sum (B11 and B16 leave it 0).
 struct SpCompactPlan : SpPlan {
     CompactDims c1, c2;
     int32_t smem_tables;
+    uint32_t cls_b[3];
 };
 
+// the directions of column_compact_kernel, numbered so that the
+// instantiation names utils/sass_diff.py matches across trees keep B11 at 0
+// and B16 at 1
+enum ColumnDir : int { kColumnFwd = 0, kColumnInv = 1, kColumnClasses = 2 };
+
+// Words after each row of B17's staged class sums: a row of TW + 2 words
+// puts the eight rows of an MMA tile's half two banks apart, so the
+// epilogue's 4-byte stores meet at most two to a bank at qtesla-iii-speed,
+// k = 4 (TW + 4 four, TW sixteen), and keeps 8-byte chunks aligned for the
+// copy out.
+constexpr int kStagePad = 2;
+
+// Words B17 stages a tile's class sums in: d planes of `rows` rows.
+__host__ __device__ inline int class_stage_words(const SpPlan& p) {
+    return p.d * p.rows * (p.tw + kStagePad);
+}
+
 // Shared memory of one column_compact_kernel block: two row buffers, the
-// shard's const rows, the digit planes of one tile, the shard's tables.
-size_t column_compact_smem(const SpCompactPlan& cp) {
+// shard's const rows (B17: its staged class sums), the digit planes of one
+// tile, the shard's tables.
+size_t column_compact_smem(const SpCompactPlan& cp, bool class_sums) {
     const SpPlan& p = cp;
     const int nblk = p.tw >> cp.c1.ls;
     const size_t tables =
         static_cast<size_t>(p.a) * p.d * p.tw * cp.c1.kp;
-    return (2 * static_cast<size_t>(p.rows) + 1) * p.nloc * sizeof(uint32_t) +
+    return (2 * static_cast<size_t>(p.rows) * p.nloc +
+            (class_sums ? class_stage_words(p) : p.nloc)) *
+               sizeof(uint32_t) +
            static_cast<size_t>((p.rows + 15) / 16 * 16) *
                qt::compact_row_stride(nblk, cp.c1.kp) +
            (cp.smem_tables ? tables : 0);
 }
 
-// The column segments: B11 (kInverse false) runs the forward wide stages,
-// then per tile the product against K1; B16 (kInverse true) per tile the
-// product against K3, then the inverse wide stages.
-template <int THREADS, bool kSmemTables, bool kInverse>
+// The column segments: B11 (kColumnFwd) runs the forward wide stages, then
+// per tile the product against K1; B16 (kColumnInv) per tile the product
+// against K3, then the inverse wide stages; B17 (kColumnClasses) B11's
+// stages and products, its raw class sums, biased, staged in shared memory
+// by lane and copied out row by row.
+template <int THREADS, bool kSmemTables, int kDir>
 __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     column_compact_kernel(const uint32_t* __restrict__ x,
                           uint32_t* __restrict__ z,
@@ -348,6 +340,8 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
                           const uint32_t* __restrict__ c1,
                           const uint32_t* __restrict__ tw, long long batch,
                           const __grid_constant__ SpCompactPlan cp) {
+    constexpr bool kInverse = kDir == kColumnInv;
+    constexpr bool kClassSums = kDir == kColumnClasses;
     extern __shared__ __align__(16) uint32_t smem[];
     const SpPlan& p = cp;
     const CompactDims& c = cp.c1;
@@ -356,7 +350,9 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     const int ks = qt::compact_row_stride(1 << lnblk, c.kp);
     const size_t tile_bytes = static_cast<size_t>(p.d) * p.tw * c.kp;
     uint32_t* cst = smem + 2 * tb * nloc;      // after the two row buffers
-    int8_t* planes = reinterpret_cast<int8_t*>(cst + nloc);
+    // B17 stages its class sums where the others keep their const rows
+    int8_t* planes = reinterpret_cast<int8_t*>(
+        cst + (kClassSums ? class_stage_words(p) : nloc));
     const int shard = blockIdx.y;
     const int8_t* wt = wc + shard * p.a * tile_bytes;
     const long long groups = (batch + tb - 1) / tb;
@@ -375,9 +371,11 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         }
     };
 
-    // once a block: the shard's const rows and, where they fit, its tables
-    qt::cp_async_bytes(cst, c1 + static_cast<size_t>(shard) * nloc,
-                       nloc * sizeof(uint32_t));
+    // once a block: the shard's const rows (B17 has none) and, where they
+    // fit, its tables
+    if (!kClassSums)
+        qt::cp_async_bytes(cst, c1 + static_cast<size_t>(shard) * nloc,
+                           nloc * sizeof(uint32_t));
     if (kSmemTables) {
         int8_t* wsm = planes + ((tb + 15) / 16 * 16) * ks;
         qt::cp_async_bytes(wsm, wt, p.a * tile_bytes);
@@ -401,6 +399,48 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
             qt::split_compact(tile, tb, nloc, ltw, planes, ks, c, 0, p.din1,
                               p.lb1, p.add1);
             __syncthreads();
+            if constexpr (kClassSums) {
+                // class j of row r at cst[(j * tb + r) * ss + lane]
+                const int ss = p.tw + kStagePad;
+                qt::mma_compact<kSmemTables>(
+                    planes, tb, ks, wt + t * tile_bytes, lnblk, c, p.d,
+                    [&](int mm, int lt, const int (&acc)[kMaxClasses][4]) {
+                        const int d = qt::warp_uniform(p.d);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int r = qt::tile_row(mm, e);
+                            const int l =
+                                qt::compact_lane(qt::tile_lane(lt, e), c);
+#pragma unroll
+                            for (int j = 0; j < 3; ++j)
+                                if (j < d && r < tb)
+                                    cst[(j * tb + r) * ss + l] =
+                                        static_cast<uint32_t>(acc[j][e]) +
+                                        cp.cls_b[j];
+                        }
+                    });
+                __syncthreads();
+                // the staged rows out, 8 bytes a thread, a warp's stores
+                // whole 256-byte runs of a row of Dout planes of nloc
+                // values; the next tile's split barrier sees these reads
+                // off before its epilogue stages again
+                const size_t wide = static_cast<size_t>(p.d) * nloc;
+                const long long row0 = rg * tb;
+                const int live =
+                    batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
+                uint32_t* dst =
+                    z + (static_cast<size_t>(shard) * batch + row0) * wide +
+                    t * p.tw;
+                const int lch = ltw - 1;        // 8-byte chunks of a row
+                for (int j = 0; j < p.d; ++j)
+                    for (int i = threadIdx.x; i < live << lch; i += THREADS) {
+                        const int r = i >> lch, w = (i & ((1 << lch) - 1)) * 2;
+                        *reinterpret_cast<uint2*>(dst + r * wide + j * nloc +
+                                                  w) =
+                            *reinterpret_cast<const uint2*>(
+                                cst + (j * tb + r) * ss + w);
+                    }
+            } else {
             const uint32_t* cb = cst + t * p.tw;
             qt::mma_compact<kSmemTables>(
                 planes, tb, ks, wt + t * tile_bytes, lnblk, c, p.d,
@@ -409,8 +449,10 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
                                           p.kb1, c, p);
                 });
             __syncthreads();
+            }
         }
         if (kInverse) qt::inv_wide(data, tb, p.logm, p.llanes, p.lr, tw, p.q);
+        if constexpr (!kClassSums) {
         const long long row0 = rg * tb;
         const int live =
             batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
@@ -419,16 +461,17 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         for (int i = threadIdx.x * 4; i < live * nloc; i += THREADS * 4)
             *reinterpret_cast<uint4*>(dst + i) =
                 *reinterpret_cast<const uint4*>(data + i);
+        }
     }
     cp_async_wait_all();
 }
 
-template <int THREADS, bool kSmemTables, bool kInverse>
+template <int THREADS, bool kSmemTables, int kDir>
 int run_column_compact(const void* a, void* out, const void* w,
                        const void* c1, const void* tw, long long batch,
                        int k_local, size_t smem, const SpCompactPlan& cp,
                        void* stream) {
-    auto kernel = column_compact_kernel<THREADS, kSmemTables, kInverse>;
+    auto kernel = column_compact_kernel<THREADS, kSmemTables, kDir>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -448,7 +491,8 @@ int run_column_compact(const void* a, void* out, const void* w,
     return cudaGetLastError();
 }
 
-template <bool kInverse>
+// A plan outside the kernel's range is refused, never run.
+template <int kDir>
 int launch_column_compact(const void* a, void* out, const void* w,
                           const void* c1, const void* tw, long long batch,
                           int k_local, const void* plan, void* stream) {
@@ -467,29 +511,44 @@ int launch_column_compact(const void* a, void* out, const void* w,
         c.kp >= (p.din1 << c.ls) + 32 || batch <= 0 || k_local < 1 ||
         k_local > 65535)
         return cudaErrorInvalidValue;
-    const size_t smem = column_compact_smem(cp);
+    // B17: at most 3 classes
+    if (kDir == kColumnClasses && p.d > 3) return cudaErrorInvalidValue;
+    const size_t smem = column_compact_smem(cp, kDir == kColumnClasses);
     if (smem + kBlockReserve > kSmShared) return cudaErrorInvalidValue;
     const bool two = 2 * (smem + kBlockReserve) <= kSmShared;
     if (cp.smem_tables)
-        return two ? run_column_compact<256, true, kInverse>(
+        return two ? run_column_compact<256, true, kDir>(
                          a, out, w, c1, tw, batch, k_local, smem, cp, stream)
-                   : run_column_compact<512, true, kInverse>(
+                   : run_column_compact<512, true, kDir>(
                          a, out, w, c1, tw, batch, k_local, smem, cp, stream);
-    return two ? run_column_compact<256, false, kInverse>(
+    return two ? run_column_compact<256, false, kDir>(
                      a, out, w, c1, tw, batch, k_local, smem, cp, stream)
-               : run_column_compact<512, false, kInverse>(
+               : run_column_compact<512, false, kDir>(
                      a, out, w, c1, tw, batch, k_local, smem, cp, stream);
 }
 
 }  // namespace
 
+namespace qt {
+
+// B17's launcher, which sharded_classes.cu's qt_sp_seg1_classes calls: w
+// the shard slice of the compact K1 (tabs.w1c), plan an SpCompactPlan with
+// cls_b.
+int launch_seg1_classes(const void* a, void* out, const void* w,
+                        const void* tw, long long batch, int k_local,
+                        const void* plan, void* stream) {
+    return launch_column_compact<kColumnClasses>(a, out, w, nullptr, tw,
+                                                 batch, k_local, plan, stream);
+}
+
+}  // namespace qt
+
 #define QT_SP_LAUNCHER(name, seg)                                             \
-    extern "C" int name(const void* a, const void* b, void* out,             \
-                        const void* w1, const void* c1, const void* w2,      \
-                        const void* c2, const void* tw, long long batch,     \
+    extern "C" int name(const void* a, const void*, void* out,               \
+                        const void* w1, const void* c1, const void*,         \
+                        const void*, const void*, long long batch,           \
                         int k_local, const void* plan, void* stream) {       \
-        return launch<seg>(a, b, out, w1, c1, w2, c2, tw, batch, k_local,    \
-                           plan, stream);                                    \
+        return launch<seg>(a, out, w1, c1, batch, k_local, plan, stream);    \
     }
 
 // B11 and B16: w1 the shard slice of the compact K1 (tabs.w1c) or K3
@@ -499,26 +558,37 @@ extern "C" int qt_sp_seg1(const void* a, const void*, void* out,
                           const void* w1, const void* c1, const void*,
                           const void*, const void* tw, long long batch,
                           int k_local, const void* plan, void* stream) {
-    return launch_column_compact<false>(a, out, w1, c1, tw, batch, k_local,
-                                        plan, stream);
+    return launch_column_compact<kColumnFwd>(a, out, w1, c1, tw, batch,
+                                             k_local, plan, stream);
 }
 extern "C" int qt_sp_seg3(const void* a, const void*, void* out,
                           const void* w1, const void* c1, const void*,
                           const void*, const void* tw, long long batch,
                           int k_local, const void* plan, void* stream) {
-    return launch_column_compact<true>(a, out, w1, c1, tw, batch, k_local,
-                                       plan, stream);
+    return launch_column_compact<kColumnInv>(a, out, w1, c1, tw, batch,
+                                             k_local, plan, stream);
 }
-// B12: w1 and c1 the compact K2f (tabs.w2fc) and its const row, w2 and
-// c2 the shard slices of the compact K2i and its const rows, plan an
-// SpClassPlan; tw unused
+// B12 and B13: w1 and c1 the compact K2f (tabs.w2fc) and its const row,
+// w2 and c2 the shard slices of the compact K2i and its const rows, plan
+// an SpClassPlan; b B12's y shards or B13's spectrum rows (S, nloc); tw
+// unused
 extern "C" int qt_sp_seg2(const void* a, const void* b, void* out,
                           const void* w1, const void* c1, const void* w2,
                           const void* c2, const void*, long long batch,
                           int k_local, const void* plan, void* stream) {
-    return qt::seg2::launch<false>(a, b, out, w1, c1, w2, c2, batch, k_local,
-                                   plan, stream);
+    return qt::seg2::launch<qt::seg2::kPair>(a, b, out, w1, c1, w2, c2, batch,
+                                             k_local, plan, stream);
 }
-QT_SP_LAUNCHER(qt_sp_seg2_fixed, kSeg2Fixed)
+extern "C" int qt_sp_seg2_fixed(const void* a, const void* b, void* out,
+                                const void* w1, const void* c1,
+                                const void* w2, const void* c2, const void*,
+                                long long batch, int k_local,
+                                const void* plan, void* stream) {
+    return qt::seg2::launch<qt::seg2::kSpectrum>(a, b, out, w1, c1, w2, c2,
+                                                 batch, k_local, plan,
+                                                 stream);
+}
+// B14 and B15: w1 and c1 as launch<SEG> takes them, plan an SpPlan; b, w2,
+// c2 and tw unused
 QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
 QT_SP_LAUNCHER(qt_sp_seg2_folded, kSeg2Folded)

@@ -37,10 +37,13 @@ congruent.  Dispatch, launch counts and the stacked (k, B, width) layout are
 B18 multiplies only the nonzero n2-blocks of its tables (``w2cc``, the one
 diagonal block of the class tables, and ``SpDeviceTables.w2ic``), each warp
 taking 8 rows of x and of y at one n2-block through the whole segment, in
-the kernel body B12 runs too (``csrc/seg2_compact.cuh``; its plan type
-``SpClassPlan`` and layout ``row_compact_fields`` live in
+the kernel body B12 and B13 run too (``csrc/seg2_compact.cuh``; its plan
+type ``SpClassPlan`` and layout ``row_compact_fields`` live in
 ``sharded_mxu.py``); ``seg2_classes_compact_plain`` is the plain product
-over the same tables.  B17 keeps the dense K1.
+over the same tables.  B17 multiplies only K1's nonzero blocks
+(``SpDeviceTables.w1c``) in B11's body (``csrc/sharded_mxu.cu``
+``column_compact_kernel``, its plan an ``SpCompactPlan`` with the class
+biases); ``seg1_classes_compact_plain`` is the plain product over them.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ from ..ops.ntt_fused import Kernel
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, class_sums,
                            recombine)
 from .sharded_mxu import (_CLASS_BIAS, WARP_ROWS, SpClassPlan,
-                          SpDeviceTables, SpPlan, _check_tables,
+                          SpCompactPlan, SpDeviceTables, SpPlan,
+                          _check_tables, _column_compact_plan,
                           _compact_shape, _const_rows, _default_n1, _depth,
                           _kernel_layout, _on_mesh, _operands, _permute,
                           _pointwise, _rows_inv, _rows_inv_compact,
@@ -74,6 +78,7 @@ __all__ = ["KERNELS", "ClassDeviceTables", "SpClassPlan", "WARP_ROWS",
            "host_class_tables", "host_compact_class_table",
            "class_device_tables", "plan_for",
            "sp_seg1_classes", "sp_seg2_classes", "seg1_classes_plain",
+           "seg1_classes_compact_plain",
            "seg2_classes_plain", "seg2_classes_compact_plain",
            "a2a_fwd_classes",
            "polymul_fourstep_mxu_classes",
@@ -103,7 +108,8 @@ _I64, _U32 = torch.int64, torch.uint32
 @dataclass(frozen=True)
 class ClassDeviceTables:
     """The class path's tables on one device: ``sp`` the SP tables (B17
-    takes K1 and the twiddles, B18 K2i, B16 K3), ``w2c`` int8 (Dout*TW, kp),
+    takes K1's nonzero blocks ``w1c`` and the twiddles, B18 K2i, B16 K3),
+    ``w2c`` int8 (Dout*TW, kp),
     the class tables ``cp.W[j]`` stacked along the plane axis in the
     kernels' layout (one table for every shard and tile, as K2f is),
     ``c2c`` uint32 (k, A, TW) their const rows, and ``w2cc`` int8 (Dout*s,
@@ -168,14 +174,33 @@ def seg1_classes_plain(x, plans: SpPlans, cp: ClassPlan, tabs=None,
     """B17's twin: canonical shards (S, B, nloc) -> (S, B, Dout*nloc)
     uint32, class m of tile t at columns m*nloc + t*TW + o holding
     c_m + cls_b[m]; shard s uses shard first + s's tables."""
+    return _seg1_classes(x, plans, cp, tabs, first, compact=False)
+
+
+def seg1_classes_compact_plain(x, plans: SpPlans, cp: ClassPlan, tabs=None,
+                               first: int = 0):
+    """``seg1_classes_plain`` reading the compact K1 (``tabs.sp.w1c``):
+    what B17 multiplies.  Only the tests use it."""
+    return _seg1_classes(x, plans, cp, tabs, first, compact=True)
+
+
+def _seg1_classes(x, plans: SpPlans, cp: ClassPlan, tabs, first: int,
+                  compact: bool) -> torch.Tensor:
+    """B17's twin over the dense K1 or (``compact``) its nonzero
+    blocks."""
     tabs = _tabs(tabs, plans, cp, x)
     sl = slice(first, first + x.shape[0])
     S, B = x.shape[:2]
     p = plans.p1
     v = _wide_stages(x, plans, tabs.sp).reshape(S, B, plans.A, plans.TW)
-    c = class_sums(_digit_planes(v, p.off, p.din, p.base), tabs.sp.w1[sl],
-                   cp.Dout)                                # (S, B, A, D, TW)
-    c = c + torch.tensor(cp.cls_b, dtype=_I64, device=x.device)[:, None]
+    planes = _digit_planes(v, p.off, p.din, p.base)
+    if compact:
+        c = compact_class_sums(planes, tabs.sp.w1c[sl],
+                               compact_layout(plans, "columns"), cp.Dout)
+    else:
+        c = class_sums(planes, tabs.sp.w1[sl], cp.Dout)
+    c = c + torch.tensor(cp.cls_b, dtype=_I64,
+                         device=x.device)[:, None]      # (S, B, A, D, TW)
     return c.transpose(2, 3).reshape(S, B, cp.Dout * plans.nloc).to(_U32)
 
 
@@ -242,41 +267,47 @@ def a2a_fwd_classes(v: torch.Tensor, plans: SpPlans,
 # ----------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def plan_for(plans: SpPlans, cp: ClassPlan, seg: str) -> SpClassPlan:
-    """The run-time plan of kernel ``seg`` (a key of ``KERNELS``).  More than
-    3 classes, a B18 class bound of 2^24, a class split deeper than the
-    kernel takes, planes of one warp that do not fit B18's shared memory, or
-    a plan outside B11's or B12's range (``sharded_mxu.plan_for``) raise."""
-    q, TW, D = plans.q, plans.TW, cp.Dout
+def plan_for(plans: SpPlans, cp: ClassPlan,
+             seg: str) -> SpCompactPlan | SpClassPlan:
+    """The run-time plan of kernel ``seg`` (a key of ``KERNELS``): B17's
+    an ``SpCompactPlan``, B11's compact plan (p1's split, K1's blocks) with
+    the rows and route that leave room for its staged class sums and with
+    the class biases ``cls_b``; B18's an ``SpClassPlan``.  More than 3
+    classes, a B18 class bound of 2^24, a class split deeper than the kernel
+    takes, planes of one warp that do not fit B18's shared memory, or a plan
+    outside B11's or B12's range (``sharded_mxu.plan_for``) raise."""
+    q, D = plans.q, cp.Dout
     if D > _MAX_CLASSES:
         raise ValueError(f"{plans.name}: the class boundary takes Dout <= "
                          f"{_MAX_CLASSES} classes ({_JAX}:1090); this plan "
                          f"has Dout = {D}")
-    # B17 is B11 without its recombination, B18 holds B12's x and y rows
-    two = seg == "sp_seg2_classes"
-    sp = sp_plan_for(plans, "sp_seg2" if two else "sp_seg1")
+    if seg == "sp_seg1_classes":
+        # B17 is B11 with its raw class sums staged and stored
+        plan = _column_compact_plan(plans, "sp_seg1", class_sums=True)
+        plan.cls_b = _slots(ctypes.c_uint32, cp.cls_b)
+        return plan
+    # B18 holds B12's x and y rows
+    sp = sp_plan_for(plans, "sp_seg2")
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
-    if two:
-        planes = sum(cp.dins)
-        if (max(cp.bounds) >= _CLASS_BIAS or max(cp.dins) > _MAX_PLANES
-                or planes > _MAX_CLASSES * _MAX_PLANES):
-            raise ValueError(f"{plans.name}: class plan (dins={cp.dins}, "
-                             f"bounds={cp.bounds}) is outside the kernel's "
-                             f"range")
-        bias = _CLASS_BIAS * sum(sp.pw)
-        # the dense depths kp1 and kp2 give way to the compact c1.kp and
-        # c2.kp; the row segment kernel's layout is B12's
-        fields.update(din1=planes, lb1=0, kp1=0, add1=0, kp2=0,
-                      kb1=(_group_bias(cp.groups, cp.bounds, q) - bias) % q,
-                      **row_compact_fields(plans, planes, D, 1))
+    planes = sum(cp.dins)
+    if (max(cp.bounds) >= _CLASS_BIAS or max(cp.dins) > _MAX_PLANES
+            or planes > _MAX_CLASSES * _MAX_PLANES):
+        raise ValueError(f"{plans.name}: class plan (dins={cp.dins}, "
+                         f"bounds={cp.bounds}) is outside the kernel's "
+                         f"range")
+    bias = _CLASS_BIAS * sum(sp.pw)
+    # the dense depths kp1 and kp2 give way to the compact c1.kp and c2.kp;
+    # the row segment kernel's layout is B12's
+    fields.update(din1=planes, lb1=0, kp1=0, add1=0, kp2=0,
+                  kb1=(_group_bias(cp.groups, cp.bounds, q) - bias) % q,
+                  **row_compact_fields(plans, planes, D, 1))
     return SpClassPlan(
         **fields,
         cdin=_slots(ctypes.c_int32, cp.dins),
         clb=_slots(ctypes.c_int32, (b.bit_length() - 1 for b in cp.bases)),
         cadd=_slots(ctypes.c_uint32,
                     ((_split_bias(din, base) - off) % (1 << 32)
-                     for din, base, off in zip(cp.dins, cp.bases, cp.offs))),
-        cls_b=_slots(ctypes.c_uint32, cp.cls_b))
+                     for din, base, off in zip(cp.dins, cp.bases, cp.offs))))
 
 
 def _prepare(plans: SpPlans, cp: ClassPlan, tabs, first: int, *tensors,
@@ -298,9 +329,9 @@ def sp_seg1_classes(x, plans: SpPlans, cp: ClassPlan, tabs=None,
     tabs, sl = _prepare(plans, cp, tabs, first, x)
     if x.is_cuda:
         return _run_kernel(KERNELS["sp_seg1_classes"],
-                             plan_for(plans, cp, "sp_seg1_classes"),
-                             (tabs.sp.w1[sl], None, None, None, tabs.sp.tw),
-                             x, None, cp.Dout * plans.nloc)
+                           plan_for(plans, cp, "sp_seg1_classes"),
+                           (tabs.sp.w1c[sl], None, None, None, tabs.sp.tw),
+                           x, None, cp.Dout * plans.nloc)
     return seg1_classes_plain(x, plans, cp, tabs, first)
 
 

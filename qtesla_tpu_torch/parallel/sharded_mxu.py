@@ -11,7 +11,8 @@ Counterpart of the kernels and the assembly of
   then K2i per (shard, tile), over K2f's and K2i's nonzero blocks alone
   (``w2fc``, ``w2ic``) in the kernel body B18 runs too;
 - ``sp_seg2_fixed``  B13, replaces ``_make_seg2_fixed`` (l.533): B12 with y
-  the constant's stored spectrum, one row per shard;
+  the constant's stored spectrum, one row per shard, in the same kernel
+  body over the same compact tables;
 - ``sp_seg2_fwd``  B14, replaces ``_make_seg2_fwd_only`` (l.548): K2f only,
   the last step of a constant's spectrum;
 - ``sp_seg2_folded``  B15, replaces ``_make_seg2_folded`` (l.563): one
@@ -83,9 +84,10 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "seg1_compact_plan", "seg3_compact_plan", "seg3_compact_plain",
            "compact_route", "seg2_plain", "seg2_compact_plain",
            "SpClassPlan", "seg2_compact_plan", "row_compact_fields",
-           "table_stride",
+           "table_stride", "seg2_fixed_compact_plan",
            "WARP_ROWS",
-           "seg2_fixed_plain", "seg2_fwd_plain", "seg2_folded_plain",
+           "seg2_fixed_plain", "seg2_fixed_compact_plain", "seg2_fwd_plain",
+           "seg2_folded_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
            "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
            "polymul_fourstep_mxu_fn", "local_pipeline_fn",
@@ -132,9 +134,8 @@ class SpDeviceTables:
     (``compact_tables``: lambda-major blocks of Bk lanes for K1 and K3, the
     n2-blocks for K2i), what B11, B12, B18 and B16 multiply, and ``w2fc``
     int8 (nblk, D*s, kp) K2f's, the n2-blocks of the one shared row table,
-    what B12 multiplies; B17 shares K1 with B11 and takes the dense ``w1``;
-    the dense ``w2f`` and ``w2i`` serve B13-B15 and the twins, ``w3`` and
-    ``w3x`` the twins."""
+    what B12 and B13 multiply; B17 shares ``w1c`` with B11; the dense
+    ``w2f`` serves B14, ``w1``, ``w2i``, ``w3`` and ``w3x`` the twins."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -406,6 +407,11 @@ def seg2_compact_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     return _rows_inv_compact(_pointwise(X, Y, plans), plans, tabs, sl)
 
 
+def _spectrum_plain(aspec, plans: SpPlans, sl) -> torch.Tensor:
+    """Rows sl of a device-major spectrum as int64 (S, 1, nloc)."""
+    return aspec.reshape(plans.k, 1, plans.nloc)[sl].to(_I64)
+
+
 def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
     """B13's twin: the row segment of x (S, B, nloc) against the stored
     spectrum ``aspec`` ((k, nloc) or (n,), any uint32: the Barrett product
@@ -413,9 +419,23 @@ def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
     against row first + s; canonical."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
-    Y = aspec.reshape(plans.k, 1, plans.nloc)[sl].to(_I64)
-    return _rows_inv(_pointwise(_rows_fwd(x, plans, tabs), Y, plans), plans,
-                     tabs, sl)
+    return _rows_inv(_pointwise(_rows_fwd(x, plans, tabs),
+                                _spectrum_plain(aspec, plans, sl), plans),
+                     plans, tabs, sl)
+
+
+def seg2_fixed_compact_plain(x, aspec, plans: SpPlans, tabs=None,
+                             first: int = 0):
+    """``seg2_fixed_plain`` reading the compact K2f and K2i
+    (``tabs.w2fc``, ``tabs.w2ic``): what B13 multiplies.  Only the tests
+    use it."""
+    tabs = _tabs(tabs, plans, x)
+    sl = slice(first, first + x.shape[0])
+    X = _compact_product(x.to(_I64), tabs.w2fc[None, None],
+                         tabs.c2f[None, None], plans.p2f, plans, "rows")
+    return _rows_inv_compact(
+        _pointwise(X, _spectrum_plain(aspec, plans, sl), plans), plans, tabs,
+        sl)
 
 
 def seg2_fwd_plain(x, plans: SpPlans, tabs=None, first: int = 0):
@@ -577,12 +597,14 @@ _COMPACT_FIELDS = [("c1", CompactDims), ("c2", CompactDims),
 
 
 class SpCompactPlan(ctypes.Structure):
-    """B11's and B16's run-time plan: ``SpPlan``'s fields, then the compact
-    layout ``c1`` of the tables (``c2`` unused) and whether the shard's
-    tables are held in shared memory (1) or read from L2 (0); field for
+    """B11's, B16's and B17's run-time plan: ``SpPlan``'s fields, then the
+    compact layout ``c1`` of the tables (``c2`` unused), whether the shard's
+    tables are held in shared memory (1) or read from L2 (0) and the bias
+    B17 adds to each class sum (``cls_b``, 0 for B11 and B16); field for
     field the ``SpCompactPlan`` struct of ``csrc/sharded_mxu.cu``."""
 
-    _fields_ = SpPlan._fields_ + _COMPACT_FIELDS
+    _fields_ = SpPlan._fields_ + _COMPACT_FIELDS + [
+        ("cls_b", ctypes.c_uint32 * 3)]
 
 
 def _compact_dims(lay: CompactLayout, planes: int) -> CompactDims:
@@ -646,9 +668,17 @@ def seg3_compact_plan(plans: SpPlans, folded: bool = False) -> SpCompactPlan:
     return _column_compact_plan(plans, "sp_seg3 p3x" if folded else "sp_seg3")
 
 
-def _column_compact_plan(plans: SpPlans, seg: str) -> SpCompactPlan:
+# words after each row of B17's staged class sums (csrc/sharded_mxu.cu
+# kStagePad)
+_STAGE_PAD = 2
+
+
+def _column_compact_plan(plans: SpPlans, seg: str,
+                         class_sums: bool = False) -> SpCompactPlan:
     """The compact plan of a column segment (B11 or B16; ``seg`` a key of
-    ``SEGMENTS``) over the "columns" layout of its one digit plan."""
+    ``SEGMENTS``) over the "columns" layout of its one digit plan;
+    ``class_sums``: B17's, whose block stages a tile's D class planes of
+    ``rows`` rows (TW + 2 words each) where B11 keeps its const rows."""
     sp = plan_for(plans, seg)
     lay = compact_layout(plans, "columns")
     din = getattr(plans, SEGMENTS[seg][0]).din
@@ -656,7 +686,9 @@ def _column_compact_plan(plans: SpPlans, seg: str) -> SpCompactPlan:
     tables = plans.A * sp.d * plans.TW * kp
 
     def smem_of(rows, smem_tables):
-        return (2 * rows * plans.nloc * 4 + plans.nloc * 4
+        staged = (sp.d * rows * (plans.TW + _STAGE_PAD) if class_sums
+                  else plans.nloc)
+        return (2 * rows * plans.nloc * 4 + staged * 4
                 + -(-rows // 16) * 16 * planes_stride(lay.nblk, kp)
                 + smem_tables * tables)
 
@@ -668,43 +700,43 @@ def _column_compact_plan(plans: SpPlans, seg: str) -> SpCompactPlan:
 
 
 # batch rows of x and of y in one unit of the row segment kernel (B12,
-# B18; seg2_compact.cuh's kWarpRows); a warp of B12 takes two units at once
+# B18; seg2_compact.cuh's kWarpRows); a warp of B12 takes two units at once,
+# one of B13 the rows of two units from x alone
 WARP_ROWS = 8
 
 
 class SpClassPlan(ctypes.Structure):
-    """The run-time plan of the row segment kernel (B12, B18) and of B17;
-    field for field the ``SpClassPlan`` struct of
-    ``csrc/seg2_compact.cuh``: ``SpPlan``'s, then per input plane j the
-    row segment's split (``cdin``, ``clb``, ``cadd``) and the bias B17
-    stores (``cls_b``), then the row segment's compact layouts (``c1`` its
-    first table, ``c2`` K2i) and where it reads its tables; B17 leaves them
-    0."""
+    """The run-time plan of the row segment kernel (B12, B13, B18); field
+    for field the ``SpClassPlan`` struct of ``csrc/seg2_compact.cuh``:
+    ``SpPlan``'s, then per input plane j the row segment's split (``cdin``,
+    ``clb``, ``cadd``), then the compact layouts (``c1`` the first table,
+    ``c2`` K2i) and where the kernel reads its tables."""
 
     _fields_ = SpPlan._fields_ + [
         (f, ctypes.c_int32 * 3) for f in ("cdin", "clb")] + [
-        (f, ctypes.c_uint32 * 3) for f in ("cadd", "cls_b")] + _COMPACT_FIELDS
+        ("cadd", ctypes.c_uint32 * 3)] + _COMPACT_FIELDS
 
 
-def row_compact_fields(plans: SpPlans, planes: int, D: int,
-                       units: int) -> dict:
+def row_compact_fields(plans: SpPlans, planes: int, D: int, units: int,
+                       fixed: bool = False) -> dict:
     """The row segment kernel's layout fields of a plan whose first product
     splits a value into ``planes`` planes: each warp of a block works on
     ``units`` units of 8 batch rows of x and of y at one n2-block of lanes
-    (``rows`` 16 a unit: B12 takes two units at once, B18 one), the compact
-    layouts of the first table (``c1``) and of K2i (``c2``), and the route:
-    the block's tables sit in shared memory (rows ``table_stride`` apart)
-    where they leave room for the planes of at least 8 warps, else they
-    come through L2.  Raises where the planes of one warp do not fit a
-    block."""
+    (``rows`` 16 a unit: B12 takes two units at once, B18 one; ``fixed``,
+    B13: the rows of ``units`` units from x alone, each a product row, and
+    the spectrum's lanes beside the const rows), the compact layouts of the
+    first table (``c1``) and of K2i (``c2``), and the route: the block's
+    tables sit in shared memory (rows ``table_stride`` apart) where they
+    leave room for the planes of at least 8 warps, else they come through
+    L2.  Raises where the planes of one warp do not fit a block."""
     lay = compact_layout(plans, "rows")
     c1, c2 = (_compact_dims(lay, planes), _compact_dims(lay, plans.p2i.din))
-    shared = 2 * lay.s * 4 + D * lay.s * (table_stride(c1.kp)
-                                          + table_stride(c2.kp))
+    const = (3 if fixed else 2) * lay.s * 4
+    shared = const + D * lay.s * (table_stride(c1.kp) + table_stride(c2.kp))
     rows = 2 * WARP_ROWS * units
     warp = (rows * planes_stride(1, c1.kp)
-            + rows // 2 * planes_stride(1, c2.kp))
-    if 2 * lay.s * 4 + warp + _BLOCK_RESERVE > _SM_SHARED:
+            + (rows if fixed else rows // 2) * planes_stride(1, c2.kp))
+    if const + warp + _BLOCK_RESERVE > _SM_SHARED:
         raise ValueError(f"{plans.name}: the planes of one warp ({warp} "
                          f"bytes) do not fit the kernel's shared memory")
     return dict(rows=rows, c1=c1, c2=c2, smem_tables=int(
@@ -724,24 +756,38 @@ def seg2_compact_plan(plans: SpPlans) -> SpClassPlan:
     a warp, K2f's and K2i's n2-blocks (at qtesla-iii-speed, k = 4, blocks
     of 32 lanes, depths 128 and 96 where the dense tables run 512 and
     384)."""
-    sp = plan_for(plans, "sp_seg2")
+    return _row_plan(plans, "sp_seg2")
+
+
+@functools.lru_cache(maxsize=None)
+def seg2_fixed_compact_plan(plans: SpPlans) -> SpClassPlan:
+    """B13's run-time plan: B12's over the same compact K2f and K2i, its
+    warps 32 rows of x (two units' rows, each a product row: the second
+    product's two m16 tiles share each table fragment) and the spectrum's
+    lanes held beside the const rows."""
+    return _row_plan(plans, "sp_seg2_fixed")
+
+
+def _row_plan(plans: SpPlans, seg: str) -> SpClassPlan:
+    """The row segment kernel's plan of B12 or B13 (``seg`` a key of
+    ``SEGMENTS``): two units a warp, one input plane split under p2f."""
+    sp = plan_for(plans, seg)
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
-    fields.update(kp1=0, kp2=0,
-                  **row_compact_fields(plans, plans.p2f.din, sp.d, 2))
+    fields.update(kp1=0, kp2=0, **row_compact_fields(
+        plans, plans.p2f.din, sp.d, 2, fixed=seg == "sp_seg2_fixed"))
     return SpClassPlan(
         **fields, cdin=_slots(ctypes.c_int32, (sp.din1,)),
         clb=_slots(ctypes.c_int32, (sp.lb1,)),
-        cadd=_slots(ctypes.c_uint32, (sp.add1,)),
-        cls_b=_slots(ctypes.c_uint32, ()))
+        cadd=_slots(ctypes.c_uint32, (sp.add1,)))
 
 
-def _launch(seg: str, plans: SpPlans, tables, a, b):
-    """Run segment ``seg``'s kernel (a key of ``SEGMENTS``) on CUDA shards
-    a, (S, B, nloc), and b (B12's y shards, B13's spectrum rows (S, nloc) or
-    None) into a new (S, B, nloc) output, against ``tables`` (w1, c1, w2,
-    c2, twiddles; None where the segment takes none)."""
-    return _run_kernel(KERNELS[seg.split()[0]], plan_for(plans, seg),
-                         tables, a, b, plans.nloc)
+def _launch(seg: str, plans: SpPlans, tables, a):
+    """Run segment ``seg``'s kernel (B14 or B15, a key of ``SEGMENTS``) on
+    CUDA shards a, (S, B, nloc), into a new (S, B, nloc) output, against
+    ``tables`` (w1, c1, w2, c2, twiddles; None where the segment takes
+    none)."""
+    return _run_kernel(KERNELS[seg], plan_for(plans, seg), tables, a, None,
+                       plans.nloc)
 
 
 def _run_kernel(kernel: Kernel, plan: ctypes.Structure, tables, a, b,
@@ -853,9 +899,10 @@ def sp_seg2_fixed(x, aspec, plans: SpPlans, tabs=None,
     tabs, sl = _prepare(plans, tabs, first, x)
     rows = _spectrum_rows(aspec, plans, x, sl)
     if x.is_cuda:
-        return _launch("sp_seg2_fixed", plans,
-                       (tabs.w2f, tabs.c2f, tabs.w2i[sl], tabs.c2i[sl], None),
-                       x, rows)
+        return _run_kernel(KERNELS["sp_seg2_fixed"],
+                           seg2_fixed_compact_plan(plans),
+                           (tabs.w2fc, tabs.c2f, tabs.w2ic[sl],
+                            tabs.c2i[sl], None), x, rows, plans.nloc)
     return seg2_fixed_plain(x, aspec, plans, tabs, first)
 
 
@@ -866,7 +913,7 @@ def sp_seg2_fwd(x, plans: SpPlans, tabs=None,
     tabs, _ = _prepare(plans, tabs, first, x)
     if x.is_cuda:
         return _launch("sp_seg2_fwd", plans,
-                       (tabs.w2f, tabs.c2f, None, None, None), x, None)
+                       (tabs.w2f, tabs.c2f, None, None, None), x)
     return seg2_fwd_plain(x, plans, tabs, first)
 
 
@@ -879,7 +926,7 @@ def sp_seg2_folded(x, fold: FoldedSpOperand, plans: SpPlans,
     _check_folded(fold, plans, x)
     if x.is_cuda:
         return _launch("sp_seg2_folded", plans,
-                       (fold.w[sl], fold.c[sl], None, None, None), x, None)
+                       (fold.w[sl], fold.c[sl], None, None, None), x)
     return seg2_folded_plain(x, fold, plans, first)
 
 

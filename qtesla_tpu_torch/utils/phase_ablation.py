@@ -22,19 +22,26 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
 everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B7, B13-B15, B17), the compact ones of
-``csrc/mxu_compact.cuh`` (B11, B16, B12 and B18), the row segment kernel of
-B12 and B18 and the streaming kernel of B5, B6, B8 and B9 in
-``csrc/ntt_mxu.cu``, where level 3 still runs the ring of stages but copies
-no bytes.  The patches of the streaming kernel sit in the code its four
-modes share, so they take apart B6 and B8 as they do B5 and B9.  The patch
-set follows the tree it is given as far back as the tree of the commit
-before B12 and B9 took these designs: there the row segment kernel (B18
-alone) lies in ``csrc/sharded_classes.cu``, and the dense patches take
-apart B12 (a mode of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in
-a tree before B6 and B8 moved to the streaming kernel they take those apart
-as modes of ``mxu_kernel``.  A patch whose anchor is missing from a source
-it names fails the run.  It needs a CUDA device.
+of ``csrc/mxu_block.cuh`` (B7, B14, B15), the compact ones of
+``csrc/mxu_compact.cuh`` (B11-B13, B16-B18), the row segment kernel of B12,
+B13 and B18 (B13's pointwise product, p2i split and second product have
+patches of their own), the column kernel of B11, B16 and B17 (B17 has no
+recombination, so level 5 adds nothing to it; its staged store of the class
+sums counts with load and store) and
+the streaming kernel of B5, B6, B8 and B9 in ``csrc/ntt_mxu.cu``, where
+level 3 still runs the ring of stages but copies no bytes.  The patches of
+the streaming kernel sit in the code its four modes share, so they take
+apart B6 and B8 as they do B5 and B9.  The patch set follows the tree it is
+given as far back as the tree of the commit before B12 and B9 took these
+designs: there the row segment kernel (B18 alone) lies in
+``csrc/sharded_classes.cu``, and the dense patches take apart B12 (a mode
+of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in a tree before B6 and
+B8 moved to the streaming kernel they take those apart as modes of
+``mxu_kernel``, and in a tree before B13 and B17 moved to the compact
+bodies, B13 as a mode of ``sp_kernel`` and B17 through ``mxu_block.cuh``.
+A patch of code every such tree has fails the run when its anchor is
+missing; the patches of code one tree has and another has not (``OPTIONAL``)
+are applied where their anchor is found.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -90,8 +97,8 @@ _RAW_STORE = """                uint32_t v = 0;
                     if (j < d) v ^= static_cast<uint32_t>(acc[mm][j][e]);
                 out[r * len + o] = v + (q2 & 1u);
 """
-# B13's pointwise product (and the dense B12's, in a tree before B12 took
-# the row segment kernel)
+# B13's pointwise product in a tree before B13 took the row segment kernel
+# (and the dense B12's, in a tree before B12 took it)
 _SEG2_POINTWISE = """        for (int idx = threadIdx.x; idx < tb * nloc; idx += blockDim.x)
             data[idx] = mulmod_barrett(data[idx], other[idx & mask], m);
 """
@@ -140,6 +147,13 @@ _C_POINTWISE = """                    zz[c] = static_cast<int32_t>(mulmod_barret
                                                  p.add2);
 """
 _C_POINTWISE_SPLIT = "                for (int i = 0; i < p.din2; ++i) {\n"
+# B13 in the row segment kernel: its pointwise product against the
+# spectrum, its p2i split and its second product's depth loop
+_F_POINTWISE = """                            zf[e][c] = static_cast<int32_t>(
+                                mulmod_barrett(v, a, m) + p.add2);
+"""
+_F_SPLIT = "                        for (int i = 0; i < p.din2; ++i)\n"
+_F_DEPTH = "                for (int k2 = 0; k2 < cb.kp; k2 += 32) {\n"
 
 COMPACT_PATCHES = (
     ("mxu_compact.cuh", _C_SPLIT,
@@ -174,12 +188,22 @@ ROW_PATCHES = (
     (_C_POINTWISE_SPLIT,
      _C_POINTWISE_SPLIT.replace("i < p.din2;",
                                 "i < (QT_ABL < 2 ? 1 : p.din2);")),
+    (_F_POINTWISE, _guard(
+        "QT_ABL >= 1", _F_POINTWISE,
+        "                            zf[e][c] = static_cast<int32_t>(v + a);"
+    )),
+    (_F_SPLIT, _F_SPLIT.replace("i < p.din2;",
+                                "i < (QT_ABL < 2 ? 1 : p.din2);")),
+    (_F_DEPTH, _F_DEPTH.replace("< cb.kp;", "< (QT_ABL < 3 ? 0 : cb.kp);")),
 )
-# B11 and B16 in column_compact_kernel
+# B11, B16 and B17 in column_compact_kernel
 COLUMN_PATCHES = (
     ("sharded_mxu.cu", _C_FWD_WIDE, _guard("QT_ABL >= 1", _C_FWD_WIDE)),
     ("sharded_mxu.cu", _C_INV_WIDE, _guard("QT_ABL >= 1", _C_INV_WIDE)),
 )
+# anchors in code that one tree has and another has not: B13 as a mode of
+# sp_kernel (and the dense B12), or B13 in the row segment kernel
+OPTIONAL = (_SEG2_POINTWISE, _F_POINTWISE, _F_SPLIT, _F_DEPTH)
 # B5, B6, B8 and B9 in polymul_stream_kernel: below level 4 the producer
 # arrives on each stage's barrier without copying, so the ring still paces
 # the MMA warps; B5's and B8's pointwise products sit in the forward
@@ -230,6 +254,8 @@ def patch_sources(csrc: Path) -> list[str]:
     for name, anchor, new in patches:
         path = csrc / name
         text = path.read_text() if path.exists() else ""
+        if text.count(anchor) == 0 and anchor in OPTIONAL:
+            continue
         if text.count(anchor) != 1:
             raise RuntimeError(f"{name}: anchor found {text.count(anchor)} "
                                f"times, expected once:\n{anchor}")

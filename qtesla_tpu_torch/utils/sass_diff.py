@@ -6,11 +6,13 @@ Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
 instantiation (``mxu_kernel<mode>``,
-``polymul_stream_kernel<classes,mode>``, ``sp_kernel<mode,threads>``,
-``classes_kernel<mode,threads>``,
-``column_compact_kernel<threads,shared,inverse>``,
-``seg2_compact_kernel<classes,shared,slots,full>``) it prints the SASS
-instruction count of each tree and the opcodes whose counts differ.  In a
+``polymul_stream_kernel<classes,mode>``, ``sp_kernel<mode,threads>`` (B14
+4, B15 5; B13 3 in a tree before it moved), ``classes_kernel<mode,threads>``
+(B17 in such a tree),
+``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
+``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2)) it
+prints the SASS instruction count of each tree and the opcodes whose counts
+differ; a bool template argument of an older tree reads as 0 or 1.  In a
 tree before B12 and B9 took those kernels, B5's
 ``polymul_stream_kernel<classes>`` is compared as
 ``polymul_stream_kernel<classes,0>`` and B18's

@@ -411,11 +411,16 @@ def test_build_flags_target_hopper():
         assert len(build.LAUNCHERS[k.symbol]) == 11
     assert 'extern "C" int qt_polymul_mxu(' in src[M]
     assert 'extern "C" int qt_polymul_fixed_folded_mxu(' in src[M]
-    # B11, B12, B16 and the class kernels have launchers of their own,
-    # written out; B12 and B18 share one kernel body
+    # B11, B12, B13, B16 and the class kernels have launchers of their own,
+    # written out; B12, B13 and B18 share one kernel body, B11, B16 and B17
+    # another
     assert 'extern "C" int qt_sp_seg2(' in src[S]
-    assert "qt::seg2::launch<false>(" in src[S]
-    assert "qt::seg2::launch<true>(" in src[C]
+    assert "qt::seg2::launch<qt::seg2::kPair>(" in src[S]
+    assert "qt::seg2::launch<qt::seg2::kSpectrum>(" in src[S]
+    assert "qt::seg2::launch<qt::seg2::kClassPlanes>(" in src[C]
+    assert "launch_column_compact<kColumnClasses>(" in src[S]
+    assert "qt::launch_seg1_classes(" in src[C]
+    assert "classes_kernel" not in src[C] and "kSeg2Fixed" not in src[S]
     for k in S.KERNELS.values():
         assert (f"QT_SP_LAUNCHER({k.symbol}," in src[S]
                 or f'extern "C" int {k.symbol}(' in src[S])
@@ -462,11 +467,12 @@ def test_header_edit_changes_digest(tmp_path):
 def test_phase_ablation_patches_apply(tmp_path):
     """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
     sources, in a copy, the streaming kernel of B5, B6, B8 and B9 (its
-    guards before and inside the code its modes share), B16's column body
-    and the row segment kernel of B12 and B18 included; a copy whose
-    row segment kernel lies in sharded_classes.cu (the tree before B12 took
-    it) is patched there; a copy without the compact header (a tree before
-    B11 and B18 were redesigned) is refused."""
+    guards before and inside the code its modes share), the column body of
+    B11, B16 and B17 and the row segment kernel of B12, B13 and B18
+    included; a copy whose row segment kernel lies in sharded_classes.cu
+    (the tree before B12 took it) is patched there, and B13's dense
+    pointwise product where a copy still has it; a copy without the compact
+    header (a tree before B11 and B18 were redesigned) is refused."""
     import shutil
 
     from qtesla_tpu_torch.utils import phase_ablation as PA
@@ -502,15 +508,27 @@ def test_phase_ablation_patches_apply(tmp_path):
     assert "#if QT_ABL >= 2\n        split_packed<Team>" in text
     assert text.count("block_matmul(") == 1 and "static_assert(MODE == kIntt" \
         in text
-    assert (csrc / "sharded_mxu.cu").read_text().count("#if QT_ABL >= 1") == 3
+    # B11's (and B17's) and B16's wide stages; B13 in the row kernel: its
+    # pointwise product, p2i split and second product
+    text = (csrc / "sharded_mxu.cu").read_text()
+    assert text.count("#if QT_ABL >= 1") == 2
+    text = (csrc / "seg2_compact.cuh").read_text()
+    assert text.count("QT_ABL") == 7
+    assert "zf[e][c] = static_cast<int32_t>(v + a);" in text
+    assert "k2 < (QT_ABL < 3 ? 0 : cb.kp);" in text
     assert "QT_ABL" not in "".join(before.values())
-    # the row segment kernel where the tree before B12 took it kept it
+    # the row segment kernel where the tree before B12 took it kept it, and
+    # the dense B13 beside it
     for name, text in before.items():
         (csrc / name).write_text(text)
+    (csrc / "sharded_mxu.cu").write_text(before["sharded_mxu.cu"]
+                                         + PA._SEG2_POINTWISE)
     (csrc / "sharded_classes.cu").write_text(
         before["sharded_classes.cu"] + before["seg2_compact.cuh"])
     (csrc / "seg2_compact.cuh").unlink()
     assert "sharded_classes.cu" in PA.patch_sources(csrc)
+    assert (csrc / "sharded_mxu.cu").read_text().count(
+        "#if QT_ABL >= 1") == 3
     (csrc / "mxu_compact.cuh").unlink()
     with pytest.raises(RuntimeError, match="anchor found"):
         PA.patch_sources(csrc)
@@ -600,7 +618,10 @@ def test_class_plan_matches_kernel_limits(name, k):
     bounds below 2^24 and at most 18 planes; each of its warps 8 + 8 rows of
     one n2-block, the two compact depths padded to 32, the tables in shared
     memory where they leave room for 8 warps' planes, and at least one warp
-    fitting a block either way; B17 takes B11's dense rows and p1's split."""
+    fitting a block either way; B17 takes B11's compact plan (p1's split,
+    K1's blocks) with the rows and route that leave room for its staged
+    class sums (D planes of rows of TW + 2 words) and p1's class
+    bounds."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     n1 = 1 << (get_tables(name).logn // 2)
@@ -610,13 +631,35 @@ def test_class_plan_matches_kernel_limits(name, k):
     p2 = C.plan_for(plans, cp, "sp_seg2_classes")
     TW, D = plans.TW, cp.Dout
     assert D == plans.p1.W.shape[-1] // TW <= 3 and max(cp.bounds) < 1 << 24
-    sp1 = S.plan_for(plans, "sp_seg1")
-    for f, _ in S.SpPlan._fields_:
-        got, want = getattr(p1, f), getattr(sp1, f)
-        assert (list(got) if f in ("pw", "pw_sh") else got) == (
-            list(want) if f in ("pw", "pw_sh") else want), f
-    assert list(p1.cls_b)[:D] == cp.cls_b == list(plans.p1.bounds)
-    assert (p1.c1.ls, p1.c1.kp, p1.smem_tables) == (0, 0, 0)
+    assert isinstance(p1, S.SpCompactPlan)
+    p11 = S.seg1_compact_plan(plans)
+    for f, _ in S.SpCompactPlan._fields_:
+        got, want = getattr(p1, f), getattr(p11, f)
+        if f in ("c1", "c2"):
+            got, want = ([getattr(c, g) for g, _ in S.CompactDims._fields_]
+                         for c in (got, want))
+        if f in ("pw", "pw_sh", "cls_b"):
+            got, want = list(got), list(want)
+        if f == "cls_b":
+            assert got[:D] == cp.cls_b == list(plans.p1.bounds)
+            assert want == [0] * 3
+        elif f not in ("rows", "smem_tables"):
+            assert got == want, f
+    # two row buffers, the staged class sums, a tile's planes, the tables
+    c = p1.c1
+    assert p1.d == D <= 3 and 0 < p1.rows <= 32
+
+    def smem(rows, tables):
+        return (2 * rows * plans.nloc * 4 + D * rows * (TW + 2) * 4
+                + -(-rows // 16) * 16 * S.planes_stride(TW >> c.ls, c.kp)
+                + tables * plans.A * D * TW * c.kp)
+
+    assert smem(p1.rows, p1.smem_tables) + 1024 <= 233472
+    assert p1.smem_tables == (name != WIDE[0])
+    if (name, k) == ("qtesla-iii-speed", 4):
+        # one block of 32 rows: two of 16 leave no room for the staging
+        assert (p1.rows, p1.smem_tables, 1 << c.ls, c.kp) == (32, 1, 16, 64)
+        assert 2 * (smem(16, 1) + 1024) > 233472
     assert p2.rows == 2 * C.WARP_ROWS == 16
     assert list(p2.cdin)[:D] == list(cp.dins) and p2.din1 == sum(cp.dins)
     assert p2.din1 <= 18 and (p2.kp1, p2.kp2) == (0, 0)
@@ -731,7 +774,7 @@ def test_seg2_compact_plan_matches_kernel_limits(name, k):
     assert 1 <= plan.d <= 4 and plan.din1 == plans.p2f.din
     assert (list(plan.cdin), list(plan.clb), list(plan.cadd)) == (
         [plan.din1, 0, 0], [plan.lb1, 0, 0], [plan.add1, 0, 0])
-    assert plan.lb1 == 8 and plan.din1 <= 4 and list(plan.cls_b) == [0] * 3
+    assert plan.lb1 == 8 and plan.din1 <= 4 and not hasattr(plan, "cls_b")
     s = max(plans.n2, 8)
     assert (1 << plan.c1.ls, 1 << plan.c2.ls) == (s, s) and plans.TW % s == 0
     for c in (plan.c1, plan.c2):
@@ -755,6 +798,49 @@ def test_seg2_compact_plan_matches_kernel_limits(name, k):
     if (name, k) == ("qtesla-iii-speed", 4):
         assert (s, plan.c1.kp, plan.c2.kp) == (32, 128, 96)
         assert (dense.kp1, dense.kp2) == (512, 384)
+
+
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
+    """B13's plan: B12's split, layouts and depths over the same compact K2f
+    and K2i, each warp 32 rows of x (two units' rows, each a product row),
+    the spectrum's lanes beside the two const rows, the tables in shared
+    memory where they leave room for 8 warps' planes (everywhere but
+    qtesla-p-iii and n = 8192, and at qtesla-iii-speed, k = 4), at least one
+    warp fitting a block either way, and at most the kernel's 4 slots."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    dense = S.plan_for(plans, "sp_seg2_fixed")
+    plan, p12 = S.seg2_fixed_compact_plan(plans), S.seg2_compact_plan(plans)
+    for f, _ in S.SpClassPlan._fields_:
+        got, want = getattr(plan, f), getattr(p12, f)
+        if f in ("c1", "c2"):
+            got, want = ([getattr(c, g) for g, _ in S.CompactDims._fields_]
+                         for c in (got, want))
+        elif f in ("pw", "pw_sh", "cdin", "clb", "cadd"):
+            got, want = list(got), list(want)
+        if f != "smem_tables":
+            assert got == want, f
+    for f, _ in S.SpPlan._fields_:
+        if f not in ("rows", "kp1", "kp2", "pw", "pw_sh"):
+            assert getattr(plan, f) == getattr(dense, f), f
+    assert (plan.rows, plan.kp1, plan.kp2) == (4 * S.WARP_ROWS, 0, 0)
+    assert 1 <= plan.d <= 4 and plan.lb1 == 8 and plan.din1 <= 4
+    s = 1 << plan.c1.ls
+    tables = plan.d * s * (S.table_stride(plan.c1.kp)
+                           + S.table_stride(plan.c2.kp))
+    # the planes of 32 rows of x and of 32 product rows
+    warp = 32 * (S.planes_stride(1, plan.c1.kp)
+                 + S.planes_stride(1, plan.c2.kp))
+    const = 3 * s * 4
+    assert plan.smem_tables == (const + tables + 8 * warp + 1024 <= 233472)
+    assert plan.smem_tables == (name not in (WIDE[0], "qtesla-p-iii"))
+    shared = const + plan.smem_tables * tables
+    assert shared + (8 if plan.smem_tables else 1) * warp + 1024 <= 233472
+    if (name, k) == ("qtesla-iii-speed", 4):
+        assert (s, plan.c1.kp, plan.c2.kp, plan.smem_tables) == (32, 128, 96,
+                                                                 1)
 
 
 def test_sp_wrappers_reject_bad_input():
@@ -1090,12 +1176,14 @@ def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_compact_kernels_match_plain_on_card(cuda_device, name):
-    """B11, B16 (under p3 and p3x), B12 and B18 (the kernels over the
-    tables' nonzero blocks) against the twins that read the same compact
-    tables and against the dense twins, for every model axis the set's
-    split takes; batches of 1, 3 and 64 rows and one long enough that every
-    persistent block walks over several row groups (through both of its
-    buffers), on all shards and on one."""
+    """B11, B16 (under p3 and p3x), B12, B13, B17 and B18 (the kernels
+    over the tables' nonzero blocks) against the twins that read the same
+    compact tables and against the dense twins, for every model axis the
+    set's split takes (n = 8192 at k = 4); batches of 1, 3 and 64 rows and
+    one long enough that every persistent block walks over several row
+    groups (through both of its buffers), on all shards and on one; B13
+    against a canonical spectrum and one of uint32 values up to
+    2^32 - 1."""
     if name == WIDE[0]:
         register_param_set(*WIDE)
     tbl = get_tables(name)
@@ -1131,7 +1219,22 @@ def test_compact_kernels_match_plain_on_card(cuda_device, name):
                       (S.seg2_compact_plain(x, y, plans), want),
                       (S.sp_seg2(one, y[d:d + 1].contiguous(), plans,
                                  first=d), want[d:d + 1])]
+            full = rng.integers(0, 1 << 32, (k, plans.nloc), dtype=np.uint32)
+            full[:, ::7] = 0xFFFFFFFF
+            for spec in (rng.integers(0, q, (k, plans.nloc),
+                                      dtype=np.uint32), full):
+                spec = torch.from_numpy(spec).to(cuda_device)
+                want = S.seg2_fixed_plain(x, spec, plans)
+                pairs += [(S.sp_seg2_fixed(x, spec, plans), want),
+                          (S.seg2_fixed_compact_plain(x, spec, plans), want),
+                          (S.sp_seg2_fixed(one, spec, plans, first=d),
+                           want[d:d + 1])]
             if cp is not None:
+                want = C.seg1_classes_plain(x, plans, cp)
+                pairs += [(C.sp_seg1_classes(x, plans, cp), want),
+                          (C.seg1_classes_compact_plain(x, plans, cp), want),
+                          (C.sp_seg1_classes(one, plans, cp, first=d),
+                           want[d:d + 1])]
                 u = C.seg1_classes_plain(x, plans, cp)
                 v = u.flip(1).contiguous()
                 want = C.seg2_classes_plain(u, v, plans, cp)
@@ -1145,3 +1248,52 @@ def test_compact_kernels_match_plain_on_card(cuda_device, name):
             for got, want in pairs:
                 np.testing.assert_array_equal(got.cpu().numpy(),
                                               want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_compact_launchers_refuse_plans_outside_their_range(cuda_device):
+    """B13's and B17's launchers return an error for a plan outside their
+    kernel's range (rows, units, slots, splits, depths, B17's lane pairs),
+    and the wrapper raises it: nothing is launched, nothing counted."""
+    plans = fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
+    cp = class_boundary_plan("qtesla-iii-speed", 32, 4)
+    tabs = S.device_tables(plans, cuda_device)
+    x = torch.from_numpy(np.zeros((4, 3, plans.nloc), dtype=np.uint32)).to(
+        cuda_device)
+    spec = x[:, 0].contiguous()
+
+    def changed(plan, **fields):
+        out = type(plan).from_buffer_copy(plan)
+        for f, v in fields.items():
+            obj, _, name = f.rpartition(".")
+            if obj:
+                setattr(getattr(out, obj), name, v)
+            elif name in ("cdin", "clb", "cls_b"):
+                getattr(out, name)[0] = v
+            else:
+                setattr(out, name, v)
+        return out
+
+    b13 = S.seg2_fixed_compact_plan(plans)
+    b17 = C.plan_for(plans, cp, "sp_seg1_classes")
+    cases = [(S.KERNELS["sp_seg2_fixed"], changed(b13, **f),
+              (tabs.w2fc, tabs.c2f, tabs.w2ic, tabs.c2i, None), spec,
+              plans.nloc)
+             for f in ({"rows": 16}, {"rows": 48}, {"d": 5}, {"cdin": 7},
+                       {"c1.kp": 100}, {"c2.kp": 64}, {"c2.ls": 4})]
+    cases += [(C.KERNELS["sp_seg1_classes"], changed(b17, **f),
+               (tabs.w1c, None, None, None, tabs.tw), None,
+               cp.Dout * plans.nloc)
+              for f in ({"rows": 0}, {"rows": 33}, {"d": 4}, {"c1.ls": 2},
+                        {"c1.lq": 3}, {"c1.kp": 32}, {"lb1": 6})]
+    for kernel, plan, tables, b, width in cases:
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            S._run_kernel(kernel, plan, tables, x, b, width)
+        assert kernel.launches == before
+    # the plans as made launch
+    S._run_kernel(S.KERNELS["sp_seg2_fixed"], b13, cases[0][2], x, spec,
+                  plans.nloc)
+    S._run_kernel(C.KERNELS["sp_seg1_classes"], b17, cases[-1][2], x, None,
+                  cp.Dout * plans.nloc)
+    torch.cuda.synchronize()

@@ -267,8 +267,9 @@ def test_class_plan_for_rejects_plans_outside_the_kernels():
     plan = C.plan_for(plans, cp, "sp_seg2_classes")
     # 8 planes of the 8-lane n2-block: one compact depth of 64
     assert (plan.din1, plan.c1.kp, list(plan.cdin)) == (8, 64, [3, 3, 2])
-    # 8 rows of x and 8 of y a warp
-    assert plan.rows == 16 and list(plan.cls_b) == cp.cls_b
+    # 8 rows of x and 8 of y a warp; B17's plan carries the class biases
+    assert plan.rows == 16
+    assert list(C.plan_for(plans, cp, "sp_seg1_classes").cls_b) == cp.cls_b
 
 
 def test_class_wrappers_reject_bad_input():
