@@ -42,7 +42,9 @@ script exits non-zero without printing a result:
    run in persistent blocks that stream their tables through a ring of
    stages in shared memory; every set also runs them on LONG_BATCH rows
    (B8 against a spectrum that holds q - 1) and prints their stages and
-   ring.
+   ring.  B10's gs_ct, ct_ct, gs_gs and ct_gs run in register passes:
+   every set also runs them on LONG_BATCH rows with rows of 0 and q - 1,
+   against their twins and B1, and prints each one's pass plan.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -60,9 +62,12 @@ script exits non-zero without printing a result:
    products the big-int oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B13 and B17 beside the times their earlier
-   designs took (EARLIER_MS), B6, B11 and B14 also at B = 1 (the rows of
-   their prepare launches on the main path) and B9's prepare time; then
+   plain (B16 also under p3x), B13, B17 and the four cyclic B10 pairings
+   beside the times their earlier designs took (EARLIER_MS), the four
+   pairings also beside an instruction-issue bound from their SASS
+   (utils/sass_diff.py issue_bound_ms), B6, B11 and B14 also at B = 1
+   (the rows of their prepare launches on the main path) and B9's prepare
+   time; then
    the whole SP path and
    local_pipeline_fn (one shard's work, no exchange) at k in {2, 4, 8},
    warm and cold (L2 flushed and the host queued ahead before each call;
@@ -114,6 +119,7 @@ from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
 from qtesla_tpu_torch.utils.build import find_nvcc, load_library
+from qtesla_tpu_torch.utils.sass_diff import issue_bound_ms, kernel_sass
 from qtesla_tpu_torch.utils.timing import time_cuda
 
 MAIN_SET = "qtesla-iii-speed"
@@ -143,10 +149,16 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the kernels redesigned last, and the medians their earlier designs (B13
-# a mode of the dense sp_kernel, B17 a dense kernel of its own) took at the
+# a mode of the dense sp_kernel, B17 a dense kernel of its own, B10's
+# cyclic pairings a thread block a row with a barrier a stage) took at the
 # timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit
-EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931}
+EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
+              # B10's cyclic pairings before register passes
+              "polymul_pairing_gs_ct": 0.8635,
+              "polymul_pairing_ct_ct": 0.9216,
+              "polymul_pairing_gs_gs": 0.9371,
+              "polymul_pairing_ct_gs": 0.9302}
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -168,6 +180,15 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return float(mhz) * 1e6
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -306,6 +327,20 @@ def kernels_against_plain(errors: dict) -> None:
                 M.polymul_fixed_mxu_plain(x, spec, mt))
         _record(errors, "ntt_mxu", f"B6 {name} B={LONG_BATCH}",
                 M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt))
+        # the pass kernels over many blocks, rows of 0 and q - 1 in both
+        xy = np.stack([x.cpu().numpy(), y.cpu().numpy()])
+        xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
+        x, y = (torch.from_numpy(v).to(dev) for v in xy)
+        ref = F.polymul_fused(x, y, tbl)
+        for p in P.PASS_PAIRINGS:
+            kname = f"polymul_pairing_{p}"
+            got = P.polymul_pairing(x, y, tbl, p)
+            _record(errors, kname, f"{kname} {name} B={LONG_BATCH}", got,
+                    P.polymul_pairing_plain(x, y, tbl, p))
+            expect_equal(f"B10 {p} == B1 {name} B={LONG_BATCH}", got, ref)
+            plan = P.pairing_pass_plan(n, p)
+            print(f"{name} {p}: {P.describe_pass_plan(plan)}; equal to "
+                  f"plain and B1 at B={LONG_BATCH}", flush=True)
         p5 = M.stream_plan(mt)
         plans = ", ".join(
             f"{b} {p.stages_f} + {p.stages_i} stages, a ring of {p.ring}, "
@@ -957,6 +992,29 @@ def timing(device_line: str) -> dict:
                   f"{bms:.4f} ms [{device_line}]", flush=True)
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
+    # the pass kernels' instruction-issue bound, from their SASS: at n =
+    # 1024 every instruction of pass_kernel<fwd,inv,32,2,10> runs once a warp
+    # and row
+    sass = kernel_sass(str(load_library().path))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    for p in P.PASS_PAIRINGS:
+        plan = P.pairing_pass_plan(n, p)
+        fwd, inv = (int(s == "dit") for s in P.PAIRINGS[p])
+        # the launcher runs n = 1024 in the kernels built for that length
+        # (csrc/ntt_pairings.cu pass_kernel_for)
+        built = (plan.radix, plan.passes, n) == (32, 2, 1024)
+        logn = tbl.logn if built else 0
+        key = f"pass_kernel<{fwd},{inv},{plan.radix},{plan.passes},{logn}>"
+        ms, counts = issue_bound_ms(sass[key], B, plan.threads, sms, clock)
+        name = f"polymul_pairing_{p}"
+        print(f"issue bound {name}: {key}, {counts['total']} SASS "
+              f"instructions ({counts['fma']} of the FMA pipe, "
+              f"{counts['alu']} of the ALU pipe) a warp and row, "
+              f"{plan.threads // 32 or 1} warps a row, {sms} SMs at "
+              f"{clock / 1e9:.3f} GHz: {ms:.4f} ms, {ms / med[name] * 100:.1f} "
+              f"% of the kernel's median {med[name]:.4f} ms; bytes bound "
+              f"{out[name]['bound'][0]:.4f} ms [{device_line}]", flush=True)
     # B6, B11 and B14 at the size of their prepare launches on the main
     # path: one row, the constant (B11 and B14 its k shards); warm, as a
     # call costs with the wrapper's host time in the way, and cold (the

@@ -1,6 +1,7 @@
-"""Time the digit-matmul kernels of two source trees in turns, on one card.
+"""Time the kernels of two source trees in turns, on one card.
 
-    python -m qtesla_tpu_torch.utils.ab_timing [--sp K] OLD_TREE NEW_TREE
+    python -m qtesla_tpu_torch.utils.ab_timing [--sp K | --butterfly] \
+        OLD_TREE NEW_TREE
 
 Each tree is a checkout of this repository (for example a parent commit
 unpacked with ``git archive``, or a copy with one constant of a CUDA source
@@ -12,7 +13,9 @@ on one row, the size of its launches on the main path), or with
 ``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
 (K, 32768, 1024 / K); B13-B15 where both trees have them, against the
 spectrum of y's first row; the class-boundary B17 and B18, B18 on B17's
-output after the exchange, where the tree has them).  It prints each run's
+output after the exchange, where the tree has them), or with
+``--butterfly`` the butterfly kernels B1-B4 (B4 against the spectrum of
+y's first row, B3 on x) and the five pairings B10.  It prints each run's
 medians and, per kernel, the median of each tree's 40 calls and the new/old
 ratio.  It needs a CUDA device.
 """
@@ -29,6 +32,9 @@ __all__ = ["main"]
 
 MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "ntt_mxu B=1",
                "intt_mxu", "polymul_fixed_folded_mxu")
+BUTTERFLY_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
+                     "intt_fused", *(f"polymul_pairing_{p}" for p in (
+                         "gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")))
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
               "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes")
 
@@ -45,7 +51,19 @@ gen = torch.Generator(device="cuda")
 gen.manual_seed(20261016)
 x, y = (torch.randint(0, mt.q, (32768, mt.n), generator=gen, device="cuda",
                       dtype=torch.int64).to(torch.uint32) for _ in range(2))
-if {sp}:
+if {butterfly}:
+    from qtesla_tpu_torch.ops import ntt_fused as F
+    from qtesla_tpu_torch.ops import ntt_pairings as P
+    from qtesla_tpu_torch.ops.tables import get_tables
+    args = tbl = get_tables("qtesla-iii-speed")
+    spec = F.ntt_fused(y[:1], tbl)
+    runs = {{"polymul_fused": (F.polymul_fused, x, y),
+            "polymul_fixed_fused": (F.polymul_fixed_fused, x, spec),
+            "ntt_fused": (F.ntt_fused, x), "intt_fused": (F.intt_fused, x),
+            **{{f"polymul_pairing_{{p}}": (
+                functools.partial(P.polymul_pairing, pairing=p), x, y)
+               for p in P.PAIRINGS}}}}
+elif {sp}:
     from qtesla_tpu_torch.parallel import sharded_mxu as S
     from qtesla_tpu_torch.parallel.sharded_mxu_tables import (
         fourstep_mxu_plans)
@@ -92,9 +110,10 @@ print(json.dumps(out))
 """
 
 
-def _run(tree: Path, sp: int) -> dict:
+def _run(tree: Path, sp: int, butterfly: bool) -> dict:
     proc = subprocess.run([sys.executable, "-c",
-                           _RUN.format(tree=str(tree), sp=sp)],
+                           _RUN.format(tree=str(tree), sp=sp,
+                                       butterfly=butterfly)],
                           cwd=tree, capture_output=True, text=True,
                           check=False)
     if proc.returncode != 0:
@@ -103,8 +122,10 @@ def _run(tree: Path, sp: int) -> dict:
 
 
 def main(argv: list[str]) -> int:
-    sp = 0
-    if argv[:1] == ["--sp"] and len(argv) > 1:
+    sp, butterfly = 0, argv[:1] == ["--butterfly"]
+    if butterfly:
+        argv = argv[1:]
+    elif argv[:1] == ["--sp"] and len(argv) > 1:
         sp, argv = int(argv[1]), argv[2:]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -112,13 +133,14 @@ def main(argv: list[str]) -> int:
     trees = {"old": Path(argv[0]).resolve(), "new": Path(argv[1]).resolve()}
     runs = []
     for which in ("old", "new", "new", "old"):
-        res = _run(trees[which], sp)
+        res = _run(trees[which], sp, butterfly)
         runs.append((which, res))
         print(f"{which} ({trees[which]}): " + ", ".join(
             f"{k} {statistics.median(v):.4f}" for k, v in res.items()) +
             " ms", flush=True)
     # the kernels both trees have
-    kernels = [k for k in (SP_KERNELS if sp else MXU_KERNELS)
+    kernels = [k for k in (BUTTERFLY_KERNELS if butterfly else
+                           SP_KERNELS if sp else MXU_KERNELS)
                if all(k in res for _, res in runs)]
     samples = {t: {k: [] for k in kernels} for t in trees}
     for which, res in runs:

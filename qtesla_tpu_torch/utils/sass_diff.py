@@ -10,7 +10,12 @@ instantiation (``mxu_kernel<mode>``,
 4, B15 5; B13 3 in a tree before it moved), ``classes_kernel<mode,threads>``
 (B17 in such a tree),
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
-``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2)) it
+``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2),
+B1-B4's ``polymul_fused_kernel``, ``polymul_fixed_fused_kernel``,
+``ntt_fused_kernel`` and ``intt_fused_kernel``, B10's Stockham
+``pairing_kernel<2,2>`` and its cyclic pairings, ``pairing_kernel<fwd,inv>``
+in a tree before they took register passes and
+``pass_kernel<fwd,inv,radix,passes>`` after (DIF 0, DIT 1)) it
 prints the SASS instruction count of each tree and the opcodes whose counts
 differ; a bool template argument of an older tree reads as 0 or 1.  In a
 tree before B12 and B9 took those kernels, B5's
@@ -41,7 +46,7 @@ from pathlib import Path
 
 from .build import find_nvcc
 
-__all__ = ["main", "kernel_sass"]
+__all__ = ["main", "kernel_sass", "issue_bound_ms"]
 
 _BUILD = """
 import sys
@@ -51,8 +56,11 @@ print(load_library().path)
 """
 _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
                      r"classes_kernel|column_compact_kernel|"
-                     r"seg2_classes_compact_kernel|seg2_compact_kernel)"
-                     r"I((?:L[ib]\d+E)+)E")
+                     r"seg2_classes_compact_kernel|seg2_compact_kernel|"
+                     r"pairing_kernel|pass_kernel|polymul_fused_kernel|"
+                     r"polymul_fixed_fused_kernel|intt_fused_kernel|"
+                     r"ntt_fused_kernel)"
+                     r"(?:I((?:L[ib]\d+E)+)E)?")
 _ARG = re.compile(r"L[ib](\d+)E")
 # dense kernel modes an older tree compiled -> (kernel, the mode of
 # polymul_stream_kernel<classes,mode> that runs it now)
@@ -64,7 +72,9 @@ def _name(m: re.Match) -> str:
     """The instantiation as kernel<arg,...>; B5's polymul_stream_kernel<d>
     as polymul_stream_kernel<d,0> and B18's
     seg2_classes_compact_kernel<s,f> as seg2_compact_kernel<1,s,3,f>."""
-    kernel, args = m.group(1), _ARG.findall(m.group(2))
+    kernel, args = m.group(1), _ARG.findall(m.group(2) or "")
+    if not args:
+        return kernel
     if kernel == "polymul_stream_kernel" and len(args) == 1:
         args = args + ["0"]
     if kernel == "seg2_classes_compact_kernel":
@@ -73,6 +83,34 @@ def _name(m: re.Match) -> str:
 # an instruction line: its offset (four hex digits or more: a kernel past
 # 64 KiB of code has five), then the instruction
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+# The H100's SM issues one warp instruction a clock from each of its 4
+# schedulers; 32-bit integer work runs on two pipes of 16 lanes a
+# scheduler, half a warp instruction a clock each (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0: 64 results a clock an
+# SM): the FMA pipe takes the IMAD family (the compiler moves adds and
+# moves there as IMAD.IADD and IMAD.MOV to balance the two), the ALU pipe
+# the adds, logic, shifts, compares, selects and min/max.
+_FMA = re.compile(r"^(IMAD|HFMA2|FFMA|FMUL|FADD)(\.|$)")
+_ALU = re.compile(r"^(IADD3|VIADD|VIADDMNMX|LEA|LOP3|SHF|SEL|ISETP|VIMNMX|"
+                  r"IMNMX|PRMT|BREV|FLO|POPC|IABS|MOV|PLOP3|P2R|R2P)(\.|$)")
+
+
+def issue_bound_ms(sass: list[str], rows: int, threads_per_row: int,
+                   sms: int, clock_hz: float) -> tuple[float, dict]:
+    """The least time (ms) of ``rows`` rows through a kernel whose every
+    instruction runs once a warp and row (straight-line code,
+    ``threads_per_row`` threads a row), and its instruction counts: the
+    larger of all instructions over 4 a clock an SM and each integer
+    pipe's over 2."""
+    counts = {"total": len(sass),
+              "fma": sum(1 for op in sass if _FMA.match(op)),
+              "alu": sum(1 for op in sass if _ALU.match(op))}
+    warps = rows * threads_per_row / 32
+    clocks = warps * max(counts["total"] / 4, counts["fma"] / 2,
+                         counts["alu"] / 2) / sms
+    return clocks / clock_hz * 1e3, counts
 
 
 def _library(tree: Path) -> str:

@@ -395,10 +395,17 @@ def test_build_flags_target_hopper():
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
+    # the four pass kernels' launchers take the plan before the stream;
+    # Stockham's is written out with B1's signature
+    fused = build.LAUNCHERS["qt_polymul_fused"]
     for k in P.KERNELS.values():
-        assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
         assert k.replaces == "qtesla_tpu/ops/ntt_pairings_pallas.py:160"
-        assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_polymul_fused"]
+        if k.name == "polymul_pairing_stockham":
+            assert f'extern "C" int {k.symbol}(' in src[P]
+            assert build.LAUNCHERS[k.symbol] == fused
+        else:
+            assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
+            assert build.LAUNCHERS[k.symbol] == fused[:-1] + fused[:1] * 2
     for k in F.KERNELS.values():
         assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
@@ -1020,6 +1027,101 @@ def test_folded_and_pairing_kernels_match_plain_on_card(cuda_device, name):
                                           want.cpu().numpy())
         assert [k.launches - b for k, b in zip(kernels, before)] == \
             [3] + [1] * len(P.KERNELS)
+    # the four pass kernels over many blocks, with rows of 0 and of q - 1
+    # in both operands
+    xy = rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
+    xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
+    x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
+    ref = F.polymul_fused(x, y, tbl)
+    for p in P.PASS_PAIRINGS:
+        got = P.polymul_pairing(x, y, tbl, p)
+        for want in (P.polymul_pairing_plain(x, y, tbl, p), ref):
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(2, 5), (4, 17), (8, 17), (16, 97),
+                                 (64, 257), (4096, 40961)])
+def test_pass_kernels_at_other_lengths_on_card(cuda_device, n, q):
+    """The four pass kernels at the lengths no registered set has (R = n
+    below 32, two passes of fewer than 32 threads a row, three passes of
+    128 threads) against their twins and B1."""
+    name = f"pairing-n{n}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    rng = np.random.default_rng(n)
+    xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
+    xy[:, 0] = q - 1
+    x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
+    ref = F.polymul_fused(x, y, tbl)
+    for p in P.PASS_PAIRINGS:
+        got = P.polymul_pairing(x, y, tbl, p)
+        for want in (P.polymul_pairing_plain(x, y, tbl, p), ref):
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_pass_kernels_under_another_split_on_card(cuda_device):
+    """qtesla-i's stages split 4 + 5 (the planner makes 5 + 4): the
+    launcher runs any schedule its checks accept."""
+    tbl = get_tables("qtesla-i")
+    tw = P.pairing_twiddles(tbl, cuda_device)
+    rng = np.random.default_rng(25)
+    x, y = (torch.from_numpy(v).to(cuda_device) for v in rng.integers(
+        0, tbl.q, (2, 300, tbl.n), dtype=np.uint32))
+    for p in P.PASS_PAIRINGS:
+        plan = P.PairingPassPlan.from_buffer_copy(P.pairing_pass_plan(512, p))
+        for side, kind in zip(("fwd", "inv"), P.PAIRINGS[p]):
+            for i, row in enumerate(P._schedule(9, 5, [4, 5], kind == "dit")):
+                for f, v in zip(("lo", "hi", "b"), row):
+                    getattr(plan, f"{side}_{f}")[i] = v
+        got = P._launch_passes(P.KERNELS[f"polymul_pairing_{p}"], tbl, tw, x,
+                               y, plan)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), P.polymul_pairing_plain(x, y, tbl, p).cpu()
+            .numpy())
+
+
+@pytest.mark.cuda
+def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
+    """A pass kernel's launcher returns cudaErrorInvalidValue for a plan it
+    cannot run (radix, threads, rows, block size, passes, a stage outside
+    its window, a gap between passes, a first window other than where the
+    load or the product leaves the row, too little or too much shared
+    memory), and the wrapper raises it: nothing is launched, nothing
+    counted."""
+    tbl = get_tables("qtesla-iii-speed")
+    tw = P.pairing_twiddles(tbl, cuda_device)
+    x = torch.zeros((3, tbl.n), dtype=torch.uint32, device=cuda_device)
+
+    def changed(plan, **fields):
+        out = type(plan).from_buffer_copy(plan)
+        for f, v in fields.items():
+            if isinstance(v, tuple):
+                getattr(out, f)[v[0]] = v[1]
+            else:
+                setattr(out, f, v)
+        return out
+
+    for p in P.PASS_PAIRINGS:
+        kernel = P.KERNELS[f"polymul_pairing_{p}"]
+        plan = P.pairing_pass_plan(tbl.n, p)
+        for fields in ({"radix": 16}, {"radix": 64}, {"threads": 64},
+                       {"rows": 0}, {"rows": 9}, {"rows": 16},
+                       {"passes": 3}, {"passes": 1}, {"fwd_b": (0, 3)},
+                       {"fwd_b": (1, 2)}, {"inv_b": (0, 6)},
+                       {"fwd_lo": (1, 6)}, {"inv_hi": (1, 9)},
+                       {"row_stride": 2000}, {"row_stride": 1 << 20}):
+            before = kernel.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                P._launch_passes(kernel, tbl, tw, x, x, changed(plan, **fields))
+            assert kernel.launches == before
+        # the plan as made launches
+        P._launch_passes(kernel, tbl, tw, x, x, plan)
+        assert kernel.launches == before + 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

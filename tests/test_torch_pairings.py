@@ -34,6 +34,7 @@ from qtesla_tpu.ops import ntt as JN
 from qtesla_tpu.ops import tables as JT
 from qtesla_tpu.ops.ntt_pairings_pallas import polymul_pairing_fn
 from qtesla_tpu.params import get_params
+from qtesla_tpu_torch import register_param_set
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt as TN
 from qtesla_tpu_torch.ops import ntt_pairings as TPa
@@ -249,3 +250,186 @@ def test_pairing_wrapper_contract():
                                   tbl.pairing_packed)
     assert TPa.pairing_twiddles(tbl, torch.device("cpu")) is \
         TPa.pairing_twiddles(tbl, torch.device("cpu"))
+
+
+# ----------------------------------------------------------------------
+# The pass kernels' schedule (pairing_pass_plan) and its CPU twin.
+# ----------------------------------------------------------------------
+
+# lengths no registered set has: R = n below 32, two passes of 2 threads a
+# row, three passes of 128 threads (q prime, q = 1 mod 2n)
+_OTHER_LENGTHS = [(2, 5), (4, 17), (8, 17), (16, 97), (64, 257),
+                  (4096, 40961)]
+
+
+def _pass_operands(n, q, rows=7, seed=58):
+    """Random rows, then rows of 0 and of q - 1 in either operand."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, q, (rows, n), dtype=np.uint32)
+    y = rng.integers(0, q, (rows, n), dtype=np.uint32)
+    x[0], y[1], x[2], y[2], x[3] = 0, 0, q - 1, q - 1, q - 1
+    return torch.from_numpy(x), torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("name", SETS + [f"pairing-n{n}" for n, _ in
+                                         _OTHER_LENGTHS])
+def test_pass_schedule_twin_matches_plain(name):
+    """The pass twin equals the plain pipeline bit for bit, for each of the
+    four cyclic pairings, on every set and at every radix the planner
+    chooses (32 from n = 32 on; n itself below)."""
+    if name.startswith("pairing-n"):
+        _register_other_length(name)
+    tbl = get_tables(name)
+    x, y = _pass_operands(tbl.n, tbl.q)
+    for p in TPa.PASS_PAIRINGS:
+        plan = TPa.pairing_pass_plan(tbl.n, p)
+        assert plan.radix == min(tbl.n, 32)
+        got = TPa.polymul_pairing_passes_plain(x, y, tbl, p, plan)
+        assert got.dtype == torch.uint32
+        np.testing.assert_array_equal(
+            got.numpy(), TPa.polymul_pairing_plain(x, y, tbl, p).numpy(),
+            err_msg=f"{name} {p}")
+
+
+def _register_other_length(name):
+    n = int(name.rsplit("n", 1)[1])
+    register_param_set(name, n, dict(_OTHER_LENGTHS)[n])
+
+
+@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+def test_pass_schedule_twin_matches_pallas_interpret(pairing):
+    name = "smallprime"
+    ps = get_params(name)
+    x, y = _edge_operands(ps.n, ps.q)
+    ref = np.asarray(polymul_pairing_fn(name, pairing, interpret=True)(x, y))
+    got = TPa.polymul_pairing_passes_plain(
+        torch.from_numpy(x), torch.from_numpy(y), get_tables(name), pairing)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 17])
+def test_pass_schedule_twin_pads_whole_blocks(rows):
+    """Batches that do not fill their last block of 16 rows (the rows past
+    the batch compute on row 0 and are dropped)."""
+    tbl = get_tables("qtesla-i")
+    x, y = (torch.from_numpy(np.resize(a.numpy(), (rows, tbl.n)))
+            for a in _pass_operands(tbl.n, tbl.q))
+    assert TPa.pairing_pass_plan(tbl.n, "gs_gs").rows == 16
+    np.testing.assert_array_equal(
+        TPa.polymul_pairing_passes_plain(x, y, tbl, "gs_gs").numpy(),
+        TPa.polymul_pairing_plain(x, y, tbl, "gs_gs").numpy())
+
+
+def _other_split(n, pairing, sizes):
+    """``pairing``'s plan at n with the stages split as ``sizes``."""
+    plan = TPa.PairingPassPlan.from_buffer_copy(
+        TPa.pairing_pass_plan(n, pairing))
+    L, r = n.bit_length() - 1, plan.radix.bit_length() - 1
+    for side, kind in zip(("fwd", "inv"), TPa.PAIRINGS[pairing]):
+        for p, row in enumerate(TPa._schedule(L, r, sizes, kind == "dit")):
+            for f, v in zip(("lo", "hi", "b"), row):
+                getattr(plan, f"{side}_{f}")[p] = v
+    return plan
+
+
+@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+def test_pass_schedule_twin_under_another_split(pairing):
+    """A plan the planner does not make but the launcher takes (qtesla-i
+    split 4 + 5, the smaller pass first) gives the same product."""
+    tbl = get_tables("qtesla-i")
+    plan = _other_split(tbl.n, pairing, [4, 5])
+    assert _launcher_accepts(plan, tbl.n, pairing)
+    x, y = _pass_operands(tbl.n, tbl.q)
+    np.testing.assert_array_equal(
+        TPa.polymul_pairing_passes_plain(x, y, tbl, pairing, plan).numpy(),
+        TPa.polymul_pairing_plain(x, y, tbl, pairing).numpy())
+
+
+@pytest.mark.parametrize("n,pairing,match", [
+    (1024, "stockham", "no pass plan"),
+    (1024, "nope", "unknown pairing"),
+    (1, "gs_ct", "power of two"),
+    (768, "gs_ct", "power of two"),
+    (65536, "gs_ct", "4 passes, no kernel"),
+    (1 << 20, "ct_gs", "4 passes, no kernel"),
+    (32768, "gs_ct", "1024 threads a row"),
+    (32768, "gs_gs", "1024 threads a row"),
+])
+def test_pass_planner_refuses_what_the_launcher_refuses(n, pairing, match):
+    """The planner raises for what the launcher refuses (no kernel for the
+    passes, more threads a row than a block takes); the launcher's own
+    refusals are tested on the card (test_torch_device.py)."""
+    with pytest.raises(ValueError, match=match):
+        TPa.pairing_pass_plan(n, pairing)
+
+
+def _launcher_accepts(plan, n, pairing):
+    """The launcher's checks of ``csrc/ntt_pairings.cu`` (launch_passes),
+    restated."""
+    fwd, inv = TPa.PAIRINGS[pairing]
+    L = n.bit_length() - 1
+    r = plan.radix.bit_length() - 1
+    tb = L - r
+    P = plan.passes
+    if ((plan.radix, P) not in TPa.PASS_SHAPES or plan.threads != 1 << tb
+            or plan.rows < 1 or plan.rows * plan.threads % 32
+            or plan.rows * plan.threads > (512 if P == 3 else 256)):
+        return False
+    for side, kind in (("fwd", fwd), ("inv", inv)):
+        lo, hi, b = (list(getattr(plan, f"{side}_{f}"))[:P]
+                     for f in ("lo", "hi", "b"))
+        edge, ct = (0 if kind == "dit" else L), kind == "dit"
+        for p in range(P):
+            if (lo[p] >= hi[p] or not 0 <= b[p] <= min(lo[p], tb)
+                    or hi[p] > b[p] + r or (lo[p] if ct else hi[p]) != edge):
+                return False
+            edge = hi[p] if ct else lo[p]
+        if edge != (L if ct else 0):
+            return False
+    last = plan.fwd_b[P - 1]
+    first = tb - last if (fwd == "dif") != (inv == "dit") else last
+    if plan.fwd_b[0] != (0 if fwd == "dit" else tb) or plan.inv_b[0] != first:
+        return False
+    return P == 1 or (2 * (n + n // 32) <= plan.row_stride
+                      and plan.rows * plan.row_stride * 4 <= 232448)
+
+
+@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+def test_pass_plans_meet_the_launchers_checks(pairing):
+    """Every plan the planner makes, n = 2 to 16384, passes the launcher's
+    checks; fused ends: the inverse starts in the window where the
+    product lies."""
+    for L in range(1, 15):
+        plan = TPa.pairing_pass_plan(1 << L, pairing)
+        assert _launcher_accepts(plan, 1 << L, pairing), (L, pairing)
+        assert plan.passes == -(-L // min(L, 5))
+    # at n = 1024 a warp holds a row: two passes, one exchange each way
+    plan = TPa.pairing_pass_plan(1024, pairing)
+    assert (plan.radix, plan.threads, plan.rows, plan.passes) == (32, 32, 8,
+                                                                  2)
+    assert "R=32, threads a row 32" in TPa.describe_pass_plan(plan)
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_pass_exchanges_are_free_of_bank_conflicts(n):
+    """At the sets' lengths of one warp or less a row, every shared-memory
+    store and load of an exchange reaches 32 distinct banks from a warp's
+    32 threads (rows of 16 threads: two rows a warp, T words apart)."""
+    for pairing in TPa.PASS_PAIRINGS:
+        plan = TPa.pairing_pass_plan(n, pairing)
+        L, r, T = n.bit_length() - 1, 5, plan.threads
+        tb = L - r
+        lanes = torch.arange(32)
+        t, slot = lanes % T, lanes // T
+
+        def banks(vt, b, c):
+            i = ((vt & ((1 << b) - 1)) | ((vt >> b) << (b + r))) | (c << b)
+            return (slot * plan.row_stride + i + (i >> 5)) % 32
+
+        vts = {"nat": t, "rev": TPa._brev(t, tb)}
+        for side in ("fwd", "inv"):
+            for b in set(getattr(plan, f"{side}_b")[:plan.passes]):
+                for vt in vts.values():
+                    for c in range(32):
+                        assert banks(vt, b, c).unique().numel() == 32, (
+                            pairing, side, b, c)
