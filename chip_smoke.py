@@ -42,9 +42,12 @@ script exits non-zero without printing a result:
    run in persistent blocks that stream their tables through a ring of
    stages in shared memory; every set also runs them on LONG_BATCH rows
    (B8 against a spectrum that holds q - 1) and prints their stages and
-   ring.  B10's gs_ct, ct_ct, gs_gs and ct_gs run in register passes:
-   every set also runs them on LONG_BATCH rows with rows of 0 and q - 1,
-   against their twins and B1, and prints each one's pass plan.
+   ring.  B10's five pairings and B1 run in register passes: every set
+   also runs them on LONG_BATCH rows with rows of 0 and q - 1, against
+   their twins (B1 its plain version) and B1, and prints each one's pass
+   plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
+   the qtesla-iii-speed prime) on 300 rows with rows of q - 1 in both
+   operands.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -58,13 +61,14 @@ script exits non-zero without printing a result:
    polymul_fourstep_mxu_classes_fn (B17 twice, B18, B16), with every launch
    count reset just before and read just after (EXPECTED_LAUNCHES); the
    outputs must equal the plain versions on the card and each other (the
-   fixed ones B4 and B8), and 8 rows of the mxu, the folded and the four SP
-   products the big-int oracle.
+   fixed ones B4 and B8), and 8 rows of the mxu, the fused (B1), the
+   Stockham kernel's, the folded and the four SP products the big-int
+   oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B13, B17 and the four cyclic B10 pairings
-   beside the times their earlier designs took (EARLIER_MS), the four
-   pairings also beside an instruction-issue bound from their SASS
+   plain (B16 also under p3x), B13, B17, B1 and the five B10 pairings
+   beside the times their earlier designs took (EARLIER_MS), the five
+   pairings and B1 also beside an instruction-issue bound from their SASS
    (utils/sass_diff.py issue_bound_ms), B6, B11 and B14 also at B = 1
    (the rows of their prepare launches on the main path) and B9's prepare
    time; then
@@ -112,6 +116,7 @@ from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
+from qtesla_tpu_torch.ops.passes import describe_pass_plan
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
@@ -149,16 +154,23 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the kernels redesigned last, and the medians their earlier designs (B13
-# a mode of the dense sp_kernel, B17 a dense kernel of its own, B10's
-# cyclic pairings a thread block a row with a barrier a stage) took at the
+# a mode of the dense sp_kernel, B17 a dense kernel of its own, B1 and
+# B10's pairings a thread block a row with a barrier a stage) took at the
 # timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
 # 700 W power limit
 EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
-              # B10's cyclic pairings before register passes
+              # B1 and B10's pairings before register passes
+              "polymul_fused": 0.8215,
               "polymul_pairing_gs_ct": 0.8635,
               "polymul_pairing_ct_ct": 0.9216,
               "polymul_pairing_gs_gs": 0.9371,
-              "polymul_pairing_ct_gs": 0.9302}
+              "polymul_pairing_ct_gs": 0.9302,
+              "polymul_pairing_stockham": 0.8340}
+# every length the pass kernels' plans take: (n, q), q prime and 1 mod 2n
+PASS_LENGTHS = ((2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
+                (128, 257), (256, 7681), (512, 12289), (1024, 12289),
+                (2048, 12289), (4096, 40961), (8192, 8404993),
+                (16384, 786433))
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -332,14 +344,18 @@ def kernels_against_plain(errors: dict) -> None:
         xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
         x, y = (torch.from_numpy(v).to(dev) for v in xy)
         ref = F.polymul_fused(x, y, tbl)
-        for p in P.PASS_PAIRINGS:
+        _record(errors, "polymul_fused", f"B1 {name} B={LONG_BATCH}", ref,
+                F.polymul_plain(x, y, tbl))
+        print(f"{name} B1: {describe_pass_plan(F.fused_pass_plan(n))}; "
+              f"equal to plain at B={LONG_BATCH}", flush=True)
+        for p in P.PAIRINGS:
             kname = f"polymul_pairing_{p}"
             got = P.polymul_pairing(x, y, tbl, p)
             _record(errors, kname, f"{kname} {name} B={LONG_BATCH}", got,
                     P.polymul_pairing_plain(x, y, tbl, p))
             expect_equal(f"B10 {p} == B1 {name} B={LONG_BATCH}", got, ref)
             plan = P.pairing_pass_plan(n, p)
-            print(f"{name} {p}: {P.describe_pass_plan(plan)}; equal to "
+            print(f"{name} {p}: {describe_pass_plan(plan)}; equal to "
                   f"plain and B1 at B={LONG_BATCH}", flush=True)
         p5 = M.stream_plan(mt)
         plans = ", ".join(
@@ -639,6 +655,35 @@ def classes_against_plain(errors: dict) -> None:
     done()
 
 
+def pass_lengths_against_plain(errors: dict) -> None:
+    """B1 and the five pairings at every length their plans take, on 300
+    rows with rows of q - 1 in both operands (registered after the other
+    phase-2 checks, which run every registered set)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    for n, q in PASS_LENGTHS:
+        name = f"pass-n{n}-q{q}"
+        register_param_set(name, n, q)
+        tbl = get_tables(name)
+        xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
+        xy[:, 0], xy[0, 1], xy[1, 2] = q - 1, q - 1, q - 1
+        x, y = (torch.from_numpy(v).to(dev) for v in xy)
+        ref = F.polymul_plain(x, y, tbl)
+        _record(errors, "polymul_fused", f"B1 n={n} q={q}",
+                F.polymul_fused(x, y, tbl), ref)
+        for p in P.PAIRINGS:
+            kname = f"polymul_pairing_{p}"
+            got = P.polymul_pairing(x, y, tbl, p)
+            _record(errors, kname, f"{kname} n={n} q={q}", got,
+                    P.polymul_pairing_plain(x, y, tbl, p))
+            expect_equal(f"B10 {p} == B1 n={n} q={q}", got, ref)
+        print(f"n={n} q={q}: B1 and the five pairings equal to plain and "
+              f"B1's plain on 300 rows (B1 {F.fused_pass_plan(n).passes}, "
+              f"Stockham {P.pairing_pass_plan(n, 'stockham').passes} "
+              f"passes a transform)", flush=True)
+    done()
+
+
 def main_path(errors: dict, seed: int) -> dict:
     ps = get_params(MAIN_SET)
     tbl = get_tables(MAIN_SET)
@@ -790,6 +835,8 @@ def main_path(errors: dict, seed: int) -> dict:
                      for t in (z, x, other)))
             for name, z, other in (
                 ("mxu", out["mxu"][0], y),
+                ("fused", out["fused"][0], y),
+                ("stockham_kernel", z_pair["stockham"], y),
                 ("mxu-folded", z_folded, a.expand(B, n)),
                 (f"SP k={SP_K}", z_sp, y),
                 (f"fixed SP k={SP_K}", z_spf, a.expand(B, n)),
@@ -993,21 +1040,26 @@ def timing(device_line: str) -> dict:
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
     # the pass kernels' instruction-issue bound, from their SASS: at n =
-    # 1024 every instruction of pass_kernel<fwd,inv,32,2,10> runs once a warp
-    # and row
+    # 1024 every instruction of the kernels built for that length
+    # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10>) runs once
+    # a warp and row
     sass = kernel_sass(str(load_library().path))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
-    for p in P.PASS_PAIRINGS:
-        plan = P.pairing_pass_plan(n, p)
-        fwd, inv = (int(s == "dit") for s in P.PAIRINGS[p])
-        # the launcher runs n = 1024 in the kernels built for that length
-        # (csrc/ntt_pairings.cu pass_kernel_for)
+    scheme = {"dif": 0, "dit": 1, "stk": 2}
+    pass_plans = {
+        f"polymul_pairing_{p}": (P.pairing_pass_plan(n, p),
+                                 f"pass_kernel<{scheme[f]},{scheme[i]},")
+        for p, (f, i) in P.PAIRINGS.items()}
+    pass_plans["polymul_fused"] = (F.fused_pass_plan(n),
+                                   "polymul_pass_kernel<")
+    for name, (plan, kernel) in pass_plans.items():
+        # the launchers run n = 1024 in the kernels built for that length
+        # (pass_kernel_for, polymul_pass_kernel_for)
         built = (plan.radix, plan.passes, n) == (32, 2, 1024)
-        logn = tbl.logn if built else 0
-        key = f"pass_kernel<{fwd},{inv},{plan.radix},{plan.passes},{logn}>"
+        key = (f"{kernel}{plan.radix},{plan.passes},"
+               f"{tbl.logn if built else 0}>")
         ms, counts = issue_bound_ms(sass[key], B, plan.threads, sms, clock)
-        name = f"polymul_pairing_{p}"
         print(f"issue bound {name}: {key}, {counts['total']} SASS "
               f"instructions ({counts['fma']} of the FMA pipe, "
               f"{counts['alu']} of the ALU pipe) a warp and row, "
@@ -1036,8 +1088,9 @@ def timing(device_line: str) -> dict:
     print(f"same inputs: B9 {med['polymul_fixed_folded_mxu']:.4f} ms, "
           f"B8 {med['polymul_fixed_mxu']:.4f}, "
           f"B4 {med['polymul_fixed_fused']:.4f}; "
-          f"B10 gs_ct {med['polymul_pairing_gs_ct']:.4f} ms, "
-          f"B1 {med['polymul_fused']:.4f} [{device_line}]")
+          f"B10 gs_ct {med['polymul_pairing_gs_ct']:.4f} ms, stockham "
+          f"{med['polymul_pairing_stockham']:.4f}, B1 "
+          f"{med['polymul_fused']:.4f} [{device_line}]")
 
     # One shard's local work is timed warm, as the kernels are, and cold:
     # L2 flushed and the host queued ahead before each call
@@ -1182,6 +1235,7 @@ def main() -> int:
     kernels_against_plain(errors)
     sp_against_plain(errors)
     classes_against_plain(errors)
+    pass_lengths_against_plain(errors)
 
     phase("3 main path at full size")
     launches = main_path(errors, SEED)

@@ -205,11 +205,13 @@ def ct_inv_cyclic(X_rev: torch.Tensor, tbl: NttTables,
 # 2^st), butterflies its upper and lower halves and interleaves the results.
 # ----------------------------------------------------------------------
 
-def _stockham(x, tbl: NttTables, field: str):
+def _stockham(x, tbl: NttTables, field: str, stages: int | None = None):
+    """The first ``stages`` Stockham stages (all by default); after st of
+    them position p holds what the autosort left there."""
     q, n = tbl.q, x.shape[-1]
     batch = x.shape[:-1]
     v = x.reshape(*batch, n, 1)
-    for w, wsh in _pairs(tbl, field, x.device):
+    for w, wsh in _pairs(tbl, field, x.device)[:stages]:
         m, stride = v.shape[-2] // 2, v.shape[-1]
         a, b = v[..., :m, :], v[..., m:, :]
         d = shoup_mulmod(sub_mod(a, b, q), w, wsh, q)

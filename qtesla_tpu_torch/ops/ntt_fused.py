@@ -16,28 +16,36 @@ fallback: a CUDA tensor with no built library, or a refused launch, raises.
 Every successful launch adds one to its kernel's ``launches`` count in
 ``KERNELS``; nothing else touches the counts.
 
-On the H100 the kernels are bound by instruction issue and the block-wide
-barrier between the log2(n) dependent butterfly stages, not by device
-memory, which sees one read per operand and one write of z.  The design
-keeps each row in shared memory for the whole pipeline (one thread block per
-row, no batch padding) and reads twiddles from compact n-entry tables
-instead of the TPU kernel's full-width (L, n) tables; see the note at the
-top of the CUDA source.
+On the H100 the kernels are bound by instruction issue, not by device
+memory, which sees one read per operand and one write of z.  B1 runs in
+register passes (``csrc/pass_stages.cuh``) on gs_ct's window sequence, under
+``fused_pass_plan(n)``, which its launcher checks; ``polymul_fused_passes_plain``
+runs that schedule on the CPU with the kernel's index maps, exchanges and
+lazy ranges.  B2-B4 keep each row in shared memory for the whole pipeline
+(one thread block per row, a block-wide barrier between the log2(n)
+dependent stages).  All read twiddles from compact n-entry tables instead
+of the TPU kernel's full-width (L, n) tables; see the note at the top of
+the CUDA source.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from . import modmul as MM
 from . import ntt as N
+from .passes import PassModel, PassPlan, pass_plan
 from .tables import NttTables, get_tables
 
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
            "ntt_fused_fn", "intt_fused_fn", "polymul_fused",
-           "polymul_fixed_fused", "ntt_fused", "intt_fused"]
+           "polymul_fixed_fused", "ntt_fused", "intt_fused",
+           "fused_pass_plan", "polymul_fused_passes_plain"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_fused.cu"
 
@@ -48,7 +56,8 @@ _MAX_SMEM = 232448
 @dataclass
 class Kernel:
     """One hand-written kernel: its C launcher, the TPU kernel it replaces,
-    how many rows of n uint32 it holds in shared memory, and its count of
+    how many rows of n uint32 it holds in shared memory (0: a pass kernel,
+    which takes its shared memory from its plan), and its count of
     launches."""
 
     name: str
@@ -60,7 +69,7 @@ class Kernel:
 
 KERNELS: dict[str, Kernel] = {k.name: k for k in (
     Kernel("polymul_fused", "qt_polymul_fused",
-           "qtesla_tpu/ops/ntt_pallas.py:100", 2),
+           "qtesla_tpu/ops/ntt_pallas.py:100", 0),
     Kernel("polymul_fixed_fused", "qt_polymul_fixed_fused",
            "qtesla_tpu/ops/ntt_pallas.py:112", 1),
     Kernel("ntt_fused", "qt_ntt_fused", "qtesla_tpu/ops/ntt_pallas.py:123", 1),
@@ -91,8 +100,11 @@ def _check_tw(tw: torch.Tensor, like: torch.Tensor, n: int) -> None:
 
 
 def _launch(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
-            a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
-    """Run ``kernel`` on CUDA tensors a (and b) into a new output."""
+            a: torch.Tensor, b: torch.Tensor | None,
+            plan: PassPlan | None = None) -> torch.Tensor:
+    """Run ``kernel`` on CUDA tensors a (and b) into a new output; a pass
+    kernel under ``plan``, as given: its launcher checks the plan and a
+    refusal raises."""
     from ..utils.build import load_library
 
     n = tbl.n
@@ -115,7 +127,7 @@ def _launch(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
             None if b is None else b.view(torch.int32).data_ptr(),
             out.view(torch.int32).data_ptr(), tw.view(torch.int32).data_ptr(),
             batch, n, tbl.logn, tbl.q, ps.r32, ps.r32_shoup, ps.one_shoup,
-            stream)
+            *(() if plan is None else (ctypes.addressof(plan),)), stream)
     if err != 0:
         raise RuntimeError(f"{kernel.symbol} launch failed: cudaError {err} "
                            f"({lib.error_string(err)})")
@@ -167,6 +179,70 @@ def intt_plain(X, tbl: NttTables, tw=None) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
+# B1's register passes: the plan and its schedule on the CPU.
+# ----------------------------------------------------------------------
+
+def fused_pass_plan(n: int) -> PassPlan:
+    """B1's schedule at row length ``n``: gs_ct's (``passes.pass_plan``),
+    the forward from the widest stage down, the inverse from the narrowest
+    up.  Raises for what the launcher refuses.  Cached: copy it before
+    changing a field."""
+    return pass_plan(n, False, True)
+
+
+def polymul_fused_passes_plain(x, y, tbl: NttTables,
+                               plan: PassPlan | None = None):
+    """z = x * y mod (X^n + 1) mod q through B1's schedule (``plan``,
+    ``fused_pass_plan`` unless given), on the CPU (``passes.PassModel``):
+    the kernel's index maps and exchanges, CT butterflies widest first and
+    GS butterflies narrowest first with the merged-psi twiddles indexed by
+    the bits above the stage, the last inverse stage with the store (n^{-1}
+    on the sum, psi^{-1}_rev[1] n^{-1} on the difference), lazy ranges
+    asserted."""
+    n, L, q = tbl.n, tbl.logn, tbl.q
+    plan = fused_pass_plan(n) if plan is None else plan
+    fw, fw_sh, iw, iw_sh = torch.from_numpy(tbl.packed.astype(np.int64))
+    lead = x.shape[:-1]
+    xs, ys = (a.reshape(-1, n).to(_I64) for a in (x, y))
+    B = xs.shape[0]
+    mdl = PassModel(plan, n, q, B)
+    xs, ys = mdl.pad(xs), mdl.pad(ys)
+    t, tb, R = mdl.t, mdl.tb, plan.radix
+
+    b = tb
+    idx = mdl.window(t, b)
+    # (rows, operand, thread, register); no weighting: psi is merged
+    V = torch.stack([a[:, idx] for a in (xs, ys)], 1)
+    for p in range(plan.passes):
+        if p:
+            V, b, _ = mdl.exchange(V, b, t, plan.fwd_b[p], t)
+        assert b == plan.fwd_b[p]
+        V = mdl.merged_stages(V, b, t, plan.fwd_lo[p], plan.fwd_hi[p], fw,
+                              fw_sh, fwd=True)
+    ps = tbl.ps
+    # the inverse starts on the forward's last window
+    V = MM.mulmod_barrett(V[:, :1], V[:, 1:], q, ps.r32, ps.r32_shoup,
+                          ps.one_shoup)
+    for p in range(plan.passes):
+        if p:
+            V, b, _ = mdl.exchange(V, b, t, plan.inv_b[p], t)
+        assert b == plan.inv_b[p]
+        V = mdl.merged_stages(V, b, t, plan.inv_lo[p],
+                              min(plan.inv_hi[p], L - 1), iw, iw_sh,
+                              fwd=False)
+    # the last stage in the last window [tb, L), on register bit r - 1
+    assert b == tb and bool((V < 2 * q).all())
+    U, D = V[:, 0, :, :R // 2], V[:, 0, :, R // 2:]
+    out = torch.cat([
+        MM._csub(MM.shoup_mulmod_lazy(U + D, iw[0], iw_sh[0], q), q),
+        MM._csub(MM.shoup_mulmod_lazy(U + 2 * q - D, iw[1], iw_sh[1], q), q)],
+        -1)
+    z = torch.zeros_like(xs)
+    z[:, mdl.window(t, tb)] = out
+    return z[:B].reshape(*lead, n).to(_U32)
+
+
+# ----------------------------------------------------------------------
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
 
@@ -177,7 +253,8 @@ def polymul_fused(x, y, tbl: NttTables, tw=None) -> torch.Tensor:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fused"], tbl, tw, x, y)
+        return _launch(KERNELS["polymul_fused"], tbl, tw, x, y,
+                       fused_pass_plan(tbl.n))
     return polymul_plain(x, y, tbl, tw)
 
 

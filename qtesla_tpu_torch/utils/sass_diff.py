@@ -11,11 +11,13 @@ instantiation (``mxu_kernel<mode>``,
 (B17 in such a tree),
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
 ``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2),
-B1-B4's ``polymul_fused_kernel``, ``polymul_fixed_fused_kernel``,
-``ntt_fused_kernel`` and ``intt_fused_kernel``, B10's Stockham
-``pairing_kernel<2,2>`` and its cyclic pairings, ``pairing_kernel<fwd,inv>``
-in a tree before they took register passes and
-``pass_kernel<fwd,inv,radix,passes>`` after (DIF 0, DIT 1)) it
+B1-B4's ``polymul_fused_kernel`` (B1's ``polymul_pass_kernel<radix,
+passes,logn>`` in a tree after it took register passes),
+``polymul_fixed_fused_kernel``, ``ntt_fused_kernel`` and
+``intt_fused_kernel``, B10's pairings, ``pairing_kernel<fwd,inv>`` in a
+tree before they took register passes and
+``pass_kernel<fwd,inv,radix,passes,logn>`` after (DIF 0, DIT 1, Stockham
+2)) it
 prints the SASS instruction count of each tree and the opcodes whose counts
 differ; a bool template argument of an older tree reads as 0 or 1.  In a
 tree before B12 and B9 took those kernels, B5's
@@ -57,7 +59,8 @@ print(load_library().path)
 _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
                      r"classes_kernel|column_compact_kernel|"
                      r"seg2_classes_compact_kernel|seg2_compact_kernel|"
-                     r"pairing_kernel|pass_kernel|polymul_fused_kernel|"
+                     r"pairing_kernel|polymul_pass_kernel|pass_kernel|"
+                     r"polymul_fused_kernel|"
                      r"polymul_fixed_fused_kernel|intt_fused_kernel|"
                      r"ntt_fused_kernel)"
                      r"(?:I((?:L[ib]\d+E)+)E)?")

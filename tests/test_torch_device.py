@@ -33,6 +33,7 @@ from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
                                              get_mxu_tables)
+from qtesla_tpu_torch.ops.passes import PassPlan, schedule
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import make_mesh
 from qtesla_tpu_torch.parallel import sharded_classes as C
@@ -389,27 +390,30 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
-        "ntt_mxu.cu", "ntt_pairings.cu", "seg2_compact.cuh",
-        "sharded_classes.cu", "sharded_mxu.cu"]
+        "ntt_mxu.cu", "ntt_pairings.cu", "pass_stages.cuh",
+        "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
-    # the four pass kernels' launchers take the plan before the stream;
-    # Stockham's is written out with B1's signature
-    fused = build.LAUNCHERS["qt_polymul_fused"]
+    # the pass kernels' launchers (the five pairings, B1) take the plan
+    # before the stream; B2-B4's have the plain signature
+    plain = build.LAUNCHERS["qt_polymul_fixed_fused"]
+    passes = plain[:-1] + plain[:1] * 2
     for k in P.KERNELS.values():
         assert k.replaces == "qtesla_tpu/ops/ntt_pairings_pallas.py:160"
-        if k.name == "polymul_pairing_stockham":
-            assert f'extern "C" int {k.symbol}(' in src[P]
-            assert build.LAUNCHERS[k.symbol] == fused
-        else:
-            assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
-            assert build.LAUNCHERS[k.symbol] == fused[:-1] + fused[:1] * 2
+        assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
+        assert build.LAUNCHERS[k.symbol] == passes
+    assert "stk_stages" not in src[P] and " pairing_kernel" not in src[P]
+    assert 'extern "C" int qt_polymul_fused(' in src[F]
+    assert build.LAUNCHERS["qt_polymul_fused"] == passes
+    assert "polymul_fused_kernel" not in src[F]
+    assert "fwd_stages<2>" not in src[F]
     for k in F.KERNELS.values():
-        assert f"QT_LAUNCHER({k.symbol}," in src[F]
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
-        assert len(build.LAUNCHERS[k.symbol]) == 12
+        if k.name != "polymul_fused":
+            assert f"QT_LAUNCHER({k.symbol}," in src[F]
+            assert len(build.LAUNCHERS[k.symbol]) == 12
     # B5 and B9 have launchers of their own, written out
     for k in M.KERNELS.values():
         assert (f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
@@ -442,7 +446,9 @@ def test_build_flags_target_hopper():
     # MxuStreamPlan MxuPlan and what follows
     src["compact"] = (build.CSRC_DIR / "mxu_compact.cuh").read_text()
     src["seg2"] = (build.CSRC_DIR / "seg2_compact.cuh").read_text()
+    src["passes"] = (build.CSRC_DIR / "pass_stages.cuh").read_text()
     for mod, struct, head, skip in (
+            ("passes", PassPlan, "struct PassPlan {", 0),
             (M, M.MxuPlan, "struct MxuPlan {", 0),
             (M, M.MxuStreamPlan, "struct MxuStreamPlan : MxuPlan {",
              len(M.MxuPlan._fields_)),
@@ -919,6 +925,12 @@ def test_kernels_match_plain_on_card(cuda_device, name):
                                           want.cpu().numpy())
         assert all(v.launches == before[k] + 1
                    for k, v in F.KERNELS.items())
+    # B1's register passes over many blocks, rows of 0 and q - 1 in both
+    xy = rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
+    xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
+    x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
+    np.testing.assert_array_equal(F.polymul_fused(x, y, tbl).cpu().numpy(),
+                                  F.polymul_plain(x, y, tbl).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -1027,70 +1039,99 @@ def test_folded_and_pairing_kernels_match_plain_on_card(cuda_device, name):
                                           want.cpu().numpy())
         assert [k.launches - b for k, b in zip(kernels, before)] == \
             [3] + [1] * len(P.KERNELS)
-    # the four pass kernels over many blocks, with rows of 0 and of q - 1
+    # the five pass kernels over many blocks, with rows of 0 and of q - 1
     # in both operands
     xy = rng.integers(0, q, (2, 9000, n), dtype=np.uint32)
     xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
     x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
     ref = F.polymul_fused(x, y, tbl)
-    for p in P.PASS_PAIRINGS:
+    for p in P.PAIRINGS:
         got = P.polymul_pairing(x, y, tbl, p)
         for want in (P.polymul_pairing_plain(x, y, tbl, p), ref):
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
 
 
+# every length the pass plans take, q prime and 1 mod 2n; n = 8192 at the
+# qtesla-iii-speed prime
+_PASS_LENGTHS = [(2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
+                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
+                 (2048, 12289), (4096, 40961), (8192, 8404993),
+                 (16384, 786433)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q", [(2, 5), (4, 17), (8, 17), (16, 97),
-                                 (64, 257), (4096, 40961)])
+@pytest.mark.parametrize("n,q", _PASS_LENGTHS)
 def test_pass_kernels_at_other_lengths_on_card(cuda_device, n, q):
-    """The four pass kernels at the lengths no registered set has (R = n
-    below 32, two passes of fewer than 32 threads a row, three passes of
-    128 threads) against their twins and B1."""
+    """The five pairings' pass kernels and B1's at every length from 2 to
+    16384 (R = n below 32, two passes of fewer than 32 threads a row, three
+    passes of up to 512 threads) against their twins and B1's plain
+    version, with rows of q - 1 in both operands."""
     name = f"pairing-n{n}"
     register_param_set(name, n, q)
     tbl = get_tables(name)
     rng = np.random.default_rng(n)
     xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
-    xy[:, 0] = q - 1
+    xy[:, 0], xy[0, 1], xy[1, 2] = q - 1, q - 1, q - 1
     x, y = (torch.from_numpy(v).to(cuda_device) for v in xy)
-    ref = F.polymul_fused(x, y, tbl)
-    for p in P.PASS_PAIRINGS:
+    ref = F.polymul_plain(x, y, tbl)
+    np.testing.assert_array_equal(F.polymul_fused(x, y, tbl).cpu().numpy(),
+                                  ref.cpu().numpy())
+    for p in P.PAIRINGS:
         got = P.polymul_pairing(x, y, tbl, p)
         for want in (P.polymul_pairing_plain(x, y, tbl, p), ref):
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
 
 
+def _split(plan, n, sizes, fwd_up, inv_up, stockham=False):
+    """``plan`` with the stages of n split as ``sizes``."""
+    plan = PassPlan.from_buffer_copy(plan)
+    plan.passes = len(sizes)
+    L = n.bit_length() - 1
+    for side, up in (("fwd", fwd_up), ("inv", inv_up)):
+        for i, row in enumerate(schedule(L, 5, sizes, up, stockham)):
+            for f, v in zip(("lo", "hi", "b"), row):
+                getattr(plan, f"{side}_{f}")[i] = v
+    return plan
+
+
 @pytest.mark.cuda
 def test_pass_kernels_under_another_split_on_card(cuda_device):
-    """qtesla-i's stages split 4 + 5 (the planner makes 5 + 4): the
-    launcher runs any schedule its checks accept."""
+    """qtesla-i's stages split 4 + 5 (the planners make 5 + 4; Stockham's
+    2 + 2 + 5, its planner 4 + 5), and B1's also 2 + 2 + 5: the launchers
+    run any schedule their checks accept."""
     tbl = get_tables("qtesla-i")
     tw = P.pairing_twiddles(tbl, cuda_device)
     rng = np.random.default_rng(25)
     x, y = (torch.from_numpy(v).to(cuda_device) for v in rng.integers(
         0, tbl.q, (2, 300, tbl.n), dtype=np.uint32))
-    for p in P.PASS_PAIRINGS:
-        plan = P.PairingPassPlan.from_buffer_copy(P.pairing_pass_plan(512, p))
-        for side, kind in zip(("fwd", "inv"), P.PAIRINGS[p]):
-            for i, row in enumerate(P._schedule(9, 5, [4, 5], kind == "dit")):
-                for f, v in zip(("lo", "hi", "b"), row):
-                    getattr(plan, f"{side}_{f}")[i] = v
-        got = P._launch_passes(P.KERNELS[f"polymul_pairing_{p}"], tbl, tw, x,
-                               y, plan)
+    for p, (fwd, inv) in P.PAIRINGS.items():
+        stk = p == "stockham"
+        plan = _split(P.pairing_pass_plan(512, p), 512,
+                      [2, 2, 5] if stk else [4, 5], fwd == "dit",
+                      inv == "dit", stk)
+        got = F._launch(P.KERNELS[f"polymul_pairing_{p}"], tbl, tw, x, y,
+                        plan)
         np.testing.assert_array_equal(
             got.cpu().numpy(), P.polymul_pairing_plain(x, y, tbl, p).cpu()
             .numpy())
+    ftw = F._prepare(tbl, None, x)
+    for sizes in ([4, 5], [2, 2, 5]):
+        plan = _split(F.fused_pass_plan(512), 512, sizes, False, True)
+        got = F._launch(F.KERNELS["polymul_fused"], tbl, ftw, x, y, plan)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), F.polymul_plain(x, y, tbl).cpu().numpy())
 
 
 @pytest.mark.cuda
 def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
-    """A pass kernel's launcher returns cudaErrorInvalidValue for a plan it
-    cannot run (radix, threads, rows, block size, passes, a stage outside
-    its window, a gap between passes, a first window other than where the
-    load or the product leaves the row, too little or too much shared
-    memory), and the wrapper raises it: nothing is launched, nothing
+    """A pass kernel's launcher (the five pairings, B1) returns
+    cudaErrorInvalidValue for a plan it cannot run (radix, threads, rows,
+    block size, passes, a stage outside its window, a gap between passes, a
+    first window other than where the load or the product leaves the row,
+    too little or too much shared memory; Stockham also a window other than
+    its own), and the wrapper raises it: nothing is launched, nothing
     counted."""
     tbl = get_tables("qtesla-iii-speed")
     tw = P.pairing_twiddles(tbl, cuda_device)
@@ -1105,9 +1146,11 @@ def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
                 setattr(out, f, v)
         return out
 
-    for p in P.PASS_PAIRINGS:
-        kernel = P.KERNELS[f"polymul_pairing_{p}"]
-        plan = P.pairing_pass_plan(tbl.n, p)
+    cases = [(P.KERNELS[f"polymul_pairing_{p}"], tw,
+              P.pairing_pass_plan(tbl.n, p)) for p in P.PAIRINGS]
+    cases.append((F.KERNELS["polymul_fused"], F._prepare(tbl, None, x),
+                  F.fused_pass_plan(tbl.n)))
+    for kernel, table, plan in cases:
         for fields in ({"radix": 16}, {"radix": 64}, {"threads": 64},
                        {"rows": 0}, {"rows": 9}, {"rows": 16},
                        {"passes": 3}, {"passes": 1}, {"fwd_b": (0, 3)},
@@ -1116,11 +1159,23 @@ def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
                        {"row_stride": 2000}, {"row_stride": 1 << 20}):
             before = kernel.launches
             with pytest.raises(RuntimeError, match="launch failed"):
-                P._launch_passes(kernel, tbl, tw, x, x, changed(plan, **fields))
+                F._launch(kernel, tbl, table, x, x, changed(plan, **fields))
             assert kernel.launches == before
         # the plan as made launches
-        P._launch_passes(kernel, tbl, tw, x, x, plan)
+        F._launch(kernel, tbl, table, x, x, plan)
         assert kernel.launches == before + 1
+    # Stockham refuses qtesla-i split 2 + 2 + 5 under the cyclic windows
+    # (its middle pass's window would not end at its widest stage), which
+    # gs_gs runs
+    tbl = get_tables("qtesla-i")
+    tw = P.pairing_twiddles(tbl, cuda_device)
+    x = torch.zeros((3, tbl.n), dtype=torch.uint32, device=cuda_device)
+    plan = _split(P.pairing_pass_plan(512, "stockham"), 512, [2, 2, 5],
+                  False, False)
+    kernel = P.KERNELS["polymul_pairing_stockham"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        F._launch(kernel, tbl, tw, x, x, plan)
+    F._launch(P.KERNELS["polymul_pairing_gs_gs"], tbl, tw, x, x, plan)
     torch.cuda.synchronize()
 
 

@@ -17,6 +17,12 @@ against the JAX package.
   rows together with the q-1 and delta-impulse edge rows.  gs_ct and
   stockham run in the default tier, as tests/test_pairings_pallas.py tiers
   them; the other three under ``slow``.
+- The pass kernels' schedules (``pairing_pass_plan`` for the five pairings,
+  ``ntt_fused.fused_pass_plan`` for B1): the CPU twins against the plain
+  pipelines on every set and at other lengths, under another split and
+  against JAX's interpret-mode kernel; Stockham's twin pass by pass against
+  the plain Stockham stages under its position map; the plans against the
+  launchers' checks, their refusals, and the exchanges' banks.
 
 Tolerance: none (integer equality).  Inputs are made with numpy from a seed
 and fed to both sides."""
@@ -37,7 +43,9 @@ from qtesla_tpu.params import get_params
 from qtesla_tpu_torch import register_param_set
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt as TN
+from qtesla_tpu_torch.ops import ntt_fused as TF
 from qtesla_tpu_torch.ops import ntt_pairings as TPa
+from qtesla_tpu_torch.ops import passes as TPs
 from qtesla_tpu_torch.ops.tables import from_jax_tables, get_tables
 
 SETS = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
@@ -275,13 +283,13 @@ def _pass_operands(n, q, rows=7, seed=58):
                                          _OTHER_LENGTHS])
 def test_pass_schedule_twin_matches_plain(name):
     """The pass twin equals the plain pipeline bit for bit, for each of the
-    four cyclic pairings, on every set and at every radix the planner
-    chooses (32 from n = 32 on; n itself below)."""
+    five pairings, on every set and at every radix the planner chooses (32
+    from n = 32 on; n itself below)."""
     if name.startswith("pairing-n"):
         _register_other_length(name)
     tbl = get_tables(name)
     x, y = _pass_operands(tbl.n, tbl.q)
-    for p in TPa.PASS_PAIRINGS:
+    for p in TPa.PAIRINGS:
         plan = TPa.pairing_pass_plan(tbl.n, p)
         assert plan.radix == min(tbl.n, 32)
         got = TPa.polymul_pairing_passes_plain(x, y, tbl, p, plan)
@@ -296,7 +304,7 @@ def _register_other_length(name):
     register_param_set(name, n, dict(_OTHER_LENGTHS)[n])
 
 
-@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+@pytest.mark.parametrize("pairing", list(TPa.PAIRINGS))
 def test_pass_schedule_twin_matches_pallas_interpret(pairing):
     name = "smallprime"
     ps = get_params(name)
@@ -320,25 +328,51 @@ def test_pass_schedule_twin_pads_whole_blocks(rows):
         TPa.polymul_pairing_plain(x, y, tbl, "gs_gs").numpy())
 
 
-def _other_split(n, pairing, sizes):
-    """``pairing``'s plan at n with the stages split as ``sizes``."""
-    plan = TPa.PairingPassPlan.from_buffer_copy(
-        TPa.pairing_pass_plan(n, pairing))
+def _plan(n, scheme):
+    """The plan of a pairing's pass kernel, or of B1's ("fused")."""
+    if scheme == "fused":
+        return TF.fused_pass_plan(n)
+    return TPa.pairing_pass_plan(n, scheme)
+
+
+# scheme -> (forward from the narrowest stage up, inverse likewise, a bit
+# reversal between the two, Stockham's windows), as the launchers take it
+_ORDERS = {p: (f == "dit", i == "dit", (f != "dit") != (i == "dit"),
+               p == "stockham") for p, (f, i) in TPa.PAIRINGS.items()}
+_ORDERS["fused"] = (False, True, False, False)
+SCHEMES = [*TPa.PAIRINGS, "fused"]
+# another split each launcher takes at qtesla-i (n = 512): the smaller pass
+# first; Stockham's last pass is whole, so it splits its first 4 stages
+_OTHER_SPLITS = {"stockham": [2, 2, 5]}
+
+
+def _sizes(plan):
+    return [plan.fwd_hi[p] - plan.fwd_lo[p] for p in range(plan.passes)]
+
+
+def _other_split(n, scheme, sizes):
+    """``scheme``'s plan at n with the stages split as ``sizes``."""
+    plan = TPs.PassPlan.from_buffer_copy(_plan(n, scheme))
     L, r = n.bit_length() - 1, plan.radix.bit_length() - 1
-    for side, kind in zip(("fwd", "inv"), TPa.PAIRINGS[pairing]):
-        for p, row in enumerate(TPa._schedule(L, r, sizes, kind == "dit")):
+    plan.passes = len(sizes)
+    fwd_up, inv_up, _, stk = _ORDERS[scheme]
+    for side, up in (("fwd", fwd_up), ("inv", inv_up)):
+        for p, row in enumerate(TPs.schedule(L, r, sizes, up, stk)):
             for f, v in zip(("lo", "hi", "b"), row):
                 getattr(plan, f"{side}_{f}")[p] = v
     return plan
 
 
-@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+@pytest.mark.parametrize("pairing", list(TPa.PAIRINGS))
 def test_pass_schedule_twin_under_another_split(pairing):
     """A plan the planner does not make but the launcher takes (qtesla-i
-    split 4 + 5, the smaller pass first) gives the same product."""
+    split 4 + 5, the smaller pass first; Stockham 2 + 2 + 5) gives the
+    same product."""
     tbl = get_tables("qtesla-i")
-    plan = _other_split(tbl.n, pairing, [4, 5])
+    sizes = _OTHER_SPLITS.get(pairing, [4, 5])
+    plan = _other_split(tbl.n, pairing, sizes)
     assert _launcher_accepts(plan, tbl.n, pairing)
+    assert _sizes(plan) == sizes != _sizes(_plan(tbl.n, pairing))
     x, y = _pass_operands(tbl.n, tbl.q)
     np.testing.assert_array_equal(
         TPa.polymul_pairing_passes_plain(x, y, tbl, pairing, plan).numpy(),
@@ -346,7 +380,6 @@ def test_pass_schedule_twin_under_another_split(pairing):
 
 
 @pytest.mark.parametrize("n,pairing,match", [
-    (1024, "stockham", "no pass plan"),
     (1024, "nope", "unknown pairing"),
     (1, "gs_ct", "power of two"),
     (768, "gs_ct", "power of two"),
@@ -354,69 +387,91 @@ def test_pass_schedule_twin_under_another_split(pairing):
     (1 << 20, "ct_gs", "4 passes, no kernel"),
     (32768, "gs_ct", "1024 threads a row"),
     (32768, "gs_gs", "1024 threads a row"),
+    (768, "stockham", "power of two"),
+    (65536, "stockham", "4 passes, no kernel"),
+    (32768, "stockham", "1024 threads a row"),
+    (1, "fused", "power of two"),
+    (65536, "fused", "4 passes, no kernel"),
+    (32768, "fused", "1024 threads a row"),
 ])
 def test_pass_planner_refuses_what_the_launcher_refuses(n, pairing, match):
-    """The planner raises for what the launcher refuses (no kernel for the
-    passes, more threads a row than a block takes); the launcher's own
+    """The planners raise for what the launchers refuse (no kernel for the
+    passes, more threads a row than a block takes); the launchers' own
     refusals are tested on the card (test_torch_device.py)."""
     with pytest.raises(ValueError, match=match):
-        TPa.pairing_pass_plan(n, pairing)
+        _plan(n, pairing)
 
 
-def _launcher_accepts(plan, n, pairing):
-    """The launcher's checks of ``csrc/ntt_pairings.cu`` (launch_passes),
-    restated."""
-    fwd, inv = TPa.PAIRINGS[pairing]
+def _launcher_accepts(plan, n, scheme):
+    """The launchers' checks of ``csrc/pass_stages.cuh``
+    (launch_pass_kernel), restated."""
+    fwd_up, inv_up, reflect, stk = _ORDERS[scheme]
     L = n.bit_length() - 1
     r = plan.radix.bit_length() - 1
     tb = L - r
     P = plan.passes
-    if ((plan.radix, P) not in TPa.PASS_SHAPES or plan.threads != 1 << tb
+    if ((plan.radix, P) not in TPs.PASS_SHAPES or plan.threads != 1 << tb
             or plan.rows < 1 or plan.rows * plan.threads % 32
             or plan.rows * plan.threads > (512 if P == 3 else 256)):
         return False
-    for side, kind in (("fwd", fwd), ("inv", inv)):
+    for side, up in (("fwd", fwd_up), ("inv", inv_up)):
         lo, hi, b = (list(getattr(plan, f"{side}_{f}"))[:P]
                      for f in ("lo", "hi", "b"))
-        edge, ct = (0 if kind == "dit" else L), kind == "dit"
+        edge = 0 if up else L
         for p in range(P):
             if (lo[p] >= hi[p] or not 0 <= b[p] <= min(lo[p], tb)
-                    or hi[p] > b[p] + r or (lo[p] if ct else hi[p]) != edge):
+                    or hi[p] > b[p] + r or (lo[p] if up else hi[p]) != edge
+                    or (stk and b[p] != hi[p] - r)):
                 return False
-            edge = hi[p] if ct else lo[p]
-        if edge != (L if ct else 0):
+            edge = hi[p] if up else lo[p]
+        if edge != (L if up else 0):
             return False
     last = plan.fwd_b[P - 1]
-    first = tb - last if (fwd == "dif") != (inv == "dit") else last
-    if plan.fwd_b[0] != (0 if fwd == "dit" else tb) or plan.inv_b[0] != first:
+    first = tb - last if reflect else last
+    if plan.fwd_b[0] != (0 if fwd_up else tb) or plan.inv_b[0] != first:
         return False
     return P == 1 or (2 * (n + n // 32) <= plan.row_stride
                       and plan.rows * plan.row_stride * 4 <= 232448)
 
 
-@pytest.mark.parametrize("pairing", TPa.PASS_PAIRINGS)
+@pytest.mark.parametrize("pairing", SCHEMES)
 def test_pass_plans_meet_the_launchers_checks(pairing):
-    """Every plan the planner makes, n = 2 to 16384, passes the launcher's
+    """Every plan the planners make, n = 2 to 16384, passes the launcher's
     checks; fused ends: the inverse starts in the window where the
-    product lies."""
+    product lies.  Stockham's windows are its own: a plan with a short last
+    pass or the cyclic windows of a short middle pass is refused."""
     for L in range(1, 15):
-        plan = TPa.pairing_pass_plan(1 << L, pairing)
+        plan = _plan(1 << L, pairing)
         assert _launcher_accepts(plan, 1 << L, pairing), (L, pairing)
         assert plan.passes == -(-L // min(L, 5))
     # at n = 1024 a warp holds a row: two passes, one exchange each way
-    plan = TPa.pairing_pass_plan(1024, pairing)
+    plan = _plan(1024, pairing)
     assert (plan.radix, plan.threads, plan.rows, plan.passes) == (32, 32, 8,
                                                                   2)
-    assert "R=32, threads a row 32" in TPa.describe_pass_plan(plan)
+    assert "R=32, threads a row 32" in TPs.describe_pass_plan(plan)
+    # qtesla-i split 5 + 4 (the cyclic planner's) and, with the cyclic
+    # windows, 2 + 2 + 5: Stockham refuses both, the others take them
+    for sizes in ([5, 4], [2, 2, 5]):
+        plan = TPs.PassPlan.from_buffer_copy(_plan(512, pairing))
+        plan.passes = len(sizes)
+        fwd_up, inv_up, _, _ = _ORDERS[pairing]
+        for side, up in (("fwd", fwd_up), ("inv", inv_up)):
+            for p, row in enumerate(TPs.schedule(9, 5, sizes, up)):
+                for f, v in zip(("lo", "hi", "b"), row):
+                    getattr(plan, f"{side}_{f}")[p] = v
+        assert _launcher_accepts(plan, 512, pairing) == (
+            pairing != "stockham"), (pairing, sizes)
 
 
 @pytest.mark.parametrize("n", [512, 1024])
 def test_pass_exchanges_are_free_of_bank_conflicts(n):
     """At the sets' lengths of one warp or less a row, every shared-memory
     store and load of an exchange reaches 32 distinct banks from a warp's
-    32 threads (rows of 16 threads: two rows a warp, T words apart)."""
-    for pairing in TPa.PASS_PAIRINGS:
-        plan = TPa.pairing_pass_plan(n, pairing)
+    32 threads (rows of 16 threads: two rows a warp, T words apart), for
+    the virtual threads each kernel exchanges from and to: the thread, its
+    reversal after a bit reversal, Stockham's thread map."""
+    for scheme in SCHEMES:
+        plan = _plan(n, scheme)
         L, r, T = n.bit_length() - 1, 5, plan.threads
         tb = L - r
         lanes = torch.arange(32)
@@ -426,10 +481,49 @@ def test_pass_exchanges_are_free_of_bank_conflicts(n):
             i = ((vt & ((1 << b) - 1)) | ((vt >> b) << (b + r))) | (c << b)
             return (slot * plan.row_stride + i + (i >> 5)) % 32
 
-        vts = {"nat": t, "rev": TPa._brev(t, tb)}
         for side in ("fwd", "inv"):
-            for b in set(getattr(plan, f"{side}_b")[:plan.passes]):
-                for vt in vts.values():
+            for p in range(plan.passes):
+                b = getattr(plan, f"{side}_b")[p]
+                hi = getattr(plan, f"{side}_hi")[p]
+                vts = ([TPs.stockham_thread(t, L - hi, tb)]
+                       if scheme == "stockham" else [t, TPs.brev(t, tb)])
+                for vt in vts:
                     for c in range(32):
                         assert banks(vt, b, c).unique().numel() == 32, (
-                            pairing, side, b, c)
+                            scheme, side, b, c)
+
+
+@pytest.mark.parametrize("name", ["smallprime", "qtesla-i",
+                                  "qtesla-iii-speed", "pairing-n4096"])
+def test_stockham_twin_runs_stockham_stages(name):
+    """After each pass, the Stockham twin's values equal ``N._stockham``'s
+    values after as many stages (the forward on the psi-weighted operands,
+    the inverse on their pointwise product), modulo q, at the Stockham
+    positions its DIF indices stand for (``passes.stockham_index``): the
+    kernel runs Stockham's own butterflies, on its own windows."""
+    if name.startswith("pairing-n"):
+        _register_other_length(name)
+    tbl = get_tables(name)
+    n, L, q = tbl.n, tbl.logn, tbl.q
+    x, y = _pass_operands(n, q, rows=4)
+    trace = []
+    TPa.polymul_pairing_passes_plain(x, y, tbl, "stockham", trace=trace)
+    assert len(trace) == 2 * TPa.pairing_pass_plan(n, "stockham").passes
+    xw, yw = (TN.weight_psi(a.to(torch.int64), tbl) for a in (x, y))
+    prod = TN.pointwise_mul(TN.stockham_fwd(xw, tbl),
+                            TN.stockham_fwd(yw, tbl), tbl)
+    pos = torch.arange(n)
+    for side, lo, hi, idx, V in trace:
+        st = L - lo
+        if side == "fwd":
+            want = [TN._stockham(a, tbl, "stockham_fwd", stages=st)
+                    for a in (xw, yw)]
+        else:
+            want = [TN._stockham(prod, tbl, "stockham_inv", stages=st)]
+        at = TPs.stockham_index(pos, st, L)
+        for o, w in enumerate(want):
+            got = torch.zeros(V.shape[0], n, dtype=torch.int64)
+            got[:, idx] = V[:, o]
+            np.testing.assert_array_equal(
+                (got[:x.shape[0], at] % q).numpy(), w.numpy(),
+                err_msg=f"{name} {side} stage {st} operand {o}")
