@@ -38,16 +38,17 @@ script exits non-zero without printing a result:
    persistent blocks; each case also runs them on LONG_BATCH rows, so that
    every block walks over several row groups through both of its buffers,
    and prints the rows a block holds, the depth of a product and whether
-   the tables sit in shared memory or come through L2.  B5, B6, B8 and B9
-   run in persistent blocks that stream their tables through a ring of
-   stages in shared memory; every set also runs them on LONG_BATCH rows
-   (B8 against a spectrum that holds q - 1) and prints their stages and
-   ring.  B10's five pairings and B1 run in register passes: every set
-   also runs them on LONG_BATCH rows with rows of 0 and q - 1, against
-   their twins (B1 its plain version) and B1, and prints each one's pass
-   plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
-   the qtesla-iii-speed prime) on 300 rows with rows of q - 1 in both
-   operands.
+   the tables sit in shared memory or come through L2.  B5-B9 run in
+   persistent blocks that stream their tables through a ring of stages in
+   shared memory; every set also runs them on LONG_BATCH rows (B8 against
+   a spectrum that holds q - 1, B7 on rows below pw_bound, some at
+   pw_bound - 1) and prints their stages and ring.  B10's five pairings,
+   B1 and B4 run in register passes: every set also runs them on
+   LONG_BATCH rows with rows of 0 and q - 1 (B4 against a spectrum that
+   holds q - 1), against their twins (B1 and B4 their plain versions) and
+   B1, and prints each one's pass plan; then at every length from 2 to
+   16384 (PASS_LENGTHS, n = 8192 at the qtesla-iii-speed prime) on 300
+   rows with rows of q - 1 in both operands (B4: in x and its spectrum).
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -66,9 +67,10 @@ script exits non-zero without printing a result:
    oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B13, B17, B1 and the five B10 pairings
-   beside the times their earlier designs took (EARLIER_MS), the five
-   pairings and B1 also beside an instruction-issue bound from their SASS
+   plain (B16 also under p3x), B13, B17, B1, B4, B7 and the five B10
+   pairings beside the times their earlier designs took (EARLIER_MS), the
+   five pairings, B1 and B4 also beside an instruction-issue bound from
+   their SASS
    (utils/sass_diff.py issue_bound_ms), B6, B11 and B14 also at B = 1
    (the rows of their prepare launches on the main path) and B9's prepare
    time; then
@@ -154,13 +156,16 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the kernels redesigned last, and the medians their earlier designs (B13
-# a mode of the dense sp_kernel, B17 a dense kernel of its own, B1 and
-# B10's pairings a thread block a row with a barrier a stage) took at the
-# timing phase's shapes in this script, on an NVIDIA H100 80GB HBM3 at a
-# 700 W power limit
+# a mode of the dense sp_kernel, B17 a dense kernel of its own, B1, B4 and
+# B10's pairings a thread block a row with a barrier a stage, B7 the last
+# mode of the dense mxu_kernel) took at the timing phase's shapes in this
+# script, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
 EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
-              # B1 and B10's pairings before register passes
+              # B1, B4 and B10's pairings before register passes
               "polymul_fused": 0.8215,
+              "polymul_fixed_fused": 0.7174,
+              # B7 as the dense mxu_kernel
+              "intt_mxu": 0.7788,
               "polymul_pairing_gs_ct": 0.8635,
               "polymul_pairing_ct_ct": 0.9216,
               "polymul_pairing_gs_gs": 0.9371,
@@ -339,6 +344,11 @@ def kernels_against_plain(errors: dict) -> None:
                 M.polymul_fixed_mxu_plain(x, spec, mt))
         _record(errors, "ntt_mxu", f"B6 {name} B={LONG_BATCH}",
                 M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt))
+        pw = rng.integers(0, mt.pw_bound, (LONG_BATCH, n), dtype=np.uint32)
+        pw[::97] = mt.pw_bound - 1
+        pw = torch.from_numpy(pw).to(dev)
+        _record(errors, "intt_mxu", f"B7 {name} B={LONG_BATCH}",
+                M.intt_mxu(pw, mt), M.intt_mxu_plain(pw, mt))
         # the pass kernels over many blocks, rows of 0 and q - 1 in both
         xy = np.stack([x.cpu().numpy(), y.cpu().numpy()])
         xy[:, 0], xy[:, 1], xy[0, 2], xy[1, 3] = 0, q - 1, 0, q - 1
@@ -348,6 +358,12 @@ def kernels_against_plain(errors: dict) -> None:
                 F.polymul_plain(x, y, tbl))
         print(f"{name} B1: {describe_pass_plan(F.fused_pass_plan(n))}; "
               f"equal to plain at B={LONG_BATCH}", flush=True)
+        _record(errors, "polymul_fixed_fused", f"B4 {name} B={LONG_BATCH}",
+                F.polymul_fixed_fused(x, spec, tbl),
+                F.polymul_fixed_plain(x, spec, tbl))
+        print(f"{name} B4: {describe_pass_plan(F.fixed_pass_plan(n))}; "
+              f"equal to plain at B={LONG_BATCH} against a spectrum that "
+              f"holds q - 1", flush=True)
         for p in P.PAIRINGS:
             kname = f"polymul_pairing_{p}"
             got = P.polymul_pairing(x, y, tbl, p)
@@ -363,12 +379,14 @@ def kernels_against_plain(errors: dict) -> None:
             f"{p.rows} rows a group"
             for b, p in (("B9", M.stream_plan(mt, "folded")),
                          ("B8", M.stream_plan(mt, "fixed")),
-                         ("B6", M.stream_plan(mt, "ntt"))))
+                         ("B6", M.stream_plan(mt, "ntt")),
+                         ("B7", M.stream_plan(mt, "intt"))))
         print(f"{name}: B5 streams {p5.stages_f} + {p5.stages_i} stages of "
               f"{64 * mt.bw * mt.D // 1024} KiB a lane block through a ring "
               f"of {p5.ring} in shared memory; {p5.rows // 2} products a "
-              f"group; {plans}; all four also equal to plain at "
-              f"B={LONG_BATCH}", flush=True)
+              f"group; {plans}; all five also equal to plain at "
+              f"B={LONG_BATCH} (B7 on rows below pw_bound, some at "
+              f"pw_bound - 1)", flush=True)
         print(f"{name} (n={n}, q={q}; MXU plan {plan_s:.1f} s: Lr={mt.Lr}, "
               f"D={mt.D}, Df={mt.Df}, Di={mt.Di}, rows/block "
               f"{M.block_rows(n, 2)}/{M.block_rows(n, 1)}; B9 prepare "
@@ -656,9 +674,10 @@ def classes_against_plain(errors: dict) -> None:
 
 
 def pass_lengths_against_plain(errors: dict) -> None:
-    """B1 and the five pairings at every length their plans take, on 300
-    rows with rows of q - 1 in both operands (registered after the other
-    phase-2 checks, which run every registered set)."""
+    """B1, B4 and the five pairings at every length their plans take, on
+    300 rows with rows of q - 1 in both operands (B4: in x, and a spectrum
+    that holds q - 1) (registered after the other phase-2 checks, which
+    run every registered set)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     for n, q in PASS_LENGTHS:
@@ -671,14 +690,21 @@ def pass_lengths_against_plain(errors: dict) -> None:
         ref = F.polymul_plain(x, y, tbl)
         _record(errors, "polymul_fused", f"B1 n={n} q={q}",
                 F.polymul_fused(x, y, tbl), ref)
+        spec = rng.integers(0, q, n, dtype=np.uint32)
+        spec[::3] = q - 1
+        spec = torch.from_numpy(spec).to(dev)
+        _record(errors, "polymul_fixed_fused", f"B4 n={n} q={q}",
+                F.polymul_fixed_fused(x, spec, tbl),
+                F.polymul_fixed_plain(x, spec, tbl))
         for p in P.PAIRINGS:
             kname = f"polymul_pairing_{p}"
             got = P.polymul_pairing(x, y, tbl, p)
             _record(errors, kname, f"{kname} n={n} q={q}", got,
                     P.polymul_pairing_plain(x, y, tbl, p))
             expect_equal(f"B10 {p} == B1 n={n} q={q}", got, ref)
-        print(f"n={n} q={q}: B1 and the five pairings equal to plain and "
-              f"B1's plain on 300 rows (B1 {F.fused_pass_plan(n).passes}, "
+        print(f"n={n} q={q}: B1, B4 and the five pairings equal to plain "
+              f"and B1's plain on 300 rows (B1 and B4 "
+              f"{F.fused_pass_plan(n).passes}, "
               f"Stockham {P.pairing_pass_plan(n, 'stockham').passes} "
               f"passes a transform)", flush=True)
     done()
@@ -1049,16 +1075,19 @@ def timing(device_line: str) -> dict:
     scheme = {"dif": 0, "dit": 1, "stk": 2}
     pass_plans = {
         f"polymul_pairing_{p}": (P.pairing_pass_plan(n, p),
-                                 f"pass_kernel<{scheme[f]},{scheme[i]},")
+                                 f"pass_kernel<{scheme[f]},{scheme[i]},", "")
         for p, (f, i) in P.PAIRINGS.items()}
+    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>
     pass_plans["polymul_fused"] = (F.fused_pass_plan(n),
-                                   "polymul_pass_kernel<")
-    for name, (plan, kernel) in pass_plans.items():
+                                   "polymul_pass_kernel<", ",2")
+    pass_plans["polymul_fixed_fused"] = (F.fixed_pass_plan(n),
+                                         "polymul_pass_kernel<", ",1")
+    for name, (plan, kernel, ops) in pass_plans.items():
         # the launchers run n = 1024 in the kernels built for that length
         # (pass_kernel_for, polymul_pass_kernel_for)
         built = (plan.radix, plan.passes, n) == (32, 2, 1024)
         key = (f"{kernel}{plan.radix},{plan.passes},"
-               f"{tbl.logn if built else 0}>")
+               f"{tbl.logn if built else 0}{ops}>")
         ms, counts = issue_bound_ms(sass[key], B, plan.threads, sms, clock)
         print(f"issue bound {name}: {key}, {counts['total']} SASS "
               f"instructions ({counts['fma']} of the FMA pipe, "

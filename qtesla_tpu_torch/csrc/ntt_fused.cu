@@ -36,7 +36,16 @@
 // for its length, whose every index offset is an immediate.  The plan
 // (ops/ntt_fused.py fused_pass_plan) is checked by the launcher.
 //
-// B2-B4: one thread block per polynomial row, so a ragged batch needs no
+// B4 (qt_polymul_fixed_fused) is B1's kernel with one operand
+// (polymul_pass_kernel<..., 1>): x alone is loaded and carried through the
+// forward's passes and exchanges, and where the forward ends, on the window
+// [0, r), thread t holds positions t R + c, so its R values of the
+// constant's spectrum (one n-value row every block shares) are neighbours,
+// read in 16-byte loads and multiplied in by Barrett; then B1's inverse and
+// store.  Its plan (ops/ntt_fused.py fixed_pass_plan) is B1's with half the
+// shared memory a row, one operand's.
+//
+// B2, B3: one thread block per polynomial row, so a ragged batch needs no
 // padding.  The row is loaded once into shared memory; min(n/2, 512)
 // threads each loop over their butterflies, with __syncthreads() between
 // the log2(n) dependent stages.  Global memory sees exactly one read of each
@@ -46,11 +55,12 @@
 // compact tables.
 //
 // What bounds them on the H100: instruction issue, not HBM.  At n = 1024 one
-// polymul moves 12 KB of device memory; B2-B4 make their stages in shared
-// memory with a block-wide barrier per stage, each butterfly about 30 SASS
-// instructions (index and twiddle-address arithmetic, two shared loads and
-// stores, the Shoup IMADs).  B1's register butterfly is 7 instructions; its
-// passes add one exchange each way and the twiddle loads.
+// polymul moves 12 KB of device memory; B2 and B3 make their stages in
+// shared memory with a block-wide barrier per stage, each butterfly about 30
+// SASS instructions (index and twiddle-address arithmetic, two shared loads
+// and stores, the Shoup IMADs).  The register butterfly of B1 and B4 is 7
+// instructions; their passes add one exchange each way and the twiddle
+// loads.
 //
 // Arithmetic.  q < 2^30, so 4q < 2^32 and Harvey's lazy ranges fit uint32:
 // forward values stay in [0, 4q), inverse values in [0, 2q).  Shoup products
@@ -59,8 +69,9 @@
 // hi * (2^32 mod q) + lo, exact for any uint32 operands (no 64-bit %).
 //
 // Each launcher is extern "C", takes raw pointers, the batch B, n, log2(n),
-// the parameter set's constants (B1 then a pointer to its pass plan) and a
-// stream, launches without synchronising and returns cudaGetLastError().
+// the parameter set's constants (B1 and B4 then a pointer to their pass
+// plan) and a stream, launches without synchronising and returns
+// cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -84,7 +95,7 @@ using qt::two_pass_lo;
 using qt::window_base;
 
 // ---------------------------------------------------------------------------
-// B1: register passes.
+// B1 and B4: register passes.
 // ---------------------------------------------------------------------------
 
 // vec (1, 2 or 4, at most N) neighbouring twiddles and their Shoup
@@ -165,9 +176,16 @@ __device__ __forceinline__ void merged_stages(uint32_t (&v)[NOPS][R], int b,
 }
 
 // LOGN > 0: built for n = 2^LOGN in two passes, gs_ct's schedule known at
-// compile time, so every index offset of a thread is a constant.
-template <int R, int P, int LOGN>
-__global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
+// compile time, so every index offset of a thread is a constant.  NOPS 2:
+// B1, x times y; NOPS 1: B4, x times the spectrum y (n values every row
+// shares), one forward.  B4's kernel built for its length takes three
+// blocks of 256 threads an SM (80 registers, 16 bytes of spill; 0.9635 of
+// its time at two blocks, PERF.md); with run-time windows it would spill
+// 60 bytes there, and keeps two.
+template <int R, int P, int LOGN, int NOPS>
+__global__ void __launch_bounds__(P == 3 ? 512 : 256,
+                                  P == 2 ? (NOPS == 1 && LOGN > 0 ? 3 : 2)
+                                         : 1)
     polymul_pass_kernel(const uint32_t* __restrict__ x,
                         const uint32_t* __restrict__ y,
                         uint32_t* __restrict__ z,
@@ -175,6 +193,7 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
                         int n_arg, int logn_arg, Mod m, uint32_t q2,
                         PassPlan pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
+    static_assert(NOPS == 1 || NOPS == 2, "x and y, or x alone");
     constexpr int r = ilog2(R);
     constexpr bool kConst = LOGN > 0;
     extern __shared__ uint32_t smem[];
@@ -210,7 +229,7 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
 
     // the window [tb, L) reads neighbouring columns with neighbouring
     // threads; canonical input is below 4q
-    uint32_t v[2][R];
+    uint32_t v[NOPS][R];
     int b = tb;
     {
         const int base = window_base(t, b, r);
@@ -218,25 +237,47 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
         for (int c = 0; c < R; ++c) {
             const int i = base + (c << b);
             v[0][c] = x[off + i];
-            v[1][c] = y[off + i];
+            if constexpr (NOPS == 2) v[1][c] = y[off + i];
         }
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
         if (p > 0) {
             const int b2 = win(false, pl.fwd_b[p], p);
-            exchange<kConst, R, 2>(v, buf, stride, b, t, b2, t, warp_rows);
+            exchange<kConst, R, NOPS>(v, buf, stride, b, t, b2, t, warp_rows);
             b = b2;
         }
-        merged_stages<true, R, 2>(v, b, t, lo(false, pl.fwd_lo[p], p),
-                                  hi(false, pl.fwd_hi[p], p), logn, fw, fw_sh,
-                                  q, q2);
+        merged_stages<true, R, NOPS>(v, b, t, lo(false, pl.fwd_lo[p], p),
+                                     hi(false, pl.fwd_hi[p], p), logn, fw,
+                                     fw_sh, q, q2);
     }
 
     // the inverse starts on the forward's last window
     uint32_t u[1][R];
+    if constexpr (NOPS == 2) {
 #pragma unroll
-    for (int c = 0; c < R; ++c) u[0][c] = mulmod_barrett(v[0][c], v[1][c], m);
+        for (int c = 0; c < R; ++c)
+            u[0][c] = mulmod_barrett(v[0][c], v[1][c], m);
+    } else {
+        // that window is [0, r) (the launcher's checks): thread t holds
+        // positions t R + c, R neighbouring values of the spectrum, read
+        // 16 bytes at a time (8 at R = 2) from its 16-byte aligned row
+        const uint32_t* s = y + (static_cast<size_t>(t) << r);
+#pragma unroll
+        for (int c = 0; c < R; c += R < 4 ? 2 : 4) {
+            uint32_t w[4];
+            if constexpr (R < 4) {
+                const uint2 a = __ldg(reinterpret_cast<const uint2*>(s + c));
+                w[0] = a.x, w[1] = a.y;
+            } else {
+                const uint4 a = __ldg(reinterpret_cast<const uint4*>(s + c));
+                w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+            }
+#pragma unroll
+            for (int k = 0; k < (R < 4 ? 2 : 4); ++k)
+                u[0][c + k] = mulmod_barrett(v[0][c + k], w[k], m);
+        }
+    }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
         if (p > 0) {
@@ -271,23 +312,39 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
 // 1024) or three (n <= 16384, as the block's threads allow), and R = 32 in
 // two passes built for n = 1024, whose one schedule the launcher's checks
 // leave is the one two_pass_* restate.
+template <int NOPS>
 PassKernel polymul_pass_kernel_for(int radix, int passes, int logn) {
     if (radix == 32 && passes == 2 && logn == 10)
-        return polymul_pass_kernel<32, 2, 10>;
+        return polymul_pass_kernel<32, 2, 10, NOPS>;
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return polymul_pass_kernel<2, 1, 0>;
-        case 4 * 4 + 1: return polymul_pass_kernel<4, 1, 0>;
-        case 8 * 4 + 1: return polymul_pass_kernel<8, 1, 0>;
-        case 16 * 4 + 1: return polymul_pass_kernel<16, 1, 0>;
-        case 32 * 4 + 1: return polymul_pass_kernel<32, 1, 0>;
-        case 32 * 4 + 2: return polymul_pass_kernel<32, 2, 0>;
-        case 32 * 4 + 3: return polymul_pass_kernel<32, 3, 0>;
+        case 2 * 4 + 1: return polymul_pass_kernel<2, 1, 0, NOPS>;
+        case 4 * 4 + 1: return polymul_pass_kernel<4, 1, 0, NOPS>;
+        case 8 * 4 + 1: return polymul_pass_kernel<8, 1, 0, NOPS>;
+        case 16 * 4 + 1: return polymul_pass_kernel<16, 1, 0, NOPS>;
+        case 32 * 4 + 1: return polymul_pass_kernel<32, 1, 0, NOPS>;
+        case 32 * 4 + 2: return polymul_pass_kernel<32, 2, 0, NOPS>;
+        case 32 * 4 + 3: return polymul_pass_kernel<32, 3, 0, NOPS>;
         default: return nullptr;
     }
 }
 
+// B1 (NOPS 2) and B4 (NOPS 1): the forward from the widest stage down, the
+// inverse from the narrowest up, no bit reversal between them
+template <int NOPS>
+int launch_polymul_passes(const void* a, const void* b, void* out,
+                          const void* tw, long long batch, int n, int logn,
+                          uint32_t q, uint32_t r32, uint32_t r32_sh,
+                          uint32_t one_sh, const void* plan, void* stream) {
+    if (!plan) return cudaErrorInvalidValue;
+    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    return qt::launch_pass_kernel(
+        polymul_pass_kernel_for<NOPS>(pl.radix, pl.passes, logn), pl,
+        qt::PassOrder{false, true, false, false, NOPS}, a, b, out, tw, batch,
+        n, logn, q, r32, r32_sh, one_sh, stream);
+}
+
 // ---------------------------------------------------------------------------
-// B2-B4: a thread block a row.
+// B2, B3: a thread block a row.
 // ---------------------------------------------------------------------------
 
 // Forward stages over NOPS rows of n values held back to back in shared
@@ -361,23 +418,6 @@ __device__ __forceinline__ void load_row(uint32_t* dst,
     for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
 }
 
-__global__ void polymul_fixed_fused_kernel(const uint32_t* __restrict__ x,
-                                           const uint32_t* __restrict__ spec,
-                                           uint32_t* __restrict__ z,
-                                           const uint32_t* __restrict__ tw,
-                                           int n, int logn, Mod m) {
-    extern __shared__ uint32_t smem[];
-    const size_t row = static_cast<size_t>(blockIdx.x) * n;
-    load_row(smem, x + row, n);
-    __syncthreads();
-    fwd_stages<1>(smem, tw, tw + n, n, logn, m.q);
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        smem[k] = mulmod_barrett(smem[k], __ldg(spec + k), m);
-    __syncthreads();
-    inv_stages(smem, tw + 2 * n, tw + 3 * n, n, logn, m.q);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) z[row + k] = smem[k];
-}
-
 __global__ void ntt_fused_kernel(const uint32_t* __restrict__ x,
                                  const uint32_t* __restrict__ /*unused*/,
                                  uint32_t* __restrict__ out,
@@ -440,22 +480,27 @@ int launch(KernelFn kernel, int rows_in_smem, const void* a, const void* b,
                       r32_sh, one_sh, stream);                                \
     }
 
-// B1: the forward from the widest stage down, the inverse from the
-// narrowest up, no bit reversal between them
+// B1 and B4 take a pointer to their pass plan before the stream; B4's b is
+// the constant's spectrum, n values, 16-byte aligned
 extern "C" int qt_polymul_fused(const void* a, const void* b, void* out,
                                 const void* tw, long long batch, int n,
                                 int logn, uint32_t q, uint32_t r32,
                                 uint32_t r32_sh, uint32_t one_sh,
                                 const void* plan, void* stream) {
-    if (!plan) return cudaErrorInvalidValue;
-    const PassPlan pl = *static_cast<const PassPlan*>(plan);
-    return qt::launch_pass_kernel(
-        polymul_pass_kernel_for(pl.radix, pl.passes, logn), pl,
-        qt::PassOrder{false, true, false, false}, a, b, out, tw, batch, n,
-        logn, q, r32, r32_sh, one_sh, stream);
+    return launch_polymul_passes<2>(a, b, out, tw, batch, n, logn, q, r32,
+                                    r32_sh, one_sh, plan, stream);
 }
 
-QT_LAUNCHER(qt_polymul_fixed_fused, polymul_fixed_fused_kernel, 1)
+extern "C" int qt_polymul_fixed_fused(const void* a, const void* b,
+                                      void* out, const void* tw,
+                                      long long batch, int n, int logn,
+                                      uint32_t q, uint32_t r32,
+                                      uint32_t r32_sh, uint32_t one_sh,
+                                      const void* plan, void* stream) {
+    return launch_polymul_passes<1>(a, b, out, tw, batch, n, logn, q, r32,
+                                    r32_sh, one_sh, plan, stream);
+}
+
 QT_LAUNCHER(qt_ntt_fused, ntt_fused_kernel, 1)
 QT_LAUNCHER(qt_intt_fused, intt_fused_kernel, 1)
 

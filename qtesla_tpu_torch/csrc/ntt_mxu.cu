@@ -24,25 +24,9 @@
 // 2^24 to each c_j (so it is a uint32), takes one Shoup product by 2^{8j}
 // mod q per class, and starts from const + kb, kb = group_bias -
 // 2^24 * sum_j 2^{8j} mod q, folded on the host.  Every value handed to a
-// split is canonical, below the JAX bounds (fwd_bound, pw_bound); every
+// split lies below the JAX bounds (fwd_bound, pw_bound); every
 // output is canonical.  The TPU kernel's sloppy Shoup, Horner packing and
 // overflow fixer were vector-unit workarounds and are not replayed.
-//
-// Design of B7 (mxu_kernel).  One block of 512 threads holds `rows`
-// operand rows (at most 32, 128 KiB of uint32: 32 rows at n = 1024) in
-// shared memory for the whole pipeline, loaded with cp.async (every 16-byte
-// copy in flight before one wait).  Per lane block b it splits the rows into
-// int8 planes in shared memory, then each warp takes 8 output lanes of every
-// class and runs mma.sync m16n8k32 s8 over the K = Di * bw depth: A
-// fragments from the planes, B fragments streamed from the dense
-// device-memory table wi four K steps ahead (laid out output-major, (nb,
-// D*bw, Di*bw), so a thread reads 8 contiguous bytes).  Each thread then
-// holds all D classes of its output elements and recombines them in
-// registers; the wide stages follow.  The split, the products and the
-// recombination live in mxu_block.cuh, shared with the sequence-parallel
-// kernels.  The table does not fit in shared memory (q-III: 1.18 MB), so
-// each block reads the whole of it once per `rows` rows, from L2, inside its
-// MMA loop.
 //
 // Design of B5 (polymul_stream_kernel).  B5 ran as mxu_kernel until it was
 // redesigned; measured by ablation on an H100 (PERF.md), its 2.73 ms were
@@ -126,9 +110,24 @@
 // design; loading the next group's rows by cp.async once the last lane
 // block was split (the rows free then) measured 1.0032 and was left out.
 //
+// B7, the inverse transform, is B8 without the forward pass: it runs the
+// kernel in the mode kIntt, over 32 x rows a group under the MXU plan's own
+// inverse split (lazy input below pw_bound, for which the split is exact),
+// its producer streaming the inverse stages of B5's stream alone (its plan
+// has no forward stage, so its block holds the inverse planes alone); the
+// inverse pass stores in place, then the wide stages run in registers and
+// store the live rows from there (no store pass: 0.9599 of the time with
+// one, utils/ab_timing.py).  Until it took that design B7 ran as the last
+// mode of the
+// dense mxu_kernel: each 512-thread block of 32 rows split its rows into
+// planes in shared memory and read the dense wi (1.18 MB at q-III) from L2
+// inside its MMA loop, 0.7788 ms at 32768 q-III rows on an H100 80GB HBM3
+// at 700 W (PERF.md); with it went the last user of mxu_block.cuh's
+// block_matmul in this file.
+//
 // Each launcher is extern "C", takes raw pointers, the batch B, a pointer to
-// an MxuPlan (B5, B6, B8, B9: an MxuStreamPlan) and a stream, launches without
-// synchronising and returns cudaGetLastError().
+// an MxuStreamPlan and a stream, launches without synchronising and returns
+// cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -139,11 +138,9 @@
 
 namespace {
 
-using qt::block_matmul;
 using qt::cp_async16;
 using qt::cp_async_wait_all;
 using qt::kMaxClasses;
-using qt::kMaxRows;
 using qt::kPad;
 using qt::Mod;
 using qt::mulmod_barrett;
@@ -158,76 +155,6 @@ struct MxuPlan {
 };
 
 constexpr int kThreads = 512;
-
-// B7 is the one mode left of the dense kernel; it keeps the number it had
-// beside B6 and B8, so that mxu_kernel<3> keeps the instantiation name
-// utils/sass_diff.py matches across trees (B5, B6, B8 and B9 are
-// polymul_stream_kernel below)
-constexpr int kIntt = 3;
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
-    mxu_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ z,
-               const int8_t* __restrict__ wi, const uint32_t* __restrict__ ci,
-               const uint32_t* __restrict__ tw, long long batch,
-               const __grid_constant__ MxuPlan p) {
-    static_assert(MODE == kIntt, "mxu_kernel runs B7 alone");
-    extern __shared__ __align__(16) uint32_t smem[];
-    const int n = p.n, tb = p.rows;
-    const int ks = (p.df > p.di ? p.df : p.di) * p.bw + kPad;
-    uint32_t* data = smem;
-    int8_t* planes = reinterpret_cast<int8_t*>(smem + p.rows * n);
-    const long long row0 = static_cast<long long>(blockIdx.x) * tb;
-    const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
-    const size_t base = static_cast<size_t>(row0) * n;
-
-    // rows past the batch are zero-filled; every copy is in flight before
-    // the one wait
-    for (int c = threadIdx.x * 4; c < tb * n; c += blockDim.x * 4) {
-        const bool ok = (c >> p.logn) < live;
-        cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    const int K = p.di * p.bw;
-    block_matmul(data, tb, n, p.bw, p.nb, planes, ks, wi,
-                 static_cast<size_t>(p.d) * p.bw * K, K, ci, p.bw, p.di,
-                 p.inv_lb, p.inv_add, p.kbi, p);
-    qt::inv_wide(data, tb, p.logn, 0, p.lr, tw, p.q);
-
-    for (int c = threadIdx.x * 4; c < tb * n; c += blockDim.x * 4)
-        if ((c >> p.logn) < live)
-            *reinterpret_cast<uint4*>(z + base + c) =
-                *reinterpret_cast<const uint4*>(data + c);
-}
-
-int launch_intt(const void* a, void* out, const void* wi, const void* ci,
-                const void* tw, long long batch, const void* plan,
-                void* stream) {
-    const MxuPlan p = *static_cast<const MxuPlan*>(plan);
-    if (p.rows < 1 || p.rows > kMaxRows || p.d < 1 ||
-        p.d > kMaxClasses || p.bw % 32 || p.bw > p.n || p.n != 1 << p.logn ||
-        p.nb * p.bw != p.n || p.n >> p.lr != p.bw)
-        return cudaErrorInvalidValue;
-    const long long blocks = (batch + p.rows - 1) / p.rows;
-    if (batch <= 0 || blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-    const int ks = (p.df > p.di ? p.df : p.di) * p.bw + kPad;
-    const size_t smem = static_cast<size_t>(p.rows) * p.n * sizeof(uint32_t) +
-                        static_cast<size_t>((p.rows + 15) / 16 * 16) * ks;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            mxu_kernel<kIntt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return e;
-    }
-    mxu_kernel<kIntt><<<dim3(static_cast<unsigned>(blocks)), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
-        static_cast<const int8_t*>(wi), static_cast<const uint32_t*>(ci),
-        static_cast<const uint32_t*>(tw), batch, p);
-    return cudaGetLastError();
-}
 
 // ----------------------------------------------------------------------
 // B5: polymul_stream_kernel (header note: design of B5).
@@ -411,10 +338,13 @@ __device__ void fwd_wide_regs(uint32_t* data, int rows, int logn,
 // The last R merged-psi GS stages of the n-point transform over `rows`
 // rows, as qt::inv_wide computes them (n^{-1} in the last), in the same
 // register passes: stage s' < R pairs k with k + 2^s' under itw[h + (k >>
-// (s' + 1))], h = 2^(R-s'-1).
-template <int R>
+// (s' + 1))], h = 2^(R-s'-1).  kOut: the values go from the registers to
+// rows r < live of `out` (row length n) in place of `data`, so that no
+// store pass follows (B7).
+template <int R, bool kOut>
 __device__ void inv_wide_regs(uint32_t* data, int rows, int logn,
-                              const uint32_t* __restrict__ tw, uint32_t q) {
+                              const uint32_t* __restrict__ tw, uint32_t q,
+                              uint32_t* __restrict__ out, int live) {
     constexpr int kV = 1 << R;
     const int n = 1 << logn, lc = logn - R;
     uint32_t w[kV], w_sh[kV];        // w[0] = n^{-1}
@@ -444,27 +374,41 @@ __device__ void inv_wide_regs(uint32_t* data, int rows, int logn,
                     qt::shoup_lazy(u - x + q, w[i], w_sh[i], q), q);
             }
         }
+        if constexpr (kOut) {
+            if ((idx >> lc) < live) {
+                uint32_t* o = out + (a - data);
 #pragma unroll
-        for (int k = 0; k < kV; ++k) a[k << lc] = v[k];
+                for (int k = 0; k < kV; ++k) o[k << lc] = v[k];
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < kV; ++k) a[k << lc] = v[k];
+        }
     }
     Team::sync();
 }
 
 // B5's Lr wide stages, forward or inverse, over `rows` rows: in registers
 // up to Lr = 4 (16 values a thread), else qt::fwd_wide / qt::inv_wide.
-template <bool kInverse>
-__device__ void wide_stages(uint32_t* data, int rows, const MxuPlan& p,
-                            const uint32_t* __restrict__ tw) {
+// kOut (B7's inverse): the stages in registers store rows r < live of
+// `out` (row length n) themselves; whether they did, or the caller stores
+// the rows.
+template <bool kInverse, bool kOut = false>
+__device__ bool wide_stages(uint32_t* data, int rows, const MxuPlan& p,
+                            const uint32_t* __restrict__ tw,
+                            uint32_t* __restrict__ out = nullptr,
+                            int live = 0) {
+    static_assert(kInverse || !kOut, "the forward stages stay in place");
     switch (p.lr) {
     case 0:
-        return;
+        return false;
 #define QT_WIDE_CASE(r)                                                      \
     case r:                                                                  \
         if (kInverse)                                                        \
-            inv_wide_regs<r>(data, rows, p.logn, tw, p.q);                   \
+            inv_wide_regs<r, kOut>(data, rows, p.logn, tw, p.q, out, live);  \
         else                                                                 \
             fwd_wide_regs<r>(data, rows, p.logn, tw, p.q);                   \
-        return;
+        return kOut;
         QT_WIDE_CASE(1)
         QT_WIDE_CASE(2)
         QT_WIDE_CASE(3)
@@ -475,6 +419,7 @@ __device__ void wide_stages(uint32_t* data, int rows, const MxuPlan& p,
             qt::inv_wide<Team>(data, rows, p.logn, 0, p.lr, tw, p.q);
         else
             qt::fwd_wide<Team>(data, rows, p.logn, 0, p.lr, tw, p.q);
+        return false;
     }
 }
 
@@ -648,10 +593,13 @@ size_t stream_smem(const MxuStreamPlan& p) {
 // they had when the mode was a bool: B5's product of x and y, B9's product
 // against a folded constant, B8's product against a constant's stored
 // spectrum, B6's forward transform.
-enum StreamMode { kProduct = 0, kFolded = 1, kFixed = 2, kNtt = 3 };
+enum StreamMode {
+    kProduct = 0, kFolded = 1, kFixed = 2, kNtt = 3, kIntt = 4
+};
 
-// B5: x's tb rows above y's.  B9, B8, B6: tb = rows x rows; B9's inverse
-// stages are the constant's, B8's B5's own, and B6 has no inverse pass.
+// B5: x's tb rows above y's.  B9, B8, B6, B7: tb = rows x rows; B9's
+// inverse stages are the constant's, B8's and B7's B5's own; B6 has no
+// inverse pass and B7 no forward one.
 template <int D, int MODE>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     polymul_stream_kernel(const uint32_t* __restrict__ x,
@@ -677,8 +625,9 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     uint64_t* empty = full + ring;
     const long long groups = (batch + tb - 1) / tb;
     const long long iters = (groups - blockIdx.x + gridDim.x - 1) / gridDim.x;
-    // B6's plan has no inverse stages (stages_i 0): the producer streams
-    // the stages the consumers take, or the ring deadlocks
+    // B6's plan has no inverse stages (stages_i 0) and B7's no forward ones
+    // (stages_f 0): the producer streams the stages the consumers take, or
+    // the ring deadlocks
     const int fwd_stages = p.nb * p.stages_f;
     const int per_group = fwd_stages + p.nb * p.stages_i;
 
@@ -734,27 +683,33 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
             }
             cp_async_wait_all();
             Team::sync();
-            wide_stages<false>(data, rows, p, tw);
+            if constexpr (MODE != kIntt)
+                wide_stages<false>(data, rows, p, tw);
             const PassOut own{data, tb, nullptr};
-            if constexpr (MODE == kFolded || MODE == kFixed) {
+            if constexpr (MODE == kFolded || MODE == kFixed ||
+                          MODE == kIntt) {
                 // B9, B8: the forward pass stores the spectrum in place (B8:
                 // times the constant's spectrum y), the inverse one runs
                 // against the inverse stages and const rows (B9: the
                 // constant's, under the fold plan's split), over one 16-row
-                // MMA tile or two
+                // MMA tile or two; B7 runs the inverse pass alone
                 constexpr int kFwd = MODE == kFixed ? kSpectrumProduct : kStore;
                 const PassOut fwd{data, tb, y};
                 if (tb > 16) {
-                    stream_matmul<D, 2, kFwd>(data, tb, p.stages_f, p.df,
-                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                              planes, ks, sr, rg, p, m, fwd);
+                    if constexpr (MODE != kIntt)
+                        stream_matmul<D, 2, kFwd>(data, tb, p.stages_f, p.df,
+                                                  p.fwd_lb, p.fwd_add, p.kbf,
+                                                  cf, planes, ks, sr, rg, p, m,
+                                                  fwd);
                     stream_matmul<D, 2, kStore>(data, tb, p.stages_i, p.di,
                                                 p.inv_lb, p.inv_add, p.kbi, ci,
                                                 planes, ks, sr, rg, p, m, own);
                 } else {
-                    stream_matmul<D, 1, kFwd>(data, tb, p.stages_f, p.df,
-                                              p.fwd_lb, p.fwd_add, p.kbf, cf,
-                                              planes, ks, sr, rg, p, m, fwd);
+                    if constexpr (MODE != kIntt)
+                        stream_matmul<D, 1, kFwd>(data, tb, p.stages_f, p.df,
+                                                  p.fwd_lb, p.fwd_add, p.kbf,
+                                                  cf, planes, ks, sr, rg, p, m,
+                                                  fwd);
                     stream_matmul<D, 1, kStore>(data, tb, p.stages_i, p.di,
                                                 p.inv_lb, p.inv_add, p.kbi, ci,
                                                 planes, ks, sr, rg, p, m, own);
@@ -803,7 +758,11 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
                                             p.inv_lb, p.inv_add, p.kbi, ci,
                                             planes, ks, sr, rg, p, m, own);
             }
-            wide_stages<true>(data, tb, p, tw);
+            // B7 stores its live rows from the wide stages' registers, whose
+            // barrier ends the group
+            if (wide_stages<true, MODE == kIntt>(data, tb, p, tw, z + base,
+                                                 live))
+                continue;
             for (int c = threadIdx.x * 4; c < tb * n; c += kConsumers * 4)
                 if ((c >> p.logn) < live)
                     *reinterpret_cast<uint4*>(z + base + c) =
@@ -850,11 +809,11 @@ int run_polymul_stream(const void* a, const void* b, void* out,
 }
 
 // B5: x's tb rows above y's, one m16 tile (tb <= 8) or two (tb = 16).  B9,
-// B8, B6: tb x rows, one m16 tile (tb <= 16) or two (tb = 32).  stream_f is
-// B5's stage stream of both directions, the inverse stages after the
-// forward ones: B5 and B8 read all of it, B9 and B6 its forward stages;
-// stream_i is B9's constant's inverse stages.  B6 streams no inverse stage
-// (stages_i 0).
+// B8, B6, B7: tb x rows, one m16 tile (tb <= 16) or two (tb = 32).
+// stream_f is B5's stage stream of both directions, the inverse stages
+// after the forward ones: B5 and B8 read all of it, B9 and B6 its forward
+// stages, B7 its inverse ones; stream_i is B9's constant's inverse stages.
+// B6 streams no inverse stage (stages_i 0), B7 no forward one (stages_f 0).
 template <int MODE>
 int launch_polymul_stream(const void* a, const void* b, void* out,
                           const void* stream_f, const void* stream_i,
@@ -862,21 +821,22 @@ int launch_polymul_stream(const void* a, const void* b, void* out,
                           long long batch, const void* plan,
                           void* cuda_stream) {
     const MxuStreamPlan p = *static_cast<const MxuStreamPlan*>(plan);
-    const int inv_stages =
-        MODE == kNtt ? 0 : (p.di * p.bw + kStageK - 1) / kStageK;
+    // the stages of a lane block's forward and inverse tables in the stream
+    const int fwd_stages = (p.df * p.bw + kStageK - 1) / kStageK;
+    const int inv_stages = (p.di * p.bw + kStageK - 1) / kStageK;
     if (p.rows < (MODE == kProduct ? 2 : 1) ||
         (p.rows > 16 && p.rows != 32) || (MODE == kProduct && p.rows % 2) ||
         p.d < 1 || p.d > kMaxClasses || p.bw < 32 || p.bw > 128 ||
         p.bw % 32 || p.n != 1 << p.logn || p.nb * p.bw != p.n ||
         p.n >> p.lr != p.bw || !valid_split(p.df, p.fwd_lb) ||
         !valid_split(p.di, p.inv_lb) ||
-        p.stages_f != (p.df * p.bw + kStageK - 1) / kStageK ||
-        p.stages_i != inv_stages || p.ring < 2 ||
+        p.stages_f != (MODE == kIntt ? 0 : fwd_stages) ||
+        p.stages_i != (MODE == kNtt ? 0 : inv_stages) || p.ring < 2 ||
         batch <= 0 || stream_smem(p) + kBlockReserve > kSmShared)
         return cudaErrorInvalidValue;
-    if (MODE == kProduct || MODE == kFixed)
+    if (MODE == kProduct || MODE == kFixed || MODE == kIntt)
         stream_i = static_cast<const int8_t*>(stream_f) +
-                   static_cast<size_t>(p.nb) * p.stages_f * kStageK * p.bw *
+                   static_cast<size_t>(p.nb) * fwd_stages * kStageK * p.bw *
                        p.d;
     switch (p.d) {
     case 1:
@@ -929,13 +889,15 @@ extern "C" int qt_ntt_mxu(const void* a, const void*, void* out,
                                        nullptr, tw, batch, plan, stream);
 }
 
-// B7: wi and ci the dense inverse tables (MxuDeviceTables.wi, .consti);
-// b, wf and cf unused; plan an MxuPlan
-extern "C" int qt_intt_mxu(const void* a, const void*, void* out, const void*,
-                           const void*, const void* wi, const void* ci,
-                           const void* tw, long long batch, const void* plan,
-                           void* stream) {
-    return launch_intt(a, out, wi, ci, tw, batch, plan, stream);
+// B7: wf the same stream (its inverse stages), ci the inverse const rows
+// (MxuDeviceTables.consti); b, cf and wi unused; plan an MxuStreamPlan
+// with no forward stages
+extern "C" int qt_intt_mxu(const void* a, const void*, void* out,
+                           const void* wf, const void*, const void*,
+                           const void* ci, const void* tw, long long batch,
+                           const void* plan, void* stream) {
+    return launch_polymul_stream<kIntt>(a, nullptr, out, wf, nullptr, nullptr,
+                                        ci, tw, batch, plan, stream);
 }
 
 // B9: wf the same stream (its forward stages), wi the constant's inverse

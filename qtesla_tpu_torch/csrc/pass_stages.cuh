@@ -1,5 +1,5 @@
 // Register passes of butterfly stages, shared by the pass kernels of
-// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1).
+// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1, B4).
 //
 // A row of n = 2^L values is held by T = n / R threads, R values of each
 // operand a thread.  In a pass, thread vt holds the R indices that differ
@@ -233,9 +233,11 @@ using PassKernel = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
 
 // The order of a pass kernel's transforms: each from the narrowest stage
 // up or not, a bit reversal between them (reflect) or not, Stockham's
-// windows or not.
+// windows or not; and the operands its exchanges carry (B4's forward runs
+// on x alone).
 struct PassOrder {
     bool fwd_up, inv_up, reflect, stk;
+    int operands = 2;
 };
 
 // Checks the plan against the kernel chosen for it (null: none) and
@@ -267,7 +269,9 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
         return cudaErrorInvalidValue;
     size_t smem = 0;
     if (pl.passes > 1) {
-        if (pl.row_stride < 2 * (n + (n >> 5))) return cudaErrorInvalidValue;
+        if (order.operands < 1 || order.operands > 2 ||
+            pl.row_stride < order.operands * (n + (n >> 5)))
+            return cudaErrorInvalidValue;
         smem = static_cast<size_t>(pl.rows) * pl.row_stride * sizeof(uint32_t);
         if (smem > kMaxSmem) return cudaErrorInvalidValue;
     }

@@ -28,8 +28,9 @@
 //         then the Lr inverse wide stages with n1^{-1} in the last; at
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
-// The wide stages and the dense block matmul are mxu_block.cuh's, shared
-// with B7; B11-B13, B16 and B17 multiply through mxu_compact.cuh.  Every
+// The wide stages and the dense block matmul are mxu_block.cuh's (B14 and
+// B15 run the block matmul); B11-B13, B16 and B17 multiply through
+// mxu_compact.cuh.  Every
 // output is canonical, and canonical inputs lie below every plan's split
 // bound, so the JAX plans' split parameters serve unchanged; the TPU
 // kernel's lazy hand-offs between segments are not replayed.

@@ -19,13 +19,15 @@ Every successful launch adds one to its kernel's ``launches`` count in
 On the H100 the kernels are bound by instruction issue, not by device
 memory, which sees one read per operand and one write of z.  B1 runs in
 register passes (``csrc/pass_stages.cuh``) on gs_ct's window sequence, under
-``fused_pass_plan(n)``, which its launcher checks; ``polymul_fused_passes_plain``
-runs that schedule on the CPU with the kernel's index maps, exchanges and
-lazy ranges.  B2-B4 keep each row in shared memory for the whole pipeline
-(one thread block per row, a block-wide barrier between the log2(n)
-dependent stages).  All read twiddles from compact n-entry tables instead
-of the TPU kernel's full-width (L, n) tables; see the note at the top of
-the CUDA source.
+``fused_pass_plan(n)``, which its launcher checks; B4 runs B1's kernel with
+one operand (x alone through the forward, the spectrum multiplied in where
+the forward ends) under ``fixed_pass_plan(n)``.  ``polymul_fused_passes_plain``
+and ``polymul_fixed_fused_passes_plain`` run those schedules on the CPU with
+the kernel's index maps, exchanges and lazy ranges.  B2 and B3 keep each row
+in shared memory for the whole pipeline (one thread block per row, a
+block-wide barrier between the log2(n) dependent stages).  All read
+twiddles from compact n-entry tables instead of the TPU kernel's full-width
+(L, n) tables; see the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from .tables import NttTables, get_tables
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
            "ntt_fused_fn", "intt_fused_fn", "polymul_fused",
            "polymul_fixed_fused", "ntt_fused", "intt_fused",
-           "fused_pass_plan", "polymul_fused_passes_plain"]
+           "fused_pass_plan", "fixed_pass_plan", "polymul_fused_passes_plain",
+           "polymul_fixed_fused_passes_plain"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_fused.cu"
 
@@ -71,7 +74,7 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     Kernel("polymul_fused", "qt_polymul_fused",
            "qtesla_tpu/ops/ntt_pallas.py:100", 0),
     Kernel("polymul_fixed_fused", "qt_polymul_fixed_fused",
-           "qtesla_tpu/ops/ntt_pallas.py:112", 1),
+           "qtesla_tpu/ops/ntt_pallas.py:112", 0),
     Kernel("ntt_fused", "qt_ntt_fused", "qtesla_tpu/ops/ntt_pallas.py:123", 1),
     Kernel("intt_fused", "qt_intt_fused", "qtesla_tpu/ops/ntt_pallas.py:129",
            1),
@@ -179,7 +182,7 @@ def intt_plain(X, tbl: NttTables, tw=None) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# B1's register passes: the plan and its schedule on the CPU.
+# B1's and B4's register passes: the plans and their schedule on the CPU.
 # ----------------------------------------------------------------------
 
 def fused_pass_plan(n: int) -> PassPlan:
@@ -190,39 +193,38 @@ def fused_pass_plan(n: int) -> PassPlan:
     return pass_plan(n, False, True)
 
 
-def polymul_fused_passes_plain(x, y, tbl: NttTables,
-                               plan: PassPlan | None = None):
-    """z = x * y mod (X^n + 1) mod q through B1's schedule (``plan``,
-    ``fused_pass_plan`` unless given), on the CPU (``passes.PassModel``):
-    the kernel's index maps and exchanges, CT butterflies widest first and
-    GS butterflies narrowest first with the merged-psi twiddles indexed by
-    the bits above the stage, the last inverse stage with the store (n^{-1}
-    on the sum, psi^{-1}_rev[1] n^{-1} on the difference), lazy ranges
-    asserted."""
+def fixed_pass_plan(n: int) -> PassPlan:
+    """B4's schedule at row length ``n``: B1's, with the shared memory a
+    row of one operand (its forward runs on x alone).  Cached: copy it
+    before changing a field."""
+    return pass_plan(n, False, True, operands=1)
+
+
+def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
+    """The pass schedule of B1 and B4 over the (B, n) int64 rows ``ops`` (x
+    and y, or x alone) on the CPU: the forward's passes of every operand,
+    ``product(V, mdl, b)`` of the values V (rows, operands, T, R) in the
+    forward's last window b, then the inverse's passes and the last stage
+    with the store; the rows of z."""
     n, L, q = tbl.n, tbl.logn, tbl.q
-    plan = fused_pass_plan(n) if plan is None else plan
     fw, fw_sh, iw, iw_sh = torch.from_numpy(tbl.packed.astype(np.int64))
-    lead = x.shape[:-1]
-    xs, ys = (a.reshape(-1, n).to(_I64) for a in (x, y))
-    B = xs.shape[0]
+    B = ops[0].shape[0]
     mdl = PassModel(plan, n, q, B)
-    xs, ys = mdl.pad(xs), mdl.pad(ys)
+    ops = [mdl.pad(a) for a in ops]
     t, tb, R = mdl.t, mdl.tb, plan.radix
 
     b = tb
     idx = mdl.window(t, b)
     # (rows, operand, thread, register); no weighting: psi is merged
-    V = torch.stack([a[:, idx] for a in (xs, ys)], 1)
+    V = torch.stack([a[:, idx] for a in ops], 1)
     for p in range(plan.passes):
         if p:
             V, b, _ = mdl.exchange(V, b, t, plan.fwd_b[p], t)
         assert b == plan.fwd_b[p]
         V = mdl.merged_stages(V, b, t, plan.fwd_lo[p], plan.fwd_hi[p], fw,
                               fw_sh, fwd=True)
-    ps = tbl.ps
     # the inverse starts on the forward's last window
-    V = MM.mulmod_barrett(V[:, :1], V[:, 1:], q, ps.r32, ps.r32_shoup,
-                          ps.one_shoup)
+    V = product(V, mdl, b)
     for p in range(plan.passes):
         if p:
             V, b, _ = mdl.exchange(V, b, t, plan.inv_b[p], t)
@@ -237,9 +239,53 @@ def polymul_fused_passes_plain(x, y, tbl: NttTables,
         MM._csub(MM.shoup_mulmod_lazy(U + D, iw[0], iw_sh[0], q), q),
         MM._csub(MM.shoup_mulmod_lazy(U + 2 * q - D, iw[1], iw_sh[1], q), q)],
         -1)
-    z = torch.zeros_like(xs)
+    z = torch.zeros_like(ops[0])
     z[:, mdl.window(t, tb)] = out
-    return z[:B].reshape(*lead, n).to(_U32)
+    return z[:B]
+
+
+def _barrett(a, b, tbl: NttTables):
+    ps = tbl.ps
+    return MM.mulmod_barrett(a, b, tbl.q, ps.r32, ps.r32_shoup, ps.one_shoup)
+
+
+def polymul_fused_passes_plain(x, y, tbl: NttTables,
+                               plan: PassPlan | None = None):
+    """z = x * y mod (X^n + 1) mod q through B1's schedule (``plan``,
+    ``fused_pass_plan`` unless given), on the CPU (``passes.PassModel``):
+    the kernel's index maps and exchanges, CT butterflies widest first and
+    GS butterflies narrowest first with the merged-psi twiddles indexed by
+    the bits above the stage, the last inverse stage with the store (n^{-1}
+    on the sum, psi^{-1}_rev[1] n^{-1} on the difference), lazy ranges
+    asserted."""
+    n = tbl.n
+    plan = fused_pass_plan(n) if plan is None else plan
+    z = _polymul_passes_plain(
+        [a.reshape(-1, n).to(_I64) for a in (x, y)], tbl, plan,
+        lambda V, mdl, b: _barrett(V[:, :1], V[:, 1:], tbl))
+    return z.reshape(*x.shape[:-1], n).to(_U32)
+
+
+def polymul_fixed_fused_passes_plain(x, yspec, tbl: NttTables,
+                                     plan: PassPlan | None = None):
+    """x times the constant whose forward spectrum is ``yspec`` (n values,
+    any uint32) through B4's schedule (``plan``, ``fixed_pass_plan`` unless
+    given), on the CPU: B1's with x alone through the forward, and where the
+    forward ends (the window [0, r), thread t holding positions t R + c) the
+    Barrett product with the spectrum's values at those positions."""
+    n = tbl.n
+    plan = fixed_pass_plan(n) if plan is None else plan
+    spec = yspec.reshape(n).to(_I64)
+
+    def product(V, mdl, b):
+        idx = mdl.window(mdl.t, b)
+        assert b == 0 and bool((idx == torch.arange(n).reshape(idx.shape))
+                               .all())
+        return _barrett(V, spec[idx], tbl)
+
+    z = _polymul_passes_plain([x.reshape(-1, n).to(_I64)], tbl, plan,
+                              product)
+    return z.reshape(x.shape).to(_U32)
 
 
 # ----------------------------------------------------------------------
@@ -266,7 +312,10 @@ def polymul_fixed_fused(x, yspec, tbl: NttTables, tw=None) -> torch.Tensor:
         raise ValueError(f"spectrum must hold n={tbl.n} values, got "
                          f"{tuple(yspec.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fixed_fused"], tbl, tw, x, yspec)
+        if yspec.data_ptr() % 16:
+            yspec = yspec.clone()     # the kernel reads it 16 bytes a load
+        return _launch(KERNELS["polymul_fixed_fused"], tbl, tw, x, yspec,
+                       fixed_pass_plan(tbl.n))
     return polymul_fixed_plain(x, yspec, tbl, tw)
 
 

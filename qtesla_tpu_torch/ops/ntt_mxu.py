@@ -96,8 +96,8 @@ class MxuDeviceTables:
     ``wi`` again as the stages the stream kernel copies into shared memory
     (``mxu_tables.stream_tables``): B5 and B8 read all of it, B6 and B9 its
     first nb*Cf stages, the forward ones (B9's inverse stages are the
-    constant's).  The dense ``wf`` and ``wi`` are read by the twins and
-    ``wi`` by B7."""
+    constant's), B7 the rest, the inverse ones.  The dense ``wf`` and
+    ``wi`` are read by the twins alone."""
 
     wf: torch.Tensor
     constf: torch.Tensor
@@ -381,7 +381,7 @@ def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
 
 
 class MxuStreamPlan(ctypes.Structure):
-    """The stream kernel's run-time plan (B5, B6, B8, B9): ``MxuPlan``'s
+    """The stream kernel's run-time plan (B5-B9): ``MxuPlan``'s
     fields, then the stages of a forward and of an inverse block matmul and
     the stages the kernel's ring holds; field for field the
     ``MxuStreamPlan`` struct of ``csrc/ntt_mxu.cu``."""
@@ -397,12 +397,13 @@ _SM_SHARED, _BLOCK_RESERVE, _PLANES_PAD, _MAX_RING = 233472, 1024, 16, 8
 
 
 def stream_smem(mt: MxuTables, rows: int, ring: int,
-                di: int | None = None) -> int:
+                di: int | None = None, df: int | None = None) -> int:
     """Shared memory of one stream kernel block: ``ring`` stages, ``rows``
-    rows, their digit planes (an inverse split of ``di`` planes, ``mt.Di``
-    unless given; 0 for B6, which has no inverse pass) and two barriers a
-    stage."""
-    ks = max(stream_stages(mt.Df, mt.bw),
+    rows, their digit planes (a forward split of ``df`` planes, ``mt.Df``
+    unless given, 0 for B7, which has no forward pass; an inverse split of
+    ``di`` planes, ``mt.Di`` unless given, 0 for B6, which has no inverse
+    pass) and two barriers a stage."""
+    ks = max(stream_stages(mt.Df if df is None else df, mt.bw),
              stream_stages(mt.Di if di is None else di, mt.bw)
              ) * STAGE_DEPTH + _PLANES_PAD
     return (ring * STAGE_DEPTH * mt.bw * mt.D + rows * mt.n * 4
@@ -411,8 +412,8 @@ def stream_smem(mt: MxuTables, rows: int, ring: int,
 
 # the stream kernel's modes, in the order of its StreamMode: B5's product
 # of x and y, B9's product against a folded constant, B8's product against
-# a constant's stored spectrum, B6's forward transform
-STREAM_MODES = ("product", "folded", "fixed", "ntt")
+# a constant's stored spectrum, B6's forward transform, B7's inverse one
+STREAM_MODES = ("product", "folded", "fixed", "ntt", "intt")
 
 
 @functools.lru_cache(maxsize=None)
@@ -421,10 +422,11 @@ def stream_plan(mt: MxuTables, mode: str = "product",
     """The stream kernel's run-time plan for one of ``STREAM_MODES``: B5's
     (``plan_for(mt, 2)``: x's and y's rows), B9's (``fold_plan_for(mt,
     fp)``, ``fp`` the fold plan, ``fold_plan(mt)`` unless given: x rows
-    alone, the fold plan's inverse split), B8's and B6's (``plan_for(mt,
-    1)``: x rows alone, ``mt``'s own split; B6 streams no inverse stage,
-    ``stages_i`` 0), with the stage counts and the deepest ring that fits
-    beside the rows and their planes (3 stages of 24 KiB at
+    alone, the fold plan's inverse split), B8's, B6's and B7's
+    (``plan_for(mt, 1)``: x rows alone, ``mt``'s own split; B6 streams no
+    inverse stage, ``stages_i`` 0, and B7 no forward one, ``stages_f`` 0),
+    with the stage counts and the deepest ring that fits beside the rows
+    and the planes the mode holds (3 stages of 24 KiB at
     qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan the
     kernel cannot take raises: more than 4 digit classes, a split other
     than at most 4 planes of base 256 or 6 of base 128, a lane block wider
@@ -447,24 +449,25 @@ def stream_plan(mt: MxuTables, mode: str = "product",
     if mt.bw > 128 or (base.rows > 16 and base.rows != 32):
         raise ValueError(f"bw={mt.bw}, rows={base.rows}: outside the stream "
                          f"kernel's range")
-    held = 0 if mode == "ntt" else di       # inverse planes the block holds
+    # the forward and inverse planes the block holds
+    held_f = 0 if mode == "intt" else mt.Df
+    held_i = 0 if mode == "ntt" else di
     ring = max((r for r in range(2, _MAX_RING + 1)
-                if stream_smem(mt, base.rows, r, held) + _BLOCK_RESERVE
-                <= _SM_SHARED), default=0)
+                if stream_smem(mt, base.rows, r, held_i, held_f)
+                + _BLOCK_RESERVE <= _SM_SHARED), default=0)
     if not ring:
         raise ValueError(f"n={mt.n}: two stages do not fit beside the rows")
     fields = {f: getattr(base, f) for f, _ in MxuPlan._fields_}
-    return MxuStreamPlan(**fields, stages_f=stream_stages(mt.Df, mt.bw),
-                         stages_i=stream_stages(held, mt.bw), ring=ring)
+    return MxuStreamPlan(**fields, stages_f=stream_stages(held_f, mt.bw),
+                         stages_i=stream_stages(held_i, mt.bw), ring=ring)
 
 
 def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
             wf, cf, wi=None, ci) -> torch.Tensor:
     """Run ``kernel`` on CUDA tensors a (and b) into a new output, against
     the forward weights and const ``wf``, ``cf`` and the inverse ones
-    ``wi``, ``ci`` (B5, B6, B8: ``wf`` the stage stream, no ``wi``; B9:
-    ``wf`` the same stream, ``wi`` the constant's stages; B7: the dense
-    ``wi`` alone)."""
+    ``wi``, ``ci`` (B5-B8: ``wf`` the stage stream, no ``wi``; B9: ``wf``
+    the same stream, ``wi`` the constant's stages)."""
     from ..utils.build import load_library
 
     out = torch.empty_like(a)
@@ -571,8 +574,8 @@ def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     ``mt.pw_bound``, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_mxu"], mt, plan_for(mt, 1), tw, X, None,
-                       wf=None, cf=None, wi=tabs.wi, ci=tabs.consti)
+        return _launch(KERNELS["intt_mxu"], mt, stream_plan(mt, "intt"), tw,
+                       X, None, wf=tabs.stream, cf=None, ci=tabs.consti)
     return intt_mxu_plain(X, mt, tabs, tw)
 
 

@@ -1,5 +1,5 @@
 """The register-pass schedule shared by the pass kernels (B10's five
-pairings, B1), and a model of those kernels on the CPU.
+pairings, B1, B4), and a model of those kernels on the CPU.
 
 A row of n = 2^L values is held by T = n / R threads, R values of each
 operand a thread; a pass runs up to r = log2(R) stages in registers on the
@@ -10,9 +10,10 @@ pass's stages and window, the shared memory a row; it refuses what the
 launcher refuses.  ``PassModel`` runs a schedule on the CPU with the
 kernels' index maps, exchanges through a model of each block's shared memory
 at the kernels' padded addresses and uint32 lazy arithmetic (asserted), so
-that the CPU twins ``ntt_pairings.polymul_pairing_passes_plain`` and
-``ntt_fused.polymul_fused_passes_plain`` hold the schedules themselves
-against the plain pipelines and JAX.
+that the CPU twins ``ntt_pairings.polymul_pairing_passes_plain``,
+``ntt_fused.polymul_fused_passes_plain`` and
+``ntt_fused.polymul_fixed_fused_passes_plain`` hold the schedules
+themselves against the plain pipelines and JAX.
 
 Stockham's windows follow its autosort: at the start of each pass thread t
 holds the Stockham positions t + c 2^tb (tb = L - r) of the stage st the
@@ -78,20 +79,24 @@ def schedule(L: int, r: int, sizes: list[int], up: bool,
 
 @functools.lru_cache(maxsize=None)
 def pass_plan(n: int, fwd_up: bool, inv_up: bool,
-              stockham: bool = False) -> PassPlan:
+              stockham: bool = False, operands: int = 2) -> PassPlan:
     """The schedule of a pass kernel at row length ``n`` whose forward runs
     from the narrowest stage up (``fwd_up``) or the widest down, likewise
     its inverse: R = min(n, 32) values of each operand a thread, n / R
     threads a row, rows enough for a block of 256 threads (one row when a
     row takes more), ceil(log2(n) / log2(R)) passes a transform, the stages
     split as evenly as they go, larger first; under Stockham's windows the
-    last pass takes r stages and the others split the rest so.  Raises for
+    last pass takes r stages and the others split the rest so; shared
+    memory a row for the ``operands`` its exchanges carry (2, or 1 for
+    B4's, whose forward runs on x alone).  Raises for
     what the launchers refuse: an n that is not a power of two from 2, more
     than three passes (n > 32768), a row of more threads than its kernel's
     block takes (n = 32768).  The returned plan is cached: copy it before
     changing a field."""
     if n < 2 or n & (n - 1):
         raise ValueError(f"n={n}: not a power of two from 2")
+    if operands not in (1, 2):
+        raise ValueError(f"{operands} operands: the kernels carry 1 or 2")
     L = _log2(n)
     R = min(n, 32)
     r = _log2(R)
@@ -106,11 +111,13 @@ def pass_plan(n: int, fwd_up: bool, inv_up: bool,
                          f"{_MAX_THREADS[P]} a block of its kernel takes")
     stride = 0
     if P > 1:
-        # both operands, index i at i + i // 32; rows of fewer than 32
+        # each operand, index i at i + i // 32; rows of fewer than 32
         # threads share a warp, so a row's banks start T past its
         # neighbour's.  A block of at most 512 threads holds at most 16384
-        # values an operand: 135 KB, inside the 227 KB a block may take.
-        stride = -(-2 * (n + n // 32) // 32) * 32 + (T if T < 32 else 0)
+        # values an operand: 135 KB for two, inside the 227 KB a block may
+        # take.
+        stride = (-(-operands * (n + n // 32) // 32) * 32
+                  + (T if T < 32 else 0))
     if stockham:
         q, rem = divmod(L - r, P - 1) if P > 1 else (0, 0)
         sizes = [q + 1] * rem + [q] * (P - 1 - rem) + [min(L, r)]
@@ -203,7 +210,7 @@ class PassModel:
             i = idx + (idx >> 5)
             assert i.max() < stride and i.unique().numel() == n
             addr.append(row_base[:, None, None, None] + ops + i)
-        assert 2 * stride <= plan.row_stride
+        assert V.shape[1] * stride <= plan.row_stride
         smem[addr[0]] = V
         return smem[addr[1]], b2, vt2
 
@@ -218,9 +225,9 @@ class PassModel:
         return self._stages(V, b, lo, hi, w, w_sh, ct, ct, tw)
 
     def merged_stages(self, V, b, vt, lo, hi, w, w_sh, fwd: bool):
-        """B1's merged-psi stages [lo, hi): the forward's CT butterflies
-        from the widest down, or the inverse's GS butterflies from the
-        narrowest up; the stage on window bit t reads
+        """B1's and B4's merged-psi stages [lo, hi): the forward's CT
+        butterflies from the widest down, or the inverse's GS butterflies
+        from the narrowest up; the stage on window bit t reads
         w[2^(L-1-k) + (j >> (k+1))]."""
         L, r = self.L, self.r
 

@@ -34,12 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
-# B2-B4 of csrc/ntt_fused.cu: (a, b, out, twiddles, batch, n, logn, q, r32,
-# r32_shoup, one_shoup, stream)
+# B2, B3 of csrc/ntt_fused.cu: (a, b, out, twiddles, batch, n, logn, q,
+# r32, r32_shoup, one_shoup, stream)
 _FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
           + [ctypes.c_uint32] * 4 + [_P])
-# the pass kernels (B1, the five pairings of csrc/ntt_pairings.cu): the
-# same, &plan before the stream
+# the pass kernels (B1, B4, the five pairings of csrc/ntt_pairings.cu):
+# the same, &plan before the stream
 _PASSES = _FUSED[:-1] + [_P, _P]
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
 # &plan, stream)
@@ -50,7 +50,7 @@ _SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 
 # every launcher symbol and its C signature
 LAUNCHERS = {
-    "qt_polymul_fused": _PASSES, "qt_polymul_fixed_fused": _FUSED,
+    "qt_polymul_fused": _PASSES, "qt_polymul_fixed_fused": _PASSES,
     "qt_ntt_fused": _FUSED, "qt_intt_fused": _FUSED,
     "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
     "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,

@@ -22,21 +22,21 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
 everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B7, B14, B15), the compact ones of
+of ``csrc/mxu_block.cuh`` (B14, B15), the compact ones of
 ``csrc/mxu_compact.cuh`` (B11-B13, B16-B18), the row segment kernel of B12,
 B13 and B18 (B13's pointwise product, p2i split and second product have
 patches of their own), the column kernel of B11, B16 and B17 (B17 has no
 recombination, so level 5 adds nothing to it; its staged store of the class
 sums counts with load and store) and
-the streaming kernel of B5, B6, B8 and B9 in ``csrc/ntt_mxu.cu``, where
-level 3 still runs the ring of stages but copies no bytes.  The patches of
-the streaming kernel sit in the code its four modes share, so they take
-apart B6 and B8 as they do B5 and B9.  The patch set follows the tree it is
+the streaming kernel of B5-B9 in ``csrc/ntt_mxu.cu``, where level 3 still
+runs the ring of stages but copies no bytes.  The patches of the streaming
+kernel sit in the code its five modes share, so they take apart B6, B7 and
+B8 as they do B5 and B9.  The patch set follows the tree it is
 given as far back as the tree of the commit before B12 and B9 took these
 designs: there the row segment kernel (B18 alone) lies in
 ``csrc/sharded_classes.cu``, and the dense patches take apart B12 (a mode
-of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in a tree before B6 and
-B8 moved to the streaming kernel they take those apart as modes of
+of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in a tree before B6,
+B7 and B8 moved to the streaming kernel they take those apart as modes of
 ``mxu_kernel``, and in a tree before B13 and B17 moved to the compact
 bodies, B13 as a mode of ``sp_kernel`` and B17 through ``mxu_block.cuh``.
 A patch of code every such tree has fails the run when its anchor is
@@ -204,13 +204,20 @@ COLUMN_PATCHES = (
 # anchors in code that one tree has and another has not: B13 as a mode of
 # sp_kernel (and the dense B12), or B13 in the row segment kernel
 OPTIONAL = (_SEG2_POINTWISE, _F_POINTWISE, _F_SPLIT, _F_DEPTH)
-# B5, B6, B8 and B9 in polymul_stream_kernel: below level 4 the producer
-# arrives on each stage's barrier without copying, so the ring still paces
-# the MMA warps; B5's and B8's pointwise products sit in the forward
-# epilogue, and below level 1 they are a xor; the recombination is
-# mxu_compact.cuh's recombine_value
-_S_FWD_WIDE = "            wide_stages<false>(data, rows, p, tw);\n"
-_S_INV_WIDE = "            wide_stages<true>(data, tb, p, tw);\n"
+# B5-B9 in polymul_stream_kernel: below level 4 the producer arrives on
+# each stage's barrier without copying, so the ring still paces the MMA
+# warps; B5's and B8's pointwise products sit in the forward epilogue, and
+# below level 1 they are a xor; the recombination is mxu_compact.cuh's
+# recombine_value.  The wide stages read as the _B6 anchors in a tree
+# before B7 took the kernel (B7 skips the forward ones and stores from the
+# inverse ones' registers).
+_S_FWD_WIDE = ("            if constexpr (MODE != kIntt)\n"
+               "                wide_stages<false>(data, rows, p, tw);\n")
+_S_FWD_WIDE_B6 = "            wide_stages<false>(data, rows, p, tw);\n"
+_S_INV_WIDE = ("            if (wide_stages<true, MODE == kIntt>(data, tb, "
+               "p, tw, z + base,\n" + " " * 49 + "live))\n"
+               "                continue;\n")
+_S_INV_WIDE_B6 = "            wide_stages<true>(data, tb, p, tw);\n"
 _S_POINTWISE = "    return mulmod_barrett(a, b, m);\n"
 _S_SPLIT = ("        split_packed<Team>(data, nr, p.n, p.bw, b, planes, ks, din, "
             "lb, add);\n")
@@ -220,8 +227,6 @@ _S_LOAD = """                    bv[j] = *reinterpret_cast<const uint4*>(
 """
 _S_COPY = "                mbar_expect_tx(full + rg.slot, stage_bytes);\n"
 STREAM_PATCHES = (
-    ("ntt_mxu.cu", _S_FWD_WIDE, _guard("QT_ABL >= 1", _S_FWD_WIDE)),
-    ("ntt_mxu.cu", _S_INV_WIDE, _guard("QT_ABL >= 1", _S_INV_WIDE)),
     ("ntt_mxu.cu", _S_POINTWISE, _guard("QT_ABL >= 1", _S_POINTWISE,
                                         "    return a ^ b;")),
     ("ntt_mxu.cu", _S_SPLIT, _guard("QT_ABL >= 2", _S_SPLIT)),
@@ -242,9 +247,15 @@ STREAM_PATCHES = (
 def _patches(csrc: Path) -> list:
     """The patches for the kernels as the tree under ``csrc`` builds them."""
     row = next(f for f in ROW_SOURCES if (csrc / f).exists())
+    stream = csrc / "ntt_mxu.cu"
+    text = stream.read_text() if stream.exists() else ""
+    wide = [now if now in text else before for now, before in (
+        (_S_FWD_WIDE, _S_FWD_WIDE_B6), (_S_INV_WIDE, _S_INV_WIDE_B6))]
     return (list(DENSE_PATCHES) + list(COMPACT_PATCHES)
             + [(row, anchor, new) for anchor, new in ROW_PATCHES]
-            + list(COLUMN_PATCHES) + list(STREAM_PATCHES))
+            + list(COLUMN_PATCHES)
+            + [("ntt_mxu.cu", a, _guard("QT_ABL >= 1", a)) for a in wide]
+            + list(STREAM_PATCHES))
 
 
 def patch_sources(csrc: Path) -> list[str]:

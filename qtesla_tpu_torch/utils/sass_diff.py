@@ -12,27 +12,32 @@ instantiation (``mxu_kernel<mode>``,
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
 ``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2),
 B1-B4's ``polymul_fused_kernel`` (B1's ``polymul_pass_kernel<radix,
-passes,logn>`` in a tree after it took register passes),
-``polymul_fixed_fused_kernel``, ``ntt_fused_kernel`` and
-``intt_fused_kernel``, B10's pairings, ``pairing_kernel<fwd,inv>`` in a
-tree before they took register passes and
-``pass_kernel<fwd,inv,radix,passes,logn>`` after (DIF 0, DIT 1, Stockham
-2)) it
-prints the SASS instruction count of each tree and the opcodes whose counts
-differ; a bool template argument of an older tree reads as 0 or 1.  In a
+passes,logn>`` in a tree after it took register passes, and
+``polymul_pass_kernel<radix,passes,logn,operands>`` once B4 joined it,
+B1 2 and B4 1), ``polymul_fixed_fused_kernel`` (B4 before it did),
+``ntt_fused_kernel`` and ``intt_fused_kernel``, B10's pairings,
+``pairing_kernel<fwd,inv>`` in a tree before they took register passes
+and ``pass_kernel<fwd,inv,radix,passes,logn>`` after (DIF 0, DIT 1,
+Stockham 2)) it prints the SASS instruction count of each tree and the
+opcodes whose counts differ; a bool template argument of an older tree
+reads as 0 or 1.  In a
 tree before B12 and B9 took those kernels, B5's
 ``polymul_stream_kernel<classes>`` is compared as
 ``polymul_stream_kernel<classes,0>`` and B18's
 ``seg2_classes_compact_kernel<shared,full>`` as
-``seg2_compact_kernel<1,shared,3,full>``.  A kernel one tree has and the
-other has not (B9's ``polymul_stream_kernel<..,1>`` against
+``seg2_compact_kernel<1,shared,3,full>``; in a tree before B4 took B1's
+kernel, B1's ``polymul_pass_kernel<radix,passes,logn>`` as
+``polymul_pass_kernel<radix,passes,logn,2>``.  A kernel one tree has and
+the other has not (B9's ``polymul_stream_kernel<..,1>`` against
 ``mxu_kernel<4>``, B12's ``seg2_compact_kernel<0,..>`` against
-``sp_kernel<1,..>``) counts 0 on the side that lacks it; a dense mode the
-new tree runs in the stream kernel (``SUCCESSORS``: B8's ``mxu_kernel<1>``
-and B6's ``mxu_kernel<2>`` of the tree before they moved, B9's
-``mxu_kernel<4>`` of the tree before it did) is then printed once more
-beside the stream kernel's instantiations of its mode, one per class
-count.  A refactor of
+``sp_kernel<1,..>``) counts 0 on the side that lacks it; a kernel of the
+old tree whose work the new tree runs in another kernel (``SUCCESSORS``:
+B8's ``mxu_kernel<1>`` and B6's ``mxu_kernel<2>`` of the tree before they
+moved, B9's ``mxu_kernel<4>`` and B7's ``mxu_kernel<3>`` of the trees
+before they did, all now modes of the stream kernel, and B4's
+``polymul_fixed_fused_kernel`` of the tree before it took the pass kernel)
+is then printed once more beside the new kernel's instantiations, one per
+class count or length.  A refactor of
 shared device code that leaves a kernel's count and opcodes as they were
 compiled to the same work; ``utils/ab_timing.py`` times what it did not.
 It needs the CUDA toolkit (``cuobjdump`` beside ``nvcc``).
@@ -65,21 +70,29 @@ _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
                      r"ntt_fused_kernel)"
                      r"(?:I((?:L[ib]\d+E)+)E)?")
 _ARG = re.compile(r"L[ib](\d+)E")
-# dense kernel modes an older tree compiled -> (kernel, the mode of
-# polymul_stream_kernel<classes,mode> that runs it now)
-SUCCESSORS = {"mxu_kernel<1>": ("B8", 2), "mxu_kernel<2>": ("B6", 3),
-              "mxu_kernel<4>": ("B9", 1)}
+# kernels an older tree compiled -> (kernel, the start and end of the
+# names of the instantiations that run it now)
+_STREAM = "polymul_stream_kernel<"
+SUCCESSORS = {"mxu_kernel<1>": ("B8", _STREAM, ",2>"),
+              "mxu_kernel<2>": ("B6", _STREAM, ",3>"),
+              "mxu_kernel<3>": ("B7", _STREAM, ",4>"),
+              "mxu_kernel<4>": ("B9", _STREAM, ",1>"),
+              "polymul_fixed_fused_kernel": ("B4", "polymul_pass_kernel<",
+                                             ",1>")}
 
 
 def _name(m: re.Match) -> str:
     """The instantiation as kernel<arg,...>; B5's polymul_stream_kernel<d>
-    as polymul_stream_kernel<d,0> and B18's
+    as polymul_stream_kernel<d,0>, B1's polymul_pass_kernel<R,P,L> as
+    polymul_pass_kernel<R,P,L,2> and B18's
     seg2_classes_compact_kernel<s,f> as seg2_compact_kernel<1,s,3,f>."""
     kernel, args = m.group(1), _ARG.findall(m.group(2) or "")
     if not args:
         return kernel
     if kernel == "polymul_stream_kernel" and len(args) == 1:
         args = args + ["0"]
+    if kernel == "polymul_pass_kernel" and len(args) == 3:
+        args = args + ["2"]
     if kernel == "seg2_classes_compact_kernel":
         kernel, args = "seg2_compact_kernel", ["1", args[0], "3", args[1]]
     return f"{kernel}<{','.join(args)}>"
@@ -153,11 +166,10 @@ def main(argv: list[str]) -> int:
         top = sorted(diff.items(), key=lambda t: -abs(t[1]))[:8]
         print(f"{name}: old {sum(a.values())}, new {sum(b.values())}"
               + (f"; {dict(top)}" if top else ""))
-    for name, (label, mode) in SUCCESSORS.items():
+    for name, (label, start, end) in SUCCESSORS.items():
         if name in old and name not in new:
             now = sorted(k for k in new
-                         if k.startswith("polymul_stream_kernel<")
-                         and k.endswith(f",{mode}>"))
+                         if k.startswith(start) and k.endswith(end))
             print(f"{label}: old {name} {len(old[name])}, new " + ", ".join(
                 f"{k} {len(new[k])}" for k in now))
     return 0

@@ -260,32 +260,37 @@ def test_mxu_plan_matches_kernel_limits():
     assert M.block_rows(8192, 2) == 4 and M.block_rows(1024, 2) == 32
 
 
-@pytest.mark.parametrize("mode", ["product", "folded", "fixed", "ntt"],
-                         ids=["B5", "B9", "B8", "B6"])
+@pytest.mark.parametrize("mode", ["product", "folded", "fixed", "ntt",
+                                  "intt"],
+                         ids=["B5", "B9", "B8", "B6", "B7"])
 @pytest.mark.parametrize("name", SETS)
 def test_stream_plan_matches_kernel_limits(name, mode):
     """The stream kernel's plans: B5's is ``plan_for(mt, 2)``, B9's
     ``fold_plan_for(mt, fold_plan(mt))`` (x rows alone, the fold plan's
-    inverse split), B8's and B6's ``plan_for(mt, 1)``, field by field, each
-    with the stage counts (B6 none of the inverse) and the deepest ring of
-    stages that fits beside the rows and the planes the mode holds; every
-    plan passes every check of the launcher."""
+    inverse split), B8's, B6's and B7's ``plan_for(mt, 1)``, field by
+    field, each with the stage counts (B6 none of the inverse, B7 none of
+    the forward) and the deepest ring of stages that fits beside the rows
+    and the planes the mode holds; every plan passes every check of the
+    launcher."""
     mt = get_mxu_tables(name)
     fp = fold_plan(mt)
     base, di = {"product": (M.plan_for(mt, 2), mt.Di),
                 "folded": (M.fold_plan_for(mt, fp), fp.Din),
                 "fixed": (M.plan_for(mt, 1), mt.Di),
-                "ntt": (M.plan_for(mt, 1), mt.Di)}[mode]
+                "ntt": (M.plan_for(mt, 1), mt.Di),
+                "intt": (M.plan_for(mt, 1), mt.Di)}[mode]
     plan = M.stream_plan(mt, mode, fp if mode == "folded" else None)
     for f, _ in M.MxuPlan._fields_:
         got, want = getattr(plan, f), getattr(base, f)
         if f in ("pw", "pw_sh"):
             got, want = list(got), list(want)
         assert got == want, f
-    held = 0 if mode == "ntt" else di         # inverse planes the block holds
-    assert plan.stages_f == -(-mt.Df * mt.bw // 64)
+    # the forward and inverse planes the block holds
+    held_f = 0 if mode == "intt" else mt.Df
+    held = 0 if mode == "ntt" else di
+    assert plan.stages_f == -(-held_f * mt.bw // 64)
     assert plan.stages_i == -(-held * mt.bw // 64)
-    smem = [M.stream_smem(mt, plan.rows, r, held) + 1024
+    smem = [M.stream_smem(mt, plan.rows, r, held, held_f) + 1024
             for r in (plan.ring, plan.ring + 1)]
     assert 2 <= plan.ring <= 8 and smem[0] <= 233472
     assert plan.ring == 8 or smem[1] > 233472
@@ -299,7 +304,9 @@ def test_stream_plan_matches_kernel_limits(name, mode):
         assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
     if name == "qtesla-iii-speed":
         assert (plan.rows, plan.ring, plan.stages_f, plan.stages_i) == (
-            32, 3, 8, {"product": 6, "folded": 8, "fixed": 6, "ntt": 0}[mode])
+            32, 3, 0 if mode == "intt" else 8,
+            {"product": 6, "folded": 8, "fixed": 6, "ntt": 0,
+             "intt": 6}[mode])
         assert plan.inv_lb == (7 if mode == "folded" else 8)
 
 
@@ -312,7 +319,7 @@ def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
     import copy
 
     mt = get_mxu_tables("qtesla-iii-speed")
-    own = ("product", "fixed", "ntt")          # the modes under mt's split
+    own = ("product", "fixed", "ntt", "intt")  # the modes under mt's split
     for field, value in (("Df", 5), ("Di", 5), ("fwd_base", 512),
                          ("inv_base", 64)):
         bad = copy.copy(mt)
@@ -335,7 +342,7 @@ def test_stream_plan_refuses_what_the_kernel_refuses(monkeypatch):
     with pytest.raises(ValueError, match="range"):
         M.stream_plan(mt, "folded", FixedFoldPlan(**{**fields, "Din": 7}))
     with pytest.raises(ValueError, match="stream mode"):
-        M.stream_plan(mt, "intt")
+        M.stream_plan(mt, "inverse")
     with pytest.raises(ValueError, match="no fold plan"):
         M.stream_plan(mt, "fixed", fp)
     for rows in (18, 24, 30):
@@ -396,22 +403,24 @@ def test_build_flags_target_hopper():
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
-    # the pass kernels' launchers (the five pairings, B1) take the plan
-    # before the stream; B2-B4's have the plain signature
-    plain = build.LAUNCHERS["qt_polymul_fixed_fused"]
+    # the pass kernels' launchers (the five pairings, B1, B4) take the plan
+    # before the stream; B2's and B3's have the plain signature
+    plain = build.LAUNCHERS["qt_ntt_fused"]
     passes = plain[:-1] + plain[:1] * 2
     for k in P.KERNELS.values():
         assert k.replaces == "qtesla_tpu/ops/ntt_pairings_pallas.py:160"
         assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
         assert build.LAUNCHERS[k.symbol] == passes
     assert "stk_stages" not in src[P] and " pairing_kernel" not in src[P]
-    assert 'extern "C" int qt_polymul_fused(' in src[F]
-    assert build.LAUNCHERS["qt_polymul_fused"] == passes
+    for symbol in ("qt_polymul_fused", "qt_polymul_fixed_fused"):
+        assert f'extern "C" int {symbol}(' in src[F]
+        assert build.LAUNCHERS[symbol] == passes
     assert "polymul_fused_kernel" not in src[F]
+    assert "polymul_fixed_fused_kernel" not in src[F]
     assert "fwd_stages<2>" not in src[F]
     for k in F.KERNELS.values():
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
-        if k.name != "polymul_fused":
+        if k.name not in ("polymul_fused", "polymul_fixed_fused"):
             assert f"QT_LAUNCHER({k.symbol}," in src[F]
             assert len(build.LAUNCHERS[k.symbol]) == 12
     # B5 and B9 have launchers of their own, written out
@@ -479,13 +488,15 @@ def test_header_edit_changes_digest(tmp_path):
 
 def test_phase_ablation_patches_apply(tmp_path):
     """Every anchor of ``utils/phase_ablation.py`` is found once in the CUDA
-    sources, in a copy, the streaming kernel of B5, B6, B8 and B9 (its
-    guards before and inside the code its modes share), the column body of
+    sources, in a copy, the streaming kernel of B5-B9 (its guards before
+    and inside the code its modes share), the column body of
     B11, B16 and B17 and the row segment kernel of B12, B13 and B18
     included; a copy whose row segment kernel lies in sharded_classes.cu
-    (the tree before B12 took it) is patched there, and B13's dense
-    pointwise product where a copy still has it; a copy without the compact
-    header (a tree before B11 and B18 were redesigned) is refused."""
+    (the tree before B12 took it) is patched there, B13's dense pointwise
+    product where a copy still has it and the stream kernel's forward wide
+    stages as they read before B7 took the kernel; a copy without the
+    compact header (a tree before B11 and B18 were redesigned) is
+    refused."""
     import shutil
 
     from qtesla_tpu_torch.utils import phase_ablation as PA
@@ -506,21 +517,22 @@ def test_phase_ablation_patches_apply(tmp_path):
     for cond in ("QT_ABL >= 1", "QT_ABL >= 2", "QT_ABL == 3", "QT_ABL < 4"):
         assert f"#if {cond}" in text, ("ntt_mxu.cu", cond)
     assert "(mma_warp && QT_ABL >= 3)" in text
-    # the guards sit in what the stream kernel's four modes share: its
-    # forward wide stages before the modes branch, the split and products of
-    # stream_matmul that B6's and B8's passes call; the dense kernel left
-    # runs B7 alone through mxu_block.cuh's patched blocks (as B6 and B8 ran
-    # in the tree before they moved)
+    # the guards sit in what the stream kernel's five modes share: its
+    # forward wide stages before the modes branch (B7 skips them), the split
+    # and products of stream_matmul that B6's, B7's and B8's passes call;
+    # no dense kernel is left in the file (B7 ran the last one until it
+    # moved; mxu_block.cuh's patched blocks serve B14 and B15)
     kernel = text.split("polymul_stream_kernel(const uint32_t*")[1].split(
         "bool valid_split(")[0]
-    wide = kernel.index("#if QT_ABL >= 1\n            wide_stages<false>")
+    wide = kernel.index("#if QT_ABL >= 1\n            if constexpr (MODE != "
+                        "kIntt)\n                wide_stages<false>")
     for mode in ("MODE == kFolded || MODE == kFixed", "MODE == kNtt"):
         assert kernel.index(mode) > wide, mode
     assert "stream_matmul<D, 2, kFwd>" in kernel
     assert kernel.count("stream_matmul<D, 2, kStore>(data, tb, p.stages_f") == 1
     assert "#if QT_ABL >= 2\n        split_packed<Team>" in text
-    assert text.count("block_matmul(") == 1 and "static_assert(MODE == kIntt" \
-        in text
+    assert "#if QT_ABL >= 1\n" + PA._S_INV_WIDE in text
+    assert "block_matmul(" not in text and "launch_intt(" not in text
     # B11's (and B17's) and B16's wide stages; B13 in the row kernel: its
     # pointwise product, p2i split and second product
     text = (csrc / "sharded_mxu.cu").read_text()
@@ -539,9 +551,17 @@ def test_phase_ablation_patches_apply(tmp_path):
     (csrc / "sharded_classes.cu").write_text(
         before["sharded_classes.cu"] + before["seg2_compact.cuh"])
     (csrc / "seg2_compact.cuh").unlink()
+    # and the stream kernel's forward wide stages as they read before B7
+    # took the kernel
+    (csrc / "ntt_mxu.cu").write_text(before["ntt_mxu.cu"].replace(
+        PA._S_FWD_WIDE, PA._S_FWD_WIDE_B6).replace(PA._S_INV_WIDE,
+                                                   PA._S_INV_WIDE_B6))
     assert "sharded_classes.cu" in PA.patch_sources(csrc)
     assert (csrc / "sharded_mxu.cu").read_text().count(
         "#if QT_ABL >= 1") == 3
+    for anchor in (PA._S_FWD_WIDE_B6, PA._S_INV_WIDE_B6):
+        assert ("#if QT_ABL >= 1\n" + anchor in
+                (csrc / "ntt_mxu.cu").read_text())
     (csrc / "mxu_compact.cuh").unlink()
     with pytest.raises(RuntimeError, match="anchor found"):
         PA.patch_sources(csrc)
@@ -550,36 +570,57 @@ def test_phase_ablation_patches_apply(tmp_path):
 def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
     """``utils/sass_diff.py`` names the stream kernel's instantiations
     alike whether the mode is a bool (B5 and B9 before B6 and B8 joined
-    them) or an int, and prints the dense modes an older tree compiled (B8's
-    ``mxu_kernel<1>``, B6's ``mxu_kernel<2>``) beside the stream kernel's
-    instantiations of their modes."""
+    them) or an int, and B1's pass kernel alike before and after B4 joined
+    it (an operand count of 2), and prints the kernels an older tree
+    compiled (B8's ``mxu_kernel<1>``, B6's ``mxu_kernel<2>``, B7's
+    ``mxu_kernel<3>``, B4's ``polymul_fixed_fused_kernel``) beside the
+    instantiations that run their work now."""
     from qtesla_tpu_torch.utils import sass_diff as SD
     prefix = "_ZN43_GLOBAL__N__9d88d42b_10_ntt_mxu_cu_bc5b174f"
     stream = "21polymul_stream_kernel"
+    passes = "19polymul_pass_kernel"
     for mangled, name in (
             (stream + "ILi4ELb1EEEvPKj", "polymul_stream_kernel<4,1>"),
             (stream + "ILi4ELi1EEEvPKj", "polymul_stream_kernel<4,1>"),
             (stream + "ILi2ELi3EEEvPKj", "polymul_stream_kernel<2,3>"),
-            ("10mxu_kernelILi3EEEvPKjPj", "mxu_kernel<3>")):
+            (stream + "ILi3ELi4EEEvPKj", "polymul_stream_kernel<3,4>"),
+            ("10mxu_kernelILi3EEEvPKjPj", "mxu_kernel<3>"),
+            # B1 before B4 joined its kernel, then B1 and B4
+            (passes + "ILi32ELi2ELi10EEEvPKj",
+             "polymul_pass_kernel<32,2,10,2>"),
+            (passes + "ILi32ELi2ELi10ELi2EEEvPKj",
+             "polymul_pass_kernel<32,2,10,2>"),
+            (passes + "ILi32ELi2ELi10ELi1EEEvPKj",
+             "polymul_pass_kernel<32,2,10,1>"),
+            ("26polymul_fixed_fused_kernelPKjS1_Pj",
+             "polymul_fixed_fused_kernel")):
         assert SD._name(SD._KERNEL.search(prefix + mangled)) == name
     old = {"mxu_kernel<1>": ["IMAD"] * 5, "mxu_kernel<2>": ["IMAD"] * 4,
            "mxu_kernel<3>": ["HMMA"] * 3,
-           "polymul_stream_kernel<3,0>": ["IMAD"] * 2}
-    new = {"mxu_kernel<3>": ["HMMA"] * 3,
            "polymul_stream_kernel<3,0>": ["IMAD"] * 2,
+           "polymul_fixed_fused_kernel": ["BAR"] * 9,
+           "polymul_pass_kernel<32,2,10,2>": ["IMAD"] * 4}
+    new = {"polymul_stream_kernel<3,0>": ["IMAD"] * 2,
            "polymul_stream_kernel<3,2>": ["IMAD"] * 7,
            "polymul_stream_kernel<4,2>": ["IMAD"] * 8,
-           "polymul_stream_kernel<3,3>": ["IMAD"] * 6}
+           "polymul_stream_kernel<3,3>": ["IMAD"] * 6,
+           "polymul_stream_kernel<3,4>": ["IMAD"] * 5,
+           "polymul_pass_kernel<32,2,10,2>": ["IMAD"] * 4,
+           "polymul_pass_kernel<32,2,10,1>": ["IMAD"] * 3}
     monkeypatch.setattr(SD, "_library", lambda tree: tree.name)
     monkeypatch.setattr(SD, "kernel_sass",
                         lambda lib: old if lib == "old" else new)
     assert SD.main(["old", "new"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert "mxu_kernel<3>: old 3, new 3" in out
+    assert "mxu_kernel<3>: old 3, new 0; {'HMMA': -3}" in out
     assert "polymul_stream_kernel<3,0>: old 2, new 2" in out
+    assert "polymul_pass_kernel<32,2,10,2>: old 4, new 4" in out
     assert ("B8: old mxu_kernel<1> 5, new polymul_stream_kernel<3,2> 7, "
             "polymul_stream_kernel<4,2> 8") in out
     assert "B6: old mxu_kernel<2> 4, new polymul_stream_kernel<3,3> 6" in out
+    assert "B7: old mxu_kernel<3> 3, new polymul_stream_kernel<3,4> 5" in out
+    assert ("B4: old polymul_fixed_fused_kernel 9, new "
+            "polymul_pass_kernel<32,2,10,1> 3") in out
     assert not any(line.startswith("B9:") for line in out)
 
 
@@ -1177,6 +1218,105 @@ def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
         F._launch(kernel, tbl, tw, x, x, plan)
     F._launch(P.KERNELS["polymul_pairing_gs_gs"], tbl, tw, x, x, plan)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_b4_b7_match_plain_on_card(cuda_device, name):
+    """B4 (B1's register passes with one operand) and B7 (the stream
+    kernel's inverse mode) against their twins at B in {1, 3, 64, 9000}
+    (at 9000 every persistent B7 block walks several row groups): B4 on x
+    with rows of q - 1 against a spectrum that holds q - 1, the all-(q-1)
+    one and one not 16-byte aligned; B7 on lazy rows below pw_bound, some
+    at pw_bound - 1.  Each call launches its kernel once."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    mt = get_mxu_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(26)
+    b4, b7 = F.KERNELS["polymul_fixed_fused"], M.KERNELS["intt_mxu"]
+    for batch in (1, 3, 64, 9000):
+        x = rng.integers(0, q, (batch, n), dtype=np.uint32)
+        x[::97] = q - 1
+        spec = rng.integers(0, q, n + 1, dtype=np.uint32)
+        spec[::5] = q - 1
+        lazy = rng.integers(0, mt.pw_bound, (batch, n), dtype=np.uint32)
+        lazy[::89] = mt.pw_bound - 1
+        x, spec, lazy = (torch.from_numpy(v).to(cuda_device)
+                         for v in (x, spec, lazy))
+        full = torch.full((n,), q - 1, dtype=torch.int64,
+                          device=cuda_device).to(torch.uint32)
+        for sp in (spec[:n], full, spec[1:]):
+            before = b4.launches
+            got = F.polymul_fixed_fused(x, sp, tbl)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                F.polymul_fixed_plain(x, sp, tbl).cpu().numpy(),
+                err_msg=f"B4 B={batch}")
+            assert b4.launches == before + 1
+        before = b7.launches
+        got = M.intt_mxu(lazy, mt)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), M.intt_mxu_plain(lazy, mt).cpu().numpy(),
+            err_msg=f"B7 B={batch}")
+        assert b7.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_b4_b7_launchers_refuse_plans_they_cannot_run(cuda_device):
+    """B7's launcher returns cudaErrorInvalidValue for a plan with forward
+    stages (B8's), the wrong inverse stages, a ring of one stage or one too
+    deep for shared memory, or rows that fill no MMA tile; B4's for a plan
+    whose rows hold less shared memory than one operand's exchange, or
+    that is not B1's schedule (radix, passes, threads, rows, windows).  The
+    wrappers raise, nothing is counted, and the plans as made (B4 also
+    under B1's plan, which holds room for two operands) launch."""
+    tbl = get_tables("qtesla-iii-speed")
+    mt = get_mxu_tables("qtesla-iii-speed")
+    x = torch.zeros((3, tbl.n), dtype=torch.uint32, device=cuda_device)
+    tabs, tw = M._prepare(mt, None, None, x)
+
+    def changed(plan, **fields):
+        out = type(plan).from_buffer_copy(plan)
+        for f, v in fields.items():
+            if isinstance(v, tuple):
+                getattr(out, f)[v[0]] = v[1]
+            else:
+                setattr(out, f, v)
+        return out
+
+    b7, plan = M.KERNELS["intt_mxu"], M.stream_plan(mt, "intt")
+    assert (plan.stages_f, plan.stages_i, plan.ring) == (0, 6, 3)
+    for fields in ({"stages_f": 8}, {"stages_i": 5}, {"stages_i": 0},
+                   {"ring": 1}, {"ring": 4}, {"rows": 24}):
+        before = b7.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            M._launch(b7, mt, changed(plan, **fields), tw, x, None,
+                      wf=tabs.stream, cf=None, ci=tabs.consti)
+        assert b7.launches == before
+    M._launch(b7, mt, plan, tw, x, None, wf=tabs.stream, cf=None,
+              ci=tabs.consti)
+    assert b7.launches == before + 1
+
+    b4, plan = F.KERNELS["polymul_fixed_fused"], F.fixed_pass_plan(tbl.n)
+    ftw = F._prepare(tbl, None, x)
+    spec = torch.zeros(tbl.n, dtype=torch.uint32, device=cuda_device)
+    assert plan.row_stride == 1056
+    for fields in ({"row_stride": 1055}, {"row_stride": 0},
+                   {"radix": 16}, {"passes": 3}, {"passes": 1},
+                   {"threads": 64}, {"rows": 0}, {"rows": 9},
+                   {"fwd_b": (1, 2)}, {"inv_b": (0, 6)}):
+        before = b4.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            F._launch(b4, tbl, ftw, x, spec, changed(plan, **fields))
+        assert b4.launches == before
+    for good in (plan, F.fused_pass_plan(tbl.n)):
+        got = F._launch(b4, tbl, ftw, x, spec, good)
+        np.testing.assert_array_equal(got.cpu().numpy(), 0)
+    assert b4.launches == before + 2
 
 
 @pytest.mark.cuda

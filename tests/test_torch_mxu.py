@@ -13,7 +13,11 @@ the JAX package.
 - ``models``: ``algo="mxu"`` and the default fixed-operand pair;
 - B5's table stream (``stream_tables``): expanded back it is the dense
   forward and inverse tables on every set, and each stage holds the bytes
-  the kernel's MMA warps read where they read them.
+  the kernel's MMA warps read where they read them;
+- B7's stream plan (``stream_plan(mt, "intt")``) on every set against the
+  launcher's limits: no forward stage, its planes and ring for the inverse
+  split alone, and the stages its launcher hands the producer are the
+  inverse tables'.
 
 Tolerance: none (integer equality).  Inputs are made with numpy from a seed
 and fed to both sides."""
@@ -358,3 +362,48 @@ def test_expand_stream_refuses_nonzero_padding():
     st[MT.stream_stages(mt.Df, mt.bw) - 1, lt_j_lane * 16 + 8 * step] = 1
     with pytest.raises(ValueError, match="padding"):
         MT.expand_stream(st, mt)
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_intt_stream_plan_matches_kernel_limits(name):
+    """B7's plan is ``plan_for(mt, 1)`` field by field with no forward stage
+    and the inverse stages of a lane block; its block holds the inverse
+    planes alone (ks = stages_i * 64 + 16, as the kernel computes it) and
+    the deepest ring of stages that fits beside them and the rows, never
+    shallower than B8's, whose block also holds the forward planes; the
+    launcher's other checks hold; and the nb * stages_i stages from row
+    nb * ceil(Df * bw / 64) of the stream, where the launcher points the
+    producer, are the inverse tables' stages."""
+    mt = MT.get_mxu_tables(name)
+    plan = TM.stream_plan(mt, "intt")
+    base = TM.plan_for(mt, 1)
+    for f, _ in TM.MxuPlan._fields_:
+        got, want = getattr(plan, f), getattr(base, f)
+        if f in ("pw", "pw_sh"):
+            got, want = list(got), list(want)
+        assert got == want, f
+    Ci = MT.stream_stages(mt.Di, mt.bw)
+    assert (plan.stages_f, plan.stages_i) == (0, Ci)
+    ks = max(plan.stages_f, plan.stages_i) * MT.STAGE_DEPTH + 16
+
+    def smem(ring):
+        return (ring * MT.STAGE_DEPTH * mt.bw * mt.D + plan.rows * mt.n * 4
+                + -(-plan.rows // 16) * 16 * ks + 16 * ring)
+
+    assert smem(plan.ring) == TM.stream_smem(mt, plan.rows, plan.ring, df=0)
+    assert 2 <= plan.ring <= 8 and smem(plan.ring) + 1024 <= 233472
+    assert plan.ring == 8 or smem(plan.ring + 1) + 1024 > 233472
+    assert plan.ring >= TM.stream_plan(mt, "fixed").ring
+    assert 1 <= plan.rows <= 16 or plan.rows == 32
+    assert 1 <= plan.d <= 4 and 32 <= plan.bw <= 128 and plan.bw % 32 == 0
+    assert plan.n == 1 << plan.logn == plan.nb * plan.bw
+    assert plan.n >> plan.lr == plan.bw
+    for din, lb in ((plan.df, plan.fwd_lb), (plan.di, plan.inv_lb)):
+        assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
+    st = MT.stream_tables(mt)
+    first = plan.nb * -(-plan.df * plan.bw // MT.STAGE_DEPTH)
+    np.testing.assert_array_equal(
+        st[first:first + plan.nb * plan.stages_i], MT._stages(mt.wi))
+    assert first + plan.nb * plan.stages_i == st.shape[0]
+    if name == "qtesla-iii-speed":
+        assert (plan.rows, plan.ring, plan.stages_i, ks) == (32, 3, 6, 400)
