@@ -23,7 +23,8 @@ script exits non-zero without printing a result:
    {2, 4, 8} the set's split takes (k = 4 at n = 8192), on the path's own
    intermediates and on all-(q-1) shards: B13 against a random constant's
    spectrum and the all-0 and all-(q-1) ones, B15 against their folded
-   tables, B16 also under p3x; B13 also against a spectrum of uint32
+   tables (and against the twin that reads their compact blocks, also on
+   LONG_BATCH rows), B16 also under p3x; B13 also against a spectrum of uint32
    values up to 2^32 - 1 and against the twin that reads its compact
    tables; the whole SP path equals B1, and the fixed
    and folded SP paths equal B4 and each other.  The folded SP prepare's
@@ -43,12 +44,14 @@ script exits non-zero without printing a result:
    shared memory; every set also runs them on LONG_BATCH rows (B8 against
    a spectrum that holds q - 1, B7 on rows below pw_bound, some at
    pw_bound - 1) and prints their stages and ring.  B10's five pairings,
-   B1 and B4 run in register passes: every set also runs them on
+   B1, B3 and B4 run in register passes: every set also runs them on
    LONG_BATCH rows with rows of 0 and q - 1 (B4 against a spectrum that
-   holds q - 1), against their twins (B1 and B4 their plain versions) and
-   B1, and prints each one's pass plan; then at every length from 2 to
-   16384 (PASS_LENGTHS, n = 8192 at the qtesla-iii-speed prime) on 300
-   rows with rows of q - 1 in both operands (B4: in x and its spectrum).
+   holds q - 1; B3 on rows below 2q, some at 2q - 1), against their twins
+   (B1, B3 and B4 their plain versions) and B1, and prints each one's pass
+   plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
+   the qtesla-iii-speed prime) on 300 rows with rows of q - 1 in both
+   operands (B4: in x and its spectrum; B3: rows of 2q - 1), B3 also at
+   32768 (B3_LENGTHS).
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -67,10 +70,10 @@ script exits non-zero without printing a result:
    oracle.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
-   plain (B16 also under p3x), B13, B17, B1, B4, B7 and the five B10
-   pairings beside the times their earlier designs took (EARLIER_MS), the
-   five pairings, B1 and B4 also beside an instruction-issue bound from
-   their SASS
+   plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
+   B10 pairings beside the times their earlier designs took (EARLIER_MS),
+   the five pairings, B1, B3 and B4 also beside an instruction-issue bound
+   from their SASS
    (utils/sass_diff.py issue_bound_ms), B6, B11 and B14 also at B = 1
    (the rows of their prepare launches on the main path) and B9's prepare
    time; then
@@ -156,11 +159,12 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
 # the kernels redesigned last, and the medians their earlier designs (B13
-# a mode of the dense sp_kernel, B17 a dense kernel of its own, B1, B4 and
-# B10's pairings a thread block a row with a barrier a stage, B7 the last
-# mode of the dense mxu_kernel) took at the timing phase's shapes in this
-# script, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+# and B15 modes of the dense sp_kernel, B17 a dense kernel of its own, B1,
+# B3, B4 and B10's pairings a thread block a row with a barrier a stage, B7
+# the last mode of the dense mxu_kernel) took at the timing phase's shapes
+# in this script, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
 EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
+              "sp_seg2_folded": 0.5708, "intt_fused": 0.3698,
               # B1, B4 and B10's pairings before register passes
               "polymul_fused": 0.8215,
               "polymul_fixed_fused": 0.7174,
@@ -176,6 +180,8 @@ PASS_LENGTHS = ((2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
                 (2048, 12289), (4096, 40961), (8192, 8404993),
                 (16384, 786433))
+# the length B3 alone takes beyond them: 1024 threads a row in three passes
+B3_LENGTHS = ((32768, 786433),)
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -364,6 +370,14 @@ def kernels_against_plain(errors: dict) -> None:
         print(f"{name} B4: {describe_pass_plan(F.fixed_pass_plan(n))}; "
               f"equal to plain at B={LONG_BATCH} against a spectrum that "
               f"holds q - 1", flush=True)
+        lazy = rng.integers(0, 2 * q, (LONG_BATCH, n), dtype=np.uint32)
+        lazy[::97] = 2 * q - 1
+        lazy = torch.from_numpy(lazy).to(dev)
+        _record(errors, "intt_fused", f"B3 {name} B={LONG_BATCH}",
+                F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
+        print(f"{name} B3: {describe_pass_plan(F.intt_pass_plan(n))}; "
+              f"equal to plain at B={LONG_BATCH} on rows below 2q, some at "
+              f"2q - 1", flush=True)
         for p in P.PAIRINGS:
             kname = f"polymul_pairing_{p}"
             got = P.polymul_pairing(x, y, tbl, p)
@@ -413,7 +427,7 @@ def _route(plan) -> str:
 
 def _fold(plans, spec: torch.Tensor) -> S.FoldedSpOperand:
     return S.fold_sp_operand(*fourstep_fold_tables(plans, spec.cpu().numpy()),
-                             "cuda")
+                             plans, "cuda")
 
 
 def sp_against_plain(errors: dict) -> None:
@@ -487,10 +501,14 @@ def sp_against_plain(errors: dict) -> None:
                     _record(errors, "sp_seg2_fixed", f"B13 {tag} spectrum {i}",
                             S.sp_seg2_fixed(vx, sp, plans),
                             S.seg2_fixed_plain(vx, sp, plans))
+                    got = S.sp_seg2_folded(vx, op, plans)
                     _record(errors, "sp_seg2_folded",
-                            f"B15 {tag} spectrum {i}",
-                            S.sp_seg2_folded(vx, op, plans),
+                            f"B15 {tag} spectrum {i}", got,
                             S.seg2_folded_plain(vx, op, plans))
+                    _record(errors, "sp_seg2_folded",
+                            f"B15 {tag} spectrum {i} against its compact "
+                            f"twin", got,
+                            S.seg2_folded_compact_plain(vx, op, plans))
                 got = S.sp_seg2_fixed(vx, wide, plans)
                 _record(errors, "sp_seg2_fixed",
                         f"B13 {tag} full-range spectrum", got,
@@ -538,6 +556,17 @@ def sp_against_plain(errors: dict) -> None:
                     f"B13 {name} k={k} B={LONG_BATCH} spectrum {i}",
                     S.sp_seg2_fixed(long, sp, plans),
                     S.seg2_fixed_plain(long, sp, plans))
+        for i, op in enumerate((folds[0], folds[2])):
+            _record(errors, "sp_seg2_folded",
+                    f"B15 {name} k={k} B={LONG_BATCH} spectrum {i}",
+                    S.sp_seg2_folded(long, op, plans),
+                    S.seg2_folded_compact_plain(long, op, plans))
+        p15 = S.seg2_folded_compact_plan(plans)
+        print(f"{name} k={k}: B15 over F's nonzero blocks: {p15.rows} rows "
+              f"of x a warp, blocks of {1 << p15.c1.ls} lanes, depth "
+              f"{p15.c1.kp} (dense {S.plan_for(plans, 'sp_seg2_folded').kp1}), "
+              f"tables {_route(p15)}; also equal to its compact twin at "
+              f"B={LONG_BATCH}")
         p13 = S.seg2_fixed_compact_plan(plans)
         print(f"{name} k={k}: B13 over K2f's and K2i's nonzero blocks: "
               f"{p13.rows} rows of x a warp, blocks of {1 << p13.c1.ls} "
@@ -572,8 +601,8 @@ def sp_against_plain(errors: dict) -> None:
               f"{prep_s[1][0] * 1e3:.1f} ms, first {prep_s[0][0] * 1e3:.1f} "
               f"ms): B11-B16 equal to plain for B in {SMALL_BATCHES}, random, "
               f"worst-case and all-(q-1) shards, B13/B15 for 3 spectra (B13 "
-              f"also a full-range one), B16 also under p3x; SP path == B1, "
-              f"fixed SP == folded SP == B4",
+              f"also a full-range one, B15 also its compact twin), B16 also "
+              f"under p3x; SP path == B1, fixed SP == folded SP == B4",
               flush=True)
     done()
 
@@ -676,14 +705,24 @@ def classes_against_plain(errors: dict) -> None:
 def pass_lengths_against_plain(errors: dict) -> None:
     """B1, B4 and the five pairings at every length their plans take, on
     300 rows with rows of q - 1 in both operands (B4: in x, and a spectrum
-    that holds q - 1) (registered after the other phase-2 checks, which
-    run every registered set)."""
+    that holds q - 1), and B3 there and at n = 32768 on rows below 2q with
+    rows of 2q - 1 (registered after the other phase-2 checks, which run
+    every registered set)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    for n, q in PASS_LENGTHS:
+    for n, q in PASS_LENGTHS + B3_LENGTHS:
         name = f"pass-n{n}-q{q}"
         register_param_set(name, n, q)
         tbl = get_tables(name)
+        lazy = rng.integers(0, 2 * q, (300, n), dtype=np.uint32)
+        lazy[0], lazy[2] = 2 * q - 1, 2 * q - 1
+        lazy = torch.from_numpy(lazy).to(dev)
+        _record(errors, "intt_fused", f"B3 n={n} q={q}",
+                F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
+        if (n, q) in B3_LENGTHS:
+            print(f"n={n} q={q}: B3 equal to plain on 300 rows "
+                  f"({describe_pass_plan(F.intt_pass_plan(n))})", flush=True)
+            continue
         xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
         xy[:, 0], xy[0, 1], xy[1, 2] = q - 1, q - 1, q - 1
         x, y = (torch.from_numpy(v).to(dev) for v in xy)
@@ -702,8 +741,8 @@ def pass_lengths_against_plain(errors: dict) -> None:
             _record(errors, kname, f"{kname} n={n} q={q}", got,
                     P.polymul_pairing_plain(x, y, tbl, p))
             expect_equal(f"B10 {p} == B1 n={n} q={q}", got, ref)
-        print(f"n={n} q={q}: B1, B4 and the five pairings equal to plain "
-              f"and B1's plain on 300 rows (B1 and B4 "
+        print(f"n={n} q={q}: B1, B3, B4 and the five pairings equal to "
+              f"plain and B1's plain on 300 rows (B1, B3 and B4 "
               f"{F.fused_pass_plan(n).passes}, "
               f"Stockham {P.pairing_pass_plan(n, 'stockham').passes} "
               f"passes a transform)", flush=True)
@@ -906,8 +945,8 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     its int8 tensor-core MACs (the digit products at their plans' depth,
     the padding and the SP tables' zero blocks excluded).  B11, B16, B17 and
     B18 read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
-    ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``); their MACs are
-    counted
+    ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``; B15 the
+    constant's compact F, ``sp_fold``); their MACs are counted
     on the dense tables' nonzero lane pairs like the others', so a bound
     reads the same work whatever implements it.  B5's, B6's, B8's and B9's
     tables are counted once, as ``wf`` and ``wi`` (B6: ``wf`` alone; B9:
@@ -941,7 +980,8 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     m1, m2f, m2i, m3, m3x, mx = (
         _sp_macs(w, getattr(plans, p).din, B, plans)
         for w, p in ((st.w1, "p1"), (st.w2f, "p2f"), (st.w2i, "p2i"),
-                     (st.w3, "p3"), (st.w3x, "p3x"), (sp_fold.w.cpu(), "p2x")))
+                     (st.w3, "p3"), (st.w3x, "p3x"),
+                     (S.dense_folded_tables(sp_fold, plans).cpu(), "p2x")))
     sp_tw = _nbytes(st.tw)
     work["sp_seg1"] = (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1)
     work["sp_seg2"] = (3 * row + _nbytes(st.w2fc, st.c2f, st.w2ic, st.c2i),
@@ -1067,8 +1107,8 @@ def timing(device_line: str) -> dict:
     med = {name: res["kernel"][1] for name, res in out.items()}
     # the pass kernels' instruction-issue bound, from their SASS: at n =
     # 1024 every instruction of the kernels built for that length
-    # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10>) runs once
-    # a warp and row
+    # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10,ops>,
+    # transform_pass_kernel<0,32,2,10>) runs once a warp and row
     sass = kernel_sass(str(load_library().path))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
@@ -1077,14 +1117,18 @@ def timing(device_line: str) -> dict:
         f"polymul_pairing_{p}": (P.pairing_pass_plan(n, p),
                                  f"pass_kernel<{scheme[f]},{scheme[i]},", "")
         for p, (f, i) in P.PAIRINGS.items()}
-    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>
+    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>; B3
+    # transform_pass_kernel<fwd,R,P,logn>
     pass_plans["polymul_fused"] = (F.fused_pass_plan(n),
                                    "polymul_pass_kernel<", ",2")
     pass_plans["polymul_fixed_fused"] = (F.fixed_pass_plan(n),
                                          "polymul_pass_kernel<", ",1")
+    pass_plans["intt_fused"] = (F.intt_pass_plan(n),
+                                "transform_pass_kernel<0,", "")
     for name, (plan, kernel, ops) in pass_plans.items():
         # the launchers run n = 1024 in the kernels built for that length
-        # (pass_kernel_for, polymul_pass_kernel_for)
+        # (pass_kernel_for, polymul_pass_kernel_for,
+        # transform_pass_kernel_for)
         built = (plan.radix, plan.passes, n) == (32, 2, 1024)
         key = (f"{kernel}{plan.radix},{plan.passes},"
                f"{tbl.logn if built else 0}{ops}>")

@@ -36,8 +36,8 @@
 // These blocks multiply a whole bw x bw table.  The sequence-parallel tables
 // are block-diagonal under a lane permutation; mxu_compact.cuh holds the
 // counterparts that multiply the nonzero blocks alone (split_compact,
-// mma_compact, recombine_compact), which B11-B13 and B16-B18 are built
-// from; B14 and B15 still run block_matmul.  B5-B9 (ntt_mxu.cu) run
+// mma_compact, recombine_compact), which B11-B13 and B15-B18 are built
+// from; B14 still runs block_matmul.  B5-B9 (ntt_mxu.cu) run
 // products of their own over tables streamed through shared memory.
 #pragma once
 

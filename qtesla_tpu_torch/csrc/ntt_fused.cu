@@ -45,22 +45,35 @@
 // store.  Its plan (ops/ntt_fused.py fixed_pass_plan) is B1's with half the
 // shared memory a row, one operand's.
 //
-// B2, B3: one thread block per polynomial row, so a ragged batch needs no
+// B3 (qt_intt_fused, transform_pass_kernel<false, ...>) is B4's inverse
+// half with no forward before it: a coalesced load on the window [tb, L),
+// one exchange into [0, r), where B4's inverse starts, then its passes, one
+// exchange each, the last on [tb, L) with the n^{-1} stage fused into the
+// coalesced canonical store.
+// Its plan (ops/ntt_fused.py intt_pass_plan) has no forward passes; three
+// passes take a row of up to 1024 threads, so it runs every n from 2 to
+// 32768, as its first design did.  That design (a block a row, min(n/2,
+// 512) threads, __syncthreads() after each of the log2(n) stages, about 29
+// SASS instructions a butterfly) took 0.3698 ms at qtesla-iii-speed, B =
+// 32768, on an H100 80GB HBM3 at 700 W (PERF.md).
+//
+// B2: one thread block per polynomial row, so a ragged batch needs no
 // padding.  The row is loaded once into shared memory; min(n/2, 512)
 // threads each loop over their butterflies, with __syncthreads() between
-// the log2(n) dependent stages.  Global memory sees exactly one read of each
+// the log2(n) dependent stages.  Global memory sees exactly one read of the
 // operand and one write of the result, as on the TPU.  The TPU kernel's lane
 // rolls and full-width (L, n) twiddle tables are gone: a thread indexes its
 // butterfly pair directly in shared memory and reads one twiddle from the
 // compact tables.
 //
 // What bounds them on the H100: instruction issue, not HBM.  At n = 1024 one
-// polymul moves 12 KB of device memory; B2 and B3 make their stages in
-// shared memory with a block-wide barrier per stage, each butterfly about 30
-// SASS instructions (index and twiddle-address arithmetic, two shared loads
-// and stores, the Shoup IMADs).  The register butterfly of B1 and B4 is 7
+// polymul moves 12 KB of device memory; B2 makes its stages in shared
+// memory with a block-wide barrier per stage, each butterfly about 30 SASS
+// instructions (index and twiddle-address arithmetic, two shared loads and
+// stores, the Shoup IMADs).  The register butterfly of B1, B3 and B4 is 7
 // instructions; their passes add one exchange each way and the twiddle
-// loads.
+// loads.  B3 does half of B4's butterflies and one exchange, so its issue
+// bound falls under its bytes bound: it is bound by device memory.
 //
 // Arithmetic.  q < 2^30, so 4q < 2^32 and Harvey's lazy ranges fit uint32:
 // forward values stay in [0, 4q), inverse values in [0, 2q).  Shoup products
@@ -69,7 +82,7 @@
 // hi * (2^32 mod q) + lo, exact for any uint32 operands (no 64-bit %).
 //
 // Each launcher is extern "C", takes raw pointers, the batch B, n, log2(n),
-// the parameter set's constants (B1 and B4 then a pointer to their pass
+// the parameter set's constants (B1, B3 and B4 then a pointer to their pass
 // plan) and a stream, launches without synchronising and returns
 // cudaGetLastError().
 
@@ -88,6 +101,7 @@ using qt::shoup_lazy;
 using qt::exchange;
 using qt::ilog2;
 using qt::PassKernel;
+using qt::PassOrder;
 using qt::PassPlan;
 using qt::two_pass_b;
 using qt::two_pass_hi;
@@ -344,7 +358,134 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// B2, B3: a thread block a row.
+// B3: one transform in register passes.
+// ---------------------------------------------------------------------------
+
+// One merged-psi transform of each row in register passes, no product:
+// B3's inverse (FWD false) is B4's inverse half with nothing before it.  The
+// load is coalesced, register c of thread t holding position t + c 2^tb
+// (the window [tb, L)); one exchange through padded shared memory takes the
+// row to the window [0, r) the GS stages start on, from the narrowest up;
+// one exchange a pass after the first (__syncwarp at n <= 1024); the last
+// pass on [tb, L), its stage k = L - 1 fused into the coalesced canonical
+// store, as B1's and B4's.  Reading each thread's R values in [0, r) as
+// neighbours in 16-byte loads, with no first exchange, took 1.1593x the
+// time on an H100 (each warp-wide load touches 32 lines of device memory;
+// PERF.md).  The forward alone (FWD true, B2's) is the mirror: the
+// coalesced load on [tb, L), the CT stages from the widest down to [0, r)
+// and a store of R neighbours, canonical.  Input below 2q (inverse) or 4q
+// (forward); one operand's registers leave room for 1024 threads a row in
+// three passes (n = 32768).  In one or two passes three 256-thread blocks
+// an SM (80 registers, no spill) ran 0.9769x the time of four (64) on an
+// H100 (PERF.md).
+template <bool FWD, int R, int P, int LOGN>
+__global__ void __launch_bounds__(P == 3 ? 1024 : 256, P == 3 ? 1 : 3)
+    transform_pass_kernel(const uint32_t* __restrict__ x,
+                          const uint32_t* __restrict__ /*unused*/,
+                          uint32_t* __restrict__ z,
+                          const uint32_t* __restrict__ tw, long long batch,
+                          int n_arg, int logn_arg, Mod m, uint32_t q2,
+                          PassPlan pl) {
+    static_assert(LOGN == 0 || P == 2, "one length: two passes");
+    constexpr int r = ilog2(R);
+    constexpr bool kConst = LOGN > 0;
+    constexpr bool up = !FWD;
+    constexpr int kV = R < 4 ? 2 : 4;     // values a vector store
+    extern __shared__ uint32_t smem[];
+    const int logn = kConst ? LOGN : logn_arg;
+    const int n = kConst ? 1 << LOGN : n_arg;
+    const int tb = logn - r;  // thread bits: T = 2^tb threads a row
+    const int t = threadIdx.x & ((1 << tb) - 1);
+    const int slot = threadIdx.x >> tb;
+    const long long row = static_cast<long long>(blockIdx.x) * pl.rows + slot;
+    // a row past the batch computes on row 0 and stores nothing: its
+    // threads still meet every barrier
+    const bool live = row < batch;
+    const size_t off = live ? static_cast<size_t>(row) * n : 0;
+    const bool warp_rows = tb <= 5;
+    uint32_t* buf = smem + slot * pl.row_stride;
+    const int stride = n + (n >> 5);
+    const uint32_t* w = tw + (FWD ? 0 : 2 * n);
+    const uint32_t* w_sh = tw + (FWD ? n : 3 * n);
+    const uint32_t q = m.q;
+
+    // the window [tb, L): neighbouring columns, neighbouring threads; the
+    // inverse then goes to [0, r)
+    uint32_t v[1][R];
+    int b = tb;
+#pragma unroll
+    for (int c = 0; c < R; ++c) v[0][c] = x[off + t + (c << tb)];
+    if (!FWD && tb > 0) {
+        exchange<kConst, R, 1>(v, buf, stride, tb, t, 0, t, warp_rows);
+        b = 0;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        if (p > 0) {
+            const int b2 = kConst ? two_pass_b(up, p, LOGN, r)
+                                  : FWD ? pl.fwd_b[p] : pl.inv_b[p];
+            exchange<kConst, R, 1>(v, buf, stride, b, t, b2, t, warp_rows);
+            b = b2;
+        }
+        const int lo = kConst ? two_pass_lo(up, p, LOGN)
+                              : FWD ? pl.fwd_lo[p] : pl.inv_lo[p];
+        const int hi = kConst ? two_pass_hi(up, p, LOGN)
+                              : FWD ? pl.fwd_hi[p] : pl.inv_hi[p];
+        // the inverse's last stage, k = L - 1, goes with the store
+        merged_stages<FWD, R, 1>(v, b, t, lo, FWD || hi < logn ? hi : logn - 1,
+                                 logn, w, w_sh, q, q2);
+    }
+    if (!live) return;
+    if constexpr (FWD) {
+        // [0, r): R neighbours, canonical
+        uint32_t* s = z + off + (static_cast<size_t>(t) << r);
+#pragma unroll
+        for (int c = 0; c < R; ++c) v[0][c] = csub(csub(v[0][c], q2), q);
+#pragma unroll
+        for (int c = 0; c < R; c += kV) {
+            if constexpr (kV == 2)
+                *reinterpret_cast<uint2*>(s + c) =
+                    make_uint2(v[0][c], v[0][c + 1]);
+            else
+                *reinterpret_cast<uint4*>(s + c) = make_uint4(
+                    v[0][c], v[0][c + 1], v[0][c + 2], v[0][c + 3]);
+        }
+    } else {
+        // the last stage in the last window [tb, L), on register bit r - 1:
+        // the sum by n^{-1}, the difference by psi^{-1}_rev[1] n^{-1}
+        const uint32_t w0 = __ldg(w), w0_sh = __ldg(w_sh);
+        const uint32_t w1 = __ldg(w + 1), w1_sh = __ldg(w_sh + 1);
+        constexpr int h = R / 2;
+#pragma unroll
+        for (int c = 0; c < h; ++c) {
+            const uint32_t a = v[0][c], d = v[0][c + h];
+            z[off + t + (c << tb)] = csub(shoup_lazy(a + d, w0, w0_sh, q), q);
+            z[off + t + ((c + h) << tb)] =
+                csub(shoup_lazy(a + q2 - d, w1, w1_sh, q), q);
+        }
+    }
+}
+
+// B3's instantiations: R = n for n <= 32, R = 32 in two passes (n <= 1024)
+// or three (n <= 32768), and R = 32 in two passes built for n = 1024.
+template <bool FWD>
+PassKernel transform_pass_kernel_for(int radix, int passes, int logn) {
+    if (radix == 32 && passes == 2 && logn == 10)
+        return transform_pass_kernel<FWD, 32, 2, 10>;
+    switch (radix * 4 + passes) {
+        case 2 * 4 + 1: return transform_pass_kernel<FWD, 2, 1, 0>;
+        case 4 * 4 + 1: return transform_pass_kernel<FWD, 4, 1, 0>;
+        case 8 * 4 + 1: return transform_pass_kernel<FWD, 8, 1, 0>;
+        case 16 * 4 + 1: return transform_pass_kernel<FWD, 16, 1, 0>;
+        case 32 * 4 + 1: return transform_pass_kernel<FWD, 32, 1, 0>;
+        case 32 * 4 + 2: return transform_pass_kernel<FWD, 32, 2, 0>;
+        case 32 * 4 + 3: return transform_pass_kernel<FWD, 32, 3, 0>;
+        default: return nullptr;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// B2: a thread block a row.
 // ---------------------------------------------------------------------------
 
 // Forward stages over NOPS rows of n values held back to back in shared
@@ -377,41 +518,6 @@ __device__ void fwd_stages(uint32_t* a, const uint32_t* __restrict__ tw,
     }
 }
 
-// Inverse stages over one row in shared memory.  Input < 2q, output
-// canonical.  Stage s has pair distance t = 2^s and h = n >> (s + 1) blocks;
-// block i uses itw[h + i].  The last stage (h = 1) multiplies the sum branch
-// by itw[0] = n^{-1} and the difference branch by itw[1] = psi^{-1}_rev[1] *
-// n^{-1}.
-__device__ void inv_stages(uint32_t* a, const uint32_t* __restrict__ itw,
-                           const uint32_t* __restrict__ itw_sh, int n,
-                           int logn, uint32_t q) {
-    const int half = n >> 1;
-    const uint32_t q2 = 2u * q;
-    for (int s = 0; s < logn - 1; ++s) {
-        const int t = 1 << s;
-        const int h = n >> (s + 1);
-        for (int k = threadIdx.x; k < half; k += blockDim.x) {
-            const int i = k >> s;
-            const int j = (i << (s + 1)) + (k & (t - 1));
-            const uint32_t u = a[j];
-            const uint32_t v = a[j + t];
-            a[j] = csub(u + v, q2);
-            a[j + t] = shoup_lazy(u - v + q2, __ldg(itw + h + i),
-                                  __ldg(itw_sh + h + i), q);
-        }
-        __syncthreads();
-    }
-    const uint32_t w0 = __ldg(itw), w0_sh = __ldg(itw_sh);
-    const uint32_t w1 = __ldg(itw + 1), w1_sh = __ldg(itw_sh + 1);
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-        const uint32_t u = a[k];
-        const uint32_t v = a[k + half];
-        a[k] = csub(shoup_lazy(u + v, w0, w0_sh, q), q);
-        a[k + half] = csub(shoup_lazy(u - v + q2, w1, w1_sh, q), q);
-    }
-    __syncthreads();
-}
-
 __device__ __forceinline__ void load_row(uint32_t* dst,
                                          const uint32_t* __restrict__ src,
                                          int n) {
@@ -430,19 +536,6 @@ __global__ void ntt_fused_kernel(const uint32_t* __restrict__ x,
     fwd_stages<1>(smem, tw, tw + n, n, logn, m.q);
     for (int k = threadIdx.x; k < n; k += blockDim.x)
         out[row + k] = csub(csub(smem[k], 2u * m.q), m.q);
-}
-
-__global__ void intt_fused_kernel(const uint32_t* __restrict__ x,
-                                  const uint32_t* __restrict__ /*unused*/,
-                                  uint32_t* __restrict__ out,
-                                  const uint32_t* __restrict__ tw, int n,
-                                  int logn, Mod m) {
-    extern __shared__ uint32_t smem[];
-    const size_t row = static_cast<size_t>(blockIdx.x) * n;
-    load_row(smem, x + row, n);
-    __syncthreads();
-    inv_stages(smem, tw + 2 * n, tw + 3 * n, n, logn, m.q);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) out[row + k] = smem[k];
 }
 
 using KernelFn = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
@@ -501,8 +594,22 @@ extern "C" int qt_polymul_fixed_fused(const void* a, const void* b,
                                     r32_sh, one_sh, plan, stream);
 }
 
+// B3: the inverse alone in register passes, plan from
+// ops/ntt_fused.py intt_pass_plan
+extern "C" int qt_intt_fused(const void* a, const void* b, void* out,
+                             const void* tw, long long batch, int n, int logn,
+                             uint32_t q, uint32_t r32, uint32_t r32_sh,
+                             uint32_t one_sh, const void* plan, void* stream) {
+    if (!plan) return cudaErrorInvalidValue;
+    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    PassOrder order{false, true, false, false, 1};
+    order.forward = false;
+    return qt::launch_pass_kernel(
+        transform_pass_kernel_for<false>(pl.radix, pl.passes, logn), pl,
+        order, a, b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
+}
+
 QT_LAUNCHER(qt_ntt_fused, ntt_fused_kernel, 1)
-QT_LAUNCHER(qt_intt_fused, intt_fused_kernel, 1)
 
 extern "C" const char* qt_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

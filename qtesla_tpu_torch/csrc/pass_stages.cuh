@@ -1,5 +1,6 @@
 // Register passes of butterfly stages, shared by the pass kernels of
-// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1, B4).
+// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1, B4, and B3,
+// the inverse alone).
 //
 // A row of n = 2^L values is held by T = n / R threads, R values of each
 // operand a thread.  In a pass, thread vt holds the R indices that differ
@@ -233,11 +234,13 @@ using PassKernel = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
 
 // The order of a pass kernel's transforms: each from the narrowest stage
 // up or not, a bit reversal between them (reflect) or not, Stockham's
-// windows or not; and the operands its exchanges carry (B4's forward runs
-// on x alone).
+// windows or not; the operands its exchanges carry (B4's forward runs on x
+// alone); and whether it runs a forward at all (B3 runs the inverse alone,
+// its plan's forward fields 0).
 struct PassOrder {
     bool fwd_up, inv_up, reflect, stk;
     int operands = 2;
+    bool forward = true;
 };
 
 // Checks the plan against the kernel chosen for it (null: none) and
@@ -245,6 +248,10 @@ struct PassOrder {
 // leaves a row in the window [tb, L), reflected to [0, r) when the forward
 // starts from the narrowest stage; the product keeps the forward's last
 // window, reflected when a bit reversal lies between the two transforms.
+// With no forward the inverse starts on [0, r) (B3's kernel takes its
+// coalesced load there by one exchange), and a row may take 1024 threads
+// in three passes (n = 32768: one operand's registers leave room for
+// them).
 inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
                               PassOrder order, const void* a, const void* b,
                               void* out, const void* tw, long long batch,
@@ -256,17 +263,29 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
         return cudaErrorInvalidValue;
     const int r = ilog2(pl.radix), tb = logn - r;
     const long long threads = static_cast<long long>(pl.rows) * pl.threads;
-    if (pl.threads != 1 << tb || pl.rows < 1 ||
-        threads > (pl.passes == 3 ? 512 : 256) || threads % 32 != 0)
+    const int most = pl.passes == 3 ? (order.forward ? 512 : 1024) : 256;
+    if (pl.threads != 1 << tb || pl.rows < 1 || threads > most ||
+        threads % 32 != 0)
         return cudaErrorInvalidValue;
-    const int last = pl.fwd_b[pl.passes - 1];
-    const int inv_first = order.reflect ? tb - last : last;
-    if (!schedule_ok(pl.fwd_lo, pl.fwd_hi, pl.fwd_b, pl.passes, logn, r,
-                     order.fwd_up, order.stk) ||
-        !schedule_ok(pl.inv_lo, pl.inv_hi, pl.inv_b, pl.passes, logn, r,
-                     order.inv_up, order.stk) ||
-        pl.fwd_b[0] != (order.fwd_up ? 0 : tb) || pl.inv_b[0] != inv_first)
-        return cudaErrorInvalidValue;
+    if (order.forward) {
+        const int last = pl.fwd_b[pl.passes - 1];
+        const int inv_first = order.reflect ? tb - last : last;
+        if (!schedule_ok(pl.fwd_lo, pl.fwd_hi, pl.fwd_b, pl.passes, logn, r,
+                         order.fwd_up, order.stk) ||
+            !schedule_ok(pl.inv_lo, pl.inv_hi, pl.inv_b, pl.passes, logn, r,
+                         order.inv_up, order.stk) ||
+            pl.fwd_b[0] != (order.fwd_up ? 0 : tb) ||
+            pl.inv_b[0] != inv_first)
+            return cudaErrorInvalidValue;
+    } else {
+        for (int p = 0; p < kMaxPasses; ++p)
+            if (pl.fwd_lo[p] || pl.fwd_hi[p] || pl.fwd_b[p])
+                return cudaErrorInvalidValue;
+        if (!schedule_ok(pl.inv_lo, pl.inv_hi, pl.inv_b, pl.passes, logn, r,
+                         order.inv_up, order.stk) ||
+            pl.inv_b[0] != 0)
+            return cudaErrorInvalidValue;
+    }
     size_t smem = 0;
     if (pl.passes > 1) {
         if (order.operands < 1 || order.operands > 2 ||

@@ -1,6 +1,6 @@
 // The row segment of the sequence-parallel (four-step) digit-matmul polymul
 // over its tables' nonzero blocks, for Hopper (sm_90a): one kernel body,
-// seg2_compact_kernel, in three modes (Mode), for
+// seg2_compact_kernel, in four modes (Mode), for
 //   B12 qt_sp_seg2 (sharded_mxu.cu; kPair): x's and y's spectral shards
 //       (S, B, nloc), each value split under p2f (4 planes of base 256 at
 //       every registered set), one product against K2f;
@@ -23,6 +23,16 @@
 //       lanes (held in shared memory beside the const rows, read once a
 //       block) in registers, and the second product takes two tiles of
 //       16 product rows, each table fragment serving both.
+//   B15 qt_sp_seg2_folded (sharded_mxu.cu; kFolded): B13's rows, 32 of x a
+//       warp, through one product alone, against the constant's folded
+//       F[d, t] = K2f diag(A^[d, t]) K2i[d, t] under the plan p2x (one
+//       input plane split into din planes, Dout classes), then the
+//       recombination and a store straight from registers: no pointwise
+//       product, no second split, no K2i.  F is block-diagonal over the
+//       n2-blocks as K2i is, so the operand holds its nonzero blocks alone
+//       (FoldedSpOperand.w, (k, a, nblk, Dout * s, kp)), each (shard,
+//       tile, n2-block) one, found as the second product finds K2i's, with
+//       its const row.
 // The output is canonical.
 //
 // Design.  K2f, K2i and the class tables are block-diagonal over the
@@ -72,9 +82,15 @@
 // registered set but smallprime) leave no MMA of the depth loops on a
 // run-time condition.
 //
-// B12 and B13 ran as modes of sharded_mxu.cu's sp_kernel until they took
-// this body (B13: 1.2227 ms at qtesla-iii-speed, k = 4, B = 32768, the
-// same dense phases as B12's below; PERF.md).  B12's sp_kernel mode:
+// B12, B13 and B15 ran as modes of sharded_mxu.cu's sp_kernel until they
+// took this body (B13: 1.2227 ms at qtesla-iii-speed, k = 4, B = 32768, the
+// same dense phases as B12's below; B15: 0.5708 ms, whole 384 x 384 tiles
+// of its dense F at p2x (3 planes, 3 classes), 3/4 of the MACs on zeros,
+// streamed from L2 once per 32-row group behind barrier-separated load,
+// split, product and recombination phases; PERF.md).  B15's mode holds
+// its block of F (96 x 96 bytes at qtesla-iii-speed, k = 4: 9 KiB) and one
+// const row in shared memory, one product 96 deep where the dense one ran
+// 384, and no barrier after the tables' load.  B12's sp_kernel mode:
 // whole 128 x 128 tiles of K2f and K2i streamed from L2 once per 32-row
 // group, load, split, products and recombination barrier-separated, 2.10
 // ms at qtesla-iii-speed, k = 4, 1.53 of it products and their table reads
@@ -124,7 +140,7 @@ namespace seg2 {
 
 // What seg2_compact_kernel runs, numbered so that the instantiation names
 // utils/sass_diff.py matches across trees keep B12 at 0 and B18 at 1.
-enum Mode : int { kPair = 0, kClassPlanes = 1, kSpectrum = 2 };
+enum Mode : int { kPair = 0, kClassPlanes = 1, kSpectrum = 2, kFolded = 3 };
 
 constexpr int kWarpRows = 8;      // batch rows of x and of y a warp works on
 constexpr int kMaxWarps = 16;     // warps a block runs at most
@@ -141,40 +157,43 @@ __host__ __device__ constexpr int pass_tiles(int slots) {
 // Units of 8 rows of x and 8 of y a warp takes at once: B12 two, so that
 // its second product's m16 tile holds 16 live rows and each table fragment
 // of the first serves two tiles; B18 one, its class planes leaving no room
-// for two.  B13 takes the rows of two such units from x alone: 32.
+// for two.  B13 and B15 take the rows of two such units from x alone: 32.
 __host__ __device__ constexpr int units_of(int mode) {
     return mode == kClassPlanes ? 1 : 2;
 }
 
 // Batch rows a warp takes at once, and its product rows: half its planes
-// rows (x's, beside y's), or all of them (B13).
+// rows (x's, beside y's), or all of them (B13, B15).
 __host__ __device__ constexpr int batch_rows(int mode, int rows) {
-    return mode == kSpectrum ? rows : rows / 2;
+    return mode == kSpectrum || mode == kFolded ? rows : rows / 2;
 }
 
 // Rows of s lanes the block holds beside its planes: the first table's
-// const row and K2i's, and B13's spectrum.
+// const row and K2i's, and B13's spectrum; B15's one const row.
 __host__ __device__ constexpr int const_rows(int mode) {
-    return mode == kSpectrum ? 3 : 2;
+    return mode == kSpectrum ? 3 : mode == kFolded ? 1 : 2;
 }
 
 // Shared memory one warp takes: the first planes of its rows (p.rows) and
-// the p2i planes of its product rows.
+// the p2i planes of its product rows (B15 has no second product).
 inline size_t warp_smem(const SpClassPlan& p, int mode) {
     return p.rows * compact_row_stride(1, p.c1.kp) +
-           batch_rows(mode, p.rows) * compact_row_stride(1, p.c2.kp);
+           (mode == kFolded ? 0
+                            : batch_rows(mode, p.rows) *
+                                  compact_row_stride(1, p.c2.kp));
 }
 
 // What the block's warps share: the const rows of its n2-block (and B13's
-// spectrum) and, where they fit, its tables, rows compact_table_stride
-// apart.
+// spectrum) and, where they fit, its tables (B15 one), rows
+// compact_table_stride apart.
 inline size_t shared_smem(const SpClassPlan& p, int mode) {
     const size_t s = static_cast<size_t>(1) << p.c1.ls;
     return const_rows(mode) * s * sizeof(uint32_t) +
-           (p.smem_tables ? p.d * s *
-                                (compact_table_stride(p.c1.kp) +
-                                 compact_table_stride(p.c2.kp))
-                          : 0);
+           (p.smem_tables
+                ? p.d * s *
+                      (compact_table_stride(p.c1.kp) +
+                       (mode == kFolded ? 0 : compact_table_stride(p.c2.kp)))
+                : 0);
 }
 
 template <int kMode, bool kSmemTables, int kSlots, bool kFull>
@@ -189,12 +208,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                         const __grid_constant__ SpClassPlan p) {
     constexpr bool kClasses = kMode == kClassPlanes;
     constexpr bool kFixed = kMode == kSpectrum;
+    constexpr bool kFold = kMode == kFolded;
+    // the planes' rows are all x's (B13, B15), or x's beside y's
+    constexpr bool kXOnly = kFixed || kFold;
     constexpr int kU = units_of(kMode);
     constexpr int kRows = kU * kWarpRows;          // x rows a warp takes
-    // batch rows a warp takes at once, and its product rows (B13: 2 kRows,
-    // its planes rows all x's)
+    // batch rows a warp takes at once, and its product rows (B13, B15:
+    // 2 kRows, its planes rows all x's)
     constexpr int kBatch = batch_rows(kMode, 2 * kRows);
     constexpr int kConst = const_rows(kMode);
+    // rows of a warp's p2i planes: its product rows (none in B15)
+    constexpr int kRows2 = kFold ? 0 : kBatch;
     // output tiles of a pass: the second product's, and the first's, whose
     // kU m16 tiles share each table fragment
     constexpr int kPass2 = pass_tiles(kSlots), kPass1 = kPass2 / kU;
@@ -217,13 +241,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     // warp's planes, the tables
     uint32_t* cst = smem;
     int8_t* planes1 = reinterpret_cast<int8_t*>(cst + kConst * s) +
-                      warp * (2 * kRows * ks1 + kBatch * ks2);
+                      warp * (2 * kRows * ks1 + kRows2 * ks2);
     int8_t* planes2 = planes1 + 2 * kRows * ks1;
     // this n2-block's tables and const rows: B18's class block is one for
     // all and its const rows the shard's (a, tw); B12's K2f block is the
     // one of this n2-block's place in a tile, (nblk, d * s, kp), and its
     // const row the one (tw) row; K2i's block is block col of the shard's
-    // (a * nblk, d * s, kp), its const rows the shard's
+    // (a * nblk, d * s, kp), its const rows the shard's, and so are B15's
+    // block of the constant's F and its const row
     const size_t bytes_a = static_cast<size_t>(d << ls) * ca.kp;
     const size_t bytes_b = static_cast<size_t>(d << ls) * cb.kp;
     const size_t lanes0 = static_cast<size_t>(shard) * nloc + (col << ls);
@@ -231,19 +256,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         kClasses ? w1 : w1 + (col & ((p.tw >> ls) - 1)) * bytes_a;
     const int8_t* wb =
         w2 + (static_cast<size_t>(shard) * (nloc >> ls) + col) * bytes_b;
+    if (kFold)
+        wa = w1 + (static_cast<size_t>(shard) * (nloc >> ls) + col) * bytes_a;
 
     // once a block: the const rows and the tables, then no block barrier
     cp_async_bytes(cst,
-                   kClasses ? c1 + lanes0 : c1 + ((col << ls) & (p.tw - 1)),
+                   kClasses || kFold ? c1 + lanes0
+                                     : c1 + ((col << ls) & (p.tw - 1)),
                    s * sizeof(uint32_t));
-    cp_async_bytes(cst + s, c2 + lanes0, s * sizeof(uint32_t));
+    if (!kFold) cp_async_bytes(cst + s, c2 + lanes0, s * sizeof(uint32_t));
     // B13's y is the spectrum, one row (nloc) a shard
     if (kFixed) cp_async_bytes(cst + 2 * s, y + lanes0, s * sizeof(uint32_t));
     if (kSmemTables) {
         int8_t* wsm = reinterpret_cast<int8_t*>(cst + kConst * s) +
-                      nwarps * (2 * kRows * ks1 + kBatch * ks2);
+                      nwarps * (2 * kRows * ks1 + kRows2 * ks2);
         cp_async_rows(wsm, ts1, wa, ca.kp, d << ls);
-        cp_async_rows(wsm + (d << ls) * ts1, ts2, wb, cb.kp, d << ls);
+        if (!kFold)
+            cp_async_rows(wsm + (d << ls) * ts1, ts2, wb, cb.kp, d << ls);
         wa = wsm;
         wb = wsm + (d << ls) * ts1;
     }
@@ -271,8 +300,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         // The split, straight from device memory: word idx is 4 lanes of
         // planes row R of input plane j, j the same in all lanes of the
         // warp.  Row R of tile h = R >> 4 holds x's row 8h + (R & 7) below
-        // 8 and y's above (B13: x's row R; zero past the batch); 4 kU loads
-        // in flight.
+        // 8 and y's above (B13, B15: x's row R; zero past the batch); 4 kU
+        // loads in flight.
         for (int idx0 = lane; idx0 < words; idx0 += 4 * kU * 32) {
             uint4 v[4 * kU];
 #pragma unroll
@@ -280,11 +309,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 const int idx = idx0 + 32 * t, seg = idx >> (ls - 2);
                 const int R = seg & (2 * kRows - 1), j = seg / (2 * kRows);
                 const int r =
-                    kFixed ? R : ((R >> 4) << 3) | (R & (kWarpRows - 1));
+                    kXOnly ? R : ((R >> 4) << 3) | (R & (kWarpRows - 1));
                 v[t] = make_uint4(0, 0, 0, 0);
                 if (idx < words && r < live)
                     v[t] = __ldg(reinterpret_cast<const uint4*>(
-                        (!kFixed && (R & kWarpRows) ? y : x) + base +
+                        (!kXOnly && (R & kWarpRows) ? y : x) + base +
                         static_cast<size_t>(r) * wide + j * nloc +
                         4 * (idx & ((s >> 2) - 1))));
             }
@@ -315,7 +344,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         // and 2, 3 y's row 8h + g at the same two lanes: both are
         // recombined, multiplied and split under p2i in registers, into
         // product row 8h + g.  B13's are x's rows 16h + g and 16h + 8 + g,
-        // each multiplied by the spectrum into the product row of its own.
+        // each multiplied by the spectrum into the product row of its own;
+        // B15's, recombined, are the segment's output rows.
         for (int nt0 = 0; nt0 < ntiles; nt0 += kPass1) {
             int acc[kU][kPass1][kSlots][4];
 #pragma unroll
@@ -355,6 +385,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 const int h = ht / kPass1, t = ht % kPass1;
                 if (!kFull && nt0 + t >= ntiles) continue;
                 const int l0 = (nt0 + t) * 8 + tig * 2;
+                if constexpr (kFold) {
+                    // canonical, straight to device memory
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        uint32_t out[2];
+#pragma unroll
+                        for (int c = 0; c < 2; ++c)
+                            out[c] = recombine_value(
+                                cst[l0 + c] + p.kb1, d, p, [&](int j) {
+                                    return acc[h][t][j][2 * e + c];
+                                });
+                        const int r = (2 * h + e) * kWarpRows + g;
+                        if (r < live)
+                            *reinterpret_cast<uint2*>(
+                                z +
+                                (static_cast<size_t>(shard) * batch + row0 +
+                                 r) * static_cast<size_t>(nloc) +
+                                (col << ls) + l0) = make_uint2(out[0], out[1]);
+                    }
+                    continue;
+                }
                 if constexpr (kFixed) {
                     int32_t zf[2][2];
 #pragma unroll
@@ -403,7 +454,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 }
             }
         }
+        // B15: the next unit's split writes planes this one's product read
         __syncwarp();
+        if constexpr (kFold) continue;
 
         // The n2-block's inverse rows on the kBatch product rows (with one
         // unit the MMA's rows 8-15 are zero), straight to device memory.
@@ -581,7 +634,7 @@ int run(const void* a, const void* b, void* out, const void* w1,
 }
 
 // kFull where the class count fills the slots and the tiles the passes:
-// three classes for every mode, four for B12 and B13 (the p-sets); any
+// three classes for every mode, four for B12, B13 and B15 (the p-sets); any
 // other plan takes the instantiation with run-time conditions
 template <int kMode, bool kSmemTables>
 int run_route(const void* a, const void* b, void* out, const void* w1,
@@ -607,12 +660,16 @@ int run_route(const void* a, const void* b, void* out, const void* w1,
 // const row), B13 (kSpectrum; the same, b the spectrum rows (S, nloc)) or
 // B18 (kClassPlanes; w1 the class tables' one block, c1 the shard slice of
 // their const rows); w2 and c2 the shard slices of the compact K2i and its
-// const rows.  A plan outside the kernel's range is refused, never run.
+// const rows.  B15 (kFolded): w1 and c1 the shard slices of the constant's
+// compact F, (S, a, nblk, d * s, kp), and its const rows (S, a, tw); no b,
+// w2 or c2, and a plan with no second split (din2 0, c2 zero).  A plan
+// outside the kernel's range is refused, never run.
 template <int kMode>
 int launch(const void* a, const void* b, void* out, const void* w1,
            const void* c1, const void* w2, const void* c2, long long batch,
            int k_local, const void* plan, void* stream) {
     constexpr bool kClasses = kMode == kClassPlanes;
+    constexpr bool kFold = kMode == kFolded;
     const SpClassPlan p = *static_cast<const SpClassPlan*>(plan);
     const int slots = kClasses ? kClassSlots : kDigitSlots;
     bool ok = valid_shape(p, 2, batch, k_local, slots) &&
@@ -625,9 +682,12 @@ int launch(const void* a, const void* b, void* out, const void* w1,
         ok = j < nin ? valid_split(p.cdin[j], p.clb[j]) : p.cdin[j] == 0;
         sum += p.cdin[j];
     }
-    ok = ok && sum == p.din1 && valid_split(p.din2, p.lb2) &&
-         valid_compact(p.c1, p.din1, p.tw) &&
-         valid_compact(p.c2, p.din2, p.tw) && p.c1.ls == p.c2.ls &&
+    const bool second =
+        kFold ? p.din2 == 0 && p.lb2 == 0 && p.kp2 == 0 && p.c2.ls == 0 &&
+                    p.c2.kp == 0
+              : valid_split(p.din2, p.lb2) &&
+                    valid_compact(p.c2, p.din2, p.tw) && p.c1.ls == p.c2.ls;
+    ok = ok && sum == p.din1 && second && valid_compact(p.c1, p.din1, p.tw) &&
          (p.nloc >> p.c1.ls) <= 65535;
     if (!ok) return cudaErrorInvalidValue;
     // as many warps a block as its shared memory holds, at most kMaxWarps

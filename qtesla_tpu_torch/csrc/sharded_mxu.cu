@@ -28,31 +28,31 @@
 //         then the Lr inverse wide stages with n1^{-1} in the last; at
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
-// The wide stages and the dense block matmul are mxu_block.cuh's (B14 and
-// B15 run the block matmul); B11-B13, B16 and B17 multiply through
+// The wide stages and the dense block matmul are mxu_block.cuh's (B14 runs
+// the block matmul); B11-B13 and B15-B17 multiply through
 // mxu_compact.cuh.  Every
 // output is canonical, and canonical inputs lie below every plan's split
 // bound, so the JAX plans' split parameters serve unchanged; the TPU
 // kernel's lazy hand-offs between segments are not replayed.
 //
-// Design of B12 and B13.  seg2_compact.cuh's seg2_compact_kernel, the body
-// B18 runs too (modes kPair and kSpectrum: one input plane a value, split
-// under p2f, and K2f's block of this n2-block's place in the tile): K2f's
-// and K2i's nonzero blocks alone (SpDeviceTables.w2fc, .w2ic), a
-// persistent grid of (walkers, n2-blocks, shard) with each block's tables
-// in shared memory (through L2 at n = 8192), each warp taking 16 rows of x
-// and 16 of y (B13: 32 of x, and its shard's spectrum lanes read once a
-// block) through both products with no block barrier.  A rank of a
-// multi-process run launches it with k_local = 1 and its own table slice.
-// That header keeps the design.  B12 and B13 ran as modes of sp_kernel
-// below until they took that body (B13: 1.2227 ms at qtesla-iii-speed,
-// k = 4, PERF.md).
+// Design of B12, B13 and B15.  seg2_compact.cuh's seg2_compact_kernel, the
+// body B18 runs too (modes kPair, kSpectrum and kFolded: one input plane a
+// value, split under p2f, or p2x for B15, and K2f's block of this
+// n2-block's place in the tile, or B15's block of the constant's folded F
+// for this shard, tile and n2-block): the tables' nonzero blocks alone
+// (SpDeviceTables.w2fc, .w2ic; FoldedSpOperand.w), a persistent grid of
+// (walkers, n2-blocks, shard) with each block's tables in shared memory
+// (through L2 at n = 8192), each warp taking 16 rows of x and 16 of y
+// (B13 and B15: 32 of x; B13 also its shard's spectrum lanes read once a
+// block) through its products (B15: one) with no block barrier.  A rank
+// of a multi-process run launches it with k_local = 1 and its own table
+// slice.  That header keeps the design and the times of the sp_kernel
+// modes these three ran as before they took that body.
 //
-// Design of B14 and B15.  One launch covers the k_local stacked shards
-// (k_local, B, nloc) of a call: grid (row groups, shard), each shard's
-// tables found by offset (K2f and its const row are one table for every
-// shard).  A rank of a multi-process run launches the same kernel with
-// k_local = 1 and its own table slice.  A block holds `rows` rows (at most
+// Design of B14.  One launch covers the k_local stacked shards
+// (k_local, B, nloc) of a call: grid (row groups, shard), K2f and its const
+// row one table for every shard.  A rank of a multi-process run launches
+// the same kernel with k_local = 1.  A block holds `rows` rows (at most
 // 32) in shared memory for the whole segment, loaded with cp.async; at
 // nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so four
 // blocks fit an SM (B5's 148 KB block allows one).
@@ -65,8 +65,8 @@
 // 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
 // two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
 // TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.  B14 and B15 multiply whole TW x TW
-// tiles against tables streamed from L2 once per row group, and run load,
+// zero table columns and zero planes.  B14 multiplies whole TW x TW tiles
+// against the table streamed from L2 once per row group, and runs load,
 // split, products and recombination as barrier-separated phases; no TMA
 // and no wgmma.
 //
@@ -118,21 +118,21 @@
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; B14 and B15 multiply whole tiles all the
-// same):
+// over n2-blocks, n2/TW = 1/4; B14 multiplies whole tiles all the same):
 //   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
 //   B13               270 MB, 2.3e10 MACs: 0.081 ms, device memory;
 //   B14               269 MB, 1.3e10 MACs: 0.080 ms, device memory;
 //   B15               270 MB, 9.7e9 MACs: 0.080 ms, device memory (p2x
-//                     takes 3 planes where B13's K2f and K2i take 4 + 3).
+//                     takes 3 planes where B13's K2f and K2i take 4 + 3;
+//                     the operand's nonzero blocks are 0.3 MB).
 // The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
 // shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan; B12,
-// B13: an SpClassPlan) and a stream, launches without synchronising and
-// returns cudaGetLastError().
+// B13, B15: an SpClassPlan) and a stream, launches without synchronising
+// and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -170,11 +170,11 @@ constexpr int kSmThreads = 512;
 // shared memory of one SM, and what the runtime reserves for each block
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
 
-// the row segments, numbered so that sp_kernel<seg,threads> keeps the
-// instantiation names utils/sass_diff.py matches across trees (B11, B16 and
-// B17 are column_compact_kernel below, B12 and B13 seg2_compact.cuh's
-// seg2_compact_kernel)
-enum Seg { kSeg2Fwd = 4, kSeg2Folded };
+// the row segment sp_kernel runs, numbered so that sp_kernel<seg,threads>
+// keeps the instantiation name utils/sass_diff.py matches across trees
+// (B11, B16 and B17 are column_compact_kernel below, B12, B13 and B15
+// seg2_compact.cuh's seg2_compact_kernel; B15 was sp_kernel<5,..>)
+enum Seg { kSeg2Fwd = 4 };
 
 template <int SEG, int THREADS>
 __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
@@ -191,11 +191,6 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
     const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
     const size_t base =
         (static_cast<size_t>(shard) * batch + row0) * static_cast<size_t>(nloc);
-    // one shard's tables: a tiles of (d * tw, kp) int8 and (tw) const
-    const size_t tile1 = static_cast<size_t>(p.d) * p.tw * p.kp1;
-    const size_t cshard = static_cast<size_t>(p.a) * p.tw;
-    const int8_t* w1_shard = w1 + shard * p.a * tile1;
-    const uint32_t* c1_shard = c1 + shard * cshard;
 
     // rows past the batch are zero-filled; every copy is in flight before
     // the one wait
@@ -211,9 +206,6 @@ __global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
         block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
                      c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
     }
-    if (SEG == kSeg2Folded)
-        block_matmul(data, tb, nloc, p.tw, p.a, planes, ks, w1_shard, tile1,
-                     p.kp1, c1_shard, p.tw, p.din1, p.lb1, p.add1, p.kb1, p);
 
     for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4)
         if ((c >> p.lnloc) < live)
@@ -248,8 +240,7 @@ int run(const void* a, void* out, const void* w1, const void* c1,
     return cudaGetLastError();
 }
 
-// B14 and B15: w1 and c1 the one K2f table and its const row (B14) or the
-// shard slices of the constant's folded tables and const rows (B15)
+// B14: w1 and c1 the one K2f table and its const row
 template <int SEG>
 int launch(const void* a, void* out, const void* w1, const void* c1,
            long long batch, int k_local, const void* plan, void* stream) {
@@ -589,7 +580,18 @@ extern "C" int qt_sp_seg2_fixed(const void* a, const void* b, void* out,
                                                  batch, k_local, plan,
                                                  stream);
 }
-// B14 and B15: w1 and c1 as launch<SEG> takes them, plan an SpPlan; b, w2,
-// c2 and tw unused
+// B15: w1 and c1 the shard slices of the constant's compact folded F
+// (FoldedSpOperand.w) and its const rows, plan an SpClassPlan with no
+// second split; b, w2, c2 and tw unused
+extern "C" int qt_sp_seg2_folded(const void* a, const void*, void* out,
+                                 const void* w1, const void* c1, const void*,
+                                 const void*, const void*, long long batch,
+                                 int k_local, const void* plan,
+                                 void* stream) {
+    return qt::seg2::launch<qt::seg2::kFolded>(a, nullptr, out, w1, c1,
+                                               nullptr, nullptr, batch,
+                                               k_local, plan, stream);
+}
+// B14: w1 and c1 as launch<SEG> takes them, plan an SpPlan; b, w2, c2 and
+// tw unused
 QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
-QT_SP_LAUNCHER(qt_sp_seg2_folded, kSeg2Folded)

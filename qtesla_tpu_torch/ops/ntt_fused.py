@@ -16,18 +16,23 @@ fallback: a CUDA tensor with no built library, or a refused launch, raises.
 Every successful launch adds one to its kernel's ``launches`` count in
 ``KERNELS``; nothing else touches the counts.
 
-On the H100 the kernels are bound by instruction issue, not by device
-memory, which sees one read per operand and one write of z.  B1 runs in
+On the H100 B2 is bound by instruction issue, B1, B3 and B4 (register
+passes) nearer device memory, which sees one read per operand and one
+write of z.  B1 runs in
 register passes (``csrc/pass_stages.cuh``) on gs_ct's window sequence, under
 ``fused_pass_plan(n)``, which its launcher checks; B4 runs B1's kernel with
 one operand (x alone through the forward, the spectrum multiplied in where
-the forward ends) under ``fixed_pass_plan(n)``.  ``polymul_fused_passes_plain``
-and ``polymul_fixed_fused_passes_plain`` run those schedules on the CPU with
-the kernel's index maps, exchanges and lazy ranges.  B2 and B3 keep each row
-in shared memory for the whole pipeline (one thread block per row, a
-block-wide barrier between the log2(n) dependent stages).  All read
-twiddles from compact n-entry tables instead of the TPU kernel's full-width
-(L, n) tables; see the note at the top of the CUDA source.
+the forward ends) under ``fixed_pass_plan(n)``; B3 runs B4's inverse half
+alone (``transform_pass_kernel``: a coalesced load, one exchange to where
+B4's inverse starts) under ``intt_pass_plan(n)``, a plan with no forward
+passes, for every n from 2 to 32768.  ``polymul_fused_passes_plain``,
+``polymul_fixed_fused_passes_plain`` and ``intt_passes_plain`` run those
+schedules on the CPU with the kernel's index maps, exchanges and lazy
+ranges.  B2 keeps each row in shared memory for the whole pipeline (one
+thread block per row, a block-wide barrier between the log2(n) dependent
+stages).  All read twiddles from compact n-entry tables instead of the TPU
+kernel's full-width (L, n) tables; see the note at the top of the CUDA
+source.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ from .tables import NttTables, get_tables
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
            "ntt_fused_fn", "intt_fused_fn", "polymul_fused",
            "polymul_fixed_fused", "ntt_fused", "intt_fused",
-           "fused_pass_plan", "fixed_pass_plan", "polymul_fused_passes_plain",
-           "polymul_fixed_fused_passes_plain"]
+           "fused_pass_plan", "fixed_pass_plan", "intt_pass_plan",
+           "polymul_fused_passes_plain", "polymul_fixed_fused_passes_plain",
+           "intt_passes_plain"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_fused.cu"
 
@@ -77,7 +83,7 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
            "qtesla_tpu/ops/ntt_pallas.py:112", 0),
     Kernel("ntt_fused", "qt_ntt_fused", "qtesla_tpu/ops/ntt_pallas.py:123", 1),
     Kernel("intt_fused", "qt_intt_fused", "qtesla_tpu/ops/ntt_pallas.py:129",
-           1),
+           0),
 )}
 
 
@@ -200,18 +206,27 @@ def fixed_pass_plan(n: int) -> PassPlan:
     return pass_plan(n, False, True, operands=1)
 
 
+def intt_pass_plan(n: int) -> PassPlan:
+    """B3's schedule at row length ``n``: B4's inverse passes with no
+    forward before them (the forward's fields 0), one operand's shared
+    memory a row, and up to 1024 threads a row in three passes, so every n
+    from 2 to 32768 has a plan.  Raises for other n.  Cached: copy it
+    before changing a field."""
+    return pass_plan(n, None, True, operands=1)
+
+
 def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
     """The pass schedule of B1 and B4 over the (B, n) int64 rows ``ops`` (x
     and y, or x alone) on the CPU: the forward's passes of every operand,
     ``product(V, mdl, b)`` of the values V (rows, operands, T, R) in the
     forward's last window b, then the inverse's passes and the last stage
     with the store; the rows of z."""
-    n, L, q = tbl.n, tbl.logn, tbl.q
-    fw, fw_sh, iw, iw_sh = torch.from_numpy(tbl.packed.astype(np.int64))
+    n, q = tbl.n, tbl.q
+    fw, fw_sh = torch.from_numpy(tbl.packed[:2].astype(np.int64))
     B = ops[0].shape[0]
     mdl = PassModel(plan, n, q, B)
     ops = [mdl.pad(a) for a in ops]
-    t, tb, R = mdl.t, mdl.tb, plan.radix
+    t, tb = mdl.t, mdl.tb
 
     b = tb
     idx = mdl.window(t, b)
@@ -224,7 +239,16 @@ def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
         V = mdl.merged_stages(V, b, t, plan.fwd_lo[p], plan.fwd_hi[p], fw,
                               fw_sh, fwd=True)
     # the inverse starts on the forward's last window
-    V = product(V, mdl, b)
+    return _inverse_passes(product(V, mdl, b), mdl, b, tbl, B)
+
+
+def _inverse_passes(V, mdl: PassModel, b: int, tbl: NttTables, B: int):
+    """The inverse's passes of B1, B3 and B4 on the values V (rows, 1, T,
+    R) in the window b, then the last stage with the store; the B rows of
+    z."""
+    plan, L, q = mdl.plan, tbl.logn, tbl.q
+    iw, iw_sh = torch.from_numpy(tbl.packed[2:].astype(np.int64))
+    t, tb, R = mdl.t, mdl.tb, plan.radix
     for p in range(plan.passes):
         if p:
             V, b, _ = mdl.exchange(V, b, t, plan.inv_b[p], t)
@@ -239,7 +263,7 @@ def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
         MM._csub(MM.shoup_mulmod_lazy(U + D, iw[0], iw_sh[0], q), q),
         MM._csub(MM.shoup_mulmod_lazy(U + 2 * q - D, iw[1], iw_sh[1], q), q)],
         -1)
-    z = torch.zeros_like(ops[0])
+    z = torch.zeros((V.shape[0], mdl.n), dtype=_I64)
     z[:, mdl.window(t, tb)] = out
     return z[:B]
 
@@ -288,6 +312,24 @@ def polymul_fixed_fused_passes_plain(x, yspec, tbl: NttTables,
     return z.reshape(x.shape).to(_U32)
 
 
+def intt_passes_plain(X, tbl: NttTables, plan: PassPlan | None = None):
+    """The inverse merged-psi NTT (rev -> nat) of values below 2q through
+    B3's schedule (``plan``, ``intt_pass_plan`` unless given), on the CPU:
+    the coalesced load on the window [tb, L), one exchange into [0, r),
+    then B4's inverse passes, exchanges and last stage with the store;
+    canonical."""
+    n = tbl.n
+    plan = intt_pass_plan(n) if plan is None else plan
+    X2 = X.reshape(-1, n).to(_I64)
+    B = X2.shape[0]
+    mdl = PassModel(plan, n, tbl.q, B)
+    t, b = mdl.t, mdl.tb
+    V = mdl.pad(X2)[:, mdl.window(t, b)][:, None]
+    if b:
+        V, b, _ = mdl.exchange(V, b, t, 0, t)
+    return _inverse_passes(V, mdl, b, tbl, B).reshape(X.shape).to(_U32)
+
+
 # ----------------------------------------------------------------------
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
@@ -331,7 +373,8 @@ def intt_fused(X, tbl: NttTables, tw=None) -> torch.Tensor:
     """Inverse merged-psi NTT (rev -> nat) of values below 2q, canonical."""
     tw = _prepare(tbl, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_fused"], tbl, tw, X, None)
+        return _launch(KERNELS["intt_fused"], tbl, tw, X, None,
+                       intt_pass_plan(tbl.n))
     return intt_plain(X, tbl, tw)
 
 

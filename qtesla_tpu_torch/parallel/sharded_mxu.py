@@ -17,7 +17,9 @@ Counterpart of the kernels and the assembly of
   the last step of a constant's spectrum;
 - ``sp_seg2_folded``  B15, replaces ``_make_seg2_folded`` (l.563): one
   product per (shard, tile) against the constant's folded tables
-  F = K2f diag(A^) K2i under the plan p2x;
+  F = K2f diag(A^) K2i under the plan p2x, over F's nonzero blocks alone
+  (the operand holds them: ``FoldedSpOperand.w``), in the kernel body of
+  B12 and B13;
 - ``sp_seg3``  B16, replaces ``_make_seg3`` (l.622): K3 per (shard, tile),
   then the inverse wide stages with n1^{-1}; ``folded=True`` takes the plan
   p3x, as the folded path does.  B11 and B16 multiply only the nonzero
@@ -74,10 +76,12 @@ from ..ops.ntt_mxu import (_check_shapes, _digit_planes, block_rows,
 from ..ops.tables import get_tables
 from .sharded_mxu_tables import (CompactLayout, SpPlans, compact_depth,
                                  compact_layout, compact_tables,
-                                 fourstep_fold_tables, fourstep_mxu_plans)
+                                 expand_compact, fourstep_fold_tables,
+                                 fourstep_mxu_plans)
 
 __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
-           "host_tables", "device_tables", "fold_sp_operand", "plan_for",
+           "host_tables", "device_tables", "fold_sp_operand",
+           "dense_folded_tables", "plan_for",
            "sp_seg1", "sp_seg2", "sp_seg2_fixed", "sp_seg2_fwd",
            "sp_seg2_folded", "sp_seg3", "seg1_plain", "seg1_compact_plain",
            "compact_class_sums", "CompactDims", "SpCompactPlan",
@@ -85,9 +89,9 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "compact_route", "seg2_plain", "seg2_compact_plain",
            "SpClassPlan", "seg2_compact_plan", "row_compact_fields",
            "table_stride", "seg2_fixed_compact_plan",
-           "WARP_ROWS",
+           "seg2_folded_compact_plan", "WARP_ROWS",
            "seg2_fixed_plain", "seg2_fixed_compact_plain", "seg2_fwd_plain",
-           "seg2_folded_plain",
+           "seg2_folded_plain", "seg2_folded_compact_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
            "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
            "polymul_fourstep_mxu_fn", "local_pipeline_fn",
@@ -205,20 +209,35 @@ def device_tables(plans: SpPlans, device: torch.device) -> SpDeviceTables:
 
 
 class FoldedSpOperand(NamedTuple):
-    """One constant's folded segment-2 tables in the kernels' layout, on one
-    device: ``w`` int8 (k, A, D*TW, kp), ``fourstep_fold_tables``'s W with
-    the output axis first, and ``c`` uint32 (k, A, TW), its const rows.  A
-    tuple, so that ``multiply(x, *prepare(a))`` reads as in JAX."""
+    """One constant's folded segment-2 tables in the kernel's layout, on one
+    device: ``w`` int8 (k, A, nblk, D*s, kp), the nonzero blocks of
+    ``fourstep_fold_tables``'s W (F is block-diagonal over the n2-blocks of
+    a tile, as K2i is: ``compact_tables`` under the "rows" layout), what B15
+    multiplies, and ``c`` uint32 (k, A, TW), its const rows.  A tuple, so
+    that ``multiply(x, *prepare(a))`` reads as in JAX."""
 
     w: torch.Tensor
     c: torch.Tensor
 
 
-def fold_sp_operand(W: np.ndarray, c: np.ndarray, device) -> FoldedSpOperand:
+def fold_sp_operand(W: np.ndarray, c: np.ndarray, plans: SpPlans,
+                    device) -> FoldedSpOperand:
     """The operand of a (W, const) pair of ``fourstep_fold_tables`` (or of
-    JAX's, through ``from_jax_fourstep_fold_tables``) on ``device``."""
-    return FoldedSpOperand(_kernel_layout(W).to(device),
-                           _const_rows(c).to(device))
+    JAX's, through ``from_jax_fourstep_fold_tables``) on ``device``: W's
+    nonzero blocks under ``plans``' "rows" layout, once per constant.
+    Raises if W is not block-diagonal over the n2-blocks."""
+    return FoldedSpOperand(
+        torch.from_numpy(compact_tables(W, compact_layout(plans, "rows")))
+        .to(device), _const_rows(c).to(device))
+
+
+def dense_folded_tables(fold: FoldedSpOperand, plans: SpPlans) -> torch.Tensor:
+    """The dense tables int8 (k, A, D*TW, kp) of a folded operand, W with
+    the output axis first (``expand_compact``), on the operand's device:
+    what ``seg2_folded_plain`` multiplies."""
+    W = expand_compact(fold.w.cpu().numpy(), compact_layout(plans, "rows"),
+                       plans.p2x.din)
+    return _kernel_layout(W).to(fold.w.device)
 
 
 def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
@@ -251,7 +270,8 @@ def _compact_shape(plans: SpPlans, kind: str, D: int, din: int) -> tuple:
 def _check_folded(fold, plans: SpPlans, like) -> None:
     k, A, TW, p = plans.k, plans.A, plans.TW, plans.p2x
     _check_shapes("folded SP operand", tuple(fold),
-                  ((torch.int8, (k, A, p.Dout * TW, _depth(p.din, TW))),
+                  ((torch.int8, (k, A, *_compact_shape(plans, "rows", p.Dout,
+                                                       p.din))),
                    (torch.uint32, (k, A, TW))), like)
 
 
@@ -448,12 +468,24 @@ def seg2_fwd_plain(x, plans: SpPlans, tabs=None, first: int = 0):
 def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
                       first: int = 0):
     """B15's twin: shards first + s of (S, B, nloc) through the constant's
-    folded tables under p2x; canonical.  JAX's kernel canonicalises its
-    input first when p2x.canon (l.574-576); the input here is B11's
-    canonical output, so nothing replays that."""
+    folded tables under p2x, dense (``dense_folded_tables``); canonical.
+    JAX's kernel canonicalises its input first when p2x.canon (l.574-576)
+    and reduces after the product when p2x.needs_reduce; the input here is
+    B11's canonical output and the recombination is canonical, so nothing
+    replays either."""
     sl = slice(first, first + x.shape[0])
-    return _product(x.to(_I64), fold.w[sl], fold.c[sl], plans.p2x,
-                    plans).to(_U32)
+    return _product(x.to(_I64), dense_folded_tables(fold, plans)[sl],
+                    fold.c[sl], plans.p2x, plans).to(_U32)
+
+
+def seg2_folded_compact_plain(x, fold: FoldedSpOperand, plans: SpPlans,
+                              first: int = 0):
+    """``seg2_folded_plain`` over the operand's compact blocks as they are
+    (``fold.w``): what B15 multiplies.  Only the tests and the chip check
+    use it."""
+    sl = slice(first, first + x.shape[0])
+    return _compact_product(x.to(_I64), fold.w[sl], fold.c[sl], plans.p2x,
+                            plans, "rows").to(_U32)
 
 
 def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0,
@@ -718,24 +750,33 @@ class SpClassPlan(ctypes.Structure):
 
 
 def row_compact_fields(plans: SpPlans, planes: int, D: int, units: int,
-                       fixed: bool = False) -> dict:
+                       fixed: bool = False, folded: bool = False) -> dict:
     """The row segment kernel's layout fields of a plan whose first product
     splits a value into ``planes`` planes: each warp of a block works on
     ``units`` units of 8 batch rows of x and of y at one n2-block of lanes
     (``rows`` 16 a unit: B12 takes two units at once, B18 one; ``fixed``,
     B13: the rows of ``units`` units from x alone, each a product row, and
-    the spectrum's lanes beside the const rows), the compact layouts of the
+    the spectrum's lanes beside the const rows; ``folded``, B15: the rows of
+    ``units`` units from x alone through one product, so no K2i, no p2i
+    planes and one const row: ``c2`` all 0), the compact layouts of the
     first table (``c1``) and of K2i (``c2``), and the route: the block's
     tables sit in shared memory (rows ``table_stride`` apart) where they
     leave room for the planes of at least 8 warps, else they come through
-    L2.  Raises where the planes of one warp do not fit a block."""
+    L2.  Raises where the planes of one warp do not fit a block, or for
+    ``fixed`` and ``folded`` together."""
+    if fixed and folded:
+        raise ValueError("a row plan is fixed (B13) or folded (B15), not "
+                         "both")
     lay = compact_layout(plans, "rows")
-    c1, c2 = (_compact_dims(lay, planes), _compact_dims(lay, plans.p2i.din))
-    const = (3 if fixed else 2) * lay.s * 4
-    shared = const + D * lay.s * (table_stride(c1.kp) + table_stride(c2.kp))
+    c1 = _compact_dims(lay, planes)
+    c2 = CompactDims() if folded else _compact_dims(lay, plans.p2i.din)
+    const = (3 if fixed else 1 if folded else 2) * lay.s * 4
+    shared = const + D * lay.s * (table_stride(c1.kp)
+                                  + (0 if folded else table_stride(c2.kp)))
     rows = 2 * WARP_ROWS * units
     warp = (rows * planes_stride(1, c1.kp)
-            + (rows if fixed else rows // 2) * planes_stride(1, c2.kp))
+            + (0 if folded else rows if fixed else rows // 2)
+            * planes_stride(1, c2.kp))
     if const + warp + _BLOCK_RESERVE > _SM_SHARED:
         raise ValueError(f"{plans.name}: the planes of one warp ({warp} "
                          f"bytes) do not fit the kernel's shared memory")
@@ -768,13 +809,28 @@ def seg2_fixed_compact_plan(plans: SpPlans) -> SpClassPlan:
     return _row_plan(plans, "sp_seg2_fixed")
 
 
+@functools.lru_cache(maxsize=None)
+def seg2_folded_compact_plan(plans: SpPlans) -> SpClassPlan:
+    """B15's run-time plan: ``plan_for(plans, "sp_seg2_folded")`` (one
+    input plane split under p2x, its dense depth kp1 giving way to the
+    compact ``c1.kp``; no second split) and ``row_compact_fields`` of a
+    folded plan: 32 rows of x a warp through one product against the
+    constant's block of F for its (shard, tile, n2-block), one const row,
+    ``c2`` all 0 (at qtesla-iii-speed, k = 4, blocks of 32 lanes, depth 96
+    where the dense F ran 384)."""
+    return _row_plan(plans, "sp_seg2_folded")
+
+
 def _row_plan(plans: SpPlans, seg: str) -> SpClassPlan:
-    """The row segment kernel's plan of B12 or B13 (``seg`` a key of
-    ``SEGMENTS``): two units a warp, one input plane split under p2f."""
+    """The row segment kernel's plan of B12, B13 or B15 (``seg`` a key of
+    ``SEGMENTS``): two units a warp, one input plane split under p2f (B15:
+    p2x)."""
     sp = plan_for(plans, seg)
+    folded = seg == "sp_seg2_folded"
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
     fields.update(kp1=0, kp2=0, **row_compact_fields(
-        plans, plans.p2f.din, sp.d, 2, fixed=seg == "sp_seg2_fixed"))
+        plans, sp.din1, sp.d, 2, fixed=seg == "sp_seg2_fixed",
+        folded=folded))
     return SpClassPlan(
         **fields, cdin=_slots(ctypes.c_int32, (sp.din1,)),
         clb=_slots(ctypes.c_int32, (sp.lb1,)),
@@ -782,7 +838,7 @@ def _row_plan(plans: SpPlans, seg: str) -> SpClassPlan:
 
 
 def _launch(seg: str, plans: SpPlans, tables, a):
-    """Run segment ``seg``'s kernel (B14 or B15, a key of ``SEGMENTS``) on
+    """Run segment ``seg``'s dense kernel (B14, a key of ``SEGMENTS``) on
     CUDA shards a, (S, B, nloc), into a new (S, B, nloc) output, against
     ``tables`` (w1, c1, w2, c2, twiddles; None where the segment takes
     none)."""
@@ -925,8 +981,12 @@ def sp_seg2_folded(x, fold: FoldedSpOperand, plans: SpPlans,
     sl = _shards(plans, first, x)
     _check_folded(fold, plans, x)
     if x.is_cuda:
-        return _launch("sp_seg2_folded", plans,
-                       (fold.w[sl], fold.c[sl], None, None, None), x)
+        for t in fold:
+            _aligned("folded SP operand", t)
+        return _run_kernel(KERNELS["sp_seg2_folded"],
+                           seg2_folded_compact_plan(plans),
+                           (fold.w[sl], fold.c[sl], None, None, None), x,
+                           None, plans.nloc)
     return seg2_folded_plain(x, fold, plans, first)
 
 
@@ -1105,18 +1165,20 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
                                          n1: int | None = None):
     """(prepare, multiply) of the folded fixed SP path: ``prepare(a)`` runs
     B11 and B14 on a, copies the spectrum to the host, builds its folded
-    tables (``fourstep_fold_tables``) and returns them on the mesh's device
-    as a ``FoldedSpOperand`` (w, c); ``multiply(x, w, c)`` runs B11, one
-    folded product (B15) and B16 under p3x.  Called as
-    ``multiply(x, *prepare(a))``, as in JAX; JAX's pair carries across as
-    ``fold_sp_operand(*from_jax_fourstep_fold_tables(W, c), device)``."""
+    tables (``fourstep_fold_tables``), keeps their nonzero blocks and
+    returns them on the mesh's device as a ``FoldedSpOperand`` (w compact,
+    c); ``multiply(x, w, c)`` runs B11, one folded product (B15) and B16
+    under p3x.  Called as ``multiply(x, *prepare(a))``, as in JAX; JAX's
+    pair carries across as ``fold_sp_operand(
+    *from_jax_fourstep_fold_tables(W, c), plans, device)``."""
     plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
                                              "sp_seg2_folded", "sp_seg3 p3x"))
+    seg2_folded_compact_plan(plans)
 
     def prepare(a):
         _on_mesh(mesh, a)
         spec = fixed_spectrum(a, plans).cpu().numpy()
-        return fold_sp_operand(*fourstep_fold_tables(plans, spec),
+        return fold_sp_operand(*fourstep_fold_tables(plans, spec), plans,
                                mesh.device)
 
     def multiply(x, w, c):

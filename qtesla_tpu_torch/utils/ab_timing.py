@@ -13,7 +13,9 @@ on one row, the size of its launches on the main path), or with
 ``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
 (K, 32768, 1024 / K); B13-B15 where both trees have them, against the
 spectrum of y's first row; the class-boundary B17 and B18, B18 on B17's
-output after the exchange, where the tree has them), or with
+output after the exchange, where the tree has them; and the folded SP
+path at model axis K, ``multiply(x, *prepare(a))``, and its prepare, whose
+host work the events span), or with
 ``--butterfly`` the butterfly kernels B1-B4 (B4 against the spectrum of
 y's first row, B3 on x) and the five pairings B10.  It prints each run's
 medians and, per kernel, the median of each tree's 40 calls and the new/old
@@ -36,7 +38,8 @@ BUTTERFLY_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
                      "intt_fused", *(f"polymul_pairing_{p}" for p in (
                          "gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")))
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
-              "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes")
+              "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes",
+              "folded SP path", "folded SP prepare")
 
 _RUN = """
 import functools, importlib.util, json, sys
@@ -76,12 +79,22 @@ elif {sp}:
     if hasattr(S, "sp_seg2_fixed"):
         from qtesla_tpu_torch.parallel.sharded_mxu_tables import (
             fourstep_fold_tables)
+        import inspect
         aspec = S.fixed_spectrum(y[0], plans)
-        fold = S.fold_sp_operand(*fourstep_fold_tables(
-            plans, aspec.cpu().numpy()), "cuda")
+        # a tree before B15's compact operand takes no plans
+        pair = fourstep_fold_tables(plans, aspec.cpu().numpy())
+        fold = (S.fold_sp_operand(*pair, plans, "cuda") if "plans" in
+                inspect.signature(S.fold_sp_operand).parameters
+                else S.fold_sp_operand(*pair, "cuda"))
         runs.update({{"sp_seg2_fixed": (S.sp_seg2_fixed, vx, aspec),
                      "sp_seg2_fwd": (S.sp_seg2_fwd, vx),
                      "sp_seg2_folded": (S.sp_seg2_folded, vx, fold)}})
+        from qtesla_tpu_torch.parallel import make_mesh
+        xprep, xmul = S.polymul_fixed_folded_fourstep_mxu_fn(
+            "qtesla-iii-speed", make_mesh(model={sp}))
+        op = xprep(y[0])
+        runs.update({{"folded SP path": (lambda t, _: xmul(t, *op), x),
+                     "folded SP prepare": (lambda a, _: xprep(a), y[0])}})
     if importlib.util.find_spec("qtesla_tpu_torch.parallel.sharded_classes"):
         from qtesla_tpu_torch.parallel import sharded_classes as C
         from qtesla_tpu_torch.parallel.sharded_mxu_tables import (

@@ -403,8 +403,8 @@ def test_build_flags_target_hopper():
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
-    # the pass kernels' launchers (the five pairings, B1, B4) take the plan
-    # before the stream; B2's and B3's have the plain signature
+    # the pass kernels' launchers (the five pairings, B1, B3, B4) take the
+    # plan before the stream; B2's has the plain signature
     plain = build.LAUNCHERS["qt_ntt_fused"]
     passes = plain[:-1] + plain[:1] * 2
     for k in P.KERNELS.values():
@@ -412,15 +412,20 @@ def test_build_flags_target_hopper():
         assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
         assert build.LAUNCHERS[k.symbol] == passes
     assert "stk_stages" not in src[P] and " pairing_kernel" not in src[P]
-    for symbol in ("qt_polymul_fused", "qt_polymul_fixed_fused"):
+    for symbol in ("qt_polymul_fused", "qt_polymul_fixed_fused",
+                   "qt_intt_fused"):
         assert f'extern "C" int {symbol}(' in src[F]
         assert build.LAUNCHERS[symbol] == passes
     assert "polymul_fused_kernel" not in src[F]
     assert "polymul_fixed_fused_kernel" not in src[F]
     assert "fwd_stages<2>" not in src[F]
+    # B3 runs the pass kernel of one transform; its block-a-row body went
+    assert "intt_fused_kernel" not in src[F] and "inv_stages" not in src[F]
+    assert "transform_pass_kernel_for<false>(" in src[F]
     for k in F.KERNELS.values():
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
-        if k.name not in ("polymul_fused", "polymul_fixed_fused"):
+        if k.name not in ("polymul_fused", "polymul_fixed_fused",
+                          "intt_fused"):
             assert f"QT_LAUNCHER({k.symbol}," in src[F]
             assert len(build.LAUNCHERS[k.symbol]) == 12
     # B5 and B9 have launchers of their own, written out
@@ -431,12 +436,14 @@ def test_build_flags_target_hopper():
         assert len(build.LAUNCHERS[k.symbol]) == 11
     assert 'extern "C" int qt_polymul_mxu(' in src[M]
     assert 'extern "C" int qt_polymul_fixed_folded_mxu(' in src[M]
-    # B11, B12, B13, B16 and the class kernels have launchers of their own,
-    # written out; B12, B13 and B18 share one kernel body, B11, B16 and B17
-    # another
+    # B11, B12, B13, B15, B16 and the class kernels have launchers of their
+    # own, written out; B12, B13, B15 and B18 share one kernel body, B11,
+    # B16 and B17 another; sp_kernel runs B14 alone
     assert 'extern "C" int qt_sp_seg2(' in src[S]
     assert "qt::seg2::launch<qt::seg2::kPair>(" in src[S]
     assert "qt::seg2::launch<qt::seg2::kSpectrum>(" in src[S]
+    assert "qt::seg2::launch<qt::seg2::kFolded>(" in src[S]
+    assert "kSeg2Folded" not in src[S]
     assert "qt::seg2::launch<qt::seg2::kClassPlanes>(" in src[C]
     assert "launch_column_compact<kColumnClasses>(" in src[S]
     assert "qt::launch_seg1_classes(" in src[C]
@@ -897,6 +904,54 @@ def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
                                                                  1)
 
 
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
+    """B15's plan: the dense plan's fields but its depths, one input plane
+    split under p2x, each warp 32 rows of x through one product against the
+    constant's block of F (blocks of max(n2, 8) lanes in row order, the
+    depth padded to 32), one const row, no second split (din2 0, c2 all 0),
+    the table in shared memory where it leaves room for 8 warps' planes
+    (everywhere but n = 8192), at least one warp fitting a block either way,
+    and at most the kernel's 4 slots; the compact operand has the blocks'
+    shape the kernel indexes."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    dense = S.plan_for(plans, "sp_seg2_folded")
+    plan = S.seg2_folded_compact_plan(plans)
+    for f, _ in S.SpPlan._fields_:
+        if f not in ("rows", "kp1", "kp2", "pw", "pw_sh"):
+            assert getattr(plan, f) == getattr(dense, f), f
+    assert list(plan.pw) == list(dense.pw)
+    assert (plan.rows, plan.kp1, plan.kp2) == (4 * S.WARP_ROWS, 0, 0)
+    assert 1 <= plan.d <= 4 and plan.d == plans.p2x.Dout
+    assert plan.din1 == plans.p2x.din and plan.lb1 == 8
+    assert (plan.din2, plan.lb2, plan.add2) == (0, 0, 0)
+    assert (list(plan.cdin), list(plan.clb), list(plan.cadd)) == (
+        [plan.din1, 0, 0], [plan.lb1, 0, 0], [plan.add1, 0, 0])
+    assert [getattr(plan.c2, f) for f, _ in S.CompactDims._fields_] == [0] * 5
+    s = 1 << plan.c1.ls
+    assert s == min(plans.TW, max(plans.n2, 8))
+    assert (plan.c1.llam, plan.c1.lq, 1 << plan.c1.lbk) == (0, 0, plans.TW)
+    assert plan.c1.kp % 32 == 0 and plan.din1 * s <= plan.c1.kp < (
+        plan.din1 * s + 32)
+    table = plan.d * s * S.table_stride(plan.c1.kp)
+    warp = 32 * S.planes_stride(1, plan.c1.kp)
+    const = s * 4
+    assert plan.smem_tables == (const + table + 8 * warp + 1024 <= 233472)
+    assert plan.smem_tables == (name != WIDE[0])
+    assert const + plan.smem_tables * table + (
+        8 if plan.smem_tables else 1) * warp + 1024 <= 233472
+    W, c = fourstep_fold_tables(plans, np.zeros(plans.n, dtype=np.uint32))
+    fold = S.fold_sp_operand(W, c, plans, "cpu")
+    assert tuple(fold.w.shape) == (k, plans.A, plans.TW // s, plan.d * s,
+                                   plan.c1.kp)
+    assert tuple(fold.c.shape) == (k, plans.A, plans.TW)
+    if (name, k) == ("qtesla-iii-speed", 4):
+        assert (s, plan.c1.kp, plan.d, dense.kp1) == (32, 96, 3, 384)
+        assert table == 9216
+
+
 def test_sp_wrappers_reject_bad_input():
     plans = fourstep_mxu_plans("smallprime", 4, 2)
     nloc = plans.nloc
@@ -1321,6 +1376,142 @@ def test_b4_b7_launchers_refuse_plans_they_cannot_run(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_b3_b15_match_plain_on_card(cuda_device, name):
+    """B3 (B4's inverse passes alone) and B15 (the row segment kernel's
+    folded mode over F's nonzero blocks) against their twins at B in {1, 3,
+    64, 9000}: B3 on rows below 2q with rows of 2q - 1, also from an input
+    that is not 16-byte aligned; B15 at every model axis the set's split
+    takes (k = 4 at n = 8192) on x with rows of q - 1 against a constant
+    whose spectrum holds q - 1, against the twin over its compact blocks and
+    the dense one.  Each call launches its kernel once."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(27)
+    b3, b15 = F.KERNELS["intt_fused"], S.KERNELS["sp_seg2_folded"]
+    folds = []
+    for k in (2, 4, 8):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        spec = rng.integers(0, q, (k, plans.nloc), dtype=np.uint32)
+        spec[:, ::3] = q - 1
+        folds.append((plans, S.fold_sp_operand(
+            *fourstep_fold_tables(plans, spec), plans, cuda_device)))
+    assert folds
+    for batch in (1, 3, 64, 9000):
+        lazy = rng.integers(0, 2 * q, (batch + 1, n), dtype=np.uint32)
+        lazy[::89] = 2 * q - 1
+        lazy = torch.from_numpy(lazy).to(cuda_device)
+        shifted = lazy.reshape(-1)[1:1 + batch * n].reshape(batch, n)
+        assert shifted.data_ptr() % 16
+        for X in (lazy[:batch], shifted):
+            before = b3.launches
+            got = F.intt_fused(X, tbl)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), F.intt_plain(X, tbl).cpu().numpy(),
+                err_msg=f"B3 B={batch}")
+            assert b3.launches == before + 1
+        for plans, fold in folds:
+            x = rng.integers(0, q, (plans.k, batch, plans.nloc),
+                             dtype=np.uint32)
+            x[:, ::97] = q - 1
+            x = torch.from_numpy(x).to(cuda_device)
+            before = b15.launches
+            got = S.sp_seg2_folded(x, fold, plans)
+            torch.cuda.synchronize()
+            assert b15.launches == before + 1
+            for want in (S.seg2_folded_compact_plain(x, fold, plans),
+                         S.seg2_folded_plain(x, fold, plans)):
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(),
+                    err_msg=f"B15 k={plans.k} B={batch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", _PASS_LENGTHS + [(32768, 786433)])
+def test_b3_at_every_length_on_card(cuda_device, n, q):
+    """B3 at every length from 2 to 32768, the largest its plans take (1024
+    threads a row in three passes), the lengths the block-a-row kernel took,
+    on 300 rows below 2q with rows of 2q - 1."""
+    name = f"b3-n{n}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    rng = np.random.default_rng(n)
+    X = rng.integers(0, 2 * q, (300, n), dtype=np.uint32)
+    X[0], X[7] = 2 * q - 1, 2 * q - 1
+    X = torch.from_numpy(X).to(cuda_device)
+    np.testing.assert_array_equal(F.intt_fused(X, tbl).cpu().numpy(),
+                                  F.intt_plain(X, tbl).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_b3_b15_launchers_refuse_plans_they_cannot_run(cuda_device):
+    """B3's launcher returns cudaErrorInvalidValue for a plan with forward
+    passes (B1's), forward fields set, a first window other than [0, r),
+    a gap between passes, another radix, threads, rows or pass count, or
+    too little shared memory a row; B15's for rows other than 32, a second
+    split or K2i layout, more than 4 classes, an input split outside the
+    kernel's, or a depth that is not the blocks'.  The wrappers raise,
+    nothing is counted, and the plans as made launch."""
+    tbl = get_tables("qtesla-iii-speed")
+    x = torch.zeros((3, tbl.n), dtype=torch.uint32, device=cuda_device)
+    tw = F._prepare(tbl, None, x)
+
+    def changed(plan, **fields):
+        out = type(plan).from_buffer_copy(plan)
+        for f, v in fields.items():
+            obj, _, name = f.rpartition(".")
+            if obj:
+                setattr(getattr(out, obj), name, v)
+            elif isinstance(v, tuple):
+                getattr(out, name)[v[0]] = v[1]
+            else:
+                setattr(out, name, v)
+        return out
+
+    b3, plan = F.KERNELS["intt_fused"], F.intt_pass_plan(tbl.n)
+    assert (plan.radix, plan.threads, plan.rows, plan.passes,
+            plan.row_stride) == (32, 32, 8, 2, 1056)
+    bad = [changed(plan, **f) for f in (
+        {"fwd_hi": (0, 5)}, {"fwd_b": (1, 5)}, {"inv_b": (0, 5)},
+        {"inv_lo": (1, 6)}, {"radix": 16}, {"threads": 64}, {"rows": 0},
+        {"rows": 9}, {"passes": 3}, {"passes": 1}, {"row_stride": 1055})]
+    for p in bad + [F.fused_pass_plan(tbl.n)]:
+        before = b3.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            F._launch(b3, tbl, tw, x, None, p)
+        assert b3.launches == before
+    F._launch(b3, tbl, tw, x, None, plan)
+    assert b3.launches == before + 1
+
+    plans = fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
+    fold = S.fold_sp_operand(*fourstep_fold_tables(
+        plans, np.zeros(plans.n, dtype=np.uint32)), plans, cuda_device)
+    xs = torch.zeros((4, 3, plans.nloc), dtype=torch.uint32,
+                     device=cuda_device)
+    b15, plan = S.KERNELS["sp_seg2_folded"], S.seg2_folded_compact_plan(plans)
+    tables = (fold.w, fold.c, None, None, None)
+    for f in ({"rows": 16}, {"rows": 48}, {"d": 5}, {"cdin": (0, 7)},
+              {"din2": 3}, {"lb2": 8}, {"c2.kp": 96}, {"c2.ls": 5},
+              {"c1.kp": 100}, {"c1.ls": 2}):
+        before = b15.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            S._run_kernel(b15, changed(plan, **f), tables, xs, None,
+                          plans.nloc)
+        assert b15.launches == before
+    got = S._run_kernel(b15, plan, tables, xs, None, plans.nloc)
+    assert b15.launches == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), S.seg2_folded_compact_plain(xs, fold,
+                                                       plans).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
 def test_sp_kernels_match_plain_on_card(cuda_device, name):
     """B11, B12 and B16 against their twins for every model axis the set's
     split takes, one launch each per call, over all shards and over one
@@ -1387,7 +1578,7 @@ def test_sp_fixed_kernels_match_plain_on_card(cuda_device, name):
             np.zeros((k, plans.nloc), dtype=np.uint32),
             np.full((k, plans.nloc), q - 1, dtype=np.uint32))]
         folds = [S.fold_sp_operand(*fourstep_fold_tables(
-            plans, s.cpu().numpy()), cuda_device) for s in spectra]
+            plans, s.cpu().numpy()), plans, cuda_device) for s in spectra]
         for batch in (1, 3, 64):
             x = rng.integers(0, q, (k, batch, plans.nloc), dtype=np.uint32)
             x[:, 0] = q - 1

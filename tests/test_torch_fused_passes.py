@@ -19,7 +19,14 @@ oracle.
   on all 5 sets at B in {1, 3, 64}, x random and all q - 1, the spectrum
   random, all 0 and all q - 1, and against the oracle; and at every length
   ``chip_smoke.py`` checks on the card (2 to 16384); B4's plan is B1's
-  with one operand's shared memory a row.
+  with one operand's shared memory a row;
+- B3's twin (``ntt_fused.intt_passes_plain`` under ``intt_pass_plan``, the
+  inverse's passes alone) against ``intt_plain`` and JAX's ``_intt_kernel``
+  (``intt_fused_fn``) in interpret mode on all 5 sets at B in {1, 3, 64} on
+  rows below 2q with rows of 2q - 1, through the forward against the
+  oracle, and at every length from 2 to 32768 (n >= 8192 ``slow``); its
+  plan is B4's inverse with no forward passes, and ``pass_plan`` refuses
+  an inverse alone that is not one operand's from the narrowest stage up.
 
 Tolerance: none (integer equality).  Inputs are made with numpy from a seed
 and fed to every side."""
@@ -261,3 +268,98 @@ def test_fixed_pass_plan_refuses_what_the_launcher_refuses():
             TF.fixed_pass_plan(n)
     with pytest.raises(ValueError, match="operands"):
         TPs.pass_plan(1024, False, True, operands=3)
+
+
+# ----------------------------------------------------------------------
+# B3: the inverse's passes alone.
+# ----------------------------------------------------------------------
+
+def _lazy(n, q, batch, rng):
+    """Rows below 2q, the kernel's input range; row 0 (and the last) all
+    2q - 1."""
+    X = rng.integers(0, 2 * q, (batch, n), dtype=np.uint32)
+    X[0], X[-1] = 2 * q - 1, 2 * q - 1
+    return X
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_intt_twin_matches_plain_pallas_and_oracle(name):
+    tbl = get_tables(name)
+    n, q = tbl.n, tbl.q
+    rng = np.random.default_rng(68)
+    jk = JK.intt_fused_fn(name, interpret=True)
+    for batch in (1, 3, 64):
+        X = _lazy(n, q, batch, rng)
+        twin = TF.intt_passes_plain(torch.from_numpy(X), tbl)
+        assert twin.dtype == torch.uint32 and twin.shape == (batch, n)
+        np.testing.assert_array_equal(
+            twin.numpy(), TF.intt_plain(torch.from_numpy(X), tbl).numpy(),
+            err_msg=f"B={batch}")
+        np.testing.assert_array_equal(twin.numpy(), np.asarray(jk(X)),
+                                      err_msg=f"B={batch}")
+    # through the forward and the pointwise product: the negacyclic product
+    x, y = (torch.from_numpy(a) for a in _operands(n, q, 2))
+    spec = TF._barrett(TF.ntt_plain(x, tbl).to(torch.int64),
+                       TF.ntt_plain(y, tbl).to(torch.int64), tbl)
+    z = TF.intt_passes_plain(spec.to(torch.uint32), tbl).numpy()
+    ps = get_params(name)
+    for row in (0, 1):
+        np.testing.assert_array_equal(z[row], polymul_negacyclic_oracle(
+            x[row].numpy(), y[row].numpy(), ps).astype(np.uint32))
+
+
+@pytest.mark.parametrize("n,q", [
+    pytest.param(n, q, marks=pytest.mark.slow) if n >= 8192 else (n, q)
+    for n, q in PASS_LENGTHS + [(32768, 786433)]])
+def test_intt_twin_at_every_length(n, q):
+    """B3's twin at every length its kernels run (R = n below 32, two
+    passes, three, and 1024 threads a row at n = 32768), against
+    ``intt_plain`` and JAX's interpret-mode kernel, on rows below 2q with
+    rows of 2q - 1; its plan is B4's inverse (the same radix, threads, rows
+    and shared memory a row up to 16384) with the forward's fields 0."""
+    name = f"intt-n{n}"
+    for reg in (JPARAMS, TPARAMS):
+        reg.register_param_set(name, n, q)
+    try:
+        tbl = get_tables(name)
+        X = _lazy(n, q, 3, np.random.default_rng(n))
+        twin = TF.intt_passes_plain(torch.from_numpy(X), tbl).numpy()
+        np.testing.assert_array_equal(
+            twin, TF.intt_plain(torch.from_numpy(X), tbl).numpy())
+        np.testing.assert_array_equal(
+            twin, np.asarray(JK.intt_fused_fn(name, interpret=True)(X)))
+    finally:
+        for reg in (JPARAMS, TPARAMS):
+            del reg.PARAM_SETS[name]
+            reg.get_params.cache_clear()
+    plan = TF.intt_pass_plan(n)
+    for side in ("lo", "hi", "b"):
+        assert list(getattr(plan, f"fwd_{side}")) == [0] * TPs.MAX_PASSES
+    assert plan.inv_b[0] == 0 and plan.radix == min(n, 32)
+    if n <= 16384:
+        b4 = TF.fixed_pass_plan(n)
+        for f, _ in TPs.PassPlan._fields_:
+            if not f.startswith("fwd_"):
+                assert list(np.ravel(getattr(plan, f))) == list(
+                    np.ravel(getattr(b4, f))), f
+    else:
+        assert (plan.threads, plan.rows, plan.passes) == (1024, 1, 3)
+        with pytest.raises(ValueError, match="threads a row"):
+            TF.fixed_pass_plan(n)
+
+
+def test_intt_pass_plan_refuses_what_the_launcher_refuses():
+    """No plan past 32768 or off the powers of two; an inverse alone runs
+    on one operand, from the narrowest stage up, in cyclic windows; the
+    plans with a forward (B1's, B4's) keep their 512-thread limit."""
+    for n in (1, 3, 48, 65536):
+        with pytest.raises(ValueError):
+            TF.intt_pass_plan(n)
+    for kw in ({"operands": 2}, {"operands": 1, "stockham": True}):
+        with pytest.raises(ValueError, match="inverse alone"):
+            TPs.pass_plan(1024, None, True, **kw)
+    with pytest.raises(ValueError, match="inverse alone"):
+        TPs.pass_plan(1024, None, False, operands=1)
+    with pytest.raises(ValueError, match="512 a block"):
+        TPs.pass_plan(32768, False, True, operands=1)
+    assert "forward none" in TPs.describe_pass_plan(TF.intt_pass_plan(1024))

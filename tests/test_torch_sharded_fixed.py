@@ -9,6 +9,14 @@ the JAX package's ``qtesla_tpu/parallel/sharded_mxu.py``.
   CPU tensors) equal JAX's ``_make_seg2_fixed``, ``_make_seg2_fwd_only``,
   ``_make_seg2_folded`` and ``_make_seg3(plan=p3x)`` in interpret mode, with
   that shard's table slice, mod q (JAX's outputs may be lazy);
+- B15's operand holds the nonzero blocks of the folded W
+  (``fold_sp_operand``: ``compact_tables`` under the "rows" layout), which
+  expand back to W, JAX's too; the twin over those blocks
+  (``seg2_folded_compact_plain``, what the kernel multiplies) equals the
+  dense twin and JAX's interpret-mode ``_make_seg2_folded`` on all 5 sets at
+  every model axis their split takes (smallprime and a qtesla-iii-speed
+  canary in the default tier, the rest ``slow``), and
+  ``row_compact_fields`` refuses a folded plan it cannot lay out;
 - both entry points equal JAX's ``polymul_fixed_fourstep_mxu_fn`` and
   ``polymul_fixed_folded_fourstep_mxu_fn`` on the (data 2, model 4) CPU mesh
   in interpret mode at B in {1, 3, 8}, the port's merged fixed path and the
@@ -116,7 +124,7 @@ def test_fixed_segment_twins_match_pallas_interpret(name, k, worst):
     if worst:
         x[:], spec[:] = q - 1, q - 1
     W, c = JS.fourstep_fold_tables(jplans, spec)
-    fold = S.fold_sp_operand(W, c, "cpu")
+    fold = S.fold_sp_operand(W, c, plans, "cpu")
     xt, st = torch.from_numpy(x)[None], torch.from_numpy(spec)
     p2f, p2i, p3x = jplans.p2f, jplans.p2i, jplans.p3x
     for d in range(k):
@@ -191,17 +199,21 @@ def test_fixed_paths_match_jax_mesh(batch, kind):
     assert torch.equal(mul(xt, torch.from_numpy(jspec.copy())), got)
     prepx, mulx = polymul_fixed_folded_fourstep_mxu_fn(name, cpu4)
     op = prepx(at)
-    for got_t, want_t in zip(op, S.fold_sp_operand(*jfold, "cpu")):
+    plans = ST.fourstep_mxu_plans(name, _n1(name), k)
+    for got_t, want_t in zip(op, S.fold_sp_operand(*jfold, plans, "cpu")):
         assert torch.equal(got_t, want_t)
     gotx = mulx(xt, *op)
     np.testing.assert_array_equal(gotx.numpy(), zx)
     carried = S.fold_sp_operand(
-        *ST.from_jax_fourstep_fold_tables(*jfold), "cpu")
+        *ST.from_jax_fourstep_fold_tables(*jfold), plans, "cpu")
     assert torch.equal(mulx(xt, *carried), gotx)
+    # the operand holds JAX's W's nonzero blocks: they expand back to it
+    np.testing.assert_array_equal(
+        ST.expand_compact(carried.w.numpy(), ST.compact_layout(plans, "rows"),
+                          plans.p2x.din), jfold[0])
     # the port's merged fixed path and the plain whole paths
     mprep, mmul = polymul_fixed_fn(name, "merged")
     assert torch.equal(mmul(xt, mprep(at)), got)
-    plans = ST.fourstep_mxu_plans(name, _n1(name), k)
     assert torch.equal(S.polymul_fixed_fourstep_mxu_plain(xt, spec, plans),
                        got)
     assert torch.equal(
@@ -245,7 +257,7 @@ def test_local_fixed_pipeline_is_one_shard_of_the_segments():
                                           dtype=np.uint32))
         spec = rng.integers(0, plans.q, (4, plans.nloc), dtype=np.uint32)
         const = (S.fold_sp_operand(*ST.fourstep_fold_tables(plans, spec),
-                                   "cpu") if folded
+                                   plans, "cpu") if folded
                  else torch.from_numpy(spec))
         got = pipe(x, const)
         assert tuple(got.shape) == (3, plans.nloc)
@@ -280,12 +292,15 @@ def test_fixed_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="shards"):
         S.sp_seg2_fwd(x[0], plans)
     fold = S.fold_sp_operand(*ST.fourstep_fold_tables(plans, spec.numpy()),
-                             "cpu")
+                             plans, "cpu")
     assert torch.equal(S.sp_seg2_folded(x, fold, plans),
                        S.seg2_folded_plain(x, fold, plans))
     for bad in (S.FoldedSpOperand(fold.w.to(torch.int32), fold.c),
                 S.FoldedSpOperand(fold.w, fold.c[:1].contiguous()),
-                S.FoldedSpOperand(fold.w[..., :-32].contiguous(), fold.c)):
+                S.FoldedSpOperand(fold.w[..., :-32].contiguous(), fold.c),
+                # the dense tables are not the operand
+                S.FoldedSpOperand(S.dense_folded_tables(fold, plans),
+                                  fold.c)):
         with pytest.raises(ValueError, match="folded SP operand"):
             S.sp_seg2_folded(x, bad, plans)
     with pytest.raises(ValueError, match=f"n={nloc}"):
@@ -310,3 +325,98 @@ def test_fixed_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="divide"):
         polymul_fixed_folded_fourstep_mxu_fn(
             "smallprime", make_mesh(model=16, device="cpu"))
+
+
+# ----------------------------------------------------------------------
+# B15 over the folded tables' nonzero blocks.
+# ----------------------------------------------------------------------
+
+_FOLD_CASES = [(name, k) for name in ("smallprime", "qtesla-i",
+                                      "qtesla-iii-speed", "qtesla-p-i",
+                                      "qtesla-p-iii")
+               for k in (2, 4, 8) if not (name == "smallprime" and k == 8)]
+_FOLD_CHEAP = {("smallprime", 2), ("qtesla-iii-speed", 4)}
+
+
+@pytest.mark.parametrize("name,k", [
+    (n, k) if (n, k) in _FOLD_CHEAP else
+    pytest.param(n, k, marks=pytest.mark.slow) for n, k in _FOLD_CASES])
+def test_folded_compact_twin_matches_dense_and_pallas(name, k):
+    """B15's twin over the operand's compact blocks against the dense twin
+    and JAX's interpret-mode ``_make_seg2_folded`` (mod q), each shard with
+    its own slice, for x random and all q - 1 against a lazy spectrum with
+    entries of q - 1; the compact operand expands back to JAX's W."""
+    jplans = JS.fourstep_mxu_plans(name, _n1(name), k)
+    jfolded = (_jax_fixed_segs(name, k)[1][2] if (name, k) in _FOLD_CHEAP
+               else JS._make_seg2_folded(jplans, 256, True))
+    plans = ST.fourstep_mxu_plans(name, _n1(name), k)
+    q, nloc = plans.q, plans.nloc
+    rng = np.random.default_rng(69)
+    spec = rng.integers(0, 1 << 32, (k, nloc), dtype=np.uint32)
+    spec[:, ::3] = q - 1
+    W, c = JS.fourstep_fold_tables(jplans, spec)
+    fold = S.fold_sp_operand(W, c, plans, "cpu")
+    np.testing.assert_array_equal(
+        ST.expand_compact(fold.w.numpy(), ST.compact_layout(plans, "rows"),
+                          plans.p2x.din), W)
+    for worst in (False, True):
+        x = rng.integers(0, q, (3, nloc), dtype=np.uint32)
+        if worst:
+            x[:] = q - 1
+        xt = torch.from_numpy(x)[None]
+        for d in range(k):
+            got = S.seg2_folded_compact_plain(xt, fold, plans, first=d)
+            assert got.dtype == torch.uint32 and int(got.numpy().max()) < q
+            assert torch.equal(got, S.seg2_folded_plain(xt, fold, plans,
+                                                        first=d))
+            np.testing.assert_array_equal(
+                got[0].numpy(),
+                np.asarray(jfolded(x, W[d:d + 1], c[d:d + 1])) % q,
+                err_msg=f"shard {d} worst={worst}")
+
+
+@pytest.mark.parametrize("name", ["smallprime", "qtesla-i",
+                                  "qtesla-iii-speed", "qtesla-p-i",
+                                  "qtesla-p-iii"])
+def test_folded_operand_is_the_nonzero_blocks(name):
+    """``fold_sp_operand`` keeps the folded W's diagonal blocks over the
+    n2-blocks (blocks of max(n2, 8) lanes, F's Dout classes, depth din * s
+    padded to 32), which expand back to W and hold every nonzero entry; the
+    dense tables ``dense_folded_tables`` rebuilds are W in the kernels'
+    output-major layout."""
+    plans = ST.fourstep_mxu_plans(name, _n1(name), 4)
+    lay = ST.compact_layout(plans, "rows")
+    p = plans.p2x
+    spec = np.random.default_rng(70).integers(0, plans.q, plans.n,
+                                              dtype=np.uint32)
+    W, c = ST.fourstep_fold_tables(plans, spec)
+    fold = S.fold_sp_operand(W, c, plans, "cpu")
+    assert lay.s == min(plans.TW, max(plans.n2, 8))
+    assert tuple(fold.w.shape) == (4, plans.A, lay.nblk, p.Dout * lay.s,
+                                   ST.compact_depth(p.din, lay.s))
+    assert fold.w.dtype == torch.int8 and fold.c.dtype == torch.uint32
+    assert np.count_nonzero(fold.w.numpy()) == np.count_nonzero(W)
+    np.testing.assert_array_equal(
+        ST.expand_compact(fold.w.numpy(), lay, p.din), W)
+    np.testing.assert_array_equal(fold.c.numpy(), c[..., 0, :])
+    dense = S.dense_folded_tables(fold, plans)
+    assert tuple(dense.shape) == (4, plans.A, p.Dout * plans.TW,
+                                  -(-p.din * plans.TW // 32) * 32)
+    np.testing.assert_array_equal(
+        np.moveaxis(dense.numpy()[..., :p.din * plans.TW].reshape(
+            4, plans.A, p.Dout * plans.TW, p.din, plans.TW), 2, -1), W)
+
+
+def test_row_compact_fields_refuse_what_the_kernel_refuses():
+    """A row plan is fixed (B13) or folded (B15), not both; a folded plan
+    takes no K2i layout, one const row and no p2i planes; a plan whose
+    warp's planes do not fit a block raises."""
+    plans = ST.fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
+    with pytest.raises(ValueError, match="not both"):
+        S.row_compact_fields(plans, 3, 3, 2, fixed=True, folded=True)
+    f = S.row_compact_fields(plans, 3, 3, 2, folded=True)
+    assert f["rows"] == 32 and f["c2"].kp == 0 and f["smem_tables"] == 1
+    fixed = S.row_compact_fields(plans, 4, 3, 2, fixed=True)
+    assert fixed["c2"].kp == 96
+    with pytest.raises(ValueError, match="do not fit"):
+        S.row_compact_fields(plans, 250, 3, 2, folded=True)
