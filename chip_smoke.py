@@ -26,7 +26,8 @@ script exits non-zero without printing a result:
    tables (and against the twin that reads their compact blocks, also on
    LONG_BATCH rows), B16 also under p3x; B13 also against a spectrum of uint32
    values up to 2^32 - 1 and against the twin that reads its compact
-   tables; the whole SP path equals B1, and the fixed
+   tables, B14 against the twin that reads its compact K2f (also on
+   LONG_BATCH rows); the whole SP path equals B1, and the fixed
    and folded SP paths equal B4 and each other.  The folded SP prepare's
    host seconds (B11, B14, fourstep_fold_tables, copies) are printed.  The
    class-boundary kernels B17 and B18 for smallprime, qtesla-i and
@@ -35,7 +36,7 @@ script exits non-zero without printing a result:
    compact K1, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
    four-class qtesla-p-i and qtesla-p-iii raises.  B11, B16 (under p3 and
-   p3x), B12, B13, B17 and B18 multiply only their tables' nonzero blocks in
+   p3x), B12-B15, B17 and B18 multiply only their tables' nonzero blocks in
    persistent blocks; each case also runs them on LONG_BATCH rows, so that
    every block walks over several row groups through both of its buffers,
    and prints the rows a block holds, the depth of a product and whether
@@ -44,14 +45,14 @@ script exits non-zero without printing a result:
    shared memory; every set also runs them on LONG_BATCH rows (B8 against
    a spectrum that holds q - 1, B7 on rows below pw_bound, some at
    pw_bound - 1) and prints their stages and ring.  B10's five pairings,
-   B1, B3 and B4 run in register passes: every set also runs them on
+   B1-B4 run in register passes: every set also runs them on
    LONG_BATCH rows with rows of 0 and q - 1 (B4 against a spectrum that
    holds q - 1; B3 on rows below 2q, some at 2q - 1), against their twins
-   (B1, B3 and B4 their plain versions) and B1, and prints each one's pass
+   (B1-B4 their plain versions) and B1, and prints each one's pass
    plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
    the qtesla-iii-speed prime) on 300 rows with rows of q - 1 in both
-   operands (B4: in x and its spectrum; B3: rows of 2q - 1), B3 also at
-   32768 (B3_LENGTHS).
+   operands (B4: in x and its spectrum; B3: rows of 2q - 1; B2 also
+   through B3 back to x), B2 and B3 also at 32768 (TRANSFORM_LENGTHS).
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -71,8 +72,9 @@ script exits non-zero without printing a result:
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
-   B10 pairings beside the times their earlier designs took (EARLIER_MS),
-   the five pairings, B1, B3 and B4 also beside an instruction-issue bound
+   B10 pairings, B2 and B14 beside the times their earlier designs took
+   (EARLIER_MS), the five pairings and B1-B4 also beside an
+   instruction-issue bound
    from their SASS
    (utils/sass_diff.py issue_bound_ms), B6, B11 and B14 also at B = 1
    (the rows of their prepare launches on the main path) and B9's prepare
@@ -158,13 +160,14 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 # four-class sets must refuse it
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
 FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
-# the kernels redesigned last, and the medians their earlier designs (B13
-# and B15 modes of the dense sp_kernel, B17 a dense kernel of its own, B1,
-# B3, B4 and B10's pairings a thread block a row with a barrier a stage, B7
+# the kernels redesigned last, and the medians their earlier designs (B13,
+# B14 and B15 modes of the dense sp_kernel, B17 a dense kernel of its own,
+# B1-B4 and B10's pairings a thread block a row with a barrier a stage, B7
 # the last mode of the dense mxu_kernel) took at the timing phase's shapes
 # in this script, on an NVIDIA H100 80GB HBM3 at a 700 W power limit
 EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
               "sp_seg2_folded": 0.5708, "intt_fused": 0.3698,
+              "ntt_fused": 0.3591, "sp_seg2_fwd": 0.6422,
               # B1, B4 and B10's pairings before register passes
               "polymul_fused": 0.8215,
               "polymul_fixed_fused": 0.7174,
@@ -180,8 +183,9 @@ PASS_LENGTHS = ((2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
                 (2048, 12289), (4096, 40961), (8192, 8404993),
                 (16384, 786433))
-# the length B3 alone takes beyond them: 1024 threads a row in three passes
-B3_LENGTHS = ((32768, 786433),)
+# the length the kernel of one transform (B2, B3) alone takes beyond them:
+# 1024 threads a row in three passes
+TRANSFORM_LENGTHS = ((32768, 786433),)
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -378,6 +382,11 @@ def kernels_against_plain(errors: dict) -> None:
         print(f"{name} B3: {describe_pass_plan(F.intt_pass_plan(n))}; "
               f"equal to plain at B={LONG_BATCH} on rows below 2q, some at "
               f"2q - 1", flush=True)
+        _record(errors, "ntt_fused", f"B2 {name} B={LONG_BATCH}",
+                F.ntt_fused(x, tbl), F.ntt_plain(x, tbl))
+        print(f"{name} B2: {describe_pass_plan(F.ntt_pass_plan(n))}; "
+              f"equal to plain at B={LONG_BATCH} with rows of 0 and q - 1",
+              flush=True)
         for p in P.PAIRINGS:
             kname = f"polymul_pairing_{p}"
             got = P.polymul_pairing(x, y, tbl, p)
@@ -495,8 +504,12 @@ def sp_against_plain(errors: dict) -> None:
                              F.polymul_fused(x, y, tbl))
                 expect_equal(f"SP path == its segments {tag}", got,
                              S.from_shards(z, plans))
-                _record(errors, "sp_seg2_fwd", f"B14 {tag}",
-                        S.sp_seg2_fwd(vx, plans), S.seg2_fwd_plain(vx, plans))
+                got = S.sp_seg2_fwd(vx, plans)
+                _record(errors, "sp_seg2_fwd", f"B14 {tag}", got,
+                        S.seg2_fwd_plain(vx, plans))
+                _record(errors, "sp_seg2_fwd",
+                        f"B14 {tag} against its compact twin", got,
+                        S.seg2_fwd_compact_plain(vx, plans))
                 for i, (sp, op) in enumerate(zip(spectra, folds)):
                     _record(errors, "sp_seg2_fixed", f"B13 {tag} spectrum {i}",
                             S.sp_seg2_fixed(vx, sp, plans),
@@ -556,6 +569,9 @@ def sp_against_plain(errors: dict) -> None:
                     f"B13 {name} k={k} B={LONG_BATCH} spectrum {i}",
                     S.sp_seg2_fixed(long, sp, plans),
                     S.seg2_fixed_plain(long, sp, plans))
+        _record(errors, "sp_seg2_fwd", f"B14 {name} k={k} B={LONG_BATCH}",
+                S.sp_seg2_fwd(long, plans),
+                S.seg2_fwd_compact_plain(long, plans))
         for i, op in enumerate((folds[0], folds[2])):
             _record(errors, "sp_seg2_folded",
                     f"B15 {name} k={k} B={LONG_BATCH} spectrum {i}",
@@ -566,6 +582,12 @@ def sp_against_plain(errors: dict) -> None:
               f"of x a warp, blocks of {1 << p15.c1.ls} lanes, depth "
               f"{p15.c1.kp} (dense {S.plan_for(plans, 'sp_seg2_folded').kp1}), "
               f"tables {_route(p15)}; also equal to its compact twin at "
+              f"B={LONG_BATCH}")
+        p14 = S.seg2_fwd_compact_plan(plans)
+        print(f"{name} k={k}: B14 over K2f's nonzero blocks: {p14.rows} rows "
+              f"of x a warp, blocks of {1 << p14.c1.ls} lanes, depth "
+              f"{p14.c1.kp} (dense {S.plan_for(plans, 'sp_seg2_fwd').kp1}), "
+              f"tables {_route(p14)}; also equal to its compact twin at "
               f"B={LONG_BATCH}")
         p13 = S.seg2_fixed_compact_plan(plans)
         print(f"{name} k={k}: B13 over K2f's and K2i's nonzero blocks: "
@@ -597,11 +619,12 @@ def sp_against_plain(errors: dict) -> None:
               f"{plans.p3.din}/{plans.p2x.din}/{plans.p3x.din}, rows/block "
               f"{p11.rows}/"
               f"{S.plan_for(plans, 'sp_seg2').rows}/"
-              f"{S.plan_for(plans, 'sp_seg2_fwd').rows}; folded SP prepare "
+              f"{p14.rows}; folded SP prepare "
               f"{prep_s[1][0] * 1e3:.1f} ms, first {prep_s[0][0] * 1e3:.1f} "
               f"ms): B11-B16 equal to plain for B in {SMALL_BATCHES}, random, "
               f"worst-case and all-(q-1) shards, B13/B15 for 3 spectra (B13 "
-              f"also a full-range one, B15 also its compact twin), B16 also "
+              f"also a full-range one, B14 and B15 also their compact twins), "
+              f"B16 also "
               f"under p3x; SP path == B1, fixed SP == folded SP == B4",
               flush=True)
     done()
@@ -705,12 +728,13 @@ def classes_against_plain(errors: dict) -> None:
 def pass_lengths_against_plain(errors: dict) -> None:
     """B1, B4 and the five pairings at every length their plans take, on
     300 rows with rows of q - 1 in both operands (B4: in x, and a spectrum
-    that holds q - 1), and B3 there and at n = 32768 on rows below 2q with
-    rows of 2q - 1 (registered after the other phase-2 checks, which run
-    every registered set)."""
+    that holds q - 1), and B2 and B3 there and at n = 32768: B2 on rows of
+    0 and q - 1, also through B3 back to x, B3 on rows below 2q with rows
+    of 2q - 1 (registered after the other phase-2 checks, which run every
+    registered set)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    for n, q in PASS_LENGTHS + B3_LENGTHS:
+    for n, q in PASS_LENGTHS + TRANSFORM_LENGTHS:
         name = f"pass-n{n}-q{q}"
         register_param_set(name, n, q)
         tbl = get_tables(name)
@@ -719,9 +743,19 @@ def pass_lengths_against_plain(errors: dict) -> None:
         lazy = torch.from_numpy(lazy).to(dev)
         _record(errors, "intt_fused", f"B3 n={n} q={q}",
                 F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
-        if (n, q) in B3_LENGTHS:
-            print(f"n={n} q={q}: B3 equal to plain on 300 rows "
-                  f"({describe_pass_plan(F.intt_pass_plan(n))})", flush=True)
+        x = rng.integers(0, q, (300, n), dtype=np.uint32)
+        x[0], x[3], x[299] = q - 1, 0, q - 1
+        x = torch.from_numpy(x).to(dev)
+        spec = F.ntt_fused(x, tbl)
+        _record(errors, "ntt_fused", f"B2 n={n} q={q}", spec,
+                F.ntt_plain(x, tbl))
+        expect_equal(f"B3(B2(x)) == x n={n} q={q}", F.intt_fused(spec, tbl),
+                     x)
+        if (n, q) in TRANSFORM_LENGTHS:
+            print(f"n={n} q={q}: B2 and B3 equal to plain on 300 rows, "
+                  f"B3(B2(x)) == x (B2 {describe_pass_plan(F.ntt_pass_plan(n))}"
+                  f"; B3 {describe_pass_plan(F.intt_pass_plan(n))})",
+                  flush=True)
             continue
         xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
         xy[:, 0], xy[0, 1], xy[1, 2] = q - 1, q - 1, q - 1
@@ -741,8 +775,8 @@ def pass_lengths_against_plain(errors: dict) -> None:
             _record(errors, kname, f"{kname} n={n} q={q}", got,
                     P.polymul_pairing_plain(x, y, tbl, p))
             expect_equal(f"B10 {p} == B1 n={n} q={q}", got, ref)
-        print(f"n={n} q={q}: B1, B3, B4 and the five pairings equal to "
-              f"plain and B1's plain on 300 rows (B1, B3 and B4 "
+        print(f"n={n} q={q}: B1-B4 and the five pairings equal to "
+              f"plain and B1's plain on 300 rows, B3(B2(x)) == x (B1-B4 "
               f"{F.fused_pass_plan(n).passes}, "
               f"Stockham {P.pairing_pass_plan(n, 'stockham').passes} "
               f"passes a transform)", flush=True)
@@ -853,8 +887,11 @@ def main_path(errors: dict, seed: int) -> dict:
     sa = S.a2a_fwd(S.seg1_plain(S.to_shards(a, plans), plans), plans)
     _record(errors, "sp_seg2_fwd", "fixed SP prepare", a_sp,
             S.seg2_fwd_plain(sa, plans).reshape(n))
-    _record(errors, "sp_seg2_fwd", "B14 at the main path's shapes",
-            S.sp_seg2_fwd(v, plans), S.seg2_fwd_plain(v, plans))
+    got = S.sp_seg2_fwd(v, plans)
+    _record(errors, "sp_seg2_fwd", "B14 at the main path's shapes", got,
+            S.seg2_fwd_plain(v, plans))
+    _record(errors, "sp_seg2_fwd", "B14 against its compact twin", got,
+            S.seg2_fwd_compact_plain(v, plans))
     for what, z, kname, plain in (
             ("fixed", z_spf, "sp_seg2_fixed",
              S.polymul_fixed_fourstep_mxu_plain(x, a_sp, plans)),
@@ -945,7 +982,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     its int8 tensor-core MACs (the digit products at their plans' depth,
     the padding and the SP tables' zero blocks excluded).  B11, B16, B17 and
     B18 read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
-    ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``; B15 the
+    ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``, B14 ``w2fc``; B15 the
     constant's compact F, ``sp_fold``); their MACs are counted
     on the dense tables' nonzero lane pairs like the others', so a bound
     reads the same work whatever implements it.  B5's, B6's, B8's and B9's
@@ -991,7 +1028,7 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2fc, st.c2f,
                                                       st.w2ic, st.c2i),
                              m2f + m2i)
-    work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2f, st.c2f), m2f)
+    work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2fc, st.c2f), m2f)
     work["sp_seg2_folded"] = (2 * row + _nbytes(*sp_fold), mx)
     # B17 writes Dout class planes a value; B18 reads them for x and y
     cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
@@ -1108,7 +1145,7 @@ def timing(device_line: str) -> dict:
     # the pass kernels' instruction-issue bound, from their SASS: at n =
     # 1024 every instruction of the kernels built for that length
     # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10,ops>,
-    # transform_pass_kernel<0,32,2,10>) runs once a warp and row
+    # transform_pass_kernel<fwd,32,2,10>) runs once a warp and row
     sass = kernel_sass(str(load_library().path))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
@@ -1117,12 +1154,14 @@ def timing(device_line: str) -> dict:
         f"polymul_pairing_{p}": (P.pairing_pass_plan(n, p),
                                  f"pass_kernel<{scheme[f]},{scheme[i]},", "")
         for p, (f, i) in P.PAIRINGS.items()}
-    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>; B3
+    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>; B2 and B3
     # transform_pass_kernel<fwd,R,P,logn>
     pass_plans["polymul_fused"] = (F.fused_pass_plan(n),
                                    "polymul_pass_kernel<", ",2")
     pass_plans["polymul_fixed_fused"] = (F.fixed_pass_plan(n),
                                          "polymul_pass_kernel<", ",1")
+    pass_plans["ntt_fused"] = (F.ntt_pass_plan(n),
+                               "transform_pass_kernel<1,", "")
     pass_plans["intt_fused"] = (F.intt_pass_plan(n),
                                 "transform_pass_kernel<0,", "")
     for name, (plan, kernel, ops) in pass_plans.items():

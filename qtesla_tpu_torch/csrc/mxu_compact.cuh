@@ -1,7 +1,7 @@
 // Building blocks of the digit-matmul kernels that multiply only the
 // nonzero blocks of their tables (B11, B16 and B17 in sharded_mxu.cu's
-// column_compact_kernel, B12, B13 and B18 in seg2_compact.cuh), beside the
-// dense ones of mxu_block.cuh.
+// column_compact_kernel, B12-B15 and B18 in seg2_compact.cuh), on
+// mxu_block.cuh's MMA and copy primitives.
 //
 // A sequence-parallel tile matrix (TW x TW lanes) is block-diagonal once
 // its lanes are put in the right order (parallel/sharded_mxu_tables.py
@@ -26,7 +26,7 @@
 //                   depth kp (64 where the dense K1 product ran 384 at
 //                   qtesla-iii-speed, k = 4), the table fragments from
 //                   shared memory (kSmemTables) or through L2;
-//   recombine_compact  the epilogue of mxu_block.cuh's recombine_tile
+//   recombine_compact  the recombination of mxu_block.cuh's note
 //                   (recombine_value for one output), written back at the
 //                   lane each position came from, so the kernels' inputs
 //                   and outputs keep the row's order.

@@ -57,23 +57,23 @@
 // SASS instructions a butterfly) took 0.3698 ms at qtesla-iii-speed, B =
 // 32768, on an H100 80GB HBM3 at 700 W (PERF.md).
 //
-// B2: one thread block per polynomial row, so a ragged batch needs no
-// padding.  The row is loaded once into shared memory; min(n/2, 512)
-// threads each loop over their butterflies, with __syncthreads() between
-// the log2(n) dependent stages.  Global memory sees exactly one read of the
-// operand and one write of the result, as on the TPU.  The TPU kernel's lane
-// rolls and full-width (L, n) twiddle tables are gone: a thread indexes its
-// butterfly pair directly in shared memory and reads one twiddle from the
-// compact tables.
+// B2 (qt_ntt_fused, transform_pass_kernel<true, ...>) is B4's forward half
+// with no product and no inverse after it: the coalesced load on [tb, L),
+// the CT stages from the widest down, one exchange a pass after the first,
+// ending on [0, r); then one more exchange back to [tb, L) and the
+// coalesced canonical store.  Its plan (ops/ntt_fused.py ntt_pass_plan) has
+// no inverse passes, and it runs every n from 2 to 32768, as its first
+// design did.  That design (a block a row, min(n/2, 512) threads, the row in
+// shared memory, __syncthreads() after each of the log2(n) stages, about 29
+// SASS instructions a butterfly) took 0.3591 ms at qtesla-iii-speed, B =
+// 32768, on an H100 80GB HBM3 at 700 W (PERF.md).
 //
-// What bounds them on the H100: instruction issue, not HBM.  At n = 1024 one
-// polymul moves 12 KB of device memory; B2 makes its stages in shared
-// memory with a block-wide barrier per stage, each butterfly about 30 SASS
-// instructions (index and twiddle-address arithmetic, two shared loads and
-// stores, the Shoup IMADs).  The register butterfly of B1, B3 and B4 is 7
-// instructions; their passes add one exchange each way and the twiddle
-// loads.  B3 does half of B4's butterflies and one exchange, so its issue
-// bound falls under its bytes bound: it is bound by device memory.
+// What bounds them on the H100.  At n = 1024 one polymul moves 12 KB of
+// device memory.  The register butterfly is 7 instructions; the passes add
+// one exchange each way and the twiddle loads.  B1 and B4 run near their
+// issue bound; B2 and B3 do half of B4's butterflies and two exchanges, so
+// their issue bound falls under their bytes bound: they are bound by device
+// memory.
 //
 // Arithmetic.  q < 2^30, so 4q < 2^32 and Harvey's lazy ranges fit uint32:
 // forward values stay in [0, 4q), inverse values in [0, 2q).  Shoup products
@@ -82,9 +82,8 @@
 // hi * (2^32 mod q) + lo, exact for any uint32 operands (no 64-bit %).
 //
 // Each launcher is extern "C", takes raw pointers, the batch B, n, log2(n),
-// the parameter set's constants (B1, B3 and B4 then a pointer to their pass
-// plan) and a stream, launches without synchronising and returns
-// cudaGetLastError().
+// the parameter set's constants, a pointer to its pass plan and a stream,
+// launches without synchronising and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -358,11 +357,12 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// B3: one transform in register passes.
+// B2 and B3: one transform in register passes.
 // ---------------------------------------------------------------------------
 
 // One merged-psi transform of each row in register passes, no product:
-// B3's inverse (FWD false) is B4's inverse half with nothing before it.  The
+// B3's inverse (FWD false) is B4's inverse half with nothing before it, B2's
+// forward (FWD true) B4's forward half with nothing after it.  The
 // load is coalesced, register c of thread t holding position t + c 2^tb
 // (the window [tb, L)); one exchange through padded shared memory takes the
 // row to the window [0, r) the GS stages start on, from the narrowest up;
@@ -371,15 +371,23 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
 // store, as B1's and B4's.  Reading each thread's R values in [0, r) as
 // neighbours in 16-byte loads, with no first exchange, took 1.1593x the
 // time on an H100 (each warp-wide load touches 32 lines of device memory;
-// PERF.md).  The forward alone (FWD true, B2's) is the mirror: the
-// coalesced load on [tb, L), the CT stages from the widest down to [0, r)
-// and a store of R neighbours, canonical.  Input below 2q (inverse) or 4q
+// PERF.md).  B2's forward is the mirror: the coalesced load on [tb, L),
+// the CT stages from the widest down to [0, r), one exchange a pass after
+// the first, then one more back to [tb, L) and the coalesced store,
+// canonical (csub twice: CT leaves values below 4q).  Storing each
+// thread's R neighbours from [0, r) in 16-byte stores, with no last
+// exchange, took 1.65x the time on an H100 (PERF.md).
+// Input below 2q (inverse) or 4q
 // (forward); one operand's registers leave room for 1024 threads a row in
 // three passes (n = 32768).  In one or two passes three 256-thread blocks
 // an SM (80 registers, no spill) ran 0.9769x the time of four (64) on an
-// H100 (PERF.md).
+// H100 (PERF.md).  The forward in two passes with run-time windows spilled
+// 264 bytes at 80 registers and takes two (as B4's kernel with run-time
+// windows does).
 template <bool FWD, int R, int P, int LOGN>
-__global__ void __launch_bounds__(P == 3 ? 1024 : 256, P == 3 ? 1 : 3)
+__global__ void __launch_bounds__(P == 3 ? 1024 : 256,
+                                  P == 3 ? 1 : FWD && P == 2 && LOGN == 0 ? 2
+                                                                          : 3)
     transform_pass_kernel(const uint32_t* __restrict__ x,
                           const uint32_t* __restrict__ /*unused*/,
                           uint32_t* __restrict__ z,
@@ -390,7 +398,6 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256, P == 3 ? 1 : 3)
     constexpr int r = ilog2(R);
     constexpr bool kConst = LOGN > 0;
     constexpr bool up = !FWD;
-    constexpr int kV = R < 4 ? 2 : 4;     // values a vector store
     extern __shared__ uint32_t smem[];
     const int logn = kConst ? LOGN : logn_arg;
     const int n = kConst ? 1 << LOGN : n_arg;
@@ -435,21 +442,15 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256, P == 3 ? 1 : 3)
         merged_stages<FWD, R, 1>(v, b, t, lo, FWD || hi < logn ? hi : logn - 1,
                                  logn, w, w_sh, q, q2);
     }
+    // the forward ends on [0, r); one exchange takes it back to [tb, L)
+    if (FWD && tb > 0)
+        exchange<kConst, R, 1>(v, buf, stride, b, t, tb, t, warp_rows);
     if (!live) return;
     if constexpr (FWD) {
-        // [0, r): R neighbours, canonical
-        uint32_t* s = z + off + (static_cast<size_t>(t) << r);
+        // [tb, L): neighbouring columns, neighbouring threads; canonical
 #pragma unroll
-        for (int c = 0; c < R; ++c) v[0][c] = csub(csub(v[0][c], q2), q);
-#pragma unroll
-        for (int c = 0; c < R; c += kV) {
-            if constexpr (kV == 2)
-                *reinterpret_cast<uint2*>(s + c) =
-                    make_uint2(v[0][c], v[0][c + 1]);
-            else
-                *reinterpret_cast<uint4*>(s + c) = make_uint4(
-                    v[0][c], v[0][c + 1], v[0][c + 2], v[0][c + 3]);
-        }
+        for (int c = 0; c < R; ++c)
+            z[off + t + (c << tb)] = csub(csub(v[0][c], q2), q);
     } else {
         // the last stage in the last window [tb, L), on register bit r - 1:
         // the sum by n^{-1}, the difference by psi^{-1}_rev[1] n^{-1}
@@ -466,8 +467,9 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256, P == 3 ? 1 : 3)
     }
 }
 
-// B3's instantiations: R = n for n <= 32, R = 32 in two passes (n <= 1024)
-// or three (n <= 32768), and R = 32 in two passes built for n = 1024.
+// B2's (FWD) and B3's instantiations: R = n for n <= 32, R = 32 in two
+// passes (n <= 1024) or three (n <= 32768), and R = 32 in two passes built
+// for n = 1024.
 template <bool FWD>
 PassKernel transform_pass_kernel_for(int radix, int passes, int logn) {
     if (radix == 32 && passes == 2 && logn == 10)
@@ -484,94 +486,7 @@ PassKernel transform_pass_kernel_for(int radix, int passes, int logn) {
     }
 }
 
-// ---------------------------------------------------------------------------
-// B2: a thread block a row.
-// ---------------------------------------------------------------------------
-
-// Forward stages over NOPS rows of n values held back to back in shared
-// memory.  Input < 4q, output lazy in [0, 4q).  Stage s has 2^s blocks of
-// width 2t, t = n >> (s + 1); block i uses tw[2^s + i].
-template <int NOPS>
-__device__ void fwd_stages(uint32_t* a, const uint32_t* __restrict__ tw,
-                           const uint32_t* __restrict__ tw_sh, int n,
-                           int logn, uint32_t q) {
-    const int half = n >> 1;
-    const uint32_t q2 = 2u * q;
-    for (int s = 0; s < logn; ++s) {
-        const int sh = logn - 1 - s;  // log2(t)
-        const int t = 1 << sh;
-        for (int k = threadIdx.x; k < half; k += blockDim.x) {
-            const int i = k >> sh;
-            const int j = (i << (sh + 1)) + (k & (t - 1));
-            const uint32_t w = __ldg(tw + (1 << s) + i);
-            const uint32_t w_sh = __ldg(tw_sh + (1 << s) + i);
-#pragma unroll
-            for (int o = 0; o < NOPS; ++o) {
-                uint32_t* r = a + o * n;
-                const uint32_t u = csub(r[j], q2);                // [0, 2q)
-                const uint32_t v = shoup_lazy(r[j + t], w, w_sh, q);  // [0, 2q)
-                r[j] = u + v;                                     // [0, 4q)
-                r[j + t] = u - v + q2;                            // (0, 4q)
-            }
-        }
-        __syncthreads();
-    }
-}
-
-__device__ __forceinline__ void load_row(uint32_t* dst,
-                                         const uint32_t* __restrict__ src,
-                                         int n) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
-}
-
-__global__ void ntt_fused_kernel(const uint32_t* __restrict__ x,
-                                 const uint32_t* __restrict__ /*unused*/,
-                                 uint32_t* __restrict__ out,
-                                 const uint32_t* __restrict__ tw, int n,
-                                 int logn, Mod m) {
-    extern __shared__ uint32_t smem[];
-    const size_t row = static_cast<size_t>(blockIdx.x) * n;
-    load_row(smem, x + row, n);
-    __syncthreads();
-    fwd_stages<1>(smem, tw, tw + n, n, logn, m.q);
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        out[row + k] = csub(csub(smem[k], 2u * m.q), m.q);
-}
-
-using KernelFn = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
-                          const uint32_t*, int, int, Mod);
-
-int launch(KernelFn kernel, int rows_in_smem, const void* a, const void* b,
-           void* out, const void* tw, long long batch, int n, int logn,
-           uint32_t q, uint32_t r32, uint32_t r32_sh, uint32_t one_sh,
-           void* stream) {
-    const size_t smem = static_cast<size_t>(rows_in_smem) * n * sizeof(uint32_t);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return e;
-    }
-    const int threads = n / 2 < 512 ? n / 2 : 512;
-    const Mod m{q, r32, r32_sh, one_sh};
-    kernel<<<dim3(static_cast<unsigned>(batch)), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), static_cast<const uint32_t*>(tw), n, logn,
-        m);
-    return cudaGetLastError();
-}
-
 }  // namespace
-
-#define QT_LAUNCHER(name, kernel, rows)                                        \
-    extern "C" int name(const void* a, const void* b, void* out,              \
-                        const void* tw, long long batch, int n, int logn,     \
-                        uint32_t q, uint32_t r32, uint32_t r32_sh,            \
-                        uint32_t one_sh, void* stream) {                      \
-        return launch(kernel, rows, a, b, out, tw, batch, n, logn, q, r32,    \
-                      r32_sh, one_sh, stream);                                \
-    }
 
 // B1 and B4 take a pointer to their pass plan before the stream; B4's b is
 // the constant's spectrum, n values, 16-byte aligned
@@ -602,14 +517,25 @@ extern "C" int qt_intt_fused(const void* a, const void* b, void* out,
                              uint32_t one_sh, const void* plan, void* stream) {
     if (!plan) return cudaErrorInvalidValue;
     const PassPlan pl = *static_cast<const PassPlan*>(plan);
-    PassOrder order{false, true, false, false, 1};
-    order.forward = false;
+    const PassOrder order{false, true, false, false, 1, false, true};
     return qt::launch_pass_kernel(
         transform_pass_kernel_for<false>(pl.radix, pl.passes, logn), pl,
         order, a, b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
 }
 
-QT_LAUNCHER(qt_ntt_fused, ntt_fused_kernel, 1)
+// B2: the forward alone in register passes, from the widest stage down,
+// plan from ops/ntt_fused.py ntt_pass_plan
+extern "C" int qt_ntt_fused(const void* a, const void* b, void* out,
+                            const void* tw, long long batch, int n, int logn,
+                            uint32_t q, uint32_t r32, uint32_t r32_sh,
+                            uint32_t one_sh, const void* plan, void* stream) {
+    if (!plan) return cudaErrorInvalidValue;
+    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    const PassOrder order{false, false, false, false, 1, true, false};
+    return qt::launch_pass_kernel(
+        transform_pass_kernel_for<true>(pl.radix, pl.passes, logn), pl,
+        order, a, b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
+}
 
 extern "C" const char* qt_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));

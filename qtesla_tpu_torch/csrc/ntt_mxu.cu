@@ -122,8 +122,8 @@
 // dense mxu_kernel: each 512-thread block of 32 rows split its rows into
 // planes in shared memory and read the dense wi (1.18 MB at q-III) from L2
 // inside its MMA loop, 0.7788 ms at 32768 q-III rows on an H100 80GB HBM3
-// at 700 W (PERF.md); with it went the last user of mxu_block.cuh's
-// block_matmul in this file.
+// at 700 W (PERF.md); with it went the last dense block matmul in this
+// file.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B, a pointer to
 // an MxuStreamPlan and a stream, launches without synchronising and returns
@@ -430,8 +430,8 @@ __device__ __forceinline__ uint32_t pointwise(uint32_t a, uint32_t b,
     return mulmod_barrett(a, b, m);
 }
 
-// The recombined value of accumulator e of one tile: recombine_tile's
-// arithmetic, D a constant.
+// The recombined value of accumulator e of one tile (mxu_compact.cuh's
+// recombine_value), D a constant.
 template <int D>
 __device__ __forceinline__ uint32_t recombined(uint32_t start,
                                                const int (&acc)[kMaxClasses][4],

@@ -1,6 +1,6 @@
 // Register passes of butterfly stages, shared by the pass kernels of
-// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1, B4, and B3,
-// the inverse alone).
+// ntt_pairings.cu (B10, all five pairings) and ntt_fused.cu (B1, B4, B2,
+// the forward alone, and B3, the inverse alone).
 //
 // A row of n = 2^L values is held by T = n / R threads, R values of each
 // operand a thread.  In a pass, thread vt holds the R indices that differ
@@ -235,13 +235,22 @@ using PassKernel = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
 // The order of a pass kernel's transforms: each from the narrowest stage
 // up or not, a bit reversal between them (reflect) or not, Stockham's
 // windows or not; the operands its exchanges carry (B4's forward runs on x
-// alone); and whether it runs a forward at all (B3 runs the inverse alone,
-// its plan's forward fields 0).
+// alone); and whether it runs a forward and an inverse at all (B3 runs the
+// inverse alone, its plan's forward fields 0; B2 the forward alone, its
+// plan's inverse fields 0).
 struct PassOrder {
     bool fwd_up, inv_up, reflect, stk;
     int operands = 2;
     bool forward = true;
+    bool inverse = true;
 };
+
+// The fields of one transform's passes all 0: a plan with no such passes.
+inline bool no_passes(const int* lo, const int* hi, const int* b) {
+    for (int p = 0; p < kMaxPasses; ++p)
+        if (lo[p] || hi[p] || b[p]) return false;
+    return true;
+}
 
 // Checks the plan against the kernel chosen for it (null: none) and
 // launches it; cudaErrorInvalidValue for a plan it cannot run.  The load
@@ -249,9 +258,10 @@ struct PassOrder {
 // starts from the narrowest stage; the product keeps the forward's last
 // window, reflected when a bit reversal lies between the two transforms.
 // With no forward the inverse starts on [0, r) (B3's kernel takes its
-// coalesced load there by one exchange), and a row may take 1024 threads
-// in three passes (n = 32768: one operand's registers leave room for
-// them).
+// coalesced load there by one exchange); with no inverse the forward starts
+// where the load leaves a row, on [tb, L) from the widest stage down (B2).
+// A kernel of one transform may take 1024 threads a row in three passes (n
+// = 32768: one operand's registers leave room for them).
 inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
                               PassOrder order, const void* a, const void* b,
                               void* out, const void* tw, long long batch,
@@ -259,15 +269,16 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
                               uint32_t r32_sh, uint32_t one_sh, void* stream) {
     if (n < 2 || logn < 1 || logn > 30 || n != 1 << logn || batch <= 0 ||
         !kernel || pl.radix > n || pl.radix < 2 || pl.passes < 1 ||
-        pl.passes > kMaxPasses)
+        pl.passes > kMaxPasses || !(order.forward || order.inverse))
         return cudaErrorInvalidValue;
     const int r = ilog2(pl.radix), tb = logn - r;
     const long long threads = static_cast<long long>(pl.rows) * pl.threads;
-    const int most = pl.passes == 3 ? (order.forward ? 512 : 1024) : 256;
+    const bool both = order.forward && order.inverse;
+    const int most = pl.passes == 3 ? (both ? 512 : 1024) : 256;
     if (pl.threads != 1 << tb || pl.rows < 1 || threads > most ||
         threads % 32 != 0)
         return cudaErrorInvalidValue;
-    if (order.forward) {
+    if (both) {
         const int last = pl.fwd_b[pl.passes - 1];
         const int inv_first = order.reflect ? tb - last : last;
         if (!schedule_ok(pl.fwd_lo, pl.fwd_hi, pl.fwd_b, pl.passes, logn, r,
@@ -277,11 +288,15 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
             pl.fwd_b[0] != (order.fwd_up ? 0 : tb) ||
             pl.inv_b[0] != inv_first)
             return cudaErrorInvalidValue;
+    } else if (order.forward) {
+        if (!no_passes(pl.inv_lo, pl.inv_hi, pl.inv_b) ||
+            !schedule_ok(pl.fwd_lo, pl.fwd_hi, pl.fwd_b, pl.passes, logn, r,
+                         order.fwd_up, order.stk) ||
+            pl.fwd_b[0] != (order.fwd_up ? 0 : tb))
+            return cudaErrorInvalidValue;
     } else {
-        for (int p = 0; p < kMaxPasses; ++p)
-            if (pl.fwd_lo[p] || pl.fwd_hi[p] || pl.fwd_b[p])
-                return cudaErrorInvalidValue;
-        if (!schedule_ok(pl.inv_lo, pl.inv_hi, pl.inv_b, pl.passes, logn, r,
+        if (!no_passes(pl.fwd_lo, pl.fwd_hi, pl.fwd_b) ||
+            !schedule_ok(pl.inv_lo, pl.inv_hi, pl.inv_b, pl.passes, logn, r,
                          order.inv_up, order.stk) ||
             pl.inv_b[0] != 0)
             return cudaErrorInvalidValue;

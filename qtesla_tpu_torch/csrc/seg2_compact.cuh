@@ -1,6 +1,6 @@
 // The row segment of the sequence-parallel (four-step) digit-matmul polymul
 // over its tables' nonzero blocks, for Hopper (sm_90a): one kernel body,
-// seg2_compact_kernel, in four modes (Mode), for
+// seg2_compact_kernel, in five modes (Mode), for
 //   B12 qt_sp_seg2 (sharded_mxu.cu; kPair): x's and y's spectral shards
 //       (S, B, nloc), each value split under p2f (4 planes of base 256 at
 //       every registered set), one product against K2f;
@@ -33,6 +33,11 @@
 //       (FoldedSpOperand.w, (k, a, nblk, Dout * s, kp)), each (shard,
 //       tile, n2-block) one, found as the second product finds K2i's, with
 //       its const row.
+//   B14 qt_sp_seg2_fwd (sharded_mxu.cu; kForward): B15's rows, 32 of x a
+//       warp through one product and the recombination straight from
+//       registers, against B12's table: K2f's block of this n2-block's place
+//       in the tile (under p2f) and its (TW) const row, shared by every
+//       shard; the last step of a constant's spectrum.
 // The output is canonical.
 //
 // Design.  K2f, K2i and the class tables are block-diagonal over the
@@ -82,15 +87,18 @@
 // registered set but smallprime) leave no MMA of the depth loops on a
 // run-time condition.
 //
-// B12, B13 and B15 ran as modes of sharded_mxu.cu's sp_kernel until they
-// took this body (B13: 1.2227 ms at qtesla-iii-speed, k = 4, B = 32768, the
-// same dense phases as B12's below; B15: 0.5708 ms, whole 384 x 384 tiles
-// of its dense F at p2x (3 planes, 3 classes), 3/4 of the MACs on zeros,
-// streamed from L2 once per 32-row group behind barrier-separated load,
-// split, product and recombination phases; PERF.md).  B15's mode holds
-// its block of F (96 x 96 bytes at qtesla-iii-speed, k = 4: 9 KiB) and one
-// const row in shared memory, one product 96 deep where the dense one ran
-// 384, and no barrier after the tables' load.  B12's sp_kernel mode:
+// B12, B13, B14 and B15 ran as modes of a dense kernel in sharded_mxu.cu
+// (sp_kernel) until they took this body (B13: 1.2227 ms at
+// qtesla-iii-speed, k = 4, B = 32768, the same dense phases as B12's below;
+// B15: 0.5708 ms, whole 384 x 384 tiles of its dense F at p2x (3 planes, 3
+// classes), 3/4 of the MACs on zeros, streamed from L2 once per 32-row
+// group behind barrier-separated load, split, product and recombination
+// phases; B14 0.6422 ms, whole 512 x 128 tiles of the dense K2f the same
+// way; PERF.md).  B15's mode holds its block of F (96 x 96 bytes at
+// qtesla-iii-speed, k = 4: 9 KiB) and one const row in shared memory, one
+// product 96 deep where the dense one ran 384, and no barrier after the
+// tables' load; B14's its block of K2f (96 x 128 bytes: 12 KiB), one
+// product 128 deep where the dense one ran 512.  B12's dense mode:
 // whole 128 x 128 tiles of K2f and K2i streamed from L2 once per 32-row
 // group, load, split, products and recombination barrier-separated, 2.10
 // ms at qtesla-iii-speed, k = 4, 1.53 of it products and their table reads
@@ -139,8 +147,21 @@ struct SpClassPlan {
 namespace seg2 {
 
 // What seg2_compact_kernel runs, numbered so that the instantiation names
-// utils/sass_diff.py matches across trees keep B12 at 0 and B18 at 1.
-enum Mode : int { kPair = 0, kClassPlanes = 1, kSpectrum = 2, kFolded = 3 };
+// utils/sass_diff.py matches across trees keep B12 at 0 and B18 at 1, and
+// B14 at 4, its number as a mode of the dense kernel before.
+enum Mode : int {
+    kPair = 0,
+    kClassPlanes = 1,
+    kSpectrum = 2,
+    kFolded = 3,
+    kForward = 4
+};
+
+// B15 and B14: one product, then the recombination straight to device
+// memory (no pointwise product, no p2i split, no K2i)
+__host__ __device__ constexpr bool one_product(int mode) {
+    return mode == kFolded || mode == kForward;
+}
 
 constexpr int kWarpRows = 8;      // batch rows of x and of y a warp works on
 constexpr int kMaxWarps = 16;     // warps a block runs at most
@@ -157,34 +178,35 @@ __host__ __device__ constexpr int pass_tiles(int slots) {
 // Units of 8 rows of x and 8 of y a warp takes at once: B12 two, so that
 // its second product's m16 tile holds 16 live rows and each table fragment
 // of the first serves two tiles; B18 one, its class planes leaving no room
-// for two.  B13 and B15 take the rows of two such units from x alone: 32.
+// for two.  B13, B14 and B15 take the rows of two such units from x alone:
+// 32.
 __host__ __device__ constexpr int units_of(int mode) {
     return mode == kClassPlanes ? 1 : 2;
 }
 
 // Batch rows a warp takes at once, and its product rows: half its planes
-// rows (x's, beside y's), or all of them (B13, B15).
+// rows (x's, beside y's), or all of them (B13, B14, B15).
 __host__ __device__ constexpr int batch_rows(int mode, int rows) {
-    return mode == kSpectrum || mode == kFolded ? rows : rows / 2;
+    return mode == kSpectrum || one_product(mode) ? rows : rows / 2;
 }
 
 // Rows of s lanes the block holds beside its planes: the first table's
-// const row and K2i's, and B13's spectrum; B15's one const row.
+// const row and K2i's, and B13's spectrum; B14's and B15's one const row.
 __host__ __device__ constexpr int const_rows(int mode) {
-    return mode == kSpectrum ? 3 : mode == kFolded ? 1 : 2;
+    return mode == kSpectrum ? 3 : one_product(mode) ? 1 : 2;
 }
 
 // Shared memory one warp takes: the first planes of its rows (p.rows) and
-// the p2i planes of its product rows (B15 has no second product).
+// the p2i planes of its product rows (B14 and B15 have no second product).
 inline size_t warp_smem(const SpClassPlan& p, int mode) {
     return p.rows * compact_row_stride(1, p.c1.kp) +
-           (mode == kFolded ? 0
-                            : batch_rows(mode, p.rows) *
-                                  compact_row_stride(1, p.c2.kp));
+           (one_product(mode) ? 0
+                              : batch_rows(mode, p.rows) *
+                                    compact_row_stride(1, p.c2.kp));
 }
 
 // What the block's warps share: the const rows of its n2-block (and B13's
-// spectrum) and, where they fit, its tables (B15 one), rows
+// spectrum) and, where they fit, its tables (B14 and B15 one), rows
 // compact_table_stride apart.
 inline size_t shared_smem(const SpClassPlan& p, int mode) {
     const size_t s = static_cast<size_t>(1) << p.c1.ls;
@@ -192,7 +214,8 @@ inline size_t shared_smem(const SpClassPlan& p, int mode) {
            (p.smem_tables
                 ? p.d * s *
                       (compact_table_stride(p.c1.kp) +
-                       (mode == kFolded ? 0 : compact_table_stride(p.c2.kp)))
+                       (one_product(mode) ? 0
+                                          : compact_table_stride(p.c2.kp)))
                 : 0);
 }
 
@@ -208,17 +231,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                         const __grid_constant__ SpClassPlan p) {
     constexpr bool kClasses = kMode == kClassPlanes;
     constexpr bool kFixed = kMode == kSpectrum;
+    // B15's table and const row are the constant's, one per shard
     constexpr bool kFold = kMode == kFolded;
-    // the planes' rows are all x's (B13, B15), or x's beside y's
-    constexpr bool kXOnly = kFixed || kFold;
+    // B14 and B15: one product, stored from registers
+    constexpr bool kOne = one_product(kMode);
+    // the planes' rows are all x's (B13, B14, B15), or x's beside y's
+    constexpr bool kXOnly = kFixed || kOne;
     constexpr int kU = units_of(kMode);
     constexpr int kRows = kU * kWarpRows;          // x rows a warp takes
-    // batch rows a warp takes at once, and its product rows (B13, B15:
-    // 2 kRows, its planes rows all x's)
+    // batch rows a warp takes at once, and its product rows (B13, B14,
+    // B15: 2 kRows, its planes rows all x's)
     constexpr int kBatch = batch_rows(kMode, 2 * kRows);
     constexpr int kConst = const_rows(kMode);
-    // rows of a warp's p2i planes: its product rows (none in B15)
-    constexpr int kRows2 = kFold ? 0 : kBatch;
+    // rows of a warp's p2i planes: its product rows (none in B14, B15)
+    constexpr int kRows2 = kOne ? 0 : kBatch;
     // output tiles of a pass: the second product's, and the first's, whose
     // kU m16 tiles share each table fragment
     constexpr int kPass2 = pass_tiles(kSlots), kPass1 = kPass2 / kU;
@@ -246,7 +272,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
     // this n2-block's tables and const rows: B18's class block is one for
     // all and its const rows the shard's (a, tw); B12's K2f block is the
     // one of this n2-block's place in a tile, (nblk, d * s, kp), and its
-    // const row the one (tw) row; K2i's block is block col of the shard's
+    // const row the one (tw) row (B14's too); K2i's block is block col of
+    // the shard's
     // (a * nblk, d * s, kp), its const rows the shard's, and so are B15's
     // block of the constant's F and its const row
     const size_t bytes_a = static_cast<size_t>(d << ls) * ca.kp;
@@ -264,14 +291,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                    kClasses || kFold ? c1 + lanes0
                                      : c1 + ((col << ls) & (p.tw - 1)),
                    s * sizeof(uint32_t));
-    if (!kFold) cp_async_bytes(cst + s, c2 + lanes0, s * sizeof(uint32_t));
+    if (!kOne) cp_async_bytes(cst + s, c2 + lanes0, s * sizeof(uint32_t));
     // B13's y is the spectrum, one row (nloc) a shard
     if (kFixed) cp_async_bytes(cst + 2 * s, y + lanes0, s * sizeof(uint32_t));
     if (kSmemTables) {
         int8_t* wsm = reinterpret_cast<int8_t*>(cst + kConst * s) +
                       nwarps * (2 * kRows * ks1 + kRows2 * ks2);
         cp_async_rows(wsm, ts1, wa, ca.kp, d << ls);
-        if (!kFold)
+        if (!kOne)
             cp_async_rows(wsm + (d << ls) * ts1, ts2, wb, cb.kp, d << ls);
         wa = wsm;
         wb = wsm + (d << ls) * ts1;
@@ -345,7 +372,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         // recombined, multiplied and split under p2i in registers, into
         // product row 8h + g.  B13's are x's rows 16h + g and 16h + 8 + g,
         // each multiplied by the spectrum into the product row of its own;
-        // B15's, recombined, are the segment's output rows.
+        // B14's and B15's, recombined, are the segment's output rows.
         for (int nt0 = 0; nt0 < ntiles; nt0 += kPass1) {
             int acc[kU][kPass1][kSlots][4];
 #pragma unroll
@@ -385,7 +412,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 const int h = ht / kPass1, t = ht % kPass1;
                 if (!kFull && nt0 + t >= ntiles) continue;
                 const int l0 = (nt0 + t) * 8 + tig * 2;
-                if constexpr (kFold) {
+                if constexpr (kOne) {
                     // canonical, straight to device memory
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
@@ -454,9 +481,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                 }
             }
         }
-        // B15: the next unit's split writes planes this one's product read
+        // B14, B15: the next unit's split writes planes this one's product
+        // read
         __syncwarp();
-        if constexpr (kFold) continue;
+        if constexpr (kOne) continue;
 
         // The n2-block's inverse rows on the kBatch product rows (with one
         // unit the MMA's rows 8-15 are zero), straight to device memory.
@@ -634,7 +662,7 @@ int run(const void* a, const void* b, void* out, const void* w1,
 }
 
 // kFull where the class count fills the slots and the tiles the passes:
-// three classes for every mode, four for B12, B13 and B15 (the p-sets); any
+// three classes for every mode, four for B12-B15 (the p-sets); any
 // other plan takes the instantiation with run-time conditions
 template <int kMode, bool kSmemTables>
 int run_route(const void* a, const void* b, void* out, const void* w1,
@@ -661,21 +689,21 @@ int run_route(const void* a, const void* b, void* out, const void* w1,
 // B18 (kClassPlanes; w1 the class tables' one block, c1 the shard slice of
 // their const rows); w2 and c2 the shard slices of the compact K2i and its
 // const rows.  B15 (kFolded): w1 and c1 the shard slices of the constant's
-// compact F, (S, a, nblk, d * s, kp), and its const rows (S, a, tw); no b,
-// w2 or c2, and a plan with no second split (din2 0, c2 zero).  A plan
-// outside the kernel's range is refused, never run.
+// compact F, (S, a, nblk, d * s, kp), and its const rows (S, a, tw); B14
+// (kForward): w1 and c1 B12's; neither takes b, w2 or c2, and each a plan
+// with no second split (din2 0, c2 zero).  A plan outside the kernel's
+// range is refused, never run.
 template <int kMode>
 int launch(const void* a, const void* b, void* out, const void* w1,
            const void* c1, const void* w2, const void* c2, long long batch,
            int k_local, const void* plan, void* stream) {
     constexpr bool kClasses = kMode == kClassPlanes;
-    constexpr bool kFold = kMode == kFolded;
     const SpClassPlan p = *static_cast<const SpClassPlan*>(plan);
     const int slots = kClasses ? kClassSlots : kDigitSlots;
     bool ok = valid_shape(p, 2, batch, k_local, slots) &&
               p.rows == 2 * kWarpRows * units_of(kMode);
-    // the input planes: B18's classes, each split on its own, or B12's and
-    // B13's one
+    // the input planes: B18's classes, each split on its own, or the one of
+    // the others
     const int nin = kClasses ? p.d : 1;
     int sum = 0;
     for (int j = 0; ok && j < 3; ++j) {
@@ -683,10 +711,11 @@ int launch(const void* a, const void* b, void* out, const void* w1,
         sum += p.cdin[j];
     }
     const bool second =
-        kFold ? p.din2 == 0 && p.lb2 == 0 && p.kp2 == 0 && p.c2.ls == 0 &&
-                    p.c2.kp == 0
-              : valid_split(p.din2, p.lb2) &&
-                    valid_compact(p.c2, p.din2, p.tw) && p.c1.ls == p.c2.ls;
+        one_product(kMode)
+            ? p.din2 == 0 && p.lb2 == 0 && p.kp2 == 0 && p.c2.ls == 0 &&
+                  p.c2.kp == 0
+            : valid_split(p.din2, p.lb2) &&
+                  valid_compact(p.c2, p.din2, p.tw) && p.c1.ls == p.c2.ls;
     ok = ok && sum == p.din1 && second && valid_compact(p.c1, p.din1, p.tw) &&
          (p.nloc >> p.c1.ls) <= 65535;
     if (!ok) return cudaErrorInvalidValue;

@@ -28,47 +28,27 @@
 //         then the Lr inverse wide stages with n1^{-1} in the last; at
 //         Lr = 0 the matrix carries n1^{-1}.  The folded path runs it under
 //         the plan p3x (its own tables, the same kernel).
-// The wide stages and the dense block matmul are mxu_block.cuh's (B14 runs
-// the block matmul); B11-B13 and B15-B17 multiply through
-// mxu_compact.cuh.  Every
-// output is canonical, and canonical inputs lie below every plan's split
+// The wide stages are mxu_block.cuh's; every segment multiplies through
+// mxu_compact.cuh, over its tables' nonzero blocks alone.  Every output is
+// canonical, and canonical inputs lie below every plan's split
 // bound, so the JAX plans' split parameters serve unchanged; the TPU
 // kernel's lazy hand-offs between segments are not replayed.
 //
-// Design of B12, B13 and B15.  seg2_compact.cuh's seg2_compact_kernel, the
-// body B18 runs too (modes kPair, kSpectrum and kFolded: one input plane a
-// value, split under p2f, or p2x for B15, and K2f's block of this
-// n2-block's place in the tile, or B15's block of the constant's folded F
-// for this shard, tile and n2-block): the tables' nonzero blocks alone
+// Design of B12, B13, B14 and B15.  seg2_compact.cuh's
+// seg2_compact_kernel, the body B18 runs too (modes kPair, kSpectrum,
+// kForward and kFolded: one input plane a value, split under p2f, or p2x
+// for B15, and K2f's block of this n2-block's place in the tile, shared by
+// every shard, or B15's block of the constant's folded F for this shard,
+// tile and n2-block): the tables' nonzero blocks alone
 // (SpDeviceTables.w2fc, .w2ic; FoldedSpOperand.w), a persistent grid of
 // (walkers, n2-blocks, shard) with each block's tables in shared memory
 // (through L2 at n = 8192), each warp taking 16 rows of x and 16 of y
-// (B13 and B15: 32 of x; B13 also its shard's spectrum lanes read once a
-// block) through its products (B15: one) with no block barrier.  A rank
-// of a multi-process run launches it with k_local = 1 and its own table
-// slice.  That header keeps the design and the times of the sp_kernel
-// modes these three ran as before they took that body.
-//
-// Design of B14.  One launch covers the k_local stacked shards
-// (k_local, B, nloc) of a call: grid (row groups, shard), K2f and its const
-// row one table for every shard.  A rank of a multi-process run launches
-// the same kernel with k_local = 1.  A block holds `rows` rows (at most
-// 32) in shared memory for the whole segment, loaded with cp.async; at
-// nloc = 256 that is 32 KiB of rows plus 17 KiB of digit planes, so four
-// blocks fit an SM (B5's 148 KB block allows one).
-// The launch keeps 16 warps on an SM whatever the row length: four blocks
-// of 128 threads where four fit, else two of 256, else one of 512, each
-// with __launch_bounds__ keeping the registers for that many, so one
-// block's barriers overlap the others' products.  Measured on an H100 at
-// qtesla-iii-speed, k = 4 (PERF.md): one 256-thread block per SM ran
-// 1.6-1.7x slower than two, two 512-thread blocks 9-11 % slower, and four
-// 128-thread blocks 1-6 % faster than two 256-thread ones; at k = 2 only
-// two blocks fit, and 128 threads each ran 1.52-1.59x slower than 256.
-// TW below 32 (smallprime) pads the product depth to a multiple of 32 with
-// zero table columns and zero planes.  B14 multiplies whole TW x TW tiles
-// against the table streamed from L2 once per row group, and runs load,
-// split, products and recombination as barrier-separated phases; no TMA
-// and no wgmma.
+// (B13, B14 and B15: 32 of x; B13 also its shard's spectrum lanes read
+// once a block) through its products (B14 and B15: one) with no block
+// barrier.  One launch covers the k_local stacked shards (k_local, B,
+// nloc) of a call; a rank of a multi-process run launches it with k_local
+// = 1 and its own table slice.  That header keeps the design and the
+// times of the dense modes these four ran as before they took that body.
 //
 // Design of B11, B16 and B17 (column_compact_kernel, one body, the
 // direction a template parameter: B11 runs the forward wide stages, then
@@ -103,9 +83,9 @@
 //     parallel/sharded_mxu.py seg1_compact_plan and seg3_compact_plan pick
 //     the rows and the route, the launcher checks them.
 // B17 stages its class sums where the const rows lie and copies them out.
-// B16 ran as a mode of sp_kernel until it took this design: dense 512-deep
-// products against K3 streamed from L2 once per 32-row group, then the
-// inverse wide stages, 0.69 ms at qtesla-iii-speed, k = 4 (PERF.md).
+// B16 ran as a mode of the dense segment kernel until it took this design:
+// 512-deep products against K3 streamed from L2 once per 32-row group, then
+// the inverse wide stages, 0.69 ms at qtesla-iii-speed, k = 4 (PERF.md).
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md, utils/phase_ablation.py,
 // utils/ab_timing.py): the dense B11 took 0.60 ms, 0.20 of it products and
 // 0.16 their table stream; over the nonzero blocks 0.36, with four digits
@@ -118,7 +98,7 @@
 // shards on one card, bytes / 3.35 TB/s against int8 MACs * 2 / 1979 TOP/s,
 // the MACs of the tables' nonzero blocks: K1 and K3 are kron(M, I_n2k),
 // 1/n2k = 1/8 of a dense tile, and K2f, K2i and the folded F block-diagonal
-// over n2-blocks, n2/TW = 1/4; B14 multiplies whole tiles all the same):
+// over n2-blocks, n2/TW = 1/4):
 //   B11 (per operand) 269 MB, 4.8e9 MACs: 0.080 ms, device memory;
 //   B12               404 MB, 3.5e10 MACs: 0.121 ms, device memory;
 //   B16               270 MB, 6.4e9 MACs: 0.081 ms, device memory;
@@ -130,9 +110,9 @@
 // The tables (0.2-1.6 MB for all shards) stay in L2.
 //
 // Each launcher is extern "C", takes raw pointers, the batch B (rows per
-// shard), k_local, a pointer to an SpPlan (B11, B16: an SpCompactPlan; B12,
-// B13, B15: an SpClassPlan) and a stream, launches without synchronising
-// and returns cudaGetLastError().
+// shard), k_local, a pointer to its plan (B11, B16: an SpCompactPlan; B12-
+// B15: an SpClassPlan) and a stream, launches without synchronising and
+// returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -144,13 +124,11 @@
 
 namespace {
 
-using qt::block_matmul;
 using qt::CompactDims;
 using qt::cp_async16;
 using qt::cp_async_wait_all;
 using qt::kMaxClasses;
 using qt::kMaxRows;
-using qt::kPad;
 
 // Field for field the SpPlan ctypes.Structure of parallel/sharded_mxu.py.
 // Digit plan 1 is seg1's p1, seg2's p2f (shared) or seg3's p3; digit plan 2
@@ -165,111 +143,10 @@ struct SpPlan {
     uint32_t add2, kb2;
 };
 
-// the threads an SM runs: 16 warps, in blocks of 128, 256 or 512
+// the threads an SM runs: 16 warps, in blocks of 256 or 512
 constexpr int kSmThreads = 512;
 // shared memory of one SM, and what the runtime reserves for each block
 constexpr int kSmShared = 233472, kBlockReserve = 1024;
-
-// the row segment sp_kernel runs, numbered so that sp_kernel<seg,threads>
-// keeps the instantiation name utils/sass_diff.py matches across trees
-// (B11, B16 and B17 are column_compact_kernel below, B12, B13 and B15
-// seg2_compact.cuh's seg2_compact_kernel; B15 was sp_kernel<5,..>)
-enum Seg { kSeg2Fwd = 4 };
-
-template <int SEG, int THREADS>
-__global__ void __launch_bounds__(THREADS, kSmThreads / THREADS)
-    sp_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ z,
-              const int8_t* __restrict__ w1, const uint32_t* __restrict__ c1,
-              long long batch, const __grid_constant__ SpPlan p) {
-    extern __shared__ __align__(16) uint32_t smem[];
-    const int nloc = p.nloc, tb = p.rows;
-    const int ks = (p.kp1 > p.kp2 ? p.kp1 : p.kp2) + kPad;
-    uint32_t* data = smem;
-    int8_t* planes = reinterpret_cast<int8_t*>(smem + p.rows * nloc);
-    const int shard = blockIdx.y;
-    const long long row0 = static_cast<long long>(blockIdx.x) * tb;
-    const int live = batch - row0 < tb ? static_cast<int>(batch - row0) : tb;
-    const size_t base =
-        (static_cast<size_t>(shard) * batch + row0) * static_cast<size_t>(nloc);
-
-    // rows past the batch are zero-filled; every copy is in flight before
-    // the one wait
-    for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4) {
-        const bool ok = (c >> p.lnloc) < live;
-        cp_async16(data + c, ok ? x + base + c : x, ok ? 16 : 0);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    if (SEG == kSeg2Fwd) {
-        // the rows through the one shared forward table
-        block_matmul(data, p.rows, nloc, p.tw, p.a, planes, ks, w1, 0, p.kp1,
-                     c1, 0, p.din1, p.lb1, p.add1, p.kb1, p);
-    }
-
-    for (int c = threadIdx.x * 4; c < tb * nloc; c += blockDim.x * 4)
-        if ((c >> p.lnloc) < live)
-            *reinterpret_cast<uint4*>(z + base + c) =
-                *reinterpret_cast<const uint4*>(data + c);
-}
-
-bool valid_depth(int din, int kp, int tw) {
-    return din >= 1 && din <= 6 && kp % 32 == 0 && kp >= din * tw &&
-           kp < din * tw + 32;
-}
-
-// One launch of sp_kernel<SEG, THREADS> with `smem` bytes a block.
-template <int SEG, int THREADS>
-int run(const void* a, void* out, const void* w1, const void* c1,
-        long long batch, long long blocks, int k_local, size_t smem,
-        const SpPlan& p, void* stream) {
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            sp_kernel<SEG, THREADS>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return e;
-    }
-    sp_kernel<SEG, THREADS><<<dim3(static_cast<unsigned>(blocks),
-                                   static_cast<unsigned>(k_local)),
-                              THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<uint32_t*>(out),
-        static_cast<const int8_t*>(w1), static_cast<const uint32_t*>(c1),
-        batch, p);
-    return cudaGetLastError();
-}
-
-// B14: w1 and c1 the one K2f table and its const row
-template <int SEG>
-int launch(const void* a, void* out, const void* w1, const void* c1,
-           long long batch, int k_local, const void* plan, void* stream) {
-    const SpPlan p = *static_cast<const SpPlan*>(plan);
-    const bool pow2_tw = p.tw >= 8 && p.tw <= 128 && (p.tw & (p.tw - 1)) == 0;
-    if (p.rows < 1 || p.rows > kMaxRows || p.d < 1 ||
-        p.d > kMaxClasses || !pow2_tw || p.nloc != 1 << p.lnloc ||
-        p.a * p.tw != p.nloc || p.nloc < 8 || p.lr < 0 || p.lr > p.logm ||
-        (1 << p.logm) << p.llanes != p.nloc || (p.a >> p.lr) != 1 ||
-        !valid_depth(p.din1, p.kp1, p.tw) || p.kp2 != 0)
-        return cudaErrorInvalidValue;
-    const long long blocks = (batch + p.rows - 1) / p.rows;
-    if (batch <= 0 || blocks >= (1LL << 31) || k_local < 1 ||
-        k_local > 65535)
-        return cudaErrorInvalidValue;
-    const size_t smem =
-        static_cast<size_t>(p.rows) * p.nloc * sizeof(uint32_t) +
-        static_cast<size_t>((p.rows + 15) / 16 * 16) * (p.kp1 + kPad);
-    // blocks whose shared memory fits one SM
-    const size_t fit = kSmShared / (smem + kBlockReserve);
-    if (fit >= 4)
-        return run<SEG, 128>(a, out, w1, c1, batch, blocks, k_local, smem, p,
-                             stream);
-    if (fit >= 2)
-        return run<SEG, 256>(a, out, w1, c1, batch, blocks, k_local, smem, p,
-                             stream);
-    return run<SEG, 512>(a, out, w1, c1, batch, blocks, k_local, smem, p,
-                         stream);
-}
 
 // ----------------------------------------------------------------------
 // B11, B16 and B17 over K1's and K3's nonzero blocks (header note: design
@@ -535,14 +412,6 @@ int launch_seg1_classes(const void* a, void* out, const void* w,
 
 }  // namespace qt
 
-#define QT_SP_LAUNCHER(name, seg)                                             \
-    extern "C" int name(const void* a, const void*, void* out,               \
-                        const void* w1, const void* c1, const void*,         \
-                        const void*, const void*, long long batch,           \
-                        int k_local, const void* plan, void* stream) {       \
-        return launch<seg>(a, out, w1, c1, batch, k_local, plan, stream);    \
-    }
-
 // B11 and B16: w1 the shard slice of the compact K1 (tabs.w1c) or K3
 // (tabs.w3c, tabs.w3xc under p3x), plan an SpCompactPlan; b, w2 and c2
 // unused
@@ -592,6 +461,13 @@ extern "C" int qt_sp_seg2_folded(const void* a, const void*, void* out,
                                                nullptr, nullptr, batch,
                                                k_local, plan, stream);
 }
-// B14: w1 and c1 as launch<SEG> takes them, plan an SpPlan; b, w2, c2 and
-// tw unused
-QT_SP_LAUNCHER(qt_sp_seg2_fwd, kSeg2Fwd)
+// B14: w1 and c1 the compact K2f (tabs.w2fc) and its const row, plan an
+// SpClassPlan with no second split; b, w2, c2 and tw unused
+extern "C" int qt_sp_seg2_fwd(const void* a, const void*, void* out,
+                              const void* w1, const void* c1, const void*,
+                              const void*, const void*, long long batch,
+                              int k_local, const void* plan, void* stream) {
+    return qt::seg2::launch<qt::seg2::kForward>(a, nullptr, out, w1, c1,
+                                                nullptr, nullptr, batch,
+                                                k_local, plan, stream);
+}

@@ -16,23 +16,22 @@ fallback: a CUDA tensor with no built library, or a refused launch, raises.
 Every successful launch adds one to its kernel's ``launches`` count in
 ``KERNELS``; nothing else touches the counts.
 
-On the H100 B2 is bound by instruction issue, B1, B3 and B4 (register
-passes) nearer device memory, which sees one read per operand and one
-write of z.  B1 runs in
-register passes (``csrc/pass_stages.cuh``) on gs_ct's window sequence, under
-``fused_pass_plan(n)``, which its launcher checks; B4 runs B1's kernel with
-one operand (x alone through the forward, the spectrum multiplied in where
-the forward ends) under ``fixed_pass_plan(n)``; B3 runs B4's inverse half
-alone (``transform_pass_kernel``: a coalesced load, one exchange to where
-B4's inverse starts) under ``intt_pass_plan(n)``, a plan with no forward
-passes, for every n from 2 to 32768.  ``polymul_fused_passes_plain``,
-``polymul_fixed_fused_passes_plain`` and ``intt_passes_plain`` run those
-schedules on the CPU with the kernel's index maps, exchanges and lazy
-ranges.  B2 keeps each row in shared memory for the whole pipeline (one
-thread block per row, a block-wide barrier between the log2(n) dependent
-stages).  All read twiddles from compact n-entry tables instead of the TPU
-kernel's full-width (L, n) tables; see the note at the top of the CUDA
-source.
+All four run in register passes (``csrc/pass_stages.cuh``); device memory
+sees one read per operand and one write of z.  B1 runs on gs_ct's window
+sequence, under ``fused_pass_plan(n)``, which its launcher checks; B4 runs
+B1's kernel with one operand (x alone through the forward, the spectrum
+multiplied in where the forward ends) under ``fixed_pass_plan(n)``; B3 runs
+B4's inverse half alone (``transform_pass_kernel``: a coalesced load, one
+exchange to where B4's inverse starts) under ``intt_pass_plan(n)``, a plan
+with no forward passes, and B2 B4's forward half alone (the same kernel: a
+coalesced load, B4's forward passes, one exchange back to where the load
+left the row, a coalesced store) under ``ntt_pass_plan(n)``, a plan with no
+inverse passes, both for every n from 2 to 32768.
+``polymul_fused_passes_plain``, ``polymul_fixed_fused_passes_plain``,
+``ntt_passes_plain`` and ``intt_passes_plain`` run those schedules on the
+CPU with the kernel's index maps, exchanges and lazy ranges.  All read
+twiddles from compact n-entry tables instead of the TPU kernel's full-width
+(L, n) tables; see the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -52,8 +51,9 @@ from .tables import NttTables, get_tables
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
            "ntt_fused_fn", "intt_fused_fn", "polymul_fused",
            "polymul_fixed_fused", "ntt_fused", "intt_fused",
-           "fused_pass_plan", "fixed_pass_plan", "intt_pass_plan",
-           "polymul_fused_passes_plain", "polymul_fixed_fused_passes_plain",
+           "fused_pass_plan", "fixed_pass_plan", "ntt_pass_plan",
+           "intt_pass_plan", "polymul_fused_passes_plain",
+           "polymul_fixed_fused_passes_plain", "ntt_passes_plain",
            "intt_passes_plain"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/ntt_fused.cu"
@@ -81,7 +81,7 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
            "qtesla_tpu/ops/ntt_pallas.py:100", 0),
     Kernel("polymul_fixed_fused", "qt_polymul_fixed_fused",
            "qtesla_tpu/ops/ntt_pallas.py:112", 0),
-    Kernel("ntt_fused", "qt_ntt_fused", "qtesla_tpu/ops/ntt_pallas.py:123", 1),
+    Kernel("ntt_fused", "qt_ntt_fused", "qtesla_tpu/ops/ntt_pallas.py:123", 0),
     Kernel("intt_fused", "qt_intt_fused", "qtesla_tpu/ops/ntt_pallas.py:129",
            0),
 )}
@@ -206,6 +206,15 @@ def fixed_pass_plan(n: int) -> PassPlan:
     return pass_plan(n, False, True, operands=1)
 
 
+def ntt_pass_plan(n: int) -> PassPlan:
+    """B2's schedule at row length ``n``: B4's forward passes, from the
+    widest stage down, with no inverse after them (the inverse's fields 0),
+    one operand's shared memory a row, and up to 1024 threads a row in three
+    passes, so every n from 2 to 32768 has a plan.  Raises for other n.
+    Cached: copy it before changing a field."""
+    return pass_plan(n, False, None, operands=1)
+
+
 def intt_pass_plan(n: int) -> PassPlan:
     """B3's schedule at row length ``n``: B4's inverse passes with no
     forward before them (the forward's fields 0), one operand's shared
@@ -221,14 +230,22 @@ def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
     ``product(V, mdl, b)`` of the values V (rows, operands, T, R) in the
     forward's last window b, then the inverse's passes and the last stage
     with the store; the rows of z."""
-    n, q = tbl.n, tbl.q
-    fw, fw_sh = torch.from_numpy(tbl.packed[:2].astype(np.int64))
     B = ops[0].shape[0]
-    mdl = PassModel(plan, n, q, B)
+    mdl = PassModel(plan, tbl.n, tbl.q, B)
     ops = [mdl.pad(a) for a in ops]
-    t, tb = mdl.t, mdl.tb
+    V, b = _forward_passes(ops, mdl, tbl)
+    # the inverse starts on the forward's last window
+    return _inverse_passes(product(V, mdl, b), mdl, b, tbl, B)
 
-    b = tb
+
+def _forward_passes(ops, mdl: PassModel, tbl: NttTables):
+    """The forward's passes of B1, B4 and B2 over the padded int64 rows
+    ``ops``: the load on the window [tb, L), then each pass's CT stages from
+    the widest down, one exchange a pass after the first; the values V
+    (rows, operands, T, R), below 4q, and the last window."""
+    plan, t = mdl.plan, mdl.t
+    fw, fw_sh = torch.from_numpy(tbl.packed[:2].astype(np.int64))
+    b = mdl.tb
     idx = mdl.window(t, b)
     # (rows, operand, thread, register); no weighting: psi is merged
     V = torch.stack([a[:, idx] for a in ops], 1)
@@ -238,8 +255,7 @@ def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
         assert b == plan.fwd_b[p]
         V = mdl.merged_stages(V, b, t, plan.fwd_lo[p], plan.fwd_hi[p], fw,
                               fw_sh, fwd=True)
-    # the inverse starts on the forward's last window
-    return _inverse_passes(product(V, mdl, b), mdl, b, tbl, B)
+    return V, b
 
 
 def _inverse_passes(V, mdl: PassModel, b: int, tbl: NttTables, B: int):
@@ -312,6 +328,26 @@ def polymul_fixed_fused_passes_plain(x, yspec, tbl: NttTables,
     return z.reshape(x.shape).to(_U32)
 
 
+def ntt_passes_plain(x, tbl: NttTables, plan: PassPlan | None = None):
+    """The forward merged-psi NTT (nat -> rev) of values below 4q through
+    B2's schedule (``plan``, ``ntt_pass_plan`` unless given), on the CPU:
+    the coalesced load on the window [tb, L), B4's forward passes and
+    exchanges, ending on [0, r), one more exchange back to [tb, L) and a
+    coalesced store; canonical (csub by 2q, then by q)."""
+    n, q = tbl.n, tbl.q
+    plan = ntt_pass_plan(n) if plan is None else plan
+    x2 = x.reshape(-1, n).to(_I64)
+    mdl = PassModel(plan, n, q, x2.shape[0])
+    t = mdl.t
+    V, b = _forward_passes([mdl.pad(x2)], mdl, tbl)
+    assert b == 0 and bool((V < 4 * q).all())
+    if mdl.tb:
+        V, b, _ = mdl.exchange(V, b, t, mdl.tb, t)
+    z = torch.zeros((V.shape[0], n), dtype=_I64)
+    z[:, mdl.window(t, b)] = MM._csub(MM._csub(V[:, 0], 2 * q), q)
+    return z[:x2.shape[0]].reshape(x.shape).to(_U32)
+
+
 def intt_passes_plain(X, tbl: NttTables, plan: PassPlan | None = None):
     """The inverse merged-psi NTT (rev -> nat) of values below 2q through
     B3's schedule (``plan``, ``intt_pass_plan`` unless given), on the CPU:
@@ -365,7 +401,8 @@ def ntt_fused(x, tbl: NttTables, tw=None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev), canonical output."""
     tw = _prepare(tbl, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_fused"], tbl, tw, x, None)
+        return _launch(KERNELS["ntt_fused"], tbl, tw, x, None,
+                       ntt_pass_plan(tbl.n))
     return ntt_plain(x, tbl, tw)
 
 

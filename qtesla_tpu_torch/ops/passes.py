@@ -1,5 +1,5 @@
 """The register-pass schedule shared by the pass kernels (B10's five
-pairings, B1, B4, B3), and a model of those kernels on the CPU.
+pairings, B1, B4, B2, B3), and a model of those kernels on the CPU.
 
 A row of n = 2^L values is held by T = n / R threads, R values of each
 operand a thread; a pass runs up to r = log2(R) stages in registers on the
@@ -12,9 +12,9 @@ kernels' index maps, exchanges through a model of each block's shared memory
 at the kernels' padded addresses and uint32 lazy arithmetic (asserted), so
 that the CPU twins ``ntt_pairings.polymul_pairing_passes_plain``,
 ``ntt_fused.polymul_fused_passes_plain``,
-``ntt_fused.polymul_fixed_fused_passes_plain`` and
-``ntt_fused.intt_passes_plain`` hold the schedules themselves against the
-plain pipelines and JAX.
+``ntt_fused.polymul_fixed_fused_passes_plain``,
+``ntt_fused.ntt_passes_plain`` and ``ntt_fused.intt_passes_plain`` hold the
+schedules themselves against the plain pipelines and JAX.
 
 Stockham's windows follow its autosort: at the start of each pass thread t
 holds the Stockham positions t + c 2^tb (tb = L - r) of the stage st the
@@ -43,7 +43,7 @@ MAX_PASSES = 3
 PASS_SHAPES = frozenset({(2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (32, 2),
                          (32, 3)})
 # threads a block the kernels are built for (__launch_bounds__); the
-# kernel of one transform (B3) takes 1024 in three passes
+# kernel of one transform (B2, B3) takes 1024 in three passes
 _MAX_THREADS = {1: 256, 2: 256, 3: 512}
 _MAX_THREADS_ONE = {1: 256, 2: 256, 3: 1024}
 _BLOCK_THREADS = 256
@@ -81,7 +81,7 @@ def schedule(L: int, r: int, sizes: list[int], up: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def pass_plan(n: int, fwd_up: bool | None, inv_up: bool,
+def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
               stockham: bool = False, operands: int = 2) -> PassPlan:
     """The schedule of a pass kernel at row length ``n`` whose forward runs
     from the narrowest stage up (``fwd_up``) or the widest down, likewise
@@ -93,19 +93,28 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool,
     memory a row for the ``operands`` its exchanges carry (2, or 1 for
     B4's, whose forward runs on x alone).  ``fwd_up`` None: no forward
     passes (B3, the inverse alone, from the narrowest stage up on one
-    operand), the forward's fields 0, and a row of up to 1024 threads in
-    three passes.  Raises for what the launchers refuse: an n that is not a
-    power of two from 2, more than three passes (n > 32768), a row of more
-    threads than its kernel's block takes (n = 32768 with a forward), an
-    inverse alone that is not on one operand from the narrowest stage up.
-    The returned plan is cached: copy it before changing a field."""
+    operand), the forward's fields 0; ``inv_up`` None: no inverse passes
+    (B2, the forward alone, from the widest stage down on one operand), the
+    inverse's fields 0; either way a row of up to 1024 threads in three
+    passes.  Raises for what the launchers refuse: an n that is not a power
+    of two from 2, more than three passes (n > 32768), a row of more threads
+    than its kernel's block takes (n = 32768 with both transforms), an
+    inverse alone that is not on one operand from the narrowest stage up, a
+    forward alone that is not on one operand from the widest stage down, a
+    plan of neither.  The returned plan is cached: copy it before changing
+    a field."""
     if n < 2 or n & (n - 1):
         raise ValueError(f"n={n}: not a power of two from 2")
     if operands not in (1, 2):
         raise ValueError(f"{operands} operands: the kernels carry 1 or 2")
+    if fwd_up is None and inv_up is None:
+        raise ValueError("a plan runs a forward, an inverse or both")
     if fwd_up is None and (not inv_up or stockham or operands != 1):
         raise ValueError("an inverse alone runs on one operand from the "
                          "narrowest stage up, in cyclic windows")
+    if inv_up is None and (fwd_up or stockham or operands != 1):
+        raise ValueError("a forward alone runs on one operand from the "
+                         "widest stage down, in cyclic windows")
     L = _log2(n)
     R = min(n, 32)
     r = _log2(R)
@@ -115,7 +124,8 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool,
                          f"(radix, passes) in {sorted(PASS_SHAPES)})")
     T = n // R
     rows = max(1, _BLOCK_THREADS // T)
-    most = (_MAX_THREADS if fwd_up is not None else _MAX_THREADS_ONE)[P]
+    one = fwd_up is None or inv_up is None
+    most = (_MAX_THREADS_ONE if one else _MAX_THREADS)[P]
     if rows * T > most:
         raise ValueError(f"n={n}: {T} threads a row, more than the "
                          f"{most} a block of its kernel takes")
@@ -148,10 +158,10 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool,
 
 def describe_pass_plan(plan: PassPlan) -> str:
     """One line: R, threads and rows, each transform's passes ("none" for
-    a plan with no forward)."""
+    a plan with no forward or no inverse)."""
     def passes(side):
         lo, hi, b = (getattr(plan, f"{side}_{f}") for f in ("lo", "hi", "b"))
-        if side == "fwd" and not any(hi[:plan.passes]):
+        if not any(hi[:plan.passes]):
             return "none"
         return " ".join(f"[{lo[p]},{hi[p]})@{b[p]}"
                         for p in range(plan.passes))

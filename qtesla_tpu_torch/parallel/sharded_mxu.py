@@ -14,7 +14,8 @@ Counterpart of the kernels and the assembly of
   the constant's stored spectrum, one row per shard, in the same kernel
   body over the same compact tables;
 - ``sp_seg2_fwd``  B14, replaces ``_make_seg2_fwd_only`` (l.548): K2f only,
-  the last step of a constant's spectrum;
+  the last step of a constant's spectrum, over K2f's nonzero blocks alone
+  (``w2fc``) in the kernel body of B12, B13 and B15, one product as B15's;
 - ``sp_seg2_folded``  B15, replaces ``_make_seg2_folded`` (l.563): one
   product per (shard, tile) against the constant's folded tables
   F = K2f diag(A^) K2i under the plan p2x, over F's nonzero blocks alone
@@ -89,8 +90,9 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "compact_route", "seg2_plain", "seg2_compact_plain",
            "SpClassPlan", "seg2_compact_plan", "row_compact_fields",
            "table_stride", "seg2_fixed_compact_plan",
-           "seg2_folded_compact_plan", "WARP_ROWS",
+           "seg2_folded_compact_plan", "seg2_fwd_compact_plan", "WARP_ROWS",
            "seg2_fixed_plain", "seg2_fixed_compact_plain", "seg2_fwd_plain",
+           "seg2_fwd_compact_plain",
            "seg2_folded_plain", "seg2_folded_compact_plain",
            "seg3_plain", "a2a_fwd", "a2a_inv", "to_shards", "from_shards",
            "polymul_fourstep_mxu", "polymul_fourstep_mxu_plain",
@@ -138,8 +140,8 @@ class SpDeviceTables:
     (``compact_tables``: lambda-major blocks of Bk lanes for K1 and K3, the
     n2-blocks for K2i), what B11, B12, B18 and B16 multiply, and ``w2fc``
     int8 (nblk, D*s, kp) K2f's, the n2-blocks of the one shared row table,
-    what B12 and B13 multiply; B17 shares ``w1c`` with B11; the dense
-    ``w2f`` serves B14, ``w1``, ``w2i``, ``w3`` and ``w3x`` the twins."""
+    what B12, B13 and B14 multiply; B17 shares ``w1c`` with B11; the dense
+    ``w2f``, ``w1``, ``w2i``, ``w3`` and ``w3x`` serve the twins alone."""
 
     w1: torch.Tensor
     c1: torch.Tensor
@@ -396,6 +398,13 @@ def _rows_fwd(x, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
                     plans.p2f, plans)
 
 
+def _rows_fwd_compact(x, plans: SpPlans,
+                      tabs: SpDeviceTables) -> torch.Tensor:
+    """``_rows_fwd`` reading the compact K2f (``tabs.w2fc``)."""
+    return _compact_product(x.to(_I64), tabs.w2fc[None, None],
+                            tabs.c2f[None, None], plans.p2f, plans, "rows")
+
+
 def _rows_inv(Z, plans: SpPlans, tabs: SpDeviceTables, sl) -> torch.Tensor:
     """Shards sl's inverse row transforms K2i of (S, B, nloc) values below
     p2i's split bound; canonical uint32."""
@@ -421,9 +430,7 @@ def seg2_compact_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     use it."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
-    X, Y = (_compact_product(t.to(_I64), tabs.w2fc[None, None],
-                             tabs.c2f[None, None], plans.p2f, plans, "rows")
-            for t in (x, y))
+    X, Y = (_rows_fwd_compact(t, plans, tabs) for t in (x, y))
     return _rows_inv_compact(_pointwise(X, Y, plans), plans, tabs, sl)
 
 
@@ -451,8 +458,7 @@ def seg2_fixed_compact_plain(x, aspec, plans: SpPlans, tabs=None,
     use it."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
-    X = _compact_product(x.to(_I64), tabs.w2fc[None, None],
-                         tabs.c2f[None, None], plans.p2f, plans, "rows")
+    X = _rows_fwd_compact(x, plans, tabs)
     return _rows_inv_compact(
         _pointwise(X, _spectrum_plain(aspec, plans, sl), plans), plans, tabs,
         sl)
@@ -463,6 +469,12 @@ def seg2_fwd_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     stores them lazy).  The table is shared, so ``first`` only names the
     shards."""
     return _rows_fwd(x, plans, _tabs(tabs, plans, x)).to(_U32)
+
+
+def seg2_fwd_compact_plain(x, plans: SpPlans, tabs=None, first: int = 0):
+    """``seg2_fwd_plain`` reading the compact K2f (``tabs.w2fc``): what B14
+    multiplies.  Only the tests and the chip check use it."""
+    return _rows_fwd_compact(x, plans, _tabs(tabs, plans, x)).to(_U32)
 
 
 def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
@@ -738,7 +750,7 @@ WARP_ROWS = 8
 
 
 class SpClassPlan(ctypes.Structure):
-    """The run-time plan of the row segment kernel (B12, B13, B18); field
+    """The run-time plan of the row segment kernel (B12-B15, B18); field
     for field the ``SpClassPlan`` struct of ``csrc/seg2_compact.cuh``:
     ``SpPlan``'s, then per input plane j the row segment's split (``cdin``,
     ``clb``, ``cadd``), then the compact layouts (``c1`` the first table,
@@ -750,32 +762,34 @@ class SpClassPlan(ctypes.Structure):
 
 
 def row_compact_fields(plans: SpPlans, planes: int, D: int, units: int,
-                       fixed: bool = False, folded: bool = False) -> dict:
+                       fixed: bool = False, one_product: bool = False) -> dict:
     """The row segment kernel's layout fields of a plan whose first product
     splits a value into ``planes`` planes: each warp of a block works on
     ``units`` units of 8 batch rows of x and of y at one n2-block of lanes
     (``rows`` 16 a unit: B12 takes two units at once, B18 one; ``fixed``,
     B13: the rows of ``units`` units from x alone, each a product row, and
-    the spectrum's lanes beside the const rows; ``folded``, B15: the rows of
-    ``units`` units from x alone through one product, so no K2i, no p2i
-    planes and one const row: ``c2`` all 0), the compact layouts of the
+    the spectrum's lanes beside the const rows; ``one_product``, B14 and
+    B15: the rows of ``units`` units from x alone through one product, so
+    no K2i, no p2i planes and one const row: ``c2`` all 0; the kernel's
+    mode, not the layout, tells B15's table, the constant's F per shard,
+    from B14's, K2f shared by every shard), the compact layouts of the
     first table (``c1``) and of K2i (``c2``), and the route: the block's
     tables sit in shared memory (rows ``table_stride`` apart) where they
     leave room for the planes of at least 8 warps, else they come through
-    L2.  Raises where the planes of one warp do not fit a block, or for
-    ``fixed`` and ``folded`` together."""
-    if fixed and folded:
-        raise ValueError("a row plan is fixed (B13) or folded (B15), not "
-                         "both")
+    L2.  Raises where the planes of one warp do not fit a block, or for a
+    plan both ``fixed`` and ``one_product``."""
+    if fixed and one_product:
+        raise ValueError("a row plan is fixed (B13) or one product (B14, "
+                         "B15), not both")
     lay = compact_layout(plans, "rows")
     c1 = _compact_dims(lay, planes)
-    c2 = CompactDims() if folded else _compact_dims(lay, plans.p2i.din)
-    const = (3 if fixed else 1 if folded else 2) * lay.s * 4
-    shared = const + D * lay.s * (table_stride(c1.kp)
-                                  + (0 if folded else table_stride(c2.kp)))
+    c2 = CompactDims() if one_product else _compact_dims(lay, plans.p2i.din)
+    const = (3 if fixed else 1 if one_product else 2) * lay.s * 4
+    shared = const + D * lay.s * (
+        table_stride(c1.kp) + (0 if one_product else table_stride(c2.kp)))
     rows = 2 * WARP_ROWS * units
     warp = (rows * planes_stride(1, c1.kp)
-            + (0 if folded else rows if fixed else rows // 2)
+            + (0 if one_product else rows if fixed else rows // 2)
             * planes_stride(1, c2.kp))
     if const + warp + _BLOCK_RESERVE > _SM_SHARED:
         raise ValueError(f"{plans.name}: the planes of one warp ({warp} "
@@ -821,29 +835,32 @@ def seg2_folded_compact_plan(plans: SpPlans) -> SpClassPlan:
     return _row_plan(plans, "sp_seg2_folded")
 
 
+@functools.lru_cache(maxsize=None)
+def seg2_fwd_compact_plan(plans: SpPlans) -> SpClassPlan:
+    """B14's run-time plan: ``plan_for(plans, "sp_seg2_fwd")`` (one input
+    plane split under p2f, its dense depth kp1 giving way to the compact
+    ``c1.kp``; no second split) and ``row_compact_fields`` of a forward
+    plan: B15's layout, 32 rows of x a warp through one product against
+    K2f's block of this n2-block's place in the tile (``tabs.w2fc``, as
+    B12's first product), one const row, ``c2`` all 0 (at
+    qtesla-iii-speed, k = 4, blocks of 32 lanes, depth 128 where the dense
+    K2f ran 512)."""
+    return _row_plan(plans, "sp_seg2_fwd")
+
+
 def _row_plan(plans: SpPlans, seg: str) -> SpClassPlan:
-    """The row segment kernel's plan of B12, B13 or B15 (``seg`` a key of
-    ``SEGMENTS``): two units a warp, one input plane split under p2f (B15:
-    p2x)."""
+    """The row segment kernel's plan of B12, B13, B14 or B15 (``seg`` a key
+    of ``SEGMENTS``): two units a warp, one input plane split under p2f
+    (B15: p2x)."""
     sp = plan_for(plans, seg)
-    folded = seg == "sp_seg2_folded"
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
     fields.update(kp1=0, kp2=0, **row_compact_fields(
         plans, sp.din1, sp.d, 2, fixed=seg == "sp_seg2_fixed",
-        folded=folded))
+        one_product=seg in ("sp_seg2_folded", "sp_seg2_fwd")))
     return SpClassPlan(
         **fields, cdin=_slots(ctypes.c_int32, (sp.din1,)),
         clb=_slots(ctypes.c_int32, (sp.lb1,)),
         cadd=_slots(ctypes.c_uint32, (sp.add1,)))
-
-
-def _launch(seg: str, plans: SpPlans, tables, a):
-    """Run segment ``seg``'s dense kernel (B14, a key of ``SEGMENTS``) on
-    CUDA shards a, (S, B, nloc), into a new (S, B, nloc) output, against
-    ``tables`` (w1, c1, w2, c2, twiddles; None where the segment takes
-    none)."""
-    return _run_kernel(KERNELS[seg], plan_for(plans, seg), tables, a, None,
-                       plans.nloc)
 
 
 def _run_kernel(kernel: Kernel, plan: ctypes.Structure, tables, a, b,
@@ -968,8 +985,10 @@ def sp_seg2_fwd(x, plans: SpPlans, tabs=None,
     canonical out."""
     tabs, _ = _prepare(plans, tabs, first, x)
     if x.is_cuda:
-        return _launch("sp_seg2_fwd", plans,
-                       (tabs.w2f, tabs.c2f, None, None, None), x)
+        return _run_kernel(KERNELS["sp_seg2_fwd"],
+                           seg2_fwd_compact_plan(plans),
+                           (tabs.w2fc, tabs.c2f, None, None, None), x, None,
+                           plans.nloc)
     return seg2_fwd_plain(x, plans, tabs, first)
 
 
@@ -1149,6 +1168,7 @@ def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     uint32 tensor.  A plan the kernels cannot take raises here."""
     plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
                                              "sp_seg2_fixed", "sp_seg3"))
+    seg2_fwd_compact_plan(plans)
 
     def prepare(a):
         _on_mesh(mesh, a)
@@ -1173,6 +1193,7 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
     *from_jax_fourstep_fold_tables(W, c), plans, device)``."""
     plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
                                              "sp_seg2_folded", "sp_seg3 p3x"))
+    seg2_fwd_compact_plan(plans)
     seg2_folded_compact_plan(plans)
 
     def prepare(a):

@@ -1,7 +1,7 @@
 """Time the kernels of two source trees in turns, on one card.
 
-    python -m qtesla_tpu_torch.utils.ab_timing [--sp K | --butterfly] \
-        OLD_TREE NEW_TREE
+    python -m qtesla_tpu_torch.utils.ab_timing [--rounds N] \
+        [--sp K | --butterfly] OLD_TREE NEW_TREE
 
 Each tree is a checkout of this repository (for example a parent commit
 unpacked with ``git archive``, or a copy with one constant of a CUDA source
@@ -12,14 +12,17 @@ operands (CUDA events, 3 warmup then 20 timed calls each): B5-B9 (B6 also
 on one row, the size of its launches on the main path), or with
 ``--sp K`` the sequence-parallel segments B11-B16 at model axis K (shards
 (K, 32768, 1024 / K); B13-B15 where both trees have them, against the
-spectrum of y's first row; the class-boundary B17 and B18, B18 on B17's
-output after the exchange, where the tree has them; and the folded SP
+spectrum of y's first row, B14 also on one row a shard, the size of its
+launches on the main path, warm and cold (``time_cuda(cold=True)``); the
+class-boundary B17 and B18, B18 on B17's output after the exchange, where
+the tree has them; and the folded SP
 path at model axis K, ``multiply(x, *prepare(a))``, and its prepare, whose
 host work the events span), or with
 ``--butterfly`` the butterfly kernels B1-B4 (B4 against the spectrum of
-y's first row, B3 on x) and the five pairings B10.  It prints each run's
-medians and, per kernel, the median of each tree's 40 calls and the new/old
-ratio.  It needs a CUDA device.
+y's first row, B3 on x) and the five pairings B10.  ``--rounds N`` runs the
+order old, new, new, old N times (default 1).  It prints each run's
+medians and, per kernel, the median and the least of each tree's 40 N
+calls and the new/old ratio of the medians.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ BUTTERFLY_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
                      "intt_fused", *(f"polymul_pairing_{p}" for p in (
                          "gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")))
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
-              "sp_seg2_folded", "sp_seg1_classes", "sp_seg2_classes",
-              "folded SP path", "folded SP prepare")
+              "sp_seg2_fwd B=1", "sp_seg2_fwd B=1 cold", "sp_seg2_folded",
+              "sp_seg1_classes", "sp_seg2_classes", "folded SP path",
+              "folded SP prepare")
 
 _RUN = """
 import functools, importlib.util, json, sys
@@ -86,8 +90,11 @@ elif {sp}:
         fold = (S.fold_sp_operand(*pair, plans, "cuda") if "plans" in
                 inspect.signature(S.fold_sp_operand).parameters
                 else S.fold_sp_operand(*pair, "cuda"))
+        one = vx[:, :1].contiguous()
         runs.update({{"sp_seg2_fixed": (S.sp_seg2_fixed, vx, aspec),
                      "sp_seg2_fwd": (S.sp_seg2_fwd, vx),
+                     "sp_seg2_fwd B=1": (S.sp_seg2_fwd, one),
+                     "sp_seg2_fwd B=1 cold": (S.sp_seg2_fwd, one),
                      "sp_seg2_folded": (S.sp_seg2_folded, vx, fold)}})
         from qtesla_tpu_torch.parallel import make_mesh
         xprep, xmul = S.polymul_fixed_folded_fourstep_mxu_fn(
@@ -118,7 +125,8 @@ else:
             (M.polymul_fixed_folded_mxu, x, op)}}
 out = {{}}
 for name, (fn, *ops) in runs.items():
-    out[name] = time_cuda(fn, *ops, args, warmup=3, repeats=20).samples_ms
+    out[name] = time_cuda(fn, *ops, args, warmup=3, repeats=20,
+                          cold=name.endswith(" cold")).samples_ms
 print(json.dumps(out))
 """
 
@@ -135,6 +143,9 @@ def _run(tree: Path, sp: int, butterfly: bool) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    rounds = 1
+    if argv[:1] == ["--rounds"] and len(argv) > 1:
+        rounds, argv = int(argv[1]), argv[2:]
     sp, butterfly = 0, argv[:1] == ["--butterfly"]
     if butterfly:
         argv = argv[1:]
@@ -145,7 +156,7 @@ def main(argv: list[str]) -> int:
         return 2
     trees = {"old": Path(argv[0]).resolve(), "new": Path(argv[1]).resolve()}
     runs = []
-    for which in ("old", "new", "new", "old"):
+    for which in ("old", "new", "new", "old") * rounds:
         res = _run(trees[which], sp, butterfly)
         runs.append((which, res))
         print(f"{which} ({trees[which]}): " + ", ".join(
@@ -161,8 +172,10 @@ def main(argv: list[str]) -> int:
             samples[which][k].extend(res[k])
     for k in kernels:
         old, new = (statistics.median(samples[t][k]) for t in ("old", "new"))
+        least = [min(samples[t][k]) for t in ("old", "new")]
         print(f"{k}: old {old:.4f} ms, new {new:.4f} ms, new/old "
-              f"{new / old:.4f} (medians of 40 calls each)")
+              f"{new / old:.4f} (medians of {len(samples['old'][k])} calls "
+              f"each; least {least[0]:.4f} and {least[1]:.4f})")
     return 0
 
 

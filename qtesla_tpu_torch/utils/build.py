@@ -34,13 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
-# B2 of csrc/ntt_fused.cu: (a, b, out, twiddles, batch, n, logn, q, r32,
-# r32_shoup, one_shoup, stream)
-_FUSED = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-          + [ctypes.c_uint32] * 4 + [_P])
-# the pass kernels (B1, B3, B4, the five pairings of
-# csrc/ntt_pairings.cu): the same, &plan before the stream
-_PASSES = _FUSED[:-1] + [_P, _P]
+# the pass kernels (B1-B4 of csrc/ntt_fused.cu, the five pairings of
+# csrc/ntt_pairings.cu): (a, b, out, twiddles, batch, n, logn, q, r32,
+# r32_shoup, one_shoup, &plan, stream)
+_PASSES = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+           + [ctypes.c_uint32] * 4 + [_P, _P])
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
 # &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
@@ -51,7 +49,7 @@ _SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 # every launcher symbol and its C signature
 LAUNCHERS = {
     "qt_polymul_fused": _PASSES, "qt_polymul_fixed_fused": _PASSES,
-    "qt_ntt_fused": _FUSED, "qt_intt_fused": _PASSES,
+    "qt_ntt_fused": _PASSES, "qt_intt_fused": _PASSES,
     "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
     "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,
     "qt_polymul_fixed_folded_mxu": _MXU,

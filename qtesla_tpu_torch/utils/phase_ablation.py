@@ -21,10 +21,9 @@ sequence-parallel ones, CUDA events, 3 warmup then 20 timed calls:
 
 Levels below 5 compute wrong values; only their times mean anything.  The
 difference of two neighbouring levels is what the added phase costs with
-everything before it in place.  The patches cover the dense building blocks
-of ``csrc/mxu_block.cuh`` (B14, B15), the compact ones of
-``csrc/mxu_compact.cuh`` (B11-B13, B16-B18), the row segment kernel of B12,
-B13 and B18 (B13's pointwise product, p2i split and second product have
+everything before it in place.  The patches cover the compact building
+blocks of ``csrc/mxu_compact.cuh`` (B11-B18), the row segment kernel of
+B12-B15 and B18 (B13's pointwise product, p2i split and second product have
 patches of their own), the column kernel of B11, B16 and B17 (B17 has no
 recombination, so level 5 adds nothing to it; its staged store of the class
 sums counts with load and store) and
@@ -34,12 +33,14 @@ kernel sit in the code its five modes share, so they take apart B6, B7 and
 B8 as they do B5 and B9.  The patch set follows the tree it is
 given as far back as the tree of the commit before B12 and B9 took these
 designs: there the row segment kernel (B18 alone) lies in
-``csrc/sharded_classes.cu``, and the dense patches take apart B12 (a mode
-of ``sp_kernel``) and B9 (a mode of ``mxu_kernel``); in a tree before B6,
-B7 and B8 moved to the streaming kernel they take those apart as modes of
-``mxu_kernel``, and in a tree before B13 and B17 moved to the compact
-bodies, B13 as a mode of ``sp_kernel`` and B17 through ``mxu_block.cuh``.
-A patch of code every such tree has fails the run when its anchor is
+``csrc/sharded_classes.cu``, and the patches of the dense building blocks
+that ``csrc/mxu_block.cuh`` held until B14 took the row segment kernel take
+apart B12 (a mode of the dense segment kernel) and B9 (a mode of
+``mxu_kernel``); in a tree before B6, B7 and B8 moved to the streaming
+kernel they take those apart as modes of ``mxu_kernel``, in a tree before
+B13 and B17 moved to the compact bodies, B13 as a mode of the dense segment
+kernel and B17 through ``mxu_block.cuh``, and in a tree before B14 and B15
+moved, those two as modes of the dense segment kernel.  A patch of code every such tree has fails the run when its anchor is
 missing; the patches of code one tree has and another has not (``OPTIONAL``)
 are applied where their anchor is found.  It needs a CUDA device.
 """
@@ -201,9 +202,12 @@ COLUMN_PATCHES = (
     ("sharded_mxu.cu", _C_FWD_WIDE, _guard("QT_ABL >= 1", _C_FWD_WIDE)),
     ("sharded_mxu.cu", _C_INV_WIDE, _guard("QT_ABL >= 1", _C_INV_WIDE)),
 )
-# anchors in code that one tree has and another has not: B13 as a mode of
-# sp_kernel (and the dense B12), or B13 in the row segment kernel
-OPTIONAL = (_SEG2_POINTWISE, _F_POINTWISE, _F_SPLIT, _F_DEPTH)
+# anchors in code that one tree has and another has not: the dense
+# building blocks of mxu_block.cuh (gone once B14 took the row segment
+# kernel), B13 as a mode of the dense segment kernel (and the dense B12),
+# or B13 in the row segment kernel
+OPTIONAL = (_DENSE_SPLIT, _DENSE_MMA, _DENSE_LOAD, _DENSE_RECOMBINE,
+            _SEG2_POINTWISE, _F_POINTWISE, _F_SPLIT, _F_DEPTH)
 # B5-B9 in polymul_stream_kernel: below level 4 the producer arrives on
 # each stage's barrier without copying, so the ring still paces the MMA
 # warps; B5's and B8's pointwise products sit in the forward epilogue, and
@@ -303,6 +307,10 @@ spec = x[0].clone()
 # the folded operand of a spectrum from the plain forward on the host: the
 # patched B6 of a level below 5 does not compute one
 fold = M.fold_operand(M.ntt_mxu(x[:1].cpu(), mt).to("cuda"), mt)
+# B15's operand: the folded tables of that spectrum, built on the host
+sfold = (S.fold_sp_operand(*fourstep_fold_tables(plans, spec.cpu().numpy()),
+                           plans, "cuda")
+         if "sp_seg2_folded" in names else None)
 runs = {{
     "polymul_mxu": lambda: M.polymul_mxu(x, y, mt),
     "polymul_fixed_mxu": lambda: M.polymul_fixed_mxu(x, y[:1], mt),
@@ -315,6 +323,7 @@ runs = {{
     "sp_seg3": lambda: S.sp_seg3(sx, plans),
     "sp_seg2_fixed": lambda: S.sp_seg2_fixed(sx, spec, plans),
     "sp_seg2_fwd": lambda: S.sp_seg2_fwd(sx, plans),
+    "sp_seg2_folded": lambda: S.sp_seg2_folded(sx, sfold, plans),
     "sp_seg1_classes": lambda: C.sp_seg1_classes(sx, plans, cp),
     "sp_seg2_classes": lambda: C.sp_seg2_classes(wide, wide, plans, cp),
 }}

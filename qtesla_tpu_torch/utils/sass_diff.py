@@ -6,18 +6,19 @@ Each tree is a checkout of this repository.  In a fresh Python process each
 tree builds its kernels into its own ``build/`` (``utils/build.py``); then
 ``cuobjdump -sass`` disassembles both libraries, and for every kernel
 instantiation (``mxu_kernel<mode>``,
-``polymul_stream_kernel<classes,mode>``, ``sp_kernel<mode,threads>`` (B14
-4; B13 3 and B15 5 in a tree before they moved),
+``polymul_stream_kernel<classes,mode>``, ``sp_kernel<mode,threads>`` (in a
+tree before B13, B14 and B15 moved: B13 3, B14 4, B15 5),
 ``classes_kernel<mode,threads>`` (B17 in such a tree),
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
 ``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2, B15
-3), B3's ``transform_pass_kernel<fwd,radix,passes,logn>`` (fwd 0),
+3, B14 4), B2's and B3's ``transform_pass_kernel<fwd,radix,passes,logn>``
+(B2 fwd 1, B3 0),
 B1-B4's ``polymul_fused_kernel`` (B1's ``polymul_pass_kernel<radix,
 passes,logn>`` in a tree after it took register passes, and
 ``polymul_pass_kernel<radix,passes,logn,operands>`` once B4 joined it,
 B1 2 and B4 1), ``polymul_fixed_fused_kernel`` (B4 before it did),
-``ntt_fused_kernel`` and ``intt_fused_kernel`` (B3 before it took register
-passes), B10's pairings,
+``ntt_fused_kernel`` and ``intt_fused_kernel`` (B2 and B3 before they took
+register passes), B10's pairings,
 ``pairing_kernel<fwd,inv>`` in a tree before they took register passes
 and ``pass_kernel<fwd,inv,radix,passes,logn>`` after (DIF 0, DIT 1,
 Stockham 2)) it prints the SASS instruction count of each tree and the
@@ -38,9 +39,11 @@ B8's ``mxu_kernel<1>`` and B6's ``mxu_kernel<2>`` of the tree before they
 moved, B9's ``mxu_kernel<4>`` and B7's ``mxu_kernel<3>`` of the trees
 before they did, all now modes of the stream kernel, B4's
 ``polymul_fixed_fused_kernel`` of the tree before it took the pass kernel,
-B3's ``intt_fused_kernel`` of the tree before it took
-``transform_pass_kernel`` and B15's ``sp_kernel<5,threads>`` of the tree
-before it took ``seg2_compact_kernel<3,..>``) is then printed once more
+B2's ``ntt_fused_kernel`` and B3's ``intt_fused_kernel`` of the trees before
+they took ``transform_pass_kernel<1,..>`` and ``<0,..>``, and B15's
+``sp_kernel<5,threads>`` and B14's ``sp_kernel<4,threads>`` of the trees
+before they took ``seg2_compact_kernel<3,..>`` and ``<4,..>``) is then
+printed once more
 beside the new kernel's instantiations, one per class count or length.  A refactor of
 shared device code that leaves a kernel's count and opcodes as they were
 compiled to the same work; ``utils/ab_timing.py`` times what it did not.
@@ -84,8 +87,11 @@ SUCCESSORS = {"mxu_kernel<1>": ("B8", _STREAM, ",2>"),
               "mxu_kernel<4>": ("B9", _STREAM, ",1>"),
               "polymul_fixed_fused_kernel": ("B4", "polymul_pass_kernel<",
                                              ",1>"),
+              "ntt_fused_kernel": ("B2", "transform_pass_kernel<1,", ">"),
               "intt_fused_kernel": ("B3", "transform_pass_kernel<0,", ">"),
               **{f"sp_kernel<5,{t}>": ("B15", "seg2_compact_kernel<3,", ">")
+                 for t in (128, 256, 512)},
+              **{f"sp_kernel<4,{t}>": ("B14", "seg2_compact_kernel<4,", ">")
                  for t in (128, 256, 512)}}
 
 

@@ -403,31 +403,29 @@ def test_build_flags_target_hopper():
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
                                     for k in mod.KERNELS.values()}
-    # the pass kernels' launchers (the five pairings, B1, B3, B4) take the
-    # plan before the stream; B2's has the plain signature
-    plain = build.LAUNCHERS["qt_ntt_fused"]
-    passes = plain[:-1] + plain[:1] * 2
+    # the pass kernels' launchers (the five pairings, B1-B4) take the plan
+    # before the stream
+    passes = build.LAUNCHERS["qt_polymul_fused"]
+    assert len(passes) == 13 and passes[-2:] == [passes[0]] * 2
     for k in P.KERNELS.values():
         assert k.replaces == "qtesla_tpu/ops/ntt_pairings_pallas.py:160"
         assert f"QT_PAIRING_LAUNCHER({k.symbol}," in src[P]
         assert build.LAUNCHERS[k.symbol] == passes
     assert "stk_stages" not in src[P] and " pairing_kernel" not in src[P]
-    for symbol in ("qt_polymul_fused", "qt_polymul_fixed_fused",
-                   "qt_intt_fused"):
-        assert f'extern "C" int {symbol}(' in src[F]
-        assert build.LAUNCHERS[symbol] == passes
     assert "polymul_fused_kernel" not in src[F]
     assert "polymul_fixed_fused_kernel" not in src[F]
-    assert "fwd_stages<2>" not in src[F]
-    # B3 runs the pass kernel of one transform; its block-a-row body went
+    assert "fwd_stages" not in src[F]
+    # B2 and B3 run the pass kernel of one transform; their block-a-row
+    # bodies and the macro launcher went
     assert "intt_fused_kernel" not in src[F] and "inv_stages" not in src[F]
+    assert "ntt_fused_kernel" not in src[F] and "QT_LAUNCHER" not in src[F]
     assert "transform_pass_kernel_for<false>(" in src[F]
+    assert "transform_pass_kernel_for<true>(" in src[F]
     for k in F.KERNELS.values():
         assert k.replaces.startswith("qtesla_tpu/ops/ntt_pallas.py:")
-        if k.name not in ("polymul_fused", "polymul_fixed_fused",
-                          "intt_fused"):
-            assert f"QT_LAUNCHER({k.symbol}," in src[F]
-            assert len(build.LAUNCHERS[k.symbol]) == 12
+        assert f'extern "C" int {k.symbol}(' in src[F]
+        assert build.LAUNCHERS[k.symbol] == passes
+        assert k.smem_rows == 0
     # B5 and B9 have launchers of their own, written out
     for k in M.KERNELS.values():
         assert (f"QT_MXU_LAUNCHER({k.symbol}," in src[M]
@@ -436,21 +434,24 @@ def test_build_flags_target_hopper():
         assert len(build.LAUNCHERS[k.symbol]) == 11
     assert 'extern "C" int qt_polymul_mxu(' in src[M]
     assert 'extern "C" int qt_polymul_fixed_folded_mxu(' in src[M]
-    # B11, B12, B13, B15, B16 and the class kernels have launchers of their
-    # own, written out; B12, B13, B15 and B18 share one kernel body, B11,
-    # B16 and B17 another; sp_kernel runs B14 alone
+    # every SP kernel and the class kernels have launchers of their own,
+    # written out; B12-B15 and B18 share one kernel body, B11, B16 and B17
+    # another; the dense sp_kernel and its macro launcher went with B14's
+    # move, and the dense block matmul with them
     assert 'extern "C" int qt_sp_seg2(' in src[S]
     assert "qt::seg2::launch<qt::seg2::kPair>(" in src[S]
     assert "qt::seg2::launch<qt::seg2::kSpectrum>(" in src[S]
     assert "qt::seg2::launch<qt::seg2::kFolded>(" in src[S]
-    assert "kSeg2Folded" not in src[S]
+    assert "qt::seg2::launch<qt::seg2::kForward>(" in src[S]
+    assert "kSeg2Folded" not in src[S] and "kSeg2Fwd" not in src[S]
+    assert "sp_kernel" not in src[S] and "QT_SP_LAUNCHER" not in src[S]
+    assert "block_matmul" not in (build.CSRC_DIR / "mxu_block.cuh").read_text()
     assert "qt::seg2::launch<qt::seg2::kClassPlanes>(" in src[C]
     assert "launch_column_compact<kColumnClasses>(" in src[S]
     assert "qt::launch_seg1_classes(" in src[C]
     assert "classes_kernel" not in src[C] and "kSeg2Fixed" not in src[S]
     for k in S.KERNELS.values():
-        assert (f"QT_SP_LAUNCHER({k.symbol}," in src[S]
-                or f'extern "C" int {k.symbol}(' in src[S])
+        assert f'extern "C" int {k.symbol}(' in src[S]
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert len(build.LAUNCHERS[k.symbol]) == 12
     for k in C.KERNELS.values():
@@ -510,16 +511,17 @@ def test_phase_ablation_patches_apply(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     before = {p.name: p.read_text() for p in csrc.iterdir()}
-    assert PA.patch_sources(csrc) == ["mxu_block.cuh", "mxu_compact.cuh",
-                                      "ntt_mxu.cu", "seg2_compact.cuh",
-                                      "sharded_mxu.cu"]
+    assert PA.patch_sources(csrc) == ["mxu_compact.cuh", "ntt_mxu.cu",
+                                      "seg2_compact.cuh", "sharded_mxu.cu"]
     text = (csrc / "seg2_compact.cuh").read_text()
     assert "(QT_ABL < 3 ? 0 : ca.kp)" in text and "QT_ABL < 2 ? 1" in text
-    for name in ("mxu_block.cuh", "mxu_compact.cuh"):
-        text = (csrc / name).read_text()
-        assert text != before[name]
-        for cond in ("QT_ABL < 2", "QT_ABL == 3", "QT_ABL < 5"):
-            assert f"#if {cond}" in text, (name, cond)
+    # the dense building blocks are gone from mxu_block.cuh: nothing of it
+    # is patched
+    assert (csrc / "mxu_block.cuh").read_text() == before["mxu_block.cuh"]
+    text = (csrc / "mxu_compact.cuh").read_text()
+    assert text != before["mxu_compact.cuh"]
+    for cond in ("QT_ABL < 2", "QT_ABL == 3", "QT_ABL < 5"):
+        assert f"#if {cond}" in text, ("mxu_compact.cuh", cond)
     text = (csrc / "ntt_mxu.cu").read_text()
     for cond in ("QT_ABL >= 1", "QT_ABL >= 2", "QT_ABL == 3", "QT_ABL < 4"):
         assert f"#if {cond}" in text, ("ntt_mxu.cu", cond)
@@ -528,7 +530,7 @@ def test_phase_ablation_patches_apply(tmp_path):
     # forward wide stages before the modes branch (B7 skips them), the split
     # and products of stream_matmul that B6's, B7's and B8's passes call;
     # no dense kernel is left in the file (B7 ran the last one until it
-    # moved; mxu_block.cuh's patched blocks serve B14 and B15)
+    # moved)
     kernel = text.split("polymul_stream_kernel(const uint32_t*")[1].split(
         "bool valid_split(")[0]
     wide = kernel.index("#if QT_ABL >= 1\n            if constexpr (MODE != "
@@ -559,11 +561,19 @@ def test_phase_ablation_patches_apply(tmp_path):
         before["sharded_classes.cu"] + before["seg2_compact.cuh"])
     (csrc / "seg2_compact.cuh").unlink()
     # and the stream kernel's forward wide stages as they read before B7
-    # took the kernel
+    # took the kernel, and the dense building blocks mxu_block.cuh held
+    # before B14 took the row segment kernel
     (csrc / "ntt_mxu.cu").write_text(before["ntt_mxu.cu"].replace(
         PA._S_FWD_WIDE, PA._S_FWD_WIDE_B6).replace(PA._S_INV_WIDE,
                                                    PA._S_INV_WIDE_B6))
-    assert "sharded_classes.cu" in PA.patch_sources(csrc)
+    (csrc / "mxu_block.cuh").write_text(
+        before["mxu_block.cuh"] + PA._DENSE_SPLIT + PA._DENSE_MMA
+        + PA._DENSE_LOAD + PA._DENSE_RECOMBINE)
+    patched = PA.patch_sources(csrc)
+    assert "sharded_classes.cu" in patched and "mxu_block.cuh" in patched
+    text = (csrc / "mxu_block.cuh").read_text()
+    for cond in ("QT_ABL < 2", "QT_ABL >= 3", "QT_ABL == 3", "QT_ABL < 5"):
+        assert f"#if {cond}" in text, ("mxu_block.cuh", cond)
     assert (csrc / "sharded_mxu.cu").read_text().count(
         "#if QT_ABL >= 1") == 3
     for anchor in (PA._S_FWD_WIDE_B6, PA._S_INV_WIDE_B6):
@@ -629,6 +639,40 @@ def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
     assert ("B4: old polymul_fixed_fused_kernel 9, new "
             "polymul_pass_kernel<32,2,10,1> 3") in out
     assert not any(line.startswith("B9:") for line in out)
+
+
+def test_sass_diff_names_b2_and_b14_across_trees(monkeypatch, capsys):
+    """``utils/sass_diff.py`` names B2's pass kernel
+    ``transform_pass_kernel<1,..>`` and B14's row kernel
+    ``seg2_compact_kernel<4,..>``, and prints the kernels the tree before
+    they moved compiled for them (``ntt_fused_kernel``,
+    ``sp_kernel<4,threads>``) beside those instantiations."""
+    from qtesla_tpu_torch.utils import sass_diff as SD
+    prefix = "_ZN43_GLOBAL__N__9d88d42b_10_ntt_fused_cu_bc5b174f"
+    for mangled, name in (
+            ("21transform_pass_kernelILb1ELi32ELi2ELi10EEEvPKj",
+             "transform_pass_kernel<1,32,2,10>"),
+            ("19seg2_compact_kernelILi4ELb1ELi3ELb1EEEvPKj",
+             "seg2_compact_kernel<4,1,3,1>"),
+            ("9sp_kernelILi4ELi128EEEvPKj", "sp_kernel<4,128>"),
+            ("16ntt_fused_kernelPKjS1_Pj", "ntt_fused_kernel")):
+        assert SD._name(SD._KERNEL.search(prefix + mangled)) == name
+    old = {"ntt_fused_kernel": ["BAR"] * 9, "sp_kernel<4,128>": ["HMMA"] * 7,
+           "transform_pass_kernel<0,32,2,10>": ["IMAD"] * 2}
+    new = {"transform_pass_kernel<0,32,2,10>": ["IMAD"] * 2,
+           "transform_pass_kernel<1,32,2,10>": ["IMAD"] * 3,
+           "transform_pass_kernel<1,32,3,0>": ["IMAD"] * 4,
+           "seg2_compact_kernel<4,1,3,1>": ["IMMA"] * 5}
+    monkeypatch.setattr(SD, "_library", lambda tree: tree.name)
+    monkeypatch.setattr(SD, "kernel_sass",
+                        lambda lib: old if lib == "old" else new)
+    assert SD.main(["old", "new"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "transform_pass_kernel<0,32,2,10>: old 2, new 2" in out
+    assert ("B2: old ntt_fused_kernel 9, new transform_pass_kernel<1,32,2,10> "
+            "3, transform_pass_kernel<1,32,3,0> 4") in out
+    assert ("B14: old sp_kernel<4,128> 7, new seg2_compact_kernel<4,1,3,1> 5"
+            in out)
 
 
 # every set with each model axis its four-step split takes
@@ -950,6 +994,50 @@ def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
     if (name, k) == ("qtesla-iii-speed", 4):
         assert (s, plan.c1.kp, plan.d, dense.kp1) == (32, 96, 3, 384)
         assert table == 9216
+
+
+@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+def test_seg2_fwd_compact_plan_matches_kernel_limits(name, k):
+    """B14's plan: the dense plan's fields but its depths, one input plane
+    split under p2f, each warp 32 rows of x through one product against
+    K2f's block (B12's compact first table ``tabs.w2fc`` and its split and
+    depth), one const row, no second split (din2 0, c2 all 0), the table in
+    shared memory where it leaves room for 8 warps' planes (everywhere but
+    n = 8192), at least one warp fitting a block either way, and at most
+    the kernel's 4 slots."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
+    dense = S.plan_for(plans, "sp_seg2_fwd")
+    plan, p12 = S.seg2_fwd_compact_plan(plans), S.seg2_compact_plan(plans)
+    for f, _ in S.SpPlan._fields_:
+        if f not in ("rows", "kp1", "kp2", "pw", "pw_sh"):
+            assert getattr(plan, f) == getattr(dense, f), f
+    assert list(plan.pw) == list(dense.pw)
+    assert (plan.rows, plan.kp1, plan.kp2) == (4 * S.WARP_ROWS, 0, 0)
+    # B12's first product: its split, layout and depth
+    for f in ("d", "din1", "lb1", "add1", "kb1"):
+        assert getattr(plan, f) == getattr(p12, f), f
+    assert 1 <= plan.d <= 4 and plan.din1 == plans.p2f.din
+    assert bytes(plan.c1) == bytes(p12.c1)
+    assert (plan.din2, plan.lb2, plan.add2, plan.kb2) == (0, 0, 0, 0)
+    assert (list(plan.cdin), list(plan.clb), list(plan.cadd)) == (
+        [plan.din1, 0, 0], [plan.lb1, 0, 0], [plan.add1, 0, 0])
+    assert [getattr(plan.c2, f) for f, _ in S.CompactDims._fields_] == [0] * 5
+    s = 1 << plan.c1.ls
+    table = plan.d * s * S.table_stride(plan.c1.kp)
+    warp = 32 * S.planes_stride(1, plan.c1.kp)
+    const = s * 4
+    assert plan.smem_tables == (const + table + 8 * warp + 1024 <= 233472)
+    assert plan.smem_tables == (name != WIDE[0])
+    assert const + plan.smem_tables * table + (
+        8 if plan.smem_tables else 1) * warp + 1024 <= 233472
+    assert tuple(S.host_tables(plans).w2fc.shape) == (plans.TW // s,
+                                                      plan.d * s, plan.c1.kp)
+    if (name, k) == ("qtesla-iii-speed", 4):
+        assert (s, plan.c1.kp, plan.d, dense.kp1) == (32, 128, 3, 512)
+        # the block's 12 KiB of K2f, rows padded to 160 bytes
+        assert table == 15360 and plan.d * s * plan.c1.kp == 12288
 
 
 def test_sp_wrappers_reject_bad_input():
@@ -1508,6 +1596,192 @@ def test_b3_b15_launchers_refuse_plans_they_cannot_run(cuda_device):
     np.testing.assert_array_equal(
         got.cpu().numpy(), S.seg2_folded_compact_plain(xs, fold,
                                                        plans).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_b2_b14_match_plain_on_card(cuda_device, name):
+    """B2 (B4's forward passes alone) and B14 (the row segment kernel's
+    forward mode over K2f's nonzero blocks) against their twins at B in {1,
+    3, 64, 9000}: B2 on x with rows of 0 and of q - 1 against ``ntt_plain``
+    (and its pass twin up to 3 rows), and through B3 back to x; B14 at every
+    model axis the set's split takes (k = 4 at n = 8192) on x with rows of
+    q - 1, on all shards and on one, against the twin over its compact
+    blocks and the dense one.  Each call launches its kernel once."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(28)
+    b2, b14 = F.KERNELS["ntt_fused"], S.KERNELS["sp_seg2_fwd"]
+    splits = []
+    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+        try:
+            splits.append(fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k))
+        except ValueError:
+            continue
+    assert splits
+    for batch in (1, 3, 64, 9000):
+        x = rng.integers(0, q, (batch, n), dtype=np.uint32)
+        x[::97], x[1::89] = q - 1, 0
+        x = torch.from_numpy(x).to(cuda_device)
+        before = b2.launches
+        got = F.ntt_fused(x, tbl)
+        torch.cuda.synchronize()
+        assert b2.launches == before + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), F.ntt_plain(x, tbl).cpu().numpy(),
+            err_msg=f"B2 B={batch}")
+        if batch <= 3:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), F.ntt_passes_plain(x.cpu(), tbl).numpy())
+        np.testing.assert_array_equal(F.intt_fused(got, tbl).cpu().numpy(),
+                                      x.cpu().numpy())
+        for plans in splits:
+            xs = rng.integers(0, q, (plans.k, batch, plans.nloc),
+                              dtype=np.uint32)
+            xs[:, ::97] = q - 1
+            xs = torch.from_numpy(xs).to(cuda_device)
+            d = plans.k // 2
+            before = b14.launches
+            got = S.sp_seg2_fwd(xs, plans)
+            one = S.sp_seg2_fwd(xs[d:d + 1].contiguous(), plans, first=d)
+            torch.cuda.synchronize()
+            assert b14.launches == before + 2
+            want = S.seg2_fwd_plain(xs, plans)
+            for g, w in ((got, want),
+                         (got, S.seg2_fwd_compact_plain(xs, plans)),
+                         (one, want[d:d + 1])):
+                np.testing.assert_array_equal(
+                    g.cpu().numpy(), w.cpu().numpy(),
+                    err_msg=f"B14 k={plans.k} B={batch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", _PASS_LENGTHS + [(32768, 786433)])
+def test_b2_at_every_length_on_card(cuda_device, n, q):
+    """B2 at every length from 2 to 32768, the largest its plans take (1024
+    threads a row in three passes), the lengths the block-a-row kernel took,
+    on 300 rows with rows of 0 and of q - 1, against ``ntt_plain`` and
+    through B3 back to x."""
+    name = f"b2-n{n}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, q, (300, n), dtype=np.uint32)
+    x[0], x[7], x[299] = q - 1, 0, q - 1
+    x = torch.from_numpy(x).to(cuda_device)
+    got = F.ntt_fused(x, tbl)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  F.ntt_plain(x, tbl).cpu().numpy())
+    np.testing.assert_array_equal(F.intt_fused(got, tbl).cpu().numpy(),
+                                  x.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+def test_b14_through_both_sp_prepares_on_card(cuda_device, name):
+    """The fixed and the folded SP prepare each launch B14 once, on their
+    constant's one row a shard, at every model axis the set's split takes
+    (k = 4 at n = 8192): the spectrum the fixed prepare returns equals the
+    dense twin's (``seg2_fwd_plain`` after B11's twin and the exchange), and
+    the folded operand is the one built on the host from that spectrum."""
+    if name == WIDE[0]:
+        register_param_set(*WIDE)
+    tbl = get_tables(name)
+    q, n = tbl.q, tbl.n
+    rng = np.random.default_rng(29)
+    b14 = S.KERNELS["sp_seg2_fwd"]
+    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+        try:
+            plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
+        except ValueError:
+            continue
+        mesh = make_mesh(model=k)
+        a = rng.integers(0, q, n, dtype=np.uint32)
+        a[::7] = q - 1
+        a = torch.from_numpy(a).to(cuda_device)
+        want = S.seg2_fwd_plain(S.a2a_fwd(S.seg1_plain(
+            S.to_shards(a[None], plans), plans), plans), plans).reshape(n)
+        before = b14.launches
+        spec = S.polymul_fixed_fourstep_mxu_fn(name, mesh)[0](a)
+        torch.cuda.synchronize()
+        assert b14.launches == before + 1
+        np.testing.assert_array_equal(spec.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=f"fixed prepare k={k}")
+        op = S.polymul_fixed_folded_fourstep_mxu_fn(name, mesh)[0](a)
+        assert b14.launches == before + 2
+        ref = S.fold_sp_operand(*fourstep_fold_tables(
+            plans, want.cpu().numpy()), plans, cuda_device)
+        for got, w in zip(op, ref):
+            assert torch.equal(got, w), f"folded prepare k={k}"
+
+
+@pytest.mark.cuda
+def test_b2_b14_launchers_refuse_plans_they_cannot_run(cuda_device):
+    """B2's launcher returns cudaErrorInvalidValue for a plan with inverse
+    fields set, B1's plan (both transforms, two operands' shared memory),
+    B3's (the inverse alone), a first window other than the load's, a last
+    window other than [0, r), a gap between passes, another radix, threads,
+    rows or pass count, or too little shared memory a row; B14's for rows
+    other than 32, a second split or K2i layout (also B12's and B13's
+    plans), more than 4 classes, an input split outside the kernel's, or a
+    depth that is not the blocks'.  The wrappers raise, nothing is counted,
+    and the plans as made launch."""
+    tbl = get_tables("qtesla-iii-speed")
+    x = torch.zeros((3, tbl.n), dtype=torch.uint32, device=cuda_device)
+    tw = F._prepare(tbl, None, x)
+
+    def changed(plan, **fields):
+        out = type(plan).from_buffer_copy(plan)
+        for f, v in fields.items():
+            obj, _, name = f.rpartition(".")
+            if obj:
+                setattr(getattr(out, obj), name, v)
+            elif isinstance(v, tuple):
+                getattr(out, name)[v[0]] = v[1]
+            else:
+                setattr(out, name, v)
+        return out
+
+    b2, plan = F.KERNELS["ntt_fused"], F.ntt_pass_plan(tbl.n)
+    assert (plan.radix, plan.threads, plan.rows, plan.passes,
+            plan.row_stride) == (32, 32, 8, 2, 1056)
+    bad = [changed(plan, **f) for f in (
+        {"inv_hi": (0, 5)}, {"inv_b": (1, 5)}, {"inv_lo": (0, 1)},
+        {"fwd_b": (0, 0)}, {"fwd_b": (1, 2)}, {"fwd_lo": (1, 1)},
+        {"radix": 16}, {"threads": 64}, {"rows": 0}, {"rows": 9},
+        {"passes": 3}, {"passes": 1}, {"row_stride": 1055})]
+    for p in bad + [F.fused_pass_plan(tbl.n), F.intt_pass_plan(tbl.n)]:
+        before = b2.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            F._launch(b2, tbl, tw, x, None, p)
+        assert b2.launches == before
+    got = F._launch(b2, tbl, tw, x, None, plan)
+    assert b2.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), 0)
+
+    plans = fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
+    tabs = S.device_tables(plans, cuda_device)
+    rng = np.random.default_rng(30)
+    xs = torch.from_numpy(rng.integers(0, plans.q, (4, 3, plans.nloc),
+                                       dtype=np.uint32)).to(cuda_device)
+    b14, plan = S.KERNELS["sp_seg2_fwd"], S.seg2_fwd_compact_plan(plans)
+    tables = (tabs.w2fc, tabs.c2f, None, None, None)
+    bad = [changed(plan, **f) for f in (
+        {"rows": 16}, {"rows": 48}, {"d": 5}, {"cdin": (0, 7)},
+        {"din2": 3}, {"lb2": 8}, {"c2.kp": 96}, {"c2.ls": 5},
+        {"c1.kp": 100}, {"c1.ls": 2})]
+    for p in bad + [S.seg2_compact_plan(plans),
+                    S.seg2_fixed_compact_plan(plans)]:
+        before = b14.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            S._run_kernel(b14, p, tables, xs, None, plans.nloc)
+        assert b14.launches == before
+    got = S._run_kernel(b14, plan, tables, xs, None, plans.nloc)
+    assert b14.launches == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), S.seg2_fwd_compact_plain(xs, plans).cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -26,7 +26,15 @@ oracle.
   rows below 2q with rows of 2q - 1, through the forward against the
   oracle, and at every length from 2 to 32768 (n >= 8192 ``slow``); its
   plan is B4's inverse with no forward passes, and ``pass_plan`` refuses
-  an inverse alone that is not one operand's from the narrowest stage up.
+  an inverse alone that is not one operand's from the narrowest stage up;
+- B2's twin (``ntt_fused.ntt_passes_plain`` under ``ntt_pass_plan``, the
+  forward's passes alone, then one more exchange back to the load's
+  window and a coalesced store) against ``ntt_plain`` and JAX's
+  ``_ntt_kernel`` (``ntt_fused_fn``) in interpret mode on all 5 sets at B
+  in {1, 3, 64} with rows of q - 1, through B3's twin back to x and
+  through the product against the oracle, and at every length from 2 to 32768 (n >= 8192 ``slow``); its plan is
+  B4's forward with no inverse passes, and ``pass_plan`` refuses a forward
+  alone that is not one operand's from the widest stage down.
 
 Tolerance: none (integer equality).  Inputs are made with numpy from a seed
 and fed to every side."""
@@ -363,3 +371,92 @@ def test_intt_pass_plan_refuses_what_the_launcher_refuses():
     with pytest.raises(ValueError, match="512 a block"):
         TPs.pass_plan(32768, False, True, operands=1)
     assert "forward none" in TPs.describe_pass_plan(TF.intt_pass_plan(1024))
+
+
+# ----------------------------------------------------------------------
+# B2: the forward's passes alone.
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", SETS)
+def test_ntt_twin_matches_plain_pallas_and_oracle(name):
+    tbl = get_tables(name)
+    n, q = tbl.n, tbl.q
+    jk = JK.ntt_fused_fn(name, interpret=True)
+    for batch in (1, 3, 64):
+        x, _ = _operands(n, q, batch, seed=71)
+        xt = torch.from_numpy(x)
+        plain, want = TF.ntt_plain(xt, tbl).numpy(), np.asarray(jk(x))
+        np.testing.assert_array_equal(plain, want, err_msg=f"B={batch}")
+        twin = TF.ntt_passes_plain(xt, tbl)
+        assert twin.dtype == torch.uint32 and twin.shape == (batch, n)
+        np.testing.assert_array_equal(twin.numpy(), want,
+                                      err_msg=f"B={batch}")
+        # B3's twin takes B2's output back to x
+        assert torch.equal(TF.intt_passes_plain(twin, tbl), xt)
+    # through the product and B3's twin: the negacyclic product
+    x, y = (torch.from_numpy(a) for a in _operands(n, q, 2, seed=72))
+    spec = TF._barrett(TF.ntt_passes_plain(x, tbl).to(torch.int64),
+                       TF.ntt_passes_plain(y, tbl).to(torch.int64), tbl)
+    z = TF.intt_passes_plain(spec.to(torch.uint32), tbl).numpy()
+    ps = get_params(name)
+    for row in (0, 1):
+        np.testing.assert_array_equal(z[row], polymul_negacyclic_oracle(
+            x[row].numpy(), y[row].numpy(), ps).astype(np.uint32))
+
+
+@pytest.mark.parametrize("n,q", [
+    pytest.param(n, q, marks=pytest.mark.slow) if n >= 8192 else (n, q)
+    for n, q in PASS_LENGTHS + [(32768, 786433)]])
+def test_ntt_twin_at_every_length(n, q):
+    """B2's twin at every length its kernels run (R = n below 32, two
+    passes, three, and 1024 threads a row at n = 32768) against ``ntt_plain`` and JAX's interpret-mode kernel, with rows
+    of q - 1; its plan is B4's forward (the same radix, threads, rows and
+    shared memory a row up to 16384) with the inverse's fields 0."""
+    name = f"ntt-n{n}"
+    for reg in (JPARAMS, TPARAMS):
+        reg.register_param_set(name, n, q)
+    try:
+        tbl = get_tables(name)
+        x, _ = _operands(n, q, 3, seed=n)
+        want = np.asarray(JK.ntt_fused_fn(name, interpret=True)(x))
+        xt = torch.from_numpy(x)
+        np.testing.assert_array_equal(TF.ntt_plain(xt, tbl).numpy(), want)
+        np.testing.assert_array_equal(TF.ntt_passes_plain(xt, tbl).numpy(),
+                                      want)
+    finally:
+        for reg in (JPARAMS, TPARAMS):
+            del reg.PARAM_SETS[name]
+            reg.get_params.cache_clear()
+    plan = TF.ntt_pass_plan(n)
+    for side in ("lo", "hi", "b"):
+        assert list(getattr(plan, f"inv_{side}")) == [0] * TPs.MAX_PASSES
+    assert plan.fwd_b[0] == (n.bit_length() - 1) - (min(n, 32).bit_length()
+                                                    - 1)
+    assert plan.fwd_b[plan.passes - 1] == 0 and plan.radix == min(n, 32)
+    if n <= 16384:
+        b4 = TF.fixed_pass_plan(n)
+        for f, _ in TPs.PassPlan._fields_:
+            if not f.startswith("inv_"):
+                assert list(np.ravel(getattr(plan, f))) == list(
+                    np.ravel(getattr(b4, f))), f
+    else:
+        assert (plan.threads, plan.rows, plan.passes) == (1024, 1, 3)
+        assert plan.row_stride == n + n // 32
+
+
+def test_ntt_pass_plan_refuses_what_the_launcher_refuses():
+    """No plan past 32768 or off the powers of two; a forward alone runs on
+    one operand, from the widest stage down, in cyclic windows; a plan runs
+    some transform."""
+    for n in (1, 3, 48, 65536):
+        with pytest.raises(ValueError):
+            TF.ntt_pass_plan(n)
+    for fwd_up, kw in ((False, {"operands": 2}), (True, {"operands": 1}),
+                       (False, {"operands": 1, "stockham": True})):
+        with pytest.raises(ValueError, match="forward alone"):
+            TPs.pass_plan(1024, fwd_up, None, **kw)
+    with pytest.raises(ValueError, match="forward, an inverse or both"):
+        TPs.pass_plan(1024, None, None, operands=1)
+    described = TPs.describe_pass_plan(TF.ntt_pass_plan(1024))
+    assert "inverse none" in described and "forward [5,10)@5 [0,5)@0" in (
+        described)

@@ -17,6 +17,10 @@ the JAX package's ``qtesla_tpu/parallel/sharded_mxu.py``.
   every model axis their split takes (smallprime and a qtesla-iii-speed
   canary in the default tier, the rest ``slow``), and
   ``row_compact_fields`` refuses a folded plan it cannot lay out;
+- B14's twin over K2f's nonzero blocks (``seg2_fwd_compact_plain``, what
+  the kernel multiplies) equals the dense twin and JAX's interpret-mode
+  ``_make_seg2_fwd_only`` (mod q) for x random and all q - 1, on the same
+  cases as B15's; ``row_compact_fields(one_product=True)`` lays out both;
 - both entry points equal JAX's ``polymul_fixed_fourstep_mxu_fn`` and
   ``polymul_fixed_folded_fourstep_mxu_fn`` on the (data 2, model 4) CPU mesh
   in interpret mode at B in {1, 3, 8}, the port's merged fixed path and the
@@ -407,16 +411,48 @@ def test_folded_operand_is_the_nonzero_blocks(name):
             4, plans.A, p.Dout * plans.TW, p.din, plans.TW), 2, -1), W)
 
 
+@pytest.mark.parametrize("name,k", [
+    (n, k) if (n, k) in _FOLD_CHEAP else
+    pytest.param(n, k, marks=pytest.mark.slow) for n, k in _FOLD_CASES])
+def test_fwd_compact_twin_matches_dense_and_pallas(name, k):
+    """B14's twin over K2f's compact blocks (``tabs.w2fc``) against the
+    dense twin and JAX's interpret-mode ``_make_seg2_fwd_only`` (mod q: JAX
+    stores lazy values) on every shard's rows at once (the table is shared),
+    for x random, with rows of q - 1, and all q - 1."""
+    jplans = JS.fourstep_mxu_plans(name, _n1(name), k)
+    jfwd = (_jax_fixed_segs(name, k)[1][1] if (name, k) in _FOLD_CHEAP
+            else JS._make_seg2_fwd_only(jplans, 256, True))
+    plans = ST.fourstep_mxu_plans(name, _n1(name), k)
+    q, nloc = plans.q, plans.nloc
+    rng = np.random.default_rng(73)
+    for worst in (False, True):
+        x = rng.integers(0, q, (k, 3, nloc), dtype=np.uint32)
+        x[:, 0] = q - 1
+        if worst:
+            x[:] = q - 1
+        xt = torch.from_numpy(x)
+        got = S.seg2_fwd_compact_plain(xt, plans)
+        assert got.dtype == torch.uint32 and int(got.numpy().max()) < q
+        assert torch.equal(got, S.seg2_fwd_plain(xt, plans))
+        want = np.asarray(jfwd(x.reshape(k * 3, nloc), jplans.p2f.W,
+                               jplans.p2f.const)) % q
+        np.testing.assert_array_equal(got.numpy().reshape(k * 3, nloc), want,
+                                      err_msg=f"worst={worst}")
+
+
 def test_row_compact_fields_refuse_what_the_kernel_refuses():
-    """A row plan is fixed (B13) or folded (B15), not both; a folded plan
-    takes no K2i layout, one const row and no p2i planes; a plan whose
-    warp's planes do not fit a block raises."""
+    """A row plan is fixed (B13) or one product (B14, B15), not both; a
+    one-product plan takes no K2i layout, one const row and no p2i planes
+    (B15 at 3 planes under p2x, B14 at 4 under p2f); a plan whose warp's
+    planes do not fit a block raises."""
     plans = ST.fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
     with pytest.raises(ValueError, match="not both"):
-        S.row_compact_fields(plans, 3, 3, 2, fixed=True, folded=True)
-    f = S.row_compact_fields(plans, 3, 3, 2, folded=True)
+        S.row_compact_fields(plans, 3, 3, 2, fixed=True, one_product=True)
+    f = S.row_compact_fields(plans, 3, 3, 2, one_product=True)
     assert f["rows"] == 32 and f["c2"].kp == 0 and f["smem_tables"] == 1
+    fwd = S.row_compact_fields(plans, 4, 3, 2, one_product=True)
+    assert fwd["c1"].kp == 128 and fwd["c2"].kp == 0 and fwd["rows"] == 32
     fixed = S.row_compact_fields(plans, 4, 3, 2, fixed=True)
     assert fixed["c2"].kp == 96
     with pytest.raises(ValueError, match="do not fit"):
-        S.row_compact_fields(plans, 250, 3, 2, folded=True)
+        S.row_compact_fields(plans, 250, 3, 2, one_product=True)
