@@ -69,6 +69,22 @@ script exits non-zero without printing a result:
    fixed ones B4 and B8), and 8 rows of the mxu, the fused (B1), the
    Stockham kernel's, the folded and the four SP products the big-int
    oracle.
+3b. remaining paths at full size, on phase 3's operands (qtesla-iii-speed,
+   B = 32768) and more drawn from its generator: algo="nussbaumer" (the
+   exact mod-q recursion, Karatsuba base) equal to phase 3's B1 output and
+   the big-int oracle on ORACLE_ROWS, its schoolbook base on 64 rows; the
+   Z_{2^32-1} ring path at max_coeff = ring_exact_coeff_bound(1024) on
+   operands in [0, max_coeff] equal to B1 on them and the oracle, and
+   without max_coeff raising; the incomplete NTT at (256, 3329) and
+   (512, 7681) against the oracle on ORACLE_ROWS, with intt(ntt(x)) == x;
+   at k = 4 Ulysses equal to B1, fixed Ulysses to B4, polymul_dp_fn
+   "fused" and "mxu" to B1 and B5, polymul_fixed_dp_fn to B8, the
+   plain-torch four-step (local="jnp") to B1 (and its inverse spectrum
+   back to x), polymul_sp_fn at batch_hint = B (Ulysses) and at 2 rows (the
+   segment kernels) to B1; the launches of that run against
+   REMAINING_LAUNCHES.  Each path's time (CUDA events, median of
+   EAGER_CALLS calls), its peak device memory and the aten operations it
+   dispatches a chunk or a call are printed.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -105,8 +121,11 @@ import subprocess
 import sys
 import time
 
+import types
+
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
@@ -119,12 +138,23 @@ from qtesla_tpu_torch.models import (intt, local_fixed_pipeline_fn,
                                      polymul_fourstep_mxu_classes_fn,
                                      polymul_fourstep_mxu_fn,
                                      polymul_negacyclic)
+from qtesla_tpu_torch.ops import incomplete as INC
+from qtesla_tpu_torch.ops import nussbaumer as NU
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops.passes import describe_pass_plan
+from qtesla_tpu_torch.ops.incomplete import polymul_incomplete_fn
 from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.oracle import negacyclic_schoolbook
+from qtesla_tpu_torch.parallel import (intt_fourstep_sharded_fn,
+                                       ntt_fourstep_sharded_fn,
+                                       polymul_dp_fn, polymul_fixed_dp_fn,
+                                       polymul_fixed_ulysses_fn,
+                                       polymul_fourstep_sharded_fn,
+                                       polymul_sp_fn, polymul_ulysses_fn,
+                                       sp_strategy)
 from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
 from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
@@ -192,6 +222,18 @@ INT8_OPS_PER_S = 1979e12
 SEED = 20261016
 ORACLE_ROWS = (0, 1, 2, 3, MAIN_BATCH - 4, MAIN_BATCH - 3, MAIN_BATCH - 2,
                MAIN_BATCH - 1)
+# launches phase 3b's run makes: B1 under Ulysses, DP "fused" and
+# polymul_sp_fn at B rows (Ulysses); B2 and B4 the fixed Ulysses pair; B5 DP
+# "mxu"; B6 and B8 the fixed DP pair; B11 twice, B12 and B16 polymul_sp_fn
+# at 2 rows (the four-step)
+REMAINING_LAUNCHES = {name: 0 for name in KERNELS} | {
+    "polymul_fused": 3, "ntt_fused": 1, "polymul_fixed_fused": 1,
+    "polymul_mxu": 1, "ntt_mxu": 1, "polymul_fixed_mxu": 1, "sp_seg1": 2,
+    "sp_seg2": 1, "sp_seg3": 1}
+# the incomplete NTT's (n, q) in phase 3b: ML-KEM's and NewHope's
+INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
+# timed calls of each phase-3b path (after one warmup)
+EAGER_CALLS = 5
 
 
 def phase(title: str):
@@ -953,7 +995,196 @@ def main_path(errors: dict, seed: int) -> dict:
                                      f"big-int oracle")
         print(f"main path: rows {ORACLE_ROWS} of algo={name!r} equal the "
               f"big-int oracle")
-    return launches
+    ctx = {"gen": gen, "x": x, "y": y, "a": a, "z_b1": out["fused"][0],
+           "zf_b4": out["fused"][2], "z_b5": out["mxu"][0],
+           "zf_b8": out["mxu"][2]}
+    return launches, ctx
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten operations dispatched inside it, and how many of
+    them are views (which launch nothing on the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.views = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        self.views += bool(func.is_view)
+        return func(*args, **(kwargs or {}))
+
+
+def _path_stats(name: str, fn, args, ops_args, per: str,
+                device_line: str) -> None:
+    """Print the path's CUDA-event time (median of EAGER_CALLS calls after
+    one warmup), its peak device memory over one call (and the part above
+    what was allocated before it), and the aten operations it dispatches
+    on ``ops_args`` (one chunk, or one call)."""
+    done()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    done()
+    peak = torch.cuda.max_memory_allocated()
+    t = time_cuda(fn, *args, warmup=1, repeats=EAGER_CALLS)
+    with _OpCount() as count:
+        fn(*ops_args)
+    done()
+    print(f"3b {name}: {t.median_ms:.4f} ms (median of {t.calls}, min "
+          f"{t.min_ms:.4f}), peak {peak / 2**20:.1f} MiB "
+          f"({(peak - before) / 2**20:.1f} MiB above what was allocated "
+          f"before), {count.ops} aten ops {per} ({count.ops - count.views} "
+          f"not views) [{device_line}]", flush=True)
+
+
+def remaining_paths(ctx: dict, device_line: str) -> None:
+    """Phase 3b: the paths without kernels of their own (Nussbaumer, the
+    ring path, the incomplete NTT, the plain-torch four-step) and the mesh
+    forms around the existing kernels (Ulysses, DP, the SP dispatcher) at
+    qtesla-iii-speed, B = 32768, on phase 3's operands, held against B1,
+    B4, B5, B8 and the oracle; their launches in one counted run against
+    REMAINING_LAUNCHES."""
+    ps = get_params(MAIN_SET)
+    n, q, B = ps.n, ps.q, MAIN_BATCH
+    gen, x, y, a = ctx["gen"], ctx["x"], ctx["y"], ctx["a"]
+    z_b1 = ctx["z_b1"]
+    c = NU.ring_exact_coeff_bound(n)
+    try:
+        NU.polymul_nussbaumer_fn(MAIN_SET)
+    except ValueError as e:
+        print(f"ring path without max_coeff raises: {e}")
+    else:
+        raise AssertionError("the ring path accepted full-range operands")
+    xr, yr = (torch.randint(0, c + 1, (B, n), generator=gen, device="cuda",
+                            dtype=torch.int64).to(torch.uint32)
+              for _ in range(2))
+    inc_ops = {}
+    for ni, qi in INCOMPLETE_SHAPES:
+        inc_ops[ni, qi] = tuple(
+            torch.randint(0, qi, (B, ni), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint32)
+            for _ in range(2))
+    print(f"operands: phase 3's x, y, a; ring operands in [0, {c}] and the "
+          f"incomplete NTT's {list(INCOMPLETE_SHAPES)} from the same "
+          f"generator")
+    z_ring_b1 = polymul_negacyclic(xr, yr, MAIN_SET, algo="fused")
+    mesh = make_mesh(model=SP_K)
+    ring = NU.polymul_nussbaumer_fn(MAIN_SET, max_coeff=c)
+    schoolbook = NU.polymul_nussbaumer_q_fn(MAIN_SET, "schoolbook")
+    uly = polymul_ulysses_fn(MAIN_SET, mesh)
+    uly_prep, uly_mul = polymul_fixed_ulysses_fn(MAIN_SET, mesh)
+    dp = {algo: polymul_dp_fn(MAIN_SET, mesh, algo) for algo in
+          ("fused", "mxu")}
+    dp_prep, dp_mul = polymul_fixed_dp_fn(MAIN_SET, mesh)
+    jnp4 = polymul_fourstep_sharded_fn(MAIN_SET, mesh, local="jnp")
+    fwd4 = ntt_fourstep_sharded_fn(MAIN_SET, mesh)
+    inv4 = intt_fourstep_sharded_fn(MAIN_SET, mesh)
+    if (sp_strategy(mesh, B), sp_strategy(mesh, 2)) != ("ulysses",
+                                                         "fourstep"):
+        raise AssertionError("polymul_sp_fn would not pick Ulysses at B "
+                             "and the four-step at 2 rows")
+    sp_big = polymul_sp_fn(MAIN_SET, mesh, batch_hint=B)
+    sp_small = polymul_sp_fn(MAIN_SET, mesh, batch_hint=2)
+    done()
+
+    for k, _ in KERNELS.values():
+        k.launches = 0
+    z = {"nussbaumer": polymul_negacyclic(x, y, MAIN_SET, algo="nussbaumer"),
+         "schoolbook": schoolbook(x[:64], y[:64]),
+         "ring": ring(xr, yr)}
+    inc = {}
+    for (ni, qi), (xi, yi) in inc_ops.items():
+        p = INC.incomplete_params(ni, qi)
+        X = INC.ntt_incomplete(xi, p)
+        inc[ni, qi] = (polymul_incomplete_fn(ni, qi)(xi, yi),
+                       INC.intt_incomplete(X, p))
+    z["ulysses"] = uly(x, y)
+    z["fixed ulysses"] = uly_mul(x, uly_prep(a[0]))
+    z["dp fused"] = dp["fused"](x, y)
+    z["dp mxu"] = dp["mxu"](x, y)
+    z["fixed dp"] = dp_mul(x, dp_prep(a))
+    z["four-step jnp"] = jnp4(x, y)
+    back4 = inv4(fwd4(x))
+    z["sp B"] = sp_big(x, y)
+    z["sp 2 rows"] = sp_small(x[:2], y[:2])
+    done()
+    launches = {name: k.launches for name, (k, _) in KERNELS.items()}
+    print(f"launches in phase 3b's run: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != REMAINING_LAUNCHES:
+        raise AssertionError(f"phase 3b launch counts {launches}, expected "
+                             f"{REMAINING_LAUNCHES}")
+
+    for what, got, want in (
+            ("nussbaumer == B1", z["nussbaumer"], z_b1),
+            ("schoolbook base == B1", z["schoolbook"], z_b1[:64]),
+            ("ring path == B1", z["ring"], z_ring_b1),
+            ("Ulysses == B1", z["ulysses"], z_b1),
+            ("fixed Ulysses == B4", z["fixed ulysses"], ctx["zf_b4"]),
+            ("DP fused == B1", z["dp fused"], z_b1),
+            ("DP mxu == B5", z["dp mxu"], ctx["z_b5"]),
+            ("fixed DP == B8", z["fixed dp"], ctx["zf_b8"]),
+            ("plain-torch four-step == B1", z["four-step jnp"], z_b1),
+            ("four-step intt(ntt(x)) == x", back4, x),
+            ("polymul_sp_fn at B (Ulysses) == B1", z["sp B"], z_b1),
+            ("polymul_sp_fn at 2 rows (B11, B12, B16) == B1",
+             z["sp 2 rows"], z_b1[:2])):
+        expect_canonical(what, got, tuple(want.shape), q)
+        expect_equal(what, got, want)
+    rows = torch.tensor(ORACLE_ROWS, device="cuda")
+    for name, zz, xx, yy in (("nussbaumer", z["nussbaumer"], x, y),
+                             ("ring", z["ring"], xr, yr)):
+        zc, xc, yc = (t.index_select(0, rows).cpu().numpy()
+                      for t in (zz, xx, yy))
+        for i, row in enumerate(ORACLE_ROWS):
+            if not np.array_equal(zc[i], polymul_negacyclic_oracle(
+                    xc[i], yc[i], ps).astype(np.uint32)):
+                raise AssertionError(f"{name} row {row} differs from the "
+                                     f"big-int oracle")
+    for (ni, qi), (zi, back) in inc.items():
+        xi, yi = inc_ops[ni, qi]
+        expect_canonical(f"incomplete ({ni}, {qi})", zi, (B, ni), qi)
+        expect_equal(f"incomplete ({ni}, {qi}) intt(ntt(x)) == x", back, xi)
+        zc, xc, yc = (t.index_select(0, rows).cpu().numpy()
+                      for t in (zi, xi, yi))
+        for i, row in enumerate(ORACLE_ROWS):
+            want = negacyclic_schoolbook(xc[i], yc[i], types.SimpleNamespace(
+                n=ni, q=qi)).astype(np.uint32)
+            if not np.array_equal(zc[i], want):
+                raise AssertionError(f"incomplete ({ni}, {qi}) row {row} "
+                                     f"differs from the big-int oracle")
+    print(f"3b: every path equals B1, B4, B5 or B8 bit for bit at B={B}; "
+          f"nussbaumer, the ring path and the incomplete NTT at "
+          f"{list(INCOMPLETE_SHAPES)} equal the big-int oracle on rows "
+          f"{ORACLE_ROWS}")
+
+    chunk = NU.default_chunk(n)
+    one = (x[:chunk], y[:chunk])
+    mod_q = NU.polymul_nussbaumer_q_fn(MAIN_SET)
+    for name, fn, args, ops_args, per in (
+            ("nussbaumer (mod q, Karatsuba)", mod_q, (x, y), one,
+             f"a chunk of {chunk} rows"),
+            ("nussbaumer (mod q, schoolbook), 64 rows", schoolbook,
+             (x[:64], y[:64]), (x[:64], y[:64]), "a chunk of 64 rows"),
+            ("nussbaumer ring path", ring, (xr, yr),
+             (xr[:chunk], yr[:chunk]), f"a chunk of {chunk} rows"),
+            *((f"incomplete NTT polymul ({ni}, {qi})",
+               polymul_incomplete_fn(ni, qi), inc_ops[ni, qi],
+               inc_ops[ni, qi], "a call") for ni, qi in INCOMPLETE_SHAPES),
+            (f"Ulysses k={SP_K} (B1)", uly, (x, y), (x, y), "a call"),
+            (f"fixed Ulysses k={SP_K} multiply (B4)", uly_mul,
+             (x, uly_prep(a[0])), (x, uly_prep(a[0])), "a call"),
+            ("DP fused (B1)", dp["fused"], (x, y), (x, y), "a call"),
+            ("DP mxu (B5)", dp["mxu"], (x, y), (x, y), "a call"),
+            ("fixed DP multiply (B8)", dp_mul, (x, dp_prep(a)),
+             (x, dp_prep(a)), "a call"),
+            (f"plain-torch four-step k={SP_K}", jnp4, (x, y), (x, y),
+             "a call"),
+            (f"polymul_sp_fn k={SP_K} at 2 rows (B11, B12, B16)", sp_small,
+             (x[:2], y[:2]), (x[:2], y[:2]), "a call")):
+        _path_stats(name, fn, args, ops_args, per, device_line)
+    torch.cuda.empty_cache()
 
 
 def _nbytes(*tensors) -> int:
@@ -1350,7 +1581,11 @@ def main() -> int:
     pass_lengths_against_plain(errors)
 
     phase("3 main path at full size")
-    launches = main_path(errors, SEED)
+    launches, ctx = main_path(errors, SEED)
+
+    phase("3b remaining paths at full size")
+    remaining_paths(ctx, device_line)
+    del ctx
 
     phase("4 timing")
     times = timing(device_line)

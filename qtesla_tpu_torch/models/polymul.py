@@ -14,14 +14,18 @@ or a CUDA device:
   pipelines with explicit psi weighting (``ops/ntt.py``,
   ``ops/ntt_pairings.py``);
 - ``algo="<pairing>_kernel"``: that pairing's hand-written CUDA kernel on a
-  CUDA tensor, its plain pipeline on a CPU tensor (``ops/ntt_pairings.py``).
+  CUDA tensor, its plain pipeline on a CPU tensor (``ops/ntt_pairings.py``);
+- ``algo="nussbaumer"``: the exact mod-q Nussbaumer recursion with its
+  Karatsuba base products (``ops/nussbaumer.py``
+  ``polymul_nussbaumer_q_fn``), plain PyTorch on the operands' device, as
+  the JAX package's ``polymul_fn`` maps the name.  The Z_{2^32-1} ring path
+  stays ``ops.nussbaumer.polymul_nussbaumer_fn(name, max_coeff=...)``.
 
 ``polymul_fixed_fn`` also serves ``"mxu-folded"``, whose prepared operand is
-the constant's spectrum folded into the inverse tables.  ``nussbaumer`` is
-not ported yet; asking for it raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.  ``NegacyclicPolymul`` carries one parameter
-set's twiddles and MXU tables as registered buffers, so ``.to(device)``
-moves them with the module.
+the constant's spectrum folded into the inverse tables.  Every algo name of
+the JAX package's ``polymul_fn`` is ported.  ``NegacyclicPolymul`` carries
+one parameter set's twiddles and MXU tables as registered buffers, so
+``.to(device)`` moves them with the module.
 """
 
 from __future__ import annotations
@@ -35,24 +39,14 @@ from ..ops import ntt as N
 from ..ops import ntt_fused as F
 from ..ops import ntt_mxu as M
 from ..ops import ntt_pairings as P
+from ..ops.nussbaumer import polymul_nussbaumer_q_fn
 from ..ops.mxu_tables import get_mxu_tables
 from ..ops.tables import NttTables, get_tables
 
 __all__ = ["ntt", "intt", "polymul_fn", "polymul_fixed_fn",
            "polymul_negacyclic", "NegacyclicPolymul", "ALGORITHMS"]
 
-# JAX algorithm names the port does not have yet -> where ROADMAP.md queues
-# their port
-_NOT_PORTED = {
-    "nussbaumer": "queue A item 10 (ops/ringz32.py, ops/nussbaumer.py)",
-}
-
-
 def _unsupported(algo: str, allowed) -> Exception:
-    if algo in _NOT_PORTED:
-        return NotImplementedError(
-            f"algo {algo!r} is not ported to qtesla_tpu_torch yet: see "
-            f"ROADMAP.md {_NOT_PORTED[algo]}")
     return ValueError(f"unknown algo {algo!r}; available: {list(allowed)}")
 
 
@@ -173,12 +167,18 @@ def _pm_pairing_kernel(pairing: str):
     return run
 
 
+def _pm_nussbaumer(x, y, tbl: NttTables, tw=None):
+    """The exact mod-q Nussbaumer recursion; it takes no twiddles."""
+    return polymul_nussbaumer_q_fn(tbl.ps.name)(x, y)
+
+
 _PIPELINES = {
     "merged": _pm_merged, "fused": F.polymul_fused, "mxu": _pm_mxu,
     **{p: _plain(functools.partial(P.pipeline, pairing=p))
        for p in P.PAIRINGS},
     "four_step": _plain(_pm_fourstep), "matrix": _plain(_pm_matrix),
     **{p + "_kernel": _pm_pairing_kernel(p) for p in P.PAIRINGS},
+    "nussbaumer": _pm_nussbaumer,
 }
 ALGORITHMS = tuple(_PIPELINES)
 

@@ -1,10 +1,18 @@
-"""Sharded paths of the port: the sequence-parallel (four-step) polymul with
-its model axis held on one device (``sharded.py``, ``sharded_mxu.py``, its
-class-sum boundary ``sharded_classes.py``, and the planner
-``sharded_mxu_tables.py``)."""
+"""Sharded paths of the port, every one with its mesh on one device
+(``mesh.py``): data parallelism and the plain-torch four-step
+(``sharded.py``), Ulysses and the sequence-parallel dispatcher
+(``ulysses.py``), the digit-matmul four-step (``sharded_mxu.py``), its
+class-sum boundary (``sharded_classes.py``) and its planner
+(``sharded_mxu_tables.py``)."""
 
 from .mesh import Mesh, make_mesh  # noqa: F401
-from .sharded import polymul_fourstep_sharded_fn  # noqa: F401
+from .sharded import (  # noqa: F401
+    intt_fourstep_sharded_fn,
+    ntt_fourstep_sharded_fn,
+    polymul_dp_fn,
+    polymul_fixed_dp_fn,
+    polymul_fourstep_sharded_fn,
+)
 from .sharded_classes import (  # noqa: F401
     local_pipeline_classes_fn,
     polymul_fourstep_mxu_classes_fn,
@@ -15,4 +23,10 @@ from .sharded_mxu import (  # noqa: F401
     polymul_fixed_folded_fourstep_mxu_fn,
     polymul_fixed_fourstep_mxu_fn,
     polymul_fourstep_mxu_fn,
+)
+from .ulysses import (  # noqa: F401
+    polymul_fixed_ulysses_fn,
+    polymul_sp_fn,
+    polymul_ulysses_fn,
+    sp_strategy,
 )

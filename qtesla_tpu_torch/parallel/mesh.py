@@ -3,8 +3,10 @@
 Counterpart of ``qtesla_tpu/parallel/mesh.py::make_mesh`` (l.20).  The port
 holds the model axis on one device: its k shards are the leading axis of one
 tensor there, and the exchanges between them are layout permutations
-(``parallel/sharded_mxu.py``).  A data axis across devices or processes
-needs ``torch.distributed`` and is ROADMAP queue A item 13.
+(``parallel/sharded.py``, ``sharded_mxu.py``, ``ulysses.py``).  Every
+sharded path runs on such a mesh, with ``data = 1``.  Only a data axis of
+more than one, across devices or processes, is missing: it needs
+``torch.distributed`` and is ROADMAP queue A item 13.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "on_mesh"]
 
 
 @dataclass(frozen=True)
@@ -38,3 +40,14 @@ def make_mesh(data: int | None = None, model: int = 1,
     if model < 1:
         raise ValueError(f"model axis must be >= 1, got {model}")
     return Mesh(1, model, torch.device("cuda" if device is None else device))
+
+
+def on_mesh(mesh: Mesh, *tensors) -> None:
+    """Raise unless every operand is a tensor on the mesh's device."""
+    dev = mesh.device
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"expected a torch.Tensor, got {type(t)}")
+        if t.device.type != dev.type or (dev.index is not None
+                                         and t.device.index != dev.index):
+            raise ValueError(f"operands on {t.device}, mesh on {dev}")

@@ -59,11 +59,12 @@ from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, class_sums,
                            recombine)
+from .mesh import on_mesh
 from .sharded_mxu import (_CLASS_BIAS, WARP_ROWS, SpClassPlan,
                           SpCompactPlan, SpDeviceTables, SpPlan,
                           _check_tables, _column_compact_plan,
                           _compact_shape, _const_rows, _default_n1, _depth,
-                          _kernel_layout, _on_mesh, _operands, _permute,
+                          _kernel_layout, _operands, _permute,
                           _pointwise, _rows_inv, _rows_inv_compact,
                           _run_kernel, _shards, _slots, _wide_stages,
                           a2a_inv, compact_class_sums, device_tables,
@@ -404,7 +405,7 @@ def polymul_fourstep_mxu_classes_fn(name: str, mesh, n1: int | None = None):
     plans, cp = _class_plans(name, mesh.model, n1)
 
     def polymul(x, y):
-        _on_mesh(mesh, x)
+        on_mesh(mesh, x)
         return polymul_fourstep_mxu_classes(x, y, plans, cp)
 
     return polymul

@@ -75,6 +75,7 @@ from ..ops.ntt_fused import Kernel, _check
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, block_rows,
                            digit_product, recombine)
 from ..ops.tables import get_tables
+from .mesh import on_mesh
 from .sharded_mxu_tables import (CompactLayout, SpPlans, compact_depth,
                                  compact_layout, compact_tables,
                                  expand_compact, fourstep_fold_tables,
@@ -1140,11 +1141,6 @@ def _mesh_plans(name: str, mesh, n1: int | None, segments) -> SpPlans:
     return plans
 
 
-def _on_mesh(mesh, t) -> None:
-    if t.device.type != mesh.device.type:
-        raise ValueError(f"operands on {t.device}, mesh on {mesh.device}")
-
-
 def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     """(x, y) -> z over (B..., n) tensors on the mesh's device, the
     transform split over its model axis of k shards (B11, B12, B16); a plan
@@ -1153,7 +1149,7 @@ def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
                         ("sp_seg1", "sp_seg2", "sp_seg3"))
 
     def polymul(x, y):
-        _on_mesh(mesh, x)
+        on_mesh(mesh, x)
         return polymul_fourstep_mxu(x, y, plans)
 
     return polymul
@@ -1171,11 +1167,11 @@ def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     seg2_fwd_compact_plan(plans)
 
     def prepare(a):
-        _on_mesh(mesh, a)
+        on_mesh(mesh, a)
         return fixed_spectrum(a, plans)
 
     def multiply(x, aspec):
-        _on_mesh(mesh, x)
+        on_mesh(mesh, x)
         return polymul_fixed_fourstep_mxu(x, aspec, plans)
 
     return prepare, multiply
@@ -1197,13 +1193,13 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
     seg2_folded_compact_plan(plans)
 
     def prepare(a):
-        _on_mesh(mesh, a)
+        on_mesh(mesh, a)
         spec = fixed_spectrum(a, plans).cpu().numpy()
         return fold_sp_operand(*fourstep_fold_tables(plans, spec), plans,
                                mesh.device)
 
     def multiply(x, w, c):
-        _on_mesh(mesh, x)
+        on_mesh(mesh, x)
         return polymul_fixed_folded_fourstep_mxu(x, FoldedSpOperand(w, c),
                                                  plans)
 

@@ -52,8 +52,36 @@ def _factorize(m: int) -> list[int]:
     return fs
 
 
+def _is_prime(m: int) -> bool:
+    """Deterministic Miller-Rabin for m < 3.3e24 (bases up to 41)."""
+    if m < 2:
+        return False
+    bases = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41)
+    for p in bases:
+        if m % p == 0:
+            return m == p
+    d, s = m - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        s += 1
+    for a in bases:
+        x = pow(a, d, m)
+        if x in (1, m - 1):
+            continue
+        for _ in range(s - 1):
+            x = x * x % m
+            if x == m - 1:
+                break
+        else:
+            return False
+    return True
+
+
 def _find_generator(q: int) -> int:
-    """Smallest generator of the multiplicative group Z_q^* (q prime)."""
+    """Smallest generator of the multiplicative group Z_q^*; q must be
+    prime (for a composite q the search need not end)."""
+    if not _is_prime(q):
+        raise ValueError(f"q={q} must be prime")
     phi = q - 1
     factors = _factorize(phi)
     g = 2

@@ -7,8 +7,8 @@
   a wrong dtype, a wrong n, a non-contiguous tensor, an unsupported device
   and an unsupported algo; nothing is built at import and a missing nvcc
   raises instead of falling back.  Editing a header changes the build's
-  hash.  Every ported algo name dispatches; only ``nussbaumer`` raises
-  ``NotImplementedError``.
+  hash.  Every algo name dispatches, ``nussbaumer`` too; an unknown name
+  raises.
 - CPU tensors run the plain versions: no kernel's launch count moves.
 - Tests marked ``cuda`` compare each kernel with its plain version on the
   card; without one they skip.  On a GPU host run them with
@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from qtesla_tpu_torch import register_param_set
+from qtesla_tpu_torch import (get_params, polymul_negacyclic_oracle,
+                              register_param_set)
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
@@ -125,11 +126,21 @@ def test_wrappers_reject_bad_input():
 
 @pytest.mark.parametrize("algo", ["nussbaumer"])
 def test_unported_algos_raise_not_implemented(algo):
-    x = _u32(1, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TP.polymul_negacyclic(x, x, "smallprime", algo=algo)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TP.polymul_fn("smallprime", algo)
+    """The algos that once raised NotImplementedError (``nussbaumer``, the
+    last) now run on CPU tensors, bit for bit equal to the oracle and the
+    merged product; an unknown name still raises."""
+    ps = get_params("smallprime")
+    x, y = _u32(3, 32, 7), _u32(3, 32, 8)
+    x[0], y[0] = ps.q - 1, ps.q - 1
+    z = TP.polymul_negacyclic(x, y, "smallprime", algo=algo)
+    assert z.dtype == torch.uint32
+    assert torch.equal(z, TP.polymul_negacyclic(x, y, "smallprime"))
+    assert torch.equal(TP.polymul_fn("smallprime", algo)(x, y), z)
+    for b in range(3):
+        np.testing.assert_array_equal(
+            z[b].numpy(), polymul_negacyclic_oracle(x[b].numpy(),
+                                                    y[b].numpy(), ps)
+            .astype(np.uint32))
     with pytest.raises(ValueError, match="unknown algo"):
         TP.polymul_fn("smallprime", algo + "-nope")
 

@@ -15,8 +15,8 @@
 - the whole path equals JAX ``polymul_fourstep_mxu_fn`` on a (data 2,
   model 4) mesh in interpret mode, the port's merged path and the big-int
   oracle, random and all-(q-1), at B in {1, 3, 8};
-- the entry points: ``polymul_fourstep_sharded_fn``, ``local_pipeline_fn``,
-  ``make_mesh``.
+- the entry points: ``polymul_fourstep_sharded_fn`` (its ``local="jnp"``
+  plain-torch four-step too), ``local_pipeline_fn``, ``make_mesh``.
 
 Tolerance: none (exact residues).  Inputs are made with numpy from a
 seed."""
@@ -247,8 +247,9 @@ def test_entry_points():
     # a model axis of 1 is the single-transform digit-matmul polymul (B5)
     one = TSH.polymul_fourstep_sharded_fn(name, make_mesh(device="cpu"))
     assert torch.equal(one(x, y), want)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TSH.polymul_fourstep_sharded_fn(name, cpu4, local="jnp")
+    # the plain-torch four-step (local="jnp") runs and is bit-exact
+    assert torch.equal(TSH.polymul_fourstep_sharded_fn(
+        name, cpu4, local="jnp")(x, y), want)
     with pytest.raises(ValueError, match="unknown local"):
         TSH.polymul_fourstep_sharded_fn(name, cpu4, local="xla")
     with pytest.raises(ValueError, match="divide"):
