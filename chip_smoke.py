@@ -85,6 +85,21 @@ script exits non-zero without printing a result:
    REMAINING_LAUNCHES.  Each path's time (CUDA events, median of
    EAGER_CALLS calls), its peak device memory and the aten operations it
    dispatches a chunk or a call are printed.
+3c. ranks on the card: RANKS = 2 fresh processes (python -m
+   qtesla_tpu_torch.parallel.dist_check, loading phase 1's library), joined
+   by torch.distributed (gloo on a one-card host, where NCCL refuses two
+   ranks on one device and every exchange goes through host memory; NCCL,
+   one rank a card, with two or more cards), each on its shard of phase
+   3's operands: DP "fused" (B1) and "mxu" (B5) and the fixed DP pair (B6,
+   B8) on data = 2; on model = 2 the SP path at chunks 1 and 2 (B11, B12,
+   B16), the fixed and folded SP pairs, the class path, Ulysses, fixed
+   Ulysses and the plain-torch four-step, every exchange one
+   all_to_all_single across the ranks, and the SP path's forward exchange
+   alone.  Each path's assembled output must
+   equal phase 3's (B1; B4 and B8 for the fixed forms) and the big-int
+   oracle on ORACLE_ROWS, each rank's launches PROCESS_LAUNCHES; each
+   path's time on the slowest rank (CUDA events, median of RANK_REPEATS),
+   each rank's peak memory and the phase's wall time are printed.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -119,7 +134,9 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import types
 
@@ -155,12 +172,13 @@ from qtesla_tpu_torch.parallel import (intt_fourstep_sharded_fn,
                                        polymul_fourstep_sharded_fn,
                                        polymul_sp_fn, polymul_ulysses_fn,
                                        sp_strategy)
+from qtesla_tpu_torch.parallel import dist_check as DC
 from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
 from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
-from qtesla_tpu_torch.utils.build import find_nvcc, load_library
+from qtesla_tpu_torch.utils.build import BUILD_DIR, find_nvcc, load_library
 from qtesla_tpu_torch.utils.sass_diff import issue_bound_ms, kernel_sass
 from qtesla_tpu_torch.utils.timing import time_cuda
 
@@ -230,6 +248,26 @@ REMAINING_LAUNCHES = {name: 0 for name in KERNELS} | {
     "polymul_fused": 3, "ntt_fused": 1, "polymul_fixed_fused": 1,
     "polymul_mxu": 1, "ntt_mxu": 1, "polymul_fixed_mxu": 1, "sp_seg1": 2,
     "sp_seg2": 1, "sp_seg3": 1}
+# phase 3c: ranks (processes) on the card, each path of dist_check they run
+# (the DP ones on data = RANKS, the others on model = RANKS) and the calls
+# each path's time is the median of, after one warmup
+RANKS = 2
+RANK_PATHS = ("dp:fused", "dp:mxu", "fixed_dp:mxu", "sp:1", "sp:2",
+              "fixed_sp", "folded_sp", "classes", "ulysses", "fixed_ulysses",
+              "fourstep_jnp", "exchange")
+RANK_REPEATS = 3
+RANK_TIMEOUT_S = 300
+# launches each rank makes in phase 3c's counted run: B1 DP "fused" and
+# Ulysses; B5 DP "mxu"; B6 and B8 fixed DP; B11 twice in the SP path at
+# chunks 1, four times at chunks 2 and twice in each fixed SP pair (its
+# prepare and its multiply), B12 once a chunk, B14 in each fixed SP
+# prepare, B13 and B15 once, B16 ending every SP product (one a chunk);
+# B17 twice, B18 once in the class path; B2 and B4 fixed Ulysses
+PROCESS_LAUNCHES = {name: 0 for name in KERNELS} | {
+    "polymul_fused": 2, "ntt_fused": 1, "polymul_fixed_fused": 1,
+    "polymul_mxu": 1, "ntt_mxu": 1, "polymul_fixed_mxu": 1, "sp_seg1": 10,
+    "sp_seg2": 3, "sp_seg2_fwd": 2, "sp_seg2_fixed": 1, "sp_seg2_folded": 1,
+    "sp_seg3": 6, "sp_seg1_classes": 2, "sp_seg2_classes": 1}
 # the incomplete NTT's (n, q) in phase 3b: ML-KEM's and NewHope's
 INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
 # timed calls of each phase-3b path (after one warmup)
@@ -1187,6 +1225,91 @@ def remaining_paths(ctx: dict, device_line: str) -> None:
     torch.cuda.empty_cache()
 
 
+def ranks_on_the_card(ctx: dict, device_line: str) -> None:
+    """Phase 3c: RANKS processes (``python -m
+    qtesla_tpu_torch.parallel.dist_check``, fresh interpreters that load
+    the library phase 1 built) joined by torch.distributed, each running
+    RANK_PATHS on its shard of phase 3's operands at qtesla-iii-speed, B =
+    32768; each path's assembled output against phase 3's (B1, or B4 and B8
+    for the fixed forms) and the big-int oracle on ORACLE_ROWS, each rank's
+    launches against PROCESS_LAUNCHES.  One card: gloo (NCCL refuses two
+    ranks on one device), whose exchange goes through host memory; two or
+    more: NCCL, one rank a card.  A rank that fails, hangs past
+    RANK_TIMEOUT_S or exits non-zero fails the phase."""
+    start = time.perf_counter()
+    ps = get_params(MAIN_SET)
+    cards = torch.cuda.device_count()
+    backend = "gloo" if cards == 1 else "nccl"
+    if backend == "gloo":
+        print(f"3c: {RANKS} ranks on the one card, backend gloo: every "
+              f"exchange goes through host memory, so its times are no NCCL "
+              f"or NVLink figure; the kernels run on the card")
+    else:
+        print(f"3c: {RANKS} ranks, backend nccl, one rank a card "
+              f"({cards} cards)")
+    x, y, a = (ctx[k].cpu().numpy() for k in ("x", "y", "a"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        np.savez(tmp / "in.npz", name=MAIN_SET, x=x, y=y, a=a[0])
+        outs = DC.launch(RANKS, tmp / "in.npz", tmp,
+                         f"file://{tmp}/rendezvous",
+                         ["--device", "cuda", "--backend", backend,
+                          "--model", RANKS, "--repeats", RANK_REPEATS,
+                          "--paths", *RANK_PATHS], timeout=RANK_TIMEOUT_S)
+    for r, o in enumerate(outs):
+        launches = {name: int(o[f"launches:{name}"]) for name in KERNELS}
+        if launches != PROCESS_LAUNCHES:
+            raise AssertionError(f"rank {r} launch counts {launches}, "
+                                 f"expected {PROCESS_LAUNCHES}")
+    print(f"3c: launches of each rank's counted run equal PROCESS_LAUNCHES: "
+          f"{ {k: v for k, v in PROCESS_LAUNCHES.items() if v} }")
+    want = {"z": ctx["z_b1"].cpu().numpy(), "b4": ctx["zf_b4"].cpu().numpy(),
+            "b8": ctx["zf_b8"].cpu().numpy()}
+    rows = list(ORACLE_ROWS)
+    oracle = {"z": np.stack([polymul_negacyclic_oracle(x[r], y[r], ps)
+                             for r in rows]).astype(np.uint32),
+              "a": np.stack([polymul_negacyclic_oracle(x[r], a[0], ps)
+                             for r in rows]).astype(np.uint32)}
+    # the SP path's forward exchange alone: rank d holds rows k1 of chunk d
+    B, n = x.shape
+    n1 = _n1(MAIN_SET)
+    n1k = n1 // RANKS
+    for d, o in enumerate(outs):
+        want_d = x.reshape(B, n1, n // n1)[:, d * n1k:(d + 1) * n1k]
+        if not np.array_equal(o["z:exchange"], want_d.reshape(B, -1)):
+            raise AssertionError(f"3c exchange: rank {d} holds other values "
+                                 f"than rows k1 of its chunk")
+    print(f"3c exchange (one all_to_all_single of a (B, n/{RANKS}) uint32 "
+          f"shard, {B * n // RANKS * 4 / 2**20:.0f} MiB a rank, "
+          f"{(RANKS - 1) / RANKS:.2f} of it sent): "
+          f"{max(float(o['ms:exchange']) for o in outs):.4f} ms on the "
+          f"slowest rank (median of {RANK_REPEATS}, backend {backend}) "
+          f"[{device_line}]")
+    for path in RANK_PATHS[:-1]:
+        layout = DC.layout_of(path, 1, RANKS)
+        data = RANKS if layout == "dp" else 1
+        got = DC.assemble([o[f"z:{path}"] for o in outs], layout, data,
+                          RANKS // data)
+        fixed = path.startswith(("fixed", "folded"))
+        ref = ("b8" if path == "fixed_dp:mxu" else "b4") if fixed else "z"
+        if not np.array_equal(got, want[ref]):
+            raise AssertionError(f"3c {path}: the ranks' output differs from "
+                                 f"phase 3's")
+        if not np.array_equal(got[rows], oracle["a" if fixed else "z"]):
+            raise AssertionError(f"3c {path}: rows {rows} differ from the "
+                                 f"big-int oracle")
+        print(f"3c {path} ({layout} layout, equal to phase 3's "
+              f"{ {'z': 'B1', 'b4': 'B4', 'b8': 'B8'}[ref] } and the oracle): "
+              f"{max(float(o[f'ms:{path}']) for o in outs):.4f} ms on the "
+              f"slowest rank (median of {RANK_REPEATS} after one warmup, "
+              f"CUDA events, backend {backend}), peak "
+              f"{[round(int(o[f'peak:{path}']) / 2**20, 1) for o in outs]} "
+              f"MiB by rank [{device_line}]", flush=True)
+    print(f"3c: {RANKS} ranks, every path equal to phase 3's output and the "
+          f"oracle; phase wall time {time.perf_counter() - start:.1f} s "
+          f"[{device_line}]")
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1585,6 +1708,9 @@ def main() -> int:
 
     phase("3b remaining paths at full size")
     remaining_paths(ctx, device_line)
+
+    phase("3c ranks on the card")
+    ranks_on_the_card(ctx, device_line)
     del ctx
 
     phase("4 timing")

@@ -1,10 +1,21 @@
-"""Sharded paths of the port, every one with its mesh on one device
-(``mesh.py``): data parallelism and the plain-torch four-step
+"""Sharded paths of the port, each on a (data, model) mesh (``mesh.py``):
+stacked, with the model axis on one device, or across ranks, one process
+per card joined by ``torch.distributed`` (``distributed.py``: the global
+mesh, the layouts of a process's rows, the exchange across ranks, the
+fail-fast barrier).  Data parallelism and the plain-torch four-step
 (``sharded.py``), Ulysses and the sequence-parallel dispatcher
 (``ulysses.py``), the digit-matmul four-step (``sharded_mxu.py``), its
 class-sum boundary (``sharded_classes.py``) and its planner
 (``sharded_mxu_tables.py``)."""
 
+from .distributed import (  # noqa: F401
+    barrier,
+    global_batch,
+    init_distributed,
+    live_processes,
+    local_shard,
+    make_global_mesh,
+)
 from .mesh import Mesh, make_mesh  # noqa: F401
 from .sharded import (  # noqa: F401
     intt_fourstep_sharded_fn,

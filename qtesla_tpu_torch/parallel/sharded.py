@@ -1,25 +1,31 @@
-"""Sharded negacyclic polymul on the one-device mesh: batch data
-parallelism, the plain-torch four-step with its model axis of k shards, and
-the four-step entry point.
+"""Sharded negacyclic polymul: batch data parallelism, the plain-torch
+four-step with its model axis of k shards, and the four-step entry point.
 
 Counterpart of ``qtesla_tpu/parallel/sharded.py``: ``polymul_dp_fn``
 (l.40), ``polymul_fixed_dp_fn`` (l.80), ``_fourstep_tables`` (l.103),
 ``ntt_fourstep_sharded_fn`` / ``intt_fourstep_sharded_fn`` (l.126-139),
 ``_build`` (l.142) and ``polymul_fourstep_sharded_fn`` (l.221).
 
-The mesh (``parallel/mesh.py``) is one device with ``data = 1``.  The data
-parallel forms run the single-device pipeline (or prepare and multiply
-pair) on the whole batch there, so a ragged batch needs no padding.  The
-four-step with Stockham locals (``local="jnp"``, the JAX package's name)
-holds the k shards as the leading axis of one tensor: coefficient shards
-(k, B, n1, n2/k), shard d holding columns j2 in [d n2/k, (d+1) n2/k), and
-spectral shards (k, B, n1/k, n2), shard d holding rows k1 in
-[d n1/k, (d+1) n1/k).  Each shard runs JAX's local steps: psi weighting,
+The data parallel forms run the single-device pipeline (or prepare and
+multiply pair) on the rows the process holds: on a stacked mesh
+(``parallel/mesh.py``) the whole batch, on a mesh across ranks the rank's
+rows ("dp" layout of ``distributed.global_batch``), with no collective, as
+JAX's do; the constant is prepared on every rank.  A ragged batch needs no
+padding.  The four-step with Stockham locals (``local="jnp"``, the JAX
+package's name) holds the k shards as the leading axis of one tensor:
+coefficient shards (k, B, n1, n2/k), shard d holding columns j2 in
+[d n2/k, (d+1) n2/k), and spectral shards (k, B, n1/k, n2), shard d holding
+rows k1 in [d n1/k, (d+1) n1/k).  Each shard runs JAX's local steps: psi weighting,
 the n1-point Stockham NTT along j1, the twiddle w^(k1 j2), then after the
 exchange the n2-point Stockham NTT along j2; the inverse retraces them.
 JAX's two ``lax.all_to_all`` calls become the permutations ``_a2a_fwd`` and
 ``_a2a_inv`` between the two layouts, as ``sharded_mxu.a2a_fwd`` /
-``a2a_inv`` are for the segment kernels.  Every value stays canonical, so
+``a2a_inv`` are for the segment kernels.  Across ranks a rank holds shard
+d = its model index, (B, n/k) in the "sp" layout (columns) and (B, n1/k,
+n2) spectral, and the two exchanges are ``distributed.all_to_all`` over the
+model group on the values as int32 (canonical, below q < 2^31): split_axis
+1 and concat_axis 2 of (B, n1, n2k) forward, 2 and 1 back, as JAX's
+l.160-170.  Every value stays canonical, so
 the spectra and products equal JAX's bit for bit.  These paths run torch
 operations on the mesh's device (the digit-matmul and fused kernels where
 the pipeline named is one); an operand on another device raises.
@@ -36,6 +42,7 @@ from ..ops import ntt as N
 from ..ops.modmul import shoup_mulmod
 from ..ops.ntt import _fourstep_twiddle, _subtables
 from ..ops.tables import get_tables
+from .distributed import all_to_all
 from .mesh import on_mesh
 
 __all__ = ["polymul_dp_fn", "polymul_fixed_dp_fn",
@@ -46,9 +53,10 @@ _I64, _U32 = torch.int64, torch.uint32
 
 
 def polymul_dp_fn(name: str, mesh, algo: str = "merged"):
-    """(x, y) -> z, the batch data parallel over the mesh: on the one
-    device of the port's mesh, the single-device pipeline ``algo`` on the
-    whole batch (B1 for "fused", B5 for "mxu")."""
+    """(x, y) -> z, the batch data parallel over the mesh: the
+    single-device pipeline ``algo`` on the rows this process holds (B1 for
+    "fused", B5 for "mxu"), the whole batch on a stacked mesh, the rank's
+    rows across ranks."""
     from ..models.polymul import polymul_fn
     pipeline = polymul_fn(name, algo)
 
@@ -128,6 +136,15 @@ def _a2a_inv(v: torch.Tensor) -> torch.Tensor:
         k, B, k * n1k, n2 // k)
 
 
+def _across(group, split: int, concat: int):
+    """A rank's exchange of its one shard (1, B, ...) of canonical int64
+    values: ``all_to_all`` of them as int32 over ``group``."""
+    def exchange(v):
+        out = all_to_all(v[0].to(torch.int32), group, split, concat)
+        return out.to(_I64)[None]
+    return exchange
+
+
 def _along_j1(v: torch.Tensor, fn) -> torch.Tensor:
     """``fn`` along the n1 axis (-2) of (..., n1, m)."""
     return fn(v.transpose(-1, -2)).transpose(-1, -2)
@@ -165,6 +182,42 @@ def _build(name: str, mesh, n1: int | None,
     t1 = _subtables(name, q, n1)
     t2 = _subtables(name, q, n2)
     T = _shard_tables(name, n1, k, mesh.device)
+    if mesh.across_ranks:
+        # this rank's shard alone: its tables, its exchanges, its rows
+        d = mesh.model_index
+        T = {f: t[d:d + 1] for f, t in T.items()}
+        a2a_fwd = _across(mesh.model_group, 1, 2)
+        a2a_inv = _across(mesh.model_group, 2, 1)
+        rows, spec = (None, n // k), (None, n1 // k, n2)
+
+        def to_shards(x):
+            return x.to(_I64).reshape(1, x.shape[0], n1, n2 // k)
+
+        def from_shards(v):
+            return v[0].reshape(v.shape[1], n // k).to(_U32)
+
+        def to_spectrum(V):
+            return V[0].to(_U32)
+
+        def from_spectrum(Z):
+            return Z.to(_I64)[None]
+    else:
+        a2a_fwd, a2a_inv = _a2a_fwd, _a2a_inv
+        rows, spec = (None, n), (None, n1, n2)
+
+        def to_shards(x):
+            B = x.shape[0]
+            return x.to(_I64).reshape(B, n1, k, n2 // k).permute(2, 0, 1, 3)
+
+        def from_shards(v):
+            return v.permute(1, 2, 0, 3).reshape(v.shape[1], n).to(_U32)
+
+        def to_spectrum(V):
+            return V.permute(1, 0, 2, 3).reshape(V.shape[1], n1, n2).to(_U32)
+
+        def from_spectrum(Z):
+            return Z.to(_I64).reshape(Z.shape[0], k, n1 // k, n2).permute(
+                1, 0, 2, 3)
 
     def fwd_local(v):
         # (k, B, n1, n2k) coefficient shards -> (k, B, n1k, n2) spectral
@@ -172,41 +225,33 @@ def _build(name: str, mesh, n1: int | None,
             v = shoup_mulmod(v, T["phi"], T["phi_sh"], q)
         v = _along_j1(v, lambda u: N.stockham_fwd(u, t1))   # j1 -> k1
         v = shoup_mulmod(v, T["W"], T["W_sh"], q)           # w^(k1 j2)
-        return N.stockham_fwd(_a2a_fwd(v), t2)              # j2 -> k2
+        return N.stockham_fwd(a2a_fwd(v), t2)               # j2 -> k2
 
     def inv_local(v):
         # (k, B, n1k, n2) spectral shards -> (k, B, n1, n2k) coefficient
         v = N.stockham_inv(v, t2)                           # k2 -> j2
         v = shoup_mulmod(v, T["Winv"], T["Winv_sh"], q)     # w^(-k1 j2)
-        v = _along_j1(_a2a_inv(v), lambda u: N.stockham_inv(u, t1))
+        v = _along_j1(a2a_inv(v), lambda u: N.stockham_inv(u, t1))
         if with_weighting:
             v = shoup_mulmod(v, T["ipsi"], T["ipsi_sh"], q)
         return v
 
-    def to_shards(x):
-        B = x.shape[0]
-        return x.to(_I64).reshape(B, n1, k, n2 // k).permute(2, 0, 1, 3)
-
-    def from_shards(v):
-        return v.permute(1, 2, 0, 3).reshape(v.shape[1], n).to(_U32)
-
     def fwd(x):
-        """(B, n) -> the spectrum (B, n1, n2), rows k1, columns k2."""
-        _check_rows("x", x, mesh, (None, n))
-        V = fwd_local(to_shards(x))
-        return V.permute(1, 0, 2, 3).reshape(x.shape[0], n1, n2).to(_U32)
+        """(B, n) -> the spectrum (B, n1, n2), rows k1, columns k2; across
+        ranks the rank's shard (B, n/k) -> its rows k1 (B, n1/k, n2)."""
+        _check_rows("x", x, mesh, rows)
+        return to_spectrum(fwd_local(to_shards(x)))
 
     def inv(Z):
-        """The spectrum (B, n1, n2) -> (B, n)."""
-        _check_rows("Z", Z, mesh, (None, n1, n2))
-        B = Z.shape[0]
-        v = Z.to(_I64).reshape(B, k, n1 // k, n2).permute(1, 0, 2, 3)
-        return from_shards(inv_local(v))
+        """The inverse of ``fwd``."""
+        _check_rows("Z", Z, mesh, spec)
+        return from_shards(inv_local(from_spectrum(Z)))
 
     def polymul(x, y):
-        """(B, n) x (B, n) -> (B, n)."""
-        _check_rows("x", x, mesh, (None, n))
-        _check_rows("y", y, mesh, (None, n))
+        """(B, n) x (B, n) -> (B, n); across ranks the rank's shards (B,
+        n/k)."""
+        _check_rows("x", x, mesh, rows)
+        _check_rows("y", y, mesh, rows)
         if y.shape != x.shape:
             raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                              f"{tuple(y.shape)}")
@@ -220,7 +265,9 @@ def _build(name: str, mesh, n1: int | None,
 def ntt_fourstep_sharded_fn(name: str, mesh, n1: int | None = None,
                             with_weighting: bool = True):
     """x (B, n) -> its negacyclic-weighted four-step spectrum (B, n1, n2),
-    in JAX's global order, through the plain-torch shards."""
+    in JAX's global order, through the plain-torch shards; across ranks the
+    rank's shard (B, n/k) ("sp" layout) -> its spectral rows (B, n1/k,
+    n2)."""
     return _build(name, mesh, n1, with_weighting).fwd
 
 
@@ -238,7 +285,8 @@ def polymul_fourstep_sharded_fn(name: str, mesh, n1: int | None = None,
     downgrade: a configuration the planner rejects raises ValueError.  A
     model axis of 1 is then the single-transform digit-matmul polymul (B5),
     as in the JAX package.  ``local="jnp"`` runs the plain-torch four-step
-    with Stockham locals at every k."""
+    with Stockham locals at every k.  Across ranks x, y and z are this
+    rank's shards (B, n/k) in the "sp" layout."""
     if local == "jnp":
         return _build(name, mesh, n1).polymul
     if local not in ("auto", "mxu"):

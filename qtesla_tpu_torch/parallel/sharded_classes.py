@@ -15,7 +15,11 @@ Counterpart of the class-boundary half of
   over all of them against the 2^{8j}-scaled K2f tables, one recombination,
   then B12's Barrett pointwise product and K2i; canonical (S, B, nloc) out;
 - ``a2a_fwd_classes``: JAX's ``a2a_fwd_c`` (l.1069) as a permutation of the
-  stacked shard axis, carrying Dout planes a coefficient;
+  stacked shard axis, carrying Dout planes a coefficient; across ranks
+  (``distributed.make_global_mesh``) one ``distributed.all_to_all`` over the
+  model group, split_axis 2 and concat_axis 3 of (B, Dout, n1, n2k), as
+  JAX's, each rank running B17, B18 and B16 on its one shard with ``first``
+  its model index;
 - the entry points ``polymul_fourstep_mxu_classes_fn(name, mesh)`` (l.1046:
   B17 on x and y, the exchange, B18, the inverse exchange, B16) and
   ``local_pipeline_classes_fn(name, k)`` (l.1117, one shard's work without
@@ -59,17 +63,19 @@ from ..ops.mxu_tables import _group_bias, _split_bias
 from ..ops.ntt_fused import Kernel
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, class_sums,
                            recombine)
+from .distributed import all_to_all
 from .mesh import on_mesh
 from .sharded_mxu import (_CLASS_BIAS, WARP_ROWS, SpClassPlan,
                           SpCompactPlan, SpDeviceTables, SpPlan,
                           _check_tables, _column_compact_plan,
                           _compact_shape, _const_rows, _default_n1, _depth,
                           _kernel_layout, _operands, _permute,
-                          _pointwise, _rows_inv, _rows_inv_compact,
-                          _run_kernel, _shards, _slots, _wide_stages,
-                          a2a_inv, compact_class_sums, device_tables,
-                          from_shards, row_compact_fields, seg3_plain,
-                          sp_seg3, to_shards)
+                          _pointwise, _rank_shards, _rows_inv,
+                          _rows_inv_compact, _run_kernel, _shards, _slots,
+                          _wide_stages, a2a_inv, compact_class_sums,
+                          device_tables, exchanges, from_shards,
+                          row_compact_fields, seg3_plain, sp_seg3,
+                          to_shards)
 from .sharded_mxu import plan_for as sp_plan_for
 from .sharded_mxu_tables import (ClassPlan, SpPlans, class_boundary_plan,
                                  compact_layout, compact_tables,
@@ -398,17 +404,34 @@ def _class_plans(name: str, k: int, n1: int | None):
 
 
 def polymul_fourstep_mxu_classes_fn(name: str, mesh, n1: int | None = None):
-    """(x, y) -> z over (B..., n) tensors on the mesh's device, the
-    transforms split over its model axis of k shards with the class-sum
-    boundary (B17, B18, B16); a plan the kernels cannot take (Dout > 3)
-    raises here."""
+    """(x, y) -> z, the transforms split over the mesh's model axis of k
+    shards with the class-sum boundary (B17, B18, B16).  On a stacked mesh
+    x and y are (B..., n) tensors on its device; across ranks they are this
+    rank's shards (B, nloc) in the "sp" layout, and so is z.  A plan the
+    kernels cannot take (Dout > 3) raises here."""
     plans, cp = _class_plans(name, mesh.model, n1)
+    if not mesh.across_ranks:
+        def polymul(x, y):
+            on_mesh(mesh, x)
+            return polymul_fourstep_mxu_classes(x, y, plans, cp)
+        return polymul
+    inv, d, D = exchanges(plans, mesh).inv, mesh.model_index, cp.Dout
 
-    def polymul(x, y):
-        on_mesh(mesh, x)
-        return polymul_fourstep_mxu_classes(x, y, plans, cp)
+    def fwd_classes(u):
+        B = u.shape[1]
+        return all_to_all(u.reshape(B, D, plans.n1, plans.n2k),
+                          mesh.model_group, 2, 3, async_op=True).then(
+            lambda t: t.reshape(1, B, D * plans.nloc))
 
-    return polymul
+    def polymul_rank(xs, ys):
+        _rank_shards(plans, mesh, xs, ys)
+        tabs = class_device_tables(plans, cp, xs.device)
+        ux, uy = [fwd_classes(sp_seg1_classes(t[None], plans, cp, tabs, d))
+                  for t in (xs, ys)]
+        w = sp_seg2_classes(ux.wait(), uy.wait(), plans, cp, tabs, d)
+        return sp_seg3(inv(w).wait(), plans, tabs.sp, d)[0]
+
+    return polymul_rank
 
 
 def local_pipeline_classes_fn(name: str, k: int, n1: int | None = None,

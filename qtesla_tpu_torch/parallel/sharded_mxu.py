@@ -26,15 +26,16 @@ Counterpart of the kernels and the assembly of
   p3x, as the folded path does.  B11 and B16 multiply only the nonzero
   blocks of K1 and K3 (``w1c``, ``w3c``, ``w3xc``), in one kernel body;
 - ``a2a_fwd`` / ``a2a_inv``: the exchanges between them;
-- the entry points ``polymul_fourstep_mxu_fn(name, mesh)`` (l.828),
+- the entry points ``polymul_fourstep_mxu_fn(name, mesh, n1, chunks)``
+  (l.828; ``chunks`` as ``_build``'s l.693-719),
   ``local_pipeline_fn(name, k)`` (l.839), the fixed-operand pairs
   ``polymul_fixed_fourstep_mxu_fn`` (l.876) and
   ``polymul_fixed_folded_fourstep_mxu_fn`` (l.1150), and
   ``local_fixed_pipeline_fn``, one shard's work of either fixed path (as
   ``qtesla_tpu/utils/timing.py:349-450`` builds it).
 
-The model axis lives on one device.  The k shards of a call are the leading
-axis of one tensor: shard d of x (B, n) is
+On a stacked mesh the model axis lives on one device.  The k shards of a
+call are the leading axis of one tensor: shard d of x (B, n) is
 ``x.reshape(B, n1, n2)[:, :, d*n2k:(d+1)*n2k]`` (flat index j1*n2k +
 lambda), and the stacked layout is (k, B, nloc).  JAX's three
 ``lax.all_to_all`` calls become permutations of that axis: ``a2a_fwd`` maps
@@ -42,9 +43,15 @@ lambda), and the stacked layout is (k, B, nloc).  JAX's three
 in[s, b, d'*n1k + i, l], which is ``all_to_all(split_axis=1,
 concat_axis=2, tiled=True)``, and ``a2a_inv`` is its inverse.  Spectral
 rows stay in the merged forward's position order (``plans.k1map``), as in
-JAX.  A kernel launch covers the shards it is given: a rank of a future
-multi-process run (ROADMAP queue A item 13) launches the same kernels on its
-one shard, ``first`` naming which shard's tables it uses.
+JAX.  A kernel launch covers the shards it is given.  On a mesh across ranks
+(``distributed.make_global_mesh``) each rank holds one shard, (B, nloc) in
+the "sp" layout, launches the same kernels on it with ``first`` its model
+index (the shard whose tables it uses), and the exchanges are
+``distributed.all_to_all`` over the model group: split_axis 1 and
+concat_axis 2 of (B, n1, n2k) forward, 2 and 1 of (B, n1k, n2) back, as
+JAX's ``a2a_fwd`` / ``a2a_inv`` (l.681-687).  A constant's per-shard
+operands (its spectrum rows, its folded tables) then hold the rank's own
+shard alone.
 
 Dispatch is on the input's device, as in ``ops/ntt_mxu.py``: a CUDA tensor
 launches the kernel of ``csrc/sharded_mxu.cu`` (or raises), a CPU tensor
@@ -55,7 +62,9 @@ stages along j1 (``ops/ntt.py``) and float64 digit products
 
 A constant's spectrum is device-major, (n,) with shard d's row at
 [d*nloc, (d+1)*nloc), or (k, nloc): what JAX's fixed ``prepare`` returns
-(l.765-778), there lazy, here canonical.  The kernels take either.
+(l.765-778), there lazy, here canonical.  The kernels take either, or the
+(S, nloc) rows of the S shards they are given alone (a rank's own row;
+``sharded_mxu_tables.rank_spectrum`` takes it from JAX's).
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from ..ops.ntt_fused import Kernel, _check
 from ..ops.ntt_mxu import (_check_shapes, _digit_planes, block_rows,
                            digit_product, recombine)
 from ..ops.tables import get_tables
+from .distributed import Pending, all_to_all
 from .mesh import on_mesh
 from .sharded_mxu_tables import (CompactLayout, SpPlans, compact_depth,
                                  compact_layout, compact_tables,
@@ -103,7 +113,8 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "polymul_fixed_folded_fourstep_mxu",
            "polymul_fixed_folded_fourstep_mxu_plain",
            "polymul_fixed_fourstep_mxu_fn",
-           "polymul_fixed_folded_fourstep_mxu_fn", "local_fixed_pipeline_fn"]
+           "polymul_fixed_folded_fourstep_mxu_fn", "local_fixed_pipeline_fn",
+           "chunk_count"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/sharded_mxu.cu"
 
@@ -270,12 +281,27 @@ def _compact_shape(plans: SpPlans, kind: str, D: int, din: int) -> tuple:
     return lay.nblk, D * lay.s, compact_depth(din, lay.s)
 
 
-def _check_folded(fold, plans: SpPlans, like) -> None:
-    k, A, TW, p = plans.k, plans.A, plans.TW, plans.p2x
+def _shard_rows(t: torch.Tensor, plans: SpPlans, sl, what: str):
+    """Shards sl's part of a per-shard operand (k or S rows on dim 0): t[sl]
+    where it holds every shard's part, t where it holds the S shards' own
+    (a rank's)."""
+    S = sl.stop - sl.start
+    if t.shape[0] == plans.k:
+        return t[sl]
+    if t.shape[0] == S:
+        return t
+    raise ValueError(f"{what} must hold {plans.k} shards or the {S} given, "
+                     f"got {tuple(t.shape)}")
+
+
+def _check_folded(fold, plans: SpPlans, like, sl) -> None:
+    A, TW, p = plans.A, plans.TW, plans.p2x
+    S = sl.stop - sl.start
+    rows = S if fold.w.dim() and fold.w.shape[0] == S else plans.k
     _check_shapes("folded SP operand", tuple(fold),
-                  ((torch.int8, (k, A, *_compact_shape(plans, "rows", p.Dout,
-                                                       p.din))),
-                   (torch.uint32, (k, A, TW))), like)
+                  ((torch.int8, (rows, A, *_compact_shape(
+                      plans, "rows", p.Dout, p.din))),
+                   (torch.uint32, (rows, A, TW))), like)
 
 
 # ----------------------------------------------------------------------
@@ -436,8 +462,10 @@ def seg2_compact_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
 
 
 def _spectrum_plain(aspec, plans: SpPlans, sl) -> torch.Tensor:
-    """Rows sl of a device-major spectrum as int64 (S, 1, nloc)."""
-    return aspec.reshape(plans.k, 1, plans.nloc)[sl].to(_I64)
+    """Rows sl of a device-major spectrum (or the shards' own rows) as int64
+    (S, 1, nloc)."""
+    return _shard_rows(aspec.reshape(-1, plans.nloc), plans, sl,
+                       "spectrum")[:, None].to(_I64)
 
 
 def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
@@ -487,8 +515,10 @@ def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
     B11's canonical output and the recombination is canonical, so nothing
     replays either."""
     sl = slice(first, first + x.shape[0])
-    return _product(x.to(_I64), dense_folded_tables(fold, plans)[sl],
-                    fold.c[sl], plans.p2x, plans).to(_U32)
+    return _product(x.to(_I64), _shard_rows(dense_folded_tables(fold, plans),
+                                            plans, sl, "folded SP operand"),
+                    _shard_rows(fold.c, plans, sl, "folded SP operand"),
+                    plans.p2x, plans).to(_U32)
 
 
 def seg2_folded_compact_plain(x, fold: FoldedSpOperand, plans: SpPlans,
@@ -497,8 +527,9 @@ def seg2_folded_compact_plain(x, fold: FoldedSpOperand, plans: SpPlans,
     (``fold.w``): what B15 multiplies.  Only the tests and the chip check
     use it."""
     sl = slice(first, first + x.shape[0])
-    return _compact_product(x.to(_I64), fold.w[sl], fold.c[sl], plans.p2x,
-                            plans, "rows").to(_U32)
+    w, c = (_shard_rows(t, plans, sl, "folded SP operand") for t in fold)
+    return _compact_product(x.to(_I64), w, c, plans.p2x, plans,
+                            "rows").to(_U32)
 
 
 def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0,
@@ -924,18 +955,21 @@ def _prepare(plans: SpPlans, tabs, first: int, *tensors):
 
 
 def _spectrum_rows(aspec, plans: SpPlans, like, sl) -> torch.Tensor:
-    """Rows sl (S, nloc) of a device-major spectrum, (k, nloc) or (n,)
-    uint32 on ``like``'s device."""
+    """Rows sl (S, nloc) of a device-major spectrum, (k, nloc) or (n,), or
+    the S shards' own rows (S, nloc), uint32 on ``like``'s device."""
     if not isinstance(aspec, torch.Tensor) or aspec.dtype != _U32:
         raise TypeError(f"spectrum: expected a torch.uint32 tensor, got "
                         f"{getattr(aspec, 'dtype', type(aspec))}")
-    if tuple(aspec.shape) not in ((plans.k, plans.nloc), (plans.n,)):
-        raise ValueError(f"spectrum must be ({plans.k}, {plans.nloc}) or "
-                         f"({plans.n},), got {tuple(aspec.shape)}")
+    S = sl.stop - sl.start
+    if tuple(aspec.shape) not in ((plans.k, plans.nloc), (S, plans.nloc),
+                                  (plans.n,)):
+        raise ValueError(f"spectrum must be ({plans.k}, {plans.nloc}), "
+                         f"({S}, {plans.nloc}) or ({plans.n},), got "
+                         f"{tuple(aspec.shape)}")
     if aspec.device != like.device or not aspec.is_contiguous():
         raise ValueError(f"spectrum must be contiguous on {like.device}")
     _aligned("spectrum", aspec)
-    return aspec.reshape(plans.k, plans.nloc)[sl]
+    return _shard_rows(aspec.reshape(-1, plans.nloc), plans, sl, "spectrum")
 
 
 # ----------------------------------------------------------------------
@@ -999,14 +1033,14 @@ def sp_seg2_folded(x, fold: FoldedSpOperand, plans: SpPlans,
     nloc), shard s through the tables of shard first + s of ``fold``;
     canonical out."""
     sl = _shards(plans, first, x)
-    _check_folded(fold, plans, x)
+    _check_folded(fold, plans, x, sl)
     if x.is_cuda:
         for t in fold:
             _aligned("folded SP operand", t)
+        w, c = (_shard_rows(t, plans, sl, "folded SP operand") for t in fold)
         return _run_kernel(KERNELS["sp_seg2_folded"],
                            seg2_folded_compact_plan(plans),
-                           (fold.w[sl], fold.c[sl], None, None, None), x,
-                           None, plans.nloc)
+                           (w, c, None, None, None), x, None, plans.nloc)
     return seg2_folded_plain(x, fold, plans, first)
 
 
@@ -1049,15 +1083,71 @@ def _spectral(x2, plans: SpPlans, tabs, seg1=None) -> torch.Tensor:
     return a2a_fwd(seg1(to_shards(x2, plans), plans, tabs), plans)
 
 
-def polymul_fourstep_mxu(x, y, plans: SpPlans, tabs=None) -> torch.Tensor:
+class Exchanges(NamedTuple):
+    """The SP path's two exchanges of shards (S, B, nloc), each returning a
+    ``Pending``: the stacked form's permutations ``a2a_fwd`` / ``a2a_inv``
+    (done at once), or across ranks one ``all_to_all`` over the model group
+    each, in flight until ``wait()``."""
+
+    fwd: object
+    inv: object
+
+
+def exchanges(plans: SpPlans, mesh=None) -> Exchanges:
+    """The exchanges of ``mesh`` (stacked where None)."""
+    if mesh is None or not mesh.across_ranks:
+        return Exchanges(lambda v: Pending.ready(a2a_fwd(v, plans)),
+                         lambda v: Pending.ready(a2a_inv(v, plans)))
+    group = mesh.model_group
+
+    def across(shape, split, concat):
+        def exchange(v):
+            B = v.shape[1]
+            return all_to_all(v.reshape(B, *shape), group, split, concat,
+                              async_op=True).then(
+                lambda t: t.reshape(1, B, plans.nloc))
+        return exchange
+
+    return Exchanges(across((plans.n1, plans.n2k), 1, 2),
+                     across((plans.n1k, plans.n2), 2, 1))
+
+
+def chunk_count(batch: int, chunks: int) -> int:
+    """The parts a batch splits into: ``chunks`` where it divides the
+    batch, else one (JAX's l.705)."""
+    return chunks if chunks > 1 and batch % chunks == 0 else 1
+
+
+def _polymul_chunks(xs, ys, plans: SpPlans, tabs, first: int,
+                    ex: Exchanges) -> list:
+    """z's coefficient shards of each chunk of x's and y's (lists of (S, Bc,
+    nloc)), as JAX's ``local_polymul`` (l.693-719): B11 on every chunk's x
+    and y, each chunk's forward exchanges issued as its B11s end; B12 on a
+    chunk once its exchanges are in, its inverse exchange issued; B16 on a
+    chunk once that is in.  Chunk i's exchange is in flight while chunk
+    i+1's kernels run."""
+    sent = [(ex.fwd(sp_seg1(xc, plans, tabs, first)),
+             ex.fwd(sp_seg1(yc, plans, tabs, first)))
+            for xc, yc in zip(xs, ys)]
+    back = [ex.inv(sp_seg2(vx.wait(), vy.wait(), plans, tabs, first))
+            for vx, vy in sent]
+    return [sp_seg3(w.wait(), plans, tabs, first) for w in back]
+
+
+def polymul_fourstep_mxu(x, y, plans: SpPlans, tabs=None,
+                         chunks: int = 1) -> torch.Tensor:
     """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors, the
     transforms split over the model axis: seg1 on x and y (B11 twice), the
-    forward exchange, seg2 (B12), the inverse exchange, seg3 (B16)."""
+    forward exchange, seg2 (B12), the inverse exchange, seg3 (B16); the
+    rows in ``chunk_count(B, chunks)`` chunks, each through its own
+    launches."""
     x2, y2 = _operands(plans, x, y)
     tabs = _tabs(tabs, plans, x2)
-    vx, vy = (_spectral(t, plans, tabs) for t in (x2, y2))
-    w = a2a_inv(sp_seg2(vx, vy, plans, tabs), plans)
-    return from_shards(sp_seg3(w, plans, tabs), plans).reshape(x.shape)
+    nch = chunk_count(x2.shape[0], chunks)
+    xs, ys = ([to_shards(c, plans) for c in t.chunk(nch)] for t in (x2, y2))
+    zs = [from_shards(z, plans) for z in _polymul_chunks(
+        xs, ys, plans, tabs, 0, exchanges(plans))]
+    return (zs[0] if nch == 1 else torch.cat(zs)).reshape(x.shape)
 
 
 def polymul_fourstep_mxu_plain(x, y, plans: SpPlans,
@@ -1141,18 +1231,53 @@ def _mesh_plans(name: str, mesh, n1: int | None, segments) -> SpPlans:
     return plans
 
 
-def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
-    """(x, y) -> z over (B..., n) tensors on the mesh's device, the
-    transform split over its model axis of k shards (B11, B12, B16); a plan
-    the kernels cannot take raises here."""
+def _rank_shards(plans: SpPlans, mesh, *shards) -> None:
+    """Check a rank's shards: (B, nloc) each, one shape, on the mesh's
+    device."""
+    on_mesh(mesh, *shards)
+    for i, t in enumerate(shards):
+        _check(f"shard {i}", t, plans.nloc)
+        if t.dim() != 2 or t.shape != shards[0].shape:
+            raise ValueError(f"a rank's shards must be (B, {plans.nloc}) of "
+                             f"one shape, got "
+                             f"{[tuple(u.shape) for u in shards]}")
+
+
+def _rank_spectral(xs, plans: SpPlans, tabs, d: int,
+                   ex: Exchanges) -> torch.Tensor:
+    """A rank's coefficient shard (B, nloc) -> its spectral shard (1, B,
+    nloc): B11 and the forward exchange."""
+    return ex.fwd(sp_seg1(xs[None], plans, tabs, d)).wait()
+
+
+def polymul_fourstep_mxu_fn(name: str, mesh, n1: int | None = None,
+                            chunks: int = 1):
+    """(x, y) -> z, the transform split over the mesh's model axis of k
+    shards (B11, B12, B16), the batch in ``chunk_count(B, chunks)`` chunks
+    whose exchanges overlap the next chunk's kernels (JAX's ``chunks``).  On
+    a stacked mesh x and y are (B..., n) tensors on its device; across
+    ranks they are this rank's shards (B, nloc) in the "sp" layout
+    (``distributed.global_batch``) and so is z.  A plan the kernels cannot
+    take raises here."""
     plans = _mesh_plans(name, mesh, n1,
                         ("sp_seg1", "sp_seg2", "sp_seg3"))
+    if not mesh.across_ranks:
+        def polymul(x, y):
+            on_mesh(mesh, x)
+            return polymul_fourstep_mxu(x, y, plans, chunks=chunks)
+        return polymul
+    ex, d = exchanges(plans, mesh), mesh.model_index
 
-    def polymul(x, y):
-        on_mesh(mesh, x)
-        return polymul_fourstep_mxu(x, y, plans)
+    def polymul_rank(xs, ys):
+        _rank_shards(plans, mesh, xs, ys)
+        tabs = device_tables(plans, xs.device)
+        nch = chunk_count(xs.shape[0], chunks)
+        zs = _polymul_chunks([c[None] for c in xs.chunk(nch)],
+                             [c[None] for c in ys.chunk(nch)], plans, tabs,
+                             d, ex)
+        return zs[0][0] if nch == 1 else torch.cat(zs, 1)[0]
 
-    return polymul
+    return polymul_rank
 
 
 def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
@@ -1161,10 +1286,14 @@ def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     -> a's device-major spectrum (n,), B11 and B14, run once;
     ``multiply(x, aspec)`` (B..., n) -> (B..., n), B11, B13 and B16.
     ``aspec`` may also be JAX's prepared spectrum, its lazy values as a
-    uint32 tensor.  A plan the kernels cannot take raises here."""
+    uint32 tensor.  Across ranks ``prepare`` returns this rank's row (1,
+    nloc) and ``multiply`` takes and returns its shards (B, nloc)
+    (``_rank_fixed_pair``).  A plan the kernels cannot take raises here."""
     plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
                                              "sp_seg2_fixed", "sp_seg3"))
     seg2_fwd_compact_plan(plans)
+    if mesh.across_ranks:
+        return _rank_fixed_pair(plans, mesh, folded=False)
 
     def prepare(a):
         on_mesh(mesh, a)
@@ -1177,6 +1306,46 @@ def polymul_fixed_fourstep_mxu_fn(name: str, mesh, n1: int | None = None):
     return prepare, multiply
 
 
+def _rank_fixed_pair(plans: SpPlans, mesh, folded: bool):
+    """A rank's (prepare, multiply) of a fixed SP path.  ``prepare(a)``
+    takes the whole constant (n values, on every rank) and returns this
+    rank's part: its row (1, nloc) of the device-major spectrum (B11 on its
+    columns, the forward exchange, B14), or with ``folded`` that row's
+    folded tables (``fourstep_fold_tables(..., first=d)``) as a one-shard
+    ``FoldedSpOperand``.  ``multiply(x, part)`` (``multiply(x, *part)``
+    when folded) takes this rank's shard (B, nloc) in the "sp" layout: B11,
+    the forward exchange, B13 (or B15), the inverse exchange, B16 (under
+    p3x when folded)."""
+    ex, d = exchanges(plans, mesh), mesh.model_index
+
+    def spectrum_row(a):
+        on_mesh(mesh, a)
+        a2 = _operand(plans, "a", a.reshape(-1))
+        tabs = device_tables(plans, a2.device)
+        v = ex.fwd(sp_seg1(to_shards(a2, plans)[d:d + 1], plans, tabs,
+                           d)).wait()
+        return sp_seg2_fwd(v, plans, tabs, d).reshape(1, plans.nloc)
+
+    def multiply(xs, const):
+        _rank_shards(plans, mesh, xs)
+        tabs = device_tables(plans, xs.device)
+        v = _rank_spectral(xs, plans, tabs, d, ex)
+        w = (sp_seg2_folded(v, const, plans, d) if folded
+             else sp_seg2_fixed(v, const, plans, tabs, d))
+        return sp_seg3(ex.inv(w).wait(), plans, tabs, d, folded=folded)[0]
+
+    if not folded:
+        return spectrum_row, multiply
+
+    def prepare_folded(a):
+        row = spectrum_row(a).cpu().numpy()
+        return fold_sp_operand(*fourstep_fold_tables(plans, row, first=d),
+                               plans, mesh.device)
+
+    return prepare_folded, lambda xs, w, c: multiply(
+        xs, FoldedSpOperand(w, c))
+
+
 def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
                                          n1: int | None = None):
     """(prepare, multiply) of the folded fixed SP path: ``prepare(a)`` runs
@@ -1186,11 +1355,15 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
     c); ``multiply(x, w, c)`` runs B11, one folded product (B15) and B16
     under p3x.  Called as ``multiply(x, *prepare(a))``, as in JAX; JAX's
     pair carries across as ``fold_sp_operand(
-    *from_jax_fourstep_fold_tables(W, c), plans, device)``."""
+    *from_jax_fourstep_fold_tables(W, c), plans, device)``.  Across ranks
+    ``prepare`` returns this rank's shard of the operand and ``multiply``
+    takes and returns its shards (B, nloc) (``_rank_fixed_pair``)."""
     plans = _mesh_plans(name, mesh, n1, ("sp_seg1", "sp_seg2_fwd",
                                              "sp_seg2_folded", "sp_seg3 p3x"))
     seg2_fwd_compact_plan(plans)
     seg2_folded_compact_plan(plans)
+    if mesh.across_ranks:
+        return _rank_fixed_pair(plans, mesh, folded=True)
 
     def prepare(a):
         on_mesh(mesh, a)

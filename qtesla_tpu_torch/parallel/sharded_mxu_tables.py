@@ -65,7 +65,8 @@ from .sharded import _fourstep_tables
 __all__ = ["SpPlans", "DigitPlan", "FoldPlan", "ClassPlan", "RollTables",
            "CompactLayout", "compact_layout", "compact_tables",
            "expand_compact", "fourstep_mxu_plans", "from_jax_fourstep_plans",
-           "fourstep_fold_tables", "from_jax_fourstep_fold_tables",
+           "fourstep_fold_tables", "rank_spectrum",
+           "from_jax_fourstep_fold_tables",
            "class_boundary_plan", "from_jax_class_boundary_plan"]
 
 _TW_MAX = 128
@@ -415,24 +416,34 @@ def _matmul_mod(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
     return (lo + (hi << 15)) % q
 
 
-def fourstep_fold_tables(plans: SpPlans, spectrum):
+def fourstep_fold_tables(plans: SpPlans, spectrum, first: int | None = None):
     """One constant's folded segment-2 tables under p2x, bit for bit JAX's
     ``fourstep_fold_tables`` (l.586): per (shard d, tile t) the matrix
     F = K2f diag(A^[d, t]) K2i[d, t], block-diagonal over n2-blocks, as
     ``W`` int8 (k, A, din, TW, Dout*TW) and ``const`` uint32 (k, A, 1, TW).
 
     ``spectrum`` is the constant's device-major SP spectrum, (n,) or (k,
-    nloc) uint32, canonical or lazy (it is taken mod q).  F is built in int64
-    from the blocks cached per plan bundle, where JAX uses Python ints."""
+    nloc) uint32, canonical or lazy (it is taken mod q); with ``first`` it
+    is the rows (S, nloc) of shards first..first+S-1 alone (a rank's own),
+    and the tables are those shards', (S, ...).  F is built in int64 from
+    the blocks cached per plan bundle, where JAX uses Python ints."""
     p = plans.p2x
     q, TW, A, k, n2 = plans.q, plans.TW, plans.A, plans.k, plans.n2
     R = TW // n2
     spec = np.asarray(spectrum)
-    if spec.size != plans.n:
-        raise ValueError(f"spectrum must hold n={plans.n} values, got "
-                         f"{spec.shape}")
-    dg = (spec.astype(np.int64) % q).reshape(k, A, R, 1, n2)
     k2f, k2i = _fold_blocks(plans)
+    if first is None:
+        if spec.size != plans.n:
+            raise ValueError(f"spectrum must hold n={plans.n} values, got "
+                             f"{spec.shape}")
+    else:
+        if (spec.ndim != 2 or spec.shape[1] != plans.nloc or first < 0
+                or first + spec.shape[0] > k):
+            raise ValueError(f"rows of shards {first}.. must be (S, "
+                             f"{plans.nloc}) within the model axis of {k}, "
+                             f"got {spec.shape}")
+        k, k2i = spec.shape[0], k2i[first:first + spec.shape[0]]
+    dg = (spec.astype(np.int64) % q).reshape(k, A, R, 1, n2)
     # K2f's columns scaled by the diagonal, then through K2i
     blocks = _matmul_mod(k2f * dg % q, k2i, q)       # (k, A, R, n2, n2)
     F = np.zeros((k, A, TW, TW), dtype=np.int64)
@@ -682,6 +693,17 @@ def from_jax_class_boundary_plan(cp) -> ClassPlan:
                          f"{f['dins']} planes, got "
                          f"{[(w.dtype, w.shape) for w in W]}")
     return ClassPlan(W=W, **f)
+
+
+def rank_spectrum(spectrum, plans: SpPlans, d: int) -> np.ndarray:
+    """Row d (1, nloc) of a device-major spectrum (n,) or (k, nloc), JAX's
+    prepared (lazy) one among them: what the rank of model index d
+    multiplies against on a mesh across ranks."""
+    spec = np.asarray(spectrum)
+    if spec.size != plans.n or not 0 <= d < plans.k:
+        raise ValueError(f"expected n={plans.n} values and a shard in "
+                         f"[0, {plans.k}), got {spec.shape} and {d}")
+    return spec.reshape(plans.k, plans.nloc)[d:d + 1].copy()
 
 
 def from_jax_fourstep_fold_tables(W, c):

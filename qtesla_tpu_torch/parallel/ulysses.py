@@ -1,6 +1,6 @@
-"""Ulysses sequence parallelism on the one-device mesh: a batch<->position
-exchange around the unmodified single-device pipeline, and the strategy
-dispatcher of the sequence-parallel paths.
+"""Ulysses sequence parallelism: a batch<->position exchange around the
+unmodified single-device pipeline, and the strategy dispatcher of the
+sequence-parallel paths.
 
 Counterpart of ``qtesla_tpu/parallel/ulysses.py``: ``polymul_ulysses_fn``
 (l.84), ``polymul_fixed_ulysses_fn`` (l.137) and ``polymul_sp_fn``
@@ -15,6 +15,13 @@ Taken from (B, n) rows on one device, the position shards are a strided
 view of them and the row shards hold the rows where they already are, so
 torch resolves both exchanges as views: no copy is made, and the path costs
 what its pipeline costs.
+
+On a mesh across ranks (``distributed.make_global_mesh``) a rank holds its
+position shard (B, n/k) of its data index's rows (the "ulysses" layout of
+``distributed.global_batch``), pads B with zero rows to a multiple of k, and
+the two exchanges are ``distributed.all_to_all`` over the model group
+(split_axis 0 and concat_axis 1 to rows, 1 and 0 back, JAX's l.67-77): the
+pipeline runs on the rank's B/k full rows.
 
 ``local="auto"`` is ``"fused"`` on a CUDA mesh (B1; for the fixed form B2
 to prepare and B4 to multiply) and ``"merged"`` on a CPU mesh, as JAX takes
@@ -33,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.tables import get_tables
+from .distributed import all_to_all
 from .mesh import on_mesh
 
 __all__ = ["polymul_ulysses_fn", "polymul_fixed_ulysses_fn",
@@ -82,6 +90,27 @@ def _from_rows(z: torch.Tensor, B: int) -> torch.Tensor:
     return _a2a_to_positions(z).transpose(0, 1).reshape(-1, n)[:B]
 
 
+def _rank_rows(xs: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """A rank's position shard (B, n/k) -> its B'/k full rows (B' = B
+    padded with zero rows to a multiple of k), one exchange across the
+    model group."""
+    on_mesh(mesh, xs)
+    k = mesh.model
+    if xs.dim() != 2 or xs.shape[1] != n // k:
+        raise ValueError(f"expected a rank's (B, {n // k}) position shard, "
+                         f"got {tuple(xs.shape)}")
+    pad = (-xs.shape[0]) % k
+    if pad:
+        xs = torch.cat([xs, xs.new_zeros((pad, n // k))])
+    return all_to_all(xs, mesh.model_group, 0, 1)
+
+
+def _rank_positions(z: torch.Tensor, mesh, B: int) -> torch.Tensor:
+    """The inverse of ``_rank_rows``: the first B rows of the rank's
+    position shard."""
+    return all_to_all(z, mesh.model_group, 1, 0)[:B]
+
+
 def _check_model_axis(name: str, mesh) -> int:
     n = get_tables(name).n
     if n % mesh.model:
@@ -92,7 +121,8 @@ def _check_model_axis(name: str, mesh) -> int:
 def polymul_ulysses_fn(name: str, mesh, local: str = "auto"):
     """(x, y) -> z over (B, n) uint32 tensors on the mesh's device,
     positions split over the model axis at rest and exchanged to full rows
-    around the single-device pipeline ``local``."""
+    around the single-device pipeline ``local``.  Across ranks x, y and z
+    are this rank's position shards (B, n/k)."""
     from ..models.polymul import polymul_fn
     n = _check_model_axis(name, mesh)
     pipeline = polymul_fn(name, _local_name(mesh, local))
@@ -101,6 +131,9 @@ def polymul_ulysses_fn(name: str, mesh, local: str = "auto"):
         if y.shape != x.shape:
             raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                              f"{tuple(y.shape)}")
+        if mesh.across_ranks:
+            z = pipeline(_rank_rows(x, mesh, n), _rank_rows(y, mesh, n))
+            return _rank_positions(z, mesh, x.shape[0])
         xr, yr = _to_rows(x, mesh, n), _to_rows(y, mesh, n)
         z = pipeline(xr.reshape(-1, n), yr.reshape(-1, n))
         return _from_rows(z.reshape(xr.shape), x.shape[0])
@@ -111,8 +144,9 @@ def polymul_ulysses_fn(name: str, mesh, local: str = "auto"):
 def polymul_fixed_ulysses_fn(name: str, mesh, local: str = "auto"):
     """(prepare, multiply) for products x * a with a constant a under the
     Ulysses layout: ``prepare(a)`` (n values) -> a's spectrum, computed
-    once on the whole row; ``multiply(x, A)`` exchanges x to rows, runs the
-    fixed-operand product and exchanges z back."""
+    once on the whole row (on every rank, across ranks); ``multiply(x, A)``
+    exchanges x to rows, runs the fixed-operand product and exchanges z
+    back (across ranks x and z are this rank's position shards)."""
     from ..models.polymul import polymul_fixed_fn
     n = _check_model_axis(name, mesh)
     picked = _local_name(mesh, local)
@@ -124,6 +158,9 @@ def polymul_fixed_ulysses_fn(name: str, mesh, local: str = "auto"):
         return A if picked == "mxu-folded" else A[0]
 
     def multiply(x, A):
+        if mesh.across_ranks:
+            return _rank_positions(mul(_rank_rows(x, mesh, n), A), mesh,
+                                   x.shape[0])
         xr = _to_rows(x, mesh, n)
         z = mul(xr.reshape(-1, n), A)
         return _from_rows(z.reshape(xr.shape), x.shape[0])
@@ -147,7 +184,10 @@ def polymul_sp_fn(name: str, mesh, batch_hint: int | None = None,
     """The sequence-parallel polymul for an expected batch of
     ``batch_hint`` rows (see ``sp_strategy``).  ``local`` goes to the path
     taken; for data parallelism it is the fused kernel (B1) on a CUDA mesh
-    and the merged pipeline on a CPU mesh."""
+    and the merged pipeline on a CPU mesh.  Across ranks the function takes
+    this rank's shards in the layout of the path taken
+    (``distributed.global_batch``): "dp" rows, "ulysses" positions, or the
+    four-step's "sp" columns."""
     strategy = sp_strategy(mesh, batch_hint)
     if strategy == "dp":
         from .sharded import polymul_dp_fn

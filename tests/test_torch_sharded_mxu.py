@@ -255,7 +255,7 @@ def test_entry_points():
     with pytest.raises(ValueError, match="divide"):
         TSH.polymul_fourstep_sharded_fn(name, make_mesh(model=64,
                                                         device="cpu"))
-    with pytest.raises(ValueError, match="item 13"):
+    with pytest.raises(ValueError, match="init_distributed"):
         make_mesh(data=2, model=4)
     mesh = make_mesh(model=4)
     assert (mesh.data, mesh.model) == (1, 4)
