@@ -120,6 +120,17 @@ script exits non-zero without printing a result:
    class work (local_pipeline_classes_fn) at k in {2, 4, 8} beside
    local_pipeline_fn's, and the class exchange (Dout planes a coefficient)
    against the SP path's.
+5. the CLI on the card: ``python -m qtesla_tpu_torch.cli`` as subprocesses
+   (loading phase 1's library), each printed with its wall time and each
+   required to exit 0: info; correctness --algo all --random at
+   qtesla-iii-speed (every algo, kernels included, Identical. to the
+   oracle and the all-ones closed form); speed of fused and mxu at B =
+   32768 (medians beside phase 4's B1 and B5, no gate), --fixed (B2 + B4,
+   B6 + B8, B6 + B9) and --streamed; sweep of fused up to B = 32768;
+   microbench; scaling in one process, then --distributed --backend gloo
+   scaling --model 2 over CLI_RANKS ranks on the card (torchrun's
+   variables; each rank waited on and killed in any case), whose rows must
+   carry the shared-card caveat.
 
 It prints a JSON line of the kernels (each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
@@ -132,6 +143,8 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -146,7 +159,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
-from qtesla_tpu_torch.models import (intt, local_fixed_pipeline_fn,
+from qtesla_tpu_torch.models import (ALGORITHMS, intt,
+                                     local_fixed_pipeline_fn,
                                      local_pipeline_classes_fn,
                                      local_pipeline_fn, make_mesh,
                                      polymul_fixed_fn,
@@ -272,6 +286,11 @@ PROCESS_LAUNCHES = {name: 0 for name in KERNELS} | {
 INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
 # timed calls of each phase-3b path (after one warmup)
 EAGER_CALLS = 5
+# phase 5: the CLI's commands, each a subprocess that must exit 0 within
+# CLI_TIMEOUT_S; the distributed one over CLI_RANKS ranks on the card
+REPO = Path(__file__).resolve().parent
+CLI_TIMEOUT_S = 300
+CLI_RANKS = 2
 
 
 def phase(title: str):
@@ -1669,6 +1688,158 @@ def timing(device_line: str) -> dict:
     return out
 
 
+def _cli_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _cli(argv: list) -> str:
+    """One CLI command in a subprocess: print it and its wall time, raise
+    unless it exits 0, return its output."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qtesla_tpu_torch.cli",
+                           *map(str, argv)], capture_output=True, text=True,
+                          cwd=REPO, env=_cli_env(), timeout=CLI_TIMEOUT_S)
+    print(f"5: cli {' '.join(map(str, argv))}: exit {proc.returncode}, "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {argv} exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def _json_rows(out: str) -> list:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _cli_ranks(argv: list) -> list[str]:
+    """The CLI with --distributed over CLI_RANKS ranks on the card, joined
+    through torchrun's variables; each rank waited on at most
+    CLI_TIMEOUT_S and killed in any case.  Returns each rank's output."""
+    start = time.perf_counter()
+    env = _cli_env() | {"MASTER_ADDR": "localhost",
+                        "MASTER_PORT": str(_free_port()),
+                        "WORLD_SIZE": str(CLI_RANKS)}
+    procs = []
+    try:
+        for r in range(CLI_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "qtesla_tpu_torch.cli",
+                 *map(str, argv)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                env=env | {"RANK": str(r), "LOCAL_RANK": str(r)}))
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"5: {CLI_RANKS} ranks, cli {' '.join(map(str, argv))}: exit "
+          f"{[p.returncode for p in procs]}, "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of cli {argv} exited "
+                                 f"{p.returncode}:\n{log}")
+    return logs
+
+
+def cli_on_the_card(times: dict, device_line: str) -> None:
+    """Phase 5: ``python -m qtesla_tpu_torch.cli`` as subprocesses (fresh
+    interpreters that load phase 1's library), every command exiting 0:
+    info; correctness of every algo, kernels included, at qtesla-iii-speed
+    on random operands against the oracle; speed (plain, --fixed,
+    --streamed) and sweep at B up to 32768; microbench; scaling in one
+    process and across CLI_RANKS gloo ranks on the card, whose rows must
+    carry the shared-card caveat.  The speed medians are printed beside
+    phase 4's B1 and B5 medians (no gate: the CLI chains its calls)."""
+    start = time.perf_counter()
+    B = MAIN_BATCH
+    for line in _cli(["info"]).splitlines():
+        print("5: " + line)
+
+    out = _cli(["correctness", "--param-set", MAIN_SET, "--algo", "all",
+                "--random"])
+    rows = [ln for ln in out.splitlines() if ln.startswith("  ")]
+    bad = [ln for ln in rows if not ln.endswith("Identical.")]
+    if (bad or len(rows) != 2 * len(ALGORITHMS)
+            or {ln.split()[0] for ln in rows} != set(ALGORITHMS)):
+        raise AssertionError(f"cli correctness: {len(rows)} lines, not "
+                             f"Identical.: {bad}")
+    print(f"5: correctness --algo all --random at {MAIN_SET}: "
+          f"{len(rows)} lines Identical. ({len(ALGORITHMS)} algos against "
+          f"{rows[0].split(' vs ')[1].split(':')[0]}, then the all-ones "
+          f"closed form)")
+
+    speed = _json_rows(_cli(["speed", "--algo", "fused,mxu", "--batch", B,
+                             "--iters", 40, "--json"]))
+    ref = {"fused": ("B1", times["polymul_fused"]["kernel"][1]),
+           "mxu": ("B5", times["polymul_mxu"]["kernel"][1])}
+    for row in speed:
+        name, ms = ref[row["algo"]]
+        print(f"5: speed {row['algo']} B={row['batch']}: median "
+              f"{row['median_ms_per_iter']:.4f} ms a call, min "
+              f"{row['min_ms_per_iter']:.4f} ({row['clock']}, chained); "
+              f"phase 4 {name} median {ms:.4f} ms [{row['device']}]")
+    fixed = _json_rows(_cli(["speed", "--fixed", "--algo", "fused,mxu",
+                             "--batch", B, "--json"]))
+    if [r["algo"] for r in fixed] != ["fixed/fused", "fixed/mxu",
+                                      "fixed/mxu-folded"]:
+        raise AssertionError(f"cli speed --fixed rows {fixed}")
+    streamed = _json_rows(_cli(["speed", "--streamed", "--algo", "fused",
+                                "--batch", B, "--json"]))
+    for row in fixed + streamed:
+        print(f"5: speed {row['algo']} B={row['batch']}: median "
+              f"{row['median_ms_per_iter']:.4f} ms a call, min "
+              f"{row['min_ms_per_iter']:.4f} ({row['clock']}) "
+              f"[{row['device']}]")
+    if streamed[0]["clock"] != "host":
+        raise AssertionError("the streamed bracket must be the host's clock")
+
+    for cmd in (["sweep", "--algo", "fused", "--batches",
+                 "1024,4096,16384,32768"], ["microbench"]):
+        for line in _cli(cmd).splitlines()[1:]:
+            print("5: " + line.strip())
+
+    one = _json_rows(_cli(["scaling", "--algo", "fused", "--global-batch", B,
+                           "--json"]))
+    logs = _cli_ranks(["--distributed", "--backend", "gloo", "scaling",
+                       "--algo", "fused", "--model", CLI_RANKS,
+                       "--global-batch", B, "--json"])
+    ranks = _json_rows(logs[0])
+    shared = CLI_RANKS > torch.cuda.device_count()
+    if [(r["mode"], r["devices"]) for r in ranks] != [
+            ("dp", 1), ("dp", 2), ("fourstep_sp", 2), ("ulysses_sp", 2)]:
+        raise AssertionError(f"cli scaling across ranks: rows {ranks}")
+    if shared and not all(r["virtual_devices"] and "gloo" in r["caveat"]
+                          for r in ranks):
+        raise AssertionError(f"cli scaling: rows of ranks sharing the card "
+                             f"without the caveat: {ranks}")
+    for r in one + ranks:
+        eff = {k: r[k] for k in ("overhead_eff", "vs_dp_eff") if k in r}
+        print(f"5: scaling {r['mode']} devices={r['devices']} "
+              f"B={r['batch']}: {r['polymuls_per_s']:,.0f} polymuls/s "
+              f"{eff} [{r['device']}, {r['clock']}]"
+              + (" (caveat)" if "caveat" in r else ""))
+    for caveat in dict.fromkeys(r["caveat"] for r in one + ranks
+                                if "caveat" in r):
+        print(f"5: caveat: {caveat}")
+    for r, log in enumerate(logs[1:], 1):
+        print(f"5: rank {r}: {log.strip().splitlines()[-1]}")
+    print(f"5: every CLI command exited 0; phase wall time "
+          f"{time.perf_counter() - start:.1f} s [{device_line}]", flush=True)
+
+
 def main() -> int:
     phase("0 device")
     if not torch.cuda.is_available():
@@ -1715,6 +1886,9 @@ def main() -> int:
 
     phase("4 timing")
     times = timing(device_line)
+
+    phase("5 the CLI on the card")
+    cli_on_the_card(times, device_line)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "qtesla_tpu"))

@@ -57,7 +57,7 @@ __all__ = ["init_distributed", "make_global_mesh", "global_batch",
            "local_shard", "process_rows", "barrier", "live_processes",
            "BarrierTimeout", "Pending", "all_to_all", "send_blocks",
            "recv_blocks", "joined", "world_size", "rank_coords",
-           "mesh_groups", "LAYOUTS"]
+           "mesh_groups", "slowest", "rank_device", "LAYOUTS"]
 
 LAYOUTS = ("dp", "sp", "ulysses")
 
@@ -173,32 +173,64 @@ def mesh_groups(world: int, model: int) -> tuple[list, list]:
             [[i * model + j for i in range(data)] for j in range(model)])
 
 
-def make_global_mesh(model: int = 1):
-    """The (data, model) mesh over every rank, hosts-major: rank r has data
-    index r // model and model index r % model, so each model group is
-    ``model`` consecutive ranks.  ``model`` must divide the world size.
-    Every rank must call it with the same ``model`` (it makes process
-    groups, which every rank joins); a second call returns the same mesh."""
+def make_global_mesh(model: int = 1, ranks=None):
+    """The (data, model) mesh over ``ranks`` (every rank by default; a list
+    of distinct ranks of the group, e.g. the first d), hosts-major: the
+    rank at position p of ``ranks`` has data index p // model and model
+    index p % model, so each model group is ``model`` consecutive entries.
+    ``model`` must divide the number of ranks.  Every rank of the group
+    must call it with the same arguments, in the same order as the other
+    ranks (it makes process groups, which every rank joins, member or not);
+    a rank outside ``ranks`` gets None.  A second call returns the same
+    mesh."""
     from .mesh import Mesh
 
     proc = _joined()
     world, rank = dist.get_world_size(), dist.get_rank()
-    if model < 1 or world % model:
-        raise ValueError(f"model={model} must divide the world size "
-                         f"{world}")
-    if model in proc.meshes:
-        return proc.meshes[model]
-    data = world // model
-    i, j = rank_coords(rank, model)
-    model_ranks, data_ranks = mesh_groups(world, model)
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if (not ranks or len(set(ranks)) != len(ranks)
+            or any(not 0 <= r < world for r in ranks)):
+        raise ValueError(f"mesh ranks {ranks} must be distinct ranks of the "
+                         f"group of {world}")
+    if model < 1 or len(ranks) % model:
+        raise ValueError(f"model={model} must divide the number of mesh "
+                         f"ranks {len(ranks)} ({ranks})")
+    key = (model, tuple(ranks))
+    if key in proc.meshes:
+        return proc.meshes[key]
+    data = len(ranks) // model
+    model_ranks, data_ranks = (
+        [[ranks[p] for p in g] for g in groups]
+        for groups in mesh_groups(len(ranks), model))
     # every rank makes every group of more than one rank, in one order
-    made = [dist.new_group(r) for r in model_ranks if model > 1]
-    model_group = made[i] if made else None
-    made = [dist.new_group(r) for r in data_ranks if data > 1]
-    data_group = made[j] if made else None
-    mesh = Mesh(data, model, proc.device, model_group, data_group, i, j)
-    proc.meshes[model] = mesh
+    model_made = [dist.new_group(r) for r in model_ranks if model > 1]
+    data_made = [dist.new_group(r) for r in data_ranks if data > 1]
+    mesh = None
+    if rank in ranks:
+        i, j = rank_coords(ranks.index(rank), model)
+        mesh = Mesh(data, model, proc.device,
+                    model_made[i] if model_made else None,
+                    data_made[j] if data_made else None, i, j)
+    proc.meshes[key] = mesh
     return mesh
+
+
+def slowest(seconds) -> list[float]:
+    """Element-wise the largest of every rank's ``seconds`` (one list of the
+    same length on every rank; a rank with nothing to report passes
+    zeros): one ``all_reduce`` MAX over the gloo side group, so that a
+    time reported is the slowest rank's.  Every rank must call it; outside
+    a group it returns ``seconds``."""
+    if not joined():
+        return [float(s) for s in seconds]
+    t = torch.tensor([float(s) for s in seconds], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_process.side)
+    return t.tolist()
+
+
+def rank_device() -> torch.device:
+    """The device this process's rank computes on (``init_distributed``)."""
+    return _joined().device
 
 
 def _default_n1(n: int) -> int:
