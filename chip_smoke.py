@@ -13,10 +13,11 @@ script exits non-zero without printing a result:
 2. kernel against plain version, on the card: the fused kernels B1-B4, the
    digit-matmul kernels B5-B9, the five pairing kernels B10 and the
    sequence-parallel segment kernels B11, B12, B16 for every registered
-   parameter set plus n = 8192 on the qtesla-iii-speed prime,
-   B in {1, 3, 64}, random and worst-case operands, bit for bit (tolerance
-   0: every value is an exact residue); B9 also for the all-0 and all-(q-1)
-   diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
+   parameter set plus n = 8192 on the qtesla-iii-speed prime and the two
+   q30 sets (q = 2^30 - 2^18 + 1, 4q 1,048,572 below 2^32: n = 1024 and
+   8192, RUNTIME_SETS), B in {1, 3, 64}, random and worst-case operands,
+   bit for bit (tolerance 0: every value is an exact residue); B9 also for
+   the all-0 and all-(q-1) diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
    B10 pairing == B1 on the same inputs.  B3 takes inputs below 2q, B7
    below the MXU plan's pw_bound.  B9's prepare time (B6, host tables,
    copies) is printed per set.  B11-B16 run for every model axis k in
@@ -35,7 +36,7 @@ script exits non-zero without printing a result:
    random and all-(q-1) shards, B17 also against the twin that reads its
    compact K1, B18 on B17's own output after the
    exchange; the class path equals B1 and the SP path; building it for the
-   four-class qtesla-p-i and qtesla-p-iii raises.  B11, B16 (under p3 and
+   four-class qtesla-p-i, qtesla-p-iii and q30 sets raises.  B11, B16 (under p3 and
    p3x), B12-B15, B17 and B18 multiply only their tables' nonzero blocks in
    persistent blocks; each case also runs them on LONG_BATCH rows, so that
    every block walks over several row groups through both of its buffers,
@@ -50,7 +51,7 @@ script exits non-zero without printing a result:
    holds q - 1; B3 on rows below 2q, some at 2q - 1), against their twins
    (B1-B4 their plain versions) and B1, and prints each one's pass
    plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
-   the qtesla-iii-speed prime) on 300 rows with rows of q - 1 in both
+   the qtesla-iii-speed prime and at q = 2^30 - 2^18 + 1) on 300 rows with rows of q - 1 in both
    operands (B4: in x and its spectrum; B3: rows of 2q - 1; B2 also
    through B3 back to x), B2 and B3 also at 32768 (TRANSFORM_LENGTHS).
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
@@ -100,6 +101,16 @@ script exits non-zero without printing a result:
    oracle on ORACLE_ROWS, each rank's launches PROCESS_LAUNCHES; each
    path's time on the slowest rank (CUDA events, median of RANK_REPEATS),
    each rank's peak memory and the phase's wall time are printed.
+3d. q30 at full size: q30-n1024, B = 32768 seeded canonical operands with
+   row Q1_ROW all q - 1 in both, one random constant: every algo of
+   ALGORITHMS (the 16 of models/polymul.py), the fixed forms "fused",
+   "mxu" and "mxu-folded" and the inverses of the first two, the SP path
+   and both fixed SP pairs at k = 4 and the incomplete NTT at (1024, q),
+   launches against Q30_LAUNCHES; every product equal to B1's (the fixed
+   ones to B4's) bit for bit and to the C++ oracle on ORACLE_ROWS and
+   Q1_ROW.  Then each kernel B1-B16 (B16 also under p3x; the class path
+   refuses the set) timed, median of 40 calls, CUDA events, beside its
+   bound; phase 4 prints each beside the kernel's q-III time.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -193,6 +204,8 @@ from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
 from qtesla_tpu_torch.utils.build import BUILD_DIR, find_nvcc, load_library
+from qtesla_tpu_torch.utils.native import \
+    negacyclic_schoolbook as native_schoolbook
 from qtesla_tpu_torch.utils.sass_diff import issue_bound_ms, kernel_sass
 from qtesla_tpu_torch.utils.timing import time_cuda
 
@@ -205,6 +218,17 @@ LONG_BATCH = 9000
 # memory per block, the opt-in path above 48 KB; B5 holds 2 batch rows per
 # block and streams 22 MB of digit tables
 WIDE_SET = ("qtesla-iii-speed-n8192", 8192, 8404993)
+# q = 2^30 - 2^18 + 1: 4q is 1,048,572 below 2^32, the tightest lazy ranges
+# the kernels take ("q < 2^30, so 4q < 2^32"); its MXU plan takes four
+# digit classes (so the class path refuses it) and hands the forward on
+# canonical (fwd_bound = q), which no shipped set does
+Q30 = 1073479681
+Q30_SET = ("q30-n1024", 1024, Q30)
+Q30_WIDE_SET = ("q30-n8192", 8192, Q30)
+# the sets phase 2 registers beside the shipped five; those of n = 8192 run
+# the SP kernels at k = 4 alone
+RUNTIME_SETS = (WIDE_SET, Q30_SET, Q30_WIDE_SET)
+WIDE_NAMES = (WIDE_SET[0], Q30_WIDE_SET[0])
 # the sequence-parallel path's model axis on the main path
 SP_K = 4
 # every kernel: (registry entry, CUDA source)
@@ -221,7 +245,7 @@ EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
 # the sets of at most 3 digit classes whose class path phase 2 checks; the
 # four-class sets must refuse it
 CLASS_SETS = ("smallprime", "qtesla-i", "qtesla-iii-speed")
-FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii")
+FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii", Q30_SET[0], Q30_WIDE_SET[0])
 # the kernels redesigned last, and the medians their earlier designs (B13,
 # B14 and B15 modes of the dense sp_kernel, B17 a dense kernel of its own,
 # B1-B4 and B10's pairings a thread block a row with a barrier a stage, B7
@@ -243,7 +267,7 @@ EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
 # every length the pass kernels' plans take: (n, q), q prime and 1 mod 2n
 PASS_LENGTHS = ((2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
-                (2048, 12289), (4096, 40961), (8192, 8404993),
+                (2048, 12289), (4096, 40961), (8192, 8404993), (8192, Q30),
                 (16384, 786433))
 # the length the kernel of one transform (B2, B3) alone takes beyond them:
 # 1024 threads a row in three passes
@@ -282,6 +306,16 @@ PROCESS_LAUNCHES = {name: 0 for name in KERNELS} | {
     "polymul_mxu": 1, "ntt_mxu": 1, "polymul_fixed_mxu": 1, "sp_seg1": 10,
     "sp_seg2": 3, "sp_seg2_fwd": 2, "sp_seg2_fixed": 1, "sp_seg2_folded": 1,
     "sp_seg3": 6, "sp_seg1_classes": 2, "sp_seg2_classes": 1}
+# launches phase 3d's run makes at q30-n1024: B1, B5 and the five B10
+# pairings as algos; B2 and B4, B6 and B8, B6 and B9 the three fixed forms,
+# B3 and B7 their inverses; B11 twice in the SP path and in each fixed SP
+# prepare and multiply, B14 in each prepare, B16 ending each SP product; no
+# class-path launch (four digit classes)
+Q30_LAUNCHES = {name: 1 for name in KERNELS} | {
+    "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 3,
+    "sp_seg1_classes": 0, "sp_seg2_classes": 0}
+# phase 3d's row of q - 1 in both operands, checked beside ORACLE_ROWS
+Q1_ROW = MAIN_BATCH // 2
 # the incomplete NTT's (n, q) in phase 3b: ML-KEM's and NewHope's
 INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
 # timed calls of each phase-3b path (after one warmup)
@@ -293,8 +327,19 @@ CLI_TIMEOUT_S = 300
 CLI_RANKS = 2
 
 
-def phase(title: str):
-    print(f"== {title}", flush=True)
+# the running phase's title and start (host clock), for its seconds
+_PHASE = []
+
+
+def phase(title: str | None):
+    """Print the seconds the running phase took, then start ``title``
+    (None: the script's end)."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"phase {_PHASE[0]}: {now - _PHASE[1]:.1f} s", flush=True)
+    _PHASE[:] = [title, now]
+    if title is not None:
+        print(f"== {title}", flush=True)
 
 
 def done():
@@ -363,7 +408,8 @@ def fold_prep_seconds(name: str, a: torch.Tensor) -> tuple[float, float]:
 
 def kernels_against_plain(errors: dict) -> None:
     dev = torch.device("cuda")
-    register_param_set(*WIDE_SET)
+    for entry in RUNTIME_SETS:
+        register_param_set(*entry)
     for name in available_param_sets():
         tbl = get_tables(name)
         start = time.perf_counter()
@@ -542,7 +588,8 @@ def sp_against_plain(errors: dict) -> None:
     """B11-B16 against their twins for every set and model axis, the whole
     SP path against B1 and both fixed SP paths against B4."""
     cases = [(name, k) for name in available_param_sets()
-             if name != WIDE_SET[0] for k in (2, 4, 8)] + [(WIDE_SET[0], 4)]
+             if name not in WIDE_NAMES for k in (2, 4, 8)] + [
+                 (name, 4) for name in WIDE_NAMES]
     for name, k in cases:
         start = time.perf_counter()
         try:
@@ -817,7 +864,8 @@ def classes_against_plain(errors: dict) -> None:
         try:
             polymul_fourstep_mxu_classes_fn(name, make_mesh(model=4))
         except ValueError as e:
-            print(f"{name}: building the class path raises, as it must: {e}")
+            print(f"{name}: building the class path raises, as it must, so "
+                  f"B17 and B18 do not run at this set: {e}")
         else:
             raise AssertionError(f"{name}: the class path was built for "
                                  f"four digit classes")
@@ -1329,6 +1377,118 @@ def ranks_on_the_card(ctx: dict, device_line: str) -> None:
           f"[{device_line}]")
 
 
+def q30_full_size(device_line: str) -> dict:
+    """Phase 3d: every path at q30-n1024 (q = 2^30 - 2^18 + 1), B = 32768
+    seeded canonical operands with row Q1_ROW all q - 1 in both and one
+    random constant: every algo of ALGORITHMS, the fixed forms "fused" (B2,
+    B4), "mxu" (B6, B8) and "mxu-folded" (B6, B9) and their inverses (B3,
+    B7), the SP path and both fixed SP pairs at k = SP_K, and the
+    incomplete NTT at (1024, q); their launches in one counted run against
+    Q30_LAUNCHES.  Every product equals B1's (the fixed ones B4's) bit for
+    bit and the C++ oracle on ORACLE_ROWS and Q1_ROW; B6's spectrum equals
+    B2's, the inverses give the constant back.  Then each kernel's time
+    (median of 40 calls, CUDA events, no plain twin) beside its bound,
+    returned for phase 4 to print beside the q-III times."""
+    name, n, q = Q30_SET
+    B = MAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def draw(rows):
+        return torch.randint(0, q, (rows, n), generator=gen, device="cuda",
+                             dtype=torch.int64)
+
+    x, y = draw(B), draw(B)
+    x[Q1_ROW], y[Q1_ROW] = q - 1, q - 1
+    x, y = x.to(torch.uint32), y.to(torch.uint32)
+    a = draw(1).to(torch.uint32)
+    print(f"3d operands: {name} (n={n}, q={q}), torch.Generator(device="
+          f"'cuda') seed {SEED}, B={B}, row {Q1_ROW} all q - 1 in x and y, "
+          f"one random constant")
+    mesh = make_mesh(model=SP_K)
+    sp = polymul_fourstep_mxu_fn(name, mesh)
+    sp_fixed = polymul_fixed_fourstep_mxu_fn(name, mesh)
+    sp_folded = polymul_fixed_folded_fourstep_mxu_fn(name, mesh)
+    fixed_fns = {algo: polymul_fixed_fn(name, algo)
+                 for algo in ("fused", "mxu", "mxu-folded")}
+    incomplete = polymul_incomplete_fn(n, q)
+    inc_p = INC.incomplete_params(n, q)
+    done()
+
+    for k, _ in KERNELS.values():
+        k.launches = 0
+    z, zf, spectra, path_s = {}, {}, {}, {}
+    for algo in ALGORITHMS:
+        path_s[algo], z[algo] = _seconds(polymul_negacyclic, x, y, name,
+                                         algo)
+    for algo, (prep, mul) in fixed_fns.items():
+        spectra[algo] = prep(a)
+        zf[algo] = mul(x, spectra[algo])
+    backs = {algo: intt(spectra[algo], name, algo)
+             for algo in ("fused", "mxu")}
+    path_s[f"SP k={SP_K}"], z[f"SP k={SP_K}"] = _seconds(sp, x, y)
+    zf[f"fixed SP k={SP_K}"] = sp_fixed[1](x, sp_fixed[0](a))
+    zf[f"folded SP k={SP_K}"] = sp_folded[1](x, *sp_folded[0](a))
+    path_s["incomplete"], z["incomplete"] = _seconds(incomplete, x, y)
+    back_inc = INC.intt_incomplete(INC.ntt_incomplete(x, inc_p), inc_p)
+    done()
+    launches = {k: kern.launches for k, (kern, _) in KERNELS.items()}
+    print(f"3d launches: { {k: v for k, v in launches.items() if v} }")
+    if launches != Q30_LAUNCHES:
+        raise AssertionError(f"phase 3d launch counts {launches}, expected "
+                             f"{Q30_LAUNCHES}")
+    print("3d seconds a path (host clock, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in path_s.items()), flush=True)
+
+    for what, got in z.items():
+        expect_canonical(f"3d {what}", got, (B, n), q)
+        expect_equal(f"3d {what} == B1", got, z["fused"])
+    for what, got in zf.items():
+        expect_canonical(f"3d fixed {what}", got, (B, n), q)
+        expect_equal(f"3d fixed {what} == B4", got, zf["fused"])
+    expect_equal("3d B6 spectrum == B2 spectrum", spectra["mxu"],
+                 spectra["fused"])
+    for algo, back in backs.items():
+        expect_equal(f"3d intt(ntt(a)) {algo}", back, a)
+    expect_equal("3d incomplete intt(ntt(x)) == x", back_inc, x)
+    rows = list(ORACLE_ROWS) + [Q1_ROW]
+    idx = torch.tensor(rows, device="cuda")
+    xr, yr = (t.index_select(0, idx).cpu().numpy() for t in (x, y))
+    want = native_schoolbook(xr, yr, q)
+    want_f = native_schoolbook(xr, np.broadcast_to(a.cpu().numpy(), xr.shape),
+                               q)
+    for table, oracle in ((z, want), (zf, want_f)):
+        for what, got in table.items():
+            if not np.array_equal(got.index_select(0, idx).cpu().numpy(),
+                                  oracle):
+                raise AssertionError(f"3d {what}: rows {rows} differ from "
+                                     f"the C++ oracle")
+    print(f"3d: every algo of ALGORITHMS ({len(ALGORITHMS)}), the SP path "
+          f"at k={SP_K} and the incomplete NTT equal B1 bit for bit at "
+          f"B={B}, the fixed forms (fused, mxu, mxu-folded, fixed and folded "
+          f"SP) B4, B6's spectrum B2's, intt(ntt(a)) == a (B3, B7); all "
+          f"equal the C++ oracle on rows {rows}", flush=True)
+    del z, zf, backs, back_inc
+
+    runs, rc = kernel_runs(name, x, y, classes=False)
+    work = kernel_work(name, B, rc.fold, classes=False)
+    times = {}
+    for kname, (kern, _, args) in runs.items():
+        samples = []
+        for _ in range(2):
+            samples += time_cuda(kern, *args, warmup=3,
+                                 repeats=20).samples_ms
+        lo, med = min(samples), float(np.median(samples))
+        times[kname] = (lo, med, bound(*work[kname]))
+        bms, by = times[kname][2]
+        print(f"3d timing {kname}: {name} B={B} min {lo:.4f} ms median "
+              f"{med:.4f} ms over {len(samples)} calls; bound {bms:.4f} ms "
+              f"({by}) [{device_line}]", flush=True)
+    del runs, rc
+    torch.cuda.empty_cache()
+    return times
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1348,9 +1508,11 @@ def _sp_macs(w: torch.Tensor, din: int, rows: int, plans) -> int:
     return rows * din * D * tiles * int(pairs.sum())
 
 
-def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
-    """Per kernel, at the timing phase's shapes (qtesla-iii-speed, B rows,
-    ``sp_fold`` the timed constant's folded SP operand): the bytes it must move
+def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
+                classes: bool = True) -> dict:
+    """Per kernel, at a timing's shapes (set ``name``, B rows, the SP
+    kernels at k = SP_K, ``sp_fold`` the timed constant's folded SP operand;
+    B17 and B18 with ``classes``): the bytes it must move
     (each input, tables included, read once, the output written once) and
     its int8 tensor-core MACs (the digit products at their plans' depth,
     the padding and the SP tables' zero blocks excluded).  B11, B16, B17 and
@@ -1361,9 +1523,9 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
     reads the same work whatever implements it.  B5's, B6's, B8's and B9's
     tables are counted once, as ``wf`` and ``wi`` (B6: ``wf`` alone; B9:
     ``wf`` and the constant's W'), whatever stream they read them in."""
-    tbl = get_tables(MAIN_SET)
-    mt = get_mxu_tables(MAIN_SET)
-    plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
+    tbl = get_tables(name)
+    mt = get_mxu_tables(name)
+    plans = fourstep_mxu_plans(name, _n1(name), SP_K)
     n = tbl.n
     row, spec, tw = 4 * B * n, 4 * n, 16 * n
     mtabs = M.host_tables(mt)
@@ -1403,8 +1565,10 @@ def kernel_work(B: int, sp_fold: S.FoldedSpOperand) -> dict:
                              m2f + m2i)
     work["sp_seg2_fwd"] = (2 * row + _nbytes(st.w2fc, st.c2f), m2f)
     work["sp_seg2_folded"] = (2 * row + _nbytes(*sp_fold), mx)
+    if not classes:
+        return work
     # B17 writes Dout class planes a value; B18 reads them for x and y
-    cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
+    cp = class_boundary_plan(name, plans.n1, SP_K)
     w2c, c2c = C.host_class_tables(cp)
     w2cc = C.host_compact_class_table(cp, plans)
     D = cp.Dout
@@ -1441,25 +1605,23 @@ def _turns(kern, plain, args, counter=None) -> dict:
             for which, v in samples.items()}
 
 
-def timing(device_line: str) -> dict:
-    tbl = get_tables(MAIN_SET)
-    mt = get_mxu_tables(MAIN_SET)
-    n, q, B = tbl.n, tbl.q, MAIN_BATCH
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
-                          dtype=torch.int64).to(torch.uint32) for _ in range(2))
+def kernel_runs(name: str, x: torch.Tensor, y: torch.Tensor,
+                classes: bool = True) -> tuple[dict, types.SimpleNamespace]:
+    """Each kernel's (wrapper, plain version, arguments) on set ``name``'s
+    (B, n) operands x and y: B8 and B9 against y[0]'s spectrum, the SP
+    kernels at k = SP_K on the path's own intermediates, B13 and B15
+    against y[0]'s SP spectrum, B17 and B18 with ``classes``; and the SP
+    plans, shards, spectrum, folded operand and class plan they take."""
+    tbl = get_tables(name)
+    mt = get_mxu_tables(name)
     spec = F.ntt_fused(y[:1], tbl)
     op = M.fold_operand(spec, mt)
-    plans = fourstep_mxu_plans(MAIN_SET, _n1(MAIN_SET), SP_K)
+    plans = fourstep_mxu_plans(name, _n1(name), SP_K)
     sx, sy = (S.to_shards(t, plans) for t in (x, y))
     vx, vy = (S.a2a_fwd(S.sp_seg1(t, plans), plans) for t in (sx, sy))
     sw = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
     aspec = S.fixed_spectrum(y[0], plans)
     fold = _fold(plans, aspec)
-    cp = class_boundary_plan(MAIN_SET, plans.n1, SP_K)
-    ux, uy = (C.a2a_fwd_classes(C.sp_seg1_classes(t, plans, cp), plans,
-                                cp.Dout) for t in (sx, sy))
     runs = {
         "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
         "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
@@ -1488,12 +1650,34 @@ def timing(device_line: str) -> dict:
         "sp_seg3 p3x": (functools.partial(S.sp_seg3, folded=True),
                         functools.partial(S.seg3_plain, folded=True),
                         (sw, plans)),
-        "sp_seg1_classes": (C.sp_seg1_classes, C.seg1_classes_plain,
-                            (sx, plans, cp)),
-        "sp_seg2_classes": (C.sp_seg2_classes, C.seg2_classes_plain,
-                            (ux, uy, plans, cp)),
     }
-    work = kernel_work(B, fold)
+    ctx = types.SimpleNamespace(plans=plans, sx=sx, vx=vx, aspec=aspec,
+                                fold=fold, cp=None)
+    if classes:
+        ctx.cp = cp = class_boundary_plan(name, plans.n1, SP_K)
+        ux, uy = (C.a2a_fwd_classes(C.sp_seg1_classes(t, plans, cp), plans,
+                                    cp.Dout) for t in (sx, sy))
+        runs["sp_seg1_classes"] = (C.sp_seg1_classes, C.seg1_classes_plain,
+                                   (sx, plans, cp))
+        runs["sp_seg2_classes"] = (C.sp_seg2_classes, C.seg2_classes_plain,
+                                   (ux, uy, plans, cp))
+    return runs, ctx
+
+
+def timing(device_line: str, q30_times: dict) -> dict:
+    """Phase 4 (module docstring); each kernel's phase-3d time at q30-n1024
+    (``q30_times``) printed beside its q-III time."""
+    tbl = get_tables(MAIN_SET)
+    mt = get_mxu_tables(MAIN_SET)
+    n, q, B = tbl.n, tbl.q, MAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint32) for _ in range(2))
+    runs, rc = kernel_runs(MAIN_SET, x, y)
+    plans, sx, vx, aspec, fold, cp = (rc.plans, rc.sx, rc.vx, rc.aspec,
+                                      rc.fold, rc.cp)
+    work = kernel_work(MAIN_SET, B, fold)
     out = {}
     for name, (kern, plain, args) in runs.items():
         res = _turns(kern, plain, args, KERNELS[name.split()[0]][0])
@@ -1515,6 +1699,12 @@ def timing(device_line: str) -> dict:
                   f"{bms:.4f} ms [{device_line}]", flush=True)
         out[name] = res
     med = {name: res["kernel"][1] for name, res in out.items()}
+    for name, (_, med30, (b30, by30)) in q30_times.items():
+        b3, by3 = out[name]["bound"]
+        print(f"q30 beside q-III {name}: {Q30_SET[0]} median {med30:.4f} ms, "
+              f"{MAIN_SET} median {med[name]:.4f} ms (ratio "
+              f"{med30 / med[name]:.4f}), bounds {b30:.4f} ms ({by30}) and "
+              f"{b3:.4f} ms ({by3}), B={B} [{device_line}]", flush=True)
     # the pass kernels' instruction-issue bound, from their SASS: at n =
     # 1024 every instruction of the kernels built for that length
     # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10,ops>,
@@ -1884,12 +2074,16 @@ def main() -> int:
     ranks_on_the_card(ctx, device_line)
     del ctx
 
+    phase("3d q30 at full size")
+    q30_times = q30_full_size(device_line)
+
     phase("4 timing")
-    times = timing(device_line)
+    times = timing(device_line, q30_times)
 
     phase("5 the CLI on the card")
     cli_on_the_card(times, device_line)
 
+    phase(None)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "qtesla_tpu"))
     if loaded:

@@ -11,7 +11,9 @@
   raises.
 - CPU tensors run the plain versions: no kernel's launch count moves.
 - Tests marked ``cuda`` compare each kernel with its plain version on the
-  card; without one they skip.  On a GPU host run them with
+  card; without one they skip.  The cases take the five shipped sets, n =
+  8192 and the two q30 sets (q = 1073479681, n = 1024 and 8192), the
+  last three registered by an autouse fixture.  On a GPU host run them with
   ``python -m pytest tests/test_torch_device.py -m cuda --noconftest -q``
   (``--noconftest`` because tests/conftest.py imports jax).
 
@@ -45,10 +47,25 @@ from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
 from qtesla_tpu_torch.utils import build
 
 REPO = Path(__file__).resolve().parent.parent
-SETS = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
-        "qtesla-p-iii"]
 # n = 8192: B1 needs 64 KB of shared memory per block (opt-in above 48 KB)
 WIDE = ("qtesla-iii-speed-n8192", 8192, 8404993)
+# q = 2^30 - 2^18 + 1: 4q is 1,048,572 below 2^32, the tightest lazy ranges
+# the kernels take; four digit classes, so the class path refuses it
+Q30 = ("q30-n1024", 1024, 1073479681)
+Q30_WIDE = ("q30-n8192", 8192, 1073479681)
+SETS = ["smallprime", "qtesla-i", "qtesla-iii-speed", "qtesla-p-i",
+        "qtesla-p-iii", Q30[0]]
+# the n = 8192 sets, which run the SP kernels at k = 4 alone
+WIDE_SETS = [WIDE[0], Q30_WIDE[0]]
+# the sets of four digit classes: building the class path raises
+FOUR_CLASS_SETS = ("qtesla-p-i", "qtesla-p-iii", Q30[0], Q30_WIDE[0])
+
+
+@pytest.fixture(autouse=True)
+def runtime_sets():
+    """Registers the sets beyond the shipped five in the port's registry."""
+    for entry in (WIDE, Q30, Q30_WIDE):
+        register_param_set(*entry)
 
 _CPU_SLICE = """
 import sys
@@ -725,7 +742,7 @@ def test_sp_plan_matches_kernel_limits(name, k):
 # every set of at most 3 digit classes with each model axis its split takes,
 # and n = 8192 at k = 4
 CLASS_CASES = [(name, k) for name, k in SP_CASES
-               if not name.startswith("qtesla-p-")] + [(WIDE[0], 4)]
+               if name not in FOUR_CLASS_SETS] + [(WIDE[0], 4)]
 
 
 @pytest.mark.parametrize("name,k", CLASS_CASES)
@@ -738,8 +755,6 @@ def test_class_plan_matches_kernel_limits(name, k):
     K1's blocks) with the rows and route that leave room for its staged
     class sums (D planes of rows of TW + 2 words) and p1's class
     bounds."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     n1 = 1 << (get_tables(name).logn // 2)
     plans = fourstep_mxu_plans(name, n1, k)
     cp = class_boundary_plan(name, n1, k)
@@ -794,14 +809,12 @@ def test_class_plan_matches_kernel_limits(name, k):
     assert shared + (8 if p2.smem_tables else 1) * warp + 1024 <= 233472
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg1_compact_plan_matches_kernel_limits(name, k):
     """B11's compact plan: the dense plan's split, blocks of max(Bk, 8)
     lanes in lambda-major order, the depth padded to 32, rows and route
     within a block's shared memory; the tables sit in shared memory at every
-    shape but the two whose shard tables pass 150 KiB."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
+    shape but those whose shard tables pass 150 KiB."""
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     dense, plan = S.plan_for(plans, "sp_seg1"), S.seg1_compact_plan(plans)
     for f, _ in S.SpPlan._fields_:
@@ -814,8 +827,8 @@ def test_seg1_compact_plan_matches_kernel_limits(name, k):
     tables = plans.A * plan.d * plans.TW * kp
     assert tuple(S.host_tables(plans).w1c.shape[1:]) == (
         plans.A, plans.TW // s, plan.d * s, kp)
-    assert plan.smem_tables == ((name, k) not in (("qtesla-p-iii", 2),
-                                                  (WIDE[0], 4)))
+    assert plan.smem_tables == (name not in WIDE_SETS
+                                and (name, k) != ("qtesla-p-iii", 2))
     assert 0 < plan.rows <= 32
     smem = ((2 * plan.rows + 1) * plans.nloc * 4
             + -(-plan.rows // 16) * 16 * S.planes_stride(plans.TW // s, kp)
@@ -823,14 +836,12 @@ def test_seg1_compact_plan_matches_kernel_limits(name, k):
     assert smem + 1024 <= 233472
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg3_compact_plan_matches_kernel_limits(name, k):
     """B16's compact plans, p3 and p3x: the dense plan's split, K3's blocks
     in the layout of K1 (max(Bk, 8) lanes, lambda-major), the depth padded
     to 32, rows and route within a block's shared memory, and the same
     rows and route as B11 wherever the depth is B11's."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     tabs = S.host_tables(plans)
     p11 = S.seg1_compact_plan(plans)
@@ -867,7 +878,7 @@ def test_seg3_compact_plan_matches_kernel_limits(name, k):
         assert S.plan_for(plans, "sp_seg3").kp1 == 512
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg2_compact_plan_matches_kernel_limits(name, k):
     """B12's plan: the dense plan's fields but its depths, one input plane
     split under p2f (4 planes of base 256: the byte permutes), each warp
@@ -877,8 +888,6 @@ def test_seg2_compact_plan_matches_kernel_limits(name, k):
     two-unit warps leave room for 5, and n = 8192), at least one warp
     fitting a block either way, and the classes the kernel's slots take (at
     most 4)."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     dense, plan = S.plan_for(plans, "sp_seg2"), S.seg2_compact_plan(plans)
     for f, _ in S.SpPlan._fields_:
@@ -908,7 +917,7 @@ def test_seg2_compact_plan_matches_kernel_limits(name, k):
             + 16 * S.planes_stride(1, plan.c2.kp))
     assert plan.smem_tables == (2 * s * 4 + tables + 8 * warp + 1024
                                 <= 233472)
-    assert plan.smem_tables == (name not in (WIDE[0], "qtesla-p-iii"))
+    assert plan.smem_tables == (name not in WIDE_SETS + ["qtesla-p-iii"])
     shared = 2 * s * 4 + plan.smem_tables * tables
     assert shared + (8 if plan.smem_tables else 1) * warp + 1024 <= 233472
     if (name, k) == ("qtesla-iii-speed", 4):
@@ -916,7 +925,7 @@ def test_seg2_compact_plan_matches_kernel_limits(name, k):
         assert (dense.kp1, dense.kp2) == (512, 384)
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
     """B13's plan: B12's split, layouts and depths over the same compact K2f
     and K2i, each warp 32 rows of x (two units' rows, each a product row),
@@ -924,8 +933,6 @@ def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
     memory where they leave room for 8 warps' planes (everywhere but
     qtesla-p-iii and n = 8192, and at qtesla-iii-speed, k = 4), at least one
     warp fitting a block either way, and at most the kernel's 4 slots."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     dense = S.plan_for(plans, "sp_seg2_fixed")
     plan, p12 = S.seg2_fixed_compact_plan(plans), S.seg2_compact_plan(plans)
@@ -951,7 +958,7 @@ def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
                  + S.planes_stride(1, plan.c2.kp))
     const = 3 * s * 4
     assert plan.smem_tables == (const + tables + 8 * warp + 1024 <= 233472)
-    assert plan.smem_tables == (name not in (WIDE[0], "qtesla-p-iii"))
+    assert plan.smem_tables == (name not in WIDE_SETS + ["qtesla-p-iii"])
     shared = const + plan.smem_tables * tables
     assert shared + (8 if plan.smem_tables else 1) * warp + 1024 <= 233472
     if (name, k) == ("qtesla-iii-speed", 4):
@@ -959,7 +966,7 @@ def test_seg2_fixed_compact_plan_matches_kernel_limits(name, k):
                                                                  1)
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
     """B15's plan: the dense plan's fields but its depths, one input plane
     split under p2x, each warp 32 rows of x through one product against the
@@ -969,8 +976,6 @@ def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
     (everywhere but n = 8192), at least one warp fitting a block either way,
     and at most the kernel's 4 slots; the compact operand has the blocks'
     shape the kernel indexes."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     dense = S.plan_for(plans, "sp_seg2_folded")
     plan = S.seg2_folded_compact_plan(plans)
@@ -994,7 +999,7 @@ def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
     warp = 32 * S.planes_stride(1, plan.c1.kp)
     const = s * 4
     assert plan.smem_tables == (const + table + 8 * warp + 1024 <= 233472)
-    assert plan.smem_tables == (name != WIDE[0])
+    assert plan.smem_tables == (name not in WIDE_SETS)
     assert const + plan.smem_tables * table + (
         8 if plan.smem_tables else 1) * warp + 1024 <= 233472
     W, c = fourstep_fold_tables(plans, np.zeros(plans.n, dtype=np.uint32))
@@ -1007,7 +1012,7 @@ def test_seg2_folded_compact_plan_matches_kernel_limits(name, k):
         assert table == 9216
 
 
-@pytest.mark.parametrize("name,k", SP_CASES + [(WIDE[0], 4)])
+@pytest.mark.parametrize("name,k", SP_CASES + [(w, 4) for w in WIDE_SETS])
 def test_seg2_fwd_compact_plan_matches_kernel_limits(name, k):
     """B14's plan: the dense plan's fields but its depths, one input plane
     split under p2f, each warp 32 rows of x through one product against
@@ -1016,8 +1021,6 @@ def test_seg2_fwd_compact_plan_matches_kernel_limits(name, k):
     shared memory where it leaves room for 8 warps' planes (everywhere but
     n = 8192), at least one warp fitting a block either way, and at most
     the kernel's 4 slots."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     plans = fourstep_mxu_plans(name, 1 << (get_tables(name).logn // 2), k)
     dense = S.plan_for(plans, "sp_seg2_fwd")
     plan, p12 = S.seg2_fwd_compact_plan(plans), S.seg2_compact_plan(plans)
@@ -1040,7 +1043,7 @@ def test_seg2_fwd_compact_plan_matches_kernel_limits(name, k):
     warp = 32 * S.planes_stride(1, plan.c1.kp)
     const = s * 4
     assert plan.smem_tables == (const + table + 8 * warp + 1024 <= 233472)
-    assert plan.smem_tables == (name != WIDE[0])
+    assert plan.smem_tables == (name not in WIDE_SETS)
     assert const + plan.smem_tables * table + (
         8 if plan.smem_tables else 1) * warp + 1024 <= 233472
     assert tuple(S.host_tables(plans).w2fc.shape) == (plans.TW // s,
@@ -1092,10 +1095,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_kernels_match_plain_on_card(cuda_device, name):
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(21)
@@ -1129,14 +1130,12 @@ def test_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_mxu_kernels_match_plain_on_card(cuda_device, name):
     """B5-B8 against their twins; B7 takes inputs below pw_bound; B5, B6, B8
     and B9 also at 9000 rows, so that every persistent block walks several
     row groups through the ring of table stages, with rows of q - 1 and B8
     against a spectrum that holds q - 1 and one that is all q - 1."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     mt = get_mxu_tables(name)
     q, n = mt.q, mt.n
     rng = np.random.default_rng(22)
@@ -1198,12 +1197,10 @@ def test_mxu_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_folded_and_pairing_kernels_match_plain_on_card(cuda_device, name):
     """B9 against its twin and B8, for a random, an all-0 and an all-(q-1)
     diagonal; each B10 pairing against its twin and B1."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     mt = get_mxu_tables(name)
     q, n = tbl.q, tbl.n
@@ -1375,7 +1372,7 @@ def test_pass_launchers_refuse_plans_they_cannot_run(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_b4_b7_match_plain_on_card(cuda_device, name):
     """B4 (B1's register passes with one operand) and B7 (the stream
     kernel's inverse mode) against their twins at B in {1, 3, 64, 9000}
@@ -1383,8 +1380,6 @@ def test_b4_b7_match_plain_on_card(cuda_device, name):
     with rows of q - 1 against a spectrum that holds q - 1, the all-(q-1)
     one and one not 16-byte aligned; B7 on lazy rows below pw_bound, some
     at pw_bound - 1.  Each call launches its kernel once."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     mt = get_mxu_tables(name)
     q, n = tbl.q, tbl.n
@@ -1474,7 +1469,7 @@ def test_b4_b7_launchers_refuse_plans_they_cannot_run(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_b3_b15_match_plain_on_card(cuda_device, name):
     """B3 (B4's inverse passes alone) and B15 (the row segment kernel's
     folded mode over F's nonzero blocks) against their twins at B in {1, 3,
@@ -1483,8 +1478,6 @@ def test_b3_b15_match_plain_on_card(cuda_device, name):
     takes (k = 4 at n = 8192) on x with rows of q - 1 against a constant
     whose spectrum holds q - 1, against the twin over its compact blocks and
     the dense one.  Each call launches its kernel once."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(27)
@@ -1610,7 +1603,7 @@ def test_b3_b15_launchers_refuse_plans_they_cannot_run(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_b2_b14_match_plain_on_card(cuda_device, name):
     """B2 (B4's forward passes alone) and B14 (the row segment kernel's
     forward mode over K2f's nonzero blocks) against their twins at B in {1,
@@ -1619,14 +1612,12 @@ def test_b2_b14_match_plain_on_card(cuda_device, name):
     model axis the set's split takes (k = 4 at n = 8192) on x with rows of
     q - 1, on all shards and on one, against the twin over its compact
     blocks and the dense one.  Each call launches its kernel once."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(28)
     b2, b14 = F.KERNELS["ntt_fused"], S.KERNELS["sp_seg2_fwd"]
     splits = []
-    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+    for k in ((4,) if name in WIDE_SETS else (2, 4, 8)):
         try:
             splits.append(fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k))
         except ValueError:
@@ -1690,20 +1681,18 @@ def test_b2_at_every_length_on_card(cuda_device, n, q):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_b14_through_both_sp_prepares_on_card(cuda_device, name):
     """The fixed and the folded SP prepare each launch B14 once, on their
     constant's one row a shard, at every model axis the set's split takes
     (k = 4 at n = 8192): the spectrum the fixed prepare returns equals the
     dense twin's (``seg2_fwd_plain`` after B11's twin and the exchange), and
     the folded operand is the one built on the host from that spectrum."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(29)
     b14 = S.KERNELS["sp_seg2_fwd"]
-    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+    for k in ((4,) if name in WIDE_SETS else (2, 4, 8)):
         try:
             plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
         except ValueError:
@@ -1796,13 +1785,11 @@ def test_b2_b14_launchers_refuse_plans_they_cannot_run(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_sp_kernels_match_plain_on_card(cuda_device, name):
     """B11, B12 and B16 against their twins for every model axis the set's
     split takes, one launch each per call, over all shards and over one
     shard of the middle; the whole path equals B1."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(24)
@@ -1842,13 +1829,11 @@ def test_sp_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_sp_fixed_kernels_match_plain_on_card(cuda_device, name):
     """B13, B14, B15 and B16 under p3x against their twins for every model
     axis the set's split takes, B13 and B15 for a random, an all-0 and an
     all-(q-1) spectrum; both fixed paths equal B4 and each other."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(25)
@@ -1900,14 +1885,12 @@ def test_sp_fixed_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [n for n in SETS if not n.startswith(
-    "qtesla-p-")] + [WIDE[0]])
+@pytest.mark.parametrize("name", [n for n in SETS if n not in FOUR_CLASS_SETS]
+                         + [WIDE[0]])
 def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
     """B17 and B18 against their twins for every model axis the set's split
     takes, one launch each per call, B18 on B17's own output; the class
     path equals B1 and the SP path."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q, n = tbl.q, tbl.n
     rng = np.random.default_rng(26)
@@ -1947,7 +1930,7 @@ def test_sp_class_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS + [WIDE[0]])
+@pytest.mark.parametrize("name", SETS + WIDE_SETS)
 def test_compact_kernels_match_plain_on_card(cuda_device, name):
     """B11, B16 (under p3 and p3x), B12, B13, B17 and B18 (the kernels
     over the tables' nonzero blocks) against the twins that read the same
@@ -1957,17 +1940,15 @@ def test_compact_kernels_match_plain_on_card(cuda_device, name):
     groups (through both of its buffers), on all shards and on one; B13
     against a canonical spectrum and one of uint32 values up to
     2^32 - 1."""
-    if name == WIDE[0]:
-        register_param_set(*WIDE)
     tbl = get_tables(name)
     q = tbl.q
     rng = np.random.default_rng(27)
-    for k in ((4,) if name == WIDE[0] else (2, 4, 8)):
+    for k in ((4,) if name in WIDE_SETS else (2, 4, 8)):
         try:
             plans = fourstep_mxu_plans(name, 1 << (tbl.logn // 2), k)
         except ValueError:
             continue
-        cp = (None if name.startswith("qtesla-p-")
+        cp = (None if name in FOUR_CLASS_SETS
               else class_boundary_plan(name, plans.n1, k))
         d = k // 2
         for batch in (1, 3, 64, 9000):

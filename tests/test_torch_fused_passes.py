@@ -177,7 +177,9 @@ def test_fused_twin_pads_whole_blocks(rows):
 
 
 # every length chip_smoke.py checks the pass kernels at on the card (its
-# PASS_LENGTHS): (n, q), q prime and 1 mod 2n
+# PASS_LENGTHS, but for its second prime at n = 8192, q = 1073479681, whose
+# twins tests/test_torch_near_2pow30.py holds at n = 64 and 1024): (n, q),
+# q prime and 1 mod 2n
 PASS_LENGTHS = [(2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
                 (2048, 12289), (4096, 40961), (8192, 8404993),
