@@ -53,7 +53,17 @@ script exits non-zero without printing a result:
    plan; then at every length from 2 to 16384 (PASS_LENGTHS, n = 8192 at
    the qtesla-iii-speed prime and at q = 2^30 - 2^18 + 1) on 300 rows with rows of q - 1 in both
    operands (B4: in x and its spectrum; B3: rows of 2q - 1; B2 also
-   through B3 back to x), B2 and B3 also at 32768 (TRANSFORM_LENGTHS).
+   through B3 back to x); at the lengths whose rows span a thread-block
+   cluster (CLUSTER_LENGTHS: n = 32768, 65536 at 786433 and q30, 131072;
+   also at B in {1, 3, 64}), and B2 and B3 also at 262144
+   (TRANSFORM_LENGTHS).  B5-B9 at n = 8 and 16 (SMALL_RINGS, lane packed:
+   32 / n rows a row of 32 lanes) against their twins and B1-B4's plain
+   versions, random and worst-case, B in {1, 3, 64, 9000}.  Then the
+   registration sweep (utils/fuzz_params.py, SWEEP: one prime a bit size
+   from 15 to 30 at n = 64 and 256, four at n = 2048) through B1-B16, B17
+   and B18 at most 3 classes, against their twins, B1 and 2 C++ oracle
+   rows a prime, each prime's plan printed; it fails unless the plans
+   reached a split of base 128 and two digit classes.
 3. main path at qtesla-iii-speed, B = 32768, through the entry points:
    polymul_negacyclic(algo="mxu"), the default fixed-operand pair of
    polymul_fixed_fn (B6, B8), intt(algo="mxu"), the same three with
@@ -111,6 +121,15 @@ script exits non-zero without printing a result:
    Q1_ROW.  Then each kernel B1-B16 (B16 also under p3x; the class path
    refuses the set) timed, median of 40 calls, CUDA events, beside its
    bound; phase 4 prints each beside the kernel's q-III time.
+3e. large rings: q30 at n = 32768, B = 1024, and 65536, B = 512 (128 MiB
+   an operand; LARGE_RINGS), row 1 all q - 1 in both operands, one random
+   constant: polymul_negacyclic "fused" (B1) and the five
+   "<pairing>_kernel" algos, polymul_fixed_fn "fused" (B2, B4), ntt and
+   intt "fused" (B3(B2(x)) == x) and at n = 32768 the SP path at k = 4, n1
+   = 256 (B11 twice, B12, B16); launches against large_launches, each
+   product against B1 and 4 C++ oracle rows (LARGE_ORACLE_ROWS); then B1-B4
+   and the pairings timed there (median of 40, the plain version of 6)
+   beside their bytes bound and the blocks of their rows' cluster.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -143,7 +162,8 @@ script exits non-zero without printing a result:
    variables; each rank waited on and killed in any case), whose rows must
    carry the shared-card caveat.
 
-It prints a JSON line of the kernels (each with its bound: the larger of
+It prints a JSON line of the kernels (launches: phase 3's and phase 3e's
+summed; each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
 over 1979 TOP/s; no single PyTorch call computes a negacyclic product mod
 q, so library_ms is null), the nvidia-smi line, and last
@@ -160,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import types
@@ -170,7 +191,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from qtesla_tpu_torch import (available_param_sets, get_params,
                               polymul_negacyclic_oracle, register_param_set)
-from qtesla_tpu_torch.models import (ALGORITHMS, intt,
+from qtesla_tpu_torch.models import (ALGORITHMS, intt, ntt,
                                      local_fixed_pipeline_fn,
                                      local_pipeline_classes_fn,
                                      local_pipeline_fn, make_mesh,
@@ -203,6 +224,7 @@ from qtesla_tpu_torch.parallel import sharded_mxu as S
 from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
+from qtesla_tpu_torch.utils import fuzz_params as FZ
 from qtesla_tpu_torch.utils.build import BUILD_DIR, find_nvcc, load_library
 from qtesla_tpu_torch.utils.native import \
     negacyclic_schoolbook as native_schoolbook
@@ -264,14 +286,27 @@ EARLIER_MS = {"sp_seg2_fixed": 1.2227, "sp_seg1_classes": 0.5931,
               "polymul_pairing_gs_gs": 0.9371,
               "polymul_pairing_ct_gs": 0.9302,
               "polymul_pairing_stockham": 0.8340}
-# every length the pass kernels' plans take: (n, q), q prime and 1 mod 2n
+# every length the pass kernels' plans take in one block a row: (n, q), q
+# prime and 1 mod 2n
 PASS_LENGTHS = ((2, 5), (4, 17), (8, 17), (16, 97), (32, 193), (64, 257),
                 (128, 257), (256, 7681), (512, 12289), (1024, 12289),
                 (2048, 12289), (4096, 40961), (8192, 8404993), (8192, Q30),
                 (16384, 786433))
+# the lengths whose rows span a thread-block cluster (B1, B4 and the
+# pairings: 2, 4 and 8 blocks a row; B2 and B3 one block at 32768, then 2
+# and 4), each also at B in SMALL_BATCHES
+CLUSTER_LENGTHS = ((32768, 786433), (32768, Q30), (65536, 786433),
+                   (65536, Q30), (131072, 786433))
 # the length the kernel of one transform (B2, B3) alone takes beyond them:
-# 1024 threads a row in three passes
-TRANSFORM_LENGTHS = ((32768, 786433),)
+# 8 blocks of 1024 threads a row (q = 7 * 2^20 + 1)
+TRANSFORM_LENGTHS = ((262144, 7340033),)
+# B5-B9 where a lane block is narrower than the MMA's 32-deep step, lane
+# packed (mxu_tables.lane_packed): (n, q)
+SMALL_RINGS = ((8, 16417), (16, 16417), (8, Q30), (16, Q30))
+# the registration sweep (utils/fuzz_params.py) phase 2 runs: (n, primes a
+# bit size, bit sizes)
+SWEEP = ((64, 1, range(15, 31)), (256, 1, range(15, 31)),
+         (2048, 1, (15, 20, 25, 30)))
 # the card's peaks (H100 SXM data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -316,6 +351,28 @@ Q30_LAUNCHES = {name: 1 for name in KERNELS} | {
     "sp_seg1_classes": 0, "sp_seg2_classes": 0}
 # phase 3d's row of q - 1 in both operands, checked beside ORACLE_ROWS
 Q1_ROW = MAIN_BATCH // 2
+# phase 3e: q30 at the largest rings whose products the JAX package
+# computes, a row a thread-block cluster in the pass kernels: (name, n, q,
+# B), 128 MiB an operand; the SP path at n = 32768, n1 = LARGE_SP_N1
+LARGE_RINGS = (("q30-n32768", 32768, Q30, 1024),
+               ("q30-n65536", 65536, Q30, 512))
+LARGE_SP_N1 = 256
+# phase 3e's rows against the C++ oracle, row 1 all q - 1 in x and y
+LARGE_ORACLE_ROWS = (0, 1, -2, -1)
+# the pass kernels phase 3e times at each ring
+PASS_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
+                "intt_fused", *(f"polymul_pairing_{p}" for p in P.PAIRINGS))
+
+
+def large_launches(n: int) -> dict:
+    """Launches phase 3e's run makes at one ring: B1 and the five B10
+    pairings as algos, B2 on the constant and on x, B4 and B3 once; at
+    n = 32768 the SP path's B11 twice, B12 and B16."""
+    out = {name: 0 for name in KERNELS} | {k: 1 for k in PASS_KERNELS}
+    out["ntt_fused"] = 2
+    if n == 32768:
+        out |= {"sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1}
+    return out
 # the incomplete NTT's (n, q) in phase 3b: ML-KEM's and NewHope's
 INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
 # timed calls of each phase-3b path (after one warmup)
@@ -875,29 +932,33 @@ def classes_against_plain(errors: dict) -> None:
 def pass_lengths_against_plain(errors: dict) -> None:
     """B1, B4 and the five pairings at every length their plans take, on
     300 rows with rows of q - 1 in both operands (B4: in x, and a spectrum
-    that holds q - 1), and B2 and B3 there and at n = 32768: B2 on rows of
-    0 and q - 1, also through B3 back to x, B3 on rows below 2q with rows
-    of 2q - 1 (registered after the other phase-2 checks, which run every
-    registered set)."""
+    that holds q - 1), and B2 and B3 there and at TRANSFORM_LENGTHS: B2 on
+    rows of 0 and q - 1, also through B3 back to x, B3 on rows below 2q
+    with rows of 2q - 1; the cluster lengths also on the first 1, 3 and 64
+    of those rows (registered after the other phase-2 checks, which run
+    every registered set)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    for n, q in PASS_LENGTHS + TRANSFORM_LENGTHS:
+    for n, q in PASS_LENGTHS + CLUSTER_LENGTHS + TRANSFORM_LENGTHS:
         name = f"pass-n{n}-q{q}"
         register_param_set(name, n, q)
         tbl = get_tables(name)
+        batches = ((300,) + SMALL_BATCHES if (n, q) in CLUSTER_LENGTHS
+                   else (300,))
         lazy = rng.integers(0, 2 * q, (300, n), dtype=np.uint32)
         lazy[0], lazy[2] = 2 * q - 1, 2 * q - 1
         lazy = torch.from_numpy(lazy).to(dev)
-        _record(errors, "intt_fused", f"B3 n={n} q={q}",
-                F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
         x = rng.integers(0, q, (300, n), dtype=np.uint32)
         x[0], x[3], x[299] = q - 1, 0, q - 1
         x = torch.from_numpy(x).to(dev)
-        spec = F.ntt_fused(x, tbl)
-        _record(errors, "ntt_fused", f"B2 n={n} q={q}", spec,
-                F.ntt_plain(x, tbl))
-        expect_equal(f"B3(B2(x)) == x n={n} q={q}", F.intt_fused(spec, tbl),
-                     x)
+        for B in batches:
+            _record(errors, "intt_fused", f"B3 n={n} q={q} B={B}",
+                    F.intt_fused(lazy[:B], tbl), F.intt_plain(lazy[:B], tbl))
+            spec = F.ntt_fused(x[:B], tbl)
+            _record(errors, "ntt_fused", f"B2 n={n} q={q} B={B}", spec,
+                    F.ntt_plain(x[:B], tbl))
+            expect_equal(f"B3(B2(x)) == x n={n} q={q} B={B}",
+                         F.intt_fused(spec, tbl), x[:B])
         if (n, q) in TRANSFORM_LENGTHS:
             print(f"n={n} q={q}: B2 and B3 equal to plain on 300 rows, "
                   f"B3(B2(x)) == x (B2 {describe_pass_plan(F.ntt_pass_plan(n))}"
@@ -906,27 +967,121 @@ def pass_lengths_against_plain(errors: dict) -> None:
             continue
         xy = rng.integers(0, q, (2, 300, n), dtype=np.uint32)
         xy[:, 0], xy[0, 1], xy[1, 2] = q - 1, q - 1, q - 1
-        x, y = (torch.from_numpy(v).to(dev) for v in xy)
-        ref = F.polymul_plain(x, y, tbl)
-        _record(errors, "polymul_fused", f"B1 n={n} q={q}",
-                F.polymul_fused(x, y, tbl), ref)
+        xs, ys = (torch.from_numpy(v).to(dev) for v in xy)
         spec = rng.integers(0, q, n, dtype=np.uint32)
         spec[::3] = q - 1
         spec = torch.from_numpy(spec).to(dev)
-        _record(errors, "polymul_fixed_fused", f"B4 n={n} q={q}",
-                F.polymul_fixed_fused(x, spec, tbl),
-                F.polymul_fixed_plain(x, spec, tbl))
-        for p in P.PAIRINGS:
-            kname = f"polymul_pairing_{p}"
-            got = P.polymul_pairing(x, y, tbl, p)
-            _record(errors, kname, f"{kname} n={n} q={q}", got,
-                    P.polymul_pairing_plain(x, y, tbl, p))
-            expect_equal(f"B10 {p} == B1 n={n} q={q}", got, ref)
+        for B in batches:
+            x, y = xs[:B], ys[:B]
+            ref = F.polymul_plain(x, y, tbl)
+            _record(errors, "polymul_fused", f"B1 n={n} q={q} B={B}",
+                    F.polymul_fused(x, y, tbl), ref)
+            _record(errors, "polymul_fixed_fused", f"B4 n={n} q={q} B={B}",
+                    F.polymul_fixed_fused(x, spec, tbl),
+                    F.polymul_fixed_plain(x, spec, tbl))
+            for p in P.PAIRINGS:
+                kname = f"polymul_pairing_{p}"
+                got = P.polymul_pairing(x, y, tbl, p)
+                _record(errors, kname, f"{kname} n={n} q={q} B={B}", got,
+                        P.polymul_pairing_plain(x, y, tbl, p))
+                expect_equal(f"B10 {p} == B1 n={n} q={q} B={B}", got, ref)
+        b1, b2 = F.fused_pass_plan(n), F.ntt_pass_plan(n)
         print(f"n={n} q={q}: B1-B4 and the five pairings equal to "
-              f"plain and B1's plain on 300 rows, B3(B2(x)) == x (B1-B4 "
-              f"{F.fused_pass_plan(n).passes}, "
-              f"Stockham {P.pairing_pass_plan(n, 'stockham').passes} "
-              f"passes a transform)", flush=True)
+              f"plain and B1's plain on B in {batches}, B3(B2(x)) == x "
+              f"(B1-B4 {b1.passes}, Stockham "
+              f"{P.pairing_pass_plan(n, 'stockham').passes} passes a "
+              f"transform; blocks a row: B1, B4 and the pairings "
+              f"{b1.cluster}, B2 and B3 {b2.cluster})", flush=True)
+        del xs, ys, x, y, lazy
+    torch.cuda.empty_cache()
+    done()
+
+
+def small_rings_against_plain(errors: dict) -> None:
+    """B5-B9 at SMALL_RINGS (n = 8 and 16: lane blocks narrower than the
+    MMA's 32-deep step, 32 / n rows packed to a row of 32 lanes) against
+    their twins on random and worst-case rows (all q - 1; B7 all
+    pw_bound - 1) at B in SMALL_BATCHES and LONG_BATCH, B8 and B9 against a
+    spectrum that holds q - 1; B5 == B1, B6 == B2, B8 == B9 == B4 and x back
+    through B7 (registered after the other phase-2 checks)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    for n, q in SMALL_RINGS:
+        name = f"mxu-n{n}-q{q}"
+        register_param_set(name, n, q)
+        tbl, mt = get_tables(name), get_mxu_tables(name)
+        for B in SMALL_BATCHES + (LONG_BATCH,):
+            for kind in ("random", "worst"):
+                if kind == "random":
+                    xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+                    pw = rng.integers(0, mt.pw_bound, (B, n), dtype=np.uint32)
+                else:
+                    xs = np.full((2, B, n), q - 1, dtype=np.uint32)
+                    pw = np.full((B, n), mt.pw_bound - 1, dtype=np.uint32)
+                spec = F.ntt_plain(torch.from_numpy(xs[1, :1]), tbl).numpy()
+                spec[0, ::3] = q - 1
+                x, y, pw, spec = (torch.from_numpy(v).to(dev)
+                                  for v in (xs[0], xs[1], pw, spec))
+                tag = f"{name} B={B} {kind}"
+                b4 = F.polymul_fixed_plain(x, spec, tbl)
+                op = M.fold_operand(spec, mt)
+                for kname, got, want, same in (
+                        ("polymul_mxu", M.polymul_mxu(x, y, mt),
+                         M.polymul_mxu_plain(x, y, mt),
+                         F.polymul_plain(x, y, tbl)),
+                        ("ntt_mxu", M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt),
+                         F.ntt_plain(x, tbl)),
+                        ("intt_mxu", M.intt_mxu(pw, mt),
+                         M.intt_mxu_plain(pw, mt), None),
+                        ("polymul_fixed_mxu", M.polymul_fixed_mxu(x, spec, mt),
+                         M.polymul_fixed_mxu_plain(x, spec, mt), b4),
+                        ("polymul_fixed_folded_mxu",
+                         M.polymul_fixed_folded_mxu(x, op, mt),
+                         M.polymul_fixed_folded_mxu_plain(x, op, mt), b4)):
+                    _record(errors, kname, f"{kname} {tag}", got, want)
+                    if same is not None:
+                        expect_equal(f"{kname} == B1-B4's plain {tag}", got,
+                                     same)
+                expect_equal(f"B7(B6(x)) == x {tag}",
+                             M.intt_mxu(M.ntt_mxu(x, mt), mt), x)
+        p5 = M.stream_plan(mt)
+        print(f"{name} (n={n}, q={q}; D={mt.D}, Df={mt.Df}@{mt.fwd_base}, "
+              f"Di={mt.Di}@{mt.inv_base}, bw={mt.bw}): B5-B9 lane packed, "
+              f"{32 // n} rows a row of {p5.n} lanes, {p5.rows} packed rows "
+              f"a group, {p5.stages_f} + {p5.stages_i} stages; equal to "
+              f"their twins and B1-B4's plain versions for B in "
+              f"{SMALL_BATCHES + (LONG_BATCH,)}, random and worst-case",
+              flush=True)
+    done()
+
+
+def registration_sweep() -> None:
+    """utils/fuzz_params.py's sweep on the card (SWEEP): B1-B16 at every
+    prime, B17 and B18 where the plan has at most 3 digit classes, against
+    their twins, B1 and 2 C++ oracle rows a prime; it fails on any
+    mismatch, and unless its plans reached a split of base 128 and a plan
+    of two digit classes."""
+    lines = []
+
+    def log(line):
+        lines.append(line)
+        print(line, flush=True)
+
+    start = time.perf_counter()
+    failures = sum(FZ.sweep(n, FZ.primes_for_n(n, k, bits), "cuda", sp=True,
+                            seed=SEED, log=log)
+                   for n, k, bits in SWEEP)
+    plans = [line for line in lines if line.startswith("  q=")]
+    print(f"registration sweep: {len(plans)} primes, {failures} "
+          f"mismatching, {time.perf_counter() - start:.1f} s", flush=True)
+    if failures:
+        raise AssertionError(f"registration sweep: {failures} primes differ")
+    for region, found in (("a split of base 128",
+                           any("@128" in line for line in plans)),
+                          ("two digit classes",
+                           any(" D=2 " in line for line in plans))):
+        if not found:
+            raise AssertionError(f"registration sweep: no plan of {region}")
     done()
 
 
@@ -1489,6 +1644,141 @@ def q30_full_size(device_line: str) -> dict:
     return times
 
 
+def _pass_work(name: str, n: int, B: int) -> tuple[int, int]:
+    """The bytes a pass kernel must move at B rows of n (each operand read
+    once, z written once, its twiddle table read once); no tensor-core
+    work."""
+    row = 4 * B * n
+    if name.startswith("polymul_pairing_"):
+        return 3 * row + 32 * n, 0
+    return {"polymul_fused": 3 * row, "polymul_fixed_fused": 2 * row + 4 * n,
+            "ntt_fused": 2 * row, "intt_fused": 2 * row}[name] + 16 * n, 0
+
+
+def large_rings(device_line: str) -> dict:
+    """Phase 3e: q30 at n = 32768 (B = 1024) and 65536 (B = 512), where a
+    row of B1, B4 and the pairings spans a cluster of 2 and 4 blocks and
+    one of B2 and B3 a block and 2: seeded canonical operands with row 1
+    all q - 1 in both and one random constant, through the entry points
+    (polymul_negacyclic "fused" and the five "<pairing>_kernel" algos,
+    polymul_fixed_fn "fused", ntt and intt "fused", and at n = 32768 the
+    SP path at k = SP_K, n1 = LARGE_SP_N1), launches in one counted run a
+    ring against large_launches; every product equal to B1's bit for bit
+    and to the C++ oracle on LARGE_ORACLE_ROWS, intt(ntt(x)) == x.  Then
+    each pass kernel and its plain version timed in turns beside its
+    bound.  Returns the launches summed over both rings."""
+    launches = {name: 0 for name in KERNELS}
+    for name, n, q, B in LARGE_RINGS:
+        register_param_set(name, n, q)
+        tbl = get_tables(name)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+
+        def draw(rows):
+            return torch.randint(0, q, (rows, n), generator=gen,
+                                 device="cuda", dtype=torch.int64)
+
+        x, y = draw(B), draw(B)
+        x[1], y[1] = q - 1, q - 1
+        x, y = x.to(torch.uint32), y.to(torch.uint32)
+        a = draw(1).to(torch.uint32)
+        prepare, multiply = polymul_fixed_fn(name, "fused")
+        start = time.perf_counter()
+        sp = (polymul_fourstep_mxu_fn(name, make_mesh(model=SP_K),
+                                      n1=LARGE_SP_N1) if n == 32768 else None)
+        plan_s = time.perf_counter() - start
+        torch.cuda.synchronize()
+        for k, _ in KERNELS.values():
+            k.launches = 0
+        z = {"fused": polymul_negacyclic(x, y, name, "fused")}
+        for p in P.PAIRINGS:
+            z[f"{p}_kernel"] = polymul_negacyclic(x, y, name, f"{p}_kernel")
+        zf = multiply(x, prepare(a))
+        back = intt(ntt(x, name, "fused"), name, "fused")
+        if sp is not None:
+            z[f"SP k={SP_K}"] = sp(x, y)
+        torch.cuda.synchronize()
+        got = {k: kern.launches for k, (kern, _) in KERNELS.items()}
+        print(f"3e {name} launches: { {k: v for k, v in got.items() if v} }")
+        if got != large_launches(n):
+            raise AssertionError(f"phase 3e {name} launch counts {got}, "
+                                 f"expected {large_launches(n)}")
+        launches = {k: launches[k] + v for k, v in got.items()}
+        for what, zz in z.items():
+            expect_canonical(f"3e {name} {what}", zz, (B, n), q)
+            expect_equal(f"3e {name} {what} == B1", zz, z["fused"])
+        expect_canonical(f"3e {name} fixed fused", zf, (B, n), q)
+        expect_equal(f"3e {name} intt(ntt(x)) == x", back, x)
+        rows = [r % B for r in LARGE_ORACLE_ROWS]
+        idx = torch.tensor(rows, device="cuda")
+        xr, yr = (t.index_select(0, idx).cpu().numpy() for t in (x, y))
+        ar = np.broadcast_to(a.cpu().numpy(), xr.shape)
+        start = time.perf_counter()
+        # one row a thread: the C++ oracle runs outside the GIL
+        with ThreadPoolExecutor(2 * len(rows)) as pool:
+            out = list(pool.map(lambda uv: native_schoolbook(*uv, q),
+                                [(u[None], v[None]) for u, v in
+                                 [*zip(xr, yr), *zip(xr, ar)]]))
+        want = np.concatenate(out[:len(rows)])
+        want_f = np.concatenate(out[len(rows):])
+        oracle_s = time.perf_counter() - start
+        for what, zz, oracle in [*((w, v, want) for w, v in z.items()),
+                                 ("fixed fused", zf, want_f)]:
+            if not np.array_equal(zz.index_select(0, idx).cpu().numpy(),
+                                  oracle):
+                raise AssertionError(f"3e {name} {what}: rows {rows} differ "
+                                     f"from the C++ oracle")
+        b1, b2 = F.fused_pass_plan(n), F.ntt_pass_plan(n)
+        print(f"3e {name} (n={n}, q={q}), B={B}, row 1 all q - 1: "
+              f"{', '.join(z)} equal B1 bit for bit, the fixed pair (B2, "
+              f"B4) and intt(ntt(x)) == x (B2, B3); all equal the C++ "
+              f"oracle on rows {rows} ({oracle_s:.1f} s on the host); the "
+              f"SP plan took {plan_s:.1f} s.  B1 "
+              f"{describe_pass_plan(b1)}; B2 {describe_pass_plan(b2)}",
+              flush=True)
+        del z, zf, back
+        runs = pass_runs(x, y, F.ntt_fused(y[:1], tbl), tbl)
+        for kname, (kern, plain, args) in runs.items():
+            # the plain version on 3 calls a turn: 40-135 ms each here
+            res = _turns(kern, plain, args, KERNELS[kname][0],
+                         plain_repeats=3)
+            res["bound"] = bound(*_pass_work(kname, n, B))
+            plan = (P.pairing_pass_plan(n, kname[16:])
+                    if kname.startswith("polymul_pairing_") else
+                    {"polymul_fused": F.fused_pass_plan,
+                     "polymul_fixed_fused": F.fixed_pass_plan,
+                     "ntt_fused": F.ntt_pass_plan,
+                     "intt_fused": F.intt_pass_plan}[kname](n))
+            (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+            bms, by = res["bound"]
+            print(f"3e timing {kname}: {name} B={B} kernel min {klo:.4f} ms "
+                  f"median {kmed:.4f} ms over 40 calls, plain median "
+                  f"{pmed:.4f} ms over 6; bound {bms:.4f} ms ({by}), "
+                  f"{bms / kmed * 100:.1f} % of the kernel's median; "
+                  f"{plan.cluster} block(s) a row of "
+                  f"{plan.threads // plan.cluster} threads [{device_line}]",
+                  flush=True)
+        del x, y, a, runs
+        torch.cuda.empty_cache()
+    done()
+    return launches
+
+
+def pass_runs(x: torch.Tensor, y: torch.Tensor, spec: torch.Tensor,
+              tbl) -> dict:
+    """The pass kernels' (wrapper, plain version, arguments) on (B, n)
+    operands x and y, B4 against the spectrum ``spec``, B3 on x."""
+    return {"polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
+            "polymul_fixed_fused": (F.polymul_fixed_fused,
+                                    F.polymul_fixed_plain, (x, spec, tbl)),
+            "ntt_fused": (F.ntt_fused, F.ntt_plain, (x, tbl)),
+            "intt_fused": (F.intt_fused, F.intt_plain, (x, tbl)),
+            **{f"polymul_pairing_{p}": (P.polymul_pairing,
+                                        P.polymul_pairing_plain,
+                                        (x, y, tbl, p))
+               for p in P.PAIRINGS}}
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1536,17 +1826,12 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
     # the constant's stages: W' with no padding at bw a multiple of 64
     folded = mt.nb * fp.Dout * mt.bw * fp.Din * mt.bw + 4 * n
     work = {
-        "polymul_fused": (3 * row + tw, 0),
-        "polymul_fixed_fused": (2 * row + spec + tw, 0),
-        "ntt_fused": (2 * row + tw, 0),
-        "intt_fused": (2 * row + tw, 0),
+        **{k: _pass_work(k, n, B) for k in PASS_KERNELS},
         "polymul_mxu": (3 * row + wf + wi + tw, 2 * fwd + inv),
         "polymul_fixed_mxu": (2 * row + spec + wf + wi + tw, fwd + inv),
         "ntt_mxu": (2 * row + wf + tw, fwd),
         "intt_mxu": (2 * row + wi + tw, inv),
         "polymul_fixed_folded_mxu": (2 * row + wf + folded + tw, fwd + fold),
-        **{f"polymul_pairing_{p}": (3 * row + 2 * tw, 0)
-           for p in P.PAIRINGS},
     }
     st = S.host_tables(plans)
     m1, m2f, m2i, m3, m3x, mx = (
@@ -1586,15 +1871,17 @@ def bound(nbytes: int, macs: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _turns(kern, plain, args, counter=None) -> dict:
-    """Medians of plain, kernel, kernel, plain runs of 20 timed calls each;
-    with ``counter``, its launches must equal the kernel's calls."""
+def _turns(kern, plain, args, counter=None, plain_repeats=20) -> dict:
+    """Medians of plain, kernel, kernel, plain runs of 20 timed calls each
+    (the plain version's of ``plain_repeats``); with ``counter``, its
+    launches must equal the kernel's calls."""
     before = counter.launches if counter else 0
     samples = {"kernel": [], "plain": []}
     calls = 0
     for which in ("plain", "kernel", "kernel", "plain"):
         t = time_cuda(kern if which == "kernel" else plain, *args,
-                      warmup=3, repeats=20)
+                      warmup=3, repeats=20 if which == "kernel"
+                      else plain_repeats)
         samples[which].extend(t.samples_ms)
         if which == "kernel":
             calls += t.calls + t.warmup
@@ -1623,11 +1910,7 @@ def kernel_runs(name: str, x: torch.Tensor, y: torch.Tensor,
     aspec = S.fixed_spectrum(y[0], plans)
     fold = _fold(plans, aspec)
     runs = {
-        "polymul_fused": (F.polymul_fused, F.polymul_plain, (x, y, tbl)),
-        "polymul_fixed_fused": (F.polymul_fixed_fused, F.polymul_fixed_plain,
-                                (x, spec, tbl)),
-        "ntt_fused": (F.ntt_fused, F.ntt_plain, (x, tbl)),
-        "intt_fused": (F.intt_fused, F.intt_plain, (x, tbl)),
+        **pass_runs(x, y, spec, tbl),
         "polymul_mxu": (M.polymul_mxu, M.polymul_mxu_plain, (x, y, mt)),
         "polymul_fixed_mxu": (M.polymul_fixed_mxu, M.polymul_fixed_mxu_plain,
                               (x, spec, mt)),
@@ -1636,9 +1919,6 @@ def kernel_runs(name: str, x: torch.Tensor, y: torch.Tensor,
         "polymul_fixed_folded_mxu": (M.polymul_fixed_folded_mxu,
                                      M.polymul_fixed_folded_mxu_plain,
                                      (x, op, mt)),
-        **{f"polymul_pairing_{p}": (P.polymul_pairing,
-                                    P.polymul_pairing_plain, (x, y, tbl, p))
-           for p in P.PAIRINGS},
         "sp_seg1": (S.sp_seg1, S.seg1_plain, (sx, plans)),
         "sp_seg2": (S.sp_seg2, S.seg2_plain, (vx, vy, plans)),
         "sp_seg3": (S.sp_seg3, S.seg3_plain, (sw, plans)),
@@ -1707,8 +1987,9 @@ def timing(device_line: str, q30_times: dict) -> dict:
               f"{b3:.4f} ms ({by3}), B={B} [{device_line}]", flush=True)
     # the pass kernels' instruction-issue bound, from their SASS: at n =
     # 1024 every instruction of the kernels built for that length
-    # (pass_kernel<fwd,inv,32,2,10>, polymul_pass_kernel<32,2,10,ops>,
-    # transform_pass_kernel<fwd,32,2,10>) runs once a warp and row
+    # (pass_kernel<fwd,inv,32,2,10,0>, polymul_pass_kernel<32,2,10,ops,0>,
+    # transform_pass_kernel<fwd,32,2,10,0>: the block form) runs once a
+    # warp and row
     sass = kernel_sass(str(load_library().path))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
@@ -1717,8 +1998,8 @@ def timing(device_line: str, q30_times: dict) -> dict:
         f"polymul_pairing_{p}": (P.pairing_pass_plan(n, p),
                                  f"pass_kernel<{scheme[f]},{scheme[i]},", "")
         for p, (f, i) in P.PAIRINGS.items()}
-    # B1 and B4: polymul_pass_kernel<R,P,logn,operands>; B2 and B3
-    # transform_pass_kernel<fwd,R,P,logn>
+    # B1 and B4: polymul_pass_kernel<R,P,logn,operands,cluster>; B2 and B3
+    # transform_pass_kernel<fwd,R,P,logn,cluster>
     pass_plans["polymul_fused"] = (F.fused_pass_plan(n),
                                    "polymul_pass_kernel<", ",2")
     pass_plans["polymul_fixed_fused"] = (F.fixed_pass_plan(n),
@@ -1733,7 +2014,7 @@ def timing(device_line: str, q30_times: dict) -> dict:
         # transform_pass_kernel_for)
         built = (plan.radix, plan.passes, n) == (32, 2, 1024)
         key = (f"{kernel}{plan.radix},{plan.passes},"
-               f"{tbl.logn if built else 0}{ops}>")
+               f"{tbl.logn if built else 0}{ops},0>")
         ms, counts = issue_bound_ms(sass[key], B, plan.threads, sms, clock)
         print(f"issue bound {name}: {key}, {counts['total']} SASS "
               f"instructions ({counts['fma']} of the FMA pipe, "
@@ -2063,6 +2344,8 @@ def main() -> int:
     sp_against_plain(errors)
     classes_against_plain(errors)
     pass_lengths_against_plain(errors)
+    small_rings_against_plain(errors)
+    registration_sweep()
 
     phase("3 main path at full size")
     launches, ctx = main_path(errors, SEED)
@@ -2077,6 +2360,9 @@ def main() -> int:
     phase("3d q30 at full size")
     q30_times = q30_full_size(device_line)
 
+    phase("3e large rings")
+    large = large_rings(device_line)
+
     phase("4 timing")
     times = timing(device_line, q30_times)
 
@@ -2090,7 +2376,7 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {loaded}")
     kernels = [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": k.replaces, "launches": launches[name],
+        "replaces": k.replaces, "launches": launches[name] + large[name],
         "max_abs_err": errors[name], "ms": times[name]["kernel"][1],
         "plain_ms": times[name]["plain"][1],
         "bound_ms": times[name]["bound"][0],

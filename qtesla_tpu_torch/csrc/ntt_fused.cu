@@ -34,7 +34,10 @@
 // canonical and is fused into the store.  No phi weighting: psi is merged
 // into the twiddles.  n = 1024 (qtesla-iii-speed, -p-i) has a kernel built
 // for its length, whose every index offset is an immediate.  The plan
-// (ops/ntt_fused.py fused_pass_plan) is checked by the launcher.
+// (ops/ntt_fused.py fused_pass_plan) is checked by the launcher.  From n =
+// 32768 to 131072 a row spans a thread-block cluster of 2, 4 or 8 blocks of
+// 512 threads (polymul_pass_kernel<.., true>, pass_stages.cuh), in three
+// passes or four.
 //
 // B4 (qt_polymul_fixed_fused) is B1's kernel with one operand
 // (polymul_pass_kernel<..., 1>): x alone is loaded and carried through the
@@ -52,7 +55,9 @@
 // coalesced canonical store.
 // Its plan (ops/ntt_fused.py intt_pass_plan) has no forward passes; three
 // passes take a row of up to 1024 threads, so it runs every n from 2 to
-// 32768, as its first design did.  That design (a block a row, min(n/2,
+// 32768 in a block, as its first design did, and from 65536 to 262144 a
+// row spans a cluster of 2, 4 or 8 blocks of 1024 threads in four passes
+// (transform_pass_kernel<.., true>).  That design (a block a row, min(n/2,
 // 512) threads, __syncthreads() after each of the log2(n) stages, about 29
 // SASS instructions a butterfly) took 0.3698 ms at qtesla-iii-speed, B =
 // 32768, on an H100 80GB HBM3 at 700 W (PERF.md).
@@ -62,8 +67,8 @@
 // the CT stages from the widest down, one exchange a pass after the first,
 // ending on [0, r); then one more exchange back to [tb, L) and the
 // coalesced canonical store.  Its plan (ops/ntt_fused.py ntt_pass_plan) has
-// no inverse passes, and it runs every n from 2 to 32768, as its first
-// design did.  That design (a block a row, min(n/2, 512) threads, the row in
+// no inverse passes, and it runs every n from 2 to 32768 in a block, as its
+// first design did, and to 262144 in a cluster, as B3.  That design (a block a row, min(n/2, 512) threads, the row in
 // shared memory, __syncthreads() after each of the log2(n) stages, about 29
 // SASS instructions a butterfly) took 0.3591 ms at qtesla-iii-speed, B =
 // 32768, on an H100 80GB HBM3 at 700 W (PERF.md).
@@ -97,7 +102,6 @@ using qt::csub;
 using qt::Mod;
 using qt::mulmod_barrett;
 using qt::shoup_lazy;
-using qt::exchange;
 using qt::ilog2;
 using qt::PassKernel;
 using qt::PassOrder;
@@ -194,9 +198,10 @@ __device__ __forceinline__ void merged_stages(uint32_t (&v)[NOPS][R], int b,
 // shares), one forward.  B4's kernel built for its length takes three
 // blocks of 256 threads an SM (80 registers, 16 bytes of spill; 0.9635 of
 // its time at two blocks, PERF.md); with run-time windows it would spill
-// 60 bytes there, and keeps two.
-template <int R, int P, int LOGN, int NOPS>
-__global__ void __launch_bounds__(P == 3 ? 512 : 256,
+// 60 bytes there, and keeps two.  kCluster: a row spans the blocks of a
+// cluster (n >= 32768, pass_stages.cuh), 512 threads a block.
+template <int R, int P, int LOGN, int NOPS, bool kCluster>
+__global__ void __launch_bounds__(P >= 3 ? 512 : 256,
                                   P == 2 ? (NOPS == 1 && LOGN > 0 ? 3 : 2)
                                          : 1)
     polymul_pass_kernel(const uint32_t* __restrict__ x,
@@ -207,22 +212,25 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256,
                         PassPlan pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
     static_assert(NOPS == 1 || NOPS == 2, "x and y, or x alone");
+    static_assert(!kCluster || (LOGN == 0 && P >= 3), "a cluster: P >= 3");
     constexpr int r = ilog2(R);
     constexpr bool kConst = LOGN > 0;
     extern __shared__ uint32_t smem[];
     const int logn = kConst ? LOGN : logn_arg;
     const int n = kConst ? 1 << LOGN : n_arg;
     const int tb = logn - r;  // thread bits: T = 2^tb threads a row
-    const int t = threadIdx.x & ((1 << tb) - 1);
-    const int slot = threadIdx.x >> tb;
-    const long long row = static_cast<long long>(blockIdx.x) * pl.rows + slot;
+    const qt::RowPlace<kCluster> at(pl, tb, logn);
+    const int t = at.t;
+    const long long row = at.row;
     // a row past the batch computes on row 0 and stores nothing: its
     // threads still meet every barrier
     const bool live = row < batch;
     const size_t off = live ? static_cast<size_t>(row) * n : 0;
     const bool warp_rows = tb <= 5;
-    uint32_t* buf = smem + slot * pl.row_stride;
-    const int stride = n + (n >> 5);
+    uint32_t* buf = smem + at.slot * pl.row_stride;
+    // words an operand: the row's n indices, or a cluster block's share
+    const int stride =
+        kCluster ? (1 << at.lbits) + (1 << at.lbits >> 5) : n + (n >> 5);
     const uint32_t *fw = tw, *fw_sh = tw + n, *iw = tw + 2 * n,
                    *iw_sh = tw + 3 * n;
     const uint32_t q = m.q;
@@ -257,7 +265,8 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256,
     for (int p = 0; p < P; ++p) {
         if (p > 0) {
             const int b2 = win(false, pl.fwd_b[p], p);
-            exchange<kConst, R, NOPS>(v, buf, stride, b, t, b2, t, warp_rows);
+            qt::row_exchange<kCluster, kConst, R, NOPS>(
+                v, buf, stride, b, t, b2, t, warp_rows, pl, p - 1, at.lbits);
             b = b2;
         }
         merged_stages<true, R, NOPS>(v, b, t, lo(false, pl.fwd_lo[p], p),
@@ -295,7 +304,9 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256,
     for (int p = 0; p < P; ++p) {
         if (p > 0) {
             const int b2 = win(true, pl.inv_b[p], p);
-            exchange<kConst, R, 1>(u, buf, stride, b, t, b2, t, warp_rows);
+            qt::row_exchange<kCluster, kConst, R, 1>(u, buf, stride, b, t, b2,
+                                                     t, warp_rows, pl,
+                                                     P + p - 2, at.lbits);
             b = b2;
         }
         // the last stage, k = L - 1, goes with the store
@@ -324,19 +335,27 @@ __global__ void __launch_bounds__(P == 3 ? 512 : 256,
 // R = n for n <= 32 (one pass a transform), R = 32 with two passes (n <=
 // 1024) or three (n <= 16384, as the block's threads allow), and R = 32 in
 // two passes built for n = 1024, whose one schedule the launcher's checks
-// leave is the one two_pass_* restate.
+// leave is the one two_pass_* restate; in a cluster R = 32 in three passes
+// (n = 32768) or four (n = 65536, 131072).
 template <int NOPS>
-PassKernel polymul_pass_kernel_for(int radix, int passes, int logn) {
+PassKernel polymul_pass_kernel_for(int radix, int passes, int logn,
+                                   int cluster) {
+    if (cluster > 1) {
+        if (radix != 32) return nullptr;
+        if (passes == 3) return polymul_pass_kernel<32, 3, 0, NOPS, true>;
+        if (passes == 4) return polymul_pass_kernel<32, 4, 0, NOPS, true>;
+        return nullptr;
+    }
     if (radix == 32 && passes == 2 && logn == 10)
-        return polymul_pass_kernel<32, 2, 10, NOPS>;
+        return polymul_pass_kernel<32, 2, 10, NOPS, false>;
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return polymul_pass_kernel<2, 1, 0, NOPS>;
-        case 4 * 4 + 1: return polymul_pass_kernel<4, 1, 0, NOPS>;
-        case 8 * 4 + 1: return polymul_pass_kernel<8, 1, 0, NOPS>;
-        case 16 * 4 + 1: return polymul_pass_kernel<16, 1, 0, NOPS>;
-        case 32 * 4 + 1: return polymul_pass_kernel<32, 1, 0, NOPS>;
-        case 32 * 4 + 2: return polymul_pass_kernel<32, 2, 0, NOPS>;
-        case 32 * 4 + 3: return polymul_pass_kernel<32, 3, 0, NOPS>;
+        case 2 * 4 + 1: return polymul_pass_kernel<2, 1, 0, NOPS, false>;
+        case 4 * 4 + 1: return polymul_pass_kernel<4, 1, 0, NOPS, false>;
+        case 8 * 4 + 1: return polymul_pass_kernel<8, 1, 0, NOPS, false>;
+        case 16 * 4 + 1: return polymul_pass_kernel<16, 1, 0, NOPS, false>;
+        case 32 * 4 + 1: return polymul_pass_kernel<32, 1, 0, NOPS, false>;
+        case 32 * 4 + 2: return polymul_pass_kernel<32, 2, 0, NOPS, false>;
+        case 32 * 4 + 3: return polymul_pass_kernel<32, 3, 0, NOPS, false>;
         default: return nullptr;
     }
 }
@@ -351,7 +370,8 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
     if (!plan) return cudaErrorInvalidValue;
     const PassPlan pl = *static_cast<const PassPlan*>(plan);
     return qt::launch_pass_kernel(
-        polymul_pass_kernel_for<NOPS>(pl.radix, pl.passes, logn), pl,
+        polymul_pass_kernel_for<NOPS>(pl.radix, pl.passes, logn, pl.cluster),
+        pl,
         qt::PassOrder{false, true, false, false, NOPS}, a, b, out, tw, batch,
         n, logn, q, r32, r32_sh, one_sh, stream);
 }
@@ -383,10 +403,11 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
 // an SM (80 registers, no spill) ran 0.9769x the time of four (64) on an
 // H100 (PERF.md).  The forward in two passes with run-time windows spilled
 // 264 bytes at 80 registers and takes two (as B4's kernel with run-time
-// windows does).
-template <bool FWD, int R, int P, int LOGN>
-__global__ void __launch_bounds__(P == 3 ? 1024 : 256,
-                                  P == 3 ? 1 : FWD && P == 2 && LOGN == 0 ? 2
+// windows does).  kCluster: a row spans the blocks of a cluster (n >=
+// 65536, pass_stages.cuh), 1024 threads a block.
+template <bool FWD, int R, int P, int LOGN, bool kCluster>
+__global__ void __launch_bounds__(P >= 3 ? 1024 : 256,
+                                  P >= 3 ? 1 : FWD && P == 2 && LOGN == 0 ? 2
                                                                           : 3)
     transform_pass_kernel(const uint32_t* __restrict__ x,
                           const uint32_t* __restrict__ /*unused*/,
@@ -395,6 +416,7 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
                           int n_arg, int logn_arg, Mod m, uint32_t q2,
                           PassPlan pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
+    static_assert(!kCluster || (LOGN == 0 && P >= 3), "a cluster: P >= 3");
     constexpr int r = ilog2(R);
     constexpr bool kConst = LOGN > 0;
     constexpr bool up = !FWD;
@@ -402,16 +424,18 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
     const int logn = kConst ? LOGN : logn_arg;
     const int n = kConst ? 1 << LOGN : n_arg;
     const int tb = logn - r;  // thread bits: T = 2^tb threads a row
-    const int t = threadIdx.x & ((1 << tb) - 1);
-    const int slot = threadIdx.x >> tb;
-    const long long row = static_cast<long long>(blockIdx.x) * pl.rows + slot;
+    const qt::RowPlace<kCluster> at(pl, tb, logn);
+    const int t = at.t;
+    const long long row = at.row;
     // a row past the batch computes on row 0 and stores nothing: its
     // threads still meet every barrier
     const bool live = row < batch;
     const size_t off = live ? static_cast<size_t>(row) * n : 0;
     const bool warp_rows = tb <= 5;
-    uint32_t* buf = smem + slot * pl.row_stride;
-    const int stride = n + (n >> 5);
+    uint32_t* buf = smem + at.slot * pl.row_stride;
+    // words an operand: the row's n indices, or a cluster block's share
+    const int stride =
+        kCluster ? (1 << at.lbits) + (1 << at.lbits >> 5) : n + (n >> 5);
     const uint32_t* w = tw + (FWD ? 0 : 2 * n);
     const uint32_t* w_sh = tw + (FWD ? n : 3 * n);
     const uint32_t q = m.q;
@@ -422,8 +446,10 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
     int b = tb;
 #pragma unroll
     for (int c = 0; c < R; ++c) v[0][c] = x[off + t + (c << tb)];
+    // exchange e: B3's first is 0, so its passes' are p; B2's are p - 1
     if (!FWD && tb > 0) {
-        exchange<kConst, R, 1>(v, buf, stride, tb, t, 0, t, warp_rows);
+        qt::row_exchange<kCluster, kConst, R, 1>(v, buf, stride, tb, t, 0, t,
+                                                 warp_rows, pl, 0, at.lbits);
         b = 0;
     }
 #pragma unroll
@@ -431,7 +457,9 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
         if (p > 0) {
             const int b2 = kConst ? two_pass_b(up, p, LOGN, r)
                                   : FWD ? pl.fwd_b[p] : pl.inv_b[p];
-            exchange<kConst, R, 1>(v, buf, stride, b, t, b2, t, warp_rows);
+            qt::row_exchange<kCluster, kConst, R, 1>(
+                v, buf, stride, b, t, b2, t, warp_rows, pl, FWD ? p - 1 : p,
+                at.lbits);
             b = b2;
         }
         const int lo = kConst ? two_pass_lo(up, p, LOGN)
@@ -444,7 +472,9 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
     }
     // the forward ends on [0, r); one exchange takes it back to [tb, L)
     if (FWD && tb > 0)
-        exchange<kConst, R, 1>(v, buf, stride, b, t, tb, t, warp_rows);
+        qt::row_exchange<kCluster, kConst, R, 1>(v, buf, stride, b, t, tb, t,
+                                                 warp_rows, pl, P - 1,
+                                                 at.lbits);
     if (!live) return;
     if constexpr (FWD) {
         // [tb, L): neighbouring columns, neighbouring threads; canonical
@@ -469,19 +499,24 @@ __global__ void __launch_bounds__(P == 3 ? 1024 : 256,
 
 // B2's (FWD) and B3's instantiations: R = n for n <= 32, R = 32 in two
 // passes (n <= 1024) or three (n <= 32768), and R = 32 in two passes built
-// for n = 1024.
+// for n = 1024; in a cluster R = 32 in four passes (n = 65536 to 262144).
 template <bool FWD>
-PassKernel transform_pass_kernel_for(int radix, int passes, int logn) {
+PassKernel transform_pass_kernel_for(int radix, int passes, int logn,
+                                     int cluster) {
+    if (cluster > 1)
+        return radix == 32 && passes == 4
+                   ? transform_pass_kernel<FWD, 32, 4, 0, true>
+                   : nullptr;
     if (radix == 32 && passes == 2 && logn == 10)
-        return transform_pass_kernel<FWD, 32, 2, 10>;
+        return transform_pass_kernel<FWD, 32, 2, 10, false>;
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return transform_pass_kernel<FWD, 2, 1, 0>;
-        case 4 * 4 + 1: return transform_pass_kernel<FWD, 4, 1, 0>;
-        case 8 * 4 + 1: return transform_pass_kernel<FWD, 8, 1, 0>;
-        case 16 * 4 + 1: return transform_pass_kernel<FWD, 16, 1, 0>;
-        case 32 * 4 + 1: return transform_pass_kernel<FWD, 32, 1, 0>;
-        case 32 * 4 + 2: return transform_pass_kernel<FWD, 32, 2, 0>;
-        case 32 * 4 + 3: return transform_pass_kernel<FWD, 32, 3, 0>;
+        case 2 * 4 + 1: return transform_pass_kernel<FWD, 2, 1, 0, false>;
+        case 4 * 4 + 1: return transform_pass_kernel<FWD, 4, 1, 0, false>;
+        case 8 * 4 + 1: return transform_pass_kernel<FWD, 8, 1, 0, false>;
+        case 16 * 4 + 1: return transform_pass_kernel<FWD, 16, 1, 0, false>;
+        case 32 * 4 + 1: return transform_pass_kernel<FWD, 32, 1, 0, false>;
+        case 32 * 4 + 2: return transform_pass_kernel<FWD, 32, 2, 0, false>;
+        case 32 * 4 + 3: return transform_pass_kernel<FWD, 32, 3, 0, false>;
         default: return nullptr;
     }
 }
@@ -519,7 +554,9 @@ extern "C" int qt_intt_fused(const void* a, const void* b, void* out,
     const PassPlan pl = *static_cast<const PassPlan*>(plan);
     const PassOrder order{false, true, false, false, 1, false, true};
     return qt::launch_pass_kernel(
-        transform_pass_kernel_for<false>(pl.radix, pl.passes, logn), pl,
+        transform_pass_kernel_for<false>(pl.radix, pl.passes, logn,
+                                         pl.cluster),
+        pl,
         order, a, b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
 }
 
@@ -533,7 +570,9 @@ extern "C" int qt_ntt_fused(const void* a, const void* b, void* out,
     const PassPlan pl = *static_cast<const PassPlan*>(plan);
     const PassOrder order{false, false, false, false, 1, true, false};
     return qt::launch_pass_kernel(
-        transform_pass_kernel_for<true>(pl.radix, pl.passes, logn), pl,
+        transform_pass_kernel_for<true>(pl.radix, pl.passes, logn,
+                                        pl.cluster),
+        pl,
         order, a, b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
 }
 

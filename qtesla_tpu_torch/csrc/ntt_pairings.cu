@@ -51,6 +51,10 @@
 // forward ends on positions t + brev_r(c) 2^tb, which the product's bit
 // reversal renames to the inverse's first window.
 //
+// From n = 32768 to 131072 a row spans a thread-block cluster of 2, 4 or 8
+// blocks of 512 threads (pass_kernel<.., true>; pass_stages.cuh), in three
+// passes or four, one launch a call.
+//
 // What bounds them on the H100: instruction issue, not device memory, which
 // sees one read of each operand and one write of z.  A register butterfly is
 // 7 instructions (3 of them IMADs); the passes add the exchanges and the
@@ -60,6 +64,10 @@
 // take and give values below 4q; the pointwise product is exact for any
 // uint32 and canonical; the final Shoup weighting takes any uint32.
 //
+// The kernel template is pass_kernel in pairing_pass.cuh; this file
+// instantiates its block forms, ntt_pairings_cluster.cu its cluster forms,
+// so that the two compile side by side.
+//
 // The launchers are extern "C" with the signature of ntt_fused.cu's
 // B2-B4 (raw pointers, batch B, n, log2(n), the set's constants) plus a
 // pointer to the pass plan, then a stream.  They launch without
@@ -68,184 +76,39 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "modq.cuh"
-#include "pass_stages.cuh"
+#include "pairing_pass.cuh"
 
 namespace {
 
-using qt::csub;
-using qt::Mod;
-using qt::mulmod_barrett;
-using qt::shoup_lazy;
-using qt::bit_reverse;
-using qt::exchange;
-using qt::ilog2;
-using qt::pass_stages;
 using qt::PassKernel;
 using qt::PassPlan;
-using qt::two_pass_b;
-using qt::two_pass_hi;
-using qt::two_pass_lo;
-using qt::window_base;
-
-enum Scheme { kDif, kDit, kStk };
-
-// The (8, n) table, rows: forward stage twiddles (entry h + j of the stage
-// of half-width h), their Shoup companions, the inverse stage twiddles, their
-// Shoup companions, phi, its Shoup, phi^{-1} n^{-1}, its Shoup.
-struct Twiddles {
-    const uint32_t *w, *w_sh, *iw, *iw_sh, *phi, *phi_sh, *iphi, *iphi_sh;
-};
-
-__device__ __forceinline__ Twiddles twiddles(const uint32_t* tw, int n) {
-    return {tw,         tw + n,     tw + 2 * n, tw + 3 * n,
-            tw + 4 * n, tw + 5 * n, tw + 6 * n, tw + 7 * n};
-}
-
-// Stockham's thread map: the DIF virtual thread whose window [tb - st,
-// L - st) holds the Stockham positions t + c 2^tb of stage st, (t >> st) |
-// brev_st(t mod 2^st) << (tb - st).
-__device__ __forceinline__ int stk_thread(int t, int st, int tb) {
-    const int rev =
-        st == 0 ? 0
-                : static_cast<int>(__brev(static_cast<unsigned>(t)) >>
-                                   (32 - st));
-    return (t >> st) | (rev << (tb - st));
-}
-
-// LOGN > 0: built for n = 2^LOGN in two passes, the planner's schedule
-// known at compile time, so every index offset of a thread is a constant.
-// Two passes: 128 registers at most, so 16 warps (16 rows at n = 1024) fit
-// an SM.
-template <int FWD, int INV, int R, int P, int LOGN>
-__global__ void __launch_bounds__(P == 3 ? 512 : 256, P == 2 ? 2 : 1)
-    pass_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                uint32_t* __restrict__ z, const uint32_t* __restrict__ tw,
-                long long batch, int n_arg, int logn_arg, Mod m, uint32_t q2,
-                PassPlan pl) {
-    static_assert(LOGN == 0 || P == 2, "one length: two passes");
-    static_assert((FWD == kStk) == (INV == kStk), "Stockham both ways");
-    constexpr int r = ilog2(R);
-    constexpr bool kConst = LOGN > 0;
-    constexpr bool kStock = FWD == kStk;
-    // Stockham's two passes built for one length are the two halves
-    static_assert(!kStock || LOGN == 0 || LOGN == 2 * r, "Stockham: L = 2r");
-    extern __shared__ uint32_t smem[];
-    const int logn = kConst ? LOGN : logn_arg;
-    const int n = kConst ? 1 << LOGN : n_arg;
-    const int tb = logn - r;  // thread bits: T = 2^tb threads a row
-    const int t = threadIdx.x & ((1 << tb) - 1);
-    const int slot = threadIdx.x >> tb;
-    const long long row = static_cast<long long>(blockIdx.x) * pl.rows + slot;
-    // a row past the batch computes on row 0 and stores nothing: its
-    // threads still meet every barrier
-    const bool live = row < batch;
-    const size_t off = live ? static_cast<size_t>(row) * n : 0;
-    const bool warp_rows = tb <= 5;
-    uint32_t* buf = smem + slot * pl.row_stride;
-    const int stride = n + (n >> 5);
-    const Twiddles w = twiddles(tw, n);
-    const uint32_t q = m.q;
-
-    // pass p's stages and window: the plan's, or the planner's two-pass
-    // schedule for the length the kernel was built for
-    const auto lo = [](bool up, int planned, int p) {
-        return kConst ? two_pass_lo(up, p, LOGN) : planned;
-    };
-    const auto hi = [](bool up, int planned, int p) {
-        return kConst ? two_pass_hi(up, p, LOGN) : planned;
-    };
-    const auto win = [](bool up, int planned, int p) {
-        return kConst ? two_pass_b(up, p, LOGN, r) : planned;
-    };
-    // the thread that takes the window after an exchange: t, or under
-    // Stockham's map the one whose window holds positions t + c 2^tb of the
-    // stage the pass starts at, L - hi
-    const auto next_thread = [&](int pass_hi) {
-        return kStock ? stk_thread(t, logn - pass_hi, tb) : t;
-    };
-
-    // psi weighting on the way in, [0, 2q); the window [tb, L) reads
-    // neighbouring columns with neighbouring threads
-    uint32_t v[2][R];
-    int b = tb, vt = t;
-    {
-        const int base = window_base(vt, b, r);
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-            const int i = base + (c << b);
-            const uint32_t p = __ldg(w.phi + i), p_sh = __ldg(w.phi_sh + i);
-            v[0][c] = shoup_lazy(x[off + i], p, p_sh, q);
-            v[1][c] = shoup_lazy(y[off + i], p, p_sh, q);
-        }
-    }
-    if (FWD == kDit) bit_reverse<R, 2>(v, b, vt, tb);
-    constexpr bool kFwdCt = FWD == kDit, kInvCt = INV == kDit;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-        const int p_hi = hi(kFwdCt, pl.fwd_hi[p], p);
-        if (p > 0) {
-            const int b2 = win(kFwdCt, pl.fwd_b[p], p);
-            const int t2 = next_thread(p_hi);
-            exchange<kConst, R, 2>(v, buf, stride, b, vt, b2, t2, warp_rows);
-            b = b2;
-            vt = t2;
-        }
-        pass_stages<kFwdCt, R, 2>(v, b, vt, lo(kFwdCt, pl.fwd_lo[p], p), p_hi,
-                                  w.w, w.w_sh, q, q2);
-    }
-
-    uint32_t u[1][R];
-#pragma unroll
-    for (int c = 0; c < R; ++c) u[0][c] = mulmod_barrett(v[0][c], v[1][c], m);
-    // a DIF or Stockham forward gives rev order in DIF indices, a DIT
-    // inverse takes it
-    if ((FWD != kDit) != (INV == kDit)) bit_reverse<R, 1>(u, b, vt, tb);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-        const int p_hi = hi(kInvCt, pl.inv_hi[p], p);
-        if (p > 0) {
-            const int b2 = win(kInvCt, pl.inv_b[p], p);
-            const int t2 = next_thread(p_hi);
-            exchange<kConst, R, 1>(u, buf, stride, b, vt, b2, t2, warp_rows);
-            b = b2;
-            vt = t2;
-        }
-        pass_stages<kInvCt, R, 1>(u, b, vt, lo(kInvCt, pl.inv_lo[p], p), p_hi,
-                                  w.iw, w.iw_sh, q, q2);
-    }
-    if (INV != kDit) bit_reverse<R, 1>(u, b, vt, tb);
-
-    // phi^{-1} n^{-1} on the way out, canonical
-    if (live) {
-        const int base = window_base(vt, b, r);
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-            const int i = base + (c << b);
-            z[off + i] = csub(shoup_lazy(u[0][c], __ldg(w.iphi + i),
-                                         __ldg(w.iphi_sh + i), q),
-                              q);
-        }
-    }
-}
+using qt::pairing::kDif;
+using qt::pairing::kDit;
+using qt::pairing::kStk;
+using qt::pairing::pass_kernel;
 
 // The instantiations: R = n for n <= 32 (one pass a transform), R = 32 with
 // two passes (n <= 1024) or three (n <= 16384, as the block's threads
 // allow), and R = 32 in two passes built for n = 1024 (qtesla-iii-speed,
 // qtesla-p-i), whose one schedule the launcher's checks leave is the one
-// two_pass_* restate.
+// two_pass_* restate; in a cluster R = 32 in three passes (n = 32768) or
+// four (n = 65536, 131072).
 template <int FWD, int INV>
-PassKernel pass_kernel_for(int radix, int passes, int logn) {
+PassKernel pass_kernel_for(int radix, int passes, int logn, int cluster) {
+    if (cluster > 1)
+        return radix == 32
+                   ? qt::pairing::cluster_pass_kernel<FWD, INV>(passes)
+                   : nullptr;
     if (radix == 32 && passes == 2 && logn == 10)
-        return pass_kernel<FWD, INV, 32, 2, 10>;
+        return pass_kernel<FWD, INV, 32, 2, 10, false>;
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return pass_kernel<FWD, INV, 2, 1, 0>;
-        case 4 * 4 + 1: return pass_kernel<FWD, INV, 4, 1, 0>;
-        case 8 * 4 + 1: return pass_kernel<FWD, INV, 8, 1, 0>;
-        case 16 * 4 + 1: return pass_kernel<FWD, INV, 16, 1, 0>;
-        case 32 * 4 + 1: return pass_kernel<FWD, INV, 32, 1, 0>;
-        case 32 * 4 + 2: return pass_kernel<FWD, INV, 32, 2, 0>;
-        case 32 * 4 + 3: return pass_kernel<FWD, INV, 32, 3, 0>;
+        case 2 * 4 + 1: return pass_kernel<FWD, INV, 2, 1, 0, false>;
+        case 4 * 4 + 1: return pass_kernel<FWD, INV, 4, 1, 0, false>;
+        case 8 * 4 + 1: return pass_kernel<FWD, INV, 8, 1, 0, false>;
+        case 16 * 4 + 1: return pass_kernel<FWD, INV, 16, 1, 0, false>;
+        case 32 * 4 + 1: return pass_kernel<FWD, INV, 32, 1, 0, false>;
+        case 32 * 4 + 2: return pass_kernel<FWD, INV, 32, 2, 0, false>;
+        case 32 * 4 + 3: return pass_kernel<FWD, INV, 32, 3, 0, false>;
         default: return nullptr;
     }
 }
@@ -264,7 +127,8 @@ int launch_passes(const void* a, const void* b, void* out, const void* tw,
     const qt::PassOrder order{FWD == kDit, INV == kDit,
                               (FWD != kDit) != (INV == kDit), FWD == kStk};
     return qt::launch_pass_kernel(
-        pass_kernel_for<FWD, INV>(pl.radix, pl.passes, logn), pl, order, a,
+        pass_kernel_for<FWD, INV>(pl.radix, pl.passes, logn, pl.cluster), pl,
+        order, a,
         b, out, tw, batch, n, logn, q, r32, r32_sh, one_sh, stream);
 }
 

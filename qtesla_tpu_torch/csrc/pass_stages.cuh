@@ -19,11 +19,36 @@
 // at each exchange with __syncwarp() alone; larger rows take
 // __syncthreads().
 //
+// Rows one block cannot hold (n >= 32768 with both transforms: two
+// operands' rows take 264 KiB and 1024 threads of 64 data registers fill
+// an SM's register file; 65536 with one) span a thread-block cluster of C
+// = T / most blocks on C SMs (most: 512 threads a block with both
+// transforms, 1024 with one; C <= 8, the portable cluster).  Thread t of
+// the row is thread t mod (T / C) of block t / (T / C) of its cluster, one
+// row a cluster, and block k holds indices [k m, (k + 1) m), m = n / C,
+// of each operand in its shared memory at i mod m, padded.  Every pass,
+// twiddle read, load and store is the block form's on the row's thread t.
+// An exchange between two windows that keep the block's bits of t in the
+// top bits of the index (b <= L - r - log2 C, no bit-reversal renaming,
+// not Stockham's map) stays in the block, as before; the others
+// (the plan's cross mask, see cross_mask) store each value into the
+// shared memory of the block that holds its index and load from there
+// (distributed shared memory: cooperative_groups' map_shared_rank), the
+// block's __syncthreads() replaced by cluster barriers
+// (barrier.cluster.arrive.release / wait.acquire).  The kernel stays one
+// launch, through cudaLaunchKernelEx with a cluster dimension.  What
+// bounds it on an H100: the exchanges across blocks (three cluster
+// barriers each, one block an SM at 135 KB of shared memory, remote stores
+// and loads), not device memory: B1 took 0.70 ms at n = 32768, B = 1024
+// (5.8x its bytes bound; 1.88x at n = 1024), Stockham, all of whose
+// exchanges cross, 2.46 ms (PERF.md, section 5).
+//
 // Arithmetic.  q < 2^30.  GS (Gentleman-Sande) butterflies keep values in
 // [0, 2q); CT (Cooley-Tukey) butterflies take and give values below 4q.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,16 +57,20 @@
 
 namespace qt {
 
-constexpr int kMaxPasses = 3;
+constexpr int kMaxPasses = 4;
 // the most dynamic shared memory one H100 block may take (227 KB)
 constexpr int kMaxSmem = 232448;
+// the most blocks of a portable cluster
+constexpr int kMaxCluster = 8;
 
 // Mirrors ops/passes.py PassPlan.  Pass p of the forward runs the stages of
 // half-width 2^k, k in [fwd_lo[p], fwd_hi[p]), in the window [fwd_b[p],
 // fwd_b[p] + r); the inverse's likewise.  row_stride: words of shared
-// memory a row (both operands, padded); 0 when P = 1.
+// memory a row (both operands, padded), or a block of a cluster; 0 when P
+// = 1.  cluster: blocks a row (1: rows rows a block); cross: bit e set when
+// the kernel's e-th exchange goes between the cluster's blocks.
 struct PassPlan {
-    int radix, threads, rows, passes, row_stride;
+    int radix, threads, rows, passes, row_stride, cluster, cross;
     int fwd_lo[kMaxPasses], fwd_hi[kMaxPasses], fwd_b[kMaxPasses];
     int inv_lo[kMaxPasses], inv_hi[kMaxPasses], inv_b[kMaxPasses];
 };
@@ -212,6 +241,95 @@ __device__ __forceinline__ void exchange(uint32_t (&v)[NOPS][R],
     row_sync(warp_rows);
 }
 
+// From the window [b, b + r) of virtual thread vt to the window [b2, b2 + r)
+// of virtual thread t, across the blocks of the row's cluster: index i in
+// the shared memory of block i >> lbits at padded(i mod 2^lbits) (operand o
+// at o * stride), stored and loaded there through distributed shared
+// memory.  The first barrier keeps a block from storing into a buffer
+// another block still reads from the exchange before (and waits for every
+// block of the cluster to run), the second makes the stores seen, the third
+// keeps a block from storing again, or exiting, while another still loads
+// from it.
+template <int R, int NOPS>
+__device__ __forceinline__ void cluster_exchange(uint32_t (&v)[NOPS][R],
+                                                 uint32_t* buf, int stride,
+                                                 int b, int vt, int b2, int t,
+                                                 int lbits) {
+    namespace cg = cooperative_groups;
+    constexpr int r = ilog2(R);
+    const cg::cluster_group cl = cg::this_cluster();
+    const int mask = (1 << lbits) - 1;
+    const int from = window_base(vt, b, r), to = window_base(t, b2, r);
+    cl.sync();
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int i = from + (c << b);
+        uint32_t* dst = cl.map_shared_rank(buf, i >> lbits) + padded(i & mask);
+#pragma unroll
+        for (int o = 0; o < NOPS; ++o) dst[o * stride] = v[o][c];
+    }
+    cl.sync();
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int i = to + (c << b2);
+        const uint32_t* src =
+            cl.map_shared_rank(buf, i >> lbits) + padded(i & mask);
+#pragma unroll
+        for (int o = 0; o < NOPS; ++o) v[o][c] = src[o * stride];
+    }
+    cl.sync();
+}
+
+// The row's thread and its place in a block: kCluster false, rows of T =
+// 2^tb threads side by side in a block (slot the row's place); true, one
+// row a cluster, thread t of the row the thread of its block's rank
+// (lbits: log2 of the indices a block holds, m).
+template <bool kCluster>
+struct RowPlace {
+    int t, slot, rank, lbits;
+    long long row;
+    __device__ __forceinline__ RowPlace(const PassPlan& pl, int tb,
+                                        int logn) {
+        if constexpr (kCluster) {
+            rank = static_cast<int>(
+                cooperative_groups::this_cluster().block_rank());
+            t = (rank << (tb - (31 - __clz(pl.cluster)))) + threadIdx.x;
+            slot = 0;
+            row = blockIdx.x / pl.cluster;
+            lbits = logn - (31 - __clz(pl.cluster));
+        } else {
+            t = threadIdx.x & ((1 << tb) - 1);
+            slot = threadIdx.x >> tb;
+            rank = 0;
+            row = static_cast<long long>(blockIdx.x) * pl.rows + slot;
+            lbits = logn;
+        }
+    }
+};
+
+// Exchange e of a kernel: the block form's exchange, or in a cluster the
+// cross-block one where the plan's cross mask has bit e, else the block
+// form's on the block's own indices (thread t of the row is thread
+// threadIdx.x of the block's m indices: the window keeps the block's bits
+// in the index's top bits and the thread holds its own virtual thread).
+template <bool kCluster, bool kConst, int R, int NOPS>
+__device__ __forceinline__ void row_exchange(uint32_t (&v)[NOPS][R],
+                                             uint32_t* buf, int stride,
+                                             int b, int vt, int b2, int t,
+                                             bool warp_rows,
+                                             const PassPlan& pl, int e,
+                                             int lbits) {
+    if constexpr (kCluster) {
+        if ((pl.cross >> e) & 1)
+            cluster_exchange<R, NOPS>(v, buf, stride, b, vt, b2, t, lbits);
+        else
+            exchange<false, R, NOPS>(v, buf, stride, b, threadIdx.x, b2,
+                                     threadIdx.x, false);
+    } else {
+        exchange<kConst, R, NOPS>(v, buf, stride, b, vt, b2, t, warp_rows);
+    }
+}
+
 // One transform's passes cover [0, logn) in their order (up: from the
 // narrowest stage, else from the widest), each pass inside its window; with
 // Stockham's windows (stk) each window's top is its pass's widest stage.
@@ -252,6 +370,40 @@ inline bool no_passes(const int* lo, const int* hi, const int* b) {
     return true;
 }
 
+// Bit e set: the e-th exchange of a kernel of this order (B3's first one
+// into [0, r), the forward's between passes, B2's last one back to [tb, L),
+// the inverse's) goes between the blocks of the plan's cluster; 0 for a
+// plan of one block a row.  Thread t lies in block t >> (tb - c) (C = 2^c);
+// a window [b, b + r) with b <= tb - c keeps those bits of t in the top c
+// bits of its indices, where the blocks part the row, as long as the thread
+// holds its own virtual thread: not after a bit reversal's renaming, not
+// under Stockham's map.  ops/passes.py cross_mask makes the same bits.
+inline int cross_mask(const PassPlan& pl, PassOrder order, int logn) {
+    if (pl.cluster == 1) return 0;
+    const int tb = logn - ilog2(pl.radix), top = tb - ilog2(pl.cluster);
+    int mask = 0, e = 0, b = tb;
+    bool own = true;  // the load: window [tb, L), thread t
+    const auto exchange_to = [&](int b2) {
+        if (order.stk || !own || b > top || b2 > top) mask |= 1 << e;
+        ++e;
+        b = b2;
+        own = true;
+    };
+    if (order.forward) {
+        if (order.fwd_up) b = 0, own = false;
+        for (int p = 1; p < pl.passes; ++p) exchange_to(pl.fwd_b[p]);
+        if (!order.inverse)
+            exchange_to(tb);
+        else if (order.reflect)
+            b = tb - b, own = false;
+    } else {
+        exchange_to(0);
+    }
+    if (order.inverse)
+        for (int p = 1; p < pl.passes; ++p) exchange_to(pl.inv_b[p]);
+    return mask;
+}
+
 // Checks the plan against the kernel chosen for it (null: none) and
 // launches it; cudaErrorInvalidValue for a plan it cannot run.  The load
 // leaves a row in the window [tb, L), reflected to [0, r) when the forward
@@ -260,8 +412,11 @@ inline bool no_passes(const int* lo, const int* hi, const int* b) {
 // With no forward the inverse starts on [0, r) (B3's kernel takes its
 // coalesced load there by one exchange); with no inverse the forward starts
 // where the load leaves a row, on [tb, L) from the widest stage down (B2).
-// A kernel of one transform may take 1024 threads a row in three passes (n
-// = 32768: one operand's registers leave room for them).
+// A kernel of one transform may take 1024 threads a block from three
+// passes (n = 32768: one operand's registers leave room for them), one of
+// two 512.  A row of more threads than that spans a cluster of C =
+// T / most blocks (C a power of two up to 8), launched with its cluster
+// dimension; the plan's cross mask must be cross_mask's.
 inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
                               PassOrder order, const void* a, const void* b,
                               void* out, const void* tw, long long batch,
@@ -272,12 +427,20 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
         pl.passes > kMaxPasses || !(order.forward || order.inverse))
         return cudaErrorInvalidValue;
     const int r = ilog2(pl.radix), tb = logn - r;
-    const long long threads = static_cast<long long>(pl.rows) * pl.threads;
+    const int C = pl.cluster;
+    if (C < 1 || C > kMaxCluster || (C & (C - 1)) || C > pl.threads)
+        return cudaErrorInvalidValue;
+    const long long threads =
+        static_cast<long long>(pl.rows) * pl.threads / C;
     const bool both = order.forward && order.inverse;
-    const int most = pl.passes == 3 ? (both ? 512 : 1024) : 256;
+    const int most = pl.passes >= 3 ? (both ? 512 : 1024) : 256;
     if (pl.threads != 1 << tb || pl.rows < 1 || threads > most ||
         threads % 32 != 0)
         return cudaErrorInvalidValue;
+    // a cluster only where one block cannot hold the row, one row to it
+    if (C > 1 && (pl.rows != 1 || pl.threads != C * most))
+        return cudaErrorInvalidValue;
+    if (pl.cross != cross_mask(pl, order, logn)) return cudaErrorInvalidValue;
     if (both) {
         const int last = pl.fwd_b[pl.passes - 1];
         const int inv_first = order.reflect ? tb - last : last;
@@ -303,13 +466,14 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
     }
     size_t smem = 0;
     if (pl.passes > 1) {
+        const int m = n / C;
         if (order.operands < 1 || order.operands > 2 ||
-            pl.row_stride < order.operands * (n + (n >> 5)))
+            pl.row_stride < order.operands * (m + (m >> 5)))
             return cudaErrorInvalidValue;
         smem = static_cast<size_t>(pl.rows) * pl.row_stride * sizeof(uint32_t);
         if (smem > kMaxSmem) return cudaErrorInvalidValue;
     }
-    const long long blocks = (batch + pl.rows - 1) / pl.rows;
+    const long long blocks = (batch + pl.rows - 1) / pl.rows * C;
     if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -318,12 +482,32 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
         if (e != cudaSuccess) return e;
     }
     const Mod m{q, r32, r32_sh, one_sh};
-    kernel<<<dim3(static_cast<unsigned>(blocks)),
-             static_cast<unsigned>(threads), smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), static_cast<const uint32_t*>(tw), batch,
-        n, logn, m, 2u * q, pl);
+    if (C == 1) {
+        kernel<<<dim3(static_cast<unsigned>(blocks)),
+                 static_cast<unsigned>(threads), smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+            static_cast<uint32_t*>(out), static_cast<const uint32_t*>(tw),
+            batch, n, logn, m, 2u * q, pl);
+        return cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(static_cast<unsigned>(threads));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(C);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const uint32_t*>(a),
+        static_cast<const uint32_t*>(b), static_cast<uint32_t*>(out),
+        static_cast<const uint32_t*>(tw), batch, n, logn, m, 2u * q, pl);
+    if (e != cudaSuccess) return e;
     return cudaGetLastError();
 }
 

@@ -22,7 +22,9 @@ recombination that does not bias its groups adds ``group_bias`` back.
 
 ``stream_tables(mt)`` lays the forward and inverse tables out as the
 stages B5's kernel copies into shared memory one by one (``expand_stream``
-is its inverse).
+is its inverse).  ``lane_packed(mt)`` is ``mt`` as that kernel runs it:
+a lane block narrower than the MMA's 32-deep step (n <= 16) packed 32 / n
+rows to a row of 32 lanes, its tables block diagonal.
 
 ``get_mxu_tables(name)`` plans from the port's registry;
 ``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
@@ -37,6 +39,7 @@ the (bw, bw) diagonal blocks alone, never from the (n, n) matrix.
 
 from __future__ import annotations
 
+import copy
 import functools
 from dataclasses import dataclass
 
@@ -49,7 +52,8 @@ __all__ = ["MxuTables", "get_mxu_tables", "from_jax_mxu_tables",
            "pointwise_bound", "FixedFoldPlan", "fold_plan", "fixed_fold_plan",
            "fold_tables", "fixed_fold_tables", "from_jax_fold_plan",
            "from_jax_fold_tables", "STAGE_DEPTH", "stream_stages",
-           "stream_tables", "expand_stream"]
+           "stream_tables", "expand_stream", "MMA_K", "lane_packed",
+           "block_diagonal"]
 
 _BW_MAX = 128            # block width: one TPU vreg of lanes
 
@@ -716,3 +720,49 @@ def expand_stream(st: np.ndarray, mt: MxuTables) -> tuple:
         raise ValueError("the stream's depth padding holds nonzero bytes")
     return out
 
+
+# ----------------------------------------------------------------------
+# Lane blocks narrower than one MMA step.
+# ----------------------------------------------------------------------
+
+MMA_K = 32               # the int8 MMA's k step: the narrowest lane block
+
+
+def block_diagonal(w: np.ndarray, k: int) -> np.ndarray:
+    """Input-major tables (1, din, bw, D*bw) -> (1, din, k*bw, D*k*bw) with
+    k copies of the block on the diagonal of every class, zero elsewhere:
+    input lane c*bw + i feeds output lane c*bw + o of class j (column
+    (j*k + c)*bw + o) as lane i fed lane o."""
+    nb, din, bw, dbw = w.shape
+    D = dbw // bw
+    out = np.zeros((nb, din, k * bw, D * k * bw), dtype=w.dtype)
+    for c in range(k):
+        for j in range(D):
+            out[:, :, c * bw:(c + 1) * bw,
+                (j * k + c) * bw:(j * k + c + 1) * bw] = \
+                w[:, :, :, j * bw:(j + 1) * bw]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def lane_packed(mt: MxuTables) -> MxuTables:
+    """``mt`` as B5's stream kernel runs it.  Its MMA takes 32 input lanes
+    a step and its warps 8 output lanes each, so a lane block narrower
+    than 32 (n <= 16, where bw = n, nb = 1 and Lr = 0) is packed: k = 32 /
+    n rows side by side make one row of 32 lanes, the tables hold k copies
+    of the block on their diagonal (``block_diagonal``) and the const rows
+    k copies of theirs, so each row's lanes meet only its own block.
+    Splits, bounds, classes and biases are per value or per class and stay
+    as they are; ``tbl`` stays the n-point table (no wide stage reads
+    it).  A table of 32 lanes or more comes back as it is."""
+    if mt.bw >= MMA_K:
+        return mt
+    assert mt.nb == 1 and mt.Lr == 0
+    k = MMA_K // mt.bw
+    out = copy.copy(mt)
+    out.n = out.bw = MMA_K
+    out.logn = MMA_K.bit_length() - 1
+    out.wf, out.wi = (block_diagonal(w, k) for w in (mt.wf, mt.wi))
+    out.constf, out.consti = (np.tile(c, (1, 1, k))
+                              for c in (mt.constf, mt.consti))
+    return out

@@ -26,7 +26,10 @@ exchange to where B4's inverse starts) under ``intt_pass_plan(n)``, a plan
 with no forward passes, and B2 B4's forward half alone (the same kernel: a
 coalesced load, B4's forward passes, one exchange back to where the load
 left the row, a coalesced store) under ``ntt_pass_plan(n)``, a plan with no
-inverse passes, both for every n from 2 to 32768.
+inverse passes, both for every n from 2 to 262144; B1 and B4 from 2 to
+131072.  Where one block cannot hold a row (B1, B4 from 32768, B2, B3 from
+65536) the row spans a thread-block cluster of 2 to 8 blocks, still one
+launch a call (``passes.pass_plan``).
 ``polymul_fused_passes_plain``, ``polymul_fixed_fused_passes_plain``,
 ``ntt_passes_plain`` and ``intt_passes_plain`` run those schedules on the
 CPU with the kernel's index maps, exchanges and lazy ranges.  All read
@@ -194,7 +197,8 @@ def intt_plain(X, tbl: NttTables, tw=None) -> torch.Tensor:
 def fused_pass_plan(n: int) -> PassPlan:
     """B1's schedule at row length ``n``: gs_ct's (``passes.pass_plan``),
     the forward from the widest stage down, the inverse from the narrowest
-    up.  Raises for what the launcher refuses.  Cached: copy it before
+    up; from n = 32768 a row spans a cluster of 2, 4 or 8 blocks.  Raises
+    for what the launcher refuses (past n = 131072).  Cached: copy it before
     changing a field."""
     return pass_plan(n, False, True)
 
@@ -209,18 +213,19 @@ def fixed_pass_plan(n: int) -> PassPlan:
 def ntt_pass_plan(n: int) -> PassPlan:
     """B2's schedule at row length ``n``: B4's forward passes, from the
     widest stage down, with no inverse after them (the inverse's fields 0),
-    one operand's shared memory a row, and up to 1024 threads a row in three
-    passes, so every n from 2 to 32768 has a plan.  Raises for other n.
-    Cached: copy it before changing a field."""
+    one operand's shared memory a row, and up to 1024 threads a block, so a
+    row of n <= 32768 fits a block and one from 65536 to 262144 a cluster
+    of 2 to 8.  Raises for other n.  Cached: copy it before changing a
+    field."""
     return pass_plan(n, False, None, operands=1)
 
 
 def intt_pass_plan(n: int) -> PassPlan:
     """B3's schedule at row length ``n``: B4's inverse passes with no
     forward before them (the forward's fields 0), one operand's shared
-    memory a row, and up to 1024 threads a row in three passes, so every n
-    from 2 to 32768 has a plan.  Raises for other n.  Cached: copy it
-    before changing a field."""
+    memory a row, and up to 1024 threads a block, so a row of n <= 32768
+    fits a block and one from 65536 to 262144 a cluster of 2 to 8.  Raises
+    for other n.  Cached: copy it before changing a field."""
     return pass_plan(n, None, True, operands=1)
 
 

@@ -32,6 +32,13 @@ Dispatch is on the input's device, as in ``ntt_fused``: a CUDA tensor
 launches the kernel of ``csrc/ntt_mxu.cu`` (or raises), a CPU tensor runs
 the twin, anything else raises.  Each launch adds one to its kernel's count
 in ``KERNELS``.
+
+At n <= 16 the lane block (bw = n) is narrower than the kernel's 32-deep
+MMA step: the kernel runs ``mxu_tables.lane_packed(mt)``, 32 / n rows side
+by side in one row of 32 lanes against block-diagonal tables
+(``kernel_tables``), the batch padded with zero rows to whole packed rows
+(``_packed``); plans, tables and operands of the kernel are the packed
+ones, the twins run on the n lanes.
 """
 
 from __future__ import annotations
@@ -40,16 +47,19 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import ntt as N
 from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _group_bias,
-                         _split_bias, _stages, fold_plan, fold_tables,
-                         get_mxu_tables, stream_stages, stream_tables)
+                         _split_bias, _stages, block_diagonal, fold_plan,
+                         fold_tables, get_mxu_tables, lane_packed,
+                         stream_stages, stream_tables)
 from .ntt_fused import Kernel, _check, _check_tw
 
 __all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "MxuStreamPlan",
-           "FoldedOperand", "host_tables", "device_tables", "plan_for",
+           "FoldedOperand", "host_tables", "device_tables", "kernel_tables",
+           "plan_for",
            "stream_plan", "fold_plan_for", "staged_tables",
            "block_rows", "fold_operand", "polymul_mxu_fn",
            "polymul_fixed_mxu_fn", "polymul_fixed_folded_mxu_fn",
@@ -94,7 +104,8 @@ class MxuDeviceTables:
     likewise.  ``constf`` / ``consti`` uint32 (nb, bw) are the planner's
     const rows.  ``stream`` int8 (nb*(Cf + Ci), 64*bw*D) is ``wf`` and
     ``wi`` again as the stages the stream kernel copies into shared memory
-    (``mxu_tables.stream_tables``): B5 and B8 read all of it, B6 and B9 its
+    (``mxu_tables.stream_tables`` of ``lane_packed(mt)``, bw 32 at n <=
+    16): B5 and B8 read all of it, B6 and B9 its
     first nb*Cf stages, the forward ones (B9's inverse stages are the
     constant's), B7 the rest, the inverse ones.  The dense ``wf`` and
     ``wi`` are read by the twins alone."""
@@ -116,17 +127,28 @@ def _kernel_layout(w) -> torch.Tensor:
 
 
 def host_tables(mt: MxuTables) -> MxuDeviceTables:
-    """The kernel-layout tables on the CPU, in new storage."""
+    """The kernel-layout tables on the CPU, in new storage; the stream is
+    ``lane_packed(mt)``'s, the one the kernel reads."""
     return MxuDeviceTables(
         _kernel_layout(mt.wf), torch.from_numpy(mt.constf[:, 0].copy()),
         _kernel_layout(mt.wi), torch.from_numpy(mt.consti[:, 0].copy()),
-        torch.from_numpy(stream_tables(mt)))
+        torch.from_numpy(stream_tables(lane_packed(mt))))
 
 
 @functools.lru_cache(maxsize=None)
 def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
     """``host_tables(mt)`` on ``device``, made once per device."""
     return MxuDeviceTables(*(t.to(device) for t in host_tables(mt).tensors()))
+
+
+def kernel_tables(mt: MxuTables, device: torch.device,
+                  tabs: MxuDeviceTables | None = None) -> MxuDeviceTables:
+    """The tables the stream kernel reads: ``tabs`` (``device_tables(mt,
+    device)`` unless given), or at n <= 16 those of ``lane_packed(mt)``."""
+    pk = lane_packed(mt)
+    if pk is not mt:
+        return device_tables(pk, device)
+    return device_tables(mt, device) if tabs is None else tabs
 
 
 @dataclass(frozen=True)
@@ -149,9 +171,14 @@ def fold_operand(spectrum: torch.Tensor, mt: MxuTables) -> FoldedOperand:
     """The folded operand of the constant whose canonical forward spectrum
     is ``spectrum`` (n values), on the spectrum's device, under
     ``fold_plan(mt)``.  The tables are built on the host (``fold_tables``),
-    laid out as stages there and copied over once."""
+    laid out as stages there and copied over once; at n <= 16 as the
+    kernel reads them, lane packed (``lane_packed``: 32 / n copies of the
+    block on the diagonal)."""
     _check("spectrum", spectrum.reshape(-1), spectrum.numel())
     W, c = fold_tables(mt, fold_plan(mt), spectrum.reshape(-1).cpu().numpy())
+    k = lane_packed(mt).bw // mt.bw
+    if k > 1:
+        W, c = block_diagonal(W, k), np.tile(c, (1, 1, k))
     dev = spectrum.device
     return FoldedOperand(torch.from_numpy(_stages(W)).to(dev),
                          torch.from_numpy(c[:, 0].copy()).to(dev))
@@ -170,10 +197,11 @@ def staged_tables(stages: torch.Tensor, nb: int, bw: int,
 
 def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
     nb, bw, D = mt.nb, mt.bw, mt.D
-    stages = nb * (stream_stages(mt.Df, bw) + stream_stages(mt.Di, bw))
+    sw = lane_packed(mt).bw
+    stages = nb * (stream_stages(mt.Df, sw) + stream_stages(mt.Di, sw))
     want = ((torch.int8, (nb, D * bw, mt.Df * bw)), (torch.uint32, (nb, bw)),
             (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)),
-            (torch.int8, (stages, STAGE_DEPTH * bw * D)))
+            (torch.int8, (stages, STAGE_DEPTH * sw * D)))
     _check_shapes("MXU tables", tabs.tensors(), want, like)
 
 
@@ -285,8 +313,16 @@ def polymul_fixed_folded_mxu_plain(x, op: FoldedOperand, mt: MxuTables,
     fp = fold_plan(mt)
     tabs = tabs or device_tables(mt, x.device)
     X = _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw)
-    w = staged_tables(op.stages, mt.nb, mt.bw, fp.Dout)
-    v = _block_matmul(X, w, op.c, _group_bias(fp.groups, fp.bounds, mt.q),
+    pk = lane_packed(mt)
+    w = staged_tables(op.stages, pk.nb, pk.bw, fp.Dout)
+    c = op.c
+    if pk is not mt:
+        # the first block on the packed diagonal: output lanes j*32 + o,
+        # input lanes i*32 + k, o and k below bw
+        bw = mt.bw
+        w = w.reshape(1, fp.Dout, pk.bw, -1, pk.bw)[:, :, :bw, :fp.Din, :bw]
+        w, c = w.reshape(1, fp.Dout * bw, fp.Din * bw), c[:, :bw]
+    v = _block_matmul(X, w, c, _group_bias(fp.groups, fp.bounds, mt.q),
                       fp.off, fp.Din, fp.base, mt)
     return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr).to(
         _U32).reshape(x.shape)
@@ -361,8 +397,11 @@ def _make_plan(mt: MxuTables, ops: int, di: int, inv_base: int,
 
 @functools.lru_cache(maxsize=None)
 def plan_for(mt: MxuTables, ops: int) -> MxuPlan:
-    return _make_plan(mt, ops, mt.Di, mt.inv_base, mt.inv_off,
-                      mt.group_bias_i)
+    """The plan of ``lane_packed(mt)`` for ``ops`` operand rows a batch
+    row."""
+    pk = lane_packed(mt)
+    return _make_plan(pk, ops, pk.Di, pk.inv_base, pk.inv_off,
+                      pk.group_bias_i)
 
 
 @functools.lru_cache(maxsize=None)
@@ -376,7 +415,7 @@ def fold_plan_for(mt: MxuTables, fp: FixedFoldPlan) -> MxuPlan:
         raise ValueError(f"{mt.tbl.ps.name}: fold plan (Dout={fp.Dout}, "
                          f"class bounds {fp.bounds}) is outside the kernel's "
                          f"range (D={mt.D}, bounds below 2^24)")
-    return _make_plan(mt, 1, fp.Din, fp.base, fp.off,
+    return _make_plan(lane_packed(mt), 1, fp.Din, fp.base, fp.off,
                       _group_bias(fp.groups, fp.bounds, mt.q))
 
 
@@ -427,11 +466,13 @@ def stream_plan(mt: MxuTables, mode: str = "product",
     inverse stage, ``stages_i`` 0, and B7 no forward one, ``stages_f`` 0),
     with the stage counts and the deepest ring that fits beside the rows
     and the planes the mode holds (3 stages of 24 KiB at
-    qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  A plan the
-    kernel cannot take raises: more than 4 digit classes, a split other
-    than at most 4 planes of base 256 or 6 of base 128, a lane block wider
-    than 128, rows other than one MMA tile of 16 or two (B5: x's and y's,
-    at most 16, or 32), or no room for two stages."""
+    qtesla-iii-speed, 2 of 32 KiB at the four-class sets).  At n <= 16 it
+    is the plan of ``lane_packed(mt)`` (n = bw = 32: rows of 32 / n
+    rows).  A plan the kernel cannot take raises: more than 4 digit
+    classes, a split other than at most 4 planes of base 256 or 6 of base
+    128, a lane block wider than 128, rows other than one MMA tile of 16
+    or two (B5: x's and y's, at most 16, or 32), or no room for two
+    stages."""
     if mode not in STREAM_MODES:
         raise ValueError(f"stream mode {mode!r}: not one of {STREAM_MODES}")
     if mode == "folded":
@@ -442,6 +483,7 @@ def stream_plan(mt: MxuTables, mode: str = "product",
     else:
         base = plan_for(mt, 2 if mode == "product" else 1)
         di, inv_base = mt.Di, mt.inv_base
+    mt = lane_packed(mt)
     for din, b in ((mt.Df, mt.fwd_base), (di, inv_base)):
         if b not in (128, 256) or din > (4 if b == 256 else 6):
             raise ValueError(f"{mt.tbl.ps.name}: {din} planes of base {b} "
@@ -471,7 +513,7 @@ def _launch(kernel: Kernel, mt: MxuTables, plan: MxuPlan, tw, a, b, *,
     from ..utils.build import load_library
 
     out = torch.empty_like(a)
-    batch = a.numel() // mt.n
+    batch = a.numel() // plan.n
     if batch == 0:
         return out
     lib = load_library()
@@ -509,6 +551,30 @@ def _prepare(mt: MxuTables, tabs, tw, *tensors):
     return tabs, tw
 
 
+def _packed(mt: MxuTables, *tensors):
+    """(B..., n) operands as the kernel of ``lane_packed(mt)`` takes them:
+    as they are, or at n <= 16 rows of 32 lanes, the batch padded with
+    zero rows to whole ones."""
+    pk = lane_packed(mt)
+    if pk is mt:
+        return tensors
+    k = pk.n // mt.n
+    out = []
+    for t in tensors:
+        rows = t.reshape(-1, mt.n)
+        pad = -rows.shape[0] % k
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros(pad, mt.n)])
+        out.append(rows.reshape(-1, pk.n))
+    return out
+
+
+def _unpacked(z: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The kernel's output rows back in the shape of ``like``."""
+    return z.reshape(-1, like.shape[-1])[:like.numel() // like.shape[-1]] \
+        .reshape(like.shape)
+
+
 # ----------------------------------------------------------------------
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
@@ -521,8 +587,11 @@ def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_mxu"], mt, stream_plan(mt), tw, x,
-                       y, wf=tabs.stream, cf=tabs.constf, ci=tabs.consti)
+        kt = kernel_tables(mt, x.device, tabs)
+        z = _launch(KERNELS["polymul_mxu"], mt, stream_plan(mt), tw,
+                    *_packed(mt, x, y), wf=kt.stream, cf=kt.constf,
+                    ci=kt.consti)
+        return _unpacked(z, x)
     return polymul_mxu_plain(x, y, mt, tabs, tw)
 
 
@@ -535,9 +604,14 @@ def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
         raise ValueError(f"spectrum must hold n={mt.n} values, got "
                          f"{tuple(yspec.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fixed_mxu"], mt,
-                       stream_plan(mt, "fixed"), tw, x, yspec,
-                       wf=tabs.stream, cf=tabs.constf, ci=tabs.consti)
+        # at n <= 16 the spectrum's n lanes once for each packed row
+        k = lane_packed(mt).n // mt.n
+        spec = yspec if k == 1 else yspec.reshape(-1).repeat(k)
+        kt = kernel_tables(mt, x.device, tabs)
+        z = _launch(KERNELS["polymul_fixed_mxu"], mt,
+                    stream_plan(mt, "fixed"), tw, *_packed(mt, x), spec,
+                    wf=kt.stream, cf=kt.constf, ci=kt.consti)
+        return _unpacked(z, x)
     return polymul_fixed_mxu_plain(x, yspec, mt, tabs, tw)
 
 
@@ -547,16 +621,18 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
     (``fold_operand`` of its spectrum)."""
     fp = fold_plan(mt)
     tabs, tw = _prepare(mt, tabs, tw, x)
-    nb, bw = mt.nb, mt.bw
+    pk = lane_packed(mt)
+    nb, bw = pk.nb, pk.bw
     _check_shapes("folded operand", op.tensors(),
                   ((torch.int8, (nb * stream_stages(fp.Din, bw),
                                  STAGE_DEPTH * bw * fp.Dout)),
                    (torch.uint32, (nb, bw))), x)
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
-                       stream_plan(mt, "folded", fp), tw, x, None,
-                       wf=tabs.stream,
-                       cf=tabs.constf, wi=op.stages, ci=op.c)
+        kt = kernel_tables(mt, x.device, tabs)
+        z = _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
+                    stream_plan(mt, "folded", fp), tw, *_packed(mt, x), None,
+                    wf=kt.stream, cf=kt.constf, wi=op.stages, ci=op.c)
+        return _unpacked(z, x)
     return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
 
@@ -564,8 +640,11 @@ def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_mxu"], mt, stream_plan(mt, "ntt"), tw, x,
-                       None, wf=tabs.stream, cf=tabs.constf, ci=None)
+        kt = kernel_tables(mt, x.device, tabs)
+        z = _launch(KERNELS["ntt_mxu"], mt, stream_plan(mt, "ntt"), tw,
+                    *_packed(mt, x), None, wf=kt.stream, cf=kt.constf,
+                    ci=None)
+        return _unpacked(z, x)
     return ntt_mxu_plain(x, mt, tabs, tw)
 
 
@@ -574,8 +653,11 @@ def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     ``mt.pw_bound``, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_mxu"], mt, stream_plan(mt, "intt"), tw,
-                       X, None, wf=tabs.stream, cf=None, ci=tabs.consti)
+        kt = kernel_tables(mt, X.device, tabs)
+        z = _launch(KERNELS["intt_mxu"], mt, stream_plan(mt, "intt"), tw,
+                    *_packed(mt, X), None, wf=kt.stream, cf=None,
+                    ci=kt.consti)
+        return _unpacked(z, X)
     return intt_mxu_plain(X, mt, tabs, tw)
 
 

@@ -27,6 +27,8 @@ between two exchanges through shared memory (see the notes at the top of
 the CUDA source and of ``csrc/pass_stages.cuh``).
 ``pairing_pass_plan(n, pairing)`` is the schedule a launcher takes (made by
 ``ops/passes.py pass_plan``); Stockham's windows follow its position map.
+From n = 32768 to 131072 a row spans a thread-block cluster of 2 to 8
+blocks, one launch a call.
 ``polymul_pairing_passes_plain`` runs that schedule on the CPU with the
 kernel's index maps and uint32 arithmetic, so the tests hold the schedule
 itself against the plain pipeline, JAX's kernel and, for Stockham, the

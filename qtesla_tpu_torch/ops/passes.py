@@ -6,10 +6,14 @@ operand a thread; a pass runs up to r = log2(R) stages in registers on the
 window [b, b + r) of index bits, and the values go through shared memory
 between passes (see ``csrc/pass_stages.cuh``).  ``pass_plan`` makes the
 schedule a kernel's launcher takes: R, threads a row, rows a block, each
-pass's stages and window, the shared memory a row; it refuses what the
-launcher refuses.  ``PassModel`` runs a schedule on the CPU with the
-kernels' index maps, exchanges through a model of each block's shared memory
-at the kernels' padded addresses and uint32 lazy arithmetic (asserted), so
+pass's stages and window, the shared memory a row, and, where one block
+cannot hold a row (n >= 32768; B2 and B3 from 65536), the cluster of C
+blocks on C SMs that holds it and which exchanges cross its blocks; it
+refuses what the launcher refuses.  ``PassModel`` runs a schedule on the CPU
+with the kernels' index maps, exchanges through a model of each block's
+shared memory at the kernels' padded addresses (a cluster's blocks each
+holding n / C values of each operand) and uint32 lazy arithmetic
+(asserted), so
 that the CPU twins ``ntt_pairings.polymul_pairing_passes_plain``,
 ``ntt_fused.polymul_fused_passes_plain``,
 ``ntt_fused.polymul_fixed_fused_passes_plain``,
@@ -33,20 +37,23 @@ import torch
 
 from . import modmul as MM
 
-__all__ = ["MAX_PASSES", "PASS_SHAPES", "PassPlan", "schedule",
-           "pass_plan", "describe_pass_plan", "brev", "stockham_thread",
-           "stockham_index", "PassModel"]
+__all__ = ["MAX_PASSES", "MAX_CLUSTER", "PASS_SHAPES", "PassPlan",
+           "schedule", "pass_plan", "cross_mask", "describe_pass_plan",
+           "brev", "stockham_thread", "stockham_index", "PassModel"]
 
-MAX_PASSES = 3
+MAX_PASSES = 4
 # (R, passes) the launchers have a kernel for: R = n up to 32 in one pass a
-# transform, R = 32 in two passes (n <= 1024) or three
+# transform, R = 32 in two passes (n <= 1024), three (n <= 32768) or four
+# (n <= 2^20, in a cluster)
 PASS_SHAPES = frozenset({(2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (32, 2),
-                         (32, 3)})
+                         (32, 3), (32, 4)})
 # threads a block the kernels are built for (__launch_bounds__); the
-# kernel of one transform (B2, B3) takes 1024 in three passes
-_MAX_THREADS = {1: 256, 2: 256, 3: 512}
-_MAX_THREADS_ONE = {1: 256, 2: 256, 3: 1024}
+# kernel of one transform (B2, B3) takes 1024 from three passes
+_MAX_THREADS = {1: 256, 2: 256, 3: 512, 4: 512}
+_MAX_THREADS_ONE = {1: 256, 2: 256, 3: 1024, 4: 1024}
 _BLOCK_THREADS = 256
+# blocks a cluster may take without the non-portable size (8 SMs)
+MAX_CLUSTER = 8
 
 
 class PassPlan(ctypes.Structure):
@@ -54,10 +61,14 @@ class PassPlan(ctypes.Structure):
     struct of ``csrc/pass_stages.cuh``.  Pass p of the forward runs the
     stages of half-width 2^k, k in [fwd_lo[p], fwd_hi[p]), on the register
     window [fwd_b[p], fwd_b[p] + log2(radix)); the inverse's likewise.
-    ``row_stride``: words of shared memory a row (0 for one pass)."""
+    ``row_stride``: words of shared memory a row (0 for one pass), or a
+    block of a cluster.  ``cluster``: the blocks that hold one row (1: a
+    block holds ``rows`` rows); ``cross``: bit e set when the kernel's e-th
+    exchange crosses the cluster's blocks (``cross_mask``)."""
 
     _fields_ = [(f, ctypes.c_int32) for f in (
-        "radix", "threads", "rows", "passes", "row_stride")] + [
+        "radix", "threads", "rows", "passes", "row_stride", "cluster",
+        "cross")] + [
         (f, ctypes.c_int32 * MAX_PASSES) for f in (
             "fwd_lo", "fwd_hi", "fwd_b", "inv_lo", "inv_hi", "inv_b")]
 
@@ -95,14 +106,19 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
     passes (B3, the inverse alone, from the narrowest stage up on one
     operand), the forward's fields 0; ``inv_up`` None: no inverse passes
     (B2, the forward alone, from the widest stage down on one operand), the
-    inverse's fields 0; either way a row of up to 1024 threads in three
-    passes.  Raises for what the launchers refuse: an n that is not a power
-    of two from 2, more than three passes (n > 32768), a row of more threads
-    than its kernel's block takes (n = 32768 with both transforms), an
-    inverse alone that is not on one operand from the narrowest stage up, a
-    forward alone that is not on one operand from the widest stage down, a
-    plan of neither.  The returned plan is cached: copy it before changing
-    a field."""
+    inverse's fields 0; either way a block of up to 1024 threads from three
+    passes (512 with both transforms).  A row of more threads than its
+    kernel's block takes (n >= 32768 with both transforms, 65536 with one)
+    spans a cluster of C = T / most blocks, each holding n / C values of
+    each operand in its shared memory (``row_stride`` words a block), one
+    row a cluster; ``cross`` marks the exchanges that go between them.
+    Raises for what the launchers refuse: an n that is not a power of two
+    from 2, more than four passes (n > 2^20), a cluster of more than
+    ``MAX_CLUSTER`` blocks (n > 131072 with both transforms, 262144 with
+    one), an inverse alone that is not on one operand from the narrowest
+    stage up, a forward alone that is not on one operand from the widest
+    stage down, a plan of neither.  The returned plan is cached: copy it
+    before changing a field."""
     if n < 2 or n & (n - 1):
         raise ValueError(f"n={n}: not a power of two from 2")
     if operands not in (1, 2):
@@ -126,17 +142,21 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
     rows = max(1, _BLOCK_THREADS // T)
     one = fwd_up is None or inv_up is None
     most = (_MAX_THREADS_ONE if one else _MAX_THREADS)[P]
-    if rows * T > most:
-        raise ValueError(f"n={n}: {T} threads a row, more than the "
-                         f"{most} a block of its kernel takes")
+    cluster = max(1, T // most)
+    if cluster > MAX_CLUSTER:
+        raise ValueError(
+            f"n={n}: {T} threads a row, a cluster of {cluster} blocks of "
+            f"{most}, more than the {MAX_CLUSTER} a cluster takes (n <= "
+            f"{MAX_CLUSTER * most * R})")
     stride = 0
     if P > 1:
         # each operand, index i at i + i // 32; rows of fewer than 32
         # threads share a warp, so a row's banks start T past its
         # neighbour's.  A block of at most 512 threads holds at most 16384
-        # values an operand: 135 KB for two, inside the 227 KB a block may
-        # take.
-        stride = (-(-operands * (n + n // 32) // 32) * 32
+        # values an operand (one of 1024, 32768 of one): 135 KB, inside the
+        # 227 KB a block may take.
+        m = n // cluster
+        stride = (-(-operands * (m + m // 32) // 32) * 32
                   + (T if T < 32 else 0))
     if stockham:
         q, rem = divmod(L - r, P - 1) if P > 1 else (0, 0)
@@ -152,8 +172,55 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
         for i, f in enumerate(("lo", "hi", "b")):
             fields[f"{side}_{f}"] = (ctypes.c_int32 * MAX_PASSES)(
                 *(p[i] for p in sched))
-    return PassPlan(radix=R, threads=T, rows=rows, passes=P,
-                    row_stride=stride, **fields)
+    plan = PassPlan(radix=R, threads=T, rows=rows, passes=P,
+                    row_stride=stride, cluster=cluster, **fields)
+    plan.cross = cross_mask(plan, L, fwd_up, inv_up, stockham)
+    return plan
+
+
+def cross_mask(plan: PassPlan, L: int, fwd_up: bool | None,
+               inv_up: bool | None, stockham: bool = False) -> int:
+    """Bit e set: the kernel's e-th exchange (in the order it runs them:
+    B3's first one into [0, r), the forward's between passes, B2's last
+    one back to [tb, L), the inverse's) goes between the blocks of
+    ``plan``'s cluster; 0 for a block that holds its rows.  Thread t of a
+    row lies in block t >> (tb - c) (C = 2^c); a window [b, b + r) with
+    b <= tb - c keeps those bits of t in the top c bits of its indices,
+    where the cluster's blocks part the row, as long as the thread holds
+    its own virtual thread.  So an exchange stays in its block only between
+    two such windows, neither under Stockham's thread map nor from a
+    window renamed by a bit reversal (virtual thread brev(t)).  The
+    launcher (``csrc/pass_stages.cuh`` cross_mask) computes the same
+    bits and refuses a plan that differs."""
+    if plan.cluster == 1:
+        return 0
+    r = _log2(plan.radix)
+    tb = L - r
+    top = tb - _log2(plan.cluster)
+    mask, e = 0, 0
+    b, own = tb, True       # the load: window [tb, L), thread t
+
+    def exchange(b2):
+        nonlocal mask, e, b, own
+        if stockham or not own or b > top or b2 > top:
+            mask |= 1 << e
+        e, b, own = e + 1, b2, True
+
+    if fwd_up is not None:
+        if fwd_up:          # a DIT forward's bit reversal: [0, r), brev(t)
+            b, own = 0, False
+        for p in range(1, plan.passes):
+            exchange(plan.fwd_b[p])
+        if inv_up is None:
+            exchange(tb)
+        elif (not fwd_up) != inv_up:
+            b, own = tb - b, False
+    else:
+        exchange(0)
+    if inv_up is not None:
+        for p in range(1, plan.passes):
+            exchange(plan.inv_b[p])
+    return mask
 
 
 def describe_pass_plan(plan: PassPlan) -> str:
@@ -165,10 +232,13 @@ def describe_pass_plan(plan: PassPlan) -> str:
             return "none"
         return " ".join(f"[{lo[p]},{hi[p]})@{b[p]}"
                         for p in range(plan.passes))
+    where = ("a row" if plan.cluster == 1 else
+             f"a block, a cluster of {plan.cluster} blocks a row (exchanges "
+             f"crossing blocks: mask {plan.cross:#x})")
     return (f"R={plan.radix}, threads a row {plan.threads}, rows a block "
             f"{plan.rows}, passes a transform {plan.passes} (stages [lo,hi)@"
             f"window: forward {passes('fwd')}, inverse {passes('inv')}), "
-            f"{plan.row_stride * 4} bytes of shared memory a row")
+            f"{plan.row_stride * 4} bytes of shared memory {where}")
 
 
 def brev(v, bits: int):
@@ -196,7 +266,8 @@ class PassModel:
     operands, T, R) in int64 holding uint32 values, thread t holding R
     registers in the window [b, b + r) of its virtual thread vt, rows
     padded to whole blocks of ``plan.rows`` (a row past the batch computes
-    on row 0)."""
+    on row 0); a row of a cluster plan spans ``plan.cluster`` blocks,
+    thread t in block t >> (tb - c)."""
 
     def __init__(self, plan: PassPlan, n: int, q: int, batch: int):
         self.plan, self.n, self.q = plan, n, q
@@ -205,6 +276,7 @@ class PassModel:
         self.blocks = -(-batch // plan.rows)
         self.t = torch.arange(plan.threads)
         self.c = torch.arange(plan.radix)
+        self.exchanges = 0      # the kernel's exchanges so far
 
     def pad(self, a: torch.Tensor) -> torch.Tensor:
         rows = self.blocks * self.plan.rows
@@ -223,17 +295,28 @@ class PassModel:
     def exchange(self, V, b, vt, b2, vt2):
         """Through each row's shared memory at the kernels' padded
         addresses, from the window [b, b + r) of vt to [b2, b2 + r) of
-        vt2."""
-        plan, n = self.plan, self.n
-        stride = n + n // 32
+        vt2.  In a cluster each block holds m = n / C values of each
+        operand, index i in block i >> log2(m) at i mod m, padded; an
+        exchange that ``plan.cross`` keeps in its block is asserted to
+        store and load its thread's own block's indices alone."""
+        plan, n, C = self.plan, self.n, self.plan.cluster
+        m = n // C
+        stride = m + m // 32
         rows = self.blocks * plan.rows
-        smem = torch.zeros(rows * max(plan.row_stride, 1), dtype=torch.int64)
-        row_base = torch.arange(rows) * plan.row_stride
+        smem = torch.zeros(rows * C * max(plan.row_stride, 1),
+                           dtype=torch.int64)
+        row_base = torch.arange(rows) * plan.row_stride * C
         ops = torch.arange(V.shape[1])[None, :, None, None] * stride
+        cross = plan.cross >> self.exchanges & 1
+        self.exchanges += 1
+        own = (self.t >> (self.tb - _log2(C)))[:, None]
         addr = []
         for idx in (self.window(vt, b), self.window(vt2, b2)):
-            i = idx + (idx >> 5)
-            assert i.max() < stride and i.unique().numel() == n
+            block, i = idx // m, idx % m
+            assert cross or bool((block == own).all())
+            i = block * plan.row_stride + i + (i >> 5)
+            assert (idx % m + idx % m // 32).max() < stride
+            assert i.unique().numel() == n
             addr.append(row_base[:, None, None, None] + ops + i)
         assert V.shape[1] * stride <= plan.row_stride
         smem[addr[0]] = V

@@ -12,16 +12,17 @@ tree before B13, B14 and B15 moved: B13 3, B14 4, B15 5),
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
 ``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2, B15
 3, B14 4), B2's and B3's ``transform_pass_kernel<fwd,radix,passes,logn>``
-(B2 fwd 1, B3 0),
+(B2 fwd 1, B3 0; ``<..,cluster>`` once they took the cluster form),
 B1-B4's ``polymul_fused_kernel`` (B1's ``polymul_pass_kernel<radix,
 passes,logn>`` in a tree after it took register passes, and
 ``polymul_pass_kernel<radix,passes,logn,operands>`` once B4 joined it,
-B1 2 and B4 1), ``polymul_fixed_fused_kernel`` (B4 before it did),
+B1 2 and B4 1, ``<..,operands,cluster>`` once the pass kernels took the
+cluster form: a row across the blocks of a cluster 1, the block form 0), ``polymul_fixed_fused_kernel`` (B4 before it did),
 ``ntt_fused_kernel`` and ``intt_fused_kernel`` (B2 and B3 before they took
 register passes), B10's pairings,
 ``pairing_kernel<fwd,inv>`` in a tree before they took register passes
 and ``pass_kernel<fwd,inv,radix,passes,logn>`` after (DIF 0, DIT 1,
-Stockham 2)) it prints the SASS instruction count of each tree and the
+Stockham 2), ``<..,logn,cluster>`` once they took the cluster form) it prints the SASS instruction count of each tree and the
 opcodes whose counts differ; a bool template argument of an older tree
 reads as 0 or 1.  In a
 tree before B12 and B9 took those kernels, B5's
@@ -86,7 +87,7 @@ SUCCESSORS = {"mxu_kernel<1>": ("B8", _STREAM, ",2>"),
               "mxu_kernel<3>": ("B7", _STREAM, ",4>"),
               "mxu_kernel<4>": ("B9", _STREAM, ",1>"),
               "polymul_fixed_fused_kernel": ("B4", "polymul_pass_kernel<",
-                                             ",1>"),
+                                             ",1,0>"),
               "ntt_fused_kernel": ("B2", "transform_pass_kernel<1,", ">"),
               "intt_fused_kernel": ("B3", "transform_pass_kernel<0,", ">"),
               **{f"sp_kernel<5,{t}>": ("B15", "seg2_compact_kernel<3,", ">")
@@ -95,10 +96,17 @@ SUCCESSORS = {"mxu_kernel<1>": ("B8", _STREAM, ",2>"),
                  for t in (128, 256, 512)}}
 
 
+# the pass kernels' template arguments once they took the cluster form
+# (its bool last): a tree before it compiled the block form alone
+_PASS_ARGS = {"polymul_pass_kernel": 5, "transform_pass_kernel": 5,
+              "pass_kernel": 6}
+
+
 def _name(m: re.Match) -> str:
     """The instantiation as kernel<arg,...>; B5's polymul_stream_kernel<d>
     as polymul_stream_kernel<d,0>, B1's polymul_pass_kernel<R,P,L> as
-    polymul_pass_kernel<R,P,L,2> and B18's
+    polymul_pass_kernel<R,P,L,2>, a pass kernel of a tree before the
+    cluster form as its block form (the bool last 0) and B18's
     seg2_classes_compact_kernel<s,f> as seg2_compact_kernel<1,s,3,f>."""
     kernel, args = m.group(1), _ARG.findall(m.group(2) or "")
     if not args:
@@ -107,6 +115,8 @@ def _name(m: re.Match) -> str:
         args = args + ["0"]
     if kernel == "polymul_pass_kernel" and len(args) == 3:
         args = args + ["2"]
+    if len(args) == _PASS_ARGS.get(kernel, 0) - 1:
+        args = args + ["0"]
     if kernel == "seg2_classes_compact_kernel":
         kernel, args = "seg2_compact_kernel", ["1", args[0], "3", args[1]]
     return f"{kernel}<{','.join(args)}>"

@@ -425,8 +425,9 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
-        "ntt_mxu.cu", "ntt_pairings.cu", "pass_stages.cuh",
-        "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu"]
+        "ntt_mxu.cu", "ntt_pairings.cu", "ntt_pairings_cluster.cu",
+        "pairing_pass.cuh", "pass_stages.cuh", "seg2_compact.cuh",
+        "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
@@ -616,7 +617,8 @@ def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
     """``utils/sass_diff.py`` names the stream kernel's instantiations
     alike whether the mode is a bool (B5 and B9 before B6 and B8 joined
     them) or an int, and B1's pass kernel alike before and after B4 joined
-    it (an operand count of 2), and prints the kernels an older tree
+    it (an operand count of 2) and before and after the cluster form (its
+    block form the bool 0, a cluster 1), and prints the kernels an older tree
     compiled (B8's ``mxu_kernel<1>``, B6's ``mxu_kernel<2>``, B7's
     ``mxu_kernel<3>``, B4's ``polymul_fixed_fused_kernel``) beside the
     instantiations that run their work now."""
@@ -630,13 +632,18 @@ def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
             (stream + "ILi2ELi3EEEvPKj", "polymul_stream_kernel<2,3>"),
             (stream + "ILi3ELi4EEEvPKj", "polymul_stream_kernel<3,4>"),
             ("10mxu_kernelILi3EEEvPKjPj", "mxu_kernel<3>"),
-            # B1 before B4 joined its kernel, then B1 and B4
+            # B1 before B4 joined its kernel, then B1 and B4, then their
+            # block forms and a cluster form
             (passes + "ILi32ELi2ELi10EEEvPKj",
-             "polymul_pass_kernel<32,2,10,2>"),
+             "polymul_pass_kernel<32,2,10,2,0>"),
             (passes + "ILi32ELi2ELi10ELi2EEEvPKj",
-             "polymul_pass_kernel<32,2,10,2>"),
+             "polymul_pass_kernel<32,2,10,2,0>"),
             (passes + "ILi32ELi2ELi10ELi1EEEvPKj",
-             "polymul_pass_kernel<32,2,10,1>"),
+             "polymul_pass_kernel<32,2,10,1,0>"),
+            (passes + "ILi32ELi2ELi10ELi1ELb0EEEvPKj",
+             "polymul_pass_kernel<32,2,10,1,0>"),
+            (passes + "ILi32ELi4ELi0ELi2ELb1EEEvPKj",
+             "polymul_pass_kernel<32,4,0,2,1>"),
             ("26polymul_fixed_fused_kernelPKjS1_Pj",
              "polymul_fixed_fused_kernel")):
         assert SD._name(SD._KERNEL.search(prefix + mangled)) == name
@@ -644,14 +651,15 @@ def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
            "mxu_kernel<3>": ["HMMA"] * 3,
            "polymul_stream_kernel<3,0>": ["IMAD"] * 2,
            "polymul_fixed_fused_kernel": ["BAR"] * 9,
-           "polymul_pass_kernel<32,2,10,2>": ["IMAD"] * 4}
+           "polymul_pass_kernel<32,2,10,2,0>": ["IMAD"] * 4}
     new = {"polymul_stream_kernel<3,0>": ["IMAD"] * 2,
            "polymul_stream_kernel<3,2>": ["IMAD"] * 7,
            "polymul_stream_kernel<4,2>": ["IMAD"] * 8,
            "polymul_stream_kernel<3,3>": ["IMAD"] * 6,
            "polymul_stream_kernel<3,4>": ["IMAD"] * 5,
-           "polymul_pass_kernel<32,2,10,2>": ["IMAD"] * 4,
-           "polymul_pass_kernel<32,2,10,1>": ["IMAD"] * 3}
+           "polymul_pass_kernel<32,2,10,2,0>": ["IMAD"] * 4,
+           "polymul_pass_kernel<32,2,10,1,0>": ["IMAD"] * 3,
+           "polymul_pass_kernel<32,3,0,1,1>": ["IMAD"] * 9}
     monkeypatch.setattr(SD, "_library", lambda tree: tree.name)
     monkeypatch.setattr(SD, "kernel_sass",
                         lambda lib: old if lib == "old" else new)
@@ -659,19 +667,20 @@ def test_sass_diff_matches_stream_modes_across_trees(monkeypatch, capsys):
     out = capsys.readouterr().out.splitlines()
     assert "mxu_kernel<3>: old 3, new 0; {'HMMA': -3}" in out
     assert "polymul_stream_kernel<3,0>: old 2, new 2" in out
-    assert "polymul_pass_kernel<32,2,10,2>: old 4, new 4" in out
+    assert "polymul_pass_kernel<32,2,10,2,0>: old 4, new 4" in out
     assert ("B8: old mxu_kernel<1> 5, new polymul_stream_kernel<3,2> 7, "
             "polymul_stream_kernel<4,2> 8") in out
     assert "B6: old mxu_kernel<2> 4, new polymul_stream_kernel<3,3> 6" in out
     assert "B7: old mxu_kernel<3> 3, new polymul_stream_kernel<3,4> 5" in out
     assert ("B4: old polymul_fixed_fused_kernel 9, new "
-            "polymul_pass_kernel<32,2,10,1> 3") in out
+            "polymul_pass_kernel<32,2,10,1,0> 3") in out
     assert not any(line.startswith("B9:") for line in out)
 
 
 def test_sass_diff_names_b2_and_b14_across_trees(monkeypatch, capsys):
     """``utils/sass_diff.py`` names B2's pass kernel
-    ``transform_pass_kernel<1,..>`` and B14's row kernel
+    ``transform_pass_kernel<1,..>`` (a tree's before the cluster form as
+    its block form, ``<1,..,0>``) and B14's row kernel
     ``seg2_compact_kernel<4,..>``, and prints the kernels the tree before
     they moved compiled for them (``ntt_fused_kernel``,
     ``sp_kernel<4,threads>``) beside those instantiations."""
@@ -679,26 +688,28 @@ def test_sass_diff_names_b2_and_b14_across_trees(monkeypatch, capsys):
     prefix = "_ZN43_GLOBAL__N__9d88d42b_10_ntt_fused_cu_bc5b174f"
     for mangled, name in (
             ("21transform_pass_kernelILb1ELi32ELi2ELi10EEEvPKj",
-             "transform_pass_kernel<1,32,2,10>"),
+             "transform_pass_kernel<1,32,2,10,0>"),
+            ("21transform_pass_kernelILb1ELi32ELi4ELi0ELb1EEEvPKj",
+             "transform_pass_kernel<1,32,4,0,1>"),
             ("19seg2_compact_kernelILi4ELb1ELi3ELb1EEEvPKj",
              "seg2_compact_kernel<4,1,3,1>"),
             ("9sp_kernelILi4ELi128EEEvPKj", "sp_kernel<4,128>"),
             ("16ntt_fused_kernelPKjS1_Pj", "ntt_fused_kernel")):
         assert SD._name(SD._KERNEL.search(prefix + mangled)) == name
     old = {"ntt_fused_kernel": ["BAR"] * 9, "sp_kernel<4,128>": ["HMMA"] * 7,
-           "transform_pass_kernel<0,32,2,10>": ["IMAD"] * 2}
-    new = {"transform_pass_kernel<0,32,2,10>": ["IMAD"] * 2,
-           "transform_pass_kernel<1,32,2,10>": ["IMAD"] * 3,
-           "transform_pass_kernel<1,32,3,0>": ["IMAD"] * 4,
+           "transform_pass_kernel<0,32,2,10,0>": ["IMAD"] * 2}
+    new = {"transform_pass_kernel<0,32,2,10,0>": ["IMAD"] * 2,
+           "transform_pass_kernel<1,32,2,10,0>": ["IMAD"] * 3,
+           "transform_pass_kernel<1,32,3,0,0>": ["IMAD"] * 4,
            "seg2_compact_kernel<4,1,3,1>": ["IMMA"] * 5}
     monkeypatch.setattr(SD, "_library", lambda tree: tree.name)
     monkeypatch.setattr(SD, "kernel_sass",
                         lambda lib: old if lib == "old" else new)
     assert SD.main(["old", "new"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert "transform_pass_kernel<0,32,2,10>: old 2, new 2" in out
-    assert ("B2: old ntt_fused_kernel 9, new transform_pass_kernel<1,32,2,10> "
-            "3, transform_pass_kernel<1,32,3,0> 4") in out
+    assert "transform_pass_kernel<0,32,2,10,0>: old 2, new 2" in out
+    assert ("B2: old ntt_fused_kernel 9, new transform_pass_kernel<1,32,2,10,0> "
+            "3, transform_pass_kernel<1,32,3,0,0> 4") in out
     assert ("B14: old sp_kernel<4,128> 7, new seg2_compact_kernel<4,1,3,1> 5"
             in out)
 
@@ -1274,6 +1285,132 @@ def test_pass_kernels_at_other_lengths_on_card(cuda_device, n, q):
         for want in (P.polymul_pairing_plain(x, y, tbl, p), ref):
             np.testing.assert_array_equal(got.cpu().numpy(),
                                           want.cpu().numpy())
+
+
+# lengths whose rows span a thread-block cluster: B1, B4 and the pairings
+# at 32768-131072 (2, 4, 8 blocks), B2 and B3 at 65536-262144 (2, 4, 8)
+_CLUSTER_LENGTHS = [(32768, 786433), (32768, 1073479681), (65536, 786433),
+                    (65536, 1073479681), (131072, 786433), (262144, 7340033)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", _CLUSTER_LENGTHS)
+def test_pass_kernels_in_a_cluster_on_card(cuda_device, n, q):
+    """B1, B4, B2, B3 and the five pairings where a row spans a cluster of
+    blocks, against their plain versions on 64 rows (3 at 262144, where
+    only B2 and B3 have a plan), rows of q - 1 (B3: 2q - 1); one launch a
+    call."""
+    name = f"cluster-n{n}-q{q}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    rows = 3 if n > 131072 else 64
+    rng = np.random.default_rng(n + q)
+    xy = rng.integers(0, q, (2, rows, n), dtype=np.uint32)
+    xy[:, 0] = q - 1
+    lazy = rng.integers(0, 2 * q, (rows, n), dtype=np.uint32)
+    lazy[0] = 2 * q - 1
+    x, y, lazy = (torch.from_numpy(v).to(cuda_device)
+                  for v in (xy[0], xy[1], lazy))
+
+    def same(kname, got, want):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=f"{kname} n={n} q={q}")
+
+    before = {k: v.launches for k, v in {**F.KERNELS, **P.KERNELS}.items()}
+    same("B2", F.ntt_fused(x, tbl), F.ntt_plain(x, tbl))
+    same("B3", F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
+    calls = {"ntt_fused": 1, "intt_fused": 1}
+    if n <= 131072:
+        ref = F.polymul_plain(x, y, tbl)
+        same("B1", F.polymul_fused(x, y, tbl), ref)
+        spec = F.ntt_plain(y[:1], tbl)
+        same("B4", F.polymul_fixed_fused(x, spec, tbl),
+             F.polymul_fixed_plain(x, spec, tbl))
+        for p in P.PAIRINGS:
+            same(p, P.polymul_pairing(x, y, tbl, p), ref)
+        calls |= {"polymul_fused": 1, "polymul_fixed_fused": 1,
+                  **{f"polymul_pairing_{p}": 1 for p in P.PAIRINGS}}
+    torch.cuda.synchronize()
+    after = {k: v.launches for k, v in {**F.KERNELS, **P.KERNELS}.items()}
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == calls
+
+
+@pytest.mark.cuda
+def test_cluster_launchers_refuse_plans_they_cannot_run(cuda_device):
+    """A cluster plan's launcher returns cudaErrorInvalidValue, and the
+    wrapper raises, for a cross mask other than the exchanges' own, a
+    cluster that is not a power of two up to 8 or does not hold the row
+    in blocks of the kernel's threads, two rows a cluster, or too little
+    shared memory a block; nothing is launched or counted."""
+    n, q = 32768, 786433
+    name = f"cluster-n{n}-q{q}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    x = torch.zeros((3, n), dtype=torch.uint32, device=cuda_device)
+    tw = F._prepare(tbl, None, x)
+    ptw = P.pairing_twiddles(tbl, cuda_device)
+
+    def changed(plan, **fields):
+        out = PassPlan.from_buffer_copy(plan)
+        for f, v in fields.items():
+            setattr(out, f, v)
+        return out
+
+    cases = [(F.KERNELS["polymul_fused"], tw, F.fused_pass_plan(n)),
+             (F.KERNELS["polymul_fixed_fused"], tw, F.fixed_pass_plan(n)),
+             (P.KERNELS["polymul_pairing_stockham"], ptw,
+              P.pairing_pass_plan(n, "stockham"))]
+    for kernel, table, plan in cases:
+        assert plan.cluster == 2
+        for fields in ({"cross": plan.cross ^ 2}, {"cross": 0},
+                       {"cluster": 3}, {"cluster": 4}, {"cluster": 16},
+                       {"cluster": 1}, {"rows": 2},
+                       {"row_stride": plan.row_stride // 2}):
+            before = kernel.launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                F._launch(kernel, tbl, table, x,
+                          x if kernel.name != "polymul_fixed_fused"
+                          else x[0], changed(plan, **fields))
+            assert kernel.launches == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(2, 16417), (8, 16417), (16, 16417),
+                                 (8, 1073479681), (16, 1073479681)])
+def test_mxu_kernels_below_32_lanes_on_card(cuda_device, n, q):
+    """B5-B9 at n <= 16, lane packed (32 / n rows a row of 32 lanes), on
+    5 and 300 rows (batches that fill no whole packed row too), random and
+    all q - 1 (B7 all pw_bound - 1), against their twins."""
+    name = f"small-mxu-n{n}-q{q}"
+    register_param_set(name, n, q)
+    mt = get_mxu_tables(name)
+    tbl = get_tables(name)
+    rng = np.random.default_rng(n + q)
+    for rows in (5, 300):
+        for kind in ("random", "worst"):
+            if kind == "random":
+                xy = rng.integers(0, q, (2, rows, n), dtype=np.uint32)
+                pw = rng.integers(0, mt.pw_bound, (rows, n), dtype=np.uint32)
+            else:
+                xy = np.full((2, rows, n), q - 1, dtype=np.uint32)
+                pw = np.full((rows, n), mt.pw_bound - 1, dtype=np.uint32)
+            x, y, pw = (torch.from_numpy(v).to(cuda_device)
+                        for v in (xy[0], xy[1], pw))
+            spec = F.ntt_plain(y[:1], tbl)
+            op = M.fold_operand(spec, mt)
+            for got, want in (
+                    (M.polymul_mxu(x, y, mt), M.polymul_mxu_plain(x, y, mt)),
+                    (M.ntt_mxu(x, mt), M.ntt_mxu_plain(x, mt)),
+                    (M.intt_mxu(pw, mt), M.intt_mxu_plain(pw, mt)),
+                    (M.polymul_fixed_mxu(x, spec, mt),
+                     M.polymul_fixed_mxu_plain(x, spec, mt)),
+                    (M.polymul_fixed_folded_mxu(x, op, mt),
+                     M.polymul_fixed_folded_mxu_plain(x, op, mt))):
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.cpu().numpy(),
+                                              err_msg=f"{name} {rows} {kind}")
 
 
 def _split(plan, n, sizes, fwd_up, inv_up, stockham=False):

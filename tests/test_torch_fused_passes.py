@@ -271,9 +271,9 @@ def test_fixed_twin_at_every_pass_length(n, q):
 
 def test_fixed_pass_plan_refuses_what_the_launcher_refuses():
     """A row length that is not a power of two from 2, or one past the
-    kernels' three passes, raises; so does an operand count other than the
-    kernels' 1 or 2."""
-    for n in (1, 3, 48, 32768):
+    kernels' cluster of 8 blocks (n = 262144), raises; so does an operand
+    count other than the kernels' 1 or 2."""
+    for n in (1, 3, 48, 262144):
         with pytest.raises(ValueError):
             TF.fixed_pass_plan(n)
     with pytest.raises(ValueError, match="operands"):
@@ -354,15 +354,16 @@ def test_intt_twin_at_every_length(n, q):
                     np.ravel(getattr(b4, f))), f
     else:
         assert (plan.threads, plan.rows, plan.passes) == (1024, 1, 3)
-        with pytest.raises(ValueError, match="threads a row"):
-            TF.fixed_pass_plan(n)
+        # B4's kernel takes 512 threads a block: a cluster of 2 a row
+        assert (TF.fixed_pass_plan(n).cluster, plan.cluster) == (2, 1)
 
 
 def test_intt_pass_plan_refuses_what_the_launcher_refuses():
-    """No plan past 32768 or off the powers of two; an inverse alone runs
-    on one operand, from the narrowest stage up, in cyclic windows; the
-    plans with a forward (B1's, B4's) keep their 512-thread limit."""
-    for n in (1, 3, 48, 65536):
+    """No plan past 262144 (a cluster of 8 blocks of 1024 threads) or off
+    the powers of two; an inverse alone runs on one operand, from the
+    narrowest stage up, in cyclic windows; the plans with a forward (B1's,
+    B4's) keep their 512 threads a block, so 8 of them stop at 131072."""
+    for n in (1, 3, 48, 524288):
         with pytest.raises(ValueError):
             TF.intt_pass_plan(n)
     for kw in ({"operands": 2}, {"operands": 1, "stockham": True}):
@@ -370,8 +371,8 @@ def test_intt_pass_plan_refuses_what_the_launcher_refuses():
             TPs.pass_plan(1024, None, True, **kw)
     with pytest.raises(ValueError, match="inverse alone"):
         TPs.pass_plan(1024, None, False, operands=1)
-    with pytest.raises(ValueError, match="512 a block"):
-        TPs.pass_plan(32768, False, True, operands=1)
+    with pytest.raises(ValueError, match=r"8 a cluster takes \(n <= 131072"):
+        TPs.pass_plan(262144, False, True, operands=1)
     assert "forward none" in TPs.describe_pass_plan(TF.intt_pass_plan(1024))
 
 
@@ -443,14 +444,14 @@ def test_ntt_twin_at_every_length(n, q):
                     np.ravel(getattr(b4, f))), f
     else:
         assert (plan.threads, plan.rows, plan.passes) == (1024, 1, 3)
-        assert plan.row_stride == n + n // 32
+        assert plan.row_stride == n + n // 32 and plan.cluster == 1
 
 
 def test_ntt_pass_plan_refuses_what_the_launcher_refuses():
-    """No plan past 32768 or off the powers of two; a forward alone runs on
-    one operand, from the widest stage down, in cyclic windows; a plan runs
-    some transform."""
-    for n in (1, 3, 48, 65536):
+    """No plan past 262144 (a cluster of 8 blocks of 1024 threads) or off
+    the powers of two; a forward alone runs on one operand, from the widest
+    stage down, in cyclic windows; a plan runs some transform."""
+    for n in (1, 3, 48, 524288):
         with pytest.raises(ValueError):
             TF.ntt_pass_plan(n)
     for fwd_up, kw in ((False, {"operands": 2}), (True, {"operands": 1}),

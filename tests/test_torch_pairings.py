@@ -383,21 +383,21 @@ def test_pass_schedule_twin_under_another_split(pairing):
     (1024, "nope", "unknown pairing"),
     (1, "gs_ct", "power of two"),
     (768, "gs_ct", "power of two"),
-    (65536, "gs_ct", "4 passes, no kernel"),
-    (1 << 20, "ct_gs", "4 passes, no kernel"),
-    (32768, "gs_ct", "1024 threads a row"),
-    (32768, "gs_gs", "1024 threads a row"),
+    (1 << 21, "gs_ct", "5 passes, no kernel"),
+    (1 << 20, "ct_gs", "a cluster of 64 blocks"),
+    (262144, "gs_ct", "8192 threads a row"),
+    (262144, "gs_gs", "more than the 8 a cluster takes"),
     (768, "stockham", "power of two"),
-    (65536, "stockham", "4 passes, no kernel"),
-    (32768, "stockham", "1024 threads a row"),
+    (1 << 21, "stockham", "5 passes, no kernel"),
+    (262144, "stockham", r"n <= 131072"),
     (1, "fused", "power of two"),
-    (65536, "fused", "4 passes, no kernel"),
-    (32768, "fused", "1024 threads a row"),
+    (1 << 21, "fused", "5 passes, no kernel"),
+    (262144, "fused", "a cluster of 16 blocks of 512"),
 ])
 def test_pass_planner_refuses_what_the_launcher_refuses(n, pairing, match):
     """The planners raise for what the launchers refuse (no kernel for the
-    passes, more threads a row than a block takes); the launchers' own
-    refusals are tested on the card (test_torch_device.py)."""
+    passes, a row across more blocks than a cluster of 8); the launchers'
+    own refusals are tested on the card (test_torch_device.py)."""
     with pytest.raises(ValueError, match=match):
         _plan(n, pairing)
 
