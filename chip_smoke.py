@@ -56,7 +56,13 @@ script exits non-zero without printing a result:
    through B3 back to x); at the lengths whose rows span a thread-block
    cluster (CLUSTER_LENGTHS: n = 32768, 65536 at 786433 and q30, 131072;
    also at B in {1, 3, 64}), and B2 and B3 also at 262144
-   (TRANSFORM_LENGTHS).  B5-B9 at n = 8 and 16 (SMALL_RINGS, lane packed:
+   (TRANSFORM_LENGTHS).  Past a cluster's reach (SWEEP_LENGTHS: n = 2^18
+   at two primes, 2^19, 2^20, 2^21 and 2^25, each at the largest prime
+   the registry takes there) B1-B4 and the pairings in their sweep form
+   (csrc/pass_sweeps.cu; B2 and B3 at 2^18 under their sweep plan) on 3
+   rows and on a row of q - 1 against their twins on the card
+   (passes.SweepModel under the same plan) and plain versions, their
+   launches a call the plan's.  B5-B9 at n = 8 and 16 (SMALL_RINGS, lane packed:
    32 / n rows a row of 32 lanes) against their twins and B1-B4's plain
    versions, random and worst-case, B in {1, 3, 64, 9000}.  Then the
    registration sweep (utils/fuzz_params.py, SWEEP: one prime a bit size
@@ -122,14 +128,21 @@ script exits non-zero without printing a result:
    refuses the set) timed, median of 40 calls, CUDA events, beside its
    bound; phase 4 prints each beside the kernel's q-III time.
 3e. large rings: q30 at n = 32768, B = 1024, and 65536, B = 512 (128 MiB
-   an operand; LARGE_RINGS), row 1 all q - 1 in both operands, one random
-   constant: polymul_negacyclic "fused" (B1) and the five
-   "<pairing>_kernel" algos, polymul_fixed_fn "fused" (B2, B4), ntt and
-   intt "fused" (B3(B2(x)) == x) and at n = 32768 the SP path at k = 4, n1
-   = 256 (B11 twice, B12, B16); launches against large_launches, each
-   product against B1 and 4 C++ oracle rows (LARGE_ORACLE_ROWS); then B1-B4
-   and the pairings timed there (median of 40, the plain version of 6)
-   beside their bytes bound and the blocks of their rows' cluster.
+   an operand; LARGE_RINGS), then the sweep form's rings (SWEEP_RINGS: n =
+   2^18, B = 128; 2^20, B = 32; 2^25, B = 4), row 1 all q - 1 in both
+   operands, one random constant: polymul_negacyclic "fused" (B1) and the
+   five "<pairing>_kernel" algos, polymul_fixed_fn "fused" (B2, B4), ntt
+   and intt "fused" (B3(B2(x)) == x), past a cluster's reach the DP form
+   of "fused", and at n = 32768 the SP path at k = 4, n1 = 256 (B11 twice,
+   B12, B16); launches against large_launches (a sweep call its plan's
+   launches), each product against B1 and 4 C++ oracle rows
+   (LARGE_ORACLE_ROWS), past a cluster's reach against 8 coefficients of
+   rows 0 and -1 from the definition and the closed form of row 1; then
+   B1-B4 and the pairings timed there (median of 40, 10 at 2^25; the plain
+   version of 6, 2 past a cluster's reach) beside their bytes bound, the
+   blocks of their rows' cluster or their launches a call and blocks a
+   sweep, B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
+   32768 (median of 40, beside their bound).
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -207,6 +220,7 @@ from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
+from qtesla_tpu_torch.ops import passes as Ps
 from qtesla_tpu_torch.ops.passes import describe_pass_plan
 from qtesla_tpu_torch.ops.incomplete import polymul_incomplete_fn
 from qtesla_tpu_torch.ops.tables import get_tables
@@ -300,6 +314,13 @@ CLUSTER_LENGTHS = ((32768, 786433), (32768, Q30), (65536, 786433),
 # the length the kernel of one transform (B2, B3) alone takes beyond them:
 # 8 blocks of 1024 threads a row (q = 7 * 2^20 + 1)
 TRANSFORM_LENGTHS = ((262144, 7340033),)
+# the rings past a cluster's reach, where the pass kernels run their sweep
+# form (csrc/pass_sweeps.cu; B2 and B3 from 2^19, at 2^18 under a sweep plan
+# given): (n, q), the largest prime the registry takes at each n, and
+# 5767169 = 11 * 2^19 + 1 at 2^18
+SWEEP_LENGTHS = ((1 << 18, 1056440321), (1 << 18, 5767169),
+                 (1 << 19, 1053818881), (1 << 20, 1012924417),
+                 (1 << 21, 998244353), (1 << 25, 469762049))
 # B5-B9 where a lane block is narrower than the MMA's 32-deep step, lane
 # packed (mxu_tables.lane_packed): (n, q)
 SMALL_RINGS = ((8, 16417), (16, 16417), (8, Q30), (16, Q30))
@@ -357,6 +378,15 @@ Q1_ROW = MAIN_BATCH // 2
 LARGE_RINGS = (("q30-n32768", 32768, Q30, 1024),
                ("q30-n65536", 65536, Q30, 512))
 LARGE_SP_N1 = 256
+# phase 3e past a cluster's reach, the sweep form: (name, n, q, B), 128 MiB
+# an operand at 2^18 and 2^20, 512 MiB at 2^25, the largest ring the
+# registry takes (469762049 its only prime); the kernels' medians there of
+# SWEEP_TIMED calls (10 at 2^25)
+SWEEP_RINGS = (("sweep-n262144", 1 << 18, 1056440321, 128),
+               ("sweep-n1048576", 1 << 20, 1012924417, 32),
+               ("sweep-n33554432", 1 << 25, 469762049, 4))
+# phase 3e's coefficients from the definition, of rows 0 and -1
+DEFINITION_COEFFS = 8
 # phase 3e's rows against the C++ oracle, row 1 all q - 1 in x and y
 LARGE_ORACLE_ROWS = (0, 1, -2, -1)
 # the pass kernels phase 3e times at each ring
@@ -364,12 +394,23 @@ PASS_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
                 "intt_fused", *(f"polymul_pairing_{p}" for p in P.PAIRINGS))
 
 
+# the pass kernels' kinds (ops/passes.py SWEEP_KINDS)
+PASS_KINDS = dict(zip(PASS_KERNELS, ("B1", "B4", "B2", "B3", *P.PAIRINGS)))
+
+
 def large_launches(n: int) -> dict:
     """Launches phase 3e's run makes at one ring: B1 and the five B10
-    pairings as algos, B2 on the constant and on x, B4 and B3 once; at
-    n = 32768 the SP path's B11 twice, B12 and B16."""
-    out = {name: 0 for name in KERNELS} | {k: 1 for k in PASS_KERNELS}
-    out["ntt_fused"] = 2
+    pairings as algos, B2 on the constant and on x, B4 and B3 once, each
+    call one launch in its block or cluster form or its plan's sweeps in
+    its sweep form; past a cluster's reach B1 again in the DP form; at n =
+    32768 the SP path's B11 twice, B12 and B16."""
+    calls = {k: 1 for k in PASS_KERNELS} | {"ntt_fused": 2}
+    if n > Ps.cluster_reach("B1"):
+        calls["polymul_fused"] = 2
+    out = {name: 0 for name in KERNELS}
+    for k, c in calls.items():
+        plan = Ps.kernel_plan(n, PASS_KINDS[k])
+        out[k] = c * (plan.sweeps if isinstance(plan, Ps.SweepPlan) else 1)
     if n == 32768:
         out |= {"sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1}
     return out
@@ -1055,6 +1096,88 @@ def small_rings_against_plain(errors: dict) -> None:
     done()
 
 
+def _sweep_call(kind: str, tbl, x, y, lazy, spec, plan, twin: bool):
+    """``kind``'s wrapper under the sweep ``plan`` on the card, or (twin)
+    its twin (``passes.SweepModel``) under the same plan on the card."""
+    if kind == "B1":
+        return (F.polymul_fused_passes_plain(x, y, tbl, plan) if twin else
+                F.polymul_fused(x, y, tbl, plan=plan))
+    if kind == "B4":
+        return (F.polymul_fixed_fused_passes_plain(x, spec, tbl, plan)
+                if twin else F.polymul_fixed_fused(x, spec, tbl, plan=plan))
+    if kind == "B2":
+        return (F.ntt_passes_plain(x, tbl, plan) if twin else
+                F.ntt_fused(x, tbl, plan=plan))
+    if kind == "B3":
+        return (F.intt_passes_plain(lazy, tbl, plan) if twin else
+                F.intt_fused(lazy, tbl, plan=plan))
+    return (P.polymul_pairing_passes_plain(x, y, tbl, kind, plan) if twin
+            else P.polymul_pairing(x, y, tbl, kind, plan=plan))
+
+
+def sweep_lengths_against_plain(errors: dict) -> None:
+    """B1-B4 and the five pairings in their sweep form at SWEEP_LENGTHS
+    (B2 and B3 under their sweep plan at 2^18 too), on 3 rows (row 1 all
+    q - 1; B3 below 2q, row 1 all 2q - 1; B4 against a spectrum holding
+    q - 1) and on row 1 alone, against their twins (``passes.SweepModel``
+    under the same plan, on the card) and plain versions; each call adds
+    its plan's launches to the kernel's count (registered after the other
+    phase-2 checks)."""
+    dev = torch.device("cuda")
+    for n, q in SWEEP_LENGTHS:
+        start = time.perf_counter()
+        name = f"sweep-n{n}-q{q}"
+        register_param_set(name, n, q)
+        tbl = get_tables(name)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + n)
+        x, y, lazy = (torch.randint(0, m, (3, n), generator=gen, device=dev,
+                                    dtype=torch.int64)
+                      for m in (q, q, 2 * q))
+        x[1], y[1], lazy[1] = q - 1, q - 1, 2 * q - 1
+        spec = torch.randint(0, q, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+        spec[::5] = q - 1
+        x, y, lazy, spec = (t.to(torch.uint32) for t in (x, y, lazy, spec))
+        ref = F.polymul_plain(x, y, tbl)
+        plain = {"B1": ref, "B4": F.polymul_fixed_plain(x, spec, tbl),
+                 "B2": F.ntt_plain(x, tbl), "B3": F.intt_plain(lazy, tbl)}
+        for kind, kname in zip(PASS_KINDS.values(), PASS_KINDS):
+            plan = Ps.sweep_plan(n, kind)
+            kern = KERNELS[kname][0]
+            tag = f"{kname} sweep n={n} q={q}"
+            before = kern.launches
+            got = _sweep_call(kind, tbl, x, y, lazy, spec, plan, False)
+            one = _sweep_call(kind, tbl, x[1:2], y[1:2], lazy[1:2], spec,
+                              plan, False)
+            done()
+            if kern.launches - before != 2 * plan.sweeps:
+                raise AssertionError(f"{tag}: {kern.launches - before} "
+                                     f"launches for 2 calls of "
+                                     f"{plan.sweeps}")
+            twin = _sweep_call(kind, tbl, x, y, lazy, spec, plan, True)
+            _record(errors, kname, f"{tag} B=3 against its twin", got, twin)
+            _record(errors, kname, f"{tag} B=3 against plain", got,
+                    plain.get(kind, ref))
+            _record(errors, kname, f"{tag} B=1 (all q - 1)", one, twin[1:2])
+            del got, one, twin
+        expect_equal(f"sweep n={n} q={q} B3(B2(x)) == x", F.intt_fused(
+            F.ntt_fused(x, tbl, plan=Ps.sweep_plan(n, "B2")), tbl,
+            plan=Ps.sweep_plan(n, "B3")), x)
+        k = torch.arange(n, device=dev)
+        expect_equal(f"sweep n={n} q={q} B1 closed form",
+                     ref[1].to(torch.int64), (2 * k + 2 - n) % q)
+        print(f"n={n} q={q}: B1-B4 and the five pairings' sweep form equal "
+              f"to their twins and plain versions at B in (1, 3), rows of "
+              f"q - 1, B3(B2(x)) == x, {time.perf_counter() - start:.1f} s; "
+              f"{Ps.describe_sweep_plan(Ps.sweep_plan(n, 'B1'))}; "
+              f"stockham {Ps.sweep_plan(n, 'stockham').sweeps} launches",
+              flush=True)
+        del x, y, lazy, spec, ref, plain
+        torch.cuda.empty_cache()
+    done()
+
+
 def registration_sweep() -> None:
     """utils/fuzz_params.py's sweep on the card (SWEEP): B1-B16 at every
     prime, B17 and B18 where the plan has at most 3 digit classes, against
@@ -1655,20 +1778,89 @@ def _pass_work(name: str, n: int, B: int) -> tuple[int, int]:
             "ntt_fused": 2 * row, "intt_fused": 2 * row}[name] + 16 * n, 0
 
 
+def _definition(x: torch.Tensor, y: torch.Tensor, q: int, ks) -> list:
+    """Coefficients ks of x * y mod (X^n + 1) mod q from the definition:
+    z_k = sum_{i <= k} x_i y_{k-i} - sum_{i > k} x_i y_{n+k-i}, each
+    product reduced mod q, in int64 torch (no kernel) on x's device."""
+    n = x.shape[0]
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    i = torch.arange(n, device=x.device)
+    out = []
+    for k in ks:
+        yy = y[(k - i) % n]
+        out.append(int((x * torch.where(i <= k, yy, q - yy) % q).sum() % q))
+    return out
+
+
+def _large_oracle(name, z, zf, x, y, a, q, B, n) -> str:
+    """Phase 3e's oracle: at the cluster rings 4 C++ oracle rows
+    (LARGE_ORACLE_ROWS) of every product and the fixed one; past a
+    cluster's reach DEFINITION_COEFFS coefficients of rows 0 and -1 from
+    the definition, and row 1 (all q - 1 in x and y) the closed form z_k =
+    2k + 2 - n mod q.  What was checked, for the printed line."""
+    start = time.perf_counter()
+    if n <= Ps.cluster_reach("B1"):
+        rows = [r % B for r in LARGE_ORACLE_ROWS]
+        idx = torch.tensor(rows, device="cuda")
+        xr, yr = (t.index_select(0, idx).cpu().numpy() for t in (x, y))
+        ar = np.broadcast_to(a.cpu().numpy(), xr.shape)
+        # one row a thread: the C++ oracle runs outside the GIL
+        with ThreadPoolExecutor(2 * len(rows)) as pool:
+            out = list(pool.map(lambda uv: native_schoolbook(*uv, q),
+                                [(u[None], v[None]) for u, v in
+                                 [*zip(xr, yr), *zip(xr, ar)]]))
+        want = np.concatenate(out[:len(rows)])
+        want_f = np.concatenate(out[len(rows):])
+        for what, zz, oracle in [*((w, v, want) for w, v in z.items()),
+                                 ("fixed fused", zf, want_f)]:
+            if not np.array_equal(zz.index_select(0, idx).cpu().numpy(),
+                                  oracle):
+                raise AssertionError(f"3e {name} {what}: rows {rows} differ "
+                                     f"from the C++ oracle")
+        return (f"the C++ oracle on rows {rows} "
+                f"({time.perf_counter() - start:.1f} s on the host)")
+    ks = np.random.default_rng(n).choice(n, DEFINITION_COEFFS,
+                                         replace=False)
+    ks[:2] = 0, n - 1
+    k = torch.arange(n, device="cuda")
+    closed = (2 * k + 2 - n) % q
+    for r in (0, B - 1):
+        want = _definition(x[r], y[r], q, ks)
+        want_f = _definition(x[r], a[0], q, ks)
+        for what, zz, oracle in [*((w, v, want) for w, v in z.items()),
+                                 ("fixed fused", zf, want_f)]:
+            if zz[r].cpu().numpy()[ks].astype(np.int64).tolist() != oracle:
+                raise AssertionError(f"3e {name} {what}: row {r} "
+                                     f"coefficients {ks.tolist()} differ "
+                                     f"from the definition")
+    for what, zz in z.items():
+        expect_equal(f"3e {name} {what} row 1 closed form",
+                     zz[1].to(torch.int64), closed)
+    return (f"the definition at {DEFINITION_COEFFS} coefficients of rows 0 "
+            f"and {B - 1} and the closed form of row 1 "
+            f"({time.perf_counter() - start:.1f} s)")
+
+
 def large_rings(device_line: str) -> dict:
     """Phase 3e: q30 at n = 32768 (B = 1024) and 65536 (B = 512), where a
     row of B1, B4 and the pairings spans a cluster of 2 and 4 blocks and
-    one of B2 and B3 a block and 2: seeded canonical operands with row 1
-    all q - 1 in both and one random constant, through the entry points
-    (polymul_negacyclic "fused" and the five "<pairing>_kernel" algos,
-    polymul_fixed_fn "fused", ntt and intt "fused", and at n = 32768 the
-    SP path at k = SP_K, n1 = LARGE_SP_N1), launches in one counted run a
-    ring against large_launches; every product equal to B1's bit for bit
-    and to the C++ oracle on LARGE_ORACLE_ROWS, intt(ntt(x)) == x.  Then
-    each pass kernel and its plain version timed in turns beside its
-    bound.  Returns the launches summed over both rings."""
+    one of B2 and B3 a block and 2, and the sweep form's rings (SWEEP_RINGS:
+    n = 2^18, B = 128; 2^20, B = 32; 2^25, B = 4): seeded canonical
+    operands with row 1 all q - 1 in both and one random constant, through
+    the entry points (polymul_negacyclic "fused" and the five
+    "<pairing>_kernel" algos, polymul_fixed_fn "fused", ntt and intt
+    "fused"; past a cluster's reach the DP form of "fused" too; at n =
+    32768 the SP path at k = SP_K, n1 = LARGE_SP_N1), launches in one
+    counted run a ring against large_launches; every product equal to
+    B1's bit for bit and to the oracle (``_large_oracle``), intt(ntt(x))
+    == x.  Then each pass kernel and its plain version timed in turns
+    beside its bound (median of 40 calls, 10 at 2^25; the plain version's
+    of 6, 2 past a cluster's reach), and at n = 32768 B11, B12 and B16.
+    Returns the launches summed over the rings."""
     launches = {name: 0 for name in KERNELS}
-    for name, n, q, B in LARGE_RINGS:
+    for name, n, q, B in LARGE_RINGS + SWEEP_RINGS:
+        sweeping = n > Ps.cluster_reach("B1")
+        ring_start = time.perf_counter()
         register_param_set(name, n, q)
         tbl = get_tables(name)
         gen = torch.Generator(device="cuda")
@@ -1687,6 +1879,7 @@ def large_rings(device_line: str) -> dict:
         sp = (polymul_fourstep_mxu_fn(name, make_mesh(model=SP_K),
                                       n1=LARGE_SP_N1) if n == 32768 else None)
         plan_s = time.perf_counter() - start
+        dp = polymul_dp_fn(name, make_mesh(model=SP_K), "fused")
         torch.cuda.synchronize()
         for k, _ in KERNELS.values():
             k.launches = 0
@@ -1695,6 +1888,8 @@ def large_rings(device_line: str) -> dict:
             z[f"{p}_kernel"] = polymul_negacyclic(x, y, name, f"{p}_kernel")
         zf = multiply(x, prepare(a))
         back = intt(ntt(x, name, "fused"), name, "fused")
+        if sweeping:
+            z["DP fused"] = dp(x, y)
         if sp is not None:
             z[f"SP k={SP_K}"] = sp(x, y)
         torch.cuda.synchronize()
@@ -1709,59 +1904,78 @@ def large_rings(device_line: str) -> dict:
             expect_equal(f"3e {name} {what} == B1", zz, z["fused"])
         expect_canonical(f"3e {name} fixed fused", zf, (B, n), q)
         expect_equal(f"3e {name} intt(ntt(x)) == x", back, x)
-        rows = [r % B for r in LARGE_ORACLE_ROWS]
-        idx = torch.tensor(rows, device="cuda")
-        xr, yr = (t.index_select(0, idx).cpu().numpy() for t in (x, y))
-        ar = np.broadcast_to(a.cpu().numpy(), xr.shape)
-        start = time.perf_counter()
-        # one row a thread: the C++ oracle runs outside the GIL
-        with ThreadPoolExecutor(2 * len(rows)) as pool:
-            out = list(pool.map(lambda uv: native_schoolbook(*uv, q),
-                                [(u[None], v[None]) for u, v in
-                                 [*zip(xr, yr), *zip(xr, ar)]]))
-        want = np.concatenate(out[:len(rows)])
-        want_f = np.concatenate(out[len(rows):])
-        oracle_s = time.perf_counter() - start
-        for what, zz, oracle in [*((w, v, want) for w, v in z.items()),
-                                 ("fixed fused", zf, want_f)]:
-            if not np.array_equal(zz.index_select(0, idx).cpu().numpy(),
-                                  oracle):
-                raise AssertionError(f"3e {name} {what}: rows {rows} differ "
-                                     f"from the C++ oracle")
-        b1, b2 = F.fused_pass_plan(n), F.ntt_pass_plan(n)
+        oracle = _large_oracle(name, z, zf, x, y, a, q, B, n)
+        plans = {k: Ps.kernel_plan(n, kind) for k, kind in PASS_KINDS.items()}
         print(f"3e {name} (n={n}, q={q}), B={B}, row 1 all q - 1: "
               f"{', '.join(z)} equal B1 bit for bit, the fixed pair (B2, "
-              f"B4) and intt(ntt(x)) == x (B2, B3); all equal the C++ "
-              f"oracle on rows {rows} ({oracle_s:.1f} s on the host); the "
-              f"SP plan took {plan_s:.1f} s.  B1 "
-              f"{describe_pass_plan(b1)}; B2 {describe_pass_plan(b2)}",
+              f"B4) and intt(ntt(x)) == x (B2, B3); all equal {oracle}; "
+              + (f"the SP plan took {plan_s:.1f} s.  " if sp else "")
+              + "; ".join(
+                  f"{PASS_KINDS[k]} " + (Ps.describe_sweep_plan(pl)
+                                         if isinstance(pl, Ps.SweepPlan)
+                                         else describe_pass_plan(pl))
+                  for k, pl in plans.items()
+                  if k in ("polymul_fused", "ntt_fused")
+                  or (sweeping and k == "polymul_pairing_stockham")),
               flush=True)
         del z, zf, back
         runs = pass_runs(x, y, F.ntt_fused(y[:1], tbl), tbl)
+        timed = 5 if n == 1 << 25 else 20
         for kname, (kern, plain, args) in runs.items():
-            # the plain version on 3 calls a turn: 40-135 ms each here
+            # the plain version on 3 calls a turn (1 past a cluster's
+            # reach): 40-135 ms each at the cluster rings
             res = _turns(kern, plain, args, KERNELS[kname][0],
-                         plain_repeats=3)
+                         plain_repeats=1 if sweeping else 3,
+                         repeats=timed)
             res["bound"] = bound(*_pass_work(kname, n, B))
-            plan = (P.pairing_pass_plan(n, kname[16:])
-                    if kname.startswith("polymul_pairing_") else
-                    {"polymul_fused": F.fused_pass_plan,
-                     "polymul_fixed_fused": F.fixed_pass_plan,
-                     "ntt_fused": F.ntt_pass_plan,
-                     "intt_fused": F.intt_pass_plan}[kname](n))
+            plan = plans[kname]
             (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
             bms, by = res["bound"]
+            if isinstance(plan, Ps.SweepPlan):
+                shape = (f"{plan.sweeps} launches a call, blocks a sweep "
+                         + "/".join(str(plan.tiles[i] * plan.split[i] * B)
+                                    for i in range(plan.sweeps)))
+            else:
+                shape = (f"{plan.cluster} block(s) a row of "
+                         f"{plan.threads // plan.cluster} threads, 1 launch "
+                         f"a call")
             print(f"3e timing {kname}: {name} B={B} kernel min {klo:.4f} ms "
-                  f"median {kmed:.4f} ms over 40 calls, plain median "
-                  f"{pmed:.4f} ms over 6; bound {bms:.4f} ms ({by}), "
-                  f"{bms / kmed * 100:.1f} % of the kernel's median; "
-                  f"{plan.cluster} block(s) a row of "
-                  f"{plan.threads // plan.cluster} threads [{device_line}]",
-                  flush=True)
+                  f"median {kmed:.4f} ms over {2 * timed} calls, plain "
+                  f"median {pmed:.4f} ms over {2 if sweeping else 6}; bound "
+                  f"{bms:.4f} ms ({by}), {bms / kmed * 100:.1f} % of the "
+                  f"kernel's median; {shape} [{device_line}]", flush=True)
+        if sp is not None:
+            sp_timing(name, x, y, device_line)
         del x, y, a, runs
         torch.cuda.empty_cache()
+        print(f"3e {name}: {time.perf_counter() - ring_start:.1f} s",
+              flush=True)
     done()
     return launches
+
+
+def sp_timing(name: str, x: torch.Tensor, y: torch.Tensor,
+              device_line: str) -> None:
+    """B11, B12 and B16 at phase 3e's n = 32768 (k = SP_K, n1 =
+    LARGE_SP_N1) on the path's own intermediates, each and its plain
+    version timed in turns (median of 40; plain of 2) beside its bound."""
+    plans = fourstep_mxu_plans(name, LARGE_SP_N1, SP_K)
+    sx, sy = (S.to_shards(t, plans) for t in (x, y))
+    vx, vy = (S.a2a_fwd(S.sp_seg1(t, plans), plans) for t in (sx, sy))
+    sw = S.a2a_inv(S.sp_seg2(vx, vy, plans), plans)
+    work = _sp_work(plans, x.shape[0])
+    for kname, (kern, plain, args) in {
+            "sp_seg1": (S.sp_seg1, S.seg1_plain, (sx, plans)),
+            "sp_seg2": (S.sp_seg2, S.seg2_plain, (vx, vy, plans)),
+            "sp_seg3": (S.sp_seg3, S.seg3_plain, (sw, plans))}.items():
+        res = _turns(kern, plain, args, KERNELS[kname][0], plain_repeats=1)
+        (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+        bms, by = bound(*work[kname])
+        print(f"3e timing {kname}: {name} B={x.shape[0]} k={SP_K} "
+              f"n1={LARGE_SP_N1} kernel min {klo:.4f} ms median {kmed:.4f} "
+              f"ms over 40 calls, plain median {pmed:.4f} ms over 2; bound "
+              f"{bms:.4f} ms ({by}), {bms / kmed * 100:.1f} % of the "
+              f"kernel's median [{device_line}]", flush=True)
 
 
 def pass_runs(x: torch.Tensor, y: torch.Tensor, spec: torch.Tensor,
@@ -1798,6 +2012,81 @@ def _sp_macs(w: torch.Tensor, din: int, rows: int, plans) -> int:
     return rows * din * D * tiles * int(pairs.sum())
 
 
+def _mxu_work(mt, B: int) -> dict:
+    """B5-B9's bytes and MACs at B rows of the set of MXU tables ``mt``
+    (``kernel_work``'s counting): the digit products of a row's lane
+    blocks, not the zero blocks a packed row of 32 lanes adds at n < 32."""
+    n = mt.n
+    row, spec, tw = 4 * B * n, 4 * n, 16 * n
+    mtabs = M.host_tables(mt)
+    wf, wi = _nbytes(mtabs.wf, mtabs.constf), _nbytes(mtabs.wi, mtabs.consti)
+    fp = fold_plan(mt)
+    per_block = B * mt.nb * mt.bw * mt.D * mt.bw     # MACs per input plane
+    fwd, inv, fold = (per_block * d for d in (mt.Df, mt.Di, fp.Din))
+    # the constant's stages: W' with no padding at bw a multiple of 64
+    folded = mt.nb * fp.Dout * mt.bw * fp.Din * mt.bw + 4 * n
+    return {
+        "polymul_mxu": (3 * row + wf + wi + tw, 2 * fwd + inv),
+        "polymul_fixed_mxu": (2 * row + spec + wf + wi + tw, fwd + inv),
+        "ntt_mxu": (2 * row + wf + tw, fwd),
+        "intt_mxu": (2 * row + wi + tw, inv),
+        "polymul_fixed_folded_mxu": (2 * row + wf + folded + tw, fwd + fold),
+    }
+
+
+def small_rings_timing(device_line: str) -> None:
+    """B5-B9 at SMALL_RINGS (n = 8 and 16, lane packed) at MAIN_BATCH
+    rows, each and its twin timed in turns (median of 40; twin of 6)
+    beside its bound (registered in phase 2)."""
+    rng = np.random.default_rng(SEED)
+    for n, q in SMALL_RINGS:
+        name = f"mxu-n{n}-q{q}"
+        tbl, mt = get_tables(name), get_mxu_tables(name)
+        x, y = (torch.from_numpy(v).to("cuda") for v in rng.integers(
+            0, q, (2, MAIN_BATCH, n), dtype=np.uint32))
+        pw = torch.from_numpy(rng.integers(0, mt.pw_bound, (MAIN_BATCH, n),
+                                           dtype=np.uint32)).to("cuda")
+        spec = F.ntt_fused(y[:1], tbl)
+        op = M.fold_operand(spec, mt)
+        work = _mxu_work(mt, MAIN_BATCH)
+        for kname, (kern, plain, args) in {
+                "polymul_mxu": (M.polymul_mxu, M.polymul_mxu_plain,
+                                (x, y, mt)),
+                "polymul_fixed_mxu": (M.polymul_fixed_mxu,
+                                      M.polymul_fixed_mxu_plain,
+                                      (x, spec, mt)),
+                "ntt_mxu": (M.ntt_mxu, M.ntt_mxu_plain, (x, mt)),
+                "intt_mxu": (M.intt_mxu, M.intt_mxu_plain, (pw, mt)),
+                "polymul_fixed_folded_mxu": (
+                    M.polymul_fixed_folded_mxu,
+                    M.polymul_fixed_folded_mxu_plain, (x, op, mt))}.items():
+            res = _turns(kern, plain, args, KERNELS[kname][0],
+                         plain_repeats=3)
+            (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+            bms, by = bound(*work[kname])
+            print(f"small ring timing {kname}: {name} B={MAIN_BATCH} "
+                  f"kernel min {klo:.4f} ms median {kmed:.4f} ms over 40 "
+                  f"calls, twin median {pmed:.4f} ms over 6; bound "
+                  f"{bms:.4f} ms ({by}), {bms / kmed * 100:.1f} % of the "
+                  f"kernel's median [{device_line}]", flush=True)
+    done()
+
+
+def _sp_work(plans, B: int) -> dict:
+    """B11's, B12's and B16's bytes and MACs at B rows under ``plans``
+    (``kernel_work``'s counting)."""
+    row = 4 * B * plans.n
+    st = S.host_tables(plans)
+    m1, m2f, m2i, m3 = (_sp_macs(w, getattr(plans, p).din, B, plans)
+                        for w, p in ((st.w1, "p1"), (st.w2f, "p2f"),
+                                     (st.w2i, "p2i"), (st.w3, "p3")))
+    sp_tw = _nbytes(st.tw)
+    return {"sp_seg1": (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1),
+            "sp_seg2": (3 * row + _nbytes(st.w2fc, st.c2f, st.w2ic, st.c2i),
+                        2 * m2f + m2i),
+            "sp_seg3": (2 * row + _nbytes(st.w3c, st.c3) + sp_tw, m3)}
+
+
 def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
                 classes: bool = True) -> dict:
     """Per kernel, at a timing's shapes (set ``name``, B rows, the SP
@@ -1817,33 +2106,16 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
     mt = get_mxu_tables(name)
     plans = fourstep_mxu_plans(name, _n1(name), SP_K)
     n = tbl.n
-    row, spec, tw = 4 * B * n, 4 * n, 16 * n
-    mtabs = M.host_tables(mt)
-    wf, wi = _nbytes(mtabs.wf, mtabs.constf), _nbytes(mtabs.wi, mtabs.consti)
-    fp = fold_plan(mt)
-    per_block = B * mt.nb * mt.bw * mt.D * mt.bw     # MACs per input plane
-    fwd, inv, fold = (per_block * d for d in (mt.Df, mt.Di, fp.Din))
-    # the constant's stages: W' with no padding at bw a multiple of 64
-    folded = mt.nb * fp.Dout * mt.bw * fp.Din * mt.bw + 4 * n
-    work = {
-        **{k: _pass_work(k, n, B) for k in PASS_KERNELS},
-        "polymul_mxu": (3 * row + wf + wi + tw, 2 * fwd + inv),
-        "polymul_fixed_mxu": (2 * row + spec + wf + wi + tw, fwd + inv),
-        "ntt_mxu": (2 * row + wf + tw, fwd),
-        "intt_mxu": (2 * row + wi + tw, inv),
-        "polymul_fixed_folded_mxu": (2 * row + wf + folded + tw, fwd + fold),
-    }
+    row, spec = 4 * B * n, 4 * n
+    work = {k: _pass_work(k, n, B) for k in PASS_KERNELS}
+    work |= _mxu_work(mt, B)
+    work |= _sp_work(plans, B)
     st = S.host_tables(plans)
-    m1, m2f, m2i, m3, m3x, mx = (
+    m2f, m2i, m3x, mx = (
         _sp_macs(w, getattr(plans, p).din, B, plans)
-        for w, p in ((st.w1, "p1"), (st.w2f, "p2f"), (st.w2i, "p2i"),
-                     (st.w3, "p3"), (st.w3x, "p3x"),
+        for w, p in ((st.w2f, "p2f"), (st.w2i, "p2i"), (st.w3x, "p3x"),
                      (S.dense_folded_tables(sp_fold, plans).cpu(), "p2x")))
     sp_tw = _nbytes(st.tw)
-    work["sp_seg1"] = (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1)
-    work["sp_seg2"] = (3 * row + _nbytes(st.w2fc, st.c2f, st.w2ic, st.c2i),
-                       2 * m2f + m2i)
-    work["sp_seg3"] = (2 * row + _nbytes(st.w3c, st.c3) + sp_tw, m3)
     work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3xc, st.c3x) + sp_tw, m3x)
     work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2fc, st.c2f,
                                                       st.w2ic, st.c2i),
@@ -1857,7 +2129,8 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
     w2c, c2c = C.host_class_tables(cp)
     w2cc = C.host_compact_class_table(cp, plans)
     D = cp.Dout
-    work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1c) + sp_tw, m1)
+    work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1c) + sp_tw,
+                               work["sp_seg1"][1])
     work["sp_seg2_classes"] = (
         (2 * D + 1) * row + _nbytes(w2cc, c2c, st.w2ic, st.c2i),
         2 * _sp_macs(w2c, sum(cp.dins), B, plans) + m2i)
@@ -1871,23 +2144,33 @@ def bound(nbytes: int, macs: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _turns(kern, plain, args, counter=None, plain_repeats=20) -> dict:
-    """Medians of plain, kernel, kernel, plain runs of 20 timed calls each
-    (the plain version's of ``plain_repeats``); with ``counter``, its
-    launches must equal the kernel's calls."""
-    before = counter.launches if counter else 0
+def _turns(kern, plain, args, counter=None, plain_repeats=20,
+           repeats=20) -> dict:
+    """Medians of plain, kernel, kernel, plain runs of ``repeats`` timed
+    calls each (the plain version's of ``plain_repeats``); with
+    ``counter``, its launches must be the kernel's calls times the
+    launches a call makes (``counter.launches`` moved by the first)."""
+    per_call = 1
+    if counter:
+        before = counter.launches
+        kern(*args)
+        per_call = counter.launches - before
+        if per_call < 1:
+            raise AssertionError(f"{counter.name}: a call launched nothing")
+        before = counter.launches
     samples = {"kernel": [], "plain": []}
     calls = 0
     for which in ("plain", "kernel", "kernel", "plain"):
         t = time_cuda(kern if which == "kernel" else plain, *args,
-                      warmup=3, repeats=20 if which == "kernel"
+                      warmup=3 if which == "kernel" else min(3, plain_repeats),
+                      repeats=repeats if which == "kernel"
                       else plain_repeats)
         samples[which].extend(t.samples_ms)
         if which == "kernel":
             calls += t.calls + t.warmup
-    if counter and counter.launches - before != calls:
+    if counter and counter.launches - before != calls * per_call:
         raise AssertionError(f"{counter.name}: {counter.launches - before} "
-                             f"launches for {calls} calls")
+                             f"launches for {calls} calls of {per_call}")
     return {which: (min(v), float(np.median(v)))
             for which, v in samples.items()}
 
@@ -2344,6 +2627,7 @@ def main() -> int:
     sp_against_plain(errors)
     classes_against_plain(errors)
     pass_lengths_against_plain(errors)
+    sweep_lengths_against_plain(errors)
     small_rings_against_plain(errors)
     registration_sweep()
 
@@ -2362,6 +2646,7 @@ def main() -> int:
 
     phase("3e large rings")
     large = large_rings(device_line)
+    small_rings_timing(device_line)
 
     phase("4 timing")
     times = timing(device_line, q30_times)

@@ -29,7 +29,12 @@ left the row, a coalesced store) under ``ntt_pass_plan(n)``, a plan with no
 inverse passes, both for every n from 2 to 262144; B1 and B4 from 2 to
 131072.  Where one block cannot hold a row (B1, B4 from 32768, B2, B3 from
 65536) the row spans a thread-block cluster of 2 to 8 blocks, still one
-launch a call (``passes.pass_plan``).
+launch a call (``passes.pass_plan``).  Past a cluster's reach (B1, B4 from
+2^18, B2, B3 from 2^19, to 2^25) each runs its sweep form
+(``csrc/pass_sweeps.cu``, ``passes.sweep_plan``): the row in device memory,
+each transform in two or three launches of block-local windows of stages,
+3 launches a product, 2 a transform, each counted; ``passes.kernel_plan``
+picks the form and the wrappers take an explicit ``plan=``.
 ``polymul_fused_passes_plain``, ``polymul_fixed_fused_passes_plain``,
 ``ntt_passes_plain`` and ``intt_passes_plain`` run those schedules on the
 CPU with the kernel's index maps, exchanges and lazy ranges.  All read
@@ -48,7 +53,8 @@ import torch
 
 from . import modmul as MM
 from . import ntt as N
-from .passes import PassModel, PassPlan, pass_plan
+from .passes import (PassModel, PassPlan, SweepModel, SweepPlan, kernel_plan,
+                     pass_plan, sweep_reads)
 from .tables import NttTables, get_tables
 
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
@@ -147,6 +153,58 @@ def _launch(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
     return out
 
 
+def _launch_plan(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
+                 a: torch.Tensor, b: torch.Tensor | None, plan,
+                 operands: int) -> torch.Tensor:
+    """``_launch`` under a pass plan, ``_launch_sweeps`` under a sweep
+    plan."""
+    if isinstance(plan, SweepPlan):
+        return _launch_sweeps(kernel, tbl, tw, a, b, plan, operands)
+    return _launch(kernel, tbl, tw, a, b, plan)
+
+
+def _launch_sweeps(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
+                   a: torch.Tensor, b: torch.Tensor | None, plan: SweepPlan,
+                   operands: int) -> torch.Tensor:
+    """Run ``kernel``'s sweep form (``csrc/pass_sweeps.cu``) on CUDA
+    tensors a (and b: the second operand, or B4's spectrum) into a new
+    output: one launch a sweep of ``plan``, each adding one to the
+    kernel's count, through scratch rows of ``operands`` operands (two
+    buffers in turns, ``passes.sweep_reads``).  The launcher checks the
+    plan; a refusal raises."""
+    from ..utils.build import load_library
+
+    n = tbl.n
+    out = torch.empty_like(a)
+    batch = a.numel() // n
+    if batch == 0:
+        return out
+    scratch = [torch.empty((batch, operands, n), dtype=torch.uint32,
+                           device=a.device)
+               for _ in range(min(2, plan.sweeps - 1))]
+    ptrs = [t.view(torch.int32).data_ptr() for t in scratch] + [None, None]
+    lib = load_library()
+    ps = tbl.ps
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        for i in range(plan.sweeps):
+            err = lib.cdll.qt_pass_sweep(
+                a.view(torch.int32).data_ptr(),
+                None if b is None else b.view(torch.int32).data_ptr(),
+                out.view(torch.int32).data_ptr(), ptrs[0], ptrs[1],
+                tw.view(torch.int32).data_ptr(), batch, n, tbl.logn, tbl.q,
+                ps.r32, ps.r32_shoup, ps.one_shoup, ctypes.addressof(plan),
+                i, stream)
+            if err != 0:
+                src, dst = sweep_reads(plan, i)
+                raise RuntimeError(
+                    f"qt_pass_sweep ({kernel.name}, launch {i} of "
+                    f"{plan.sweeps}, {src} -> {dst}) failed: cudaError "
+                    f"{err} ({lib.error_string(err)})")
+            kernel.launches += 1
+    return out
+
+
 def _prepare(tbl: NttTables, tw, *tensors):
     n = tbl.n
     for i, t in enumerate(tensors):
@@ -229,6 +287,16 @@ def intt_pass_plan(n: int) -> PassPlan:
     return pass_plan(n, None, True, operands=1)
 
 
+def _sweeps_plain(kind: str, ops, tbl: NttTables, plan: SweepPlan,
+                  spec=None) -> torch.Tensor:
+    """The sweep form's launches of ``kind`` (B1-B4) over the (B, n) int64
+    rows ``ops`` (``passes.SweepModel``, on their device); the rows of
+    z."""
+    tw = torch.from_numpy(tbl.packed.astype(np.int64)).to(ops[0].device)
+    return SweepModel(plan, tbl.n, tbl.q, tw,
+                      lambda a, b: _barrett(a, b, tbl), spec).run(ops)
+
+
 def _polymul_passes_plain(ops, tbl: NttTables, plan: PassPlan, product):
     """The pass schedule of B1 and B4 over the (B, n) int64 rows ``ops`` (x
     and y, or x alone) on the CPU: the forward's passes of every operand,
@@ -297,30 +365,40 @@ def _barrett(a, b, tbl: NttTables):
 def polymul_fused_passes_plain(x, y, tbl: NttTables,
                                plan: PassPlan | None = None):
     """z = x * y mod (X^n + 1) mod q through B1's schedule (``plan``,
-    ``fused_pass_plan`` unless given), on the CPU (``passes.PassModel``):
+    ``passes.kernel_plan`` unless given), on the CPU (``passes.PassModel``;
+    a sweep plan's launches through ``passes.SweepModel``, on x's device):
     the kernel's index maps and exchanges, CT butterflies widest first and
     GS butterflies narrowest first with the merged-psi twiddles indexed by
     the bits above the stage, the last inverse stage with the store (n^{-1}
     on the sum, psi^{-1}_rev[1] n^{-1} on the difference), lazy ranges
     asserted."""
     n = tbl.n
-    plan = fused_pass_plan(n) if plan is None else plan
-    z = _polymul_passes_plain(
-        [a.reshape(-1, n).to(_I64) for a in (x, y)], tbl, plan,
-        lambda V, mdl, b: _barrett(V[:, :1], V[:, 1:], tbl))
+    plan = kernel_plan(n, "B1") if plan is None else plan
+    ops = [a.reshape(-1, n).to(_I64) for a in (x, y)]
+    if isinstance(plan, SweepPlan):
+        z = _sweeps_plain("B1", ops, tbl, plan)
+    else:
+        z = _polymul_passes_plain(
+            ops, tbl, plan,
+            lambda V, mdl, b: _barrett(V[:, :1], V[:, 1:], tbl))
     return z.reshape(*x.shape[:-1], n).to(_U32)
 
 
 def polymul_fixed_fused_passes_plain(x, yspec, tbl: NttTables,
                                      plan: PassPlan | None = None):
     """x times the constant whose forward spectrum is ``yspec`` (n values,
-    any uint32) through B4's schedule (``plan``, ``fixed_pass_plan`` unless
-    given), on the CPU: B1's with x alone through the forward, and where the
+    any uint32) through B4's schedule (``plan``, ``passes.kernel_plan``
+    unless given; a sweep plan's as B1's), on the CPU: B1's with x alone
+    through the forward, and where the
     forward ends (the window [0, r), thread t holding positions t R + c) the
     Barrett product with the spectrum's values at those positions."""
     n = tbl.n
-    plan = fixed_pass_plan(n) if plan is None else plan
+    plan = kernel_plan(n, "B4") if plan is None else plan
     spec = yspec.reshape(n).to(_I64)
+    if isinstance(plan, SweepPlan):
+        z = _sweeps_plain("B4", [x.reshape(-1, n).to(_I64)], tbl, plan,
+                          spec.to(x.device))
+        return z.reshape(x.shape).to(_U32)
 
     def product(V, mdl, b):
         idx = mdl.window(mdl.t, b)
@@ -335,13 +413,16 @@ def polymul_fixed_fused_passes_plain(x, yspec, tbl: NttTables,
 
 def ntt_passes_plain(x, tbl: NttTables, plan: PassPlan | None = None):
     """The forward merged-psi NTT (nat -> rev) of values below 4q through
-    B2's schedule (``plan``, ``ntt_pass_plan`` unless given), on the CPU:
+    B2's schedule (``plan``, ``passes.kernel_plan`` unless given; a sweep
+    plan's as B1's), on the CPU:
     the coalesced load on the window [tb, L), B4's forward passes and
     exchanges, ending on [0, r), one more exchange back to [tb, L) and a
     coalesced store; canonical (csub by 2q, then by q)."""
     n, q = tbl.n, tbl.q
-    plan = ntt_pass_plan(n) if plan is None else plan
+    plan = kernel_plan(n, "B2") if plan is None else plan
     x2 = x.reshape(-1, n).to(_I64)
+    if isinstance(plan, SweepPlan):
+        return _sweeps_plain("B2", [x2], tbl, plan).reshape(x.shape).to(_U32)
     mdl = PassModel(plan, n, q, x2.shape[0])
     t = mdl.t
     V, b = _forward_passes([mdl.pad(x2)], mdl, tbl)
@@ -355,13 +436,16 @@ def ntt_passes_plain(x, tbl: NttTables, plan: PassPlan | None = None):
 
 def intt_passes_plain(X, tbl: NttTables, plan: PassPlan | None = None):
     """The inverse merged-psi NTT (rev -> nat) of values below 2q through
-    B3's schedule (``plan``, ``intt_pass_plan`` unless given), on the CPU:
+    B3's schedule (``plan``, ``passes.kernel_plan`` unless given; a sweep
+    plan's as B1's), on the CPU:
     the coalesced load on the window [tb, L), one exchange into [0, r),
     then B4's inverse passes, exchanges and last stage with the store;
     canonical."""
     n = tbl.n
-    plan = intt_pass_plan(n) if plan is None else plan
+    plan = kernel_plan(n, "B3") if plan is None else plan
     X2 = X.reshape(-1, n).to(_I64)
+    if isinstance(plan, SweepPlan):
+        return _sweeps_plain("B3", [X2], tbl, plan).reshape(X.shape).to(_U32)
     B = X2.shape[0]
     mdl = PassModel(plan, n, tbl.q, B)
     t, b = mdl.t, mdl.tb
@@ -375,21 +459,25 @@ def intt_passes_plain(X, tbl: NttTables, plan: PassPlan | None = None):
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
 
-def polymul_fused(x, y, tbl: NttTables, tw=None) -> torch.Tensor:
-    """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors."""
+def polymul_fused(x, y, tbl: NttTables, tw=None, plan=None) -> torch.Tensor:
+    """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors; on the
+    card under ``plan`` (``passes.kernel_plan`` unless given: the block or
+    cluster form, or past its reach the sweep form)."""
     tw = _prepare(tbl, tw, x, y)
     if x.shape != y.shape:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
     if x.is_cuda:
-        return _launch(KERNELS["polymul_fused"], tbl, tw, x, y,
-                       fused_pass_plan(tbl.n))
+        return _launch_plan(KERNELS["polymul_fused"], tbl, tw, x, y,
+                            plan or kernel_plan(tbl.n, "B1"), 2)
     return polymul_plain(x, y, tbl, tw)
 
 
-def polymul_fixed_fused(x, yspec, tbl: NttTables, tw=None) -> torch.Tensor:
+def polymul_fixed_fused(x, yspec, tbl: NttTables, tw=None,
+                        plan=None) -> torch.Tensor:
     """x (B..., n) times the constant whose forward spectrum is ``yspec``
-    (n values, any shape), broadcast over the batch."""
+    (n values, any shape), broadcast over the batch; ``plan`` as
+    ``polymul_fused``'s."""
     tw = _prepare(tbl, tw, x, yspec)
     if yspec.numel() != tbl.n:
         raise ValueError(f"spectrum must hold n={tbl.n} values, got "
@@ -397,26 +485,28 @@ def polymul_fixed_fused(x, yspec, tbl: NttTables, tw=None) -> torch.Tensor:
     if x.is_cuda:
         if yspec.data_ptr() % 16:
             yspec = yspec.clone()     # the kernel reads it 16 bytes a load
-        return _launch(KERNELS["polymul_fixed_fused"], tbl, tw, x, yspec,
-                       fixed_pass_plan(tbl.n))
+        return _launch_plan(KERNELS["polymul_fixed_fused"], tbl, tw, x,
+                            yspec, plan or kernel_plan(tbl.n, "B4"), 1)
     return polymul_fixed_plain(x, yspec, tbl, tw)
 
 
-def ntt_fused(x, tbl: NttTables, tw=None) -> torch.Tensor:
-    """Forward merged-psi NTT (nat -> rev), canonical output."""
+def ntt_fused(x, tbl: NttTables, tw=None, plan=None) -> torch.Tensor:
+    """Forward merged-psi NTT (nat -> rev), canonical output; ``plan`` as
+    ``polymul_fused``'s."""
     tw = _prepare(tbl, tw, x)
     if x.is_cuda:
-        return _launch(KERNELS["ntt_fused"], tbl, tw, x, None,
-                       ntt_pass_plan(tbl.n))
+        return _launch_plan(KERNELS["ntt_fused"], tbl, tw, x, None,
+                            plan or kernel_plan(tbl.n, "B2"), 1)
     return ntt_plain(x, tbl, tw)
 
 
-def intt_fused(X, tbl: NttTables, tw=None) -> torch.Tensor:
-    """Inverse merged-psi NTT (rev -> nat) of values below 2q, canonical."""
+def intt_fused(X, tbl: NttTables, tw=None, plan=None) -> torch.Tensor:
+    """Inverse merged-psi NTT (rev -> nat) of values below 2q, canonical;
+    ``plan`` as ``polymul_fused``'s."""
     tw = _prepare(tbl, tw, X)
     if X.is_cuda:
-        return _launch(KERNELS["intt_fused"], tbl, tw, X, None,
-                       intt_pass_plan(tbl.n))
+        return _launch_plan(KERNELS["intt_fused"], tbl, tw, X, None,
+                            plan or kernel_plan(tbl.n, "B3"), 1)
     return intt_plain(X, tbl, tw)
 
 

@@ -28,7 +28,10 @@ the CUDA source and of ``csrc/pass_stages.cuh``).
 ``pairing_pass_plan(n, pairing)`` is the schedule a launcher takes (made by
 ``ops/passes.py pass_plan``); Stockham's windows follow its position map.
 From n = 32768 to 131072 a row spans a thread-block cluster of 2 to 8
-blocks, one launch a call.
+blocks, one launch a call; from 2^18 to 2^25 the kernels run their sweep
+form (``csrc/pass_sweeps.cu``, ``passes.sweep_plan``: the row in device
+memory, 3 launches a call, Stockham's 5 from 2^24, its scratch rows at its
+autosort's positions), each launch counted.
 ``polymul_pairing_passes_plain`` runs that schedule on the CPU with the
 kernel's index maps and uint32 arithmetic, so the tests hold the schedule
 itself against the plain pipeline, JAX's kernel and, for Stockham, the
@@ -44,8 +47,9 @@ import torch
 
 from . import modmul as MM
 from . import ntt as N
-from .ntt_fused import Kernel, _check, _launch
-from .passes import PassModel, PassPlan, pass_plan, stockham_thread
+from .ntt_fused import Kernel, _barrett, _check, _launch_plan
+from .passes import (PassModel, PassPlan, SweepModel, SweepPlan, kernel_plan,
+                     pass_plan, stockham_thread)
 from .tables import NttTables, get_tables
 
 __all__ = ["PAIRINGS", "KERNELS", "pairing_pass_plan", "pairing_twiddles",
@@ -133,15 +137,22 @@ def polymul_pairing_passes_plain(x, y, tbl: NttTables, pairing: str,
                                  plan: PassPlan | None = None,
                                  trace: list | None = None):
     """z = x * y mod (X^n + 1) mod q through ``pairing``'s pass kernel's
-    schedule (``plan``, ``pairing_pass_plan`` unless given), on the CPU
-    (``passes.PassModel``): the kernel's index maps, exchanges, bit
-    reversals as renamings and lazy ranges, Stockham's threads
-    (``stockham_thread``) at the start of each pass.  With ``trace`` a
+    schedule (``plan``, ``passes.kernel_plan`` unless given), on the CPU
+    (``passes.PassModel``; a sweep plan's launches through
+    ``passes.SweepModel``, on x's device): the kernel's index maps,
+    exchanges, bit reversals as renamings and lazy ranges, Stockham's
+    threads (``stockham_thread``) at the start of each pass.  With ``trace`` a
     list, each pass appends (side, lo, hi, indices (T, R), values (rows,
     operands, T, R)) after its stages: DIF indices for Stockham too."""
     fwd, inv = PAIRINGS[pairing]
     n, L, q = tbl.n, tbl.logn, tbl.q
-    plan = pairing_pass_plan(n, pairing) if plan is None else plan
+    plan = kernel_plan(n, pairing) if plan is None else plan
+    if isinstance(plan, SweepPlan):
+        tw = torch.from_numpy(tbl.pairing_packed.astype(np.int64)).to(
+            x.device)
+        z = SweepModel(plan, n, q, tw, lambda a, b: _barrett(a, b, tbl)).run(
+            [a.reshape(-1, n).to(torch.int64) for a in (x, y)])
+        return z.reshape(x.shape).to(torch.uint32)
     stk = pairing == "stockham"
     (w, w_sh, iw, iw_sh, phi, phi_sh, iphi,
      iphi_sh) = torch.from_numpy(tbl.pairing_packed.astype(np.int64))
@@ -203,10 +214,12 @@ def _check_pairing(pairing: str) -> None:
                          f"{sorted(PAIRINGS)}")
 
 
-def polymul_pairing(x, y, tbl: NttTables, pairing: str,
-                    tw=None) -> torch.Tensor:
+def polymul_pairing(x, y, tbl: NttTables, pairing: str, tw=None,
+                    plan=None) -> torch.Tensor:
     """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors of
-    canonical residues, through ``pairing``'s kernel."""
+    canonical residues, through ``pairing``'s kernel under ``plan``
+    (``passes.kernel_plan`` unless given: the block or cluster form, or
+    past its reach the sweep form)."""
     _check_pairing(pairing)
     n = tbl.n
     _check("operand 0", x, n)
@@ -223,8 +236,8 @@ def polymul_pairing(x, y, tbl: NttTables, pairing: str,
         raise ValueError(f"pairing twiddles must be a contiguous (8, {n}) "
                          f"uint32 tensor on {x.device}")
     if x.is_cuda:
-        return _launch(KERNELS[f"polymul_pairing_{pairing}"], tbl, tw, x, y,
-                       pairing_pass_plan(n, pairing))
+        return _launch_plan(KERNELS[f"polymul_pairing_{pairing}"], tbl, tw,
+                            x, y, plan or kernel_plan(n, pairing), 2)
     return polymul_pairing_plain(x, y, tbl, pairing)
 
 

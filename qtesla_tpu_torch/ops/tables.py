@@ -46,13 +46,9 @@ import functools
 
 import numpy as np
 
-from ..params import ParamSet, get_params
+from ..params import ParamSet, get_params, shoup_array
 
 __all__ = ["NttTables", "get_tables", "from_jax_tables"]
-
-
-def _shoup_arr(tbl: np.ndarray, q: int) -> np.ndarray:
-    return ((tbl.astype(object) << 32) // q).astype(np.uint32)
 
 
 def _u32(pairs):
@@ -144,48 +140,46 @@ class NttTables:
 
 def _pair(w: np.ndarray, q: int):
     w = w.astype(np.uint32)
-    return w, _shoup_arr(w, q)
+    return w, shoup_array(w, q)
 
 
 def _build(ps: ParamSet) -> NttTables:
+    """The tables in int64 numpy: the psi and omega powers by blocked
+    doubling (``params.powers_mod``), each stage's table a view of them
+    (the views a stage or Stockham table takes of omega's powers and their
+    Shoup companions share one array each way)."""
     n, q, L = ps.n, ps.q, ps.logn
-    psi_rev = ps.psi_rev.astype(object)
-    ipsi_rev = ps.ipsi_rev.astype(object)
-    fwd = [_pair(psi_rev[1 << s:2 << s].reshape(-1, 1), q) for s in range(L)]
+    fwd = [_pair(ps.psi_rev[1 << s:2 << s].reshape(-1, 1), q)
+           for s in range(L)]
     inv = []
     for s in range(L):
         h = n >> (s + 1)
-        w = ipsi_rev[h:2 * h]
+        w = ps.ipsi_rev[h:2 * h].astype(np.int64)
         if h == 1:
-            w = (w * ps.n_inv) % q
+            w = w * ps.n_inv % q
         inv.append(_pair(w.reshape(h, 1), q))
-    ninv = _pair(np.full((1, 1), ps.n_inv, dtype=object), q)
+    ninv = _pair(np.full((1, 1), ps.n_inv, dtype=np.int64), q)
 
-    tf = ps.omega_powers(n)
-    ti = ps.omega_powers(n, inverse=True)
     cyc_fwd, cyc_inv = {}, {}
-    for s in range(L):
-        h = 1 << s
-        stride = n // (2 * h)
-        cyc_fwd[h] = _pair(tf[0:h * stride:stride].reshape(1, h), q)
-        cyc_inv[h] = _pair(ti[0:h * stride:stride].reshape(1, h), q)
-    # Stockham stage st: current length nc = n >> st, root of order nc
     stk_fwd, stk_inv = [], []
-    for st in range(L):
-        m, stride = n >> (st + 1), 1 << st
-        stk_fwd.append(_pair(tf[0:m * stride:stride].reshape(m, 1), q))
-        stk_inv.append(_pair(ti[0:m * stride:stride].reshape(m, 1), q))
+    for tf, cyc, stk in ((_pair(ps.omega_powers(n), q), cyc_fwd, stk_fwd),
+                         (_pair(ps.omega_powers(n, inverse=True), q),
+                          cyc_inv, stk_inv)):
+        for s in range(L):
+            h = 1 << s
+            stride = n // (2 * h)
+            cyc[h] = tuple(a[0:h * stride:stride].reshape(1, h) for a in tf)
+        # Stockham stage st: current length nc = n >> st, root of order nc
+        for st in range(L):
+            m, stride = n >> (st + 1), 1 << st
+            stk.append(tuple(a[0:m * stride:stride].reshape(m, 1)
+                             for a in tf))
 
-    phi = np.empty(n, dtype=object)
-    inv_phi = np.empty(n, dtype=object)
-    pw, ipw = 1, ps.n_inv
-    for i in range(n):
-        phi[i], inv_phi[i] = pw, ipw
-        pw = (pw * ps.psi) % q
-        ipw = (ipw * ps.psi_inv) % q
+    phi = ps.psi_powers
+    inv_phi = ps.ipsi_powers * ps.n_inv % q
     return NttTables(ps, fwd, inv, ninv, cyc_fwd, cyc_inv, stk_fwd, stk_inv,
                      _pair(phi, q), _pair(inv_phi, q),
-                     _pair((inv_phi * n) % q, q), ps.bitrev_tbl)
+                     _pair(inv_phi * n % q, q), ps.bitrev_tbl)
 
 
 @functools.lru_cache(maxsize=None)

@@ -91,19 +91,34 @@ def _find_generator(q: int) -> int:
         g += 1
 
 
-def _bitrev(x: int, bits: int) -> int:
-    r = 0
-    for _ in range(bits):
-        r = (r << 1) | (x & 1)
-        x >>= 1
+def bitrev_permutation(n: int) -> np.ndarray:
+    """Bit-reversal permutation table (reference: constants.h:3-6 bitrev_tbl,
+    NTT.cu:61-100), generated instead of hardcoded: the table of 2m is that
+    of m doubled, then that of m doubled plus one."""
+    r = np.zeros(1, dtype=np.uint32)
+    while r.size < n:
+        r = np.concatenate([r << 1, (r << 1) | 1])
     return r
 
 
-def bitrev_permutation(n: int) -> np.ndarray:
-    """Bit-reversal permutation table (reference: constants.h:3-6 bitrev_tbl,
-    NTT.cu:61-100), generated instead of hardcoded."""
-    bits = n.bit_length() - 1
-    return np.array([_bitrev(i, bits) for i in range(n)], dtype=np.uint32)
+def powers_mod(base: int, count: int, q: int) -> np.ndarray:
+    """base^i mod q for i < count, int64, by blocked doubling: the next
+    block is the first times base^(its start), every product below 2^60
+    (q < 2^30)."""
+    out = np.empty(count, dtype=np.int64)
+    out[:1] = 1
+    filled, step = 1, base % q
+    while filled < count:
+        k = min(filled, count - filled)
+        out[filled:filled + k] = out[:k] * step % q
+        filled += k
+        step = step * step % q
+    return out
+
+
+def shoup_array(w: np.ndarray, q: int) -> np.ndarray:
+    """floor(w * 2^32 / q) of each entry (w < q < 2^30), uint32."""
+    return ((np.asarray(w).astype(np.int64) << 32) // q).astype(np.uint32)
 
 
 def _shoup(w: int, q: int) -> int:
@@ -158,26 +173,26 @@ class ParamSet:
     # ------------------------------------------------------------------
 
     @functools.cached_property
+    def psi_powers(self) -> np.ndarray:
+        """psi^i mod q for i < n, int64."""
+        return powers_mod(self.psi, self.n, self.q)
+
+    @functools.cached_property
+    def ipsi_powers(self) -> np.ndarray:
+        """psi^{-i} mod q for i < n, int64."""
+        return powers_mod(self.psi_inv, self.n, self.q)
+
+    @functools.cached_property
     def psi_rev(self) -> np.ndarray:
         """psi^bitrev(i) table for the merged-psi CT forward NTT.
 
         Subsumes the reference's Phi table + separate weighting pass
         (constants.h:13-16, NTT.cu:502-509)."""
-        n, q, psi = self.n, self.q, self.psi
-        bits = self.logn
-        pw = 1
-        powers = [0] * n
-        for i in range(n):
-            powers[i] = pw
-            pw = (pw * psi) % q
-        return np.array([powers[_bitrev(i, bits)] for i in range(n)],
-                        dtype=np.uint32)
+        return self.psi_powers[self.bitrev_tbl].astype(np.uint32)
 
     @functools.cached_property
     def psi_rev_shoup(self) -> np.ndarray:
-        q = self.q
-        return np.array([_shoup(int(w), q) for w in self.psi_rev],
-                        dtype=np.uint32)
+        return shoup_array(self.psi_rev, self.q)
 
     @functools.cached_property
     def ipsi_rev(self) -> np.ndarray:
@@ -186,21 +201,11 @@ class ParamSet:
         Subsumes the reference's invPhi table (pre-fused with N^{-1} there,
         constants.h:19-27); here N^{-1} is folded into the *last stage* twiddles
         by the kernel-table builder instead (see stage_tables_inv)."""
-        n, q, psi_inv = self.n, self.q, self.psi_inv
-        bits = self.logn
-        pw = 1
-        powers = [0] * n
-        for i in range(n):
-            powers[i] = pw
-            pw = (pw * psi_inv) % q
-        return np.array([powers[_bitrev(i, bits)] for i in range(n)],
-                        dtype=np.uint32)
+        return self.ipsi_powers[self.bitrev_tbl].astype(np.uint32)
 
     @functools.cached_property
     def ipsi_rev_shoup(self) -> np.ndarray:
-        q = self.q
-        return np.array([_shoup(int(w), q) for w in self.ipsi_rev],
-                        dtype=np.uint32)
+        return shoup_array(self.ipsi_rev, self.q)
 
     # --- classic omega twiddles (cyclic NTT variants: matrix, four-step) ---
 
@@ -213,16 +218,10 @@ class ParamSet:
         w = _pow_mod(self.omega, n // length, q)
         if inverse:
             w = pow(w, -1, q)
-        out = np.empty(length, dtype=np.uint32)
-        pw = 1
-        for i in range(length):
-            out[i] = pw
-            pw = (pw * w) % q
-        return out
+        return powers_mod(w, length, q).astype(np.uint32)
 
     def shoup_of(self, table: np.ndarray) -> np.ndarray:
-        q = self.q
-        return np.array([_shoup(int(w), q) for w in table], dtype=np.uint32)
+        return shoup_array(table, self.q)
 
     @functools.cached_property
     def bitrev_tbl(self) -> np.ndarray:

@@ -39,6 +39,10 @@ _P = ctypes.c_void_p
 # r32_shoup, one_shoup, &plan, stream)
 _PASSES = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
            + [ctypes.c_uint32] * 4 + [_P, _P])
+# csrc/pass_sweeps.cu: (x, y, z, scratch a, scratch b, twiddles, batch, n,
+# logn, q, r32, r32_shoup, one_shoup, &plan, launch, stream)
+_SWEEP = ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+          + [ctypes.c_uint32] * 4 + [_P, ctypes.c_int, _P])
 # csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
 # &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
@@ -50,6 +54,7 @@ _SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 LAUNCHERS = {
     "qt_polymul_fused": _PASSES, "qt_polymul_fixed_fused": _PASSES,
     "qt_ntt_fused": _PASSES, "qt_intt_fused": _PASSES,
+    "qt_pass_sweep": _SWEEP,
     "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
     "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,
     "qt_polymul_fixed_folded_mxu": _MXU,

@@ -20,6 +20,7 @@
 This file imports no jax.
 """
 
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +37,7 @@ from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
                                              get_mxu_tables)
+from qtesla_tpu_torch.ops import passes as PS
 from qtesla_tpu_torch.ops.passes import PassPlan, schedule
 from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import make_mesh
@@ -426,12 +428,21 @@ def test_build_flags_target_hopper():
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
         "ntt_mxu.cu", "ntt_pairings.cu", "ntt_pairings_cluster.cu",
-        "pairing_pass.cuh", "pass_stages.cuh", "seg2_compact.cuh",
-        "sharded_classes.cu", "sharded_mxu.cu"]
+        "pairing_pass.cuh", "pass_stages.cuh", "pass_sweeps.cu",
+        "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
+    # the pass kernels' sweep form: one launcher for all nine kinds, a
+    # launch a call (x, y, z, two scratch rows, twiddles, batch, n, logn,
+    # the set's constants, &plan, the launch's number, stream)
     assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
-                                    for k in mod.KERNELS.values()}
+                                    for k in mod.KERNELS.values()} | {
+        "qt_pass_sweep"}
+    sweep = build.LAUNCHERS["qt_pass_sweep"]
+    assert len(sweep) == 16 and sweep[-3:] == [sweep[0], ctypes.c_int,
+                                               sweep[0]]
+    assert 'extern "C" int qt_pass_sweep(' in (
+        build.CSRC_DIR / "pass_sweeps.cu").read_text()
     # the pass kernels' launchers (the five pairings, B1-B4) take the plan
     # before the stream
     passes = build.LAUNCHERS["qt_polymul_fused"]
@@ -2188,3 +2199,125 @@ def test_compact_launchers_refuse_plans_outside_their_range(cuda_device):
     S._run_kernel(C.KERNELS["sp_seg1_classes"], b17, cases[-1][2], x, None,
                   cp.Dout * plans.nloc)
     torch.cuda.synchronize()
+
+
+# the sweep form's rings (csrc/pass_sweeps.cu): the largest prime the
+# registry takes at each n
+SWEEP_RINGS = {1 << 18: 1056440321, 1 << 20: 1012924417, 1 << 25: 469762049}
+
+
+def _sweep_call(kind, tbl, x, y, lazy, spec, plan, on_card):
+    """``kind``'s wrapper under ``plan`` on the card (``on_card``) or its
+    CPU twin under the same plan."""
+    if kind == "B1":
+        return (F.polymul_fused(x, y, tbl, plan=plan) if on_card else
+                F.polymul_fused_passes_plain(x, y, tbl, plan))
+    if kind == "B4":
+        return (F.polymul_fixed_fused(x, spec, tbl, plan=plan) if on_card
+                else F.polymul_fixed_fused_passes_plain(x, spec, tbl, plan))
+    if kind == "B2":
+        return (F.ntt_fused(x, tbl, plan=plan) if on_card else
+                F.ntt_passes_plain(x, tbl, plan))
+    if kind == "B3":
+        return (F.intt_fused(lazy, tbl, plan=plan) if on_card else
+                F.intt_passes_plain(lazy, tbl, plan))
+    return (P.polymul_pairing(x, y, tbl, kind, plan=plan) if on_card else
+            P.polymul_pairing_passes_plain(x, y, tbl, kind, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(PS.SWEEP_KINDS))
+def test_sweep_form_matches_its_twin_on_card(cuda_device, kind):
+    """The sweep form of each kind (``passes.sweep_plan``; B2 and B3 at
+    2^18 too, where their cluster form runs by default) against its CPU
+    twin under the same plan at n = 2^18, B in {1, 3}, and 2^20, B = 1,
+    with a row of q - 1 (B3: 2q - 1; B4 against a spectrum holding q - 1);
+    at 2^25, B = 1, against the plain version on the card and the closed
+    form of the all-(q - 1) row (B1, B4 and the pairings: z_k = 2k + 2 -
+    n; B3 takes B2's output back to x).  Each call adds its plan's
+    launches to the kernel's count."""
+    kernel = {"B1": F.KERNELS["polymul_fused"],
+              "B4": F.KERNELS["polymul_fixed_fused"],
+              "B2": F.KERNELS["ntt_fused"],
+              "B3": F.KERNELS["intt_fused"]}.get(
+        kind, P.KERNELS.get(f"polymul_pairing_{kind}"))
+    for n, q in SWEEP_RINGS.items():
+        name = f"sweep-n{n}"
+        register_param_set(name, n, q)
+        tbl = get_tables(name)
+        plan = PS.sweep_plan(n, kind)
+        rng = np.random.default_rng(n)
+        rows = 3 if n == 1 << 18 else 1
+        x, y = rng.integers(0, q, (2, rows, n), dtype=np.uint32)
+        x[0], y[0] = q - 1, q - 1
+        lazy = rng.integers(0, 2 * q, (rows, n), dtype=np.uint32)
+        lazy[0] = 2 * q - 1
+        spec = rng.integers(0, q, n, dtype=np.uint32)
+        spec[::5] = q - 1
+        cpu = [torch.from_numpy(v) for v in (x, y, lazy, spec)]
+        dev = [v.to(cuda_device) for v in cpu]
+        for B in ((1, 3) if rows == 3 else (1,)):
+            before = kernel.launches
+            got = _sweep_call(kind, tbl, *(v[:B] if v.dim() == 2 else v
+                                           for v in dev), plan, True)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + plan.sweeps
+            if n < 1 << 25:
+                want = _sweep_call(kind, tbl, *(v[:B] if v.dim() == 2 else v
+                                                for v in cpu), plan, False)
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.numpy())
+                continue
+            xs, ys, ls, sp = dev
+            want = {"B1": lambda: F.polymul_plain(xs, ys, tbl),
+                    "B4": lambda: F.polymul_fixed_plain(xs, sp, tbl),
+                    "B2": lambda: F.ntt_plain(xs, tbl),
+                    "B3": lambda: F.intt_plain(ls, tbl)}.get(
+                kind, lambda: P.polymul_pairing_plain(xs, ys, tbl, kind))()
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+            k = torch.arange(n, device=cuda_device)
+            if kind == "B3":
+                back = F.intt_fused(F.ntt_fused(xs, tbl, plan=PS.sweep_plan(
+                    n, "B2")), tbl, plan=plan)
+                assert torch.equal(back, xs)
+            elif kind not in ("B2", "B4"):
+                assert torch.equal(got[0].to(torch.int64),
+                                   (2 * k + 2 - n) % q)
+
+
+@pytest.mark.cuda
+def test_sweep_launcher_refuses_plans_it_cannot_run(cuda_device):
+    """``qt_pass_sweep`` returns cudaErrorInvalidValue for a plan other
+    than the one its checks restate (a window, a column, the tiles, the
+    threads, the shared memory, a Stockham map, the launches a call, the
+    kind): the wrapper raises, nothing is counted; the plan as made runs
+    and counts its launches."""
+    n, q = 1 << 18, SWEEP_RINGS[1 << 18]
+    register_param_set("sweep-n262144", n, q)
+    tbl = get_tables("sweep-n262144")
+    x = torch.zeros((2, n), dtype=torch.uint32, device=cuda_device)
+    kernel = F.KERNELS["polymul_fused"]
+    plan = PS.sweep_plan(n, "B1")
+    tw = F._prepare(tbl, None, x)
+    bad = []
+    for field, i, delta in (("hi", 0, -1), ("lo", 1, 1), ("cb", 0, 1),
+                            ("cols", 2, -1), ("tiles", 1, 1),
+                            ("threads", 0, -32), ("smem", 1, 4),
+                            ("ld", 1, 1), ("ops", 0, 1), ("split", 1, 1)):
+        p = PS.SweepPlan.from_buffer_copy(plan)
+        getattr(p, field)[i] += delta
+        bad.append(p)
+    for field, value in (("sweeps", 2), ("kind", 8), ("logn", 17),
+                         ("windows", 3)):
+        p = PS.SweepPlan.from_buffer_copy(plan)
+        setattr(p, field, value)
+        bad.append(p)
+    for p in bad:
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="qt_pass_sweep"):
+            F._launch_sweeps(kernel, tbl, tw, x, x, p, 2)
+        assert kernel.launches == before
+    before = kernel.launches
+    F._launch_sweeps(kernel, tbl, tw, x, x, plan, 2)
+    assert kernel.launches == before + 3

@@ -10,7 +10,8 @@
   walking the kernel's layouts (windows, bit-reversal renamings, Stockham's
   threads), and each it marks crosses blocks; the block plans (n <= 16384;
   B2, B3 <= 32768) keep one block a row and no cross mask; past the limits
-  the planners raise and name them.
+  the cluster planners raise and name them, and the kernels' own plans
+  (``passes.kernel_plan``) are their sweep forms' up to 2^25.
 - The pass twins of B1, B4, B2, B3 and the five pairings under those plans
   (``passes.PassModel`` asserts every exchange the plan keeps in a block)
   against JAX's interpret-mode kernels (``ntt_pallas.py``
@@ -189,8 +190,11 @@ def test_cluster_plans_meet_the_launchers_checks(kind):
 
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_cluster_plans_refuse_past_their_limit(kind):
-    """One length past the kernel's largest: more than 8 blocks a
-    cluster, and the error names the largest n; from 2^21 five passes."""
+    """One length past the cluster form's largest its planner refuses
+    (more than 8 blocks a cluster, naming the largest n; from 2^21 five
+    passes), and the kernel's own plan there (``passes.kernel_plan``) is
+    its sweep form's, at every n to 2^25; past 2^25, the largest ring the
+    registry takes, the kernel's plan is refused, naming 2^25."""
     fwd_up, inv_up, _, _ = KINDS[kind]
     one = fwd_up is None or inv_up is None
     n_max = 262144 if one else 131072
@@ -199,6 +203,12 @@ def test_cluster_plans_refuse_past_their_limit(kind):
         _plan(kind, 2 * n_max)
     with pytest.raises(ValueError, match="5 passes, no kernel"):
         _plan(kind, 1 << 21)
+    assert n_max == TPs.cluster_reach(kind)
+    assert isinstance(TPs.kernel_plan(n_max, kind), TPs.PassPlan)
+    for L in range(n_max.bit_length(), 26):
+        assert isinstance(TPs.kernel_plan(1 << L, kind), TPs.SweepPlan)
+    with pytest.raises(ValueError, match=r"the sweep form takes n <= 2\^25"):
+        TPs.kernel_plan(1 << 26, kind)
 
 
 # ----------------------------------------------------------------------

@@ -126,3 +126,44 @@ def test_pointwise_mul_lazy_operands():
     got = TN.pointwise_mul(_t(a), _t(b), tbl).numpy()
     want = (a.astype(object) * b.astype(object)) % ps.q
     np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+def test_tables_match_jax_at_2pow18():
+    """At n = 2^18, q = 1056440321 (the largest prime the registry takes
+    there) every table of the port's vectorised build equals the JAX
+    package's: the stage tables, the cyclic and Stockham tables, the
+    weighting rows and the bit reversal, each with its Shoup companion, and
+    the compact rows the kernels read are built from them."""
+    from qtesla_tpu import params as JP
+    from qtesla_tpu_torch import params as TP
+
+    name, n, q = "tables-n262144", 1 << 18, 1056440321
+    for reg in (JP, TP):
+        reg.register_param_set(name, n, q)
+    try:
+        mine, jtbl = get_tables(name), JT.get_tables(name)
+        for field in ("ct_fwd_stages", "gs_inv_stages", "stockham_fwd",
+                      "stockham_inv"):
+            _pairs_equal(getattr(mine, field), getattr(jtbl, field))
+        _pairs_equal([mine.ninv_fold], [jtbl.ninv_fold])
+        for field in ("cyc_fwd", "cyc_inv"):
+            got, want = getattr(mine, field), getattr(jtbl, field)
+            assert sorted(got) == sorted(want)
+            _pairs_equal([got[h] for h in sorted(got)],
+                         [want[h] for h in sorted(want)])
+        _pairs_equal([(mine.phi, mine.phi_shoup),
+                      (mine.inv_phi, mine.inv_phi_shoup),
+                      (mine.ipsi_pow, mine.ipsi_pow_shoup)],
+                     [(jtbl.phi, jtbl.phi_shoup),
+                      (jtbl.inv_phi, jtbl.inv_phi_shoup),
+                      (jtbl.ipsi_pow, jtbl.ipsi_pow_shoup)])
+        np.testing.assert_array_equal(mine.bitrev, jtbl.bitrev)
+        via_jax = from_jax_tables(jtbl)
+        np.testing.assert_array_equal(mine.packed, via_jax.packed)
+        np.testing.assert_array_equal(mine.pairing_packed,
+                                      via_jax.pairing_packed)
+    finally:
+        for reg in (JP, TP):
+            del reg.PARAM_SETS[name]
+            reg.get_params.cache_clear()
+        get_tables.cache_clear()
