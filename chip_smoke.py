@@ -64,8 +64,15 @@ script exits non-zero without printing a result:
    (passes.SweepModel under the same plan) and plain versions, their
    launches a call the plan's.  B5-B9 at n = 8 and 16 (SMALL_RINGS, lane packed:
    32 / n rows a row of 32 lanes) against their twins and B1-B4's plain
-   versions, random and worst-case, B in {1, 3, 64, 9000}.  Then the
-   registration sweep (utils/fuzz_params.py, SWEEP: one prime a bit size
+   versions, random and worst-case, B in {1, 3, 64, 9000}.  B5-B9 in the
+   split form (ops/ntt_mxu_split.py: B2's sweeps from index bit 7 up, the
+   split kernel of csrc/ntt_mxu_split.cu, B3's sweeps) at SPLIT_RINGS (n =
+   32768 at 786433 and q30, 65536 at q30, 2^18 and 2^20 at their
+   SWEEP_RINGS primes) in all five modes against their twins, B in {1, 3,
+   64}, row 0 all q - 1 (B7 all pw_bound - 1), intt(ntt(x)) == x, each
+   ring's plan and B9 prepare seconds printed; then forced (split=True) at
+   qtesla-iii-speed and n = 8192 beside the one-block stream kernel.  Then
+   the registration sweep (utils/fuzz_params.py, SWEEP: one prime a bit size
    from 15 to 30 at n = 64 and 256, four at n = 2048) through B1-B16, B17
    and B18 at most 3 classes, against their twins, B1 and 2 C++ oracle
    rows a prime, each prime's plan printed; it fails unless the plans
@@ -142,7 +149,15 @@ script exits non-zero without printing a result:
    version of 6, 2 past a cluster's reach) beside their bytes bound, the
    blocks of their rows' cluster or their launches a call and blocks a
    sweep, B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
-   32768 (median of 40, beside their bound).
+   32768 (median of 40, beside their bound).  Below 2^25 the "mxu" entry
+   points run in the counted run too, in the split form:
+   polymul_negacyclic "mxu" (against B1 and the oracle with the others),
+   polymul_fixed_fn's "mxu" and "mxu-folded" pairs (against B4; B9's
+   prepare seconds printed), ntt and intt "mxu" (ntt "mxu" == ntt "fused",
+   intt(ntt(x)) == x); each split mode is timed there (the call, median of
+   40, and the split kernel's launch alone in turns with its plain version,
+   each beside its bound with the tables counted once; the plan's seconds
+   beside them).  At 2^25 the MXU plan must refuse, naming the bytes.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -176,7 +191,8 @@ script exits non-zero without printing a result:
    carry the shared-card caveat.
 
 It prints a JSON line of the kernels (launches: phase 3's and phase 3e's
-summed; each with its bound: the larger of
+summed; the split kernels' times are their launches alone at the largest
+ring phase 3e runs them, 2^20; each with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
 over 1979 TOP/s; no single PyTorch call computes a negacyclic product mod
 q, so library_ms is null), the nvidia-smi line, and last
@@ -218,6 +234,7 @@ from qtesla_tpu_torch.ops import incomplete as INC
 from qtesla_tpu_torch.ops import nussbaumer as NU
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops import ntt_mxu_split as MS
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops import passes as Ps
@@ -268,14 +285,17 @@ WIDE_NAMES = (WIDE_SET[0], Q30_WIDE_SET[0])
 # the sequence-parallel path's model axis on the main path
 SP_K = 4
 # every kernel: (registry entry, CUDA source)
-KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, P, S, C)
+KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, MS, P, S, C)
            for name, k in mod.KERNELS.items()}
+# the split form's kernels (B5-B9 from n = 32768), which only phase 3e's
+# rings launch
+NO_SPLIT = {name: 0 for name in MS.KERNELS}
 # launches the main path makes: B6 prepares both single-transform fixed
 # forms; B11 runs on both operands of the SP product, on the constant in each
 # fixed SP prepare and on x in each fixed SP multiply; B14 in each fixed SP
 # prepare; B17 on both operands of the class-boundary product; B16 ends all
 # four SP products (under p3x in the folded one)
-EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | {
+EXPECTED_LAUNCHES = {name: 1 for name in KERNELS} | NO_SPLIT | {
     "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 4,
     "sp_seg1_classes": 2}
 # the sets of at most 3 digit classes whose class path phase 2 checks; the
@@ -324,6 +344,15 @@ SWEEP_LENGTHS = ((1 << 18, 1056440321), (1 << 18, 5767169),
 # B5-B9 where a lane block is narrower than the MMA's 32-deep step, lane
 # packed (mxu_tables.lane_packed): (n, q)
 SMALL_RINGS = ((8, 16417), (16, 16417), (8, Q30), (16, Q30))
+# B5-B9's split form (ops/ntt_mxu_split.py) past one block's reach, phase 2:
+# (n, q) at their CLUSTER_LENGTHS / SWEEP_RINGS primes, each at B in
+# SMALL_BATCHES with row 0 all q - 1; and the sets where phase 2 forces it
+# beside the one-block stream kernel
+SPLIT_RINGS = ((32768, 786433), (32768, Q30), (65536, Q30),
+               (1 << 18, 1056440321), (1 << 20, 1012924417))
+SPLIT_FORCED = ("qtesla-iii-speed", "qtesla-iii-speed-n8192")
+# each split mode's kernel
+SPLIT_ENTRY = MS.KERNEL_OF
 # the registration sweep (utils/fuzz_params.py) phase 2 runs: (n, primes a
 # bit size, bit sizes)
 SWEEP = ((64, 1, range(15, 31)), (256, 1, range(15, 31)),
@@ -367,7 +396,7 @@ PROCESS_LAUNCHES = {name: 0 for name in KERNELS} | {
 # B3 and B7 their inverses; B11 twice in the SP path and in each fixed SP
 # prepare and multiply, B14 in each prepare, B16 ending each SP product; no
 # class-path launch (four digit classes)
-Q30_LAUNCHES = {name: 1 for name in KERNELS} | {
+Q30_LAUNCHES = {name: 1 for name in KERNELS} | NO_SPLIT | {
     "ntt_mxu": 2, "sp_seg1": 6, "sp_seg2_fwd": 2, "sp_seg3": 3,
     "sp_seg1_classes": 0, "sp_seg2_classes": 0}
 # phase 3d's row of q - 1 in both operands, checked beside ORACLE_ROWS
@@ -403,7 +432,10 @@ def large_launches(n: int) -> dict:
     pairings as algos, B2 on the constant and on x, B4 and B3 once, each
     call one launch in its block or cluster form or its plan's sweeps in
     its sweep form; past a cluster's reach B1 again in the DP form; at n =
-    32768 the SP path's B11 twice, B12 and B16."""
+    32768 the SP path's B11 twice, B12 and B16; where the MXU tables fit
+    (``mxu_ring``) the "mxu" calls in the split form (``MXU_CALLS``), each
+    its mode's split kernel once and B2's and B3's sweeps
+    (``MS.split_launches``)."""
     calls = {k: 1 for k in PASS_KERNELS} | {"ntt_fused": 2}
     if n > Ps.cluster_reach("B1"):
         calls["polymul_fused"] = 2
@@ -413,7 +445,23 @@ def large_launches(n: int) -> dict:
         out[k] = c * (plan.sweeps if isinstance(plan, Ps.SweepPlan) else 1)
     if n == 32768:
         out |= {"sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1}
+    if mxu_ring(n):
+        for mode, c in MXU_CALLS.items():
+            for k, v in MS.split_launches(n, mode).items():
+                out[k] += c * v
     return out
+
+
+# phase 3e's "mxu" calls a ring, by split mode: polymul_negacyclic "mxu";
+# B6 in the prepare of polymul_fixed_fn's "mxu" and "mxu-folded" pairs and
+# in ntt "mxu"; their multiplies; intt "mxu"
+MXU_CALLS = {"product": 1, "ntt": 3, "fixed": 1, "folded": 1, "intt": 1}
+
+
+def mxu_ring(n: int) -> bool:
+    """Phase 3e's rings where the "mxu" calls run: those below n = 2^25,
+    whose tables (mxu_tables.MAX_TABLE_BYTES) the planner refuses."""
+    return n < 1 << 25
 # the incomplete NTT's (n, q) in phase 3b: ML-KEM's and NewHope's
 INCOMPLETE_SHAPES = ((256, 3329), (512, 7681))
 # timed calls of each phase-3b path (after one warmup)
@@ -1093,6 +1141,120 @@ def small_rings_against_plain(errors: dict) -> None:
               f"their twins and B1-B4's plain versions for B in "
               f"{SMALL_BATCHES + (LONG_BATCH,)}, random and worst-case",
               flush=True)
+    done()
+
+
+# host seconds of each ring's MXU plan (get_mxu_tables) and B9's prepare
+# of one constant, where phase 2 or 3e first took them
+PLAN_SECONDS: dict = {}
+FOLD_SECONDS: dict = {}
+
+
+def _ring_name(n: int, q: int) -> str:
+    """Phase 3e's name of the ring (n, q) where it runs it, so that its plan
+    is made once; else a name of phase 2's own."""
+    for name, n2, q2, _ in LARGE_RINGS + SWEEP_RINGS:
+        if (n2, q2) == (n, q):
+            return name
+    return f"split-n{n}-q{q}"
+
+
+def split_tables(name: str):
+    """``get_mxu_tables(name)``, its host seconds recorded the first time."""
+    start = time.perf_counter()
+    mt = get_mxu_tables(name)
+    PLAN_SECONDS.setdefault(name, time.perf_counter() - start)
+    return mt
+
+
+def split_calls(mt, x, y, lazy, spec, op, split=None) -> dict:
+    """Each split mode's wrapper call (``split`` forces a form) and its
+    twin's, on (B, n) rows x, y, B7's rows ``lazy`` below pw_bound, B8's
+    spectrum and B9's folded operand: mode -> (got, plain)."""
+    return {
+        "product": (M.polymul_mxu(x, y, mt, split=split),
+                    M.polymul_mxu_plain(x, y, mt)),
+        "fixed": (M.polymul_fixed_mxu(x, spec, mt, split=split),
+                  M.polymul_fixed_mxu_plain(x, spec, mt)),
+        "folded": (M.polymul_fixed_folded_mxu(x, op, mt, split=split),
+                   M.polymul_fixed_folded_mxu_plain(x, op, mt)),
+        "ntt": (M.ntt_mxu(x, mt, split=split), M.ntt_mxu_plain(x, mt)),
+        "intt": (M.intt_mxu(lazy, mt, split=split),
+                 M.intt_mxu_plain(lazy, mt))}
+
+
+def split_against_plain(errors: dict) -> None:
+    """B5-B9's split form (B2's sweeps, the split kernel, B3's sweeps) in
+    all five modes at SPLIT_RINGS against the twins, bit for bit, at B in
+    SMALL_BATCHES, row 0 all q - 1 in x and y (B7 all pw_bound - 1), B8's
+    and B9's spectrum q - 1 at every third lane; then forced (``split=True``)
+    at SPLIT_FORCED beside the one-block stream kernel (``split=False``)
+    and the twins.  Prints each ring's plan and B9 prepare seconds."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    B = max(SMALL_BATCHES)
+    for n, q in SPLIT_RINGS:
+        start = time.perf_counter()
+        name = _ring_name(n, q)
+        register_param_set(name, n, q)
+        mt = split_tables(name)
+        xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+        xs[:, 0] = q - 1
+        lazy = rng.integers(0, mt.pw_bound, (B, n), dtype=np.uint32)
+        lazy[0] = mt.pw_bound - 1
+        x, y, lazy = (torch.from_numpy(v).to(dev)
+                      for v in (xs[0], xs[1], lazy))
+        spec = M.ntt_mxu_plain(y[:1], mt).to(torch.int64)
+        spec[0, ::3] = q - 1
+        spec = spec.to(torch.uint32)
+        t_fold, op = _seconds(M.fold_operand, spec, mt)
+        FOLD_SECONDS.setdefault(name, t_fold)
+        want = {mode: plain for mode, (_, plain) in
+                split_calls(mt, x, y, lazy, spec, op).items()}
+        for b in SMALL_BATCHES:
+            got = split_calls(mt, x[:b], y[:b], lazy[:b], spec, op)
+            for mode, (z, _) in got.items():
+                kname = SPLIT_ENTRY[mode]
+                _record(errors, kname, f"{kname} {name} B={b}", z,
+                        want[mode][:b])
+            del got
+        back = M.intt_mxu(M.ntt_mxu(x, mt), mt)
+        expect_equal(f"split B7(B6(x)) == x {name}", back, x)
+        p5 = MS.split_plan(mt)
+        fwd, inv = (Ps.sweep_plan(n, kind, low=MS.LOW)
+                    for kind in ("B2", "B3"))
+        print(f"split {name} (n={n}, q={q}; D={mt.D}, Df={mt.Df}@"
+              f"{mt.fwd_base}, Di={mt.Di}@{mt.inv_base}, Lr={mt.Lr}): "
+              f"plan {PLAN_SECONDS[name]:.2f} s on the host, tables "
+              f"{mt.wf.nbytes + mt.wi.nbytes} bytes, B9 prepare "
+              f"{t_fold:.2f} s; all five modes equal their twins at B in "
+              f"{SMALL_BATCHES}; split kernel {p5.rows} x rows a block "
+              f"(B5), {MS.split_smem(p5)} bytes of shared memory, "
+              f"{p5.stages_f} + {p5.stages_i} stages a lane block; wide "
+              f"stages {Ps.describe_sweep_plan(fwd)}; "
+              f"{Ps.describe_sweep_plan(inv)} "
+              f"({time.perf_counter() - start:.1f} s)", flush=True)
+        del x, y, lazy, spec, op, want, back
+        torch.cuda.empty_cache()
+    for name in SPLIT_FORCED:
+        mt = get_mxu_tables(name)
+        q, n = mt.q, mt.n
+        xs = rng.integers(0, q, (2, B, n), dtype=np.uint32)
+        xs[:, 0] = q - 1
+        lazy = np.full((B, n), mt.pw_bound - 1, dtype=np.uint32)
+        x, y, lazy = (torch.from_numpy(v).to(dev)
+                      for v in (xs[0], xs[1], lazy))
+        spec = M.ntt_mxu_plain(y[:1], mt)
+        op = M.fold_operand(spec, mt)
+        stream = split_calls(mt, x, y, lazy, spec, op, split=False)
+        for mode, (z, plain) in split_calls(mt, x, y, lazy, spec, op,
+                                            split=True).items():
+            kname = SPLIT_ENTRY[mode]
+            _record(errors, kname, f"{kname} forced {name}", z, plain)
+            expect_equal(f"{kname} forced {name} == the stream kernel", z,
+                         stream[mode][0])
+        print(f"split forced at {name} (n={n}): all five modes equal their "
+              f"twins and the one-block stream kernel at B={B}", flush=True)
     done()
 
 
@@ -1856,8 +2018,15 @@ def large_rings(device_line: str) -> dict:
     == x.  Then each pass kernel and its plain version timed in turns
     beside its bound (median of 40 calls, 10 at 2^25; the plain version's
     of 6, 2 past a cluster's reach), and at n = 32768 B11, B12 and B16.
-    Returns the launches summed over the rings."""
+    Where the MXU tables fit (below 2^25), the "mxu" entry points run in
+    the split form (polymul_negacyclic, polymul_fixed_fn's "mxu" and
+    "mxu-folded" pairs, ntt and intt), equal to B1, B4 and B2 and counted
+    in the run, then each split mode timed (``split_timing``); at 2^25 the
+    MXU plan must refuse, naming the bytes.  Returns the launches summed
+    over the rings and the split kernels' timing at the largest ring they
+    ran."""
     launches = {name: 0 for name in KERNELS}
+    split_times = {}
     for name, n, q, B in LARGE_RINGS + SWEEP_RINGS:
         sweeping = n > Ps.cluster_reach("B1")
         ring_start = time.perf_counter()
@@ -1880,6 +2049,13 @@ def large_rings(device_line: str) -> dict:
                                       n1=LARGE_SP_N1) if n == 32768 else None)
         plan_s = time.perf_counter() - start
         dp = polymul_dp_fn(name, make_mesh(model=SP_K), "fused")
+        mxu = mxu_ring(n)
+        if mxu:
+            split_tables(name)
+            fixed_mxu = polymul_fixed_fn(name)
+            fixed_folded = polymul_fixed_fn(name, "mxu-folded")
+        else:
+            refusal = _mxu_refusal(name)
         torch.cuda.synchronize()
         for k, _ in KERNELS.values():
             k.launches = 0
@@ -1887,11 +2063,20 @@ def large_rings(device_line: str) -> dict:
         for p in P.PAIRINGS:
             z[f"{p}_kernel"] = polymul_negacyclic(x, y, name, f"{p}_kernel")
         zf = multiply(x, prepare(a))
-        back = intt(ntt(x, name, "fused"), name, "fused")
+        xf = ntt(x, name, "fused")
+        back = intt(xf, name, "fused")
         if sweeping:
             z["DP fused"] = dp(x, y)
         if sp is not None:
             z[f"SP k={SP_K}"] = sp(x, y)
+        if mxu:
+            # B5-B9 in the split form through the models' entry points
+            z["mxu"] = polymul_negacyclic(x, y, name, "mxu")
+            zm = fixed_mxu[1](x, fixed_mxu[0](a))
+            fold_s, opf = _seconds(fixed_folded[0], a)
+            zmf = fixed_folded[1](x, opf)
+            xm = ntt(x, name, "mxu")
+            back_m = intt(xm, name, "mxu")
         torch.cuda.synchronize()
         got = {k: kern.launches for k, (kern, _) in KERNELS.items()}
         print(f"3e {name} launches: { {k: v for k, v in got.items() if v} }")
@@ -1904,12 +2089,27 @@ def large_rings(device_line: str) -> dict:
             expect_equal(f"3e {name} {what} == B1", zz, z["fused"])
         expect_canonical(f"3e {name} fixed fused", zf, (B, n), q)
         expect_equal(f"3e {name} intt(ntt(x)) == x", back, x)
+        if mxu:
+            expect_equal(f"3e {name} fixed mxu == B4", zm, zf)
+            expect_equal(f"3e {name} fixed mxu-folded == B4", zmf, zf)
+            expect_equal(f"3e {name} ntt mxu == ntt fused", xm, xf)
+            expect_equal(f"3e {name} intt(ntt(x)) mxu == x", back_m, x)
+            mxu_line = (
+                f"mxu (B5-B9 split form: B2's sweeps, the split kernel, B3's "
+                f"sweeps) equals B1, its fixed pairs \"mxu\" and "
+                f"\"mxu-folded\" B4, ntt \"mxu\" ntt \"fused\" and "
+                f"intt(ntt(x)) == x; MXU plan {PLAN_SECONDS[name]:.2f} s, "
+                f"B9 prepare {fold_s:.2f} s on the host beside B6.  ")
+            del zm, zmf, xm, back_m, opf
+        else:
+            mxu_line = f"mxu refused: {refusal}.  "
         oracle = _large_oracle(name, z, zf, x, y, a, q, B, n)
         plans = {k: Ps.kernel_plan(n, kind) for k, kind in PASS_KINDS.items()}
         print(f"3e {name} (n={n}, q={q}), B={B}, row 1 all q - 1: "
               f"{', '.join(z)} equal B1 bit for bit, the fixed pair (B2, "
               f"B4) and intt(ntt(x)) == x (B2, B3); all equal {oracle}; "
               + (f"the SP plan took {plan_s:.1f} s.  " if sp else "")
+              + mxu_line
               + "; ".join(
                   f"{PASS_KINDS[k]} " + (Ps.describe_sweep_plan(pl)
                                          if isinstance(pl, Ps.SweepPlan)
@@ -1918,7 +2118,7 @@ def large_rings(device_line: str) -> dict:
                   if k in ("polymul_fused", "ntt_fused")
                   or (sweeping and k == "polymul_pairing_stockham")),
               flush=True)
-        del z, zf, back
+        del z, zf, back, xf
         runs = pass_runs(x, y, F.ntt_fused(y[:1], tbl), tbl)
         timed = 5 if n == 1 << 25 else 20
         for kname, (kern, plain, args) in runs.items():
@@ -1946,12 +2146,99 @@ def large_rings(device_line: str) -> dict:
                   f"kernel's median; {shape} [{device_line}]", flush=True)
         if sp is not None:
             sp_timing(name, x, y, device_line)
+        if mxu:
+            split_times = split_timing(name, x, y, a, device_line)
         del x, y, a, runs
         torch.cuda.empty_cache()
         print(f"3e {name}: {time.perf_counter() - ring_start:.1f} s",
               flush=True)
     done()
-    return launches
+    return launches, split_times
+
+
+def _mxu_refusal(name: str) -> str:
+    """The MXU plan's refusal at a ring whose tables are past
+    MAX_TABLE_BYTES: polymul_fixed_fn's default ("mxu") pair must raise,
+    naming the bytes, before any table is built."""
+    start = time.perf_counter()
+    try:
+        polymul_fixed_fn(name)
+    except ValueError as e:
+        if "bytes" not in str(e):
+            raise AssertionError(f"3e {name}: refusal without the bytes: "
+                                 f"{e}") from e
+        return f"{e} ({time.perf_counter() - start:.2f} s)"
+    raise AssertionError(f"3e {name}: the MXU plan did not refuse")
+
+
+def _split_work(mt, B: int, mode: str, op, call: bool) -> tuple[int, int]:
+    """The bytes and int8 MACs of one split call of ``mode`` at B rows
+    (``call``: the whole call, twiddles too) or of its split-kernel launch:
+    each operand read once, the output written once, the mode's tables
+    (the stream's stages of each direction it runs, B9's inverse the
+    constant's stages) and const rows read once; the digit products of
+    every lane block at the plans' depths."""
+    n = mt.n
+    row = 4 * B * n
+    stage = M.STAGE_DEPTH * mt.bw * mt.D
+    fwd = mt.nb * M.stream_stages(mt.Df, mt.bw) * stage + 4 * n
+    inv = mt.nb * M.stream_stages(mt.Di, mt.bw) * stage + 4 * n
+    per = B * mt.nb * mt.bw * mt.D * mt.bw          # MACs an input plane
+    fold = fold_plan(mt)
+    work = {
+        "product": (3 * row + fwd + inv, per * (2 * mt.Df + mt.Di)),
+        "fixed": (2 * row + 4 * n + fwd + inv, per * (mt.Df + mt.Di)),
+        "folded": (2 * row + fwd + _nbytes(*op.tensors()),
+                   per * (mt.Df + fold.Din)),
+        "ntt": (2 * row + fwd, per * mt.Df),
+        "intt": (2 * row + inv, per * mt.Di)}[mode]
+    return work[0] + (16 * n if call else 0), work[1]
+
+
+def split_timing(name: str, x: torch.Tensor, y: torch.Tensor,
+                 a: torch.Tensor, device_line: str) -> dict:
+    """Each split mode at one of phase 3e's rings: the whole call (B2's
+    sweeps, the split kernel, B3's sweeps; median of 40) and the split
+    kernel's launch alone in turns with its plain version (the twins' block
+    products, ``MS.products_plain``: median of 40, plain of 2), each beside
+    its bound, the tables counted once.  Returns kernel name -> the launch's
+    ``_turns`` result and bound."""
+    mt = get_mxu_tables(name)
+    tabs, tw = M._prepare(mt, None, None, x)
+    B, n = x.shape
+    spec = M.ntt_mxu(a, mt)
+    op = M.fold_operand(spec, mt)
+    X, Y = (MS._wide_fwd(t, mt, tw) for t in (x, y))
+    calls = {"product": (M.polymul_mxu, (x, y, mt), (X, Y, None)),
+             "fixed": (M.polymul_fixed_mxu, (x, spec, mt),
+                       (X, spec.reshape(n), None)),
+             "folded": (M.polymul_fixed_folded_mxu, (x, op, mt),
+                        (X, None, op)),
+             "ntt": (M.ntt_mxu, (x, mt), (X, None, None)),
+             "intt": (M.intt_mxu, (x, mt), (x, None, None))}
+    out = {}
+    for mode, (fn, args, step2) in calls.items():
+        kname = SPLIT_ENTRY[mode]
+        whole = time_cuda(fn, *args, warmup=3, repeats=40)
+        res = _turns(functools.partial(MS.products, mode, mt, tabs, tw),
+                     functools.partial(MS.products_plain, mode, mt, tabs),
+                     step2, KERNELS[kname][0], plain_repeats=1)
+        res["bound"] = bound(*_split_work(mt, B, mode, op, False))
+        cms, cby = bound(*_split_work(mt, B, mode, op, True))
+        (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+        bms, by = res["bound"]
+        launches = MS.split_launches(n, mode)
+        print(f"3e timing split {mode} ({kname}): {name} B={B} the call "
+              f"median {whole.median_ms:.4f} ms over 40 ({sum(launches.values())} "
+              f"launches: {launches}), bound {cms:.4f} ms ({cby}), "
+              f"{cms / whole.median_ms * 100:.1f} % of its median; the split "
+              f"kernel alone min {klo:.4f} median {kmed:.4f} ms over 40, plain "
+              f"median {pmed:.4f} ms over 2, bound {bms:.4f} ms ({by}), "
+              f"{bms / kmed * 100:.1f} % of its median; plan "
+              f"{PLAN_SECONDS.get(name, 0.0):.2f} s on the host "
+              f"[{device_line}]", flush=True)
+        out[kname] = res
+    return out
 
 
 def sp_timing(name: str, x: torch.Tensor, y: torch.Tensor,
@@ -2629,6 +2916,7 @@ def main() -> int:
     pass_lengths_against_plain(errors)
     sweep_lengths_against_plain(errors)
     small_rings_against_plain(errors)
+    split_against_plain(errors)
     registration_sweep()
 
     phase("3 main path at full size")
@@ -2645,11 +2933,11 @@ def main() -> int:
     q30_times = q30_full_size(device_line)
 
     phase("3e large rings")
-    large = large_rings(device_line)
+    large, split_times = large_rings(device_line)
     small_rings_timing(device_line)
 
     phase("4 timing")
-    times = timing(device_line, q30_times)
+    times = timing(device_line, q30_times) | split_times
 
     phase("5 the CLI on the card")
     cli_on_the_card(times, device_line)

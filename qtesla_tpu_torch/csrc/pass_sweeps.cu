@@ -476,12 +476,16 @@ void expected_cols(int L, int lo, int hi, int ld, int ld_refl, int* cb,
 
 // The plan ops/passes.py sweep_plan makes for its kind at 2^L, restated
 // field for field from its windows: two or three windows covering [0, L)
-// from the narrowest, each of at least one bit; the launches' order, their
+// from the narrowest, each of at least one bit (B2 and B3 also one to three
+// covering [low, L), 0 < low < L: sweep_plan's low, the bits below left to
+// the MXU split form's kernel, ntt_mxu_split.cu); the launches' order, their
 // windows, transforms, Stockham maps, columns, operands, tiles, threads and
 // shared memory.  Any other plan is refused.
 bool plan_ok(const SweepPlan& p, int L) {
-    if (p.kind < 0 || p.kind >= kKinds || p.logn != L || p.windows < 2 ||
-        p.windows > kMaxWindows || p.win_lo[0] != 0 ||
+    const int low = p.win_lo[0];
+    if (p.kind < 0 || p.kind >= kKinds || p.logn != L ||
+        p.windows < (low ? 1 : 2) || p.windows > kMaxWindows || low < 0 ||
+        low >= L || (low && p.kind != kB2 && p.kind != kB3) ||
         p.win_hi[p.windows - 1] != L)
         return false;
     for (int w = 0; w < p.windows; ++w)

@@ -201,8 +201,9 @@ def polymul_fixed_fn(name: str, algo: str = "mxu"):
     package.  The spectra of every algo are the same canonical values.
     For 'mxu-folded', prepare(a) runs the forward (B6) on a's device, builds
     the folded inverse tables on the host and returns them on a's device as
-    an ``ops.ntt_mxu.FoldedOperand``; multiply (B9) has no pointwise stage."""
-    tbl = get_tables(name)
+    an ``ops.ntt_mxu.FoldedOperand``; multiply (B9) has no pointwise stage.
+    The MXU forms plan first: past ``mxu_tables.MAX_TABLE_BYTES`` they raise
+    before any table is built."""
     if algo == "mxu-folded":
         mt = get_mxu_tables(name)
 
@@ -215,6 +216,7 @@ def polymul_fixed_fn(name: str, algo: str = "mxu"):
         mt = get_mxu_tables(name)
         return (functools.partial(M.ntt_mxu, mt=mt),
                 functools.partial(M.polymul_fixed_mxu, mt=mt))
+    tbl = get_tables(name)
     if algo == "fused":
         return (functools.partial(F.ntt_fused, tbl=tbl),
                 functools.partial(F.polymul_fixed_fused, tbl=tbl))

@@ -26,6 +26,17 @@ is its inverse).  ``lane_packed(mt)`` is ``mt`` as that kernel runs it:
 a lane block narrower than the MMA's 32-deep step (n <= 16) packed 32 / n
 rows to a row of 32 lanes, its tables block diagonal.
 
+The planner works a lane block at a time: the block-local stages pair
+lanes of one block only, so each direction's (bw, bw) diagonal blocks are
+built on their own (``_fwd_blocks``, ``_inv_blocks``, O(bw) a lane, in
+int64 numpy over chunks of blocks), the digit maxima that every candidate
+split's bounds come from are taken in one pass over them, and only the
+chosen split's tables are built; JAX's planner (``qtesla_tpu/ops/
+ntt_mxu.py:91``, ``:106``) builds the dense (n, n) matrices, 8.6 GB each at
+n = 32768.  The results are equal field by field.  A plan whose tables
+would pass ``MAX_TABLE_BYTES`` raises before anything is built
+(``check_table_bytes``: n = 2^25 would need 128 GiB).
+
 ``get_mxu_tables(name)`` plans from the port's registry;
 ``from_jax_mxu_tables(mt)`` carries a JAX ``MxuTables``'s numpy fields across.
 
@@ -46,9 +57,11 @@ from dataclasses import dataclass
 import numpy as np
 
 from .modmul import sparse_reduce_plan
+from ..params import get_params
 from .tables import NttTables, from_jax_tables, get_tables
 
 __all__ = ["MxuTables", "get_mxu_tables", "from_jax_mxu_tables",
+           "MAX_TABLE_BYTES", "table_bytes", "check_table_bytes",
            "pointwise_bound", "FixedFoldPlan", "fold_plan", "fixed_fold_plan",
            "fold_tables", "fixed_fold_tables", "from_jax_fold_plan",
            "from_jax_fold_tables", "STAGE_DEPTH", "stream_stages",
@@ -359,52 +372,142 @@ def _group_bias(groups, bounds, q: int) -> int:
                for j0, ln in groups) % q
 
 
-def _block_digit_tables(M: np.ndarray, q: int, bw: int, Din: int, Dout: int,
-                        off: int, in_bound: int, downstream: str = "any",
-                        in_base: int = 256):
-    """A block-diagonal (n, n) stage matrix as digit tables: W int8
-    (nb, Din, bw, Dout*bw), const uint32 (nb, 1, bw), class bounds and the
-    packing plan."""
-    n = M.shape[0]
-    nb = n // bw
-    W = np.zeros((nb, Din, bw, Dout * bw), dtype=np.int8)
-    colsums = np.zeros((nb, bw), dtype=object)
-    mw = np.zeros((Din, Dout), dtype=np.int64)
-    for b in range(nb):
-        Mb = M[b * bw:(b + 1) * bw, b * bw:(b + 1) * bw]
-        row = M[b * bw:(b + 1) * bw].copy()
-        row[:, b * bw:(b + 1) * bw] = 0
-        assert not row.any(), "stage range is not block-local"
-        W[b], colsums[b] = _matrix_digit_block(Mb.T, q, Din, Dout, mw,
-                                               in_base)
-    bounds = _digit_bounds(mw, bw,
-                           _input_digit_maxima(Din, off, in_bound, in_base))
-    groups = _plan_groups(bounds, q, downstream)
-    const = np.zeros((nb, 1, bw), dtype=np.uint32)
-    for b in range(nb):
-        const[b, 0, :] = _const_row(colsums[b], off, groups, bounds, q)
-    return W, const, bounds, groups
+# lane blocks a vectorised step of the block planner takes: 2 MiB of one
+# (bw, bw) int64 matrix a block at bw = 128, so that a step's temporaries
+# stay in the host's caches
+_PLAN_CHUNK = 16
+# the most bytes of int8 digit tables (one direction's W and the other's,
+# one copy) a plan may need: the planner holds them three times on the host
+# (wf, wi and their stream) and the card once beside the operands
+MAX_TABLE_BYTES = 1 << 34
 
 
-def _search_split(M: np.ndarray, q: int, bw: int, in_bound: int,
-                  downstream: str):
-    """The cheapest input split over base 256 and base 128 at their
-    smallest covering plane counts: (cost, (base, Din, W, const, bounds,
-    groups)), or None when no base covers in_bound."""
-    Dout = _ndigits(q)
-    best = None
-    for base in (256, 128):
-        Din = _plane_count(in_bound, base)
-        if Din is None:
-            continue
-        W, const, bounds, groups = _block_digit_tables(
-            M, q, bw, Din, Dout, in_bound >> 1, in_bound, downstream, base)
-        (sh, cs, ng), _ = _plan_cost(groups, bounds, q, downstream)
-        cost = (_COST_SHOUP * sh + _COST_CSUB * cs
-                + (_COST_PLANE + Dout) * Din, ng)
-        if best is None or cost < best[0]:
-            best = (cost, (base, Din, W, const, bounds, groups))
-    return best
+def _chunks(nb: int):
+    for b0 in range(0, nb, _PLAN_CHUNK):
+        yield b0, min(nb, b0 + _PLAN_CHUNK)
+
+
+def _shifted(K: np.ndarray, mult: int, q: int, D: int) -> np.ndarray:
+    """u = centred(K * mult mod q) + split_bias(D), int32, K int64
+    canonical: digit j < D - 1 of the balanced base-256 split is ((u >>
+    8j) & 255) - 128 and the top one u >> 8(D - 1), as ``_balanced_digits``
+    makes them."""
+    Ki = (K * mult) % q
+    return (Ki - np.where(Ki > q // 2, q, 0)
+            + _split_bias(D, 256)).astype(np.int32)
+
+
+def _low_digit(u: np.ndarray, j: int) -> np.ndarray:
+    return ((u >> (8 * j)).astype(np.uint8) ^ np.uint8(0x80)).view(np.int8)
+
+
+def _top_range(u: np.ndarray, D: int) -> tuple[int, int]:
+    """(min, max) of the top digit; raises where it leaves int8."""
+    lo, hi = int(u.min()) >> 8 * (D - 1), int(u.max()) >> 8 * (D - 1)
+    assert -128 <= lo and hi <= 127, "digit overflow"
+    return lo, hi
+
+
+def _digit_maxima(u: np.ndarray, D: int) -> list[int]:
+    """Max |digit| per class of the values whose shifted form is u."""
+    out = []
+    for j in range(D - 1):
+        d = _low_digit(u, j)
+        out.append(max(int(d.max()), -int(d.min())))
+    lo, hi = _top_range(u, D)
+    return out + [max(hi, -lo)]
+
+
+def _store_digits(W: np.ndarray, u: np.ndarray, D: int, bw: int) -> None:
+    """Digit j of u into W[..., j*bw:(j+1)*bw]."""
+    _top_range(u, D)
+    for j in range(D - 1):
+        W[..., j * bw:(j + 1) * bw] = _low_digit(u, j)
+    W[..., (D - 1) * bw:] = u >> 8 * (D - 1)
+
+
+class _Direction:
+    """One direction's block matrices (``blocks(b0, b1)``: input-major,
+    canonical, (b1 - b0, bw, bw)), kept as int32, and the digit maxima of
+    every plane its splits over ``in_bounds`` may take, both made in one
+    pass over the blocks."""
+
+    def __init__(self, blocks, nb: int, q: int, bw: int, in_bounds):
+        self.nb, self.q, self.bw, self.D = nb, q, bw, _ndigits(q)
+        planes = {base: max(_plane_count(b, base) or 0 for b in in_bounds)
+                  for base in (256, 128)}
+        self.mw = {base: np.zeros((k, self.D), dtype=np.int64)
+                   for base, k in planes.items() if k}
+        # no digit of a centred value mod q exceeds these: a plane whose
+        # maxima reach them needs no further block
+        cap = _digit_maxima(np.asarray([-(q // 2), q - 1 - q // 2])
+                            + _split_bias(self.D, 256), self.D)
+        self.K = np.empty((nb, bw, bw), dtype=np.int32)
+        for b0, b1 in _chunks(nb):
+            K = blocks(b0, b1)
+            self.K[b0:b1] = K
+            for base, mw in self.mw.items():
+                for i in range(mw.shape[0]):
+                    if (mw[i] < cap).any():
+                        got = _digit_maxima(_shifted(K, pow(base, i, q), q,
+                                                     self.D), self.D)
+                        mw[i] = np.maximum(mw[i], got)
+
+    def search(self, in_bound: int, downstream: str):
+        """The cheapest input split over base 256 and base 128 at their
+        smallest covering plane counts: (cost, (base, Din, bounds,
+        groups)), or None when no base covers in_bound."""
+        q, Dout = self.q, self.D
+        best = None
+        for base in (256, 128):
+            Din = _plane_count(in_bound, base)
+            if Din is None:
+                continue
+            bounds = _digit_bounds(self.mw[base][:Din], self.bw,
+                                   _input_digit_maxima(Din, in_bound >> 1,
+                                                       in_bound, base))
+            groups = _plan_groups(bounds, q, downstream)
+            (sh, cs, ng), _ = _plan_cost(groups, bounds, q, downstream)
+            cost = (_COST_SHOUP * sh + _COST_CSUB * cs
+                    + (_COST_PLANE + Dout) * Din, ng)
+            if best is None or cost < best[0]:
+                best = (cost, (base, Din, bounds, groups))
+        return best
+
+    def tables(self, pick, in_bound: int):
+        """The split ``pick`` as digit tables: W int8 (nb, Din, bw, D*bw),
+        plane i of input lane k, class j of output lane o at [b, i, k, j*bw
+        + o] the digit j of the centred base^i * K_b[k, o] mod q, and const
+        uint32 (nb, 1, bw): the centring offset folded in, the group biases
+        subtracted.  (base, Din, W, const, bounds, groups)."""
+        base, Din, bounds, groups = pick
+        q, bw, D = self.q, self.bw, self.D
+        W = np.empty((self.nb, Din, bw, D * bw), dtype=np.int8)
+        const = np.empty((self.nb, 1, bw), dtype=np.uint32)
+        bias = _group_bias(groups, bounds, q)
+        off = (in_bound >> 1) % q
+        for b0, b1 in _chunks(self.nb):
+            K = self.K[b0:b1].astype(np.int64)
+            for i in range(Din):
+                _store_digits(W[b0:b1, i], _shifted(K, pow(base, i, q), q, D),
+                              D, bw)
+            const[b0:b1, 0] = (off * (K.sum(axis=1) % q) - bias) % q
+        return base, Din, W, const, bounds, groups
+
+
+def table_bytes(n: int, q: int, bw: int | None = None) -> int:
+    """The fewest bytes of int8 digit tables (forward and inverse, one copy)
+    a plan of (n, q) can need, from the plane counts alone: (Df + Di) * D *
+    bw * n at the smallest plane counts that cover the forward's and the
+    pointwise product's bounds.  Nothing is built."""
+    bw = min(bw or _BW_MAX, n)
+    Lr = n.bit_length() - bw.bit_length()
+    _, bnd = _lazy_fwd_schedule(q, Lr)
+    fewest = [min((c for b in bounds for base in (256, 128)
+                   if (c := _plane_count(b, base)) is not None),
+                  default=0)
+              for bounds in ((bnd, q), (pointwise_bound(q),))]
+    return sum(fewest) * _ndigits(q) * bw * n
 
 
 def pointwise_bound(q: int) -> int:
@@ -446,23 +549,31 @@ class MxuTables:
         self.nb = n // bw
         self.Lr = L - bw.bit_length() + 1
         self.D = _ndigits(q)
+        check_table_bytes(n, q, bw)
         self.fwd_sched, bnd = _lazy_fwd_schedule(q, self.Lr)
-        Mf = _fwd_matrix(tbl, self.Lr)
-        lazy = _search_split(Mf, q, bw, bnd, "any") if bnd > q else None
-        canon = _search_split(Mf, q, bw, q, "any")
+        s_hi = L - self.Lr
+        fwd = _Direction(lambda b0, b1: np.swapaxes(
+            _fwd_blocks(tbl, self.Lr, bw, b0, b1), 1, 2), self.nb, q, bw,
+            (bnd, q))
+        lazy = fwd.search(bnd, "any") if bnd > q else None
+        canon = fwd.search(q, "any")
         ccost = (canon[0][0] + _COST_CSUB * _chain_csubs(bnd, q, q),
                  canon[0][1])
         self.fwd_lazy = lazy is not None and lazy[0] <= ccost
         self.fwd_bound = bnd if self.fwd_lazy else q
         (self.fwd_base, self.Df, self.wf, self.constf, self.bounds_f,
-         self.groups_f) = (lazy if self.fwd_lazy else canon)[1]
+         self.groups_f) = fwd.tables((lazy if self.fwd_lazy else canon)[1],
+                                     self.fwd_bound)
         self.fwd_off = self.fwd_bound >> 1
         self.pw_bound = pointwise_bound(q)
         self.inv_off = self.pw_bound >> 1
-        ipick = _search_split(_inv_matrix(tbl, L - self.Lr), q, bw,
-                              self.pw_bound, _reduce_kind(q))
+        inv = _Direction(lambda b0, b1: np.swapaxes(
+            _inv_blocks(tbl, s_hi, bw, b0, b1), 1, 2), self.nb, q, bw,
+            (self.pw_bound,))
         (self.inv_base, self.Di, self.wi, self.consti, self.bounds_i,
-         self.groups_i) = ipick[1]
+         self.groups_i) = inv.tables(inv.search(self.pw_bound,
+                                                _reduce_kind(q))[1],
+                                     self.pw_bound)
         self._derive()
 
     def _derive(self):
@@ -475,8 +586,23 @@ class MxuTables:
             raise ValueError(f"q={q}: a digit class sum may reach 2^24")
 
 
+def check_table_bytes(n: int, q: int, bw: int | None = None) -> None:
+    """Raise, naming the bytes and the limit, where a plan of (n, q) would
+    need more than ``MAX_TABLE_BYTES`` of digit tables (``table_bytes``)."""
+    need = table_bytes(n, q, bw)
+    if need > MAX_TABLE_BYTES:
+        raise ValueError(
+            f"n={n}, q={q}: the MXU digit tables would take at least {need} "
+            f"bytes ({need / 2**30:.1f} GiB), past the {MAX_TABLE_BYTES} "
+            f"bytes ({MAX_TABLE_BYTES >> 30} GiB) the planner builds")
+
+
 @functools.lru_cache(maxsize=None)
 def get_mxu_tables(name: str, bw: int | None = None) -> MxuTables:
+    """The plan of a registered set; past ``MAX_TABLE_BYTES`` it raises
+    before any table (the NTT tables included) is built."""
+    ps = get_params(name)
+    check_table_bytes(ps.n, ps.q, bw)
     return MxuTables(get_tables(name), bw)
 
 
@@ -579,34 +705,53 @@ def fixed_fold_plan(name: str, bw: int | None = None) -> FixedFoldPlan:
     return fold_plan(get_mxu_tables(name, bw))
 
 
-def _inv_blocks(tbl: NttTables, s_hi: int, bw: int) -> np.ndarray:
-    """The (n/bw, bw, bw) diagonal blocks of ``_inv_matrix(tbl, s_hi)``
-    (every stage below s_hi pairs lanes of one block), built per block."""
+def _fwd_blocks(tbl: NttTables, s_lo: int, bw: int, b0: int = 0,
+                b1: int | None = None) -> np.ndarray:
+    """Diagonal blocks b0 .. b1 - 1 (all unless given) of
+    ``_fwd_matrix(tbl, s_lo)``, (b1 - b0, bw, bw) output-major: every
+    stage from s_lo pairs lanes of one block of bw, so each block is built
+    on its own, O(bw) a lane."""
     n, q, L = tbl.n, tbl.q, tbl.logn
-    if 1 << s_hi > bw:
-        raise ValueError(f"stages below {s_hi} are not local to {bw} lanes")
-    nb = n // bw
-    j = np.arange(bw)
-    M = np.tile(np.eye(bw, dtype=np.int64), (nb, 1, 1))
-    for s in range(s_hi):
-        t = 1 << s
-        w = tbl.gs_inv_full[s].astype(np.int64).reshape(nb, bw, 1)
-        u = M[:, j & ~t]
-        v = M[:, j | t]
-        bit = ((j & t) != 0)[None, :, None]
-        if s == L - 1:
-            M = (w * (u + np.where(bit, -v, v))) % q
-        else:
-            M = np.where(bit, (w * (u - v)) % q, (u + v) % q)
+    if n >> s_lo > bw:
+        raise ValueError(f"stages from {s_lo} are not local to {bw} lanes")
+    b1 = n // bw if b1 is None else b1
+    c = b1 - b0
+    M = np.tile(np.eye(bw, dtype=np.int64), (c, 1, 1))
+    for s in range(s_lo, L):
+        # rows j (bit t clear) and j | t: lo + w_j hi, lo - w_{j|t} hi
+        t = n >> (s + 1)
+        w = tbl.ct_fwd_full[s][b0 * bw:b1 * bw].astype(np.int64).reshape(
+            c, bw // (2 * t), 2, t, 1)
+        V = M.reshape(c, bw // (2 * t), 2, t, bw)
+        lo, hi = V[:, :, 0], V[:, :, 1]
+        M = np.stack([(lo + w[:, :, 0] * hi) % q, (lo - w[:, :, 1] * hi) % q],
+                     axis=2).reshape(c, bw, bw)
     return M
 
 
-@functools.lru_cache(maxsize=None)
-def _fold_blocks(mt: MxuTables) -> np.ndarray:
-    """The inverse block matrices of ``mt`` input-major, K[b, k_in, k_out],
-    made once per table bundle."""
-    return np.ascontiguousarray(np.swapaxes(
-        _inv_blocks(mt.tbl, mt.logn - mt.Lr, mt.bw), 1, 2))
+def _inv_blocks(tbl: NttTables, s_hi: int, bw: int, b0: int = 0,
+                b1: int | None = None) -> np.ndarray:
+    """Diagonal blocks b0 .. b1 - 1 (all unless given) of
+    ``_inv_matrix(tbl, s_hi)``, (b1 - b0, bw, bw): every stage below s_hi
+    pairs lanes of one block, so each block is built on its own."""
+    n, q, L = tbl.n, tbl.q, tbl.logn
+    if 1 << s_hi > bw:
+        raise ValueError(f"stages below {s_hi} are not local to {bw} lanes")
+    b1 = n // bw if b1 is None else b1
+    c = b1 - b0
+    M = np.tile(np.eye(bw, dtype=np.int64), (c, 1, 1))
+    for s in range(s_hi):
+        # rows j (bit t clear) and j | t from u = M[j], v = M[j | t]: u + v
+        # and w_{j|t} (u - v); the last stage w_j (u + v) and w_{j|t} (u - v)
+        t = 1 << s
+        w = tbl.gs_inv_full[s][b0 * bw:b1 * bw].astype(np.int64).reshape(
+            c, bw // (2 * t), 2, t, 1)
+        V = M.reshape(c, bw // (2 * t), 2, t, bw)
+        u, v = V[:, :, 0], V[:, :, 1]
+        top = (u + v) * w[:, :, 0] if s == L - 1 else u + v
+        M = np.stack([top % q, (w[:, :, 1] * (u - v)) % q],
+                     axis=2).reshape(c, bw, bw)
+    return M
 
 
 def fold_tables(mt: MxuTables, fp: FixedFoldPlan, spectrum):
@@ -620,23 +765,24 @@ def fold_tables(mt: MxuTables, fp: FixedFoldPlan, spectrum):
         raise ValueError(f"spectrum must be ({mt.n},), got {d.shape}")
     if fp.Dout != mt.D:
         raise ValueError(f"fold plan has {fp.Dout} classes, tables {mt.D}")
-    # columns of M_inv scaled by the spectrum: every product < 2^60
-    K = (_fold_blocks(mt) * (d.astype(np.int64) % q).reshape(nb, bw, 1)) % q
     W = np.empty((nb, fp.Din, bw, fp.Dout * bw), dtype=np.int8)
+    const = np.empty((nb, 1, bw), dtype=np.uint32)
     mw = np.zeros((fp.Din, fp.Dout), dtype=np.int64)
-    for i in range(fp.Din):
-        Ki = (K * pow(fp.base, i, q)) % q
-        Kc = np.where(Ki > q // 2, Ki - q, Ki)
-        for jd, dig in enumerate(_balanced_digits(Kc, fp.Dout)):
-            W[:, i, :, jd * bw:(jd + 1) * bw] = dig
-            mw[i, jd] = np.abs(dig).max()
+    bias = _group_bias(fp.groups, fp.bounds, q)
+    spec = (d.astype(np.int64) % q).reshape(nb, bw, 1)
+    for b0, b1 in _chunks(nb):
+        # columns of M_inv scaled by the spectrum: every product < 2^60
+        K = (np.swapaxes(_inv_blocks(mt.tbl, mt.logn - mt.Lr, bw, b0, b1),
+                         1, 2) * spec[b0:b1]) % q
+        for i in range(fp.Din):
+            u = _shifted(K, pow(fp.base, i, q), q, fp.Dout)
+            _store_digits(W[b0:b1, i], u, fp.Dout, bw)
+            mw[i] = np.maximum(mw[i], _digit_maxima(u, fp.Dout))
+        const[b0:b1, 0] = ((fp.off % q) * (K.sum(axis=1) % q) - bias) % q
     # plan soundness: the digits sit inside the worst case the plan covers
     assert (mw <= np.asarray(fp.mw_wc, np.int64)[None, :]).all(), \
         "folded-matrix digits exceed the worst-case plan"
-    colsum = K.sum(axis=1) % q
-    bias = _group_bias(fp.groups, fp.bounds, q)
-    const = ((fp.off % q) * colsum - bias) % q
-    return W, const.astype(np.uint32).reshape(nb, 1, bw)
+    return W, const
 
 
 def fixed_fold_tables(name: str, spectrum, bw: int | None = None):

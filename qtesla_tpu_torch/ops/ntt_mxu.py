@@ -39,6 +39,14 @@ by side in one row of 32 lanes against block-diagonal tables
 (``kernel_tables``), the batch padded with zero rows to whole packed rows
 (``_packed``); plans, tables and operands of the kernel are the packed
 ones, the twins run on the n lanes.
+
+From n = ``SPLIT_FROM`` (32768) a row no longer fits the stream kernel's
+block, and every wrapper runs the split form (``ntt_mxu_split``): the wide
+stages as sweep launches over the rows in device memory and the block-local
+ones as one digit-matmul launch a call, each block on one lane block of
+many rows.  ``split=True`` forces it at smaller n (for tests); the plan
+picks it, nothing falls back to it.  The split form's tables keep no dense
+``wf``/``wi``: the twins read the stream (``staged_tables``).
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _group_bias,
 from .ntt_fused import Kernel, _check, _check_tw
 
 __all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "MxuStreamPlan",
-           "FoldedOperand", "host_tables", "device_tables", "kernel_tables",
+           "FoldedOperand", "SPLIT_FROM", "split_form", "dense_tables",
+           "host_tables", "device_tables", "kernel_tables",
            "plan_for",
            "stream_plan", "fold_plan_for", "staged_tables",
            "block_rows", "fold_operand", "polymul_mxu_fn",
@@ -88,6 +97,17 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
 _ROW_BYTES = 128 * 1024
 _MAX_ROWS = 32
 _CLASS_BIAS = 1 << 24      # the kernel adds it to each class sum c_j
+# the row length from which a B5 block holds no row of x and one of y
+# (block_rows(n, 2) < 2): every wrapper runs the split form from there
+SPLIT_FROM = 32768
+# float64 bytes of tables and planes a twin's block product takes at once
+_TWIN_BYTES = 1 << 30
+
+
+def split_form(mt: MxuTables, split: bool | None = None) -> bool:
+    """Whether a call on ``mt`` runs the split form: from ``SPLIT_FROM``,
+    or where ``split`` forces it (True; False forces the stream kernel)."""
+    return mt.n >= SPLIT_FROM if split is None else bool(split)
 
 
 # ----------------------------------------------------------------------
@@ -108,11 +128,12 @@ class MxuDeviceTables:
     16): B5 and B8 read all of it, B6 and B9 its
     first nb*Cf stages, the forward ones (B9's inverse stages are the
     constant's), B7 the rest, the inverse ones.  The dense ``wf`` and
-    ``wi`` are read by the twins alone."""
+    ``wi`` are read by the twins alone, and are None from ``SPLIT_FROM``
+    (the twins read the stream there, ``dense_tables``)."""
 
-    wf: torch.Tensor
+    wf: torch.Tensor | None
     constf: torch.Tensor
-    wi: torch.Tensor
+    wi: torch.Tensor | None
     consti: torch.Tensor
     stream: torch.Tensor
 
@@ -128,17 +149,40 @@ def _kernel_layout(w) -> torch.Tensor:
 
 def host_tables(mt: MxuTables) -> MxuDeviceTables:
     """The kernel-layout tables on the CPU, in new storage; the stream is
-    ``lane_packed(mt)``'s, the one the kernel reads."""
+    ``lane_packed(mt)``'s, the one the kernel reads.  From ``SPLIT_FROM``
+    no dense ``wf``/``wi``."""
+    dense = not split_form(mt)
     return MxuDeviceTables(
-        _kernel_layout(mt.wf), torch.from_numpy(mt.constf[:, 0].copy()),
-        _kernel_layout(mt.wi), torch.from_numpy(mt.consti[:, 0].copy()),
+        _kernel_layout(mt.wf) if dense else None,
+        torch.from_numpy(mt.constf[:, 0].copy()),
+        _kernel_layout(mt.wi) if dense else None,
+        torch.from_numpy(mt.consti[:, 0].copy()),
         torch.from_numpy(stream_tables(lane_packed(mt))))
 
 
 @functools.lru_cache(maxsize=None)
 def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
     """``host_tables(mt)`` on ``device``, made once per device."""
-    return MxuDeviceTables(*(t.to(device) for t in host_tables(mt).tensors()))
+    return MxuDeviceTables(*(None if t is None else t.to(device)
+                             for t in host_tables(mt).tensors()))
+
+
+def dense_tables(tabs: MxuDeviceTables, mt: MxuTables, direction: str):
+    """Blocks of one direction's kernel-layout tables as the twins read
+    them: ``get(b0, b1)``, (b1 - b0, D*bw, K) int8 of lane blocks b0 .. b1
+    - 1, from ``tabs.wf`` / ``tabs.wi`` (K = din*bw) or, where those are
+    None, from the stream's stages (``staged_tables``, K = 64 * stages, zero
+    past din*bw).  ``direction`` "f" or "i"."""
+    w = tabs.wf if direction == "f" else tabs.wi
+    if w is not None:
+        return lambda b0, b1: w[b0:b1]
+    pk = lane_packed(mt)
+    if pk is not mt:
+        raise ValueError("lane-packed tables keep their dense copies")
+    cf, ci = (stream_stages(d, mt.bw) for d in (mt.Df, mt.Di))
+    c, first = (cf, 0) if direction == "f" else (ci, mt.nb * cf)
+    return lambda b0, b1: staged_tables(
+        tabs.stream[first + b0 * c:first + b1 * c], b1 - b0, mt.bw, mt.D)
 
 
 def kernel_tables(mt: MxuTables, device: torch.device,
@@ -196,18 +240,22 @@ def staged_tables(stages: torch.Tensor, nb: int, bw: int,
 
 
 def _check_tables(tabs: MxuDeviceTables, mt: MxuTables, like) -> None:
+    """The tables' types, shapes and device; ``wf`` and ``wi`` may be None
+    (the twins then read the stream)."""
     nb, bw, D = mt.nb, mt.bw, mt.D
     sw = lane_packed(mt).bw
     stages = nb * (stream_stages(mt.Df, sw) + stream_stages(mt.Di, sw))
     want = ((torch.int8, (nb, D * bw, mt.Df * bw)), (torch.uint32, (nb, bw)),
             (torch.int8, (nb, D * bw, mt.Di * bw)), (torch.uint32, (nb, bw)),
             (torch.int8, (stages, STAGE_DEPTH * sw * D)))
-    _check_shapes("MXU tables", tabs.tensors(), want, like)
+    _check_shapes("MXU tables", tabs.tensors(), want, like, optional=(0, 2))
 
 
-def _check_shapes(what: str, tensors, want, like) -> None:
-    for t, (dtype, shape) in zip(tensors, want):
-        if (t.dtype != dtype or tuple(t.shape) != shape
+def _check_shapes(what: str, tensors, want, like, optional=()) -> None:
+    for i, (t, (dtype, shape)) in enumerate(zip(tensors, want)):
+        if t is None and i in optional:
+            continue
+        if (t is None or t.dtype != dtype or tuple(t.shape) != shape
                 or t.device != like.device or not t.is_contiguous()):
             raise ValueError(f"{what} must be contiguous {dtype} "
                              f"{shape} tensors on {like.device}")
@@ -268,27 +316,73 @@ def digit_product(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
                      const, group_bias, q)
 
 
-def _block_matmul(v: torch.Tensor, w: torch.Tensor, const: torch.Tensor,
+def _block_matmul(v: torch.Tensor, w, const: torch.Tensor,
                   group_bias: int, off: int, din: int, base: int,
                   mt: MxuTables) -> torch.Tensor:
     """The block-local stages of one direction on (R, n) int64 values below
-    the split's bound; canonical out."""
-    R = v.shape[0]
-    out = digit_product(v.reshape(1, R, mt.nb, mt.bw), w[None], const[None],
-                        group_bias, off, din, base, mt.q, mt.D)
-    return out.reshape(R, mt.n)
+    the split's bound against kernel-layout tables ``w`` (nb, D*bw, K), or
+    the blocks ``w(b0, b1)`` gives (``dense_tables``), as many lane blocks
+    at once as ``_TWIN_BYTES`` of float64 hold; canonical out."""
+    get = w if callable(w) else (lambda b0, b1: w[b0:b1])
+    R, nb, bw = v.shape[0], mt.nb, mt.bw
+    v = v.reshape(1, R, nb, bw)
+    step = max(1, _TWIN_BYTES // (8 * (mt.D * bw + R) * din * bw))
+    out = []
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        out.append(digit_product(v[:, :, b0:b1], get(b0, b1)[None],
+                                 const[None, b0:b1], group_bias, off, din,
+                                 base, mt.q, mt.D))
+    return torch.cat(out, dim=2).reshape(R, mt.n)
+
+
+def _fwd_block(v, mt: MxuTables, tabs: MxuDeviceTables):
+    """The forward's block-local stages of (R, n) values below
+    ``fwd_bound``; canonical out."""
+    return _block_matmul(v, dense_tables(tabs, mt, "f"), tabs.constf,
+                         mt.group_bias_f, mt.fwd_off, mt.Df, mt.fwd_base, mt)
+
+
+def _inv_block(X, mt: MxuTables, tabs: MxuDeviceTables):
+    """The inverse's block-local stages of (R, n) values below
+    ``pw_bound``; canonical out."""
+    return _block_matmul(X.to(_I64), dense_tables(tabs, mt, "i"),
+                         tabs.consti, mt.group_bias_i, mt.inv_off, mt.Di,
+                         mt.inv_base, mt)
+
+
+def _folded_block(X, op: "FoldedOperand", mt: MxuTables):
+    """B9's inverse block matmul of canonical (R, n) X against the
+    constant's folded tables (its stages), under the fold plan; canonical
+    out."""
+    fp = fold_plan(mt)
+    pk = lane_packed(mt)
+    c = op.c
+    if pk is not mt:
+        # the first block on the packed diagonal: output lanes j*32 + o,
+        # input lanes i*32 + k, o and k below bw
+        bw = mt.bw
+        w = staged_tables(op.stages, pk.nb, pk.bw, fp.Dout)
+        w = w.reshape(1, fp.Dout, pk.bw, -1, pk.bw)[:, :, :bw, :fp.Din, :bw]
+        w, c = w.reshape(1, fp.Dout * bw, fp.Din * bw), c[:, :bw]
+    else:
+        C = op.stages.shape[0] // mt.nb
+
+        def w(b0, b1):
+            return staged_tables(op.stages[b0 * C:b1 * C], b1 - b0, mt.bw,
+                                 fp.Dout)
+    return _block_matmul(X, w, c, _group_bias(fp.groups, fp.bounds, mt.q),
+                         fp.off, fp.Din, fp.base, mt)
 
 
 def _fwd_plain(x, mt: MxuTables, tabs: MxuDeviceTables, tw):
     v = N.ntt_fwd_merged(x.to(_I64), mt.tbl, tw, s_hi=mt.Lr)
-    return _block_matmul(v, tabs.wf, tabs.constf, mt.group_bias_f,
-                         mt.fwd_off, mt.Df, mt.fwd_base, mt)
+    return _fwd_block(v, mt, tabs)
 
 
 def _inv_plain(X, mt: MxuTables, tabs: MxuDeviceTables, tw):
-    v = _block_matmul(X.to(_I64), tabs.wi, tabs.consti, mt.group_bias_i,
-                      mt.inv_off, mt.Di, mt.inv_base, mt)
-    return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr)
+    return N.intt_inv_merged(_inv_block(X, mt, tabs), mt.tbl, tw,
+                             s_lo=mt.logn - mt.Lr)
 
 
 def polymul_mxu_plain(x, y, mt: MxuTables, tabs=None, tw=None):
@@ -310,22 +404,10 @@ def polymul_fixed_mxu_plain(x, yspec, mt: MxuTables, tabs=None, tw=None):
 
 def polymul_fixed_folded_mxu_plain(x, op: FoldedOperand, mt: MxuTables,
                                    tabs=None, tw=None):
-    fp = fold_plan(mt)
     tabs = tabs or device_tables(mt, x.device)
     X = _fwd_plain(x.reshape(-1, mt.n), mt, tabs, tw)
-    pk = lane_packed(mt)
-    w = staged_tables(op.stages, pk.nb, pk.bw, fp.Dout)
-    c = op.c
-    if pk is not mt:
-        # the first block on the packed diagonal: output lanes j*32 + o,
-        # input lanes i*32 + k, o and k below bw
-        bw = mt.bw
-        w = w.reshape(1, fp.Dout, pk.bw, -1, pk.bw)[:, :, :bw, :fp.Din, :bw]
-        w, c = w.reshape(1, fp.Dout * bw, fp.Din * bw), c[:, :bw]
-    v = _block_matmul(X, w, c, _group_bias(fp.groups, fp.bounds, mt.q),
-                      fp.off, fp.Din, fp.base, mt)
-    return N.intt_inv_merged(v, mt.tbl, tw, s_lo=mt.logn - mt.Lr).to(
-        _U32).reshape(x.shape)
+    return N.intt_inv_merged(_folded_block(X, op, mt), mt.tbl, tw,
+                             s_lo=mt.logn - mt.Lr).to(_U32).reshape(x.shape)
 
 
 def ntt_mxu_plain(x, mt: MxuTables, tabs=None, tw=None):
@@ -365,19 +447,23 @@ def block_rows(n: int, ops: int) -> int:
 
 
 def _make_plan(mt: MxuTables, ops: int, di: int, inv_base: int,
-               inv_off: int, group_bias_i: int) -> MxuPlan:
+               inv_off: int, group_bias_i: int,
+               rows: int | None = None) -> MxuPlan:
     """The run-time plan of ``mt`` for ``ops`` operand rows per batch row,
     its inverse split (``di`` planes of ``inv_base`` at ``inv_off``) given
-    apart, since the folded kernel splits under the fold plan's."""
+    apart, since the folded kernel splits under the fold plan's; ``rows``
+    a block (``block_rows`` unless given: the split form's lane-block rows,
+    ``ntt_mxu_split``)."""
     q, D = mt.q, mt.D
     if D > 4 or max(mt.Df, di) > 6 or mt.bw % 32:
         raise ValueError(f"{mt.tbl.ps.name}: MXU plan (D={D}, Df={mt.Df}, "
                          f"Di={di}, bw={mt.bw}) is outside the kernels' "
                          f"range")
-    rows = block_rows(mt.n, ops)
-    if rows < ops:
-        raise ValueError(f"n={mt.n}: a row does not fit the kernels' shared "
-                         f"memory")
+    if rows is None:
+        rows = block_rows(mt.n, ops)
+        if rows < ops:
+            raise ValueError(f"n={mt.n}: a row does not fit the kernels' "
+                             f"shared memory")
     pw = [pow(2, 8 * j, q) for j in range(D)] + [0] * (4 - D)
     bias = _CLASS_BIAS * sum(pw)
     ps = mt.tbl.ps
@@ -579,13 +665,23 @@ def _unpacked(z: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
 
-def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+def _split(mode: str, mt: MxuTables, tabs, tw, *args):
+    from . import ntt_mxu_split as MS
+
+    return MS.run(mode, mt, tabs, tw, *args)
+
+
+def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None,
+                split: bool | None = None) -> torch.Tensor:
     """z = x * y mod (X^n + 1) mod q over (B..., n) uint32 tensors of
-    canonical residues."""
+    canonical residues.  ``split``: ``split_form``'s (the plan's unless
+    given)."""
     tabs, tw = _prepare(mt, tabs, tw, x, y)
     if x.shape != y.shape:
         raise ValueError(f"operand shapes differ: {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
+    if split_form(mt, split):
+        return _split("product", mt, tabs, tw, x, y)
     if x.is_cuda:
         kt = kernel_tables(mt, x.device, tabs)
         z = _launch(KERNELS["polymul_mxu"], mt, stream_plan(mt), tw,
@@ -595,14 +691,16 @@ def polymul_mxu(x, y, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     return polymul_mxu_plain(x, y, mt, tabs, tw)
 
 
-def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
-                      tw=None) -> torch.Tensor:
+def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None, tw=None,
+                      split: bool | None = None) -> torch.Tensor:
     """x (B..., n) times the constant whose canonical forward spectrum is
     ``yspec`` (n values), broadcast over the batch."""
     tabs, tw = _prepare(mt, tabs, tw, x, yspec)
     if yspec.numel() != mt.n:
         raise ValueError(f"spectrum must hold n={mt.n} values, got "
                          f"{tuple(yspec.shape)}")
+    if split_form(mt, split):
+        return _split("fixed", mt, tabs, tw, x, yspec)
     if x.is_cuda:
         # at n <= 16 the spectrum's n lanes once for each packed row
         k = lane_packed(mt).n // mt.n
@@ -616,7 +714,8 @@ def polymul_fixed_mxu(x, yspec, mt: MxuTables, tabs=None,
 
 
 def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
-                             tabs=None, tw=None) -> torch.Tensor:
+                             tabs=None, tw=None,
+                             split: bool | None = None) -> torch.Tensor:
     """x (B..., n) times the constant whose folded operand is ``op``
     (``fold_operand`` of its spectrum)."""
     fp = fold_plan(mt)
@@ -627,6 +726,8 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
                   ((torch.int8, (nb * stream_stages(fp.Din, bw),
                                  STAGE_DEPTH * bw * fp.Dout)),
                    (torch.uint32, (nb, bw))), x)
+    if split_form(mt, split):
+        return _split("folded", mt, tabs, tw, x, op)
     if x.is_cuda:
         kt = kernel_tables(mt, x.device, tabs)
         z = _launch(KERNELS["polymul_fixed_folded_mxu"], mt,
@@ -636,9 +737,12 @@ def polymul_fixed_folded_mxu(x, op: FoldedOperand, mt: MxuTables,
     return polymul_fixed_folded_mxu_plain(x, op, mt, tabs, tw)
 
 
-def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None,
+            split: bool | None = None) -> torch.Tensor:
     """Forward merged-psi NTT (nat -> rev) of canonical x, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, x)
+    if split_form(mt, split):
+        return _split("ntt", mt, tabs, tw, x)
     if x.is_cuda:
         kt = kernel_tables(mt, x.device, tabs)
         z = _launch(KERNELS["ntt_mxu"], mt, stream_plan(mt, "ntt"), tw,
@@ -648,10 +752,13 @@ def ntt_mxu(x, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
     return ntt_mxu_plain(x, mt, tabs, tw)
 
 
-def intt_mxu(X, mt: MxuTables, tabs=None, tw=None) -> torch.Tensor:
+def intt_mxu(X, mt: MxuTables, tabs=None, tw=None,
+             split: bool | None = None) -> torch.Tensor:
     """Inverse merged-psi NTT (rev -> nat) of values below
     ``mt.pw_bound``, canonical out."""
     tabs, tw = _prepare(mt, tabs, tw, X)
+    if split_form(mt, split):
+        return _split("intt", mt, tabs, tw, X)
     if X.is_cuda:
         kt = kernel_tables(mt, X.device, tabs)
         z = _launch(KERNELS["intt_mxu"], mt, stream_plan(mt, "intt"), tw,

@@ -525,8 +525,20 @@ def _windows(L: int, s0_max: int, su_max: int, windows: int | None):
     return list(zip(edges, edges[1:]))
 
 
+def _upper_windows(bits: int, su_max: int):
+    """[lo, hi) of the fewest windows of at most su_max bits over [0,
+    bits), sizes as even as they go, the lowest the largest."""
+    m = -(-bits // su_max)
+    q, rem = divmod(bits, m)
+    edges = [0]
+    for s in [q + 1] * rem + [q] * (m - rem):
+        edges.append(edges[-1] + s)
+    return list(zip(edges, edges[1:]))
+
+
 @functools.lru_cache(maxsize=None)
-def sweep_plan(n: int, kind: str, windows: int | None = None) -> SweepPlan:
+def sweep_plan(n: int, kind: str, windows: int | None = None,
+               low: int = 0) -> SweepPlan:
     """The sweep schedule of ``kind``'s kernel (a key of ``SWEEP_KINDS``)
     at row length ``n``: a row stays in device memory and a transform runs
     in one launch a window of index bits, each block on the sub-transforms
@@ -541,8 +553,13 @@ def sweep_plan(n: int, kind: str, windows: int | None = None) -> SweepPlan:
     takes up to 14 bits (15 with one operand; Stockham 11) and an upper one
     12: two windows up to 2^26, Stockham three from 2^24.  ``windows``
     forces that many (a test of the three-window form at small n).
-    Raises past n = 2^25, the largest ring the registry takes.  Cached:
-    copy it before changing a field."""
+    ``low`` > 0 (B2 and B3 alone) leaves the index bits below it to
+    another kernel: the windows cover [low, L), each as an upper one (12
+    bits at most beside its columns), one or more of them; B2's stages
+    from bit L - 1 down to bit low and B3's from bit low up (the MXU split
+    form's wide stages, ``ntt_mxu_split``).  Raises past n = 2^25, the
+    largest ring the registry takes.  Cached: copy it before changing a
+    field."""
     if kind not in SWEEP_KINDS:
         raise ValueError(f"unknown kind {kind!r}; choose from "
                          f"{list(SWEEP_KINDS)}")
@@ -558,7 +575,15 @@ def sweep_plan(n: int, kind: str, windows: int | None = None) -> SweepPlan:
     tile_bits = _log2(SWEEP_TILE_WORDS)
     stk_cols = SWEEP_COLS if kind == "stockham" else 0
     s0_max = tile_bits - _log2(nops) - stk_cols
-    win = _windows(L, s0_max, tile_bits - SWEEP_COLS, windows)
+    if low:
+        if kind not in ("B2", "B3") or not 0 < low < L or windows:
+            raise ValueError(f"{kind} at 2^{L}: the windows start at bit 0 "
+                             f"(bits below {low} are left to another "
+                             f"kernel for B2 and B3 alone, 0 < low < L)")
+        win = [(lo + low, hi + low) for lo, hi in _upper_windows(
+            L - low, tile_bits - SWEEP_COLS)]
+    else:
+        win = _windows(L, s0_max, tile_bits - SWEEP_COLS, windows)
     W = len(win)
     if both:
         runs = ([(w, True, False) for w in range(W - 1, 0, -1)]

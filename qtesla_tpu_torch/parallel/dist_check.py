@@ -336,10 +336,10 @@ def main(argv=None) -> int:
 
 def _kernels() -> dict:
     """Every kernel's registry entry, by name."""
-    from ..ops import ntt_fused, ntt_mxu, ntt_pairings
+    from ..ops import ntt_fused, ntt_mxu, ntt_mxu_split, ntt_pairings
     from . import sharded_classes, sharded_mxu
-    return {name: k for mod in (ntt_fused, ntt_mxu, ntt_pairings,
-                                sharded_mxu, sharded_classes)
+    return {name: k for mod in (ntt_fused, ntt_mxu, ntt_mxu_split,
+                                ntt_pairings, sharded_mxu, sharded_classes)
             for name, k in mod.KERNELS.items()}
 
 

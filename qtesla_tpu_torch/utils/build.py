@@ -43,8 +43,8 @@ _PASSES = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 # logn, q, r32, r32_shoup, one_shoup, &plan, launch, stream)
 _SWEEP = ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
           + [ctypes.c_uint32] * 4 + [_P, ctypes.c_int, _P])
-# csrc/ntt_mxu.cu: (a, b, out, wf, constf, wi, consti, twiddles, batch,
-# &plan, stream)
+# csrc/ntt_mxu.cu and csrc/ntt_mxu_split.cu: (a, b, out, wf, constf, wi,
+# consti, twiddles, batch, &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
 # csrc/sharded_mxu.cu and csrc/sharded_classes.cu: (a, b, out, w1, c1, w2,
 # c2, twiddles, batch, k_local, &plan, stream)
@@ -58,6 +58,9 @@ LAUNCHERS = {
     "qt_polymul_mxu": _MXU, "qt_polymul_fixed_mxu": _MXU,
     "qt_ntt_mxu": _MXU, "qt_intt_mxu": _MXU,
     "qt_polymul_fixed_folded_mxu": _MXU,
+    **{f"qt_{k}_mxu_split": _MXU
+       for k in ("polymul", "polymul_fixed", "ntt", "intt",
+                 "polymul_fixed_folded")},
     **{f"qt_polymul_pairing_{p}": _PASSES
        for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
     **{f"qt_sp_seg{s}": _SP

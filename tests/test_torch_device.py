@@ -34,6 +34,7 @@ from qtesla_tpu_torch import (get_params, polymul_negacyclic_oracle,
 from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
+from qtesla_tpu_torch.ops import ntt_mxu_split as MS
 from qtesla_tpu_torch.ops import ntt_pairings as P
 from qtesla_tpu_torch.ops.mxu_tables import (FixedFoldPlan, fold_plan,
                                              get_mxu_tables)
@@ -427,7 +428,8 @@ def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert [p.name for p in build._sources()] == [
         "modq.cuh", "mxu_block.cuh", "mxu_compact.cuh", "ntt_fused.cu",
-        "ntt_mxu.cu", "ntt_pairings.cu", "ntt_pairings_cluster.cu",
+        "ntt_mxu.cu", "ntt_mxu_split.cu", "ntt_pairings.cu",
+        "ntt_pairings_cluster.cu",
         "pairing_pass.cuh", "pass_stages.cuh", "pass_sweeps.cu",
         "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
@@ -435,7 +437,7 @@ def test_build_flags_target_hopper():
     # the pass kernels' sweep form: one launcher for all nine kinds, a
     # launch a call (x, y, z, two scratch rows, twiddles, batch, n, logn,
     # the set's constants, &plan, the launch's number, stream)
-    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, P, S, C)
+    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, MS, P, S, C)
                                     for k in mod.KERNELS.values()} | {
         "qt_pass_sweep"}
     sweep = build.LAUNCHERS["qt_pass_sweep"]
@@ -1216,6 +1218,55 @@ def test_mxu_kernels_match_plain_on_card(cuda_device, name):
         assert all(M.KERNELS[k].launches == before[k] + 1
                    for k in ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu",
                              "intt_mxu"))
+
+
+# B5-B9's split form (ops/ntt_mxu_split.py): (name, n, q), the rings past
+# one block's reach at q = 786433 and at the 30-bit prime
+SPLIT_RINGS = (("split-n32768", 32768, 786433),
+               ("q30-n65536", 65536, 1073479681))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", SPLIT_RINGS, ids=lambda r: r[0])
+def test_mxu_split_kernels_match_plain_on_card(cuda_device, ring):
+    """B5-B9 in the split form against their twins at B in {1, 3, 64},
+    row 0 all q - 1 (B7: pw_bound - 1), the constant all q - 1 in B8 and
+    B9; each call launches its mode's split kernel once and B2's and B3's
+    sweeps as ``split_launches`` says; intt(ntt(x)) == x."""
+    register_param_set(*ring)
+    mt = get_mxu_tables(ring[0])
+    q, n = mt.q, mt.n
+    rng = np.random.default_rng(23)
+    counters = F.KERNELS | MS.KERNELS
+    for batch in (1, 3, 64):
+        xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
+        xy[:, 0] = q - 1
+        lazy = rng.integers(0, mt.pw_bound, (batch, n), dtype=np.uint32)
+        lazy[0] = mt.pw_bound - 1
+        x, y, lz = (torch.from_numpy(v).to(cuda_device)
+                    for v in (xy[0], xy[1], lazy))
+        spec = torch.from_numpy(np.full((1, n), q - 1, dtype=np.uint32)).to(
+            cuda_device)
+        op = M.fold_operand(spec, mt)
+        for mode, kern, plain, args in (
+                ("product", M.polymul_mxu, M.polymul_mxu_plain, (x, y)),
+                ("fixed", M.polymul_fixed_mxu, M.polymul_fixed_mxu_plain,
+                 (x, spec)),
+                ("folded", M.polymul_fixed_folded_mxu,
+                 M.polymul_fixed_folded_mxu_plain, (x, op)),
+                ("ntt", M.ntt_mxu, M.ntt_mxu_plain, (x,)),
+                ("intt", M.intt_mxu, M.intt_mxu_plain, (lz,))):
+            want = plain(*args, mt)
+            before = {k: v.launches for k, v in counters.items()}
+            got = kern(*args, mt)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy())
+            moved = {k: v.launches - before[k] for k, v in counters.items()
+                     if v.launches != before[k]}
+            assert moved == {k: v for k, v in
+                             MS.split_launches(n, mode).items() if v}
+        assert torch.equal(M.intt_mxu(M.ntt_mxu(x, mt), mt), x)
 
 
 @pytest.mark.cuda
