@@ -158,6 +158,22 @@ script exits non-zero without printing a result:
    40, and the split kernel's launch alone in turns with its plain version,
    each beside its bound with the tables counted once; the plan's seconds
    beside them).  At 2^25 the MXU plan must refuse, naming the bytes.
+   Then the SP paths past n = 32768 (SP_RINGS, n1 = n / 128: 65536 at
+   786433 (k = 2, 4, 8) and q30 (k = 4), B = 512; 131072 (k = 4, 8), B =
+   256; 2^18 at 7340033 and 1056440321 (k = 4), B = 128; 2^20 (k = 4, 8),
+   B = 32; row 1 all q - 1): per ring B1 and B4 against the oracle, per k
+   the plan's host seconds, one counted run of polymul_fourstep_mxu_fn,
+   both fixed SP pairs (the folded multiply where its prepare takes less
+   than FOLD_PREP_LIMIT_S), polymul_fourstep_mxu_classes_fn (q < 2^24),
+   local_pipeline_fn and local_fixed_pipeline_fn against
+   sp_ring_launches, every product equal to B1 or B4; then each SP kernel
+   on the path's intermediates against its compact twin (the split form's
+   tile kernels against their plain versions) and timed beside its bound
+   (median of 40; the split call, sweeps and tile kernel, beside it);
+   polymul_sp_fn at batch_hint 2 at n = 32768 and 65536 against B1; at
+   2^25 the SP plan must refuse, naming the bytes.  The column segments
+   run their split form (sweeps and csrc/sp_column_split.cu's tile kernel)
+   where nloc >= 32768.
 4. timing at B = 32768: each kernel and its plain version, CUDA events,
    3 warmup then 20 timed calls, twice in the order plain, kernel, kernel,
    plain (B16 also under p3x), B13, B15, B17, B1, B3, B4, B7 and the five
@@ -192,7 +208,8 @@ script exits non-zero without printing a result:
 
 It prints a JSON line of the kernels (launches: phase 3's and phase 3e's
 summed; the split kernels' times are their launches alone at the largest
-ring phase 3e runs them, 2^20; each with its bound: the larger of
+ring phase 3e runs them, 2^20 (B17's split form: 2^18 at 7340033); each
+with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
 over 1979 TOP/s; no single PyTorch call computes a negacyclic product mod
 q, so library_ms is null), the nvidia-smi line, and last
@@ -252,6 +269,9 @@ from qtesla_tpu_torch.parallel import (intt_fourstep_sharded_fn,
 from qtesla_tpu_torch.parallel import dist_check as DC
 from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel import sharded_mxu_tables as ST
+from qtesla_tpu_torch.parallel import sp_column_split as SC
+from qtesla_tpu_torch.parallel.distributed import sp_n1
 from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
@@ -285,11 +305,11 @@ WIDE_NAMES = (WIDE_SET[0], Q30_WIDE_SET[0])
 # the sequence-parallel path's model axis on the main path
 SP_K = 4
 # every kernel: (registry entry, CUDA source)
-KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, MS, P, S, C)
+KERNELS = {name: (k, mod.CUDA_SOURCE) for mod in (F, M, MS, P, S, C, SC)
            for name, k in mod.KERNELS.items()}
-# the split form's kernels (B5-B9 from n = 32768), which only phase 3e's
-# rings launch
-NO_SPLIT = {name: 0 for name in MS.KERNELS}
+# the split forms' kernels (B5-B9 from n = 32768, B11, B16 and B17 from
+# nloc = 32768), which only phase 3e's rings launch
+NO_SPLIT = {name: 0 for name in (*MS.KERNELS, *SC.KERNELS)}
 # launches the main path makes: B6 prepares both single-transform fixed
 # forms; B11 runs on both operands of the SP product, on the constant in each
 # fixed SP prepare and on x in each fixed SP multiply; B14 in each fixed SP
@@ -1954,14 +1974,15 @@ def _definition(x: torch.Tensor, y: torch.Tensor, q: int, ks) -> list:
     return out
 
 
-def _large_oracle(name, z, zf, x, y, a, q, B, n) -> str:
-    """Phase 3e's oracle: at the cluster rings 4 C++ oracle rows
-    (LARGE_ORACLE_ROWS) of every product and the fixed one; past a
-    cluster's reach DEFINITION_COEFFS coefficients of rows 0 and -1 from
-    the definition, and row 1 (all q - 1 in x and y) the closed form z_k =
-    2k + 2 - n mod q.  What was checked, for the printed line."""
+def _large_oracle(name, z, zf, x, y, a, q, B, n,
+                  cxx_max_n: int | None = None) -> str:
+    """Phase 3e's oracle: at the cluster rings (to ``cxx_max_n`` where
+    given) 4 C++ oracle rows (LARGE_ORACLE_ROWS) of every product and the
+    fixed one; past them DEFINITION_COEFFS coefficients of rows 0 and -1
+    from the definition, and row 1 (all q - 1 in x and y) the closed form
+    z_k = 2k + 2 - n mod q.  What was checked, for the printed line."""
     start = time.perf_counter()
-    if n <= Ps.cluster_reach("B1"):
+    if n <= (cxx_max_n or Ps.cluster_reach("B1")):
         rows = [r % B for r in LARGE_ORACLE_ROWS]
         idx = torch.tensor(rows, device="cuda")
         xr, yr = (t.index_select(0, idx).cpu().numpy() for t in (x, y))
@@ -2265,6 +2286,425 @@ def sp_timing(name: str, x: torch.Tensor, y: torch.Tensor,
               f"kernel's median [{device_line}]", flush=True)
 
 
+# phase 3e's sequence-parallel rings past n = 32768, at the split the entry
+# points take there (distributed.sp_n1: n1 = n / 128, n2 = 128): (name, n,
+# q, model axes, B, forms), the forms "pair" (the SP product), "fixed" and
+# "folded" (the fixed pairs) and "classes" (the class path, q < 2^24); the
+# column segments take their split form where nloc = n / k >= 32768
+SP_RINGS = (
+    ("sp-n65536", 65536, 786433, (2, 4, 8), 512,
+     ("pair", "fixed", "folded", "classes")),
+    ("q30-n65536", 65536, Q30, (4,), 512, ("pair", "fixed", "folded")),
+    ("sp-n131072", 131072, 786433, (4, 8), 256,
+     ("pair", "fixed", "folded", "classes")),
+    ("sp-n262144", 1 << 18, 7340033, (4,), 128,
+     ("pair", "fixed", "folded", "classes")),
+    ("sweep-n262144", 1 << 18, 1056440321, (4,), 128,
+     ("pair", "fixed", "folded")),
+    ("sweep-n1048576", 1 << 20, 1012924417, (4, 8), 32,
+     ("pair", "fixed", "folded")))
+# polymul_sp_fn at batch_hint 2 (the four-step at k = SP_K, n1 = n / 128,
+# 2 rows): (name, n, q)
+SP_FN_RINGS = (("sp-n32768", 32768, 786433), ("sp-n65536", 65536, 786433))
+# the folded fixed pair's multiply runs where its prepare (B11, B14 and the
+# host fold tables) took less (s)
+FOLD_PREP_LIMIT_S = 60.0
+# the rings whose products the C++ oracle checks on LARGE_ORACLE_ROWS; past
+# it, DEFINITION_COEFFS coefficients of rows 0 and -1 from the definition
+# and the closed form of row 1 (131072: 21 s of oracle rows on the host)
+SP_ORACLE_MAX_N = 65536
+# each column segment's key in its split form (its tile kernel's name)
+SPLIT_OF = {"sp_seg1": "sp_seg1_split", "sp_seg3": "sp_seg3_split",
+            "sp_seg3 p3x": "sp_seg3_split p3x",
+            "sp_seg1_classes": "sp_seg1_classes_split"}
+
+
+def _sp_calls(forms, folded_multiply: bool = True) -> dict:
+    """Segment calls of one counted run of a ring and model axis: the
+    ``forms``' entry points, then one shard's local work
+    (local_pipeline_fn, local_fixed_pipeline_fn against the spectrum);
+    "sp_seg3 p3x" is B16 under the folded plan."""
+    each = {"pair": {"sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1},
+            "fixed": {"sp_seg1": 2, "sp_seg2_fwd": 1, "sp_seg2_fixed": 1,
+                      "sp_seg3": 1},
+            "folded": ({"sp_seg1": 2, "sp_seg2_fwd": 1, "sp_seg2_folded": 1,
+                        "sp_seg3 p3x": 1} if folded_multiply
+                       else {"sp_seg1": 1, "sp_seg2_fwd": 1}),
+            "classes": {"sp_seg1_classes": 2, "sp_seg2_classes": 1,
+                        "sp_seg3": 1},
+            "local": {"sp_seg1": 3, "sp_seg2": 1, "sp_seg2_fixed": 1,
+                      "sp_seg3": 2}}
+    calls = {}
+    for form in (*forms, "local"):
+        for seg, c in each[form].items():
+            calls[seg] = calls.get(seg, 0) + c
+    return calls
+
+
+def sp_ring_launches(plans, calls: dict) -> dict:
+    """The kernel launches of segment ``calls`` (``_sp_calls``) under
+    ``plans``: a column segment in its block form its kernel once, in its
+    split form its sweeps (on B2's or B3's entry) and its tile kernel once
+    (``SC.split_launches``); a row segment its kernel once."""
+    out = {name: 0 for name in KERNELS}
+    for seg, c in calls.items():
+        classes = seg == "sp_seg1_classes"
+        if seg in SPLIT_OF and S.column_split(
+                plans, "sp_seg1" if classes else seg, class_sums=classes):
+            launches = SC.split_launches(plans, seg.split()[0])
+        else:
+            launches = {seg.split()[0]: 1}
+        for k, v in launches.items():
+            out[k] += c * v
+    return out
+
+
+def _compact_macs(wc: torch.Tensor, din: int, rows: int, plans,
+                  kind: str, D: int) -> int:
+    """int8 MACs of ``rows`` rows of every (shard, tile) through compact
+    tables wc (any leading axes, then blocks of (D*s, kp)), the blocks of
+    one kind (``ST.compact_layout``) held once for every shard and tile or
+    shared: din * D for each (output, input) lane pair of a block nonzero
+    in some digit plane, over the tensor's blocks, scaled to the k * A *
+    nblk blocks of all tiles.  K1 and K3 are kron(M, I_n2k) and K2f, K2i
+    and the folded F block-diagonal over n2-blocks, so most pairs of a
+    dense tile are zero products that no work needs."""
+    lay = ST.compact_layout(plans, kind)
+    s = lay.s
+    blocks = wc.reshape(-1, D, s, wc.shape[-1])[..., :din * s]
+    pairs = (blocks.reshape(-1, D, s, din, s) != 0).sum(dim=(1, 3)) > 0
+    slots = plans.k * plans.A * lay.nblk
+    return rows * din * D * int(pairs.sum()) * slots // blocks.shape[0]
+
+
+def _sp_ring_work(plans, B: int, tabs, op, aspec, cp=None,
+                  ctabs=None) -> dict:
+    """Bytes and int8 MACs of each SP kernel at B rows of every shard
+    under ``plans``, ``kernel_work``'s counting over the nonzero blocks:
+    each input read once (the tables' blocks too), the output written once;
+    the split form's tile kernels as their block form less the twiddles
+    (the wide stages are their sweeps')."""
+    row = 4 * B * plans.n
+    D = plans.D
+    m = {p: _compact_macs(w, getattr(plans, p).din, B, plans, kind, D)
+         for p, w, kind in (("p1", tabs.w1c, "columns"),
+                            ("p2f", tabs.w2fc, "rows"),
+                            ("p2i", tabs.w2ic, "rows"),
+                            ("p3", tabs.w3c, "columns"),
+                            ("p3x", tabs.w3xc, "columns"))}
+    tw = _nbytes(tabs.tw)
+    seg2 = _nbytes(tabs.w2fc, tabs.c2f, tabs.w2ic, tabs.c2i)
+    tile = {p: 2 * row + _nbytes(getattr(tabs, w), getattr(tabs, c))
+            for p, w, c in (("p1", "w1c", "c1"), ("p3", "w3c", "c3"),
+                            ("p3x", "w3xc", "c3x"))}
+    work = {"sp_seg1": (tile["p1"] + tw, m["p1"]),
+            "sp_seg1_split": (tile["p1"], m["p1"]),
+            "sp_seg3": (tile["p3"] + tw, m["p3"]),
+            "sp_seg3_split": (tile["p3"], m["p3"]),
+            "sp_seg3 p3x": (tile["p3x"] + tw, m["p3x"]),
+            "sp_seg3_split p3x": (tile["p3x"], m["p3x"]),
+            "sp_seg2": (3 * row + seg2, 2 * m["p2f"] + m["p2i"]),
+            "sp_seg2_fixed": (2 * row + _nbytes(aspec) + seg2,
+                              m["p2f"] + m["p2i"]),
+            "sp_seg2_fwd": (2 * row + _nbytes(tabs.w2fc, tabs.c2f),
+                            m["p2f"])}
+    if op is not None:
+        work["sp_seg2_folded"] = (2 * row + _nbytes(*op), _compact_macs(
+            op.w, plans.p2x.din, B, plans, "rows", D))
+    if cp is not None:
+        classes = (1 + D) * row + _nbytes(tabs.w1c)
+        work["sp_seg1_classes"] = (classes + tw, m["p1"])
+        work["sp_seg1_classes_split"] = (classes, m["p1"])
+        work["sp_seg2_classes"] = (
+            (2 * D + 1) * row + _nbytes(ctabs.w2cc, ctabs.c2c, tabs.w2ic,
+                                        tabs.c2i),
+            2 * _compact_macs(ctabs.w2cc, sum(cp.dins), B, plans, "rows", D)
+            + m["p2i"])
+    return work
+
+
+def _forget_plans() -> None:
+    """Drop every cached SP plan and its device tables (the rings' tables
+    take up to 2 GB each on the host and the card)."""
+    for mod in (ST, S, C, SC):
+        for v in vars(mod).values():
+            if hasattr(v, "cache_clear"):
+                v.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def _sp_ring_timing(name: str, plans, B: int, tabs, args: dict, work: dict,
+                    errors: dict, device_line: str) -> dict:
+    """Each SP kernel of one (ring, k) on the path's own intermediates
+    (``args``): its output against its plain version (the compact twins;
+    the split form's tile kernel against ``SC.products_plain``), recorded
+    in ``errors``, then timed in turns with it (median of 40; plain of 2)
+    beside its bound.  A column segment in its split form is timed as its
+    tile kernel's launch alone, and the whole call (its sweeps too) beside
+    it.  Returns key -> the ``_turns`` result and bound."""
+    k, sl = plans.k, slice(0, plans.k)
+    sx, vx, vy, w, aspec, op = (args[a] for a in ("sx", "vx", "vy", "w",
+                                                  "aspec", "op"))
+    cp, ux, uy = args.get("cp"), args.get("ux"), args.get("uy")
+    ctabs = args.get("ctabs")
+    runs = {}
+    split1 = S.column_split(plans, "sp_seg1")
+    if split1:
+        v1 = SC.column_sweeps(sx, plans, inverse=False)
+        runs["sp_seg1_split"] = (
+            SC.products, SC.products_plain, (v1, plans, tabs, sl),
+            lambda: S.sp_seg1(sx, plans, tabs))
+    else:
+        runs["sp_seg1"] = (S.sp_seg1, S.seg1_compact_plain, (sx, plans,
+                                                            tabs), None)
+    runs["sp_seg2"] = (S.sp_seg2, S.seg2_compact_plain, (vx, vy, plans,
+                                                         tabs), None)
+    runs["sp_seg2_fixed"] = (S.sp_seg2_fixed, S.seg2_fixed_compact_plain,
+                             (vx, aspec, plans, tabs), None)
+    runs["sp_seg2_fwd"] = (S.sp_seg2_fwd, S.seg2_fwd_compact_plain,
+                           (vx, plans, tabs), None)
+    if op is not None:
+        runs["sp_seg2_folded"] = (S.sp_seg2_folded,
+                                  S.seg2_folded_compact_plain,
+                                  (vx, op, plans), None)
+    for folded, seg in ((False, "sp_seg3"), (True, "sp_seg3 p3x")):
+        if S.column_split(plans, seg):
+            runs[SPLIT_OF[seg]] = (
+                SC.products, SC.products_plain, (w, plans, tabs, sl, seg),
+                functools.partial(S.sp_seg3, w, plans, tabs, folded=folded))
+        else:
+            runs[seg] = (functools.partial(S.sp_seg3, folded=folded),
+                         functools.partial(S.seg3_compact_plain,
+                                           folded=folded),
+                         (w, plans, tabs), None)
+    if cp is not None:
+        if S.column_split(plans, "sp_seg1", class_sums=True):
+            v1c = SC.column_sweeps(sx, plans, inverse=False)
+            runs["sp_seg1_classes_split"] = (
+                C.split_class_sums, C.split_class_sums_plain,
+                (v1c, plans, cp, ctabs, sl),
+                lambda: C.sp_seg1_classes(sx, plans, cp, ctabs))
+        else:
+            runs["sp_seg1_classes"] = (C.sp_seg1_classes,
+                                       C.seg1_classes_compact_plain,
+                                       (sx, plans, cp, ctabs), None)
+        runs["sp_seg2_classes"] = (C.sp_seg2_classes,
+                                   C.seg2_classes_compact_plain,
+                                   (ux, uy, plans, cp, ctabs), None)
+    out = {}
+    for key, (kern, plain, fargs, call) in runs.items():
+        kname = key.split()[0]
+        got, want = kern(*fargs), plain(*fargs)
+        _record(errors, kname, f"3e {name} k={k} {key} == plain", got,
+                want.to(got.dtype))
+        del got, want
+        res = _turns(kern, plain, fargs, KERNELS[kname][0], plain_repeats=1)
+        res["bound"] = bound(*work[key])
+        (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+        bms, by = res["bound"]
+        whole = ""
+        if call is not None:
+            t = time_cuda(call, warmup=3, repeats=40).median_ms
+            seg = {"sp_seg1_split": "sp_seg1",
+                   "sp_seg1_classes_split": "sp_seg1_classes"}.get(
+                       kname, "sp_seg3")
+            sweeps = SC.column_sweep_plan(plans, seg == "sp_seg3")
+            cms, cby = bound(work[key][0] + _nbytes(tabs.tw) + (
+                sweeps.sweeps * 2 * 4 * B * plans.n if sweeps else 0),
+                work[key][1])
+            whole = (f"; the whole split call (its "
+                     f"{sweeps.sweeps if sweeps else 0} sweeps and the tile "
+                     f"kernel) median {t:.4f} ms over 40, bound {cms:.4f} ms "
+                     f"({cby})")
+        print(f"3e SP timing {key}: {name} (n={plans.n}, q={plans.q}) k={k} "
+              f"n1={plans.n1} nloc={plans.nloc} B={B} "
+              f"{'split' if call is not None else 'block'} form: kernel min "
+              f"{klo:.4f} ms median {kmed:.4f} ms over 40 calls, plain "
+              f"median {pmed:.4f} ms over 2; bound {bms:.4f} ms ({by}), "
+              f"{bms / kmed * 100:.1f} % of the kernel's median{whole} "
+              f"[{device_line}]", flush=True)
+        out[key] = res
+    return out
+
+
+def sp_large_rings(device_line: str, errors: dict) -> tuple[dict, dict]:
+    """Phase 3e's SP rings past n = 32768 (SP_RINGS), at n1 = n / 128
+    (``distributed.sp_n1``): per ring seeded canonical operands (B rows,
+    row 1 all q - 1 in both) and one constant, B1's and B4's products
+    against the oracle (the C++ oracle on LARGE_ORACLE_ROWS to
+    SP_ORACLE_MAX_N, past it the definition's coefficients and the closed
+    form of row 1); per model axis k the plan (host seconds), then one
+    counted run of the entry points (polymul_fourstep_mxu_fn, both fixed
+    pairs, polymul_fourstep_mxu_classes_fn where q < 2^24,
+    local_pipeline_fn and local_fixed_pipeline_fn) against
+    ``sp_ring_launches``: every product equal to B1 (the fixed ones to B4)
+    bit for bit, one shard's local work to the compact twins' chain; the
+    folded prepare's seconds printed, its multiply run below
+    FOLD_PREP_LIMIT_S.  Then each SP kernel against its plain version and
+    timed (``_sp_ring_timing``).  Then polymul_sp_fn at batch_hint 2
+    (SP_FN_RINGS) against B1 with its launches, and at 2^25 the plan must
+    refuse, naming the bytes.  Returns the launches summed and, per split
+    kernel, its timing at the largest ring it ran."""
+    launches = {name: 0 for name in KERNELS}
+    times = {}
+    for name, n, q, axes, B, forms in SP_RINGS:
+        ring_start = time.perf_counter()
+        register_param_set(name, n, q)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + n)
+
+        def draw(rows):
+            return torch.randint(0, q, (rows, n), generator=gen,
+                                 device="cuda", dtype=torch.int64)
+
+        x, y = draw(B), draw(B)
+        x[1], y[1] = q - 1, q - 1
+        x, y = x.to(torch.uint32), y.to(torch.uint32)
+        a = draw(1).to(torch.uint32)
+        z_ref = polymul_negacyclic(x, y, name, "fused")
+        prep4, mul4 = polymul_fixed_fn(name, "fused")
+        zf_ref = mul4(x, prep4(a))
+        oracle = _large_oracle(name, {"fused": z_ref}, zf_ref, x, y, a, q, B,
+                               n, cxx_max_n=SP_ORACLE_MAX_N)
+        n1 = sp_n1(n)
+        for k in axes:
+            start = time.perf_counter()
+            plans = fourstep_mxu_plans(name, n1, k)
+            plan_s = time.perf_counter() - start
+            mesh = make_mesh(model=k)
+            cp = (class_boundary_plan(name, n1, k) if "classes" in forms
+                  else None)
+            fns = {"pair": polymul_fourstep_mxu_fn(name, mesh, n1=n1),
+                   "fixed": polymul_fixed_fourstep_mxu_fn(name, mesh, n1=n1),
+                   "folded": polymul_fixed_folded_fourstep_mxu_fn(
+                       name, mesh, n1=n1)}
+            if cp is not None:
+                fns["classes"] = polymul_fourstep_mxu_classes_fn(name, mesh,
+                                                                 n1=n1)
+            pipe, _ = local_pipeline_fn(name, k, n1=n1)
+            fpipe, _ = local_fixed_pipeline_fn(name, k, n1=n1)
+            tabs_s, tabs = _seconds(S.device_tables, plans, x.device)
+            for kern, _ in KERNELS.values():
+                kern.launches = 0
+            z = {"SP": fns["pair"](x, y)}
+            aspec = fns["fixed"][0](a)
+            zf = {"fixed SP": fns["fixed"][1](x, aspec)}
+            fold_s, op = _seconds(fns["folded"][0], a)
+            folded = fold_s < FOLD_PREP_LIMIT_S
+            if folded:
+                zf["folded SP"] = fns["folded"][1](x, *op)
+            if cp is not None:
+                z["class path"] = fns["classes"](x, y)
+            d = min(1, k - 1)
+            sx, sy = (S.to_shards(t, plans) for t in (x, y))
+            local = pipe(sx[d], sy[d])
+            flocal = fpipe(sx[d], aspec)
+            done()
+            got = {kk: kern.launches for kk, (kern, _) in KERNELS.items()}
+            want = sp_ring_launches(plans, _sp_calls(forms, folded))
+            if got != want:
+                raise AssertionError(f"3e SP {name} k={k} launch counts "
+                                     f"{got}, expected {want}")
+            launches = {kk: launches[kk] + v for kk, v in got.items()}
+            for what, zz in z.items():
+                expect_canonical(f"3e SP {name} k={k} {what}", zz, (B, n), q)
+                expect_equal(f"3e SP {name} k={k} {what} == B1", zz, z_ref)
+            for what, zz in zf.items():
+                expect_equal(f"3e SP {name} k={k} {what} == B4", zz, zf_ref)
+            v1x, v1y = (S.seg1_compact_plain(t[d:d + 1], plans, tabs, d)
+                        for t in (sx, sy))
+            expect_equal(f"3e SP {name} k={k} local_pipeline_fn == twins",
+                         local, S.seg3_compact_plain(S.seg2_compact_plain(
+                             v1x, v1y, plans, tabs, d), plans, tabs, d)[0])
+            expect_equal(
+                f"3e SP {name} k={k} local_fixed_pipeline_fn == twins",
+                flocal, S.seg3_compact_plain(S.seg2_fixed_compact_plain(
+                    v1x, aspec, plans, tabs, d), plans, tabs, d)[0])
+            del z, zf, local, flocal, v1x, v1y
+            # the path's own intermediates for the kernels' timing
+            vx, vy = (S.a2a_fwd(S.sp_seg1(t, plans, tabs), plans)
+                      for t in (sx, sy))
+            args = {"sx": sx, "vx": vx, "vy": vy, "aspec": aspec,
+                    "op": op if folded else None,
+                    "w": S.a2a_inv(S.sp_seg2(vx, vy, plans, tabs), plans)}
+            if cp is not None:
+                ctabs = C.class_device_tables(plans, cp, x.device)
+                args |= {"cp": cp, "ctabs": ctabs, "ux": C.a2a_fwd_classes(
+                    C.sp_seg1_classes(sx, plans, cp, ctabs), plans, cp.Dout),
+                    "uy": C.a2a_fwd_classes(C.sp_seg1_classes(
+                        sy, plans, cp, ctabs), plans, cp.Dout)}
+            work = _sp_ring_work(plans, B, tabs, args["op"], aspec, cp,
+                                 args.get("ctabs"))
+            res = _sp_ring_timing(name, plans, B, tabs, args, work, errors,
+                                  device_line)
+            times |= {kk: r for kk, r in res.items()
+                      if kk in SC.KERNELS}
+            column = {seg: "split" if S.column_split(plans, seg) else "block"
+                      for seg in ("sp_seg1", "sp_seg3", "sp_seg3 p3x")}
+            print(f"3e SP {name} (n={n}, q={q}) k={k} n1={n1} nloc="
+                  f"{plans.nloc} B={B}, row 1 all q - 1: "
+                  f"{', '.join(['SP'] + (['class path'] if cp else []))} "
+                  f"equal B1 bit for bit, the fixed SP pair"
+                  f"{' and the folded one' if folded else ''} B4, one "
+                  f"shard's local work the twins'; B1 and B4 equal "
+                  f"{oracle}; column segments {column}; plan {plan_s:.2f} s "
+                  f"on the host (tables {tabs_s:.2f} s), folded prepare "
+                  f"{fold_s:.2f} s"
+                  f"{'' if folded else ' (multiply not run)'}; "
+                  f"launches { {kk: v for kk, v in got.items() if v} }",
+                  flush=True)
+            del args, vx, vy, sx, sy, aspec, op, fns, pipe, fpipe, tabs
+            _forget_plans()
+        del x, y, a, z_ref, zf_ref
+        _forget_plans()
+        print(f"3e SP {name}: {time.perf_counter() - ring_start:.1f} s",
+              flush=True)
+    for name, n, q in SP_FN_RINGS:
+        register_param_set(name, n, q)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 1)
+        x, y = (torch.randint(0, q, (2, n), generator=gen, device="cuda",
+                              dtype=torch.int64) for _ in range(2))
+        x[1], y[1] = q - 1, q - 1
+        x, y = x.to(torch.uint32), y.to(torch.uint32)
+        fn = polymul_sp_fn(name, make_mesh(model=SP_K), batch_hint=2)
+        want_l = sp_ring_launches(fourstep_mxu_plans(name, sp_n1(n), SP_K),
+                                  {"sp_seg1": 2, "sp_seg2": 1, "sp_seg3": 1})
+        z_ref = polymul_negacyclic(x, y, name, "fused")
+        done()
+        for kern, _ in KERNELS.values():
+            kern.launches = 0
+        z = fn(x, y)
+        done()
+        got = {kk: kern.launches for kk, (kern, _) in KERNELS.items()}
+        if got != want_l:
+            raise AssertionError(f"3e polymul_sp_fn {name} launch counts "
+                                 f"{got}, expected {want_l}")
+        launches = {kk: launches[kk] + v for kk, v in got.items()}
+        expect_equal(f"3e polymul_sp_fn {name} == B1", z, z_ref)
+        print(f"3e polymul_sp_fn {name} (n={n}, q={q}) batch_hint=2, k="
+              f"{SP_K}: the four-step at n1 = {sp_n1(n)} equals B1 bit for "
+              f"bit, row 1 all q - 1; launches "
+              f"{ {kk: v for kk, v in got.items() if v} }", flush=True)
+        _forget_plans()
+    # past 16 GiB of tables the SP plan refuses, naming the bytes, before
+    # any table is built
+    name, n, q, _ = SWEEP_RINGS[-1]
+    register_param_set(name, n, q)
+    start = time.perf_counter()
+    try:
+        fourstep_mxu_plans(name, sp_n1(n), SP_K)
+    except ValueError as e:
+        if "bytes" not in str(e):
+            raise AssertionError(f"3e SP {name}: refusal without the bytes: "
+                                 f"{e}") from e
+        print(f"3e SP {name} (n={n}): the plan at k={SP_K} refuses: {e} "
+              f"({time.perf_counter() - start:.2f} s)", flush=True)
+    else:
+        raise AssertionError(f"3e SP {name}: the SP plan did not refuse")
+    return launches, times
+
+
 def pass_runs(x: torch.Tensor, y: torch.Tensor, spec: torch.Tensor,
               tbl) -> dict:
     """The pass kernels' (wrapper, plain version, arguments) on (B, n)
@@ -2282,21 +2722,6 @@ def pass_runs(x: torch.Tensor, y: torch.Tensor, spec: torch.Tensor,
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _sp_macs(w: torch.Tensor, din: int, rows: int, plans) -> int:
-    """int8 MACs of ``rows`` rows of every (shard, tile) through SP digit
-    tables w (..., D*TW, kp), shared over the tiles or one per tile: din * D
-    for each (output, input) lane pair nonzero in some digit plane.  K1 and
-    K3 are kron(M, I_n2k) and K2f, K2i and the folded F block-diagonal over
-    n2-blocks, so most pairs are zero products that no work needs."""
-    TW = plans.TW
-    *lead, dtw, _ = w.shape
-    D = dtw // TW
-    pairs = (w[..., :din * TW].reshape(*lead, D, TW, din, TW) != 0).sum(
-        dim=(-4, -2)) > 0
-    tiles = plans.k * plans.A // int(np.prod(lead))
-    return rows * din * D * tiles * int(pairs.sum())
 
 
 def _mxu_work(mt, B: int) -> dict:
@@ -2364,9 +2789,12 @@ def _sp_work(plans, B: int) -> dict:
     (``kernel_work``'s counting)."""
     row = 4 * B * plans.n
     st = S.host_tables(plans)
-    m1, m2f, m2i, m3 = (_sp_macs(w, getattr(plans, p).din, B, plans)
-                        for w, p in ((st.w1, "p1"), (st.w2f, "p2f"),
-                                     (st.w2i, "p2i"), (st.w3, "p3")))
+    m1, m2f, m2i, m3 = (
+        _compact_macs(w, getattr(plans, p).din, B, plans, kind, plans.D)
+        for w, p, kind in ((st.w1c, "p1", "columns"),
+                           (st.w2fc, "p2f", "rows"),
+                           (st.w2ic, "p2i", "rows"),
+                           (st.w3c, "p3", "columns")))
     sp_tw = _nbytes(st.tw)
     return {"sp_seg1": (2 * row + _nbytes(st.w1c, st.c1) + sp_tw, m1),
             "sp_seg2": (3 * row + _nbytes(st.w2fc, st.c2f, st.w2ic, st.c2i),
@@ -2384,9 +2812,10 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
     the padding and the SP tables' zero blocks excluded).  B11, B16, B17 and
     B18 read their tables' nonzero blocks alone (``w1c``, ``w3c``, ``w3xc``,
     ``w2cc``, ``w2ic``; B12 and B13 ``w2fc`` and ``w2ic``, B14 ``w2fc``; B15 the
-    constant's compact F, ``sp_fold``); their MACs are counted
-    on the dense tables' nonzero lane pairs like the others', so a bound
-    reads the same work whatever implements it.  B5's, B6's, B8's and B9's
+    constant's compact F, ``sp_fold``); their MACs are counted on the
+    nonzero lane pairs of those blocks (``_compact_macs``: the dense
+    tables' nonzero pairs, the same count), so a bound reads the same work
+    whatever implements it.  B5's, B6's, B8's and B9's
     tables are counted once, as ``wf`` and ``wi`` (B6: ``wf`` alone; B9:
     ``wf`` and the constant's W'), whatever stream they read them in."""
     tbl = get_tables(name)
@@ -2399,9 +2828,10 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
     work |= _sp_work(plans, B)
     st = S.host_tables(plans)
     m2f, m2i, m3x, mx = (
-        _sp_macs(w, getattr(plans, p).din, B, plans)
-        for w, p in ((st.w2f, "p2f"), (st.w2i, "p2i"), (st.w3x, "p3x"),
-                     (S.dense_folded_tables(sp_fold, plans).cpu(), "p2x")))
+        _compact_macs(w, getattr(plans, p).din, B, plans, kind, plans.D)
+        for w, p, kind in ((st.w2fc, "p2f", "rows"), (st.w2ic, "p2i", "rows"),
+                           (st.w3xc, "p3x", "columns"),
+                           (sp_fold.w.cpu(), "p2x", "rows")))
     sp_tw = _nbytes(st.tw)
     work["sp_seg3 p3x"] = (2 * row + _nbytes(st.w3xc, st.c3x) + sp_tw, m3x)
     work["sp_seg2_fixed"] = (2 * row + spec + _nbytes(st.w2fc, st.c2f,
@@ -2413,14 +2843,14 @@ def kernel_work(name: str, B: int, sp_fold: S.FoldedSpOperand,
         return work
     # B17 writes Dout class planes a value; B18 reads them for x and y
     cp = class_boundary_plan(name, plans.n1, SP_K)
-    w2c, c2c = C.host_class_tables(cp)
+    _, c2c = C.host_class_tables(cp)
     w2cc = C.host_compact_class_table(cp, plans)
     D = cp.Dout
     work["sp_seg1_classes"] = ((1 + D) * row + _nbytes(st.w1c) + sp_tw,
                                work["sp_seg1"][1])
     work["sp_seg2_classes"] = (
         (2 * D + 1) * row + _nbytes(w2cc, c2c, st.w2ic, st.c2i),
-        2 * _sp_macs(w2c, sum(cp.dins), B, plans) + m2i)
+        2 * _compact_macs(w2cc, sum(cp.dins), B, plans, "rows", D) + m2i)
     return work
 
 
@@ -2935,9 +3365,11 @@ def main() -> int:
     phase("3e large rings")
     large, split_times = large_rings(device_line)
     small_rings_timing(device_line)
+    sp_large, sp_times = sp_large_rings(device_line, errors)
+    large = {name: large[name] + sp_large[name] for name in KERNELS}
 
     phase("4 timing")
-    times = timing(device_line, q30_times) | split_times
+    times = timing(device_line, q30_times) | split_times | sp_times
 
     phase("5 the CLI on the card")
     cli_on_the_card(times, device_line)

@@ -1,4 +1,5 @@
-"""Digit-matmul stage tables for the MXU path (numpy only).
+"""Digit-matmul stage tables for the MXU path (host only: numpy, and torch
+on the host's threads for the elementwise reductions).
 
 Counterpart of the static planner of ``qtesla_tpu/ops/ntt_mxu.py``
 (l.66-565) and of its ``pointwise_bound`` (l.813).  It is a module of its own
@@ -50,11 +51,13 @@ the (bw, bw) diagonal blocks alone, never from the (n, n) matrix.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .modmul import sparse_reduce_plan
 from ..params import get_params
@@ -387,33 +390,74 @@ def _chunks(nb: int):
         yield b0, min(nb, b0 + _PLAN_CHUNK)
 
 
-def _shifted(K: np.ndarray, mult: int, q: int, D: int) -> np.ndarray:
+def _shifted_t(K: torch.Tensor, mult: int, q: int, D: int) -> torch.Tensor:
     """u = centred(K * mult mod q) + split_bias(D), int32, K int64
     canonical: digit j < D - 1 of the balanced base-256 split is ((u >>
     8j) & 255) - 128 and the top one u >> 8(D - 1), as ``_balanced_digits``
-    makes them."""
-    Ki = (K * mult) % q
-    return (Ki - np.where(Ki > q // 2, q, 0)
-            + _split_bias(D, 256)).astype(np.int32)
+    makes them.  K * mult mod q by Shoup's reduction with mult's companion
+    floor(mult * 2^32 / q) (K times it stays below 2^63), no division, in
+    torch on all the host's threads."""
+    mult %= q
+    r = K * mult - ((K * ((mult << 32) // q)) >> 32) * q
+    r = torch.where(r >= q, r - q, r)
+    return (r - torch.where(r > q // 2, q, 0)
+            + _split_bias(D, 256)).to(torch.int32)
+
+
+# values of planner work from which the host's threads take it (torch);
+# below, one thread, so that the planners of a test's worker processes do
+# not oversubscribe the host
+_THREADED_ENTRIES = 1 << 22
+
+
+@contextlib.contextmanager
+def host_threads(entries: int):
+    """torch's host threads for ``entries`` values of planner work: all of
+    them from ``_THREADED_ENTRIES``, one below."""
+    if entries >= _THREADED_ENTRIES:
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _shifted(K: np.ndarray, mult: int, q: int, D: int) -> np.ndarray:
+    """``_shifted_t`` of an int64 numpy array, as numpy."""
+    with host_threads(K.size):
+        return _shifted_t(torch.from_numpy(
+            np.ascontiguousarray(K, dtype=np.int64)), mult, q, D).numpy()
+
+
+def _digit_t(u: torch.Tensor, j: int, D: int) -> torch.Tensor:
+    """Digit j (int32) of the values whose shifted form is u."""
+    return u >> 8 * j if j == D - 1 else ((u >> 8 * j) & 255) - 128
 
 
 def _low_digit(u: np.ndarray, j: int) -> np.ndarray:
     return ((u >> (8 * j)).astype(np.uint8) ^ np.uint8(0x80)).view(np.int8)
 
 
-def _top_range(u: np.ndarray, D: int) -> tuple[int, int]:
+def _top_range(u, D: int) -> tuple[int, int]:
     """(min, max) of the top digit; raises where it leaves int8."""
     lo, hi = int(u.min()) >> 8 * (D - 1), int(u.max()) >> 8 * (D - 1)
     assert -128 <= lo and hi <= 127, "digit overflow"
     return lo, hi
 
 
-def _digit_maxima(u: np.ndarray, D: int) -> list[int]:
-    """Max |digit| per class of the values whose shifted form is u."""
+def _digit_maxima(u, D: int) -> list[int]:
+    """Max |digit| per class of the values whose shifted form is u (numpy
+    or torch)."""
     out = []
     for j in range(D - 1):
-        d = _low_digit(u, j)
-        out.append(max(int(d.max()), -int(d.min())))
+        if isinstance(u, np.ndarray):
+            d = _low_digit(u, j)
+            out.append(max(int(d.max()), -int(d.min())))
+        else:
+            out.append(int(_digit_t(u, j, D).abs().max()))
     lo, hi = _top_range(u, D)
     return out + [max(hi, -lo)]
 

@@ -201,9 +201,9 @@ def _path(path: str, name: str, mesh):
 
 
 def _forward_exchange(xs, mesh):
-    from .distributed import _default_n1, all_to_all
+    from .distributed import all_to_all, sp_n1
     B, nloc = xs.shape
-    n1 = _default_n1(nloc * mesh.model)
+    n1 = sp_n1(nloc * mesh.model)
     return all_to_all(xs.reshape(B, n1, nloc // n1), mesh.model_group, 1,
                       2).reshape(B, nloc)
 
@@ -337,9 +337,10 @@ def main(argv=None) -> int:
 def _kernels() -> dict:
     """Every kernel's registry entry, by name."""
     from ..ops import ntt_fused, ntt_mxu, ntt_mxu_split, ntt_pairings
-    from . import sharded_classes, sharded_mxu
+    from . import sharded_classes, sharded_mxu, sp_column_split
     return {name: k for mod in (ntt_fused, ntt_mxu, ntt_mxu_split,
-                                ntt_pairings, sharded_mxu, sharded_classes)
+                                ntt_pairings, sharded_mxu, sharded_classes,
+                                sp_column_split)
             for name, k in mod.KERNELS.items()}
 
 

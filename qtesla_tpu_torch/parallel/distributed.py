@@ -57,7 +57,7 @@ __all__ = ["init_distributed", "make_global_mesh", "global_batch",
            "local_shard", "process_rows", "barrier", "live_processes",
            "BarrierTimeout", "Pending", "all_to_all", "send_blocks",
            "recv_blocks", "joined", "world_size", "rank_coords",
-           "mesh_groups", "slowest", "rank_device", "LAYOUTS"]
+           "mesh_groups", "slowest", "rank_device", "LAYOUTS", "sp_n1"]
 
 LAYOUTS = ("dp", "sp", "ulysses")
 
@@ -233,8 +233,14 @@ def rank_device() -> torch.device:
     return _joined().device
 
 
-def _default_n1(n: int) -> int:
-    return 1 << ((n.bit_length() - 1) // 2)
+def sp_n1(n: int) -> int:
+    """The four-step split n = n1 x n2 of a ring of n where none is given:
+    JAX's 2^(log2(n) // 2) while n2 fits one 128-lane tile of the segment
+    kernels, n / 128 past that (n >= 32768), so that n2 <= 128 always.  The
+    "sp" layout and the sequence-parallel entry points
+    (``sharded.polymul_fourstep_sharded_fn``, ``ulysses.polymul_sp_fn``)
+    take it."""
+    return max(1 << ((n.bit_length() - 1) // 2), n // 128)
 
 
 def _check_layout(layout: str) -> None:
@@ -261,7 +267,7 @@ def process_rows(mesh, batch: int, layout: str = "dp") -> slice:
 
 def _columns(mesh, n: int, layout: str, n1: int | None) -> tuple[int, int]:
     """(n1, n2/k) of a model shard's columns: "ulysses" is n1 = 1."""
-    n1 = 1 if layout == "ulysses" else (n1 or _default_n1(n))
+    n1 = 1 if layout == "ulysses" else (n1 or sp_n1(n))
     k = mesh.model
     if n % n1 or (n // n1) % k:
         raise ValueError(f"model axis {k} must divide n2 = {n // n1} "
@@ -273,7 +279,7 @@ def global_batch(mesh, local_rows: torch.Tensor, layout: str = "dp",
                  n1: int | None = None) -> torch.Tensor:
     """This rank's shard of its process's rows (B, n): under "dp" the rows
     themselves, under "sp" the columns j2 of model index d (n1 the
-    four-step's, by default 2^(log2(n) // 2)), under "ulysses" the
+    four-step's, by default ``sp_n1(n)``), under "ulysses" the
     positions of model index d, each (B, n/k) and contiguous, on the mesh's
     device."""
     _check_layout(layout)

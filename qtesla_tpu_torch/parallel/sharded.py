@@ -42,7 +42,8 @@ from ..ops import ntt as N
 from ..ops.modmul import shoup_mulmod
 from ..ops.ntt import _fourstep_twiddle, _subtables
 from ..ops.tables import get_tables
-from .distributed import all_to_all
+from ..params import get_params
+from .distributed import all_to_all, sp_n1
 from .mesh import on_mesh
 
 __all__ = ["polymul_dp_fn", "polymul_fixed_dp_fn",
@@ -286,7 +287,13 @@ def polymul_fourstep_sharded_fn(name: str, mesh, n1: int | None = None,
     model axis of 1 is then the single-transform digit-matmul polymul (B5),
     as in the JAX package.  ``local="jnp"`` runs the plain-torch four-step
     with Stockham locals at every k.  Across ranks x, y and z are this
-    rank's shards (B, n/k) in the "sp" layout."""
+    rank's shards (B, n/k) in the "sp" layout.  Where ``n1`` is not given
+    it is ``distributed.sp_n1(n)``: JAX's 2^(log2(n) // 2) up to n = 16384,
+    n / 128 from 32768, where JAX's "auto" falls back to its jnp locals
+    (its segment kernels refuse n2 > 128) and the port's kernels take the
+    split whose n2 is 128; the product is the same at every split."""
+    if n1 is None:
+        n1 = sp_n1(get_params(name).n)
     if local == "jnp":
         return _build(name, mesh, n1).polymul
     if local not in ("auto", "mxu"):

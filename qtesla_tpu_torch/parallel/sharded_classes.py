@@ -8,7 +8,9 @@ Counterpart of the class-boundary half of
   wide stages, digit split and products against K1, without the
   recombination; class m's raw int32 sum c_m is stored as the uint32
   c_m + cls_b[m] at columns [m*nloc + t*TW, ...), so a shard row (nloc
-  values) becomes Dout*nloc;
+  values) becomes Dout*nloc; from nloc = 32768 in B11's split form (B2's
+  sweeps, then ``split_class_sums``: the tile kernel of
+  ``csrc/sp_column_split.cu``);
 - ``sp_seg2_classes``  B18, replaces ``_make_seg2_classes`` (l.1001): per
   tile and operand, each class plane j split into planes of its own
   (``class_boundary_plan``: din_j of base_j centred at cls_b[j]), one product
@@ -67,7 +69,7 @@ from .distributed import all_to_all
 from .mesh import on_mesh
 from .sharded_mxu import (_CLASS_BIAS, WARP_ROWS, SpClassPlan,
                           SpCompactPlan, SpDeviceTables, SpPlan,
-                          _check_tables, _column_compact_plan,
+                          _check_tables, _column_compact_plan, column_split,
                           _compact_shape, _const_rows, _default_n1, _depth,
                           _kernel_layout, _operands, _permute,
                           _pointwise, _rank_shards, _rows_inv,
@@ -80,14 +82,16 @@ from .sharded_mxu import plan_for as sp_plan_for
 from .sharded_mxu_tables import (ClassPlan, SpPlans, class_boundary_plan,
                                  compact_layout, compact_tables,
                                  fourstep_mxu_plans)
+from .sp_column_split import KERNELS as SPLIT_KERNELS
+from .sp_column_split import column_split_plan, column_sweeps
 
 __all__ = ["KERNELS", "ClassDeviceTables", "SpClassPlan", "WARP_ROWS",
            "host_class_tables", "host_compact_class_table",
            "class_device_tables", "plan_for",
            "sp_seg1_classes", "sp_seg2_classes", "seg1_classes_plain",
-           "seg1_classes_compact_plain",
-           "seg2_classes_plain", "seg2_classes_compact_plain",
-           "a2a_fwd_classes",
+           "seg1_classes_compact_plain", "split_class_sums",
+           "split_class_sums_plain", "seg2_classes_plain",
+           "seg2_classes_compact_plain", "a2a_fwd_classes",
            "polymul_fourstep_mxu_classes",
            "polymul_fourstep_mxu_classes_plain",
            "polymul_fourstep_mxu_classes_fn", "local_pipeline_classes_fn"]
@@ -180,14 +184,18 @@ def seg1_classes_plain(x, plans: SpPlans, cp: ClassPlan, tabs=None,
                        first: int = 0):
     """B17's twin: canonical shards (S, B, nloc) -> (S, B, Dout*nloc)
     uint32, class m of tile t at columns m*nloc + t*TW + o holding
-    c_m + cls_b[m]; shard s uses shard first + s's tables."""
-    return _seg1_classes(x, plans, cp, tabs, first, compact=False)
+    c_m + cls_b[m]; shard s uses shard first + s's tables (their compact
+    blocks past the block form, where the dense K1 is not built)."""
+    tabs = _tabs(tabs, plans, cp, x)
+    return _seg1_classes(x, plans, cp, tabs, first,
+                         compact=tabs.sp.w1 is None)
 
 
 def seg1_classes_compact_plain(x, plans: SpPlans, cp: ClassPlan, tabs=None,
                                first: int = 0):
-    """``seg1_classes_plain`` reading the compact K1 (``tabs.sp.w1c``):
-    what B17 multiplies.  Only the tests use it."""
+    """``seg1_classes_plain`` reading the compact K1 (``tabs.sp.w1c``): what
+    B17 multiplies.  The dense twin past ``DENSE_MAX_N``, the tests and the
+    chip check use it."""
     return _seg1_classes(x, plans, cp, tabs, first, compact=True)
 
 
@@ -196,19 +204,50 @@ def _seg1_classes(x, plans: SpPlans, cp: ClassPlan, tabs, first: int,
     """B17's twin over the dense K1 or (``compact``) its nonzero
     blocks."""
     tabs = _tabs(tabs, plans, cp, x)
-    sl = slice(first, first + x.shape[0])
+    v = _wide_stages(x, plans, tabs.sp)
+    if compact:
+        return split_class_sums_plain(v, plans, cp, tabs,
+                                      slice(first, first + x.shape[0]))
     S, B = x.shape[:2]
     p = plans.p1
-    v = _wide_stages(x, plans, tabs.sp).reshape(S, B, plans.A, plans.TW)
-    planes = _digit_planes(v, p.off, p.din, p.base)
-    if compact:
-        c = compact_class_sums(planes, tabs.sp.w1c[sl],
-                               compact_layout(plans, "columns"), cp.Dout)
-    else:
-        c = class_sums(planes, tabs.sp.w1[sl], cp.Dout)
-    c = c + torch.tensor(cp.cls_b, dtype=_I64,
-                         device=x.device)[:, None]      # (S, B, A, D, TW)
+    planes = _digit_planes(v.reshape(S, B, plans.A, plans.TW), p.off, p.din,
+                           p.base)
+    return _biased(class_sums(planes, tabs.sp.w1[first:first + S], cp.Dout),
+                   plans, cp)
+
+
+def _biased(c: torch.Tensor, plans: SpPlans, cp: ClassPlan) -> torch.Tensor:
+    """Class sums (S, B, A, D, TW) -> B17's output (S, B, Dout*nloc),
+    class m biased by cls_b[m]."""
+    S, B = c.shape[:2]
+    c = c + torch.tensor(cp.cls_b, dtype=_I64, device=c.device)[:, None]
     return c.transpose(2, 3).reshape(S, B, cp.Dout * plans.nloc).to(_U32)
+
+
+def split_class_sums(v, plans: SpPlans, cp: ClassPlan, tabs, sl):
+    """B17's step after the wide stages, on shards v (S, B, nloc) below
+    p1's split bound: the split form's tile kernel, one launch, on CUDA
+    tensors (``sp_column_split``); ``split_class_sums_plain`` on CPU
+    ones."""
+    if not v.is_cuda:
+        return split_class_sums_plain(v, plans, cp, tabs, sl)
+    return _run_kernel(SPLIT_KERNELS["sp_seg1_classes_split"],
+                       plan_for(plans, cp, "sp_seg1_classes_split"),
+                       (tabs.sp.w1c[sl], None, None, None, None), v, None,
+                       cp.Dout * plans.nloc)
+
+
+def split_class_sums_plain(v, plans: SpPlans, cp: ClassPlan, tabs, sl):
+    """The tile kernel's plain version of B17, on any device: the digit
+    split and the products over K1's nonzero blocks (``tabs.sp.w1c``),
+    biased class sums (S, B, Dout*nloc) uint32."""
+    S, B = v.shape[:2]
+    p = plans.p1
+    planes = _digit_planes(v.to(_I64).reshape(S, B, plans.A, plans.TW),
+                           p.off, p.din, p.base)
+    return _biased(compact_class_sums(planes, tabs.sp.w1c[sl],
+                                      compact_layout(plans, "columns"),
+                                      cp.Dout), plans, cp)
 
 
 def _class_rows_fwd(u, plans: SpPlans, cp: ClassPlan,
@@ -239,8 +278,11 @@ def seg2_classes_plain(u, v, plans: SpPlans, cp: ClassPlan, tabs=None,
                        first: int = 0):
     """B18's twin: the row segment of the class planes of x and y (S, B,
     Dout*nloc), B17's output after ``a2a_fwd_classes``; canonical (S, B,
-    nloc)."""
+    nloc).  Past the block form it reads the compact tables, as
+    ``seg2_classes_compact_plain``."""
     tabs = _tabs(tabs, plans, cp, u)
+    if tabs.sp.w2i is None:
+        return seg2_classes_compact_plain(u, v, plans, cp, tabs, first)
     sl = slice(first, first + u.shape[0])
     Z = _pointwise(_class_rows_fwd(u, plans, cp, tabs, sl),
                    _class_rows_fwd(v, plans, cp, tabs, sl), plans)
@@ -250,7 +292,8 @@ def seg2_classes_plain(u, v, plans: SpPlans, cp: ClassPlan, tabs=None,
 def seg2_classes_compact_plain(u, v, plans: SpPlans, cp: ClassPlan,
                                tabs=None, first: int = 0):
     """``seg2_classes_plain`` reading the compact tables (``tabs.w2cc``,
-    ``tabs.sp.w2ic``): what B18 multiplies.  Only the tests use it."""
+    ``tabs.sp.w2ic``): what B18 multiplies.  The dense twin past
+    ``DENSE_MAX_N``, the tests and the chip check use it."""
     tabs = _tabs(tabs, plans, cp, u)
     sl = slice(first, first + u.shape[0])
     Z = _pointwise(_class_rows_fwd(u, plans, cp, tabs, sl, compact=True),
@@ -288,9 +331,13 @@ def plan_for(plans: SpPlans, cp: ClassPlan,
         raise ValueError(f"{plans.name}: the class boundary takes Dout <= "
                          f"{_MAX_CLASSES} classes ({_JAX}:1090); this plan "
                          f"has Dout = {D}")
-    if seg == "sp_seg1_classes":
-        # B17 is B11 with its raw class sums staged and stored
-        plan = _column_compact_plan(plans, "sp_seg1", class_sums=True)
+    if seg in ("sp_seg1_classes", "sp_seg1_classes_split"):
+        # B17 is B11 with its raw class sums staged and stored, in the block
+        # form or (its split form) B11's tile kernel's
+        plan = (column_split_plan(plans, "sp_seg1")
+                if seg == "sp_seg1_classes_split"
+                else _column_compact_plan(plans, "sp_seg1", class_sums=True))
+        plan = SpCompactPlan.from_buffer_copy(plan)
         plan.cls_b = _slots(ctypes.c_uint32, cp.cls_b)
         return plan
     # B18 holds B12's x and y rows
@@ -330,10 +377,17 @@ def _prepare(plans: SpPlans, cp: ClassPlan, tabs, first: int, *tensors,
 # ----------------------------------------------------------------------
 
 def sp_seg1_classes(x, plans: SpPlans, cp: ClassPlan, tabs=None,
-                    first: int = 0) -> torch.Tensor:
+                    first: int = 0, split: bool | None = None) -> torch.Tensor:
     """B17: canonical shards x (S, B, nloc) -> their biased raw class sums
-    (S, B, Dout*nloc), shard s using shard first + s's tables."""
+    (S, B, Dout*nloc), shard s using shard first + s's tables.  Past one
+    block's row (``column_split`` with its staged class sums) it runs the
+    split form: B2's sweeps, then the tile kernel; ``split`` forces either
+    form."""
     tabs, sl = _prepare(plans, cp, tabs, first, x)
+    if (column_split(plans, "sp_seg1", class_sums=True) if split is None
+            else split):
+        return split_class_sums(column_sweeps(x, plans, inverse=False),
+                                plans, cp, tabs, sl)
     if x.is_cuda:
         return _run_kernel(KERNELS["sp_seg1_classes"],
                            plan_for(plans, cp, "sp_seg1_classes"),
@@ -397,7 +451,9 @@ def _class_plans(name: str, k: int, n1: int | None):
     n1 = n1 or _default_n1(name)
     plans = fourstep_mxu_plans(name, n1, k)
     cp = class_boundary_plan(name, n1, k)
-    for seg in KERNELS:
+    split = column_split(plans, "sp_seg1", class_sums=True)
+    for seg in ("sp_seg1_classes_split" if split else "sp_seg1_classes",
+                "sp_seg2_classes"):
         plan_for(plans, cp, seg)
     sp_plan_for(plans, "sp_seg3")
     return plans, cp

@@ -25,6 +25,10 @@ Counterpart of the kernels and the assembly of
   then the inverse wide stages with n1^{-1}; ``folded=True`` takes the plan
   p3x, as the folded path does.  B11 and B16 multiply only the nonzero
   blocks of K1 and K3 (``w1c``, ``w3c``, ``w3xc``), in one kernel body;
+  from nloc = 32768, where not one row fits that body's block
+  (``column_split``), they run their split form
+  (``parallel/sp_column_split.py``: the wide stages as B2's and B3's
+  sweeps, then a tile kernel); ``split=`` forces either form;
 - ``a2a_fwd`` / ``a2a_inv``: the exchanges between them;
 - the entry points ``polymul_fourstep_mxu_fn(name, mesh, n1, chunks)``
   (l.828; ``chunks`` as ``_build``'s l.693-719),
@@ -88,7 +92,7 @@ from .distributed import Pending, all_to_all
 from .mesh import on_mesh
 from .sharded_mxu_tables import (CompactLayout, SpPlans, compact_depth,
                                  compact_layout, compact_tables,
-                                 expand_compact, fourstep_fold_tables,
+                                 expand_compact, fourstep_fold_blocks,
                                  fourstep_mxu_plans)
 
 __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
@@ -114,7 +118,7 @@ __all__ = ["KERNELS", "SpDeviceTables", "SpPlan", "FoldedSpOperand",
            "polymul_fixed_folded_fourstep_mxu_plain",
            "polymul_fixed_fourstep_mxu_fn",
            "polymul_fixed_folded_fourstep_mxu_fn", "local_fixed_pipeline_fn",
-           "chunk_count"]
+           "chunk_count", "column_split", "fold_sp_blocks"]
 
 CUDA_SOURCE = "qtesla_tpu_torch/csrc/sharded_mxu.cu"
 
@@ -153,18 +157,20 @@ class SpDeviceTables:
     n2-blocks for K2i), what B11, B12, B18 and B16 multiply, and ``w2fc``
     int8 (nblk, D*s, kp) K2f's, the n2-blocks of the one shared row table,
     what B12, B13 and B14 multiply; B17 shares ``w1c`` with B11; the dense
-    ``w2f``, ``w1``, ``w2i``, ``w3`` and ``w3x`` serve the twins alone."""
+    ``w2f``, ``w1``, ``w2i``, ``w3`` and ``w3x`` serve the twins alone and
+    are None past n = ``DENSE_MAX_N``, where the twins read the compact
+    blocks."""
 
-    w1: torch.Tensor
+    w1: torch.Tensor | None
     c1: torch.Tensor
-    w2f: torch.Tensor
+    w2f: torch.Tensor | None
     c2f: torch.Tensor
-    w2i: torch.Tensor
+    w2i: torch.Tensor | None
     c2i: torch.Tensor
-    w3: torch.Tensor
+    w3: torch.Tensor | None
     c3: torch.Tensor
     tw: torch.Tensor
-    w3x: torch.Tensor
+    w3x: torch.Tensor | None
     c3x: torch.Tensor
     w1c: torch.Tensor
     w2ic: torch.Tensor
@@ -198,27 +204,40 @@ def _const_rows(c: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(c[..., 0, :].copy())
 
 
+# the largest ring whose dense tables (the dense twins' alone) are built:
+# every shipped set and n = 8192 (75 MB a table at n = 65536); past it the
+# twins read the compact blocks, as the kernels do
+DENSE_MAX_N = 8192
+
+
+def _dense(plans: SpPlans) -> bool:
+    return plans.n <= DENSE_MAX_N
+
+
 def host_tables(plans: SpPlans) -> SpDeviceTables:
-    """The kernel-layout tables on the CPU, in new storage."""
-    cols, rows = (compact_layout(plans, kind) for kind in ("columns", "rows"))
+    """The kernel-layout tables on the CPU: the compact blocks as the plan
+    holds them, the dense tables (which the twins alone read) in new
+    storage up to n = ``DENSE_MAX_N`` and None past it."""
+    dense = _dense(plans)
+
+    def lay_out(p):
+        return _kernel_layout(p.W) if dense else None
+
     return SpDeviceTables(
-        _kernel_layout(plans.p1.W), _const_rows(plans.p1.const),
-        _kernel_layout(plans.p2f.W), _const_rows(plans.p2f.const),
-        _kernel_layout(plans.p2i.W), _const_rows(plans.p2i.const),
-        _kernel_layout(plans.p3.W), _const_rows(plans.p3.const),
+        lay_out(plans.p1), _const_rows(plans.p1.const),
+        lay_out(plans.p2f), _const_rows(plans.p2f.const),
+        lay_out(plans.p2i), _const_rows(plans.p2i.const),
+        lay_out(plans.p3), _const_rows(plans.p3.const),
         torch.from_numpy(plans.t1.packed.copy()),
-        _kernel_layout(plans.p3x.W), _const_rows(plans.p3x.const),
-        torch.from_numpy(compact_tables(plans.p1.W, cols)),
-        torch.from_numpy(compact_tables(plans.p2i.W, rows)),
-        torch.from_numpy(compact_tables(plans.p3.W, cols)),
-        torch.from_numpy(compact_tables(plans.p3x.W, cols)),
-        torch.from_numpy(compact_tables(plans.p2f.W, rows)))
+        lay_out(plans.p3x), _const_rows(plans.p3x.const),
+        *(torch.from_numpy(getattr(plans, p).Wc)
+          for p in ("p1", "p2i", "p3", "p3x", "p2f")))
 
 
 @functools.lru_cache(maxsize=None)
 def device_tables(plans: SpPlans, device: torch.device) -> SpDeviceTables:
     """``host_tables(plans)`` on ``device``, made once per device."""
-    return SpDeviceTables(*(t.to(device)
+    return SpDeviceTables(*(None if t is None else t.to(device)
                             for t in host_tables(plans).tensors()))
 
 
@@ -245,6 +264,13 @@ def fold_sp_operand(W: np.ndarray, c: np.ndarray, plans: SpPlans,
         .to(device), _const_rows(c).to(device))
 
 
+def fold_sp_blocks(Wc: np.ndarray, c: np.ndarray, device) -> FoldedSpOperand:
+    """The operand of a (Wc, const) pair of ``fourstep_fold_blocks`` on
+    ``device``: its nonzero blocks as they are, once per constant."""
+    return FoldedSpOperand(torch.from_numpy(Wc).to(device),
+                           _const_rows(c).to(device))
+
+
 def dense_folded_tables(fold: FoldedSpOperand, plans: SpPlans) -> torch.Tensor:
     """The dense tables int8 (k, A, D*TW, kp) of a folded operand, W with
     the output axis first (``expand_compact``), on the operand's device:
@@ -254,8 +280,12 @@ def dense_folded_tables(fold: FoldedSpOperand, plans: SpPlans) -> torch.Tensor:
     return _kernel_layout(W).to(fold.w.device)
 
 
+# the slots of SpDeviceTables.tensors() that hold the dense tables
+_DENSE_SLOTS = (0, 2, 4, 6, 9)
+
+
 def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
-    k, A, TW, D = plans.k, plans.A, plans.TW, plans.p1.W.shape[-1] // plans.TW
+    k, A, TW, D = plans.k, plans.A, plans.TW, plans.D
     i8, u32 = torch.int8, torch.uint32
     kp = {p: _depth(getattr(plans, p).din, TW)
           for p in ("p1", "p2f", "p2i", "p3", "p3x")}
@@ -272,7 +302,9 @@ def _check_tables(tabs: SpDeviceTables, plans: SpPlans, like) -> None:
             (i8, (k, A, *_compact_shape(plans, "columns", D,
                                         plans.p3x.din))),
             (i8, _compact_shape(plans, "rows", D, plans.p2f.din)))
-    _check_shapes("SP tables", tabs.tensors(), want, like)
+    # past DENSE_MAX_N the dense slots hold None (``host_tables``)
+    _check_shapes("SP tables", tabs.tensors(), want, like,
+                  () if _dense(plans) else _DENSE_SLOTS)
 
 
 def _compact_shape(plans: SpPlans, kind: str, D: int, din: int) -> tuple:
@@ -342,6 +374,8 @@ def seg1_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     """B11's twin: (S, B, nloc) canonical -> (S, B, nloc) canonical, shard
     s using shard first + s's tables."""
     tabs = _tabs(tabs, plans, x)
+    if tabs.w1 is None:
+        return seg1_compact_plain(x, plans, tabs, first)
     sl = slice(first, first + x.shape[0])
     return _product(_wide_stages(x, plans, tabs), tabs.w1[sl], tabs.c1[sl],
                     plans.p1, plans).to(_U32)
@@ -384,7 +418,8 @@ def _compact_product(v: torch.Tensor, wc: torch.Tensor, c: torch.Tensor, p,
 
 def seg1_compact_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     """``seg1_plain`` reading the compact K1 (``tabs.w1c``): what B11
-    multiplies.  Only the tests use it."""
+    multiplies.  The dense twin past ``DENSE_MAX_N``, the tests and the chip
+    check use it."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
     return _compact_product(_wide_stages(x, plans, tabs), tabs.w1c[sl],
@@ -403,7 +438,8 @@ def _column_inv(v, plans: SpPlans, tabs: SpDeviceTables) -> torch.Tensor:
 def seg3_compact_plain(w, plans: SpPlans, tabs=None, first: int = 0,
                        folded: bool = False):
     """``seg3_plain`` reading the compact K3 (``tabs.w3c``, under p3x
-    ``tabs.w3xc``): what B16 multiplies.  Only the tests use it."""
+    ``tabs.w3xc``): what B16 multiplies.  The dense twin past
+    ``DENSE_MAX_N``, the tests and the chip check use it."""
     tabs = _tabs(tabs, plans, w)
     sl = slice(first, first + w.shape[0])
     w3c, c3, p3 = ((tabs.w3xc, tabs.c3x, plans.p3x) if folded
@@ -446,6 +482,8 @@ def _pointwise(X, Y, plans: SpPlans) -> torch.Tensor:
 def seg2_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     """B12's twin: the row segment of x and y (S, B, nloc), canonical."""
     tabs = _tabs(tabs, plans, x)
+    if tabs.w2f is None:
+        return seg2_compact_plain(x, y, plans, tabs, first)
     sl = slice(first, first + x.shape[0])
     Z = _pointwise(_rows_fwd(x, plans, tabs), _rows_fwd(y, plans, tabs), plans)
     return _rows_inv(Z, plans, tabs, sl)
@@ -453,8 +491,8 @@ def seg2_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
 
 def seg2_compact_plain(x, y, plans: SpPlans, tabs=None, first: int = 0):
     """``seg2_plain`` reading the compact K2f and K2i (``tabs.w2fc``,
-    ``tabs.w2ic``): what B12 multiplies.  Only the tests and the chip check
-    use it."""
+    ``tabs.w2ic``): what B12 multiplies.  The dense twin past
+    ``DENSE_MAX_N``, the tests and the chip check use it."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
     X, Y = (_rows_fwd_compact(t, plans, tabs) for t in (x, y))
@@ -474,6 +512,8 @@ def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
     is exact for every value, so JAX's lazy spectrum serves too), shard s
     against row first + s; canonical."""
     tabs = _tabs(tabs, plans, x)
+    if tabs.w2f is None:
+        return seg2_fixed_compact_plain(x, aspec, plans, tabs, first)
     sl = slice(first, first + x.shape[0])
     return _rows_inv(_pointwise(_rows_fwd(x, plans, tabs),
                                 _spectrum_plain(aspec, plans, sl), plans),
@@ -482,9 +522,9 @@ def seg2_fixed_plain(x, aspec, plans: SpPlans, tabs=None, first: int = 0):
 
 def seg2_fixed_compact_plain(x, aspec, plans: SpPlans, tabs=None,
                              first: int = 0):
-    """``seg2_fixed_plain`` reading the compact K2f and K2i
-    (``tabs.w2fc``, ``tabs.w2ic``): what B13 multiplies.  Only the tests
-    use it."""
+    """``seg2_fixed_plain`` reading the compact K2f and K2i (``tabs.w2fc``,
+    ``tabs.w2ic``): what B13 multiplies.  The dense twin past
+    ``DENSE_MAX_N`` and the tests use it."""
     tabs = _tabs(tabs, plans, x)
     sl = slice(first, first + x.shape[0])
     X = _rows_fwd_compact(x, plans, tabs)
@@ -497,12 +537,16 @@ def seg2_fwd_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     """B14's twin: the forward rows K2f of (S, B, nloc), canonical (JAX
     stores them lazy).  The table is shared, so ``first`` only names the
     shards."""
-    return _rows_fwd(x, plans, _tabs(tabs, plans, x)).to(_U32)
+    tabs = _tabs(tabs, plans, x)
+    if tabs.w2f is None:
+        return seg2_fwd_compact_plain(x, plans, tabs, first)
+    return _rows_fwd(x, plans, tabs).to(_U32)
 
 
 def seg2_fwd_compact_plain(x, plans: SpPlans, tabs=None, first: int = 0):
     """``seg2_fwd_plain`` reading the compact K2f (``tabs.w2fc``): what B14
-    multiplies.  Only the tests and the chip check use it."""
+    multiplies.  The dense twin past ``DENSE_MAX_N``, the tests and the chip
+    check use it."""
     return _rows_fwd_compact(x, plans, _tabs(tabs, plans, x)).to(_U32)
 
 
@@ -513,7 +557,10 @@ def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
     JAX's kernel canonicalises its input first when p2x.canon (l.574-576)
     and reduces after the product when p2x.needs_reduce; the input here is
     B11's canonical output and the recombination is canonical, so nothing
-    replays either."""
+    replays either.  Past ``DENSE_MAX_N`` it reads the compact blocks
+    (``seg2_folded_compact_plain``)."""
+    if not _dense(plans):
+        return seg2_folded_compact_plain(x, fold, plans, first)
     sl = slice(first, first + x.shape[0])
     return _product(x.to(_I64), _shard_rows(dense_folded_tables(fold, plans),
                                             plans, sl, "folded SP operand"),
@@ -524,8 +571,8 @@ def seg2_folded_plain(x, fold: FoldedSpOperand, plans: SpPlans,
 def seg2_folded_compact_plain(x, fold: FoldedSpOperand, plans: SpPlans,
                               first: int = 0):
     """``seg2_folded_plain`` over the operand's compact blocks as they are
-    (``fold.w``): what B15 multiplies.  Only the tests and the chip check
-    use it."""
+    (``fold.w``): what B15 multiplies.  The dense twin past ``DENSE_MAX_N``,
+    the tests and the chip check use it."""
     sl = slice(first, first + x.shape[0])
     w, c = (_shard_rows(t, plans, sl, "folded SP operand") for t in fold)
     return _compact_product(x.to(_I64), w, c, plans.p2x, plans,
@@ -537,6 +584,8 @@ def seg3_plain(w, plans: SpPlans, tabs=None, first: int = 0,
     """B16's twin: the inverse column segment of (S, B, nloc), canonical;
     ``folded`` takes K3 under p3x, the folded path's plan."""
     tabs = _tabs(tabs, plans, w)
+    if tabs.w3 is None:
+        return seg3_compact_plain(w, plans, tabs, first, folded)
     sl = slice(first, first + w.shape[0])
     w3, c3, p3 = ((tabs.w3x, tabs.c3x, plans.p3x) if folded
                   else (tabs.w3, tabs.c3, plans.p3))
@@ -621,20 +670,17 @@ SEGMENTS = {"sp_seg1": ("p1",), "sp_seg2": ("p2f", "p2i"),
 def plan_for(plans: SpPlans, seg: str) -> SpPlan:
     """The run-time plan of segment ``seg`` (a key of ``SEGMENTS``).  A plan
     outside the kernels' range (more than 4 classes or 6 planes, a class
-    bound of 2^24, a tile below 8 lanes, rows that do not fit) raises."""
+    bound of 2^24, a tile below 8 lanes) raises."""
     q, TW = plans.q, plans.TW
     digit = tuple(getattr(plans, p) for p in SEGMENTS[seg])
-    D = plans.p1.W.shape[-1] // TW
+    D = plans.D
     if (D > 4 or max(p.din for p in digit) > 6 or TW < 8
             or max(max(p.bounds) for p in digit) >= _CLASS_BIAS):
         raise ValueError(f"{plans.name}: SP plan (D={D}, din="
                          f"{[p.din for p in digit]}, TW={TW}) is outside the "
                          f"kernels' range")
-    ops = KERNELS[seg.split()[0]].smem_rows
-    rows = block_rows(plans.nloc, ops)
-    if rows < ops:
-        raise ValueError(f"nloc={plans.nloc}: a row does not fit the "
-                         f"kernels' shared memory")
+    # the dense kernels' rows a block; the compact plans set their own
+    rows = block_rows(plans.nloc, KERNELS[seg.split()[0]].smem_rows)
     pw = [pow(2, 8 * j, q) for j in range(D)] + [0] * (4 - D)
     bias = _CLASS_BIAS * sum(pw)
     ps = plans.ps
@@ -704,12 +750,8 @@ def table_stride(kp: int) -> int:
     return kp + (96 - kp % 64) % 64
 
 
-def compact_route(smem_of) -> tuple[int, int]:
-    """(rows, smem_tables) of B11 or B16, whose block takes ``smem_of(rows,
-    smem_tables)`` bytes.  In order: the tables in shared memory with two
-    blocks an SM at 16 rows a buffer, then with one block at 32 or 16; the
-    tables read from L2 the same way, then with as many rows as one block
-    fits."""
+def _route(smem_of) -> tuple[int, int] | None:
+    """``compact_route``'s pick, or None where no row fits."""
     def fits(rows, tables, blocks):
         return (blocks * (smem_of(rows, tables) + _BLOCK_RESERVE)
                 <= _SM_SHARED)
@@ -721,7 +763,20 @@ def compact_route(smem_of) -> tuple[int, int]:
     for rows in range(15, 0, -1):
         if fits(rows, 0, 1):
             return rows, 0
-    raise ValueError("a row does not fit the kernels' shared memory")
+    return None
+
+
+def compact_route(smem_of) -> tuple[int, int]:
+    """(rows, smem_tables) of B11 or B16, whose block takes ``smem_of(rows,
+    smem_tables)`` bytes.  In order: the tables in shared memory with two
+    blocks an SM at 16 rows a buffer, then with one block at 32 or 16; the
+    tables read from L2 the same way, then with as many rows as one block
+    fits.  Raises where no row fits (``column_split`` then picks the split
+    form)."""
+    route = _route(smem_of)
+    if route is None:
+        raise ValueError("a row does not fit the kernels' shared memory")
+    return route
 
 
 @functools.lru_cache(maxsize=None)
@@ -749,6 +804,26 @@ def seg3_compact_plan(plans: SpPlans, folded: bool = False) -> SpCompactPlan:
 _STAGE_PAD = 2
 
 
+def _column_smem_of(plans: SpPlans, seg: str, class_sums: bool):
+    """The shared memory of one column_compact_kernel block of B11 or B16
+    (``seg`` a key of ``SEGMENTS``; ``class_sums``: B17) as a function of
+    its rows and route: two row buffers, the const rows (B17: a tile's D
+    class planes of ``rows`` rows, TW + 2 words each), a tile's planes, the
+    shard's tables."""
+    lay = compact_layout(plans, "columns")
+    kp = compact_depth(getattr(plans, SEGMENTS[seg][0]).din, lay.s)
+    tables = plans.A * plans.D * plans.TW * kp
+
+    def smem_of(rows, smem_tables):
+        staged = (plans.D * rows * (plans.TW + _STAGE_PAD) if class_sums
+                  else plans.nloc)
+        return (2 * rows * plans.nloc * 4 + staged * 4
+                + -(-rows // 16) * 16 * planes_stride(lay.nblk, kp)
+                + smem_tables * tables)
+
+    return smem_of
+
+
 def _column_compact_plan(plans: SpPlans, seg: str,
                          class_sums: bool = False) -> SpCompactPlan:
     """The compact plan of a column segment (B11 or B16; ``seg`` a key of
@@ -756,23 +831,27 @@ def _column_compact_plan(plans: SpPlans, seg: str,
     ``class_sums``: B17's, whose block stages a tile's D class planes of
     ``rows`` rows (TW + 2 words each) where B11 keeps its const rows."""
     sp = plan_for(plans, seg)
-    lay = compact_layout(plans, "columns")
-    din = getattr(plans, SEGMENTS[seg][0]).din
-    kp = compact_depth(din, lay.s)
-    tables = plans.A * sp.d * plans.TW * kp
-
-    def smem_of(rows, smem_tables):
-        staged = (sp.d * rows * (plans.TW + _STAGE_PAD) if class_sums
-                  else plans.nloc)
-        return (2 * rows * plans.nloc * 4 + staged * 4
-                + -(-rows // 16) * 16 * planes_stride(lay.nblk, kp)
-                + smem_tables * tables)
-
-    rows, smem_tables = compact_route(smem_of)
+    rows, smem_tables = compact_route(_column_smem_of(plans, seg,
+                                                      class_sums))
     fields = {f: getattr(sp, f) for f, _ in SpPlan._fields_}
     fields.update(rows=rows, smem_tables=smem_tables,
-                  c1=_compact_dims(lay, din))
+                  c1=_compact_dims(compact_layout(plans, "columns"),
+                                   getattr(plans, SEGMENTS[seg][0]).din))
     return SpCompactPlan(**fields)
+
+
+# ----------------------------------------------------------------------
+# The column segments' split form: rows past one block's reach.
+# ----------------------------------------------------------------------
+
+def column_split(plans: SpPlans, seg: str = "sp_seg1",
+                 class_sums: bool = False) -> bool:
+    """Whether the column segment ``seg`` (B11 "sp_seg1", B16 "sp_seg3" or
+    "sp_seg3 p3x"; ``class_sums``: B17) runs its split form: where not one
+    row of ``column_compact_kernel``'s two row buffers and const rows fits
+    a block's shared memory (``compact_route``), from nloc = 32768
+    (``parallel/sp_column_split.py``)."""
+    return _route(_column_smem_of(plans, seg, class_sums)) is None
 
 
 # batch rows of x and of y in one unit of the row segment kernel (B12,
@@ -976,10 +1055,16 @@ def _spectrum_rows(aspec, plans: SpPlans, like, sl) -> torch.Tensor:
 # Wrappers: kernel for CUDA tensors, plain version for CPU tensors.
 # ----------------------------------------------------------------------
 
-def sp_seg1(x, plans: SpPlans, tabs=None, first: int = 0) -> torch.Tensor:
+def sp_seg1(x, plans: SpPlans, tabs=None, first: int = 0,
+            split: bool | None = None) -> torch.Tensor:
     """B11: the column segment of canonical shards x (S, B, nloc), shard s
-    using shard first + s's tables; canonical out."""
+    using shard first + s's tables; canonical out.  Past one block's row
+    (``column_split``) it runs the split form; ``split`` forces either form
+    (the tests' means to compare them at small nloc)."""
     tabs, sl = _prepare(plans, tabs, first, x)
+    if column_split(plans, "sp_seg1") if split is None else split:
+        from .sp_column_split import seg1_split
+        return seg1_split(x, plans, tabs, sl)
     if x.is_cuda:
         return _run_kernel(KERNELS["sp_seg1"], seg1_compact_plan(plans),
                            (tabs.w1c[sl], tabs.c1[sl], None, None, tabs.tw),
@@ -1045,11 +1130,16 @@ def sp_seg2_folded(x, fold: FoldedSpOperand, plans: SpPlans,
 
 
 def sp_seg3(w, plans: SpPlans, tabs=None, first: int = 0,
-            folded: bool = False) -> torch.Tensor:
+            folded: bool = False, split: bool | None = None) -> torch.Tensor:
     """B16: the inverse column segment of canonical coefficient-layout
     shards (S, B, nloc); canonical out.  ``folded`` takes K3 under p3x, the
-    folded path's plan."""
+    folded path's plan.  Past one block's row it runs the split form;
+    ``split`` forces either form, as ``sp_seg1``'s."""
     tabs, sl = _prepare(plans, tabs, first, w)
+    seg = "sp_seg3 p3x" if folded else "sp_seg3"
+    if column_split(plans, seg) if split is None else split:
+        from .sp_column_split import seg3_split
+        return seg3_split(w, plans, tabs, sl, folded)
     if w.is_cuda:
         w3c, c3 = (tabs.w3xc, tabs.c3x) if folded else (tabs.w3c, tabs.c3)
         return _run_kernel(KERNELS["sp_seg3"],
@@ -1311,8 +1401,9 @@ def _rank_fixed_pair(plans: SpPlans, mesh, folded: bool):
     takes the whole constant (n values, on every rank) and returns this
     rank's part: its row (1, nloc) of the device-major spectrum (B11 on its
     columns, the forward exchange, B14), or with ``folded`` that row's
-    folded tables (``fourstep_fold_tables(..., first=d)``) as a one-shard
-    ``FoldedSpOperand``.  ``multiply(x, part)`` (``multiply(x, *part)``
+    folded tables' blocks (``fourstep_fold_blocks(..., first=d)``) as a
+    one-shard ``FoldedSpOperand``.  ``multiply(x, part)`` (``multiply(x,
+    *part)``
     when folded) takes this rank's shard (B, nloc) in the "sp" layout: B11,
     the forward exchange, B13 (or B15), the inverse exchange, B16 (under
     p3x when folded)."""
@@ -1339,8 +1430,8 @@ def _rank_fixed_pair(plans: SpPlans, mesh, folded: bool):
 
     def prepare_folded(a):
         row = spectrum_row(a).cpu().numpy()
-        return fold_sp_operand(*fourstep_fold_tables(plans, row, first=d),
-                               plans, mesh.device)
+        return fold_sp_blocks(*fourstep_fold_blocks(plans, row, first=d),
+                              mesh.device)
 
     return prepare_folded, lambda xs, w, c: multiply(
         xs, FoldedSpOperand(w, c))
@@ -1350,9 +1441,9 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
                                          n1: int | None = None):
     """(prepare, multiply) of the folded fixed SP path: ``prepare(a)`` runs
     B11 and B14 on a, copies the spectrum to the host, builds its folded
-    tables (``fourstep_fold_tables``), keeps their nonzero blocks and
-    returns them on the mesh's device as a ``FoldedSpOperand`` (w compact,
-    c); ``multiply(x, w, c)`` runs B11, one folded product (B15) and B16
+    tables' nonzero blocks (``fourstep_fold_blocks``) and returns them on
+    the mesh's device as a ``FoldedSpOperand`` (w compact, c);
+    ``multiply(x, w, c)`` runs B11, one folded product (B15) and B16
     under p3x.  Called as ``multiply(x, *prepare(a))``, as in JAX; JAX's
     pair carries across as ``fold_sp_operand(
     *from_jax_fourstep_fold_tables(W, c), plans, device)``.  Across ranks
@@ -1368,8 +1459,8 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
     def prepare(a):
         on_mesh(mesh, a)
         spec = fixed_spectrum(a, plans).cpu().numpy()
-        return fold_sp_operand(*fourstep_fold_tables(plans, spec), plans,
-                               mesh.device)
+        return fold_sp_blocks(*fourstep_fold_blocks(plans, spec),
+                              mesh.device)
 
     def multiply(x, w, c):
         on_mesh(mesh, x)
@@ -1399,7 +1490,7 @@ def local_pipeline_fn(name: str, k: int, n1: int | None = None,
     return pipe, plans
 
 
-def local_fixed_pipeline_fn(name: str, k: int):
+def local_fixed_pipeline_fn(name: str, k: int, n1: int | None = None):
     """The local work of one shard of a fixed SP path, without the
     exchanges: pipe(x, const) (B, nloc) -> (B, nloc), seg1 on x, then B13
     against ``const``, a device-major spectrum ((k, nloc) or (n,)), or B15
@@ -1407,7 +1498,7 @@ def local_fixed_pipeline_fn(name: str, k: int):
     B15), with shard min(1, k - 1)'s tables, as
     ``qtesla_tpu/utils/timing.py:349-450`` builds them.  Returns (pipe,
     plans)."""
-    plans = fourstep_mxu_plans(name, _default_n1(name), k)
+    plans = fourstep_mxu_plans(name, n1 or _default_n1(name), k)
     d = min(1, k - 1)
 
     def pipe(x, const):

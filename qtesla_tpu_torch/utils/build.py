@@ -46,8 +46,8 @@ _SWEEP = ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
 # csrc/ntt_mxu.cu and csrc/ntt_mxu_split.cu: (a, b, out, wf, constf, wi,
 # consti, twiddles, batch, &plan, stream)
 _MXU = [_P] * 8 + [ctypes.c_longlong, _P, _P]
-# csrc/sharded_mxu.cu and csrc/sharded_classes.cu: (a, b, out, w1, c1, w2,
-# c2, twiddles, batch, k_local, &plan, stream)
+# csrc/sharded_mxu.cu, csrc/sharded_classes.cu and csrc/sp_column_split.cu:
+# (a, b, out, w1, c1, w2, c2, twiddles, batch, k_local, &plan, stream)
 _SP = [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P, _P]
 
 # every launcher symbol and its C signature
@@ -65,7 +65,7 @@ LAUNCHERS = {
        for p in ("gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")},
     **{f"qt_sp_seg{s}": _SP
        for s in ("1", "2", "2_fixed", "2_fwd", "2_folded", "3", "1_classes",
-                 "2_classes")},
+                 "2_classes", "1_split", "3_split", "1_classes_split")},
 }
 
 

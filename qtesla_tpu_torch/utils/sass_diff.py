@@ -10,6 +10,8 @@ instantiation (``mxu_kernel<mode>``,
 tree before B13, B14 and B15 moved: B13 3, B14 4, B15 5),
 ``classes_kernel<mode,threads>`` (B17 in such a tree),
 ``column_compact_kernel<threads,shared,direction>`` (B11 0, B16 1, B17 2),
+their split form's ``column_tile_kernel<class_sums>`` (B11 and B16 0, B17
+1),
 ``seg2_compact_kernel<mode,shared,slots,full>`` (B12 0, B18 1, B13 2, B15
 3, B14 4), B2's and B3's ``transform_pass_kernel<fwd,radix,passes,logn>``
 (B2 fwd 1, B3 0; ``<..,cluster>`` once they took the cluster form),
@@ -71,6 +73,7 @@ print(load_library().path)
 """
 _KERNEL = re.compile(r"(mxu_kernel|polymul_stream_kernel|sp_kernel|"
                      r"classes_kernel|column_compact_kernel|"
+                     r"column_tile_kernel|"
                      r"seg2_classes_compact_kernel|seg2_compact_kernel|"
                      r"pairing_kernel|polymul_pass_kernel|"
                      r"transform_pass_kernel|pass_kernel|"

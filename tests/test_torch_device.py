@@ -44,6 +44,7 @@ from qtesla_tpu_torch.ops.tables import get_tables
 from qtesla_tpu_torch.parallel import make_mesh
 from qtesla_tpu_torch.parallel import sharded_classes as C
 from qtesla_tpu_torch.parallel import sharded_mxu as S
+from qtesla_tpu_torch.parallel import sp_column_split as SC
 from qtesla_tpu_torch.parallel.sharded_mxu_tables import (class_boundary_plan,
                                                          fourstep_fold_tables,
                                                          fourstep_mxu_plans)
@@ -431,13 +432,15 @@ def test_build_flags_target_hopper():
         "ntt_mxu.cu", "ntt_mxu_split.cu", "ntt_pairings.cu",
         "ntt_pairings_cluster.cu",
         "pairing_pass.cuh", "pass_stages.cuh", "pass_sweeps.cu",
-        "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu"]
+        "seg2_compact.cuh", "sharded_classes.cu", "sharded_mxu.cu",
+        "sp_column_split.cu"]
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     # the pass kernels' sweep form: one launcher for all nine kinds, a
     # launch a call (x, y, z, two scratch rows, twiddles, batch, n, logn,
     # the set's constants, &plan, the launch's number, stream)
-    assert set(build.LAUNCHERS) == {k.symbol for mod in (F, M, MS, P, S, C)
+    assert set(build.LAUNCHERS) == {k.symbol
+                                    for mod in (F, M, MS, P, S, C, SC)
                                     for k in mod.KERNELS.values()} | {
         "qt_pass_sweep"}
     sweep = build.LAUNCHERS["qt_pass_sweep"]
@@ -1267,6 +1270,67 @@ def test_mxu_split_kernels_match_plain_on_card(cuda_device, ring):
             assert moved == {k: v for k, v in
                              MS.split_launches(n, mode).items() if v}
         assert torch.equal(M.intt_mxu(M.ntt_mxu(x, mt), mt), x)
+
+
+# the column segments' split form (parallel/sp_column_split.py): (name, n,
+# q, k), shard rows past one block's reach (nloc = 32768)
+SP_SPLIT_RINGS = (("sp-split-n65536", 65536, 786433, 2),
+                  ("sp-split-n131072", 131072, 786433, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", SP_SPLIT_RINGS, ids=lambda r: r[0])
+def test_sp_split_kernels_match_plain_on_card(cuda_device, ring):
+    """B11, B16 (p3 and p3x) and B17 in their split form at n1 = n / 128
+    against their compact twins at B in {1, 3, 37}, row 0 all q - 1: each
+    call launches B2's (B16: B3's) sweeps and its tile kernel once, as
+    ``split_launches`` says; the tile kernel alone equals its plain
+    version."""
+    from qtesla_tpu_torch.parallel.distributed import sp_n1
+    name, n, q, k = ring
+    register_param_set(name, n, q)
+    plans = fourstep_mxu_plans(name, sp_n1(n), k)
+    cp = class_boundary_plan(name, sp_n1(n), k)
+    assert S.column_split(plans) and plans.nloc == 32768
+    tabs = S.device_tables(plans, cuda_device)
+    ctabs = C.class_device_tables(plans, cp, cuda_device)
+    counters = F.KERNELS | SC.KERNELS
+    rng = np.random.default_rng(24)
+    sl = slice(0, k)
+    for batch in (1, 3, 37):
+        x = rng.integers(0, q, (k, batch, plans.nloc), dtype=np.uint32)
+        x[:, 0] = q - 1
+        x = torch.from_numpy(x).to(cuda_device)
+        for seg, kern, plain in (
+                ("sp_seg1", lambda t: S.sp_seg1(t, plans, tabs),
+                 lambda t: S.seg1_compact_plain(t, plans, tabs)),
+                ("sp_seg3", lambda t: S.sp_seg3(t, plans, tabs),
+                 lambda t: S.seg3_compact_plain(t, plans, tabs)),
+                ("sp_seg3", lambda t: S.sp_seg3(t, plans, tabs, folded=True),
+                 lambda t: S.seg3_compact_plain(t, plans, tabs,
+                                                folded=True)),
+                ("sp_seg1_classes",
+                 lambda t: C.sp_seg1_classes(t, plans, cp, ctabs),
+                 lambda t: C.seg1_classes_compact_plain(t, plans, cp,
+                                                        ctabs))):
+            want = plain(x)
+            before = {kk: v.launches for kk, v in counters.items()}
+            got = kern(x)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          want.cpu().numpy(), err_msg=seg)
+            moved = {kk: v.launches - before[kk]
+                     for kk, v in counters.items()
+                     if v.launches != before[kk]}
+            assert moved == SC.split_launches(plans, seg), seg
+        v = SC.column_sweeps(x, plans, inverse=False)
+        for seg in ("sp_seg1", "sp_seg3", "sp_seg3 p3x"):
+            np.testing.assert_array_equal(
+                SC.products(v, plans, tabs, sl, seg).cpu().numpy(),
+                SC.products_plain(v, plans, tabs, sl, seg).cpu().numpy())
+        np.testing.assert_array_equal(
+            C.split_class_sums(v, plans, cp, ctabs, sl).cpu().numpy(),
+            C.split_class_sums_plain(v, plans, cp, ctabs, sl).cpu().numpy())
 
 
 @pytest.mark.cuda
