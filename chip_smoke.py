@@ -19,8 +19,8 @@ script exits non-zero without printing a result:
    bit for bit (tolerance 0: every value is an exact residue); B9 also for
    the all-0 and all-(q-1) diagonals; intt(ntt(x)) == x; B5 == B1, B6 == B2, B9 == B8 and each
    B10 pairing == B1 on the same inputs.  B3 takes inputs below 2q, B7
-   below the MXU plan's pw_bound.  B9's prepare time (B6, host tables,
-   copies) is printed per set.  B11-B16 run for every model axis k in
+   below the MXU plan's pw_bound.  B9's prepare time (B6, the folded
+   tables built on the card) is printed per set.  B11-B16 run for every model axis k in
    {2, 4, 8} the set's split takes (k = 4 at n = 8192), on the path's own
    intermediates and on all-(q-1) shards: B13 against a random constant's
    spectrum and the all-0 and all-(q-1) ones, B15 against their folded
@@ -57,19 +57,23 @@ script exits non-zero without printing a result:
    cluster (CLUSTER_LENGTHS: n = 32768, 65536 at 786433 and q30, 131072;
    also at B in {1, 3, 64}), and B2 and B3 also at 262144
    (TRANSFORM_LENGTHS).  Past a cluster's reach (SWEEP_LENGTHS: n = 2^18
-   at two primes, 2^19, 2^20, 2^21 and 2^25, each at the largest prime
-   the registry takes there) B1-B4 and the pairings in their sweep form
+   at two primes, and every n from 2^19 to 2^25, each at the largest
+   prime the registry takes there) B1-B4 and the pairings in their sweep form
    (csrc/pass_sweeps.cu; B2 and B3 at 2^18 under their sweep plan) on 3
    rows and on a row of q - 1 against their twins on the card
    (passes.SweepModel under the same plan) and plain versions, their
    launches a call the plan's.  B5-B9 at n = 8 and 16 (SMALL_RINGS, lane packed:
    32 / n rows a row of 32 lanes) against their twins and B1-B4's plain
-   versions, random and worst-case, B in {1, 3, 64, 9000}.  B5-B9 in the
+   versions, random and worst-case, B in {1, 3, 64, 9000}.  The plans the
+   planners make on the card (their elementwise passes and tables there)
+   at PLAN_CHECK_RING (131072) field for field and byte for byte against
+   the host's: the MXU plan, B9's folded operand, the SP plan at k = 4 and
+   its folded tables, with the seconds of both.  B5-B9 in the
    split form (ops/ntt_mxu_split.py: B2's sweeps from index bit 7 up, the
    split kernel of csrc/ntt_mxu_split.cu, B3's sweeps) at SPLIT_RINGS (n =
-   32768 at 786433 and q30, 65536 at q30, 2^18 and 2^20 at their
-   SWEEP_RINGS primes) in all five modes against their twins, B in {1, 3,
-   64}, row 0 all q - 1 (B7 all pw_bound - 1), intt(ntt(x)) == x, each
+   32768 at 786433 and q30, 65536 at q30, 131072, 2^18, 2^19 and 2^20 at
+   the primes phase 3e takes) in all five modes against their twins, B in {1,
+   3, 64}, row 0 all q - 1 (B7 all pw_bound - 1), intt(ntt(x)) == x, each
    ring's plan and B9 prepare seconds printed; then forced (split=True) at
    qtesla-iii-speed and n = 8192 beside the one-block stream kernel.  Then
    the registration sweep (utils/fuzz_params.py, SWEEP: one prime a bit size
@@ -134,9 +138,12 @@ script exits non-zero without printing a result:
    Q1_ROW.  Then each kernel B1-B16 (B16 also under p3x; the class path
    refuses the set) timed, median of 40 calls, CUDA events, beside its
    bound; phase 4 prints each beside the kernel's q-III time.
-3e. large rings: q30 at n = 32768, B = 1024, and 65536, B = 512 (128 MiB
-   an operand; LARGE_RINGS), then the sweep form's rings (SWEEP_RINGS: n =
-   2^18, B = 128; 2^20, B = 32; 2^25, B = 4), row 1 all q - 1 in both
+3e. large rings, in the order of n: q30 at n = 32768, B = 1024, and 65536,
+   B = 512 (128 MiB an operand; LARGE_RINGS), the sweep form's rings
+   (SWEEP_RINGS: n = 2^18, B = 128; 2^20, B = 32; 2^25, B = 4) and those
+   where B5-B9's split form first runs through the entry points
+   (SPLIT_3E_RINGS: 131072, B = 256; 2^19, B = 64; 2^21, B = 16; 2^22, B =
+   8), each ring's peak host RSS printed, row 1 all q - 1 in both
    operands, one random constant: polymul_negacyclic "fused" (B1) and the
    five "<pairing>_kernel" algos, polymul_fixed_fn "fused" (B2, B4), ntt
    and intt "fused" (B3(B2(x)) == x), past a cluster's reach the DP form
@@ -145,8 +152,9 @@ script exits non-zero without printing a result:
    launches), each product against B1 and 4 C++ oracle rows
    (LARGE_ORACLE_ROWS), past a cluster's reach against 8 coefficients of
    rows 0 and -1 from the definition and the closed form of row 1; then
-   B1-B4 and the pairings timed there (median of 40, 10 at 2^25; the plain
-   version of 6, 2 past a cluster's reach) beside their bytes bound, the
+   B1-B4 and the pairings timed there (median of 40, 20 at 2^21 and 2^22,
+   10 at 2^25, none at 131072 and 2^19: PASS_TIMED; the plain version of
+   6, 2 past a cluster's reach) beside their bytes bound, the
    blocks of their rows' cluster or their launches a call and blocks a
    sweep, B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
    32768 (median of 40, beside their bound).  Below 2^25 the "mxu" entry
@@ -154,14 +162,19 @@ script exits non-zero without printing a result:
    polymul_negacyclic "mxu" (against B1 and the oracle with the others),
    polymul_fixed_fn's "mxu" and "mxu-folded" pairs (against B4; B9's
    prepare seconds printed), ntt and intt "mxu" (ntt "mxu" == ntt "fused",
-   intt(ntt(x)) == x); each split mode is timed there (the call, median of
-   40, and the split kernel's launch alone in turns with its plain version,
-   each beside its bound with the tables counted once; the plan's seconds
-   beside them).  At 2^25 the MXU plan must refuse, naming the bytes.
-   Then the SP paths past n = 32768 (SP_RINGS, n1 = n / 128: 65536 at
-   786433 (k = 2, 4, 8) and q30 (k = 4), B = 512; 131072 (k = 4, 8), B =
-   256; 2^18 at 7340033 and 1056440321 (k = 4), B = 128; 2^20 (k = 4, 8),
-   B = 32; row 1 all q - 1): per ring B1 and B4 against the oracle, per k
+   intt(ntt(x)) == x); each split mode's kernel there against its plain
+   version bit for bit, then timed (the call, median of 40, and the split
+   kernel's launch alone in turns with its plain version, each beside its
+   bound with the tables counted once; the plan's seconds beside them).
+   At 2^25 the MXU plan must refuse, naming the bytes.  The MXU plans are
+   dropped after each ring from 2^20, so that the card holds one large
+   ring's tables.  Then the SP paths (SP_RINGS, n1 = n / 128: 32768 (k =
+   2, 4, 8), B = 1024, where the column segments run their block form;
+   65536 at 786433 (k = 2, 4, 8) and q30 (k = 4), B = 512; 131072 (k = 4,
+   8), B = 256; 2^18 at 7340033 and 1056440321 (k = 4), B = 128; 2^19 at
+   7340033 (k = 4), B = 64; 2^20 (k = 4, 8), B = 32; 2^21 (k = 2, 4), B =
+   16; 2^22 (k = 4), B = 8; row 1 all q - 1; each ring's seconds and peak
+   host RSS printed): per ring B1 and B4 against the oracle, per k
    the plan's host seconds, one counted run of polymul_fourstep_mxu_fn,
    both fixed SP pairs (the folded multiply where its prepare takes less
    than FOLD_PREP_LIMIT_S), polymul_fourstep_mxu_classes_fn (q < 2^24),
@@ -208,7 +221,7 @@ script exits non-zero without printing a result:
 
 It prints a JSON line of the kernels (launches: phase 3's and phase 3e's
 summed; the split kernels' times are their launches alone at the largest
-ring phase 3e runs them, 2^20 (B17's split form: 2^18 at 7340033); each
+ring phase 3e runs them, 2^22 (B17's split form: 2^19 at 7340033); each
 with its bound: the larger of
 the bytes it must move over 3.35 TB/s and its int8 tensor-core MACs * 2
 over 1979 TOP/s; no single PyTorch call computes a negacyclic product mod
@@ -247,12 +260,14 @@ from qtesla_tpu_torch.models import (ALGORITHMS, intt, ntt,
                                      polymul_fourstep_mxu_classes_fn,
                                      polymul_fourstep_mxu_fn,
                                      polymul_negacyclic)
+from qtesla_tpu_torch.models import polymul as TP
 from qtesla_tpu_torch.ops import incomplete as INC
 from qtesla_tpu_torch.ops import nussbaumer as NU
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_mxu_split as MS
 from qtesla_tpu_torch.ops import ntt_pairings as P
+from qtesla_tpu_torch.ops import mxu_tables as MT
 from qtesla_tpu_torch.ops.mxu_tables import fold_plan, get_mxu_tables
 from qtesla_tpu_torch.ops import passes as Ps
 from qtesla_tpu_torch.ops.passes import describe_pass_plan
@@ -280,6 +295,7 @@ from qtesla_tpu_torch.utils.build import BUILD_DIR, find_nvcc, load_library
 from qtesla_tpu_torch.utils.native import \
     negacyclic_schoolbook as native_schoolbook
 from qtesla_tpu_torch.utils.sass_diff import issue_bound_ms, kernel_sass
+from qtesla_tpu_torch.utils.plan_timing import PeakRss
 from qtesla_tpu_torch.utils.timing import time_cuda
 
 MAIN_SET = "qtesla-iii-speed"
@@ -360,7 +376,9 @@ TRANSFORM_LENGTHS = ((262144, 7340033),)
 # 5767169 = 11 * 2^19 + 1 at 2^18
 SWEEP_LENGTHS = ((1 << 18, 1056440321), (1 << 18, 5767169),
                  (1 << 19, 1053818881), (1 << 20, 1012924417),
-                 (1 << 21, 998244353), (1 << 25, 469762049))
+                 (1 << 21, 998244353), (1 << 22, 998244353),
+                 (1 << 23, 754974721), (1 << 24, 469762049),
+                 (1 << 25, 469762049))
 # B5-B9 where a lane block is narrower than the MMA's 32-deep step, lane
 # packed (mxu_tables.lane_packed): (n, q)
 SMALL_RINGS = ((8, 16417), (16, 16417), (8, Q30), (16, Q30))
@@ -369,7 +387,12 @@ SMALL_RINGS = ((8, 16417), (16, 16417), (8, Q30), (16, Q30))
 # SMALL_BATCHES with row 0 all q - 1; and the sets where phase 2 forces it
 # beside the one-block stream kernel
 SPLIT_RINGS = ((32768, 786433), (32768, Q30), (65536, Q30),
-               (1 << 18, 1056440321), (1 << 20, 1012924417))
+               (131072, 786433), (1 << 18, 1056440321),
+               (1 << 19, 1053818881), (1 << 20, 1012924417))
+# the ring where phase 2 holds the plans made on the card (the MXU plan and
+# the SP plan at k = SP_K) field for field and byte for byte against those
+# the same planners make on the host
+PLAN_CHECK_RING = ("sp-n131072", 131072, 786433)
 SPLIT_FORCED = ("qtesla-iii-speed", "qtesla-iii-speed-n8192")
 # each split mode's kernel
 SPLIT_ENTRY = MS.KERNEL_OF
@@ -426,7 +449,7 @@ Q1_ROW = MAIN_BATCH // 2
 # B), 128 MiB an operand; the SP path at n = 32768, n1 = LARGE_SP_N1
 LARGE_RINGS = (("q30-n32768", 32768, Q30, 1024),
                ("q30-n65536", 65536, Q30, 512))
-LARGE_SP_N1 = 256
+LARGE_SP_N1 = sp_n1(32768)
 # phase 3e past a cluster's reach, the sweep form: (name, n, q, B), 128 MiB
 # an operand at 2^18 and 2^20, 512 MiB at 2^25, the largest ring the
 # registry takes (469762049 its only prime); the kernels' medians there of
@@ -434,6 +457,19 @@ LARGE_SP_N1 = 256
 SWEEP_RINGS = (("sweep-n262144", 1 << 18, 1056440321, 128),
                ("sweep-n1048576", 1 << 20, 1012924417, 32),
                ("sweep-n33554432", 1 << 25, 469762049, 4))
+# phase 3e's rings where B5-B9's split form first runs through the entry
+# points, q the registry's largest prime at each n, 128 MiB an operand:
+# (name, n, q, B); B = 16 and 8 are below one 64-row group, so those
+# batches are ragged
+SPLIT_3E_RINGS = (("sp-n131072", 131072, 786433, 256),
+                  ("split-n524288", 1 << 19, 1053818881, 64),
+                  ("sweep-n2097152", 1 << 21, 998244353, 16),
+                  ("sweep-n4194304", 1 << 22, 998244353, 8))
+# the pass kernels' timed calls a turn at each of phase 3e's rings (20 at
+# the rings earlier runs timed, 10 at the sweep rings new to phase 3e; none
+# at 131072 and 2^19, where they stand as references alone)
+PASS_TIMED = {"sweep-n33554432": 5, "sp-n131072": 0, "split-n524288": 0,
+              "sweep-n2097152": 10, "sweep-n4194304": 10}
 # phase 3e's coefficients from the definition, of rows 0 and -1
 DEFINITION_COEFFS = 8
 # phase 3e's rows against the C++ oracle, row 1 all q - 1 in x and y
@@ -554,6 +590,18 @@ def expect_canonical(what: str, z: torch.Tensor, shape, q: int) -> None:
 
 def _record(errors: dict, kname: str, what: str, got, want) -> None:
     errors[kname] = max(errors[kname], expect_equal(what, got, want))
+
+
+def _forget(*mods) -> None:
+    """Drop every cache of ``mods`` (the plans, their device tables and the
+    models' entry points that hold them) and the card's unused blocks, so
+    that the card holds one large ring's tables at a time (up to 16 GiB of
+    MXU tables at 2^22, 9.5 GiB of SP tables)."""
+    for mod in mods:
+        for v in vars(mod).values():
+            if hasattr(v, "cache_clear"):
+                v.cache_clear()
+    torch.cuda.empty_cache()
 
 
 def _seconds(fn, *args) -> tuple[float, object]:
@@ -1164,7 +1212,8 @@ def small_rings_against_plain(errors: dict) -> None:
     done()
 
 
-# host seconds of each ring's MXU plan (get_mxu_tables) and B9's prepare
+# seconds (host clock) of each ring's MXU plan (get_mxu_tables, made on the
+# card) and B9's prepare
 # of one constant, where phase 2 or 3e first took them
 PLAN_SECONDS: dict = {}
 FOLD_SECONDS: dict = {}
@@ -1173,7 +1222,7 @@ FOLD_SECONDS: dict = {}
 def _ring_name(n: int, q: int) -> str:
     """Phase 3e's name of the ring (n, q) where it runs it, so that its plan
     is made once; else a name of phase 2's own."""
-    for name, n2, q2, _ in LARGE_RINGS + SWEEP_RINGS:
+    for name, n2, q2, _ in LARGE_RINGS + SWEEP_RINGS + SPLIT_3E_RINGS:
         if (n2, q2) == (n, q):
             return name
     return f"split-n{n}-q{q}"
@@ -1201,6 +1250,80 @@ def split_calls(mt, x, y, lazy, spec, op, split=None) -> dict:
         "ntt": (M.ntt_mxu(x, mt, split=split), M.ntt_mxu_plain(x, mt)),
         "intt": (M.intt_mxu(lazy, mt, split=split),
                  M.intt_mxu_plain(lazy, mt))}
+
+
+def _same(what: str, got, want) -> None:
+    """A plan's field or table made on the card equal to the host's, bit
+    for bit (arrays on any device, numbers, tuples, lists)."""
+    if isinstance(got, (torch.Tensor, np.ndarray)):
+        g, w = (v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for v in (got, want))
+        ok = g.dtype == w.dtype and np.array_equal(g, w)
+    else:
+        ok = got == want
+    if not ok:
+        raise AssertionError(f"{what}: the plan made on the card differs "
+                             f"from the host's")
+
+
+def plans_against_host() -> None:
+    """At PLAN_CHECK_RING, the plans the planners make on the card (their
+    elementwise passes and tables there) held field for field and byte for
+    byte against the ones the same planners make on the host: the MXU plan
+    (its table stream and const rows), B9's folded operand of one constant,
+    the SP plan at k = SP_K (every digit plan's fields, compact blocks and
+    const rows, the fold plan) and the folded SP tables of one spectrum;
+    the seconds of each on both."""
+    name, n, q = PLAN_CHECK_RING
+    register_param_set(name, n, q)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    spec = torch.randint(0, q, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.uint32)
+    secs = {}
+    secs["MXU plan"] = (_seconds(split_tables, name)[0],
+                        _seconds(get_mxu_tables, name, None, "cpu")[0])
+    card, host = get_mxu_tables(name), get_mxu_tables(name, device="cpu")
+    for f in MT._FIELDS:
+        if f not in ("wf", "wi"):
+            _same(f"MXU {name} {f}", getattr(card, f), getattr(host, f))
+    _same(f"MXU {name} table stream", card.stream, host.stream)
+    t_card, op_card = _seconds(M.fold_operand, spec, card)
+    t_host, op_host = _seconds(M.fold_operand, spec.cpu(), host)
+    secs["B9 prepare"] = (t_card, t_host)
+    for a, b, what in zip(op_card.tensors(), op_host.tensors(),
+                          ("stages", "const rows")):
+        _same(f"B9 {name} folded {what}", a, b)
+    del op_card, op_host
+    n1 = sp_n1(n)
+    t_card, pc = _seconds(fourstep_mxu_plans, name, n1, SP_K)
+    t_host, ph = _seconds(fourstep_mxu_plans, name, n1, SP_K, "cpu")
+    secs[f"SP plan k={SP_K}"] = (t_card, t_host)
+    for f in ST._LAYOUT_FIELDS + ("q", "pw_bound", "k1map", "D"):
+        _same(f"SP {name} {f}", getattr(pc, f), getattr(ph, f))
+    for f in ST._ROLL_FIELDS:
+        _same(f"SP {name} rolls {f}", getattr(pc.rolls, f),
+              getattr(ph.rolls, f))
+    for p in ("p1", "p2f", "p2i", "p3", "p3x"):
+        for f in ("Wc",) + ST.DIGIT_FIELDS[1:]:
+            _same(f"SP {name} {p}.{f}", getattr(getattr(pc, p), f),
+                  getattr(getattr(ph, p), f))
+    for f in ST.FOLD_FIELDS:
+        _same(f"SP {name} p2x.{f}", getattr(pc.p2x, f), getattr(ph.p2x, f))
+    aspec = spec.reshape(SP_K, -1)
+    t_card, fc = _seconds(ST.fourstep_fold_blocks, pc, aspec)
+    t_host, fh = _seconds(ST.fourstep_fold_blocks, ph, aspec.cpu().numpy())
+    secs["SP fold tables"] = (t_card, t_host)
+    for a, b, what in zip(fc, fh, ("blocks", "const rows")):
+        _same(f"SP {name} folded {what}", a, b)
+    del fc, fh, pc, ph, host
+    _forget(ST, S, C, SC)
+    print(f"plans on the card at {name} (n={n}, q={q}): the MXU plan, B9's "
+          f"folded operand, the SP plan at k={SP_K} and its folded tables "
+          f"equal the host's field for field and byte for byte; seconds "
+          f"card / host: " + ", ".join(f"{k} {c:.2f} / {h:.2f}"
+                                       for k, (c, h) in secs.items()),
+          flush=True)
 
 
 def split_against_plain(errors: dict) -> None:
@@ -1245,8 +1368,8 @@ def split_against_plain(errors: dict) -> None:
                     for kind in ("B2", "B3"))
         print(f"split {name} (n={n}, q={q}; D={mt.D}, Df={mt.Df}@"
               f"{mt.fwd_base}, Di={mt.Di}@{mt.inv_base}, Lr={mt.Lr}): "
-              f"plan {PLAN_SECONDS[name]:.2f} s on the host, tables "
-              f"{mt.wf.nbytes + mt.wi.nbytes} bytes, B9 prepare "
+              f"plan {PLAN_SECONDS[name]:.2f} s (on the card), tables "
+              f"{MT.stream_tables(mt).nbytes} bytes, B9 prepare "
               f"{t_fold:.2f} s; all five modes equal their twins at B in "
               f"{SMALL_BATCHES}; split kernel {p5.rows} x rows a block "
               f"(B5), {MS.split_smem(p5)} bytes of shared memory, "
@@ -2024,7 +2147,7 @@ def _large_oracle(name, z, zf, x, y, a, q, B, n,
             f"({time.perf_counter() - start:.1f} s)")
 
 
-def large_rings(device_line: str) -> dict:
+def large_rings(device_line: str, errors: dict) -> tuple[dict, dict]:
     """Phase 3e: q30 at n = 32768 (B = 1024) and 65536 (B = 512), where a
     row of B1, B4 and the pairings spans a cluster of 2 and 4 blocks and
     one of B2 and B3 a block and 2, and the sweep form's rings (SWEEP_RINGS:
@@ -2048,133 +2171,150 @@ def large_rings(device_line: str) -> dict:
     ran."""
     launches = {name: 0 for name in KERNELS}
     split_times = {}
-    for name, n, q, B in LARGE_RINGS + SWEEP_RINGS:
-        sweeping = n > Ps.cluster_reach("B1")
-        ring_start = time.perf_counter()
-        register_param_set(name, n, q)
-        tbl = get_tables(name)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(SEED)
-
-        def draw(rows):
-            return torch.randint(0, q, (rows, n), generator=gen,
-                                 device="cuda", dtype=torch.int64)
-
-        x, y = draw(B), draw(B)
-        x[1], y[1] = q - 1, q - 1
-        x, y = x.to(torch.uint32), y.to(torch.uint32)
-        a = draw(1).to(torch.uint32)
-        prepare, multiply = polymul_fixed_fn(name, "fused")
-        start = time.perf_counter()
-        sp = (polymul_fourstep_mxu_fn(name, make_mesh(model=SP_K),
-                                      n1=LARGE_SP_N1) if n == 32768 else None)
-        plan_s = time.perf_counter() - start
-        dp = polymul_dp_fn(name, make_mesh(model=SP_K), "fused")
-        mxu = mxu_ring(n)
-        if mxu:
-            split_tables(name)
-            fixed_mxu = polymul_fixed_fn(name)
-            fixed_folded = polymul_fixed_fn(name, "mxu-folded")
-        else:
-            refusal = _mxu_refusal(name)
-        torch.cuda.synchronize()
-        for k, _ in KERNELS.values():
-            k.launches = 0
-        z = {"fused": polymul_negacyclic(x, y, name, "fused")}
-        for p in P.PAIRINGS:
-            z[f"{p}_kernel"] = polymul_negacyclic(x, y, name, f"{p}_kernel")
-        zf = multiply(x, prepare(a))
-        xf = ntt(x, name, "fused")
-        back = intt(xf, name, "fused")
-        if sweeping:
-            z["DP fused"] = dp(x, y)
-        if sp is not None:
-            z[f"SP k={SP_K}"] = sp(x, y)
-        if mxu:
-            # B5-B9 in the split form through the models' entry points
-            z["mxu"] = polymul_negacyclic(x, y, name, "mxu")
-            zm = fixed_mxu[1](x, fixed_mxu[0](a))
-            fold_s, opf = _seconds(fixed_folded[0], a)
-            zmf = fixed_folded[1](x, opf)
-            xm = ntt(x, name, "mxu")
-            back_m = intt(xm, name, "mxu")
-        torch.cuda.synchronize()
-        got = {k: kern.launches for k, (kern, _) in KERNELS.items()}
-        print(f"3e {name} launches: { {k: v for k, v in got.items() if v} }")
-        if got != large_launches(n):
-            raise AssertionError(f"phase 3e {name} launch counts {got}, "
-                                 f"expected {large_launches(n)}")
+    for name, n, q, B in sorted(LARGE_RINGS + SWEEP_RINGS + SPLIT_3E_RINGS,
+                                key=lambda r: r[1]):
+        with PeakRss() as rss:
+            got, split = _large_ring(name, n, q, B, device_line, errors)
         launches = {k: launches[k] + v for k, v in got.items()}
-        for what, zz in z.items():
-            expect_canonical(f"3e {name} {what}", zz, (B, n), q)
-            expect_equal(f"3e {name} {what} == B1", zz, z["fused"])
-        expect_canonical(f"3e {name} fixed fused", zf, (B, n), q)
-        expect_equal(f"3e {name} intt(ntt(x)) == x", back, x)
-        if mxu:
-            expect_equal(f"3e {name} fixed mxu == B4", zm, zf)
-            expect_equal(f"3e {name} fixed mxu-folded == B4", zmf, zf)
-            expect_equal(f"3e {name} ntt mxu == ntt fused", xm, xf)
-            expect_equal(f"3e {name} intt(ntt(x)) mxu == x", back_m, x)
-            mxu_line = (
-                f"mxu (B5-B9 split form: B2's sweeps, the split kernel, B3's "
-                f"sweeps) equals B1, its fixed pairs \"mxu\" and "
-                f"\"mxu-folded\" B4, ntt \"mxu\" ntt \"fused\" and "
-                f"intt(ntt(x)) == x; MXU plan {PLAN_SECONDS[name]:.2f} s, "
-                f"B9 prepare {fold_s:.2f} s on the host beside B6.  ")
-            del zm, zmf, xm, back_m, opf
-        else:
-            mxu_line = f"mxu refused: {refusal}.  "
-        oracle = _large_oracle(name, z, zf, x, y, a, q, B, n)
-        plans = {k: Ps.kernel_plan(n, kind) for k, kind in PASS_KINDS.items()}
-        print(f"3e {name} (n={n}, q={q}), B={B}, row 1 all q - 1: "
-              f"{', '.join(z)} equal B1 bit for bit, the fixed pair (B2, "
-              f"B4) and intt(ntt(x)) == x (B2, B3); all equal {oracle}; "
-              + (f"the SP plan took {plan_s:.1f} s.  " if sp else "")
-              + mxu_line
-              + "; ".join(
-                  f"{PASS_KINDS[k]} " + (Ps.describe_sweep_plan(pl)
-                                         if isinstance(pl, Ps.SweepPlan)
-                                         else describe_pass_plan(pl))
-                  for k, pl in plans.items()
-                  if k in ("polymul_fused", "ntt_fused")
-                  or (sweeping and k == "polymul_pairing_stockham")),
-              flush=True)
-        del z, zf, back, xf
-        runs = pass_runs(x, y, F.ntt_fused(y[:1], tbl), tbl)
-        timed = 5 if n == 1 << 25 else 20
-        for kname, (kern, plain, args) in runs.items():
-            # the plain version on 3 calls a turn (1 past a cluster's
-            # reach): 40-135 ms each at the cluster rings
-            res = _turns(kern, plain, args, KERNELS[kname][0],
-                         plain_repeats=1 if sweeping else 3,
-                         repeats=timed)
-            res["bound"] = bound(*_pass_work(kname, n, B))
-            plan = plans[kname]
-            (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
-            bms, by = res["bound"]
-            if isinstance(plan, Ps.SweepPlan):
-                shape = (f"{plan.sweeps} launches a call, blocks a sweep "
-                         + "/".join(str(plan.tiles[i] * plan.split[i] * B)
-                                    for i in range(plan.sweeps)))
-            else:
-                shape = (f"{plan.cluster} block(s) a row of "
-                         f"{plan.threads // plan.cluster} threads, 1 launch "
-                         f"a call")
-            print(f"3e timing {kname}: {name} B={B} kernel min {klo:.4f} ms "
-                  f"median {kmed:.4f} ms over {2 * timed} calls, plain "
-                  f"median {pmed:.4f} ms over {2 if sweeping else 6}; bound "
-                  f"{bms:.4f} ms ({by}), {bms / kmed * 100:.1f} % of the "
-                  f"kernel's median; {shape} [{device_line}]", flush=True)
-        if sp is not None:
-            sp_timing(name, x, y, device_line)
-        if mxu:
-            split_times = split_timing(name, x, y, a, device_line)
-        del x, y, a, runs
-        torch.cuda.empty_cache()
-        print(f"3e {name}: {time.perf_counter() - ring_start:.1f} s",
-              flush=True)
+        split_times = split or split_times
+        if n >= 1 << 20:
+            _forget(MT, M, MS, TP)
+        print(f"3e {name}: peak host RSS {rss.peak / 2**30:.2f} GiB "
+              f"({rss.base / 2**30:.2f} GiB before the ring)", flush=True)
     done()
     return launches, split_times
+
+
+def _large_ring(name: str, n: int, q: int, B: int, device_line: str,
+                errors: dict) -> tuple[dict, dict]:
+    """One of ``large_rings``' rings: its launches and, where the MXU
+    tables fit, its split modes' timing."""
+    split_times = {}
+    sweeping = n > Ps.cluster_reach("B1")
+    ring_start = time.perf_counter()
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def draw(rows):
+        return torch.randint(0, q, (rows, n), generator=gen,
+                             device="cuda", dtype=torch.int64)
+
+    x, y = draw(B), draw(B)
+    x[1], y[1] = q - 1, q - 1
+    x, y = x.to(torch.uint32), y.to(torch.uint32)
+    a = draw(1).to(torch.uint32)
+    prepare, multiply = polymul_fixed_fn(name, "fused")
+    start = time.perf_counter()
+    sp = (polymul_fourstep_mxu_fn(name, make_mesh(model=SP_K),
+                                  n1=LARGE_SP_N1) if n == 32768 else None)
+    plan_s = time.perf_counter() - start
+    dp = polymul_dp_fn(name, make_mesh(model=SP_K), "fused")
+    mxu = mxu_ring(n)
+    if mxu:
+        split_tables(name)
+        fixed_mxu = polymul_fixed_fn(name)
+        fixed_folded = polymul_fixed_fn(name, "mxu-folded")
+    else:
+        refusal = _mxu_refusal(name)
+    torch.cuda.synchronize()
+    for k, _ in KERNELS.values():
+        k.launches = 0
+    z = {"fused": polymul_negacyclic(x, y, name, "fused")}
+    for p in P.PAIRINGS:
+        z[f"{p}_kernel"] = polymul_negacyclic(x, y, name, f"{p}_kernel")
+    zf = multiply(x, prepare(a))
+    xf = ntt(x, name, "fused")
+    back = intt(xf, name, "fused")
+    if sweeping:
+        z["DP fused"] = dp(x, y)
+    if sp is not None:
+        z[f"SP k={SP_K}"] = sp(x, y)
+    if mxu:
+        # B5-B9 in the split form through the models' entry points
+        z["mxu"] = polymul_negacyclic(x, y, name, "mxu")
+        zm = fixed_mxu[1](x, fixed_mxu[0](a))
+        fold_s, opf = _seconds(fixed_folded[0], a)
+        zmf = fixed_folded[1](x, opf)
+        xm = ntt(x, name, "mxu")
+        back_m = intt(xm, name, "mxu")
+    torch.cuda.synchronize()
+    got = {k: kern.launches for k, (kern, _) in KERNELS.items()}
+    print(f"3e {name} launches: { {k: v for k, v in got.items() if v} }")
+    if got != large_launches(n):
+        raise AssertionError(f"phase 3e {name} launch counts {got}, "
+                             f"expected {large_launches(n)}")
+    for what, zz in z.items():
+        expect_canonical(f"3e {name} {what}", zz, (B, n), q)
+        expect_equal(f"3e {name} {what} == B1", zz, z["fused"])
+    expect_canonical(f"3e {name} fixed fused", zf, (B, n), q)
+    expect_equal(f"3e {name} intt(ntt(x)) == x", back, x)
+    if mxu:
+        expect_equal(f"3e {name} fixed mxu == B4", zm, zf)
+        expect_equal(f"3e {name} fixed mxu-folded == B4", zmf, zf)
+        expect_equal(f"3e {name} ntt mxu == ntt fused", xm, xf)
+        expect_equal(f"3e {name} intt(ntt(x)) mxu == x", back_m, x)
+        mxu_line = (
+            f"mxu (B5-B9 split form: B2's sweeps, the split kernel, B3's "
+            f"sweeps) equals B1, its fixed pairs \"mxu\" and "
+            f"\"mxu-folded\" B4, ntt \"mxu\" ntt \"fused\" and "
+            f"intt(ntt(x)) == x; MXU plan {PLAN_SECONDS[name]:.2f} s, "
+            f"B9 prepare {fold_s:.2f} s (B6 and the tables on the "
+            f"card), host clock.  ")
+        del zm, zmf, xm, back_m, opf
+    else:
+        mxu_line = f"mxu refused: {refusal}.  "
+    oracle = _large_oracle(name, z, zf, x, y, a, q, B, n)
+    plans = {k: Ps.kernel_plan(n, kind) for k, kind in PASS_KINDS.items()}
+    print(f"3e {name} (n={n}, q={q}), B={B}, row 1 all q - 1: "
+          f"{', '.join(z)} equal B1 bit for bit, the fixed pair (B2, "
+          f"B4) and intt(ntt(x)) == x (B2, B3); all equal {oracle}; "
+          + (f"the SP plan took {plan_s:.1f} s.  " if sp else "")
+          + mxu_line
+          + "; ".join(
+              f"{PASS_KINDS[k]} " + (Ps.describe_sweep_plan(pl)
+                                     if isinstance(pl, Ps.SweepPlan)
+                                     else describe_pass_plan(pl))
+              for k, pl in plans.items()
+              if k in ("polymul_fused", "ntt_fused")
+              or (sweeping and k == "polymul_pairing_stockham")),
+          flush=True)
+    del z, zf, back, xf
+    timed = PASS_TIMED.get(name, 20)
+    runs = pass_runs(x, y, F.ntt_fused(y[:1], tbl), tbl) if timed else {}
+    for kname, (kern, plain, args) in runs.items():
+        # the plain version on 3 calls a turn (1 past a cluster's
+        # reach): 40-135 ms each at the cluster rings
+        res = _turns(kern, plain, args, KERNELS[kname][0],
+                     plain_repeats=1 if sweeping else 3,
+                     repeats=timed)
+        res["bound"] = bound(*_pass_work(kname, n, B))
+        plan = plans[kname]
+        (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
+        bms, by = res["bound"]
+        if isinstance(plan, Ps.SweepPlan):
+            shape = (f"{plan.sweeps} launches a call, blocks a sweep "
+                     + "/".join(str(plan.tiles[i] * plan.split[i] * B)
+                                for i in range(plan.sweeps)))
+        else:
+            shape = (f"{plan.cluster} block(s) a row of "
+                     f"{plan.threads // plan.cluster} threads, 1 launch "
+                     f"a call")
+        print(f"3e timing {kname}: {name} B={B} kernel min {klo:.4f} ms "
+              f"median {kmed:.4f} ms over {2 * timed} calls, plain "
+              f"median {pmed:.4f} ms over {2 if sweeping else 6}; bound "
+              f"{bms:.4f} ms ({by}), {bms / kmed * 100:.1f} % of the "
+              f"kernel's median; {shape} [{device_line}]", flush=True)
+    if sp is not None:
+        sp_timing(name, x, y, device_line)
+    if mxu:
+        split_times = split_timing(name, x, y, a, device_line, errors)
+    del x, y, a, runs
+    torch.cuda.empty_cache()
+    print(f"3e {name}: {time.perf_counter() - ring_start:.1f} s",
+          flush=True)
+    return got, split_times
 
 
 def _mxu_refusal(name: str) -> str:
@@ -2217,13 +2357,14 @@ def _split_work(mt, B: int, mode: str, op, call: bool) -> tuple[int, int]:
 
 
 def split_timing(name: str, x: torch.Tensor, y: torch.Tensor,
-                 a: torch.Tensor, device_line: str) -> dict:
-    """Each split mode at one of phase 3e's rings: the whole call (B2's
-    sweeps, the split kernel, B3's sweeps; median of 40) and the split
-    kernel's launch alone in turns with its plain version (the twins' block
-    products, ``MS.products_plain``: median of 40, plain of 2), each beside
-    its bound, the tables counted once.  Returns kernel name -> the launch's
-    ``_turns`` result and bound."""
+                 a: torch.Tensor, device_line: str, errors: dict) -> dict:
+    """Each split mode at one of phase 3e's rings: the split kernel's
+    launch against its plain version (the twins' block products,
+    ``MS.products_plain``) bit for bit, recorded in ``errors``; the whole
+    call (B2's sweeps, the split kernel, B3's sweeps; median of 40) and the
+    launch alone in turns with its plain version (median of 40, plain of
+    2), each beside its bound, the tables counted once.  Returns kernel
+    name -> the launch's ``_turns`` result and bound."""
     mt = get_mxu_tables(name)
     tabs, tw = M._prepare(mt, None, None, x)
     B, n = x.shape
@@ -2240,10 +2381,14 @@ def split_timing(name: str, x: torch.Tensor, y: torch.Tensor,
     out = {}
     for mode, (fn, args, step2) in calls.items():
         kname = SPLIT_ENTRY[mode]
+        kern = functools.partial(MS.products, mode, mt, tabs, tw)
+        plain = functools.partial(MS.products_plain, mode, mt, tabs)
+        got, want = kern(*step2), plain(*step2)
+        _record(errors, kname, f"3e {kname} {name} B={B} == plain", got,
+                want.to(got.dtype))
+        del got, want
         whole = time_cuda(fn, *args, warmup=3, repeats=40)
-        res = _turns(functools.partial(MS.products, mode, mt, tabs, tw),
-                     functools.partial(MS.products_plain, mode, mt, tabs),
-                     step2, KERNELS[kname][0], plain_repeats=1)
+        res = _turns(kern, plain, step2, KERNELS[kname][0], plain_repeats=1)
         res["bound"] = bound(*_split_work(mt, B, mode, op, False))
         cms, cby = bound(*_split_work(mt, B, mode, op, True))
         (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
@@ -2256,7 +2401,7 @@ def split_timing(name: str, x: torch.Tensor, y: torch.Tensor,
               f"kernel alone min {klo:.4f} median {kmed:.4f} ms over 40, plain "
               f"median {pmed:.4f} ms over 2, bound {bms:.4f} ms ({by}), "
               f"{bms / kmed * 100:.1f} % of its median; plan "
-              f"{PLAN_SECONDS.get(name, 0.0):.2f} s on the host "
+              f"{PLAN_SECONDS.get(name, 0.0):.2f} s (on the card) "
               f"[{device_line}]", flush=True)
         out[kname] = res
     return out
@@ -2292,6 +2437,8 @@ def sp_timing(name: str, x: torch.Tensor, y: torch.Tensor,
 # "folded" (the fixed pairs) and "classes" (the class path, q < 2^24); the
 # column segments take their split form where nloc = n / k >= 32768
 SP_RINGS = (
+    ("sp-n32768", 32768, 786433, (2, 4, 8), 1024,
+     ("pair", "fixed", "folded", "classes")),
     ("sp-n65536", 65536, 786433, (2, 4, 8), 512,
      ("pair", "fixed", "folded", "classes")),
     ("q30-n65536", 65536, Q30, (4,), 512, ("pair", "fixed", "folded")),
@@ -2301,7 +2448,13 @@ SP_RINGS = (
      ("pair", "fixed", "folded", "classes")),
     ("sweep-n262144", 1 << 18, 1056440321, (4,), 128,
      ("pair", "fixed", "folded")),
+    ("sp-n524288", 1 << 19, 7340033, (4,), 64,
+     ("pair", "fixed", "folded", "classes")),
     ("sweep-n1048576", 1 << 20, 1012924417, (4, 8), 32,
+     ("pair", "fixed", "folded")),
+    ("sweep-n2097152", 1 << 21, 998244353, (2, 4), 16,
+     ("pair", "fixed", "folded")),
+    ("sweep-n4194304", 1 << 22, 998244353, (4,), 8,
      ("pair", "fixed", "folded")))
 # polymul_sp_fn at batch_hint 2 (the four-step at k = SP_K, n1 = n / 128,
 # 2 rows): (name, n, q)
@@ -2372,9 +2525,13 @@ def _compact_macs(wc: torch.Tensor, din: int, rows: int, plans,
     lay = ST.compact_layout(plans, kind)
     s = lay.s
     blocks = wc.reshape(-1, D, s, wc.shape[-1])[..., :din * s]
-    pairs = (blocks.reshape(-1, D, s, din, s) != 0).sum(dim=(1, 3)) > 0
+    # a chunk of blocks at a time (K2i's are 9.5 GB at n = 2^22)
+    step = max(1, (1 << 30) // (D * s * din * s))
+    pairs = sum(int(((b.reshape(-1, D, s, din, s) != 0).sum(dim=(1, 3))
+                     > 0).sum())
+                for b in blocks.split(step))
     slots = plans.k * plans.A * lay.nblk
-    return rows * din * D * int(pairs.sum()) * slots // blocks.shape[0]
+    return rows * din * D * pairs * slots // blocks.shape[0]
 
 
 def _sp_ring_work(plans, B: int, tabs, op, aspec, cp=None,
@@ -2421,16 +2578,6 @@ def _sp_ring_work(plans, B: int, tabs, op, aspec, cp=None,
             2 * _compact_macs(ctabs.w2cc, sum(cp.dins), B, plans, "rows", D)
             + m["p2i"])
     return work
-
-
-def _forget_plans() -> None:
-    """Drop every cached SP plan and its device tables (the rings' tables
-    take up to 2 GB each on the host and the card)."""
-    for mod in (ST, S, C, SC):
-        for v in vars(mod).values():
-            if hasattr(v, "cache_clear"):
-                v.cache_clear()
-    torch.cuda.empty_cache()
 
 
 def _sp_ring_timing(name: str, plans, B: int, tabs, args: dict, work: dict,
@@ -2549,6 +2696,7 @@ def sp_large_rings(device_line: str, errors: dict) -> tuple[dict, dict]:
     times = {}
     for name, n, q, axes, B, forms in SP_RINGS:
         ring_start = time.perf_counter()
+        rss = PeakRss().start()
         register_param_set(name, n, q)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED + n)
@@ -2648,17 +2796,18 @@ def sp_large_rings(device_line: str, errors: dict) -> tuple[dict, dict]:
                   f"{' and the folded one' if folded else ''} B4, one "
                   f"shard's local work the twins'; B1 and B4 equal "
                   f"{oracle}; column segments {column}; plan {plan_s:.2f} s "
-                  f"on the host (tables {tabs_s:.2f} s), folded prepare "
+                  f"(on the card; tables {tabs_s:.2f} s), folded prepare "
                   f"{fold_s:.2f} s"
                   f"{'' if folded else ' (multiply not run)'}; "
                   f"launches { {kk: v for kk, v in got.items() if v} }",
                   flush=True)
             del args, vx, vy, sx, sy, aspec, op, fns, pipe, fpipe, tabs
-            _forget_plans()
+            _forget(ST, S, C, SC)
         del x, y, a, z_ref, zf_ref
-        _forget_plans()
-        print(f"3e SP {name}: {time.perf_counter() - ring_start:.1f} s",
-              flush=True)
+        _forget(ST, S, C, SC)
+        print(f"3e SP {name}: {time.perf_counter() - ring_start:.1f} s, "
+              f"peak host RSS {rss.stop() / 2**30:.2f} GiB "
+              f"({rss.base / 2**30:.2f} GiB before the ring)", flush=True)
     for name, n, q in SP_FN_RINGS:
         register_param_set(name, n, q)
         gen = torch.Generator(device="cuda")
@@ -2686,7 +2835,7 @@ def sp_large_rings(device_line: str, errors: dict) -> tuple[dict, dict]:
               f"{SP_K}: the four-step at n1 = {sp_n1(n)} equals B1 bit for "
               f"bit, row 1 all q - 1; launches "
               f"{ {kk: v for kk, v in got.items() if v} }", flush=True)
-        _forget_plans()
+        _forget(ST, S, C, SC)
     # past 16 GiB of tables the SP plan refuses, naming the bytes, before
     # any table is built
     name, n, q, _ = SWEEP_RINGS[-1]
@@ -3338,14 +3487,16 @@ def main() -> int:
             print("  " + line.strip())
     done()
 
-    phase("2 kernels against plain, on the card")
     errors = {name: 0 for name in KERNELS}
+
+    phase("2 kernels against plain, on the card")
     kernels_against_plain(errors)
     sp_against_plain(errors)
     classes_against_plain(errors)
     pass_lengths_against_plain(errors)
     sweep_lengths_against_plain(errors)
     small_rings_against_plain(errors)
+    plans_against_host()
     split_against_plain(errors)
     registration_sweep()
 
@@ -3363,7 +3514,7 @@ def main() -> int:
     q30_times = q30_full_size(device_line)
 
     phase("3e large rings")
-    large, split_times = large_rings(device_line)
+    large, split_times = large_rings(device_line, errors)
     small_rings_timing(device_line)
     sp_large, sp_times = sp_large_rings(device_line, errors)
     large = {name: large[name] + sp_large[name] for name in KERNELS}

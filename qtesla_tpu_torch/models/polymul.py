@@ -200,8 +200,8 @@ def polymul_fixed_fn(name: str, algo: str = "mxu"):
     shape, a the public polynomial).  The default is 'mxu', as in the JAX
     package.  The spectra of every algo are the same canonical values.
     For 'mxu-folded', prepare(a) runs the forward (B6) on a's device, builds
-    the folded inverse tables on the host and returns them on a's device as
-    an ``ops.ntt_mxu.FoldedOperand``; multiply (B9) has no pointwise stage.
+    the folded inverse tables there and returns them as an
+    ``ops.ntt_mxu.FoldedOperand``; multiply (B9) has no pointwise stage.
     The MXU forms plan first: past ``mxu_tables.MAX_TABLE_BYTES`` they raise
     before any table is built."""
     if algo == "mxu-folded":

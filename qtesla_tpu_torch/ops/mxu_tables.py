@@ -1,5 +1,6 @@
-"""Digit-matmul stage tables for the MXU path (host only: numpy, and torch
-on the host's threads for the elementwise reductions).
+"""Digit-matmul stage tables for the MXU path: the plans in Python ints and
+numpy, the tables' elementwise passes in int64 torch on the device where
+the tables go (the card unless the caller names the CPU).
 
 Counterpart of the static planner of ``qtesla_tpu/ops/ntt_mxu.py``
 (l.66-565) and of its ``pointwise_bound`` (l.813).  It is a module of its own
@@ -30,7 +31,7 @@ rows to a row of 32 lanes, its tables block diagonal.
 The planner works a lane block at a time: the block-local stages pair
 lanes of one block only, so each direction's (bw, bw) diagonal blocks are
 built on their own (``_fwd_blocks``, ``_inv_blocks``, O(bw) a lane, in
-int64 numpy over chunks of blocks), the digit maxima that every candidate
+int64 torch over chunks of blocks), the digit maxima that every candidate
 split's bounds come from are taken in one pass over them, and only the
 chosen split's tables are built; JAX's planner (``qtesla_tpu/ops/
 ntt_mxu.py:91``, ``:106``) builds the dense (n, n) matrices, 8.6 GB each at
@@ -375,19 +376,23 @@ def _group_bias(groups, bounds, q: int) -> int:
                for j0, ln in groups) % q
 
 
-# lane blocks a vectorised step of the block planner takes: 2 MiB of one
-# (bw, bw) int64 matrix a block at bw = 128, so that a step's temporaries
-# stay in the host's caches
+# lane blocks a vectorised step of the block planner takes: on the host 2
+# MiB of one (bw, bw) int64 matrix a block at bw = 128, so that a step's
+# temporaries stay in the host's caches; on a card 32 times as many, so
+# that each step's kernels have work enough
 _PLAN_CHUNK = 16
+_PLAN_CHUNK_CUDA = 512
 # the most bytes of int8 digit tables (one direction's W and the other's,
-# one copy) a plan may need: the planner holds them three times on the host
-# (wf, wi and their stream) and the card once beside the operands
+# one copy) a plan may need: a plan on a card holds them once there as the
+# table stream, beside the operands
 MAX_TABLE_BYTES = 1 << 34
 
 
-def _chunks(nb: int):
-    for b0 in range(0, nb, _PLAN_CHUNK):
-        yield b0, min(nb, b0 + _PLAN_CHUNK)
+def _chunks(nb: int, device=None):
+    step = (_PLAN_CHUNK_CUDA if torch.device(device or "cpu").type == "cuda"
+            else _PLAN_CHUNK)
+    for b0 in range(0, nb, step):
+        yield b0, min(nb, b0 + step)
 
 
 def _shifted_t(K: torch.Tensor, mult: int, q: int, D: int) -> torch.Tensor:
@@ -395,8 +400,8 @@ def _shifted_t(K: torch.Tensor, mult: int, q: int, D: int) -> torch.Tensor:
     canonical: digit j < D - 1 of the balanced base-256 split is ((u >>
     8j) & 255) - 128 and the top one u >> 8(D - 1), as ``_balanced_digits``
     makes them.  K * mult mod q by Shoup's reduction with mult's companion
-    floor(mult * 2^32 / q) (K times it stays below 2^63), no division, in
-    torch on all the host's threads."""
+    floor(mult * 2^32 / q) (K times it stays below 2^63), no division, on
+    K's device."""
     mult %= q
     r = K * mult - ((K * ((mult << 32) // q)) >> 32) * q
     r = torch.where(r >= q, r - q, r)
@@ -425,13 +430,6 @@ def host_threads(entries: int):
         torch.set_num_threads(threads)
 
 
-def _shifted(K: np.ndarray, mult: int, q: int, D: int) -> np.ndarray:
-    """``_shifted_t`` of an int64 numpy array, as numpy."""
-    with host_threads(K.size):
-        return _shifted_t(torch.from_numpy(
-            np.ascontiguousarray(K, dtype=np.int64)), mult, q, D).numpy()
-
-
 def _digit_t(u: torch.Tensor, j: int, D: int) -> torch.Tensor:
     """Digit j (int32) of the values whose shifted form is u."""
     return u >> 8 * j if j == D - 1 else ((u >> 8 * j) & 255) - 128
@@ -448,35 +446,60 @@ def _top_range(u, D: int) -> tuple[int, int]:
     return lo, hi
 
 
-def _digit_maxima(u, D: int) -> list[int]:
-    """Max |digit| per class of the values whose shifted form is u (numpy
-    or torch)."""
+def _digit_maxima(u: np.ndarray, D: int) -> list[int]:
+    """Max |digit| per class of the values whose shifted form is u."""
     out = []
     for j in range(D - 1):
-        if isinstance(u, np.ndarray):
-            d = _low_digit(u, j)
-            out.append(max(int(d.max()), -int(d.min())))
-        else:
-            out.append(int(_digit_t(u, j, D).abs().max()))
+        d = _low_digit(u, j)
+        out.append(max(int(d.max()), -int(d.min())))
     lo, hi = _top_range(u, D)
     return out + [max(hi, -lo)]
 
 
-def _store_digits(W: np.ndarray, u: np.ndarray, D: int, bw: int) -> None:
-    """Digit j of u into W[..., j*bw:(j+1)*bw]."""
-    _top_range(u, D)
+def _raw_maxima_t(u: torch.Tensor, D: int) -> torch.Tensor:
+    """``_digit_maxima``'s inputs on u's device, read by no host: max
+    |digit| of each low class, then the top digit's min and max, (D + 1,)
+    int64."""
+    out = [_digit_t(u, j, D).abs().amax() for j in range(D - 1)]
+    top = u >> 8 * (D - 1)
+    return torch.stack(out + [top.amin(), top.amax()]).to(torch.int64)
+
+
+def _maxima_of_raw(raw: np.ndarray) -> np.ndarray:
+    """(..., D + 1) ``_raw_maxima_t`` rows -> (..., D) max |digit| per
+    class; raises where a top digit leaves int8."""
+    lo, hi = raw[..., -2], raw[..., -1]
+    assert (lo >= -128).all() and (hi <= 127).all(), "digit overflow"
+    return np.concatenate([raw[..., :-2], np.maximum(hi, -lo)[..., None]],
+                          axis=-1)
+
+
+def _store_digits_t(W: torch.Tensor, u: torch.Tensor, D: int,
+                    bw: int) -> torch.Tensor:
+    """Digit j of u into W[..., j*bw:(j+1)*bw] (int8, u's device); returns
+    the top digit's (min, max) for ``_maxima_of_raw``'s check, unread."""
     for j in range(D - 1):
-        W[..., j * bw:(j + 1) * bw] = _low_digit(u, j)
-    W[..., (D - 1) * bw:] = u >> 8 * (D - 1)
+        W[..., j * bw:(j + 1) * bw] = _digit_t(u, j, D)
+    top = u >> 8 * (D - 1)
+    W[..., (D - 1) * bw:] = top
+    return torch.stack([top.amin(), top.amax()]).to(torch.int64)
+
+
+def _check_tops(tops: list) -> None:
+    """Raise where a stored top digit left int8 (one read of the device)."""
+    if tops:
+        lo, hi = torch.stack(tops).cpu().numpy().T
+        assert (lo >= -128).all() and (hi <= 127).all(), "digit overflow"
 
 
 class _Direction:
     """One direction's block matrices (``blocks(b0, b1)``: input-major,
-    canonical, (b1 - b0, bw, bw)), kept as int32, and the digit maxima of
-    every plane its splits over ``in_bounds`` may take, both made in one
-    pass over the blocks."""
+    canonical, (b1 - b0, bw, bw) int64 torch on ``device``), kept there as
+    int32, and the digit maxima of every plane its splits over
+    ``in_bounds`` may take, both made in one pass over the blocks."""
 
-    def __init__(self, blocks, nb: int, q: int, bw: int, in_bounds):
+    def __init__(self, blocks, nb: int, q: int, bw: int, in_bounds,
+                 device: torch.device):
         self.nb, self.q, self.bw, self.D = nb, q, bw, _ndigits(q)
         planes = {base: max(_plane_count(b, base) or 0 for b in in_bounds)
                   for base in (256, 128)}
@@ -486,16 +509,17 @@ class _Direction:
         # maxima reach them needs no further block
         cap = _digit_maxima(np.asarray([-(q // 2), q - 1 - q // 2])
                             + _split_bias(self.D, 256), self.D)
-        self.K = np.empty((nb, bw, bw), dtype=np.int32)
-        for b0, b1 in _chunks(nb):
+        self.K = torch.empty((nb, bw, bw), dtype=torch.int32, device=device)
+        for b0, b1 in _chunks(nb, device):
             K = blocks(b0, b1)
             self.K[b0:b1] = K
             for base, mw in self.mw.items():
-                for i in range(mw.shape[0]):
-                    if (mw[i] < cap).any():
-                        got = _digit_maxima(_shifted(K, pow(base, i, q), q,
-                                                     self.D), self.D)
-                        mw[i] = np.maximum(mw[i], got)
+                live = [i for i in range(mw.shape[0]) if (mw[i] < cap).any()]
+                if live:
+                    raw = torch.stack([_raw_maxima_t(
+                        _shifted_t(K, pow(base, i, q), q, self.D), self.D)
+                        for i in live]).cpu().numpy()
+                    mw[live] = np.maximum(mw[live], _maxima_of_raw(raw))
 
     def search(self, in_bound: int, downstream: str):
         """The cheapest input split over base 256 and base 128 at their
@@ -518,25 +542,32 @@ class _Direction:
                 best = (cost, (base, Din, bounds, groups))
         return best
 
-    def tables(self, pick, in_bound: int):
-        """The split ``pick`` as digit tables: W int8 (nb, Din, bw, D*bw),
-        plane i of input lane k, class j of output lane o at [b, i, k, j*bw
-        + o] the digit j of the centred base^i * K_b[k, o] mod q, and const
-        uint32 (nb, 1, bw): the centring offset folded in, the group biases
-        subtracted.  (base, Din, W, const, bounds, groups)."""
+    def tables(self, pick, in_bound: int, stream: torch.Tensor):
+        """The split ``pick`` as digit tables, written into ``stream`` (nb
+        * C stages on the blocks' device, ``stream_stages``) a chunk of lane
+        blocks at a time as the stages (``_staged``) of W int8 (nb, Din, bw,
+        D*bw): plane i of input lane k, class j of output lane o at [b, i,
+        k, j*bw + o] the digit j of the centred base^i * K_b[k, o] mod q;
+        and const uint32 (nb, 1, bw) numpy: the centring offset folded in,
+        the group biases subtracted.  (base, Din, const, bounds, groups)."""
         base, Din, bounds, groups = pick
-        q, bw, D = self.q, self.bw, self.D
-        W = np.empty((self.nb, Din, bw, D * bw), dtype=np.int8)
-        const = np.empty((self.nb, 1, bw), dtype=np.uint32)
+        q, bw, D, nb = self.q, self.bw, self.D, self.nb
+        dev = self.K.device
+        const = torch.empty((nb, bw), dtype=torch.int64, device=dev)
         bias = _group_bias(groups, bounds, q)
         off = (in_bound >> 1) % q
-        for b0, b1 in _chunks(self.nb):
-            K = self.K[b0:b1].astype(np.int64)
-            for i in range(Din):
-                _store_digits(W[b0:b1, i], _shifted(K, pow(base, i, q), q, D),
-                              D, bw)
-            const[b0:b1, 0] = (off * (K.sum(axis=1) % q) - bias) % q
-        return base, Din, W, const, bounds, groups
+        C = stream_stages(Din, bw * _packed_copies(bw))
+        for b0, b1 in _chunks(nb, dev):
+            K = self.K[b0:b1].to(torch.int64)
+            W = torch.empty((b1 - b0, Din, bw, D * bw), dtype=torch.int8,
+                            device=dev)
+            _check_tops([_store_digits_t(
+                W[:, i], _shifted_t(K, pow(base, i, q), q, D), D, bw)
+                for i in range(Din)])
+            stream[b0 * C:b1 * C] = _staged(W)
+            const[b0:b1] = (off * (K.sum(dim=1) % q) - bias) % q
+        const = const.reshape(nb, 1, bw).cpu().numpy().astype(np.uint32)
+        return base, Din, const, bounds, groups
 
 
 def table_bytes(n: int, q: int, bw: int | None = None) -> int:
@@ -582,9 +613,29 @@ class MxuTables:
     stages; ``wi``/``consti`` likewise the inverse (``Di`` planes of
     ``inv_base`` at ``inv_off``, input < ``pw_bound``).  ``group_bias_f``
     and ``group_bias_i`` are what ``const`` subtracts for the TPU kernel's
-    biased Horner groups."""
+    biased Horner groups.
 
-    def __init__(self, tbl: NttTables, bw: int | None = None):
+    ``device`` is where the planner's passes run and the tables are
+    built, the CPU unless given: as the table stream alone (``stream``,
+    int8 on that device, ``stream_tables``' layout, lane packed at n <= 16
+    as the kernel reads it).  ``wf`` and ``wi`` are expanded from it, as
+    numpy, when asked for (``expand_stream``); the const rows are numpy.
+    A plan carried over from JAX (``from_jax_mxu_tables``) holds ``wf``
+    and ``wi`` and lays its stream out from them when asked for.  Every
+    device's plan is the same field for field and byte for byte."""
+
+    def __getattr__(self, name):
+        d = self.__dict__
+        if name in ("wf", "wi") and "stream" in d:
+            d["wf"], d["wi"] = (w.cpu().numpy()
+                                for w in expand_stream(d["stream"], self))
+            return d[name]
+        if name == "stream" and "wf" in d:
+            d["stream"] = torch.cat([_staged(d["wf"]), _staged(d["wi"])])
+            return d["stream"]
+        raise AttributeError(name)
+
+    def __init__(self, tbl: NttTables, bw: int | None = None, device=None):
         self.tbl = tbl
         n, q, L = tbl.n, tbl.q, tbl.logn
         self.n, self.q, self.logn = n, q, L
@@ -594,31 +645,44 @@ class MxuTables:
         self.Lr = L - bw.bit_length() + 1
         self.D = _ndigits(q)
         check_table_bytes(n, q, bw)
+        dev = torch.device(device or "cpu")
+        with host_threads(n * bw):
+            self._plan(dev)
+        self._derive()
+
+    def _plan(self, dev: torch.device):
+        tbl, q, bw, nb = self.tbl, self.q, self.bw, self.nb
         self.fwd_sched, bnd = _lazy_fwd_schedule(q, self.Lr)
-        s_hi = L - self.Lr
-        fwd = _Direction(lambda b0, b1: np.swapaxes(
-            _fwd_blocks(tbl, self.Lr, bw, b0, b1), 1, 2), self.nb, q, bw,
-            (bnd, q))
+        s_hi = self.logn - self.Lr
+        fwd = _Direction(lambda b0, b1: _fwd_blocks(
+            tbl, self.Lr, bw, b0, b1, dev).transpose(1, 2), nb, q, bw,
+            (bnd, q), dev)
         lazy = fwd.search(bnd, "any") if bnd > q else None
         canon = fwd.search(q, "any")
         ccost = (canon[0][0] + _COST_CSUB * _chain_csubs(bnd, q, q),
                  canon[0][1])
         self.fwd_lazy = lazy is not None and lazy[0] <= ccost
         self.fwd_bound = bnd if self.fwd_lazy else q
-        (self.fwd_base, self.Df, self.wf, self.constf, self.bounds_f,
-         self.groups_f) = fwd.tables((lazy if self.fwd_lazy else canon)[1],
-                                     self.fwd_bound)
+        fpick = (lazy if self.fwd_lazy else canon)[1]
         self.fwd_off = self.fwd_bound >> 1
         self.pw_bound = pointwise_bound(q)
         self.inv_off = self.pw_bound >> 1
-        inv = _Direction(lambda b0, b1: np.swapaxes(
-            _inv_blocks(tbl, s_hi, bw, b0, b1), 1, 2), self.nb, q, bw,
-            (self.pw_bound,))
-        (self.inv_base, self.Di, self.wi, self.consti, self.bounds_i,
-         self.groups_i) = inv.tables(inv.search(self.pw_bound,
-                                                _reduce_kind(q))[1],
-                                     self.pw_bound)
-        self._derive()
+        inv = _Direction(lambda b0, b1: _inv_blocks(
+            tbl, s_hi, bw, b0, b1, dev).transpose(1, 2), nb, q, bw,
+            (self.pw_bound,), dev)
+        ipick = inv.search(self.pw_bound, _reduce_kind(q))[1]
+        # the tables are built as the stream the kernels read
+        # (``stream_tables``): the forward's stages, then the inverse's
+        sw = bw * _packed_copies(bw)
+        nf = nb * stream_stages(fpick[1], sw)
+        self.stream = torch.empty(
+            (nf + nb * stream_stages(ipick[1], sw), STAGE_DEPTH * sw * self.D),
+            dtype=torch.int8, device=dev)
+        (self.fwd_base, self.Df, self.constf, self.bounds_f,
+         self.groups_f) = fwd.tables(fpick, self.fwd_bound, self.stream[:nf])
+        del fwd
+        (self.inv_base, self.Di, self.consti, self.bounds_i,
+         self.groups_i) = inv.tables(ipick, self.pw_bound, self.stream[nf:])
 
     def _derive(self):
         q = self.q
@@ -641,13 +705,31 @@ def check_table_bytes(n: int, q: int, bw: int | None = None) -> None:
             f"bytes ({MAX_TABLE_BYTES >> 30} GiB) the planner builds")
 
 
+def plan_device(device=None) -> torch.device:
+    """Where a plan is made: ``device``, else the card where there is one,
+    else the CPU."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 @functools.lru_cache(maxsize=None)
-def get_mxu_tables(name: str, bw: int | None = None) -> MxuTables:
-    """The plan of a registered set; past ``MAX_TABLE_BYTES`` it raises
-    before any table (the NTT tables included) is built."""
+def _planned(name: str, bw: int | None, device: str) -> MxuTables:
+    return MxuTables(get_tables(name), bw, device)
+
+
+def get_mxu_tables(name: str, bw: int | None = None,
+                   device=None) -> MxuTables:
+    """The plan of a registered set, made once per device (``plan_device``:
+    on the card unless the caller names the CPU); past
+    ``MAX_TABLE_BYTES`` it raises before any table (the NTT tables
+    included) is built."""
     ps = get_params(name)
     check_table_bytes(ps.n, ps.q, bw)
-    return MxuTables(get_tables(name), bw)
+    return _planned(name, bw, str(plan_device(device)))
+
+
+get_mxu_tables.cache_clear = _planned.cache_clear
 
 
 def from_jax_mxu_tables(mt) -> MxuTables:
@@ -749,83 +831,115 @@ def fixed_fold_plan(name: str, bw: int | None = None) -> FixedFoldPlan:
     return fold_plan(get_mxu_tables(name, bw))
 
 
+def _twiddle_rows(row: np.ndarray, b0: int, b1: int, bw: int, shape,
+                  device) -> torch.Tensor:
+    """Lanes b0*bw .. b1*bw of a twiddle row as int64 on ``device``."""
+    return torch.from_numpy(row[b0 * bw:b1 * bw].astype(np.int64)).to(
+        device).reshape(shape)
+
+
 def _fwd_blocks(tbl: NttTables, s_lo: int, bw: int, b0: int = 0,
-                b1: int | None = None) -> np.ndarray:
+                b1: int | None = None, device=None):
     """Diagonal blocks b0 .. b1 - 1 (all unless given) of
     ``_fwd_matrix(tbl, s_lo)``, (b1 - b0, bw, bw) output-major: every
     stage from s_lo pairs lanes of one block of bw, so each block is built
-    on its own, O(bw) a lane."""
+    on its own, O(bw) a lane.  int64 torch, built on ``device`` (the CPU
+    unless given)."""
     n, q, L = tbl.n, tbl.q, tbl.logn
     if n >> s_lo > bw:
         raise ValueError(f"stages from {s_lo} are not local to {bw} lanes")
+    dev = torch.device(device or "cpu")
     b1 = n // bw if b1 is None else b1
     c = b1 - b0
-    M = np.tile(np.eye(bw, dtype=np.int64), (c, 1, 1))
+    M = torch.eye(bw, dtype=torch.int64, device=dev).repeat(c, 1, 1)
     for s in range(s_lo, L):
         # rows j (bit t clear) and j | t: lo + w_j hi, lo - w_{j|t} hi
         t = n >> (s + 1)
-        w = tbl.ct_fwd_full[s][b0 * bw:b1 * bw].astype(np.int64).reshape(
-            c, bw // (2 * t), 2, t, 1)
+        w = _twiddle_rows(tbl.ct_fwd_full[s], b0, b1, bw,
+                          (c, bw // (2 * t), 2, t, 1), dev)
         V = M.reshape(c, bw // (2 * t), 2, t, bw)
         lo, hi = V[:, :, 0], V[:, :, 1]
-        M = np.stack([(lo + w[:, :, 0] * hi) % q, (lo - w[:, :, 1] * hi) % q],
-                     axis=2).reshape(c, bw, bw)
+        M = torch.stack([(lo + w[:, :, 0] * hi) % q,
+                         (lo - w[:, :, 1] * hi) % q], dim=2).reshape(c, bw,
+                                                                      bw)
     return M
 
 
 def _inv_blocks(tbl: NttTables, s_hi: int, bw: int, b0: int = 0,
-                b1: int | None = None) -> np.ndarray:
+                b1: int | None = None, device=None):
     """Diagonal blocks b0 .. b1 - 1 (all unless given) of
     ``_inv_matrix(tbl, s_hi)``, (b1 - b0, bw, bw): every stage below s_hi
-    pairs lanes of one block, so each block is built on its own."""
+    pairs lanes of one block, so each block is built on its own.  int64
+    torch, built on ``device`` (the CPU unless given)."""
     n, q, L = tbl.n, tbl.q, tbl.logn
     if 1 << s_hi > bw:
         raise ValueError(f"stages below {s_hi} are not local to {bw} lanes")
+    dev = torch.device(device or "cpu")
     b1 = n // bw if b1 is None else b1
     c = b1 - b0
-    M = np.tile(np.eye(bw, dtype=np.int64), (c, 1, 1))
+    M = torch.eye(bw, dtype=torch.int64, device=dev).repeat(c, 1, 1)
     for s in range(s_hi):
         # rows j (bit t clear) and j | t from u = M[j], v = M[j | t]: u + v
         # and w_{j|t} (u - v); the last stage w_j (u + v) and w_{j|t} (u - v)
         t = 1 << s
-        w = tbl.gs_inv_full[s][b0 * bw:b1 * bw].astype(np.int64).reshape(
-            c, bw // (2 * t), 2, t, 1)
+        w = _twiddle_rows(tbl.gs_inv_full[s], b0, b1, bw,
+                          (c, bw // (2 * t), 2, t, 1), dev)
         V = M.reshape(c, bw // (2 * t), 2, t, bw)
         u, v = V[:, :, 0], V[:, :, 1]
         top = (u + v) * w[:, :, 0] if s == L - 1 else u + v
-        M = np.stack([top % q, (w[:, :, 1] * (u - v)) % q],
-                     axis=2).reshape(c, bw, bw)
+        M = torch.stack([top % q, (w[:, :, 1] * (u - v)) % q],
+                        dim=2).reshape(c, bw, bw)
     return M
+
+
+def _fold_blocks(mt: MxuTables, fp: FixedFoldPlan, spec: torch.Tensor):
+    """The folded inverse tables of the constant whose canonical spectrum
+    is ``spec`` (n values, int64 mod q, on the device where they are
+    built), a chunk of lane blocks at a time: (b0, b1, W int8 (b1 - b0,
+    Din, bw, Dout*bw), const int64 (b1 - b0, bw)).  Raises where the
+    digits pass the worst case ``fp`` covers."""
+    q, bw, nb, dev = mt.q, mt.bw, mt.nb, spec.device
+    bias = _group_bias(fp.groups, fp.bounds, q)
+    spec = spec.reshape(nb, bw, 1)
+    cap = np.asarray(fp.mw_wc, np.int64)
+    for b0, b1 in _chunks(nb, dev):
+        # columns of M_inv scaled by the spectrum: every product < 2^60
+        K = (_inv_blocks(mt.tbl, mt.logn - mt.Lr, bw, b0, b1,
+                         dev).transpose(1, 2) * spec[b0:b1]) % q
+        W = torch.empty((b1 - b0, fp.Din, bw, fp.Dout * bw),
+                        dtype=torch.int8, device=dev)
+        raw = []
+        for i in range(fp.Din):
+            u = _shifted_t(K, pow(fp.base, i, q), q, fp.Dout)
+            _store_digits_t(W[:, i], u, fp.Dout, bw)
+            raw.append(_raw_maxima_t(u, fp.Dout))
+        # plan soundness: the digits sit inside the worst case the plan
+        # covers
+        mw = _maxima_of_raw(torch.stack(raw).cpu().numpy())
+        assert (mw <= cap[None, :]).all(), \
+            "folded-matrix digits exceed the worst-case plan"
+        yield b0, b1, W, ((fp.off % q) * (K.sum(dim=1) % q) - bias) % q
 
 
 def fold_tables(mt: MxuTables, fp: FixedFoldPlan, spectrum):
     """The folded inverse tables of one constant under ``fp``: ``W`` int8
     (nb, Din, bw, Dout*bw) and ``const`` uint32 (nb, 1, bw), bit for bit
     JAX's ``fixed_fold_tables``.  ``spectrum`` is the constant's canonical
-    forward spectrum, (n,) in the merged output order."""
-    q, bw, nb = mt.q, mt.bw, mt.nb
+    forward spectrum, (n,) in the merged output order; the tables are
+    built on the host, as numpy (``ntt_mxu.fold_operand`` builds them on
+    the spectrum's device)."""
     d = np.asarray(spectrum)
     if d.shape != (mt.n,):
         raise ValueError(f"spectrum must be ({mt.n},), got {d.shape}")
     if fp.Dout != mt.D:
         raise ValueError(f"fold plan has {fp.Dout} classes, tables {mt.D}")
-    W = np.empty((nb, fp.Din, bw, fp.Dout * bw), dtype=np.int8)
-    const = np.empty((nb, 1, bw), dtype=np.uint32)
-    mw = np.zeros((fp.Din, fp.Dout), dtype=np.int64)
-    bias = _group_bias(fp.groups, fp.bounds, q)
-    spec = (d.astype(np.int64) % q).reshape(nb, bw, 1)
-    for b0, b1 in _chunks(nb):
-        # columns of M_inv scaled by the spectrum: every product < 2^60
-        K = (np.swapaxes(_inv_blocks(mt.tbl, mt.logn - mt.Lr, bw, b0, b1),
-                         1, 2) * spec[b0:b1]) % q
-        for i in range(fp.Din):
-            u = _shifted(K, pow(fp.base, i, q), q, fp.Dout)
-            _store_digits(W[b0:b1, i], u, fp.Dout, bw)
-            mw[i] = np.maximum(mw[i], _digit_maxima(u, fp.Dout))
-        const[b0:b1, 0] = ((fp.off % q) * (K.sum(axis=1) % q) - bias) % q
-    # plan soundness: the digits sit inside the worst case the plan covers
-    assert (mw <= np.asarray(fp.mw_wc, np.int64)[None, :]).all(), \
-        "folded-matrix digits exceed the worst-case plan"
+    W = np.empty((mt.nb, fp.Din, mt.bw, fp.Dout * mt.bw), dtype=np.int8)
+    const = np.empty((mt.nb, 1, mt.bw), dtype=np.uint32)
+    with host_threads(mt.n * mt.bw):
+        spec = torch.from_numpy(d.astype(np.int64) % mt.q)
+        for b0, b1, Wb, cb in _fold_blocks(mt, fp, spec):
+            W[b0:b1] = Wb.numpy()
+            const[b0:b1, 0] = cb.numpy()
     return W, const
 
 
@@ -865,50 +979,83 @@ def stream_stages(din: int, bw: int) -> int:
     return -(-din * bw // STAGE_DEPTH)
 
 
-def _stages(w: np.ndarray) -> np.ndarray:
+def _tensor(a) -> torch.Tensor:
+    """Tables as a tensor: numpy shared (a read-only array copied), a
+    tensor as it is."""
+    if isinstance(a, np.ndarray):
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+    return a
+
+
+def _stages(w):
     """Input-major tables (nb, din, bw, D*bw) -> their stages (nb*C,
     bw*D*64) int8, in the order the MMA warps read them: stage (b, c) of a
     block holds depth [64c, 64c + 64) of the output-major table T[b] (row
     j*bw + o, column i*bw + k, zero past din*bw) as [lt][j][g][t][s][8]:
     the 16 bytes lane 4g + t of the warp of output tile lt takes for class
     j, row j*bw + 8lt + g, bytes 32s + 8t .. 32s + 8t + 7 of the slice (s the
-    32-deep step)."""
+    32-deep step).  A tensor on w's device (the CPU for numpy)."""
+    w = _tensor(w)
     nb, din, bw, dbw = w.shape
     D, C = dbw // bw, stream_stages(din, bw)
-    T = np.zeros((nb, dbw, C * STAGE_DEPTH), dtype=np.int8)
-    T[..., :din * bw] = np.moveaxis(w, -1, 1).reshape(nb, dbw, din * bw)
+    T = w.new_zeros((nb, dbw, C * STAGE_DEPTH))
+    T[..., :din * bw] = w.movedim(-1, 1).reshape(nb, dbw, din * bw)
     T = T.reshape(nb, D, bw // _MMA_LANES, _MMA_LANES, C, 2, 4, 8)
     # (b, j, lt, g, c, s, t, byte) -> (b, c, lt, j, g, t, s, byte)
-    return np.ascontiguousarray(T.transpose(0, 4, 2, 1, 3, 6, 5, 7)).reshape(
-        nb * C, STAGE_DEPTH * dbw)
+    return T.permute(0, 4, 2, 1, 3, 6, 5, 7).reshape(nb * C,
+                                                     STAGE_DEPTH * dbw)
 
 
-def _unstages(st: np.ndarray, nb: int, din: int, bw: int,
-              D: int) -> np.ndarray:
+def _packed_copies(bw: int) -> int:
+    """Copies of a lane block of ``bw`` lanes that one row of the table
+    stream holds: 32 / bw below one MMA step (``lane_packed``), else 1."""
+    return max(1, MMA_K // bw)
+
+
+def _staged(w) -> torch.Tensor:
+    """Input-major tables (nb, din, bw, D*bw) as the stream's stages, lane
+    packed (``block_diagonal``) below one MMA step."""
+    k = _packed_copies(w.shape[2])
+    return _stages(block_diagonal(w, k) if k > 1 else w)
+
+
+def _unstages(st, nb: int, din: int, bw: int, D: int):
+    """``_stages``' inverse, a tensor on st's device."""
+    st = _tensor(st)
     C = stream_stages(din, bw)
     T = st.reshape(nb, C, bw // _MMA_LANES, D, _MMA_LANES, 4, 2, 8)
-    T = T.transpose(0, 3, 2, 4, 1, 6, 5, 7).reshape(nb, D * bw,
-                                                     C * STAGE_DEPTH)
-    return np.moveaxis(T[..., :din * bw].reshape(nb, D * bw, din, bw), 1, -1)
+    T = T.permute(0, 3, 2, 4, 1, 6, 5, 7).reshape(nb, D * bw,
+                                                   C * STAGE_DEPTH)
+    return T[..., :din * bw].reshape(nb, D * bw, din, bw).movedim(
+        1, -1).contiguous()
 
 
-def stream_tables(mt: MxuTables) -> np.ndarray:
+def stream_tables(mt: MxuTables):
     """B5's table stream: the forward tables' stages, then the inverse
     tables', (nb * (Cf + Ci), 64 * bw * D) int8 with C = din*bw / 64 rounded
-    up.  One stage is one bulk copy; the kernel walks them in this order
-    once per row group."""
-    return np.concatenate([_stages(mt.wf), _stages(mt.wi)])
+    up; at n <= 16 those of ``lane_packed(mt)``, the ones the kernel reads.
+    One stage is one bulk copy; the kernel walks them in this order once
+    per row group.  The plan holds it, on its device (``mt.stream``)."""
+    return mt.stream
 
 
-def expand_stream(st: np.ndarray, mt: MxuTables) -> tuple:
+def expand_stream(st, mt: MxuTables) -> tuple:
     """The inverse of ``stream_tables``: (wf, wi) input-major as in
-    ``MxuTables``.  Raises if the depth padding of a stage is not zero."""
-    nf = mt.nb * stream_stages(mt.Df, mt.bw)
-    out = tuple(_unstages(part, mt.nb, din, mt.bw, mt.D)
+    ``MxuTables``, tensors on st's device (at n <= 16 the block on the
+    packed tables' diagonal).  Raises if the depth padding of a stage is
+    not zero."""
+    st = _tensor(st)
+    nb, bw, D = mt.nb, mt.bw, mt.D
+    k = _packed_copies(bw)
+    nf = nb * stream_stages(mt.Df, bw * k)
+    out = tuple(_unstages(part, nb, din, bw * k, D)
                 for part, din in ((st[:nf], mt.Df), (st[nf:], mt.Di)))
-    if np.count_nonzero(st) != sum(np.count_nonzero(w) for w in out):
+    if int(torch.count_nonzero(st)) != sum(int(torch.count_nonzero(w))
+                                           for w in out):
         raise ValueError("the stream's depth padding holds nonzero bytes")
-    return out
+    # input lane c*bw + i, output (j*k + c)*bw + o: the block c = 0
+    return tuple(w.reshape(nb, -1, k, bw, D, k, bw)[:, :, 0, :, :, 0]
+                 .reshape(nb, -1, bw, D * bw) for w in out)
 
 
 # ----------------------------------------------------------------------
@@ -918,14 +1065,15 @@ def expand_stream(st: np.ndarray, mt: MxuTables) -> tuple:
 MMA_K = 32               # the int8 MMA's k step: the narrowest lane block
 
 
-def block_diagonal(w: np.ndarray, k: int) -> np.ndarray:
+def block_diagonal(w, k: int):
     """Input-major tables (1, din, bw, D*bw) -> (1, din, k*bw, D*k*bw) with
     k copies of the block on the diagonal of every class, zero elsewhere:
     input lane c*bw + i feeds output lane c*bw + o of class j (column
-    (j*k + c)*bw + o) as lane i fed lane o."""
+    (j*k + c)*bw + o) as lane i fed lane o, a tensor on w's device."""
+    w = _tensor(w)
     nb, din, bw, dbw = w.shape
     D = dbw // bw
-    out = np.zeros((nb, din, k * bw, D * k * bw), dtype=w.dtype)
+    out = w.new_zeros((nb, din, k * bw, D * k * bw))
     for c in range(k):
         for j in range(D):
             out[:, :, c * bw:(c + 1) * bw,
@@ -944,15 +1092,18 @@ def lane_packed(mt: MxuTables) -> MxuTables:
     k copies of theirs, so each row's lanes meet only its own block.
     Splits, bounds, classes and biases are per value or per class and stay
     as they are; ``tbl`` stays the n-point table (no wide stage reads
-    it).  A table of 32 lanes or more comes back as it is."""
+    it); the stream is ``mt``'s, which the planner lays out packed.  A
+    table of 32 lanes or more comes back as it is."""
     if mt.bw >= MMA_K:
         return mt
     assert mt.nb == 1 and mt.Lr == 0
     k = MMA_K // mt.bw
     out = copy.copy(mt)
+    for f in ("wf", "wi"):
+        out.__dict__.pop(f, None)
     out.n = out.bw = MMA_K
     out.logn = MMA_K.bit_length() - 1
-    out.wf, out.wi = (block_diagonal(w, k) for w in (mt.wf, mt.wi))
+    out.stream = mt.stream
     out.constf, out.consti = (np.tile(c, (1, 1, k))
                               for c in (mt.constf, mt.consti))
     return out

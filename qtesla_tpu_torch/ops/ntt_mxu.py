@@ -55,14 +55,14 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from . import ntt as N
-from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _group_bias,
-                         _split_bias, _stages, block_diagonal, fold_plan,
-                         fold_tables, get_mxu_tables, lane_packed,
-                         stream_stages, stream_tables)
+from .mxu_tables import (STAGE_DEPTH, FixedFoldPlan, MxuTables, _fold_blocks,
+                         _group_bias, _split_bias, _stages, block_diagonal,
+                         expand_stream, fold_plan, get_mxu_tables,
+                         host_threads, lane_packed, stream_stages,
+                         stream_tables)
 from .ntt_fused import Kernel, _check, _check_tw
 
 __all__ = ["KERNELS", "MxuDeviceTables", "MxuPlan", "MxuStreamPlan",
@@ -141,30 +141,36 @@ class MxuDeviceTables:
         return self.wf, self.constf, self.wi, self.consti, self.stream
 
 
-def _kernel_layout(w) -> torch.Tensor:
+def _kernel_layout(w: torch.Tensor) -> torch.Tensor:
     nb, din, bw, dbw = w.shape
-    return torch.from_numpy(w).permute(0, 3, 1, 2).reshape(
-        nb, dbw, din * bw).contiguous()
+    return w.permute(0, 3, 1, 2).reshape(nb, dbw, din * bw).contiguous()
+
+
+def _tables_on(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
+    """The kernel-layout tables on ``device``; the stream is
+    ``lane_packed(mt)``'s, the one the kernel reads.  From ``SPLIT_FROM`` no
+    dense ``wf``/``wi``.  A plan made on ``device`` lends its stream."""
+    dense = not split_form(mt)
+    wf, wi = expand_stream(stream_tables(mt), mt) if dense else (None, None)
+    tabs = (_kernel_layout(wf) if dense else None,
+            torch.from_numpy(mt.constf[:, 0].copy()),
+            _kernel_layout(wi) if dense else None,
+            torch.from_numpy(mt.consti[:, 0].copy()),
+            stream_tables(lane_packed(mt)))
+    return MxuDeviceTables(*(None if t is None else
+                             t.to(device).contiguous() for t in tabs))
 
 
 def host_tables(mt: MxuTables) -> MxuDeviceTables:
-    """The kernel-layout tables on the CPU, in new storage; the stream is
-    ``lane_packed(mt)``'s, the one the kernel reads.  From ``SPLIT_FROM``
-    no dense ``wf``/``wi``."""
-    dense = not split_form(mt)
-    return MxuDeviceTables(
-        _kernel_layout(mt.wf) if dense else None,
-        torch.from_numpy(mt.constf[:, 0].copy()),
-        _kernel_layout(mt.wi) if dense else None,
-        torch.from_numpy(mt.consti[:, 0].copy()),
-        torch.from_numpy(stream_tables(lane_packed(mt))))
+    """The kernel-layout tables on the CPU, in new storage (``_tables_on``)."""
+    return MxuDeviceTables(*(None if t is None else t.clone() for t in
+                             _tables_on(mt, torch.device("cpu")).tensors()))
 
 
 @functools.lru_cache(maxsize=None)
 def device_tables(mt: MxuTables, device: torch.device) -> MxuDeviceTables:
-    """``host_tables(mt)`` on ``device``, made once per device."""
-    return MxuDeviceTables(*(None if t is None else t.to(device)
-                             for t in host_tables(mt).tensors()))
+    """``_tables_on(mt, device)``, made once per device."""
+    return _tables_on(mt, torch.device(device))
 
 
 def dense_tables(tabs: MxuDeviceTables, mt: MxuTables, direction: str):
@@ -213,19 +219,32 @@ class FoldedOperand:
 
 def fold_operand(spectrum: torch.Tensor, mt: MxuTables) -> FoldedOperand:
     """The folded operand of the constant whose canonical forward spectrum
-    is ``spectrum`` (n values), on the spectrum's device, under
-    ``fold_plan(mt)``.  The tables are built on the host (``fold_tables``),
-    laid out as stages there and copied over once; at n <= 16 as the
-    kernel reads them, lane packed (``lane_packed``: 32 / n copies of the
-    block on the diagonal)."""
+    is ``spectrum`` (n values), under ``fold_plan(mt)``, built on the
+    spectrum's device a chunk of lane blocks at a time
+    (``mxu_tables._fold_blocks``) and laid out there as stages; at n <= 16
+    as the kernel reads them, lane packed (``lane_packed``: 32 / n copies
+    of the block on the diagonal)."""
     _check("spectrum", spectrum.reshape(-1), spectrum.numel())
-    W, c = fold_tables(mt, fold_plan(mt), spectrum.reshape(-1).cpu().numpy())
-    k = lane_packed(mt).bw // mt.bw
-    if k > 1:
-        W, c = block_diagonal(W, k), np.tile(c, (1, 1, k))
+    if spectrum.numel() != mt.n:
+        raise ValueError(f"spectrum must be ({mt.n},), got "
+                         f"{tuple(spectrum.shape)}")
+    fp = fold_plan(mt)
+    if fp.Dout != mt.D:
+        raise ValueError(f"fold plan has {fp.Dout} classes, tables {mt.D}")
     dev = spectrum.device
-    return FoldedOperand(torch.from_numpy(_stages(W)).to(dev),
-                         torch.from_numpy(c[:, 0].copy()).to(dev))
+    spec = spectrum.reshape(-1).to(torch.int64) % mt.q
+    k = lane_packed(mt).bw // mt.bw
+    C = stream_stages(fp.Din, mt.bw * k)
+    stages = torch.empty((mt.nb * C, STAGE_DEPTH * mt.bw * k * fp.Dout),
+                         dtype=torch.int8, device=dev)
+    c = torch.empty((mt.nb, mt.bw * k), dtype=torch.int64, device=dev)
+    with host_threads(mt.n * mt.bw):
+        for b0, b1, W, cb in _fold_blocks(mt, fp, spec):
+            if k > 1:
+                W, cb = block_diagonal(W, k), cb.repeat(1, k)
+            stages[b0 * C:b1 * C] = _stages(W)
+            c[b0:b1] = cb
+    return FoldedOperand(stages, c.to(torch.uint32))
 
 
 def staged_tables(stages: torch.Tensor, nb: int, bw: int,

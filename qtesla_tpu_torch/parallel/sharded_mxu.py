@@ -204,6 +204,9 @@ def _const_rows(c: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(c[..., 0, :].copy())
 
 
+# float64 bytes of tables a compact twin's product takes at once
+_TWIN_BYTES = 1 << 30
+
 # the largest ring whose dense tables (the dense twins' alone) are built:
 # every shipped set and n = 8192 (75 MB a table at n = 65536); past it the
 # twins read the compact blocks, as the kernels do
@@ -214,31 +217,38 @@ def _dense(plans: SpPlans) -> bool:
     return plans.n <= DENSE_MAX_N
 
 
-def host_tables(plans: SpPlans) -> SpDeviceTables:
-    """The kernel-layout tables on the CPU: the compact blocks as the plan
-    holds them, the dense tables (which the twins alone read) in new
-    storage up to n = ``DENSE_MAX_N`` and None past it."""
+def _tables_on(plans: SpPlans, device: torch.device) -> SpDeviceTables:
+    """The kernel-layout tables on ``device``: the compact blocks as the
+    plan holds them (a plan made on ``device`` lends them), the dense
+    tables (which the twins alone read) up to n = ``DENSE_MAX_N`` and None
+    past it."""
     dense = _dense(plans)
 
     def lay_out(p):
         return _kernel_layout(p.W) if dense else None
 
-    return SpDeviceTables(
-        lay_out(plans.p1), _const_rows(plans.p1.const),
-        lay_out(plans.p2f), _const_rows(plans.p2f.const),
-        lay_out(plans.p2i), _const_rows(plans.p2i.const),
-        lay_out(plans.p3), _const_rows(plans.p3.const),
-        torch.from_numpy(plans.t1.packed.copy()),
-        lay_out(plans.p3x), _const_rows(plans.p3x.const),
-        *(torch.from_numpy(getattr(plans, p).Wc)
-          for p in ("p1", "p2i", "p3", "p3x", "p2f")))
+    tabs = (lay_out(plans.p1), _const_rows(plans.p1.const),
+            lay_out(plans.p2f), _const_rows(plans.p2f.const),
+            lay_out(plans.p2i), _const_rows(plans.p2i.const),
+            lay_out(plans.p3), _const_rows(plans.p3.const),
+            torch.from_numpy(plans.t1.packed.copy()),
+            lay_out(plans.p3x), _const_rows(plans.p3x.const),
+            *(getattr(plans, p).Wc for p in ("p1", "p2i", "p3", "p3x",
+                                             "p2f")))
+    return SpDeviceTables(*(None if t is None else t.to(device)
+                            for t in tabs))
+
+
+def host_tables(plans: SpPlans) -> SpDeviceTables:
+    """``_tables_on(plans)`` on the CPU: the dense tables and const rows in
+    new storage, the compact blocks of a CPU plan as it holds them."""
+    return _tables_on(plans, torch.device("cpu"))
 
 
 @functools.lru_cache(maxsize=None)
 def device_tables(plans: SpPlans, device: torch.device) -> SpDeviceTables:
-    """``host_tables(plans)`` on ``device``, made once per device."""
-    return SpDeviceTables(*(None if t is None else t.to(device)
-                            for t in host_tables(plans).tensors()))
+    """``_tables_on(plans, device)``, made once per device."""
+    return _tables_on(plans, torch.device(device))
 
 
 class FoldedSpOperand(NamedTuple):
@@ -264,11 +274,11 @@ def fold_sp_operand(W: np.ndarray, c: np.ndarray, plans: SpPlans,
         .to(device), _const_rows(c).to(device))
 
 
-def fold_sp_blocks(Wc: np.ndarray, c: np.ndarray, device) -> FoldedSpOperand:
+def fold_sp_blocks(Wc: torch.Tensor, c: torch.Tensor,
+                   device) -> FoldedSpOperand:
     """The operand of a (Wc, const) pair of ``fourstep_fold_blocks`` on
     ``device``: its nonzero blocks as they are, once per constant."""
-    return FoldedSpOperand(torch.from_numpy(Wc).to(device),
-                           _const_rows(c).to(device))
+    return FoldedSpOperand(Wc.to(device), c[..., 0, :].clone().to(device))
 
 
 def dense_folded_tables(fold: FoldedSpOperand, plans: SpPlans) -> torch.Tensor:
@@ -397,9 +407,20 @@ def compact_class_sums(planes: torch.Tensor, wc: torch.Tensor,
     P = planes.reshape(S, R, A, kin, TW)[..., lane].reshape(
         S, R, A, kin, nblk, s)[..., korder].permute(
         0, 2, 4, 1, 3, 5).reshape(S, A, nblk, R, kin * s)
-    c = torch.matmul(P.to(torch.float64),
-                     wc[..., :kin * s].to(torch.float64).transpose(-1, -2))
-    c = c.to(_I64).reshape(S, A, nblk, R, D, s).permute(0, 3, 1, 4, 2, 5)
+    # a chunk of tiles at a time, so that no float64 copy of the tables
+    # passes _TWIN_BYTES (K2i's blocks are 9.5 GB at n = 2^22)
+    tiles = wc.shape[-4] if wc.ndim >= 4 else 1
+    per_tile = 8 * wc[..., :kin * s].numel() // tiles
+    step = max(1, min(A, _TWIN_BYTES // per_tile))
+    parts = []
+    for a0 in range(0, A, step):
+        w = (wc[..., a0:a0 + step, :, :, :kin * s] if tiles > 1
+             else wc[..., :kin * s])
+        parts.append(torch.matmul(
+            P[:, a0:a0 + step].to(torch.float64),
+            w.to(torch.float64).transpose(-1, -2)).to(_I64))
+    c = torch.cat(parts, dim=1).reshape(S, A, nblk, R, D, s).permute(
+        0, 3, 1, 4, 2, 5)
     return c.reshape(S, R, A, D, TW)[..., pos]
 
 
@@ -1429,9 +1450,8 @@ def _rank_fixed_pair(plans: SpPlans, mesh, folded: bool):
         return spectrum_row, multiply
 
     def prepare_folded(a):
-        row = spectrum_row(a).cpu().numpy()
-        return fold_sp_blocks(*fourstep_fold_blocks(plans, row, first=d),
-                              mesh.device)
+        return fold_sp_blocks(*fourstep_fold_blocks(
+            plans, spectrum_row(a), first=d), mesh.device)
 
     return prepare_folded, lambda xs, w, c: multiply(
         xs, FoldedSpOperand(w, c))
@@ -1440,8 +1460,8 @@ def _rank_fixed_pair(plans: SpPlans, mesh, folded: bool):
 def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
                                          n1: int | None = None):
     """(prepare, multiply) of the folded fixed SP path: ``prepare(a)`` runs
-    B11 and B14 on a, copies the spectrum to the host, builds its folded
-    tables' nonzero blocks (``fourstep_fold_blocks``) and returns them on
+    B11 and B14 on a, builds its folded tables' nonzero blocks
+    (``fourstep_fold_blocks``) on the spectrum's device and returns them on
     the mesh's device as a ``FoldedSpOperand`` (w compact, c);
     ``multiply(x, w, c)`` runs B11, one folded product (B15) and B16
     under p3x.  Called as ``multiply(x, *prepare(a))``, as in JAX; JAX's
@@ -1458,9 +1478,8 @@ def polymul_fixed_folded_fourstep_mxu_fn(name: str, mesh,
 
     def prepare(a):
         on_mesh(mesh, a)
-        spec = fixed_spectrum(a, plans).cpu().numpy()
-        return fold_sp_blocks(*fourstep_fold_blocks(plans, spec),
-                              mesh.device)
+        return fold_sp_blocks(*fourstep_fold_blocks(
+            plans, fixed_spectrum(a, plans)), mesh.device)
 
     def multiply(x, w, c):
         on_mesh(mesh, x)

@@ -1,11 +1,12 @@
-"""Planner of the sequence-parallel (SP) digit-matmul polymul (host only).
+"""Planner of the sequence-parallel (SP) digit-matmul polymul.
 
 Counterpart of the static half of ``qtesla_tpu/parallel/sharded_mxu.py``:
 ``_RollTables`` (l.89), ``_transform_matrix`` (l.119), ``_k1_position_map``
 (l.132), ``_digit_plan`` (l.155) and ``fourstep_mxu_plans`` (l.229-410).  It
 is a module of its own because the JAX module imports jax; this one computes
-with numpy, reusing the single-transform planner's helpers
-(``ops/mxu_tables.py``).  The tests hold every table and plan field equal to
+the plans in Python ints and numpy and the tables in int64 torch on the
+device where they go (the card unless the caller names the CPU), reusing
+the single-transform planner's helpers (``ops/mxu_tables.py``).  The tests hold every table and plan field equal to
 JAX's.
 
 The four-step split n = n1 x n2 runs over a model axis of k shards.  Shard d
@@ -33,12 +34,13 @@ The planner works a tile at a time.  Every tile matrix is block-diagonal
 once its lanes are put in the right order (``compact_layout``): K1 and K3
 couple only lanes of equal lambda (n2k blocks of Bk lanes), K2f, K2i and
 the folded F are TW/n2 blocks of n2 lanes.  So each matrix is built as its
-own diagonal blocks (``_Blocks``), in int64 numpy vectorised over shards
-and tiles in chunks, from the (Bk, Bk) diagonal blocks of the n1-point
-stage matrices (``mxu_tables._fwd_blocks``, ``_inv_blocks``) and the
-n2-point transform; the digit maxima of every candidate split come from one
-pass over the blocks, and only the chosen split's tables are built, as
-their nonzero blocks (``DigitPlan.Wc``, ``compact_tables``'s layout).  The
+own diagonal blocks (``_Blocks``), in int64 torch on the plan's device,
+vectorised over shards and tiles in chunks, from the (Bk, Bk) diagonal
+blocks of the n1-point stage matrices (``mxu_tables._fwd_blocks``,
+``_inv_blocks``) and the n2-point transform; the digit maxima of every
+candidate split come from one pass over the blocks, and only the chosen
+split's tables are built, as their nonzero blocks (``DigitPlan.Wc``,
+``compact_tables``'s layout, a tensor on the plan's device).  The
 dense matrices and tables JAX's planner builds (``K1``, ``K2f``, ``K2i``,
 ``DigitPlan.W``) are expanded from the blocks where they are asked for,
 for the tests and the twins at small n.  A plan whose tables would pass
@@ -71,10 +73,11 @@ from ..ops.mxu_tables import (MAX_TABLE_BYTES, _COST_CSUB, _COST_PLANE,
                               _digit_bounds, _digit_maxima, _digit_t,
                               _fwd_blocks, _group_bias, _input_digit_maxima,
                               _inv_blocks, _lazy_fwd_schedule,
-                              _matrix_digit_block, _ndigits, _plan_cost,
-                              _plan_groups, _plane_count, _recombine_bound,
-                              _reduce_kind, _shifted_t, _split_bias,
-                              host_threads, pointwise_bound)
+                              _matrix_digit_block, _maxima_of_raw, _ndigits,
+                              _plan_cost, _plan_groups, _plane_count,
+                              _raw_maxima_t, _recombine_bound, _reduce_kind,
+                              _shifted_t, _split_bias, host_threads,
+                              plan_device, pointwise_bound)
 from ..ops.ntt import _subtables
 from ..ops.tables import NttTables, get_tables
 from ..params import ParamSet, get_params
@@ -89,8 +92,10 @@ __all__ = ["SpPlans", "DigitPlan", "FoldPlan", "ClassPlan", "RollTables",
            "sp_table_bytes", "check_sp_table_bytes"]
 
 _TW_MAX = 128
-# int64 entries of own blocks a vectorised planner step takes (16 MiB)
+# int64 entries of own blocks a vectorised planner step takes: 16 MiB on the
+# host, 128 MiB on a card
 _CHUNK_ENTRIES = 1 << 21
+_CHUNK_ENTRIES_CUDA = 1 << 24
 
 
 class _Fields:
@@ -109,21 +114,22 @@ class _Fields:
 class DigitPlan(_Fields):
     """Digit tables of a stack of TW x TW input-major matrices under one
     split and recombination plan: ``Wc`` int8 (..., nblk, Dout*s, kp), the
-    tables' nonzero blocks under the layout ``lay`` (``compact_tables``),
-    ``W`` int8 (..., din, TW, Dout*TW) the dense tables JAX's planner
-    builds (expanded from ``Wc`` when asked for), ``const`` uint32 (..., 1,
-    TW); ``din`` planes of ``base`` centred at ``off`` cover inputs below
-    2*off (+1); class ``bounds`` and Horner ``groups``; ``raw_bound`` is the
-    TPU kernel's recombination bound and ``store_bound`` what it stores (2q
-    when ``needs_reduce``)."""
+    tables' nonzero blocks under the layout ``lay`` (``compact_tables``), a
+    tensor on the plan's device; ``W`` int8 (..., din, TW, Dout*TW) numpy,
+    the dense tables JAX's planner builds (expanded from ``Wc`` when asked
+    for), ``const`` uint32 numpy (..., 1, TW); ``din`` planes of ``base``
+    centred at ``off`` cover inputs below 2*off (+1); class ``bounds`` and
+    Horner ``groups``; ``raw_bound`` is the TPU kernel's recombination bound
+    and ``store_bound`` what it stores (2q when ``needs_reduce``)."""
 
     def __getattr__(self, name):
         d = self.__dict__
         if name == "W" and "Wc" in d:
-            d["W"] = expand_compact(d["Wc"], d["lay"], d["din"])
+            d["W"] = expand_compact(d["Wc"].cpu().numpy(), d["lay"],
+                                    d["din"])
             return d["W"]
         if name == "Wc" and "W" in d:
-            d["Wc"] = compact_tables(d["W"], d["lay"])
+            d["Wc"] = torch.from_numpy(compact_tables(d["W"], d["lay"]))
             return d["Wc"]
         raise AttributeError(name)
 
@@ -236,17 +242,21 @@ class _Blocks:
     """A stack of TW x TW tile matrices (``lead`` shape: (k, A), or () for
     the one shared K2f) given by their own diagonal blocks in position order
     (``compact_layout``): ``fn(f0, f1)`` -> the blocks of flat tiles f0 ..
-    f1 - 1, (f1 - f0, nown, own, own) int64, canonical mod q, input-major;
-    own block m of a tile covers positions [m * own, (m + 1) * own)."""
+    f1 - 1, (f1 - f0, nown, own, own) int64 torch on ``device``, canonical
+    mod q, input-major; own block m of a tile covers positions [m * own,
+    (m + 1) * own)."""
 
-    def __init__(self, lead: tuple, nown: int, own: int, fn):
+    def __init__(self, lead: tuple, nown: int, own: int, fn, device):
         self.lead, self.nown, self.own, self.fn = lead, nown, own, fn
+        self.device = torch.device(device)
         self.count = int(np.prod(lead, dtype=np.int64))
         self.entries = self.count * nown * own * own
         self._mw = {}             # digit maxima by base, kept per stack
 
     def chunks(self):
-        step = max(1, _CHUNK_ENTRIES // (self.nown * self.own * self.own))
+        entries = (_CHUNK_ENTRIES_CUDA if self.device.type == "cuda"
+                   else _CHUNK_ENTRIES)
+        step = max(1, entries // (self.nown * self.own * self.own))
         for f0 in range(0, self.count, step):
             f1 = min(self.count, f0 + step)
             yield f0, f1, self.fn(f0, f1)
@@ -270,48 +280,52 @@ class _Blocks:
         mw = {b: np.zeros((din, D), dtype=np.int64)
               for b, din in want.items()}
         for _, _, M in self.chunks():
-            Mt = torch.from_numpy(M)
             for base, m in mw.items():
-                for i in range(m.shape[0]):
-                    if (m[i] < cap).any():
-                        got = _digit_maxima(
-                            _shifted_t(Mt, pow(base, i, q), q, D), D)
-                        m[i] = np.maximum(m[i], got)
+                live = [i for i in range(m.shape[0]) if (m[i] < cap).any()]
+                if live:
+                    raw = torch.stack([_raw_maxima_t(
+                        _shifted_t(M, pow(base, i, q), q, D), D)
+                        for i in live]).cpu().numpy()
+                    m[live] = np.maximum(m[live], _maxima_of_raw(raw))
         self._mw.update(mw)
 
     def compact(self, lay: "CompactLayout", q: int, D: int, din: int,
                 base: int, off: int, bias: int, maxima: bool = False):
         """The split's tables as their nonzero blocks, int8 (*lead, nblk,
-        D*s, kp) in ``compact_tables``' layout, the const rows uint32
+        D*s, kp) in ``compact_tables``' layout, the const rows int64 mod q
         (*lead, 1, TW): the centring offset folded in, ``bias`` (the group
-        biases) subtracted, and with ``maxima`` the max |digit| (din, D) of
-        the tables (else zeros)."""
+        biases) subtracted, both tensors built on the blocks' device, and
+        with ``maxima`` the max |digit| (din, D) of the tables (else
+        zeros)."""
         with host_threads(self.entries):
             return self._compact(lay, q, D, din, base, off, bias, maxima)
 
     def _compact(self, lay, q, D, din, base, off, bias, maxima):
-        s, nblk, TW = lay.s, lay.nblk, lay.TW
-        Wc = np.zeros((self.count, nblk, D * s, compact_depth(din, s)),
-                      dtype=np.int8)
-        Wt = torch.from_numpy(Wc)
-        const = np.empty((self.count, 1, TW), dtype=np.uint32)
+        s, nblk, TW, dev = lay.s, lay.nblk, lay.TW, self.device
+        Wt = torch.zeros((self.count, nblk, D * s, compact_depth(din, s)),
+                         dtype=torch.int8, device=dev)
+        const = torch.empty((self.count, TW), dtype=torch.int64, device=dev)
         mw = np.zeros((din, D), dtype=np.int64)
         offq = off % q
-        pos, korder = (torch.from_numpy(a) for a in (lay.pos, lay.korder))
+        pos, korder = (torch.from_numpy(a).to(dev)
+                       for a in (lay.pos, lay.korder))
         for f0, f1, O in self.chunks():
-            M = torch.from_numpy(_widen(O, s))       # (c, nblk, s_in, s)
+            M = _widen(O, s)                         # (c, nblk, s_in, s)
             cs = M.sum(dim=2).reshape(f1 - f0, TW) % q   # by position
-            const[f0:f1, 0] = ((offq * cs[:, pos] - bias) % q).numpy()
+            const[f0:f1] = (offq * cs[:, pos] - bias) % q
             # output-major, the inputs in the depth's order
             Mt = M[:, :, korder, :].transpose(-1, -2).contiguous()
             out = Wt[f0:f1].view(f1 - f0, nblk, D, s, -1)
+            raw = []
             for i in range(din):
                 u = _shifted_t(Mt, pow(base, i, q), q, D)
-                if maxima:
-                    mw[i] = np.maximum(mw[i], _digit_maxima(u, D))
+                raw.append(_raw_maxima_t(u, D))
                 for j in range(D):
                     out[:, :, j, :, i * s:(i + 1) * s] = _digit_t(u, j, D)
-        return (Wc.reshape(*self.lead, *Wc.shape[1:]),
+            got = _maxima_of_raw(torch.stack(raw).cpu().numpy())
+            if maxima:
+                mw = np.maximum(mw, got)
+        return (Wt.reshape(*self.lead, *Wt.shape[1:]),
                 const.reshape(*self.lead, 1, TW), mw)
 
     def dense(self, lay: "CompactLayout") -> np.ndarray:
@@ -319,21 +333,23 @@ class _Blocks:
         arrays."""
         TW = lay.TW
         out = np.empty((self.count, TW, TW), dtype=np.int64)
+        pos = torch.from_numpy(lay.pos).to(self.device)
         for f0, f1, O in self.chunks():
             P = _widen(O, TW)[:, 0]                # position order
-            out[f0:f1] = P[:, lay.pos][:, :, lay.pos]
+            out[f0:f1] = P[:, pos][:, :, pos].cpu().numpy()
         return out.reshape(*self.lead, TW, TW).astype(object)
 
     def colsums(self, lay: "CompactLayout", q: int) -> np.ndarray:
         """Column sums mod q, (*lead, TW) int64 by lane."""
         out = np.empty((self.count, lay.TW), dtype=np.int64)
+        pos = torch.from_numpy(lay.pos).to(self.device)
         for f0, f1, O in self.chunks():
-            cs = O.sum(axis=2).reshape(f1 - f0, lay.TW) % q
-            out[f0:f1] = cs[:, lay.pos]
+            cs = O.sum(dim=2).reshape(f1 - f0, lay.TW) % q
+            out[f0:f1] = cs[:, pos].cpu().numpy()
         return out.reshape(*self.lead, lay.TW)
 
 
-def _widen(O: np.ndarray, s: int) -> np.ndarray:
+def _widen(O: torch.Tensor, s: int) -> torch.Tensor:
     """Own blocks (c, nown, own, own) -> blocks of s >= own positions (c,
     nown * own / s, s, s), each holding s / own own blocks on its diagonal
     and zeros between them."""
@@ -341,7 +357,7 @@ def _widen(O: np.ndarray, s: int) -> np.ndarray:
     g = s // own
     if g == 1:
         return O
-    M = np.zeros((c, nown // g, g, own, g, own), dtype=O.dtype)
+    M = O.new_zeros((c, nown // g, g, own, g, own))
     Og = O.reshape(c, nown // g, g, own, own)
     for h in range(g):
         M[:, :, h, :, h, :] = Og[:, :, h]
@@ -356,9 +372,10 @@ def _blocks_of_dense(M: np.ndarray, lay: "CompactLayout", own: int,
     P = (M.reshape(-1, TW, TW)[:, lay.lane][:, :, lay.lane]
          .astype(object) % q).astype(np.int64)
     nown = TW // own
-    O = np.stack([P[:, m * own:(m + 1) * own, m * own:(m + 1) * own]
-                  for m in range(nown)], axis=1)
-    return _Blocks(tuple(lead), nown, own, lambda f0, f1: O[f0:f1])
+    O = torch.from_numpy(np.stack(
+        [P[:, m * own:(m + 1) * own, m * own:(m + 1) * own]
+         for m in range(nown)], axis=1))
+    return _Blocks(tuple(lead), nown, own, lambda f0, f1: O[f0:f1], "cpu")
 
 
 # ----------------------------------------------------------------------
@@ -405,7 +422,8 @@ def _digit_plan(K: _Blocks, lay: "CompactLayout", q: int, one_shoup: int,
     raw_bound = _recombine_bound(groups, bounds, q)
     needs_reduce = reduce_uncoverable and _plane_count(raw_bound) is None
     return DigitPlan(
-        Wc=Wc, lay=lay, const=const, groups=groups, bounds=bounds, bw=TW,
+        Wc=Wc, lay=lay, const=const.cpu().numpy().astype(np.uint32),
+        groups=groups, bounds=bounds, bw=TW,
         din=din, off=off, base=base, q=q, one_shoup=one_shoup,
         raw_bound=raw_bound, needs_reduce=needs_reduce,
         store_bound=2 * q if needs_reduce else raw_bound)
@@ -516,29 +534,45 @@ def check_sp_table_bytes(n: int, q: int, n1: int, k: int) -> None:
             f"planner builds")
 
 
-def _column_blocks(g: dict, mats: np.ndarray, lane_fold) -> _Blocks:
+def _column_blocks(g: dict, mats: torch.Tensor, lane_fold,
+                   device: torch.device) -> _Blocks:
     """K1 or K3 as own blocks: the (A, Bk, Bk) input-major diagonal blocks
     ``mats`` of the n1-point tile-local stages, times ``lane_fold(t, c, d,
     lam)`` (broadcast over (tile, output j1 c, shard, lambda)) mod q; own
     block lam of tile (d, t) is (Bk, Bk) at positions lam * Bk + j1."""
     k, A, n2k, Bk = g["k"], g["A"], g["n2k"], g["Bk"]
+    c_out = torch.arange(Bk, device=device)[None, None, :]
+    lam = torch.arange(n2k, device=device)[None, :, None]
 
     def fn(f0, f1):
-        d = np.arange(f0, f1) // A
-        t = np.arange(f0, f1) % A
+        f = torch.arange(f0, f1, device=device)
+        d, t = f // A, f % A
         # (c, lam, b, c_out): mats[t][b, c] * fold(t, c_out, d, lam)
-        fold = lane_fold(t[:, None, None], np.arange(Bk)[None, None, :],
-                         d[:, None, None], np.arange(n2k)[None, :, None])
+        fold = lane_fold(t[:, None, None], c_out, d[:, None, None], lam)
         return mats[t][:, None] * fold[:, :, None, :] % g["q"]
 
-    return _Blocks((k, A), n2k, Bk, fn)
+    return _Blocks((k, A), n2k, Bk, fn, device)
 
 
 @functools.lru_cache(maxsize=None)
-def fourstep_mxu_plans(name: str, n1: int, k: int) -> SpPlans:
+def _sp_planned(name: str, n1: int, k: int, device: str) -> SpPlans:
+    return _plan(name, n1, k, torch.device(device))
+
+
+def fourstep_mxu_plans(name: str, n1: int, k: int, device=None) -> SpPlans:
     """All wide-stage schedules, block matrices and digit plans of one
-    (parameter set, n1, model axis k).  Past ``MAX_TABLE_BYTES`` of tables
-    it raises before anything is built."""
+    (parameter set, n1, model axis k), made once per device
+    (``mxu_tables.plan_device``: the card unless the caller names the
+    CPU), where the tables' elementwise passes run and the tables are
+    built.  Past ``MAX_TABLE_BYTES`` of tables it raises before anything
+    is built."""
+    return _sp_planned(name, n1, k, str(plan_device(device)))
+
+
+fourstep_mxu_plans.cache_clear = _sp_planned.cache_clear
+
+
+def _plan(name: str, n1: int, k: int, dev: torch.device) -> SpPlans:
     ps = get_params(name)
     n, q = ps.n, ps.q
     g = _shape(n, n1, k)
@@ -556,16 +590,19 @@ def fourstep_mxu_plans(name: str, n1: int, k: int) -> SpPlans:
     one_shoup = tbl.ps.one_shoup
     rolls = RollTables(t1, Lr, Bk)
     T = _fourstep_tables(name, n1)
-    phi = tbl.phi[:n2].astype(np.int64)
-    ipsi = tbl.ipsi_pow[:n2].astype(np.int64)
-    W = T["W"].astype(np.int64)
-    Winv = T["Winv"].astype(np.int64)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    phi, ipsi = on(tbl.phi[:n2]), on(tbl.ipsi_pow[:n2])
+    W, winv = on(T["W"]), on(T["Winv"])
     k1map = _k1_position_map(t1)
+    k1t = on(k1map)
     # the tile-local stages' (Bk, Bk) diagonal blocks, input-major
-    Mf = np.swapaxes(_fwd_blocks(t1, Lr, Bk), 1, 2)
-    Mi = np.swapaxes(_inv_blocks(t1, L1 - Lr, Bk), 1, 2)
-    R2 = _transform_matrix(t2, inverse=False)
-    R2i = _transform_matrix(t2, inverse=True)
+    Mf = _fwd_blocks(t1, Lr, Bk, device=dev).transpose(1, 2)
+    Mi = _inv_blocks(t1, L1 - Lr, Bk, device=dev).transpose(1, 2)
+    R2 = on(_transform_matrix(t2, inverse=False))
+    r2i = on(_transform_matrix(t2, inverse=True))
     shape = _Fields(**g)
     cols, rows = (compact_layout(shape, kind)
                   for kind in ("columns", "rows"))
@@ -575,29 +612,28 @@ def fourstep_mxu_plans(name: str, n1: int, k: int) -> SpPlans:
     # lam, k1 = k1map[t Bk + c])
     def k1_fold(t, c, d, lam):
         j2 = d * n2k + lam
-        return phi[j2] * W[k1map[t * Bk + c], j2] % q
+        return phi[j2] * W[k1t[t * Bk + c], j2] % q
 
-    K1 = _column_blocks(g, Mf, k1_fold)
-    K3 = _column_blocks(g, Mi, lambda t, c, d, lam: ipsi[d * n2k + lam])
+    K1 = _column_blocks(g, Mf, k1_fold, dev)
+    K3 = _column_blocks(g, Mi, lambda t, c, d, lam: ipsi[d * n2k + lam],
+                        dev)
 
     # segment 2: R = TW/n2 rows of n2 lanes a tile; K2i's own block rho of
     # tile (d, bb) is R2i w^{-k1 j2}, k1 = k1map[d n1k + bb R + rho]
     R = TW // n2
-    K2f = _Blocks((), R, n2, lambda f0, f1: np.tile(R2, (f1 - f0, R, 1, 1)))
-    # Shoup companions, and the tables in torch for the host's threads
-    r2i, winv = torch.from_numpy(R2i), torch.from_numpy(Winv)
+    K2f = _Blocks((), R, n2, lambda f0, f1: R2.repeat(f1 - f0, R, 1, 1),
+                  dev)
+    # Shoup companions of w^{-k1 j2}
     winv_sh = (winv << 32) // q
-    k1t = torch.from_numpy(k1map)
 
     def k2i_blocks(f0, f1):
         # R2i's columns times w^{-k1 j2}, Shoup-reduced (no division)
         rows = k1t[f0 * R:f1 * R]
         w, wsh = winv[rows][:, None, :], winv_sh[rows][:, None, :]
         r = r2i[None] * w - ((r2i[None] * wsh) >> 32) * q
-        return torch.where(r >= q, r - q, r).reshape(
-            f1 - f0, R, n2, n2).numpy()
+        return torch.where(r >= q, r - q, r).reshape(f1 - f0, R, n2, n2)
 
-    K2i = _Blocks((k, A), R, n2, k2i_blocks)
+    K2i = _Blocks((k, A), R, n2, k2i_blocks, dev)
 
     pw_bound = pointwise_bound(q)
     # seg-1 forward split: lazy against the canonical chain-then-split
@@ -644,35 +680,38 @@ def _mod_f64(v: torch.Tensor, q: int) -> torch.Tensor:
     return torch.where(r >= q, r - q, r)
 
 
-def _matmul_mod(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+def _matmul_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """a @ b mod q for int64 entries below q < 2^30 and an inner axis of at
-    most 2^7: float64 products (torch, all host threads) of a's 15-bit
-    halves by b, so no partial sum passes 2^52 and every one is exact."""
+    most 2^7: float64 products (on a's device; all host threads on the
+    CPU) of a's 15-bit halves by b, so no partial sum passes 2^52 and every
+    one is exact."""
     assert a.shape[-1] <= 128, "inner axis past 2^7"
-    with host_threads(a.size * b.shape[-1]):
-        at, bf = torch.from_numpy(a), torch.from_numpy(b).to(torch.float64)
-        lo = _mod_f64(torch.matmul((at & 0x7FFF).to(torch.float64), bf), q)
-        hi = _mod_f64(torch.matmul((at >> 15).to(torch.float64), bf), q)
-        return _mod_f64(lo + hi * 32768.0, q).to(torch.int64).numpy()
+    with host_threads(a.numel() * b.shape[-1]):
+        bf = b.to(torch.float64)
+        lo = _mod_f64(torch.matmul((a & 0x7FFF).to(torch.float64), bf), q)
+        hi = _mod_f64(torch.matmul((a >> 15).to(torch.float64), bf), q)
+        return _mod_f64(lo + hi * 32768.0, q).to(torch.int64)
 
 
 def _fold_input(plans: SpPlans, spectrum, first):
     """(S, A, R, 1, n2) int64 spectrum mod q of the shards the tables are
-    for, and the flat tile number of their first tile."""
+    for (a tensor on the spectrum's device, the CPU for numpy), and the
+    flat tile number of their first tile."""
     q, A, k, n2, TW = plans.q, plans.A, plans.k, plans.n2, plans.TW
-    spec = np.asarray(spectrum)
+    spec = (spectrum if isinstance(spectrum, torch.Tensor)
+            else torch.from_numpy(np.asarray(spectrum)))
     if first is None:
-        if spec.size != plans.n:
+        if spec.numel() != plans.n:
             raise ValueError(f"spectrum must hold n={plans.n} values, got "
-                             f"{spec.shape}")
+                             f"{tuple(spec.shape)}")
         first = 0
     elif (spec.ndim != 2 or spec.shape[1] != plans.nloc or first < 0
           or first + spec.shape[0] > k):
         raise ValueError(f"rows of shards {first}.. must be (S, "
                          f"{plans.nloc}) within the model axis of {k}, "
-                         f"got {spec.shape}")
-    S = spec.size // plans.nloc
-    dg = (spec.astype(np.int64) % q).reshape(S, A, TW // n2, 1, n2)
+                         f"got {tuple(spec.shape)}")
+    S = spec.numel() // plans.nloc
+    dg = (spec.to(torch.int64) % q).reshape(S, A, TW // n2, 1, n2)
     return dg, first * A
 
 
@@ -687,20 +726,23 @@ def fourstep_fold_blocks(plans: SpPlans, spectrum, first: int | None = None):
     nloc) uint32, canonical or lazy (it is taken mod q); with ``first`` it
     is the rows (S, nloc) of shards first..first+S-1 alone (a rank's own),
     and the tables are those shards'.  F is built a chunk of tiles at a
-    time in int64 from the own blocks, where JAX uses Python ints."""
+    time in int64 from the own blocks, where JAX uses Python ints, on the
+    spectrum's device (the CPU for numpy): both are tensors there."""
     p = plans.p2x
     q, A = plans.q, plans.A
     dg, f_first = _fold_input(plans, spectrum, first)
+    dev = dg.device
     S = dg.shape[0]
-    k2f = plans.blocks["K2f"].fn(0, 1)[0]            # (R, n2, n2)
+    k2f = plans.blocks["K2f"].fn(0, 1)[0].to(dev)    # (R, n2, n2)
     k2i = plans.blocks["K2i"]
+    dflat = dg.reshape(S * A, *dg.shape[2:])
 
     def fn(f0, f1):
         # K2f's columns scaled by the diagonal, then through K2i
-        return _matmul_mod(k2f * dg.reshape(S * A, *dg.shape[2:])[f0:f1]
-                           % q, k2i.fn(f_first + f0, f_first + f1), q)
+        return _matmul_mod(k2f * dflat[f0:f1] % q, k2i.fn(
+            f_first + f0, f_first + f1).to(dev), q)
 
-    F = _Blocks((S, A), k2i.nown, k2i.own, fn)
+    F = _Blocks((S, A), k2i.nown, k2i.own, fn, dev)
     Wc, const, mw = F.compact(compact_layout(plans, "rows"), q, p.Dout,
                               p.din, p.base, p.off,
                               _group_bias(p.groups, p.bounds, q),
@@ -708,7 +750,7 @@ def fourstep_fold_blocks(plans: SpPlans, spectrum, first: int | None = None):
     # plan soundness: the digits sit inside the worst case p2x covers
     assert (mw <= p.mw_wc).all(), \
         "folded-matrix digits exceed the worst-case SP plan"
-    return Wc, const
+    return Wc, const.to(torch.uint32)
 
 
 def fourstep_fold_tables(plans: SpPlans, spectrum, first: int | None = None):
@@ -717,8 +759,8 @@ def fourstep_fold_tables(plans: SpPlans, spectrum, first: int | None = None):
     dense, expanded from ``fourstep_fold_blocks``' nonzero blocks, and
     ``const`` uint32 (S, A, 1, TW); S = k, or the shards of ``first``."""
     Wc, const = fourstep_fold_blocks(plans, spectrum, first)
-    return (expand_compact(Wc, compact_layout(plans, "rows"), plans.p2x.din),
-            const)
+    return (expand_compact(Wc.cpu().numpy(), compact_layout(plans, "rows"),
+                           plans.p2x.din), const.cpu().numpy())
 
 
 # ----------------------------------------------------------------------
@@ -788,7 +830,8 @@ def _class_const(plans: SpPlans, group_bias: int) -> np.ndarray:
           + np.arange(R)[None, None, :, None])
     j2 = np.arange(n2)[None, None, None, :]
     vec = cs1[j2 // n2k, j1 // Bk, (j1 % Bk) * n2k + j2 % n2k]
-    row = _matmul_mod(vec.reshape(k, A, TW), _k2f_dense(plans), q)
+    row = _matmul_mod(torch.from_numpy(vec.reshape(k, A, TW)),
+                      torch.from_numpy(_k2f_dense(plans)), q).numpy()
     return ((row - group_bias) % q).astype(np.uint32).reshape(k, A, 1, TW)
 
 

@@ -1272,6 +1272,59 @@ def test_mxu_split_kernels_match_plain_on_card(cuda_device, ring):
         assert torch.equal(M.intt_mxu(M.ntt_mxu(x, mt), mt), x)
 
 
+def _same_plan_array(what, card, host):
+    card, host = (v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                  for v in (card, host))
+    assert card.dtype == host.dtype, what
+    np.testing.assert_array_equal(card, host, err_msg=what)
+
+
+@pytest.mark.cuda
+def test_plans_on_card_equal_host_plans(cuda_device):
+    """At (32768, 786433) the planners' passes on the card give what they
+    give on the host, field for field and byte for byte: the MXU plan (its
+    table stream and const rows), B9's folded operand, the SP plan at k = 4
+    (every digit plan's compact blocks, const rows and fields, the fold
+    plan) and the folded SP tables of one spectrum."""
+    from qtesla_tpu_torch.ops import mxu_tables as MT
+    from qtesla_tpu_torch.parallel import sharded_mxu_tables as ST
+    from qtesla_tpu_torch.parallel.distributed import sp_n1
+    name, n, q = SPLIT_RINGS[0]
+    register_param_set(name, n, q)
+    card = get_mxu_tables(name, device=cuda_device)
+    host = get_mxu_tables(name, device="cpu")
+    assert card.stream.is_cuda and not host.stream.is_cuda
+    for f in MT._FIELDS:
+        if f in ("constf", "consti"):
+            _same_plan_array(f, getattr(card, f), getattr(host, f))
+        elif f not in ("wf", "wi"):
+            assert getattr(card, f) == getattr(host, f), f
+    _same_plan_array("stream", card.stream, host.stream)
+    spec = np.random.default_rng(31).integers(0, q, n, dtype=np.uint32)
+    on_card = M.fold_operand(torch.from_numpy(spec).to(cuda_device), card)
+    on_host = M.fold_operand(torch.from_numpy(spec), host)
+    for a, b in zip(on_card.tensors(), on_host.tensors()):
+        _same_plan_array("B9 operand", a, b)
+    pc = fourstep_mxu_plans(name, sp_n1(n), 4, cuda_device)
+    ph = fourstep_mxu_plans(name, sp_n1(n), 4, "cpu")
+    for p in ("p1", "p2f", "p2i", "p3", "p3x"):
+        a, b = getattr(pc, p), getattr(ph, p)
+        _same_plan_array(f"{p}.Wc", a.Wc, b.Wc)
+        _same_plan_array(f"{p}.const", a.const, b.const)
+        for f in ("groups", "bounds", "din", "off", "base", "raw_bound",
+                  "needs_reduce", "store_bound"):
+            assert getattr(a, f) == getattr(b, f), (p, f)
+    assert pc.p2x.cost_key == ph.p2x.cost_key
+    assert pc.p2x.groups == ph.p2x.groups and pc.rolls.fwd_lazy == \
+        ph.rolls.fwd_lazy
+    from qtesla_tpu_torch.parallel.sharded_mxu_tables import \
+        fourstep_fold_blocks
+    fc = fourstep_fold_blocks(pc, torch.from_numpy(spec).to(cuda_device))
+    fh = fourstep_fold_blocks(ph, spec)
+    for what, a, b in zip(("Wc", "const"), fc, fh):
+        _same_plan_array(f"folded SP {what}", a, b)
+
+
 # the column segments' split form (parallel/sp_column_split.py): (name, n,
 # q, k), shard rows past one block's reach (nloc = 32768)
 SP_SPLIT_RINGS = (("sp-split-n65536", 65536, 786433, 2),

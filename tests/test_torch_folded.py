@@ -62,7 +62,7 @@ def test_inv_blocks_are_the_matrix_diagonal():
     s_hi, bw = mt.logn - mt.Lr, mt.bw
     full = MT._inv_matrix(mt.tbl, s_hi)
     blocks = MT._inv_blocks(mt.tbl, s_hi, bw)
-    assert blocks.shape == (mt.nb, bw, bw) and blocks.dtype == np.int64
+    assert blocks.shape == (mt.nb, bw, bw) and blocks.dtype == torch.int64
     for b in range(mt.nb):
         np.testing.assert_array_equal(
             blocks[b], full[b * bw:(b + 1) * bw, b * bw:(b + 1) * bw])
@@ -119,7 +119,7 @@ def test_fold_operand_stages_round_trip(name):
     """On every set B9's staged operand unstages to ``fold_tables``' W'
     exactly, with zero depth padding, and its forward half is the front of
     B5's stream: nothing of the forward tables is copied per constant."""
-    mt = MT.get_mxu_tables(name)
+    mt = MT.get_mxu_tables(name, device="cpu")
     fp = MT.fold_plan(mt)
     spec = _spectrum(name, "random")
     W, c = MT.fold_tables(mt, fp, spec)

@@ -297,7 +297,7 @@ def _small(n, q):
     rng = np.random.default_rng(n * 7 + q % 1000)
     x, y = rng.integers(0, q, (2, 5, n), dtype=np.uint32)
     x[0], y[0] = q - 1, q - 1
-    return name, MT.get_mxu_tables(name), x, y
+    return name, MT.get_mxu_tables(name, device="cpu"), x, y
 
 
 def _packed_product(mt, x, y):

@@ -306,7 +306,7 @@ def test_leading_axes_and_tables_on_module():
 def _check_stream(mt):
     st = MT.stream_tables(mt)
     Cf, Ci = (MT.stream_stages(d, mt.bw) for d in (mt.Df, mt.Di))
-    assert st.dtype == np.int8
+    assert st.dtype == torch.int8
     assert st.shape == (mt.nb * (Cf + Ci), MT.STAGE_DEPTH * mt.bw * mt.D)
     wf, wi = MT.expand_stream(st, mt)
     np.testing.assert_array_equal(wf, mt.wf)
@@ -339,12 +339,12 @@ def _check_stream(mt):
 def test_stream_tables_expand_to_dense(name):
     """Expanded back, B5's stream equals ``wf`` and ``wi`` on every set;
     the host tables carry it; the stages lie where the MMA warps read."""
-    _check_stream(MT.get_mxu_tables(name))
+    _check_stream(MT.get_mxu_tables(name, device="cpu"))
 
 
 def test_stream_tables_of_registered_set(small_set):
     """Two digit classes (q = 12289): the stream and B5's plan hold."""
-    mt = MT.get_mxu_tables(small_set)
+    mt = MT.get_mxu_tables(small_set, device="cpu")
     assert mt.D == 2
     _check_stream(mt)
     plan = TM.stream_plan(mt)
@@ -355,9 +355,9 @@ def test_stream_tables_of_registered_set(small_set):
 def test_expand_stream_refuses_nonzero_padding():
     """smallprime pads 96 table columns (3 planes of 32 lanes) to two
     64-deep stages: a nonzero byte there is refused."""
-    mt = MT.get_mxu_tables("smallprime")
+    mt = MT.get_mxu_tables("smallprime", device="cpu")
     assert (mt.bw, mt.Df) == (32, 3)
-    st = MT.stream_tables(mt)
+    st = MT.stream_tables(mt).clone()
     lt_j_lane, step = 5, 1          # the second step of a lane: columns 96..
     st[MT.stream_stages(mt.Df, mt.bw) - 1, lt_j_lane * 16 + 8 * step] = 1
     with pytest.raises(ValueError, match="padding"):
@@ -400,7 +400,7 @@ def test_intt_stream_plan_matches_kernel_limits(name):
     assert plan.n >> plan.lr == plan.bw
     for din, lb in ((plan.df, plan.fwd_lb), (plan.di, plan.inv_lb)):
         assert (lb == 8 and 1 <= din <= 4) or (lb == 7 and 1 <= din <= 6)
-    st = MT.stream_tables(mt)
+    st = MT.stream_tables(mt).cpu()
     first = plan.nb * -(-plan.df * plan.bw // MT.STAGE_DEPTH)
     np.testing.assert_array_equal(
         st[first:first + plan.nb * plan.stages_i], MT._stages(mt.wi))

@@ -131,6 +131,63 @@ def test_block_planner_matches_jax_and_dense(name):
             MT._fwd_blocks(mt.tbl, mt.Lr - 1, bw)
 
 
+@pytest.mark.parametrize("name", ["split-n64", "qtesla-iii-speed"])
+def test_card_planner_passes_match_jax(name):
+    """The planner's passes as a card runs them (the tables built as the
+    table stream alone, a chunk of lane blocks at a time, in int64 torch;
+    here on the CPU) against JAX's dense planner: the stream is JAX's
+    ``wf`` and ``wi`` as stages, byte for byte, before either is asked for;
+    the const rows and every plan field are JAX's, ``wf`` and ``wi``
+    expanded from the stream are JAX's tables, and B9's folded operand of
+    one constant, built on the spectrum's device, is JAX's fold tables as
+    stages."""
+    mt = MT.MxuTables(MT.get_tables(name), device="cpu")
+    jmt = JM.get_mxu_tables(name)
+    assert "wf" not in vars(mt) and "wi" not in vars(mt)
+    jw = [np.asarray(jmt.wf), np.asarray(jmt.wi)]
+    np.testing.assert_array_equal(
+        mt.stream.numpy(), torch.cat([MT._stages(w) for w in jw]).numpy())
+    for f in MT._FIELDS:
+        w = getattr(jmt, f)
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(getattr(mt, f), w, err_msg=f)
+        else:
+            assert getattr(mt, f) == w, f
+    spec = np.random.default_rng(6).integers(0, mt.q, mt.n, dtype=np.uint32)
+    op = M.fold_operand(torch.from_numpy(spec), mt)
+    jW, jc = (np.asarray(a) for a in JM.fixed_fold_tables(name, spec))
+    np.testing.assert_array_equal(op.stages.numpy(), MT._stages(jW))
+    np.testing.assert_array_equal(op.c.numpy(), jc[:, 0])
+
+
+def test_table_limit_pinned_at_2pow22(monkeypatch):
+    """``MAX_TABLE_BYTES`` is 16 GiB: the MXU plan of (2^22, 998244353),
+    the largest ring phase 3e runs, needs exactly that and is allowed;
+    (2^23, 754974721) needs 32 GiB and refuses, naming the bytes, before
+    any table is built."""
+    assert MT.MAX_TABLE_BYTES == 16 << 30
+    assert MT.table_bytes(1 << 22, 998244353) == MT.MAX_TABLE_BYTES
+    MT.check_table_bytes(1 << 22, 998244353)
+    need = MT.table_bytes(1 << 23, 754974721)
+    assert need == 32 << 30
+    TPARAMS.register_param_set("split-n2pow23", 1 << 23, 754974721)
+
+    def refuse(*_):
+        raise AssertionError("a table was built")
+
+    monkeypatch.setattr(MT, "get_tables", refuse)
+    try:
+        for fn in (lambda: MT.check_table_bytes(1 << 23, 754974721),
+                   lambda: MT.get_mxu_tables("split-n2pow23")):
+            with pytest.raises(ValueError, match=rf"{need} bytes \(32.0 GiB\)"
+                                                 rf", past the "
+                                                 rf"{MT.MAX_TABLE_BYTES} "):
+                fn()
+    finally:
+        del TPARAMS.PARAM_SETS["split-n2pow23"]
+        TPARAMS.get_params.cache_clear()
+
+
 def test_plan_past_the_table_limit_raises_before_building(monkeypatch):
     """n = 2^25 (q = 469762049, 4 classes): the tables would take 128 GiB;
     get_mxu_tables and the "mxu" entry points raise naming the bytes and
@@ -237,6 +294,67 @@ def test_split_plans_meet_the_launchers_checks(name):
     x = torch.zeros((1, small.n), dtype=torch.uint32)
     with pytest.raises(ValueError, match="n >= 256"):
         M.ntt_mxu(x, small, split=True)
+
+
+def _launch_split_accepts(p, batch: int) -> bool:
+    """``launch_split``'s checks and its grid (``run_split``) in
+    ``csrc/ntt_mxu_split.cu``, restated: the plan's shape, the split of
+    each direction, its stages, the block's shared memory, and a 1-D grid
+    of ceil(batch / rows) row groups times nb lane blocks below 2^31."""
+    rows = 32 if p.mode == 0 else 64
+    ok = (p.bw == 128 and 8 <= p.logn <= 30 and p.n == 1 << p.logn
+          and p.nb * 128 == p.n and p.lr == p.logn - 7 and 1 <= p.d <= 4
+          and p.rows == rows and batch > 0
+          and p.stages_f == p.df * 128 // 64
+          and p.stages_i == p.di * 128 // 64
+          and MS.split_smem(p) <= 232448)
+    for din, lb in ((p.df, p.fwd_lb), (p.di, p.inv_lb)):
+        ok = ok and din >= 1 and ((lb == 7 and din <= 6)
+                                  or (lb == 8 and din <= 4))
+    return ok and -(-batch // rows) * p.nb < 1 << 31
+
+
+# the rings past 2^18 where phase 3e runs the split form: (n, q, its batch)
+SPLIT_3E = ((131072, 786433, 256), (1 << 19, 1053818881, 64),
+            (1 << 21, 998244353, 16), (1 << 22, 998244353, 8))
+
+
+@pytest.mark.parametrize("ring", SPLIT_3E, ids=lambda r: f"n{r[0]}")
+def test_split_plans_at_the_large_rings_meet_the_launchers_checks(ring):
+    """At 131072, 2^19, 2^21 and 2^22, every split the planner may take
+    (the fewest covering planes of base 256 and of base 128 for the
+    forward's lazy and canonical bounds, the pointwise bound and the fold
+    plan's inputs, and every plane count the kernel takes) in every mode
+    meets ``launch_split``'s checks, its shared memory and its grid at
+    phase 3e's batch and at the most 64-row groups that 80 GB hold; the
+    largest byte offset of the table stream and of the rows fits 64 bits
+    and the stages' count of a lane block's table 32.  From the shapes
+    alone: no table is built."""
+    n, q, batch = ring
+    L, nb, D = n.bit_length() - 1, n // 128, MT._ndigits(q)
+    _, lazy = MT._lazy_fwd_schedule(q, L - 7)
+    dins = {(d, b.bit_length() - 1)
+            for bound in (lazy, q, MT.pointwise_bound(q), 2 * q)
+            for b in (256, 128)
+            if (d := MT._plane_count(bound, b)) is not None}
+    dins |= {(d, 8) for d in range(1, 5)} | {(d, 7) for d in range(1, 7)}
+    most = (80 << 30) // (3 * 4 * n)          # x, y, z of 4-byte lanes
+    for i in range(len(MS.MODES)):
+        for df, lf in dins:
+            for di, li in dins:
+                p = MS.MxuSplitPlan(
+                    n=n, logn=L, bw=128, nb=nb, lr=L - 7, d=D,
+                    rows=32 if i == 0 else 64, df=df, fwd_lb=lf, di=di,
+                    inv_lb=li, stages_f=2 * df, stages_i=2 * di, mode=i)
+                for b in (batch, most):
+                    assert _launch_split_accepts(p, b), (i, df, di, b)
+                # the stream's last stage (the inverse after the forward's
+                # nb * stages_f) and the rows' last lane, in bytes
+                stage = 64 * 128 * D
+                last = (nb * (p.stages_f + p.stages_i)) * stage
+                assert nb * max(p.stages_f, p.stages_i) < 1 << 31
+                assert last < 1 << 63 and 4 * most * n < 1 << 63
+    assert MS.split_launches(n, "product")["polymul_mxu_split"] == 1
 
 
 def test_split_form_is_the_plans_choice():

@@ -66,7 +66,8 @@ def _check_fold_tables(name, k):
     lazy = rng.integers(0, 1 << 32, plans.n, dtype=np.uint32)
     canon = lazy % np.uint32(q)
     W, c = JS.fourstep_fold_tables(jplans, lazy)
-    for spec in (lazy, canon.reshape(k, plans.nloc)):
+    # numpy, and a tensor (built on its device, as the card builds them)
+    for spec in (lazy, canon.reshape(k, plans.nloc), torch.from_numpy(lazy)):
         mine = ST.fourstep_fold_tables(plans, spec)
         for got, want in zip(mine, (W, c)):
             assert got.dtype == want.dtype and got.shape == want.shape

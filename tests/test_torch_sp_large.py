@@ -211,7 +211,7 @@ def test_tile_planner_matches_jax_and_the_loops(name, k):
     ``test_torch_sharded_mxu.py``'s ``test_plans_match_jax``, at k = 2, 4,
     8), and K1, K3 and K2i the loops' matrices."""
     n1 = 1 << (get_tables(name).logn // 2)
-    mine = ST.fourstep_mxu_plans(name, n1, k)
+    mine = ST.fourstep_mxu_plans(name, n1, k, "cpu")
     if name != "qtesla-iii-speed":
         _assert_plans_equal(mine, JS.fourstep_mxu_plans(name, n1, k))
     K1, K3, K2i = _loop_matrices(name, n1, k)
@@ -276,6 +276,53 @@ def test_table_bytes_refused_before_anything_is_built(monkeypatch):
     need = ST.sp_table_bytes(n, q, sp_n1(n), 4)
     assert need > MT.MAX_TABLE_BYTES >= ST.sp_table_bytes(1 << 20, 1012924417,
                                                           1 << 13, 4)
+
+
+def test_sp_table_limit_pinned_at_2pow22(monkeypatch):
+    """The SP plan of (2^22, 998244353) at k = 4, n1 = 2^15, the largest
+    phase 3e runs, needs 9.5 GiB and is allowed; (2^23, 754974721) needs 19
+    GiB and refuses, naming the bytes, before any table is built."""
+    ok = ST.sp_table_bytes(1 << 22, 998244353, 1 << 15, 4)
+    assert 9.5 * 2**30 <= ok < 9.6 * 2**30 and ok <= MT.MAX_TABLE_BYTES
+    ST.check_sp_table_bytes(1 << 22, 998244353, 1 << 15, 4)
+    n, q = 1 << 23, 754974721
+    need = ST.sp_table_bytes(n, q, sp_n1(n), 4)
+    assert 19 * 2**30 <= need < 19.1 * 2**30
+    TPARAMS.register_param_set("sp-n2pow23", n, q)
+
+    def built(name):
+        raise AssertionError(f"tables of {name} built")
+
+    monkeypatch.setattr(ST, "get_tables", built)
+    try:
+        for fn in (lambda: ST.check_sp_table_bytes(n, q, sp_n1(n), 4),
+                   lambda: ST.fourstep_mxu_plans("sp-n2pow23", sp_n1(n), 4,
+                                                 "cpu")):
+            with pytest.raises(ValueError, match=rf"{need} bytes \(19.0 GiB"
+                                                 rf"\), past the "):
+                fn()
+    finally:
+        del TPARAMS.PARAM_SETS["sp-n2pow23"]
+        TPARAMS.get_params.cache_clear()
+
+
+def test_compact_twin_in_chunks_of_tiles(monkeypatch):
+    """The compact twins' product taken a chunk of tiles at a time (as at
+    the large rings, where a float64 copy of K2i would not fit the card)
+    equals it taken at once: q-III, k = 4, the rows' K2i and the shared
+    K2f."""
+    plans = ST.fourstep_mxu_plans("qtesla-iii-speed", 32, 4)
+    tabs = S.device_tables(plans, torch.device("cpu"))
+    x, y = (torch.from_numpy(_rows(plans.q, 3, 4 * plans.nloc, sd, 1)
+                             .reshape(3, 4, plans.nloc).transpose(1, 0, 2)
+                             .copy()) for sd in (91, 92))
+    vx, vy = (S.a2a_fwd(S.seg1_compact_plain(t, plans, tabs), plans)
+              for t in (x, y))
+    whole = S.seg2_compact_plain(vx, vy, plans, tabs)
+    per_tile = 8 * tabs.w2ic[..., :1, :, :, :].numel()
+    monkeypatch.setattr(S, "_TWIN_BYTES", per_tile)
+    assert plans.A > 1
+    assert torch.equal(S.seg2_compact_plain(vx, vy, plans, tabs), whole)
 
 
 # ----------------------------------------------------------------------
@@ -352,14 +399,21 @@ def test_sweeps_hand_off_inside_the_split(name, n1, k):
 
 
 # the chip's rings: (name, n, q, k, split form)
-RINGS = [("r65536-k2", 65536, 786433, 2, True),
+RINGS = [("r32768-k2", 32768, 786433, 2, False),
+         ("r32768-k4", 32768, 786433, 4, False),
+         ("r32768-k8", 32768, 786433, 8, False),
+         ("r65536-k2", 65536, 786433, 2, True),
          ("r65536-k4", 65536, 786433, 4, False),
          ("r65536-k8", 65536, 786433, 8, False),
          ("r131072-k4", 131072, 786433, 4, True),
          ("r131072-k8", 131072, 786433, 8, False),
          ("r2pow18-k4", 1 << 18, 7340033, 4, True),
+         ("r2pow19-k4", 1 << 19, 7340033, 4, True),
          ("r2pow20-k4", 1 << 20, 1012924417, 4, True),
-         ("r2pow20-k8", 1 << 20, 1012924417, 8, True)]
+         ("r2pow20-k8", 1 << 20, 1012924417, 8, True),
+         ("r2pow21-k2", 1 << 21, 998244353, 2, True),
+         ("r2pow21-k4", 1 << 21, 998244353, 4, True),
+         ("r2pow22-k4", 1 << 22, 998244353, 4, True)]
 
 
 @pytest.mark.parametrize("ring", RINGS, ids=[r[0] for r in RINGS])
@@ -369,8 +423,11 @@ def test_route_and_split_plan_fit_the_kernels(ring):
     staged class sums) and that the split plan fits the tile kernel: 32
     rows, the tile's tables in shared memory, within a block's 227 KiB at
     every plane count a split takes; the sweeps cover the row's bits from
-    log2(TW) = 7 up.  From the shapes alone (the planes' depths at every
-    din), no table is built."""
+    log2(TW) = 7 up; the launches' grids stay inside the card's limits (the
+    tile kernel's y dimension, A tiles a shard, and the row kernel's, one
+    column an n2-block of a shard, at most 65535) and the tables inside
+    ``MAX_TABLE_BYTES``.  From the shapes alone (the planes' depths at
+    every din), no table is built."""
     _, n, q, k, split = ring
     shape = ST._shape(n, sp_n1(n), k)
     assert shape["TW"] == 128 and shape["n2"] == 128
@@ -393,6 +450,9 @@ def test_route_and_split_plan_fit_the_kernels(ring):
     sweep = SC.column_sweep_plan(ST._Fields(**shape), inverse=False)
     assert sweep.win_lo[0] == 7
     assert sweep.win_hi[sweep.windows - 1] == shape["nloc"].bit_length() - 1
+    rows = ST.compact_layout(ST._Fields(**shape), "rows")
+    assert shape["A"] <= 65535 and shape["nloc"] >> rows.ls <= 65535
+    assert ST.sp_table_bytes(n, q, sp_n1(n), k) <= MT.MAX_TABLE_BYTES
 
 
 # ----------------------------------------------------------------------
