@@ -156,7 +156,9 @@ script exits non-zero without printing a result:
    10 at 2^25, none at 131072 and 2^19: PASS_TIMED; the plain version of
    6, 2 past a cluster's reach) beside their bytes bound, the
    blocks of their rows' cluster or their launches a call and blocks a
-   sweep, B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
+   sweep, a sweep call also beside its sweep floor (passes.
+   sweep_launch_bytes) and, at 2^18, 2^20, 2^22 and 2^25, the earlier
+   design's median (EARLIER_SWEEP_MS), B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
    32768 (median of 40, beside their bound).  Below 2^25 the "mxu" entry
    points run in the counted run too, in the split form:
    polymul_negacyclic "mxu" (against B1 and the oracle with the others),
@@ -465,6 +467,48 @@ SPLIT_3E_RINGS = (("sp-n131072", 131072, 786433, 256),
                   ("split-n524288", 1 << 19, 1053818881, 64),
                   ("sweep-n2097152", 1 << 21, 998244353, 16),
                   ("sweep-n4194304", 1 << 22, 998244353, 8))
+# the sweep form's earlier design (the sweep kernel before its redesign),
+# median ms of 20 calls at phase 3e's sweep rings 2^18, 2^20, 2^22 and 2^25,
+# timed in turns with the redesign on one NVIDIA H100 80GB HBM3 at 700 W
+# (utils/ab_timing.py --sweeps)
+EARLIER_SWEEP_MS = {
+    ("polymul_fused", 1 << 18): 2.1597,
+    ("polymul_fixed_fused", 1 << 18): 1.5799,
+    ("ntt_fused", 1 << 18): 0.8184,
+    ("intt_fused", 1 << 18): 0.7552,
+    ("polymul_pairing_gs_ct", 1 << 18): 3.2631,
+    ("polymul_pairing_ct_ct", 1 << 18): 2.8135,
+    ("polymul_pairing_gs_gs", 1 << 18): 3.0998,
+    ("polymul_pairing_ct_gs", 1 << 18): 2.8742,
+    ("polymul_pairing_stockham", 1 << 18): 3.3425,
+    ("polymul_fused", 1 << 20): 2.5867,
+    ("polymul_fixed_fused", 1 << 20): 1.9142,
+    ("ntt_fused", 1 << 20): 0.9840,
+    ("intt_fused", 1 << 20): 0.9185,
+    ("polymul_pairing_gs_ct", 1 << 20): 4.3578,
+    ("polymul_pairing_ct_ct", 1 << 20): 3.5710,
+    ("polymul_pairing_gs_gs", 1 << 20): 4.0144,
+    ("polymul_pairing_ct_gs", 1 << 20): 3.4057,
+    ("polymul_pairing_stockham", 1 << 20): 4.7988,
+    ("polymul_fused", 1 << 22): 2.5419,
+    ("polymul_fixed_fused", 1 << 22): 1.9284,
+    ("ntt_fused", 1 << 22): 1.0207,
+    ("intt_fused", 1 << 22): 0.9273,
+    ("polymul_pairing_gs_ct", 1 << 22): 4.9704,
+    ("polymul_pairing_ct_ct", 1 << 22): 4.4685,
+    ("polymul_pairing_gs_gs", 1 << 22): 4.8770,
+    ("polymul_pairing_ct_gs", 1 << 22): 6.0191,
+    ("polymul_pairing_stockham", 1 << 22): 5.3613,
+    ("polymul_fused", 1 << 25): 11.7714,
+    ("polymul_fixed_fused", 1 << 25): 9.1764,
+    ("ntt_fused", 1 << 25): 4.8632,
+    ("intt_fused", 1 << 25): 4.3928,
+    ("polymul_pairing_gs_ct", 1 << 25): 21.8050,
+    ("polymul_pairing_ct_ct", 1 << 25): 22.5181,
+    ("polymul_pairing_gs_gs", 1 << 25): 27.0680,
+    ("polymul_pairing_ct_gs", 1 << 25): 30.2659,
+    ("polymul_pairing_stockham", 1 << 25): 24.0514,
+}
 # the pass kernels' timed calls a turn at each of phase 3e's rings (20 at
 # the rings earlier runs timed, 10 at the sweep rings new to phase 3e; none
 # at 131072 and 2^19, where they stand as references alone)
@@ -2294,9 +2338,18 @@ def _large_ring(name: str, n: int, q: int, B: int, device_line: str,
         (klo, kmed), (_, pmed) = res["kernel"], res["plain"]
         bms, by = res["bound"]
         if isinstance(plan, Ps.SweepPlan):
+            floor = sum(Ps.sweep_launch_bytes(plan, i, B)
+                        for i in range(plan.sweeps)) / HBM_BYTES_PER_S * 1e3
             shape = (f"{plan.sweeps} launches a call, blocks a sweep "
                      + "/".join(str(plan.tiles[i] * plan.split[i] * B)
-                                for i in range(plan.sweeps)))
+                                for i in range(plan.sweeps))
+                     + f"; sweep floor {floor:.4f} ms (bytes, "
+                       f"{floor / kmed * 100:.1f} % of the kernel's median)")
+            if (kname, n) in EARLIER_SWEEP_MS:
+                was = EARLIER_SWEEP_MS[kname, n]
+                shape += (f"; the earlier design (the sweep kernel before "
+                          f"its redesign) {was:.4f} ms, ratio "
+                          f"{kmed / was:.4f}")
         else:
             shape = (f"{plan.cluster} block(s) a row of "
                      f"{plan.threads // plan.cluster} threads, 1 launch "

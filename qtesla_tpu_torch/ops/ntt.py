@@ -35,10 +35,11 @@ import torch
 
 from ..params import ParamSet
 from .modmul import add_mod, mulmod_barrett, shoup_mulmod, sub_mod
+from .passes import SWEEP_POW_BITS, sweep_powers_of
 from .tables import NttTables, _build
 
 __all__ = [
-    "twiddles", "ntt_fwd_merged", "intt_inv_merged",
+    "twiddles", "sweep_powers", "ntt_fwd_merged", "intt_inv_merged",
     "gs_fwd_cyclic", "gs_inv_cyclic", "ct_fwd_cyclic", "ct_inv_cyclic",
     "stockham_fwd", "stockham_inv", "matrix_ntt", "fourstep_ntt",
     "fourstep_intt", "bitrev_permute", "pointwise_mul", "weight_psi",
@@ -51,6 +52,18 @@ __all__ = [
 def twiddles(tbl: NttTables, device: torch.device) -> torch.Tensor:
     """The packed (4, n) uint32 twiddle table on ``device``."""
     return torch.from_numpy(tbl.packed).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_powers(tbl, pairing: bool, device: torch.device) -> torch.Tensor:
+    """The sweep kernels' (4, min(n, 2^14)) uint32 in-window powers
+    (``passes.sweep_powers_of``) of ``tbl``'s merged-psi rows (``packed``)
+    or, with ``pairing``, its cyclic rows (``pairing_packed``), on
+    ``device``; ``tbl`` any table with those rows and ``q``."""
+    src = tbl.pairing_packed if pairing else tbl.packed
+    head = src[:4, :1 << SWEEP_POW_BITS].astype(np.int64)
+    P = sweep_powers_of(torch.from_numpy(head), tbl.q, not pairing)
+    return P.to(torch.uint32).contiguous().to(device)
 
 
 def _rows(tbl: NttTables, device, tw):

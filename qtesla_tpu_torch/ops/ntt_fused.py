@@ -53,8 +53,8 @@ import torch
 
 from . import modmul as MM
 from . import ntt as N
-from .passes import (PassModel, PassPlan, SweepModel, SweepPlan, kernel_plan,
-                     pass_plan, sweep_reads)
+from .passes import (SWEEP_KIND_NAMES, PassModel, PassPlan, SweepModel,
+                     SweepPlan, kernel_plan, pass_plan, sweep_reads)
 from .tables import NttTables, get_tables
 
 __all__ = ["KERNELS", "Kernel", "polymul_fused_fn", "polymul_fixed_fused_fn",
@@ -170,8 +170,9 @@ def _launch_sweeps(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
     tensors a (and b: the second operand, or B4's spectrum) into a new
     output: one launch a sweep of ``plan``, each adding one to the
     kernel's count, through scratch rows of ``operands`` operands (two
-    buffers in turns, ``passes.sweep_reads``).  The launcher checks the
-    plan; a refusal raises."""
+    buffers in turns, ``passes.sweep_reads``), with ``tbl``'s in-window
+    powers (``ntt.sweep_powers``, cached on the device) beside ``tw``.  The
+    launcher checks the plan; a refusal raises."""
     from ..utils.build import load_library
 
     n = tbl.n
@@ -183,6 +184,8 @@ def _launch_sweeps(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
                            device=a.device)
                for _ in range(min(2, plan.sweeps - 1))]
     ptrs = [t.view(torch.int32).data_ptr() for t in scratch] + [None, None]
+    pw = N.sweep_powers(tbl, not SWEEP_KIND_NAMES[plan.kind].startswith("B"),
+                        a.device)
     lib = load_library()
     ps = tbl.ps
     with torch.cuda.device(a.device):
@@ -192,7 +195,8 @@ def _launch_sweeps(kernel: Kernel, tbl: NttTables, tw: torch.Tensor,
                 a.view(torch.int32).data_ptr(),
                 None if b is None else b.view(torch.int32).data_ptr(),
                 out.view(torch.int32).data_ptr(), ptrs[0], ptrs[1],
-                tw.view(torch.int32).data_ptr(), batch, n, tbl.logn, tbl.q,
+                tw.view(torch.int32).data_ptr(),
+                pw.view(torch.int32).data_ptr(), batch, n, tbl.logn, tbl.q,
                 ps.r32, ps.r32_shoup, ps.one_shoup, ctypes.addressof(plan),
                 i, stream)
             if err != 0:

@@ -52,7 +52,8 @@ __all__ = ["MAX_PASSES", "MAX_CLUSTER", "PASS_SHAPES", "PassPlan",
            "SWEEP_KINDS", "MAX_SWEEP_LOGN", "SweepPlan", "cluster_reach",
            "kernel_plan",
            "address_bit", "stockham_address", "sweep_plan", "sweep_threads",
-           "sweep_stride", "describe_sweep_plan", "sweep_reads",
+           "sweep_stride", "sweep_smem", "sweep_vec", "sweep_powers_of",
+           "describe_sweep_plan", "sweep_launch_bytes", "sweep_reads",
            "SweepModel"]
 
 MAX_PASSES = 4
@@ -400,13 +401,23 @@ SWEEP_KIND_NAMES = tuple(SWEEP_KINDS)
 MAX_SWEEP_LOGN = 25
 MAX_WINDOWS = 3
 MAX_SWEEPS = 2 * MAX_WINDOWS - 1
-# values a block's tile holds, all its operands (128 KiB)
+# values a block's tile holds, all its operands (128 KiB); an upper
+# window's tile holds at most SWEEP_UPPER_WORDS (64 KiB, so that two blocks
+# share an SM) unless that takes a window more
 SWEEP_TILE_WORDS = 1 << 15
+SWEEP_UPPER_WORDS = 1 << 14
 # column bits a sweep gathers beside its window: runs of 32 bytes
 SWEEP_COLS = 3
 # window bits the kernel runs in registers between two barriers
 SWEEP_PASS_BITS = 3
+# threads a block, and a block whose tile holds at most SWEEP_UPPER_WORDS
 _SWEEP_THREADS = 1024
+_SWEEP_THREADS_HALF = 512
+# entries a row of the in-window powers (``sweep_powers_of``)
+SWEEP_POW_BITS = 14
+# a stage whose twiddle depends on at most this many window bits above it
+# (merged, reflected; not Stockham) takes it whole from the tile's table
+SWEEP_EXACT_BITS = 8
 
 
 class SweepPlan(ctypes.Structure):
@@ -424,14 +435,15 @@ class SweepPlan(ctypes.Structure):
     transform lies in device memory at its Stockham position of stage
     ``ld`` (the load) or ``st`` (the store), of the bit-reversed index
     where ``ld_refl`` / ``st_refl`` (``stockham_address``); all 0 but
-    Stockham's."""
+    Stockham's.  ``vec``: how the launch loads and stores
+    (``sweep_vec``)."""
 
     _fields_ = [(f, ctypes.c_int32) for f in (
         "kind", "logn", "sweeps", "windows")] + [
         (f, ctypes.c_int32 * MAX_WINDOWS) for f in ("win_lo", "win_hi")] + [
         (f, ctypes.c_int32 * MAX_SWEEPS) for f in (
             "lo", "hi", "fwd", "inv", "cb", "cols", "ops", "split", "ld",
-            "ld_refl", "st", "st_refl", "tiles", "threads", "smem")]
+            "ld_refl", "st", "st_refl", "tiles", "threads", "smem", "vec")]
 
 
 def cluster_reach(kind: str) -> int:
@@ -550,12 +562,13 @@ def sweep_plan(n: int, kind: str, windows: int | None = None,
     of their own); the narrowest window is contiguous, but Stockham's
     positions there take columns too.  A tile holds at most
     SWEEP_TILE_WORDS values of all its operands, so the narrowest window
-    takes up to 14 bits (15 with one operand; Stockham 11) and an upper one
-    12: two windows up to 2^26, Stockham three from 2^24.  ``windows``
-    forces that many (a test of the three-window form at small n).
-    ``low`` > 0 (B2 and B3 alone) leaves the index bits below it to
-    another kernel: the windows cover [low, L), each as an upper one (12
-    bits at most beside its columns), one or more of them; B2's stages
+    takes up to 14 bits (15 with one operand; Stockham 11); an upper one
+    11 (SWEEP_UPPER_WORDS: two blocks an SM), or 12 where 11 would take a
+    window more: two windows up to 2^26, Stockham three from 2^24.
+    ``windows`` forces that many (a test of the three-window form at small
+    n).  ``low`` > 0 (B2 and B3 alone) leaves the index bits below it to
+    another kernel: the windows cover [low, L), each as an upper one (11
+    or 12 bits beside its columns, as above), one or more of them; B2's stages
     from bit L - 1 down to bit low and B3's from bit low up (the MXU split
     form's wide stages, ``ntt_mxu_split``).  Raises past n = 2^25, the
     largest ring the registry takes.  Cached: copy it before changing a
@@ -575,15 +588,26 @@ def sweep_plan(n: int, kind: str, windows: int | None = None,
     tile_bits = _log2(SWEEP_TILE_WORDS)
     stk_cols = SWEEP_COLS if kind == "stockham" else 0
     s0_max = tile_bits - _log2(nops) - stk_cols
-    if low:
-        if kind not in ("B2", "B3") or not 0 < low < L or windows:
-            raise ValueError(f"{kind} at 2^{L}: the windows start at bit 0 "
-                             f"(bits below {low} are left to another "
-                             f"kernel for B2 and B3 alone, 0 < low < L)")
-        win = [(lo + low, hi + low) for lo, hi in _upper_windows(
-            L - low, tile_bits - SWEEP_COLS)]
-    else:
-        win = _windows(L, s0_max, tile_bits - SWEEP_COLS, windows)
+    if low and (kind not in ("B2", "B3") or not 0 < low < L or windows):
+        raise ValueError(f"{kind} at 2^{L}: the windows start at bit 0 "
+                         f"(bits below {low} are left to another kernel "
+                         f"for B2 and B3 alone, 0 < low < L)")
+
+    def cover(su_max):
+        if low:
+            return [(lo + low, hi + low)
+                    for lo, hi in _upper_windows(L - low, su_max)]
+        return _windows(L, s0_max, su_max, windows)
+
+    # upper windows in tiles of SWEEP_UPPER_WORDS, unless that takes one
+    # window more than tiles of SWEEP_TILE_WORDS
+    win = cover(tile_bits - SWEEP_COLS)
+    try:
+        half = cover(_log2(SWEEP_UPPER_WORDS) - SWEEP_COLS)
+    except ValueError:
+        half = None
+    if half is not None and len(half) == len(win):
+        win = half
     W = len(win)
     if both:
         runs = ([(w, True, False) for w in range(W - 1, 0, -1)]
@@ -598,17 +622,19 @@ def sweep_plan(n: int, kind: str, windows: int | None = None,
         lo, hi = win[w]
         ld, ld_refl, st, st_refl = _sweep_maps(kind, L, lo, hi, fw, iv)
         cb, c = _sweep_cols(L, lo, hi, ld, ld_refl)
-        ops = nops if fw and iv else 1
-        split = nops if fw and not iv else 1
         S = hi - lo + c
+        join = nops << S <= SWEEP_UPPER_WORDS
+        ops = nops if fw and (iv or join) else 1
+        split = nops if fw and not iv and not join else 1
         if ops << S > SWEEP_TILE_WORDS:
             raise ValueError(f"n={n}: a tile of {ops} x 2^{S} values")
         for k, v in (("lo", lo), ("hi", hi), ("fwd", fw), ("inv", iv),
                      ("cb", cb), ("cols", c), ("ops", ops), ("split", split),
                      ("ld", ld), ("ld_refl", ld_refl), ("st", st),
                      ("st_refl", st_refl), ("tiles", 1 << (L - S)),
-                     ("threads", sweep_threads(S)),
-                     ("smem", 4 * ops * sweep_stride(S, c))):
+                     ("threads", sweep_threads(S, ops)),
+                     ("smem", sweep_smem(hi - lo, c, ops)),
+                     ("vec", sweep_vec(kind, lo, hi, cb, c))):
             f[k].append(int(v))
     plan = SweepPlan(kind=SWEEP_KIND_NAMES.index(kind), logn=L,
                      sweeps=len(runs), windows=W)
@@ -620,11 +646,15 @@ def sweep_plan(n: int, kind: str, windows: int | None = None,
     return plan
 
 
-def sweep_threads(S: int) -> int:
-    """Threads a block of a tile of 2^S values an operand: one a group of
-    2^SWEEP_PASS_BITS values (the kernel's register pass), from 32 to
-    1024."""
-    return min(_SWEEP_THREADS, max(32, 1 << max(S - SWEEP_PASS_BITS, 0)))
+def sweep_threads(S: int, ops: int = 1) -> int:
+    """Threads a block of a tile of 2^S values of each of ``ops``
+    operands: one a group of 2^SWEEP_PASS_BITS values (the kernel's
+    register pass), from 32 to 1024, and to 512 where the tile holds at
+    most SWEEP_UPPER_WORDS values (two such blocks share an SM's 64K
+    registers)."""
+    most = (_SWEEP_THREADS if ops << S > SWEEP_UPPER_WORDS
+            else _SWEEP_THREADS_HALF)
+    return min(most, max(32, 1 << max(S - SWEEP_PASS_BITS, 0)))
 
 
 def sweep_stride(S: int, c: int) -> int:
@@ -632,6 +662,28 @@ def sweep_stride(S: int, c: int) -> int:
     = v | col << s at u + u / 32 + col, so that 32 neighbouring values, or
     the 2^c columns of one v, lie in 32 banks."""
     return (1 << S) + (1 << S >> 5) + (1 << c)
+
+
+def sweep_smem(s: int, c: int, ops: int) -> int:
+    """Bytes of shared memory a block of a window of s bits beside c
+    columns: ``ops`` operands of its tile, then the tile's twiddle bases,
+    a (w, w_shoup) pair a window bit and column for each transform, then
+    each transform's whole twiddles of its top stages (SWEEP_EXACT_BITS)."""
+    return 4 * (ops * sweep_stride(s + c, c) + 4 * (s << c)
+                + 4 * ((2 << SWEEP_EXACT_BITS) - 1))
+
+
+def sweep_vec(kind: str, lo: int, hi: int, cb: int, c: int) -> int:
+    """How a launch loads and stores a tile: 2 where an upper window's
+    value holds its SWEEP_COLS columns as 32 neighbouring bytes (two
+    16-byte accesses a thread and operand), 1 where the window is the
+    row's lowest bits (four neighbouring values a thread, 16 bytes), 0 a
+    value at a time through ``stockham_address`` (Stockham)."""
+    if kind == "stockham":
+        return 0
+    if c == SWEEP_COLS and cb == 0:
+        return 2
+    return int(lo == 0 and c == 0 and hi - lo >= 2)
 
 
 def describe_sweep_plan(plan: SweepPlan) -> str:
@@ -652,6 +704,29 @@ def describe_sweep_plan(plan: SweepPlan) -> str:
             f"launches a call, windows {wins}; " + "; ".join(runs))
 
 
+def sweep_launch_bytes(plan: SweepPlan, i: int, batch: int) -> int:
+    """The bytes launch i of a call must move at ``batch`` rows: each
+    operand row it carries read once and each row it hands on written once
+    (a forward alone hands every operand on, the others one row), and the
+    tables it reads: a pairing's psi rows (w, w_shoup) at its first launch
+    and phi^{-1} n^{-1} rows at its last, B4's spectrum with the product,
+    the in-window powers (``sweep_powers_of``) at the first.  Summed over
+    a call's launches: the kind's sweep floor."""
+    n = 1 << plan.logn
+    kind = SWEEP_KIND_NAMES[plan.kind]
+    pairing = not kind.startswith("B")
+    carried = plan.ops[i] * plan.split[i]
+    out = carried if plan.fwd[i] and not plan.inv[i] else 1
+    words = batch * n * (carried + out)
+    if i == 0:
+        words += 4 * min(n, 1 << SWEEP_POW_BITS) + (2 * n if pairing else 0)
+    if i == plan.sweeps - 1 and pairing:
+        words += 2 * n
+    if kind == "B4" and plan.fwd[i] and plan.inv[i]:
+        words += n
+    return 4 * words
+
+
 def sweep_reads(plan: SweepPlan, i: int, last: str = "z") -> tuple[str, str]:
     """(source, destination) buffer of launch i: "in" (the operands), "a"
     and "b" (scratch rows of ``ops`` operands) in turns, ``last`` for the
@@ -660,14 +735,37 @@ def sweep_reads(plan: SweepPlan, i: int, last: str = "z") -> tuple[str, str]:
     return src, last if i == plan.sweeps - 1 else "ab"[i % 2]
 
 
+def sweep_powers_of(tw: torch.Tensor, q: int, merged: bool) -> torch.Tensor:
+    """The sweep kernels' in-window powers of their table ``tw`` (rows w,
+    w_shoup of the forward, then of the inverse): its first min(n,
+    2^SWEEP_POW_BITS) entries of rows 0-3, the stage on window bit t
+    reading entry v >> (t + 1) (merged psi: psi^brev(x) at x), 2^t + (v mod
+    2^t) (cyclic) or 2^(s-1-t) + brev(v >> (t + 1)) (reflected), with the
+    merged inverse's entries 0 and 1 freed of the n^{-1} folded there: 1
+    and entry 1 over entry 0; int64, on tw's device."""
+    P = tw[:4, :min(tw.shape[1], 1 << SWEEP_POW_BITS)].to(torch.int64)
+    P = P.clone()
+    if merged:
+        ninv, w1 = int(tw[2, 0]), int(tw[2, 1])
+        w1 = w1 * pow(ninv, -1, q) % q
+        P[2, 0], P[3, 0] = 1, (1 << 32) // q
+        if P.shape[1] > 1:
+            P[2, 1], P[3, 1] = w1, (w1 << 32) // q
+    return P
+
+
 class SweepModel:
     """A sweep kernel's launches on the CPU: device memory as int64
     buffers of (rows, operands, n) uint32 values (``sweep_reads``), each
     launch's tiles gathered from their addresses and scattered back, the
-    stages with the kernel's twiddle indices and lazy ranges (asserted),
-    on the device of ``tw``: the kernel's table, the (4, n) merged-psi rows
-    or the (8, n) pairing rows, in int64; ``spec`` B4's spectrum (n
-    values)."""
+    stages with the kernel's factored twiddles (``stage_twiddles``: a base
+    of the tile's fixed bits from ``tw``, an in-window power from
+    ``sweep_powers_of``, a Shoup product by each; the stages the kernel
+    takes whole twiddles for, ``SWEEP_EXACT_BITS``, one Shoup product by the
+    table's entry) and lazy ranges
+    (asserted), on the device of ``tw``: the kernel's table, the (4, n)
+    merged-psi rows or the (8, n) pairing rows, in int64; ``spec`` B4's
+    spectrum (n values)."""
 
     def __init__(self, plan: SweepPlan, n: int, q: int, tw: torch.Tensor,
                  barrett, spec: torch.Tensor | None = None):
@@ -676,6 +774,8 @@ class SweepModel:
         self.kind = SWEEP_KIND_NAMES[plan.kind]
         self.fwd_s, self.inv_s, self.nops = SWEEP_KINDS[self.kind]
         self.tw, self.barrett, self.spec = tw, barrett, spec
+        self.pw = sweep_powers_of(tw, q, "merged" in (self.fwd_s,
+                                                      self.inv_s))
 
     def tile_indices(self, i: int) -> torch.Tensor:
         """(tiles, 2^S) indices of each tile of launch i: value u = v | col
@@ -751,29 +851,72 @@ class SweepModel:
             assert bool((V < q).all())
         return V
 
-    def _stage(self, V, m, i, t, fwd: bool):
-        """The forward's (``fwd``) or the inverse's stage on index bit lo +
-        t of launch i: bit k of the transform's index, of the bit-reversed
-        one where the transform runs reflected (a DIT forward, a DIF or
-        Stockham inverse); CT butterflies for "dit" and the merged forward,
-        GS for the others; merged-psi twiddles w[2^(L-1-k) + (j >> (k+1))],
-        cyclic ones w[2^k + (j mod 2^k)]; the merged inverse's stage k = L -
-        1 takes n^{-1} on the sum (entry 0) and entry 1 on the difference,
-        canonical."""
-        q, q2, L, tw = self.q, 2 * self.q, self.L, self.tw
+    def stage_twiddles(self, m, i: int, t: int, fwd: bool):
+        """For the low members m (indices, any shape) of the butterflies of
+        the forward's (``fwd``) or the inverse's stage on window bit t of
+        launch i: (k, idx, p, b), the stage's bit of the transform's index
+        (of the bit-reversed one where the transform runs reflected: a DIT
+        forward, a DIF or Stockham inverse), the gathered table entry the
+        pass kernels read (merged-psi w[2^(L-1-k) + (j >> (k+1))], cyclic
+        w[2^k + (j mod 2^k)]), the in-window power's entry of ``pw`` and the
+        base's entry of ``tw``, the index with the window's bits 0 (the
+        kernel's ``pow_index`` and ``base_index``)."""
+        L, p = self.L, self.plan
+        lo, s = p.lo[i], p.hi[i] - p.lo[i]
         scheme = self.fwd_s if fwd else self.inv_s
         refl = scheme == "dit" if fwd else scheme in ("dif", "stk")
-        w, w_sh = (tw[0], tw[1]) if fwd else (tw[2], tw[3])
-        km = self.plan.lo[i] + t
+        km = lo + t
         k = L - 1 - km if refl else km
+        v = (m >> lo) & ((1 << s) - 1)
+        jf = m & ~(((1 << s) - 1) << lo)
+        if refl:
+            j, jfr = brev(m, L), brev(jf, L)
+        else:
+            j, jfr = m, jf
+        assert bool(((j >> k) & 1 == 0).all())
+        if scheme == "merged":
+            idx = (1 << (L - 1 - k)) + (j >> (k + 1))
+            pi = v >> (t + 1)
+            bi = (1 << (L - 1 - k)) + (jf >> (k + 1))
+        elif refl:
+            idx = (1 << k) + (j & ((1 << k) - 1))
+            pi = (1 << (s - 1 - t)) + brev(v >> (t + 1), s - 1 - t)
+            bi = (1 << k) + (jfr & ((1 << k) - 1))
+        else:
+            idx = (1 << k) + (j & ((1 << k) - 1))
+            pi = (1 << t) + (v & ((1 << t) - 1))
+            bi = (1 << k) + (jf & ((1 << k) - 1))
+        return k, idx, pi, bi
+
+    def _stage(self, V, m, i, t, fwd: bool):
+        """The forward's (``fwd``) or the inverse's stage on index bit lo +
+        t of launch i (``stage_twiddles``); CT butterflies for "dit" and the
+        merged forward, GS for the others, the difference multiplied by the
+        in-window power, then by the base (Shoup each), or, on a merged or
+        reflected stage within SWEEP_EXACT_BITS of the window's top (not
+        Stockham), by the whole twiddle (the kernel's tile table); the merged
+        inverse's stage k = L - 1 takes n^{-1} on the sum (entry 0) and
+        entry 1 on the difference, canonical."""
+        q, q2, L, tw = self.q, 2 * self.q, self.L, self.tw
+        scheme = self.fwd_s if fwd else self.inv_s
+        w, w_sh = (tw[0], tw[1]) if fwd else (tw[2], tw[3])
+        pw, pw_sh = (self.pw[0], self.pw[1]) if fwd else (self.pw[2],
+                                                          self.pw[3])
         u = torch.arange(V.shape[-1], device=V.device)
         ul = u[(u >> t) & 1 == 0]
         uu = ul | (1 << t)
-        j = m[:, ul]
-        j = brev(j, L) if refl else j
-        assert bool(((j >> k) & 1 == 0).all())
-        idx = ((1 << (L - 1 - k)) + (j >> (k + 1)) if scheme == "merged"
-               else (1 << k) + (j & ((1 << k) - 1)))
+        k, idx, pi, bi = self.stage_twiddles(m[:, ul], i, t, fwd)
+        s = self.plan.hi[i] - self.plan.lo[i]
+        refl = scheme == "dit" if fwd else scheme in ("dif", "stk")
+        exact = (self.kind != "stockham" and (scheme == "merged" or refl)
+                 and s - 1 - t <= SWEEP_EXACT_BITS)
+
+        def mul(x):
+            if exact:
+                return MM.shoup_mulmod_lazy(x, w[idx], w_sh[idx], q)
+            x = MM.shoup_mulmod_lazy(x, pw[pi], pw_sh[pi], q)
+            return MM.shoup_mulmod_lazy(x, w[bi], w_sh[bi], q)
+
         a, d = V[..., ul], V[..., uu]
         V = V.clone()
         if scheme == "merged" and not fwd and k == L - 1:
@@ -785,11 +928,10 @@ class SweepModel:
         elif scheme == "dit" or (scheme == "merged" and fwd):
             assert bool((V < 4 * q).all())
             u2 = MM._csub(a, q2)
-            h = MM.shoup_mulmod_lazy(d, w[idx], w_sh[idx], q)
+            h = mul(d)
             V[..., ul], V[..., uu] = u2 + h, u2 + q2 - h
         else:
             assert bool((V < q2).all())
             V[..., ul] = MM._csub(a + d, q2)
-            V[..., uu] = MM.shoup_mulmod_lazy(a + q2 - d, w[idx], w_sh[idx],
-                                              q)
+            V[..., uu] = mul(a + q2 - d)
         return V

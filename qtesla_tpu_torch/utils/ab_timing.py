@@ -1,7 +1,7 @@
 """Time the kernels of two source trees in turns, on one card.
 
     python -m qtesla_tpu_torch.utils.ab_timing [--rounds N] \
-        [--sp K | --butterfly] OLD_TREE NEW_TREE
+        [--sp K | --butterfly | --sweeps] OLD_TREE NEW_TREE
 
 Each tree is a checkout of this repository (for example a parent commit
 unpacked with ``git archive``, or a copy with one constant of a CUDA source
@@ -19,7 +19,12 @@ the tree has them; and the folded SP
 path at model axis K, ``multiply(x, *prepare(a))``, and its prepare, whose
 host work the events span), or with
 ``--butterfly`` the butterfly kernels B1-B4 (B4 against the spectrum of
-y's first row, B3 on x) and the five pairings B10.  ``--rounds N`` runs the
+y's first row, B3 on x) and the five pairings B10, or with ``--sweeps``
+the sweep form of B1-B4 and the five pairings (``passes.SWEEP_KINDS``,
+each under ``sweep_plan``) at n = 2^18, 2^20, 2^22 and 2^25 (B = 128, 32,
+8, 4; 10 timed calls each) and B5's split call (``polymul_negacyclic``
+"mxu": B2's sweeps, the split kernel, B3's sweeps) at 32768 (B = 1024)
+and 2^22 (``SWEEP_AB_RINGS``).  ``--rounds N`` runs the
 order old, new, new, old N times (default 1).  It prints each run's
 medians and, per kernel, the median and the least of each tree's 40 N
 calls and the new/old ratio of the medians.  It needs a CUDA device.
@@ -40,14 +45,27 @@ MXU_KERNELS = ("polymul_mxu", "polymul_fixed_mxu", "ntt_mxu", "ntt_mxu B=1",
 BUTTERFLY_KERNELS = ("polymul_fused", "polymul_fixed_fused", "ntt_fused",
                      "intt_fused", *(f"polymul_pairing_{p}" for p in (
                          "gs_ct", "ct_ct", "gs_gs", "ct_gs", "stockham")))
+SWEEP_KINDS = ("B1", "B4", "B2", "B3", "gs_ct", "ct_ct", "gs_gs", "ct_gs",
+               "stockham")
 SP_KERNELS = ("sp_seg1", "sp_seg2", "sp_seg3", "sp_seg2_fixed", "sp_seg2_fwd",
               "sp_seg2_fwd B=1", "sp_seg2_fwd B=1 cold", "sp_seg2_folded",
               "sp_seg1_classes", "sp_seg2_classes", "folded SP path",
               "folded SP prepare")
 
+# --sweeps: (name, log2 n, q, rows, kinds) of each ring; q the largest
+# prime the registry takes there, 128 MiB an operand (512 MiB at 2^25);
+# "mxu" B5's split call through the entry point
+SWEEP_AB_RINGS = (
+    ("ab-n262144", 18, 1056440321, 128, SWEEP_KINDS),
+    ("ab-n1048576", 20, 1012924417, 32, SWEEP_KINDS),
+    ("ab-n4194304", 22, 998244353, 8, SWEEP_KINDS + ("mxu",)),
+    ("ab-n33554432", 25, 469762049, 4, SWEEP_KINDS),
+    ("ab-n32768", 15, 1073479681, 1024, ("mxu",)))
+
 _RUN = """
 import functools, importlib.util, json, sys
 sys.path.insert(0, {tree!r})
+SWEEP_AB_RINGS = {rings!r}
 import torch
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops.mxu_tables import get_mxu_tables
@@ -58,6 +76,42 @@ gen = torch.Generator(device="cuda")
 gen.manual_seed(20261016)
 x, y = (torch.randint(0, mt.q, (32768, mt.n), generator=gen, device="cuda",
                       dtype=torch.int64).to(torch.uint32) for _ in range(2))
+if {sweeps}:
+    from qtesla_tpu_torch.models import polymul_negacyclic
+    from qtesla_tpu_torch.ops import ntt_fused as F
+    from qtesla_tpu_torch.ops import ntt_pairings as P
+    from qtesla_tpu_torch.ops import passes as Ps
+    from qtesla_tpu_torch.ops.tables import get_tables
+    from qtesla_tpu_torch.params import register_param_set
+    del mt, x, y
+    out = {{}}
+    for name, logn, q, B, kinds in SWEEP_AB_RINGS:
+        n = 1 << logn
+        register_param_set(name, n, q)
+        tbl = get_tables(name)
+        gen.manual_seed(n)
+        x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
+                              dtype=torch.int64).to(torch.uint32)
+                for _ in range(2))
+        spec = F.ntt_fused(y[:1], tbl)
+        for kind in kinds:
+            if kind == "mxu":
+                fn = functools.partial(polymul_negacyclic, x, y, name, "mxu")
+            else:
+                plan = Ps.sweep_plan(n, kind)
+                fn = {{"B1": lambda: F.polymul_fused(x, y, tbl, plan=plan),
+                      "B4": lambda: F.polymul_fixed_fused(x, spec, tbl,
+                                                          plan=plan),
+                      "B2": lambda: F.ntt_fused(x, tbl, plan=plan),
+                      "B3": lambda: F.intt_fused(x, tbl, plan=plan)}}.get(
+                    kind, lambda: P.polymul_pairing(x, y, tbl, kind,
+                                                    plan=plan))
+            out[f"{{kind}} 2^{{logn}}"] = time_cuda(
+                fn, warmup=2, repeats=10).samples_ms
+        del x, y, spec
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    sys.exit(0)
 if {butterfly}:
     from qtesla_tpu_torch.ops import ntt_fused as F
     from qtesla_tpu_torch.ops import ntt_pairings as P
@@ -131,10 +185,11 @@ print(json.dumps(out))
 """
 
 
-def _run(tree: Path, sp: int, butterfly: bool) -> dict:
+def _run(tree: Path, sp: int, butterfly: bool, sweeps: bool) -> dict:
     proc = subprocess.run([sys.executable, "-c",
                            _RUN.format(tree=str(tree), sp=sp,
-                                       butterfly=butterfly)],
+                                       butterfly=butterfly, sweeps=sweeps,
+                                       rings=SWEEP_AB_RINGS)],
                           cwd=tree, capture_output=True, text=True,
                           check=False)
     if proc.returncode != 0:
@@ -147,7 +202,8 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--rounds"] and len(argv) > 1:
         rounds, argv = int(argv[1]), argv[2:]
     sp, butterfly = 0, argv[:1] == ["--butterfly"]
-    if butterfly:
+    sweeps = argv[:1] == ["--sweeps"]
+    if butterfly or sweeps:
         argv = argv[1:]
     elif argv[:1] == ["--sp"] and len(argv) > 1:
         sp, argv = int(argv[1]), argv[2:]
@@ -157,7 +213,7 @@ def main(argv: list[str]) -> int:
     trees = {"old": Path(argv[0]).resolve(), "new": Path(argv[1]).resolve()}
     runs = []
     for which in ("old", "new", "new", "old") * rounds:
-        res = _run(trees[which], sp, butterfly)
+        res = _run(trees[which], sp, butterfly, sweeps)
         runs.append((which, res))
         print(f"{which} ({trees[which]}): " + ", ".join(
             f"{k} {statistics.median(v):.4f}" for k, v in res.items()) +
@@ -166,6 +222,8 @@ def main(argv: list[str]) -> int:
     kernels = [k for k in (BUTTERFLY_KERNELS if butterfly else
                            SP_KERNELS if sp else MXU_KERNELS)
                if all(k in res for _, res in runs)]
+    if sweeps:
+        kernels = list(runs[0][1])
     samples = {t: {k: [] for k in kernels} for t in trees}
     for which, res in runs:
         for k in kernels:

@@ -39,9 +39,10 @@ _P = ctypes.c_void_p
 # r32_shoup, one_shoup, &plan, stream)
 _PASSES = ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
            + [ctypes.c_uint32] * 4 + [_P, _P])
-# csrc/pass_sweeps.cu: (x, y, z, scratch a, scratch b, twiddles, batch, n,
-# logn, q, r32, r32_shoup, one_shoup, &plan, launch, stream)
-_SWEEP = ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+# csrc/pass_sweeps.cu: (x, y, z, scratch a, scratch b, twiddles, in-window
+# powers, batch, n, logn, q, r32, r32_shoup, one_shoup, &plan, launch,
+# stream)
+_SWEEP = ([_P] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
           + [ctypes.c_uint32] * 4 + [_P, ctypes.c_int, _P])
 # csrc/ntt_mxu.cu and csrc/ntt_mxu_split.cu: (a, b, out, wf, constf, wi,
 # consti, twiddles, batch, &plan, stream)

@@ -1,25 +1,29 @@
 """Time the pass kernels' sweep form on the card: each kind's whole call
-and each of its launches alone.
+and each of its launches alone, beside the bytes each must move.
 
     python -m qtesla_tpu_torch.utils.sweep_timing [--rings 18:128,20:32,25:4]
         [--kinds B1,B2,gs_ct,stockham] [--calls 10]
 
-For each ring (log2 n and rows B; q the largest prime the registry takes
-there) and each kind (``passes.SWEEP_KINDS``) under its sweep plan
-(``passes.sweep_plan``): the median of ``--calls`` CUDA-event-timed calls
-through the kernel's wrapper after two warmup calls, then each launch of
-the call alone (the launcher called with that launch's number, on the
-scratch rows the call left), the same way.  Each line names the card and
-its power limit (nvidia-smi).  Without a card it exits 1.  The operands
-are seeded and random; no result is checked here (``chip_smoke.py`` and
-``tests/test_torch_device.py`` do that).
+For each ring (log2 n and rows B, n = 2^18 to 2^25, every ring the sweep
+form runs; q the largest prime the registry takes there) and each kind
+(``passes.SWEEP_KINDS``) under its sweep plan (``passes.sweep_plan``): the
+median of ``--calls`` CUDA-event-timed calls through the kernel's wrapper
+after two warmup calls (``timing.time_cuda``), then each launch of the
+call alone (the launcher called with that launch's number, on the scratch
+rows the call left), the same way.  Beside the call: its one-pass bound
+(each operand read once, z written once, the kind's table once) and its
+sweep floor (``passes.sweep_launch_bytes`` summed: each launch reads and
+writes each row it carries once), both over 3.35 TB/s; beside each
+launch: its bytes, its share of the floor and its rate.  Each line names
+the card and its power limit (nvidia-smi).  Without a card it exits 1.
+The operands are seeded and random; no result is checked here
+(``chip_smoke.py`` and ``tests/test_torch_device.py`` do that).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import statistics
 import subprocess
 import sys
 
@@ -31,26 +35,22 @@ from ..ops import ntt_pairings as P
 from ..ops import passes as Ps
 from ..ops.tables import get_tables
 from ..params import register_param_set
+from .timing import time_cuda
 
 # the largest prime the registry takes at each log2 n of a ring
 PRIMES = {18: 1056440321, 19: 1053818881, 20: 1012924417, 21: 998244353,
-          25: 469762049}
+          22: 998244353, 23: 754974721, 24: 469762049, 25: 469762049}
+# device memory's rate (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
 
 
-def _median_ms(fn, calls: int) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def one_pass_bytes(kind: str, n: int, B: int) -> int:
+    """Bytes one pass over the data moves: each operand read once, z
+    written once, the kind's table read once ((4, n) merged-psi rows, (8,
+    n) pairing rows; B4's spectrum)."""
+    nops = Ps.SWEEP_KINDS[kind][2]
+    table = 32 * n if not kind.startswith("B") else 16 * n
+    return 4 * B * n * (nops + 1) + table + (4 * n if kind == "B4" else 0)
 
 
 def _call(kind: str, tbl, x, y, spec, plan):
@@ -84,10 +84,13 @@ def time_ring(logn: int, B: int, kinds, calls: int, device_line: str,
     ps = tbl.ps
     for kind in kinds:
         plan = Ps.sweep_plan(n, kind)
-        whole = _median_ms(_call(kind, tbl, x, y, spec, plan), calls)
+        whole = time_cuda(_call(kind, tbl, x, y, spec, plan), warmup=2,
+                          repeats=calls).median_ms
         nops = Ps.SWEEP_KINDS[kind][2]
-        tw = (N.twiddles(tbl, x.device) if kind.startswith("B")
-              else P.pairing_twiddles(tbl, x.device))
+        pairing = not kind.startswith("B")
+        tw = (P.pairing_twiddles(tbl, x.device) if pairing
+              else N.twiddles(tbl, x.device))
+        pw = N.sweep_powers(tbl, pairing, x.device)
         out = torch.empty_like(x)
         scratch = [torch.zeros((B, nops, n), dtype=torch.uint32,
                                device="cuda") for _ in range(2)]
@@ -98,20 +101,29 @@ def time_ring(logn: int, B: int, kinds, calls: int, device_line: str,
             err = lib.qt_pass_sweep(
                 x.data_ptr(), second.data_ptr(), out.data_ptr(),
                 scratch[0].data_ptr(), scratch[1].data_ptr(), tw.data_ptr(),
-                B, n, logn, q, ps.r32, ps.r32_shoup, ps.one_shoup,
-                ctypes.addressof(plan), i, stream)
+                pw.data_ptr(), B, n, logn, q, ps.r32, ps.r32_shoup,
+                ps.one_shoup, ctypes.addressof(plan), i, stream)
             if err:
                 raise RuntimeError(f"qt_pass_sweep {kind} launch {i}: {err}")
 
+        floor = sum(Ps.sweep_launch_bytes(plan, i, B)
+                    for i in range(plan.sweeps))
+        floor_ms = floor / HBM_BYTES_PER_S * 1e3
+        one_ms = one_pass_bytes(kind, n, B) / HBM_BYTES_PER_S * 1e3
         parts = []
         for i in range(plan.sweeps):
             what = "+".join(s for s, on in (("fwd", plan.fwd[i]),
                                              ("inv", plan.inv[i])) if on)
-            ms = _median_ms(lambda: launch(i), calls)
-            parts.append(f"[{plan.lo[i]},{plan.hi[i]}) {what} {ms:.4f}")
-        log(f"n=2^{logn} q={q} B={B} {kind}: call {whole:.4f} ms "
-            f"(median of {calls}); launches alone: {'; '.join(parts)} ms "
-            f"[{device_line}]")
+            ms = time_cuda(launch, i, warmup=2, repeats=calls).median_ms
+            nbytes = Ps.sweep_launch_bytes(plan, i, B)
+            parts.append(f"[{plan.lo[i]},{plan.hi[i]}) {what} {ms:.4f} ms, "
+                         f"{nbytes} B ({nbytes / floor * 100:.1f} % of the "
+                         f"floor), {nbytes / ms / 1e6:.1f} GB/s")
+        log(f"n=2^{logn} q={q} B={B} {kind}: call {whole:.4f} ms (median "
+            f"of {calls}); one-pass bound {one_ms:.4f} ms, sweep floor "
+            f"{floor_ms:.4f} ms ({floor} B, {floor_ms / whole * 100:.1f} % "
+            f"of the call); launches alone: {'; '.join(parts)} "
+            f"[{device_line}]", flush=True)
         del out, scratch
 
 

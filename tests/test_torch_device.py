@@ -32,6 +32,7 @@ import torch
 from qtesla_tpu_torch import (get_params, polymul_negacyclic_oracle,
                               register_param_set)
 from qtesla_tpu_torch.models import polymul as TP
+from qtesla_tpu_torch.ops import ntt as N
 from qtesla_tpu_torch.ops import ntt_fused as F
 from qtesla_tpu_torch.ops import ntt_mxu as M
 from qtesla_tpu_torch.ops import ntt_mxu_split as MS
@@ -437,14 +438,15 @@ def test_build_flags_target_hopper():
     src = {mod: (build.CSRC_DIR / mod.CUDA_SOURCE.rsplit("/", 1)[1])
            .read_text() for mod in (F, M, P, S, C)}
     # the pass kernels' sweep form: one launcher for all nine kinds, a
-    # launch a call (x, y, z, two scratch rows, twiddles, batch, n, logn,
-    # the set's constants, &plan, the launch's number, stream)
+    # launch a call (x, y, z, two scratch rows, twiddles, the in-window
+    # powers, batch, n, logn, the set's constants, &plan, the launch's
+    # number, stream)
     assert set(build.LAUNCHERS) == {k.symbol
                                     for mod in (F, M, MS, P, S, C, SC)
                                     for k in mod.KERNELS.values()} | {
         "qt_pass_sweep"}
     sweep = build.LAUNCHERS["qt_pass_sweep"]
-    assert len(sweep) == 16 and sweep[-3:] == [sweep[0], ctypes.c_int,
+    assert len(sweep) == 17 and sweep[-3:] == [sweep[0], ctypes.c_int,
                                                sweep[0]]
     assert 'extern "C" int qt_pass_sweep(' in (
         build.CSRC_DIR / "pass_sweeps.cu").read_text()
@@ -2371,7 +2373,8 @@ def test_compact_launchers_refuse_plans_outside_their_range(cuda_device):
 
 # the sweep form's rings (csrc/pass_sweeps.cu): the largest prime the
 # registry takes at each n
-SWEEP_RINGS = {1 << 18: 1056440321, 1 << 20: 1012924417, 1 << 25: 469762049}
+SWEEP_RINGS = {1 << 18: 1056440321, 1 << 20: 1012924417,
+               1 << 22: 998244353, 1 << 25: 469762049}
 
 
 def _sweep_call(kind, tbl, x, y, lazy, spec, plan, on_card):
@@ -2398,8 +2401,8 @@ def _sweep_call(kind, tbl, x, y, lazy, spec, plan, on_card):
 def test_sweep_form_matches_its_twin_on_card(cuda_device, kind):
     """The sweep form of each kind (``passes.sweep_plan``; B2 and B3 at
     2^18 too, where their cluster form runs by default) against its CPU
-    twin under the same plan at n = 2^18, B in {1, 3}, and 2^20, B = 1,
-    with a row of q - 1 (B3: 2q - 1; B4 against a spectrum holding q - 1);
+    twin under the same plan at n = 2^18, B in {1, 3}, and 2^20 and 2^22,
+    B = 1, with a row of q - 1 (B3: 2q - 1; B4 against a spectrum holding q - 1);
     at 2^25, B = 1, against the plain version on the card and the closed
     form of the all-(q - 1) row (B1, B4 and the pairings: z_k = 2k + 2 -
     n; B3 takes B2's output back to x).  Each call adds its plan's
@@ -2458,9 +2461,9 @@ def test_sweep_form_matches_its_twin_on_card(cuda_device, kind):
 def test_sweep_launcher_refuses_plans_it_cannot_run(cuda_device):
     """``qt_pass_sweep`` returns cudaErrorInvalidValue for a plan other
     than the one its checks restate (a window, a column, the tiles, the
-    threads, the shared memory, a Stockham map, the launches a call, the
-    kind): the wrapper raises, nothing is counted; the plan as made runs
-    and counts its launches."""
+    threads, the shared memory, the load shape, a Stockham map, the
+    launches a call, the kind): the wrapper raises, nothing is counted;
+    the plan as made runs and counts its launches."""
     n, q = 1 << 18, SWEEP_RINGS[1 << 18]
     register_param_set("sweep-n262144", n, q)
     tbl = get_tables("sweep-n262144")
@@ -2472,7 +2475,8 @@ def test_sweep_launcher_refuses_plans_it_cannot_run(cuda_device):
     for field, i, delta in (("hi", 0, -1), ("lo", 1, 1), ("cb", 0, 1),
                             ("cols", 2, -1), ("tiles", 1, 1),
                             ("threads", 0, -32), ("smem", 1, 4),
-                            ("ld", 1, 1), ("ops", 0, 1), ("split", 1, 1)):
+                            ("ld", 1, 1), ("ops", 0, 1), ("split", 1, 1),
+                            ("vec", 0, -1), ("vec", 1, 1)):
         p = PS.SweepPlan.from_buffer_copy(plan)
         getattr(p, field)[i] += delta
         bad.append(p)
@@ -2489,3 +2493,52 @@ def test_sweep_launcher_refuses_plans_it_cannot_run(cuda_device):
     before = kernel.launches
     F._launch_sweeps(kernel, tbl, tw, x, x, plan, 2)
     assert kernel.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_split_calls_hold_their_twins_through_the_sweeps_on_card(cuda_device):
+    """B5's split call at n = 32768 (q = 1073479681, B in {3, 64}, row 0
+    all q - 1) and B11's at nloc = 32768 (n = 65536, k = 2, B = 3), whose
+    wide stages run as B2's and B3's sweeps (B11: B2's, from bit
+    log2(TW) up), equal their twins on the CPU, which run those sweeps
+    through ``passes.SweepModel``, bit for bit; B5 also equals B1, and the
+    sweeps alone (B2's from bit 7 up, then B3's on its output) equal the
+    model's."""
+    from qtesla_tpu_torch.parallel.distributed import sp_n1
+    name, n, q = "q30-split-n32768", 32768, 1073479681
+    register_param_set(name, n, q)
+    mt = get_mxu_tables(name)
+    tbl = get_tables(name)
+    rng = np.random.default_rng(27)
+    for batch in (3, 64):
+        xy = rng.integers(0, q, (2, batch, n), dtype=np.uint32)
+        xy[:, 0] = q - 1
+        x, y = (torch.from_numpy(v) for v in xy)
+        xd, yd = x.to(cuda_device), y.to(cuda_device)
+        got = M.polymul_mxu(xd, yd, mt)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      M.polymul_mxu(x, y, mt).numpy())
+        assert torch.equal(got, F.polymul_fused(xd, yd, tbl))
+        tw = N.twiddles(tbl, cuda_device)
+        wide = MS._wide_fwd(xd, mt, tw)
+        np.testing.assert_array_equal(
+            wide.cpu().numpy(),
+            MS._wide_fwd(x, mt, None).numpy())
+        np.testing.assert_array_equal(
+            MS._wide_inv(wide, mt, tw).cpu().numpy(),
+            MS._wide_inv(wide.cpu(), mt, None).numpy())
+    sname, sn, k = "sp-split-n65536-b", 65536, 2
+    register_param_set(sname, sn, q)
+    plans = fourstep_mxu_plans(sname, sp_n1(sn), k)
+    assert S.column_split(plans) and plans.nloc == 32768
+    xs = rng.integers(0, q, (k, 3, plans.nloc), dtype=np.uint32)
+    xs[:, 0] = q - 1
+    xs = torch.from_numpy(xs)
+    got = S.sp_seg1(xs.to(cuda_device), plans,
+                    S.device_tables(plans, cuda_device))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  S.sp_seg1(xs, plans).numpy())
+    np.testing.assert_array_equal(
+        SC.column_sweeps(xs.to(cuda_device), plans, inverse=False)
+        .cpu().numpy(),
+        SC.column_sweeps(xs, plans, inverse=False).numpy())

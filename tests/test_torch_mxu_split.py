@@ -239,8 +239,10 @@ def _sweep_launcher_accepts(plan, L):
         want = dict(lo=lo, hi=hi, fwd=kind == "B2", inv=kind == "B3", cb=0,
                     cols=3, ops=1, split=1, ld=0, ld_refl=0, st=0,
                     st_refl=0, tiles=1 << (L - S),
-                    threads=min(1024, max(32, 1 << (S - 3))),
-                    smem=4 * ((1 << S) + (1 << S >> 5) + 8))
+                    threads=min(1024 if S > 14 else 512,
+                                max(32, 1 << (S - 3))),
+                    smem=4 * ((1 << S) + (1 << S >> 5) + 8
+                              + 4 * ((hi - lo) << 3) + 4 * 511), vec=2)
         if S > 15 or any(getattr(plan, f)[i] != v for f, v in want.items()):
             return False
     return True

@@ -108,15 +108,20 @@ def _launcher_accepts(plan, L):
                 break
             bits.append(b)
         cb, c = (min(bits), len(bits)) if bits else (0, 0)
-        ops, split = (nops if fw and iv else 1), (nops if fw and not iv
-                                                   else 1)
         S = hi - lo + c
+        join = nops << S <= 1 << 14
+        ops = nops if fw and (iv or join) else 1
+        split = nops if fw and not iv and not join else 1
         stride = (1 << S) + (1 << S >> 5) + (1 << c)
+        most = 1024 if ops << S > 1 << 14 else 512
+        vec = (0 if kind == "stockham" else 2 if c == 3
+               else int(lo == 0 and c == 0 and hi - lo >= 2))
         want = dict(lo=lo, hi=hi, fwd=fw, inv=iv, cb=cb, cols=c, ops=ops,
                     split=split, ld=maps[0], ld_refl=maps[1], st=maps[2],
                     st_refl=maps[3], tiles=1 << (L - S),
-                    threads=min(1024, max(32, 1 << max(S - 3, 0))),
-                    smem=4 * ops * stride)
+                    threads=min(most, max(32, 1 << max(S - 3, 0))),
+                    smem=4 * (ops * stride + 4 * ((hi - lo) << c) + 4 * 511),
+                    vec=vec)
         if (S > 15 or ops << S > 1 << 15 or want["smem"] > 232448
                 or any(getattr(plan, f)[i] != v for f, v in want.items())):
             return False
@@ -247,6 +252,161 @@ def test_sweep_twins_match_plain_at_small_n(n, q):
             assert torch.equal(got, want), (kind, n, windows)
 
 
+def _models(kind, n, q, windows):
+    """The sweep model of ``kind`` at (n, q) under its plan with
+    ``windows`` windows (None: the planner's), on the kernel's table."""
+    tbl = get_tables(_name(n, q))
+    pairing = not kind.startswith("B")
+    tw = torch.from_numpy((tbl.pairing_packed if pairing else tbl.packed)
+                          .astype(np.int64))
+    plan = Ps.sweep_plan(n, kind, windows)
+    return Ps.SweepModel(plan, n, q, tw, lambda a, b: F._barrett(a, b, tbl))
+
+
+def _mul_pair(p, p_sh, b, b_sh, q):
+    """``mul_pair`` of ``csrc/pass_sweeps.cu`` in uint32 arithmetic on int64
+    tensors: w = p b mod q (a Shoup product, canonical) and its companion b
+    p_sh + floor(b r / q) mod 2^32, r = -p_sh q mod 2^32, the floor a Shoup
+    estimate and one correction."""
+    mask = (1 << 32) - 1
+    w = (p * b - ((p * b_sh) >> 32) * q) % (1 << 32)
+    w = torch.where(w >= q, w - q, w)
+    r = (-(p_sh * q)) & mask
+    t = (r * b_sh) >> 32
+    t = t + (((b * r - t * q) & mask) >= q).to(torch.int64)
+    return w, (b * p_sh + t) & mask
+
+
+def _check_factored(mdl):
+    """Every stage of every launch of ``mdl``: the in-window power times
+    the base, mod q, is the table entry the pass kernels gather, for every
+    butterfly of every tile; each factor's Shoup companion is floor(w 2^32
+    / q), and the kernel's whole twiddle and companion formed from the two
+    pairs (``_mul_pair``) are the entry's.  The merged inverse's stage on
+    bit L - 1 (n^{-1} folded) reads entries 0 and 1 as they are."""
+    p, q, L = mdl.plan, mdl.q, mdl.L
+    stages = 0
+    for i in range(p.sweeps):
+        m = mdl.tile_indices(i)
+        s = p.hi[i] - p.lo[i]
+        for fwd in (True, False):
+            if not (p.fwd[i] if fwd else p.inv[i]):
+                continue
+            row = 0 if fwd else 2
+            w, w_sh = mdl.tw[row], mdl.tw[row + 1]
+            pw, pw_sh = mdl.pw[row], mdl.pw[row + 1]
+            for t in range(s):
+                low = m[:, (torch.arange(m.shape[1]) >> t) & 1 == 0]
+                k, idx, pi, bi = mdl.stage_twiddles(low, i, t, fwd)
+                if mdl.inv_s == "merged" and not fwd and k == L - 1:
+                    continue
+                assert torch.equal(pw[pi] * w[bi] % q, w[idx]), (i, t, fwd)
+                assert torch.equal(pw_sh[pi], (pw[pi] << 32) // q)
+                assert torch.equal(w_sh[bi], (w[bi] << 32) // q)
+                assert bool((pi < pw.shape[0]).all())
+                # the kernel's whole twiddles (mul_pair): the product and
+                # its companion from the two Shoup pairs
+                got, got_sh = _mul_pair(pw[pi], pw_sh[pi], w[bi], w_sh[bi], q)
+                assert torch.equal(got, w[idx]) and torch.equal(got_sh,
+                                                                w_sh[idx])
+                stages += 1
+    return stages
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_factored_twiddles_equal_the_gathered_entries(kind):
+    """The sweep kernel's twiddles are a base (the tile's fixed bits and
+    column) times an in-window power (``sweep_powers_of``), for every kind
+    and every stage, reflected ones and Stockham's included: at n = 4096
+    under its two-window plan and a forced three-window one, at n = 256
+    under three windows, and at n = 64 on the SP ring's table (the n1 =
+    16 point table at the rows' heads, B2 and B3 from bit 3 up; the merged
+    inverse's entries 0 and 1 freed of n1^{-1})."""
+    fwd, inv, _ = Ps.SWEEP_KINDS[kind]
+    for n, q, windows in ((4096, 40961, None), (4096, 40961, 3),
+                          (256, 7681, 3)):
+        L = n.bit_length() - 1
+        assert _check_factored(_models(kind, n, q, windows)) == (
+            (L if fwd else 0) + (L - (inv == "merged") if inv else 0))
+    if kind in ("B2", "B3"):
+        n, n1, q = 64, 16, 257
+        ring = np.zeros((4, n), dtype=np.int64)
+        TPARAMS.register_param_set("sweep-head-n16", n1, q)
+        try:
+            t1 = get_tables("sweep-head-n16")
+            ring[:, :n1] = t1.packed
+        finally:
+            del TPARAMS.PARAM_SETS["sweep-head-n16"]
+            TPARAMS.get_params.cache_clear()
+        plan = Ps.sweep_plan(n, kind, low=3)
+        mdl = Ps.SweepModel(plan, n, q, torch.from_numpy(ring), None)
+        assert _check_factored(mdl) == n.bit_length() - 1 - 3 - (
+            kind == "B3")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_sweep_tiles_and_loads(kind):
+    """The plan's tiles at every n from 2^18 to 2^25: an upper window's
+    tile holds at most 2^14 values an operand unless 2^14 would take a
+    window more, with 512 threads (two blocks an SM in registers and shared
+    memory) where it holds at most 2^14 in all; an upper forward carries
+    both operands of B1 and the pairings where they fit 2^14 values (two
+    blocks an SM still), else one a block; the narrowest at most 2^15
+    values of all its operands; the
+    load shape is
+    2 for an upper window's 8 columns of 32 bytes (rest a multiple of 8
+    words), 1 for the contiguous narrowest window, 0 for Stockham alone;
+    the in-window powers' indices stay below 2^14."""
+    for L in range(18, 26):
+        n = 1 << L
+        plan = Ps.sweep_plan(n, kind)
+        narrowest = plan.win_hi[0] - plan.win_lo[0]
+        for i in range(plan.sweeps):
+            s, c, ops = plan.hi[i] - plan.lo[i], plan.cols[i], plan.ops[i]
+            words = ops << (s + c)
+            assert words <= Ps.SWEEP_TILE_WORDS
+            if plan.lo[i] > 0:
+                if 1 << (s + c) > Ps.SWEEP_UPPER_WORDS:
+                    fewer = Ps.sweep_plan.__wrapped__(n, kind)
+                    assert fewer.windows == plan.windows
+                    assert s == Ps._log2(Ps.SWEEP_TILE_WORDS) - c
+                if words <= Ps.SWEEP_UPPER_WORDS:
+                    assert plan.threads[i] <= 512
+                    assert 2 * (plan.smem[i] + 1024) <= 233472
+                if plan.fwd[i] and not plan.inv[i]:
+                    nops = Ps.SWEEP_KINDS[kind][2]
+                    join = nops << (s + c) <= Ps.SWEEP_UPPER_WORDS
+                    assert (ops, plan.split[i]) == (
+                        (nops, 1) if join else (1, nops))
+            assert plan.vec[i] == (0 if kind == "stockham" else
+                                   1 if plan.lo[i] == 0 else 2)
+            if plan.vec[i] == 2:
+                assert (plan.cb[i], c) == (0, 3)
+            assert s <= 15 and (s - 1 <= 14 if kind.startswith("B")
+                                else s <= 14)
+        assert narrowest <= 15 - Ps._log2(Ps.SWEEP_KINDS[kind][2])
+
+
+def test_sweep_powers_on_the_device_equal_the_model():
+    """``ntt.sweep_powers`` (the wrapper's table, cached per device) is the
+    model's ``sweep_powers_of`` as uint32, 4 rows of min(n, 2^14): the
+    merged rows with entries 0 and 1 of the inverse freed of n^{-1}, the
+    pairing rows as they are."""
+    n, q = 4096, 40961
+    tbl = get_tables(_name(n, q))
+    for pairing, src in ((False, tbl.packed), (True, tbl.pairing_packed)):
+        got = TN.sweep_powers(tbl, pairing, torch.device("cpu"))
+        want = Ps.sweep_powers_of(torch.from_numpy(src.astype(np.int64)), q,
+                                  not pairing)
+        assert got.dtype == torch.uint32 and got.shape == (4, n)
+        assert torch.equal(got.to(torch.int64), want)
+        if not pairing:
+            assert want[2, 0] == 1 and want[2, 1] * int(src[2, 0]) % q == int(
+                src[2, 1])
+            assert torch.equal(want[:, 2:], torch.from_numpy(
+                src[:4, 2:].astype(np.int64)))
+
+
 def test_stockham_scratch_rows_hold_its_positions():
     """Stockham's first launch leaves in scratch a each operand's row after
     the forward's stages above the narrowest window, at its autosort's
@@ -325,6 +485,29 @@ def _jax(kind, name, x, y, spec, lazy):
     if kind == "B3":
         return JK.intt_fused_fn(name, interpret=True)(lazy)
     return polymul_pairing_fn(name, kind, interpret=True)(x, y)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_sweep_twins_match_jax_interpret_small(kind):
+    """Each kind's sweep twin under a forced three-window plan at n =
+    4096, q = 40961 (the factored twiddles on every stage), equals JAX's
+    interpret-mode kernel on a row of q - 1 and a random row (B3: 2q - 1
+    and B2's output; B4 against y's spectrum with q - 1 every fifth
+    value)."""
+    n, q = 4096, 40961
+    name = _name(n, q)
+    tbl = get_tables(name)
+    x, y, lazy = (v[:2] for v in _operands(n, q))
+    spec = F.ntt_plain(y[1], tbl)
+    spec[::5] = q - 1
+    plan = Ps.sweep_plan(n, kind, 3)
+    assert plan.windows == 3
+    if kind == "B3":
+        lazy = F.ntt_passes_plain(x, tbl, Ps.sweep_plan(n, "B2", 3))
+    got, _ = _twin(kind, tbl, x, y, lazy, spec, plan)
+    want = _jax(kind, name, x.numpy(), y.numpy(), spec.numpy(),
+                lazy.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.slow
