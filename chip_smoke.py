@@ -153,12 +153,13 @@ script exits non-zero without printing a result:
    (LARGE_ORACLE_ROWS), past a cluster's reach against 8 coefficients of
    rows 0 and -1 from the definition and the closed form of row 1; then
    B1-B4 and the pairings timed there (median of 40, 20 at 2^21 and 2^22,
-   10 at 2^25, none at 131072 and 2^19: PASS_TIMED; the plain version of
+   10 at 2^25 and 131072, none at 2^19: PASS_TIMED; the plain version of
    6, 2 past a cluster's reach) beside their bytes bound, the
    blocks of their rows' cluster or their launches a call and blocks a
    sweep, a sweep call also beside its sweep floor (passes.
    sweep_launch_bytes) and, at 2^18, 2^20, 2^22 and 2^25, the earlier
-   design's median (EARLIER_SWEEP_MS), B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
+   design's median (EARLIER_SWEEP_MS), a cluster call beside the earlier
+   cluster design's (EARLIER_CLUSTER_MS), B11, B12 and B16 at n = 32768, and B5-B9 at n = 8 and 16, B =
    32768 (median of 40, beside their bound).  Below 2^25 the "mxu" entry
    points run in the counted run too, in the split form:
    polymul_negacyclic "mxu" (against B1 and the oracle with the others),
@@ -509,10 +510,44 @@ EARLIER_SWEEP_MS = {
     ("polymul_pairing_ct_gs", 1 << 25): 30.2659,
     ("polymul_pairing_stockham", 1 << 25): 24.0514,
 }
+# the cluster form's earlier design (three whole cluster barriers a
+# crossing exchange, loads from the block that holds the index, Stockham's
+# autosort map), median ms of 40 calls at phase 3e's cluster rings (q30 at
+# 32768, B = 1024, and 65536, B = 512; 786433 at 131072, B = 256), 128 MiB
+# an operand, timed in turns with the redesign on one NVIDIA H100 80GB
+# HBM3 at 700 W (utils/ab_timing.py --clusters); B2 and B3 fill one block
+# at 32768
+EARLIER_CLUSTER_MS = {
+    ("polymul_fused", 1 << 15): 0.7024,
+    ("polymul_fixed_fused", 1 << 15): 0.4966,
+    ("polymul_pairing_gs_ct", 1 << 15): 0.9547,
+    ("polymul_pairing_ct_ct", 1 << 15): 1.4365,
+    ("polymul_pairing_gs_gs", 1 << 15): 1.7300,
+    ("polymul_pairing_ct_gs", 1 << 15): 1.7446,
+    ("polymul_pairing_stockham", 1 << 15): 2.4460,
+    ("polymul_fused", 1 << 16): 0.9137,
+    ("polymul_fixed_fused", 1 << 16): 0.6877,
+    ("ntt_fused", 1 << 16): 0.3367,
+    ("intt_fused", 1 << 16): 0.3380,
+    ("polymul_pairing_gs_ct", 1 << 16): 1.0939,
+    ("polymul_pairing_ct_ct", 1 << 16): 1.6585,
+    ("polymul_pairing_gs_gs", 1 << 16): 2.1907,
+    ("polymul_pairing_ct_gs", 1 << 16): 2.0704,
+    ("polymul_pairing_stockham", 1 << 16): 4.7655,
+    ("polymul_fused", 1 << 17): 1.0804,
+    ("polymul_fixed_fused", 1 << 17): 0.7487,
+    ("ntt_fused", 1 << 17): 0.4156,
+    ("intt_fused", 1 << 17): 0.4189,
+    ("polymul_pairing_gs_ct", 1 << 17): 1.3952,
+    ("polymul_pairing_ct_ct", 1 << 17): 1.9221,
+    ("polymul_pairing_gs_gs", 1 << 17): 2.6921,
+    ("polymul_pairing_ct_gs", 1 << 17): 2.4836,
+    ("polymul_pairing_stockham", 1 << 17): 5.6168,
+}
 # the pass kernels' timed calls a turn at each of phase 3e's rings (20 at
-# the rings earlier runs timed, 10 at the sweep rings new to phase 3e; none
-# at 131072 and 2^19, where they stand as references alone)
-PASS_TIMED = {"sweep-n33554432": 5, "sp-n131072": 0, "split-n524288": 0,
+# the rings earlier runs timed, 10 at the sweep rings new to phase 3e and
+# at 131072; none at 2^19, where they stand as references alone)
+PASS_TIMED = {"sweep-n33554432": 5, "sp-n131072": 10, "split-n524288": 0,
               "sweep-n2097152": 10, "sweep-n4194304": 10}
 # phase 3e's coefficients from the definition, of rows 0 and -1
 DEFINITION_COEFFS = 8
@@ -2354,6 +2389,10 @@ def _large_ring(name: str, n: int, q: int, B: int, device_line: str,
             shape = (f"{plan.cluster} block(s) a row of "
                      f"{plan.threads // plan.cluster} threads, 1 launch "
                      f"a call")
+            if (kname, n) in EARLIER_CLUSTER_MS:
+                was = EARLIER_CLUSTER_MS[kname, n]
+                shape += (f"; the earlier cluster design {was:.4f} ms, "
+                          f"ratio {kmed / was:.4f}")
         print(f"3e timing {kname}: {name} B={B} kernel min {klo:.4f} ms "
               f"median {kmed:.4f} ms over {2 * timed} calls, plain "
               f"median {pmed:.4f} ms over {2 if sweeping else 6}; bound "

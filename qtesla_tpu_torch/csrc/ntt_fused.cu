@@ -103,9 +103,10 @@ using qt::Mod;
 using qt::mulmod_barrett;
 using qt::shoup_lazy;
 using qt::ilog2;
-using qt::PassKernel;
+using qt::PassKernels;
 using qt::PassOrder;
 using qt::PassPlan;
+using qt::PlanArg;
 using qt::two_pass_b;
 using qt::two_pass_hi;
 using qt::two_pass_lo;
@@ -209,7 +210,7 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256,
                         uint32_t* __restrict__ z,
                         const uint32_t* __restrict__ tw, long long batch,
                         int n_arg, int logn_arg, Mod m, uint32_t q2,
-                        PassPlan pl) {
+                        typename qt::PlanOf<kCluster>::type pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
     static_assert(NOPS == 1 || NOPS == 2, "x and y, or x alone");
     static_assert(!kCluster || (LOGN == 0 && P >= 3), "a cluster: P >= 3");
@@ -330,6 +331,7 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256,
                 csub(shoup_lazy(a + q2 - d, w1, w1_sh, q), q);
         }
     }
+    qt::cluster_drain<kCluster>(pl, 2 * P - 3);
 }
 
 // R = n for n <= 32 (one pass a transform), R = 32 with two passes (n <=
@@ -338,25 +340,27 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256,
 // leave is the one two_pass_* restate; in a cluster R = 32 in three passes
 // (n = 32768) or four (n = 65536, 131072).
 template <int NOPS>
-PassKernel polymul_pass_kernel_for(int radix, int passes, int logn,
-                                   int cluster) {
+PassKernels polymul_pass_kernel_for(int radix, int passes, int logn,
+                                    int cluster) {
     if (cluster > 1) {
-        if (radix != 32) return nullptr;
-        if (passes == 3) return polymul_pass_kernel<32, 3, 0, NOPS, true>;
-        if (passes == 4) return polymul_pass_kernel<32, 4, 0, NOPS, true>;
-        return nullptr;
+        if (radix != 32) return {};
+        if (passes == 3)
+            return {nullptr, polymul_pass_kernel<32, 3, 0, NOPS, true>};
+        if (passes == 4)
+            return {nullptr, polymul_pass_kernel<32, 4, 0, NOPS, true>};
+        return {};
     }
     if (radix == 32 && passes == 2 && logn == 10)
-        return polymul_pass_kernel<32, 2, 10, NOPS, false>;
+        return {polymul_pass_kernel<32, 2, 10, NOPS, false>};
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return polymul_pass_kernel<2, 1, 0, NOPS, false>;
-        case 4 * 4 + 1: return polymul_pass_kernel<4, 1, 0, NOPS, false>;
-        case 8 * 4 + 1: return polymul_pass_kernel<8, 1, 0, NOPS, false>;
-        case 16 * 4 + 1: return polymul_pass_kernel<16, 1, 0, NOPS, false>;
-        case 32 * 4 + 1: return polymul_pass_kernel<32, 1, 0, NOPS, false>;
-        case 32 * 4 + 2: return polymul_pass_kernel<32, 2, 0, NOPS, false>;
-        case 32 * 4 + 3: return polymul_pass_kernel<32, 3, 0, NOPS, false>;
-        default: return nullptr;
+        case 2 * 4 + 1: return {polymul_pass_kernel<2, 1, 0, NOPS, false>};
+        case 4 * 4 + 1: return {polymul_pass_kernel<4, 1, 0, NOPS, false>};
+        case 8 * 4 + 1: return {polymul_pass_kernel<8, 1, 0, NOPS, false>};
+        case 16 * 4 + 1: return {polymul_pass_kernel<16, 1, 0, NOPS, false>};
+        case 32 * 4 + 1: return {polymul_pass_kernel<32, 1, 0, NOPS, false>};
+        case 32 * 4 + 2: return {polymul_pass_kernel<32, 2, 0, NOPS, false>};
+        case 32 * 4 + 3: return {polymul_pass_kernel<32, 3, 0, NOPS, false>};
+        default: return {};
     }
 }
 
@@ -368,7 +372,7 @@ int launch_polymul_passes(const void* a, const void* b, void* out,
                           uint32_t q, uint32_t r32, uint32_t r32_sh,
                           uint32_t one_sh, const void* plan, void* stream) {
     if (!plan) return cudaErrorInvalidValue;
-    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    const PlanArg pl = *static_cast<const PlanArg*>(plan);
     return qt::launch_pass_kernel(
         polymul_pass_kernel_for<NOPS>(pl.radix, pl.passes, logn, pl.cluster),
         pl,
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(P >= 3 ? 1024 : 256,
                           uint32_t* __restrict__ z,
                           const uint32_t* __restrict__ tw, long long batch,
                           int n_arg, int logn_arg, Mod m, uint32_t q2,
-                          PassPlan pl) {
+                          typename qt::PlanOf<kCluster>::type pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
     static_assert(!kCluster || (LOGN == 0 && P >= 3), "a cluster: P >= 3");
     constexpr int r = ilog2(R);
@@ -475,6 +479,7 @@ __global__ void __launch_bounds__(P >= 3 ? 1024 : 256,
         qt::row_exchange<kCluster, kConst, R, 1>(v, buf, stride, b, t, tb, t,
                                                  warp_rows, pl, P - 1,
                                                  at.lbits);
+    qt::cluster_drain<kCluster>(pl, P - 1);
     if (!live) return;
     if constexpr (FWD) {
         // [tb, L): neighbouring columns, neighbouring threads; canonical
@@ -501,23 +506,24 @@ __global__ void __launch_bounds__(P >= 3 ? 1024 : 256,
 // passes (n <= 1024) or three (n <= 32768), and R = 32 in two passes built
 // for n = 1024; in a cluster R = 32 in four passes (n = 65536 to 262144).
 template <bool FWD>
-PassKernel transform_pass_kernel_for(int radix, int passes, int logn,
-                                     int cluster) {
+PassKernels transform_pass_kernel_for(int radix, int passes, int logn,
+                                      int cluster) {
     if (cluster > 1)
         return radix == 32 && passes == 4
-                   ? transform_pass_kernel<FWD, 32, 4, 0, true>
-                   : nullptr;
+                   ? PassKernels{nullptr,
+                                 transform_pass_kernel<FWD, 32, 4, 0, true>}
+                   : PassKernels{};
     if (radix == 32 && passes == 2 && logn == 10)
-        return transform_pass_kernel<FWD, 32, 2, 10, false>;
+        return {transform_pass_kernel<FWD, 32, 2, 10, false>};
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return transform_pass_kernel<FWD, 2, 1, 0, false>;
-        case 4 * 4 + 1: return transform_pass_kernel<FWD, 4, 1, 0, false>;
-        case 8 * 4 + 1: return transform_pass_kernel<FWD, 8, 1, 0, false>;
-        case 16 * 4 + 1: return transform_pass_kernel<FWD, 16, 1, 0, false>;
-        case 32 * 4 + 1: return transform_pass_kernel<FWD, 32, 1, 0, false>;
-        case 32 * 4 + 2: return transform_pass_kernel<FWD, 32, 2, 0, false>;
-        case 32 * 4 + 3: return transform_pass_kernel<FWD, 32, 3, 0, false>;
-        default: return nullptr;
+        case 2 * 4 + 1: return {transform_pass_kernel<FWD, 2, 1, 0, false>};
+        case 4 * 4 + 1: return {transform_pass_kernel<FWD, 4, 1, 0, false>};
+        case 8 * 4 + 1: return {transform_pass_kernel<FWD, 8, 1, 0, false>};
+        case 16 * 4 + 1: return {transform_pass_kernel<FWD, 16, 1, 0, false>};
+        case 32 * 4 + 1: return {transform_pass_kernel<FWD, 32, 1, 0, false>};
+        case 32 * 4 + 2: return {transform_pass_kernel<FWD, 32, 2, 0, false>};
+        case 32 * 4 + 3: return {transform_pass_kernel<FWD, 32, 3, 0, false>};
+        default: return {};
     }
 }
 
@@ -551,7 +557,7 @@ extern "C" int qt_intt_fused(const void* a, const void* b, void* out,
                              uint32_t q, uint32_t r32, uint32_t r32_sh,
                              uint32_t one_sh, const void* plan, void* stream) {
     if (!plan) return cudaErrorInvalidValue;
-    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    const PlanArg pl = *static_cast<const PlanArg*>(plan);
     const PassOrder order{false, true, false, false, 1, false, true};
     return qt::launch_pass_kernel(
         transform_pass_kernel_for<false>(pl.radix, pl.passes, logn,
@@ -567,7 +573,7 @@ extern "C" int qt_ntt_fused(const void* a, const void* b, void* out,
                             uint32_t q, uint32_t r32, uint32_t r32_sh,
                             uint32_t one_sh, const void* plan, void* stream) {
     if (!plan) return cudaErrorInvalidValue;
-    const PassPlan pl = *static_cast<const PassPlan*>(plan);
+    const PlanArg pl = *static_cast<const PlanArg*>(plan);
     const PassOrder order{false, false, false, false, 1, true, false};
     return qt::launch_pass_kernel(
         transform_pass_kernel_for<true>(pl.radix, pl.passes, logn,

@@ -80,8 +80,8 @@
 
 namespace {
 
-using qt::PassKernel;
-using qt::PassPlan;
+using qt::PassKernels;
+using qt::PlanArg;
 using qt::pairing::kDif;
 using qt::pairing::kDit;
 using qt::pairing::kStk;
@@ -94,22 +94,23 @@ using qt::pairing::pass_kernel;
 // two_pass_* restate; in a cluster R = 32 in three passes (n = 32768) or
 // four (n = 65536, 131072).
 template <int FWD, int INV>
-PassKernel pass_kernel_for(int radix, int passes, int logn, int cluster) {
+PassKernels pass_kernel_for(int radix, int passes, int logn, int cluster) {
     if (cluster > 1)
-        return radix == 32
-                   ? qt::pairing::cluster_pass_kernel<FWD, INV>(passes)
-                   : nullptr;
+        return {nullptr,
+                radix == 32
+                    ? qt::pairing::cluster_pass_kernel<FWD, INV>(passes)
+                    : nullptr};
     if (radix == 32 && passes == 2 && logn == 10)
-        return pass_kernel<FWD, INV, 32, 2, 10, false>;
+        return {pass_kernel<FWD, INV, 32, 2, 10, false>};
     switch (radix * 4 + passes) {
-        case 2 * 4 + 1: return pass_kernel<FWD, INV, 2, 1, 0, false>;
-        case 4 * 4 + 1: return pass_kernel<FWD, INV, 4, 1, 0, false>;
-        case 8 * 4 + 1: return pass_kernel<FWD, INV, 8, 1, 0, false>;
-        case 16 * 4 + 1: return pass_kernel<FWD, INV, 16, 1, 0, false>;
-        case 32 * 4 + 1: return pass_kernel<FWD, INV, 32, 1, 0, false>;
-        case 32 * 4 + 2: return pass_kernel<FWD, INV, 32, 2, 0, false>;
-        case 32 * 4 + 3: return pass_kernel<FWD, INV, 32, 3, 0, false>;
-        default: return nullptr;
+        case 2 * 4 + 1: return {pass_kernel<FWD, INV, 2, 1, 0, false>};
+        case 4 * 4 + 1: return {pass_kernel<FWD, INV, 4, 1, 0, false>};
+        case 8 * 4 + 1: return {pass_kernel<FWD, INV, 8, 1, 0, false>};
+        case 16 * 4 + 1: return {pass_kernel<FWD, INV, 16, 1, 0, false>};
+        case 32 * 4 + 1: return {pass_kernel<FWD, INV, 32, 1, 0, false>};
+        case 32 * 4 + 2: return {pass_kernel<FWD, INV, 32, 2, 0, false>};
+        case 32 * 4 + 3: return {pass_kernel<FWD, INV, 32, 3, 0, false>};
+        default: return {};
     }
 }
 
@@ -123,9 +124,10 @@ int launch_passes(const void* a, const void* b, void* out, const void* tw,
                   uint32_t r32_sh, uint32_t one_sh, const void* plan,
                   void* stream) {
     if (!plan) return cudaErrorInvalidValue;
-    const PassPlan pl = *static_cast<const PassPlan*>(plan);
-    const qt::PassOrder order{FWD == kDit, INV == kDit,
-                              (FWD != kDit) != (INV == kDit), FWD == kStk};
+    const PlanArg pl = *static_cast<const PlanArg*>(plan);
+    qt::PassOrder order{FWD == kDit, INV == kDit,
+                        (FWD != kDit) != (INV == kDit), FWD == kStk};
+    order.maps = true;
     return qt::launch_pass_kernel(
         pass_kernel_for<FWD, INV>(pl.radix, pl.passes, logn, pl.cluster), pl,
         order, a,

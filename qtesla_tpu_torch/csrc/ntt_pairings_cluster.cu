@@ -11,17 +11,17 @@ namespace qt {
 namespace pairing {
 
 template <int FWD, int INV>
-PassKernel cluster_pass_kernel(int passes) {
+ClusterKernel cluster_pass_kernel(int passes) {
     if (passes == 3) return pass_kernel<FWD, INV, 32, 3, 0, true>;
     if (passes == 4) return pass_kernel<FWD, INV, 32, 4, 0, true>;
     return nullptr;
 }
 
-template PassKernel cluster_pass_kernel<kDif, kDit>(int);
-template PassKernel cluster_pass_kernel<kDit, kDit>(int);
-template PassKernel cluster_pass_kernel<kDif, kDif>(int);
-template PassKernel cluster_pass_kernel<kDit, kDif>(int);
-template PassKernel cluster_pass_kernel<kStk, kStk>(int);
+template ClusterKernel cluster_pass_kernel<kDif, kDit>(int);
+template ClusterKernel cluster_pass_kernel<kDit, kDit>(int);
+template ClusterKernel cluster_pass_kernel<kDif, kDif>(int);
+template ClusterKernel cluster_pass_kernel<kDit, kDif>(int);
+template ClusterKernel cluster_pass_kernel<kStk, kStk>(int);
 
 }  // namespace pairing
 }  // namespace qt

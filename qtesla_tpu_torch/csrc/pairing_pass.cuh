@@ -45,13 +45,15 @@ __device__ __forceinline__ int stk_thread(int t, int st, int tb) {
 // known at compile time, so every index offset of a thread is a constant.
 // Two passes: 128 registers at most, so 16 warps (16 rows at n = 1024) fit
 // an SM.  kCluster: a row spans the blocks of a cluster (n >= 32768,
-// pass_stages.cuh), 512 threads a block.
+// pass_stages.cuh; its plan ClusterPlan: a thread's virtual thread after
+// an exchange is the plan's map of it, cluster_thread), 512 threads a
+// block.
 template <int FWD, int INV, int R, int P, int LOGN, bool kCluster>
 __global__ void __launch_bounds__(P >= 3 ? 512 : 256, P == 2 ? 2 : 1)
     pass_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                 uint32_t* __restrict__ z, const uint32_t* __restrict__ tw,
                 long long batch, int n_arg, int logn_arg, Mod m, uint32_t q2,
-                PassPlan pl) {
+                typename qt::PlanOf<kCluster>::type pl) {
     static_assert(LOGN == 0 || P == 2, "one length: two passes");
     static_assert((FWD == kStk) == (INV == kStk), "Stockham both ways");
     constexpr int r = ilog2(R);
@@ -118,7 +120,8 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256, P == 2 ? 2 : 1)
         const int p_hi = hi(kFwdCt, pl.fwd_hi[p], p);
         if (p > 0) {
             const int b2 = win(kFwdCt, pl.fwd_b[p], p);
-            const int t2 = next_thread(p_hi);
+            const int t2 =
+                qt::cluster_thread<kCluster>(pl, p - 1, t, next_thread(p_hi));
             qt::row_exchange<kCluster, kConst, R, 2>(v, buf, stride, b, vt,
                                                      b2, t2, warp_rows, pl,
                                                      p - 1, at.lbits);
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256, P == 2 ? 2 : 1)
         const int p_hi = hi(kInvCt, pl.inv_hi[p], p);
         if (p > 0) {
             const int b2 = win(kInvCt, pl.inv_b[p], p);
-            const int t2 = next_thread(p_hi);
+            const int t2 = qt::cluster_thread<kCluster>(pl, P + p - 2, t,
+                                                        next_thread(p_hi));
             qt::row_exchange<kCluster, kConst, R, 1>(u, buf, stride, b, vt,
                                                      b2, t2, warp_rows, pl,
                                                      P + p - 2, at.lbits);
@@ -163,13 +167,14 @@ __global__ void __launch_bounds__(P >= 3 ? 512 : 256, P == 2 ? 2 : 1)
                               q);
         }
     }
+    qt::cluster_drain<kCluster>(pl, 2 * P - 3);
 }
 
 // The cluster forms' kernel for R = 32 in `passes` passes (3: n = 32768; 4:
 // n = 65536, 131072), null for any other; defined and instantiated for the
 // five pairings in ntt_pairings_cluster.cu.
 template <int FWD, int INV>
-PassKernel cluster_pass_kernel(int passes);
+ClusterKernel cluster_pass_kernel(int passes);
 
 }  // namespace pairing
 }  // namespace qt

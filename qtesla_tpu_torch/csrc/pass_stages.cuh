@@ -25,23 +25,38 @@
 // = T / most blocks on C SMs (most: 512 threads a block with both
 // transforms, 1024 with one; C <= 8, the portable cluster).  Thread t of
 // the row is thread t mod (T / C) of block t / (T / C) of its cluster, one
-// row a cluster, and block k holds indices [k m, (k + 1) m), m = n / C,
-// of each operand in its shared memory at i mod m, padded.  Every pass,
-// twiddle read, load and store is the block form's on the row's thread t.
-// An exchange between two windows that keep the block's bits of t in the
-// top bits of the index (b <= L - r - log2 C, no bit-reversal renaming,
-// not Stockham's map) stays in the block, as before; the others
-// (the plan's cross mask, see cross_mask) store each value into the
-// shared memory of the block that holds its index and load from there
-// (distributed shared memory: cooperative_groups' map_shared_rank), the
-// block's __syncthreads() replaced by cluster barriers
-// (barrier.cluster.arrive.release / wait.acquire).  The kernel stays one
-// launch, through cudaLaunchKernelEx with a cluster dimension.  What
-// bounds it on an H100: the exchanges across blocks (three cluster
-// barriers each, one block an SM at 135 KB of shared memory, remote stores
-// and loads), not device memory: B1 took 0.70 ms at n = 32768, B = 1024
-// (5.8x its bytes bound; 1.88x at n = 1024), Stockham, all of whose
-// exchanges cross, 2.46 ms (PERF.md, section 5).
+// row a cluster.  Every pass, twiddle read, load and store is the block
+// form's on the row's thread t, whose virtual thread in a cluster is t
+// (the own map), brev(t) (reflected) or its swapped map (the block bits
+// reversed into the low bits; map_thread): the plan's refl and swap bits,
+// the pairings', chosen by ops/passes.py thread_maps so that two
+// exchanges cross blocks, the store reads neighbours and twiddle reads
+// scatter least (Stockham's autosort map is the block form's alone).  An
+// exchange whose block bits (thread bits tb - c .. tb - 1) hold the same
+// index bits on both sides stays in the block (the plan's cross mask, see
+// cross_mask): between own windows it is the block form's on the block's
+// m = n / C indices.  Any other lays its buffer out for the threads of one
+// side (layout_word: register c of the block's thread l at l + c 2^lb, or
+// at 32 l + c, swizzled so that both sides meet distinct banks), the side
+// and layout chosen (ops/passes.py exchange_layouts: the plan's pull and
+// low bits) so that the side that reaches other blocks touches whole runs
+// of distributed shared memory: a push stores each value once into the
+// block of its reader at the reader's word (word_of, the register's part
+// from the launcher's table, ExchangeWords) and the readers load their
+// own block's; a pull stores in the writers' own blocks and the readers
+// load from there (mapa, st / ld.shared::cluster).  A crossing push
+// waits, before its stores, at a cluster barrier whose arrive followed the
+// last read of every block's buffer (the pass between overlaps it), then
+// at a whole one after them (barrier.cluster.arrive.release /
+// wait.acquire); a pull's readers arrive after their loads, and the next
+// exchange or the kernel's end waits.  The kernel stays one
+// launch, through cudaLaunchKernelEx with a cluster dimension.  The
+// earlier design (three whole cluster barriers a crossing exchange, each
+// value stored into the block that holds its index and loaded back from
+// there, Stockham under its autosort map and the DIF inverses storing
+// from brev(t)) took 0.68-5.64 ms at n = 32768-131072, 128 MiB an
+// operand, its crossing exchanges 0.23-4.67 ms of that and the DIF
+// inverses' scattered stores 0.7-0.9 ms (PERF.md).
 //
 // Arithmetic.  q < 2^30.  GS (Gentleman-Sande) butterflies keep values in
 // [0, 2q); CT (Cooley-Tukey) butterflies take and give values below 4q.
@@ -69,10 +84,55 @@ constexpr int kMaxCluster = 8;
 // memory a row (both operands, padded), or a block of a cluster; 0 when P
 // = 1.  cluster: blocks a row (1: rows rows a block); cross: bit e set when
 // the kernel's e-th exchange goes between the cluster's blocks.
+// The block form's kernels take this plan.
 struct PassPlan {
     int radix, threads, rows, passes, row_stride, cluster, cross;
     int fwd_lo[kMaxPasses], fwd_hi[kMaxPasses], fwd_b[kMaxPasses];
     int inv_lo[kMaxPasses], inv_hi[kMaxPasses], inv_b[kMaxPasses];
+};
+
+// The plan the launchers take (ops/passes.py PassPlan): refl, swap: bit e
+// set when after the e-th exchange thread t holds the reflected or the
+// swapped map (map_thread; a pairing's cluster plan, 0 otherwise); pull,
+// low: how a cluster's exchange that does not stay between own windows in
+// a block lays out its buffer (push_exchange, pull_exchange; 0 in a block
+// plan).
+struct PlanArg : PassPlan {
+    int refl, pull, low, swap;
+};
+
+// a cluster's virtual thread maps: t, brev(t), or the swapped map
+constexpr int kOwn = 0, kRefl = 1, kSwap = 2;
+
+// the most exchanges a kernel runs: 2 (P - 1) with both transforms
+constexpr int kMaxExchanges = 2 * (kMaxPasses - 1);
+
+// A cluster kernel's buffer words, made by the launcher from its plan
+// (cluster_plan): reach[e][c] the block << 20 | word of register c's
+// window bits of exchange e's side that reaches the other's layout (a
+// push: the writers' registers into the readers' layout; a pull: the
+// readers' into the writers'), own[low][c] the word of a block's thread
+// 0's register c in its own side's layout (layout_word); a thread's word
+// is its register 0's xor these.
+struct ExchangeWords {
+    int reach[kMaxExchanges][32];
+    int own[2][32];
+};
+
+// The cluster form's kernels take this plan: the launchers' plus, made by
+// the launcher, the map each exchange's writers hold and the words.
+struct ClusterPlan : PlanArg {
+    int from_map[kMaxExchanges];
+    ExchangeWords xw;
+};
+
+template <bool kCluster>
+struct PlanOf {
+    using type = PassPlan;
+};
+template <>
+struct PlanOf<true> {
+    using type = ClusterPlan;
 };
 
 __host__ __device__ constexpr int ilog2(int v) {
@@ -241,55 +301,180 @@ __device__ __forceinline__ void exchange(uint32_t (&v)[NOPS][R],
     row_sync(warp_rows);
 }
 
-// From the window [b, b + r) of virtual thread vt to the window [b2, b2 + r)
-// of virtual thread t, across the blocks of the row's cluster: index i in
-// the shared memory of block i >> lbits at padded(i mod 2^lbits) (operand o
-// at o * stride), stored and loaded there through distributed shared
-// memory.  The first barrier keeps a block from storing into a buffer
-// another block still reads from the exchange before (and waits for every
-// block of the cluster to run), the second makes the stores seen, the third
-// keeps a block from storing again, or exiting, while another still loads
-// from it.
+// The cluster barrier, split: arrive (releasing this thread's shared
+// memory accesses so far) and wait (acquiring every arrived thread's).
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__host__ __device__ __forceinline__ int brev_fast(int v, int bits) {
+#ifdef __CUDA_ARCH__
+    return bits == 0 ? 0
+                     : static_cast<int>(__brev(static_cast<unsigned>(v)) >>
+                                        (32 - bits));
+#else
+    int out = 0;
+    for (int k = 0; k < bits; ++k) out |= ((v >> k) & 1) << (bits - 1 - k);
+    return out;
+#endif
+}
+
+// Thread t's virtual thread in a cluster's row of 2^tb threads over 2^c
+// blocks (lb = tb - c thread bits a block) under map m: t (own), brev(t)
+// (reflected), or the swapped map, the block bits reversed into the
+// lowest c bits below the block's own thread bits: ((t mod 2^lb) << c) |
+// brev_c(t >> lb).  ops/passes.py map_thread.
+__device__ __forceinline__ int map_thread(int t, int m, int tb, int lb) {
+    if (m == kRefl) return brev_fast(t, tb);
+    if (m == kSwap)
+        return ((t & ((1 << lb) - 1)) << (tb - lb)) |
+               brev_fast(t >> lb, tb - lb);
+    return t;
+}
+
+// An exchange's buffer word a with its low five bits xored with every
+// five bits above them (ops/passes.py swizzle): 32 lanes whose bits of a
+// fall on five bit positions distinct mod 5 meet 32 banks.
+__host__ __device__ __forceinline__ int swizzle(int a) {
+    return a ^ ((a >> 5) & 31) ^ ((a >> 10) & 31) ^ ((a >> 15) & 31);
+}
+
+// The word of register reg of the block's thread l in the buffer of an
+// exchange laid out for its side: l + reg 2^lb, or (low) 32 l + reg,
+// swizzled (ops/passes.py layout_word).
+__host__ __device__ __forceinline__ int layout_word(int l, int reg, int lb,
+                                                    bool low) {
+    return swizzle(low ? (l << 5) | reg : l | (reg << lb));
+}
+
+// Where index i lies in an exchange's buffer laid out for the side whose
+// threads hold the window [b, b + r) under map m: the holder's block <<
+// 20 | its word (layout_word).  Each step maps bits of i to bits and the
+// swizzle xors them, so the result of an index is the xor of its bits'.
+__host__ __device__ __forceinline__ int word_of(int i, int b, int m, int tb,
+                                                int lb, int r, bool low) {
+    const int vt = (i & ((1 << b) - 1)) | ((i >> (b + r)) << b);
+    const int reg = (i >> b) & ((1 << r) - 1);
+    int t = vt;
+    if (m == kRefl) {
+        t = brev_fast(vt, tb);
+    } else if (m == kSwap) {
+        const int c = tb - lb;
+        t = (brev_fast(vt & ((1 << c) - 1), c) << lb) | (vt >> c);
+    }
+    return ((t >> lb) << 20) | layout_word(t & ((1 << lb) - 1), reg, lb, low);
+}
+
+// From the window [b, b + r) of virtual thread vt to the window [b2, b2 +
+// r) of a cluster's row under map m2, laid out for the readers: each value
+// stored once into the block of its reader at the reader's word
+// (word_of, its register's part from the launcher's table; through
+// distributed shared memory where the exchange crosses blocks), then,
+// behind the cluster barrier or the block's, each thread loads its
+// registers from its own block.
 template <int R, int NOPS>
-__device__ __forceinline__ void cluster_exchange(uint32_t (&v)[NOPS][R],
-                                                 uint32_t* buf, int stride,
-                                                 int b, int vt, int b2, int t,
-                                                 int lbits) {
-    namespace cg = cooperative_groups;
+__device__ __forceinline__ void push_exchange(uint32_t (&v)[NOPS][R],
+                                              uint32_t* buf, int stride,
+                                              int b, int vt, int b2, int m2,
+                                              bool cross, bool low, int tb,
+                                              int lb, const ExchangeWords& xw,
+                                              int e) {
     constexpr int r = ilog2(R);
-    const cg::cluster_group cl = cg::this_cluster();
-    const int mask = (1 << lbits) - 1;
-    const int from = window_base(vt, b, r), to = window_base(t, b2, r);
-    cl.sync();
+    const int at0 = word_of(window_base(vt, b, r), b2, m2, tb, lb, r, low);
+    const uint32_t base =
+        static_cast<uint32_t>(__cvta_generic_to_shared(buf));
 #pragma unroll
     for (int c = 0; c < R; ++c) {
-        const int i = from + (c << b);
-        uint32_t* dst = cl.map_shared_rank(buf, i >> lbits) + padded(i & mask);
+        const int at = at0 ^ xw.reach[e][c];
+        const int word = at & ((1 << 20) - 1);
+        if (cross) {
+            uint32_t ra;
+            asm("mapa.shared::cluster.u32 %0, %1, %2;"
+                : "=r"(ra)
+                : "r"(base + 4u * static_cast<uint32_t>(word)),
+                  "r"(at >> 20));
 #pragma unroll
-        for (int o = 0; o < NOPS; ++o) dst[o * stride] = v[o][c];
+            for (int o = 0; o < NOPS; ++o)
+                asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(
+                                 ra + 4u * static_cast<uint32_t>(o * stride)),
+                             "r"(v[o][c])
+                             : "memory");
+        } else {
+#pragma unroll
+            for (int o = 0; o < NOPS; ++o) buf[o * stride + word] = v[o][c];
+        }
     }
-    cl.sync();
+    if (cross) {
+        cluster_arrive();
+        cluster_wait();
+    } else {
+        __syncthreads();
+    }
+    const int w0 = layout_word(static_cast<int>(threadIdx.x), 0, lb, low);
 #pragma unroll
     for (int c = 0; c < R; ++c) {
-        const int i = to + (c << b2);
-        const uint32_t* src =
-            cl.map_shared_rank(buf, i >> lbits) + padded(i & mask);
+        const int w = w0 ^ (low ? xw.own[1][c] : xw.own[0][c]);
 #pragma unroll
-        for (int o = 0; o < NOPS; ++o) v[o][c] = src[o * stride];
+        for (int o = 0; o < NOPS; ++o) v[o][c] = buf[o * stride + w];
     }
-    cl.sync();
+}
+
+// The same exchange laid out for the writers, across the cluster's blocks:
+// each thread stores its registers in its own block at its own words,
+// then, behind the cluster barrier, each reader loads its values from the
+// blocks of their writers (the window [b, b + r) under map m, word_of).
+template <int R, int NOPS>
+__device__ __forceinline__ void pull_exchange(uint32_t (&v)[NOPS][R],
+                                              uint32_t* buf, int stride,
+                                              int b, int m, int b2, int vt2,
+                                              bool low, int tb, int lb,
+                                              const ExchangeWords& xw,
+                                              int e) {
+    constexpr int r = ilog2(R);
+    const int w0 = layout_word(static_cast<int>(threadIdx.x), 0, lb, low);
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int w = w0 ^ (low ? xw.own[1][c] : xw.own[0][c]);
+#pragma unroll
+        for (int o = 0; o < NOPS; ++o) buf[o * stride + w] = v[o][c];
+    }
+    cluster_arrive();
+    cluster_wait();
+    const int at0 = word_of(window_base(vt2, b2, r), b, m, tb, lb, r, low);
+    const uint32_t base =
+        static_cast<uint32_t>(__cvta_generic_to_shared(buf));
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int at = at0 ^ xw.reach[e][c];
+        uint32_t ra;
+        asm("mapa.shared::cluster.u32 %0, %1, %2;"
+            : "=r"(ra)
+            : "r"(base + 4u * static_cast<uint32_t>(at & ((1 << 20) - 1))),
+              "r"(at >> 20));
+#pragma unroll
+        for (int o = 0; o < NOPS; ++o)
+            asm volatile("ld.shared::cluster.u32 %0, [%1];"
+                         : "=r"(v[o][c])
+                         : "r"(ra + 4u * static_cast<uint32_t>(o * stride))
+                         : "memory");
+    }
 }
 
 // The row's thread and its place in a block: kCluster false, rows of T =
 // 2^tb threads side by side in a block (slot the row's place); true, one
 // row a cluster, thread t of the row the thread of its block's rank
-// (lbits: log2 of the indices a block holds, m).
+// (lbits: log2 of the indices a block holds, m).  A cluster's row arrives
+// at the barrier its first exchange waits on when that one pushes across
+// blocks.
 template <bool kCluster>
 struct RowPlace {
     int t, slot, rank, lbits;
     long long row;
-    __device__ __forceinline__ RowPlace(const PassPlan& pl, int tb,
-                                        int logn) {
+    template <typename Plan>
+    __device__ __forceinline__ RowPlace(const Plan& pl, int tb, int logn) {
         if constexpr (kCluster) {
             rank = static_cast<int>(
                 cooperative_groups::this_cluster().block_rank());
@@ -297,6 +482,7 @@ struct RowPlace {
             slot = 0;
             row = blockIdx.x / pl.cluster;
             lbits = logn - (31 - __clz(pl.cluster));
+            if ((pl.cross & ~pl.pull) & 1) cluster_arrive();
         } else {
             t = threadIdx.x & ((1 << tb) - 1);
             slot = threadIdx.x >> tb;
@@ -307,27 +493,76 @@ struct RowPlace {
     }
 };
 
-// Exchange e of a kernel: the block form's exchange, or in a cluster the
-// cross-block one where the plan's cross mask has bit e, else the block
-// form's on the block's own indices (thread t of the row is thread
-// threadIdx.x of the block's m indices: the window keeps the block's bits
-// in the index's top bits and the thread holds its own virtual thread).
-template <bool kCluster, bool kConst, int R, int NOPS>
+// The map exchange e of a cluster's plan hands thread t.
+__device__ __forceinline__ int exchange_map(const ClusterPlan& pl, int e) {
+    return (pl.refl >> e) & 1 ? kRefl : (pl.swap >> e) & 1 ? kSwap : kOwn;
+}
+
+// The virtual thread that thread t of a row takes at exchange e: in a
+// cluster the plan's map of t (tb = log2 of the row's threads), in a
+// block the kernel's own choice, `block`.
+template <bool kCluster, typename Plan>
+__device__ __forceinline__ int cluster_thread(const Plan& pl, int e, int t,
+                                              int block) {
+    if constexpr (kCluster) {
+        const int tb = 31 - __clz(pl.threads);
+        return map_thread(t, exchange_map(pl, e), tb,
+                          tb - (31 - __clz(pl.cluster)));
+    } else {
+        return block;
+    }
+}
+
+// Exchange e of a kernel, from the window [b, b + r) of virtual thread vt
+// to [b2, b2 + r) of virtual thread t: the block form's exchange; in a
+// cluster (lbits: log2 of a block's indices) the block form's on the
+// block's own indices where it stays in the block and goes to the own map
+// (thread t of the row is thread threadIdx.x of the block's m indices:
+// both windows keep the block's bits on top), else push_exchange
+// (pull_exchange where the plan pulls it) into the map of plan bit e,
+// across the blocks where cross bit e is set.  The cluster barrier a push
+// across blocks waits on before its stores follows the last reads of
+// every block's buffer before it (or the kernel's start), as does the one
+// after a pull, which the next exchange, or the kernel's end
+// (cluster_drain), waits on before anyone stores into the buffer or exits.
+template <bool kCluster, bool kConst, int R, int NOPS, typename Plan>
 __device__ __forceinline__ void row_exchange(uint32_t (&v)[NOPS][R],
                                              uint32_t* buf, int stride,
                                              int b, int vt, int b2, int t,
-                                             bool warp_rows,
-                                             const PassPlan& pl, int e,
-                                             int lbits) {
+                                             bool warp_rows, const Plan& pl,
+                                             int e, int lbits) {
     if constexpr (kCluster) {
-        if ((pl.cross >> e) & 1)
-            cluster_exchange<R, NOPS>(v, buf, stride, b, vt, b2, t, lbits);
-        else
+        const int lb = lbits - ilog2(R);
+        const int tb = lb + (31 - __clz(pl.cluster));
+        const bool cross = (pl.cross >> e) & 1, pull = (pl.pull >> e) & 1;
+        const bool low = (pl.low >> e) & 1;
+        const int m2 = exchange_map(pl, e);
+        if ((cross && !pull) || (e > 0 && ((pl.pull >> (e - 1)) & 1)))
+            cluster_wait();
+        if (!cross && m2 == kOwn)
             exchange<false, R, NOPS>(v, buf, stride, b, threadIdx.x, b2,
                                      threadIdx.x, false);
+        else if (pull)
+            pull_exchange<R, NOPS>(v, buf, stride, b, pl.from_map[e], b2, t,
+                                   low, tb, lb, pl.xw, e);
+        else
+            push_exchange<R, NOPS>(v, buf, stride, b, vt, b2, m2, cross, low,
+                                   tb, lb, pl.xw, e);
+        if ((((pl.cross & ~pl.pull) >> (e + 1)) & 1) || pull)
+            cluster_arrive();
+        else if (cross || m2 != kOwn)
+            __syncthreads();
     } else {
         exchange<kConst, R, NOPS>(v, buf, stride, b, vt, b2, t, warp_rows);
     }
+}
+
+// A cluster's row after its last exchange e: where that one pulled, other
+// blocks may still read this block's buffer; wait for them before exit.
+template <bool kCluster, typename Plan>
+__device__ __forceinline__ void cluster_drain(const Plan& pl, int e) {
+    if constexpr (kCluster)
+        if ((pl.pull >> e) & 1) cluster_wait();
 }
 
 // One transform's passes cover [0, logn) in their order (up: from the
@@ -349,6 +584,14 @@ inline bool schedule_ok(const int* lo, const int* hi, const int* b,
 using PassKernel = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
                             const uint32_t*, long long, int, int, Mod,
                             uint32_t, PassPlan);
+using ClusterKernel = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
+                               const uint32_t*, long long, int, int, Mod,
+                               uint32_t, ClusterPlan);
+// a plan's kernel: the block form's or the cluster form's (null: none)
+struct PassKernels {
+    PassKernel block = nullptr;
+    ClusterKernel cluster = nullptr;
+};
 
 // The order of a pass kernel's transforms: each from the narrowest stage
 // up or not, a bit reversal between them (reflect) or not, Stockham's
@@ -361,6 +604,8 @@ struct PassOrder {
     int operands = 2;
     bool forward = true;
     bool inverse = true;
+    // the kernel takes the plan's reflected maps (the pairings')
+    bool maps = false;
 };
 
 // The fields of one transform's passes all 0: a plan with no such passes.
@@ -370,38 +615,116 @@ inline bool no_passes(const int* lo, const int* hi, const int* b) {
     return true;
 }
 
-// Bit e set: the e-th exchange of a kernel of this order (B3's first one
-// into [0, r), the forward's between passes, B2's last one back to [tb, L),
-// the inverse's) goes between the blocks of the plan's cluster; 0 for a
-// plan of one block a row.  Thread t lies in block t >> (tb - c) (C = 2^c);
-// a window [b, b + r) with b <= tb - c keeps those bits of t in the top c
-// bits of its indices, where the blocks part the row, as long as the thread
-// holds its own virtual thread: not after a bit reversal's renaming, not
-// under Stockham's map.  ops/passes.py cross_mask makes the same bits.
-inline int cross_mask(const PassPlan& pl, PassOrder order, int logn) {
-    if (pl.cluster == 1) return 0;
-    const int tb = logn - ilog2(pl.radix), top = tb - ilog2(pl.cluster);
-    int mask = 0, e = 0, b = tb;
-    bool own = true;  // the load: window [tb, L), thread t
+// The virtual thread bit that thread bit j lands on under map m.
+inline int vbit(int j, int m, int tb, int c) {
+    if (m == kOwn) return j;
+    if (m == kRefl || j >= tb - c) return tb - 1 - j;
+    return j + c;
+}
+
+// The index bits thread bits tb - c .. tb - 1 (a cluster's block) hold on
+// the window [b, b + r) under map m, five bits each.
+inline long long block_bits(int b, int m, int tb, int r, int c) {
+    long long out = 0;
+    for (int j = tb - c; j < tb; ++j) {
+        const int v = vbit(j, m, tb, c);
+        out = out << 5 | (v < b ? v : v + r);
+    }
+    return out;
+}
+
+// The exchanges of a kernel of this order (B3's first one into [0, r),
+// the forward's between passes, B2's last one back to [tb, L), the
+// inverse's) under the plan's maps: f(e, b, m, b2, m2) for each, from the
+// window [b, b + r) under map m to [b2, b2 + r) under m2 (the load leaves
+// the own map on [tb, L), a bit reversal renames (b, own) to (tb - b,
+// reflected) and back, exchange e takes the map of the plan's refl and
+// swap bits e); the count, or -1 for two maps on one exchange or a bit
+// reversal of the swapped map.  ops/passes.py _walk.
+template <typename F>
+inline int walk_exchanges(const PlanArg& pl, PassOrder order, int logn,
+                          F f) {
+    const int tb = logn - ilog2(pl.radix);
+    int e = 0, b = tb, m = kOwn;
+    bool ok = (pl.refl & pl.swap) == 0;
     const auto exchange_to = [&](int b2) {
-        if (order.stk || !own || b > top || b2 > top) mask |= 1 << e;
+        const int m2 = (pl.refl >> e) & 1 ? kRefl
+                       : (pl.swap >> e) & 1 ? kSwap
+                                             : kOwn;
+        f(e, b, m, b2, m2);
         ++e;
         b = b2;
-        own = true;
+        m = m2;
+    };
+    const auto reverse = [&]() {
+        if (m == kSwap) ok = false;
+        b = tb - b;
+        m = m == kOwn ? kRefl : kOwn;
     };
     if (order.forward) {
-        if (order.fwd_up) b = 0, own = false;
+        if (order.fwd_up) reverse();
         for (int p = 1; p < pl.passes; ++p) exchange_to(pl.fwd_b[p]);
         if (!order.inverse)
             exchange_to(tb);
         else if (order.reflect)
-            b = tb - b, own = false;
+            reverse();
     } else {
         exchange_to(0);
     }
-    if (order.inverse)
+    if (order.inverse) {
         for (int p = 1; p < pl.passes; ++p) exchange_to(pl.inv_b[p]);
-    return mask;
+        if (!order.inv_up) reverse();
+    }
+    return ok ? e : -1;
+}
+
+// Bit e set: exchange e (walk_exchanges) goes between the blocks of the
+// plan's cluster, the block bits holding other index bits after it than
+// before (block_bits); 0 for a plan of one block a row; -1 for what
+// walk_exchanges refuses, maps or layout bits past the kernel's
+// exchanges, an exchange that stays in its block but goes to the own map
+// from another, or a pull that does not cross.  ops/passes.py cross_mask
+// makes the same bits.
+inline int cross_mask(const PlanArg& pl, PassOrder order, int logn) {
+    if (pl.cluster == 1) return 0;
+    const int r = ilog2(pl.radix), tb = logn - r, c = ilog2(pl.cluster);
+    int mask = 0;
+    bool ok = true;
+    const int count = walk_exchanges(
+        pl, order, logn, [&](int e, int b, int m, int b2, int m2) {
+            if (block_bits(b, m, tb, r, c) != block_bits(b2, m2, tb, r, c))
+                mask |= 1 << e;
+            else if (m2 == kOwn && m != kOwn)
+                ok = false;
+        });
+    const int bits = pl.refl | pl.swap | pl.pull | pl.low;
+    return ok && count >= 0 && (bits >> count) == 0 && (pl.pull & ~mask) == 0
+               ? mask
+               : -1;
+}
+
+// The cluster kernels' plan of a launchers' plan: the map each
+// exchange's writers hold, and the words (ExchangeWords): for each
+// exchange that does not stay in a block between own maps, the reaching
+// side's register parts (word_of of the register's window bits alone),
+// and each layout's own words.
+inline ClusterPlan cluster_plan(const PlanArg& pl, PassOrder order,
+                                int logn) {
+    ClusterPlan cp = {};
+    static_cast<PlanArg&>(cp) = pl;
+    const int r = ilog2(pl.radix), tb = logn - r;
+    const int lb = tb - ilog2(pl.cluster);
+    for (int low = 0; low < 2; ++low)
+        for (int c = 0; c < pl.radix; ++c)
+            cp.xw.own[low][c] = layout_word(0, c, lb, low);
+    walk_exchanges(pl, order, logn, [&](int e, int b, int m, int b2, int m2) {
+        const bool pull = (pl.pull >> e) & 1, low = (pl.low >> e) & 1;
+        cp.from_map[e] = m;
+        for (int c = 0; c < pl.radix; ++c)
+            cp.xw.reach[e][c] = pull ? word_of(c << b2, b, m, tb, lb, r, low)
+                                     : word_of(c << b, b2, m2, tb, lb, r, low);
+    });
+    return cp;
 }
 
 // Checks the plan against the kernel chosen for it (null: none) and
@@ -417,17 +740,18 @@ inline int cross_mask(const PassPlan& pl, PassOrder order, int logn) {
 // two 512.  A row of more threads than that spans a cluster of C =
 // T / most blocks (C a power of two up to 8), launched with its cluster
 // dimension; the plan's cross mask must be cross_mask's.
-inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
+inline int launch_pass_kernel(PassKernels kernels, const PlanArg& pl,
                               PassOrder order, const void* a, const void* b,
                               void* out, const void* tw, long long batch,
                               int n, int logn, uint32_t q, uint32_t r32,
                               uint32_t r32_sh, uint32_t one_sh, void* stream) {
+    const int C = pl.cluster;
     if (n < 2 || logn < 1 || logn > 30 || n != 1 << logn || batch <= 0 ||
-        !kernel || pl.radix > n || pl.radix < 2 || pl.passes < 1 ||
+        !(C > 1 ? kernels.cluster != nullptr : kernels.block != nullptr) ||
+        pl.radix > n || pl.radix < 2 || pl.passes < 1 ||
         pl.passes > kMaxPasses || !(order.forward || order.inverse))
         return cudaErrorInvalidValue;
     const int r = ilog2(pl.radix), tb = logn - r;
-    const int C = pl.cluster;
     if (C < 1 || C > kMaxCluster || (C & (C - 1)) || C > pl.threads)
         return cudaErrorInvalidValue;
     const long long threads =
@@ -440,7 +764,13 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
     // a cluster only where one block cannot hold the row, one row to it
     if (C > 1 && (pl.rows != 1 || pl.threads != C * most))
         return cudaErrorInvalidValue;
-    if (pl.cross != cross_mask(pl, order, logn)) return cudaErrorInvalidValue;
+    // maps only in a cluster, for a kernel that takes them; layouts only in
+    // a cluster
+    if ((pl.refl | pl.swap) != 0 && (C == 1 || !order.maps))
+        return cudaErrorInvalidValue;
+    if ((pl.pull | pl.low) != 0 && C == 1) return cudaErrorInvalidValue;
+    if (pl.cross < 0 || pl.cross != cross_mask(pl, order, logn))
+        return cudaErrorInvalidValue;
     if (both) {
         const int last = pl.fwd_b[pl.passes - 1];
         const int inv_first = order.reflect ? tb - last : last;
@@ -476,21 +806,28 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
     const long long blocks = (batch + pl.rows - 1) / pl.rows * C;
     if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+        const cudaError_t e =
+            C == 1 ? cudaFuncSetAttribute(
+                         kernels.block,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem))
+                   : cudaFuncSetAttribute(
+                         kernels.cluster,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
         if (e != cudaSuccess) return e;
     }
     const Mod m{q, r32, r32_sh, one_sh};
     if (C == 1) {
-        kernel<<<dim3(static_cast<unsigned>(blocks)),
-                 static_cast<unsigned>(threads), smem,
-                 static_cast<cudaStream_t>(stream)>>>(
+        kernels.block<<<dim3(static_cast<unsigned>(blocks)),
+                        static_cast<unsigned>(threads), smem,
+                        static_cast<cudaStream_t>(stream)>>>(
             static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
             static_cast<uint32_t*>(out), static_cast<const uint32_t*>(tw),
-            batch, n, logn, m, 2u * q, pl);
+            batch, n, logn, m, 2u * q, static_cast<const PassPlan&>(pl));
         return cudaGetLastError();
     }
+    const ClusterPlan cp = cluster_plan(pl, order, logn);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(static_cast<unsigned>(blocks));
     cfg.blockDim = dim3(static_cast<unsigned>(threads));
@@ -504,9 +841,9 @@ inline int launch_pass_kernel(PassKernel kernel, const PassPlan& pl,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, kernel, static_cast<const uint32_t*>(a),
+        &cfg, kernels.cluster, static_cast<const uint32_t*>(a),
         static_cast<const uint32_t*>(b), static_cast<uint32_t*>(out),
-        static_cast<const uint32_t*>(tw), batch, n, logn, m, 2u * q, pl);
+        static_cast<const uint32_t*>(tw), batch, n, logn, m, 2u * q, cp);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
 }

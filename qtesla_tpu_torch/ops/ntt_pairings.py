@@ -48,8 +48,9 @@ import torch
 from . import modmul as MM
 from . import ntt as N
 from .ntt_fused import Kernel, _barrett, _check, _launch_plan
-from .passes import (PassModel, PassPlan, SweepModel, SweepPlan, kernel_plan,
-                     pass_plan, stockham_thread)
+from .passes import (OWN, REFL, SWAP, PassModel, PassPlan, SweepModel,
+                     SweepPlan, kernel_plan, map_thread, pass_plan,
+                     stockham_thread)
 from .tables import NttTables, get_tables
 
 __all__ = ["PAIRINGS", "KERNELS", "pairing_pass_plan", "pairing_twiddles",
@@ -166,12 +167,20 @@ def polymul_pairing_passes_plain(x, y, tbl: NttTables, pairing: str,
     def transform(V, b, vt, side, kind, wt, wt_sh):
         lo, hi, bs = (getattr(plan, f"{side}_{f}") for f in ("lo", "hi", "b"))
         for p in range(plan.passes):
-            # Stockham: thread t holds positions t + c 2^tb of stage L - hi
-            t2 = stockham_thread(t, L - hi[p], tb) if stk else t
+            # a cluster: thread t holds t, or its reflected or swapped map;
+            # a block under Stockham's autosort positions t + c 2^tb of
+            # stage L - hi
+            if plan.cluster > 1:
+                e = mdl.exchanges
+                t2 = map_thread(t, REFL if plan.refl >> e & 1 else
+                                SWAP if plan.swap >> e & 1 else OWN, tb,
+                                plan.cluster.bit_length() - 1)
+            else:
+                t2 = stockham_thread(t, L - hi[p], tb) if stk else t
             if p:
                 V, b, vt = mdl.exchange(V, b, vt, bs[p], t2)
             assert b == bs[p]
-            assert not stk or bool((vt == t2).all())
+            assert not stk or plan.cluster > 1 or bool((vt == t2).all())
             V = mdl.cyclic_stages(V, b, vt, lo[p], hi[p], wt, wt_sh,
                                   kind == "dit")
             if trace is not None:

@@ -8,12 +8,14 @@ between passes (see ``csrc/pass_stages.cuh``).  ``pass_plan`` makes the
 schedule a kernel's launcher takes: R, threads a row, rows a block, each
 pass's stages and window, the shared memory a row, and, where one block
 cannot hold a row (n >= 32768; B2 and B3 from 65536), the cluster of C
-blocks on C SMs that holds it and which exchanges cross its blocks; it
-refuses what the launcher refuses.  ``PassModel`` runs a schedule on the CPU
-with the kernels' index maps, exchanges through a model of each block's
-shared memory at the kernels' padded addresses (a cluster's blocks each
-holding n / C values of each operand) and uint32 lazy arithmetic
-(asserted), so
+blocks on C SMs that holds it, the virtual thread each exchange hands
+thread t (t or brev(t): ``thread_maps``, the pairings' alone) and which
+exchanges cross its blocks (``cross_mask``); it refuses what the launcher
+refuses.  ``PassModel`` runs a schedule on the CPU with the kernels' index
+maps, exchanges through a model of each block's shared memory at the
+kernels' padded addresses (a cluster's blocks each holding n / C values
+of each operand, each value pushed to the block that reads it) and uint32
+lazy arithmetic (asserted), so
 that the CPU twins ``ntt_pairings.polymul_pairing_passes_plain``,
 ``ntt_fused.polymul_fused_passes_plain``,
 ``ntt_fused.polymul_fixed_fused_passes_plain``,
@@ -29,12 +31,14 @@ maps; ``kernel_plan`` picks the pass or sweep plan a kernel runs at n;
 ``SweepModel`` runs a sweep plan's launches through a model of device
 memory (the CPU twins' sweep path).
 
-Stockham's windows follow its autosort: at the start of each pass thread t
-holds the Stockham positions t + c 2^tb (tb = L - r) of the stage st the
-pass starts at.  Position p at stage st is DIF index ``stockham_index(p,
-st, L)``; in DIF indices a pass's window then has its top at the pass's
-widest stage (b = hi - r, so the last pass covers r stages), and thread t is
-the virtual thread ``stockham_thread(t, st, tb)``.
+Stockham's windows follow its autosort: in the block form, at the start of
+each pass thread t holds the Stockham positions t + c 2^tb (tb = L - r) of
+the stage st the pass starts at (a cluster's exchanges hand out the maps
+of ``thread_maps`` instead, as the other pairings').  Position p at stage
+st is DIF index ``stockham_index(p, st, L)``; in DIF indices a pass's
+window then has its top at the pass's widest stage (b = hi - r, so the
+last pass covers r stages), and thread t is the virtual thread
+``stockham_thread(t, st, tb)``.
 """
 
 from __future__ import annotations
@@ -47,7 +51,11 @@ import torch
 from . import modmul as MM
 
 __all__ = ["MAX_PASSES", "MAX_CLUSTER", "PASS_SHAPES", "PassPlan",
-           "schedule", "pass_plan", "cross_mask", "describe_pass_plan",
+           "schedule", "pass_plan", "cross_mask", "block_bits",
+           "thread_maps", "exchange_layouts",
+           "map_thread", "twiddle_lines", "swizzle", "layout_word",
+           "OWN", "REFL", "SWAP",
+           "describe_pass_plan",
            "brev", "stockham_thread", "stockham_index", "PassModel",
            "SWEEP_KINDS", "MAX_SWEEP_LOGN", "SweepPlan", "cluster_reach",
            "kernel_plan",
@@ -79,13 +87,22 @@ class PassPlan(ctypes.Structure):
     ``row_stride``: words of shared memory a row (0 for one pass), or a
     block of a cluster.  ``cluster``: the blocks that hold one row (1: a
     block holds ``rows`` rows); ``cross``: bit e set when the kernel's e-th
-    exchange crosses the cluster's blocks (``cross_mask``)."""
+    exchange crosses the cluster's blocks (``cross_mask``); ``refl``: bit
+    e set when after the e-th exchange thread t of the row holds the
+    virtual thread brev(t), the reflected map, not t (``thread_maps``; 0
+    but in a pairing's cluster plan); ``pull``, ``low``: how a cluster's
+    exchange that does not stay between own windows in a block lays out
+    its buffer (``exchange_layouts``); ``swap``: bit e set when after the
+    e-th exchange thread t holds the swapped map (``map_thread``), 0 but
+    in a pairing's cluster plan."""
 
     _fields_ = [(f, ctypes.c_int32) for f in (
         "radix", "threads", "rows", "passes", "row_stride", "cluster",
         "cross")] + [
         (f, ctypes.c_int32 * MAX_PASSES) for f in (
-            "fwd_lo", "fwd_hi", "fwd_b", "inv_lo", "inv_hi", "inv_b")]
+            "fwd_lo", "fwd_hi", "fwd_b", "inv_lo", "inv_hi", "inv_b")] + [
+        ("refl", ctypes.c_int32), ("pull", ctypes.c_int32),
+        ("low", ctypes.c_int32), ("swap", ctypes.c_int32)]
 
 
 def _log2(n: int) -> int:
@@ -126,7 +143,10 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
     kernel's block takes (n >= 32768 with both transforms, 65536 with one)
     spans a cluster of C = T / most blocks, each holding n / C values of
     each operand in its shared memory (``row_stride`` words a block), one
-    row a cluster; ``cross`` marks the exchanges that go between them.
+    row a cluster; ``cross`` marks the exchanges that go between them, a
+    pairing's ``refl`` and ``swap`` the virtual thread each exchange hands
+    thread t (``thread_maps``), ``pull`` and ``low`` how each lays out its
+    buffer (``exchange_layouts``).
     Raises for what the launchers refuse: an n that is not a power of two
     from 2, more than four passes (n > 2^20), a cluster of more than
     ``MAX_CLUSTER`` blocks (n > 131072 with both transforms, 262144 with
@@ -189,53 +209,296 @@ def pass_plan(n: int, fwd_up: bool | None, inv_up: bool | None,
                 *(p[i] for p in sched))
     plan = PassPlan(radix=R, threads=T, rows=rows, passes=P,
                     row_stride=stride, cluster=cluster, **fields)
-    plan.cross = cross_mask(plan, L, fwd_up, inv_up, stockham)
+    if cluster > 1 and fwd_up is not None and inv_up is not None and (
+            operands == 2):
+        plan.refl, plan.swap = thread_maps(plan, L, fwd_up, inv_up)
+    plan.cross = cross_mask(plan, L, fwd_up, inv_up)
+    plan.pull, plan.low = exchange_layouts(plan, L, fwd_up, inv_up)
     return plan
 
 
-def cross_mask(plan: PassPlan, L: int, fwd_up: bool | None,
-               inv_up: bool | None, stockham: bool = False) -> int:
-    """Bit e set: the kernel's e-th exchange (in the order it runs them:
-    B3's first one into [0, r), the forward's between passes, B2's last
-    one back to [tb, L), the inverse's) goes between the blocks of
-    ``plan``'s cluster; 0 for a block that holds its rows.  Thread t of a
-    row lies in block t >> (tb - c) (C = 2^c); a window [b, b + r) with
-    b <= tb - c keeps those bits of t in the top c bits of its indices,
-    where the cluster's blocks part the row, as long as the thread holds
-    its own virtual thread.  So an exchange stays in its block only between
-    two such windows, neither under Stockham's thread map nor from a
-    window renamed by a bit reversal (virtual thread brev(t)).  The
-    launcher (``csrc/pass_stages.cuh`` cross_mask) computes the same
-    bits and refuses a plan that differs."""
-    if plan.cluster == 1:
-        return 0
-    r = _log2(plan.radix)
-    tb = L - r
-    top = tb - _log2(plan.cluster)
-    mask, e = 0, 0
-    b, own = tb, True       # the load: window [tb, L), thread t
+# a cluster's virtual thread maps (``map_thread``)
+OWN, REFL, SWAP = 0, 1, 2
+
+
+def map_thread(t, m: int, tb: int, c: int):
+    """Thread t's virtual thread in a row of 2^tb threads over 2^c blocks
+    (lb = tb - c thread bits a block) under map m: t (own), brev(t)
+    (reflected), or the swapped map, the block bits reversed into the
+    lowest c bits above the block's own thread bits: ((t mod 2^lb) << c) |
+    brev_c(t >> lb) (int or int64 tensor)."""
+    if m == OWN:
+        return t
+    if m == REFL:
+        return brev(t, tb)
+    lb = tb - c
+    return ((t & ((1 << lb) - 1)) << c) | brev(t >> lb, c)
+
+
+def _vbit(j: int, m: int, tb: int, c: int) -> int:
+    """The virtual thread bit that thread bit j lands on under map m."""
+    if m == OWN:
+        return j
+    if m == REFL or j >= tb - c:
+        return tb - 1 - j
+    return j + c
+
+
+def _walk(plan: PassPlan, L: int, fwd_up: bool | None, inv_up: bool | None,
+          refl: int, swap: int = 0):
+    """The states (window b, map) a kernel's rows go through under the
+    maps ``refl`` and ``swap`` (bit e: exchange e hands thread t the
+    reflected or the swapped map, ``map_thread``; neither: the own map):
+    a list of ((b, m), (b2, m2)) a exchange in the order the kernel runs
+    them (B3's first one into [0, r), the forward's between passes, B2's
+    last one back to [tb, L), the inverse's), the state the store reads
+    (after a DIF or Stockham inverse's bit reversal) and the state each
+    pass runs on.  The load leaves a row on [tb, L) under the own map; a
+    bit reversal renames (b, own) to (tb - b, reflected) and back; it
+    takes no swapped map (ValueError), nor does an exchange take both."""
+    tb = L - _log2(plan.radix)
+    if refl & swap:
+        raise ValueError(f"exchanges {refl & swap:#x} take two maps")
+    out, passes, state = [], [], (tb, OWN)
 
     def exchange(b2):
-        nonlocal mask, e, b, own
-        if stockham or not own or b > top or b2 > top:
-            mask |= 1 << e
-        e, b, own = e + 1, b2, True
+        nonlocal state
+        e = len(out)
+        to = (b2, REFL if refl >> e & 1 else SWAP if swap >> e & 1 else OWN)
+        out.append((state, to))
+        state = to
+
+    def reverse():
+        nonlocal state
+        if state[1] == SWAP:
+            raise ValueError("a bit reversal of the swapped map")
+        state = (tb - state[0], REFL - state[1])
+
+    def run(windows):
+        for p in range(plan.passes):
+            if p:
+                exchange(windows[p])
+            passes.append(state)
 
     if fwd_up is not None:
-        if fwd_up:          # a DIT forward's bit reversal: [0, r), brev(t)
-            b, own = 0, False
-        for p in range(1, plan.passes):
-            exchange(plan.fwd_b[p])
+        if fwd_up:          # a DIT forward's bit reversal of the load
+            reverse()
+        run(plan.fwd_b)
         if inv_up is None:
             exchange(tb)
         elif (not fwd_up) != inv_up:
-            b, own = tb - b, False
+            reverse()
     else:
         exchange(0)
     if inv_up is not None:
-        for p in range(1, plan.passes):
-            exchange(plan.inv_b[p])
+        run(plan.inv_b)
+        if not inv_up:      # a DIF or Stockham inverse's bit reversal
+            reverse()
+    return out, state, passes
+
+
+def block_bits(b: int, m: int, tb: int, r: int, c: int) -> tuple:
+    """The index bits that thread bits tb - c .. tb - 1 (the block of a
+    cluster of 2^c blocks the thread lies in) hold on the window [b, b + r)
+    under map m (``map_thread``): virtual thread bit v is index bit v
+    below the window, v + r above."""
+    out = []
+    for j in range(tb - c, tb):
+        v = _vbit(j, m, tb, c)
+        out.append(v if v < b else v + r)
+    return tuple(out)
+
+
+def cross_mask(plan: PassPlan, L: int, fwd_up: bool | None,
+               inv_up: bool | None) -> int:
+    """Bit e set: the kernel's e-th exchange (``_walk``'s order) goes
+    between the blocks of ``plan``'s cluster; 0 for a block that holds its
+    rows.  Thread t of a row lies in block t >> (tb - c) (C = 2^c), and in
+    a cluster its virtual thread is t or, where ``plan.refl`` or
+    ``plan.swap`` says so, its reflected or swapped map (``map_thread``;
+    Stockham's autosort map is the block form's alone).  An exchange stays
+    in its block exactly when the block's thread bits hold the same index
+    bits on both sides (``block_bits``): then every value's reader lies in
+    the block of its writer.  Raises for maps or layout bits past the
+    kernel's exchanges, two maps on one exchange, a bit reversal of the
+    swapped map, an exchange that stays in its block but goes to the own
+    map from another (the kernels run such an exchange as the block
+    form's, own map to own map), or a pull that stays in its block.  The
+    launcher (``csrc/pass_stages.cuh`` cross_mask) computes the same bits
+    and refuses a plan that differs."""
+    if plan.cluster == 1:
+        return 0
+    r = _log2(plan.radix)
+    tb, c = L - r, _log2(plan.cluster)
+    mask = 0
+    ex = _walk(plan, L, fwd_up, inv_up, plan.refl, plan.swap)[0]
+    bits = plan.refl | plan.swap | plan.pull | plan.low
+    if bits >> len(ex) or bits < 0:
+        raise ValueError(f"maps or layouts {bits:#x} past the kernel's "
+                         f"{len(ex)} exchanges")
+    for e, ((b, m), (b2, m2)) in enumerate(ex):
+        if block_bits(b, m, tb, r, c) != block_bits(b2, m2, tb, r, c):
+            mask |= 1 << e
+        elif m2 == OWN and m != OWN:
+            raise ValueError(f"exchange {e} stays in its block but goes to "
+                             f"the own map from another")
+    if plan.pull & ~mask:
+        raise ValueError(f"pulled exchanges {plan.pull & ~mask:#x} stay in "
+                         f"their blocks")
     return mask
+
+
+def swizzle(a: int) -> int:
+    """A word of an exchange's buffer laid out for the threads of one side
+    (``exchange_layouts``): address a (below 2^30; int or int64 tensor)
+    with its low five bits xored with every five bits above them, so that
+    32 lanes whose bits of a fall on five distinct bit positions mod 5
+    meet 32 distinct banks."""
+    f = 0
+    for k in range(5, 31, 5):
+        f = f ^ ((a >> k) & 31)
+    return a ^ f
+
+
+def _holder(i: int, b: int, m: int, tb: int, r: int, c: int):
+    """(thread, register) that hold index i on the window [b, b + r) under
+    map m."""
+    vt = (i & ((1 << b) - 1)) | ((i >> (b + r)) << b)
+    reg = (i >> b) & ((1 << r) - 1)
+    if m == REFL:
+        return brev(vt, tb), reg
+    if m == SWAP:
+        lb = tb - c
+        return (brev(vt & ((1 << c) - 1), c) << lb) | (vt >> c), reg
+    return vt, reg
+
+
+def layout_word(t: int, reg: int, lb: int, low: bool) -> int:
+    """The word of thread t's register reg in its block's buffer of an
+    exchange laid out for its side: l + reg 2^lb (l = t mod 2^lb), or,
+    ``low``, 32 l + reg, swizzled."""
+    l = t & ((1 << lb) - 1)
+    return swizzle((l << 5) | reg if low else l | (reg << lb))
+
+
+def _exchange_cost(frm, to, tb: int, r: int, c: int, cross: bool,
+                   pull: bool, low: bool) -> int:
+    """Transactions a warp's store and load of one register take in an
+    exchange from state ``frm`` to ``to`` laid out so: distinct 32-word
+    lines where the side reaches other blocks, the most lanes on one bank
+    where it stays in its own; lanes of block 0, summed over a few
+    registers."""
+    lb = tb - c
+    side = frm if pull else to
+    total = 0
+    for (b, m), remote in ((frm, cross and not pull), (to, cross and pull)):
+        for reg in (0, 1, 17, 31):
+            words = []
+            for lane in range(32):
+                vt = map_thread(lane, m, tb, c)
+                i = ((vt & ((1 << b) - 1)) | ((vt >> b) << (b + r))
+                     | (reg << b))
+                th, rh = _holder(i, *side, tb, r, c)
+                words.append((th >> lb, layout_word(th, rh, lb, low)))
+            if remote:
+                total += len({(k, w >> 5) for k, w in words})
+            else:
+                banks = [w & 31 for _, w in words]
+                total += max(banks.count(x) for x in set(banks))
+    return total
+
+
+def exchange_layouts(plan: PassPlan, L: int, fwd_up: bool | None,
+                     inv_up: bool | None) -> tuple[int, int]:
+    """(pull, low) of a cluster plan: bit e of each for the kernel's e-th
+    exchange (``_walk``'s order) where it does not stay between own
+    windows in its block.  Such an exchange lays out each block's buffer
+    for the threads of one side (``layout_word``: register c of the
+    block's thread l at l + c 2^lb, lb thread bits a block, or, ``low``,
+    at 32 l + c, swizzled): the readers' (a push: the writers store each
+    value into the block of its reader at the reader's word and the
+    readers load their own block's), or, ``pull`` (crossing exchanges
+    alone), the writers' (they store in their own block, the readers load
+    from the writers' blocks).  Of the four, the one whose accesses take
+    the fewest transactions (``_exchange_cost``: neighbouring lanes on
+    neighbouring words where a side reaches other blocks, on distinct banks
+    where it stays in its own).  0 for a block plan."""
+    if plan.cluster == 1:
+        return 0, 0
+    r = _log2(plan.radix)
+    tb, c = L - r, _log2(plan.cluster)
+    pull = low = 0
+    for e, (frm, to) in enumerate(
+            _walk(plan, L, fwd_up, inv_up, plan.refl, plan.swap)[0]):
+        cross = bool(plan.cross >> e & 1)
+        if not cross and to[1] == OWN:
+            continue
+        options = [(p_, l_) for p_ in ((False, True) if cross else (False,))
+                   for l_ in (False, True)]
+        p_, l_ = min(options, key=lambda o: _exchange_cost(
+            frm, to, tb, r, c, cross, *o))
+        pull |= p_ << e
+        low |= l_ << e
+    return pull, low
+
+
+def twiddle_lines(b: int, m: int, tb: int, c: int) -> int:
+    """The 32-word lines a warp's cyclic twiddle read touches on the
+    window [b, b + r) under map m: entry 2^k + (vt mod 2^b) + ..., the
+    lanes' virtual threads below the window."""
+    vt = map_thread(torch.arange(32), m, tb, c)
+    return int(((vt & ((1 << b) - 1)) >> 5).unique().numel())
+
+
+def thread_maps(plan: PassPlan, L: int, fwd_up: bool,
+                inv_up: bool) -> tuple[int, int]:
+    """The maps (``PassPlan.refl``, ``.swap``) a pairing's cluster plan
+    takes: of those that leave the store on [tb, L) under the own map
+    (neighbouring threads store neighbouring values), the ones whose
+    exchanges cross the fewest times, then whose passes' twiddle reads and
+    exchanges take the fewest transactions (``twiddle_lines``,
+    ``_exchange_cost`` under ``exchange_layouts``' choice), then the
+    fewest swapped, then the fewest reflected.  The own map everywhere is
+    the merged kernels' (B1-B4), whose schedules it already suits."""
+    r = _log2(plan.radix)
+    tb, c = L - r, _log2(plan.cluster)
+    n_ex = len(_walk(plan, L, fwd_up, inv_up, 0)[0])
+    cands = []
+    for code in range(3 ** n_ex):
+        refl = swap = 0
+        for e in range(n_ex):
+            code, d = divmod(code, 3)
+            refl |= (d == REFL) << e
+            swap |= (d == SWAP) << e
+        try:
+            ex, last, passes = _walk(plan, L, fwd_up, inv_up, refl, swap)
+        except ValueError:
+            continue
+        if last != (tb, OWN):
+            continue
+        crossings = sum(block_bits(*a, tb, r, c) != block_bits(*z, tb, r, c)
+                        for a, z in ex)
+        if any(block_bits(*a, tb, r, c) == block_bits(*z, tb, r, c)
+               and z[1] == OWN != a[1] for a, z in ex):
+            continue
+        lines = sum(twiddle_lines(b, m, tb, c) for b, m in passes)
+        cands.append((crossings, lines, bin(swap).count("1"),
+                      bin(refl).count("1"), refl, swap, ex))
+    least = min(k[0] for k in cands)
+    best = None
+    for crossings, lines, ns, nr, refl, swap, ex in cands:
+        if crossings > least:
+            continue
+        cost = lines
+        for e, (a, z) in enumerate(ex):
+            cross = block_bits(*a, tb, r, c) != block_bits(*z, tb, r, c)
+            if cross or z[1] != OWN:
+                cost += min(_exchange_cost(a, z, tb, r, c, cross, p_, l_)
+                            for p_ in ((False, True) if cross else (False,))
+                            for l_ in (False, True))
+        key = (cost, ns, nr, refl, swap)
+        best = key if best is None or key < best else best
+    return best[3], best[4]
 
 
 def describe_pass_plan(plan: PassPlan) -> str:
@@ -249,7 +512,9 @@ def describe_pass_plan(plan: PassPlan) -> str:
                         for p in range(plan.passes))
     where = ("a row" if plan.cluster == 1 else
              f"a block, a cluster of {plan.cluster} blocks a row (exchanges "
-             f"crossing blocks: mask {plan.cross:#x})")
+             f"crossing blocks: mask {plan.cross:#x}; reflected maps "
+             f"{plan.refl:#x}, swapped {plan.swap:#x}; pulled "
+             f"{plan.pull:#x}, registers lowest {plan.low:#x})")
     return (f"R={plan.radix}, threads a row {plan.threads}, rows a block "
             f"{plan.rows}, passes a transform {plan.passes} (stages [lo,hi)@"
             f"window: forward {passes('fwd')}, inverse {passes('inv')}), "
@@ -308,12 +573,16 @@ class PassModel:
         return V[..., brev(self.c, self.r)], self.tb - b, brev(vt, self.tb)
 
     def exchange(self, V, b, vt, b2, vt2):
-        """Through each row's shared memory at the kernels' padded
-        addresses, from the window [b, b + r) of vt to [b2, b2 + r) of
-        vt2.  In a cluster each block holds m = n / C values of each
-        operand, index i in block i >> log2(m) at i mod m, padded; an
-        exchange that ``plan.cross`` keeps in its block is asserted to
-        store and load its thread's own block's indices alone."""
+        """Through each row's shared memory at the kernels' addresses, from
+        the window [b, b + r) of vt to [b2, b2 + r) of vt2.  A block holds
+        its rows at index i's padded address i + i / 32.  In a cluster
+        (each block m = n / C values of each operand, thread t in block t
+        >> lb, lb = tb - log2 C) an exchange that stays between own
+        windows in a block is the block form's on the block's own indices,
+        i mod m; any other lays the buffer out for the threads of one side
+        (``exchange_layouts``, ``layout_word``): the readers' (a push) or,
+        ``pull``, the writers'.  An exchange that ``plan.cross`` keeps in
+        its block is asserted to send no value to another block."""
         plan, n, C = self.plan, self.n, self.plan.cluster
         m = n // C
         stride = m + m // 32
@@ -322,20 +591,41 @@ class PassModel:
                            dtype=torch.int64)
         row_base = torch.arange(rows) * plan.row_stride * C
         ops = torch.arange(V.shape[1])[None, :, None, None] * stride
-        cross = plan.cross >> self.exchanges & 1
+        e = self.exchanges
+        cross = plan.cross >> e & 1
         self.exchanges += 1
-        own = (self.t >> (self.tb - _log2(C)))[:, None]
-        addr = []
-        for idx in (self.window(vt, b), self.window(vt2, b2)):
-            block, i = idx // m, idx % m
-            assert cross or bool((block == own).all())
-            i = block * plan.row_stride + i + (i >> 5)
-            assert (idx % m + idx % m // 32).max() < stride
-            assert i.unique().numel() == n
-            addr.append(row_base[:, None, None, None] + ops + i)
-        assert V.shape[1] * stride <= plan.row_stride
-        smem[addr[0]] = V
-        return smem[addr[1]], b2, vt2
+        src, dst = self.window(vt, b), self.window(vt2, b2)
+        lb = self.tb - _log2(C)
+        if C == 1:
+            side, block, slot = dst, torch.zeros_like(dst), dst + (dst >> 5)
+        else:
+            block = (self.t >> lb)[:, None].expand_as(dst)
+            local = (self.t & ((1 << lb) - 1))[:, None]
+            if not (cross or (plan.refl | plan.swap) >> e & 1):
+                # the block form's exchange on the block's indices
+                side = dst
+                slot = ((local & ((1 << b2) - 1))
+                        | ((local >> b2) << (b2 + self.r))
+                        | (self.c << b2)[None, :])
+                slot = slot + (slot >> 5)
+            else:
+                side = src if plan.pull >> e & 1 else dst
+                if plan.low >> e & 1:
+                    slot = swizzle((local << 5) | self.c[None, :])
+                else:
+                    slot = swizzle(local | (self.c << lb)[None, :])
+        assert slot.max() < stride and V.shape[1] * stride <= plan.row_stride
+        at = block * plan.row_stride + slot
+        assert at.unique().numel() == n
+        # each index's address, by the side whose layout holds it
+        where = torch.empty(n, dtype=torch.int64)
+        where[side] = at
+        if C > 1 and not cross:
+            reader = torch.empty(n, dtype=torch.int64)
+            reader[dst] = (self.t >> lb)[:, None].expand_as(dst)
+            assert bool((reader[src] == (self.t >> lb)[:, None]).all())
+        smem[row_base[:, None, None, None] + ops + where[src]] = V
+        return smem[row_base[:, None, None, None] + ops + where[dst]], b2, vt2
 
     def cyclic_stages(self, V, b, vt, lo, hi, w, w_sh, ct: bool):
         """The cyclic stages [lo, hi): CT from the narrowest up (below 4q),

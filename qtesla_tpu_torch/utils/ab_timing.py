@@ -1,7 +1,7 @@
 """Time the kernels of two source trees in turns, on one card.
 
     python -m qtesla_tpu_torch.utils.ab_timing [--rounds N] \
-        [--sp K | --butterfly | --sweeps] OLD_TREE NEW_TREE
+        [--sp K | --butterfly | --sweeps | --clusters] OLD_TREE NEW_TREE
 
 Each tree is a checkout of this repository (for example a parent commit
 unpacked with ``git archive``, or a copy with one constant of a CUDA source
@@ -24,7 +24,12 @@ the sweep form of B1-B4 and the five pairings (``passes.SWEEP_KINDS``,
 each under ``sweep_plan``) at n = 2^18, 2^20, 2^22 and 2^25 (B = 128, 32,
 8, 4; 10 timed calls each) and B5's split call (``polymul_negacyclic``
 "mxu": B2's sweeps, the split kernel, B3's sweeps) at 32768 (B = 1024)
-and 2^22 (``SWEEP_AB_RINGS``).  ``--rounds N`` runs the
+and 2^22 (``SWEEP_AB_RINGS``), or with ``--clusters`` the pass kernels
+where a row spans a thread-block cluster (each kind under
+``passes.kernel_plan``; ``CLUSTER_AB_RINGS``: the nine kinds at q30, n =
+32768, B = 1024, where B2 and B3 still fill one block, and 65536, B = 512,
+and at 131072, B = 256, q = 786433; B2 and B3 at 262144, B = 128, q =
+7340033; 128 MiB an operand, 20 timed calls each).  ``--rounds N`` runs the
 order old, new, new, old N times (default 1).  It prints each run's
 medians and, per kernel, the median and the least of each tree's 40 N
 calls and the new/old ratio of the medians.  It needs a CUDA device.
@@ -62,6 +67,14 @@ SWEEP_AB_RINGS = (
     ("ab-n33554432", 25, 469762049, 4, SWEEP_KINDS),
     ("ab-n32768", 15, 1073479681, 1024, ("mxu",)))
 
+# --clusters: (name, log2 n, q, rows, kinds) of each ring, 128 MiB an
+# operand
+CLUSTER_AB_RINGS = (
+    ("ab-n32768", 15, 1073479681, 1024, SWEEP_KINDS),
+    ("ab-n65536", 16, 1073479681, 512, SWEEP_KINDS),
+    ("ab-n131072", 17, 786433, 256, SWEEP_KINDS),
+    ("ab-n262144", 18, 7340033, 128, ("B2", "B3")))
+
 _RUN = """
 import functools, importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -76,7 +89,7 @@ gen = torch.Generator(device="cuda")
 gen.manual_seed(20261016)
 x, y = (torch.randint(0, mt.q, (32768, mt.n), generator=gen, device="cuda",
                       dtype=torch.int64).to(torch.uint32) for _ in range(2))
-if {sweeps}:
+if {sweeps} or {clusters}:
     from qtesla_tpu_torch.models import polymul_negacyclic
     from qtesla_tpu_torch.ops import ntt_fused as F
     from qtesla_tpu_torch.ops import ntt_pairings as P
@@ -98,7 +111,8 @@ if {sweeps}:
             if kind == "mxu":
                 fn = functools.partial(polymul_negacyclic, x, y, name, "mxu")
             else:
-                plan = Ps.sweep_plan(n, kind)
+                plan = (Ps.kernel_plan(n, kind) if {clusters}
+                        else Ps.sweep_plan(n, kind))
                 fn = {{"B1": lambda: F.polymul_fused(x, y, tbl, plan=plan),
                       "B4": lambda: F.polymul_fixed_fused(x, spec, tbl,
                                                           plan=plan),
@@ -107,7 +121,7 @@ if {sweeps}:
                     kind, lambda: P.polymul_pairing(x, y, tbl, kind,
                                                     plan=plan))
             out[f"{{kind}} 2^{{logn}}"] = time_cuda(
-                fn, warmup=2, repeats=10).samples_ms
+                fn, warmup=2, repeats=20 if {clusters} else 10).samples_ms
         del x, y, spec
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -185,11 +199,14 @@ print(json.dumps(out))
 """
 
 
-def _run(tree: Path, sp: int, butterfly: bool, sweeps: bool) -> dict:
+def _run(tree: Path, sp: int, butterfly: bool, sweeps: bool,
+         clusters: bool = False) -> dict:
     proc = subprocess.run([sys.executable, "-c",
                            _RUN.format(tree=str(tree), sp=sp,
                                        butterfly=butterfly, sweeps=sweeps,
-                                       rings=SWEEP_AB_RINGS)],
+                                       clusters=clusters,
+                                       rings=CLUSTER_AB_RINGS if clusters
+                                       else SWEEP_AB_RINGS)],
                           cwd=tree, capture_output=True, text=True,
                           check=False)
     if proc.returncode != 0:
@@ -202,8 +219,8 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--rounds"] and len(argv) > 1:
         rounds, argv = int(argv[1]), argv[2:]
     sp, butterfly = 0, argv[:1] == ["--butterfly"]
-    sweeps = argv[:1] == ["--sweeps"]
-    if butterfly or sweeps:
+    sweeps, clusters = argv[:1] == ["--sweeps"], argv[:1] == ["--clusters"]
+    if butterfly or sweeps or clusters:
         argv = argv[1:]
     elif argv[:1] == ["--sp"] and len(argv) > 1:
         sp, argv = int(argv[1]), argv[2:]
@@ -213,7 +230,7 @@ def main(argv: list[str]) -> int:
     trees = {"old": Path(argv[0]).resolve(), "new": Path(argv[1]).resolve()}
     runs = []
     for which in ("old", "new", "new", "old") * rounds:
-        res = _run(trees[which], sp, butterfly, sweeps)
+        res = _run(trees[which], sp, butterfly, sweeps, clusters)
         runs.append((which, res))
         print(f"{which} ({trees[which]}): " + ", ".join(
             f"{k} {statistics.median(v):.4f}" for k, v in res.items()) +
@@ -222,7 +239,7 @@ def main(argv: list[str]) -> int:
     kernels = [k for k in (BUTTERFLY_KERNELS if butterfly else
                            SP_KERNELS if sp else MXU_KERNELS)
                if all(k in res for _, res in runs)]
-    if sweeps:
+    if sweeps or clusters:
         kernels = list(runs[0][1])
     samples = {t: {k: [] for k in kernels} for t in trees}
     for which, res in runs:

@@ -42,7 +42,26 @@ B13 and B17 moved to the compact bodies, B13 as a mode of the dense segment
 kernel and B17 through ``mxu_block.cuh``, and in a tree before B14 and B15
 moved, those two as modes of the dense segment kernel.  A patch of code every such tree has fails the run when its anchor is
 missing; the patches of code one tree has and another has not (``OPTIONAL``)
-are applied where their anchor is found.  It needs a CUDA device.
+are applied where their anchor is found.
+
+    python -m qtesla_tpu_torch.utils.phase_ablation --passes TREE
+
+takes apart the pass kernels instead (B1-B4 and the five pairings,
+``csrc/pass_stages.cuh``, ``csrc/ntt_fused.cu``), each under
+``passes.kernel_plan`` at q30 and 128 MiB an operand (``PASS_RINGS``: n =
+16384, the block form, to 131072, B2 and B3 to 262144), levels
+``PASS_LEVELS``:
+
+    0  load and store only (the pointwise product, the psi weighting)
+    1  + the butterflies, every twiddle a value made in registers
+    2  + the twiddle reads
+    3  + the exchanges inside a block (the cluster form's crossing
+         exchanges left out, and in a tree whose crossing exchanges push
+         into the reading block, every cluster barrier)
+    4  + the crossing exchanges: the whole kernel
+
+and prints each kernel's registers and spills (``-Xptxas -v``).  It needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -54,9 +73,22 @@ import subprocess
 import sys
 from pathlib import Path
 
-__all__ = ["main", "patch_sources", "LEVELS"]
+__all__ = ["main", "patch_sources", "LEVELS", "PASS_LEVELS", "PASS_RINGS"]
 
 LEVELS = (0, 1, 2, 3, 4, 5)
+PASS_LEVELS = (0, 1, 2, 3, 4)
+# (log2 n, q, rows, kinds) of each ring the pass kernels are timed at: q30
+# where it divides, 128 MiB an operand
+PASS_RINGS = (
+    (14, 1073479681, 2048, ("B1", "B4", "B2", "B3", "gs_ct", "ct_ct",
+                            "gs_gs", "ct_gs", "stockham")),
+    (15, 1073479681, 1024, ("B1", "B4", "B2", "B3", "gs_ct", "ct_ct",
+                            "gs_gs", "ct_gs", "stockham")),
+    (16, 1073479681, 512, ("B1", "B4", "B2", "B3", "gs_ct", "ct_ct",
+                           "gs_gs", "ct_gs", "stockham")),
+    (17, 786433, 256, ("B1", "B4", "B2", "B3", "gs_ct", "ct_ct", "gs_gs",
+                       "ct_gs", "stockham")),
+    (18, 7340033, 128, ("B2", "B3")))
 
 
 def _guard(cond: str, body: str, other: str | None = None) -> str:
@@ -248,6 +280,82 @@ STREAM_PATCHES = (
 )
 
 
+# the pass kernels: the exchanges (pass_stages.cuh row_exchange), the
+# cyclic stages' twiddle reads (pass_stages) and the merged-psi stages'
+# (ntt_fused.cu merged_stages)
+_P_EXCHANGE = """    if constexpr (kCluster) {
+        if ((pl.cross >> e) & 1)
+            cluster_exchange<R, NOPS>(v, buf, stride, b, vt, b2, t, lbits);
+        else
+"""
+_P_CYCLIC = """    constexpr int r = ilog2(R);
+    const int vlo = vt & ((1 << b) - 1);
+"""
+_P_CYCLIC_TW = """            const uint32_t tw = __ldg(w + base + (cl << b));
+            const uint32_t tw_sh = __ldg(w_sh + base + (cl << b));
+"""
+_P_MERGED = """    constexpr int r = ilog2(R);
+    const int vhi = vt >> b;
+"""
+_P_MERGED_TW = """                load_twiddles<kVec>(tw, tw_sh, w + base + h, w_sh + base + h,
+                                    vec);
+"""
+# the exchanges of a tree whose crossing exchanges push into the reading
+# block (the current design): below level 4 the crossing exchanges and every
+# cluster barrier go, so that no arrive lacks its wait
+_P_PUSH = """    if constexpr (kCluster) {
+        const int lb = lbits - ilog2(R);
+"""
+_P_PUSH_CROSS = "        const bool low = (pl.low >> e) & 1;\n"
+_P_PUSH_ARRIVE = """        if ((((pl.cross & ~pl.pull) >> (e + 1)) & 1) || pull)
+            cluster_arrive();
+        else if (cross || m2 != kOwn)
+"""
+_P_PUSH_WAIT = """        if ((cross && !pull) || (e > 0 && ((pl.pull >> (e - 1)) & 1)))
+            cluster_wait();
+"""
+_P_PUSH_START = "            if ((pl.cross & ~pl.pull) & 1) cluster_arrive();\n"
+_P_PUSH_DRAIN = ("    if constexpr (kCluster)\n"
+                 "        if ((pl.pull >> e) & 1) cluster_wait();\n")
+PASS_PATCHES_PULL = (
+    ("pass_stages.cuh", _P_EXCHANGE, _guard("QT_ABL < 3", "    return;")
+     + """    if constexpr (kCluster) {
+        if ((pl.cross >> e) & 1) {
+""" + _guard("QT_ABL >= 4", "            cluster_exchange<R, NOPS>(v, buf, "
+             "stride, b, vt, b2, t, lbits);") + """        } else
+"""),)
+PASS_PATCHES_PUSH = (
+    ("pass_stages.cuh", _P_PUSH, _guard("QT_ABL < 3", "    return;")
+     + _P_PUSH),
+    ("pass_stages.cuh", _P_PUSH_CROSS, _P_PUSH_CROSS
+     + _guard("QT_ABL < 4", "        if (cross) return;")),
+    ("pass_stages.cuh", _P_PUSH_ARRIVE, _guard(
+        "QT_ABL >= 4", "        if ((((pl.cross & ~pl.pull) >> (e + 1)) & 1)"
+        " || pull)\n            cluster_arrive();\n        else")
+     + "        if (cross || m2 != kOwn)\n"),
+    ("pass_stages.cuh", _P_PUSH_WAIT, _guard("QT_ABL >= 4",
+                                             _P_PUSH_WAIT.rstrip())),
+    ("pass_stages.cuh", _P_PUSH_START, _guard("QT_ABL >= 4",
+                                              _P_PUSH_START.rstrip())),
+    ("pass_stages.cuh", _P_PUSH_DRAIN, _guard("QT_ABL >= 4",
+                                              _P_PUSH_DRAIN.rstrip())),)
+PASS_PATCHES = (
+    ("pass_stages.cuh", _P_CYCLIC, _P_CYCLIC + _guard("QT_ABL < 1",
+                                                      "    return;")),
+    ("pass_stages.cuh", _P_CYCLIC_TW, _guard(
+        "QT_ABL < 2",
+        "            const uint32_t tw = static_cast<uint32_t>(base + (cl << "
+        "b));\n            const uint32_t tw_sh = tw * 3u;", _P_CYCLIC_TW)),
+    ("ntt_fused.cu", _P_MERGED, _P_MERGED + _guard("QT_ABL < 1",
+                                                   "    return;")),
+    ("ntt_fused.cu", _P_MERGED_TW, _guard(
+        "QT_ABL < 2",
+        "                for (int i = 0; i < kVec; ++i)\n"
+        "                    tw[i] = static_cast<uint32_t>(base + h + i), "
+        "tw_sh[i] = tw[i] * 3u;", _P_MERGED_TW)),
+)
+
+
 def _patches(csrc: Path) -> list:
     """The patches for the kernels as the tree under ``csrc`` builds them."""
     row = next(f for f in ROW_SOURCES if (csrc / f).exists())
@@ -262,9 +370,15 @@ def _patches(csrc: Path) -> list:
             + list(STREAM_PATCHES))
 
 
-def patch_sources(csrc: Path) -> list[str]:
-    """Patch the sources under ``csrc`` in place; the patched files."""
-    patches = _patches(csrc)
+def patch_sources(csrc: Path, passes: bool = False) -> list[str]:
+    """Patch the sources under ``csrc`` in place (the pass kernels' patches
+    with ``passes``); the patched files."""
+    if passes:
+        text = (csrc / "pass_stages.cuh").read_text()
+        patches = (PASS_PATCHES_PULL if _P_EXCHANGE in text
+                   else PASS_PATCHES_PUSH) + PASS_PATCHES
+    else:
+        patches = _patches(csrc)
     done = []
     for name, anchor, new in patches:
         path = csrc / name
@@ -337,7 +451,103 @@ print(json.dumps({{"ms": out, "spills": len(report)}}))
 """
 
 
+_PASS_RUN = """
+import json, sys
+sys.path.insert(0, {copy!r})
+import torch
+from qtesla_tpu_torch.utils import build
+assert build.__file__.startswith({copy!r}), build.__file__
+build.NVCC_FLAGS = build.NVCC_FLAGS + ("-DQT_ABL={level}",)
+from qtesla_tpu_torch.ops import ntt_fused as F
+from qtesla_tpu_torch.ops import ntt_pairings as P
+from qtesla_tpu_torch.ops import passes as Ps
+from qtesla_tpu_torch.ops.tables import get_tables
+from qtesla_tpu_torch.params import register_param_set
+from qtesla_tpu_torch.utils.timing import time_cuda
+gen = torch.Generator(device="cuda")
+out = {{}}
+for logn, q, B, kinds in {rings!r}:
+    n = 1 << logn
+    name = f"abl-n{{n}}"
+    register_param_set(name, n, q)
+    tbl = get_tables(name)
+    gen.manual_seed(n)
+    x, y = (torch.randint(0, q, (B, n), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint32)
+            for _ in range(2))
+    spec = x[0].clone()
+    for kind in kinds:
+        plan = Ps.kernel_plan(n, kind)
+        fn = {{"B1": lambda: F.polymul_fused(x, y, tbl, plan=plan),
+              "B4": lambda: F.polymul_fixed_fused(x, spec, tbl, plan=plan),
+              "B2": lambda: F.ntt_fused(x, tbl, plan=plan),
+              "B3": lambda: F.intt_fused(x, tbl, plan=plan)}}.get(
+            kind, lambda: P.polymul_pairing(x, y, tbl, kind, plan=plan))
+        out[f"{{kind}} 2^{{logn}} C{{plan.cluster}}"] = time_cuda(
+            fn, warmup=3, repeats=20).samples_ms
+    del x, y, spec
+    torch.cuda.empty_cache()
+lib = build.load_library()
+print(json.dumps({{"ms": out, "log": lib.log}}))
+"""
+
+
+def _ptxas(log: str) -> list[str]:
+    """One line a pass kernel of nvcc's ``-Xptxas -v`` log: the mangled
+    entry, its registers and spills."""
+    lines, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("pass_kernel" in entry) and (
+                "spill" in line or "Used" in line):
+            lines.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def main_passes(tree: Path) -> int:
+    """The ``--passes`` run: every level of ``PASS_LEVELS`` in a process of
+    its own, then each kernel's phases."""
+    copy = Path("build/ablation").resolve() / (tree.name + "-passes")
+    if copy.exists():
+        shutil.rmtree(copy)
+    shutil.copytree(tree / "qtesla_tpu_torch", copy / "qtesla_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    patched = patch_sources(copy / "qtesla_tpu_torch" / "csrc", passes=True)
+    print(f"patched {patched} under {copy}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    medians = {}
+    for level in PASS_LEVELS:
+        proc = subprocess.run(
+            [sys.executable, "-c", _PASS_RUN.format(
+                copy=str(copy), level=level, rings=PASS_RINGS)],
+            cwd=copy, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"level {level} failed:\n{proc.stderr}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        medians[level] = {k: statistics.median(v)
+                          for k, v in res["ms"].items()}
+        print(f"level {level}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in medians[level].items()) +
+            f" ms [{smi}]", flush=True)
+        if level == PASS_LEVELS[-1]:
+            for line in _ptxas(res["log"]):
+                print(f"ptxas {line}")
+    for name in medians[PASS_LEVELS[0]]:
+        steps = [medians[lv][name] for lv in PASS_LEVELS]
+        adds = [steps[0]] + [b - a for a, b in zip(steps, steps[1:])]
+        print(f"{name}: load/store {adds[0]:.4f}, butterflies "
+              f"{adds[1]:+.4f}, twiddle reads {adds[2]:+.4f}, exchanges in "
+              f"a block {adds[3]:+.4f}, crossing exchanges {adds[4]:+.4f}; "
+              f"whole {steps[-1]:.4f} ms [{smi}]")
+    return 0
+
+
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--passes"] and len(argv) == 2:
+        return main_passes(Path(argv[1]).resolve())
     sp = 4
     if argv[:1] == ["--sp"] and len(argv) > 1:
         sp, argv = int(argv[1]), argv[2:]

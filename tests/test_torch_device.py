@@ -506,27 +506,32 @@ def test_build_flags_target_hopper():
         assert k.replaces.startswith("qtesla_tpu/parallel/sharded_mxu.py:")
         assert build.LAUNCHERS[k.symbol] == build.LAUNCHERS["qt_sp_seg1"]
     # the C structs and the ctypes ones name the same fields in one order;
-    # SpCompactPlan is SpPlan (its base in C) and what follows, and
-    # MxuStreamPlan MxuPlan and what follows
+    # SpCompactPlan is SpPlan (its base in C) and what follows,
+    # MxuStreamPlan MxuPlan and what follows, and the launchers' pass plan
+    # (PassPlan in ctypes, PlanArg in C) the block kernels' PassPlan and
+    # what follows
     src["compact"] = (build.CSRC_DIR / "mxu_compact.cuh").read_text()
     src["seg2"] = (build.CSRC_DIR / "seg2_compact.cuh").read_text()
     src["passes"] = (build.CSRC_DIR / "pass_stages.cuh").read_text()
-    for mod, struct, head, skip in (
-            ("passes", PassPlan, "struct PassPlan {", 0),
-            (M, M.MxuPlan, "struct MxuPlan {", 0),
-            (M, M.MxuStreamPlan, "struct MxuStreamPlan : MxuPlan {",
-             len(M.MxuPlan._fields_)),
-            (S, S.SpPlan, "struct SpPlan {", 0),
-            ("seg2", S.SpClassPlan, "struct SpClassPlan {", 0),
-            ("compact", S.CompactDims, "struct CompactDims {", 0),
-            (S, S.SpCompactPlan, "struct SpCompactPlan : SpPlan {",
-             len(S.SpPlan._fields_))):
-        body = src[mod].split(head)[1].split("};")[0]
+    for mod, struct, heads in (
+            ("passes", PassPlan, ("struct PassPlan {",
+                                  "struct PlanArg : PassPlan {")),
+            (M, M.MxuPlan, ("struct MxuPlan {",)),
+            (M, M.MxuStreamPlan, ("struct MxuPlan {",
+                                  "struct MxuStreamPlan : MxuPlan {")),
+            (S, S.SpPlan, ("struct SpPlan {",)),
+            ("seg2", S.SpClassPlan, ("struct SpClassPlan {",)),
+            ("compact", S.CompactDims, ("struct CompactDims {",)),
+            (S, S.SpCompactPlan, ("struct SpPlan {",
+                                  "struct SpCompactPlan : SpPlan {"))):
         c_fields = []
-        for decl in filter(None, (d.strip() for d in body.split(";"))):
-            names = decl.split(None, 1)[1]
-            c_fields += [f.strip().split("[")[0] for f in names.split(",")]
-        assert c_fields == [f for f, _ in struct._fields_][skip:]
+        for head in heads:
+            body = src[mod].split(head)[1].split("};")[0]
+            for decl in filter(None, (d.strip() for d in body.split(";"))):
+                names = decl.split(None, 1)[1]
+                c_fields += [f.strip().split("[")[0]
+                             for f in names.split(",")]
+        assert c_fields == [f for f, _ in struct._fields_]
 
 
 def test_header_edit_changes_digest(tmp_path):
@@ -1478,13 +1483,14 @@ _CLUSTER_LENGTHS = [(32768, 786433), (32768, 1073479681), (65536, 786433),
 @pytest.mark.parametrize("n,q", _CLUSTER_LENGTHS)
 def test_pass_kernels_in_a_cluster_on_card(cuda_device, n, q):
     """B1, B4, B2, B3 and the five pairings where a row spans a cluster of
-    blocks, against their plain versions on 64 rows (3 at 262144, where
-    only B2 and B3 have a plan), rows of q - 1 (B3: 2q - 1); one launch a
-    call."""
+    blocks, against their plain versions on the first 1, 3, 64 and 300 rows
+    (B2 and B3 alone at 262144, where only they have a plan), rows of q - 1
+    (B3: 2q - 1); one launch a call."""
     name = f"cluster-n{n}-q{q}"
     register_param_set(name, n, q)
     tbl = get_tables(name)
-    rows = 3 if n > 131072 else 64
+    rows = 300
+    batches = (1, 3, 64, rows)
     rng = np.random.default_rng(n + q)
     xy = rng.integers(0, q, (2, rows, n), dtype=np.uint32)
     xy[:, 0] = q - 1
@@ -1493,24 +1499,28 @@ def test_pass_kernels_in_a_cluster_on_card(cuda_device, n, q):
     x, y, lazy = (torch.from_numpy(v).to(cuda_device)
                   for v in (xy[0], xy[1], lazy))
 
-    def same(kname, got, want):
-        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
-                                      err_msg=f"{kname} n={n} q={q}")
+    def same(kname, fn, want):
+        for B in batches:
+            np.testing.assert_array_equal(
+                fn(B).cpu().numpy(), want[:B].cpu().numpy(),
+                err_msg=f"{kname} n={n} q={q} B={B}")
 
     before = {k: v.launches for k, v in {**F.KERNELS, **P.KERNELS}.items()}
-    same("B2", F.ntt_fused(x, tbl), F.ntt_plain(x, tbl))
-    same("B3", F.intt_fused(lazy, tbl), F.intt_plain(lazy, tbl))
-    calls = {"ntt_fused": 1, "intt_fused": 1}
+    same("B2", lambda B: F.ntt_fused(x[:B], tbl), F.ntt_plain(x, tbl))
+    same("B3", lambda B: F.intt_fused(lazy[:B], tbl), F.intt_plain(lazy, tbl))
+    calls = {"ntt_fused": len(batches), "intt_fused": len(batches)}
     if n <= 131072:
         ref = F.polymul_plain(x, y, tbl)
-        same("B1", F.polymul_fused(x, y, tbl), ref)
+        same("B1", lambda B: F.polymul_fused(x[:B], y[:B], tbl), ref)
         spec = F.ntt_plain(y[:1], tbl)
-        same("B4", F.polymul_fixed_fused(x, spec, tbl),
+        same("B4", lambda B: F.polymul_fixed_fused(x[:B], spec, tbl),
              F.polymul_fixed_plain(x, spec, tbl))
         for p in P.PAIRINGS:
-            same(p, P.polymul_pairing(x, y, tbl, p), ref)
-        calls |= {"polymul_fused": 1, "polymul_fixed_fused": 1,
-                  **{f"polymul_pairing_{p}": 1 for p in P.PAIRINGS}}
+            same(p, lambda B: P.polymul_pairing(x[:B], y[:B], tbl, p), ref)
+        calls |= {"polymul_fused": len(batches),
+                  "polymul_fixed_fused": len(batches),
+                  **{f"polymul_pairing_{p}": len(batches)
+                     for p in P.PAIRINGS}}
     torch.cuda.synchronize()
     after = {k: v.launches for k, v in {**F.KERNELS, **P.KERNELS}.items()}
     assert {k: after[k] - before[k] for k in after
@@ -1522,8 +1532,12 @@ def test_cluster_launchers_refuse_plans_they_cannot_run(cuda_device):
     """A cluster plan's launcher returns cudaErrorInvalidValue, and the
     wrapper raises, for a cross mask other than the exchanges' own, a
     cluster that is not a power of two up to 8 or does not hold the row
-    in blocks of the kernel's threads, two rows a cluster, or too little
-    shared memory a block; nothing is launched or counted."""
+    in blocks of the kernel's threads, two rows a cluster, too little
+    shared memory a block, maps for B1 or B4 (whose kernels take none),
+    maps or layout bits past the kernel's exchanges, two maps on one
+    exchange, maps with the cross mask of other maps, a pull of an exchange
+    that stays in its block, and a block plan with maps or layout bits;
+    nothing is launched or counted."""
     n, q = 32768, 786433
     name = f"cluster-n{n}-q{q}"
     register_param_set(name, n, q)
@@ -1544,16 +1558,38 @@ def test_cluster_launchers_refuse_plans_they_cannot_run(cuda_device):
               P.pairing_pass_plan(n, "stockham"))]
     for kernel, table, plan in cases:
         assert plan.cluster == 2
+        stk = kernel.name.endswith("stockham")
+        # Stockham's maps with one flipped and its cross mask kept
+        assert not stk or (plan.refl, plan.cross) == (0b1100, 0b1001)
+        refl = ([{"refl": plan.refl ^ 2}, {"refl": plan.refl ^ 1},
+                 {"refl": plan.refl | 1 << 4}, {"swap": plan.refl}]
+                if stk else [{"refl": 1}, {"swap": 1}, {"refl": 1 << 4}])
+        # a pull that stays in its block, layout bits past the exchanges
+        refl += [{"pull": 2}, {"low": 1 << 4}]
         for fields in ({"cross": plan.cross ^ 2}, {"cross": 0},
                        {"cluster": 3}, {"cluster": 4}, {"cluster": 16},
                        {"cluster": 1}, {"rows": 2},
-                       {"row_stride": plan.row_stride // 2}):
+                       {"row_stride": plan.row_stride // 2}, *refl):
             before = kernel.launches
             with pytest.raises(RuntimeError, match="launch failed"):
                 F._launch(kernel, tbl, table, x,
                           x if kernel.name != "polymul_fixed_fused"
                           else x[0], changed(plan, **fields))
             assert kernel.launches == before
+    # a block plan takes no reflected map
+    tbl1 = get_tables("qtesla-iii-speed")
+    x1 = torch.zeros((3, tbl1.n), dtype=torch.uint32, device=cuda_device)
+    ptw1 = P.pairing_twiddles(tbl1, cuda_device)
+    small = P.pairing_pass_plan(tbl1.n, "gs_gs")
+    kernel = P.KERNELS["polymul_pairing_gs_gs"]
+    before = kernel.launches
+    for fields in ({"refl": 1}, {"refl": 1, "cross": 1}, {"swap": 1},
+                   {"pull": 1}, {"low": 1}):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            F._launch(kernel, tbl1, ptw1, x1, x1, changed(small, **fields))
+    assert kernel.launches == before
+    F._launch(kernel, tbl1, ptw1, x1, x1, small)
+    assert kernel.launches == before + 1
     torch.cuda.synchronize()
 
 

@@ -104,10 +104,15 @@ def _plan(kind, n):
             "B2": F.ntt_pass_plan, "B3": F.intt_pass_plan}[kind](n)
 
 
-def _exchanges(plan, n, kind):
+def _exchanges(plan, n, kind, final=False):
     """The kernel's exchanges in order: ((b, vt), (b2, vt2)) with vt the
     virtual thread of each thread t, from the load's window [tb, L) of t
-    through the bit-reversal renamings and Stockham's thread map."""
+    through the bit-reversal renamings; after exchange e a cluster's thread
+    t holds t, or its reflected or swapped map where the plan says so
+    (``passes.map_thread``), a block's thread under Stockham's autosort
+    map.  ``final``: also the
+    (b, vt) the store reads, after a DIF or Stockham inverse's bit
+    reversal."""
     fwd_up, inv_up, stk, _ = KINDS[kind]
     L = n.bit_length() - 1
     tb = L - (plan.radix.bit_length() - 1)
@@ -116,7 +121,13 @@ def _exchanges(plan, n, kind):
 
     def to(b2, hi=None):
         nonlocal b, vt
-        vt2 = TPs.stockham_thread(t, L - hi, tb) if stk else t
+        if plan.cluster > 1:
+            e = len(out)
+            m = (TPs.REFL if plan.refl >> e & 1 else
+                 TPs.SWAP if plan.swap >> e & 1 else TPs.OWN)
+            vt2 = TPs.map_thread(t, m, tb, plan.cluster.bit_length() - 1)
+        else:
+            vt2 = TPs.stockham_thread(t, L - hi, tb) if stk else t
         out.append(((b, vt), (b2, vt2)))
         b, vt = b2, vt2
 
@@ -134,7 +145,9 @@ def _exchanges(plan, n, kind):
     if inv_up is not None:
         for p in range(1, plan.passes):
             to(plan.inv_b[p], plan.inv_hi[p])
-    return out
+        if inv_up is False:
+            b, vt = tb - b, TPs.brev(vt, tb)
+    return (out, (b, vt)) if final else out
 
 
 def _launcher_accepts(plan, n, kind):
@@ -159,10 +172,12 @@ def _launcher_accepts(plan, n, kind):
 def test_cluster_plans_meet_the_launchers_checks(kind):
     """Every plan from n = 2 to the kernel's largest meets the launcher's
     checks; a cluster exactly where one block of ``most`` threads cannot
-    hold the row; the plan's cross mask marks exactly the exchanges whose
-    indices leave the block of the thread that stores or loads them
-    (the block of thread t is t >> (tb - c), that of index i is i >> (L -
-    c)); a block plan keeps cluster 1 and mask 0."""
+    hold the row; the plan's cross mask marks exactly the exchanges that
+    send a value from the block of the thread that holds it to the block
+    of the thread that reads it next (the block of thread t is t >> (tb -
+    c)); the reflected and swapped maps are the pairings' alone, never
+    both on one exchange; a pulled exchange crosses; a block plan keeps
+    cluster 1 and no mask, map or layout bit."""
     fwd_up, inv_up, _, _ = KINDS[kind]
     one = fwd_up is None or inv_up is None
     top = 18 if one else 17
@@ -173,17 +188,23 @@ def test_cluster_plans_meet_the_launchers_checks(kind):
         clustered = n >= (65536 if one else 32768)
         assert (plan.cluster > 1) == clustered, (kind, n)
         if not clustered:
-            assert plan.cross == 0
+            assert (plan.cross, plan.refl, plan.swap, plan.pull,
+                    plan.low) == (0, 0, 0, 0, 0)
             continue
+        if kind not in P.PAIRINGS:
+            assert plan.refl == plan.swap == 0
+        assert plan.refl & plan.swap == 0 and plan.pull & ~plan.cross == 0
         c = plan.cluster.bit_length() - 1
         tb = L - (plan.radix.bit_length() - 1)
         block = torch.arange(plan.threads)[:, None] >> (tb - c)
         mdl = TPs.PassModel(plan, n, 3, 1)
-        for e, sides in enumerate(_exchanges(plan, n, kind)):
-            local = all(bool(((mdl.window(vt, b) >> (L - c)) == block).all())
-                        for b, vt in sides)
+        for e, ((b, vt), (b2, vt2)) in enumerate(_exchanges(plan, n, kind)):
+            reader = torch.empty(n, dtype=torch.int64)
+            reader[mdl.window(vt2, b2)] = block.expand(-1, plan.radix)
+            local = bool((reader[mdl.window(vt, b)] == block).all())
             assert bool(plan.cross >> e & 1) != local, (kind, n, e)
-        assert plan.cross >> len(_exchanges(plan, n, kind)) == 0
+        for mask in (plan.cross, plan.refl, plan.swap, plan.pull, plan.low):
+            assert mask >> len(_exchanges(plan, n, kind)) == 0
     assert "a cluster of" in TPs.describe_pass_plan(
         _plan(kind, 1 << top))
 
@@ -209,6 +230,81 @@ def test_cluster_plans_refuse_past_their_limit(kind):
         assert isinstance(TPs.kernel_plan(1 << L, kind), TPs.SweepPlan)
     with pytest.raises(ValueError, match=r"the sweep form takes n <= 2\^25"):
         TPs.kernel_plan(1 << 26, kind)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_cluster_plans_cross_twice_and_store_in_order(kind):
+    """In every cluster plan two exchanges cross blocks, the fewest a row
+    split over blocks can take (a transform's windows cover every index
+    bit, so its block bits move once), and the store reads the window
+    [tb, L) under thread t's own virtual thread: neighbouring threads
+    store neighbouring values (a DIF or Stockham inverse, whose last bit
+    reversal used to leave thread t on brev(t), included)."""
+    fwd_up, inv_up, _, _ = KINDS[kind]
+    one = fwd_up is None or inv_up is None
+    for n in ((65536, 131072, 262144) if one else (32768, 65536, 131072)):
+        plan = _plan(kind, n)
+        L = n.bit_length() - 1
+        tb = L - (plan.radix.bit_length() - 1)
+        assert bin(plan.cross).count("1") == 2, (kind, n)
+        _, (b, vt) = _exchanges(plan, n, kind, final=True)
+        assert b == tb and bool((vt == torch.arange(plan.threads)).all())
+
+
+def _forced_cluster(n, C, fwd_up, inv_up, stockham, ops):
+    """``pass_plan``'s plan at n with its row forced over a cluster of C
+    blocks (the kernels' smallest is n = 32768): one row a cluster, a
+    block's shared memory for its n / C values, the maps, cross mask and
+    layouts the planner gives a cluster."""
+    plan = TPs.PassPlan.from_buffer_copy(
+        TPs.pass_plan(n, fwd_up, inv_up, stockham, ops))
+    m = n // C
+    plan.cluster, plan.rows = C, 1
+    plan.row_stride = -(-ops * (m + m // 32) // 32) * 32
+    L = n.bit_length() - 1
+    if fwd_up is not None and inv_up is not None and ops == 2:
+        plan.refl, plan.swap = TPs.thread_maps(plan, L, fwd_up, inv_up)
+    plan.cross = TPs.cross_mask(plan, L, fwd_up, inv_up)
+    plan.pull, plan.low = TPs.exchange_layouts(plan, L, fwd_up, inv_up)
+    return plan
+
+
+@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_pass_model_across_a_forced_cluster(kind, C):
+    """The pass twins under a plan forced over a cluster of 2 and 4 blocks
+    at qtesla-p-iii (n = 2048, three passes a transform, 32 or 16 threads
+    a block): ``PassModel`` sends each value to the block of its reader,
+    asserts that the exchanges the cross mask keeps in a block send none
+    away, and the products and transforms equal the plain pipelines bit
+    for bit, on 3 rows with one of q - 1 (B3: 2q - 1)."""
+    tbl = get_tables("qtesla-p-iii")
+    n, q = tbl.n, tbl.q
+    fwd_up, inv_up, stk, ops = KINDS[kind]
+    plan = _forced_cluster(n, C, fwd_up, inv_up, stk, ops)
+    assert plan.passes == 3 and plan.cross
+    rng = np.random.default_rng(C)
+    x, y = (torch.from_numpy(v) for v in rng.integers(
+        0, q, (2, 3, n), dtype=np.uint32))
+    x[0], y[0] = q - 1, q - 1
+    lazy = torch.from_numpy(rng.integers(0, 2 * q, (3, n), dtype=np.uint32))
+    lazy[0] = 2 * q - 1
+    if kind == "B1":
+        got = F.polymul_fused_passes_plain(x, y, tbl, plan)
+        want = F.polymul_plain(x, y, tbl)
+    elif kind == "B4":
+        spec = F.ntt_plain(y[:1], tbl)
+        got = F.polymul_fixed_fused_passes_plain(x, spec, tbl, plan)
+        want = F.polymul_fixed_plain(x, spec, tbl)
+    elif kind == "B2":
+        got, want = F.ntt_passes_plain(x, tbl, plan), F.ntt_plain(x, tbl)
+    elif kind == "B3":
+        got = F.intt_passes_plain(lazy, tbl, plan)
+        want = F.intt_plain(lazy, tbl)
+    else:
+        got = P.polymul_pairing_passes_plain(x, y, tbl, kind, plan)
+        want = P.polymul_pairing_plain(x, y, tbl, kind)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 # ----------------------------------------------------------------------
